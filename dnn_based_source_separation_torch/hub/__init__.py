@@ -1,0 +1,5 @@
+"""Weight conversion between the JAX package and the port."""
+
+from .from_jax import conv_tasnet_state_dict_from_jax
+
+__all__ = ["conv_tasnet_state_dict_from_jax"]

@@ -1,8 +1,8 @@
-"""Shared building blocks: PReLU, 1x1 convolution, nonlinearity factory.
+"""Shared building blocks: PReLU, 1x1 convolution, dense layer, nonlinearity factory.
 
 Port of `dnn_based_source_separation_tpu/models/modules.py` (PReLU,
-choose_nonlinear). GLU/GTU and the RNN factories come with the models
-that use them.
+choose_nonlinear). GLU/GTU come with the models that use them; the RNN
+factory is `ops/rnn.py:choose_rnn`.
 """
 from __future__ import annotations
 
@@ -40,6 +40,19 @@ class Pointwise(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, self.weight.squeeze(-1), self.bias)
+
+
+class Linear(nn.Module):
+    """Dense layer with torch `nn.Linear` parameters: weight (out, in), bias (out,)."""
+
+    def __init__(self, in_features: int, out_features: int, *, generator=None, device=None):
+        super().__init__()
+        self.weight = uniform_parameter((out_features, in_features), in_features,
+                                        generator, device)
+        self.bias = uniform_parameter((out_features,), in_features, generator, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight, self.bias)
 
 
 def choose_nonlinear(name: str | None, **kwargs) -> Callable[[torch.Tensor], torch.Tensor]:

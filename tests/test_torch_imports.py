@@ -25,6 +25,7 @@ def _modules():
 def test_importing_every_port_module_leaves_jax_out():
     modules = _modules()
     assert "dnn_based_source_separation_torch.ops.mask_decode" in modules
+    assert "dnn_based_source_separation_torch.ops.lstm_scan" in modules
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "import chip_smoke\n"

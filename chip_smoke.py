@@ -4,8 +4,8 @@
 
 Phases (any failure exits non-zero; nothing is caught and passed):
   1. device: require CUDA, print the card's name and power limit, turn TF32 off;
-  2. build: compile csrc/mask_decode.cu and csrc/lstm_scan.cu with nvcc for
-     sm_90a, both at once;
+  2. build: compile csrc/mask_decode.cu, csrc/lstm_scan.cu and csrc/gru_scan.cu
+     with nvcc for sm_90a, all at once;
   3. kernel vs plain: fused_mask_decode against its plain PyTorch version on
      the card, f32 and bf16, at the Conv-TasNet serving shape, the DPRNN-TasNet
      decoder shape and three others, timed with CUDA events at the two
@@ -13,16 +13,25 @@ Phases (any failure exits non-zero; nothing is caught and passed):
   3b. lstm_scan_bidir and lstm_scan against their plain versions, f32 and
      bf16, at the intra- and inter-chunk serving shapes (timed), an odd small
      shape, T=1, and H=256 and 512;
+  3c. gru_scan_bidir and gru_scan the same way;
   4. serve: paper-config Conv-TasNet (random weights from seed 0) through
      cli/separate.py on three mixtures in float32 and bfloat16, counting the
      kernel's launches;
   4b. serve: recipe-config DPRNN-TasNet, non-causal and causal (random weights
      from seed 0), the same way; each request must launch the LSTM kernels and
      the decode kernel;
+  4c. serve: the same with rnn_type='gru'; each request must launch the GRU
+     kernels and the decode kernel, and no LSTM kernel;
+  4d. stream: the stream-safe causal DPRNN-TasNet, LSTM and GRU, through
+     cli/separate.py --streaming_hop 0.05; each request must launch exactly
+     what its separator calls imply, and the f32 streamed output must match
+     the offline stream-safe forward on the card;
   5. card vs CPU: the f32 card output against the CPU (plain) output, and the
-     bf16 card output against the f32 card output, for every served model;
+     bf16 card output against the f32 card output, for every served model,
+     streamed ones included;
   6. throughput (informational): B=8 x 4 s bf16 forward, and CLI latency,
-     for each served model.
+     for each offline model; ms per 0.05 s hop, its real-time factor and the
+     CLI latency for the streamed ones.
 
 Each serving path runs with every launch count set to 0 just before it and
 read just after it. The last line is {"ok": true, "device": {...}}; the line
@@ -45,7 +54,9 @@ from dnn_based_source_separation_torch.cli import separate as cli
 from dnn_based_source_separation_torch.models import ConvTasNet, DPRNNTasNet
 from dnn_based_source_separation_torch.models.base import load_model, save_model
 from dnn_based_source_separation_torch.models.fold import fold_gln_affine
+from dnn_based_source_separation_torch.models.streaming import ExactStreamingSeparator
 from dnn_based_source_separation_torch.ops import _build
+from dnn_based_source_separation_torch.ops import gru_scan as gs
 from dnn_based_source_separation_torch.ops import lstm_scan as ls
 from dnn_based_source_separation_torch.ops import mask_decode as md
 from dnn_based_source_separation_tpu.data.audio_io import read_wav, write_wav
@@ -88,6 +99,8 @@ LSTM_SHAPES = [
 # and a rounding that lands the other way feeds every later step.
 LSTM_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 SNR_LIMIT_DB = 25.0
+STREAMING_HOP = 0.05  # seconds: 400 samples at 8 kHz
+STREAM_TOL = 1e-4  # streamed vs offline f32, relative to max|offline|
 
 
 def log(msg: str) -> None:
@@ -177,19 +190,29 @@ def lstm_inputs(B, T, H, dtype, seed):
     return [t.to(dtype) for t in (*xw, *w)]
 
 
-def phase_lstm():
-    log("== phase 3b: lstm_scan_bidir and lstm_scan vs plain on the card")
+def gru_inputs(B, T, H, dtype, seed):
+    """Two chains' input projections ~ N(0, 0.25), recurrent weights ~ U(+-1/sqrt(H)) and
+    b_hh ~ N(0, 0.01), made on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    xw = [0.5 * torch.randn(B, T, 3 * H, device="cuda", generator=gen) for _ in range(2)]
+    w = [(2 * torch.rand(H, 3 * H, device="cuda", generator=gen) - 1) * H ** -0.5
+         for _ in range(2)]
+    b = [0.1 * torch.randn(3 * H, device="cuda", generator=gen) for _ in range(2)]
+    return [t.to(dtype) for t in (*xw, *w, *b)]
+
+
+def phase_scan(title, make_inputs, runs):
+    """Recurrence kernels against their plain versions at LSTM_SHAPES, f32 and bf16.
+
+    runs(*inputs) -> {kernel name: (kernel call, plain call)}, each call returning a
+    tuple of hs; the intra and inter serving shapes are timed.
+    """
+    log(title)
     result = {}
     for name, B, T, H in LSTM_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
-            xw_f, xw_b, w_f, w_b = lstm_inputs(B, T, H, dtype, seed=B + T + H)
-            runs = {
-                "lstm_scan_bidir": (lambda: ls.lstm_scan_bidir(xw_f, xw_b, w_f, w_b),
-                                    lambda: ls.lstm_scan_bidir_reference(xw_f, xw_b, w_f, w_b)),
-                "lstm_scan": (lambda: (ls.lstm_scan(xw_f, w_f),),
-                              lambda: (ls.lstm_scan_reference(xw_f, w_f),)),
-            }
-            for kname, (kernel, plain) in runs.items():
+            inputs = make_inputs(B, T, H, dtype, seed=B + T + H)
+            for kname, (kernel, plain) in runs(*inputs).items():
                 got, ref = kernel(), plain()
                 torch.cuda.synchronize()
                 for a, b in zip(got, ref):
@@ -211,14 +234,68 @@ def phase_lstm():
     return result
 
 
+def phase_lstm():
+    return phase_scan(
+        "== phase 3b: lstm_scan_bidir and lstm_scan vs plain on the card", lstm_inputs,
+        lambda xw_f, xw_b, w_f, w_b: {
+            "lstm_scan_bidir": (lambda: ls.lstm_scan_bidir(xw_f, xw_b, w_f, w_b),
+                                lambda: ls.lstm_scan_bidir_reference(xw_f, xw_b, w_f, w_b)),
+            "lstm_scan": (lambda: (ls.lstm_scan(xw_f, w_f),),
+                          lambda: (ls.lstm_scan_reference(xw_f, w_f),)),
+        })
+
+
+def phase_gru():
+    return phase_scan(
+        "== phase 3c: gru_scan_bidir and gru_scan vs plain on the card", gru_inputs,
+        lambda xw_f, xw_b, w_f, w_b, b_f, b_b: {
+            "gru_scan_bidir": (
+                lambda: gs.gru_scan_bidir(xw_f, xw_b, w_f, w_b, b_f, b_b),
+                lambda: gs.gru_scan_bidir_reference(xw_f, xw_b, w_f, w_b, b_f, b_b)),
+            "gru_scan": (lambda: (gs.gru_scan(xw_f, w_f, b_f),),
+                         lambda: (gs.gru_scan_reference(xw_f, w_f, b_f),)),
+        })
+
+
 def counts() -> dict:
-    return {"fused_mask_decode": md.LAUNCHES, **ls.LAUNCHES}
+    return {"fused_mask_decode": md.LAUNCHES, **ls.LAUNCHES, **gs.LAUNCHES}
 
 
 def reset_counts() -> None:
     md.LAUNCHES = 0
-    for name in ls.LAUNCHES:
-        ls.LAUNCHES[name] = 0
+    for table in (ls.LAUNCHES, gs.LAUNCHES):
+        for name in table:
+            table[name] = 0
+
+
+def expected(**per_request) -> dict:
+    """Expected launches of one request: the kernels named, and none of the others."""
+    return {name: per_request.get(name, 0) for name in counts()}
+
+
+def stream_launches(n_samples, bidir, blocks=DPRNN["sep_num_blocks"], L=DPRNN["kernel_size"],
+                    S=DPRNN["stride"], P=DPRNN["sep_hop_size"]):
+    """Launches of one --streaming_hop request, counted from its separator calls.
+
+    The CLI pads to the stride grid, feeds whole hops, then finish(rest).
+    Each call that runs the dual-path stack launches one bidirectional
+    kernel per block (the intra-chunk RNN; the carried inter-chunk RNN is a
+    plain step loop), and every separator call decodes once.
+    """
+    hop = max(max(int(STREAMING_HOP * SAMPLE_RATE) // S, 1) * S, L)
+    total = n_samples + (S - (n_samples - L) % S) % S
+    stack = decode = pending = 0
+    for _ in range(total // hop):  # process(): whole hops, always >= one latent hop
+        frames = (pending + hop - L) // S + 1
+        stack, decode = stack + 1, decode + 1
+        pending = pending + hop - frames // P * P * S
+    buf = pending + total % hop  # finish(): the whole latent hops left, then the rest
+    frames = (buf - L) // S + 1 if buf >= L else 0
+    if frames >= P:
+        stack, decode = stack + 1, decode + 1
+    stack += frames % P > 0  # the final call runs the stack on a partial hop only
+    decode += 1
+    return expected(fused_mask_decode=decode, **{bidir: blocks * stack})
 
 
 def make_checkpoint(path, model):
@@ -243,11 +320,12 @@ def write_mixtures(tmp):
     return wavs
 
 
-def serve(tag, ckpt, wavs, per_request):
+def serve(tag, ckpt, wavs, per_request, flags=()):
     """Six requests (three mixtures x f32/bf16) through cli/separate.py.
 
     Every launch count is set to 0 first; each request must add exactly
-    `per_request` launches. Returns the outputs and the path's counts.
+    `per_request` launches (a dict, or a function of the request's number of
+    samples). Returns the outputs and the path's counts.
     """
     tmp = os.path.dirname(ckpt)
     outputs = {}
@@ -257,9 +335,10 @@ def serve(tag, ckpt, wavs, per_request):
             before = counts()
             out_dir = os.path.join(tmp, f"out_{tag}_{dtype}_{os.path.basename(wav)[:-4]}")
             est = cli.main(["--model_path", ckpt, "--input", wav, "--out_dir", out_dir,
-                            "--device", "cuda", "--dtype", dtype])
+                            "--device", "cuda", "--dtype", dtype, *flags])
             grew = {k: v - before[k] for k, v in counts().items()}
             n_in = read_wav(wav)[0].shape[0]
+            want = per_request(n_in) if callable(per_request) else per_request
             files = sorted(os.listdir(out_dir))
             check(files == ["source0.wav", "source1.wav"], files)
             for f in files:
@@ -267,8 +346,7 @@ def serve(tag, ckpt, wavs, per_request):
                 check(sr == SAMPLE_RATE and sig.shape == (n_in,) and np.isfinite(sig).all(),
                       (f, sig.shape, n_in))
             check(est.shape == (2, n_in) and np.isfinite(est).all(), est.shape)
-            check(grew == per_request,
-                  f"request {wav} ({dtype}) launched {grew}, expected {per_request}")
+            check(grew == want, f"request {wav} ({dtype}) launched {grew}, expected {want}")
             log(f"  {dtype} {os.path.basename(wav)}: 2 sources x {n_in} samples, "
                 f"kernel launches {grew}")
             outputs[(dtype, wav)] = est
@@ -277,11 +355,12 @@ def serve(tag, ckpt, wavs, per_request):
     return outputs, launches
 
 
-def phase_parity(tag, ckpt, wavs, outputs):
+def phase_parity(tag, ckpt, wavs, outputs, flags=()):
     log(f"== phase 5: card vs CPU, bf16 vs f32 ({tag})")
     wav = wavs[0]
     ref = cli.main(["--model_path", ckpt, "--input", wav, "--out_dir",
-                    os.path.join(os.path.dirname(ckpt), f"out_{tag}_cpu"), "--device", "cpu"])
+                    os.path.join(os.path.dirname(ckpt), f"out_{tag}_cpu"), "--device", "cpu",
+                    *flags])
     card = outputs[("float32", wav)]
     err = float(np.abs(card - ref).max())
     scale = float(np.abs(ref).max())
@@ -299,13 +378,14 @@ def phase_parity(tag, ckpt, wavs, outputs):
     return err
 
 
-def cli_latency(ckpt, wav, what, card):
+def cli_latency(ckpt, wav, what, card, flags=()):
     tmp = os.path.dirname(ckpt)
     lat = []
     for _ in range(3):
         start = time.perf_counter()
         cli.main(["--model_path", ckpt, "--input", wav, "--out_dir",
-                  os.path.join(tmp, "out_latency"), "--device", "cuda", "--dtype", "bfloat16"])
+                  os.path.join(tmp, "out_latency"), "--device", "cuda", "--dtype", "bfloat16",
+                  *flags])
         lat.append(time.perf_counter() - start)
     log(f"  CLI request latency, 4 s mixture, bf16 ({what}): "
         f"median {np.median(lat) * 1e3:.1f} ms of {[round(v * 1e3, 1) for v in lat]} [{card}]")
@@ -338,6 +418,51 @@ def phase_throughput_dprnn(tag, ckpt, wavs, card):
     cli_latency(ckpt, wavs[-1], "load + forward + write", card)
 
 
+def phase_stream_offline(tag, ckpt, wavs, outputs):
+    """The f32 streamed output against the offline stream-safe forward, both on the card."""
+    log(f"== phase 4d: streamed vs offline on the card ({tag})")
+    for wav in wavs:
+        ref = cli.main(["--model_path", ckpt, "--input", wav, "--out_dir",
+                        os.path.join(os.path.dirname(ckpt), f"out_{tag}_offline"),
+                        "--device", "cuda"])
+        got = outputs[("float32", wav)]
+        err = float(np.abs(got - ref).max())
+        scale = float(np.abs(ref).max())
+        log(f"  {os.path.basename(wav)}: max|streamed - offline| {err:.3e}, max|offline| "
+            f"{scale:.3e}, limit {STREAM_TOL * scale:.3e}")
+        if not err <= STREAM_TOL * scale:
+            raise AssertionError(f"streamed output disagrees with offline: {err} > "
+                                 f"{STREAM_TOL} x {scale}")
+
+
+def stream_hop_times(ckpt, wav, dtype, card):
+    """ms per hop of one 4 s stream, each hop ended by a synchronize, as a server would."""
+    model = load_model(ckpt, device="cuda").to(dtype)
+    x = read_wav(wav)[0].astype(np.float32)
+    hop = int(STREAMING_HOP * SAMPLE_RATE)
+    stream = ExactStreamingSeparator(model, hop_samples=hop)
+    for lo in range(0, 4 * hop, hop):  # warm-up: a short stream, then a fresh one
+        stream.process(x[lo:lo + hop])
+    stream.reset()
+    times = []
+    for lo in range(0, len(x) // hop * hop, hop):
+        start = time.perf_counter()
+        stream.process(x[lo:lo + hop]).cpu()
+        times.append((time.perf_counter() - start) * 1e3)
+    ms, p90 = float(np.median(times)), float(np.percentile(times, 90))
+    log(f"  {str(dtype)[6:]}: {len(times)} hops of {STREAMING_HOP * 1e3:g} ms audio: median "
+        f"{ms:.3f} ms, p90 {p90:.3f} ms, max {max(times):.3f} ms per hop, real-time factor "
+        f"{ms / (STREAMING_HOP * 1e3):.4f} [{card}]")
+
+
+def phase_throughput_stream(tag, ckpt, wavs, card):
+    log(f"== phase 6: streaming (informational), {tag}")
+    for dtype in (torch.bfloat16, torch.float32):
+        stream_hop_times(ckpt, wavs[-1], dtype, card)
+    cli_latency(ckpt, wavs[-1], "load + stream + write", card,
+                flags=["--streaming_hop", str(STREAMING_HOP)])
+
+
 def kernel_entry(name, source, replaces, launches, timing):
     return {"name": name, "route": "cuda", "source": f"dnn_based_source_separation_torch/{source}",
             "replaces": f"dnn_based_source_separation_tpu/{replaces}", "launches": launches,
@@ -360,48 +485,70 @@ def main() -> int:
 
     log("== phase 2: build")
     start = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, both at once
-        for build in [pool.submit(md.build), pool.submit(ls.build)]:
+    with ThreadPoolExecutor(3) as pool:  # one nvcc per source, all at once
+        for build in [pool.submit(md.build), pool.submit(ls.build), pool.submit(gs.build)]:
             build.result()
-    log(f"  mask_decode and lstm_scan built/loaded in {time.perf_counter() - start:.2f} s")
-    for name in ("mask_decode", "lstm_scan"):
+    log(f"  mask_decode, lstm_scan and gru_scan built/loaded in "
+        f"{time.perf_counter() - start:.2f} s")
+    for name in ("mask_decode", "lstm_scan", "gru_scan"):
         info = _build.BUILD_INFO[name]
         log(f"  {name} ({info['seconds']:.2f} s):")
         log("  " + info["log"].strip().replace("\n", "\n  "))
 
     timings = phase_kernel()
     lstm_timings = phase_lstm()
+    gru_timings = phase_gru()
+    blocks = DPRNN["sep_num_blocks"]
+    stream_flags = ["--streaming_hop", str(STREAMING_HOP)]
     with tempfile.TemporaryDirectory() as tmp:
         wavs = write_mixtures(tmp)
         log("== phase 4: serve paper-config Conv-TasNet through cli/separate.py")
         conv_ckpt = os.path.join(tmp, "conv_tasnet.pth")
         make_checkpoint(conv_ckpt, ConvTasNet(**PAPER, generator=torch.Generator().manual_seed(0),
                                               device="cuda"))
-        conv_out, launches = serve("conv_tasnet", conv_ckpt, wavs, dict(
-            fused_mask_decode=1, lstm_scan_bidir=0, lstm_scan=0))
-        dprnn = {}
-        for causal in (False, True):
-            tag = "dprnn_tasnet_causal" if causal else "dprnn_tasnet"
-            log(f"== phase 4b: serve recipe-config DPRNN-TasNet, causal={causal}, "
-                f"through cli/separate.py")
+        conv_out, total = serve("conv_tasnet", conv_ckpt, wavs, expected(fused_mask_decode=1))
+        dprnn, streamed = {}, {}
+        for rnn, phase in (("lstm", "4b"), ("gru", "4c")):
+            for causal in (False, True):
+                tag = f"dprnn_tasnet_{rnn}" + ("_causal" if causal else "")
+                log(f"== phase {phase}: serve recipe-config DPRNN-TasNet, rnn_type={rnn}, "
+                    f"causal={causal}, through cli/separate.py")
+                ckpt = os.path.join(tmp, f"{tag}.pth")
+                make_checkpoint(ckpt, DPRNNTasNet(**dict(DPRNN, rnn_type=rnn), causal=causal,
+                                                  device="cuda",
+                                                  generator=torch.Generator().manual_seed(0)))
+                # Intra-chunk: one bidirectional layer per block; inter-chunk: one
+                # more (non-causal) or one unidirectional layer (causal).
+                outputs, path = serve(tag, ckpt, wavs, expected(**{
+                    "fused_mask_decode": 1, f"{rnn}_scan_bidir": blocks * (2 - causal),
+                    f"{rnn}_scan": blocks * causal}))
+                dprnn[tag] = (ckpt, outputs)
+                total = {k: v + path[k] for k, v in total.items()}
+        for rnn in ("lstm", "gru"):
+            tag = f"dprnn_tasnet_{rnn}_stream"
+            log(f"== phase 4d: stream the stream-safe causal DPRNN-TasNet, rnn_type={rnn}, "
+                f"through cli/separate.py --streaming_hop {STREAMING_HOP}")
             ckpt = os.path.join(tmp, f"{tag}.pth")
-            make_checkpoint(ckpt, DPRNNTasNet(**DPRNN, causal=causal, device="cuda",
+            make_checkpoint(ckpt, DPRNNTasNet(**dict(DPRNN, rnn_type=rnn), causal=True,
+                                              stream_safe=True, device="cuda",
                                               generator=torch.Generator().manual_seed(0)))
-            blocks = DPRNN["sep_num_blocks"]
-            # Intra-chunk: one bidirectional layer per block; inter-chunk: one
-            # more (non-causal) or one unidirectional layer (causal).
-            outputs, path_launches = serve(tag, ckpt, wavs, dict(
-                fused_mask_decode=1, lstm_scan_bidir=blocks if causal else 2 * blocks,
-                lstm_scan=blocks if causal else 0))
-            dprnn[tag] = (ckpt, outputs)
-            launches = {k: v + path_launches[k] for k, v in launches.items()}
+            outputs, path = serve(tag, ckpt, wavs,
+                                  lambda n, rnn=rnn: stream_launches(n, f"{rnn}_scan_bidir"),
+                                  flags=stream_flags)
+            streamed[tag] = (ckpt, outputs)
+            total = {k: v + path[k] for k, v in total.items()}
+            phase_stream_offline(tag, ckpt, wavs, outputs)
         phase_parity("Conv-TasNet", conv_ckpt, wavs, conv_out)
         for tag, (ckpt, outputs) in dprnn.items():
             phase_parity(tag, ckpt, wavs, outputs)
+        for tag, (ckpt, outputs) in streamed.items():
+            phase_parity(tag, ckpt, wavs, outputs, flags=stream_flags)
         phase_throughput(conv_ckpt, wavs, card)
         for tag, (ckpt, _) in dprnn.items():
             phase_throughput_dprnn(tag, ckpt, wavs, card)
-    for name, n in launches.items():
+        for tag, (ckpt, _) in streamed.items():
+            phase_throughput_stream(tag, ckpt, wavs, card)
+    for name, n in total.items():
         if n < 1:
             raise AssertionError(f"the serving paths never launched {name}")
     check("jax" not in sys.modules and "flax" not in sys.modules, "jax was imported")
@@ -410,11 +557,17 @@ def main() -> int:
     log(card)
     print(json.dumps({"kernels": [
         kernel_entry("fused_mask_decode", "csrc/mask_decode.cu", "ops/pallas_kernels.py:109",
-                     launches["fused_mask_decode"], timings[bf16]),
+                     total["fused_mask_decode"], timings[bf16]),
         kernel_entry("lstm_scan_bidir", "csrc/lstm_scan.cu", "ops/pallas_lstm.py:250",
-                     launches["lstm_scan_bidir"], lstm_timings[("lstm_scan_bidir", "intra", bf16)]),
+                     total["lstm_scan_bidir"], lstm_timings[("lstm_scan_bidir", "intra", bf16)]),
         kernel_entry("lstm_scan", "csrc/lstm_scan.cu", "ops/pallas_lstm.py:62",
-                     launches["lstm_scan"], lstm_timings[("lstm_scan", "inter", bf16)]),
+                     total["lstm_scan"], lstm_timings[("lstm_scan", "inter", bf16)]),
+        kernel_entry("gru_scan_bidir", "csrc/gru_scan.cu", "ops/pallas_lstm.py:357",
+                     total["gru_scan_bidir"], gru_timings[("gru_scan_bidir", "intra", bf16)]),
+        # The one-chain instance of the same kernel: the JAX package runs the
+        # unidirectional GRU in lax.scan, so it has no Pallas kernel of its own.
+        kernel_entry("gru_scan", "csrc/gru_scan.cu", "ops/pallas_lstm.py:357",
+                     total["gru_scan"], gru_timings[("gru_scan", "inter", bf16)]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

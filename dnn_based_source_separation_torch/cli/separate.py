@@ -1,11 +1,14 @@
 """Separate a WAV file with a trained checkpoint (file-based demo).
 
-Port of `dnn_based_source_separation_tpu/cli/separate.py`, offline path:
-read a mixture WAV, run the model on `--device` in `--dtype`, write one
-peak-normalized WAV per source.
+Port of `dnn_based_source_separation_tpu/cli/separate.py`: read a mixture
+WAV, run the model on `--device` in `--dtype`, write one peak-normalized WAV
+per source. With `--streaming_hop` a stream-safe causal DPRNN-TasNet
+checkpoint runs hop by hop through exact streaming
+(`models/streaming.py`), whose output equals the offline forward's.
 
     python -m dnn_based_source_separation_torch.cli.separate \
-        --model_path best.pth --input mix.wav --out_dir out [--dtype bfloat16]
+        --model_path best.pth --input mix.wav --out_dir out [--dtype bfloat16] \
+        [--streaming_hop 0.05]
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from dnn_based_source_separation_tpu.data.audio_io import read_wav, write_wav
 
 from ..models.base import load_model
 from ..models.fold import fold_gln_affine
+from ..models.streaming import ExactStreamingSeparator
 from ..models.tdcn import fold_mode
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -33,18 +37,36 @@ def build_parser():
     p.add_argument("--chunk_duration", type=float, default=None,
                    help="long-form chunking (not ported yet)")
     p.add_argument("--streaming_hop", type=float, default=None,
-                   help="exact streaming (not ported yet)")
+                   help="stream-safe causal DPRNN-TasNet checkpoints only: run the file "
+                        "through exact chunk-by-chunk streaming with this hop in seconds "
+                        "(output identical to the offline forward)")
     p.add_argument("--device", type=str, default="cuda")
     p.add_argument("--dtype", type=str, default="float32", choices=sorted(DTYPES))
     return p
+
+
+def stream_file(model, x: np.ndarray, hop_seconds: float, sr: int) -> np.ndarray:
+    """Separate x (T,) hop by hop with exact streaming, as the JAX CLI does -> (n_src, T)."""
+    L = int(model.kernel_size)
+    stride = int(model.stride or L // 2)
+    hop = max(max(int(hop_seconds * sr) // stride, 1) * stride, L)
+    stream = ExactStreamingSeparator(model, hop_samples=hop)
+    # The offline forward's stride-grid pad (pl, pr), so streamed == offline
+    # for any length; whole hops, then the rest through finish().
+    T = x.shape[0]
+    grid_pad = (stride - (T - L) % stride) % stride
+    pl = grid_pad // 2
+    xp = np.concatenate([np.zeros(pl, np.float32), x, np.zeros(grid_pad - pl, np.float32)])
+    n_full = len(xp) // hop
+    outs = [stream.process(xp[lo:lo + hop]) for lo in range(0, n_full * hop, hop)]
+    outs.append(stream.finish(xp[n_full * hop:]))
+    return torch.cat(outs, dim=-1)[:, pl:pl + T].cpu().numpy()
 
 
 def main(args=None):
     args = build_parser().parse_args(args)
     if args.chunk_duration:
         raise NotImplementedError("--chunk_duration (long-form) is not ported yet")
-    if args.streaming_hop:
-        raise NotImplementedError("--streaming_hop (exact streaming) is not ported yet")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device} asked for, but CUDA is not available")
@@ -63,9 +85,12 @@ def main(args=None):
     x, sr = read_wav(args.input)
     if x.ndim > 1:
         x = x.mean(axis=1)
-    with torch.inference_mode():
-        mixture = torch.from_numpy(np.ascontiguousarray(x)).to(device, dtype)[None, None]
-        est = model(mixture)[0].float().cpu().numpy()
+    if args.streaming_hop:
+        est = stream_file(model, np.asarray(x, np.float32), args.streaming_hop, sr)
+    else:
+        with torch.inference_mode():
+            mixture = torch.from_numpy(np.ascontiguousarray(x)).to(device, dtype)[None, None]
+            est = model(mixture)[0].float().cpu().numpy()
 
     os.makedirs(args.out_dir, exist_ok=True)
     for s in range(est.shape[0]):

@@ -4,7 +4,9 @@
 undo `dnn_based_source_separation_tpu/hub/torch_convert.py:convert_conv_tasnet`
 and `convert_dprnn_tasnet` exactly (transposes and reshapes only, and the
 LSTM's single bias split as b + 0), so JAX-trained weights load into the
-port, and converting back gives the same tree bit for bit.
+port, and converting back gives the same tree bit for bit. GRU and
+stream-safe DPRNN-TasNet trees, which `convert_dprnn_tasnet` does not
+write, load the same way.
 """
 from __future__ import annotations
 
@@ -95,14 +97,40 @@ def _lstm(sd: Dict, prefix: str, rnn: Mapping) -> None:
         sd[f"{prefix}.bias_hh{sfx}"] = torch.zeros_like(bias)
 
 
+def _gru(sd: Dict, prefix: str, rnn: Mapping) -> None:
+    """ops.rnn.GRU {w_ih (F, 3H), w_hh (H, 3H), b_ih, b_hh (3H,)} per layer and direction ->
+    nn.GRU weight_ih (3H, F), weight_hh (3H, H), bias_ih, bias_hh: transposes only."""
+    for name in rnn:
+        if not name.startswith("w_ih"):
+            continue
+        sfx = name[len("w_ih"):]
+        sd[f"{prefix}.weight_ih{sfx}"] = _t(np.asarray(rnn[name]).T)
+        sd[f"{prefix}.weight_hh{sfx}"] = _t(np.asarray(rnn[f"w_hh{sfx}"]).T)
+        sd[f"{prefix}.bias_ih{sfx}"] = _t(rnn[f"b_ih{sfx}"])
+        sd[f"{prefix}.bias_hh{sfx}"] = _t(rnn[f"b_hh{sfx}"])
+
+
+_RNN = {"lstm": _lstm, "gru": _gru}
+
+
 def dprnn_tasnet_state_dict_from_jax(params: Mapping, config: Mapping) -> Dict[str, torch.Tensor]:
     """JAX DPRNNTasNet variables ({"params": ...} or the bare tree) -> port state_dict.
 
-    The inverse of `hub/torch_convert.py:convert_dprnn_tasnet`.
+    The inverse of `hub/torch_convert.py:convert_dprnn_tasnet`, for
+    `rnn_type` 'lstm' or 'gru'. Each norm's flax name follows from the
+    config (JAX `models/dprnn.py`): the intra-chunk norm is a cLN when
+    `stream_safe`, else a gLN; the inter-chunk and top norms are cLNs when
+    `causal`. With `sep_norm`, a missing norm raises KeyError.
     """
     p = params["params"] if "params" in params else params
     causal = bool(config.get("causal", True))
+    stream_safe = bool(config.get("stream_safe", False))
+    norm = bool(config.get("sep_norm", True))
+    rnn_type = config.get("rnn_type", "lstm")
+    if rnn_type not in _RNN:
+        raise NotImplementedError(f"rnn_type {rnn_type!r} has no port converter")
     top_norm = "CumulativeLayerNorm_0" if causal else "GlobalLayerNorm_0"
+    intra_norm = "CumulativeLayerNorm_0" if stream_safe else "GlobalLayerNorm_0"
     C = int(config.get("in_channels", 1) or 1)
     sd: Dict[str, torch.Tensor] = {}
 
@@ -116,12 +144,16 @@ def dprnn_tasnet_state_dict_from_jax(params: Mapping, config: Mapping) -> Dict[s
     _pointwise(sd, "separator.bottleneck_conv1d", sep["bottleneck_conv1d"])
     for i in range(int(config.get("sep_num_blocks", 6))):
         block = sep["dprnn"][f"block{i}"]
-        for part, norm_name in (("intra_chunk_block", "GlobalLayerNorm_0"),
+        for part, norm_name in (("intra_chunk_block", intra_norm),
                                 ("inter_chunk_block", top_norm)):
             ref = f"separator.dprnn.net.{i}.{part}"
-            _lstm(sd, f"{ref}.rnn", block[part]["rnn"])
+            _RNN[rnn_type](sd, f"{ref}.rnn", block[part]["rnn"])
             _linear(sd, f"{ref}.fc", block[part]["fc"])
-            if norm_name in block[part]:
+            if norm:
+                if norm_name not in block[part]:
+                    raise KeyError(f"block{i}.{part} has no {norm_name} for this config "
+                                   f"(causal={causal}, stream_safe={stream_safe}); it holds "
+                                   f"{sorted(block[part])}")
                 _norm(sd, f"{ref}.norm1d", block[part][norm_name])
     _prelu(sd, "separator.prelu", sep["prelu"])
     _pointwise(sd, "separator.mask_conv1d", sep["mask_conv1d"])

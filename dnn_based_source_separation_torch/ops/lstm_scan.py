@@ -28,18 +28,24 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LIB = None
 
 
-def lstm_scan_reference(xw: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
-    """Plain version, one step at a time: xw (B, T, 4H), w_hh (H, 4H) -> hs (B, T, H).
+def lstm_steps(xw: torch.Tensor, w_hh: torch.Tensor, state=None):
+    """The LSTM recurrence one step at a time from `state` = (h, c), (B, H) f32 each.
 
-    Zero initial state, torch gate order i, f, g, o. `h.to(W.dtype).float() @ W.float()`
-    keeps the bfloat16 products exact and sums them in f32, as the Pallas kernel does
-    (a bfloat16 matmul would round its output to bfloat16).
+    xw (B, T, 4H), w_hh (H, 4H) -> (hs (B, T, H) in xw's dtype, final (h, c)
+    f32); a None state is zeros. Torch gate order i, f, g, o. Exact streaming
+    carries the state across calls with this loop; from a zero state it is
+    the plain version of the kernels. `h.to(W.dtype).float() @ W.float()`
+    keeps the bfloat16 products exact and sums them in f32, as the Pallas
+    kernel does (a bfloat16 matmul would round its output to bfloat16).
     """
     B, T, four_h = xw.shape
     H = four_h // 4
     w = w_hh.float()
-    h = torch.zeros((B, H), dtype=torch.float32, device=xw.device)
-    c = torch.zeros_like(h)
+    if state is None:
+        h = torch.zeros((B, H), dtype=torch.float32, device=xw.device)
+        c = torch.zeros_like(h)
+    else:
+        h, c = state
     hs = torch.empty((B, T, H), dtype=xw.dtype, device=xw.device)
     for t in range(T):
         gates = xw[:, t].float() + h.to(w_hh.dtype).float() @ w
@@ -47,7 +53,12 @@ def lstm_scan_reference(xw: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h = torch.sigmoid(o) * torch.tanh(c)
         hs[:, t] = h
-    return hs
+    return hs, (h, c)
+
+
+def lstm_scan_reference(xw: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
+    """Plain version of `lstm_scan`: xw (B, T, 4H), w_hh (H, 4H) -> hs (B, T, H), zero state."""
+    return lstm_steps(xw, w_hh)[0]
 
 
 def lstm_scan_bidir_reference(xw_f, xw_b, whh_f, whh_b):

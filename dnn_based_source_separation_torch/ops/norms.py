@@ -3,7 +3,7 @@
 Port of `dnn_based_source_separation_tpu/ops/norms.py`. Inputs are
 channels-last (..., T, N). Parameters follow the reference torch layout
 `gamma`/`beta` of shape (1, N, 1) (`hub/torch_convert.py:_gamma_beta_params`).
-Streaming cLN state is not ported yet.
+cLN also streams, carrying its running statistics (`CumulativeLayerNorm.stream`).
 """
 from __future__ import annotations
 
@@ -89,11 +89,37 @@ class GlobalLayerNorm(_AffineNorm):
 
 
 class CumulativeLayerNorm(_AffineNorm):
-    """Causal cLN for channels-last inputs (..., T, N); offline only."""
+    """Causal cLN for channels-last inputs (..., T, N)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         gamma, beta = self.affine()
         return cumulative_layer_norm(x, gamma, beta, self.eps)
+
+    def stream(self, x: torch.Tensor, stats: torch.Tensor | None = None):
+        """Exact streaming: continue the statistics `stats` (..., 3) f32 (None = stream start).
+
+        `stats` holds the running [frame count, sum, sum of squares] per
+        leading index, in f32 whatever x's dtype, so chunk-by-chunk calls
+        reproduce the offline cumulative statistics. Returns (y, stats). An
+        empty call (T = 0) is the drain call: x and stats come back as they were.
+        """
+        if stats is None:
+            stats = torch.zeros(x.shape[:-2] + (3,), dtype=torch.float32, device=x.device)
+        T, N = x.shape[-2:]
+        if T == 0:
+            return x, stats
+        gamma, beta = self.affine()
+        xf = x.float()
+        t_idx = torch.arange(1, T + 1, dtype=torch.float32, device=x.device)
+        t_count = (stats[..., 0:1] + t_idx) * N  # (..., T)
+        cum_sum = stats[..., 1:2] + xf.sum(dim=-1).cumsum(dim=-1)
+        cum_sq = stats[..., 2:3] + xf.square().sum(dim=-1).cumsum(dim=-1)
+        mean = cum_sum / t_count
+        var = cum_sq / t_count - mean.square()
+        y = (gamma * (x - mean.unsqueeze(-1).to(x.dtype))
+             / torch.sqrt(var + self.eps).unsqueeze(-1).to(x.dtype) + beta)
+        stats = torch.stack([stats[..., 0] + T, cum_sum[..., -1], cum_sq[..., -1]], dim=-1)
+        return y, stats
 
 
 class ChannelLayerNorm(_AffineNorm):

@@ -12,7 +12,7 @@ from dnn_based_source_separation_torch.hub import (
     conv_tasnet_state_dict_from_jax, dprnn_tasnet_state_dict_from_jax,
 )
 from dnn_based_source_separation_torch.models import ConvTasNet, DPRNNTasNet
-from dnn_based_source_separation_torch.models.base import save_model
+from dnn_based_source_separation_torch.models.base import load_model, save_model
 from dnn_based_source_separation_torch.models.fold import fold_gln_affine
 from dnn_based_source_separation_tpu.cli import separate as jsep
 from dnn_based_source_separation_tpu.data.audio_io import read_wav, write_wav
@@ -182,7 +182,72 @@ def test_separate_dprnn_tasnet_bfloat16_stays_close_to_float32(dprnn_checkpoints
 
 @pytest.mark.parametrize("flag", [["--chunk_duration", "0.5"], ["--streaming_hop", "0.05"]])
 def test_unported_serving_modes_raise_for_dprnn_tasnet(dprnn_checkpoints, tmp_path, flag):
-    _, port_ckpt, wav = dprnn_checkpoints
-    with pytest.raises(NotImplementedError):
+    # Long-form is not ported. Exact streaming refuses these reference-parity
+    # checkpoints as the JAX CLI does: a causal one is not stream-safe
+    # (NotImplementedError), a non-causal one is not causal (ValueError).
+    jax_ckpt, port_ckpt, wav = dprnn_checkpoints
+    error = NotImplementedError
+    if flag[0] == "--streaming_hop":
+        if not load_model(port_ckpt).causal:
+            error = ValueError
+        with pytest.raises(error):
+            jsep.main(["--model_path", jax_ckpt, "--input", wav, "--out_dir",
+                       str(tmp_path / "jax"), *flag])
+    with pytest.raises(error):
         tsep.main(["--model_path", port_ckpt, "--input", wav, "--out_dir", str(tmp_path),
                    "--device", "cpu", *flag])
+
+
+@pytest.fixture(scope="module", params=["lstm", "gru"])
+def stream_safe_checkpoints(request, tmp_path_factory):
+    """(jax checkpoint, port checkpoint, mixture wav) of a tiny stream-safe DPRNN-TasNet."""
+    config = dict(DPRNN_CFG, causal=True, stream_safe=True, rnn_type=request.param)
+    tmp = tmp_path_factory.mktemp(f"cli_stream_{request.param}")
+    rng = np.random.default_rng(2)
+    jmodel = JDPRNNTasNet(**config)
+    variables = jax.tree_util.tree_map(
+        np.asarray, jmodel.init(jax.random.PRNGKey(2), jnp.zeros((1, 1, 320), jnp.float32)))
+    for path, leaf in jax.tree_util.tree_flatten_with_path(variables["params"])[0]:
+        parent = variables["params"]
+        for p in path[:-1]:
+            parent = parent[p.key]
+        if path[-1].key in ("gamma", "beta"):
+            parent[path[-1].key] = (0.5 + rng.random(leaf.shape)).astype(np.float32)
+    jax_ckpt = str(tmp / "model.ckpt")
+    jax_save_model(jax_ckpt, jmodel, variables, {})
+
+    port = DPRNNTasNet(**config)
+    port.load_state_dict(dprnn_tasnet_state_dict_from_jax(variables, config))
+    port_ckpt = str(tmp / "model.pth")
+    save_model(port_ckpt, port)
+
+    wav = str(tmp / "mix.wav")
+    write_wav(wav, 0.1 * rng.standard_normal(1601), 8000)
+    return jax_ckpt, port_ckpt, wav
+
+
+def test_streaming_hop_writes_the_same_wavs_as_jax(stream_safe_checkpoints, tmp_path):
+    jax_ckpt, port_ckpt, wav = stream_safe_checkpoints
+    flag = ["--streaming_hop", "0.05"]
+    jsep.main(["--model_path", jax_ckpt, "--input", wav, "--out_dir", str(tmp_path / "jax"),
+               *flag])
+    est = tsep.main(["--model_path", port_ckpt, "--input", wav,
+                     "--out_dir", str(tmp_path / "port"), "--device", "cpu", *flag])
+    offline = tsep.main(["--model_path", port_ckpt, "--input", wav,
+                         "--out_dir", str(tmp_path / "offline"), "--device", "cpu"])
+    expected = _read_sources(tmp_path / "jax")
+    got = _read_sources(tmp_path / "port")
+    assert got.shape == expected.shape == (2, 1601) and est.shape == (2, 1601)
+    assert np.abs(got - expected).max() <= 2 * WAV_STEP
+    np.testing.assert_allclose(est, offline, rtol=0, atol=1e-5)
+
+
+def test_streaming_hop_in_bfloat16_stays_close_to_float32(stream_safe_checkpoints, tmp_path):
+    _, port_ckpt, wav = stream_safe_checkpoints
+    args = ["--model_path", port_ckpt, "--input", wav, "--device", "cpu",
+            "--streaming_hop", "0.05"]
+    f32 = tsep.main(args + ["--out_dir", str(tmp_path / "f32")])
+    bf16 = tsep.main(args + ["--out_dir", str(tmp_path / "bf16"), "--dtype", "bfloat16"])
+    assert bf16.shape == f32.shape == (2, 1601) and np.isfinite(bf16).all()
+    snr = 10 * np.log10(np.sum(f32 ** 2) / np.sum((bf16 - f32) ** 2))
+    assert snr > 20.0, snr

@@ -149,12 +149,79 @@ def test_generator_initialisation_is_reproducible():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        DPRNNTasNet(**dict(CFG, causal=True), stream_safe=True)
-    with pytest.raises(NotImplementedError, match="gru"):
-        DPRNNTasNet(**CFG, rnn_type="gru")
+    for rnn_type in ("rnn", "sru"):
+        with pytest.raises(NotImplementedError, match=rnn_type):
+            DPRNNTasNet(**CFG, rnn_type=rnn_type)
     with pytest.raises(ValueError):
         DPRNNTasNet(**CFG, mask_nonlinear="tanh")
+
+
+def test_stream_safe_requires_causal():
+    with pytest.raises(ValueError, match="causal"):
+        DPRNNTasNet(**dict(CFG, causal=False), stream_safe=True)
+
+
+@pytest.mark.parametrize("pallas", ["0", "1"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_gru_forward_matches_jax(monkeypatch, causal, pallas):
+    monkeypatch.setenv("DNNTPU_PALLAS_LSTM", pallas)
+    config = dict(CFG, causal=causal, rnn_type="gru")
+    jmodel, variables, port, x = _pair(config, T=203, seed=10 + int(pallas) + 2 * causal)
+    expected = np.asarray(jmodel.apply(variables, jnp.asarray(x)))
+    got = _forward(port, x)
+    assert got.shape == expected.shape == (2, 2, 203)
+    np.testing.assert_allclose(got, expected, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("pallas", ["0", "1"])
+@pytest.mark.parametrize("rnn_type", ["lstm", "gru"])
+def test_stream_safe_forward_matches_jax(monkeypatch, rnn_type, pallas):
+    # The serving profile: time-major cLNs and the constant K - P left pad.
+    monkeypatch.setenv("DNNTPU_PALLAS_LSTM", pallas)
+    config = dict(CFG, causal=True, stream_safe=True, rnn_type=rnn_type)
+    jmodel, variables, port, x = _pair(config, T=203, seed=20 + int(pallas))
+    expected = np.asarray(jmodel.apply(variables, jnp.asarray(x)))
+    got = _forward(port, x)
+    assert got.shape == expected.shape == (2, 2, 203)
+    np.testing.assert_allclose(got, expected, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("rnn_type", ["lstm", "gru"])
+def test_stream_safe_jax_tree_sets_every_port_parameter(rnn_type):
+    # The intra-chunk norm of a stream-safe tree is CumulativeLayerNorm_0:
+    # every port parameter, its affine included, must come from the tree.
+    config = dict(CFG, causal=True, stream_safe=True, rnn_type=rnn_type)
+    _, variables, port, _ = _pair(config, T=120, seed=30)
+    sd = dprnn_tasnet_state_dict_from_jax(variables, config)
+    assert set(sd) == set(port.state_dict())
+    intra = variables["params"]["separator"]["dprnn"]["block1"]["intra_chunk_block"]
+    np.testing.assert_array_equal(
+        sd["separator.dprnn.net.1.intra_chunk_block.norm1d.gamma"].numpy().ravel(),
+        intra["CumulativeLayerNorm_0"]["gamma"])
+    assert not np.allclose(intra["CumulativeLayerNorm_0"]["gamma"], 1.0)
+
+
+def test_converter_raises_when_the_config_names_a_missing_norm():
+    # A stream-safe tree read as reference-parity: the intra gLN is not there.
+    config = dict(CFG, causal=True, stream_safe=True)
+    _, variables, _, _ = _pair(config, T=120, seed=31)
+    with pytest.raises(KeyError, match="GlobalLayerNorm_0"):
+        dprnn_tasnet_state_dict_from_jax(variables, dict(config, stream_safe=False))
+
+
+@pytest.mark.parametrize("variant", [dict(rnn_type="gru", causal=False),
+                                     dict(rnn_type="gru", causal=True),
+                                     dict(rnn_type="lstm", causal=True, stream_safe=True),
+                                     dict(rnn_type="gru", causal=True, stream_safe=True)],
+                         ids=["gru", "gru-causal", "lstm-stream-safe", "gru-stream-safe"])
+def test_port_checkpoint_round_trips(tmp_path, variant):
+    port = DPRNNTasNet(**dict(CFG, **variant), generator=torch.Generator().manual_seed(5)).eval()
+    x = np.random.default_rng(5).standard_normal((2, 1, 181)).astype(np.float32)
+    path = str(tmp_path / "model.pth")
+    save_model(path, port)
+    loaded = load_model(path)
+    assert type(loaded) is DPRNNTasNet and loaded.get_config() == port.get_config()
+    np.testing.assert_array_equal(_forward(loaded, x), _forward(port, x))
 
 
 @pytest.mark.slow

@@ -26,6 +26,8 @@ def test_importing_every_port_module_leaves_jax_out():
     modules = _modules()
     assert "dnn_based_source_separation_torch.ops.mask_decode" in modules
     assert "dnn_based_source_separation_torch.ops.lstm_scan" in modules
+    assert "dnn_based_source_separation_torch.ops.gru_scan" in modules
+    assert "dnn_based_source_separation_torch.models.streaming" in modules
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "import chip_smoke\n"

@@ -1,11 +1,11 @@
-"""Drive the PyTorch port's serving paths on one CUDA card and check them.
+"""Drive the PyTorch port's serving and training paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught and passed):
   1. device: require CUDA, print the card's name and power limit, turn TF32 off;
-  2. build: compile csrc/mask_decode.cu, csrc/lstm_scan.cu and csrc/gru_scan.cu
-     with nvcc for sm_90a, all at once;
+  2. build: compile csrc/mask_decode.cu, csrc/lstm_scan.cu, csrc/lstm_scan_bwd.cu
+     and csrc/gru_scan.cu with nvcc for sm_90a, all at once;
   3. kernel vs plain: fused_mask_decode against its plain PyTorch version on
      the card, f32 and bf16, at the Conv-TasNet serving shape, the DPRNN-TasNet
      decoder shape and three others, timed with CUDA events at the two
@@ -14,6 +14,11 @@ Phases (any failure exits non-zero; nothing is caught and passed):
      bf16, at the intra- and inter-chunk serving shapes (timed), an odd small
      shape, T=1, and H=256 and 512;
   3c. gru_scan_bidir and gru_scan the same way;
+  3d. the training forward (cs written) and the backward kernels of
+     lstm_scan_bidir and lstm_scan under autograd against the plain forward and
+     lstm_scan_bwd_reference, f32 and bf16, at the recipe training shapes (B = 2
+     x 4 s, timed), an odd shape, T=1 and H=256; gru_scan(_bidir) and
+     fused_mask_decode must refuse CUDA tensors that require grad;
   4. serve: paper-config Conv-TasNet (random weights from seed 0) through
      cli/separate.py on three mixtures in float32 and bfloat16, counting the
      kernel's launches;
@@ -31,14 +36,28 @@ Phases (any failure exits non-zero; nothing is caught and passed):
      streamed ones included;
   6. throughput (informational): B=8 x 4 s bf16 forward, and CLI latency,
      for each offline model; ms per 0.05 s hop, its real-time factor and the
-     CLI latency for the streamed ones.
+     CLI latency for the streamed ones;
+  7. one train step, card vs CPU: recipe-config DPRNN-TasNet (non-causal and
+     causal) and paper-config Conv-TasNet, same seed-made weights and batch,
+     f32: the loss and every gradient, none all zero on the card, and the
+     kernel launches of the step;
+  8. train through cli/train_wsj0mix.py on a synthetic wsj0-style corpus:
+     `python -m` for two epochs, then in-process --continue_from, causal,
+     --mixed_precision 1 and Conv-TasNet runs, with the launches of every run
+     checked against its steps and validation forwards; one step and one
+     validation forward counted alone; a fixed batch must lower its loss over
+     20 steps; the trained checkpoints serve through cli/separate.py;
+  9. training throughput (informational): p50 step time and audio-s/s, and a
+     torch.profiler split of one DPRNN-TasNet step.
 
-Each serving path runs with every launch count set to 0 just before it and
-read just after it. The last line is {"ok": true, "device": {...}}; the line
-before it lists the kernels with their launch counts, errors and times.
+Each serving path, and the training path of phase 8, runs with every launch
+count set to 0 just before it and read just after it. The last line is
+{"ok": true, "device": {...}}; the line before it lists the kernels with their
+launch counts, errors and times.
 """
 from __future__ import annotations
 
+import copy
 import json
 import os
 import subprocess
@@ -51,6 +70,8 @@ import numpy as np
 import torch
 
 from dnn_based_source_separation_torch.cli import separate as cli
+from dnn_based_source_separation_torch.cli import train_wsj0mix as train_cli
+from dnn_based_source_separation_torch.criterion import NegSISDR, PIT1d
 from dnn_based_source_separation_torch.models import ConvTasNet, DPRNNTasNet
 from dnn_based_source_separation_torch.models.base import load_model, save_model
 from dnn_based_source_separation_torch.models.fold import fold_gln_affine
@@ -59,7 +80,9 @@ from dnn_based_source_separation_torch.ops import _build
 from dnn_based_source_separation_torch.ops import gru_scan as gs
 from dnn_based_source_separation_torch.ops import lstm_scan as ls
 from dnn_based_source_separation_torch.ops import mask_decode as md
+from dnn_based_source_separation_torch.train import make_optimizer, make_train_step
 from dnn_based_source_separation_tpu.data.audio_io import read_wav, write_wav
+from dnn_based_source_separation_tpu.data.synthetic import write_quality_corpus
 
 SAMPLE_RATE = 8000
 # Paper config, N512 L16 S8 B128 H512 Sc128 P3 X8 R3, non-causal gLN, sigmoid
@@ -257,6 +280,99 @@ def phase_gru():
         })
 
 
+# Backward kernels at the recipe-config training shapes, B = 2 x 4 s: the
+# latent has T' = 31999 frames, padded to 32000 = 255 chunks of K = 250.
+BWD_SHAPES = [
+    ("intra", 510, 250, 128),  # B*S sequences of K steps
+    ("inter", 500, 255, 128),  # B*K sequences of S steps
+    ("odd", 37, 19, 40),
+    ("T=1", 3, 1, 128),
+    ("H=256", 64, 33, 256),
+]
+BWD_TOL = 1e-4  # f32, relative to max|plain|: the recurrent sums run in another order
+
+
+def bwd_limit(dtype, scale):
+    """f32: BWD_TOL x max|plain|; bf16: 2 bf16 ulps of max|plain| (both round the same f32
+    derivatives, which differ only in the order of the recurrent sums)."""
+    if dtype == torch.float32:
+        return BWD_TOL * scale
+    return 2.0 * 2.0 ** (np.floor(np.log2(scale)) - 7) if scale > 0 else 0.0
+
+
+def phase_lstm_bwd():
+    """The training forward (with cs) and the backward kernels against the plain versions."""
+    log("== phase 3d: lstm_scan_bidir and lstm_scan backward vs plain on the card")
+    result = {}
+    for name, B, T, H in BWD_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            xw_f, xw_b, w_f, w_b = lstm_inputs(B, T, H, dtype, seed=B + T + H + 1)
+            gen = torch.Generator(device="cuda").manual_seed(B + T)
+            g_f, g_b = (torch.randn(B, T, H, device="cuda", generator=gen).to(dtype)
+                        for _ in range(2))
+            (hs_f, hs_b), (cs_f, cs_b) = ls._forward_cuda([(xw_f, w_f), (xw_b, w_b)], True)
+            cs_err, cs_scale = 0.0, 1.0
+            for xw, w, hs, cs in ((xw_f, w_f, hs_f, cs_f), (xw_b, w_b, hs_b, cs_b)):
+                hs_ref, cs_ref = ls.lstm_forward_reference(xw, w)
+                cs_scale = max(cs_scale, float(cs_ref.float().abs().max()))
+                cs_err = max(cs_err, float((cs.float() - cs_ref.float()).abs().max()),
+                             float((hs.float() - hs_ref.float()).abs().max()))
+            cs_ok = cs_err <= LSTM_TOL[dtype] * cs_scale
+            log(f"  forward with cs {name} (B={B}, T={T}, H={H}) {str(dtype)[6:]}: "
+                f"max|kernel-plain| of hs, cs = {cs_err:.3e} (limit {LSTM_TOL[dtype]:g} x "
+                f"{cs_scale:.3f}) {'ok' if cs_ok else 'FAIL'}")
+            if not cs_ok:
+                raise AssertionError(f"forward cs disagrees with plain at {name}: {cs_err}")
+            for kname, chains, grads in (
+                    ("lstm_scan_bidir_bwd", [(xw_f, w_f, hs_f, cs_f), (xw_b, w_b, hs_b, cs_b)],
+                     (g_f, g_b)),
+                    ("lstm_scan_bwd", [(xw_f, w_f, hs_f, cs_f)], (g_f,))):
+                leaves = [t.clone().requires_grad_() for c in chains for t in c[:2]]
+                fn = ls.lstm_scan_bidir if len(chains) == 2 else ls.lstm_scan
+                outs = fn(*leaves[0::2], *leaves[1::2])
+                got = torch.autograd.grad(outs if len(chains) == 2 else (outs,), leaves, grads)
+                ref = [d for c, g in zip(chains, grads)
+                       for d in ls.lstm_scan_bwd_reference(*c, g)]
+                torch.cuda.synchronize()
+                errs = []
+                for a, b in zip(got, ref):
+                    check(a.shape == b.shape and a.dtype == b.dtype == dtype, (kname, a.shape))
+                    errs.append((float((a.float() - b.float()).abs().max()),
+                                 bwd_limit(dtype, float(b.float().abs().max()))))
+                log(f"  {kname} {name} (B={B}, T={T}, H={H}) {str(dtype)[6:]}: "
+                    f"max|kernel-plain| / limit of d_xw, d_whh per chain: "
+                    + ", ".join(f"{e:.3e} / {lim:.3e}" for e, lim in errs))
+                if not all(e <= lim for e, lim in errs):
+                    raise AssertionError(f"{kname} disagrees with plain at {name} {dtype}")
+                err = max(e for e, _ in errs)
+                if name in ("intra", "inter"):
+                    plain_chains = [(*c, g) for c, g in zip(chains, grads)]
+                    ms = median_ms(lambda: ls._backward_cuda(plain_chains), warmup=2, iters=10)
+                    plain_ms = median_ms(
+                        lambda: [ls.lstm_scan_bwd_reference(*c) for c in plain_chains],
+                        warmup=1, iters=3)
+                    log(f"    backward (gates matmul + kernel + d_whh matmul) {ms:.4f} ms, "
+                        f"plain {plain_ms:.4f} ms (medians of 10 and 3, CUDA events)")
+                    result[(kname, name, dtype)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    # Kernels without a backward refuse autograd on the card rather than drop it.
+    xw, _, w, _ = lstm_inputs(4, 3, 8, torch.float32, seed=1)
+    xw3, w3 = xw[..., :24].contiguous(), w[:, :24].contiguous()
+    b3 = torch.zeros(24, device="cuda", requires_grad=True)
+    for what, call in (
+            ("gru_scan_bidir", lambda: gs.gru_scan_bidir(xw3, xw3, w3, w3, b3, b3)),
+            ("gru_scan", lambda: gs.gru_scan(xw3, w3, b3)),
+            ("fused_mask_decode", lambda: md.fused_mask_decode(
+                *kernel_inputs(1, 2, 37, 512, 16, torch.float32, True, 0)[:2],
+                torch.zeros(512, 16, device="cuda", requires_grad=True)))):
+        try:
+            call()
+        except NotImplementedError as err:
+            log(f"  {what} under autograd on CUDA raises: {str(err)[:80]}...")
+        else:
+            raise AssertionError(f"{what} returned a result under autograd on CUDA")
+    return result
+
+
 def counts() -> dict:
     return {"fused_mask_decode": md.LAUNCHES, **ls.LAUNCHES, **gs.LAUNCHES}
 
@@ -266,6 +382,11 @@ def reset_counts() -> None:
     for table in (ls.LAUNCHES, gs.LAUNCHES):
         for name in table:
             table[name] = 0
+
+
+def nonzero(launches: dict) -> dict:
+    """The kernels a count names, for the log."""
+    return {k: v for k, v in launches.items() if v}
 
 
 def expected(**per_request) -> dict:
@@ -298,7 +419,7 @@ def stream_launches(n_samples, bidir, blocks=DPRNN["sep_num_blocks"], L=DPRNN["k
     return expected(fused_mask_decode=decode, **{bidir: blocks * stack})
 
 
-def make_checkpoint(path, model):
+def scramble_norms(model):
     # Non-identity norm affines, so the norms (and the Conv-TasNet CLI's fold) do real work.
     rng = np.random.default_rng(0)
     with torch.no_grad():
@@ -307,7 +428,11 @@ def make_checkpoint(path, model):
                 p.copy_(torch.from_numpy(0.5 + rng.random(p.shape, np.float32)))
             elif name.endswith(".beta"):
                 p.copy_(torch.from_numpy(0.1 * rng.standard_normal(p.shape).astype(np.float32)))
-    save_model(path, model)
+    return model
+
+
+def make_checkpoint(path, model):
+    save_model(path, scramble_norms(model))
 
 
 def write_mixtures(tmp):
@@ -463,6 +588,309 @@ def phase_throughput_stream(tag, ckpt, wavs, card):
                 flags=["--streaming_hop", str(STREAMING_HOP)])
 
 
+# Training: the models the train CLI builds, at the recipe's widths.
+TRAIN_MODELS = {
+    "dprnn_tasnet": (DPRNNTasNet, dict(DPRNN, causal=False)),
+    "dprnn_tasnet_causal": (DPRNNTasNet, dict(DPRNN, causal=True)),
+    "conv_tasnet": (ConvTasNet, PAPER),
+}
+GRAD_TOL_L2 = 1e-3  # card vs the f64 CPU step: relative L2 of the whole gradient
+GRAD_TOL_TENSOR = 5e-2  # card vs the f64 CPU step, each tensor, relative to its max|g|
+LOSS_TOL = 1e-4  # card vs the f64 CPU step, relative
+# The recipes' flags (egs/wsj0-mix/dprnn-tasnet/train.sh:22; the Conv-TasNet
+# defaults of cli/train_wsj0mix.py are the paper config).
+CLI_RECIPES = {
+    "dprnn_tasnet": ["--model", "dprnn-tasnet", "-N", "64", "-L", "2", "-K", "250",
+                     "--sep_hop_size", "125", "--sep_num_blocks", "6",
+                     "--sep_bottleneck_channels", "64", "--sep_hidden_channels", "128",
+                     "--batch_size", "2"],
+    "conv_tasnet": ["--model", "conv-tasnet", "--batch_size", "4"],
+}
+
+
+def train_step_launches(tag: str) -> dict:
+    """Launches of one train step: each recurrence forward (with cs) and backward once per
+    layer, and no decode kernel (training decodes with the plain version)."""
+    blocks = DPRNN["sep_num_blocks"]
+    if tag.startswith("conv"):
+        return expected()
+    if tag.endswith("causal"):
+        return expected(lstm_scan_bidir=blocks, lstm_scan=blocks, lstm_scan_bidir_bwd=blocks,
+                        lstm_scan_bwd=blocks)
+    return expected(lstm_scan_bidir=2 * blocks, lstm_scan_bidir_bwd=2 * blocks)
+
+
+def eval_launches(tag: str) -> dict:
+    """Launches of one validation (or served) forward: the serving kernels."""
+    blocks = DPRNN["sep_num_blocks"]
+    if tag.startswith("conv"):
+        return expected(fused_mask_decode=1)
+    causal = tag.endswith("causal")
+    return expected(fused_mask_decode=1, lstm_scan_bidir=blocks * (2 - causal),
+                    lstm_scan=blocks * causal)
+
+
+def train_batch(B, seconds, device, seed=7):
+    """Two sources of noise and their sum, (B, 1, T) and (B, 2, T), from a seed."""
+    rng = np.random.default_rng(seed)
+    sources = 0.1 * rng.standard_normal((B, 2, int(seconds * SAMPLE_RATE)), dtype=np.float32)
+    mixture = sources.sum(axis=1, keepdims=True)
+    return torch.from_numpy(mixture).to(device), torch.from_numpy(sources).to(device)
+
+
+def grads_of_step(model, batch):
+    """One make_train_step with SGD at lr 0 (the weights stay; the gradients stay in .grad)."""
+    step = make_train_step(model, PIT1d(NegSISDR(), n_sources=2),
+                           make_optimizer("sgd", 0.0, params=model.parameters()))
+    loss = float(step(*batch))
+    return loss, {n: p.grad for n, p in model.named_parameters() if p.requires_grad}
+
+
+def phase_train_parity():
+    """One train step on the card against the same step on the CPU.
+
+    Both f32 steps are held against an f64 step on the CPU. The randomly
+    initialised paper-config Conv-TasNet (24 blocks, each ending in a
+    scale-invariant gLN) is ill-conditioned in its backward: a PReLU slope or
+    a bottleneck gradient comes out of f32 up to about 1e-2 off the f64 one in
+    either implementation (the CPU's worst tensor read 8.8e-03 of its max|g|,
+    and per-layer output gradients reach 2e-2 on both devices, at different
+    layers). So the whole gradient vector must be within GRAD_TOL_L2 (relative
+    L2) of the f64 one, or no further than 10x the CPU's f32 gradient is, and
+    each tensor within GRAD_TOL_TENSOR x its max|g|: a missing or wrong
+    backward is off by O(1).
+    """
+    log("== phase 7: one train step, card vs CPU (f32, TF32 off, B=2 x 0.5 s; f64 CPU "
+        "reference)")
+    for tag, (cls, cfg) in TRAIN_MODELS.items():
+        def make(device):
+            return scramble_norms(cls(**cfg, generator=torch.Generator().manual_seed(0),
+                                      device=device))
+        cpu_model = make("cpu")
+        batch = train_batch(2, 0.5, "cpu")
+        ref_loss, ref_grads = grads_of_step(copy.deepcopy(cpu_model).double(),
+                                            tuple(t.double() for t in batch))
+        cpu_loss, cpu_grads = grads_of_step(cpu_model, batch)
+        reset_counts()
+        card_loss, card_grads = grads_of_step(make("cuda"), train_batch(2, 0.5, "cuda"))
+        torch.cuda.synchronize()
+        launched = counts()
+        check(launched == train_step_launches(tag),
+              f"{tag}: a train step launched {launched}, expected {train_step_launches(tag)}")
+        zero = [n for n, g in card_grads.items() if g is None or not bool(g.abs().max() > 0)]
+        if zero:
+            raise AssertionError(f"{tag}: gradients all zero or missing on the card: {zero}")
+        card_sq = cpu_sq = ref_sq = 0.0
+        rows = []
+        for n, ref in ref_grads.items():
+            card_d = card_grads[n].cpu().double() - ref
+            cpu_d = cpu_grads[n].double() - ref
+            card_sq += float(card_d.square().sum())
+            cpu_sq += float(cpu_d.square().sum())
+            ref_sq += float(ref.square().sum())
+            scale = float(ref.abs().max()) or 1.0
+            rows.append((float(card_d.abs().max()) / scale, float(cpu_d.abs().max()) / scale, n))
+        rows.sort(reverse=True)
+        card_l2, cpu_l2 = (card_sq / ref_sq) ** 0.5, (cpu_sq / ref_sq) ** 0.5
+        l2_limit = max(GRAD_TOL_L2, 10 * cpu_l2)
+        loss_limit = max(LOSS_TOL * abs(ref_loss), 10 * abs(cpu_loss - ref_loss))
+        log(f"  {tag}: loss card {card_loss:.6f}, CPU f32 {cpu_loss:.6f}, f64 {ref_loss:.6f} "
+            f"(card err {abs(card_loss - ref_loss):.2e}, limit {loss_limit:.2e}); "
+            f"{len(ref_grads)} gradients, none all zero on the card; whole-gradient relative "
+            f"L2 vs f64: card {card_l2:.2e}, CPU f32 {cpu_l2:.2e} (limit {l2_limit:.2e}); "
+            f"launches per step {nonzero(launched)}")
+        for card_rel, cpu_rel, n in rows[:3]:
+            log(f"    {n}: max|card-f64| / max|g| {card_rel:.2e}, CPU f32 {cpu_rel:.2e} "
+                f"(limit {GRAD_TOL_TENSOR:g})")
+        if not (abs(card_loss - ref_loss) <= loss_limit and card_l2 <= l2_limit
+                and rows[0][0] <= GRAD_TOL_TENSOR):
+            raise AssertionError(f"{tag}: card train step disagrees with CPU")
+
+
+def train_through_cli(argv, launches=None):
+    """train_wsj0mix.main in-process; with `launches`, check the run's kernel launches
+    against its steps and validation forwards."""
+    before = counts()
+    trainer = train_cli.main(argv)
+    grew = {k: v - before[k] for k, v in counts().items()}
+    losses = trainer.train_loss + trainer.valid_loss
+    check(all(np.isfinite(losses)), f"non-finite losses {losses}")
+    if launches is not None:
+        epochs = len(trainer.train_loss) - trainer.start_epoch
+        steps, evals = epochs * len(trainer.train_loader), epochs * len(trainer.valid_loader)
+        per_step, per_eval = train_step_launches(launches), eval_launches(launches)
+        want = {k: steps * per_step[k] + evals * per_eval[k] for k in grew}
+        check(grew == want, f"{argv[-1]}: launched {grew}, expected {want} for {steps} "
+                            f"steps and {evals} validation forwards")
+    model_dir = os.path.join(trainer.config.exp_dir, "model")
+    check(sorted(os.listdir(model_dir)) == ["best.ckpt", "last.ckpt"], os.listdir(model_dir))
+    stats = trainer.last_epoch_stats or {}
+    log(f"  {' '.join(argv[argv.index('--model') + 1:argv.index('--model') + 2])} "
+        f"{'bf16' if '--mixed_precision' in argv else 'f32'}"
+        f"{' causal' if '--causal' in argv else ''}: epochs {trainer.start_epoch + 1}-"
+        f"{len(trainer.train_loss)}, train loss {[round(v, 4) for v in trainer.train_loss]}, "
+        f"valid loss {[round(v, 4) for v in trainer.valid_loss]}, "
+        f"{stats.get('audio_sec_per_sec', 0):.1f} audio-s/s, "
+        f"p50 {stats.get('iter_p50_ms', 0):.1f} ms, launches {nonzero(grew)}")
+    return trainer
+
+
+def phase_train_cli(tmp, card):
+    """Train through the CLI on a synthetic wsj0-style corpus; resume; serve the result."""
+    log("== phase 8: train through cli/train_wsj0mix.py")
+    corpus = os.path.join(tmp, "corpus")
+    tr_root, tr_list = write_quality_corpus(corpus, "tr", 6)  # 8 windows of 4 s
+    cv_root, cv_list = write_quality_corpus(corpus, "cv", 2)
+    data = ["--train_wav_root", tr_root, "--train_list_path", tr_list, "--valid_wav_root",
+            cv_root, "--valid_list_path", cv_list, "--duration", "4", "--valid_duration", "4",
+            "--device", "cuda"]
+    exp = os.path.join(tmp, "exp_dprnn")
+    # The entry point itself, as a user runs it, in a process of its own.
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, "-m", "dnn_based_source_separation_torch.cli.train_wsj0mix", *data,
+         *CLI_RECIPES["dprnn_tasnet"], "--epochs", "2", "--exp_dir", exp],
+        cwd=root, env={**os.environ, "PYTHONPATH": root}, capture_output=True, text=True,
+        timeout=600)
+    log("  python -m ...cli.train_wsj0mix (DPRNN-TasNet, 2 epochs):\n    "
+        + "\n    ".join(proc.stdout.strip().splitlines()[-6:]))
+    if proc.returncode != 0:
+        raise AssertionError(f"the train CLI failed ({proc.returncode}):\n{proc.stderr[-3000:]}")
+    last = os.path.join(exp, "model", "last.ckpt")
+    check(os.path.exists(os.path.join(exp, "model", "best.ckpt")) and os.path.exists(last),
+          os.listdir(os.path.join(exp, "model")))
+
+    reset_counts()  # the training path, in-process from here on
+    resumed = train_through_cli([*data, *CLI_RECIPES["dprnn_tasnet"], "--epochs", "3",
+                                 "--continue_from", last, "--exp_dir", exp], "dprnn_tasnet")
+    check(resumed.start_epoch == 2 and len(resumed.train_loss) == 3,
+          (resumed.start_epoch, resumed.train_loss))
+    trainers = {"dprnn_tasnet": resumed}
+    for tag, flags in (("dprnn_tasnet_causal", ["--causal", "1"]),
+                       ("dprnn_tasnet", ["--mixed_precision", "1"]),
+                       ("dprnn_tasnet_causal", ["--causal", "1", "--mixed_precision", "1"]),
+                       ("conv_tasnet", [])):
+        recipe = CLI_RECIPES["conv_tasnet" if tag.startswith("conv") else "dprnn_tasnet"]
+        out = os.path.join(tmp, f"exp_{tag}_{'_'.join(flags).replace('-', '')}")
+        trainer = train_through_cli([*data, *recipe, *flags, "--epochs", "1", "--exp_dir", out],
+                                    tag)
+        trainers.setdefault(tag, trainer)  # the f32 one of each model for the checks below
+
+    # Per step and per validation forward, then a fixed batch trained for 20 steps.
+    for tag, trainer in trainers.items():
+        batch = train_batch(2 if tag.startswith("dprnn") else 4, 4.0, "cuda", seed=11)
+        before = counts()
+        losses = [float(trainer.train_step(*batch))]
+        step_launches = {k: v - before[k] for k, v in counts().items()}
+        before = counts()
+        trainer.eval_step(*batch)
+        eval_grew = {k: v - before[k] for k, v in counts().items()}
+        check(step_launches == train_step_launches(tag) and eval_grew == eval_launches(tag),
+              f"{tag}: step launched {step_launches}, eval {eval_grew}")
+        losses += [float(trainer.train_step(*batch)) for _ in range(19)]
+        log(f"  {tag}: one train step launched {nonzero(step_launches)}; one validation "
+            f"forward {nonzero(eval_grew)}; a fixed batch over 20 steps: loss {losses[0]:.4f} "
+            f"-> {losses[-1]:.4f}")
+        check(np.isfinite(losses).all() and losses[-1] < losses[0],
+              f"{tag}: 20 steps on one batch did not lower its loss: {losses}")
+    launches = counts()
+    log(f"  training-path kernel launches: {nonzero(launches)}")
+
+    wavs = write_mixtures(tmp)
+    for tag, trainer in (("dprnn_tasnet", resumed), ("conv_tasnet", trainers["conv_tasnet"])):
+        ckpt = os.path.join(trainer.config.exp_dir, "model", "last.ckpt")
+        log(f"  serve the trained {tag} checkpoint through cli/separate.py")
+        _, served = serve(f"trained_{tag}", ckpt, wavs[:1], eval_launches(tag))
+        launches = {k: v + served[k] for k, v in launches.items()}
+    return launches
+
+
+def timed_train_steps(cls, cfg, B, compute_dtype, card, what, warmup=3, iters=10):
+    model = scramble_norms(cls(**cfg, generator=torch.Generator().manual_seed(0), device="cuda"))
+    step = make_train_step(model, PIT1d(NegSISDR(), n_sources=2),
+                           make_optimizer("adam", 1e-3, 5.0, params=model.parameters()),
+                           compute_dtype)
+    batch = train_batch(B, 4.0, "cuda")
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(warmup + iters):
+        start = time.perf_counter()
+        step(*batch)
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append(time.perf_counter() - start)
+    p50 = float(np.median(times))
+    log(f"  {what}, B={B} x 4 s: p50 step {p50 * 1e3:.3f} ms of {iters} (min "
+        f"{min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}), {B * 4.0 / p50:.1f} audio-s/s, "
+        f"peak {torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB [{card}]")
+    return model
+
+
+def profile_train_step(model, compute_dtype, card, what):
+    """One step split by CUDA events into forward, backward and optimizer, with the device
+    time of the backward kernels and the device's idle share from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.func import functional_call
+    from torch.profiler import ProfilerActivity, profile
+
+    criterion = PIT1d(NegSISDR(), n_sources=2)
+    optimizer = make_optimizer("adam", 1e-3, 5.0, params=model.parameters())
+    mixture, sources = train_batch(2, 4.0, "cuda")
+
+    def step(events):
+        events[0].record()
+        optimizer.zero_grad()
+        if compute_dtype is None:
+            estimates = model(mixture)
+        else:
+            cast = {k: v.to(compute_dtype) if v.dtype == torch.float32 else v
+                    for k, v in model.named_parameters()}
+            estimates = functional_call(model, cast, (mixture.to(compute_dtype),)).float()
+        loss = criterion(estimates, sources)[0]
+        events[1].record()
+        loss.backward()
+        events[2].record()
+        optimizer.step()
+        events[3].record()
+
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    step(events)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        step(events)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - start) * 1e3
+    fwd, bwd, opt = (events[i].elapsed_time(events[i + 1]) for i in range(3))
+    device = {}  # device time by kernel name, ms
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            device[e.name] = device.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    check(device, "the profiler recorded no device time")
+    busy = sum(device.values())
+    bwd_kernel = sum(t for k, t in device.items() if "lstm_bwd_kernel" in k)
+    fwd_kernel = sum(t for k, t in device.items() if "lstm_kernel" in k)
+    log(f"  profile of one {what} step (B=2 x 4 s): wall {wall:.3f} ms; forward "
+        f"{fwd:.3f} ms (recurrence kernels {fwd_kernel:.3f} ms device), backward {bwd:.3f} ms "
+        f"(backward kernels {bwd_kernel:.3f} ms device, other backward {bwd - bwd_kernel:.3f} "
+        f"ms), optimizer {opt:.3f} ms; device busy {busy:.3f} ms, idle share "
+        f"{max(0.0, 1 - busy / wall):.1%} [{card}]")
+    top = sorted(device.items(), key=lambda kv: -kv[1])[:6]
+    log("    top device time: " + ", ".join(f"{k[:48]} {t:.3f} ms" for k, t in top))
+
+
+def phase_train_throughput(card):
+    log("== phase 9: training throughput (informational)")
+    dprnn = TRAIN_MODELS["dprnn_tasnet"]
+    for dtype in (None, torch.bfloat16):
+        what = f"DPRNN-TasNet non-causal {'bf16' if dtype else 'f32'}"
+        model = timed_train_steps(*dprnn, 2, dtype, card, what)
+        profile_train_step(model, dtype, card, what)
+    for dtype in (None, torch.bfloat16):
+        timed_train_steps(*TRAIN_MODELS["conv_tasnet"], 4, dtype, card,
+                          f"Conv-TasNet {'bf16' if dtype else 'f32'}", iters=5)
+
+
 def kernel_entry(name, source, replaces, launches, timing):
     return {"name": name, "route": "cuda", "source": f"dnn_based_source_separation_torch/{source}",
             "replaces": f"dnn_based_source_separation_tpu/{replaces}", "launches": launches,
@@ -485,12 +913,13 @@ def main() -> int:
 
     log("== phase 2: build")
     start = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:  # one nvcc per source, all at once
-        for build in [pool.submit(md.build), pool.submit(ls.build), pool.submit(gs.build)]:
+    builds = (md.build, ls.build, ls.build_backward, gs.build)
+    with ThreadPoolExecutor(len(builds)) as pool:  # one nvcc per source, all at once
+        for build in [pool.submit(b) for b in builds]:
             build.result()
-    log(f"  mask_decode, lstm_scan and gru_scan built/loaded in "
+    log(f"  mask_decode, lstm_scan, lstm_scan_bwd and gru_scan built/loaded in "
         f"{time.perf_counter() - start:.2f} s")
-    for name in ("mask_decode", "lstm_scan", "gru_scan"):
+    for name in ("mask_decode", "lstm_scan", "lstm_scan_bwd", "gru_scan"):
         info = _build.BUILD_INFO[name]
         log(f"  {name} ({info['seconds']:.2f} s):")
         log("  " + info["log"].strip().replace("\n", "\n  "))
@@ -498,6 +927,7 @@ def main() -> int:
     timings = phase_kernel()
     lstm_timings = phase_lstm()
     gru_timings = phase_gru()
+    bwd_timings = phase_lstm_bwd()
     blocks = DPRNN["sep_num_blocks"]
     stream_flags = ["--streaming_hop", str(STREAMING_HOP)]
     with tempfile.TemporaryDirectory() as tmp:
@@ -548,9 +978,15 @@ def main() -> int:
             phase_throughput_dprnn(tag, ckpt, wavs, card)
         for tag, (ckpt, _) in streamed.items():
             phase_throughput_stream(tag, ckpt, wavs, card)
+        phase_train_parity()
+        trained = phase_train_cli(tmp, card)
+    phase_train_throughput(card)
+    for name in ("lstm_scan_bidir_bwd", "lstm_scan_bwd"):
+        check(trained[name] >= 1, f"the training path never launched {name}")
+    total = {k: v + trained[k] for k, v in total.items()}
     for name, n in total.items():
         if n < 1:
-            raise AssertionError(f"the serving paths never launched {name}")
+            raise AssertionError(f"the serving and training paths never launched {name}")
     check("jax" not in sys.modules and "flax" not in sys.modules, "jax was imported")
 
     bf16 = torch.bfloat16
@@ -568,6 +1004,13 @@ def main() -> int:
         # unidirectional GRU in lax.scan, so it has no Pallas kernel of its own.
         kernel_entry("gru_scan", "csrc/gru_scan.cu", "ops/pallas_lstm.py:357",
                      total["gru_scan"], gru_timings[("gru_scan", "inter", bf16)]),
+        # The backward of kernels 2 and 3 (`custom_vjp` _bidir_bwd and _lstm_bwd, both
+        # _lstm_bwd_core); times are the whole backward, gate matmul and d_whh included.
+        kernel_entry("lstm_scan_bidir_bwd", "csrc/lstm_scan_bwd.cu", "ops/pallas_lstm.py:339",
+                     total["lstm_scan_bidir_bwd"],
+                     bwd_timings[("lstm_scan_bidir_bwd", "intra", bf16)]),
+        kernel_entry("lstm_scan_bwd", "csrc/lstm_scan_bwd.cu", "ops/pallas_lstm.py:230",
+                     total["lstm_scan_bwd"], bwd_timings[("lstm_scan_bwd", "inter", bf16)]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

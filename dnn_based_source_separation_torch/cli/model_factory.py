@@ -1,0 +1,45 @@
+"""Recipe model factory: --model flag + argparse namespace -> model on a device.
+
+Port of `dnn_based_source_separation_tpu/cli/model_factory.py:build_wsj0mix_model`
+for the two ported models, with the JAX factory's defaults. The weights are
+drawn from `args.seed`, so one seed gives the same model on every device.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..models import ConvTasNet, DPRNNTasNet
+
+# The slice of the port that brings each model the JAX factory builds.
+_NOT_PORTED = {
+    "lstm-tasnet": "slice D", "sepformer": "slice D", "dptnet": "slice D",
+    "galrnet": "slice D", "furcanet": "slice D",
+}
+
+
+def build_wsj0mix_model(args, device) -> torch.nn.Module:
+    name = args.model.replace("_", "-")
+    common = dict(
+        n_basis=args.n_basis, kernel_size=args.kernel_size, stride=args.stride,
+        enc_basis=args.enc_basis, dec_basis=args.dec_basis,
+        enc_nonlinear=args.enc_nonlinear or None, causal=args.causal,
+        mask_nonlinear=args.mask_nonlinear, n_sources=args.n_sources,
+        generator=torch.Generator().manual_seed(args.seed), device=device,
+    )
+    if name == "conv-tasnet":
+        return ConvTasNet(
+            sep_hidden_channels=args.sep_hidden_channels,
+            sep_bottleneck_channels=args.sep_bottleneck_channels,
+            sep_skip_channels=args.sep_skip_channels, sep_kernel_size=args.sep_kernel_size,
+            sep_num_blocks=args.sep_num_blocks, sep_num_layers=args.sep_num_layers, **common)
+    if name == "dprnn-tasnet":
+        return DPRNNTasNet(
+            sep_bottleneck_channels=args.sep_bottleneck_channels,
+            sep_hidden_channels=args.sep_hidden_channels,
+            sep_chunk_size=args.sep_chunk_size, sep_hop_size=args.sep_hop_size,
+            sep_num_blocks=args.sep_num_blocks, rnn_type=getattr(args, "rnn_type", "lstm"),
+            **common)
+    if name in _NOT_PORTED:
+        raise NotImplementedError(f"model {args.model!r} is not ported yet ({_NOT_PORTED[name]} "
+                                  "of the port)")
+    raise ValueError(f"Unsupported model: {args.model}")

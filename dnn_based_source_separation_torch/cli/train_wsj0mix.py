@@ -1,0 +1,178 @@
+"""wsj0-mix training CLI (Conv-TasNet, DPRNN-TasNet).
+
+Port of `dnn_based_source_separation_tpu/cli/train_wsj0mix.py`: the same
+flag names and defaults (its `build_parser`, :26-117), plus `--device`
+(default `cuda`), as the port's `cli/separate.py` has. A CUDA device that is
+not there is an error, never a silent CPU run. The loss is PIT over negative
+SI-SDR, the optimizer optax's rules (`train/steps.py`), the Trainer the JAX
+package's (`train/trainer.py`). `--mixed_precision 1` runs bf16 compute over
+f32 master weights as the JAX step does.
+
+Flags for features not ported yet raise NotImplementedError when set:
+`--pit` other than exhaustive, `--criterion orpit`, `--warmup_steps > 0`,
+`--device_resident_data`, `--n_devices`, `--rnn_type sru`, and
+`--rnn_type gru` on CUDA (the GRU backward kernel is the next slice).
+
+    python -m dnn_based_source_separation_torch.cli.train_wsj0mix \
+        --model dprnn-tasnet -N 64 -L 2 -H 128 -B 64 -K 250 --sep_hop_size 125 -R 6 \
+        --train_wav_root ... --train_list_path ... --valid_wav_root ... \
+        --valid_list_path ... --exp_dir exp [--device cuda] [--mixed_precision 1]
+"""
+from __future__ import annotations
+
+import argparse
+import random
+
+import numpy as np
+import torch
+
+from dnn_based_source_separation_tpu.data import DataLoader, WaveEvalDataset, WaveTrainDataset
+
+from ..criterion import NegSISDR, PIT1d
+from ..train import Trainer, TrainerConfig, make_optimizer
+from .model_factory import build_wsj0mix_model
+
+
+def build_parser():
+    p = argparse.ArgumentParser("train_wsj0mix")
+    # data
+    p.add_argument("--train_wav_root", type=str, required=True)
+    p.add_argument("--train_list_path", type=str, required=True)
+    p.add_argument("--valid_wav_root", type=str, required=True)
+    p.add_argument("--valid_list_path", type=str, required=True)
+    p.add_argument("--sample_rate", type=int, default=8000)
+    p.add_argument("--duration", type=float, default=4.0)
+    p.add_argument("--valid_duration", type=float, default=8.0)
+    p.add_argument("--n_sources", type=int, default=2)
+    # model
+    p.add_argument("--model", type=str, default="conv-tasnet")
+    p.add_argument("--n_basis", "-N", type=int, default=512)
+    p.add_argument("--kernel_size", "-L", type=int, default=16)
+    p.add_argument("--stride", type=int, default=None)
+    p.add_argument("--enc_basis", type=str, default="trainable")
+    p.add_argument("--dec_basis", type=str, default="trainable")
+    p.add_argument("--enc_nonlinear", type=str, default="relu")
+    p.add_argument("--sep_hidden_channels", "-H", type=int, default=512)
+    p.add_argument("--sep_bottleneck_channels", "-B", type=int, default=128)
+    p.add_argument("--sep_skip_channels", "-Sc", type=int, default=128)
+    p.add_argument("--sep_kernel_size", "-P", type=int, default=3)
+    p.add_argument("--sep_num_blocks", "-R", type=int, default=3)
+    p.add_argument("--sep_num_layers", "-X", type=int, default=8)
+    p.add_argument("--sep_chunk_size", "-K", type=int, default=100)
+    p.add_argument("--sep_hop_size", type=int, default=50)
+    p.add_argument("--sep_down_chunk_size", "-Q", type=int, default=32)
+    p.add_argument("--sep_num_heads", type=int, default=4)
+    p.add_argument("--rnn_type", type=str, default="lstm", choices=["lstm", "gru", "sru"],
+                   help="dprnn-tasnet recurrence (gru trains on the CPU only for now; "
+                        "sru is not ported)")
+    p.add_argument("--conv_hidden_channels", "-Hc", type=int, default=128,
+                   help="furcanet gated-conv hidden channels (model not ported)")
+    p.add_argument("--rnn_hidden_channels", "-Hr", type=int, default=128,
+                   help="furcanet BiLSTM hidden channels per direction (model not ported)")
+    p.add_argument("--num_conv_blocks", "-Bc", type=int, default=6,
+                   help="furcanet gated-conv blocks (model not ported)")
+    p.add_argument("--num_rnn_blocks", "-Br", type=int, default=6,
+                   help="furcanet BiLSTM layers (model not ported)")
+    p.add_argument("--causal", type=int, default=0)
+    p.add_argument("--mask_nonlinear", type=str, default="sigmoid")
+    # optimization
+    p.add_argument("--criterion", type=str, default="sisdr")
+    p.add_argument("--pit", type=str, default="exhaustive",
+                   choices=["exhaustive", "hungarian", "prob", "sink"],
+                   help="permutation search; only exhaustive (the reference's) is ported")
+    p.add_argument("--pit_gamma", type=float, default=1.0,
+                   help="ProbPIT temperature (--pit prob, not ported)")
+    p.add_argument("--optimizer", type=str, default="adam")
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--warmup_steps", type=int, default=0,
+                   help="the DPTNet recipe LR schedule (not ported)")
+    p.add_argument("--k1", type=float, default=2e-1, help="warmup ramp coefficient (not ported)")
+    p.add_argument("--k2", type=float, default=4e-4,
+                   help="post-warmup decay coefficient (not ported)")
+    p.add_argument("--max_norm", type=float, default=5.0)
+    p.add_argument("--batch_size", type=int, default=4)
+    p.add_argument("--epochs", type=int, default=100)
+    # infra
+    p.add_argument("--exp_dir", type=str, default="./exp")
+    p.add_argument("--continue_from", type=str, default=None)
+    p.add_argument("--overwrite", type=int, default=0)
+    p.add_argument("--seed", type=int, default=111)
+    p.add_argument("--num_workers", type=int, default=0, help="background loader threads")
+    p.add_argument("--cache_in_memory", type=int, default=0,
+                   help="cache decoded waveforms in RAM after first use")
+    p.add_argument("--device_resident_data", type=int, default=0,
+                   help="the whole corpus in device memory (not ported)")
+    p.add_argument("--n_devices", type=int, default=None,
+                   help="data-parallel size (not ported: one device)")
+    p.add_argument("--mixed_precision", type=int, default=0,
+                   help="bf16 compute, f32 master params")
+    p.add_argument("--time_budget_min", type=float, default=None,
+                   help="stop after this many wall-clock minutes (epoch boundary; last.ckpt "
+                        "still written, resumable)")
+    p.add_argument("--device", type=str, default="cuda")
+    return p
+
+
+def _refuse_unported(args, device: torch.device) -> None:
+    refusals = [
+        (args.pit != "exhaustive", f"--pit {args.pit}"),
+        (args.criterion == "orpit", "--criterion orpit (ORPIT)"),
+        (args.warmup_steps > 0, "--warmup_steps (the DPTNet warmup schedule)"),
+        (bool(args.device_resident_data), "--device_resident_data"),
+        (args.n_devices is not None, "--n_devices (data parallelism, slice H)"),
+        (args.rnn_type == "sru", "--rnn_type sru"),
+        (args.rnn_type == "gru" and device.type == "cuda",
+         "--rnn_type gru on CUDA (the GRU backward kernel is the next slice; "
+         "--device cpu trains it)"),
+    ]
+    for refused, what in refusals:
+        if refused:
+            raise NotImplementedError(f"{what} is not ported yet")
+    if args.criterion != "sisdr":
+        raise ValueError(f"Unsupported criterion: {args.criterion}")
+
+
+def set_seed(seed: int) -> None:
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+
+
+def main(args=None):
+    args = build_parser().parse_args(args)
+    args.causal = bool(args.causal)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {args.device} asked for, but CUDA is not available")
+    _refuse_unported(args, device)
+    set_seed(args.seed)
+
+    train_ds = WaveTrainDataset(args.train_wav_root, args.train_list_path,
+                                samples=int(args.duration * args.sample_rate),
+                                n_sources=args.n_sources,
+                                cache_in_memory=bool(args.cache_in_memory))
+    valid_ds = WaveEvalDataset(args.valid_wav_root, args.valid_list_path,
+                               max_samples=int(args.valid_duration * args.sample_rate),
+                               n_sources=args.n_sources)
+    print(f"Training dataset includes {len(train_ds)} samples.", flush=True)
+    print(f"Valid dataset includes {len(valid_ds)} samples.", flush=True)
+    train_loader = DataLoader(train_ds, batch_size=args.batch_size, shuffle=True, seed=args.seed,
+                              num_workers=args.num_workers)
+    valid_loader = DataLoader(valid_ds, batch_size=1)
+
+    model = build_wsj0mix_model(args, device)
+    optimizer = make_optimizer(args.optimizer, args.lr, max_norm=args.max_norm,
+                               params=model.parameters())
+    criterion = PIT1d(NegSISDR(), n_sources=args.n_sources)
+    config = TrainerConfig(
+        epochs=args.epochs, exp_dir=args.exp_dir, continue_from=args.continue_from,
+        overwrite=bool(args.overwrite), sample_rate=args.sample_rate,
+        time_budget_sec=args.time_budget_min * 60.0 if args.time_budget_min else None)
+    trainer = Trainer(model, train_loader, valid_loader, criterion, optimizer, config, device,
+                      compute_dtype=torch.bfloat16 if args.mixed_precision else None)
+    trainer.run()
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

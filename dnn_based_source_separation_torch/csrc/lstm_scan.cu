@@ -4,13 +4,15 @@
 //   lstm_scan        (_lstm_kernel):  one chain;
 //   lstm_scan_bidir  (_bidir_kernel): two chains, the second over a sequence
 //                    the caller has already reversed in time.
-// Forward only; the cell state is not written (it is a VJP residual there).
+// The cell state is written only when the caller asks for it (training: it
+// is the residual the backward, csrc/lstm_scan_bwd.cu, reads); serving passes
+// a null pointer and does exactly the work it did before.
 //
 // Per chain and sequence, with h = c = 0 at the start and gate order i, f, g, o:
 //
 //     gates = f32(xw[b, t, :]) + f32(h rounded to the weight dtype) @ f32(W_hh)
 //     c = sigmoid(f) * c + sigmoid(i) * tanh(g);   h = sigmoid(o) * tanh(c)
-//     hs[b, t, :] = h rounded to the dtype
+//     hs[b, t, :] = h rounded to the dtype;  cs[b, t, :] = c rounded to the dtype
 //
 // xw (B, T, 4H) and W_hh (H, 4H) share one dtype, float32 or bfloat16; the
 // products are exact in f32 and summed in f32, and h and c are carried in
@@ -62,6 +64,7 @@ struct Chains {
   const void* xw[2];
   const void* whh[2];
   void* hs[2];
+  void* cs[2];  // null: do not write the cell state
 };
 
 // Two adjacent elements as f32. bf16 -> f32 is exact: the bf16 bits are the
@@ -134,6 +137,7 @@ lstm_kernel(Chains chains, int B, int T_len, int H, int groups, int KS) {
   const T* __restrict__ xw = static_cast<const T*>(second ? chains.xw[1] : chains.xw[0]);
   const T* __restrict__ whh = static_cast<const T*>(second ? chains.whh[1] : chains.whh[0]);
   T* __restrict__ hs = static_cast<T*>(second ? chains.hs[1] : chains.hs[0]);
+  T* __restrict__ cs = static_cast<T*>(second ? chains.cs[1] : chains.cs[0]);
   const int TB = groups * R;
   const long long G4 = 4LL * H;
 
@@ -199,7 +203,10 @@ lstm_kernel(Chains chains, int B, int T_len, int H, int groups, int KS) {
         hv[e] = go * tanhf(c[r][e]);
       }
       const long long b = b0 + r;
-      if (b < B) store_pair(hs + (b * T_len + t) * H + u, hv[0], hv[1]);
+      if (b < B) {
+        store_pair(hs + (b * T_len + t) * H + u, hv[0], hv[1]);
+        if (cs != nullptr) store_pair(cs + (b * T_len + t) * H + u, c[r][0], c[r][1]);
+      }
       // The next product reads h rounded to the weight dtype, as Pallas does.
       *reinterpret_cast<float2*>(hnext + r * H + u) =
           make_float2(round_to(hv[0], whh), round_to(hv[1], whh));
@@ -270,20 +277,23 @@ int dispatch(const Chains& chains, int dtype, int B, int T_len, int H, void* str
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (xw, W_hh and hs share it). All arrays are
-// contiguous: xw (B, T, 4H), W_hh (H, 4H), hs (B, T, H). Returns a
-// cudaError_t (0 on success). The Python wrapper validates every argument.
-extern "C" int lstm_scan_launch(const void* xw, const void* whh, void* hs, int dtype, int B,
-                                int T, int H, void* stream) {
-  Chains chains = {{xw, nullptr}, {whh, nullptr}, {hs, nullptr}};
+// dtype: 0 = float32, 1 = bfloat16 (xw, W_hh, hs and cs share it). All arrays
+// are contiguous: xw (B, T, 4H), W_hh (H, 4H), hs and cs (B, T, H); cs may be
+// null. Returns a cudaError_t (0 on success). The Python wrapper validates
+// every argument.
+extern "C" int lstm_scan_launch(const void* xw, const void* whh, void* hs, void* cs, int dtype,
+                                int B, int T, int H, void* stream) {
+  Chains chains = {{xw, nullptr}, {whh, nullptr}, {hs, nullptr}, {cs, nullptr}};
   return dispatch<1>(chains, dtype, B, T, H, stream);
 }
 
 // Two chains of one shape: the forward one and the one over the reversed
-// sequence, each with its own W_hh; hs_b comes back in reversed time order.
+// sequence, each with its own W_hh; hs_b (and cs_b) come back in reversed
+// time order. cs_f and cs_b are both null or both set.
 extern "C" int lstm_scan_bidir_launch(const void* xw_f, const void* xw_b, const void* whh_f,
-                                      const void* whh_b, void* hs_f, void* hs_b, int dtype,
-                                      int B, int T, int H, void* stream) {
-  Chains chains = {{xw_f, xw_b}, {whh_f, whh_b}, {hs_f, hs_b}};
+                                      const void* whh_b, void* hs_f, void* hs_b, void* cs_f,
+                                      void* cs_b, int dtype, int B, int T, int H,
+                                      void* stream) {
+  Chains chains = {{xw_f, xw_b}, {whh_f, whh_b}, {hs_f, hs_b}, {cs_f, cs_b}};
   return dispatch<2>(chains, dtype, B, T, H, stream);
 }

@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .mask_decode import fused_mask_decode
+from .mask_decode import fused_mask_decode, fused_mask_decode_reference
 from .params import Weight
 from .stft import _fold, _frame
 
@@ -64,6 +64,9 @@ class ConvDecoder(nn.Module):
     forward(w, mask): latent w (B, T', N) and masks (B, S, T', N) ->
     signals (B, S, T, out_channels) float32. The masking and the synthesis
     matmul run as one fused kernel (ops/mask_decode.py), then overlap-add.
+    Under autograd (training) the same function runs as plain differentiable
+    ops, `fused_mask_decode_reference`, as the JAX decoder computes it: the
+    kernel has no backward.
     """
 
     def __init__(self, n_basis: int, kernel_size: int, stride: int, out_channels: int = 1,
@@ -76,7 +79,10 @@ class ConvDecoder(nn.Module):
 
     def forward(self, w: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         kernel = self.conv_transpose1d.weight.reshape(self.n_basis, -1)  # (N, C*L)
-        frames = fused_mask_decode(w, mask, kernel)  # (B, S, T', C*L)
+        recording = torch.is_grad_enabled() and any(
+            t.requires_grad for t in (w, mask, kernel))
+        decode = fused_mask_decode_reference if recording else fused_mask_decode
+        frames = decode(w, mask, kernel)  # (B, S, T', C*L)
         *lead, S, _ = frames.shape
         frames = frames.reshape(*lead, S, self.out_channels, self.kernel_size)
         frames = frames.movedim(-2, -3)  # (B, S, C, T', L)

@@ -118,15 +118,27 @@ def _check(xw: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor) -> None:
             raise ValueError(f"{name} is not 16-byte aligned")
 
 
+def _refuse_autograd(name: str, *tensors: torch.Tensor) -> None:
+    """CUDA calls under autograd raise: the kernel has no backward yet, and its output
+    would carry no gradient history."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name} on CUDA has no backward kernel yet: the GRU backward "
+            "(ops/pallas_lstm.py:_gru_bwd_core) is the next slice of the port. Serve under "
+            "torch.no_grad(), or train the GRU on the CPU")
+
+
 def gru_scan(xw: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor) -> torch.Tensor:
     """Fused GRU recurrence: xw (B, T, 3H) = x W_ih^T + b_ih, w_hh (H, 3H), b_hh (3H,) -> hs.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel or raise.
+    CPU tensors take the plain version (differentiable); CUDA tensors launch
+    the kernel or raise, and raise under autograd.
     """
     if xw.device.type == "cpu":
         return gru_scan_reference(xw, w_hh, b_hh)
     if xw.device.type != "cuda":
         raise ValueError(f"gru_scan runs on cpu or cuda, not {xw.device}")
+    _refuse_autograd("gru_scan", xw, w_hh, b_hh)
     _check(xw, w_hh, b_hh)
     B, T, _ = xw.shape
     H = w_hh.shape[0]
@@ -149,13 +161,14 @@ def gru_scan_bidir(xw_f: torch.Tensor, xw_b: torch.Tensor, whh_f: torch.Tensor,
     xw_f (B, T, 3H): forward input projections (b_ih included); xw_b: the
     backward chain's over the TIME-REVERSED sequence. Returns (hs_f, hs_b),
     hs_b in reversed time order (flip it back outside), as the Pallas kernel
-    does. CPU tensors take the plain version; CUDA tensors launch the kernel
-    or raise.
+    does. CPU tensors take the plain version (differentiable); CUDA tensors
+    launch the kernel or raise, and raise under autograd.
     """
     if xw_f.device.type == "cpu":
         return gru_scan_bidir_reference(xw_f, xw_b, whh_f, whh_b, bhh_f, bhh_b)
     if xw_f.device.type != "cuda":
         raise ValueError(f"gru_scan_bidir runs on cpu or cuda, not {xw_f.device}")
+    _refuse_autograd("gru_scan_bidir", xw_f, xw_b, whh_f, whh_b, bhh_f, bhh_b)
     _check(xw_f, whh_f, bhh_f)
     _check(xw_b, whh_b, bhh_b)
     if xw_b.shape != xw_f.shape or xw_b.dtype != xw_f.dtype or xw_b.device != xw_f.device:

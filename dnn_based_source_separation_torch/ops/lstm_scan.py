@@ -1,34 +1,48 @@
 """Fused LSTM recurrences: one chain (`lstm_scan`) and two in one launch (`lstm_scan_bidir`).
 
 Port of `dnn_based_source_separation_tpu/ops/pallas_lstm.py:lstm_scan` and
-`lstm_scan_bidir` (forward only). On CUDA tensors the hand-written Hopper
-kernels of `csrc/lstm_scan.cu` run; on CPU tensors the plain PyTorch
-versions do. There is no fallback from one to the other: a CUDA call the
-kernel cannot take raises.
+`lstm_scan_bidir`, with their `jax.custom_vjp` backward (`_lstm_bwd_core`).
+On CUDA tensors the hand-written Hopper kernels run: the forward of
+`csrc/lstm_scan.cu` and, under autograd, the reverse recurrence of
+`csrc/lstm_scan_bwd.cu`. On CPU tensors the plain PyTorch versions do.
+There is no fallback from one to the other: a CUDA call the kernel cannot
+take raises.
 
 Semantics are the Pallas kernels', in both dtypes: gates are
 `f32(xw[t]) + f32(h rounded to W's dtype) @ f32(W)`, h and c are carried in
-f32, and hs is rounded to the dtype on write. (The JAX `lax.scan` path
-computes in the input dtype instead, which differs in bfloat16.)
+f32, and hs (and cs, for the backward) are rounded to the dtype on write.
+(The JAX `lax.scan` path computes in the input dtype instead, which differs
+in bfloat16.) The backward is `_lstm_bwd_core`'s: gates recomputed from the
+saved hs with one matmul, the reverse recurrence in f32 reading the saved
+cs, `d_xw` rounded to xw's dtype and `d_W_hh = h_prev^T @ das` summed in
+f32 and rounded to W's dtype.
+
+Under autograd (grad mode on and an input that requires grad) the calls go
+through `torch.autograd.Function`s whose forward also writes cs; CPU tensors
+run the plain forward and backward inside the same Functions, so CPU
+autograd computes what the card computes. Serving calls, with no grad,
+launch the forward alone and write no cs.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from ._build import load_library
 
 # Launches of each CUDA kernel in this process. Only the launches below
 # increment them; callers reset them to 0 to count a run.
-LAUNCHES = {"lstm_scan": 0, "lstm_scan_bidir": 0}
+LAUNCHES = {"lstm_scan": 0, "lstm_scan_bidir": 0, "lstm_scan_bwd": 0, "lstm_scan_bidir_bwd": 0}
 
 MAX_HIDDEN = 512
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LIB = None
+_BWD_LIB = None
 
 
-def lstm_steps(xw: torch.Tensor, w_hh: torch.Tensor, state=None):
+def lstm_steps(xw: torch.Tensor, w_hh: torch.Tensor, state=None, cs: torch.Tensor | None = None):
     """The LSTM recurrence one step at a time from `state` = (h, c), (B, H) f32 each.
 
     xw (B, T, 4H), w_hh (H, 4H) -> (hs (B, T, H) in xw's dtype, final (h, c)
@@ -37,22 +51,27 @@ def lstm_steps(xw: torch.Tensor, w_hh: torch.Tensor, state=None):
     the plain version of the kernels. `h.to(W.dtype).float() @ W.float()`
     keeps the bfloat16 products exact and sums them in f32, as the Pallas
     kernel does (a bfloat16 matmul would round its output to bfloat16).
+    `cs`, a (B, T, H) tensor of xw's dtype, receives each step's c if given.
+    (float64 inputs compute in float64, for gradient checks.)
     """
     B, T, four_h = xw.shape
     H = four_h // 4
-    w = w_hh.float()
+    acc = _acc(xw)
+    w = w_hh.to(acc)
     if state is None:
-        h = torch.zeros((B, H), dtype=torch.float32, device=xw.device)
+        h = torch.zeros((B, H), dtype=acc, device=xw.device)
         c = torch.zeros_like(h)
     else:
         h, c = state
     hs = torch.empty((B, T, H), dtype=xw.dtype, device=xw.device)
     for t in range(T):
-        gates = xw[:, t].float() + h.to(w_hh.dtype).float() @ w
+        gates = xw[:, t].to(acc) + h.to(w_hh.dtype).to(acc) @ w
         i, f, g, o = gates.chunk(4, dim=-1)
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h = torch.sigmoid(o) * torch.tanh(c)
         hs[:, t] = h
+        if cs is not None:
+            cs[:, t] = c
     return hs, (h, c)
 
 
@@ -66,28 +85,105 @@ def lstm_scan_bidir_reference(xw_f, xw_b, whh_f, whh_b):
     return lstm_scan_reference(xw_f, whh_f), lstm_scan_reference(xw_b, whh_b)
 
 
+def lstm_forward_reference(xw: torch.Tensor, w_hh: torch.Tensor):
+    """Plain version of the training forward: (hs, cs), each (B, T, H) in xw's dtype."""
+    cs = torch.empty(xw.shape[:2] + (w_hh.shape[0],), dtype=xw.dtype, device=xw.device)
+    return lstm_steps(xw, w_hh, cs=cs)[0], cs
+
+
+def _acc(x: torch.Tensor) -> torch.dtype:
+    """The plain versions' working type: float32, or float64 for float64 inputs."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
+def _shifted(x: torch.Tensor) -> torch.Tensor:
+    """(B, T, H) -> the same one step later in time, with zeros at t = 0."""
+    return F.pad(x[:, :-1], (0, 0, 1, 0))
+
+
+def _gates(xw: torch.Tensor, w_hh: torch.Tensor, h_prev: torch.Tensor) -> torch.Tensor:
+    """Gate pre-activations f32(xw) + f32(h_prev rounded to W's dtype) @ f32(W), one matmul."""
+    B, T, four_h = xw.shape
+    acc = _acc(xw)
+    h = h_prev.to(w_hh.dtype).to(acc).reshape(B * T, -1)
+    return xw.to(acc) + (h @ w_hh.to(acc)).view(B, T, four_h)
+
+
+def _weight_grad(h_prev: torch.Tensor, das: torch.Tensor, dtype) -> torch.Tensor:
+    """d_W_hh = h_prev^T @ das over every (b, t), summed in f32, rounded to W's dtype."""
+    H, four_h = h_prev.shape[-1], das.shape[-1]
+    return (h_prev.to(das.dtype).reshape(-1, H).t() @ das.reshape(-1, four_h)).to(dtype)
+
+
+def lstm_scan_bwd_reference(xw, w_hh, hs, cs, g_hs):
+    """Plain backward of `lstm_scan`: the VJP of hs w.r.t. (xw, w_hh) -> (d_xw, d_whh).
+
+    The math and roundings of `_lstm_bwd_core` (`ops/pallas_lstm.py:182-227`):
+    the gates recomputed from `h_prev` (hs one step later, rounded to W's
+    dtype) with one matmul; tanh(c) and c_prev from `cs` as saved in the input
+    dtype; `W_hh^T` in f32; the reverse recurrence as a step loop in f32;
+    `d_xw` rounded to xw's dtype and `d_whh` summed in f32, rounded to W's dtype.
+    """
+    B, T, H = hs.shape
+    h_prev = _shifted(hs)
+    gi, gf, gg, go = _gates(xw, w_hh, h_prev).chunk(4, dim=-1)
+    gi, gf, gg, go = torch.sigmoid(gi), torch.sigmoid(gf), torch.tanh(gg), torch.sigmoid(go)
+    acc = _acc(xw)
+    tc = torch.tanh(cs.to(acc))
+    c_prev = _shifted(cs).to(acc)
+    w_t = w_hh.to(acc).t()
+    das = torch.empty((B, T, 4 * H), dtype=acc, device=xw.device)
+    dh_rec = torch.zeros((B, H), dtype=acc, device=xw.device)
+    dc_rec = torch.zeros_like(dh_rec)
+    for t in reversed(range(T)):
+        i, f, g, o, c = gi[:, t], gf[:, t], gg[:, t], go[:, t], tc[:, t]
+        dh = g_hs[:, t].to(acc) + dh_rec
+        da_o = dh * c * o * (1.0 - o)
+        dc = dc_rec + dh * o * (1.0 - c * c)
+        da_i = dc * g * i * (1.0 - i)
+        da_f = dc * c_prev[:, t] * f * (1.0 - f)
+        da_g = dc * i * (1.0 - g * g)
+        da = torch.cat([da_i, da_f, da_g, da_o], dim=-1)
+        das[:, t] = da
+        dh_rec = da @ w_t
+        dc_rec = dc * f
+    return das.to(xw.dtype), _weight_grad(h_prev, das, w_hh.dtype)
+
+
 def _library():
     global _LIB
     if _LIB is None:
         lib = load_library("lstm_scan")
-        lib.lstm_scan_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
-        lib.lstm_scan_launch.restype = ctypes.c_int
-        lib.lstm_scan_bidir_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
-        lib.lstm_scan_bidir_launch.restype = ctypes.c_int
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.lstm_scan_launch.argtypes = [p, p, p, p, i, i, i, i, p]
+        lib.lstm_scan_launch.restype = i
+        lib.lstm_scan_bidir_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
+        lib.lstm_scan_bidir_launch.restype = i
         _LIB = lib
     return _LIB
 
 
+def _bwd_library():
+    global _BWD_LIB
+    if _BWD_LIB is None:
+        lib = load_library("lstm_scan_bwd")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.lstm_scan_bwd_launch.argtypes = [p, p, p, p, p, i, i, i, i, p]
+        lib.lstm_scan_bwd_launch.restype = i
+        lib.lstm_scan_bidir_bwd_launch.argtypes = [p] * 10 + [i, i, i, i, p]
+        lib.lstm_scan_bidir_bwd_launch.restype = i
+        _BWD_LIB = lib
+    return _BWD_LIB
+
+
 def build() -> None:
-    """Build (or load) the CUDA kernels now instead of at their first launch."""
+    """Build (or load) the forward kernels now instead of at their first launch."""
     _library()
+
+
+def build_backward() -> None:
+    """Build (or load) the backward kernels now instead of at their first launch."""
+    _bwd_library()
 
 
 def _check(xw: torch.Tensor, w_hh: torch.Tensor) -> None:
@@ -113,27 +209,134 @@ def _check(xw: torch.Tensor, w_hh: torch.Tensor) -> None:
             raise ValueError(f"{name} is not 16-byte aligned")
 
 
+def _check_chains(name: str, chains) -> None:
+    """Validate the (xw, w_hh) pairs of one launch: each pair, and one shape for all."""
+    xw0 = chains[0][0]
+    if xw0.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, not {xw0.device}")
+    for xw, w_hh in chains:
+        _check(xw, w_hh)
+        if xw.shape != xw0.shape or xw.dtype != xw0.dtype or xw.device != xw0.device:
+            raise ValueError(f"the two chains differ: {tuple(xw0.shape)} {xw0.dtype} "
+                             f"{xw0.device} vs {tuple(xw.shape)} {xw.dtype} {xw.device}")
+
+
+def _launch(name: str, fn, pointers, dtype, B, T, H, device) -> None:
+    with torch.cuda.device(device):
+        err = fn(*pointers, _DTYPE_CODE[dtype], B, T, H,
+                 torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    LAUNCHES[name] += 1
+
+
+def _forward_cuda(chains, with_cs: bool):
+    """Launch the forward kernel over one or two (xw, w_hh) chains -> (hs list, cs list)."""
+    name = "lstm_scan" if len(chains) == 1 else "lstm_scan_bidir"
+    _check_chains(name, chains)
+    xw0 = chains[0][0]
+    B, T, four_h = xw0.shape
+    H = four_h // 4
+    hs = [torch.empty((B, T, H), dtype=xw0.dtype, device=xw0.device) for _ in chains]
+    cs = [torch.empty_like(h) for h in hs] if with_cs else []
+    lib = _library()
+    fn = lib.lstm_scan_launch if len(chains) == 1 else lib.lstm_scan_bidir_launch
+    pointers = ([c[0].data_ptr() for c in chains] + [c[1].data_ptr() for c in chains]
+                + [h.data_ptr() for h in hs]
+                + ([c.data_ptr() for c in cs] if with_cs else [None] * len(chains)))
+    _launch(name, fn, pointers, xw0.dtype, B, T, H, xw0.device)
+    return hs, cs
+
+
+def _backward_cuda(chains):
+    """The backward kernel over one or two (xw, w_hh, hs, cs, g_hs) chains -> [(d_xw, d_whh)]."""
+    name = "lstm_scan_bwd" if len(chains) == 1 else "lstm_scan_bidir_bwd"
+    _check_chains(name, [c[:2] for c in chains])
+    xw0 = chains[0][0]
+    B, T, four_h = xw0.shape
+    H = four_h // 4
+    staged = []
+    for xw, w_hh, hs, cs, g_hs in chains:
+        for what, t in (("hs", hs), ("cs", cs), ("g_hs", g_hs)):
+            if t.shape != (B, T, H) or t.dtype != xw.dtype or t.device != xw.device:
+                raise ValueError(f"{what} {tuple(t.shape)} {t.dtype} does not match xw "
+                                 f"{tuple(xw.shape)} {xw.dtype}")
+        h_prev = _shifted(hs)
+        # Gradients come back through flip and cat: make them contiguous
+        # before any data_ptr().
+        staged.append((h_prev, _gates(xw, w_hh, h_prev), cs.contiguous(), g_hs.contiguous(),
+                       w_hh.t().contiguous(),
+                       torch.empty((B, T, four_h), dtype=torch.float32, device=xw.device)))
+    lib = _bwd_library()
+    fn = lib.lstm_scan_bwd_launch if len(chains) == 1 else lib.lstm_scan_bidir_bwd_launch
+    pointers = [s[k].data_ptr() for k in range(1, 6) for s in staged]
+    _launch(name, fn, pointers, xw0.dtype, B, T, H, xw0.device)
+    return [(das.to(xw.dtype), _weight_grad(h_prev, das, w_hh.dtype))
+            for (h_prev, *_, das), (xw, w_hh, *_) in zip(staged, chains)]
+
+
+def _forward_with_cs(chains):
+    """Training forward of one or two chains -> (hs list, cs list)."""
+    if chains[0][0].device.type == "cpu":
+        hs, cs = zip(*(lstm_forward_reference(xw, w_hh) for xw, w_hh in chains))
+        return list(hs), list(cs)
+    return _forward_cuda(chains, with_cs=True)
+
+
+def _backward(chains):
+    """Backward of one or two chains -> [(d_xw, d_whh)]."""
+    if chains[0][0].device.type == "cpu":
+        return [lstm_scan_bwd_reference(*c) for c in chains]
+    return _backward_cuda(chains)
+
+
+class _LSTMScan(torch.autograd.Function):
+    """`lstm_scan` under autograd: forward with cs, backward by the reverse recurrence."""
+
+    @staticmethod
+    def forward(ctx, xw, w_hh):
+        (hs,), (cs,) = _forward_with_cs([(xw, w_hh)])
+        ctx.save_for_backward(xw, w_hh, hs, cs)
+        return hs
+
+    @staticmethod
+    def backward(ctx, g_hs):
+        ((d_xw, d_whh),) = _backward([(*ctx.saved_tensors, g_hs)])
+        return d_xw, d_whh
+
+
+class _LSTMScanBidir(torch.autograd.Function):
+    """`lstm_scan_bidir` under autograd: both chains in one launch each way."""
+
+    @staticmethod
+    def forward(ctx, xw_f, xw_b, whh_f, whh_b):
+        (hs_f, hs_b), (cs_f, cs_b) = _forward_with_cs([(xw_f, whh_f), (xw_b, whh_b)])
+        ctx.save_for_backward(xw_f, xw_b, whh_f, whh_b, hs_f, hs_b, cs_f, cs_b)
+        return hs_f, hs_b
+
+    @staticmethod
+    def backward(ctx, g_f, g_b):
+        xw_f, xw_b, whh_f, whh_b, hs_f, hs_b, cs_f, cs_b = ctx.saved_tensors
+        (d_xw_f, d_whh_f), (d_xw_b, d_whh_b) = _backward(
+            [(xw_f, whh_f, hs_f, cs_f, g_f), (xw_b, whh_b, hs_b, cs_b, g_b)])
+        return d_xw_f, d_xw_b, d_whh_f, d_whh_b
+
+
+def _recording(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def lstm_scan(xw: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
     """Fused LSTM recurrence: xw (B, T, 4H) input gates, w_hh (H, 4H) -> hs (B, T, H).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel or raise.
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise. Under autograd the backward kernel computes the gradients.
     """
+    if _recording(xw, w_hh):
+        return _LSTMScan.apply(xw, w_hh)
     if xw.device.type == "cpu":
         return lstm_scan_reference(xw, w_hh)
-    if xw.device.type != "cuda":
-        raise ValueError(f"lstm_scan runs on cpu or cuda, not {xw.device}")
-    _check(xw, w_hh)
-    B, T, _ = xw.shape
-    H = w_hh.shape[0]
-    hs = torch.empty((B, T, H), dtype=xw.dtype, device=xw.device)
-    with torch.cuda.device(xw.device):
-        err = _library().lstm_scan_launch(
-            xw.data_ptr(), w_hh.data_ptr(), hs.data_ptr(), _DTYPE_CODE[xw.dtype], B, T, H,
-            torch.cuda.current_stream(xw.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"lstm_scan kernel launch failed: cudaError {err}")
-    LAUNCHES["lstm_scan"] += 1
-    return hs
+    return _forward_cuda([(xw, w_hh)], with_cs=False)[0][0]
 
 
 def lstm_scan_bidir(xw_f: torch.Tensor, xw_b: torch.Tensor, whh_f: torch.Tensor,
@@ -143,27 +346,12 @@ def lstm_scan_bidir(xw_f: torch.Tensor, xw_b: torch.Tensor, whh_f: torch.Tensor,
     xw_f (B, T, 4H): forward input gates; xw_b: the backward chain's input
     gates over the TIME-REVERSED sequence. Returns (hs_f, hs_b), hs_b in
     reversed time order (flip it back outside), as the Pallas kernel does.
-    CPU tensors take the plain version; CUDA tensors launch the kernel or raise.
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise. Under autograd the backward kernel computes the gradients.
     """
+    if _recording(xw_f, xw_b, whh_f, whh_b):
+        return _LSTMScanBidir.apply(xw_f, xw_b, whh_f, whh_b)
     if xw_f.device.type == "cpu":
         return lstm_scan_bidir_reference(xw_f, xw_b, whh_f, whh_b)
-    if xw_f.device.type != "cuda":
-        raise ValueError(f"lstm_scan_bidir runs on cpu or cuda, not {xw_f.device}")
-    _check(xw_f, whh_f)
-    _check(xw_b, whh_b)
-    if xw_b.shape != xw_f.shape or xw_b.dtype != xw_f.dtype or xw_b.device != xw_f.device:
-        raise ValueError(f"the two chains differ: {tuple(xw_f.shape)} {xw_f.dtype} "
-                         f"{xw_f.device} vs {tuple(xw_b.shape)} {xw_b.dtype} {xw_b.device}")
-    B, T, _ = xw_f.shape
-    H = whh_f.shape[0]
-    hs_f = torch.empty((B, T, H), dtype=xw_f.dtype, device=xw_f.device)
-    hs_b = torch.empty_like(hs_f)
-    with torch.cuda.device(xw_f.device):
-        err = _library().lstm_scan_bidir_launch(
-            xw_f.data_ptr(), xw_b.data_ptr(), whh_f.data_ptr(), whh_b.data_ptr(),
-            hs_f.data_ptr(), hs_b.data_ptr(), _DTYPE_CODE[xw_f.dtype], B, T, H,
-            torch.cuda.current_stream(xw_f.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"lstm_scan_bidir kernel launch failed: cudaError {err}")
-    LAUNCHES["lstm_scan_bidir"] += 1
+    hs_f, hs_b = _forward_cuda([(xw_f, whh_f), (xw_b, whh_b)], with_cs=False)[0]
     return hs_f, hs_b

@@ -4,6 +4,10 @@ Port of `dnn_based_source_separation_tpu/ops/pallas_kernels.py:fused_mask_decode
 On CUDA tensors the hand-written Hopper kernel `csrc/mask_decode.cu` runs;
 on CPU tensors the plain PyTorch version does. There is no fallback from
 one to the other: a CUDA call the kernel cannot take raises.
+
+The kernel has no backward, as the Pallas kernel has no VJP: a CUDA call
+under autograd raises instead of returning a result with no gradient
+history. Training decodes with the plain version (`ops/filterbank.py`).
 """
 from __future__ import annotations
 
@@ -28,9 +32,11 @@ def fused_mask_decode_reference(w: torch.Tensor, mask: torch.Tensor,
                                 kernel: torch.Tensor) -> torch.Tensor:
     """Plain version: (w[:, None] * mask) rounded in the input dtype, then an f32 matmul.
 
-    w (B, T', N), mask (B, S, T', N), kernel (N, CL) -> (B, S, T', CL) float32.
+    w (B, T', N), mask (B, S, T', N), kernel (N, CL) -> (B, S, T', CL) float32
+    (float64 for float64 inputs, for gradient checks).
     """
-    return (w[:, None] * mask).float() @ kernel.float()
+    acc = torch.promote_types(w.dtype, torch.float32)
+    return (w[:, None] * mask).to(acc) @ kernel.to(acc)
 
 
 def _library():
@@ -94,13 +100,18 @@ def fused_mask_decode(w: torch.Tensor, mask: torch.Tensor, kernel: torch.Tensor)
     bfloat16 -> (B, S, T', CL) float32. The overlap-add of the frames
     happens outside (ops/filterbank.py:ConvDecoder).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel or raise.
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise, and raise under autograd (grad mode on and an input requiring grad).
     """
     global LAUNCHES
     if w.device.type == "cpu":
         return fused_mask_decode_reference(w, mask, kernel)
     if w.device.type != "cuda":
         raise ValueError(f"fused_mask_decode runs on cpu or cuda, not {w.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (w, mask, kernel)):
+        raise NotImplementedError("fused_mask_decode has no backward (no VJP, as in the JAX "
+                                  "package): decode with fused_mask_decode_reference under "
+                                  "autograd, or call it under torch.no_grad()")
     _check(w, mask, kernel)
     lib = _library()
     B, Tp, N = w.shape

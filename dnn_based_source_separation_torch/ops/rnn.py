@@ -8,7 +8,11 @@ chain the time-reversed input and flips its hidden states back, as the JAX
 package does.
 
 - LSTM: `xw = x @ W_ih^T + (b_ih + b_hh)`; both biases sit outside the
-  recurrent product, so their sum goes into xw.
+  recurrent product, so their sum goes into xw. JAX trains that sum as one
+  bias `b` per chain: here `bias_hh` stays a registered parameter (names,
+  `state_dict` and checkpoints are torch's) but is frozen
+  (`requires_grad=False`), so only `bias_ih` trains and the sum moves as
+  JAX's `b` does under the same optimizer.
 - GRU: `xw = x @ W_ih^T + b_ih`, and b_hh goes into the kernel: its n-part
   sits inside the reset gate, `n = tanh(x_n + r * (W_hn h + b_hn))`.
 
@@ -21,6 +25,11 @@ a unidirectional stack continues from the carried per-layer state, held in
 f32, and returns the final one. It runs the plain step loops
 (`lstm_steps` / `gru_steps`), as the JAX package runs its carried scans
 outside Pallas. Vanilla RNN and SRU are not ported yet.
+
+Training: the LSTM recurrences are differentiable on both devices
+(`ops/lstm_scan.py`, backward kernels on CUDA). The GRU backward kernel is
+not ported yet, so `gru_scan` / `gru_scan_bidir` refuse CUDA tensors under
+autograd (`ops/gru_scan.py`); on the CPU the plain GRU stays differentiable.
 """
 from __future__ import annotations
 
@@ -37,8 +46,8 @@ class _StackedRNN(nn.Module):
     """(B, T, F) -> (B, T, D * H), D = 2 if bidirectional; zero initial state.
 
     `dropout` follows torch: it would apply between layers in training only.
-    Training is not ported, so a module with dropout > 0 raises in train
-    mode and ignores it in eval mode.
+    No ported configuration uses it, so a module with dropout > 0 raises in
+    train mode and ignores it in eval mode.
     """
 
     GATES = 0
@@ -66,8 +75,9 @@ class _StackedRNN(nn.Module):
 
     def _refuse_dropout(self) -> None:
         if self.training and self.dropout > 0.0:
-            raise NotImplementedError(f"{type(self).__name__} dropout is a training feature; "
-                                      "training is not ported yet (call .eval())")
+            raise NotImplementedError(f"{type(self).__name__} dropout between layers is not "
+                                      "ported (no DPRNN-TasNet or Conv-TasNet config uses it; "
+                                      "call .eval() to ignore it)")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         self._refuse_dropout()
@@ -99,6 +109,12 @@ class _StackedRNN(nn.Module):
 
 class LSTM(_StackedRNN):
     GATES = 4
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        for layer in range(self.num_layers):
+            for sfx in self._suffixes(layer):
+                getattr(self, f"bias_hh{sfx}").requires_grad_(False)
 
     def _chain(self, x: torch.Tensor, sfx: str):
         """(xw, W_hh^T) of one direction: xw (B, T, 4H) in the parameter dtype."""

@@ -1,0 +1,155 @@
+"""Train and eval steps, and the optimizer factory.
+
+Port of `dnn_based_source_separation_tpu/train/steps.py:18-64, 93-210`. The
+JAX package compiles forward + PIT loss + backward + clip + update into
+one XLA program; here the step runs eagerly on the model's device, and the
+loss stays a device tensor so a training loop never waits on the card.
+
+The optimizer keeps optax's update rules on `torch.optim`:
+- `adam`: optax.adam (b1 0.9, b2 0.999, eps 1e-8 outside the square root),
+  which is `torch.optim.Adam`'s arithmetic;
+- `sgd` / `momentum-sgd`: optax.sgd, with momentum as optax.trace
+  (`t = g + m * t`, the update `lr * t`), which is `torch.optim.SGD`'s;
+- global-norm clipping as `optax.clip_by_global_norm`: every gradient is
+  scaled by `max_norm / norm` only when `norm >= max_norm`
+  (`torch.nn.utils.clip_grad_norm_` scales by `max_norm / (norm + 1e-6)`
+  whenever that is below 1, which is another function);
+- the learning rate lives in the param groups, so the Trainer's halving
+  changes it in place, as `optax.inject_hyperparams` does.
+"""
+from __future__ import annotations
+
+from typing import Callable, Iterable, Optional
+
+import torch
+from torch.func import functional_call
+
+
+class Optimizer:
+    """A `torch.optim` optimizer with optax's global-norm clipping in front of its step."""
+
+    def __init__(self, inner: torch.optim.Optimizer, max_norm: Optional[float]):
+        self.inner, self.max_norm = inner, max_norm
+        self.params = [p for group in inner.param_groups for p in group["params"]]
+
+    @property
+    def param_groups(self):
+        return self.inner.param_groups
+
+    def zero_grad(self) -> None:
+        self.inner.zero_grad(set_to_none=True)
+
+    @torch.no_grad()
+    def step(self) -> None:
+        if self.max_norm is not None:
+            clip_by_global_norm_([p.grad for p in self.params if p.grad is not None],
+                                 self.max_norm)
+        self.inner.step()
+
+    def state_dict(self) -> dict:
+        return self.inner.state_dict()
+
+    def load_state_dict(self, state: dict) -> None:
+        self.inner.load_state_dict(state)
+
+
+@torch.no_grad()
+def clip_by_global_norm_(grads: list, max_norm: float) -> torch.Tensor:
+    """Scale `grads` in place as `optax.clip_by_global_norm(max_norm)` does; return the norm.
+
+    norm = sqrt(sum of every squared element); when norm >= max_norm each
+    gradient becomes `g / norm * max_norm`. The choice is made on the
+    device (no host synchronisation).
+    """
+    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g.float())
+                                                 for g in grads]))
+    scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+    for g in grads:
+        g.mul_(scale.to(g.dtype))
+    return norm
+
+
+def make_optimizer(name: str, lr: float = 1e-3, max_norm: Optional[float] = None,
+                   momentum: float = 0.9, *, params: Iterable[torch.Tensor]) -> Optimizer:
+    """'adam' | 'sgd' | 'momentum-sgd' over `params`, with optional global-norm clipping.
+
+    Mirrors the JAX `make_optimizer` (the recipe's optimizer choice and
+    clip_grad_norm). 'rmsprop' raises: optax's `scale_by_rms` (eps inside
+    the square root, squares initialised to 0, no centring) is not
+    `torch.optim.RMSprop`, and no recipe config of the ported models uses it.
+    """
+    params = [p for p in params if p.requires_grad]
+    if name == "adam":
+        inner = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    elif name == "sgd":
+        inner = torch.optim.SGD(params, lr=lr)
+    elif name == "momentum-sgd":
+        inner = torch.optim.SGD(params, lr=lr, momentum=momentum)
+    elif name == "rmsprop":
+        raise NotImplementedError("optimizer 'rmsprop' is not ported: optax.rmsprop's update "
+                                  "rule is not torch.optim.RMSprop's")
+    else:
+        raise ValueError(f"Unsupported optimizer: {name}")
+    return Optimizer(inner, max_norm)
+
+
+def get_learning_rate(optimizer: Optimizer) -> float:
+    return float(optimizer.param_groups[0]["lr"])
+
+
+def set_learning_rate(optimizer: Optimizer, lr: float) -> Optimizer:
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+    return optimizer
+
+
+def _loss_of(out) -> torch.Tensor:
+    """Criteria follow the PIT protocol, (loss, pattern); plain scalar criteria work too."""
+    return out[0] if isinstance(out, tuple) else out
+
+
+def make_train_step(model: torch.nn.Module, criterion: Callable, optimizer: Optimizer,
+                    compute_dtype: Optional[torch.dtype] = None) -> Callable:
+    """Build (mixture, sources) -> loss: forward, PIT loss in f32, backward, clip, update.
+
+    The loss comes back as a detached device tensor; nothing synchronises.
+    compute_dtype=torch.bfloat16 is the JAX package's mixed precision
+    (`steps.py:113-115, 139-152`): the f32 master parameters are cast to
+    bfloat16 inside the step and the model runs on those copies
+    (`torch.func.functional_call`), the mixture is cast too, and the
+    estimates go back to f32 before the loss. Gradients flow through the
+    casts onto the f32 parameters, where the optimizer and its state stay.
+    It is not `torch.autocast`, which keeps some ops in f32 and so computes
+    another function.
+    """
+
+    def cast(tensors: dict) -> dict:
+        return {k: v.to(compute_dtype) if v.dtype == torch.float32 else v
+                for k, v in tensors.items()}
+
+    def step(mixture: torch.Tensor, sources: torch.Tensor) -> torch.Tensor:
+        model.train()
+        optimizer.zero_grad()
+        if compute_dtype is None:
+            estimates = model(mixture)
+        else:
+            state = cast({**dict(model.named_parameters()), **dict(model.named_buffers())})
+            estimates = functional_call(model, state, (mixture.to(compute_dtype),)).float()
+        loss = _loss_of(criterion(estimates, sources))
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step
+
+
+def make_eval_step(model: torch.nn.Module, criterion: Callable) -> Callable:
+    """Build (mixture, sources) -> (loss, estimates), under `torch.no_grad()`."""
+
+    @torch.no_grad()
+    def step(mixture: torch.Tensor, sources: torch.Tensor):
+        model.eval()
+        estimates = model(mixture)
+        return _loss_of(criterion(estimates, sources)), estimates
+
+    return step

@@ -28,6 +28,9 @@ def test_importing_every_port_module_leaves_jax_out():
     assert "dnn_based_source_separation_torch.ops.lstm_scan" in modules
     assert "dnn_based_source_separation_torch.ops.gru_scan" in modules
     assert "dnn_based_source_separation_torch.models.streaming" in modules
+    for new in ("criterion.sdr", "criterion.pit", "train.steps", "train.trainer",
+                "data.loader", "cli.model_factory", "cli.train_wsj0mix"):
+        assert f"dnn_based_source_separation_torch.{new}" in modules, new
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "import chip_smoke\n"

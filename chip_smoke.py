@@ -1,15 +1,17 @@
-"""Drive the PyTorch port's serving and training paths on one CUDA card and check them.
+"""Drive the PyTorch port's serving, training and evaluation paths on one CUDA card and check them.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every phase
+    python3 chip_smoke.py --only 3e,3f    # phases 1 and 2, then the kernel phases named
 
 Phases (any failure exits non-zero; nothing is caught and passed):
   1. device: require CUDA, print the card's name and power limit, turn TF32 off;
-  2. build: compile csrc/mask_decode.cu, csrc/lstm_scan.cu, csrc/lstm_scan_bwd.cu
-     and csrc/gru_scan.cu with nvcc for sm_90a, all at once;
+  2. build: compile csrc/mask_decode.cu, csrc/lstm_scan.cu, csrc/lstm_scan_bwd.cu,
+     csrc/gru_scan.cu, csrc/gru_scan_bwd.cu and csrc/quantize.cu with nvcc for
+     sm_90a, all at once, and require 0 bytes of stack in every kernel;
   3. kernel vs plain: fused_mask_decode against its plain PyTorch version on
      the card, f32 and bf16, at the Conv-TasNet serving shape, the DPRNN-TasNet
      decoder shape and three others, timed with CUDA events at the two
-     serving shapes;
+     serving shapes beside its bound and, in f32, einsum (the same function);
   3b. lstm_scan_bidir and lstm_scan against their plain versions, f32 and
      bf16, at the intra- and inter-chunk serving shapes (timed), an odd small
      shape, T=1, and H=256 and 512;
@@ -17,8 +19,19 @@ Phases (any failure exits non-zero; nothing is caught and passed):
   3d. the training forward (cs written) and the backward kernels of
      lstm_scan_bidir and lstm_scan under autograd against the plain forward and
      lstm_scan_bwd_reference, f32 and bf16, at the recipe training shapes (B = 2
-     x 4 s, timed), an odd shape, T=1 and H=256; gru_scan(_bidir) and
-     fused_mask_decode must refuse CUDA tensors that require grad;
+     x 4 s, timed), an odd shape, T=1 and H=256; fused_mask_decode must refuse
+     CUDA tensors that require grad;
+  3e. the backward kernels of gru_scan_bidir and gru_scan under autograd
+     against gru_scan_bwd_reference the same way, the whole backward and the
+     kernel alone timed;
+  3f. quantize_int8 against its plain version, bit for bit, on every weight
+     tensor of paper-config Conv-TasNet that quantize_state_dict quantizes
+     (those JAX's quantize_params quantizes) and on a (4096, 4096) tensor
+     (timed); stochastic rounding: every value the floor or the ceiling, and
+     unbiased over 64 seeds;
+  3g. the library calls beside the recurrence kernels (informational):
+     cuDNN's nn.LSTM / nn.GRU forward and backward at the kernels' timed
+     shapes, input projection included; the port never calls them;
   4. serve: paper-config Conv-TasNet (random weights from seed 0) through
      cli/separate.py on three mixtures in float32 and bfloat16, counting the
      kernel's launches;
@@ -31,35 +44,49 @@ Phases (any failure exits non-zero; nothing is caught and passed):
      cli/separate.py --streaming_hop 0.05; each request must launch exactly
      what its separator calls imply, and the f32 streamed output must match
      the offline stream-safe forward on the card;
+  4e. quantized weights: paper-config Conv-TasNet's weights quantized to int8
+     on the card (one quantize_int8 launch per weight tensor, 99), dequantized,
+     loaded and served through cli/separate.py; the SNR against the
+     unquantized output is informational;
   5. card vs CPU: the f32 card output against the CPU (plain) output, and the
      bf16 card output against the f32 card output, for every served model,
      streamed ones included;
   6. throughput (informational): B=8 x 4 s bf16 forward, and CLI latency,
      for each offline model; ms per 0.05 s hop, its real-time factor and the
      CLI latency for the streamed ones;
-  7. one train step, card vs CPU: recipe-config DPRNN-TasNet (non-causal and
-     causal) and paper-config Conv-TasNet, same seed-made weights and batch,
-     f32: the loss and every gradient, none all zero on the card, and the
-     kernel launches of the step;
+  7. one train step, card vs CPU: recipe-config DPRNN-TasNet (LSTM and GRU,
+     non-causal and causal) and paper-config Conv-TasNet, same seed-made
+     weights and batch, f32: the loss and every gradient, none all zero on the
+     card, and the kernel launches of the step;
   8. train through cli/train_wsj0mix.py on a synthetic wsj0-style corpus:
      `python -m` for two epochs, then in-process --continue_from, causal,
-     --mixed_precision 1 and Conv-TasNet runs, with the launches of every run
-     checked against its steps and validation forwards; one step and one
-     validation forward counted alone; a fixed batch must lower its loss over
-     20 steps; the trained checkpoints serve through cli/separate.py;
+     --mixed_precision 1, --rnn_type gru (f32, bf16, causal) and Conv-TasNet
+     runs, with the launches of every run checked against its steps and
+     validation forwards; one step and one validation forward counted alone;
+     a fixed batch must lower its loss over 20 steps; the trained checkpoints
+     serve through cli/separate.py;
   9. training throughput (informational): p50 step time and audio-s/s, and a
-     torch.profiler split of one DPRNN-TasNet step.
+     torch.profiler split of one DPRNN-TasNet step, LSTM and GRU;
+  10. evaluate the checkpoints phase 8 trained (Conv-TasNet, LSTM and GRU
+     DPRNN-TasNet) through cli/test_wsj0mix.py --device cuda on a synthetic
+     test list of uneven lengths, one utterance per call: exact launches per
+     utterance, every metric within 0.05 dB of the same CLI with --device cpu,
+     and the wall time per utterance split into forward and BSS-Eval.
 
-Each serving path, and the training path of phase 8, runs with every launch
-count set to 0 just before it and read just after it. The last line is
-{"ok": true, "device": {...}}; the line before it lists the kernels with their
-launch counts, errors and times.
+Each serving, quantizing and evaluation path, and the training path of phase
+8, runs with every launch count set to 0 just before it and read just after
+it. The last line is {"ok": true, "device": {...}}; the line before it lists
+the kernels with their launch counts, errors, times, bounds and library times.
 """
 from __future__ import annotations
 
+import argparse
+import contextlib
 import copy
+import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -70,8 +97,13 @@ import numpy as np
 import torch
 
 from dnn_based_source_separation_torch.cli import separate as cli
+from dnn_based_source_separation_torch.cli import test_wsj0mix as test_cli
 from dnn_based_source_separation_torch.cli import train_wsj0mix as train_cli
 from dnn_based_source_separation_torch.criterion import NegSISDR, PIT1d
+from dnn_based_source_separation_torch.data.audio_io import read_wav, write_wav
+from dnn_based_source_separation_torch.data.synthetic import (
+    _speaker_bank, synth_pseudo_speech, write_quality_corpus,
+)
 from dnn_based_source_separation_torch.models import ConvTasNet, DPRNNTasNet
 from dnn_based_source_separation_torch.models.base import load_model, save_model
 from dnn_based_source_separation_torch.models.fold import fold_gln_affine
@@ -80,9 +112,8 @@ from dnn_based_source_separation_torch.ops import _build
 from dnn_based_source_separation_torch.ops import gru_scan as gs
 from dnn_based_source_separation_torch.ops import lstm_scan as ls
 from dnn_based_source_separation_torch.ops import mask_decode as md
+from dnn_based_source_separation_torch.ops import quantize as q8
 from dnn_based_source_separation_torch.train import make_optimizer, make_train_step
-from dnn_based_source_separation_tpu.data.audio_io import read_wav, write_wav
-from dnn_based_source_separation_tpu.data.synthetic import write_quality_corpus
 
 SAMPLE_RATE = 8000
 # Paper config, N512 L16 S8 B128 H512 Sc128 P3 X8 R3, non-causal gLN, sigmoid
@@ -124,6 +155,19 @@ LSTM_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 SNR_LIMIT_DB = 25.0
 STREAMING_HOP = 0.05  # seconds: 400 samples at 8 kHz
 STREAM_TOL = 1e-4  # streamed vs offline f32, relative to max|offline|
+
+# Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet):
+# the least time for a kernel's work is the larger of its
+# operations over the peak for their type and its bytes (each input read
+# once, each output written once) over the memory rate.
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # f32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+
+
+def bound(flops: float, nbytes: float, dtype) -> dict:
+    ops_s, bytes_s = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+    return {"bound_ms": max(ops_s, bytes_s) * 1e3,
+            "bound_by": "operations" if ops_s >= bytes_s else "bytes"}
 
 
 def log(msg: str) -> None:
@@ -168,7 +212,23 @@ def kernel_inputs(B, S, T, N, CL, dtype, strided, seed):
     return w, mask, kernel
 
 
+def mask_decode_bound(B, S, T, N, CL, dtype) -> dict:
+    """The least time of fused_mask_decode's work: w, mask and K read once in
+    their dtype, the f32 output written once; (w * mask) @ K per frame."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    nbytes = size * (B * T * N * (1 + S) + N * CL) + 4.0 * B * S * T * CL
+    return bound(B * S * T * N * (2.0 * CL + 1), nbytes, dtype)
+
+
+def mask_decode_library(w, mask, kernel):
+    """One PyTorch call for the same function: in f32 it is fused_mask_decode."""
+    return torch.einsum("btn,bstn,nc->bstc", w, mask, kernel)
+
+
 def phase_kernel():
+    """fused_mask_decode against its plain version; timed, with its bound and
+    einsum's time (f32, where einsum computes the same function), at the
+    serving shapes of Conv-TasNet and DPRNN-TasNet."""
     log("== phase 3: fused_mask_decode vs plain on the card")
     cases = [
         (dict(SERVING_SHAPE), True),
@@ -197,10 +257,19 @@ def phase_kernel():
                 ms = median_ms(lambda: md.fused_mask_decode(w, mask, kernel))
                 plain_ms = median_ms(lambda: md.fused_mask_decode_reference(w, mask, kernel))
                 which = "serving shape" if shape == SERVING_SHAPE else "DPRNN-TasNet decoder shape"
-                log(f"  {which} {str(dtype)[6:]}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-                    f"(median of 20, CUDA events)")
-                if shape == SERVING_SHAPE:
-                    result[dtype] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+                timing = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                              **mask_decode_bound(**shape, dtype=dtype))
+                if dtype == torch.float32:
+                    lib = mask_decode_library(w, mask, kernel)
+                    check(float((lib - ref).abs().max()) <= TOL[dtype] * scale,
+                          "einsum is not the same function")
+                    timing["library_ms"] = median_ms(lambda: mask_decode_library(w, mask, kernel))
+                library = ("" if timing["library_ms"] is None
+                           else f"einsum {timing['library_ms']:.4f} ms, ")
+                log(f"  {which} {str(dtype)[6:]}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                    f"{library}bound {timing['bound_ms']:.4f} ms ({timing['bound_by']}) "
+                    f"(medians of 20, CUDA events)")
+                result[(which, dtype)] = timing
     return result
 
 
@@ -354,32 +423,177 @@ def phase_lstm_bwd():
                     log(f"    backward (gates matmul + kernel + d_whh matmul) {ms:.4f} ms, "
                         f"plain {plain_ms:.4f} ms (medians of 10 and 3, CUDA events)")
                     result[(kname, name, dtype)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-    # Kernels without a backward refuse autograd on the card rather than drop it.
-    xw, _, w, _ = lstm_inputs(4, 3, 8, torch.float32, seed=1)
-    xw3, w3 = xw[..., :24].contiguous(), w[:, :24].contiguous()
-    b3 = torch.zeros(24, device="cuda", requires_grad=True)
-    for what, call in (
-            ("gru_scan_bidir", lambda: gs.gru_scan_bidir(xw3, xw3, w3, w3, b3, b3)),
-            ("gru_scan", lambda: gs.gru_scan(xw3, w3, b3)),
-            ("fused_mask_decode", lambda: md.fused_mask_decode(
-                *kernel_inputs(1, 2, 37, 512, 16, torch.float32, True, 0)[:2],
-                torch.zeros(512, 16, device="cuda", requires_grad=True)))):
-        try:
-            call()
-        except NotImplementedError as err:
-            log(f"  {what} under autograd on CUDA raises: {str(err)[:80]}...")
-        else:
-            raise AssertionError(f"{what} returned a result under autograd on CUDA")
+    # fused_mask_decode has no backward (as in JAX): it refuses autograd on the
+    # card rather than drop it.
+    try:
+        md.fused_mask_decode(*kernel_inputs(1, 2, 37, 512, 16, torch.float32, True, 0)[:2],
+                             torch.zeros(512, 16, device="cuda", requires_grad=True))
+    except NotImplementedError as err:
+        log(f"  fused_mask_decode under autograd on CUDA raises: {str(err)[:80]}...")
+    else:
+        raise AssertionError("fused_mask_decode returned a result under autograd on CUDA")
+    return result
+
+
+def phase_gru_bwd():
+    """The backward kernels of the GRU recurrences against gru_scan_bwd_reference."""
+    log("== phase 3e: gru_scan_bidir and gru_scan backward vs plain on the card")
+    result = {}
+    for name, B, T, H in BWD_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            xw_f, xw_b, w_f, w_b, b_f, b_b = gru_inputs(B, T, H, dtype, seed=B + T + H + 2)
+            gen = torch.Generator(device="cuda").manual_seed(B + T + 1)
+            g_f, g_b = (torch.randn(B, T, H, device="cuda", generator=gen).to(dtype)
+                        for _ in range(2))
+            hs_f, hs_b = gs._forward_cuda([(xw_f, w_f, b_f), (xw_b, w_b, b_b)])
+            for kname, chains, hs, grads in (
+                    ("gru_scan_bidir_bwd", [(xw_f, w_f, b_f), (xw_b, w_b, b_b)], (hs_f, hs_b),
+                     (g_f, g_b)),
+                    ("gru_scan_bwd", [(xw_f, w_f, b_f)], (hs_f,), (g_f,))):
+                leaves = [t.clone().requires_grad_() for c in chains for t in c]
+                if len(chains) == 2:
+                    outs = gs.gru_scan_bidir(*leaves[0::3], *leaves[1::3], *leaves[2::3])
+                else:
+                    outs = (gs.gru_scan(*leaves),)
+                got = torch.autograd.grad(outs, leaves, grads)
+                plain_chains = [(*c, h, g) for c, h, g in zip(chains, hs, grads)]
+                ref = [d for c in plain_chains for d in gs.gru_scan_bwd_reference(*c)]
+                torch.cuda.synchronize()
+                errs = []
+                for a, b in zip(got, ref):
+                    check(a.shape == b.shape and a.dtype == b.dtype == dtype, (kname, a.shape))
+                    errs.append((float((a.float() - b.float()).abs().max()),
+                                 bwd_limit(dtype, float(b.float().abs().max()))))
+                log(f"  {kname} {name} (B={B}, T={T}, H={H}) {str(dtype)[6:]}: "
+                    f"max|kernel-plain| / limit of d_xw, d_whh, d_bhh per chain: "
+                    + ", ".join(f"{e:.3e} / {lim:.3e}" for e, lim in errs))
+                if not all(e <= lim for e, lim in errs):
+                    raise AssertionError(f"{kname} disagrees with plain at {name} {dtype}")
+                if name in ("intra", "inter"):
+                    ms = median_ms(lambda: gs._backward_cuda(plain_chains), warmup=2, iters=10)
+                    kernel_ms = median_ms(gs._staged_backward(plain_chains)[1], warmup=2,
+                                          iters=10)
+                    plain_ms = median_ms(
+                        lambda: [gs.gru_scan_bwd_reference(*c) for c in plain_chains],
+                        warmup=1, iters=3)
+                    log(f"    backward (hw matmul + kernel + d_whh, d_bhh) {ms:.4f} ms, kernel "
+                        f"alone {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms (medians of 10, 10 "
+                        f"and 3, CUDA events)")
+                    result[(kname, name, dtype)] = dict(
+                        max_abs_err=max(e for e, _ in errs), ms=ms, plain_ms=plain_ms,
+                        kernel_ms=kernel_ms)
+    return result
+
+
+QUANT_BIG = (4096, 4096)
+STOCH_SHAPE, STOCH_SEEDS = (1024, 1024), 64
+# Stochastic rounding over 64 seeds: the mean of q - x / scale over every draw
+# is 0 within 1e-3 (16 standard deviations of a mean of 67M draws, each
+# within +-1), and each value's mean over the seeds within 0.45 of x / scale
+# (7.2 standard deviations of a mean of 64 draws, over 1M values).
+STOCH_MEAN_TOL, STOCH_VALUE_TOL = 1e-3, 0.45
+
+
+def phase_quantize():
+    """quantize_int8 against its plain version, bit for bit, and stochastic rounding."""
+    log("== phase 3f: quantize_int8 vs plain on the card")
+    model = ConvTasNet(**PAPER, generator=torch.Generator().manual_seed(0), device="cuda")
+    tensors = [t.reshape(t.shape[0], -1).contiguous() for t in model.state_dict().values()
+               if q8.quantizable(t)]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    big = torch.randn(*QUANT_BIG, device="cuda", generator=gen)
+    err = 0.0
+    for x in tensors + [big]:
+        values, scale = q8.quantize_int8(x)
+        ref_values, ref_scale = q8.quantize_int8_reference(x)
+        torch.cuda.synchronize()
+        check(values.dtype == torch.int8 and values.shape == x.shape and scale.shape == (1, 1),
+              (values.dtype, values.shape, scale.shape))
+        err = max(err, float((values.int() - ref_values.int()).abs().max()),
+                  float((scale - ref_scale).abs().max()))
+        if not (torch.equal(values, ref_values) and torch.equal(scale, ref_scale)):
+            raise AssertionError(f"quantize_int8 differs from plain at {tuple(x.shape)}")
+    log(f"  {len(tensors)} weight tensors of paper-config Conv-TasNet and one "
+        f"{QUANT_BIG}: int8 values and scales equal to the plain version bit for bit")
+    ms = median_ms(lambda: q8.quantize_int8(big), warmup=3, iters=20)
+    plain_ms = median_ms(lambda: q8.quantize_int8_reference(big), warmup=3, iters=20)
+    log(f"  {QUANT_BIG}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20, CUDA "
+        f"events)")
+
+    x = torch.randn(*STOCH_SHAPE, device="cuda", generator=gen)
+    _, scale = q8.quantize_int8(x)
+    s = x / scale
+    low, high = torch.floor(s), torch.ceil(s)
+    total = torch.zeros_like(s, dtype=torch.float64)
+    previous = None
+    for seed in range(STOCH_SEEDS):
+        values, st_scale = q8.quantize_int8(x, seed=seed, stochastic=True)
+        q = values.float()
+        check(torch.equal(st_scale, scale), "the stochastic scale differs")
+        check(bool(((q == low) | (q == high)).all()), f"seed {seed}: a value is neither the "
+                                                      "floor nor the ceiling")
+        check(previous is None or not torch.equal(values, previous), "two seeds drew alike")
+        previous = values
+        total += (q - s).double()
+    mean_all = float(total.mean()) / STOCH_SEEDS
+    worst = float((total / STOCH_SEEDS).abs().max())
+    log(f"  stochastic, {STOCH_SHAPE} over {STOCH_SEEDS} seeds: every value the floor or the "
+        f"ceiling; mean(q - x/scale) {mean_all:.2e} (limit {STOCH_MEAN_TOL:g}), worst value's "
+        f"mean {worst:.3f} (limit {STOCH_VALUE_TOL:g})")
+    check(abs(mean_all) <= STOCH_MEAN_TOL and worst <= STOCH_VALUE_TOL,
+          "stochastic rounding is biased")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+# The recurrence kernels' timed shapes, (rows, B, T, chains, phase): serving
+# (3b, 3c) and training (3d, 3e). DPRNN-TasNet's RNNs take N = 64 features.
+LIBRARY_SHAPES = {
+    "scan_bidir": (2040, 250, 2), "scan": (2000, 255, 1),
+    "scan_bidir_bwd": (510, 250, 2), "scan_bwd": (500, 255, 1),
+}
+RNN_FEATURES = DPRNN["sep_bottleneck_channels"]
+
+
+def phase_library():
+    """cuDNN's nn.LSTM / nn.GRU at the recurrence kernels' timed shapes, f32 (informational).
+
+    One PyTorch call each: the module's forward, or torch.autograd.grad of
+    its output for the backward rows. Both also do the input projection
+    (x @ W_ih and its gradients), which the port's kernels take as given.
+    """
+    log("== phase 3g: library calls beside the recurrence kernels (cuDNN, f32, informational)")
+    result = {}
+    H = DPRNN["sep_hidden_channels"]
+    for rnn, cls in (("lstm", torch.nn.LSTM), ("gru", torch.nn.GRU)):
+        for row, (B, T, chains) in LIBRARY_SHAPES.items():
+            module = cls(RNN_FEATURES, H, batch_first=True, bidirectional=chains == 2,
+                         device="cuda")
+            gen = torch.Generator(device="cuda").manual_seed(B + T)
+            x = torch.randn(B, T, RNN_FEATURES, device="cuda", generator=gen)
+            if row.endswith("bwd"):
+                x.requires_grad_()
+                y = module(x)[0]
+                g = torch.randn(y.shape, device="cuda", generator=gen)
+                inputs = [x, *module.parameters()]
+                ms = median_ms(lambda: torch.autograd.grad(y, inputs, g, retain_graph=True),
+                               warmup=2, iters=10)
+            else:
+                with torch.no_grad():
+                    ms = median_ms(lambda: module(x), warmup=2, iters=10)
+            result[f"{rnn}_{row}"] = ms
+            log(f"  {cls.__name__} {'backward' if row.endswith('bwd') else 'forward'} "
+                f"(B={B}, T={T}, F={RNN_FEATURES}, H={H}, {chains} chain(s)): {ms:.4f} ms "
+                f"(median of 10, CUDA events)")
     return result
 
 
 def counts() -> dict:
-    return {"fused_mask_decode": md.LAUNCHES, **ls.LAUNCHES, **gs.LAUNCHES}
+    return {"fused_mask_decode": md.LAUNCHES, **ls.LAUNCHES, **gs.LAUNCHES, **q8.LAUNCHES}
 
 
 def reset_counts() -> None:
     md.LAUNCHES = 0
-    for table in (ls.LAUNCHES, gs.LAUNCHES):
+    for table in (ls.LAUNCHES, gs.LAUNCHES, q8.LAUNCHES):
         for name in table:
             table[name] = 0
 
@@ -445,6 +659,12 @@ def write_mixtures(tmp):
     return wavs
 
 
+def separate(argv):
+    """cli/separate.py's main, its progress line kept off the log."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return cli.main(argv)
+
+
 def serve(tag, ckpt, wavs, per_request, flags=()):
     """Six requests (three mixtures x f32/bf16) through cli/separate.py.
 
@@ -459,7 +679,7 @@ def serve(tag, ckpt, wavs, per_request, flags=()):
         for wav in wavs:
             before = counts()
             out_dir = os.path.join(tmp, f"out_{tag}_{dtype}_{os.path.basename(wav)[:-4]}")
-            est = cli.main(["--model_path", ckpt, "--input", wav, "--out_dir", out_dir,
+            est = separate(["--model_path", ckpt, "--input", wav, "--out_dir", out_dir,
                             "--device", "cuda", "--dtype", dtype, *flags])
             grew = {k: v - before[k] for k, v in counts().items()}
             n_in = read_wav(wav)[0].shape[0]
@@ -473,17 +693,17 @@ def serve(tag, ckpt, wavs, per_request, flags=()):
             check(est.shape == (2, n_in) and np.isfinite(est).all(), est.shape)
             check(grew == want, f"request {wav} ({dtype}) launched {grew}, expected {want}")
             log(f"  {dtype} {os.path.basename(wav)}: 2 sources x {n_in} samples, "
-                f"kernel launches {grew}")
+                f"kernel launches {nonzero(grew)}")
             outputs[(dtype, wav)] = est
     launches = counts()
-    log(f"  main-path kernel launches: {launches}")
+    log(f"  main-path kernel launches: {nonzero(launches)}")
     return outputs, launches
 
 
 def phase_parity(tag, ckpt, wavs, outputs, flags=()):
     log(f"== phase 5: card vs CPU, bf16 vs f32 ({tag})")
     wav = wavs[0]
-    ref = cli.main(["--model_path", ckpt, "--input", wav, "--out_dir",
+    ref = separate(["--model_path", ckpt, "--input", wav, "--out_dir",
                     os.path.join(os.path.dirname(ckpt), f"out_{tag}_cpu"), "--device", "cpu",
                     *flags])
     card = outputs[("float32", wav)]
@@ -508,7 +728,7 @@ def cli_latency(ckpt, wav, what, card, flags=()):
     lat = []
     for _ in range(3):
         start = time.perf_counter()
-        cli.main(["--model_path", ckpt, "--input", wav, "--out_dir",
+        separate(["--model_path", ckpt, "--input", wav, "--out_dir",
                   os.path.join(tmp, "out_latency"), "--device", "cuda", "--dtype", "bfloat16",
                   *flags])
         lat.append(time.perf_counter() - start)
@@ -547,7 +767,7 @@ def phase_stream_offline(tag, ckpt, wavs, outputs):
     """The f32 streamed output against the offline stream-safe forward, both on the card."""
     log(f"== phase 4d: streamed vs offline on the card ({tag})")
     for wav in wavs:
-        ref = cli.main(["--model_path", ckpt, "--input", wav, "--out_dir",
+        ref = separate(["--model_path", ckpt, "--input", wav, "--out_dir",
                         os.path.join(os.path.dirname(ckpt), f"out_{tag}_offline"),
                         "--device", "cuda"])
         got = outputs[("float32", wav)]
@@ -592,6 +812,8 @@ def phase_throughput_stream(tag, ckpt, wavs, card):
 TRAIN_MODELS = {
     "dprnn_tasnet": (DPRNNTasNet, dict(DPRNN, causal=False)),
     "dprnn_tasnet_causal": (DPRNNTasNet, dict(DPRNN, causal=True)),
+    "dprnn_tasnet_gru": (DPRNNTasNet, dict(DPRNN, causal=False, rnn_type="gru")),
+    "dprnn_tasnet_gru_causal": (DPRNNTasNet, dict(DPRNN, causal=True, rnn_type="gru")),
     "conv_tasnet": (ConvTasNet, PAPER),
 }
 GRAD_TOL_L2 = 1e-3  # card vs the f64 CPU step: relative L2 of the whole gradient
@@ -609,25 +831,27 @@ CLI_RECIPES = {
 
 
 def train_step_launches(tag: str) -> dict:
-    """Launches of one train step: each recurrence forward (with cs) and backward once per
-    layer, and no decode kernel (training decodes with the plain version)."""
+    """Launches of one train step: each recurrence forward and backward once per layer,
+    and no decode kernel (training decodes with the plain version)."""
     blocks = DPRNN["sep_num_blocks"]
     if tag.startswith("conv"):
         return expected()
+    rnn = "gru" if "_gru" in tag else "lstm"
     if tag.endswith("causal"):
-        return expected(lstm_scan_bidir=blocks, lstm_scan=blocks, lstm_scan_bidir_bwd=blocks,
-                        lstm_scan_bwd=blocks)
-    return expected(lstm_scan_bidir=2 * blocks, lstm_scan_bidir_bwd=2 * blocks)
+        return expected(**{f"{rnn}_scan_bidir": blocks, f"{rnn}_scan": blocks,
+                           f"{rnn}_scan_bidir_bwd": blocks, f"{rnn}_scan_bwd": blocks})
+    return expected(**{f"{rnn}_scan_bidir": 2 * blocks, f"{rnn}_scan_bidir_bwd": 2 * blocks})
 
 
 def eval_launches(tag: str) -> dict:
-    """Launches of one validation (or served) forward: the serving kernels."""
+    """Launches of one validation (or served, or evaluated) forward: the serving kernels."""
     blocks = DPRNN["sep_num_blocks"]
     if tag.startswith("conv"):
         return expected(fused_mask_decode=1)
+    rnn = "gru" if "_gru" in tag else "lstm"
     causal = tag.endswith("causal")
-    return expected(fused_mask_decode=1, lstm_scan_bidir=blocks * (2 - causal),
-                    lstm_scan=blocks * causal)
+    return expected(fused_mask_decode=1, **{f"{rnn}_scan_bidir": blocks * (2 - causal),
+                                            f"{rnn}_scan": blocks * causal})
 
 
 def train_batch(B, seconds, device, seed=7):
@@ -725,7 +949,7 @@ def train_through_cli(argv, launches=None):
     model_dir = os.path.join(trainer.config.exp_dir, "model")
     check(sorted(os.listdir(model_dir)) == ["best.ckpt", "last.ckpt"], os.listdir(model_dir))
     stats = trainer.last_epoch_stats or {}
-    log(f"  {' '.join(argv[argv.index('--model') + 1:argv.index('--model') + 2])} "
+    log(f"  {argv[argv.index('--model') + 1]}{' gru' if 'gru' in argv else ''} "
         f"{'bf16' if '--mixed_precision' in argv else 'f32'}"
         f"{' causal' if '--causal' in argv else ''}: epochs {trainer.start_epoch + 1}-"
         f"{len(trainer.train_loss)}, train loss {[round(v, 4) for v in trainer.train_loss]}, "
@@ -766,9 +990,13 @@ def phase_train_cli(tmp, card):
     check(resumed.start_epoch == 2 and len(resumed.train_loss) == 3,
           (resumed.start_epoch, resumed.train_loss))
     trainers = {"dprnn_tasnet": resumed}
+    gru = ["--rnn_type", "gru"]
     for tag, flags in (("dprnn_tasnet_causal", ["--causal", "1"]),
                        ("dprnn_tasnet", ["--mixed_precision", "1"]),
                        ("dprnn_tasnet_causal", ["--causal", "1", "--mixed_precision", "1"]),
+                       ("dprnn_tasnet_gru", gru),
+                       ("dprnn_tasnet_gru", [*gru, "--mixed_precision", "1"]),
+                       ("dprnn_tasnet_gru_causal", [*gru, "--causal", "1"]),
                        ("conv_tasnet", [])):
         recipe = CLI_RECIPES["conv_tasnet" if tag.startswith("conv") else "dprnn_tasnet"]
         out = os.path.join(tmp, f"exp_{tag}_{'_'.join(flags).replace('-', '')}")
@@ -802,7 +1030,9 @@ def phase_train_cli(tmp, card):
         log(f"  serve the trained {tag} checkpoint through cli/separate.py")
         _, served = serve(f"trained_{tag}", ckpt, wavs[:1], eval_launches(tag))
         launches = {k: v + served[k] for k, v in launches.items()}
-    return launches
+    checkpoints = {tag: os.path.join(trainers[tag].config.exp_dir, "model", "last.ckpt")
+                   for tag in ("conv_tasnet", "dprnn_tasnet", "dprnn_tasnet_gru")}
+    return launches, checkpoints
 
 
 def timed_train_steps(cls, cfg, B, compute_dtype, card, what, warmup=3, iters=10):
@@ -868,8 +1098,9 @@ def profile_train_step(model, compute_dtype, card, what):
             device[e.name] = device.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     check(device, "the profiler recorded no device time")
     busy = sum(device.values())
-    bwd_kernel = sum(t for k, t in device.items() if "lstm_bwd_kernel" in k)
-    fwd_kernel = sum(t for k, t in device.items() if "lstm_kernel" in k)
+    bwd_kernel = sum(t for k, t in device.items() if "lstm_bwd_kernel" in k
+                     or "gru_bwd_kernel" in k)
+    fwd_kernel = sum(t for k, t in device.items() if "lstm_kernel" in k or "gru_kernel" in k)
     log(f"  profile of one {what} step (B=2 x 4 s): wall {wall:.3f} ms; forward "
         f"{fwd:.3f} ms (recurrence kernels {fwd_kernel:.3f} ms device), backward {bwd:.3f} ms "
         f"(backward kernels {bwd_kernel:.3f} ms device, other backward {bwd - bwd_kernel:.3f} "
@@ -881,24 +1112,174 @@ def profile_train_step(model, compute_dtype, card, what):
 
 def phase_train_throughput(card):
     log("== phase 9: training throughput (informational)")
-    dprnn = TRAIN_MODELS["dprnn_tasnet"]
-    for dtype in (None, torch.bfloat16):
-        what = f"DPRNN-TasNet non-causal {'bf16' if dtype else 'f32'}"
-        model = timed_train_steps(*dprnn, 2, dtype, card, what)
-        profile_train_step(model, dtype, card, what)
+    for rnn in ("lstm", "gru"):
+        dprnn = TRAIN_MODELS["dprnn_tasnet" + ("_gru" if rnn == "gru" else "")]
+        for dtype in (None, torch.bfloat16):
+            what = f"DPRNN-TasNet {rnn.upper()} non-causal {'bf16' if dtype else 'f32'}"
+            model = timed_train_steps(*dprnn, 2, dtype, card, what)
+            profile_train_step(model, dtype, card, what)
     for dtype in (None, torch.bfloat16):
         timed_train_steps(*TRAIN_MODELS["conv_tasnet"], 4, dtype, card,
                           f"Conv-TasNet {'bf16' if dtype else 'f32'}", iters=5)
 
 
-def kernel_entry(name, source, replaces, launches, timing):
+def phase_quantized_serve(conv_ckpt, wavs, conv_out):
+    """Quantize paper-config Conv-TasNet's weights on the card, dequantize, serve."""
+    log("== phase 4e: int8-quantized paper-config Conv-TasNet through cli/separate.py")
+    reset_counts()
+    model = load_model(conv_ckpt, device="cuda")
+    qstate = q8.quantize_state_dict(model.state_dict())
+    n_quantized = sum(isinstance(v, dict) for v in qstate.values())
+    model.load_state_dict(q8.dequantize_state_dict(qstate))
+    quantized = counts()
+    # The JAX tree's >= 2-D leaves: the encoder, decoder, bottleneck and mask
+    # convolutions, and per TDCN layer its bottleneck, depthwise and skip
+    # convolutions and, but in the last layer, its output convolution.
+    layers = PAPER["sep_num_blocks"] * PAPER["sep_num_layers"]
+    weights = 4 + 4 * layers - 1
+    check(n_quantized == weights and quantized == expected(quantize_int8=weights),
+          f"quantized {n_quantized} tensors with launches {quantized}, expected {weights}")
+    ckpt = os.path.join(os.path.dirname(conv_ckpt), "conv_tasnet_int8.pth")
+    save_model(ckpt, model)
+    log(f"  {n_quantized} tensors quantized on the card, one quantize_int8 launch each")
+    outputs, served = serve("conv_tasnet_int8", ckpt, wavs, expected(fused_mask_decode=1))
+    for wav in wavs:
+        ref, got = conv_out[("float32", wav)], outputs[("float32", wav)]
+        snr = 10 * np.log10(np.sum(ref ** 2) / np.sum((got - ref) ** 2))
+        log(f"  f32 {os.path.basename(wav)}: int8 weights vs f32 weights, SNR {snr:.2f} dB "
+            f"(informational)")
+    return {k: v + quantized[k] for k, v in served.items()}
+
+
+# Uneven test utterances (samples at 8 kHz): off the stride-8 grid of
+# Conv-TasNet and off DPRNN-TasNet's chunk grid.
+TEST_LENGTHS = (9001, 12345, 15997)
+TEST_METRICS = ("loss", "loss_improvement", "sdr_improvement", "sir_improvement", "sar")
+EVAL_TOL_DB = 0.05  # card vs CPU, each metric of each utterance
+
+
+def write_test_list(tmp):
+    """A wsj0-style test set of pseudo-speech pairs, one list file per utterance."""
+    root = os.path.join(tmp, "tt_uneven")
+    for sub in ("mix", "s1", "s2"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    speakers = _speaker_bank(6, seed=11)
+    rng = np.random.default_rng(12)
+    lists = []
+    for i, T in enumerate(TEST_LENGTHS):
+        s1 = synth_pseudo_speech(speakers[i], rng, T, SAMPLE_RATE)
+        s2 = 0.7 * synth_pseudo_speech(speakers[i + 3], rng, T, SAMPLE_RATE)
+        utt = f"tt{i}"
+        for sub, sig in (("s1", s1), ("s2", s2), ("mix", s1 + s2)):
+            write_wav(os.path.join(root, sub, f"{utt}.wav"), sig, SAMPLE_RATE)
+        lists.append(os.path.join(root, f"{utt}.lst"))
+        with open(lists[-1], "w") as f:
+            f.write(utt + "\n")
+    return root, lists
+
+
+def evaluate(root, list_path, ckpt, device):
+    """cli/test_wsj0mix.main on one utterance -> its summary (its CSV lines kept off the log)."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return test_cli.main(["--test_wav_root", root, "--test_list_path", list_path,
+                              "--model_path", ckpt, "--device", device])
+
+
+def phase_evaluate(tmp, checkpoints, card):
+    """The trained checkpoints through cli/test_wsj0mix.py on the card, against the CPU."""
+    log("== phase 10: evaluate through cli/test_wsj0mix.py, card vs CPU")
+    root, lists = write_test_list(tmp)
+    total = expected()
+    for tag, ckpt in checkpoints.items():
+        worst = 0.0
+        reset_counts()
+        for list_path, T in zip(lists, TEST_LENGTHS):
+            before = counts()
+            start = time.perf_counter()
+            got = evaluate(root, list_path, ckpt, "cuda")
+            wall = (time.perf_counter() - start) * 1e3
+            after = counts()
+            grew = {k: after[k] - before[k] for k in before}
+            check(grew == eval_launches(tag), f"{tag}: an utterance launched {grew}, expected "
+                                              f"{eval_launches(tag)}")
+            ref = evaluate(root, list_path, ckpt, "cpu")
+            diffs = {k: abs(got[k] - ref[k]) for k in TEST_METRICS}
+            check(all(np.isfinite(got[k]) for k in TEST_METRICS), got)
+            worst = max(worst, *diffs.values())
+            log(f"  {tag}, {T} samples: SI-SDRi {got['loss_improvement']:.3f} dB, SDRi "
+                f"{got['sdr_improvement']:.3f}, SIRi {got['sir_improvement']:.3f}, SAR "
+                f"{got['sar']:.3f}; max |card - CPU| {max(diffs.values()):.2e} dB; wall "
+                f"{wall:.1f} ms = forward {got['forward_ms']:.1f} + BSS-Eval "
+                f"{got['bss_eval_ms']:.1f} + load; launches {nonzero(grew)} [{card}]")
+            if not max(diffs.values()) <= EVAL_TOL_DB:
+                raise AssertionError(f"{tag}: card metrics differ from the CPU's: {diffs}")
+        path = counts()
+        total = {k: v + path[k] for k, v in total.items()}
+        log(f"  {tag}: {len(lists)} utterances, worst |card - CPU| over every metric "
+            f"{worst:.2e} dB (limit {EVAL_TOL_DB:g}); path launches {nonzero(path)}")
+    return total
+
+
+def kernel_entry(name, source, replaces, launches, timing, bound_of, library_ms=None,
+                 dtype="float32"):
+    """One kernel of the `kernels` line; `dtype` is that of the inputs timed."""
     return {"name": name, "route": "cuda", "source": f"dnn_based_source_separation_torch/{source}",
             "replaces": f"dnn_based_source_separation_tpu/{replaces}", "launches": launches,
-            "max_abs_err": timing["max_abs_err"], "ms": timing["ms"],
-            "plain_ms": timing["plain_ms"]}
+            "dtype": dtype, "max_abs_err": timing["max_abs_err"], "ms": timing["ms"],
+            "plain_ms": timing["plain_ms"], **bound_of, "library_ms": library_ms}
 
 
-def main() -> int:
+def recurrence_bound(B, T, H, gates, chains, backward=False, cell_state=False, bias=False):
+    """The least time of a recurrence's f32 work at (B, T, H).
+
+    Forward: 2 x B x T x gates x H^2 FLOPs per chain (the recurrent product;
+    the gate nonlinearities are a few operations per unit and are left out),
+    and xw read, hs written. Backward, as timed (the gate recompute, the
+    kernel and the weight gradient): three products of that size, xw, hs,
+    the cotangent (and the LSTM's cs) read, d_xw and the parameter gradients
+    written.
+    """
+    G = gates * H
+    flops = chains * 2.0 * B * T * G * H * (3 if backward else 1)
+    seq = B * T * (G + H)  # xw and hs
+    if backward:
+        seq += B * T * (H + G + (H if cell_state else 0))  # g_hs, d_xw, cs
+    params = G * H * (2 if backward else 1) + (G * (2 if backward else 1) if bias else 0)
+    return bound(flops, 4.0 * chains * (seq + params), torch.float32)
+
+
+BUILDS = {"mask_decode": md.build, "lstm_scan": ls.build, "lstm_scan_bwd": ls.build_backward,
+          "gru_scan": gs.build, "gru_scan_bwd": gs.build_backward, "quantize": q8.build}
+
+
+def phase_build():
+    log("== phase 2: build")
+    start = time.perf_counter()
+    with ThreadPoolExecutor(len(BUILDS)) as pool:  # one nvcc per source, all at once
+        for build in [pool.submit(b) for b in BUILDS.values()]:
+            build.result()
+    log(f"  {', '.join(BUILDS)} built/loaded in {time.perf_counter() - start:.2f} s")
+    for name in BUILDS:
+        info = _build.BUILD_INFO[name]
+        log(f"  {name} ({info['seconds']:.2f} s):")
+        log("  " + info["log"].strip().replace("\n", "\n  "))
+        if info["log"] == "cached":
+            continue
+        stacks = [int(n) for n in re.findall(r"(\d+) bytes stack frame", info["log"])]
+        check(stacks and not any(stacks), f"{name}: a kernel uses stack: {stacks}")
+    log("  every kernel built with 0 bytes of stack")
+
+
+KERNEL_PHASES = {"3": phase_kernel, "3b": phase_lstm, "3c": phase_gru, "3d": phase_lstm_bwd,
+                 "3e": phase_gru_bwd, "3f": phase_quantize, "3g": phase_library}
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser("chip_smoke")
+    parser.add_argument("--only", type=str, default=None,
+                        help="comma-separated kernel phases (3, 3b-3g) to run after phases 1 "
+                             "and 2, and nothing else; no result line is printed")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check needs a CUDA card",
               file=sys.stderr)
@@ -910,24 +1291,20 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-
-    log("== phase 2: build")
-    start = time.perf_counter()
-    builds = (md.build, ls.build, ls.build_backward, gs.build)
-    with ThreadPoolExecutor(len(builds)) as pool:  # one nvcc per source, all at once
-        for build in [pool.submit(b) for b in builds]:
-            build.result()
-    log(f"  mask_decode, lstm_scan, lstm_scan_bwd and gru_scan built/loaded in "
-        f"{time.perf_counter() - start:.2f} s")
-    for name in ("mask_decode", "lstm_scan", "lstm_scan_bwd", "gru_scan"):
-        info = _build.BUILD_INFO[name]
-        log(f"  {name} ({info['seconds']:.2f} s):")
-        log("  " + info["log"].strip().replace("\n", "\n  "))
+    phase_build()
+    if args.only:
+        for phase in args.only.split(","):
+            KERNEL_PHASES[phase.strip()]()
+        log(card)
+        return 0
 
     timings = phase_kernel()
     lstm_timings = phase_lstm()
     gru_timings = phase_gru()
     bwd_timings = phase_lstm_bwd()
+    gru_bwd_timings = phase_gru_bwd()
+    quant_timing = phase_quantize()
+    library = phase_library()
     blocks = DPRNN["sep_num_blocks"]
     stream_flags = ["--streaming_hop", str(STREAMING_HOP)]
     with tempfile.TemporaryDirectory() as tmp:
@@ -968,6 +1345,8 @@ def main() -> int:
             streamed[tag] = (ckpt, outputs)
             total = {k: v + path[k] for k, v in total.items()}
             phase_stream_offline(tag, ckpt, wavs, outputs)
+        path = phase_quantized_serve(conv_ckpt, wavs, conv_out)
+        total = {k: v + path[k] for k, v in total.items()}
         phase_parity("Conv-TasNet", conv_ckpt, wavs, conv_out)
         for tag, (ckpt, outputs) in dprnn.items():
             phase_parity(tag, ckpt, wavs, outputs)
@@ -979,39 +1358,73 @@ def main() -> int:
         for tag, (ckpt, _) in streamed.items():
             phase_throughput_stream(tag, ckpt, wavs, card)
         phase_train_parity()
-        trained = phase_train_cli(tmp, card)
+        trained, checkpoints = phase_train_cli(tmp, card)
+        evaluated = phase_evaluate(tmp, checkpoints, card)
     phase_train_throughput(card)
-    for name in ("lstm_scan_bidir_bwd", "lstm_scan_bwd"):
+    for name in ("lstm_scan_bidir_bwd", "lstm_scan_bwd", "gru_scan_bidir_bwd", "gru_scan_bwd"):
         check(trained[name] >= 1, f"the training path never launched {name}")
-    total = {k: v + trained[k] for k, v in total.items()}
+    total = {k: v + trained[k] + evaluated[k] for k, v in total.items()}
     for name, n in total.items():
         if n < 1:
-            raise AssertionError(f"the serving and training paths never launched {name}")
+            raise AssertionError(f"the serving, training and evaluation paths never launched "
+                                 f"{name}")
     check("jax" not in sys.modules and "flax" not in sys.modules, "jax was imported")
+    check(not any(m.split(".")[0] == "dnn_based_source_separation_tpu" for m in sys.modules),
+          "the JAX package was imported")
 
-    bf16 = torch.bfloat16
-    log(card)
-    print(json.dumps({"kernels": [
+    f32 = torch.float32
+    H = DPRNN["sep_hidden_channels"]
+    n_big = QUANT_BIG[0] * QUANT_BIG[1]
+    mask_timing = timings[("serving shape", f32)]
+    # Every row is f32, where one library call computes the same function:
+    # einsum for fused_mask_decode; cuDNN's nn.LSTM / nn.GRU for the
+    # recurrences (it also does the input projection the kernels take as given).
+    entries = [
         kernel_entry("fused_mask_decode", "csrc/mask_decode.cu", "ops/pallas_kernels.py:109",
-                     total["fused_mask_decode"], timings[bf16]),
+                     total["fused_mask_decode"], mask_timing,
+                     mask_decode_bound(**SERVING_SHAPE, dtype=f32), mask_timing["library_ms"]),
         kernel_entry("lstm_scan_bidir", "csrc/lstm_scan.cu", "ops/pallas_lstm.py:250",
-                     total["lstm_scan_bidir"], lstm_timings[("lstm_scan_bidir", "intra", bf16)]),
+                     total["lstm_scan_bidir"], lstm_timings[("lstm_scan_bidir", "intra", f32)],
+                     recurrence_bound(2040, 250, H, 4, 2), library["lstm_scan_bidir"]),
         kernel_entry("lstm_scan", "csrc/lstm_scan.cu", "ops/pallas_lstm.py:62",
-                     total["lstm_scan"], lstm_timings[("lstm_scan", "inter", bf16)]),
+                     total["lstm_scan"], lstm_timings[("lstm_scan", "inter", f32)],
+                     recurrence_bound(2000, 255, H, 4, 1), library["lstm_scan"]),
         kernel_entry("gru_scan_bidir", "csrc/gru_scan.cu", "ops/pallas_lstm.py:357",
-                     total["gru_scan_bidir"], gru_timings[("gru_scan_bidir", "intra", bf16)]),
+                     total["gru_scan_bidir"], gru_timings[("gru_scan_bidir", "intra", f32)],
+                     recurrence_bound(2040, 250, H, 3, 2, bias=True), library["gru_scan_bidir"]),
         # The one-chain instance of the same kernel: the JAX package runs the
         # unidirectional GRU in lax.scan, so it has no Pallas kernel of its own.
         kernel_entry("gru_scan", "csrc/gru_scan.cu", "ops/pallas_lstm.py:357",
-                     total["gru_scan"], gru_timings[("gru_scan", "inter", bf16)]),
-        # The backward of kernels 2 and 3 (`custom_vjp` _bidir_bwd and _lstm_bwd, both
-        # _lstm_bwd_core); times are the whole backward, gate matmul and d_whh included.
+                     total["gru_scan"], gru_timings[("gru_scan", "inter", f32)],
+                     recurrence_bound(2000, 255, H, 3, 1, bias=True), library["gru_scan"]),
+        # The backward of kernels 2-4 (`custom_vjp` _bidir_bwd and _lstm_bwd, both
+        # _lstm_bwd_core; _gru_bidir_bwd, _gru_bwd_core); times are the whole
+        # backward, the gate matmul and the parameter gradients included.
         kernel_entry("lstm_scan_bidir_bwd", "csrc/lstm_scan_bwd.cu", "ops/pallas_lstm.py:339",
                      total["lstm_scan_bidir_bwd"],
-                     bwd_timings[("lstm_scan_bidir_bwd", "intra", bf16)]),
+                     bwd_timings[("lstm_scan_bidir_bwd", "intra", f32)],
+                     recurrence_bound(510, 250, H, 4, 2, backward=True, cell_state=True),
+                     library["lstm_scan_bidir_bwd"]),
         kernel_entry("lstm_scan_bwd", "csrc/lstm_scan_bwd.cu", "ops/pallas_lstm.py:230",
-                     total["lstm_scan_bwd"], bwd_timings[("lstm_scan_bwd", "inter", bf16)]),
-    ]}), flush=True)
+                     total["lstm_scan_bwd"], bwd_timings[("lstm_scan_bwd", "inter", f32)],
+                     recurrence_bound(500, 255, H, 4, 1, backward=True, cell_state=True),
+                     library["lstm_scan_bwd"]),
+        kernel_entry("gru_scan_bidir_bwd", "csrc/gru_scan_bwd.cu", "ops/pallas_lstm.py:473",
+                     total["gru_scan_bidir_bwd"],
+                     gru_bwd_timings[("gru_scan_bidir_bwd", "intra", f32)],
+                     recurrence_bound(510, 250, H, 3, 2, backward=True, bias=True),
+                     library["gru_scan_bidir_bwd"]),
+        kernel_entry("gru_scan_bwd", "csrc/gru_scan_bwd.cu", "ops/pallas_lstm.py:431",
+                     total["gru_scan_bwd"], gru_bwd_timings[("gru_scan_bwd", "inter", f32)],
+                     recurrence_bound(500, 255, H, 3, 1, backward=True, bias=True),
+                     library["gru_scan_bwd"]),
+        # Two reads of x and one int8 write; no single PyTorch call computes it.
+        kernel_entry("quantize_int8", "csrc/quantize.cu", "ops/pallas_kernels.py:45",
+                     total["quantize_int8"], quant_timing,
+                     bound(3.0 * n_big, 9.0 * n_big + 4, f32)),
+    ]
+    log(card)
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

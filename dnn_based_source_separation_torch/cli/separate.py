@@ -18,8 +18,7 @@ import os
 import numpy as np
 import torch
 
-from dnn_based_source_separation_tpu.data.audio_io import read_wav, write_wav
-
+from ..data.audio_io import read_wav, write_wav
 from ..models.base import load_model
 from ..models.fold import fold_gln_affine
 from ..models.streaming import ExactStreamingSeparator

@@ -10,8 +10,8 @@ f32 master weights as the JAX step does.
 
 Flags for features not ported yet raise NotImplementedError when set:
 `--pit` other than exhaustive, `--criterion orpit`, `--warmup_steps > 0`,
-`--device_resident_data`, `--n_devices`, `--rnn_type sru`, and
-`--rnn_type gru` on CUDA (the GRU backward kernel is the next slice).
+`--device_resident_data`, `--n_devices` and `--rnn_type sru`. DPRNN-TasNet
+trains with `--rnn_type lstm` or `gru` on either device.
 
     python -m dnn_based_source_separation_torch.cli.train_wsj0mix \
         --model dprnn-tasnet -N 64 -L 2 -H 128 -B 64 -K 250 --sep_hop_size 125 -R 6 \
@@ -21,15 +21,13 @@ Flags for features not ported yet raise NotImplementedError when set:
 from __future__ import annotations
 
 import argparse
-import random
 
-import numpy as np
 import torch
 
-from dnn_based_source_separation_tpu.data import DataLoader, WaveEvalDataset, WaveTrainDataset
-
 from ..criterion import NegSISDR, PIT1d
+from ..data import DataLoader, WaveEvalDataset, WaveTrainDataset
 from ..train import Trainer, TrainerConfig, make_optimizer
+from ..utils import set_seed
 from .model_factory import build_wsj0mix_model
 
 
@@ -63,8 +61,7 @@ def build_parser():
     p.add_argument("--sep_down_chunk_size", "-Q", type=int, default=32)
     p.add_argument("--sep_num_heads", type=int, default=4)
     p.add_argument("--rnn_type", type=str, default="lstm", choices=["lstm", "gru", "sru"],
-                   help="dprnn-tasnet recurrence (gru trains on the CPU only for now; "
-                        "sru is not ported)")
+                   help="dprnn-tasnet recurrence (sru is not ported)")
     p.add_argument("--conv_hidden_channels", "-Hc", type=int, default=128,
                    help="furcanet gated-conv hidden channels (model not ported)")
     p.add_argument("--rnn_hidden_channels", "-Hr", type=int, default=128,
@@ -113,7 +110,7 @@ def build_parser():
     return p
 
 
-def _refuse_unported(args, device: torch.device) -> None:
+def _refuse_unported(args) -> None:
     refusals = [
         (args.pit != "exhaustive", f"--pit {args.pit}"),
         (args.criterion == "orpit", "--criterion orpit (ORPIT)"),
@@ -121,9 +118,6 @@ def _refuse_unported(args, device: torch.device) -> None:
         (bool(args.device_resident_data), "--device_resident_data"),
         (args.n_devices is not None, "--n_devices (data parallelism, slice H)"),
         (args.rnn_type == "sru", "--rnn_type sru"),
-        (args.rnn_type == "gru" and device.type == "cuda",
-         "--rnn_type gru on CUDA (the GRU backward kernel is the next slice; "
-         "--device cpu trains it)"),
     ]
     for refused, what in refusals:
         if refused:
@@ -132,19 +126,13 @@ def _refuse_unported(args, device: torch.device) -> None:
         raise ValueError(f"Unsupported criterion: {args.criterion}")
 
 
-def set_seed(seed: int) -> None:
-    random.seed(seed)
-    np.random.seed(seed)
-    torch.manual_seed(seed)
-
-
 def main(args=None):
     args = build_parser().parse_args(args)
     args.causal = bool(args.causal)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device} asked for, but CUDA is not available")
-    _refuse_unported(args, device)
+    _refuse_unported(args)
     set_seed(args.seed)
 
     train_ds = WaveTrainDataset(args.train_wav_root, args.train_list_path,

@@ -1,7 +1,12 @@
-"""Data: the host pipeline is the JAX package's framework-free `data` package
-(`DataLoader`, `WaveTrainDataset`, `WaveEvalDataset`, ...); this package adds
-the host -> device prefetch."""
+"""Data: audio IO, the wsj0-mix wave datasets, the batch pipeline and host -> device prefetch.
 
-from .loader import prefetch_to_device
+Framework-free host code the port keeps its own copy of (the JAX package's
+`data` package is the reference), plus the prefetch onto the card.
+"""
 
-__all__ = ["prefetch_to_device"]
+from .audio_io import read_wav, write_wav
+from .loader import DataLoader, prefetch_to_device
+from .wsj0mix import WaveEvalDataset, WaveTestDataset, WaveTrainDataset
+
+__all__ = ["DataLoader", "WaveEvalDataset", "WaveTestDataset", "WaveTrainDataset",
+           "prefetch_to_device", "read_wav", "write_wav"]

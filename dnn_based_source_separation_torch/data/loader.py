@@ -1,18 +1,144 @@
-"""Host -> device batch prefetch.
+"""Batch pipeline and host -> device prefetch.
 
-Port of `dnn_based_source_separation_tpu/data/loader.py:147-175`
-(`prefetch_to_device`). The batch pipeline itself is the JAX package's
-framework-free `DataLoader`, which yields tuples of numpy arrays; this module
-moves them to the training device ahead of the step that needs them.
+`DataLoader` is the port's own copy of
+`dnn_based_source_separation_tpu/data/loader.py:23-145`: a map-style dataset
+becomes shuffled, fixed-size batches of stacked numpy arrays (drop_last by
+default when shuffling), with an optional background thread pool
+(`num_workers`) keeping `prefetch` assembled batches ahead of the step.
+`prefetch_to_device` is the port of its `prefetch_to_device` (:147-175): it
+moves those batches to the training device ahead of the step that needs them.
 """
 from __future__ import annotations
 
 import collections
 import itertools
-from typing import Iterable, Iterator
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterable, Iterator, Optional
 
 import numpy as np
 import torch
+
+
+class DataLoader:
+    def __init__(
+        self,
+        dataset,
+        batch_size: int = 1,
+        shuffle: bool = False,
+        drop_last: Optional[bool] = None,
+        seed: int = 0,
+        collate_fn=None,
+        num_workers: int = 0,
+        prefetch: int = 2,
+    ):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = shuffle if drop_last is None else drop_last
+        self.rng = np.random.default_rng(seed)
+        self.collate_fn = collate_fn
+        self.num_workers = num_workers
+        self.prefetch = prefetch
+
+    def __len__(self):
+        n = len(self.dataset)
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def _batch_starts(self):
+        n = len(self.dataset)
+        order = np.arange(n)
+        if self.shuffle:
+            self.rng.shuffle(order)
+        end = (n // self.batch_size) * self.batch_size if self.drop_last else n
+        return order, range(0, end, self.batch_size)
+
+    def _assemble(self, idxs):
+        items = [self.dataset[int(j)] for j in idxs]
+        if self.collate_fn is not None:
+            return self.collate_fn(items)
+        return tuple(np.stack(field) for field in zip(*items))
+
+    def __iter__(self):
+        order, starts = self._batch_starts()
+        if self.num_workers <= 0:
+            for i in starts:
+                yield self._assemble(order[i : i + self.batch_size])
+            return
+
+        # Background pipeline: a pool loads the items of each batch and a
+        # producer thread keeps up to `prefetch` ready batches staged.
+        # Submission is lazy (at most num_workers + prefetch futures
+        # outstanding), and a `stop` event lets an abandoned iterator tear
+        # the producer down instead of loading the rest of the epoch.
+        q: queue.Queue = queue.Queue(maxsize=max(1, self.prefetch))
+        sentinel = object()
+        stop = threading.Event()
+
+        def producer():
+            try:
+                with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
+                    start_iter = iter(starts)
+                    pending: collections.deque = collections.deque()
+
+                    def submit_next():
+                        for i in start_iter:
+                            pending.append(pool.submit(
+                                self._assemble, order[i : i + self.batch_size]))
+                            return
+
+                    for _ in range(self.num_workers + q.maxsize):
+                        submit_next()
+                    while pending and not stop.is_set():
+                        result = pending.popleft().result()
+                        while not stop.is_set():
+                            try:
+                                q.put(result, timeout=0.1)
+                                break
+                            except queue.Full:
+                                continue
+                        submit_next()
+                    for fut in pending:  # abandoned: drop unconsumed work
+                        fut.cancel()
+            except BaseException as exc:  # surface worker errors to the consumer
+                # Retry as the normal path does: a single timed put could be
+                # dropped while the consumer is busy, leaving the iterator
+                # blocked with neither an exception nor a sentinel queued.
+                while not stop.is_set():
+                    try:
+                        q.put(exc, timeout=0.1)
+                        break
+                    except queue.Full:
+                        continue
+                return
+            while not stop.is_set():
+                try:
+                    q.put(sentinel, timeout=0.1)
+                    break
+                except queue.Full:
+                    continue
+
+        thread = threading.Thread(target=producer, daemon=True)
+        thread.start()
+        try:
+            while True:
+                out = q.get()
+                if out is sentinel:
+                    break
+                if isinstance(out, BaseException):
+                    raise out
+                yield out
+        finally:
+            stop.set()
+            try:  # unblock a producer stuck on q.put
+                while True:
+                    q.get_nowait()
+            except queue.Empty:
+                pass
+            thread.join(timeout=10)
 
 
 def prefetch_to_device(batches: Iterable, device, size: int = 2) -> Iterator[tuple]:

@@ -26,10 +26,9 @@ f32, and returns the final one. It runs the plain step loops
 (`lstm_steps` / `gru_steps`), as the JAX package runs its carried scans
 outside Pallas. Vanilla RNN and SRU are not ported yet.
 
-Training: the LSTM recurrences are differentiable on both devices
-(`ops/lstm_scan.py`, backward kernels on CUDA). The GRU backward kernel is
-not ported yet, so `gru_scan` / `gru_scan_bidir` refuse CUDA tensors under
-autograd (`ops/gru_scan.py`); on the CPU the plain GRU stays differentiable.
+Training: the LSTM and GRU recurrences are differentiable on both devices
+(`ops/lstm_scan.py`, `ops/gru_scan.py`, backward kernels on CUDA). Both GRU
+biases train, as in JAX.
 """
 from __future__ import annotations
 

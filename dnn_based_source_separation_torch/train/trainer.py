@@ -24,8 +24,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from dnn_based_source_separation_tpu.data.audio_io import write_wav
-
+from ..data.audio_io import write_wav
 from ..data.loader import prefetch_to_device
 from ..models.base import read_checkpoint, save_model
 from .steps import (

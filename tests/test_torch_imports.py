@@ -1,4 +1,8 @@
-"""The port and chip_smoke.py import no JAX: the card's machine has none."""
+"""The port and chip_smoke.py import no JAX and nothing of the JAX package.
+
+The card's machine has no JAX, and the port keeps its own copies of the
+framework-free host code it uses (data, BSS-Eval, the PESQ hook).
+"""
 import pathlib
 import re
 import subprocess
@@ -29,12 +33,15 @@ def test_importing_every_port_module_leaves_jax_out():
     assert "dnn_based_source_separation_torch.ops.gru_scan" in modules
     assert "dnn_based_source_separation_torch.models.streaming" in modules
     for new in ("criterion.sdr", "criterion.pit", "train.steps", "train.trainer",
-                "data.loader", "cli.model_factory", "cli.train_wsj0mix"):
+                "data.loader", "cli.model_factory", "cli.train_wsj0mix", "ops.quantize",
+                "train.tester", "cli.test_wsj0mix", "utils.bss", "utils.audio",
+                "data.wsj0mix", "data.synthetic", "data.audio_io", "data.native_loader"):
         assert f"dnn_based_source_separation_torch.{new}" in modules, new
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "import chip_smoke\n"
-            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'jaxlib'))\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+            "             ('jax', 'flax', 'jaxlib', 'dnn_based_source_separation_tpu'))\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -42,11 +49,24 @@ def test_importing_every_port_module_leaves_jax_out():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def _sources():
+    return list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
 def test_no_source_file_names_jax():
     pattern = re.compile(r"^\s*(import jax|from jax|import flax|from flax)", re.M)
-    files = list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    offenders = [str(f) for f in files if pattern.search(f.read_text())]
+    offenders = [str(f) for f in _sources() if pattern.search(f.read_text())]
     assert not offenders, offenders
+
+
+def test_no_source_file_imports_the_jax_package():
+    # Docstrings and comments may cite the JAX package; import lines may not.
+    pattern = re.compile(r"^\s*(import|from)\s+dnn_based_source_separation_tpu\b"
+                         r"|import_module\(\s*[\"']dnn_based_source_separation_tpu", re.M)
+    offenders = [str(f) for f in _sources() if pattern.search(f.read_text())]
+    assert not offenders, offenders
+    assert pattern.search("from dnn_based_source_separation_tpu.data import audio_io")
+    assert pattern.search("    import dnn_based_source_separation_tpu")
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():

@@ -18,6 +18,7 @@ import torch
 
 from dnn_based_source_separation_torch.cli import separate as tsep
 from dnn_based_source_separation_torch.cli import train_wsj0mix as ttrain
+from dnn_based_source_separation_torch.cli.model_factory import build_wsj0mix_model
 from dnn_based_source_separation_torch.models import ConvTasNet
 from dnn_based_source_separation_torch.models.base import load_model, read_checkpoint
 from dnn_based_source_separation_torch.ops import filterbank as tfb
@@ -165,10 +166,9 @@ CLI_MODELS = {
 }
 
 
-@pytest.mark.parametrize("model", list(CLI_MODELS))
-def test_cli_trains_resumes_and_serves(corpus, tmp_path, model):
+def _train_resume_serve(corpus, tmp_path, model_args):
     exp = tmp_path / "exp"
-    trainer = ttrain.main(_args(corpus, exp, "--epochs", "2", *CLI_MODELS[model]))
+    trainer = ttrain.main(_args(corpus, exp, "--epochs", "2", *model_args))
     assert len(trainer.train_loss) == len(trainer.valid_loss) == 2
     assert all(np.isfinite(trainer.train_loss + trainer.valid_loss))
     last = exp / "model" / "last.ckpt"
@@ -179,7 +179,7 @@ def test_cli_trains_resumes_and_serves(corpus, tmp_path, model):
     extra = read_checkpoint(str(last))["extra"]
     assert extra["epoch"] == 1 and extra["train_loss"] == trainer.train_loss
     resumed = ttrain.main(_args(corpus, exp, "--epochs", "3", "--continue_from", str(last),
-                                *CLI_MODELS[model]))
+                                *model_args))
     assert resumed.start_epoch == 2
     assert resumed.train_loss[:2] == trainer.train_loss and len(resumed.train_loss) == 3
     saved = extra["optim"]["state"]
@@ -193,6 +193,26 @@ def test_cli_trains_resumes_and_serves(corpus, tmp_path, model):
     est = tsep.main(["--model_path", str(last), "--input", wav, "--out_dir",
                      str(tmp_path / "sep"), "--device", "cpu"])
     assert est.shape == (2, 4000) and np.isfinite(est).all()
+    return trainer
+
+
+@pytest.mark.parametrize("model", list(CLI_MODELS))
+def test_cli_trains_resumes_and_serves(corpus, tmp_path, model):
+    _train_resume_serve(corpus, tmp_path, CLI_MODELS[model])
+
+
+def test_cli_trains_resumes_and_serves_a_gru_dprnn_tasnet(corpus, tmp_path):
+    model_args = [*CLI_MODELS["dprnn-tasnet"], "--rnn_type", "gru"]
+    trainer = _train_resume_serve(corpus, tmp_path, model_args)
+    assert type(trainer.model.separator.dprnn.net[0].intra_chunk_block.rnn).__name__ == "GRU"
+    # Every parameter trained away from the seed's initial model, both biases
+    # of every GRU chain included (JAX trains both; only the LSTM freezes one).
+    initial = build_wsj0mix_model(
+        ttrain.build_parser().parse_args(_args(corpus, tmp_path, *model_args)), "cpu")
+    trained = dict(trainer.model.named_parameters())
+    assert any(".bias_hh_l0" in name for name in trained)
+    for name, p in initial.named_parameters():
+        assert not torch.equal(p, trained[name]), name
 
 
 @pytest.mark.parametrize("model", list(CLI_MODELS))
@@ -253,12 +273,9 @@ def test_unported_flags_raise(corpus, tmp_path, flag):
         ttrain.main(_args(corpus, tmp_path, *CLI_MODELS["dprnn-tasnet"], *flag))
 
 
-def test_gru_training_refuses_cuda_and_other_models_raise(corpus, tmp_path, monkeypatch):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    args = _args(corpus, tmp_path, *CLI_MODELS["dprnn-tasnet"], "--rnn_type", "gru")
-    args[args.index("--device") + 1] = "cuda"
-    with pytest.raises(NotImplementedError, match="gru"):
-        ttrain.main(args)
+def test_sru_and_unported_models_raise(corpus, tmp_path):
+    with pytest.raises(NotImplementedError, match="sru"):
+        ttrain.main(_args(corpus, tmp_path, *CLI_MODELS["dprnn-tasnet"], "--rnn_type", "sru"))
     with pytest.raises(NotImplementedError, match="slice D"):
         ttrain.main(_args(corpus, tmp_path, "--model", "dptnet"))
 

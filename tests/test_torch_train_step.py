@@ -3,13 +3,14 @@
 JAX weights go into the port through `hub/from_jax.py`; the port takes one
 `make_train_step`, and the JAX side computes the same step's loss and
 gradients (`jax.value_and_grad` of the loss function of its
-`make_train_step`, steps.py:138-156, with the Pallas LSTM kernels in
-interpret mode, `DNNTPU_PALLAS_LSTM=1`, so their `custom_vjp` is the
-reference). The port's gradients are mapped onto the JAX tree with
-`hub/torch_convert.py`, which is linear: transposes, reshapes, and the
-LSTM's `b = bias_ih + bias_hh`, where the frozen `bias_hh` contributes no
-gradient. f32: loss within 1e-5 relative, each gradient within
-1e-3 x max|g| of its tensor.
+`make_train_step`, steps.py:138-156, with the Pallas LSTM and GRU kernels
+in interpret mode, `DNNTPU_PALLAS_LSTM=1`, so their `custom_vjp` is the
+reference; the GRU DPRNN-TasNet also against `DNNTPU_PALLAS_LSTM=0`, where
+JAX differentiates its `lax.scan` GRU). The JAX gradients are carried into
+the port's layout with `hub/from_jax.py`, which is linear: transposes,
+reshapes, and the LSTM's single `b` going to `bias_ih` with zeros for the
+frozen `bias_hh`, which gets no gradient. Both GRU biases train. f32: loss
+within 1e-5 relative, each gradient within 1e-3 x max|g| of its tensor.
 """
 import jax
 import jax.numpy as jnp
@@ -27,9 +28,7 @@ from dnn_based_source_separation_torch.ops.rnn import LSTM
 from dnn_based_source_separation_torch.train import make_optimizer, make_train_step
 from dnn_based_source_separation_tpu.criterion import NegSISDR as JNegSISDR
 from dnn_based_source_separation_tpu.criterion import PIT1d as JPIT1d
-from dnn_based_source_separation_tpu.hub.torch_convert import (
-    convert_conv_tasnet, convert_dprnn_tasnet, lstm_params,
-)
+from dnn_based_source_separation_tpu.hub.torch_convert import lstm_params
 from dnn_based_source_separation_tpu.models import ConvTasNet as JConvTasNet
 from dnn_based_source_separation_tpu.models import DPRNNTasNet as JDPRNNTasNet
 from dnn_based_source_separation_tpu.ops import rnn as jrnn
@@ -43,12 +42,11 @@ DPRNN = dict(n_basis=16, kernel_size=4, enc_nonlinear="relu", sep_bottleneck_cha
              sep_hidden_channels=12, sep_chunk_size=10, sep_hop_size=5, sep_num_blocks=2,
              n_sources=2)
 MODELS = {
-    "conv-tasnet": (CONV, JConvTasNet, ConvTasNet, conv_tasnet_state_dict_from_jax,
-                    convert_conv_tasnet),
-    "dprnn-tasnet": (dict(DPRNN, causal=False), JDPRNNTasNet, DPRNNTasNet,
-                     dprnn_tasnet_state_dict_from_jax, convert_dprnn_tasnet),
-    "dprnn-tasnet-causal": (dict(DPRNN, causal=True), JDPRNNTasNet, DPRNNTasNet,
-                            dprnn_tasnet_state_dict_from_jax, convert_dprnn_tasnet),
+    "conv-tasnet": (CONV, JConvTasNet, ConvTasNet, conv_tasnet_state_dict_from_jax),
+    **{f"dprnn-tasnet{'-gru' if rnn == 'gru' else ''}{'-causal' if causal else ''}": (
+        dict(DPRNN, causal=causal, rnn_type=rnn), JDPRNNTasNet, DPRNNTasNet,
+        dprnn_tasnet_state_dict_from_jax)
+       for rnn in ("lstm", "gru") for causal in (False, True)},
 }
 
 
@@ -80,7 +78,7 @@ def _batch(seed, B=2, T=160):
 
 
 def _pair(name, seed):
-    config, jcls, pcls, from_jax, _ = MODELS[name]
+    config, jcls, pcls, from_jax = MODELS[name]
     mixture, sources = _batch(seed)
     jmodel = jcls(**config)
     variables = jax.tree_util.tree_map(
@@ -91,8 +89,9 @@ def _pair(name, seed):
     return jmodel, variables, port, mixture, sources
 
 
-def _jax_loss_and_grads(jmodel, variables, mixture, sources, compute_dtype=None):
-    """The loss function of the JAX `make_train_step` (steps.py:138-156) and its gradient."""
+def _jax_loss_and_grads(name, jmodel, variables, mixture, sources, compute_dtype=None):
+    """The loss function of the JAX `make_train_step` (steps.py:138-156) and its gradient,
+    the gradient carried into the port's layout."""
     criterion = JPIT1d(JNegSISDR(), n_sources=2)
 
     def loss_fn(p):
@@ -103,56 +102,73 @@ def _jax_loss_and_grads(jmodel, variables, mixture, sources, compute_dtype=None)
         est = jmodel.apply({"params": p}, mix).astype(jnp.float32)
         return criterion(est, jnp.asarray(sources))[0]
 
+    config, *_, from_jax = MODELS[name]
     params = jax.tree_util.tree_map(jnp.asarray, variables["params"])
     loss, grads = jax.value_and_grad(loss_fn)(params)
-    return float(loss), jax.tree_util.tree_map(np.asarray, grads)
+    return float(loss), from_jax(jax.tree_util.tree_map(np.asarray, grads), config)
 
 
 def _port_loss_and_grads(name, port, mixture, sources, compute_dtype=None):
     """One port `make_train_step` (SGD at lr 0, no clipping: the weights stay and the
-    gradients stay in .grad), the gradients mapped onto the JAX tree."""
-    config, *_, to_jax = MODELS[name]
+    gradients stay in .grad); the frozen LSTM `bias_hh` reads as a zero gradient."""
+    config = MODELS[name][0]
     optimizer = make_optimizer("sgd", 0.0, params=port.parameters())
     step = make_train_step(port, PIT1d(NegSISDR(), n_sources=2), optimizer, compute_dtype)
     loss = float(step(torch.from_numpy(mixture), torch.from_numpy(sources)))
     grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p)) for k, p in
              port.named_parameters()}
     for k, p in port.named_parameters():
-        assert (p.grad is None) == k.split(".")[-1].startswith("bias_hh"), k
-    return loss, to_jax(grads, config)["params"]
+        frozen = config.get("rnn_type") == "lstm" and k.split(".")[-1].startswith("bias_hh")
+        assert (p.grad is None) == frozen, k
+    return loss, grads
+
+
+def _assert_grads_match(grads, j_grads):
+    assert sorted(grads) == sorted(j_grads)
+    for k, g in j_grads.items():
+        got, g = grads[k].numpy(), g.numpy()
+        assert got.shape == g.shape, k
+        assert np.abs(got - g).max() <= 1e-3 * np.abs(g).max(), (k, np.abs(g).max())
 
 
 @pytest.mark.parametrize("name", list(MODELS))
 def test_train_step_matches_jax(monkeypatch, name):
     monkeypatch.setenv("DNNTPU_PALLAS_LSTM", "1")
     jmodel, variables, port, mixture, sources = _pair(name, seed=3)
-    j_loss, j_grads = _jax_loss_and_grads(jmodel, variables, mixture, sources)
+    j_loss, j_grads = _jax_loss_and_grads(name, jmodel, variables, mixture, sources)
     loss, grads = _port_loss_and_grads(name, port, mixture, sources)
     assert abs(loss - j_loss) <= 1e-5 * abs(j_loss), (loss, j_loss)
-    flat = dict(jax.tree_util.tree_flatten_with_path(grads)[0])
-    for path, g in jax.tree_util.tree_flatten_with_path(j_grads)[0]:
-        got = np.asarray(flat[path])
-        assert got.shape == g.shape, path
-        assert np.abs(got - g).max() <= 1e-3 * np.abs(g).max(), (path, np.abs(g).max())
+    _assert_grads_match(grads, j_grads)
 
 
-def _flat(tree) -> np.ndarray:
-    """Every leaf of a param tree, in path order, as one f32 vector."""
-    leaves = sorted(jax.tree_util.tree_flatten_with_path(tree)[0],
-                    key=lambda kv: jax.tree_util.keystr(kv[0]))
-    return np.concatenate([np.asarray(g, np.float32).ravel() for _, g in leaves])
+@pytest.mark.parametrize("name", ["dprnn-tasnet-gru", "dprnn-tasnet-gru-causal"])
+def test_gru_train_step_matches_the_jax_lax_scan_gru(monkeypatch, name):
+    # The JAX GRU without Pallas: every recurrence a lax.scan, differentiated by JAX.
+    monkeypatch.setenv("DNNTPU_PALLAS_LSTM", "0")
+    jmodel, variables, port, mixture, sources = _pair(name, seed=6)
+    j_loss, j_grads = _jax_loss_and_grads(name, jmodel, variables, mixture, sources)
+    loss, grads = _port_loss_and_grads(name, port, mixture, sources)
+    assert abs(loss - j_loss) <= 1e-5 * abs(j_loss), (loss, j_loss)
+    _assert_grads_match(grads, j_grads)
+
+
+def _flat(grads) -> np.ndarray:
+    """Every gradient, in name order, as one f32 vector."""
+    return np.concatenate([grads[k].float().numpy().ravel() for k in sorted(grads)])
 
 
 def _rel(a, b) -> float:
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
 
-@pytest.mark.parametrize("name", ["conv-tasnet", "dprnn-tasnet"])
+@pytest.mark.parametrize("name", ["conv-tasnet", "dprnn-tasnet", "dprnn-tasnet-gru",
+                                  "dprnn-tasnet-gru-causal"])
 def test_bf16_train_step_stays_close_to_jax(monkeypatch, name):
     """compute_dtype=bf16 on both sides: f32 masters cast inside the step.
 
-    The two round at other places (JAX's bf16 dots return bf16; the port
-    decodes in f32 and carries the LSTM state in f32), and single bf16
+    The two round at other places (JAX's bf16 dots return bf16 and its
+    causal GRU runs its lax.scan in bf16; the port decodes in f32 and carries
+    the LSTM and GRU state in f32), and single bf16
     gradients of summed parameters are noise-dominated on both sides (JAX's
     own Conv-TasNet PReLU-slope gradient is 2x off its f32 one), so the
     check is on the whole gradient vector: within 15% (relative L2) of JAX's
@@ -161,7 +177,8 @@ def test_bf16_train_step_stays_close_to_jax(monkeypatch, name):
     """
     monkeypatch.setenv("DNNTPU_PALLAS_LSTM", "1")
     jmodel, variables, port, mixture, sources = _pair(name, seed=4)
-    j_loss, j_grads = _jax_loss_and_grads(jmodel, variables, mixture, sources, jnp.bfloat16)
+    j_loss, j_grads = _jax_loss_and_grads(name, jmodel, variables, mixture, sources,
+                                          jnp.bfloat16)
     _, f32_grads = _port_loss_and_grads(name, port, mixture, sources)
     loss, grads = _port_loss_and_grads(name, port, mixture, sources, torch.bfloat16)
     assert abs(loss - j_loss) <= 1e-2 * abs(j_loss), (loss, j_loss)

@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py                 # every phase
     python3 chip_smoke.py --only 3e,3f    # phases 1 and 2, then the kernel phases named
+    python3 chip_smoke.py --only 6s       # phases 1 and 2, then streaming ms per hop
 
 Phases (any failure exits non-zero; nothing is caught and passed):
   1. device: require CUDA, print the card's name and power limit, turn TF32 off;
@@ -10,17 +11,24 @@ Phases (any failure exits non-zero; nothing is caught and passed):
      sm_90a, all at once, and require 0 bytes of stack in every kernel;
   3. kernel vs plain: fused_mask_decode against its plain PyTorch version on
      the card, f32 and bf16, at the Conv-TasNet serving shape, the DPRNN-TasNet
-     decoder shape and three others, timed with CUDA events at the two
-     serving shapes beside its bound and, in f32, einsum (the same function);
+     decoder shape, the LSTM-TasNet decoder shape (N=500, C·L=40) and five
+     others, N=61 and C·L=80 among them, contiguous and strided, timed with
+     CUDA events at the three decoder shapes beside its bound and, in f32,
+     einsum (the same function);
   3b. lstm_scan_bidir and lstm_scan against their plain versions, f32 and
      bf16, at the intra- and inter-chunk serving shapes (timed), an odd small
-     shape, T=1, and H=256 and 512;
+     shape, B=37 and T=19 at H=128 (rows past the tile), T=1, H=64, a streamed
+     hop's three chunks (timed), and H=256 and 512. Each launch must take the path
+     _plan gives: the tensor-core kernel for bf16 at H a multiple of 16 up to
+     128, the FMA kernel otherwise. Where that is the tensor-core kernel, the
+     FMA kernel is forced too and held to the plain version; at the timed
+     shapes in bf16 it is timed between two timings of the tensor-core kernel;
   3c. gru_scan_bidir and gru_scan the same way;
-  3d. the training forward (cs written) and the backward kernels of
-     lstm_scan_bidir and lstm_scan under autograd against the plain forward and
-     lstm_scan_bwd_reference, f32 and bf16, at the recipe training shapes (B = 2
-     x 4 s, timed), an odd shape, T=1 and H=256; fused_mask_decode must refuse
-     CUDA tensors that require grad;
+  3d. the training forward (cs written; the tensor-core path in bf16) and the
+     backward kernels of lstm_scan_bidir and lstm_scan under autograd against
+     the plain forward and lstm_scan_bwd_reference, f32 and bf16, at the recipe
+     training shapes (B = 2 x 4 s, timed), an odd shape, T=1 and H=256;
+     fused_mask_decode must refuse CUDA tensors that require grad;
   3e. the backward kernels of gru_scan_bidir and gru_scan under autograd
      against gru_scan_bwd_reference the same way, the whole backward and the
      kernel alone timed;
@@ -30,8 +38,9 @@ Phases (any failure exits non-zero; nothing is caught and passed):
      (timed); stochastic rounding: every value the floor or the ceiling, and
      unbiased over 64 seeds;
   3g. the library calls beside the recurrence kernels (informational):
-     cuDNN's nn.LSTM / nn.GRU forward and backward at the kernels' timed
-     shapes, input projection included; the port never calls them;
+     cuDNN's nn.LSTM / nn.GRU forward (f32 and bf16) and backward (f32) at the
+     kernels' timed shapes, input projection included; the port never calls
+     them;
   4. serve: paper-config Conv-TasNet (random weights from seed 0) through
      cli/separate.py on three mixtures in float32 and bfloat16, counting the
      kernel's launches;
@@ -75,8 +84,14 @@ Phases (any failure exits non-zero; nothing is caught and passed):
 
 Each serving, quantizing and evaluation path, and the training path of phase
 8, runs with every launch count set to 0 just before it and read just after
-it. The last line is {"ok": true, "device": {...}}; the line before it lists
-the kernels with their launch counts, errors, times, bounds and library times.
+it. Every recurrence forward of phases 4b-4d and 7-10 is also counted by path
+(the wrappers' PATH_LAUNCHES): each bf16 request and bf16 train step must
+launch only the tensor-core kernel, each f32 one only the FMA kernel (the
+served and trained models have H = 128). The last line is {"ok": true,
+"device": {...}}; the line before it lists the kernels with their launch
+counts, errors, times, bounds and library times: the recurrence forwards
+twice, the FMA kernel in f32 and the tensor-core kernel in bf16 (with the
+FMA kernel's bf16 time of the same run as `fma_ms`).
 """
 from __future__ import annotations
 
@@ -135,6 +150,12 @@ DPRNN = dict(
 )
 SERVING_SHAPE = dict(B=8, S=2, T=3999, N=512, CL=16)  # B=8 x 4 s at 8 kHz
 DPRNN_DECODE_SHAPE = dict(B=8, S=2, T=31999, N=64, CL=2)  # the same audio, DPRNN-TasNet
+# The same audio through LSTM-TasNet's decoder (N=500, L=40, hop 20:
+# egs/wsj0-mix/lstm-tasnet/train.sh:19): rows of 1000 bytes in bf16, not
+# whole 16-byte vectors.
+LSTM_TASNET_DECODE_SHAPE = dict(B=8, S=2, T=1599, N=500, CL=40)
+DECODE_SHAPES = {"serving shape": SERVING_SHAPE, "DPRNN-TasNet decoder shape": DPRNN_DECODE_SHAPE,
+                 "LSTM-TasNet decoder shape": LSTM_TASNET_DECODE_SHAPE}
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-3}  # relative to max|plain|
 # (name, B, T, H). At B=8 x 4 s the DPRNN-TasNet latent has T' = 31999 frames,
 # padded to 32000 = 255 chunks of K = 250 at hop 125.
@@ -142,7 +163,10 @@ LSTM_SHAPES = [
     ("intra", 2040, 250, 128),  # B*S sequences of K steps
     ("inter", 2000, 255, 128),  # B*K sequences of S steps
     ("odd", 37, 19, 40),
+    ("odd H=128", 37, 19, 128),  # bf16: rows past B in the tensor-core tile
     ("T=1", 3, 1, 128),
+    ("H=64", 50, 17, 64),
+    ("stream", 3, 250, 128),  # one streamed hop: three chunks of K steps (timed)
     # Wider hidden sizes the wrapper accepts: W_hh rows past the shared-memory
     # stage come from global memory in bf16 too, and fewer groups per block.
     ("H=256", 64, 33, 256),
@@ -170,7 +194,13 @@ def bound(flops: float, nbytes: float, dtype) -> dict:
             "bound_by": "operations" if ops_s >= bytes_s else "bytes"}
 
 
+START = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """Print a line; a phase's heading line also gets the seconds since the start."""
+    if msg.startswith("=="):
+        msg += f" [{time.perf_counter() - START:.1f} s]"
     print(msg, flush=True)
 
 
@@ -228,7 +258,7 @@ def mask_decode_library(w, mask, kernel):
 def phase_kernel():
     """fused_mask_decode against its plain version; timed, with its bound and
     einsum's time (f32, where einsum computes the same function), at the
-    serving shapes of Conv-TasNet and DPRNN-TasNet."""
+    decoder shapes of Conv-TasNet, DPRNN-TasNet and LSTM-TasNet."""
     log("== phase 3: fused_mask_decode vs plain on the card")
     cases = [
         (dict(SERVING_SHAPE), True),
@@ -236,6 +266,13 @@ def phase_kernel():
         (dict(B=2, S=2, T=1001, N=512, CL=32), True),
         (dict(B=1, S=2, T=129, N=512, CL=64), False),
         (dict(DPRNN_DECODE_SHAPE), True),
+        # Widths past the 16-byte vectors and past 64 columns of K.
+        (dict(LSTM_TASNET_DECODE_SHAPE), True),
+        (dict(LSTM_TASNET_DECODE_SHAPE), False),
+        (dict(B=2, S=2, T=333, N=61, CL=2), True),
+        (dict(B=2, S=2, T=333, N=61, CL=2), False),
+        (dict(B=2, S=2, T=257, N=512, CL=80), True),
+        (dict(B=2, S=2, T=257, N=512, CL=80), False),
     ]
     result = {}
     for shape, strided in cases:
@@ -253,10 +290,10 @@ def phase_kernel():
             if not ok:
                 raise AssertionError(f"fused_mask_decode disagrees with plain: {err} > "
                                      f"{TOL[dtype]} x {scale}")
-            if shape in (SERVING_SHAPE, DPRNN_DECODE_SHAPE):
+            which = next((k for k, v in DECODE_SHAPES.items() if v == shape), None)
+            if which is not None and strided:
                 ms = median_ms(lambda: md.fused_mask_decode(w, mask, kernel))
                 plain_ms = median_ms(lambda: md.fused_mask_decode_reference(w, mask, kernel))
-                which = "serving shape" if shape == SERVING_SHAPE else "DPRNN-TasNet decoder shape"
                 timing = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
                               **mask_decode_bound(**shape, dtype=dtype))
                 if dtype == torch.float32:
@@ -293,59 +330,99 @@ def gru_inputs(B, T, H, dtype, seed):
     return [t.to(dtype) for t in (*xw, *w, *b)]
 
 
-def phase_scan(title, make_inputs, runs):
+def forward_path(module, kname, call, want):
+    """Run one forward call; it must have launched `kname` once, on path `want`."""
+    before = dict(module.PATH_LAUNCHES[kname])
+    out = call()
+    torch.cuda.synchronize()
+    grew = {p: n - before[p] for p, n in module.PATH_LAUNCHES[kname].items()}
+    check(grew == {p: int(p == want) for p in grew}, f"{kname} took {grew}, expected {want}")
+    return out
+
+
+def phase_scan(title, module, make_inputs, runs):
     """Recurrence kernels against their plain versions at LSTM_SHAPES, f32 and bf16.
 
-    runs(*inputs) -> {kernel name: (kernel call, plain call)}, each call returning a
-    tuple of hs; the intra and inter serving shapes are timed.
+    runs(*inputs) -> {kernel name: (kernel call, plain call, FMA-forced call)}, each
+    call returning a tuple of hs. Every launch must take the path `_plan` gives its
+    dtype and shape; where that is the tensor-core path, the FMA kernel is forced
+    and held to the plain version too. At the intra and inter serving shapes the
+    kernel is timed, and in bf16 the tensor-core kernel, the FMA kernel and the
+    tensor-core kernel again, in turn.
     """
     log(title)
     result = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for name, B, T, H in LSTM_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             inputs = make_inputs(B, T, H, dtype, seed=B + T + H)
-            for kname, (kernel, plain) in runs(*inputs).items():
-                got, ref = kernel(), plain()
-                torch.cuda.synchronize()
-                for a, b in zip(got, ref):
-                    check(a.shape == b.shape == (B, T, H) and a.dtype == b.dtype == dtype,
-                          (kname, a.shape, a.dtype))
-                err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, ref))
-                ok = err <= LSTM_TOL[dtype]
-                log(f"  {kname} {name} (B={B}, T={T}, H={H}) {str(dtype)[6:]}: "
-                    f"max|kernel-plain| = {err:.3e} (limit {LSTM_TOL[dtype]:g}) "
-                    f"{'ok' if ok else 'FAIL'}")
-                if not ok:
-                    raise AssertionError(f"{kname} disagrees with plain at {name}: {err}")
-                if name in ("intra", "inter"):
-                    ms = median_ms(kernel, warmup=2, iters=10)
-                    plain_ms = median_ms(plain, warmup=1, iters=3)
-                    log(f"    kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-                        f"(medians of 10 and 3, CUDA events)")
-                    result[(kname, name, dtype)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            for kname, (kernel, plain, fma) in runs(*inputs).items():
+                n_chains = 2 if kname.endswith("bidir") else 1
+                path, tile = module._plan(B, n_chains, H, dtype, sms)
+                calls = {path: kernel}
+                if path == "mma":
+                    calls["fma"] = fma
+                ref = plain()
+                errs = {}
+                for p, call in calls.items():
+                    got = forward_path(module, kname, call, p)
+                    for a, b in zip(got, ref):
+                        check(a.shape == b.shape == (B, T, H) and a.dtype == b.dtype == dtype,
+                              (kname, a.shape, a.dtype))
+                    err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, ref))
+                    errs[p] = err
+                    ok = err <= LSTM_TOL[dtype]
+                    _, p_tile = module._plan(B, n_chains, H, dtype, sms, p)
+                    log(f"  {kname} {name} (B={B}, T={T}, H={H}) {str(dtype)[6:]} {p} "
+                        f"({'M' if p == 'mma' else 'R'}={p_tile}): max|kernel-plain| = "
+                        f"{err:.3e} (limit {LSTM_TOL[dtype]:g}) {'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        raise AssertionError(f"{kname} ({p}) disagrees with plain at {name}: "
+                                             f"{err}")
+                if name in ("intra", "inter", "stream"):
+                    timing = dict(max_abs_err=errs[path])
+                    if path == "mma":
+                        first = median_ms(kernel, warmup=2, iters=10)
+                        timing["fma_ms"] = median_ms(fma, warmup=2, iters=10)
+                        again = median_ms(kernel, warmup=2, iters=10)
+                        timing.update(ms=(first + again) / 2, fma_max_abs_err=errs["fma"])
+                        times = (f"tensor cores {first:.4f} / {again:.4f} ms around FMA "
+                                 f"{timing['fma_ms']:.4f} ms")
+                    else:
+                        timing["ms"] = median_ms(kernel, warmup=2, iters=10)
+                        times = f"kernel {timing['ms']:.4f} ms"
+                    timing["plain_ms"] = median_ms(plain, warmup=1, iters=3)
+                    log(f"    {times}, plain {timing['plain_ms']:.4f} ms (medians of 10 and 3, "
+                        f"CUDA events)")
+                    result[(kname, name, dtype)] = timing
     return result
 
 
 def phase_lstm():
     return phase_scan(
-        "== phase 3b: lstm_scan_bidir and lstm_scan vs plain on the card", lstm_inputs,
+        "== phase 3b: lstm_scan_bidir and lstm_scan vs plain on the card", ls, lstm_inputs,
         lambda xw_f, xw_b, w_f, w_b: {
-            "lstm_scan_bidir": (lambda: ls.lstm_scan_bidir(xw_f, xw_b, w_f, w_b),
-                                lambda: ls.lstm_scan_bidir_reference(xw_f, xw_b, w_f, w_b)),
+            "lstm_scan_bidir": (
+                lambda: ls.lstm_scan_bidir(xw_f, xw_b, w_f, w_b),
+                lambda: ls.lstm_scan_bidir_reference(xw_f, xw_b, w_f, w_b),
+                lambda: tuple(ls._forward_cuda([(xw_f, w_f), (xw_b, w_b)], False, "fma")[0])),
             "lstm_scan": (lambda: (ls.lstm_scan(xw_f, w_f),),
-                          lambda: (ls.lstm_scan_reference(xw_f, w_f),)),
+                          lambda: (ls.lstm_scan_reference(xw_f, w_f),),
+                          lambda: tuple(ls._forward_cuda([(xw_f, w_f)], False, "fma")[0])),
         })
 
 
 def phase_gru():
     return phase_scan(
-        "== phase 3c: gru_scan_bidir and gru_scan vs plain on the card", gru_inputs,
+        "== phase 3c: gru_scan_bidir and gru_scan vs plain on the card", gs, gru_inputs,
         lambda xw_f, xw_b, w_f, w_b, b_f, b_b: {
             "gru_scan_bidir": (
                 lambda: gs.gru_scan_bidir(xw_f, xw_b, w_f, w_b, b_f, b_b),
-                lambda: gs.gru_scan_bidir_reference(xw_f, xw_b, w_f, w_b, b_f, b_b)),
+                lambda: gs.gru_scan_bidir_reference(xw_f, xw_b, w_f, w_b, b_f, b_b),
+                lambda: tuple(gs._forward_cuda([(xw_f, w_f, b_f), (xw_b, w_b, b_b)], "fma"))),
             "gru_scan": (lambda: (gs.gru_scan(xw_f, w_f, b_f),),
-                         lambda: (gs.gru_scan_reference(xw_f, w_f, b_f),)),
+                         lambda: (gs.gru_scan_reference(xw_f, w_f, b_f),),
+                         lambda: tuple(gs._forward_cuda([(xw_f, w_f, b_f)], "fma"))),
         })
 
 
@@ -379,7 +456,11 @@ def phase_lstm_bwd():
             gen = torch.Generator(device="cuda").manual_seed(B + T)
             g_f, g_b = (torch.randn(B, T, H, device="cuda", generator=gen).to(dtype)
                         for _ in range(2))
-            (hs_f, hs_b), (cs_f, cs_b) = ls._forward_cuda([(xw_f, w_f), (xw_b, w_b)], True)
+            path, _ = ls._plan(B, 2, H, dtype, torch.cuda.get_device_properties(0)
+                               .multi_processor_count)
+            (hs_f, hs_b), (cs_f, cs_b) = forward_path(
+                ls, "lstm_scan_bidir",
+                lambda: ls._forward_cuda([(xw_f, w_f), (xw_b, w_b)], True), path)
             cs_err, cs_scale = 0.0, 1.0
             for xw, w, hs, cs in ((xw_f, w_f, hs_f, cs_f), (xw_b, w_b, hs_b, cs_b)):
                 hs_ref, cs_ref = ls.lstm_forward_reference(xw, w)
@@ -387,7 +468,7 @@ def phase_lstm_bwd():
                 cs_err = max(cs_err, float((cs.float() - cs_ref.float()).abs().max()),
                              float((hs.float() - hs_ref.float()).abs().max()))
             cs_ok = cs_err <= LSTM_TOL[dtype] * cs_scale
-            log(f"  forward with cs {name} (B={B}, T={T}, H={H}) {str(dtype)[6:]}: "
+            log(f"  forward with cs {name} (B={B}, T={T}, H={H}) {str(dtype)[6:]} {path}: "
                 f"max|kernel-plain| of hs, cs = {cs_err:.3e} (limit {LSTM_TOL[dtype]:g} x "
                 f"{cs_scale:.3f}) {'ok' if cs_ok else 'FAIL'}")
             if not cs_ok:
@@ -555,21 +636,24 @@ RNN_FEATURES = DPRNN["sep_bottleneck_channels"]
 
 
 def phase_library():
-    """cuDNN's nn.LSTM / nn.GRU at the recurrence kernels' timed shapes, f32 (informational).
+    """cuDNN's nn.LSTM / nn.GRU at the recurrence kernels' timed shapes (informational):
+    the forward in f32 and bf16, the backward in f32.
 
     One PyTorch call each: the module's forward, or torch.autograd.grad of
     its output for the backward rows. Both also do the input projection
     (x @ W_ih and its gradients), which the port's kernels take as given.
     """
-    log("== phase 3g: library calls beside the recurrence kernels (cuDNN, f32, informational)")
+    log("== phase 3g: library calls beside the recurrence kernels (cuDNN, informational)")
     result = {}
     H = DPRNN["sep_hidden_channels"]
+    rows = [(row, shape, torch.float32) for row, shape in LIBRARY_SHAPES.items()]
+    rows += [(row, LIBRARY_SHAPES[row], torch.bfloat16) for row in ("scan_bidir", "scan")]
     for rnn, cls in (("lstm", torch.nn.LSTM), ("gru", torch.nn.GRU)):
-        for row, (B, T, chains) in LIBRARY_SHAPES.items():
+        for row, (B, T, chains), dtype in rows:
             module = cls(RNN_FEATURES, H, batch_first=True, bidirectional=chains == 2,
-                         device="cuda")
+                         device="cuda", dtype=dtype)
             gen = torch.Generator(device="cuda").manual_seed(B + T)
-            x = torch.randn(B, T, RNN_FEATURES, device="cuda", generator=gen)
+            x = torch.randn(B, T, RNN_FEATURES, device="cuda", generator=gen).to(dtype)
             if row.endswith("bwd"):
                 x.requires_grad_()
                 y = module(x)[0]
@@ -580,10 +664,10 @@ def phase_library():
             else:
                 with torch.no_grad():
                     ms = median_ms(lambda: module(x), warmup=2, iters=10)
-            result[f"{rnn}_{row}"] = ms
+            result[f"{rnn}_{row}" + ("_bf16" if dtype == torch.bfloat16 else "")] = ms
             log(f"  {cls.__name__} {'backward' if row.endswith('bwd') else 'forward'} "
-                f"(B={B}, T={T}, F={RNN_FEATURES}, H={H}, {chains} chain(s)): {ms:.4f} ms "
-                f"(median of 10, CUDA events)")
+                f"{str(dtype)[6:]} (B={B}, T={T}, F={RNN_FEATURES}, H={H}, {chains} chain(s)): "
+                f"{ms:.4f} ms (median of 10, CUDA events)")
     return result
 
 
@@ -591,11 +675,53 @@ def counts() -> dict:
     return {"fused_mask_decode": md.LAUNCHES, **ls.LAUNCHES, **gs.LAUNCHES, **q8.LAUNCHES}
 
 
+# The recurrence forwards, each counted by path too ("name/mma", "name/fma").
+FORWARDS = ("lstm_scan", "lstm_scan_bidir", "gru_scan", "gru_scan_bidir")
+
+
+def path_counts() -> dict:
+    return {f"{name}/{path}": n for module in (ls, gs)
+            for name, paths in module.PATH_LAUNCHES.items() for path, n in paths.items()}
+
+
+def all_counts() -> dict:
+    """Every kernel's launches and the recurrence forwards' launches by path."""
+    return {**counts(), **path_counts()}
+
+
 def reset_counts() -> None:
     md.LAUNCHES = 0
     for table in (ls.LAUNCHES, gs.LAUNCHES, q8.LAUNCHES):
         for name in table:
             table[name] = 0
+    for module in (ls, gs):
+        for paths in module.PATH_LAUNCHES.values():
+            for path in paths:
+                paths[path] = 0
+
+
+def grown(before: dict) -> dict:
+    """all_counts() since `before`."""
+    return {k: v - before[k] for k, v in all_counts().items()}
+
+
+def kernels_of(launches: dict) -> dict:
+    """The per-kernel counts of an all_counts() dict."""
+    return {k: launches[k] for k in counts()}
+
+
+def check_paths(grew: dict, mma: dict, what: str) -> None:
+    """A run's recurrence forwards by path: mma[name] launches of each on the tensor cores
+    (its bf16 forwards at H = 128), the rest of grew[name] on the FMA kernel (its f32 ones)."""
+    for name in FORWARDS:
+        want = (mma.get(name, 0), grew[name] - mma.get(name, 0))
+        got = (grew[f"{name}/mma"], grew[f"{name}/fma"])
+        check(got == want, f"{what}: {name} launched (mma, fma) = {got}, expected {want}")
+
+
+def all_bf16(grew: dict) -> dict:
+    """check_paths' `mma` for a run whose every recurrence forward is bf16."""
+    return {name: grew[name] for name in FORWARDS}
 
 
 def nonzero(launches: dict) -> dict:
@@ -677,11 +803,12 @@ def serve(tag, ckpt, wavs, per_request, flags=()):
     reset_counts()
     for dtype in ("float32", "bfloat16"):
         for wav in wavs:
-            before = counts()
+            before = all_counts()
             out_dir = os.path.join(tmp, f"out_{tag}_{dtype}_{os.path.basename(wav)[:-4]}")
             est = separate(["--model_path", ckpt, "--input", wav, "--out_dir", out_dir,
                             "--device", "cuda", "--dtype", dtype, *flags])
-            grew = {k: v - before[k] for k, v in counts().items()}
+            grew_all = grown(before)
+            grew = kernels_of(grew_all)
             n_in = read_wav(wav)[0].shape[0]
             want = per_request(n_in) if callable(per_request) else per_request
             files = sorted(os.listdir(out_dir))
@@ -692,10 +819,12 @@ def serve(tag, ckpt, wavs, per_request, flags=()):
                       (f, sig.shape, n_in))
             check(est.shape == (2, n_in) and np.isfinite(est).all(), est.shape)
             check(grew == want, f"request {wav} ({dtype}) launched {grew}, expected {want}")
+            check_paths(grew_all, all_bf16(grew_all) if dtype == "bfloat16" else {},
+                        f"request {wav} ({dtype})")
             log(f"  {dtype} {os.path.basename(wav)}: 2 sources x {n_in} samples, "
-                f"kernel launches {nonzero(grew)}")
+                f"kernel launches {nonzero(grew_all)}")
             outputs[(dtype, wav)] = est
-    launches = counts()
+    launches = all_counts()
     log(f"  main-path kernel launches: {nonzero(launches)}")
     return outputs, launches
 
@@ -800,6 +929,23 @@ def stream_hop_times(ckpt, wav, dtype, card):
         f"{ms / (STREAMING_HOP * 1e3):.4f} [{card}]")
 
 
+def phase_stream_hops():
+    """Phase 6's ms per hop of the stream-safe causal DPRNN-TasNet alone, LSTM and GRU
+    (`--only 6s`: the streaming metric of two trees compared in one call)."""
+    log("== phase 6s: streaming ms per hop (informational)")
+    card = card_line()
+    with tempfile.TemporaryDirectory() as tmp:
+        wav = write_mixtures(tmp)[-1]
+        for rnn in ("lstm", "gru"):
+            ckpt = os.path.join(tmp, f"{rnn}.pth")
+            make_checkpoint(ckpt, DPRNNTasNet(**dict(DPRNN, rnn_type=rnn), causal=True,
+                                              stream_safe=True, device="cuda",
+                                              generator=torch.Generator().manual_seed(0)))
+            log(f"  {rnn}:")
+            for dtype in (torch.bfloat16, torch.float32):
+                stream_hop_times(ckpt, wav, dtype, card)
+
+
 def phase_throughput_stream(tag, ckpt, wavs, card):
     log(f"== phase 6: streaming (informational), {tag}")
     for dtype in (torch.bfloat16, torch.float32):
@@ -901,6 +1047,7 @@ def phase_train_parity():
         launched = counts()
         check(launched == train_step_launches(tag),
               f"{tag}: a train step launched {launched}, expected {train_step_launches(tag)}")
+        check_paths(all_counts(), {}, f"{tag}: an f32 train step")
         zero = [n for n, g in card_grads.items() if g is None or not bool(g.abs().max() > 0)]
         if zero:
             raise AssertionError(f"{tag}: gradients all zero or missing on the card: {zero}")
@@ -934,9 +1081,10 @@ def phase_train_parity():
 def train_through_cli(argv, launches=None):
     """train_wsj0mix.main in-process; with `launches`, check the run's kernel launches
     against its steps and validation forwards."""
-    before = counts()
+    before = all_counts()
     trainer = train_cli.main(argv)
-    grew = {k: v - before[k] for k, v in counts().items()}
+    grew_all = grown(before)
+    grew = kernels_of(grew_all)
     losses = trainer.train_loss + trainer.valid_loss
     check(all(np.isfinite(losses)), f"non-finite losses {losses}")
     if launches is not None:
@@ -946,6 +1094,11 @@ def train_through_cli(argv, launches=None):
         want = {k: steps * per_step[k] + evals * per_eval[k] for k in grew}
         check(grew == want, f"{argv[-1]}: launched {grew}, expected {want} for {steps} "
                             f"steps and {evals} validation forwards")
+        # Mixed precision: the steps' forwards run on bf16 copies, the
+        # validation forwards on the f32 weights.
+        mixed = "--mixed_precision" in argv
+        check_paths(grew_all, {k: steps * per_step[k] for k in FORWARDS} if mixed else {},
+                    argv[-1])
     model_dir = os.path.join(trainer.config.exp_dir, "model")
     check(sorted(os.listdir(model_dir)) == ["best.ckpt", "last.ckpt"], os.listdir(model_dir))
     stats = trainer.last_epoch_stats or {}
@@ -955,7 +1108,7 @@ def train_through_cli(argv, launches=None):
         f"{len(trainer.train_loss)}, train loss {[round(v, 4) for v in trainer.train_loss]}, "
         f"valid loss {[round(v, 4) for v in trainer.valid_loss]}, "
         f"{stats.get('audio_sec_per_sec', 0):.1f} audio-s/s, "
-        f"p50 {stats.get('iter_p50_ms', 0):.1f} ms, launches {nonzero(grew)}")
+        f"p50 {stats.get('iter_p50_ms', 0):.1f} ms, launches {nonzero(grew_all)}")
     return trainer
 
 
@@ -1007,21 +1160,24 @@ def phase_train_cli(tmp, card):
     # Per step and per validation forward, then a fixed batch trained for 20 steps.
     for tag, trainer in trainers.items():
         batch = train_batch(2 if tag.startswith("dprnn") else 4, 4.0, "cuda", seed=11)
-        before = counts()
+        before = all_counts()
         losses = [float(trainer.train_step(*batch))]
-        step_launches = {k: v - before[k] for k, v in counts().items()}
-        before = counts()
+        step_all = grown(before)
+        before = all_counts()
         trainer.eval_step(*batch)
-        eval_grew = {k: v - before[k] for k, v in counts().items()}
+        eval_all = grown(before)
+        step_launches, eval_grew = kernels_of(step_all), kernels_of(eval_all)
         check(step_launches == train_step_launches(tag) and eval_grew == eval_launches(tag),
               f"{tag}: step launched {step_launches}, eval {eval_grew}")
+        check_paths(step_all, {}, f"{tag}: an f32 train step")
+        check_paths(eval_all, {}, f"{tag}: an f32 validation forward")
         losses += [float(trainer.train_step(*batch)) for _ in range(19)]
         log(f"  {tag}: one train step launched {nonzero(step_launches)}; one validation "
             f"forward {nonzero(eval_grew)}; a fixed batch over 20 steps: loss {losses[0]:.4f} "
             f"-> {losses[-1]:.4f}")
         check(np.isfinite(losses).all() and losses[-1] < losses[0],
               f"{tag}: 20 steps on one batch did not lower its loss: {losses}")
-    launches = counts()
+    launches = all_counts()
     log(f"  training-path kernel launches: {nonzero(launches)}")
 
     wavs = write_mixtures(tmp)
@@ -1043,12 +1199,15 @@ def timed_train_steps(cls, cfg, B, compute_dtype, card, what, warmup=3, iters=10
     batch = train_batch(B, 4.0, "cuda")
     times = []
     torch.cuda.reset_peak_memory_stats()
+    before = all_counts()
     for i in range(warmup + iters):
         start = time.perf_counter()
         step(*batch)
         torch.cuda.synchronize()
         if i >= warmup:
             times.append(time.perf_counter() - start)
+    grew = grown(before)
+    check_paths(grew, all_bf16(grew) if compute_dtype == torch.bfloat16 else {}, what)
     p50 = float(np.median(times))
     log(f"  {what}, B={B} x 4 s: p50 step {p50 * 1e3:.3f} ms of {iters} (min "
         f"{min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}), {B * 4.0 / p50:.1f} audio-s/s, "
@@ -1100,7 +1259,8 @@ def profile_train_step(model, compute_dtype, card, what):
     busy = sum(device.values())
     bwd_kernel = sum(t for k, t in device.items() if "lstm_bwd_kernel" in k
                      or "gru_bwd_kernel" in k)
-    fwd_kernel = sum(t for k, t in device.items() if "lstm_kernel" in k or "gru_kernel" in k)
+    fwd_kernel = sum(t for k, t in device.items()
+                     if "lstm_kernel" in k or "gru_kernel" in k or "scan_mma_kernel" in k)
     log(f"  profile of one {what} step (B=2 x 4 s): wall {wall:.3f} ms; forward "
         f"{fwd:.3f} ms (recurrence kernels {fwd_kernel:.3f} ms device), backward {bwd:.3f} ms "
         f"(backward kernels {bwd_kernel:.3f} ms device, other backward {bwd - bwd_kernel:.3f} "
@@ -1148,7 +1308,7 @@ def phase_quantized_serve(conv_ckpt, wavs, conv_out):
         snr = 10 * np.log10(np.sum(ref ** 2) / np.sum((got - ref) ** 2))
         log(f"  f32 {os.path.basename(wav)}: int8 weights vs f32 weights, SNR {snr:.2f} dB "
             f"(informational)")
-    return {k: v + quantized[k] for k, v in served.items()}
+    return {k: v + quantized.get(k, 0) for k, v in served.items()}
 
 
 # Uneven test utterances (samples at 8 kHz): off the stride-8 grid of
@@ -1189,19 +1349,20 @@ def phase_evaluate(tmp, checkpoints, card):
     """The trained checkpoints through cli/test_wsj0mix.py on the card, against the CPU."""
     log("== phase 10: evaluate through cli/test_wsj0mix.py, card vs CPU")
     root, lists = write_test_list(tmp)
-    total = expected()
+    total = dict.fromkeys(all_counts(), 0)
     for tag, ckpt in checkpoints.items():
         worst = 0.0
         reset_counts()
         for list_path, T in zip(lists, TEST_LENGTHS):
-            before = counts()
+            before = all_counts()
             start = time.perf_counter()
             got = evaluate(root, list_path, ckpt, "cuda")
             wall = (time.perf_counter() - start) * 1e3
-            after = counts()
-            grew = {k: after[k] - before[k] for k in before}
+            grew_all = grown(before)
+            grew = kernels_of(grew_all)
             check(grew == eval_launches(tag), f"{tag}: an utterance launched {grew}, expected "
                                               f"{eval_launches(tag)}")
+            check_paths(grew_all, {}, f"{tag}: an f32 evaluation")
             ref = evaluate(root, list_path, ckpt, "cpu")
             diffs = {k: abs(got[k] - ref[k]) for k in TEST_METRICS}
             check(all(np.isfinite(got[k]) for k in TEST_METRICS), got)
@@ -1213,7 +1374,7 @@ def phase_evaluate(tmp, checkpoints, card):
                 f"{got['bss_eval_ms']:.1f} + load; launches {nonzero(grew)} [{card}]")
             if not max(diffs.values()) <= EVAL_TOL_DB:
                 raise AssertionError(f"{tag}: card metrics differ from the CPU's: {diffs}")
-        path = counts()
+        path = all_counts()
         total = {k: v + path[k] for k, v in total.items()}
         log(f"  {tag}: {len(lists)} utterances, worst |card - CPU| over every metric "
             f"{worst:.2e} dB (limit {EVAL_TOL_DB:g}); path launches {nonzero(path)}")
@@ -1221,22 +1382,26 @@ def phase_evaluate(tmp, checkpoints, card):
 
 
 def kernel_entry(name, source, replaces, launches, timing, bound_of, library_ms=None,
-                 dtype="float32"):
-    """One kernel of the `kernels` line; `dtype` is that of the inputs timed."""
+                 dtype=torch.float32):
+    """One kernel of the `kernels` line; `dtype` is that of the inputs timed. A timing
+    with the FMA kernel's time of the same run (a tensor-core row) adds it as fma_ms."""
+    extra = {"fma_ms": timing["fma_ms"]} if "fma_ms" in timing else {}
     return {"name": name, "route": "cuda", "source": f"dnn_based_source_separation_torch/{source}",
             "replaces": f"dnn_based_source_separation_tpu/{replaces}", "launches": launches,
-            "dtype": dtype, "max_abs_err": timing["max_abs_err"], "ms": timing["ms"],
-            "plain_ms": timing["plain_ms"], **bound_of, "library_ms": library_ms}
+            "dtype": str(dtype)[6:], "max_abs_err": timing["max_abs_err"], "ms": timing["ms"],
+            "plain_ms": timing["plain_ms"], **bound_of, "library_ms": library_ms, **extra}
 
 
-def recurrence_bound(B, T, H, gates, chains, backward=False, cell_state=False, bias=False):
-    """The least time of a recurrence's f32 work at (B, T, H).
+def recurrence_bound(B, T, H, gates, chains, backward=False, cell_state=False, bias=False,
+                     dtype=torch.float32):
+    """The least time of a recurrence's work at (B, T, H) in `dtype`.
 
     Forward: 2 x B x T x gates x H^2 FLOPs per chain (the recurrent product;
     the gate nonlinearities are a few operations per unit and are left out),
-    and xw read, hs written. Backward, as timed (the gate recompute, the
-    kernel and the weight gradient): three products of that size, xw, hs,
-    the cotangent (and the LSTM's cs) read, d_xw and the parameter gradients
+    over the dtype's peak (bf16: the tensor cores), and xw read, hs written,
+    at the dtype's size. Backward, as timed (the gate recompute, the kernel
+    and the weight gradient): three products of that size, xw, hs, the
+    cotangent (and the LSTM's cs) read, d_xw and the parameter gradients
     written.
     """
     G = gates * H
@@ -1245,7 +1410,8 @@ def recurrence_bound(B, T, H, gates, chains, backward=False, cell_state=False, b
     if backward:
         seq += B * T * (H + G + (H if cell_state else 0))  # g_hs, d_xw, cs
     params = G * H * (2 if backward else 1) + (G * (2 if backward else 1) if bias else 0)
-    return bound(flops, 4.0 * chains * (seq + params), torch.float32)
+    size = torch.tensor([], dtype=dtype).element_size()
+    return bound(flops, size * chains * (seq + params), dtype)
 
 
 BUILDS = {"mask_decode": md.build, "lstm_scan": ls.build, "lstm_scan_bwd": ls.build_backward,
@@ -1270,15 +1436,17 @@ def phase_build():
     log("  every kernel built with 0 bytes of stack")
 
 
-KERNEL_PHASES = {"3": phase_kernel, "3b": phase_lstm, "3c": phase_gru, "3d": phase_lstm_bwd,
-                 "3e": phase_gru_bwd, "3f": phase_quantize, "3g": phase_library}
+ONLY_PHASES = {"3": phase_kernel, "3b": phase_lstm, "3c": phase_gru, "3d": phase_lstm_bwd,
+               "3e": phase_gru_bwd, "3f": phase_quantize, "3g": phase_library,
+               "6s": phase_stream_hops}
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser("chip_smoke")
     parser.add_argument("--only", type=str, default=None,
-                        help="comma-separated kernel phases (3, 3b-3g) to run after phases 1 "
-                             "and 2, and nothing else; no result line is printed")
+                        help="comma-separated kernel phases (3, 3b-3g) or 6s (streaming ms "
+                             "per hop) to run after phases 1 and 2, and nothing else; no "
+                             "result line is printed")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check needs a CUDA card",
@@ -1294,7 +1462,7 @@ def main(argv=None) -> int:
     phase_build()
     if args.only:
         for phase in args.only.split(","):
-            KERNEL_PHASES[phase.strip()]()
+            ONLY_PHASES[phase.strip()]()
         log(card)
         return 0
 
@@ -1372,31 +1540,40 @@ def main(argv=None) -> int:
     check(not any(m.split(".")[0] == "dnn_based_source_separation_tpu" for m in sys.modules),
           "the JAX package was imported")
 
-    f32 = torch.float32
+    f32, bf16 = torch.float32, torch.bfloat16
     H = DPRNN["sep_hidden_channels"]
     n_big = QUANT_BIG[0] * QUANT_BIG[1]
     mask_timing = timings[("serving shape", f32)]
-    # Every row is f32, where one library call computes the same function:
-    # einsum for fused_mask_decode; cuDNN's nn.LSTM / nn.GRU for the
-    # recurrences (it also does the input projection the kernels take as given).
-    entries = [
-        kernel_entry("fused_mask_decode", "csrc/mask_decode.cu", "ops/pallas_kernels.py:109",
-                     total["fused_mask_decode"], mask_timing,
-                     mask_decode_bound(**SERVING_SHAPE, dtype=f32), mask_timing["library_ms"]),
-        kernel_entry("lstm_scan_bidir", "csrc/lstm_scan.cu", "ops/pallas_lstm.py:250",
-                     total["lstm_scan_bidir"], lstm_timings[("lstm_scan_bidir", "intra", f32)],
-                     recurrence_bound(2040, 250, H, 4, 2), library["lstm_scan_bidir"]),
-        kernel_entry("lstm_scan", "csrc/lstm_scan.cu", "ops/pallas_lstm.py:62",
-                     total["lstm_scan"], lstm_timings[("lstm_scan", "inter", f32)],
-                     recurrence_bound(2000, 255, H, 4, 1), library["lstm_scan"]),
-        kernel_entry("gru_scan_bidir", "csrc/gru_scan.cu", "ops/pallas_lstm.py:357",
-                     total["gru_scan_bidir"], gru_timings[("gru_scan_bidir", "intra", f32)],
-                     recurrence_bound(2040, 250, H, 3, 2, bias=True), library["gru_scan_bidir"]),
+    # The recurrence forwards twice: the FMA kernel in f32 (its main-path
+    # launches: the f32 forwards) and the tensor-core kernel in bf16 (the bf16
+    # forwards), each beside cuDNN's nn.LSTM / nn.GRU in the same dtype (it
+    # also does the input projection the kernels take as given). einsum is
+    # fused_mask_decode's library call in f32.
+    forwards = [  # name, FMA source, replaces, timings, timed shape, (B, T, chains), gates
+        ("lstm_scan_bidir", "csrc/lstm_scan.cu", "ops/pallas_lstm.py:323", lstm_timings,
+         "intra", (2040, 250, 2), 4),
+        ("lstm_scan", "csrc/lstm_scan.cu", "ops/pallas_lstm.py:166", lstm_timings, "inter",
+         (2000, 255, 1), 4),
+        ("gru_scan_bidir", "csrc/gru_scan.cu", "ops/pallas_lstm.py:422", gru_timings, "intra",
+         (2040, 250, 2), 3),
         # The one-chain instance of the same kernel: the JAX package runs the
         # unidirectional GRU in lax.scan, so it has no Pallas kernel of its own.
-        kernel_entry("gru_scan", "csrc/gru_scan.cu", "ops/pallas_lstm.py:357",
-                     total["gru_scan"], gru_timings[("gru_scan", "inter", f32)],
-                     recurrence_bound(2000, 255, H, 3, 1, bias=True), library["gru_scan"]),
+        ("gru_scan", "csrc/gru_scan.cu", "ops/pallas_lstm.py:422", gru_timings, "inter",
+         (2000, 255, 1), 3),
+    ]
+    entries = [
+        kernel_entry("fused_mask_decode", "csrc/mask_decode.cu", "ops/pallas_kernels.py:114",
+                     total["fused_mask_decode"], mask_timing,
+                     mask_decode_bound(**SERVING_SHAPE, dtype=f32), mask_timing["library_ms"]),
+    ]
+    for dtype, path, suffix in ((f32, "fma", ""), (bf16, "mma", "_bf16")):
+        for name, source, replaces, times, shape, (B, T, chains), gates in forwards:
+            entries.append(kernel_entry(
+                name, source if path == "fma" else "csrc/recurrence_mma.cuh", replaces,
+                total[f"{name}/{path}"], times[(name, shape, dtype)],
+                recurrence_bound(B, T, H, gates, chains, bias=gates == 3, dtype=dtype),
+                library[name + suffix], dtype=dtype))
+    entries += [
         # The backward of kernels 2-4 (`custom_vjp` _bidir_bwd and _lstm_bwd, both
         # _lstm_bwd_core; _gru_bidir_bwd, _gru_bwd_core); times are the whole
         # backward, the gate matmul and the parameter gradients included.

@@ -18,14 +18,22 @@
 // products are exact in f32 and summed in f32, and h and c are carried in
 // f32, as the Pallas kernels carry them in f32 VMEM scratch.
 //
-// What bounds it. Every step of a chain depends on the step before, so time
-// is a loop inside the block, and only independent sequences run in
-// parallel. Per step and sequence the recurrent product is H x 4H FMAs
-// (65,536 at H = 128) against 4H values of xw read and H written: the
-// kernel is bound by FMA issue and shared-memory bandwidth inside each SM,
-// not by device memory.
+// Two paths, chosen by the caller (ops/lstm_scan.py:_plan) from the dtype and
+// the shape before the launch, never after a failure:
+//   * "mma": bfloat16 with H a multiple of 16 up to 128, the tensor-core
+//     kernel of csrc/recurrence_mma.cuh with the LSTM cell below, on M-row
+//     tiles (M = 16 or 32);
+//   * "fma": every other call (float32 at any H; bfloat16 at other H), the
+//     FMA kernel of this file, on tiles of R sequences per group.
 //
-// Design (simple and right first; tensor cores, clusters and TMA are later work):
+// What bounds the FMA kernel. Every step of a chain depends on the step
+// before, so time is a loop inside the block, and only independent
+// sequences run in parallel. Per step and sequence the recurrent product is
+// H x 4H FMAs (65,536 at H = 128) against 4H values of xw read and H
+// written: the kernel is bound by FMA issue and shared-memory bandwidth
+// inside each SM, not by device memory.
+//
+// Its design (simple and right first):
 //   * one block owns a tile of TB = groups * R sequences of one chain
 //     (blockIdx.y is the chain). Thread (g, p) of the block owns hidden units
 //     2p and 2p + 1 of the R sequences of group g, so it computes all four
@@ -43,10 +51,10 @@
 //     suffices. Each group reads its own R rows of h as 16-byte broadcasts;
 //   * the step's xw values are loaded into registers before the recurrent
 //     product, so their latency hides behind it;
-//   * the tile size R per group is picked by the launcher: the largest of
-//     4, 2, 1 that still gives at least one block per SM, because a
-//     single request (about 255 sequences per chain at B = 1) cannot fill 132
-//     SMs with large tiles, and per-step latency grows with R.
+//   * R in {4, 2, 1} comes from the caller: the largest that still gives
+//     every SM a block, because a single request (about 255 sequences per
+//     chain at B = 1) cannot fill 132 SMs with large tiles, and per-step
+//     latency grows with R.
 //
 // Bound with ctypes (ops/_build.py); the C entry points return
 // cudaGetLastError() so the wrapper can raise on a refused launch.
@@ -54,6 +62,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "recurrence_mma.cuh"
 
 namespace {
 
@@ -95,6 +105,29 @@ __device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
+
+// The LSTM cell of the tensor-core path (csrc/recurrence_mma.cuh): the
+// accumulators start from f32(xw) and take the product on top; the carried
+// state is c.
+struct LstmCell {
+  static constexpr int kGates = 4;
+  static constexpr bool kBias = false;
+  static constexpr bool kCellState = true;
+  __device__ __forceinline__ static void start(float (&acc)[4][4], const float (&x)[4][4],
+                                               const float (&)[4][2]) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[q][j] = x[q][j];
+  }
+  __device__ __forceinline__ static float update(const float (&acc)[4][4], const float (&)[4][4],
+                                                 int j, float& c) {
+    const float gi = mma_scan::sigmoid(acc[0][j]), gf = mma_scan::sigmoid(acc[1][j]);
+    const float gg = tanhf(acc[2][j]), go = mma_scan::sigmoid(acc[3][j]);
+    c = gf * c + gi * gg;
+    return go * tanhf(c);
+  }
+};
 
 // acc[r][q] += h[r, k0:k1] @ W[k0:k1, q*H + u : q*H + u + 2] for the R
 // sequences of the group. `w` points at row 0 of the (H, 4H) matrix, in
@@ -215,19 +248,6 @@ lstm_kernel(Chains chains, int B, int T_len, int H, int groups, int KS) {
   }
 }
 
-int sm_count() {
-  static int cached_device = -1, sms = 0;
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return -(int)err;
-  if (device != cached_device) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return -(int)err;
-    cached_device = device;
-  }
-  return sms;
-}
-
 template <typename T, int R>
 int launch_r(const Chains& chains, int n_chains, int B, int T_len, int H, int groups,
              cudaStream_t stream) {
@@ -252,26 +272,39 @@ int launch_r(const Chains& chains, int n_chains, int B, int T_len, int H, int gr
   return (int)cudaGetLastError();
 }
 
-template <typename T, int NC>
-int launch(const Chains& chains, int B, int T_len, int H, cudaStream_t stream) {
+template <typename T>
+int launch_fma(const Chains& chains, int n_chains, int B, int T_len, int H, int R,
+               cudaStream_t stream) {
   if (H < 4 || H % 4 || H / 2 > kMaxThreads || B < 1 || T_len < 1)
     return (int)cudaErrorInvalidValue;
-  const int sms = sm_count();
-  if (sms <= 0) return sms < 0 ? -sms : (int)cudaErrorInvalidDevice;
   int groups = kMaxThreads / (H / 2);
   if (groups > 4) groups = 4;
-  // The largest tile that still gives every SM a block; else the smallest.
-  auto blocks = [&](int r) { return (long long)NC * ((B + groups * r - 1) / (groups * r)); };
-  if (blocks(4) >= sms) return launch_r<T, 4>(chains, NC, B, T_len, H, groups, stream);
-  if (blocks(2) >= sms) return launch_r<T, 2>(chains, NC, B, T_len, H, groups, stream);
-  return launch_r<T, 1>(chains, NC, B, T_len, H, groups, stream);
+  if (R == 4) return launch_r<T, 4>(chains, n_chains, B, T_len, H, groups, stream);
+  if (R == 2) return launch_r<T, 2>(chains, n_chains, B, T_len, H, groups, stream);
+  if (R == 1) return launch_r<T, 1>(chains, n_chains, B, T_len, H, groups, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
-template <int NC>
-int dispatch(const Chains& chains, int dtype, int B, int T_len, int H, void* stream) {
+// path 0: the FMA kernel with tile R; path 1: the tensor-core kernel
+// (bfloat16 only) with tile M.
+int dispatch(const Chains& chains, int n_chains, int dtype, int B, int T_len, int H, int path,
+             int tile, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float, NC>(chains, B, T_len, H, st);
-  if (dtype == 1) return launch<__nv_bfloat16, NC>(chains, B, T_len, H, st);
+  if (path == 1) {
+    if (dtype != 1) return (int)cudaErrorInvalidValue;
+    const mma_scan::Chains mc = {
+        {static_cast<const mma_scan::bf16*>(chains.xw[0]),
+         static_cast<const mma_scan::bf16*>(chains.xw[1])},
+        {static_cast<const mma_scan::bf16*>(chains.whh[0]),
+         static_cast<const mma_scan::bf16*>(chains.whh[1])},
+        {nullptr, nullptr},
+        {static_cast<mma_scan::bf16*>(chains.hs[0]), static_cast<mma_scan::bf16*>(chains.hs[1])},
+        {static_cast<mma_scan::bf16*>(chains.cs[0]), static_cast<mma_scan::bf16*>(chains.cs[1])}};
+    return mma_scan::launch<LstmCell>(mc, n_chains, B, T_len, H, tile, st);
+  }
+  if (path != 0) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return launch_fma<float>(chains, n_chains, B, T_len, H, tile, st);
+  if (dtype == 1) return launch_fma<__nv_bfloat16>(chains, n_chains, B, T_len, H, tile, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -279,12 +312,14 @@ int dispatch(const Chains& chains, int dtype, int B, int T_len, int H, void* str
 
 // dtype: 0 = float32, 1 = bfloat16 (xw, W_hh, hs and cs share it). All arrays
 // are contiguous: xw (B, T, 4H), W_hh (H, 4H), hs and cs (B, T, H); cs may be
-// null. Returns a cudaError_t (0 on success). The Python wrapper validates
-// every argument.
+// null. path 0 (FMA, tile = R in {1, 2, 4}) or 1 (tensor cores, bfloat16,
+// H % 16 == 0 and H <= 128, tile = M in {16, 32}), from ops/lstm_scan.py:_plan.
+// Returns a cudaError_t (0 on success). The Python wrapper validates every
+// argument.
 extern "C" int lstm_scan_launch(const void* xw, const void* whh, void* hs, void* cs, int dtype,
-                                int B, int T, int H, void* stream) {
+                                int B, int T, int H, int path, int tile, void* stream) {
   Chains chains = {{xw, nullptr}, {whh, nullptr}, {hs, nullptr}, {cs, nullptr}};
-  return dispatch<1>(chains, dtype, B, T, H, stream);
+  return dispatch(chains, 1, dtype, B, T, H, path, tile, stream);
 }
 
 // Two chains of one shape: the forward one and the one over the reversed
@@ -292,8 +327,8 @@ extern "C" int lstm_scan_launch(const void* xw, const void* whh, void* hs, void*
 // time order. cs_f and cs_b are both null or both set.
 extern "C" int lstm_scan_bidir_launch(const void* xw_f, const void* xw_b, const void* whh_f,
                                       const void* whh_b, void* hs_f, void* hs_b, void* cs_f,
-                                      void* cs_b, int dtype, int B, int T, int H,
-                                      void* stream) {
+                                      void* cs_b, int dtype, int B, int T, int H, int path,
+                                      int tile, void* stream) {
   Chains chains = {{xw_f, xw_b}, {whh_f, whh_b}, {hs_f, hs_b}, {cs_f, cs_b}};
-  return dispatch<2>(chains, dtype, B, T, H, stream);
+  return dispatch(chains, 2, dtype, B, T, H, path, tile, stream);
 }

@@ -39,6 +39,16 @@
 //   * the ragged edges (last unit group, N past the last vector) are masked,
 //     not padded.
 //
+// Every width the decoder can hand over. Rows whose N or strides are not
+// multiples of the vector width (N = 500 or 61 in bf16, say) are 8-, 4- or
+// 2-byte aligned only: a second instantiation loads each lane's vector with
+// the widest loads its row allows and reads the ragged tail element by
+// element; shapes whose rows are all 16-byte aligned and whose N is whole
+// vectors keep the plain 16-byte loads. C·L beyond 64 is cut into column
+// blocks of at most 64, and an N whose K rows do not fit shared memory into
+// row blocks whose partial sums the later launches add to the output; each
+// launch stages its block of K. The serving shapes take one launch.
+//
 // Bound with ctypes (ops/_build.py); the C entry point returns
 // cudaGetLastError() so the wrapper can raise on a refused launch.
 
@@ -49,6 +59,8 @@
 namespace {
 
 constexpr int kWarps = 8;
+constexpr int kMaxShared = 232448;  // a Hopper block's dynamic shared-memory ceiling
+constexpr int kMaxCols = 64;        // the widest column block (bucket) of K
 // Units (output rows) a warp carries per pass: R = kUnits / CL-bucket. At the
 // serving shape on an H100, 32 (R = 2 at CL = 16) ran faster than 64 (R = 4):
 // a larger R cuts shared-memory traffic but needs more registers than two
@@ -84,6 +96,39 @@ struct Traits<__nv_bfloat16> {
   __device__ static float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 };
 
+// The kVec elements of a lane's vector at p, `valid` of them in range (the
+// rest read as zero), with the widest loads p's alignment allows.
+template <typename T>
+__device__ __forceinline__ uint4 load_vector(const T* p, int valid) {
+  constexpr int kVec = Traits<T>::kVec;
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  if (valid >= kVec) {
+    if ((a & 15) == 0) return __ldg(reinterpret_cast<const uint4*>(p));
+    if ((a & 7) == 0) {
+      const uint2 lo = __ldg(reinterpret_cast<const uint2*>(p));
+      const uint2 hi = __ldg(reinterpret_cast<const uint2*>(p) + 1);
+      return make_uint4(lo.x, lo.y, hi.x, hi.y);
+    }
+    if ((a & 3) == 0) {
+      const unsigned* q = reinterpret_cast<const unsigned*>(p);
+      return make_uint4(__ldg(q), __ldg(q + 1), __ldg(q + 2), __ldg(q + 3));
+    }
+  }
+  // Element by element: the ragged tail, or bf16 rows aligned to 2 bytes.
+  unsigned word[4] = {0u, 0u, 0u, 0u};
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int v = 0; v < 4; ++v)
+      if (v < valid) word[v] = __ldg(reinterpret_cast<const unsigned*>(p) + v);
+  } else {
+    const unsigned short* q = reinterpret_cast<const unsigned short*>(p);
+#pragma unroll
+    for (int v = 0; v < 8; ++v)
+      if (v < valid) word[v >> 1] |= (unsigned)__ldg(q + v) << (16 * (v & 1));
+  }
+  return make_uint4(word[0], word[1], word[2], word[3]);
+}
+
 // One level of the halving reduction tree, unrolled at compile time so the
 // accumulators keep constant indices and stay in registers (a runtime loop
 // over levels put them in local memory). At offset o = 16 >> H a lane keeps
@@ -110,15 +155,20 @@ __device__ __forceinline__ void reduce_tree(float (&a)[CLB], int lane) {
   }
 }
 
-// CLB: CL rounded up to a bucket (16, 32 or 64); columns >= CL of K are zero.
+// One column block of K: CW columns (K's rows ldk elements apart) into the
+// output's columns (rows ldo floats apart); CLB is CW rounded up to a bucket
+// (16, 32 or 64), columns >= CW of K read as zero. `accumulate` adds to the
+// output (a later row block of K) instead of writing it. kAligned: N is
+// whole vectors and every row is 16-byte aligned.
 // Two resident blocks per SM cap registers at 128; at CLB = 64, K alone takes
 // more than half of the shared memory, so one block fits and the cap would
 // only force spills.
-template <typename T, int CLB>
+template <typename T, int CLB, bool kAligned>
 __global__ void __launch_bounds__(kWarps * 32, CLB == 64 ? 1 : 2)
 mask_decode_kernel(const T* __restrict__ w, const T* __restrict__ mask,
                    const T* __restrict__ kern, float* __restrict__ out,
-                   int S, int Tp, int N, int CL, int n_steps, long long n_units,
+                   int S, int Tp, int N, int ldk, int CW, int ldo, bool accumulate,
+                   int n_steps, long long n_units,
                    long long w_sb, long long w_st,
                    long long m_sb, long long m_ss, long long m_st) {
   constexpr int kVec = Traits<T>::kVec;
@@ -133,7 +183,7 @@ mask_decode_kernel(const T* __restrict__ w, const T* __restrict__ mask,
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 
-  // Stage K (N, CL) into the swizzled f32 layout, zero-filled past N and CL.
+  // Stage K (N, CW) into the swizzled f32 layout, zero-filled past N and CW.
   for (int idx = threadIdx.x; idx < n_slots * CLB; idx += blockDim.x) {
     const int n = idx / CLB;
     const int j = idx - n * CLB;
@@ -141,7 +191,7 @@ mask_decode_kernel(const T* __restrict__ w, const T* __restrict__ mask,
     const int within = n - step * 32 * kVec;
     const int slot = (step * kVec + within % kVec) * 32 + within / kVec;
     float v = 0.f;
-    if (n < N && j < CL) v = Traits<T>::to_float(kern[(long long)n * CL + j]);
+    if (n < N && j < CW) v = Traits<T>::to_float(kern[(long long)n * ldk + j]);
     ks[slot * kSlot + j] = v;
   }
   __syncthreads();
@@ -171,12 +221,17 @@ mask_decode_kernel(const T* __restrict__ w, const T* __restrict__ mask,
 
     for (int step = 0; step < n_steps; ++step) {
       const int n0 = step * 32 * kVec + lane * kVec;
-      if (n0 < N) {  // N % kVec == 0: a vector is wholly in or out
+      if (n0 < N) {
         uint4 wr[R], mr[R];
 #pragma unroll
         for (int r = 0; r < R; ++r) {
-          wr[r] = __ldg(reinterpret_cast<const uint4*>(wp[r] + n0));
-          mr[r] = __ldg(reinterpret_cast<const uint4*>(mp[r] + n0));
+          if constexpr (kAligned) {  // a vector is wholly in or out
+            wr[r] = __ldg(reinterpret_cast<const uint4*>(wp[r] + n0));
+            mr[r] = __ldg(reinterpret_cast<const uint4*>(mp[r] + n0));
+          } else {
+            wr[r] = load_vector(wp[r] + n0, N - n0);
+            mr[r] = load_vector(mp[r] + n0, N - n0);
+          }
         }
 #pragma unroll
         for (int v = 0; v < kVec; ++v) {
@@ -210,27 +265,27 @@ mask_decode_kernel(const T* __restrict__ w, const T* __restrict__ mask,
         const long long b = u / per_b;
         const long long rem = u - b * per_b;
         const long long t = rem / S;
-        float* orow = out + ((b * S + (rem - t * S)) * Tp + t) * CL;
+        float* orow = out + ((b * S + (rem - t * S)) * Tp + t) * ldo;
 #pragma unroll
         for (int i = 0; i < kLeft; ++i) {
           const int col = (lane >> kSpread) * kLeft + i;
-          if (col < CL) orow[col] = acc[r][i];
+          if (col < CW) orow[col] = accumulate ? orow[col] + acc[r][i] : acc[r][i];
         }
       }
     }
   }
 }
 
-template <typename T, int CLB>
-int launch(const void* w, const void* mask, const void* kern, void* out,
-           int B, int S, int Tp, int N, int CL,
+template <typename T, int CLB, bool kAligned>
+int launch(const T* w, const T* mask, const T* kern, float* out, int B, int S, int Tp, int N,
+           int ldk, int CW, int ldo, bool accumulate,
            long long w_sb, long long w_st, long long m_sb, long long m_ss,
            long long m_st, cudaStream_t stream) {
   constexpr int kVec = Traits<T>::kVec;
   constexpr int R = kUnits >= CLB ? kUnits / CLB : 1;
   const int n_steps = (N + 32 * kVec - 1) / (32 * kVec);
   const size_t smem = sizeof(float) * (size_t)n_steps * 32 * kVec * (CLB + 4);
-  auto kernel = mask_decode_kernel<T, CLB>;
+  auto kernel = mask_decode_kernel<T, CLB, kAligned>;
   // Per instantiation: the largest dynamic shared size opted into so far,
   // and the resident-grid size computed for the last shared size.
   static size_t opted_in = 0, grid_for_smem = 0;
@@ -257,48 +312,76 @@ int launch(const void* w, const void* mask, const void* kern, void* out,
   const long long n_groups = (n_units + R - 1) / R;
   const long long wanted = (n_groups + kWarps - 1) / kWarps;
   const int grid = (int)(wanted < resident_blocks ? wanted : resident_blocks);
-  kernel<<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(w), static_cast<const T*>(mask),
-      static_cast<const T*>(kern), static_cast<float*>(out),
-      S, Tp, N, CL, n_steps, n_units, w_sb, w_st, m_sb, m_ss, m_st);
+  kernel<<<grid, kWarps * 32, smem, stream>>>(w, mask, kern, out, S, Tp, N, ldk, CW, ldo,
+                                              accumulate, n_steps, n_units, w_sb, w_st, m_sb,
+                                              m_ss, m_st);
   return (int)cudaGetLastError();
 }
 
+template <typename T, bool kAligned>
+int launch_block(const T* w, const T* mask, const T* kern, float* out, int B, int S, int Tp,
+                 int N, int ldk, int CW, int ldo, bool accumulate, long long w_sb,
+                 long long w_st, long long m_sb, long long m_ss, long long m_st,
+                 cudaStream_t stream) {
+  if (CW <= 16)
+    return launch<T, 16, kAligned>(w, mask, kern, out, B, S, Tp, N, ldk, CW, ldo, accumulate,
+                                   w_sb, w_st, m_sb, m_ss, m_st, stream);
+  if (CW <= 32)
+    return launch<T, 32, kAligned>(w, mask, kern, out, B, S, Tp, N, ldk, CW, ldo, accumulate,
+                                   w_sb, w_st, m_sb, m_ss, m_st, stream);
+  return launch<T, 64, kAligned>(w, mask, kern, out, B, S, Tp, N, ldk, CW, ldo, accumulate,
+                                 w_sb, w_st, m_sb, m_ss, m_st, stream);
+}
+
+// Column blocks of at most kMaxCols, and within each, row blocks of K that
+// fit shared memory; the shapes of the served models take one launch.
 template <typename T>
-int dispatch(const void* w, const void* mask, const void* kern, void* out,
-             int B, int S, int Tp, int N, int CL,
-             long long w_sb, long long w_st, long long m_sb, long long m_ss,
-             long long m_st, cudaStream_t stream) {
-  if (CL <= 16)
-    return launch<T, 16>(w, mask, kern, out, B, S, Tp, N, CL, w_sb, w_st, m_sb, m_ss, m_st, stream);
-  if (CL <= 32)
-    return launch<T, 32>(w, mask, kern, out, B, S, Tp, N, CL, w_sb, w_st, m_sb, m_ss, m_st, stream);
-  return launch<T, 64>(w, mask, kern, out, B, S, Tp, N, CL, w_sb, w_st, m_sb, m_ss, m_st, stream);
+int decode(const void* w_, const void* mask_, const void* kern_, void* out_, int B, int S,
+           int Tp, int N, int CL, long long w_sb, long long w_st, long long m_sb,
+           long long m_ss, long long m_st, cudaStream_t stream) {
+  constexpr int kVec = Traits<T>::kVec;
+  const T* w = static_cast<const T*>(w_);
+  const T* mask = static_cast<const T*>(mask_);
+  const T* kern = static_cast<const T*>(kern_);
+  float* out = static_cast<float*>(out_);
+  const bool aligned = N % kVec == 0 && w_sb % kVec == 0 && w_st % kVec == 0 &&
+                       m_sb % kVec == 0 && m_ss % kVec == 0 && m_st % kVec == 0 &&
+                       reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(mask) % 16 == 0;
+  for (int col0 = 0; col0 < CL; col0 += kMaxCols) {
+    const int cw = CL - col0 < kMaxCols ? CL - col0 : kMaxCols;
+    const int clb = cw <= 16 ? 16 : (cw <= 32 ? 32 : 64);
+    // K rows one launch stages: whole warp steps (32 lanes x kVec) that fit.
+    const int rows = kMaxShared / (4 * (clb + 4)) / (32 * kVec) * (32 * kVec);
+    for (int n0 = 0; n0 < N; n0 += rows) {
+      const int nn = N - n0 < rows ? N - n0 : rows;
+      auto block = aligned ? &launch_block<T, true> : &launch_block<T, false>;
+      const int err = block(w + n0, mask + n0, kern + (long long)n0 * CL + col0, out + col0, B, S,
+                            Tp, nn, CL, cw, CL, n0 > 0, w_sb, w_st, m_sb, m_ss, m_st, stream);
+      if (err != 0) return err;
+    }
+  }
+  return 0;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (w, mask and K share it). Strides are in
-// elements; the last dimension of w and mask is contiguous. Returns a
-// cudaError_t (0 on success). The Python wrapper validates every argument.
+// elements; the last dimension of w and mask is contiguous, K (N, CL) is
+// contiguous, and any N, C·L, stride and element alignment is taken.
+// Returns a cudaError_t (0 on success). The Python wrapper validates every
+// argument.
 extern "C" int mask_decode_launch(const void* w, const void* mask, const void* kern,
                                   void* out, int dtype, int B, int S, int Tp, int N,
                                   int CL, long long w_sb, long long w_st,
                                   long long m_sb, long long m_ss, long long m_st,
                                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B < 1 || S < 1 || Tp < 1 || N < 1 || CL < 1) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return dispatch<float>(w, mask, kern, out, B, S, Tp, N, CL, w_sb, w_st, m_sb, m_ss, m_st, st);
+    return decode<float>(w, mask, kern, out, B, S, Tp, N, CL, w_sb, w_st, m_sb, m_ss, m_st, st);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(w, mask, kern, out, B, S, Tp, N, CL, w_sb, w_st, m_sb, m_ss, m_st, st);
+    return decode<__nv_bfloat16>(w, mask, kern, out, B, S, Tp, N, CL, w_sb, w_st, m_sb, m_ss,
+                                 m_st, st);
   return (int)cudaErrorInvalidValue;
-}
-
-// Dynamic shared memory the launch needs, so the wrapper can refuse a shape
-// that does not fit before launching.
-extern "C" long long mask_decode_smem_bytes(int dtype, int N, int CL) {
-  const int vec = dtype == 1 ? 8 : 4;
-  const int clb = CL <= 16 ? 16 : (CL <= 32 ? 32 : 64);
-  const long long n_steps = (N + 32 * vec - 1) / (32 * vec);
-  return 4LL * n_steps * 32 * vec * (clb + 4);
 }

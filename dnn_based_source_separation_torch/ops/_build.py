@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` has a plain C interface. It is compiled at first use
 into a shared library under `_build/` (git-ignored), keyed by a hash of the
-source and the flags, so an edited source is rebuilt and an unchanged one is
+source, every header of `csrc/` (`*.cuh`, which a source may include) and
+the flags, so an edited source or header is rebuilt and an unchanged one is
 loaded as it is. No PyTorch headers are included: a build takes seconds.
 """
 from __future__ import annotations
@@ -50,7 +51,9 @@ def load_library(name: str) -> ctypes.CDLL:
     if lib is not None:
         return lib
     source = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(b"".join(
+        [source.read_bytes(), *(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh"))),
+         " ".join(NVCC_FLAGS).encode()])).hexdigest()[:16]
     target = BUILD_DIR / f"{name}-{digest}.so"
     if target.exists():
         BUILD_INFO[name] = {"seconds": 0.0, "log": "cached"}

@@ -81,8 +81,11 @@ class ConvDecoder(nn.Module):
         kernel = self.conv_transpose1d.weight.reshape(self.n_basis, -1)  # (N, C*L)
         recording = torch.is_grad_enabled() and any(
             t.requires_grad for t in (w, mask, kernel))
-        decode = fused_mask_decode_reference if recording else fused_mask_decode
-        frames = decode(w, mask, kernel)  # (B, S, T', C*L)
+        if recording:
+            frames = fused_mask_decode_reference(w, mask, kernel)  # (B, S, T', C*L)
+        else:  # the kernel reads rows with a contiguous last dimension, any other stride
+            w, mask = (t if t.stride(-1) == 1 else t.contiguous() for t in (w, mask))
+            frames = fused_mask_decode(w, mask, kernel)
         *lead, S, _ = frames.shape
         frames = frames.reshape(*lead, S, self.out_channels, self.kernel_size)
         frames = frames.movedim(-2, -3)  # (B, S, C, T', L)

@@ -9,6 +9,11 @@ forward of `csrc/gru_scan.cu` and, under autograd, the reverse recurrence of
 is no fallback from one to the other: a CUDA call the kernel cannot take
 raises.
 
+The forward has the LSTM's two paths, planned by the same `_plan`
+(`ops/lstm_scan.py`): the tensor-core kernel (`"mma"`,
+`csrc/recurrence_mma.cuh`) for bfloat16 with H a multiple of 16 up to 128,
+the FMA kernel (`"fma"`) for every other call.
+
 Semantics are the Pallas kernel's, in both dtypes, torch gate order r, z, n:
 `g = f32(h rounded to W's dtype) @ f32(W) + f32(b_hh)`,
 `r = sigmoid(x_r + g_r)`, `z = sigmoid(x_z + g_z)`, `n = tanh(x_n + r * g_n)`,
@@ -34,10 +39,13 @@ import torch
 import torch.nn.functional as F
 
 from ._build import load_library
+from .lstm_scan import _PATH_CODE, _plan  # the GRU forward plans by the LSTM's rule
 
 # Launches of each CUDA kernel in this process. Only the launches below
 # increment them; callers reset them to 0 to count a run.
 LAUNCHES = {"gru_scan": 0, "gru_scan_bidir": 0, "gru_scan_bwd": 0, "gru_scan_bidir_bwd": 0}
+# The forward launches above, split by the path `_plan` chose.
+PATH_LAUNCHES = {name: {"mma": 0, "fma": 0} for name in ("gru_scan", "gru_scan_bidir")}
 
 MAX_HIDDEN = 512
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -150,9 +158,9 @@ def _library():
     if _LIB is None:
         lib = load_library("gru_scan")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.gru_scan_launch.argtypes = [p, p, p, p, i, i, i, i, p]
+        lib.gru_scan_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
         lib.gru_scan_launch.restype = i
-        lib.gru_scan_bidir_launch.argtypes = [p] * 8 + [i, i, i, i, p]
+        lib.gru_scan_bidir_launch.argtypes = [p] * 8 + [i, i, i, i, i, i, p]
         lib.gru_scan_bidir_launch.restype = i
         _LIB = lib
     return _LIB
@@ -219,27 +227,34 @@ def _check_chains(name: str, chains) -> None:
                              f"{xw0.device} vs {tuple(xw.shape)} {xw.dtype} {xw.device}")
 
 
-def _launch(name: str, fn, pointers, dtype, B, T, H, device) -> None:
+def _launch(name: str, fn, pointers, dtype, B, T, H, device, *plan) -> None:
     with torch.cuda.device(device):
-        err = fn(*pointers, _DTYPE_CODE[dtype], B, T, H,
+        err = fn(*pointers, _DTYPE_CODE[dtype], B, T, H, *plan,
                  torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     LAUNCHES[name] += 1
 
 
-def _forward_cuda(chains):
-    """Launch the forward kernel over one or two (xw, w_hh, b_hh) chains -> list of hs."""
+def _forward_cuda(chains, path: str | None = None):
+    """Launch the forward kernel over one or two (xw, w_hh, b_hh) chains -> list of hs.
+
+    `path` forces a path of `_plan` (only chip_smoke.py passes it, to time
+    the FMA kernel where the tensor-core one would run).
+    """
     name = "gru_scan" if len(chains) == 1 else "gru_scan_bidir"
     _check_chains(name, chains)
     xw0 = chains[0][0]
     B, T, three_h = xw0.shape
     H = three_h // 3
+    sms = torch.cuda.get_device_properties(xw0.device).multi_processor_count
+    path, tile = _plan(B, len(chains), H, xw0.dtype, sms, path)
     hs = [torch.empty((B, T, H), dtype=xw0.dtype, device=xw0.device) for _ in chains]
     lib = _library()
     fn = lib.gru_scan_launch if len(chains) == 1 else lib.gru_scan_bidir_launch
     pointers = [c[k].data_ptr() for k in range(3) for c in chains] + [h.data_ptr() for h in hs]
-    _launch(name, fn, pointers, xw0.dtype, B, T, H, xw0.device)
+    _launch(name, fn, pointers, xw0.dtype, B, T, H, xw0.device, _PATH_CODE[path], tile)
+    PATH_LAUNCHES[name][path] += 1
     return hs
 
 

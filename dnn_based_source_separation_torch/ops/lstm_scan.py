@@ -8,6 +8,11 @@ On CUDA tensors the hand-written Hopper kernels run: the forward of
 There is no fallback from one to the other: a CUDA call the kernel cannot
 take raises.
 
+The forward has two paths, and `_plan` picks one from the dtype and the
+shape before the launch: the tensor-core kernel (`"mma"`,
+`csrc/recurrence_mma.cuh`) for bfloat16 with H a multiple of 16 up to 128,
+and the FMA kernel (`"fma"`) for every other call (float32, other H).
+
 Semantics are the Pallas kernels', in both dtypes: gates are
 `f32(xw[t]) + f32(h rounded to W's dtype) @ f32(W)`, h and c are carried in
 f32, and hs (and cs, for the backward) are rounded to the dtype on write.
@@ -35,8 +40,12 @@ from ._build import load_library
 # Launches of each CUDA kernel in this process. Only the launches below
 # increment them; callers reset them to 0 to count a run.
 LAUNCHES = {"lstm_scan": 0, "lstm_scan_bidir": 0, "lstm_scan_bwd": 0, "lstm_scan_bidir_bwd": 0}
+# The forward launches above, split by the path `_plan` chose.
+PATH_LAUNCHES = {name: {"mma": 0, "fma": 0} for name in ("lstm_scan", "lstm_scan_bidir")}
 
 MAX_HIDDEN = 512
+MMA_MAX_HIDDEN = 128  # W_hh as mma B fragments: G H^2 / 2 registers a block
+_PATH_CODE = {"fma": 0, "mma": 1}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LIB = None
 _BWD_LIB = None
@@ -150,14 +159,43 @@ def lstm_scan_bwd_reference(xw, w_hh, hs, cs, g_hs):
     return das.to(xw.dtype), _weight_grad(h_prev, das, w_hh.dtype)
 
 
+def _plan(B: int, n_chains: int, H: int, dtype: torch.dtype, sms: int,
+          path: str | None = None) -> tuple[str, int]:
+    """The forward kernel and tile for B sequences on each of `n_chains` chains -> (path, tile).
+
+    "mma" (tile M rows) for bfloat16 with H a multiple of 16 up to
+    MMA_MAX_HIDDEN: M = 16 while that grid fits one wave over `sms` SMs,
+    else M = 32, which halves the blocks (at the serving shapes, one wave).
+    "fma" (tile R sequences per group of the FMA kernel) for every other
+    call: the largest R in 4, 2, 1 that still gives every SM a block.
+    `path` forces one (the FMA path at a shape that would take "mma", to
+    time both); forcing "mma" where it cannot run raises. The GRU wrapper
+    plans with this function too.
+    """
+    mma_ok = dtype == torch.bfloat16 and H % 16 == 0 and 16 <= H <= MMA_MAX_HIDDEN
+    path = path or ("mma" if mma_ok else "fma")
+    if path == "mma":
+        if not mma_ok:
+            raise ValueError(f"the tensor-core path takes bfloat16 with H a multiple of 16 up "
+                             f"to {MMA_MAX_HIDDEN}; got {dtype}, H = {H}")
+        return "mma", 16 if n_chains * -(-B // 16) <= sms else 32
+    if path != "fma":
+        raise ValueError(f"unknown path {path!r}")
+    groups = min(4, 256 // (H // 2))
+    for r in (4, 2):
+        if n_chains * -(-B // (groups * r)) >= sms:
+            return "fma", r
+    return "fma", 1
+
+
 def _library():
     global _LIB
     if _LIB is None:
         lib = load_library("lstm_scan")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.lstm_scan_launch.argtypes = [p, p, p, p, i, i, i, i, p]
+        lib.lstm_scan_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
         lib.lstm_scan_launch.restype = i
-        lib.lstm_scan_bidir_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
+        lib.lstm_scan_bidir_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
         lib.lstm_scan_bidir_launch.restype = i
         _LIB = lib
     return _LIB
@@ -221,22 +259,28 @@ def _check_chains(name: str, chains) -> None:
                              f"{xw0.device} vs {tuple(xw.shape)} {xw.dtype} {xw.device}")
 
 
-def _launch(name: str, fn, pointers, dtype, B, T, H, device) -> None:
+def _launch(name: str, fn, pointers, dtype, B, T, H, device, *plan) -> None:
     with torch.cuda.device(device):
-        err = fn(*pointers, _DTYPE_CODE[dtype], B, T, H,
+        err = fn(*pointers, _DTYPE_CODE[dtype], B, T, H, *plan,
                  torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     LAUNCHES[name] += 1
 
 
-def _forward_cuda(chains, with_cs: bool):
-    """Launch the forward kernel over one or two (xw, w_hh) chains -> (hs list, cs list)."""
+def _forward_cuda(chains, with_cs: bool, path: str | None = None):
+    """Launch the forward kernel over one or two (xw, w_hh) chains -> (hs list, cs list).
+
+    `path` forces a path of `_plan` (only chip_smoke.py passes it, to time
+    the FMA kernel where the tensor-core one would run).
+    """
     name = "lstm_scan" if len(chains) == 1 else "lstm_scan_bidir"
     _check_chains(name, chains)
     xw0 = chains[0][0]
     B, T, four_h = xw0.shape
     H = four_h // 4
+    sms = torch.cuda.get_device_properties(xw0.device).multi_processor_count
+    path, tile = _plan(B, len(chains), H, xw0.dtype, sms, path)
     hs = [torch.empty((B, T, H), dtype=xw0.dtype, device=xw0.device) for _ in chains]
     cs = [torch.empty_like(h) for h in hs] if with_cs else []
     lib = _library()
@@ -244,7 +288,8 @@ def _forward_cuda(chains, with_cs: bool):
     pointers = ([c[0].data_ptr() for c in chains] + [c[1].data_ptr() for c in chains]
                 + [h.data_ptr() for h in hs]
                 + ([c.data_ptr() for c in cs] if with_cs else [None] * len(chains)))
-    _launch(name, fn, pointers, xw0.dtype, B, T, H, xw0.device)
+    _launch(name, fn, pointers, xw0.dtype, B, T, H, xw0.device, _PATH_CODE[path], tile)
+    PATH_LAUNCHES[name][path] += 1
     return hs, cs
 
 

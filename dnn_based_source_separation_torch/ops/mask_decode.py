@@ -3,7 +3,9 @@
 Port of `dnn_based_source_separation_tpu/ops/pallas_kernels.py:fused_mask_decode`.
 On CUDA tensors the hand-written Hopper kernel `csrc/mask_decode.cu` runs;
 on CPU tensors the plain PyTorch version does. There is no fallback from
-one to the other: a CUDA call the kernel cannot take raises.
+one to the other: a CUDA call the kernel cannot take raises. The kernel
+takes every width the decoder can hand over: any N, any C·L, any row
+strides, as long as the last dimension of w and mask is contiguous.
 
 The kernel has no backward, as the Pallas kernel has no VJP: a CUDA call
 under autograd raises instead of returning a result with no gradient
@@ -21,10 +23,7 @@ from ._build import load_library
 # below increments it; callers reset it to 0 to count a run.
 LAUNCHES = 0
 
-MAX_CL = 64
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_VEC = {torch.float32: 4, torch.bfloat16: 8}  # elements per 16-byte load
-_MAX_SHARED_BYTES = 232448  # a Hopper block's dynamic shared-memory ceiling
 _LIB = None
 
 
@@ -51,8 +50,6 @@ def _library():
             ctypes.c_void_p,
         ]
         lib.mask_decode_launch.restype = ctypes.c_int
-        lib.mask_decode_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
-        lib.mask_decode_smem_bytes.restype = ctypes.c_longlong
         _LIB = lib
     return _LIB
 
@@ -75,22 +72,14 @@ def _check(w: torch.Tensor, mask: torch.Tensor, kernel: torch.Tensor) -> None:
                         f"{w.dtype}, {mask.dtype}, {kernel.dtype}")
     if not (w.device == mask.device == kernel.device):
         raise ValueError(f"tensors on different devices: {w.device}, {mask.device}, {kernel.device}")
-    CL = kernel.shape[1]
-    if not 1 <= CL <= MAX_CL:
-        raise ValueError(f"kernel width C*L = {CL} outside 1..{MAX_CL}")
-    if Tp < 1 or B < 1 or mask.shape[1] < 1 or B > 65535:
-        raise ValueError(f"unsupported sizes B={B}, S={mask.shape[1]}, T'={Tp}")
-    vec = _VEC[w.dtype]
-    if N % vec:
-        raise ValueError(f"N = {N} must be a multiple of {vec} for 16-byte loads of {w.dtype}")
+    if Tp < 1 or B < 1 or mask.shape[1] < 1 or N < 1 or kernel.shape[1] < 1 or B > 65535:
+        raise ValueError(f"unsupported sizes B={B}, S={mask.shape[1]}, T'={Tp}, N={N}, "
+                         f"C*L={kernel.shape[1]}")
     if not kernel.is_contiguous():
         raise ValueError("kernel must be contiguous")
     for name, t in (("w", w), ("mask", mask)):
-        if t.stride(-1) != 1 or any(st % vec for st in t.stride()[:-1]):
-            raise ValueError(f"{name} needs a contiguous last dimension and 16-byte aligned "
-                             f"rows; strides {t.stride()}")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} is not 16-byte aligned")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name} needs a contiguous last dimension; strides {t.stride()}")
 
 
 def fused_mask_decode(w: torch.Tensor, mask: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
@@ -117,10 +106,6 @@ def fused_mask_decode(w: torch.Tensor, mask: torch.Tensor, kernel: torch.Tensor)
     B, Tp, N = w.shape
     S, CL = mask.shape[1], kernel.shape[1]
     code = _DTYPE_CODE[w.dtype]
-    smem = lib.mask_decode_smem_bytes(code, N, CL)
-    if smem > _MAX_SHARED_BYTES:
-        raise ValueError(f"N = {N}, C*L = {CL} needs {smem} B of shared memory "
-                         f"(> {_MAX_SHARED_BYTES})")
     out = torch.empty((B, S, Tp, CL), dtype=torch.float32, device=w.device)
     with torch.cuda.device(w.device):
         stream = torch.cuda.current_stream(w.device).cuda_stream

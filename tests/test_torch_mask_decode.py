@@ -30,9 +30,12 @@ def _inputs(seed, B=2, S=2, Tp=70, N=32, CL=16):
     return w, mask, kernel
 
 
-@pytest.mark.parametrize("CL", [16, 32])
-def test_fused_mask_decode_matches_pallas_interpret(CL):
-    w, mask, kernel = _inputs(CL, CL=CL)  # T'=70: ragged against tile_t=32
+# (N, C*L): 32 lanes of 16 or 32 columns; LSTM-TasNet's decoder (N=500, L=40)
+# and N=61 with L=2, neither N a multiple of a 16-byte vector.
+@pytest.mark.parametrize("N,CL", [(32, 16), (32, 32), (500, 40), (61, 2)],
+                         ids=["16", "32", "N500-CL40", "N61-CL2"])
+def test_fused_mask_decode_matches_pallas_interpret(N, CL):
+    w, mask, kernel = _inputs(CL, N=N, CL=CL)  # T'=70: ragged against tile_t=32
     expected = np.asarray(jax_fmd(jnp.asarray(w), jnp.asarray(mask), jnp.asarray(kernel),
                                   tile_t=32))
     md.LAUNCHES = 0
@@ -62,9 +65,7 @@ def test_reference_rounds_the_product_in_bfloat16():
     torch.testing.assert_close(got, expected, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("bad", [
-    "dtype", "shape", "N_not_vector_multiple", "CL_too_wide", "last_dim_strided",
-])
+@pytest.mark.parametrize("bad", ["dtype", "shape", "last_dim_strided"])
 def test_cuda_argument_checks_raise(bad):
     # `_check` guards the CUDA launch; it is pure shape/dtype logic, so it
     # can be exercised on CPU tensors.
@@ -73,20 +74,26 @@ def test_cuda_argument_checks_raise(bad):
         w = w.to(torch.bfloat16)
     elif bad == "shape":
         mask = mask[:, :, :-1]
-    elif bad == "N_not_vector_multiple":
-        w, mask, kernel = w[..., :30], mask[..., :30], kernel[:30]
-    elif bad == "CL_too_wide":
-        kernel = torch.zeros(32, md.MAX_CL + 1)
     elif bad == "last_dim_strided":
         mask = torch.from_numpy(np.repeat(mask.numpy(), 2, axis=-1))[..., ::2]
     with pytest.raises((ValueError, TypeError)):
         md._check(w, mask, kernel)
 
 
-def test_cuda_argument_checks_accept_the_serving_layout():
-    w, mask, kernel = (torch.from_numpy(a) for a in _inputs(6))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("CL", [16, 40, 80])
+@pytest.mark.parametrize("N", [30, 61, 500])
+def test_cuda_argument_checks_accept_the_serving_layout(N, CL, dtype):
+    # Any N, any C*L and any row stride: the kernel takes rows that are not
+    # whole 16-byte vectors, and C*L > 64 in column blocks.
+    w, mask, kernel = (torch.from_numpy(a).to(dtype) for a in _inputs(6, Tp=9, N=N, CL=CL))
     md._check(w, mask, kernel)
-    md._check(w.to(torch.bfloat16), mask.to(torch.bfloat16), kernel.to(torch.bfloat16))
+    # The separator's (B, S, T', N) view of a (B, T', S, N) tensor, and w rows
+    # cut out of a wider tensor: row strides off every vector multiple.
+    strided = mask.transpose(1, 2).contiguous().transpose(1, 2)
+    wide = torch.cat([w, w[..., :3]], dim=-1)[..., :N]
+    assert not strided.is_contiguous() and not wide.is_contiguous()
+    md._check(wide, strided, kernel)
 
 
 def test_unsupported_device_raises():
@@ -95,9 +102,12 @@ def test_unsupported_device_raises():
         md.fused_mask_decode(w, mask, kernel)
 
 
-@pytest.mark.parametrize("channels,L,stride", [(1, 8, 4), (2, 16, 8), (1, 6, 4)])
-def test_conv_decoder_matches_jax_on_masked_latent(channels, L, stride):
-    N = 16
+@pytest.mark.parametrize("channels,L,stride,N", [
+    (1, 8, 4, 16), (2, 16, 8, 16), (1, 6, 4, 16),
+    (1, 40, 20, 500),  # the LSTM-TasNet recipe's decoder
+    (1, 2, 1, 61),
+], ids=["1-8-4", "2-16-8", "1-6-4", "1-40-20-N500", "1-2-1-N61"])
+def test_conv_decoder_matches_jax_on_masked_latent(channels, L, stride, N):
     rng = np.random.default_rng(10 + L)
     w, mask, _ = _inputs(10 + L, N=N, CL=channels * L)
     jk = rng.standard_normal((N, channels * L)).astype(np.float32)

@@ -19,10 +19,12 @@ Phases (any failure exits non-zero; nothing is caught and passed):
      bf16, at the intra- and inter-chunk serving shapes (timed), an odd small
      shape, B=37 and T=19 at H=128 (rows past the tile), T=1, H=64, a streamed
      hop's three chunks (timed), and H=256 and 512. Each launch must take the path
-     _plan gives: the tensor-core kernel for bf16 at H a multiple of 16 up to
-     128, the FMA kernel otherwise. Where that is the tensor-core kernel, the
-     FMA kernel is forced too and held to the plain version; at the timed
-     shapes in bf16 it is timed between two timings of the tensor-core kernel;
+     _plan gives: for H a multiple of 16 up to 128 the tensor cores, "mma" in
+     bf16 and "tf32x3" (3xTF32, clusters of 2 or 4 blocks) in f32, the FMA kernel
+     otherwise. Where a tensor-core kernel runs, it is launched ten more
+     times, each output held to the limit, and the FMA kernel is forced too
+     and held to the plain version; at the timed shapes it is timed between
+     two timings of the tensor-core kernel;
   3c. gru_scan_bidir and gru_scan the same way;
   3d. the training forward (cs written; the tensor-core path in bf16) and the
      backward kernels of lstm_scan_bidir and lstm_scan under autograd against
@@ -60,9 +62,9 @@ Phases (any failure exits non-zero; nothing is caught and passed):
   5. card vs CPU: the f32 card output against the CPU (plain) output, and the
      bf16 card output against the f32 card output, for every served model,
      streamed ones included;
-  6. throughput (informational): B=8 x 4 s bf16 forward, and CLI latency,
-     for each offline model; ms per 0.05 s hop, its real-time factor and the
-     CLI latency for the streamed ones;
+  6. throughput (informational): B=8 x 4 s bf16 forward (DPRNN-TasNet in f32
+     too), and CLI latency, for each offline model; ms per 0.05 s hop, its
+     real-time factor and the CLI latency for the streamed ones;
   7. one train step, card vs CPU: recipe-config DPRNN-TasNet (LSTM and GRU,
      non-causal and causal) and paper-config Conv-TasNet, same seed-made
      weights and batch, f32: the loss and every gradient, none all zero on the
@@ -84,14 +86,16 @@ Phases (any failure exits non-zero; nothing is caught and passed):
 
 Each serving, quantizing and evaluation path, and the training path of phase
 8, runs with every launch count set to 0 just before it and read just after
-it. Every recurrence forward of phases 4b-4d and 7-10 is also counted by path
-(the wrappers' PATH_LAUNCHES): each bf16 request and bf16 train step must
-launch only the tensor-core kernel, each f32 one only the FMA kernel (the
-served and trained models have H = 128). The last line is {"ok": true,
-"device": {...}}; the line before it lists the kernels with their launch
-counts, errors, times, bounds and library times: the recurrence forwards
-twice, the FMA kernel in f32 and the tensor-core kernel in bf16 (with the
-FMA kernel's bf16 time of the same run as `fma_ms`).
+it. Every recurrence forward of phases 4b-4d, 6 and 7-10 is also counted by
+path (the wrappers' PATH_LAUNCHES): each bf16 request and bf16 train step must
+launch only the bf16 tensor-core kernel ("mma"), each f32 one only the 3xTF32
+kernel ("tf32x3"), and none the FMA kernel (the served and trained models have
+H = 128). The last line is {"ok": true, "device": {...}}; the line before it
+lists the kernels with their launch counts, errors, times, bounds and library
+times: the recurrence forwards twice, the 3xTF32 kernel in f32 and the
+tensor-core kernel in bf16, each with the FMA kernel's time in the same dtype
+and run as `fma_ms` (the f32 rows also with the FMA kernel's bound as
+`fma_bound_ms`).
 """
 from __future__ import annotations
 
@@ -176,6 +180,7 @@ LSTM_SHAPES = [
 # recurrent product in another order. bf16: both round h to bf16 each step,
 # and a rounding that lands the other way feeds every later step.
 LSTM_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+REPEATS = 10  # further launches of each tensor-core recurrence kernel, each checked
 SNR_LIMIT_DB = 25.0
 STREAMING_HOP = 0.05  # seconds: 400 samples at 8 kHz
 STREAM_TOL = 1e-4  # streamed vs offline f32, relative to max|offline|
@@ -184,12 +189,14 @@ STREAM_TOL = 1e-4  # streamed vs offline f32, relative to max|offline|
 # the least time for a kernel's work is the larger of its
 # operations over the peak for their type and its bytes (each input read
 # once, each output written once) over the memory rate.
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # f32 outside the tensor cores
+# f32 outside the tensor cores; "tf32", the tensor cores' TF32 rate.
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12, "tf32": 495e12}
 HBM_BYTES_PER_S = 3.35e12
 
 
-def bound(flops: float, nbytes: float, dtype) -> dict:
-    ops_s, bytes_s = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+def bound(flops: float, nbytes: float, peak) -> dict:
+    """`peak` keys PEAK_FLOPS: a dtype, or "tf32"."""
+    ops_s, bytes_s = flops / PEAK_FLOPS[peak], nbytes / HBM_BYTES_PER_S
     return {"bound_ms": max(ops_s, bytes_s) * 1e3,
             "bound_by": "operations" if ops_s >= bytes_s else "bytes"}
 
@@ -340,27 +347,36 @@ def forward_path(module, kname, call, want):
     return out
 
 
+def plan(module, B, n_chains, H, dtype, path=None):
+    """module._plan as the wrapper calls it on this card -> (path, tile)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clusters = module._tf32_clusters(H, "cuda") if ls._tensor_core_path(H, dtype) else None
+    return module._plan(B, n_chains, H, dtype, sms, path, clusters)
+
+
 def phase_scan(title, module, make_inputs, runs):
     """Recurrence kernels against their plain versions at LSTM_SHAPES, f32 and bf16.
 
     runs(*inputs) -> {kernel name: (kernel call, plain call, FMA-forced call)}, each
     call returning a tuple of hs. Every launch must take the path `_plan` gives its
-    dtype and shape; where that is the tensor-core path, the FMA kernel is forced
-    and held to the plain version too. At the intra and inter serving shapes the
-    kernel is timed, and in bf16 the tensor-core kernel, the FMA kernel and the
-    tensor-core kernel again, in turn.
+    dtype and shape; where that is a tensor-core path ("mma" in bf16, "tf32x3" in
+    f32), the FMA kernel is forced and held to the plain version too. At the intra
+    and inter serving shapes and the streamed hop the kernel is timed: the
+    tensor-core kernel, the FMA kernel and the tensor-core kernel again, in turn.
     """
     log(title)
     result = {}
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    H = DPRNN["sep_hidden_channels"]
+    log(f"  clusters of the 3xTF32 kernel the card holds at once, by blocks a cluster "
+        f"(H={H}): {module._tf32_clusters(H, 'cuda')}")
     for name, B, T, H in LSTM_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             inputs = make_inputs(B, T, H, dtype, seed=B + T + H)
             for kname, (kernel, plain, fma) in runs(*inputs).items():
                 n_chains = 2 if kname.endswith("bidir") else 1
-                path, tile = module._plan(B, n_chains, H, dtype, sms)
+                path, tile = plan(module, B, n_chains, H, dtype)
                 calls = {path: kernel}
-                if path == "mma":
+                if path != "fma":
                     calls["fma"] = fma
                 ref = plain()
                 errs = {}
@@ -372,21 +388,30 @@ def phase_scan(title, module, make_inputs, runs):
                     err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, ref))
                     errs[p] = err
                     ok = err <= LSTM_TOL[dtype]
-                    _, p_tile = module._plan(B, n_chains, H, dtype, sms, p)
+                    _, p_tile = plan(module, B, n_chains, H, dtype, p)
+                    p_tile = (f"M={p_tile[0]}, C={p_tile[1]}" if isinstance(p_tile, tuple)
+                              else f"{'R' if p == 'fma' else 'M'}={p_tile}")
                     log(f"  {kname} {name} (B={B}, T={T}, H={H}) {str(dtype)[6:]} {p} "
-                        f"({'M' if p == 'mma' else 'R'}={p_tile}): max|kernel-plain| = "
+                        f"({p_tile}): max|kernel-plain| = "
                         f"{err:.3e} (limit {LSTM_TOL[dtype]:g}) {'ok' if ok else 'FAIL'}")
                     if not ok:
                         raise AssertionError(f"{kname} ({p}) disagrees with plain at {name}: "
                                              f"{err}")
+                if path != "fma":  # a race shows only in some launches: repeat, check each
+                    worst = max(max(float((a.float() - b.float()).abs().max())
+                                    for a, b in zip(kernel(), ref)) for _ in range(REPEATS))
+                    log(f"    {REPEATS} more {path} launches: worst max|kernel-plain| = "
+                        f"{worst:.3e}")
+                    check(worst <= LSTM_TOL[dtype], f"{kname} ({path}) disagreed with plain "
+                                                    f"in a repeated launch at {name}: {worst}")
                 if name in ("intra", "inter", "stream"):
                     timing = dict(max_abs_err=errs[path])
-                    if path == "mma":
+                    if path != "fma":
                         first = median_ms(kernel, warmup=2, iters=10)
                         timing["fma_ms"] = median_ms(fma, warmup=2, iters=10)
                         again = median_ms(kernel, warmup=2, iters=10)
                         timing.update(ms=(first + again) / 2, fma_max_abs_err=errs["fma"])
-                        times = (f"tensor cores {first:.4f} / {again:.4f} ms around FMA "
+                        times = (f"{path} {first:.4f} / {again:.4f} ms around FMA "
                                  f"{timing['fma_ms']:.4f} ms")
                     else:
                         timing["ms"] = median_ms(kernel, warmup=2, iters=10)
@@ -456,8 +481,7 @@ def phase_lstm_bwd():
             gen = torch.Generator(device="cuda").manual_seed(B + T)
             g_f, g_b = (torch.randn(B, T, H, device="cuda", generator=gen).to(dtype)
                         for _ in range(2))
-            path, _ = ls._plan(B, 2, H, dtype, torch.cuda.get_device_properties(0)
-                               .multi_processor_count)
+            path, _ = plan(ls, B, 2, H, dtype)
             (hs_f, hs_b), (cs_f, cs_b) = forward_path(
                 ls, "lstm_scan_bidir",
                 lambda: ls._forward_cuda([(xw_f, w_f), (xw_b, w_b)], True), path)
@@ -675,7 +699,7 @@ def counts() -> dict:
     return {"fused_mask_decode": md.LAUNCHES, **ls.LAUNCHES, **gs.LAUNCHES, **q8.LAUNCHES}
 
 
-# The recurrence forwards, each counted by path too ("name/mma", "name/fma").
+# The recurrence forwards, each counted by path too ("name/mma", "name/tf32x3", "name/fma").
 FORWARDS = ("lstm_scan", "lstm_scan_bidir", "gru_scan", "gru_scan_bidir")
 
 
@@ -710,17 +734,19 @@ def kernels_of(launches: dict) -> dict:
     return {k: launches[k] for k in counts()}
 
 
-def check_paths(grew: dict, mma: dict, what: str) -> None:
-    """A run's recurrence forwards by path: mma[name] launches of each on the tensor cores
-    (its bf16 forwards at H = 128), the rest of grew[name] on the FMA kernel (its f32 ones)."""
+def check_paths(grew: dict, bf16: dict, what: str) -> None:
+    """A run's recurrence forwards by path: bf16[name] launches of each on the bf16 tensor
+    cores ("mma"), the rest of grew[name] (its f32 ones) on the 3xTF32 kernel ("tf32x3"),
+    and none on the FMA kernel: every served and trained model has H = 128."""
     for name in FORWARDS:
-        want = (mma.get(name, 0), grew[name] - mma.get(name, 0))
-        got = (grew[f"{name}/mma"], grew[f"{name}/fma"])
-        check(got == want, f"{what}: {name} launched (mma, fma) = {got}, expected {want}")
+        want = (bf16.get(name, 0), grew[name] - bf16.get(name, 0), 0)
+        got = (grew[f"{name}/mma"], grew[f"{name}/tf32x3"], grew[f"{name}/fma"])
+        check(got == want, f"{what}: {name} launched (mma, tf32x3, fma) = {got}, "
+                           f"expected {want}")
 
 
 def all_bf16(grew: dict) -> dict:
-    """check_paths' `mma` for a run whose every recurrence forward is bf16."""
+    """check_paths' `bf16` for a run whose every recurrence forward is bf16."""
     return {name: grew[name] for name in FORWARDS}
 
 
@@ -865,16 +891,21 @@ def cli_latency(ckpt, wav, what, card, flags=()):
         f"median {np.median(lat) * 1e3:.1f} ms of {[round(v * 1e3, 1) for v in lat]} [{card}]")
 
 
-def forward_throughput(model, what, card, warmup, iters):
+def forward_throughput(model, what, card, warmup, iters, dtype=torch.bfloat16):
+    """The B=8 x 4 s forward of `model` (already in `dtype`); its recurrence forwards
+    must take the dtype's tensor-core path."""
     B, T = 8, 4 * SAMPLE_RATE
     x = torch.from_numpy(np.random.default_rng(1).standard_normal((B, 1, T), dtype=np.float32))
-    x = x.to("cuda", torch.bfloat16)
+    x = x.to("cuda", dtype)
     torch.cuda.reset_peak_memory_stats()
+    before = all_counts()
     with torch.inference_mode():
         ms = median_ms(lambda: model(x), warmup=warmup, iters=iters)
+    grew = grown(before)
+    check_paths(grew, all_bf16(grew) if dtype == torch.bfloat16 else {}, f"{what} forward")
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
-    log(f"  B=8 x 4 s bf16 {what} forward: {ms:.3f} ms, {B * 4.0 / (ms / 1e3):.1f} "
-        f"audio-s/s, peak {peak:.1f} MiB [{card}]")
+    log(f"  B=8 x 4 s {str(dtype)[6:]} {what} forward: {ms:.3f} ms, "
+        f"{B * 4.0 / (ms / 1e3):.1f} audio-s/s, peak {peak:.1f} MiB [{card}]")
 
 
 def phase_throughput(ckpt, wavs, card):
@@ -887,8 +918,9 @@ def phase_throughput(ckpt, wavs, card):
 
 def phase_throughput_dprnn(tag, ckpt, wavs, card):
     log(f"== phase 6: throughput (informational), {tag}")
-    model = load_model(ckpt, device="cuda").to(torch.bfloat16)
-    forward_throughput(model, tag, card, warmup=2, iters=5)
+    model = load_model(ckpt, device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):  # .to converts the model in place
+        forward_throughput(model.to(dtype), tag, card, warmup=2, iters=5, dtype=dtype)
     cli_latency(ckpt, wavs[-1], "load + forward + write", card)
 
 
@@ -1094,8 +1126,8 @@ def train_through_cli(argv, launches=None):
         want = {k: steps * per_step[k] + evals * per_eval[k] for k in grew}
         check(grew == want, f"{argv[-1]}: launched {grew}, expected {want} for {steps} "
                             f"steps and {evals} validation forwards")
-        # Mixed precision: the steps' forwards run on bf16 copies, the
-        # validation forwards on the f32 weights.
+        # Mixed precision: the steps' forwards run on bf16 copies ("mma"), the
+        # validation forwards on the f32 weights ("tf32x3").
         mixed = "--mixed_precision" in argv
         check_paths(grew_all, {k: steps * per_step[k] for k in FORWARDS} if mixed else {},
                     argv[-1])
@@ -1259,8 +1291,8 @@ def profile_train_step(model, compute_dtype, card, what):
     busy = sum(device.values())
     bwd_kernel = sum(t for k, t in device.items() if "lstm_bwd_kernel" in k
                      or "gru_bwd_kernel" in k)
-    fwd_kernel = sum(t for k, t in device.items()
-                     if "lstm_kernel" in k or "gru_kernel" in k or "scan_mma_kernel" in k)
+    fwd_kernel = sum(t for k, t in device.items() if "lstm_kernel" in k or "gru_kernel" in k
+                     or "scan_mma_kernel" in k or "scan_tf32_kernel" in k)
     log(f"  profile of one {what} step (B=2 x 4 s): wall {wall:.3f} ms; forward "
         f"{fwd:.3f} ms (recurrence kernels {fwd_kernel:.3f} ms device), backward {bwd:.3f} ms "
         f"(backward kernels {bwd_kernel:.3f} ms device, other backward {bwd - bwd_kernel:.3f} "
@@ -1382,10 +1414,13 @@ def phase_evaluate(tmp, checkpoints, card):
 
 
 def kernel_entry(name, source, replaces, launches, timing, bound_of, library_ms=None,
-                 dtype=torch.float32):
+                 dtype=torch.float32, fma_bound=None):
     """One kernel of the `kernels` line; `dtype` is that of the inputs timed. A timing
-    with the FMA kernel's time of the same run (a tensor-core row) adds it as fma_ms."""
+    with the FMA kernel's time of the same run (a tensor-core row) adds it as fma_ms, and
+    `fma_bound` (a bound() of the FMA kernel's work) as fma_bound_ms."""
     extra = {"fma_ms": timing["fma_ms"]} if "fma_ms" in timing else {}
+    if fma_bound is not None:
+        extra["fma_bound_ms"] = fma_bound["bound_ms"]
     return {"name": name, "route": "cuda", "source": f"dnn_based_source_separation_torch/{source}",
             "replaces": f"dnn_based_source_separation_tpu/{replaces}", "launches": launches,
             "dtype": str(dtype)[6:], "max_abs_err": timing["max_abs_err"], "ms": timing["ms"],
@@ -1393,16 +1428,17 @@ def kernel_entry(name, source, replaces, launches, timing, bound_of, library_ms=
 
 
 def recurrence_bound(B, T, H, gates, chains, backward=False, cell_state=False, bias=False,
-                     dtype=torch.float32):
+                     dtype=torch.float32, tf32x3=False):
     """The least time of a recurrence's work at (B, T, H) in `dtype`.
 
     Forward: 2 x B x T x gates x H^2 FLOPs per chain (the recurrent product;
     the gate nonlinearities are a few operations per unit and are left out),
-    over the dtype's peak (bf16: the tensor cores), and xw read, hs written,
-    at the dtype's size. Backward, as timed (the gate recompute, the kernel
-    and the weight gradient): three products of that size, xw, hs, the
-    cotangent (and the LSTM's cs) read, d_xw and the parameter gradients
-    written.
+    over the dtype's peak (bf16: the tensor cores; f32: FMA outside them, or,
+    with `tf32x3`, three TF32 products at the tensor cores' TF32 peak), and
+    xw read, hs written, at the dtype's size. Backward, as timed (the gate
+    recompute, the kernel and the weight gradient): three products of that
+    size, xw, hs, the cotangent (and the LSTM's cs) read, d_xw and the
+    parameter gradients written.
     """
     G = gates * H
     flops = chains * 2.0 * B * T * G * H * (3 if backward else 1)
@@ -1411,6 +1447,8 @@ def recurrence_bound(B, T, H, gates, chains, backward=False, cell_state=False, b
         seq += B * T * (H + G + (H if cell_state else 0))  # g_hs, d_xw, cs
     params = G * H * (2 if backward else 1) + (G * (2 if backward else 1) if bias else 0)
     size = torch.tensor([], dtype=dtype).element_size()
+    if tf32x3:
+        return bound(3 * flops, size * chains * (seq + params), "tf32")
     return bound(flops, size * chains * (seq + params), dtype)
 
 
@@ -1533,7 +1571,9 @@ def main(argv=None) -> int:
         check(trained[name] >= 1, f"the training path never launched {name}")
     total = {k: v + trained[k] + evaluated[k] for k, v in total.items()}
     for name, n in total.items():
-        if n < 1:
+        if name.endswith("/fma"):  # every served and trained model has H = 128
+            check(n == 0, f"the main path launched the FMA kernel: {name} {n} times")
+        elif n < 1:
             raise AssertionError(f"the serving, training and evaluation paths never launched "
                                  f"{name}")
     check("jax" not in sys.modules and "flax" not in sys.modules, "jax was imported")
@@ -1544,35 +1584,35 @@ def main(argv=None) -> int:
     H = DPRNN["sep_hidden_channels"]
     n_big = QUANT_BIG[0] * QUANT_BIG[1]
     mask_timing = timings[("serving shape", f32)]
-    # The recurrence forwards twice: the FMA kernel in f32 (its main-path
+    # The recurrence forwards twice: the 3xTF32 kernel in f32 (its main-path
     # launches: the f32 forwards) and the tensor-core kernel in bf16 (the bf16
-    # forwards), each beside cuDNN's nn.LSTM / nn.GRU in the same dtype (it
-    # also does the input projection the kernels take as given). einsum is
-    # fused_mask_decode's library call in f32.
-    forwards = [  # name, FMA source, replaces, timings, timed shape, (B, T, chains), gates
-        ("lstm_scan_bidir", "csrc/lstm_scan.cu", "ops/pallas_lstm.py:323", lstm_timings,
-         "intra", (2040, 250, 2), 4),
-        ("lstm_scan", "csrc/lstm_scan.cu", "ops/pallas_lstm.py:166", lstm_timings, "inter",
-         (2000, 255, 1), 4),
-        ("gru_scan_bidir", "csrc/gru_scan.cu", "ops/pallas_lstm.py:422", gru_timings, "intra",
-         (2040, 250, 2), 3),
+    # forwards), each beside the FMA kernel's time in the same run and cuDNN's
+    # nn.LSTM / nn.GRU in the same dtype (it also does the input projection
+    # the kernels take as given). einsum is fused_mask_decode's library call
+    # in f32.
+    forwards = [  # name, replaces, timings, timed shape, (B, T, chains), gates
+        ("lstm_scan_bidir", "ops/pallas_lstm.py:323", lstm_timings, "intra", (2040, 250, 2), 4),
+        ("lstm_scan", "ops/pallas_lstm.py:166", lstm_timings, "inter", (2000, 255, 1), 4),
+        ("gru_scan_bidir", "ops/pallas_lstm.py:422", gru_timings, "intra", (2040, 250, 2), 3),
         # The one-chain instance of the same kernel: the JAX package runs the
         # unidirectional GRU in lax.scan, so it has no Pallas kernel of its own.
-        ("gru_scan", "csrc/gru_scan.cu", "ops/pallas_lstm.py:422", gru_timings, "inter",
-         (2000, 255, 1), 3),
+        ("gru_scan", "ops/pallas_lstm.py:422", gru_timings, "inter", (2000, 255, 1), 3),
     ]
     entries = [
         kernel_entry("fused_mask_decode", "csrc/mask_decode.cu", "ops/pallas_kernels.py:114",
                      total["fused_mask_decode"], mask_timing,
                      mask_decode_bound(**SERVING_SHAPE, dtype=f32), mask_timing["library_ms"]),
     ]
-    for dtype, path, suffix in ((f32, "fma", ""), (bf16, "mma", "_bf16")):
-        for name, source, replaces, times, shape, (B, T, chains), gates in forwards:
+    for dtype, path, source, suffix in ((f32, "tf32x3", "csrc/recurrence_tf32.cuh", ""),
+                                        (bf16, "mma", "csrc/recurrence_mma.cuh", "_bf16")):
+        for name, replaces, times, shape, (B, T, chains), gates in forwards:
+            route = recurrence_bound(B, T, H, gates, chains, bias=gates == 3, dtype=dtype,
+                                     tf32x3=path == "tf32x3")
+            fma_bound = (recurrence_bound(B, T, H, gates, chains, bias=gates == 3, dtype=dtype)
+                         if path == "tf32x3" else None)
             entries.append(kernel_entry(
-                name, source if path == "fma" else "csrc/recurrence_mma.cuh", replaces,
-                total[f"{name}/{path}"], times[(name, shape, dtype)],
-                recurrence_bound(B, T, H, gates, chains, bias=gates == 3, dtype=dtype),
-                library[name + suffix], dtype=dtype))
+                name, source, replaces, total[f"{name}/{path}"], times[(name, shape, dtype)],
+                route, library[name + suffix], dtype=dtype, fma_bound=fma_bound))
     entries += [
         # The backward of kernels 2-4 (`custom_vjp` _bidir_bwd and _lstm_bwd, both
         # _lstm_bwd_core; _gru_bidir_bwd, _gru_bwd_core); times are the whole

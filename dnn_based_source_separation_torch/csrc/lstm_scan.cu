@@ -18,12 +18,15 @@
 // products are exact in f32 and summed in f32, and h and c are carried in
 // f32, as the Pallas kernels carry them in f32 VMEM scratch.
 //
-// Two paths, chosen by the caller (ops/lstm_scan.py:_plan) from the dtype and
-// the shape before the launch, never after a failure:
+// Three paths, chosen by the caller (ops/lstm_scan.py:_plan) from the dtype
+// and the shape before the launch, never after a failure:
 //   * "mma": bfloat16 with H a multiple of 16 up to 128, the tensor-core
 //     kernel of csrc/recurrence_mma.cuh with the LSTM cell below, on M-row
 //     tiles (M = 16 or 32);
-//   * "fma": every other call (float32 at any H; bfloat16 at other H), the
+//   * "tf32x3": float32 with the same H, the 3xTF32 tensor-core kernel of
+//     csrc/recurrence_tf32.cuh with the same cell, on M-row tiles (M = 16,
+//     32 or 64) held by a cluster of 2 or 4 blocks;
+//   * "fma": every other call (H = 40, 256, 512, ... in either dtype), the
 //     FMA kernel of this file, on tiles of R sequences per group.
 //
 // What bounds the FMA kernel. Every step of a chain depends on the step
@@ -64,6 +67,7 @@
 #include <stdint.h>
 
 #include "recurrence_mma.cuh"
+#include "recurrence_tf32.cuh"
 
 namespace {
 
@@ -286,10 +290,21 @@ int launch_fma(const Chains& chains, int n_chains, int B, int T_len, int H, int 
 }
 
 // path 0: the FMA kernel with tile R; path 1: the tensor-core kernel
-// (bfloat16 only) with tile M.
+// (bfloat16 only) with tile M; path 2: the 3xTF32 kernel (float32 only)
+// with tile M and clusters of `cluster` blocks (ignored by the others).
 int dispatch(const Chains& chains, int n_chains, int dtype, int B, int T_len, int H, int path,
-             int tile, void* stream) {
+             int tile, int cluster, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (path == 2) {
+    if (dtype != 0) return (int)cudaErrorInvalidValue;
+    const tf32_scan::Chains tc = {
+        {static_cast<const float*>(chains.xw[0]), static_cast<const float*>(chains.xw[1])},
+        {static_cast<const float*>(chains.whh[0]), static_cast<const float*>(chains.whh[1])},
+        {nullptr, nullptr},
+        {static_cast<float*>(chains.hs[0]), static_cast<float*>(chains.hs[1])},
+        {static_cast<float*>(chains.cs[0]), static_cast<float*>(chains.cs[1])}};
+    return tf32_scan::launch<LstmCell>(tc, n_chains, B, T_len, H, tile, cluster, st);
+  }
   if (path == 1) {
     if (dtype != 1) return (int)cudaErrorInvalidValue;
     const mma_scan::Chains mc = {
@@ -312,14 +327,17 @@ int dispatch(const Chains& chains, int n_chains, int dtype, int B, int T_len, in
 
 // dtype: 0 = float32, 1 = bfloat16 (xw, W_hh, hs and cs share it). All arrays
 // are contiguous: xw (B, T, 4H), W_hh (H, 4H), hs and cs (B, T, H); cs may be
-// null. path 0 (FMA, tile = R in {1, 2, 4}) or 1 (tensor cores, bfloat16,
-// H % 16 == 0 and H <= 128, tile = M in {16, 32}), from ops/lstm_scan.py:_plan.
+// null. path 0 (FMA, tile = R in {1, 2, 4}), 1 (tensor cores, bfloat16,
+// H % 16 == 0 and H <= 128, tile = M in {16, 32}) or 2 (3xTF32, float32, the
+// same H, tile = M in {16, 32, 64}, cluster = C in {2, 4} with H % 8C == 0),
+// from ops/lstm_scan.py:_plan; `cluster` is read on path 2 only.
 // Returns a cudaError_t (0 on success). The Python wrapper validates every
 // argument.
 extern "C" int lstm_scan_launch(const void* xw, const void* whh, void* hs, void* cs, int dtype,
-                                int B, int T, int H, int path, int tile, void* stream) {
+                                int B, int T, int H, int path, int tile, int cluster,
+                                void* stream) {
   Chains chains = {{xw, nullptr}, {whh, nullptr}, {hs, nullptr}, {cs, nullptr}};
-  return dispatch(chains, 1, dtype, B, T, H, path, tile, stream);
+  return dispatch(chains, 1, dtype, B, T, H, path, tile, cluster, stream);
 }
 
 // Two chains of one shape: the forward one and the one over the reversed
@@ -328,7 +346,14 @@ extern "C" int lstm_scan_launch(const void* xw, const void* whh, void* hs, void*
 extern "C" int lstm_scan_bidir_launch(const void* xw_f, const void* xw_b, const void* whh_f,
                                       const void* whh_b, void* hs_f, void* hs_b, void* cs_f,
                                       void* cs_b, int dtype, int B, int T, int H, int path,
-                                      int tile, void* stream) {
+                                      int tile, int cluster, void* stream) {
   Chains chains = {{xw_f, xw_b}, {whh_f, whh_b}, {hs_f, hs_b}, {cs_f, cs_b}};
-  return dispatch(chains, 2, dtype, B, T, H, path, tile, stream);
+  return dispatch(chains, 2, dtype, B, T, H, path, tile, cluster, stream);
+}
+
+// The clusters of C blocks of the 3xTF32 kernel at hidden size H that the
+// current card holds at once, each block on an SM of its own, into *clusters
+// (what _plan fits a wave to).
+extern "C" int lstm_scan_tf32_clusters(int H, int C, int* clusters) {
+  return tf32_scan::max_clusters<LstmCell>(H, C, clusters);
 }

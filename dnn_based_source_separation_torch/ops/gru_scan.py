@@ -9,10 +9,11 @@ forward of `csrc/gru_scan.cu` and, under autograd, the reverse recurrence of
 is no fallback from one to the other: a CUDA call the kernel cannot take
 raises.
 
-The forward has the LSTM's two paths, planned by the same `_plan`
-(`ops/lstm_scan.py`): the tensor-core kernel (`"mma"`,
-`csrc/recurrence_mma.cuh`) for bfloat16 with H a multiple of 16 up to 128,
-the FMA kernel (`"fma"`) for every other call.
+The forward has the LSTM's three paths, planned by the same `_plan`
+(`ops/lstm_scan.py`): for H a multiple of 16 up to 128 the tensor-core
+kernels, `"mma"` (`csrc/recurrence_mma.cuh`) for bfloat16 and `"tf32x3"`
+(`csrc/recurrence_tf32.cuh`) for float32; the FMA kernel (`"fma"`) for every
+other call.
 
 Semantics are the Pallas kernel's, in both dtypes, torch gate order r, z, n:
 `g = f32(h rounded to W's dtype) @ f32(W) + f32(b_hh)`,
@@ -39,13 +40,16 @@ import torch
 import torch.nn.functional as F
 
 from ._build import load_library
-from .lstm_scan import _PATH_CODE, _plan  # the GRU forward plans by the LSTM's rule
+from .lstm_scan import (  # the GRU plans by the LSTM's rule
+    _PATH_CODE, _co_resident_clusters, _plan, _plan_launch, _tile_args,
+)
 
 # Launches of each CUDA kernel in this process. Only the launches below
 # increment them; callers reset them to 0 to count a run.
 LAUNCHES = {"gru_scan": 0, "gru_scan_bidir": 0, "gru_scan_bwd": 0, "gru_scan_bidir_bwd": 0}
 # The forward launches above, split by the path `_plan` chose.
-PATH_LAUNCHES = {name: {"mma": 0, "fma": 0} for name in ("gru_scan", "gru_scan_bidir")}
+PATH_LAUNCHES = {name: {"mma": 0, "tf32x3": 0, "fma": 0}
+                 for name in ("gru_scan", "gru_scan_bidir")}
 
 MAX_HIDDEN = 512
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -158,10 +162,12 @@ def _library():
     if _LIB is None:
         lib = load_library("gru_scan")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.gru_scan_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+        lib.gru_scan_launch.argtypes = [p] * 4 + [i] * 7 + [p]
         lib.gru_scan_launch.restype = i
-        lib.gru_scan_bidir_launch.argtypes = [p] * 8 + [i, i, i, i, i, i, p]
+        lib.gru_scan_bidir_launch.argtypes = [p] * 8 + [i] * 7 + [p]
         lib.gru_scan_bidir_launch.restype = i
+        lib.gru_scan_tf32_clusters.argtypes = [i, i, ctypes.POINTER(i)]
+        lib.gru_scan_tf32_clusters.restype = i
         _LIB = lib
     return _LIB
 
@@ -182,6 +188,11 @@ def _bwd_library():
 def build() -> None:
     """Build (or load) the forward kernels now instead of at their first launch."""
     _library()
+
+
+def _tf32_clusters(H: int, device) -> dict:
+    """{C: clusters of C blocks of this wrapper's 3xTF32 kernel at H the card holds at once}."""
+    return _co_resident_clusters(_library().gru_scan_tf32_clusters, H, torch.device(device))
 
 
 def build_backward() -> None:
@@ -240,20 +251,18 @@ def _forward_cuda(chains, path: str | None = None):
     """Launch the forward kernel over one or two (xw, w_hh, b_hh) chains -> list of hs.
 
     `path` forces a path of `_plan` (only chip_smoke.py passes it, to time
-    the FMA kernel where the tensor-core one would run).
+    the FMA kernel where a tensor-core one would run).
     """
     name = "gru_scan" if len(chains) == 1 else "gru_scan_bidir"
     _check_chains(name, chains)
     xw0 = chains[0][0]
-    B, T, three_h = xw0.shape
-    H = three_h // 3
-    sms = torch.cuda.get_device_properties(xw0.device).multi_processor_count
-    path, tile = _plan(B, len(chains), H, xw0.dtype, sms, path)
-    hs = [torch.empty((B, T, H), dtype=xw0.dtype, device=xw0.device) for _ in chains]
     lib = _library()
+    B, T, H, path, tile = _plan_launch(_tf32_clusters, chains, path)
+    hs = [torch.empty((B, T, H), dtype=xw0.dtype, device=xw0.device) for _ in chains]
     fn = lib.gru_scan_launch if len(chains) == 1 else lib.gru_scan_bidir_launch
     pointers = [c[k].data_ptr() for k in range(3) for c in chains] + [h.data_ptr() for h in hs]
-    _launch(name, fn, pointers, xw0.dtype, B, T, H, xw0.device, _PATH_CODE[path], tile)
+    _launch(name, fn, pointers, xw0.dtype, B, T, H, xw0.device, _PATH_CODE[path],
+            *_tile_args(tile))
     PATH_LAUNCHES[name][path] += 1
     return hs
 

@@ -8,10 +8,12 @@ On CUDA tensors the hand-written Hopper kernels run: the forward of
 There is no fallback from one to the other: a CUDA call the kernel cannot
 take raises.
 
-The forward has two paths, and `_plan` picks one from the dtype and the
-shape before the launch: the tensor-core kernel (`"mma"`,
-`csrc/recurrence_mma.cuh`) for bfloat16 with H a multiple of 16 up to 128,
-and the FMA kernel (`"fma"`) for every other call (float32, other H).
+The forward has three paths, and `_plan` picks one from the dtype and the
+shape before the launch: for H a multiple of 16 up to 128 the tensor-core
+kernels, `"mma"` (`csrc/recurrence_mma.cuh`) for bfloat16 and `"tf32x3"`
+(`csrc/recurrence_tf32.cuh`, f32 products as three TF32 products, a cluster
+of 2 or 4 blocks per tile) for float32; the FMA kernel (`"fma"`) for every
+other call (H = 40, 256, 512, ...).
 
 Semantics are the Pallas kernels', in both dtypes: gates are
 `f32(xw[t]) + f32(h rounded to W's dtype) @ f32(W)`, h and c are carried in
@@ -41,14 +43,24 @@ from ._build import load_library
 # increment them; callers reset them to 0 to count a run.
 LAUNCHES = {"lstm_scan": 0, "lstm_scan_bidir": 0, "lstm_scan_bwd": 0, "lstm_scan_bidir_bwd": 0}
 # The forward launches above, split by the path `_plan` chose.
-PATH_LAUNCHES = {name: {"mma": 0, "fma": 0} for name in ("lstm_scan", "lstm_scan_bidir")}
+PATH_LAUNCHES = {name: {"mma": 0, "tf32x3": 0, "fma": 0}
+                 for name in ("lstm_scan", "lstm_scan_bidir")}
 
 MAX_HIDDEN = 512
-MMA_MAX_HIDDEN = 128  # W_hh as mma B fragments: G H^2 / 2 registers a block
-_PATH_CODE = {"fma": 0, "mma": 1}
+# The tensor-core paths' widest H: bf16 W_hh as mma B fragments takes G H^2 / 2
+# registers a block; the f32 W_hh of one block of a 2-block cluster, G H^2 / 2
+# floats of shared memory.
+MMA_MAX_HIDDEN = 128
+_PATH_CODE = {"fma": 0, "mma": 1, "tf32x3": 2}
+# The tensor-core path of each dtype, for H a multiple of 16 up to MMA_MAX_HIDDEN.
+_TENSOR_CORE_PATH = {torch.bfloat16: "mma", torch.float32: "tf32x3"}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LIB = None
 _BWD_LIB = None
+# The 3xTF32 kernel's cluster sizes: C blocks share a tile's H units, H / C each.
+TF32_CLUSTER_SIZES = (2, 4)
+# (C function, card, H) -> {C: co-resident clusters of C blocks of the 3xTF32 kernel}.
+_CLUSTERS: dict = {}
 
 
 def lstm_steps(xw: torch.Tensor, w_hh: torch.Tensor, state=None, cs: torch.Tensor | None = None):
@@ -159,26 +171,37 @@ def lstm_scan_bwd_reference(xw, w_hh, hs, cs, g_hs):
     return das.to(xw.dtype), _weight_grad(h_prev, das, w_hh.dtype)
 
 
+def _tensor_core_path(H: int, dtype: torch.dtype) -> str | None:
+    """The tensor-core path of a call at H in `dtype`, or None where only the FMA kernel runs."""
+    return _TENSOR_CORE_PATH.get(dtype) if H % 16 == 0 and 16 <= H <= MMA_MAX_HIDDEN else None
+
+
 def _plan(B: int, n_chains: int, H: int, dtype: torch.dtype, sms: int,
-          path: str | None = None) -> tuple[str, int]:
+          path: str | None = None, clusters: dict | None = None) -> tuple[str, int | tuple]:
     """The forward kernel and tile for B sequences on each of `n_chains` chains -> (path, tile).
 
-    "mma" (tile M rows) for bfloat16 with H a multiple of 16 up to
-    MMA_MAX_HIDDEN: M = 16 while that grid fits one wave over `sms` SMs,
-    else M = 32, which halves the blocks (at the serving shapes, one wave).
-    "fma" (tile R sequences per group of the FMA kernel) for every other
-    call: the largest R in 4, 2, 1 that still gives every SM a block.
-    `path` forces one (the FMA path at a shape that would take "mma", to
-    time both); forcing "mma" where it cannot run raises. The GRU wrapper
+    For H a multiple of 16 up to MMA_MAX_HIDDEN the tensor cores: "mma"
+    (tile M rows) for bfloat16, M = 16 while that grid fits one wave over
+    `sms` SMs, else M = 32, which halves the blocks (at the serving shapes,
+    one wave); "tf32x3" (tile (M, C): M rows held by a cluster of C blocks)
+    for float32, by `_tf32_tile` from `clusters`, {C: clusters of C blocks
+    the card holds at once}, which the caller queries. "fma" (tile R
+    sequences per group of the FMA kernel) for every other call: the largest
+    R in 4, 2, 1 that still gives every SM a block. `path` forces one (the
+    FMA path at a shape that would take the tensor cores, to time both);
+    forcing a tensor-core path where it cannot run raises. The GRU wrapper
     plans with this function too.
     """
-    mma_ok = dtype == torch.bfloat16 and H % 16 == 0 and 16 <= H <= MMA_MAX_HIDDEN
-    path = path or ("mma" if mma_ok else "fma")
+    natural = _tensor_core_path(H, dtype)
+    path = path or natural or "fma"
+    if path in ("mma", "tf32x3") and path != natural:
+        kind = {"mma": "bfloat16", "tf32x3": "float32"}[path]
+        raise ValueError(f"the {path} path takes {kind} with H a multiple of 16 up to "
+                         f"{MMA_MAX_HIDDEN}; got {dtype}, H = {H}")
     if path == "mma":
-        if not mma_ok:
-            raise ValueError(f"the tensor-core path takes bfloat16 with H a multiple of 16 up "
-                             f"to {MMA_MAX_HIDDEN}; got {dtype}, H = {H}")
         return "mma", 16 if n_chains * -(-B // 16) <= sms else 32
+    if path == "tf32x3":
+        return "tf32x3", _tf32_tile(B, n_chains, H, clusters)
     if path != "fma":
         raise ValueError(f"unknown path {path!r}")
     groups = min(4, 256 // (H // 2))
@@ -188,15 +211,87 @@ def _plan(B: int, n_chains: int, H: int, dtype: torch.dtype, sms: int,
     return "fma", 1
 
 
+def _tf32_tile(B: int, n_chains: int, H: int, clusters: dict | None) -> tuple[int, int]:
+    """The 3xTF32 kernel's tile (M, C) for B sequences on each of `n_chains` chains.
+
+    A block's share of a step, the product and the cell updates of M rows
+    and H / C units, bounds the kernel, so of the M in 16, 32, 64 and the C
+    in `clusters` (C with H % 8C == 0) it takes the fewest waves of
+    `clusters[C]`, then the fewest rows x units a block (M / C), then the
+    smaller cluster and tile. At the intra serving shape that is M = 64 on
+    2-block clusters (one wave of 64), at the training shapes M = 16, and
+    for a streamed hop's three chunks a chain M = 16 on 4-block clusters.
+    """
+    options = []
+    for c, n in (clusters or {}).items():
+        if n < 1 or H % (8 * c):
+            continue
+        for m in (16, 32, 64):
+            tiles = n_chains * -(-B // m)
+            options.append((-(-tiles // n), m / c, c, m))  # waves first
+    if not options:
+        raise ValueError(f"the tf32x3 path needs the card's co-resident clusters at H = {H}; "
+                         f"got {clusters}")
+    *_, c, m = min(options)
+    return m, c
+
+
+def _tile_args(tile) -> tuple[int, int]:
+    """A plan's tile as the C entry points take it: (tile, cluster); cluster 1 off tf32x3."""
+    return tile if isinstance(tile, tuple) else (tile, 1)
+
+
+def _co_resident_clusters(fn, H: int, device: torch.device) -> dict:
+    """{C: clusters of C blocks of the 3xTF32 kernel at H that the card holds at once}.
+
+    `fn` is the library's query (cudaOccupancyMaxActiveClusters, each block
+    on an SM of its own), asked once per card, H and C.
+    """
+    with torch.cuda.device(device):
+        key = (fn.__name__, torch.cuda.current_device(), H)
+        if key not in _CLUSTERS:
+            counts = {}
+            for c in TF32_CLUSTER_SIZES:
+                if H % (8 * c):
+                    continue
+                n = ctypes.c_int(0)
+                err = fn(H, c, ctypes.byref(n))
+                if err != 0 or n.value < 1:
+                    raise RuntimeError(f"{fn.__name__}(H = {H}, C = {c}) failed: cudaError "
+                                       f"{err}, {n.value} clusters")
+                counts[c] = n.value
+            _CLUSTERS[key] = counts
+    return _CLUSTERS[key]
+
+
+def _plan_launch(clusters_of, chains, path):
+    """Plan one launch over validated chains (xw, w_hh, ...) -> (B, T, H, path, tile).
+
+    `clusters_of(H, device)` is the wrapper's cluster count, asked only where
+    the 3xTF32 path runs. The GRU wrapper plans its launches with this
+    function too.
+    """
+    xw0 = chains[0][0]
+    B, T, _ = xw0.shape
+    H = chains[0][1].shape[0]
+    sms = torch.cuda.get_device_properties(xw0.device).multi_processor_count
+    clusters = None
+    if (path or _tensor_core_path(H, xw0.dtype)) == "tf32x3":
+        clusters = clusters_of(H, xw0.device)
+    return (B, T, H, *_plan(B, len(chains), H, xw0.dtype, sms, path, clusters))
+
+
 def _library():
     global _LIB
     if _LIB is None:
         lib = load_library("lstm_scan")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.lstm_scan_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+        lib.lstm_scan_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
         lib.lstm_scan_launch.restype = i
-        lib.lstm_scan_bidir_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+        lib.lstm_scan_bidir_launch.argtypes = [p] * 8 + [i] * 7 + [p]
         lib.lstm_scan_bidir_launch.restype = i
+        lib.lstm_scan_tf32_clusters.argtypes = [i, i, ctypes.POINTER(i)]
+        lib.lstm_scan_tf32_clusters.restype = i
         _LIB = lib
     return _LIB
 
@@ -217,6 +312,11 @@ def _bwd_library():
 def build() -> None:
     """Build (or load) the forward kernels now instead of at their first launch."""
     _library()
+
+
+def _tf32_clusters(H: int, device) -> dict:
+    """{C: clusters of C blocks of this wrapper's 3xTF32 kernel at H the card holds at once}."""
+    return _co_resident_clusters(_library().lstm_scan_tf32_clusters, H, torch.device(device))
 
 
 def build_backward() -> None:
@@ -272,23 +372,21 @@ def _forward_cuda(chains, with_cs: bool, path: str | None = None):
     """Launch the forward kernel over one or two (xw, w_hh) chains -> (hs list, cs list).
 
     `path` forces a path of `_plan` (only chip_smoke.py passes it, to time
-    the FMA kernel where the tensor-core one would run).
+    the FMA kernel where a tensor-core one would run).
     """
     name = "lstm_scan" if len(chains) == 1 else "lstm_scan_bidir"
     _check_chains(name, chains)
     xw0 = chains[0][0]
-    B, T, four_h = xw0.shape
-    H = four_h // 4
-    sms = torch.cuda.get_device_properties(xw0.device).multi_processor_count
-    path, tile = _plan(B, len(chains), H, xw0.dtype, sms, path)
+    lib = _library()
+    B, T, H, path, tile = _plan_launch(_tf32_clusters, chains, path)
     hs = [torch.empty((B, T, H), dtype=xw0.dtype, device=xw0.device) for _ in chains]
     cs = [torch.empty_like(h) for h in hs] if with_cs else []
-    lib = _library()
     fn = lib.lstm_scan_launch if len(chains) == 1 else lib.lstm_scan_bidir_launch
     pointers = ([c[0].data_ptr() for c in chains] + [c[1].data_ptr() for c in chains]
                 + [h.data_ptr() for h in hs]
                 + ([c.data_ptr() for c in cs] if with_cs else [None] * len(chains)))
-    _launch(name, fn, pointers, xw0.dtype, B, T, H, xw0.device, _PATH_CODE[path], tile)
+    _launch(name, fn, pointers, xw0.dtype, B, T, H, xw0.device, _PATH_CODE[path],
+            *_tile_args(tile))
     PATH_LAUNCHES[name][path] += 1
     return hs, cs
 

@@ -1,10 +1,12 @@
 """The recurrence wrappers' launch plans: which forward kernel and which tile (CPU).
 
-`_plan` is pure Python: from the dtype and the shape it picks the
-tensor-core kernel ("mma", M-row tiles) or the FMA kernel ("fma", R
-sequences per group) before the launch. On the card chip_smoke.py checks
-that every bf16 recurrence of the served and trained models took "mma" and
-every f32 one "fma"; here the rule itself is held, at an H100's 132 SMs.
+`_plan` is pure Python: from the dtype and the shape it picks a tensor-core
+kernel ("mma" in bf16, "tf32x3" in f32, M-row tiles) or the FMA kernel
+("fma", R sequences per group) before the launch. On the card chip_smoke.py
+checks that every bf16 recurrence of the served and trained models took
+"mma", every f32 one "tf32x3" and none "fma"; here the rule itself is held,
+at an H100's 132 SMs and given numbers of co-resident clusters of 2 and 4
+blocks (the tf32x3 tile is (M, C): M rows on a cluster of C blocks).
 """
 import pytest
 import torch
@@ -13,6 +15,9 @@ from dnn_based_source_separation_torch.ops import gru_scan as gs
 from dnn_based_source_separation_torch.ops import lstm_scan as ls
 
 SMS = 132
+# Clusters of C blocks of the 3xTF32 kernel an H100 holds at once, one block an
+# SM, as chip_smoke.py read them from the card.
+CLUSTERS = {2: 66, 4: 30}
 BF16, F32 = torch.bfloat16, torch.float32
 WRAPPERS = pytest.mark.parametrize("wrapper", [ls, gs], ids=["lstm", "gru"])
 
@@ -44,9 +49,6 @@ def test_bf16_at_h_multiple_of_16_up_to_128_takes_the_tensor_cores(wrapper, B, n
 
 @WRAPPERS
 @pytest.mark.parametrize("B,n_chains,H,dtype,R", [
-    (2040, 2, 128, F32, 4),
-    (2000, 1, 128, F32, 2),
-    (510, 2, 128, F32, 1),
     (37, 2, 40, F32, 1),
     (64, 2, 256, F32, 1),
     (4096, 1, 512, F32, 4),
@@ -54,12 +56,12 @@ def test_bf16_at_h_multiple_of_16_up_to_128_takes_the_tensor_cores(wrapper, B, n
     (64, 2, 256, BF16, 1),
     (400, 2, 256, BF16, 2),
     (16, 2, 512, BF16, 1),
-], ids=["f32-intra", "f32-inter", "f32-train", "f32-H=40", "f32-H=256", "f32-H=512",
-        "bf16-H=40", "bf16-H=256", "bf16-H=256-R2", "bf16-H=512"])
+], ids=["f32-H=40", "f32-H=256", "f32-H=512", "bf16-H=40", "bf16-H=256", "bf16-H=256-R2",
+        "bf16-H=512"])
 def test_other_calls_take_the_fma_kernel_with_its_tile(wrapper, B, n_chains, H, dtype, R):
     # The FMA kernel's rule, unchanged: groups = min(4, 256 / (H / 2)) of R
     # sequences a block, the largest R in 4, 2, 1 that gives every SM a block.
-    assert wrapper._plan(B, n_chains, H, dtype, SMS) == ("fma", R)
+    assert wrapper._plan(B, n_chains, H, dtype, SMS, clusters=CLUSTERS) == ("fma", R)
     groups = min(4, 256 // (H // 2))
     assert _blocks(B, n_chains, groups * R) >= SMS or R == 1
     if R < 4:
@@ -73,6 +75,71 @@ def test_the_fma_path_can_be_forced_for_timing(wrapper, B, n_chains, R):
 
 
 @WRAPPERS
+@pytest.mark.parametrize("B,n_chains,H,clusters,tile", [
+    (2040, 2, 128, CLUSTERS, (64, 2)),  # intra-chunk serving: 64 clusters, 128 blocks
+    (2000, 2, 128, CLUSTERS, (64, 2)),  # inter-chunk serving shape on two chains
+    (2000, 1, 128, CLUSTERS, (32, 2)),  # causal inter-chunk serving: 63 clusters of 32 rows
+    (510, 2, 128, CLUSTERS, (16, 2)),  # intra-chunk training, B = 2 x 4 s: 64 clusters
+    (500, 1, 128, CLUSTERS, (16, 2)),  # causal inter-chunk training: 32 of 4 > 30
+    (3, 2, 128, CLUSTERS, (16, 4)),  # one streamed hop's chunks: 4 SMs a chain
+    (255, 2, 128, CLUSTERS, (16, 2)),  # one 4 s request's intra-chunk RNN
+    (37, 2, 128, CLUSTERS, (16, 4)),  # rows past B masked
+    (3, 2, 128, {2: 1}, (16, 2)),  # a card that holds one 2-block cluster
+    (510, 2, 128, {2: 60, 4: 30}, (32, 2)),  # fewer clusters: a larger tile
+    (2040, 2, 128, {2: 60, 4: 30}, (64, 2)),  # none fits one wave: the fewest waves
+    (20000, 2, 128, CLUSTERS, (64, 2)),  # past one wave even at M = 64
+    (3, 2, 64, CLUSTERS, (16, 4)),  # H = 64: 16 units a block of 4
+    (3, 2, 48, CLUSTERS, (16, 2)),  # H = 48: 48 % 32 != 0, so 2-block clusters only
+    *[(50, 2, H, {2: 66}, (16, 2)) for H in range(16, 128, 16)],
+], ids=["intra", "inter-bidir", "inter", "train-intra", "train-inter", "stream", "request",
+        "odd", "one-cluster", "train-60", "intra-60", "huge", "stream-H=64", "stream-H=48",
+        *[f"H={H}" for H in range(16, 128, 16)]])
+def test_f32_at_h_multiple_of_16_up_to_128_takes_tf32x3(wrapper, B, n_chains, H, clusters,
+                                                        tile):
+    assert wrapper._plan(B, n_chains, H, F32, SMS, clusters=clusters) == ("tf32x3", tile)
+    # The fewest waves, then the fewest rows x units a block (M / C), then
+    # the smaller cluster and tile; H / C units a block, 8 a warp.
+    m, c = tile
+    assert H % (8 * c) == 0
+    options = {(mm, cc): (-(-_blocks(B, n_chains, mm) // n), mm / cc)
+               for cc, n in clusters.items() if H % (8 * cc) == 0 for mm in (16, 32, 64)}
+    assert options[tile] == min(options.values())
+    assert all(options[o] > options[tile] or o[1] > c or (o[1] == c and o[0] > m)
+               for o in options if o != tile)
+    if clusters is CLUSTERS and B <= 2040:  # the served, trained and streamed shapes
+        assert _blocks(B, n_chains, m) <= CLUSTERS[c]  # one wave
+
+
+@WRAPPERS
+@pytest.mark.parametrize("B,n_chains,R", [(2040, 2, 4), (2000, 1, 2), (510, 2, 1), (3, 2, 1)],
+                         ids=["intra", "inter", "train", "stream"])
+def test_the_fma_path_can_be_forced_in_f32(wrapper, B, n_chains, R):
+    assert wrapper._plan(B, n_chains, 128, F32, SMS, path="fma") == ("fma", R)
+
+
+@WRAPPERS
+@pytest.mark.parametrize("H,dtype", [(128, BF16), (144, F32), (40, F32), (256, F32), (8, F32)],
+                         ids=["bf16", "H=144", "H=40", "H=256", "H=8"])
+def test_forcing_tf32x3_where_it_cannot_run_raises(wrapper, H, dtype):
+    with pytest.raises(ValueError):
+        wrapper._plan(2040, 2, H, dtype, SMS, path="tf32x3", clusters=CLUSTERS)
+
+
+@WRAPPERS
+@pytest.mark.parametrize("clusters", [None, {}, {2: 0}, {4: 33}], ids=["none", "empty", "zero",
+                                                                       "H=16-no-size"])
+def test_tf32x3_needs_the_cards_cluster_count(wrapper, clusters):
+    with pytest.raises(ValueError):
+        wrapper._plan(2040, 2, 16, F32, SMS, clusters=clusters)
+
+
+@pytest.mark.parametrize("tile,args", [(32, (32, 1)), (4, (4, 1)), ((64, 2), (64, 2)),
+                                       ((16, 4), (16, 4))], ids=["mma", "fma", "tf32x3", "C=4"])
+def test_a_tile_goes_to_the_c_entry_points_with_its_cluster(tile, args):
+    assert ls._tile_args(tile) == args
+
+
+@WRAPPERS
 @pytest.mark.parametrize("H,dtype", [(256, BF16), (128, F32), (40, BF16), (144, BF16)],
                          ids=["H=256", "f32", "H=40", "H=144"])
 def test_forcing_the_tensor_cores_where_they_cannot_run_raises(wrapper, H, dtype):
@@ -82,3 +149,4 @@ def test_forcing_the_tensor_cores_where_they_cannot_run_raises(wrapper, H, dtype
 
 def test_both_wrappers_plan_by_one_rule():
     assert gs._plan is ls._plan
+    assert gs._plan_launch is ls._plan_launch

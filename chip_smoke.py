@@ -26,21 +26,26 @@ Phases (any failure exits non-zero; nothing is caught and passed):
      and held to the plain version; at the timed shapes it is timed between
      two timings of the tensor-core kernel;
   3c. gru_scan_bidir and gru_scan the same way;
-  3d. the training forward (cs written; the tensor-core path in bf16) and the
+  3d. the training forward (cs written; the tensor-core paths) and the
      backward kernels of lstm_scan_bidir and lstm_scan under autograd against
      the plain forward and lstm_scan_bwd_reference, f32 and bf16, at the recipe
-     training shapes (B = 2 x 4 s, timed), an odd shape, T=1 and H=256;
-     fused_mask_decode must refuse CUDA tensors that require grad;
+     training shapes (B = 2 x 4 s, timed), an odd shape, T=1 and H=256. Each
+     backward launch must take the path _plan_bwd gives: for H a multiple of
+     16 up to 128 the split-TF32 tensor cores ("tf32x3" in f32, "tf32x2" in
+     bf16; clusters of 2 or 4 blocks), the FMA kernel otherwise. Where the
+     tensor cores run, ten more launches are checked and the FMA kernel is
+     forced and checked too; at the training shapes the whole backward and
+     the kernel alone are timed, FMA and tensor cores in turns (FMA, new,
+     new, FMA); fused_mask_decode must refuse CUDA tensors that require grad;
   3e. the backward kernels of gru_scan_bidir and gru_scan under autograd
-     against gru_scan_bwd_reference the same way, the whole backward and the
-     kernel alone timed;
+     against gru_scan_bwd_reference the same way;
   3f. quantize_int8 against its plain version, bit for bit, on every weight
      tensor of paper-config Conv-TasNet that quantize_state_dict quantizes
      (those JAX's quantize_params quantizes) and on a (4096, 4096) tensor
      (timed); stochastic rounding: every value the floor or the ceiling, and
      unbiased over 64 seeds;
   3g. the library calls beside the recurrence kernels (informational):
-     cuDNN's nn.LSTM / nn.GRU forward (f32 and bf16) and backward (f32) at the
+     cuDNN's nn.LSTM / nn.GRU forward and backward, f32 and bf16, at the
      kernels' timed shapes, input projection included; the port never calls
      them;
   4. serve: paper-config Conv-TasNet (random weights from seed 0) through
@@ -71,13 +76,15 @@ Phases (any failure exits non-zero; nothing is caught and passed):
      card, and the kernel launches of the step;
   8. train through cli/train_wsj0mix.py on a synthetic wsj0-style corpus:
      `python -m` for two epochs, then in-process --continue_from, causal,
-     --mixed_precision 1, --rnn_type gru (f32, bf16, causal) and Conv-TasNet
+     --mixed_precision 1, --rnn_type gru (f32, bf16, causal f32 and bf16) and Conv-TasNet
      runs, with the launches of every run checked against its steps and
      validation forwards; one step and one validation forward counted alone;
      a fixed batch must lower its loss over 20 steps; the trained checkpoints
      serve through cli/separate.py;
   9. training throughput (informational): p50 step time and audio-s/s, and a
-     torch.profiler split of one DPRNN-TasNet step, LSTM and GRU;
+     torch.profiler split of one DPRNN-TasNet step, LSTM and GRU, then of its
+     backward alone: the backward launches by path (each on the tensor cores)
+     and the ten longest device ops of the rest of the backward;
   10. evaluate the checkpoints phase 8 trained (Conv-TasNet, LSTM and GRU
      DPRNN-TasNet) through cli/test_wsj0mix.py --device cuda on a synthetic
      test list of uneven lengths, one utterance per call: exact launches per
@@ -86,16 +93,18 @@ Phases (any failure exits non-zero; nothing is caught and passed):
 
 Each serving, quantizing and evaluation path, and the training path of phase
 8, runs with every launch count set to 0 just before it and read just after
-it. Every recurrence forward of phases 4b-4d, 6 and 7-10 is also counted by
-path (the wrappers' PATH_LAUNCHES): each bf16 request and bf16 train step must
-launch only the bf16 tensor-core kernel ("mma"), each f32 one only the 3xTF32
-kernel ("tf32x3"), and none the FMA kernel (the served and trained models have
+it. Every recurrence forward and backward of phases 4b-4d, 6 and 7-10 is also
+counted by path (the wrappers' PATH_LAUNCHES and BWD_PATH_LAUNCHES): each bf16
+request and bf16 train step must launch only the bf16 tensor-core kernels
+("mma" forward, "tf32x2" backward), each f32 one only the 3xTF32 kernels
+("tf32x3"), and none the FMA kernels (the served and trained models have
 H = 128). The last line is {"ok": true, "device": {...}}; the line before it
 lists the kernels with their launch counts, errors, times, bounds and library
-times: the recurrence forwards twice, the 3xTF32 kernel in f32 and the
-tensor-core kernel in bf16, each with the FMA kernel's time in the same dtype
-and run as `fma_ms` (the f32 rows also with the FMA kernel's bound as
-`fma_bound_ms`).
+times: the recurrence forwards and backwards twice, f32 (3xTF32) and bf16
+(the tensor cores), each with the FMA kernel's time in the same dtype and run
+as `fma_ms` (the f32 forwards and every backward also with the FMA kernel's
+bound as `fma_bound_ms`; the backwards also with the kernel alone as
+`kernel_ms`, `fma_kernel_ms` and `kernel_bound_ms`).
 """
 from __future__ import annotations
 
@@ -196,7 +205,14 @@ HBM_BYTES_PER_S = 3.35e12
 
 def bound(flops: float, nbytes: float, peak) -> dict:
     """`peak` keys PEAK_FLOPS: a dtype, or "tf32"."""
-    ops_s, bytes_s = flops / PEAK_FLOPS[peak], nbytes / HBM_BYTES_PER_S
+    return bound_of_ops({peak: flops}, nbytes)
+
+
+def bound_of_ops(ops: dict, nbytes: float) -> dict:
+    """The least time of work that runs ops[peak] operations at each PEAK_FLOPS rate, one
+    after the other, and moves `nbytes`."""
+    ops_s = sum(flops / PEAK_FLOPS[peak] for peak, flops in ops.items())
+    bytes_s = nbytes / HBM_BYTES_PER_S
     return {"bound_ms": max(ops_s, bytes_s) * 1e3,
             "bound_by": "operations" if ops_s >= bytes_s else "bytes"}
 
@@ -471,9 +487,98 @@ def bwd_limit(dtype, scale):
     return 2.0 * 2.0 ** (np.floor(np.log2(scale)) - 7) if scale > 0 else 0.0
 
 
+def plan_bwd(module, B, n_chains, H, dtype, path=None):
+    """module._plan_bwd as the wrapper calls it on this card -> (path, tile)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clusters = (module._tf32_bwd_clusters(H, "cuda") if ls._tensor_core_path(H, dtype, True)
+                else None)
+    return module._plan_bwd(B, n_chains, H, dtype, sms, path, clusters)
+
+
+def backward_path(module, kname, call, want):
+    """Run one backward call; it must have launched `kname` once, on path `want`."""
+    before = dict(module.BWD_PATH_LAUNCHES[kname])
+    out = call()
+    torch.cuda.synchronize()
+    grew = {p: n - before[p] for p, n in module.BWD_PATH_LAUNCHES[kname].items()}
+    check(grew == {p: int(p == want) for p in grew}, f"{kname} took {grew}, expected {want}")
+    return out
+
+
+def grad_errors(kname, got, ref, dtype):
+    """[(max|kernel - plain|, limit)] of each gradient."""
+    errs = []
+    for a, b in zip(got, ref):
+        check(a.shape == b.shape and a.dtype == b.dtype == dtype, (kname, a.shape, a.dtype))
+        errs.append((float((a.float() - b.float()).abs().max()),
+                     bwd_limit(dtype, float(b.float().abs().max()))))
+    return errs
+
+
+def check_backward(module, kname, label, grads_of, plain_chains, ref, plain, timed):
+    """One backward under autograd (`grads_of()`, its gradients in `ref`'s order) on the
+    path _plan_bwd gives it, against the plain version's `ref`. Where the tensor cores run,
+    REPEATS more launches are checked and the FMA kernel is forced and checked too. If
+    `timed`, the whole backward (gate recompute, kernel, parameter gradients) and the kernel
+    alone are timed, the FMA kernel and the tensor-core one in turns (FMA, new, new, FMA),
+    and `plain()` -> a timing dict."""
+    xw, w_hh = plain_chains[0][:2]
+    B, T, _ = xw.shape
+    H, dtype = w_hh.shape[0], xw.dtype
+    path, tile = plan_bwd(module, B, len(plain_chains), H, dtype)
+
+    def flat(outs):
+        return [d for chain in outs for d in chain]
+
+    calls = {path: grads_of}
+    if path != "fma":
+        calls["fma"] = lambda: flat(module._backward_cuda(plain_chains, "fma"))
+    errs = {}
+    for p, call in calls.items():
+        e = grad_errors(kname, backward_path(module, kname, call, p), ref, dtype)
+        _, p_tile = plan_bwd(module, B, len(plain_chains), H, dtype, p)
+        p_tile = f"M={p_tile[0]}, C={p_tile[1]}" if isinstance(p_tile, tuple) else f"R={p_tile}"
+        ok = all(x <= lim for x, lim in e)
+        log(f"  {kname} {label} {p} ({p_tile}): max|kernel-plain| / limit of each gradient: "
+            + ", ".join(f"{x:.3e} / {lim:.3e}" for x, lim in e) + (" ok" if ok else " FAIL"))
+        if not ok:
+            raise AssertionError(f"{kname} ({p}) disagrees with plain at {label}")
+        errs[p] = max(x for x, _ in e)
+    if path != "fma":  # a race shows only in some launches: repeat, check each
+        worst = 0.0
+        for _ in range(REPEATS):
+            e = grad_errors(kname, flat(module._backward_cuda(plain_chains)), ref, dtype)
+            check(all(x <= lim for x, lim in e),
+                  f"{kname} ({path}) disagreed with plain in a repeated launch at {label}: {e}")
+            worst = max(worst, max(x / lim if lim else 0.0 for x, lim in e))
+        log(f"    {REPEATS} more {path} launches: worst max|kernel-plain| {worst:.3f} of its limit")
+    if not timed:
+        return None
+    check(path != "fma", f"{kname} at {label} is timed against the FMA kernel, but runs on it")
+    # The staged arrays stay alive with each launch call.
+    calls = {"whole": {p: (lambda p=p: module._backward_cuda(plain_chains, p))
+                       for p in (path, "fma")},
+             "alone": {p: module._staged_backward(plain_chains, p)[1] for p in (path, "fma")}}
+    ms = {}
+    for what, by_path in calls.items():
+        fma_1, new_1, new_2, fma_2 = (median_ms(by_path[p], warmup=2, iters=10)
+                                      for p in ("fma", path, path, "fma"))
+        ms[what] = ((new_1 + new_2) / 2, (fma_1 + fma_2) / 2)
+        log(f"    {'whole backward' if what == 'whole' else 'kernel alone'}: {path} "
+            f"{new_1:.4f} / {new_2:.4f} ms between FMA {fma_1:.4f} / {fma_2:.4f} ms")
+    plain_ms = median_ms(plain, warmup=1, iters=3)
+    log(f"    plain {plain_ms:.4f} ms (medians of 10, 10 and 3, CUDA events)")
+    return dict(max_abs_err=errs[path], fma_max_abs_err=errs["fma"], ms=ms["whole"][0],
+                fma_ms=ms["whole"][1], kernel_ms=ms["alone"][0], fma_kernel_ms=ms["alone"][1],
+                plain_ms=plain_ms)
+
+
 def phase_lstm_bwd():
     """The training forward (with cs) and the backward kernels against the plain versions."""
     log("== phase 3d: lstm_scan_bidir and lstm_scan backward vs plain on the card")
+    H = DPRNN["sep_hidden_channels"]
+    log(f"  clusters of the tensor-core backward the card holds at once, by blocks a cluster "
+        f"(H={H}): {ls._tf32_bwd_clusters(H, 'cuda')}")
     result = {}
     for name, B, T, H in BWD_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -503,31 +608,21 @@ def phase_lstm_bwd():
                     ("lstm_scan_bwd", [(xw_f, w_f, hs_f, cs_f)], (g_f,))):
                 leaves = [t.clone().requires_grad_() for c in chains for t in c[:2]]
                 fn = ls.lstm_scan_bidir if len(chains) == 2 else ls.lstm_scan
-                outs = fn(*leaves[0::2], *leaves[1::2])
-                got = torch.autograd.grad(outs if len(chains) == 2 else (outs,), leaves, grads)
-                ref = [d for c, g in zip(chains, grads)
-                       for d in ls.lstm_scan_bwd_reference(*c, g)]
-                torch.cuda.synchronize()
-                errs = []
-                for a, b in zip(got, ref):
-                    check(a.shape == b.shape and a.dtype == b.dtype == dtype, (kname, a.shape))
-                    errs.append((float((a.float() - b.float()).abs().max()),
-                                 bwd_limit(dtype, float(b.float().abs().max()))))
-                log(f"  {kname} {name} (B={B}, T={T}, H={H}) {str(dtype)[6:]}: "
-                    f"max|kernel-plain| / limit of d_xw, d_whh per chain: "
-                    + ", ".join(f"{e:.3e} / {lim:.3e}" for e, lim in errs))
-                if not all(e <= lim for e, lim in errs):
-                    raise AssertionError(f"{kname} disagrees with plain at {name} {dtype}")
-                err = max(e for e, _ in errs)
-                if name in ("intra", "inter"):
-                    plain_chains = [(*c, g) for c, g in zip(chains, grads)]
-                    ms = median_ms(lambda: ls._backward_cuda(plain_chains), warmup=2, iters=10)
-                    plain_ms = median_ms(
-                        lambda: [ls.lstm_scan_bwd_reference(*c) for c in plain_chains],
-                        warmup=1, iters=3)
-                    log(f"    backward (gates matmul + kernel + d_whh matmul) {ms:.4f} ms, "
-                        f"plain {plain_ms:.4f} ms (medians of 10 and 3, CUDA events)")
-                    result[(kname, name, dtype)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+                def grads_of(fn=fn, leaves=leaves, grads=grads):
+                    outs = fn(*leaves[0::2], *leaves[1::2])
+                    return torch.autograd.grad(outs if len(grads) == 2 else (outs,), leaves,
+                                               grads)
+
+                plain_chains = [(*c, g) for c, g in zip(chains, grads)]
+                ref = [d for c in plain_chains for d in ls.lstm_scan_bwd_reference(*c)]
+                timing = check_backward(
+                    ls, kname, f"{name} (B={B}, T={T}, H={H}) {str(dtype)[6:]}", grads_of,
+                    plain_chains, ref,
+                    lambda: [ls.lstm_scan_bwd_reference(*c) for c in plain_chains],
+                    timed=name in ("intra", "inter"))
+                if timing is not None:
+                    result[(kname, name, dtype)] = timing
     # fused_mask_decode has no backward (as in JAX): it refuses autograd on the
     # card rather than drop it.
     try:
@@ -543,6 +638,9 @@ def phase_lstm_bwd():
 def phase_gru_bwd():
     """The backward kernels of the GRU recurrences against gru_scan_bwd_reference."""
     log("== phase 3e: gru_scan_bidir and gru_scan backward vs plain on the card")
+    H = DPRNN["sep_hidden_channels"]
+    log(f"  clusters of the tensor-core backward the card holds at once, by blocks a cluster "
+        f"(H={H}): {gs._tf32_bwd_clusters(H, 'cuda')}")
     result = {}
     for name, B, T, H in BWD_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -556,37 +654,23 @@ def phase_gru_bwd():
                      (g_f, g_b)),
                     ("gru_scan_bwd", [(xw_f, w_f, b_f)], (hs_f,), (g_f,))):
                 leaves = [t.clone().requires_grad_() for c in chains for t in c]
-                if len(chains) == 2:
-                    outs = gs.gru_scan_bidir(*leaves[0::3], *leaves[1::3], *leaves[2::3])
-                else:
-                    outs = (gs.gru_scan(*leaves),)
-                got = torch.autograd.grad(outs, leaves, grads)
+
+                def grads_of(leaves=leaves, grads=grads):
+                    if len(grads) == 2:
+                        outs = gs.gru_scan_bidir(*leaves[0::3], *leaves[1::3], *leaves[2::3])
+                    else:
+                        outs = (gs.gru_scan(*leaves),)
+                    return torch.autograd.grad(outs, leaves, grads)
+
                 plain_chains = [(*c, h, g) for c, h, g in zip(chains, hs, grads)]
                 ref = [d for c in plain_chains for d in gs.gru_scan_bwd_reference(*c)]
-                torch.cuda.synchronize()
-                errs = []
-                for a, b in zip(got, ref):
-                    check(a.shape == b.shape and a.dtype == b.dtype == dtype, (kname, a.shape))
-                    errs.append((float((a.float() - b.float()).abs().max()),
-                                 bwd_limit(dtype, float(b.float().abs().max()))))
-                log(f"  {kname} {name} (B={B}, T={T}, H={H}) {str(dtype)[6:]}: "
-                    f"max|kernel-plain| / limit of d_xw, d_whh, d_bhh per chain: "
-                    + ", ".join(f"{e:.3e} / {lim:.3e}" for e, lim in errs))
-                if not all(e <= lim for e, lim in errs):
-                    raise AssertionError(f"{kname} disagrees with plain at {name} {dtype}")
-                if name in ("intra", "inter"):
-                    ms = median_ms(lambda: gs._backward_cuda(plain_chains), warmup=2, iters=10)
-                    kernel_ms = median_ms(gs._staged_backward(plain_chains)[1], warmup=2,
-                                          iters=10)
-                    plain_ms = median_ms(
-                        lambda: [gs.gru_scan_bwd_reference(*c) for c in plain_chains],
-                        warmup=1, iters=3)
-                    log(f"    backward (hw matmul + kernel + d_whh, d_bhh) {ms:.4f} ms, kernel "
-                        f"alone {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms (medians of 10, 10 "
-                        f"and 3, CUDA events)")
-                    result[(kname, name, dtype)] = dict(
-                        max_abs_err=max(e for e, _ in errs), ms=ms, plain_ms=plain_ms,
-                        kernel_ms=kernel_ms)
+                timing = check_backward(
+                    gs, kname, f"{name} (B={B}, T={T}, H={H}) {str(dtype)[6:]}", grads_of,
+                    plain_chains, ref,
+                    lambda: [gs.gru_scan_bwd_reference(*c) for c in plain_chains],
+                    timed=name in ("intra", "inter"))
+                if timing is not None:
+                    result[(kname, name, dtype)] = timing
     return result
 
 
@@ -661,7 +745,7 @@ RNN_FEATURES = DPRNN["sep_bottleneck_channels"]
 
 def phase_library():
     """cuDNN's nn.LSTM / nn.GRU at the recurrence kernels' timed shapes (informational):
-    the forward in f32 and bf16, the backward in f32.
+    the forward and the backward, in f32 and bf16.
 
     One PyTorch call each: the module's forward, or torch.autograd.grad of
     its output for the backward rows. Both also do the input projection
@@ -671,7 +755,7 @@ def phase_library():
     result = {}
     H = DPRNN["sep_hidden_channels"]
     rows = [(row, shape, torch.float32) for row, shape in LIBRARY_SHAPES.items()]
-    rows += [(row, LIBRARY_SHAPES[row], torch.bfloat16) for row in ("scan_bidir", "scan")]
+    rows += [(row, shape, torch.bfloat16) for row, shape in LIBRARY_SHAPES.items()]
     for rnn, cls in (("lstm", torch.nn.LSTM), ("gru", torch.nn.GRU)):
         for row, (B, T, chains), dtype in rows:
             module = cls(RNN_FEATURES, H, batch_first=True, bidirectional=chains == 2,
@@ -699,13 +783,19 @@ def counts() -> dict:
     return {"fused_mask_decode": md.LAUNCHES, **ls.LAUNCHES, **gs.LAUNCHES, **q8.LAUNCHES}
 
 
-# The recurrence forwards, each counted by path too ("name/mma", "name/tf32x3", "name/fma").
+# The recurrence forwards, each counted by path too ("name/mma", "name/tf32x3", "name/fma"),
+# and their backwards ("name/tf32x2", "name/tf32x3", "name/fma").
 FORWARDS = ("lstm_scan", "lstm_scan_bidir", "gru_scan", "gru_scan_bidir")
+BACKWARDS = tuple(f"{name}_bwd" for name in FORWARDS)
+# The tensor-core path of each: (bf16, f32).
+TENSOR_CORE_PATHS = {**{name: ("mma", "tf32x3") for name in FORWARDS},
+                     **{name: ("tf32x2", "tf32x3") for name in BACKWARDS}}
 
 
 def path_counts() -> dict:
     return {f"{name}/{path}": n for module in (ls, gs)
-            for name, paths in module.PATH_LAUNCHES.items() for path, n in paths.items()}
+            for table in (module.PATH_LAUNCHES, module.BWD_PATH_LAUNCHES)
+            for name, paths in table.items() for path, n in paths.items()}
 
 
 def all_counts() -> dict:
@@ -719,9 +809,10 @@ def reset_counts() -> None:
         for name in table:
             table[name] = 0
     for module in (ls, gs):
-        for paths in module.PATH_LAUNCHES.values():
-            for path in paths:
-                paths[path] = 0
+        for table in (module.PATH_LAUNCHES, module.BWD_PATH_LAUNCHES):
+            for paths in table.values():
+                for path in paths:
+                    paths[path] = 0
 
 
 def grown(before: dict) -> dict:
@@ -735,19 +826,20 @@ def kernels_of(launches: dict) -> dict:
 
 
 def check_paths(grew: dict, bf16: dict, what: str) -> None:
-    """A run's recurrence forwards by path: bf16[name] launches of each on the bf16 tensor
-    cores ("mma"), the rest of grew[name] (its f32 ones) on the 3xTF32 kernel ("tf32x3"),
-    and none on the FMA kernel: every served and trained model has H = 128."""
-    for name in FORWARDS:
+    """A run's recurrence forwards and backwards by path: bf16[name] launches of each on
+    its bf16 tensor-core path ("mma" forward, "tf32x2" backward), the rest of grew[name]
+    (its f32 ones) on the 3xTF32 kernels ("tf32x3"), and none on the FMA kernels: every
+    served and trained model has H = 128."""
+    for name, (bf16_path, f32_path) in TENSOR_CORE_PATHS.items():
         want = (bf16.get(name, 0), grew[name] - bf16.get(name, 0), 0)
-        got = (grew[f"{name}/mma"], grew[f"{name}/tf32x3"], grew[f"{name}/fma"])
-        check(got == want, f"{what}: {name} launched (mma, tf32x3, fma) = {got}, "
+        got = (grew[f"{name}/{bf16_path}"], grew[f"{name}/{f32_path}"], grew[f"{name}/fma"])
+        check(got == want, f"{what}: {name} launched ({bf16_path}, {f32_path}, fma) = {got}, "
                            f"expected {want}")
 
 
 def all_bf16(grew: dict) -> dict:
-    """check_paths' `bf16` for a run whose every recurrence forward is bf16."""
-    return {name: grew[name] for name in FORWARDS}
+    """check_paths' `bf16` for a run whose every recurrence forward and backward is bf16."""
+    return {name: grew[name] for name in TENSOR_CORE_PATHS}
 
 
 def nonzero(launches: dict) -> dict:
@@ -1126,11 +1218,11 @@ def train_through_cli(argv, launches=None):
         want = {k: steps * per_step[k] + evals * per_eval[k] for k in grew}
         check(grew == want, f"{argv[-1]}: launched {grew}, expected {want} for {steps} "
                             f"steps and {evals} validation forwards")
-        # Mixed precision: the steps' forwards run on bf16 copies ("mma"), the
-        # validation forwards on the f32 weights ("tf32x3").
+        # Mixed precision: the steps' forwards and backwards run on bf16 copies
+        # ("mma", "tf32x2"), the validation forwards on the f32 weights ("tf32x3").
         mixed = "--mixed_precision" in argv
-        check_paths(grew_all, {k: steps * per_step[k] for k in FORWARDS} if mixed else {},
-                    argv[-1])
+        check_paths(grew_all, {k: steps * per_step[k] for k in TENSOR_CORE_PATHS} if mixed
+                    else {}, argv[-1])
     model_dir = os.path.join(trainer.config.exp_dir, "model")
     check(sorted(os.listdir(model_dir)) == ["best.ckpt", "last.ckpt"], os.listdir(model_dir))
     stats = trainer.last_epoch_stats or {}
@@ -1182,6 +1274,8 @@ def phase_train_cli(tmp, card):
                        ("dprnn_tasnet_gru", gru),
                        ("dprnn_tasnet_gru", [*gru, "--mixed_precision", "1"]),
                        ("dprnn_tasnet_gru_causal", [*gru, "--causal", "1"]),
+                       ("dprnn_tasnet_gru_causal", [*gru, "--causal", "1",
+                                                    "--mixed_precision", "1"]),
                        ("conv_tasnet", [])):
         recipe = CLI_RECIPES["conv_tasnet" if tag.startswith("conv") else "dprnn_tasnet"]
         out = os.path.join(tmp, f"exp_{tag}_{'_'.join(flags).replace('-', '')}")
@@ -1247,9 +1341,14 @@ def timed_train_steps(cls, cfg, B, compute_dtype, card, what, warmup=3, iters=10
     return model
 
 
+BACKWARD_KERNELS = ("lstm_bwd_kernel", "gru_bwd_kernel", "bwd_tf32_kernel")
+
+
 def profile_train_step(model, compute_dtype, card, what):
     """One step split by CUDA events into forward, backward and optimizer, with the device
-    time of the backward kernels and the device's idle share from torch.profiler."""
+    time of the backward kernels and the device's idle share from torch.profiler; then the
+    backward alone profiled, its launches by path (each on the tensor cores) and the ten
+    longest device ops of the rest of it by name."""
     from torch.autograd import DeviceType
     from torch.func import functional_call
     from torch.profiler import ProfilerActivity, profile
@@ -1258,21 +1357,32 @@ def profile_train_step(model, compute_dtype, card, what):
     optimizer = make_optimizer("adam", 1e-3, 5.0, params=model.parameters())
     mixture, sources = train_batch(2, 4.0, "cuda")
 
-    def step(events):
-        events[0].record()
-        optimizer.zero_grad()
+    def loss_of():
         if compute_dtype is None:
             estimates = model(mixture)
         else:
             cast = {k: v.to(compute_dtype) if v.dtype == torch.float32 else v
                     for k, v in model.named_parameters()}
             estimates = functional_call(model, cast, (mixture.to(compute_dtype),)).float()
-        loss = criterion(estimates, sources)[0]
+        return criterion(estimates, sources)[0]
+
+    def step(events):
+        events[0].record()
+        optimizer.zero_grad()
+        loss = loss_of()
         events[1].record()
         loss.backward()
         events[2].record()
         optimizer.step()
         events[3].record()
+
+    def device_times(prof):  # device time by kernel name, ms
+        times = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                times[e.name] = times.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        check(times, "the profiler recorded no device time")
+        return times
 
     events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     step(events)
@@ -1283,14 +1393,9 @@ def profile_train_step(model, compute_dtype, card, what):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - start) * 1e3
     fwd, bwd, opt = (events[i].elapsed_time(events[i + 1]) for i in range(3))
-    device = {}  # device time by kernel name, ms
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            device[e.name] = device.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-    check(device, "the profiler recorded no device time")
+    device = device_times(prof)
     busy = sum(device.values())
-    bwd_kernel = sum(t for k, t in device.items() if "lstm_bwd_kernel" in k
-                     or "gru_bwd_kernel" in k)
+    bwd_kernel = sum(t for k, t in device.items() if any(n in k for n in BACKWARD_KERNELS))
     fwd_kernel = sum(t for k, t in device.items() if "lstm_kernel" in k or "gru_kernel" in k
                      or "scan_mma_kernel" in k or "scan_tf32_kernel" in k)
     log(f"  profile of one {what} step (B=2 x 4 s): wall {wall:.3f} ms; forward "
@@ -1300,6 +1405,26 @@ def profile_train_step(model, compute_dtype, card, what):
         f"{max(0.0, 1 - busy / wall):.1%} [{card}]")
     top = sorted(device.items(), key=lambda kv: -kv[1])[:6]
     log("    top device time: " + ", ".join(f"{k[:48]} {t:.3f} ms" for k, t in top))
+
+    # The backward alone: what the rest of it is made of.
+    optimizer.zero_grad()
+    loss = loss_of()
+    torch.cuda.synchronize()
+    before = all_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        loss.backward()
+        torch.cuda.synchronize()
+    grew = grown(before)
+    by_path = {k: n for k, n in grew.items() if "_bwd/" in k and n}
+    check_paths(grew, all_bf16(grew) if compute_dtype == torch.bfloat16 else {},
+                f"{what}: the profiled backward")
+    device = device_times(prof)
+    rest = {k: t for k, t in device.items() if not any(n in k for n in BACKWARD_KERNELS)}
+    log(f"    backward alone: device {sum(device.values()):.3f} ms, backward kernels "
+        f"{sum(device.values()) - sum(rest.values()):.3f} ms, launches by path {by_path}; "
+        f"the rest {sum(rest.values()):.3f} ms, its ten longest ops by name:")
+    for k, t in sorted(rest.items(), key=lambda kv: -kv[1])[:10]:
+        log(f"      {t:9.3f} ms  {k[:110]}")
 
 
 def phase_train_throughput(card):
@@ -1428,28 +1553,49 @@ def kernel_entry(name, source, replaces, launches, timing, bound_of, library_ms=
 
 
 def recurrence_bound(B, T, H, gates, chains, backward=False, cell_state=False, bias=False,
-                     dtype=torch.float32, tf32x3=False):
+                     dtype=torch.float32, tf32=0):
     """The least time of a recurrence's work at (B, T, H) in `dtype`.
 
     Forward: 2 x B x T x gates x H^2 FLOPs per chain (the recurrent product;
     the gate nonlinearities are a few operations per unit and are left out),
     over the dtype's peak (bf16: the tensor cores; f32: FMA outside them, or,
-    with `tf32x3`, three TF32 products at the tensor cores' TF32 peak), and
+    with `tf32` = 3, three TF32 products at the tensor cores' TF32 peak), and
     xw read, hs written, at the dtype's size. Backward, as timed (the gate
     recompute, the kernel and the weight gradient): three products of that
     size, xw, hs, the cotangent (and the LSTM's cs) read, d_xw and the
-    parameter gradients written.
+    parameter gradients written. The backward computes in f32 in both dtypes:
+    the FMA route runs all three products at the f32 FMA peak, the
+    tensor-core route (`tf32` = 3 in f32 or 2 in bf16) the recurrent product
+    as `tf32` TF32 products and the two cuBLAS products around it at the f32
+    FMA peak.
     """
     G = gates * H
-    flops = chains * 2.0 * B * T * G * H * (3 if backward else 1)
+    product = chains * 2.0 * B * T * G * H
     seq = B * T * (G + H)  # xw and hs
     if backward:
         seq += B * T * (H + G + (H if cell_state else 0))  # g_hs, d_xw, cs
     params = G * H * (2 if backward else 1) + (G * (2 if backward else 1) if bias else 0)
+    nbytes = torch.tensor([], dtype=dtype).element_size() * chains * (seq + params)
+    if not backward:
+        return bound(tf32 * product, nbytes, "tf32") if tf32 else bound(product, nbytes, dtype)
+    if tf32:
+        return bound_of_ops({"tf32": tf32 * product, torch.float32: 2 * product}, nbytes)
+    return bound(3 * product, nbytes, torch.float32)
+
+
+def backward_kernel_bound(B, T, H, gates, chains, dtype, tf32):
+    """The least time of the tensor-core backward kernel alone: its recurrent product as
+    `tf32` TF32 products, and its arrays read and written once. LSTM: gates and das in
+    f32 (4H), cs and g_hs in the dtype, d_xw in bf16 only (in f32 das is d_xw). GRU: xw,
+    hs, g_hs and d_xw in the dtype, hw and d_hw in f32 (3H each). W_hh in the dtype."""
+    G = gates * H
     size = torch.tensor([], dtype=dtype).element_size()
-    if tf32x3:
-        return bound(3 * flops, size * chains * (seq + params), "tf32")
-    return bound(flops, size * chains * (seq + params), dtype)
+    if gates == 4:
+        row = 4 * 2 * G + size * (2 * H + (G if dtype == torch.bfloat16 else 0))
+    else:
+        row = 4 * 2 * G + size * (2 * G + 2 * H)
+    nbytes = chains * (B * T * row + size * G * H)
+    return bound(tf32 * chains * 2.0 * B * T * G * H, nbytes, "tf32")
 
 
 BUILDS = {"mask_decode": md.build, "lstm_scan": ls.build, "lstm_scan_bwd": ls.build_backward,
@@ -1607,34 +1753,44 @@ def main(argv=None) -> int:
                                         (bf16, "mma", "csrc/recurrence_mma.cuh", "_bf16")):
         for name, replaces, times, shape, (B, T, chains), gates in forwards:
             route = recurrence_bound(B, T, H, gates, chains, bias=gates == 3, dtype=dtype,
-                                     tf32x3=path == "tf32x3")
+                                     tf32=3 if path == "tf32x3" else 0)
             fma_bound = (recurrence_bound(B, T, H, gates, chains, bias=gates == 3, dtype=dtype)
                          if path == "tf32x3" else None)
             entries.append(kernel_entry(
                 name, source, replaces, total[f"{name}/{path}"], times[(name, shape, dtype)],
                 route, library[name + suffix], dtype=dtype, fma_bound=fma_bound))
+    # The backwards of kernels 2-4 (`custom_vjp` _bidir_bwd and _lstm_bwd, both
+    # _lstm_bwd_core; _gru_bidir_bwd, _gru_bwd_core) twice, f32 (three TF32
+    # products) and bf16 (two), each at the training shape of its phase: `ms` is
+    # the whole backward (the gate recompute, the kernel, the parameter
+    # gradients), `kernel_ms` the kernel alone, each beside the FMA kernel's in
+    # the same run (`fma_ms`, `fma_kernel_ms`) and its route's bounds; cuDNN's
+    # backward in the same dtype (input projection included).
+    backwards = [  # name, replaces, timings, timed shape, (B, T, chains), gates
+        ("lstm_scan_bidir_bwd", "ops/pallas_lstm.py:339", bwd_timings, "intra", (510, 250, 2),
+         4),
+        ("lstm_scan_bwd", "ops/pallas_lstm.py:230", bwd_timings, "inter", (500, 255, 1), 4),
+        ("gru_scan_bidir_bwd", "ops/pallas_lstm.py:473", gru_bwd_timings, "intra",
+         (510, 250, 2), 3),
+        ("gru_scan_bwd", "ops/pallas_lstm.py:431", gru_bwd_timings, "inter", (500, 255, 1), 3),
+    ]
+    for dtype, path, suffix in ((f32, "tf32x3", ""), (bf16, "tf32x2", "_bf16")):
+        tf32 = 3 if dtype == f32 else 2
+        for name, replaces, times, shape, (B, T, chains), gates in backwards:
+            lstm = gates == 4
+            timing = times[(name, shape, dtype)]
+            entry = kernel_entry(
+                name, "csrc/recurrence_bwd_tf32.cuh", replaces, total[f"{name}/{path}"], timing,
+                recurrence_bound(B, T, H, gates, chains, backward=True, cell_state=lstm,
+                                 bias=not lstm, dtype=dtype, tf32=tf32),
+                library[name + suffix], dtype=dtype,
+                fma_bound=recurrence_bound(B, T, H, gates, chains, backward=True,
+                                           cell_state=lstm, bias=not lstm, dtype=dtype))
+            entry.update(kernel_ms=timing["kernel_ms"], fma_kernel_ms=timing["fma_kernel_ms"],
+                         kernel_bound_ms=backward_kernel_bound(B, T, H, gates, chains, dtype,
+                                                               tf32)["bound_ms"])
+            entries.append(entry)
     entries += [
-        # The backward of kernels 2-4 (`custom_vjp` _bidir_bwd and _lstm_bwd, both
-        # _lstm_bwd_core; _gru_bidir_bwd, _gru_bwd_core); times are the whole
-        # backward, the gate matmul and the parameter gradients included.
-        kernel_entry("lstm_scan_bidir_bwd", "csrc/lstm_scan_bwd.cu", "ops/pallas_lstm.py:339",
-                     total["lstm_scan_bidir_bwd"],
-                     bwd_timings[("lstm_scan_bidir_bwd", "intra", f32)],
-                     recurrence_bound(510, 250, H, 4, 2, backward=True, cell_state=True),
-                     library["lstm_scan_bidir_bwd"]),
-        kernel_entry("lstm_scan_bwd", "csrc/lstm_scan_bwd.cu", "ops/pallas_lstm.py:230",
-                     total["lstm_scan_bwd"], bwd_timings[("lstm_scan_bwd", "inter", f32)],
-                     recurrence_bound(500, 255, H, 4, 1, backward=True, cell_state=True),
-                     library["lstm_scan_bwd"]),
-        kernel_entry("gru_scan_bidir_bwd", "csrc/gru_scan_bwd.cu", "ops/pallas_lstm.py:473",
-                     total["gru_scan_bidir_bwd"],
-                     gru_bwd_timings[("gru_scan_bidir_bwd", "intra", f32)],
-                     recurrence_bound(510, 250, H, 3, 2, backward=True, bias=True),
-                     library["gru_scan_bidir_bwd"]),
-        kernel_entry("gru_scan_bwd", "csrc/gru_scan_bwd.cu", "ops/pallas_lstm.py:431",
-                     total["gru_scan_bwd"], gru_bwd_timings[("gru_scan_bwd", "inter", f32)],
-                     recurrence_bound(500, 255, H, 3, 1, backward=True, bias=True),
-                     library["gru_scan_bwd"]),
         # Two reads of x and one int8 write; no single PyTorch call computes it.
         kernel_entry("quantize_int8", "csrc/quantize.cu", "ops/pallas_kernels.py:45",
                      total["quantize_int8"], quant_timing,

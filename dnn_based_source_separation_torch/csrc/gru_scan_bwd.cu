@@ -25,18 +25,27 @@
 // `hw = f32(h_prev) @ f32(W_hh) + f32(b_hh)` come in as one (B, T, 3H) f32
 // array (one large matmul outside, as the JAX package computes them outside
 // Pallas), and so do the products around the recurrence: d_W_hh =
-// h_prev^T @ d_hw and d_b_hh = sum over (b, t) of d_hw. W_hh^T is read as
-// (3H, H) in its own dtype: bfloat16 widens to f32 exactly.
+// h_prev^T @ d_hw and d_b_hh = sum over (b, t) of d_hw. W_hh is read in its
+// own dtype: bfloat16 widens to f32 exactly.
 //
-// What bounds it. Each step of a chain depends on the one after it, so time
+// Two paths, chosen by the caller (ops/lstm_scan.py:_plan_bwd, which the GRU
+// wrapper shares) from the dtype and the shape before the launch, never
+// after a failure:
+//   * "tf32x3" (float32) and "tf32x2" (bfloat16) for H a multiple of 16 up to
+//     128: the tensor-core kernel of csrc/recurrence_bwd_tf32.cuh with the
+//     cell GruBwdCell below, the product in three (f32 W) or two (bf16 W)
+//     TF32 products on a cluster of 2 or 4 blocks; it reads W_hh (H, 3H);
+//   * "fma": every other H (40, 256, 512, ...), the FMA kernel of this file;
+//     it reads W_hh^T (3H, H).
+//
+// What bounds the FMA kernel. Each step of a chain depends on the one after it, so time
 // is a loop inside the block and only independent sequences run in
 // parallel. Per step and sequence the recurrent product is 3H x H FMAs
 // (49,152 at H = 128) against 6H values read (xw, hw) and 6H written (d_xw,
 // d_hw), a serial chain of T steps: FMA issue and shared-memory bandwidth
 // inside each SM, and the step latency of the chain, not device memory.
 //
-// Design (that of csrc/lstm_scan_bwd.cu with 3H for 4H; tensor cores are
-// later work):
+// The FMA kernel's design (that of csrc/lstm_scan_bwd.cu with 3H for 4H):
 //   * one block owns a tile of TB = groups * R sequences of one chain
 //     (blockIdx.y is the chain). Thread (g, p) owns hidden units 2p and
 //     2p + 1 of the R sequences of group g and computes the three gate
@@ -55,8 +64,8 @@
 //     (L2-resident: every block of the chain reads the same matrix);
 //   * the next step's xw, hw, hs and g_hs are loaded into registers before
 //     the recurrent product, so their latency hides behind it;
-//   * R per group is picked as in the forward: the largest of 4, 2, 1 that
-//     still gives every SM a block.
+//   * R per group comes from the caller, by the forward's rule: the largest
+//     of 4, 2, 1 that still gives every SM a block.
 //
 // Bound with ctypes (ops/_build.py); the C entry points return
 // cudaGetLastError() so the wrapper can raise on a refused launch.
@@ -64,6 +73,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "recurrence_bwd_tf32.cuh"
 
 namespace {
 
@@ -75,7 +86,7 @@ struct Chains {
   const float* hw[2];   // (B, T, 3H) f32 recurrent pre-activations (b_hh included)
   const void* hs[2];    // (B, T, H) forward hidden states, input dtype
   const void* g_hs[2];  // (B, T, H) cotangent of hs, input dtype
-  const void* wt[2];    // (3H, H) W_hh^T, input dtype
+  const void* w[2];     // W_hh^T (3H, H) on the FMA path, W_hh (H, 3H) on the others
   void* d_xw[2];        // (B, T, 3H) gradient of xw, input dtype
   float* d_hw[2];       // (B, T, 3H) f32 gradient of hw
 };
@@ -185,7 +196,7 @@ gru_bwd_kernel(Chains chains, int B, int T_len, int H, int groups, int KS) {
   const float* __restrict__ hw = second ? chains.hw[1] : chains.hw[0];
   const T* __restrict__ hs = static_cast<const T*>(second ? chains.hs[1] : chains.hs[0]);
   const T* __restrict__ g_hs = static_cast<const T*>(second ? chains.g_hs[1] : chains.g_hs[0]);
-  const T* __restrict__ wt = static_cast<const T*>(second ? chains.wt[1] : chains.wt[0]);
+  const T* __restrict__ wt = static_cast<const T*>(second ? chains.w[1] : chains.w[0]);
   T* __restrict__ d_xw = static_cast<T*>(second ? chains.d_xw[1] : chains.d_xw[0]);
   float* __restrict__ d_hw = second ? chains.d_hw[1] : chains.d_hw[0];
   const int TB = groups * R;
@@ -255,19 +266,6 @@ gru_bwd_kernel(Chains chains, int B, int T_len, int H, int groups, int KS) {
   }
 }
 
-int sm_count() {
-  static int cached_device = -1, sms = 0;
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return -(int)err;
-  if (device != cached_device) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return -(int)err;
-    cached_device = device;
-  }
-  return sms;
-}
-
 template <typename T, int R>
 int launch_r(const Chains& chains, int n_chains, int B, int T_len, int H, int groups,
              cudaStream_t stream) {
@@ -292,51 +290,162 @@ int launch_r(const Chains& chains, int n_chains, int B, int T_len, int H, int gr
   return (int)cudaGetLastError();
 }
 
-template <typename T, int NC>
-int launch(const Chains& chains, int B, int T_len, int H, cudaStream_t stream) {
+template <typename T>
+int launch_fma(const Chains& chains, int n_chains, int B, int T_len, int H, int R,
+               cudaStream_t stream) {
   if (H < 4 || H % 4 || H / 2 > kMaxThreads || B < 1 || T_len < 1)
     return (int)cudaErrorInvalidValue;
-  const int sms = sm_count();
-  if (sms <= 0) return sms < 0 ? -sms : (int)cudaErrorInvalidDevice;
   int groups = kMaxThreads / (H / 2);
   if (groups > 4) groups = 4;
-  // The largest tile that still gives every SM a block; else the smallest.
-  auto blocks = [&](int r) { return (long long)NC * ((B + groups * r - 1) / (groups * r)); };
-  if (blocks(4) >= sms) return launch_r<T, 4>(chains, NC, B, T_len, H, groups, stream);
-  if (blocks(2) >= sms) return launch_r<T, 2>(chains, NC, B, T_len, H, groups, stream);
-  return launch_r<T, 1>(chains, NC, B, T_len, H, groups, stream);
+  if (R == 4) return launch_r<T, 4>(chains, n_chains, B, T_len, H, groups, stream);
+  if (R == 2) return launch_r<T, 2>(chains, n_chains, B, T_len, H, groups, stream);
+  if (R == 1) return launch_r<T, 1>(chains, n_chains, B, T_len, H, groups, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
-template <int NC>
-int dispatch(const Chains& chains, int dtype, int B, int T_len, int H, void* stream) {
+// The tensor-core path's cell: one row's two units u, u + 1 at a step.
+template <typename T>
+struct GruBwdCell {
+  static constexpr int kGates = 3;
+  static constexpr bool kExactW = sizeof(T) == 2;  // a bfloat16 W is a TF32 value
+  using Weight = T;
+  using Chains = ::Chains;
+  struct In {
+    float2 ar, az;  // x_r + hw_r, x_z + hw_z
+    float2 xn, hn;  // x_n, hw_n
+    float2 g, hp;   // cotangent of h, h_{t-1}
+  };
+  struct Out {
+    float2 d[3];  // d_hw: da_r, da_z, dn * r (the product's A operand)
+    float2 dn;    // d_xw's n column
+  };
+
+  const T* __restrict__ xw;
+  const float* __restrict__ hw;
+  const T* __restrict__ hs;
+  const T* __restrict__ g_hs;
+  const T* __restrict__ whh;
+  T* __restrict__ d_xw;
+  float* __restrict__ d_hw;
+  int T_len, H;
+
+  // Constant indices: a runtime index into the parameter arrays would copy
+  // them to local memory.
+  __device__ GruBwdCell(const Chains& ch, bool second, int T_len_, int H_)
+      : xw(static_cast<const T*>(second ? ch.xw[1] : ch.xw[0])),
+        hw(second ? ch.hw[1] : ch.hw[0]),
+        hs(static_cast<const T*>(second ? ch.hs[1] : ch.hs[0])),
+        g_hs(static_cast<const T*>(second ? ch.g_hs[1] : ch.g_hs[0])),
+        whh(static_cast<const T*>(second ? ch.w[1] : ch.w[0])),
+        d_xw(static_cast<T*>(second ? ch.d_xw[1] : ch.d_xw[0])),
+        d_hw(second ? ch.d_hw[1] : ch.d_hw[0]),
+        T_len(T_len_),
+        H(H_) {}
+
+  __device__ __forceinline__ void load(In& in, long long b, int t, int u, bool valid) const {
+    if (valid) {
+      const long long row = (b * T_len + t) * 3LL * H + u;
+      const float2 xr = ldg_pair(xw + row), hr = ldg_pair(hw + row);
+      const float2 xz = ldg_pair(xw + row + H), hz = ldg_pair(hw + row + H);
+      in.ar = make_float2(xr.x + hr.x, xr.y + hr.y);
+      in.az = make_float2(xz.x + hz.x, xz.y + hz.y);
+      in.xn = ldg_pair(xw + row + 2 * H);
+      in.hn = ldg_pair(hw + row + 2 * H);
+      const long long at = (b * T_len + t) * H + u;
+      in.g = ldg_pair(g_hs + at);
+      in.hp = t > 0 ? ldg_pair(hs + at - H) : make_float2(0.f, 0.f);
+    } else {
+      // Padding rows: a zero cotangent keeps every derivative of the row zero.
+      in.ar = in.az = in.xn = in.hn = in.g = in.hp = make_float2(0.f, 0.f);
+    }
+  }
+
+  // The step's derivatives from its inputs and dh_rec; carry = dh * z, the
+  // part of the next dh_rec outside the product. No state.
+  __device__ __forceinline__ void derive(const In& in, float2 dh_rec, float2&, Out& out,
+                                         float2& carry) const {
+    float d[3][2], dn[2], cy[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float hn = lo_hi(in.hn, e);
+      const float rg = tf32_bwd::sigmoid(lo_hi(in.ar, e));
+      const float zg = tf32_bwd::sigmoid(lo_hi(in.az, e));
+      const float ng = tanhf(lo_hi(in.xn, e) + rg * hn);
+      const float dh = lo_hi(in.g, e) + lo_hi(dh_rec, e);
+      dn[e] = dh * (1.f - zg) * (1.f - ng * ng);
+      d[0][e] = dn[e] * hn * rg * (1.f - rg);
+      d[1][e] = dh * (lo_hi(in.hp, e) - ng) * zg * (1.f - zg);
+      d[2][e] = dn[e] * rg;
+      cy[e] = dh * zg;
+    }
+#pragma unroll
+    for (int q = 0; q < 3; ++q) out.d[q] = make_float2(d[q][0], d[q][1]);
+    out.dn = make_float2(dn[0], dn[1]);
+    carry = make_float2(cy[0], cy[1]);
+  }
+
+  __device__ __forceinline__ static float2 tile_value(const Out& out, int q) { return out.d[q]; }
+
+  __device__ __forceinline__ void store(const Out& out, long long b, int t, int u) const {
+    const long long row = (b * T_len + t) * 3LL * H + u;
+#pragma unroll
+    for (int q = 0; q < 3; ++q) *reinterpret_cast<float2*>(d_hw + row + q * H) = out.d[q];
+    store_pair(d_xw + row, out.d[0].x, out.d[0].y);
+    store_pair(d_xw + row + H, out.d[1].x, out.d[1].y);
+    store_pair(d_xw + row + 2 * H, out.dn.x, out.dn.y);
+  }
+};
+
+// path 0: the FMA kernel with tile R (W_hh^T); path 2 (float32) / 3 (bfloat16):
+// the tensor-core kernel with tile M and clusters of `cluster` blocks (W_hh).
+int dispatch(const Chains& chains, int n_chains, int dtype, int B, int T_len, int H, int path,
+             int tile, int cluster, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float, NC>(chains, B, T_len, H, st);
-  if (dtype == 1) return launch<__nv_bfloat16, NC>(chains, B, T_len, H, st);
+  if (path == 2 && dtype == 0)
+    return tf32_bwd::launch<GruBwdCell<float>>(chains, n_chains, B, T_len, H, tile, cluster, st);
+  if (path == 3 && dtype == 1)
+    return tf32_bwd::launch<GruBwdCell<__nv_bfloat16>>(chains, n_chains, B, T_len, H, tile,
+                                                       cluster, st);
+  if (path != 0) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return launch_fma<float>(chains, n_chains, B, T_len, H, tile, st);
+  if (dtype == 1) return launch_fma<__nv_bfloat16>(chains, n_chains, B, T_len, H, tile, st);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (xw, hs, g_hs, W_hh^T and d_xw share it;
-// hw and d_hw are f32). All arrays are contiguous: xw, hw, d_xw and d_hw
-// (B, T, 3H), hs and g_hs (B, T, H), wt (3H, H). Returns a cudaError_t (0 on
-// success). The Python wrapper validates every argument.
+// dtype: 0 = float32, 1 = bfloat16 (xw, hs, g_hs, w and d_xw share it; hw
+// and d_hw are f32). All arrays are contiguous: xw, hw, d_xw and d_hw
+// (B, T, 3H), hs and g_hs (B, T, H), w W_hh^T (3H, H) on path 0 and W_hh
+// (H, 3H) on paths 2 and 3. path 0 (FMA, tile = R in {1, 2, 4}), 2 (tensor
+// cores, float32, three TF32 products) or 3 (tensor cores, bfloat16, two),
+// both with H % 16 == 0, H <= 128, tile = M = 16 and cluster = C in
+// {2, 4} with H % 8C == 0, from ops/lstm_scan.py:_plan_bwd. Returns a
+// cudaError_t (0 on success). The Python wrapper validates every argument.
 extern "C" int gru_scan_bwd_launch(const void* xw, const float* hw, const void* hs,
-                                   const void* g_hs, const void* wt, void* d_xw, float* d_hw,
-                                   int dtype, int B, int T, int H, void* stream) {
+                                   const void* g_hs, const void* w, void* d_xw, float* d_hw,
+                                   int dtype, int B, int T, int H, int path, int tile,
+                                   int cluster, void* stream) {
   Chains chains = {{xw, nullptr}, {hw, nullptr}, {hs, nullptr}, {g_hs, nullptr},
-                   {wt, nullptr}, {d_xw, nullptr}, {d_hw, nullptr}};
-  return dispatch<1>(chains, dtype, B, T, H, stream);
+                   {w, nullptr}, {d_xw, nullptr}, {d_hw, nullptr}};
+  return dispatch(chains, 1, dtype, B, T, H, path, tile, cluster, stream);
 }
 
 // Both chains of a bidirectional layer, each with its own arrays, in one launch.
 extern "C" int gru_scan_bidir_bwd_launch(const void* xw_f, const void* xw_b, const float* hw_f,
                                          const float* hw_b, const void* hs_f, const void* hs_b,
-                                         const void* g_f, const void* g_b, const void* wt_f,
-                                         const void* wt_b, void* d_xw_f, void* d_xw_b,
+                                         const void* g_f, const void* g_b, const void* w_f,
+                                         const void* w_b, void* d_xw_f, void* d_xw_b,
                                          float* d_hw_f, float* d_hw_b, int dtype, int B, int T,
-                                         int H, void* stream) {
+                                         int H, int path, int tile, int cluster, void* stream) {
   Chains chains = {{xw_f, xw_b}, {hw_f, hw_b}, {hs_f, hs_b}, {g_f, g_b},
-                   {wt_f, wt_b}, {d_xw_f, d_xw_b}, {d_hw_f, d_hw_b}};
-  return dispatch<2>(chains, dtype, B, T, H, stream);
+                   {w_f, w_b}, {d_xw_f, d_xw_b}, {d_hw_f, d_hw_b}};
+  return dispatch(chains, 2, dtype, B, T, H, path, tile, cluster, stream);
+}
+
+// The clusters of C blocks of the tensor-core backward at hidden size H that
+// the current card holds at once, each block on an SM of its own, into
+// *clusters (what _plan_bwd fits a wave to; the same in both dtypes).
+extern "C" int gru_scan_bwd_tf32_clusters(int H, int C, int* clusters) {
+  return tf32_bwd::max_clusters<GruBwdCell<float>>(H, C, clusters);
 }

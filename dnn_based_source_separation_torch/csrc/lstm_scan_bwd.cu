@@ -20,19 +20,29 @@
 // The gate pre-activations `gates = f32(xw) + f32(h_prev) @ f32(W_hh)` come
 // in as one (B, T, 4H) f32 array (one large matmul outside, as the JAX
 // package computes it outside Pallas), and so do the products around the
-// recurrence: d_xw = das rounded to xw's dtype, d_W_hh = h_prev^T @ das.
+// recurrence: d_W_hh = h_prev^T @ das. In bfloat16 the kernel also writes
+// d_xw = das rounded to bfloat16 beside the f32 das (in f32 das is d_xw).
 // cs is the forward kernel's cell state as written, in the input dtype, so
 // in bfloat16 the backward sees the rounded c, as the Pallas kernel's does.
-// W_hh^T is read as (4H, H) in its own dtype: bfloat16 widens to f32 exactly.
+// W_hh is read in its own dtype: bfloat16 widens to f32 exactly.
 //
-// What bounds it. The same as the forward (csrc/lstm_scan.cu): each step of
-// a chain depends on the one after it, so time is a loop inside the block
-// and only independent sequences run in parallel. Per step and sequence the
-// recurrent product is 4H x H FMAs (65,536 at H = 128) against 4H gate
+// Two paths, chosen by the caller (ops/lstm_scan.py:_plan_bwd) from the dtype
+// and the shape before the launch, never after a failure:
+//   * "tf32x3" (float32) and "tf32x2" (bfloat16) for H a multiple of 16 up to
+//     128: the tensor-core kernel of csrc/recurrence_bwd_tf32.cuh with the
+//     cell LstmBwdCell below, the product in three (f32 W) or two (bf16 W)
+//     TF32 products on a cluster of 2 or 4 blocks; it reads W_hh (H, 4H);
+//   * "fma": every other H (40, 256, 512, ...), the FMA kernel of this file;
+//     it reads W_hh^T (4H, H).
+//
+// What bounds the FMA kernel. The same as the forward (csrc/lstm_scan.cu): each
+// step of a chain depends on the one after it, so time is a loop inside the
+// block and only independent sequences run in parallel. Per step and sequence
+// the recurrent product is 4H x H FMAs (65,536 at H = 128) against 4H gate
 // values read and 4H derivatives written: FMA issue and shared-memory
 // bandwidth inside each SM, not device memory.
 //
-// Design (the forward kernel's structure; tensor cores are later work):
+// The FMA kernel's design (the forward kernel's structure):
 //   * one block owns a tile of TB = groups * R sequences of one chain
 //     (blockIdx.y is the chain). Thread (g, p) owns hidden units 2p and
 //     2p + 1 of the R sequences of group g and computes the four gate
@@ -51,8 +61,8 @@
 //     reads the same matrix);
 //   * the next step's gates, cs and g_hs are loaded into registers before
 //     the recurrent product, so their latency hides behind it;
-//   * R per group is picked as in the forward: the largest of 4, 2, 1 that
-//     still gives every SM a block.
+//   * R per group comes from the caller, by the forward's rule: the largest
+//     of 4, 2, 1 that still gives every SM a block.
 //
 // Bound with ctypes (ops/_build.py); the C entry points return
 // cudaGetLastError() so the wrapper can raise on a refused launch.
@@ -60,6 +70,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "recurrence_bwd_tf32.cuh"
 
 namespace {
 
@@ -70,8 +82,9 @@ struct Chains {
   const float* gates[2];  // (B, T, 4H) f32 pre-activations
   const void* cs[2];      // (B, T, H) cell states, input dtype
   const void* g_hs[2];    // (B, T, H) cotangent of hs, input dtype
-  const void* wt[2];      // (4H, H) W_hh^T, input dtype
+  const void* w[2];       // W_hh^T (4H, H) on the FMA path, W_hh (H, 4H) on the others
   float* das[2];          // (B, T, 4H) f32 gate derivatives
+  void* d_xw[2];          // (B, T, 4H) das rounded to bfloat16, or null (float32)
 };
 
 // Two adjacent elements as f32. bf16 -> f32 is exact: the bf16 bits are the
@@ -90,6 +103,12 @@ __device__ __forceinline__ float2 ldg_pair(const float* p) {
 }
 __device__ __forceinline__ float2 ldg_pair(const __nv_bfloat16* p) {
   return unpack(__ldg(reinterpret_cast<const unsigned*>(p)));
+}
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
 
@@ -163,8 +182,9 @@ lstm_bwd_kernel(Chains chains, int B, int T_len, int H, int groups, int KS) {
   const float* __restrict__ gates = second ? chains.gates[1] : chains.gates[0];
   const T* __restrict__ cs = static_cast<const T*>(second ? chains.cs[1] : chains.cs[0]);
   const T* __restrict__ g_hs = static_cast<const T*>(second ? chains.g_hs[1] : chains.g_hs[0]);
-  const T* __restrict__ wt = static_cast<const T*>(second ? chains.wt[1] : chains.wt[0]);
+  const T* __restrict__ wt = static_cast<const T*>(second ? chains.w[1] : chains.w[0]);
   float* __restrict__ das = second ? chains.das[1] : chains.das[0];
+  T* __restrict__ d_xw = static_cast<T*>(second ? chains.d_xw[1] : chains.d_xw[0]);
   const int TB = groups * R;
   const int G4 = 4 * H;
 
@@ -218,7 +238,11 @@ lstm_bwd_kernel(Chains chains, int B, int T_len, int H, int groups, int KS) {
       for (int q = 0; q < 4; ++q) {
         const float2 v = make_float2(d[q][0], d[q][1]);
         *reinterpret_cast<float2*>(da + r * G4 + q * H + u) = v;
-        if (b < B) *reinterpret_cast<float2*>(das + (b * T_len + t) * G4 + q * H + u) = v;
+        if (b < B) {
+          const long long at = (b * T_len + t) * G4 + q * H + u;
+          *reinterpret_cast<float2*>(das + at) = v;
+          if (d_xw != nullptr) store_pair(d_xw + at, v.x, v.y);
+        }
       }
     }
     __syncthreads();
@@ -228,19 +252,6 @@ lstm_bwd_kernel(Chains chains, int B, int T_len, int H, int groups, int KS) {
     accumulate<T, R, true>(ws, 0, KS, H, u, da, dh_rec);
     accumulate<T, R, false>(wt, KS, G4, H, u, da, dh_rec);  // rows that did not fit
   }
-}
-
-int sm_count() {
-  static int cached_device = -1, sms = 0;
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return -(int)err;
-  if (device != cached_device) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return -(int)err;
-    cached_device = device;
-  }
-  return sms;
 }
 
 template <typename T, int R>
@@ -267,51 +278,161 @@ int launch_r(const Chains& chains, int n_chains, int B, int T_len, int H, int gr
   return (int)cudaGetLastError();
 }
 
-template <typename T, int NC>
-int launch(const Chains& chains, int B, int T_len, int H, cudaStream_t stream) {
+template <typename T>
+int launch_fma(const Chains& chains, int n_chains, int B, int T_len, int H, int R,
+               cudaStream_t stream) {
   if (H < 4 || H % 4 || H / 2 > kMaxThreads || B < 1 || T_len < 1)
     return (int)cudaErrorInvalidValue;
-  const int sms = sm_count();
-  if (sms <= 0) return sms < 0 ? -sms : (int)cudaErrorInvalidDevice;
   int groups = kMaxThreads / (H / 2);
   if (groups > 4) groups = 4;
-  // The largest tile that still gives every SM a block; else the smallest.
-  auto blocks = [&](int r) { return (long long)NC * ((B + groups * r - 1) / (groups * r)); };
-  if (blocks(4) >= sms) return launch_r<T, 4>(chains, NC, B, T_len, H, groups, stream);
-  if (blocks(2) >= sms) return launch_r<T, 2>(chains, NC, B, T_len, H, groups, stream);
-  return launch_r<T, 1>(chains, NC, B, T_len, H, groups, stream);
+  if (R == 4) return launch_r<T, 4>(chains, n_chains, B, T_len, H, groups, stream);
+  if (R == 2) return launch_r<T, 2>(chains, n_chains, B, T_len, H, groups, stream);
+  if (R == 1) return launch_r<T, 1>(chains, n_chains, B, T_len, H, groups, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
-template <int NC>
-int dispatch(const Chains& chains, int dtype, int B, int T_len, int H, void* stream) {
+// The tensor-core path's cell: one row's two units u, u + 1 at a step.
+template <typename T>
+struct LstmBwdCell {
+  static constexpr int kGates = 4;
+  static constexpr bool kExactW = sizeof(T) == 2;  // a bfloat16 W is a TF32 value
+  using Weight = T;
+  using Chains = ::Chains;
+  struct In {
+    float2 a[4];  // gate pre-activations i, f, g, o
+    float2 c, cp, g;  // c_t, c_{t-1}, cotangent of h
+  };
+  struct Out {
+    float2 da[4];
+  };
+
+  const float* __restrict__ gates;
+  const T* __restrict__ cs;
+  const T* __restrict__ g_hs;
+  const T* __restrict__ whh;
+  float* __restrict__ das;
+  T* __restrict__ d_xw;
+  int T_len, H;
+
+  // Constant indices: a runtime index into the parameter arrays would copy
+  // them to local memory.
+  __device__ LstmBwdCell(const Chains& ch, bool second, int T_len_, int H_)
+      : gates(second ? ch.gates[1] : ch.gates[0]),
+        cs(static_cast<const T*>(second ? ch.cs[1] : ch.cs[0])),
+        g_hs(static_cast<const T*>(second ? ch.g_hs[1] : ch.g_hs[0])),
+        whh(static_cast<const T*>(second ? ch.w[1] : ch.w[0])),
+        das(second ? ch.das[1] : ch.das[0]),
+        d_xw(static_cast<T*>(second ? ch.d_xw[1] : ch.d_xw[0])),
+        T_len(T_len_),
+        H(H_) {}
+
+  __device__ __forceinline__ void load(In& in, long long b, int t, int u, bool valid) const {
+    if (valid) {
+      const float* row = gates + (b * T_len + t) * 4LL * H + u;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) in.a[q] = ldg_pair(row + q * H);
+      const long long at = (b * T_len + t) * H + u;
+      in.g = ldg_pair(g_hs + at);
+      in.c = ldg_pair(cs + at);
+      in.cp = t > 0 ? ldg_pair(cs + at - H) : make_float2(0.f, 0.f);
+    } else {
+      // Padding rows: a zero cotangent keeps every derivative of the row zero.
+#pragma unroll
+      for (int q = 0; q < 4; ++q) in.a[q] = make_float2(0.f, 0.f);
+      in.g = in.c = in.cp = make_float2(0.f, 0.f);
+    }
+  }
+
+  // da from the step's inputs, dh_rec and dc_rec (`dc`, updated); no carry.
+  __device__ __forceinline__ void derive(const In& in, float2 dh_rec, float2& dc, Out& out,
+                                         float2& carry) const {
+    float d[4][2], dcn[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float gi = tf32_bwd::sigmoid(e ? in.a[0].y : in.a[0].x);
+      const float gf = tf32_bwd::sigmoid(e ? in.a[1].y : in.a[1].x);
+      const float gg = tanhf(e ? in.a[2].y : in.a[2].x);
+      const float go = tf32_bwd::sigmoid(e ? in.a[3].y : in.a[3].x);
+      const float tc = tanhf(e ? in.c.y : in.c.x);
+      const float cp = e ? in.cp.y : in.cp.x;
+      const float dh = (e ? in.g.y : in.g.x) + (e ? dh_rec.y : dh_rec.x);
+      const float dcv = (e ? dc.y : dc.x) + dh * go * (1.f - tc * tc);
+      d[0][e] = dcv * gg * gi * (1.f - gi);
+      d[1][e] = dcv * cp * gf * (1.f - gf);
+      d[2][e] = dcv * gi * (1.f - gg * gg);
+      d[3][e] = dh * tc * go * (1.f - go);
+      dcn[e] = dcv * gf;
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) out.da[q] = make_float2(d[q][0], d[q][1]);
+    dc = make_float2(dcn[0], dcn[1]);
+    carry = make_float2(0.f, 0.f);
+  }
+
+  __device__ __forceinline__ static float2 tile_value(const Out& out, int q) { return out.da[q]; }
+
+  __device__ __forceinline__ void store(const Out& out, long long b, int t, int u) const {
+    const long long row = (b * T_len + t) * 4LL * H + u;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      *reinterpret_cast<float2*>(das + row + q * H) = out.da[q];
+      if (d_xw != nullptr) store_pair(d_xw + row + q * H, out.da[q].x, out.da[q].y);
+    }
+  }
+};
+
+// path 0: the FMA kernel with tile R (W_hh^T); path 2 (float32) / 3 (bfloat16):
+// the tensor-core kernel with tile M and clusters of `cluster` blocks (W_hh).
+int dispatch(const Chains& chains, int n_chains, int dtype, int B, int T_len, int H, int path,
+             int tile, int cluster, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float, NC>(chains, B, T_len, H, st);
-  if (dtype == 1) return launch<__nv_bfloat16, NC>(chains, B, T_len, H, st);
+  if (path == 2 && dtype == 0)
+    return tf32_bwd::launch<LstmBwdCell<float>>(chains, n_chains, B, T_len, H, tile, cluster, st);
+  if (path == 3 && dtype == 1)
+    return tf32_bwd::launch<LstmBwdCell<__nv_bfloat16>>(chains, n_chains, B, T_len, H, tile,
+                                                        cluster, st);
+  if (path != 0) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return launch_fma<float>(chains, n_chains, B, T_len, H, tile, st);
+  if (dtype == 1) return launch_fma<__nv_bfloat16>(chains, n_chains, B, T_len, H, tile, st);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (cs, g_hs and W_hh^T share it; gates and
-// das are f32). All arrays are contiguous: gates and das (B, T, 4H), cs and
-// g_hs (B, T, H), wt (4H, H). Returns a cudaError_t (0 on success). The
-// Python wrapper validates every argument.
+// dtype: 0 = float32, 1 = bfloat16 (cs, g_hs, w and d_xw share it; gates and
+// das are f32; d_xw is null in float32). All arrays are contiguous: gates,
+// das and d_xw (B, T, 4H), cs and g_hs (B, T, H), w W_hh^T (4H, H) on path 0
+// and W_hh (H, 4H) on paths 2 and 3. path 0 (FMA, tile = R in {1, 2, 4}),
+// 2 (tensor cores, float32, three TF32 products) or 3 (tensor cores,
+// bfloat16, two), both with H % 16 == 0, H <= 128, tile = M = 16 and
+// cluster = C in {2, 4} with H % 8C == 0, from ops/lstm_scan.py:_plan_bwd.
+// Returns a cudaError_t (0 on success). The Python wrapper validates every
+// argument.
 extern "C" int lstm_scan_bwd_launch(const float* gates, const void* cs, const void* g_hs,
-                                    const void* wt, float* das, int dtype, int B, int T, int H,
+                                    const void* w, float* das, void* d_xw, int dtype, int B,
+                                    int T, int H, int path, int tile, int cluster,
                                     void* stream) {
-  Chains chains = {{gates, nullptr}, {cs, nullptr}, {g_hs, nullptr}, {wt, nullptr},
-                   {das, nullptr}};
-  return dispatch<1>(chains, dtype, B, T, H, stream);
+  Chains chains = {{gates, nullptr}, {cs, nullptr}, {g_hs, nullptr}, {w, nullptr},
+                   {das, nullptr}, {d_xw, nullptr}};
+  return dispatch(chains, 1, dtype, B, T, H, path, tile, cluster, stream);
 }
 
 // Both chains of a bidirectional layer, each with its own arrays, in one launch.
 extern "C" int lstm_scan_bidir_bwd_launch(const float* gates_f, const float* gates_b,
                                           const void* cs_f, const void* cs_b,
                                           const void* g_f, const void* g_b,
-                                          const void* wt_f, const void* wt_b,
-                                          float* das_f, float* das_b, int dtype, int B, int T,
-                                          int H, void* stream) {
-  Chains chains = {{gates_f, gates_b}, {cs_f, cs_b}, {g_f, g_b}, {wt_f, wt_b},
-                   {das_f, das_b}};
-  return dispatch<2>(chains, dtype, B, T, H, stream);
+                                          const void* w_f, const void* w_b,
+                                          float* das_f, float* das_b, void* d_xw_f,
+                                          void* d_xw_b, int dtype, int B, int T, int H,
+                                          int path, int tile, int cluster, void* stream) {
+  Chains chains = {{gates_f, gates_b}, {cs_f, cs_b}, {g_f, g_b}, {w_f, w_b},
+                   {das_f, das_b}, {d_xw_f, d_xw_b}};
+  return dispatch(chains, 2, dtype, B, T, H, path, tile, cluster, stream);
+}
+
+// The clusters of C blocks of the tensor-core backward at hidden size H that
+// the current card holds at once, each block on an SM of its own, into
+// *clusters (what _plan_bwd fits a wave to; the same in both dtypes).
+extern "C" int lstm_scan_bwd_tf32_clusters(int H, int C, int* clusters) {
+  return tf32_bwd::max_clusters<LstmBwdCell<float>>(H, C, clusters);
 }

@@ -13,7 +13,10 @@ The forward has the LSTM's three paths, planned by the same `_plan`
 (`ops/lstm_scan.py`): for H a multiple of 16 up to 128 the tensor-core
 kernels, `"mma"` (`csrc/recurrence_mma.cuh`) for bfloat16 and `"tf32x3"`
 (`csrc/recurrence_tf32.cuh`) for float32; the FMA kernel (`"fma"`) for every
-other call.
+other call. The backward has the LSTM's two, planned by `_plan_bwd`: the
+split-TF32 tensor-core kernel of `csrc/recurrence_bwd_tf32.cuh` (`"tf32x3"`
+for float32, `"tf32x2"` for bfloat16) for the same H, the FMA kernel
+otherwise.
 
 Semantics are the Pallas kernel's, in both dtypes, torch gate order r, z, n:
 `g = f32(h rounded to W's dtype) @ f32(W) + f32(b_hh)`,
@@ -22,7 +25,7 @@ Semantics are the Pallas kernel's, in both dtypes, torch gate order r, z, n:
 in f32 and hs is rounded to the dtype on write. (The JAX `lax.scan` path
 computes in the input dtype instead, which differs in bfloat16.) The
 backward is `_gru_bwd_core`'s: the gates recomputed from the saved hs with
-one matmul, the reverse recurrence in f32, `d_xw` rounded to xw's dtype,
+one matmul (on the card one `addmm` onto b_hh), the reverse recurrence in f32, `d_xw` rounded to xw's dtype,
 `d_W_hh = h_prev^T @ d_hw` and `d_b_hh = sum d_hw` summed in f32 and rounded
 to W's dtype. Both biases train, as in JAX.
 
@@ -41,7 +44,7 @@ import torch.nn.functional as F
 
 from ._build import load_library
 from .lstm_scan import (  # the GRU plans by the LSTM's rule
-    _PATH_CODE, _co_resident_clusters, _plan, _plan_launch, _tile_args,
+    _PATH_CODE, _co_resident_clusters, _plan, _plan_bwd, _plan_launch, _tile_args,
 )
 
 # Launches of each CUDA kernel in this process. Only the launches below
@@ -50,6 +53,9 @@ LAUNCHES = {"gru_scan": 0, "gru_scan_bidir": 0, "gru_scan_bwd": 0, "gru_scan_bid
 # The forward launches above, split by the path `_plan` chose.
 PATH_LAUNCHES = {name: {"mma": 0, "tf32x3": 0, "fma": 0}
                  for name in ("gru_scan", "gru_scan_bidir")}
+# The backward launches above, split by the path `_plan_bwd` chose.
+BWD_PATH_LAUNCHES = {name: {"tf32x3": 0, "tf32x2": 0, "fma": 0}
+                     for name in ("gru_scan_bwd", "gru_scan_bidir_bwd")}
 
 MAX_HIDDEN = 512
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -177,10 +183,12 @@ def _bwd_library():
     if _BWD_LIB is None:
         lib = load_library("gru_scan_bwd")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.gru_scan_bwd_launch.argtypes = [p] * 7 + [i, i, i, i, p]
+        lib.gru_scan_bwd_launch.argtypes = [p] * 7 + [i] * 7 + [p]
         lib.gru_scan_bwd_launch.restype = i
-        lib.gru_scan_bidir_bwd_launch.argtypes = [p] * 14 + [i, i, i, i, p]
+        lib.gru_scan_bidir_bwd_launch.argtypes = [p] * 14 + [i] * 7 + [p]
         lib.gru_scan_bidir_bwd_launch.restype = i
+        lib.gru_scan_bwd_tf32_clusters.argtypes = [i, i, ctypes.POINTER(i)]
+        lib.gru_scan_bwd_tf32_clusters.restype = i
         _BWD_LIB = lib
     return _BWD_LIB
 
@@ -198,6 +206,13 @@ def _tf32_clusters(H: int, device) -> dict:
 def build_backward() -> None:
     """Build (or load) the backward kernels now instead of at their first launch."""
     _bwd_library()
+
+
+def _tf32_bwd_clusters(H: int, device) -> dict:
+    """{C: clusters of C blocks of this wrapper's tensor-core backward at H the card holds
+    at once}."""
+    return _co_resident_clusters(_bwd_library().gru_scan_bwd_tf32_clusters, H,
+                                 torch.device(device))
 
 
 def _check(xw: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor) -> None:
@@ -267,39 +282,60 @@ def _forward_cuda(chains, path: str | None = None):
     return hs
 
 
-def _staged_backward(chains):
+def _staged_hidden_gates(w_hh: torch.Tensor, b_hh: torch.Tensor,
+                         h_prev: torch.Tensor) -> torch.Tensor:
+    """`_hidden_gates` as the card stages it: one addmm with f32(b_hh) as the row added,
+    where a matmul and an add make two more passes over (B, T, 3H) f32 (the same value;
+    the sums may run in another order)."""
+    B, T, H = h_prev.shape
+    h = h_prev.to(w_hh.dtype).float().reshape(B * T, H)
+    return torch.addmm(b_hh.float(), h, w_hh.float()).view(B, T, 3 * H)
+
+
+def _staged_backward(chains, path: str | None = None):
     """Stage the backward kernel's inputs and outputs over one or two
-    (xw, w_hh, b_hh, hs, g_hs) chains -> (staged arrays per chain, a call that launches it)."""
+    (xw, w_hh, b_hh, hs, g_hs) chains -> (staged arrays per chain, a call that launches it).
+
+    `path` forces a path of `_plan_bwd` (only chip_smoke.py passes it, to time
+    the FMA kernel where the tensor cores would run).
+    """
     name = "gru_scan_bwd" if len(chains) == 1 else "gru_scan_bidir_bwd"
     _check_chains(name, [c[:3] for c in chains])
     xw0 = chains[0][0]
-    B, T, three_h = xw0.shape
+    B, T, H, path, tile = _plan_launch(_tf32_bwd_clusters, [c[:3] for c in chains], path,
+                                       backward=True)
     staged = []
     for xw, w_hh, b_hh, hs, g_hs in chains:
         # Gradients come back through flip and cat: make them contiguous
-        # before any data_ptr().
+        # before any data_ptr() (a no-op where they already are).
         hs, g_hs = hs.contiguous(), g_hs.contiguous()
         for what, t in (("hs", hs), ("g_hs", g_hs)):
-            if t.shape != (B, T, three_h // 3) or t.dtype != xw.dtype or t.device != xw.device:
+            if t.shape != (B, T, H) or t.dtype != xw.dtype or t.device != xw.device:
                 raise ValueError(f"{what} {tuple(t.shape)} {t.dtype} does not match xw "
                                  f"{tuple(xw.shape)} {xw.dtype}")
             if t.data_ptr() % 16:
                 raise ValueError(f"{what} is not 16-byte aligned")
         h_prev = _shifted(hs)
-        staged.append((h_prev, xw, _hidden_gates(w_hh, b_hh, h_prev), hs, g_hs,
-                       w_hh.t().contiguous(), torch.empty_like(xw),
-                       torch.empty((B, T, three_h), dtype=torch.float32, device=xw.device)))
+        w = w_hh.t().contiguous() if path == "fma" else w_hh  # the FMA kernel reads W_hh^T
+        staged.append((h_prev, xw, _staged_hidden_gates(w_hh, b_hh, h_prev), hs, g_hs, w,
+                       torch.empty_like(xw),
+                       torch.empty((B, T, 3 * H), dtype=torch.float32, device=xw.device)))
     lib = _bwd_library()
     fn = lib.gru_scan_bwd_launch if len(chains) == 1 else lib.gru_scan_bidir_bwd_launch
-    pointers = [s[k].data_ptr() for k in range(1, 8) for s in staged]
-    return staged, lambda: _launch(name, fn, pointers, xw0.dtype, B, T, three_h // 3,
-                                   xw0.device)
+
+    def launch():  # reads `staged`, so the arrays live as long as the call
+        pointers = [s[k].data_ptr() for k in range(1, 8) for s in staged]
+        _launch(name, fn, pointers, xw0.dtype, B, T, H, xw0.device, _PATH_CODE[path],
+                *_tile_args(tile))
+        BWD_PATH_LAUNCHES[name][path] += 1
+
+    return staged, launch
 
 
-def _backward_cuda(chains):
+def _backward_cuda(chains, path: str | None = None):
     """The backward kernel over one or two (xw, w_hh, b_hh, hs, g_hs) chains ->
     [(d_xw, d_whh, d_bhh)]."""
-    staged, launch = _staged_backward(chains)
+    staged, launch = _staged_backward(chains, path)
     launch()
     return [(d_xw, *_param_grads(h_prev, d_hw, w_hh, b_hh))
             for (h_prev, *_, d_xw, d_hw), (_, w_hh, b_hh, *_) in zip(staged, chains)]

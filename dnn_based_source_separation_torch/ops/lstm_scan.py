@@ -13,16 +13,22 @@ shape before the launch: for H a multiple of 16 up to 128 the tensor-core
 kernels, `"mma"` (`csrc/recurrence_mma.cuh`) for bfloat16 and `"tf32x3"`
 (`csrc/recurrence_tf32.cuh`, f32 products as three TF32 products, a cluster
 of 2 or 4 blocks per tile) for float32; the FMA kernel (`"fma"`) for every
-other call (H = 40, 256, 512, ...).
+other call (H = 40, 256, 512, ...). The backward has two, which `_plan_bwd`
+picks the same way: for H a multiple of 16 up to 128 the split-TF32
+tensor-core kernel of `csrc/recurrence_bwd_tf32.cuh` (`"tf32x3"` for
+float32, three TF32 products; `"tf32x2"` for bfloat16, two, since a bf16
+W_hh is a TF32 value), on clusters of 2 or 4 blocks; the FMA kernel
+(`"fma"`) for every other H.
 
 Semantics are the Pallas kernels', in both dtypes: gates are
 `f32(xw[t]) + f32(h rounded to W's dtype) @ f32(W)`, h and c are carried in
 f32, and hs (and cs, for the backward) are rounded to the dtype on write.
 (The JAX `lax.scan` path computes in the input dtype instead, which differs
 in bfloat16.) The backward is `_lstm_bwd_core`'s: gates recomputed from the
-saved hs with one matmul, the reverse recurrence in f32 reading the saved
-cs, `d_xw` rounded to xw's dtype and `d_W_hh = h_prev^T @ das` summed in
-f32 and rounded to W's dtype.
+saved hs with one matmul (on the card one `addmm` onto xw), the reverse
+recurrence in f32 reading the saved cs, `d_xw` rounded to xw's dtype (by
+the kernel, beside the f32 das) and `d_W_hh = h_prev^T @ das` summed in f32
+and rounded to W's dtype.
 
 Under autograd (grad mode on and an input that requires grad) the calls go
 through `torch.autograd.Function`s whose forward also writes cs; CPU tensors
@@ -45,15 +51,22 @@ LAUNCHES = {"lstm_scan": 0, "lstm_scan_bidir": 0, "lstm_scan_bwd": 0, "lstm_scan
 # The forward launches above, split by the path `_plan` chose.
 PATH_LAUNCHES = {name: {"mma": 0, "tf32x3": 0, "fma": 0}
                  for name in ("lstm_scan", "lstm_scan_bidir")}
+# The backward launches above, split by the path `_plan_bwd` chose.
+BWD_PATH_LAUNCHES = {name: {"tf32x3": 0, "tf32x2": 0, "fma": 0}
+                     for name in ("lstm_scan_bwd", "lstm_scan_bidir_bwd")}
 
 MAX_HIDDEN = 512
 # The tensor-core paths' widest H: bf16 W_hh as mma B fragments takes G H^2 / 2
 # registers a block; the f32 W_hh of one block of a 2-block cluster, G H^2 / 2
 # floats of shared memory.
 MMA_MAX_HIDDEN = 128
-_PATH_CODE = {"fma": 0, "mma": 1, "tf32x3": 2}
-# The tensor-core path of each dtype, for H a multiple of 16 up to MMA_MAX_HIDDEN.
+_PATH_CODE = {"fma": 0, "mma": 1, "tf32x3": 2, "tf32x2": 3}
+# The tensor-core path of each dtype, for H a multiple of 16 up to MMA_MAX_HIDDEN:
+# of the forward, and of the backward (split TF32 in both dtypes).
 _TENSOR_CORE_PATH = {torch.bfloat16: "mma", torch.float32: "tf32x3"}
+_BWD_TENSOR_CORE_PATH = {torch.bfloat16: "tf32x2", torch.float32: "tf32x3"}
+# The tensor-core backward's tile rows (32 spilled to the stack, PERF.md).
+BWD_TILE_ROWS = (16,)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LIB = None
 _BWD_LIB = None
@@ -171,9 +184,11 @@ def lstm_scan_bwd_reference(xw, w_hh, hs, cs, g_hs):
     return das.to(xw.dtype), _weight_grad(h_prev, das, w_hh.dtype)
 
 
-def _tensor_core_path(H: int, dtype: torch.dtype) -> str | None:
-    """The tensor-core path of a call at H in `dtype`, or None where only the FMA kernel runs."""
-    return _TENSOR_CORE_PATH.get(dtype) if H % 16 == 0 and 16 <= H <= MMA_MAX_HIDDEN else None
+def _tensor_core_path(H: int, dtype: torch.dtype, backward: bool = False) -> str | None:
+    """The tensor-core path of a call at H in `dtype` (of the backward if `backward`), or
+    None where only the FMA kernel runs."""
+    paths = _BWD_TENSOR_CORE_PATH if backward else _TENSOR_CORE_PATH
+    return paths.get(dtype) if H % 16 == 0 and 16 <= H <= MMA_MAX_HIDDEN else None
 
 
 def _plan(B: int, n_chains: int, H: int, dtype: torch.dtype, sms: int,
@@ -204,33 +219,68 @@ def _plan(B: int, n_chains: int, H: int, dtype: torch.dtype, sms: int,
         return "tf32x3", _tf32_tile(B, n_chains, H, clusters)
     if path != "fma":
         raise ValueError(f"unknown path {path!r}")
+    return "fma", _fma_tile(B, n_chains, H, sms)
+
+
+def _fma_tile(B: int, n_chains: int, H: int, sms: int) -> int:
+    """The FMA kernels' tile R (forward and backward): sequences per group of
+    min(4, 256 / (H / 2)) groups a block, the largest R in 4, 2, 1 that still
+    gives every SM a block."""
     groups = min(4, 256 // (H // 2))
     for r in (4, 2):
         if n_chains * -(-B // (groups * r)) >= sms:
-            return "fma", r
-    return "fma", 1
+            return r
+    return 1
 
 
-def _tf32_tile(B: int, n_chains: int, H: int, clusters: dict | None) -> tuple[int, int]:
-    """The 3xTF32 kernel's tile (M, C) for B sequences on each of `n_chains` chains.
+def _plan_bwd(B: int, n_chains: int, H: int, dtype: torch.dtype, sms: int,
+              path: str | None = None, clusters: dict | None = None) -> tuple[str, int | tuple]:
+    """The backward kernel and tile for B sequences on each of `n_chains` chains -> (path, tile).
+
+    For H a multiple of 16 up to MMA_MAX_HIDDEN the split-TF32 tensor cores,
+    "tf32x3" for float32 and "tf32x2" for bfloat16, tile (M, C) by
+    `_tf32_tile` from `clusters` (the backward kernel's, which the caller
+    queries) over M in BWD_TILE_ROWS: at the training shapes M = 16 on
+    2-block clusters, one wave. "fma" (tile R, the forward's rule) for every
+    other call. `path` forces one (the FMA path, to time both); forcing a
+    tensor-core path where it cannot run raises. The GRU wrapper plans with
+    this function too.
+    """
+    natural = _tensor_core_path(H, dtype, backward=True)
+    path = path or natural or "fma"
+    if path in _BWD_TENSOR_CORE_PATH.values():
+        if path != natural:
+            kind = {"tf32x2": "bfloat16", "tf32x3": "float32"}[path]
+            raise ValueError(f"the {path} backward takes {kind} with H a multiple of 16 up to "
+                             f"{MMA_MAX_HIDDEN}; got {dtype}, H = {H}")
+        return path, _tf32_tile(B, n_chains, H, clusters, BWD_TILE_ROWS)
+    if path != "fma":
+        raise ValueError(f"unknown backward path {path!r}")
+    return "fma", _fma_tile(B, n_chains, H, sms)
+
+
+def _tf32_tile(B: int, n_chains: int, H: int, clusters: dict | None,
+               rows=(16, 32, 64)) -> tuple[int, int]:
+    """The cluster kernels' tile (M, C) for B sequences on each of `n_chains` chains.
 
     A block's share of a step, the product and the cell updates of M rows
-    and H / C units, bounds the kernel, so of the M in 16, 32, 64 and the C
-    in `clusters` (C with H % 8C == 0) it takes the fewest waves of
+    and H / C units, bounds these kernels, so of the M in `rows` and the C in
+    `clusters` (C with H % 8C == 0) it takes the fewest waves of
     `clusters[C]`, then the fewest rows x units a block (M / C), then the
-    smaller cluster and tile. At the intra serving shape that is M = 64 on
-    2-block clusters (one wave of 64), at the training shapes M = 16, and
-    for a streamed hop's three chunks a chain M = 16 on 4-block clusters.
+    smaller cluster and tile. For the 3xTF32 forward at the intra serving
+    shape that is M = 64 on 2-block clusters (one wave of 64), at the training
+    shapes M = 16, and for a streamed hop's three chunks a chain M = 16 on
+    4-block clusters.
     """
     options = []
     for c, n in (clusters or {}).items():
         if n < 1 or H % (8 * c):
             continue
-        for m in (16, 32, 64):
+        for m in rows:
             tiles = n_chains * -(-B // m)
             options.append((-(-tiles // n), m / c, c, m))  # waves first
     if not options:
-        raise ValueError(f"the tf32x3 path needs the card's co-resident clusters at H = {H}; "
+        raise ValueError(f"the cluster kernels need the card's co-resident clusters at H = {H}; "
                          f"got {clusters}")
     *_, c, m = min(options)
     return m, c
@@ -264,11 +314,12 @@ def _co_resident_clusters(fn, H: int, device: torch.device) -> dict:
     return _CLUSTERS[key]
 
 
-def _plan_launch(clusters_of, chains, path):
+def _plan_launch(clusters_of, chains, path, backward=False):
     """Plan one launch over validated chains (xw, w_hh, ...) -> (B, T, H, path, tile).
 
-    `clusters_of(H, device)` is the wrapper's cluster count, asked only where
-    the 3xTF32 path runs. The GRU wrapper plans its launches with this
+    The forward's, or the backward's if `backward`.
+    `clusters_of(H, device)` is that kernel's cluster count, asked only where
+    a cluster kernel runs. The GRU wrapper plans its launches with this
     function too.
     """
     xw0 = chains[0][0]
@@ -276,8 +327,10 @@ def _plan_launch(clusters_of, chains, path):
     H = chains[0][1].shape[0]
     sms = torch.cuda.get_device_properties(xw0.device).multi_processor_count
     clusters = None
-    if (path or _tensor_core_path(H, xw0.dtype)) == "tf32x3":
+    if (path or _tensor_core_path(H, xw0.dtype, backward)) in ("tf32x3", "tf32x2"):
         clusters = clusters_of(H, xw0.device)
+    if backward:
+        return (B, T, H, *_plan_bwd(B, len(chains), H, xw0.dtype, sms, path, clusters))
     return (B, T, H, *_plan(B, len(chains), H, xw0.dtype, sms, path, clusters))
 
 
@@ -301,10 +354,12 @@ def _bwd_library():
     if _BWD_LIB is None:
         lib = load_library("lstm_scan_bwd")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.lstm_scan_bwd_launch.argtypes = [p, p, p, p, p, i, i, i, i, p]
+        lib.lstm_scan_bwd_launch.argtypes = [p] * 6 + [i] * 7 + [p]
         lib.lstm_scan_bwd_launch.restype = i
-        lib.lstm_scan_bidir_bwd_launch.argtypes = [p] * 10 + [i, i, i, i, p]
+        lib.lstm_scan_bidir_bwd_launch.argtypes = [p] * 12 + [i] * 7 + [p]
         lib.lstm_scan_bidir_bwd_launch.restype = i
+        lib.lstm_scan_bwd_tf32_clusters.argtypes = [i, i, ctypes.POINTER(i)]
+        lib.lstm_scan_bwd_tf32_clusters.restype = i
         _BWD_LIB = lib
     return _BWD_LIB
 
@@ -322,6 +377,13 @@ def _tf32_clusters(H: int, device) -> dict:
 def build_backward() -> None:
     """Build (or load) the backward kernels now instead of at their first launch."""
     _bwd_library()
+
+
+def _tf32_bwd_clusters(H: int, device) -> dict:
+    """{C: clusters of C blocks of this wrapper's tensor-core backward at H the card holds
+    at once}."""
+    return _co_resident_clusters(_bwd_library().lstm_scan_bwd_tf32_clusters, H,
+                                 torch.device(device))
 
 
 def _check(xw: torch.Tensor, w_hh: torch.Tensor) -> None:
@@ -391,31 +453,64 @@ def _forward_cuda(chains, with_cs: bool, path: str | None = None):
     return hs, cs
 
 
-def _backward_cuda(chains):
-    """The backward kernel over one or two (xw, w_hh, hs, cs, g_hs) chains -> [(d_xw, d_whh)]."""
+def _staged_gates(xw: torch.Tensor, w_hh: torch.Tensor, h_prev: torch.Tensor) -> torch.Tensor:
+    """`_gates` as the card stages it: one addmm with f32(xw) as the matrix added, so
+    cuBLAS rounds acc + xw once in its epilogue, where a matmul and an add make two
+    more passes over (B, T, 4H) f32 (the same value; the sums may run in another order)."""
+    B, T, four_h = xw.shape
+    h = h_prev.to(w_hh.dtype).float().reshape(B * T, -1)
+    return torch.addmm(xw.float().reshape(B * T, four_h), h, w_hh.float()).view(B, T, four_h)
+
+
+def _staged_backward(chains, path: str | None = None):
+    """Stage the backward kernel's inputs and outputs over one or two
+    (xw, w_hh, hs, cs, g_hs) chains -> (staged arrays per chain, a call that launches it).
+
+    `path` forces a path of `_plan_bwd` (only chip_smoke.py passes it, to time
+    the FMA kernel where the tensor cores would run).
+    """
     name = "lstm_scan_bwd" if len(chains) == 1 else "lstm_scan_bidir_bwd"
     _check_chains(name, [c[:2] for c in chains])
     xw0 = chains[0][0]
-    B, T, four_h = xw0.shape
-    H = four_h // 4
+    B, T, H, path, tile = _plan_launch(_tf32_bwd_clusters, [c[:2] for c in chains], path,
+                                       backward=True)
     staged = []
     for xw, w_hh, hs, cs, g_hs in chains:
+        # Gradients come back through flip and cat: make them contiguous
+        # before any data_ptr() (a no-op where they already are).
+        cs, g_hs = cs.contiguous(), g_hs.contiguous()
         for what, t in (("hs", hs), ("cs", cs), ("g_hs", g_hs)):
             if t.shape != (B, T, H) or t.dtype != xw.dtype or t.device != xw.device:
                 raise ValueError(f"{what} {tuple(t.shape)} {t.dtype} does not match xw "
                                  f"{tuple(xw.shape)} {xw.dtype}")
+        for what, t in (("cs", cs), ("g_hs", g_hs)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{what} is not 16-byte aligned")
         h_prev = _shifted(hs)
-        # Gradients come back through flip and cat: make them contiguous
-        # before any data_ptr().
-        staged.append((h_prev, _gates(xw, w_hh, h_prev), cs.contiguous(), g_hs.contiguous(),
-                       w_hh.t().contiguous(),
-                       torch.empty((B, T, four_h), dtype=torch.float32, device=xw.device)))
+        das = torch.empty((B, T, 4 * H), dtype=torch.float32, device=xw.device)
+        # In f32 das is d_xw; in bf16 the kernel writes d_xw beside it.
+        d_xw = das if xw.dtype == torch.float32 else torch.empty_like(xw)
+        w = w_hh.t().contiguous() if path == "fma" else w_hh  # the FMA kernel reads W_hh^T
+        staged.append((h_prev, _staged_gates(xw, w_hh, h_prev), cs, g_hs, w, das, d_xw))
     lib = _bwd_library()
     fn = lib.lstm_scan_bwd_launch if len(chains) == 1 else lib.lstm_scan_bidir_bwd_launch
-    pointers = [s[k].data_ptr() for k in range(1, 6) for s in staged]
-    _launch(name, fn, pointers, xw0.dtype, B, T, H, xw0.device)
-    return [(das.to(xw.dtype), _weight_grad(h_prev, das, w_hh.dtype))
-            for (h_prev, *_, das), (xw, w_hh, *_) in zip(staged, chains)]
+
+    def launch():  # reads `staged`, so the arrays live as long as the call
+        pointers = ([s[k].data_ptr() for k in range(1, 6) for s in staged]
+                    + [None if s[6] is s[5] else s[6].data_ptr() for s in staged])
+        _launch(name, fn, pointers, xw0.dtype, B, T, H, xw0.device, _PATH_CODE[path],
+                *_tile_args(tile))
+        BWD_PATH_LAUNCHES[name][path] += 1
+
+    return staged, launch
+
+
+def _backward_cuda(chains, path: str | None = None):
+    """The backward kernel over one or two (xw, w_hh, hs, cs, g_hs) chains -> [(d_xw, d_whh)]."""
+    staged, launch = _staged_backward(chains, path)
+    launch()
+    return [(d_xw, _weight_grad(h_prev, das, w_hh.dtype))
+            for (h_prev, *_, das, d_xw), (_, w_hh, *_) in zip(staged, chains)]
 
 
 def _forward_with_cs(chains):

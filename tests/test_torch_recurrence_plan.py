@@ -150,3 +150,80 @@ def test_forcing_the_tensor_cores_where_they_cannot_run_raises(wrapper, H, dtype
 def test_both_wrappers_plan_by_one_rule():
     assert gs._plan is ls._plan
     assert gs._plan_launch is ls._plan_launch
+
+
+# The backward: `_plan_bwd` picks the split-TF32 tensor-core kernel ("tf32x3" in
+# f32, "tf32x2" in bf16) or the FMA kernel, and for the former the tile (M, C)
+# by the forward's rule over M = 16.
+BWD_PATH = {F32: "tf32x3", BF16: "tf32x2"}
+DTYPES = pytest.mark.parametrize("dtype", [F32, BF16], ids=["f32", "bf16"])
+
+
+@WRAPPERS
+@DTYPES
+@pytest.mark.parametrize("B,n_chains,H,clusters,tile", [
+    (510, 2, 128, CLUSTERS, (16, 2)),  # intra-chunk training: one wave of 128 blocks
+    (500, 2, 128, CLUSTERS, (16, 2)),  # inter-chunk training, bidirectional
+    (500, 1, 128, CLUSTERS, (16, 2)),  # causal inter-chunk training: 64 blocks
+    (3, 2, 128, CLUSTERS, (16, 4)),  # a tiny batch spreads over 4 SMs a tile
+    (37, 2, 128, CLUSTERS, (16, 4)),  # rows past B masked
+    (2040, 2, 128, CLUSTERS, (16, 2)),  # past one wave: the fewest waves
+    (510, 2, 128, {2: 60, 4: 30}, (16, 2)),  # fewer clusters: two waves of 2-block ones
+    (510, 2, 64, CLUSTERS, (16, 2)),
+    (3, 2, 48, CLUSTERS, (16, 2)),  # H = 48: 48 % 32 != 0, so 2-block clusters only
+    *[(50, 2, H, {2: 66}, (16, 2)) for H in range(16, 128, 16)],
+], ids=["train-intra", "train-inter-bidir", "train-inter", "tiny", "odd", "serving-size",
+        "train-60", "H=64", "tiny-H=48", *[f"H={H}" for H in range(16, 128, 16)]])
+def test_the_backward_takes_the_tensor_cores_at_h_multiple_of_16_up_to_128(
+        wrapper, dtype, B, n_chains, H, clusters, tile):
+    assert wrapper._plan_bwd(B, n_chains, H, dtype, SMS, clusters=clusters) == (
+        BWD_PATH[dtype], tile)
+    # The forward's rule over M = 16: the fewest waves, then the fewest rows x
+    # units a block, then the smaller cluster.
+    m, c = tile
+    options = {(mm, cc): (-(-_blocks(B, n_chains, mm) // n), mm / cc)
+               for cc, n in clusters.items() if H % (8 * cc) == 0 for mm in ls.BWD_TILE_ROWS}
+    assert options[tile] == min(options.values())
+    assert all(options[o] > options[tile] or o[1] > c for o in options if o != tile)
+    if B <= 510 and clusters is CLUSTERS:  # the trained shapes: one wave
+        assert _blocks(B, n_chains, m) <= CLUSTERS[c]
+
+
+@WRAPPERS
+@DTYPES
+@pytest.mark.parametrize("B,n_chains,H,R", [
+    (37, 2, 40, 1), (64, 2, 256, 1), (400, 2, 256, 2), (4096, 1, 512, 4), (16, 2, 512, 1),
+], ids=["H=40", "H=256", "H=256-R2", "H=512", "H=512-small"])
+def test_the_backward_takes_the_fma_kernel_at_other_h(wrapper, dtype, B, n_chains, H, R):
+    got = wrapper._plan_bwd(B, n_chains, H, dtype, SMS, clusters=CLUSTERS)
+    assert got == ("fma", R) == ("fma", wrapper._plan(B, n_chains, H, dtype, SMS, "fma")[1])
+
+
+@WRAPPERS
+@DTYPES
+@pytest.mark.parametrize("B,n_chains,R", [(510, 2, 1), (500, 1, 1), (4096, 2, 4)],
+                         ids=["train-intra", "train-inter", "large"])
+def test_the_fma_backward_can_be_forced_for_timing(wrapper, dtype, B, n_chains, R):
+    assert wrapper._plan_bwd(B, n_chains, 128, dtype, SMS, path="fma") == ("fma", R)
+
+
+@WRAPPERS
+@pytest.mark.parametrize("H,dtype,path", [
+    (128, BF16, "tf32x3"), (128, F32, "tf32x2"), (40, F32, "tf32x3"), (256, F32, "tf32x3"),
+    (256, BF16, "tf32x2"), (144, BF16, "tf32x2"), (128, BF16, "mma"), (128, F32, "cuda"),
+], ids=["bf16-tf32x3", "f32-tf32x2", "H=40", "H=256", "H=256-bf16", "H=144", "mma", "unknown"])
+def test_forcing_the_tensor_core_backward_where_it_cannot_run_raises(wrapper, H, dtype, path):
+    with pytest.raises(ValueError):
+        wrapper._plan_bwd(510, 2, H, dtype, SMS, path=path, clusters=CLUSTERS)
+
+
+@WRAPPERS
+@DTYPES
+@pytest.mark.parametrize("clusters", [None, {}, {2: 0}], ids=["none", "empty", "zero"])
+def test_the_tensor_core_backward_needs_the_cards_cluster_count(wrapper, dtype, clusters):
+    with pytest.raises(ValueError):
+        wrapper._plan_bwd(510, 2, 128, dtype, SMS, clusters=clusters)
+
+
+def test_both_wrappers_plan_the_backward_by_one_rule():
+    assert gs._plan_bwd is ls._plan_bwd

@@ -11,10 +11,15 @@ Phases (any failure exits non-zero; nothing is caught and passed):
      sm_90a, all at once, and require 0 bytes of stack in every kernel;
   3. kernel vs plain: fused_mask_decode against its plain PyTorch version on
      the card, f32 and bf16, at the Conv-TasNet serving shape, the DPRNN-TasNet
-     decoder shape, the LSTM-TasNet decoder shape (N=500, C·L=40) and five
-     others, N=61 and C·L=80 among them, contiguous and strided, timed with
-     CUDA events at the three decoder shapes beside its bound and, in f32,
-     einsum (the same function);
+     decoder shape (and at a ragged T'), the LSTM-TasNet decoder shape (N=500,
+     C·L=40) and others (N=61, C·L=80, S = 1 and 3, both "mma" tile counts,
+     narrow and ragged N), contiguous and strided. Each case runs on the path
+     _plan gives it ("rows", "mma" or "generic"; PATH_LAUNCHES must grow on
+     that path) and, where that is "rows" or "mma", on the generic kernel too.
+     At the three decoder shapes one whole wrapper call and the kernel alone
+     (10 launches a timing) are timed with CUDA events, the new path and the
+     generic kernel in turns (generic, new, new, generic), beside the plain
+     version, its bound and, in f32, einsum (the same function);
   3b. lstm_scan_bidir and lstm_scan against their plain versions, f32 and
      bf16, at the intra- and inter-chunk serving shapes (timed), an odd small
      shape, B=37 and T=19 at H=128 (rows past the tile), T=1, H=64, a streamed
@@ -98,13 +103,20 @@ counted by path (the wrappers' PATH_LAUNCHES and BWD_PATH_LAUNCHES): each bf16
 request and bf16 train step must launch only the bf16 tensor-core kernels
 ("mma" forward, "tf32x2" backward), each f32 one only the 3xTF32 kernels
 ("tf32x3"), and none the FMA kernels (the served and trained models have
-H = 128). The last line is {"ok": true, "device": {...}}; the line before it
-lists the kernels with their launch counts, errors, times, bounds and library
-times: the recurrence forwards and backwards twice, f32 (3xTF32) and bf16
-(the tensor cores), each with the FMA kernel's time in the same dtype and run
-as `fma_ms` (the f32 forwards and every backward also with the FMA kernel's
-bound as `fma_bound_ms`; the backwards also with the kernel alone as
-`kernel_ms`, `fma_kernel_ms` and `kernel_bound_ms`).
+H = 128); and every decode of phases 4-4e, 6, 8 and 10 on its planned
+fused_mask_decode path ("mma" in bf16, "generic" for f32 Conv-TasNet,
+"rows" for f32 DPRNN-TasNet). The last line is {"ok": true, "device":
+{...}}; the line before it lists the kernels with their launch counts,
+errors, times, bounds and library times: fused_mask_decode four times
+(Conv-TasNet's and DPRNN-TasNet's decoder widths, f32 and bf16), each on its
+path with the launches of its width and dtype (WIDTH_LAUNCHES), one whole
+wrapper call as `ms` and the kernel alone as `kernel_ms`, beside the generic
+kernel's `generic_ms` and `generic_kernel_ms` (a "rows" or "mma" row); the recurrence
+forwards and backwards twice, f32 (3xTF32) and bf16 (the tensor cores), each
+with the FMA kernel's time in the same dtype and run as `fma_ms` (the f32
+forwards and every backward also with the FMA kernel's bound as
+`fma_bound_ms`; the backwards also with the kernel alone as `kernel_ms`,
+`fma_kernel_ms` and `kernel_bound_ms`).
 """
 from __future__ import annotations
 
@@ -170,6 +182,7 @@ LSTM_TASNET_DECODE_SHAPE = dict(B=8, S=2, T=1599, N=500, CL=40)
 DECODE_SHAPES = {"serving shape": SERVING_SHAPE, "DPRNN-TasNet decoder shape": DPRNN_DECODE_SHAPE,
                  "LSTM-TasNet decoder shape": LSTM_TASNET_DECODE_SHAPE}
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-3}  # relative to max|plain|
+DECODE_REPEATS = 10  # fused_mask_decode launches a timing of the kernel alone
 # (name, B, T, H). At B=8 x 4 s the DPRNN-TasNet latent has T' = 31999 frames,
 # padded to 32000 = 255 chunks of K = 250 at hop 125.
 LSTM_SHAPES = [
@@ -278,10 +291,23 @@ def mask_decode_library(w, mask, kernel):
     return torch.einsum("btn,bstn,nc->bstc", w, mask, kernel)
 
 
+def on_path(paths, name, call, want):
+    """Run one call; it must have launched `name` once, on path `want`. `paths`: the
+    wrapper's launch counts of `name` by path."""
+    before = dict(paths)
+    out = call()
+    torch.cuda.synchronize()
+    grew = {p: n - before[p] for p, n in paths.items()}
+    check(grew == {p: int(p == want) for p in grew}, f"{name} took {grew}, expected {want}")
+    return out
+
+
 def phase_kernel():
-    """fused_mask_decode against its plain version; timed, with its bound and
-    einsum's time (f32, where einsum computes the same function), at the
-    decoder shapes of Conv-TasNet, DPRNN-TasNet and LSTM-TasNet."""
+    """fused_mask_decode against its plain version on the path `_plan` gives each case,
+    and on the generic kernel too where that is "rows" or "mma"; timed at the decoder
+    shapes of Conv-TasNet, DPRNN-TasNet and LSTM-TasNet (the new path and the generic
+    kernel in turns: generic, new, new, generic), with its bound and einsum's time (f32,
+    where einsum computes the same function)."""
     log("== phase 3: fused_mask_decode vs plain on the card")
     cases = [
         (dict(SERVING_SHAPE), True),
@@ -289,6 +315,20 @@ def phase_kernel():
         (dict(B=2, S=2, T=1001, N=512, CL=32), True),
         (dict(B=1, S=2, T=129, N=512, CL=64), False),
         (dict(DPRNN_DECODE_SHAPE), True),
+        # Frames past the last whole work item of "rows" (8 frames) and of
+        # "mma" (8 frames); an odd S and S = 1 (the last pair's second source
+        # masked); narrow N and both n8-tile counts of "mma"; N past the last
+        # whole 32-wide chunk and C·L past the last n8 tile; widths "rows" does
+        # not take in f32.
+        (dict(B=3, S=2, T=4001, N=64, CL=2), True),
+        (dict(B=2, S=3, T=77, N=64, CL=2), True),
+        (dict(B=2, S=1, T=77, N=64, CL=2), False),
+        (dict(B=2, S=3, T=77, N=512, CL=16), True),
+        (dict(B=2, S=2, T=99, N=16, CL=4), False),
+        (dict(B=2, S=2, T=99, N=32, CL=1), True),
+        (dict(B=2, S=2, T=99, N=128, CL=16), True),
+        (dict(B=2, S=2, T=99, N=256, CL=8), False),
+        (dict(B=2, S=2, T=77, N=200, CL=12), False),
         # Widths past the 16-byte vectors and past 64 columns of K.
         (dict(LSTM_TASNET_DECODE_SHAPE), True),
         (dict(LSTM_TASNET_DECODE_SHAPE), False),
@@ -301,24 +341,59 @@ def phase_kernel():
     for shape, strided in cases:
         for dtype in (torch.float32, torch.bfloat16):
             w, mask, kernel = kernel_inputs(**shape, dtype=dtype, strided=strided, seed=shape["T"])
-            got = md.fused_mask_decode(w, mask, kernel)
+            path = md.launch_plan(w, mask, kernel)
             ref = md.fused_mask_decode_reference(w, mask, kernel)
-            torch.cuda.synchronize()
-            check(got.shape == ref.shape and got.dtype == torch.float32, (got.shape, got.dtype))
-            err = float((got - ref).abs().max())
             scale = float(ref.abs().max())
-            ok = err <= TOL[dtype] * scale
-            log(f"  {shape} strided={strided} {str(dtype)[6:]}: max|kernel-plain| = {err:.3e} "
-                f"(limit {TOL[dtype]:g} x max|plain| {scale:.3e}) {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"fused_mask_decode disagrees with plain: {err} > "
-                                     f"{TOL[dtype]} x {scale}")
+            calls = {p: (lambda p=p: md.fused_mask_decode(w, mask, kernel, path=p))
+                     for p in dict.fromkeys((path, "generic"))}
+            errs = {}
+            for p, call in calls.items():
+                got = on_path(md.PATH_LAUNCHES, "fused_mask_decode", call, p)
+                check(got.shape == ref.shape and got.dtype == torch.float32, (got.shape, got.dtype))
+                errs[p] = float((got - ref).abs().max())
+                ok = errs[p] <= TOL[dtype] * scale
+                log(f"  {shape} strided={strided} {str(dtype)[6:]} {p}: max|kernel-plain| = "
+                    f"{errs[p]:.3e} (limit {TOL[dtype]:g} x max|plain| {scale:.3e}) "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"fused_mask_decode ({p}) disagrees with plain: "
+                                         f"{errs[p]} > {TOL[dtype]} x {scale}")
             which = next((k for k, v in DECODE_SHAPES.items() if v == shape), None)
             if which is not None and strided:
-                ms = median_ms(lambda: md.fused_mask_decode(w, mask, kernel))
-                plain_ms = median_ms(lambda: md.fused_mask_decode_reference(w, mask, kernel))
-                timing = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-                              **mask_decode_bound(**shape, dtype=dtype))
+                # `ms` is one whole wrapper call, as the decoder makes it (planning,
+                # allocation and the ctypes call included); `kernel_ms` is the kernel
+                # alone, DECODE_REPEATS launches back to back a timing.
+                alone = {p: md._staged(w, mask, kernel, p)[0] for p in calls}
+
+                def call_ms(p):
+                    return median_ms(calls[p])
+
+                def kernel_ms(p):
+                    launch = alone[p]
+                    return median_ms(lambda: [launch() for _ in range(DECODE_REPEATS)]) / \
+                        DECODE_REPEATS
+
+                timing = dict(path=path, max_abs_err=errs[path], library_ms=None)
+                if path != "generic":
+                    for key, time_of in (("ms", call_ms), ("kernel_ms", kernel_ms)):
+                        first = time_of("generic")
+                        new = [time_of(path), time_of(path)]
+                        again = time_of("generic")
+                        timing.update({key: sum(new) / 2, f"generic_{key}": (first + again) / 2})
+                        timing[f"{key}_turns"] = (first, *new, again)
+                    timing["generic_max_abs_err"] = errs["generic"]
+                    times = "; ".join(
+                        f"{what} {path} {t[1]:.4f} / {t[2]:.4f} ms between generic {t[0]:.4f} / "
+                        f"{t[3]:.4f} ms" for what, t in (("one call", timing.pop("ms_turns")),
+                                                        ("kernel alone",
+                                                         timing.pop("kernel_ms_turns"))))
+                else:
+                    timing.update(ms=call_ms(path), kernel_ms=kernel_ms(path))
+                    times = (f"generic: one call {timing['ms']:.4f} ms, kernel alone "
+                             f"{timing['kernel_ms']:.4f} ms")
+                timing["plain_ms"] = median_ms(lambda: md.fused_mask_decode_reference(w, mask,
+                                                                                      kernel))
+                timing.update(mask_decode_bound(**shape, dtype=dtype))
                 if dtype == torch.float32:
                     lib = mask_decode_library(w, mask, kernel)
                     check(float((lib - ref).abs().max()) <= TOL[dtype] * scale,
@@ -326,9 +401,13 @@ def phase_kernel():
                     timing["library_ms"] = median_ms(lambda: mask_decode_library(w, mask, kernel))
                 library = ("" if timing["library_ms"] is None
                            else f"einsum {timing['library_ms']:.4f} ms, ")
-                log(f"  {which} {str(dtype)[6:]}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                log(f"  {which} {str(dtype)[6:]}: {times}, plain {timing['plain_ms']:.4f} ms, "
                     f"{library}bound {timing['bound_ms']:.4f} ms ({timing['bound_by']}) "
                     f"(medians of 20, CUDA events)")
+                for p, launch in alone.items():  # after a few hundred launches into one output
+                    err = float((launch() - ref).abs().max())
+                    check(err <= TOL[dtype] * scale, f"fused_mask_decode ({p}) disagrees with "
+                                                     f"plain after the timed launches: {err}")
                 result[(which, dtype)] = timing
     return result
 
@@ -355,12 +434,7 @@ def gru_inputs(B, T, H, dtype, seed):
 
 def forward_path(module, kname, call, want):
     """Run one forward call; it must have launched `kname` once, on path `want`."""
-    before = dict(module.PATH_LAUNCHES[kname])
-    out = call()
-    torch.cuda.synchronize()
-    grew = {p: n - before[p] for p, n in module.PATH_LAUNCHES[kname].items()}
-    check(grew == {p: int(p == want) for p in grew}, f"{kname} took {grew}, expected {want}")
-    return out
+    return on_path(module.PATH_LAUNCHES[kname], kname, call, want)
 
 
 def plan(module, B, n_chains, H, dtype, path=None):
@@ -497,12 +571,7 @@ def plan_bwd(module, B, n_chains, H, dtype, path=None):
 
 def backward_path(module, kname, call, want):
     """Run one backward call; it must have launched `kname` once, on path `want`."""
-    before = dict(module.BWD_PATH_LAUNCHES[kname])
-    out = call()
-    torch.cuda.synchronize()
-    grew = {p: n - before[p] for p, n in module.BWD_PATH_LAUNCHES[kname].items()}
-    check(grew == {p: int(p == want) for p in grew}, f"{kname} took {grew}, expected {want}")
-    return out
+    return on_path(module.BWD_PATH_LAUNCHES[kname], kname, call, want)
 
 
 def grad_errors(kname, got, ref, dtype):
@@ -783,6 +852,17 @@ def counts() -> dict:
     return {"fused_mask_decode": md.LAUNCHES, **ls.LAUNCHES, **gs.LAUNCHES, **q8.LAUNCHES}
 
 
+# The served decodes, (path, dtype, N, C·L) as md.WIDTH_LAUNCHES counts them:
+# Conv-TasNet's decoder (f32 generic, bf16 mma) and DPRNN-TasNet's (f32 rows,
+# bf16 mma).
+SERVED_DECODES = (("generic", "float32", 512, 16), ("mma", "bfloat16", 512, 16),
+                  ("rows", "float32", 64, 2), ("mma", "bfloat16", 64, 2))
+
+
+def width_key(path, dtype, N, CL) -> str:
+    return f"fused_mask_decode/{path}/{dtype}/N={N}/CL={CL}"
+
+
 # The recurrence forwards, each counted by path too ("name/mma", "name/tf32x3", "name/fma"),
 # and their backwards ("name/tf32x2", "name/tf32x3", "name/fma").
 FORWARDS = ("lstm_scan", "lstm_scan_bidir", "gru_scan", "gru_scan_bidir")
@@ -793,9 +873,11 @@ TENSOR_CORE_PATHS = {**{name: ("mma", "tf32x3") for name in FORWARDS},
 
 
 def path_counts() -> dict:
-    return {f"{name}/{path}": n for module in (ls, gs)
-            for table in (module.PATH_LAUNCHES, module.BWD_PATH_LAUNCHES)
-            for name, paths in table.items() for path, n in paths.items()}
+    return {**{f"{name}/{path}": n for module in (ls, gs)
+               for table in (module.PATH_LAUNCHES, module.BWD_PATH_LAUNCHES)
+               for name, paths in table.items() for path, n in paths.items()},
+            **{f"fused_mask_decode/{path}": n for path, n in md.PATH_LAUNCHES.items()},
+            **{width_key(*width): md.WIDTH_LAUNCHES[width] for width in SERVED_DECODES}}
 
 
 def all_counts() -> dict:
@@ -805,6 +887,9 @@ def all_counts() -> dict:
 
 def reset_counts() -> None:
     md.LAUNCHES = 0
+    for path in md.PATH_LAUNCHES:
+        md.PATH_LAUNCHES[path] = 0
+    md.WIDTH_LAUNCHES.clear()
     for table in (ls.LAUNCHES, gs.LAUNCHES, q8.LAUNCHES):
         for name in table:
             table[name] = 0
@@ -825,11 +910,26 @@ def kernels_of(launches: dict) -> dict:
     return {k: launches[k] for k in counts()}
 
 
-def check_paths(grew: dict, bf16: dict, what: str) -> None:
+def decode_path(tag: str, dtype) -> str:
+    """The fused_mask_decode path of a served model's decode (ops/mask_decode.py:_plan):
+    every bf16 decode on the tensor cores; in f32, Conv-TasNet's N=512, C·L=16 on the
+    generic kernel and DPRNN-TasNet's N=64, C·L=2 on "rows"."""
+    if dtype in ("bfloat16", torch.bfloat16):
+        return "mma"
+    return "generic" if "conv" in tag else "rows"
+
+
+def check_paths(grew: dict, bf16: dict, what: str, decode: str | None = None) -> None:
     """A run's recurrence forwards and backwards by path: bf16[name] launches of each on
     its bf16 tensor-core path ("mma" forward, "tf32x2" backward), the rest of grew[name]
     (its f32 ones) on the 3xTF32 kernels ("tf32x3"), and none on the FMA kernels: every
-    served and trained model has H = 128."""
+    served and trained model has H = 128. With `decode`, every fused_mask_decode launch
+    of the run on that path."""
+    if decode is not None:
+        n = grew["fused_mask_decode"]
+        got = {p: grew[f"fused_mask_decode/{p}"] for p in md.PATH_LAUNCHES}
+        check(got == {p: n * (p == decode) for p in got},
+              f"{what}: fused_mask_decode launched {got} by path, expected {n} on {decode}")
     for name, (bf16_path, f32_path) in TENSOR_CORE_PATHS.items():
         want = (bf16.get(name, 0), grew[name] - bf16.get(name, 0), 0)
         got = (grew[f"{name}/{bf16_path}"], grew[f"{name}/{f32_path}"], grew[f"{name}/fma"])
@@ -938,7 +1038,7 @@ def serve(tag, ckpt, wavs, per_request, flags=()):
             check(est.shape == (2, n_in) and np.isfinite(est).all(), est.shape)
             check(grew == want, f"request {wav} ({dtype}) launched {grew}, expected {want}")
             check_paths(grew_all, all_bf16(grew_all) if dtype == "bfloat16" else {},
-                        f"request {wav} ({dtype})")
+                        f"request {wav} ({dtype})", decode_path(tag, dtype))
             log(f"  {dtype} {os.path.basename(wav)}: 2 sources x {n_in} samples, "
                 f"kernel launches {nonzero(grew_all)}")
             outputs[(dtype, wav)] = est
@@ -983,9 +1083,9 @@ def cli_latency(ckpt, wav, what, card, flags=()):
         f"median {np.median(lat) * 1e3:.1f} ms of {[round(v * 1e3, 1) for v in lat]} [{card}]")
 
 
-def forward_throughput(model, what, card, warmup, iters, dtype=torch.bfloat16):
+def forward_throughput(model, what, card, warmup, iters, dtype=torch.bfloat16, tag=None):
     """The B=8 x 4 s forward of `model` (already in `dtype`); its recurrence forwards
-    must take the dtype's tensor-core path."""
+    must take the dtype's tensor-core path, its decode decode_path(tag, dtype)."""
     B, T = 8, 4 * SAMPLE_RATE
     x = torch.from_numpy(np.random.default_rng(1).standard_normal((B, 1, T), dtype=np.float32))
     x = x.to("cuda", dtype)
@@ -994,7 +1094,8 @@ def forward_throughput(model, what, card, warmup, iters, dtype=torch.bfloat16):
     with torch.inference_mode():
         ms = median_ms(lambda: model(x), warmup=warmup, iters=iters)
     grew = grown(before)
-    check_paths(grew, all_bf16(grew) if dtype == torch.bfloat16 else {}, f"{what} forward")
+    check_paths(grew, all_bf16(grew) if dtype == torch.bfloat16 else {}, f"{what} forward",
+                decode_path(tag or what, dtype))
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
     log(f"  B=8 x 4 s {str(dtype)[6:]} {what} forward: {ms:.3f} ms, "
         f"{B * 4.0 / (ms / 1e3):.1f} audio-s/s, peak {peak:.1f} MiB [{card}]")
@@ -1004,7 +1105,8 @@ def phase_throughput(ckpt, wavs, card):
     log("== phase 6: throughput (informational), Conv-TasNet")
     model = load_model(ckpt, device="cuda")
     model, _ = fold_gln_affine(model, model.state_dict(), mode="heads")
-    forward_throughput(model.to(torch.bfloat16), "heads-fold", card, warmup=3, iters=20)
+    forward_throughput(model.to(torch.bfloat16), "heads-fold", card, warmup=3, iters=20,
+                       tag="conv_tasnet")
     cli_latency(ckpt, wavs[-1], "load + fold + forward + write", card)
 
 
@@ -1222,7 +1324,7 @@ def train_through_cli(argv, launches=None):
         # ("mma", "tf32x2"), the validation forwards on the f32 weights ("tf32x3").
         mixed = "--mixed_precision" in argv
         check_paths(grew_all, {k: steps * per_step[k] for k in TENSOR_CORE_PATHS} if mixed
-                    else {}, argv[-1])
+                    else {}, argv[-1], decode_path(launches, "float32"))
     model_dir = os.path.join(trainer.config.exp_dir, "model")
     check(sorted(os.listdir(model_dir)) == ["best.ckpt", "last.ckpt"], os.listdir(model_dir))
     stats = trainer.last_epoch_stats or {}
@@ -1296,7 +1398,8 @@ def phase_train_cli(tmp, card):
         check(step_launches == train_step_launches(tag) and eval_grew == eval_launches(tag),
               f"{tag}: step launched {step_launches}, eval {eval_grew}")
         check_paths(step_all, {}, f"{tag}: an f32 train step")
-        check_paths(eval_all, {}, f"{tag}: an f32 validation forward")
+        check_paths(eval_all, {}, f"{tag}: an f32 validation forward",
+                    decode_path(tag, "float32"))
         losses += [float(trainer.train_step(*batch)) for _ in range(19)]
         log(f"  {tag}: one train step launched {nonzero(step_launches)}; one validation "
             f"forward {nonzero(eval_grew)}; a fixed batch over 20 steps: loss {losses[0]:.4f} "
@@ -1519,7 +1622,7 @@ def phase_evaluate(tmp, checkpoints, card):
             grew = kernels_of(grew_all)
             check(grew == eval_launches(tag), f"{tag}: an utterance launched {grew}, expected "
                                               f"{eval_launches(tag)}")
-            check_paths(grew_all, {}, f"{tag}: an f32 evaluation")
+            check_paths(grew_all, {}, f"{tag}: an f32 evaluation", decode_path(tag, "float32"))
             ref = evaluate(root, list_path, ckpt, "cpu")
             diffs = {k: abs(got[k] - ref[k]) for k in TEST_METRICS}
             check(all(np.isfinite(got[k]) for k in TEST_METRICS), got)
@@ -1729,7 +1832,6 @@ def main(argv=None) -> int:
     f32, bf16 = torch.float32, torch.bfloat16
     H = DPRNN["sep_hidden_channels"]
     n_big = QUANT_BIG[0] * QUANT_BIG[1]
-    mask_timing = timings[("serving shape", f32)]
     # The recurrence forwards twice: the 3xTF32 kernel in f32 (its main-path
     # launches: the f32 forwards) and the tensor-core kernel in bf16 (the bf16
     # forwards), each beside the FMA kernel's time in the same run and cuDNN's
@@ -1744,11 +1846,27 @@ def main(argv=None) -> int:
         # unidirectional GRU in lax.scan, so it has no Pallas kernel of its own.
         ("gru_scan", "ops/pallas_lstm.py:422", gru_timings, "inter", (2000, 255, 1), 3),
     ]
-    entries = [
-        kernel_entry("fused_mask_decode", "csrc/mask_decode.cu", "ops/pallas_kernels.py:114",
-                     total["fused_mask_decode"], mask_timing,
-                     mask_decode_bound(**SERVING_SHAPE, dtype=f32), mask_timing["library_ms"]),
-    ]
+    # fused_mask_decode once per served decoder width and dtype, on the path its
+    # decodes take, with the launches of that width and dtype: `ms` one whole
+    # wrapper call, `kernel_ms` the kernel alone; a "rows" or "mma" row also
+    # carries the generic kernel's times from the same run (`generic_ms`,
+    # `generic_kernel_ms`).
+    entries = []
+    for which, dtype in (("serving shape", f32), ("serving shape", bf16),
+                         ("DPRNN-TasNet decoder shape", f32),
+                         ("DPRNN-TasNet decoder shape", bf16)):
+        timing = timings[(which, dtype)]
+        shape = DECODE_SHAPES[which]
+        entry = kernel_entry("fused_mask_decode", "csrc/mask_decode.cu",
+                             "ops/pallas_kernels.py:114",
+                             total[width_key(timing["path"], str(dtype)[6:], shape["N"],
+                                             shape["CL"])], timing,
+                             mask_decode_bound(**shape, dtype=dtype),
+                             timing["library_ms"], dtype=dtype)
+        entry.update(path=timing["path"], shape=which,
+                     **{k: timing[k] for k in ("kernel_ms", "generic_ms", "generic_kernel_ms")
+                        if k in timing})
+        entries.append(entry)
     for dtype, path, source, suffix in ((f32, "tf32x3", "csrc/recurrence_tf32.cuh", ""),
                                         (bf16, "mma", "csrc/recurrence_mma.cuh", "_bf16")):
         for name, replaces, times, shape, (B, T, chains), gates in forwards:

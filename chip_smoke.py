@@ -12,12 +12,13 @@ Phases (any failure exits non-zero; nothing is caught and passed):
   3. kernel vs plain: fused_mask_decode against its plain PyTorch version on
      the card, f32 and bf16, at the Conv-TasNet serving shape, the DPRNN-TasNet
      decoder shape (and at a ragged T'), the LSTM-TasNet decoder shape (N=500,
-     C·L=40) and others (N=61, C·L=80, S = 1 and 3, both "mma" tile counts,
+     C·L=40), a streamed Conv-TasNet hop (B=1, T'=50) and others (N=61,
+     C·L=80, S = 1 and 3, both "mma" tile counts,
      narrow and ragged N), contiguous and strided. Each case runs on the path
      _plan gives it ("rows", "mma" or "generic"; PATH_LAUNCHES must grow on
      that path) and, where that is "rows" or "mma", on the generic kernel too.
-     At the three decoder shapes one whole wrapper call and the kernel alone
-     (10 launches a timing) are timed with CUDA events, the new path and the
+     At the three decoder shapes and the hop one whole wrapper call and the kernel alone
+     (a CUDA graph of 10 launches a timing) are timed with CUDA events, the new path and the
      generic kernel in turns (generic, new, new, generic), beside the plain
      version, its bound and, in f32, einsum (the same function);
   3b. lstm_scan_bidir and lstm_scan against their plain versions, f32 and
@@ -65,6 +66,13 @@ Phases (any failure exits non-zero; nothing is caught and passed):
      cli/separate.py --streaming_hop 0.05; each request must launch exactly
      what its separator calls imply, and the f32 streamed output must match
      the offline stream-safe forward on the card;
+  4f. stream: causal paper-config Conv-TasNet through cli/separate.py
+     --streaming_hop 0.05; each request must launch fused_mask_decode exactly
+     once per separator call and nothing else, and the f32 streamed output
+     must match the offline causal forward on the card;
+  4g. long-form: a 30 s mixture through cli/separate.py --chunk_duration 4
+     with paper-config Conv-TasNet; each request must launch fused_mask_decode
+     once per chunk, 14 real chunks bucketed to 16, and nothing else;
   4e. quantized weights: paper-config Conv-TasNet's weights quantized to int8
      on the card (one quantize_int8 launch per weight tensor, 99), dequantized,
      loaded and served through cli/separate.py; the SNR against the
@@ -74,7 +82,9 @@ Phases (any failure exits non-zero; nothing is caught and passed):
      streamed ones included;
   6. throughput (informational): B=8 x 4 s bf16 forward (DPRNN-TasNet in f32
      too), and CLI latency, for each offline model; ms per 0.05 s hop, its
-     real-time factor and the CLI latency for the streamed ones;
+     real-time factor and the CLI latency for the streamed ones; long-form wall
+     time per audio-second; `python -m dnn_based_source_separation_torch.bench`
+     by default and with --streaming_hop 0.05 --causal, its JSON lines printed;
   7. one train step, card vs CPU: recipe-config DPRNN-TasNet (LSTM and GRU,
      non-causal and causal) and paper-config Conv-TasNet, same seed-made
      weights and batch, f32: the loss and every gradient, none all zero on the
@@ -103,15 +113,17 @@ counted by path (the wrappers' PATH_LAUNCHES and BWD_PATH_LAUNCHES): each bf16
 request and bf16 train step must launch only the bf16 tensor-core kernels
 ("mma" forward, "tf32x2" backward), each f32 one only the 3xTF32 kernels
 ("tf32x3"), and none the FMA kernels (the served and trained models have
-H = 128); and every decode of phases 4-4e, 6, 8 and 10 on its planned
+H = 128); and every decode of phases 4-4g, 6, 8 and 10 on its planned
 fused_mask_decode path ("mma" in bf16, "generic" for f32 Conv-TasNet,
 "rows" for f32 DPRNN-TasNet). The last line is {"ok": true, "device":
 {...}}; the line before it lists the kernels with their launch counts,
-errors, times, bounds and library times: fused_mask_decode four times
-(Conv-TasNet's and DPRNN-TasNet's decoder widths, f32 and bf16), each on its
-path with the launches of its width and dtype (WIDTH_LAUNCHES), one whole
-wrapper call as `ms` and the kernel alone as `kernel_ms`, beside the generic
-kernel's `generic_ms` and `generic_kernel_ms` (a "rows" or "mma" row); the recurrence
+errors, times, bounds and library times: fused_mask_decode six times
+(Conv-TasNet's and DPRNN-TasNet's decoder widths and a streamed Conv-TasNet
+hop, f32 and bf16), each on its path with the launches of its width and
+dtype (WIDTH_LAUNCHES; the hop rows phase 4f's hops), one whole
+wrapper call as `ms` and the kernel alone (from a CUDA graph) as
+`kernel_ms`, beside the generic kernel's `generic_ms` and
+`generic_kernel_ms` (a "rows" or "mma" row); the recurrence
 forwards and backwards twice, f32 (3xTF32) and bf16 (the tensor cores), each
 with the FMA kernel's time in the same dtype and run as `fma_ms` (the f32
 forwards and every backward also with the FMA kernel's bound as
@@ -136,6 +148,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from dnn_based_source_separation_torch.bench import DPRNN, PAPER, PEAK_FLOPS
 from dnn_based_source_separation_torch.cli import separate as cli
 from dnn_based_source_separation_torch.cli import test_wsj0mix as test_cli
 from dnn_based_source_separation_torch.cli import train_wsj0mix as train_cli
@@ -146,7 +159,8 @@ from dnn_based_source_separation_torch.data.synthetic import (
 )
 from dnn_based_source_separation_torch.models import ConvTasNet, DPRNNTasNet
 from dnn_based_source_separation_torch.models.base import load_model, save_model
-from dnn_based_source_separation_torch.models.fold import fold_gln_affine
+from dnn_based_source_separation_torch.models.longform import chunk_count, separate_longform
+from dnn_based_source_separation_torch.models.fold import fold_for_serving
 from dnn_based_source_separation_torch.models.streaming import ExactStreamingSeparator
 from dnn_based_source_separation_torch.ops import _build
 from dnn_based_source_separation_torch.ops import gru_scan as gs
@@ -156,31 +170,21 @@ from dnn_based_source_separation_torch.ops import quantize as q8
 from dnn_based_source_separation_torch.train import make_optimizer, make_train_step
 
 SAMPLE_RATE = 8000
-# Paper config, N512 L16 S8 B128 H512 Sc128 P3 X8 R3, non-causal gLN, sigmoid
-# masks (reference egs/wsj0-mix/conv-tasnet/README.md:5).
-PAPER = dict(
-    n_basis=512, kernel_size=16, stride=8, enc_basis="trainable", dec_basis="trainable",
-    enc_nonlinear="relu", sep_hidden_channels=512, sep_bottleneck_channels=128,
-    sep_skip_channels=128, sep_kernel_size=3, sep_num_blocks=3, sep_num_layers=8,
-    causal=False, n_sources=2,
-)
-# Recipe config, N64 L2 stride 1, K250 P125, 6 blocks, bottleneck 64, hidden
-# 128, LSTM, sigmoid masks (egs/wsj0-mix/dprnn-tasnet/train.sh:22 and the
-# defaults of cli/train_wsj0mix.py:41-70); `causal` is set per variant.
-DPRNN = dict(
-    n_basis=64, kernel_size=2, stride=1, enc_basis="trainable", dec_basis="trainable",
-    enc_nonlinear="relu", sep_bottleneck_channels=64, sep_hidden_channels=128,
-    sep_chunk_size=250, sep_hop_size=125, sep_num_blocks=6, mask_nonlinear="sigmoid",
-    rnn_type="lstm", n_sources=2,
-)
+# PAPER: paper-config Conv-TasNet, N512 L16 S8 B128 H512 Sc128 P3 X8 R3,
+# non-causal (entry.py); DPRNN: recipe-config DPRNN-TasNet, `causal` set per
+# variant (bench.py).
 SERVING_SHAPE = dict(B=8, S=2, T=3999, N=512, CL=16)  # B=8 x 4 s at 8 kHz
 DPRNN_DECODE_SHAPE = dict(B=8, S=2, T=31999, N=64, CL=2)  # the same audio, DPRNN-TasNet
 # The same audio through LSTM-TasNet's decoder (N=500, L=40, hop 20:
 # egs/wsj0-mix/lstm-tasnet/train.sh:19): rows of 1000 bytes in bf16, not
 # whole 16-byte vectors.
 LSTM_TASNET_DECODE_SHAPE = dict(B=8, S=2, T=1599, N=500, CL=40)
+# One streamed 0.05 s hop of causal Conv-TasNet after the first (T' = 49 on the
+# first call, 50 after it), the mask the separator's strided view.
+HOP_DECODE_SHAPE = dict(B=1, S=2, T=50, N=512, CL=16)
 DECODE_SHAPES = {"serving shape": SERVING_SHAPE, "DPRNN-TasNet decoder shape": DPRNN_DECODE_SHAPE,
-                 "LSTM-TasNet decoder shape": LSTM_TASNET_DECODE_SHAPE}
+                 "LSTM-TasNet decoder shape": LSTM_TASNET_DECODE_SHAPE,
+                 "streamed hop shape": HOP_DECODE_SHAPE}
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-3}  # relative to max|plain|
 DECODE_REPEATS = 10  # fused_mask_decode launches a timing of the kernel alone
 # (name, B, T, H). At B=8 x 4 s the DPRNN-TasNet latent has T' = 31999 frames,
@@ -206,13 +210,13 @@ REPEATS = 10  # further launches of each tensor-core recurrence kernel, each che
 SNR_LIMIT_DB = 25.0
 STREAMING_HOP = 0.05  # seconds: 400 samples at 8 kHz
 STREAM_TOL = 1e-4  # streamed vs offline f32, relative to max|offline|
+CHUNK_DURATION = 4.0  # seconds: long-form chunks of 32000 samples at a hop of 16000
+LONGFORM_SECONDS = 30.0  # 14 real chunks, bucketed to 16
 
-# Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet):
-# the least time for a kernel's work is the larger of its
-# operations over the peak for their type and its bytes (each input read
-# once, each output written once) over the memory rate.
-# f32 outside the tensor cores; "tf32", the tensor cores' TF32 rate.
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12, "tf32": 495e12}
+# The least time for a kernel's work is the larger of its operations over
+# the peak for their type (bench.PEAK_FLOPS: one H100 SXM at its full 700 W)
+# and its bytes (each input read once, each output written once) over the
+# memory rate.
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -266,6 +270,18 @@ def median_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     return float(np.median(times))
 
 
+def graph_ms(launch, repeats: int) -> float:
+    """ms of one launch() on the card alone: `repeats` launches captured in one CUDA
+    graph, its replay timed by median_ms, over `repeats`."""
+    launch()  # the first call of a path sets its kernel's attributes
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(repeats):
+            launch()
+    return median_ms(graph.replay) / repeats
+
+
 def kernel_inputs(B, S, T, N, CL, dtype, strided, seed):
     rng = np.random.default_rng(seed)
     w = torch.from_numpy(rng.standard_normal((B, T, N), dtype=np.float32))
@@ -311,6 +327,7 @@ def phase_kernel():
     log("== phase 3: fused_mask_decode vs plain on the card")
     cases = [
         (dict(SERVING_SHAPE), True),
+        (dict(HOP_DECODE_SHAPE), True),
         (dict(B=1, S=2, T=37, N=512, CL=16), False),
         (dict(B=2, S=2, T=1001, N=512, CL=32), True),
         (dict(B=1, S=2, T=129, N=512, CL=64), False),
@@ -362,16 +379,16 @@ def phase_kernel():
             if which is not None and strided:
                 # `ms` is one whole wrapper call, as the decoder makes it (planning,
                 # allocation and the ctypes call included); `kernel_ms` is the kernel
-                # alone, DECODE_REPEATS launches back to back a timing.
+                # alone, from a CUDA graph of DECODE_REPEATS launches, so that the
+                # host's time a launch (which the hop shape's kernel is shorter than)
+                # stays out of it.
                 alone = {p: md._staged(w, mask, kernel, p)[0] for p in calls}
 
                 def call_ms(p):
                     return median_ms(calls[p])
 
                 def kernel_ms(p):
-                    launch = alone[p]
-                    return median_ms(lambda: [launch() for _ in range(DECODE_REPEATS)]) / \
-                        DECODE_REPEATS
+                    return graph_ms(alone[p], DECODE_REPEATS)
 
                 timing = dict(path=path, max_abs_err=errs[path], library_ms=None)
                 if path != "generic":
@@ -952,29 +969,40 @@ def expected(**per_request) -> dict:
     return {name: per_request.get(name, 0) for name in counts()}
 
 
-def stream_launches(n_samples, bidir, blocks=DPRNN["sep_num_blocks"], L=DPRNN["kernel_size"],
-                    S=DPRNN["stride"], P=DPRNN["sep_hop_size"]):
-    """Launches of one --streaming_hop request, counted from its separator calls.
+def stream_calls(n_samples, L, S, P):
+    """Separator calls of one --streaming_hop request: (calls on whole latent hops,
+    latent frames left for a final call).
 
-    The CLI pads to the stride grid, feeds whole hops, then finish(rest).
-    Each call that runs the dual-path stack launches one bidirectional
-    kernel per block (the intra-chunk RNN; the carried inter-chunk RNN is a
-    plain step loop), and every separator call decodes once.
+    The CLI pads to the stride grid and feeds whole hops, each one call on the whole
+    latent hops (P frames; P = 1 for Conv-TasNet) it completes, then finish(rest): one
+    more call on its whole latent hops, if any.
     """
     hop = max(max(int(STREAMING_HOP * SAMPLE_RATE) // S, 1) * S, L)
     total = n_samples + (S - (n_samples - L) % S) % S
-    stack = decode = pending = 0
-    for _ in range(total // hop):  # process(): whole hops, always >= one latent hop
+    calls = pending = 0
+    for _ in range(total // hop):
         frames = (pending + hop - L) // S + 1
-        stack, decode = stack + 1, decode + 1
-        pending = pending + hop - frames // P * P * S
-    buf = pending + total % hop  # finish(): the whole latent hops left, then the rest
+        calls, pending = calls + 1, pending + hop - frames // P * P * S
+    buf = pending + total % hop
     frames = (buf - L) // S + 1 if buf >= L else 0
-    if frames >= P:
-        stack, decode = stack + 1, decode + 1
-    stack += frames % P > 0  # the final call runs the stack on a partial hop only
-    decode += 1
-    return expected(fused_mask_decode=decode, **{bidir: blocks * stack})
+    return calls + (frames >= P), frames % P
+
+
+def stream_launches(n_samples, bidir, blocks=DPRNN["sep_num_blocks"], L=DPRNN["kernel_size"],
+                    S=DPRNN["stride"], P=DPRNN["sep_hop_size"]):
+    """Launches of one --streaming_hop request of the stream-safe DPRNN-TasNet: each call
+    that runs the dual-path stack launches one bidirectional kernel per block (the
+    intra-chunk RNN; the carried inter-chunk RNN is a plain step loop), and every
+    separator call decodes once. The final call, which empties the latent delay line,
+    always decodes, and runs the stack on a partial hop only."""
+    calls, left = stream_calls(n_samples, L, S, P)
+    return expected(fused_mask_decode=calls + 1, **{bidir: blocks * (calls + (left > 0))})
+
+
+def conv_stream_launches(n_samples, L=PAPER["kernel_size"], S=PAPER["stride"]):
+    """Launches of one --streaming_hop request of causal Conv-TasNet: one decode per
+    separator call, and no final call (no latent delay)."""
+    return expected(fused_mask_decode=stream_calls(n_samples, L, S, 1)[0])
 
 
 def scramble_norms(model):
@@ -1104,7 +1132,7 @@ def forward_throughput(model, what, card, warmup, iters, dtype=torch.bfloat16, t
 def phase_throughput(ckpt, wavs, card):
     log("== phase 6: throughput (informational), Conv-TasNet")
     model = load_model(ckpt, device="cuda")
-    model, _ = fold_gln_affine(model, model.state_dict(), mode="heads")
+    model = fold_for_serving(model)
     forward_throughput(model.to(torch.bfloat16), "heads-fold", card, warmup=3, iters=20,
                        tag="conv_tasnet")
     cli_latency(ckpt, wavs[-1], "load + fold + forward + write", card)
@@ -1118,9 +1146,9 @@ def phase_throughput_dprnn(tag, ckpt, wavs, card):
     cli_latency(ckpt, wavs[-1], "load + forward + write", card)
 
 
-def phase_stream_offline(tag, ckpt, wavs, outputs):
-    """The f32 streamed output against the offline stream-safe forward, both on the card."""
-    log(f"== phase 4d: streamed vs offline on the card ({tag})")
+def phase_stream_offline(tag, ckpt, wavs, outputs, phase="4d"):
+    """The f32 streamed output against the offline (stream-safe) forward, both on the card."""
+    log(f"== phase {phase}: streamed vs offline on the card ({tag})")
     for wav in wavs:
         ref = separate(["--model_path", ckpt, "--input", wav, "--out_dir",
                         os.path.join(os.path.dirname(ckpt), f"out_{tag}_offline"),
@@ -1170,6 +1198,65 @@ def phase_stream_hops():
             log(f"  {rnn}:")
             for dtype in (torch.bfloat16, torch.float32):
                 stream_hop_times(ckpt, wav, dtype, card)
+
+
+def write_long_mixture(tmp):
+    path = os.path.join(tmp, f"mix_{LONGFORM_SECONDS:g}s.wav")
+    rng = np.random.default_rng(30)
+    write_wav(path, 0.1 * rng.standard_normal(int(LONGFORM_SECONDS * SAMPLE_RATE)), SAMPLE_RATE)
+    return path
+
+
+def phase_longform(conv_ckpt, wav):
+    """A 30 s mixture through --chunk_duration 4: one decode per bucketed chunk."""
+    log(f"== phase 4g: long-form paper-config Conv-TasNet, {LONGFORM_SECONDS:g} s through "
+        f"cli/separate.py --chunk_duration {CHUNK_DURATION:g}")
+    n, chunk = int(LONGFORM_SECONDS * SAMPLE_RATE), int(CHUNK_DURATION * SAMPLE_RATE)
+    real, bucketed = chunk_count(n, chunk, bucket=False), chunk_count(n, chunk)
+    check((real, bucketed) == (14, 16), f"{n} samples in {chunk}-sample chunks: {real}, "
+                                        f"bucketed {bucketed}; expected 14 and 16")
+    log(f"  {real} real chunks of {chunk} samples at a hop of {chunk // 2}, bucketed to "
+        f"{bucketed}")
+    return serve("conv_tasnet_longform", conv_ckpt, [wav],
+                 lambda n: expected(fused_mask_decode=chunk_count(n, chunk)),
+                 flags=["--chunk_duration", str(CHUNK_DURATION)])
+
+
+def phase_throughput_longform(ckpt, wav, card):
+    """Long-form wall time per audio-second: the folded model (as the CLI serves it) over
+    the 30 s mixture, ended by a host copy; median of 3 after one warm-up."""
+    log("== phase 6: long-form (informational), paper-config Conv-TasNet")
+    x = torch.from_numpy(read_wav(wav)[0].astype(np.float32))[None, None]
+    chunk = int(CHUNK_DURATION * SAMPLE_RATE)
+    model = load_model(ckpt, device="cuda")
+    model = fold_for_serving(model)
+    for dtype in (torch.float32, torch.bfloat16):  # .to converts the model in place
+        model = model.to(dtype)
+        mixture = x.to("cuda", dtype)
+        times = []
+        with torch.inference_mode():
+            for _ in range(4):
+                start = time.perf_counter()
+                separate_longform(model, mixture, chunk, 2).cpu()
+                times.append(time.perf_counter() - start)
+        ms = float(np.median(times[1:])) * 1e3
+        log(f"  {str(dtype)[6:]}: {LONGFORM_SECONDS:g} s in {chunk_count(x.shape[-1], chunk)} "
+            f"chunks: {ms:.3f} ms, {ms / LONGFORM_SECONDS:.3f} ms per audio-second "
+            f"(median of 3) [{card}]")
+
+
+def phase_bench():
+    """`python -m dnn_based_source_separation_torch.bench`, by default and streaming."""
+    log("== phase 6: the bench module (informational)")
+    for flags in ([], ["--streaming_hop", str(STREAMING_HOP), "--causal"]):
+        proc = subprocess.run([sys.executable, "-m", "dnn_based_source_separation_torch.bench",
+                               *flags], capture_output=True, text=True, timeout=600,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        check(proc.returncode == 0, f"bench {flags} failed: {proc.stdout[-2000:]}"
+                                    f"{proc.stderr[-2000:]}")
+        line = json.loads(proc.stdout.strip().splitlines()[-1])
+        check(line["value"] > 0, line)
+        log(f"  bench {' '.join(flags) or '(default)'}: {json.dumps(line)}")
 
 
 def phase_throughput_stream(tag, ckpt, wavs, card):
@@ -1800,6 +1887,24 @@ def main(argv=None) -> int:
             streamed[tag] = (ckpt, outputs)
             total = {k: v + path[k] for k, v in total.items()}
             phase_stream_offline(tag, ckpt, wavs, outputs)
+        tag = "conv_tasnet_causal_stream"
+        log(f"== phase 4f: stream causal paper-config Conv-TasNet through cli/separate.py "
+            f"--streaming_hop {STREAMING_HOP}")
+        ckpt = os.path.join(tmp, f"{tag}.pth")
+        make_checkpoint(ckpt, ConvTasNet(**dict(PAPER, causal=True), device="cuda",
+                                         generator=torch.Generator().manual_seed(0)))
+        outputs, path = serve(tag, ckpt, wavs, conv_stream_launches, flags=stream_flags)
+        # The hops' decodes by dtype, as this run counted them: the kernels line's
+        # streamed-hop rows.
+        hop_launches = {dtype: path[width_key(decode_path(tag, dtype), str(dtype)[6:],
+                                              PAPER["n_basis"], PAPER["kernel_size"])]
+                        for dtype in (torch.float32, torch.bfloat16)}
+        streamed[tag] = (ckpt, outputs)
+        total = {k: v + path[k] for k, v in total.items()}
+        phase_stream_offline(tag, ckpt, wavs, outputs, phase="4f")
+        long_wav = write_long_mixture(tmp)
+        long_out, path = phase_longform(conv_ckpt, long_wav)
+        total = {k: v + path[k] for k, v in total.items()}
         path = phase_quantized_serve(conv_ckpt, wavs, conv_out)
         total = {k: v + path[k] for k, v in total.items()}
         phase_parity("Conv-TasNet", conv_ckpt, wavs, conv_out)
@@ -1807,11 +1912,15 @@ def main(argv=None) -> int:
             phase_parity(tag, ckpt, wavs, outputs)
         for tag, (ckpt, outputs) in streamed.items():
             phase_parity(tag, ckpt, wavs, outputs, flags=stream_flags)
+        phase_parity("Conv-TasNet long-form", conv_ckpt, [long_wav], long_out,
+                     flags=["--chunk_duration", str(CHUNK_DURATION)])
         phase_throughput(conv_ckpt, wavs, card)
         for tag, (ckpt, _) in dprnn.items():
             phase_throughput_dprnn(tag, ckpt, wavs, card)
         for tag, (ckpt, _) in streamed.items():
             phase_throughput_stream(tag, ckpt, wavs, card)
+        phase_throughput_longform(conv_ckpt, long_wav, card)
+        phase_bench()
         phase_train_parity()
         trained, checkpoints = phase_train_cli(tmp, card)
         evaluated = phase_evaluate(tmp, checkpoints, card)
@@ -1851,16 +1960,19 @@ def main(argv=None) -> int:
     # wrapper call, `kernel_ms` the kernel alone; a "rows" or "mma" row also
     # carries the generic kernel's times from the same run (`generic_ms`,
     # `generic_kernel_ms`).
+    # The streamed-hop rows carry phase 4f's counts of its hops' decodes in their dtype
+    # (a subset of the serving rows' width count, which WIDTH_LAUNCHES keys by N and C·L).
     entries = []
     for which, dtype in (("serving shape", f32), ("serving shape", bf16),
                          ("DPRNN-TasNet decoder shape", f32),
-                         ("DPRNN-TasNet decoder shape", bf16)):
+                         ("DPRNN-TasNet decoder shape", bf16),
+                         ("streamed hop shape", f32), ("streamed hop shape", bf16)):
         timing = timings[(which, dtype)]
         shape = DECODE_SHAPES[which]
+        launches = (hop_launches[dtype] if which == "streamed hop shape" else
+                    total[width_key(timing["path"], str(dtype)[6:], shape["N"], shape["CL"])])
         entry = kernel_entry("fused_mask_decode", "csrc/mask_decode.cu",
-                             "ops/pallas_kernels.py:114",
-                             total[width_key(timing["path"], str(dtype)[6:], shape["N"],
-                                             shape["CL"])], timing,
+                             "ops/pallas_kernels.py:114", launches, timing,
                              mask_decode_bound(**shape, dtype=dtype),
                              timing["library_ms"], dtype=dtype)
         entry.update(path=timing["path"], shape=which,

@@ -2,13 +2,16 @@
 
 Port of `dnn_based_source_separation_tpu/cli/separate.py`: read a mixture
 WAV, run the model on `--device` in `--dtype`, write one peak-normalized WAV
-per source. With `--streaming_hop` a stream-safe causal DPRNN-TasNet
-checkpoint runs hop by hop through exact streaming
-(`models/streaming.py`), whose output equals the offline forward's.
+per source. With `--streaming_hop` a causal Conv-TasNet or stream-safe
+causal DPRNN-TasNet checkpoint runs hop by hop through exact streaming
+(`models/streaming.py`), whose output equals the offline forward's. With
+`--chunk_duration` (and no `--streaming_hop`) any model runs over
+50%-overlapping chunks of that many seconds, crossfaded
+(`models/longform.py`).
 
     python -m dnn_based_source_separation_torch.cli.separate \
         --model_path best.pth --input mix.wav --out_dir out [--dtype bfloat16] \
-        [--streaming_hop 0.05]
+        [--streaming_hop 0.05 | --chunk_duration 4]
 """
 from __future__ import annotations
 
@@ -20,9 +23,9 @@ import torch
 
 from ..data.audio_io import read_wav, write_wav
 from ..models.base import load_model
-from ..models.fold import fold_gln_affine
+from ..models.fold import fold_for_serving
+from ..models.longform import separate_longform
 from ..models.streaming import ExactStreamingSeparator
-from ..models.tdcn import fold_mode
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -34,11 +37,12 @@ def build_parser():
     p.add_argument("--out_dir", type=str, required=True)
     p.add_argument("--sample_rate", type=int, default=8000)
     p.add_argument("--chunk_duration", type=float, default=None,
-                   help="long-form chunking (not ported yet)")
+                   help="long-form: run the model over 50%%-overlapping chunks of this many "
+                        "seconds, crossfaded")
     p.add_argument("--streaming_hop", type=float, default=None,
-                   help="stream-safe causal DPRNN-TasNet checkpoints only: run the file "
-                        "through exact chunk-by-chunk streaming with this hop in seconds "
-                        "(output identical to the offline forward)")
+                   help="causal Conv-TasNet and stream-safe causal DPRNN-TasNet checkpoints "
+                        "only: run the file through exact chunk-by-chunk streaming with this "
+                        "hop in seconds (output identical to the offline forward)")
     p.add_argument("--device", type=str, default="cuda")
     p.add_argument("--dtype", type=str, default="float32", choices=sorted(DTYPES))
     return p
@@ -64,8 +68,6 @@ def stream_file(model, x: np.ndarray, hop_seconds: float, sr: int) -> np.ndarray
 
 def main(args=None):
     args = build_parser().parse_args(args)
-    if args.chunk_duration:
-        raise NotImplementedError("--chunk_duration (long-form) is not ported yet")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device} asked for, but CUDA is not available")
@@ -73,11 +75,7 @@ def main(args=None):
     model = load_model(args.model_path, device=device)
     # Inference-time gLN affine fold, pad-free 'heads' mode, under the JAX
     # CLI's condition; a checkpoint saved already folded is left as it is.
-    if (type(model).__name__ == "ConvTasNet"
-            and not model.causal
-            and (model.separable or not model.sep_norm)
-            and fold_mode(model.fold_norm_affine) == "none"):
-        model, _ = fold_gln_affine(model, model.state_dict(), mode="heads")
+    model = fold_for_serving(model)
     dtype = DTYPES[args.dtype]
     model = model.to(dtype).eval()
 
@@ -89,7 +87,12 @@ def main(args=None):
     else:
         with torch.inference_mode():
             mixture = torch.from_numpy(np.ascontiguousarray(x)).to(device, dtype)[None, None]
-            est = model(mixture)[0].float().cpu().numpy()
+            if args.chunk_duration:
+                est = separate_longform(model, mixture, int(args.chunk_duration * sr),
+                                        int(model.n_sources))[0]
+            else:
+                est = model(mixture)[0]
+            est = est.float().cpu().numpy()
 
     os.makedirs(args.out_dir, exist_ok=True)
     for s in range(est.shape[0]):

@@ -36,18 +36,46 @@ def _prelu(sd: Dict, prefix: str, prelu: Mapping) -> None:
     sd[f"{prefix}.weight"] = _t(np.asarray(prelu["alpha"]).reshape(1))
 
 
+def _filterbank(sd: Dict, p: Mapping, C: int) -> None:
+    """The encoder's and decoder's entries: trainable, gated, Fourier (or none, pinv)."""
+    enc = p["encoder"]
+    if "kernel" in enc:  # (C*L, N)
+        kernel = np.asarray(enc["kernel"])
+        sd["encoder.conv1d.weight"] = _t(kernel.T.reshape(kernel.shape[1], C, -1))
+    elif "kernel_U" in enc:  # gated: reference names encoder.conv1d_U / conv1d_V
+        for gate in ("U", "V"):
+            kernel = np.asarray(enc[f"kernel_{gate}"])
+            sd[f"encoder.conv1d_{gate}.weight"] = _t(kernel.T.reshape(kernel.shape[1], C, -1))
+    for name in ("frequency", "window", "phase"):  # Fourier
+        if name in enc:
+            sd[f"encoder.{name}"] = _t(enc[name])
+    dec = p.get("decoder", {})  # none for pinv: it rides the encoder's kernel
+    if "kernel" in dec:  # (N, C*L)
+        kernel = np.asarray(dec["kernel"])
+        sd["decoder.conv_transpose1d.weight"] = _t(kernel.reshape(kernel.shape[0], C, -1))
+    for name in ("frequency", "optimal_window", "phase"):  # Fourier
+        if name in dec:
+            sd[f"decoder.{name}"] = _t(dec[name])
+
+
+def _conv(sd: Dict, prefix: str, conv: Mapping) -> None:
+    """flax nn.Conv {kernel (K, in, out), bias} -> torch Conv1d weight (out, in, K), bias."""
+    sd[f"{prefix}.weight"] = _t(np.transpose(np.asarray(conv["kernel"]), (2, 1, 0)))
+    sd[f"{prefix}.bias"] = _t(conv["bias"])
+
+
 def conv_tasnet_state_dict_from_jax(params: Mapping, config: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX ConvTasNet variables ({"params": ...} or the bare tree) -> port state_dict."""
+    """JAX ConvTasNet variables ({"params": ...} or the bare tree) -> port state_dict.
+
+    Every filterbank of `choose_filterbank`, separable and non-separable
+    residual blocks, dilated or strided; norms and PReLUs where the config has them.
+    """
     p = params["params"] if "params" in params else params
     causal = bool(config.get("causal", False))
     norm_cls = "CumulativeLayerNorm_0" if causal else "GlobalLayerNorm_0"
     C = int(config.get("in_channels", 1) or 1)
     sd: Dict[str, torch.Tensor] = {}
-
-    enc = np.asarray(p["encoder"]["kernel"])  # (C*L, N)
-    sd["encoder.conv1d.weight"] = _t(enc.T.reshape(enc.shape[1], C, -1))
-    dec = np.asarray(p["decoder"]["kernel"])  # (N, C*L)
-    sd["decoder.conv_transpose1d.weight"] = _t(dec.reshape(dec.shape[0], C, -1))
+    _filterbank(sd, p, C)
 
     sep = p["separator"]
     _norm(sd, "separator.norm1d", sep[norm_cls])
@@ -57,14 +85,23 @@ def conv_tasnet_state_dict_from_jax(params: Mapping, config: Mapping) -> Dict[st
             layer = sep["tdcn"][f"block{r}"][f"layer{x}"]
             ref = f"separator.tdcn.net.{r}.net.{x}"
             _pointwise(sd, f"{ref}.bottleneck_conv1d", layer["bottleneck_conv1d"])
-            _prelu(sd, f"{ref}.nonlinear1d", layer["nonlinear1d"])
-            _norm(sd, f"{ref}.norm1d", layer[norm_cls])
+            if "nonlinear1d" in layer:
+                _prelu(sd, f"{ref}.nonlinear1d", layer["nonlinear1d"])
+            if norm_cls in layer:
+                _norm(sd, f"{ref}.norm1d", layer[norm_cls])
+            if "separable_conv1d" not in layer:  # non-separable: dilated output / skip convs
+                for head in ("output_conv1d", "skip_conv1d"):
+                    if head in layer:
+                        _conv(sd, f"{ref}.{head}", layer[head])
+                continue
             conv, sc = layer["separable_conv1d"], f"{ref}.separable_conv1d"
-            dw = conv["depthwise_conv1d"]
+            dw = conv["depthwise_conv1d"]  # (K, 1, C), shifted or strided
             sd[f"{sc}.depthwise_conv1d.weight"] = _t(np.transpose(np.asarray(dw["kernel"]), (2, 1, 0)))
             sd[f"{sc}.depthwise_conv1d.bias"] = _t(dw["bias"])
-            _prelu(sd, f"{sc}.nonlinear1d", conv["nonlinear1d"])
-            _norm(sd, f"{sc}.norm1d", conv[norm_cls])
+            if "nonlinear1d" in conv:
+                _prelu(sd, f"{sc}.nonlinear1d", conv["nonlinear1d"])
+            if norm_cls in conv:
+                _norm(sd, f"{sc}.norm1d", conv[norm_cls])
             if "output_pointwise_conv1d" in conv:
                 _pointwise(sd, f"{sc}.output_pointwise_conv1d", conv["output_pointwise_conv1d"])
             _pointwise(sd, f"{sc}.skip_pointwise_conv1d", conv["skip_pointwise_conv1d"])
@@ -134,10 +171,7 @@ def dprnn_tasnet_state_dict_from_jax(params: Mapping, config: Mapping) -> Dict[s
     C = int(config.get("in_channels", 1) or 1)
     sd: Dict[str, torch.Tensor] = {}
 
-    enc = np.asarray(p["encoder"]["kernel"])  # (C*L, N)
-    sd["encoder.conv1d.weight"] = _t(enc.T.reshape(enc.shape[1], C, -1))
-    dec = np.asarray(p["decoder"]["kernel"])  # (N, C*L)
-    sd["decoder.conv_transpose1d.weight"] = _t(dec.reshape(dec.shape[0], C, -1))
+    _filterbank(sd, p, C)
 
     sep = p["separator"]
     _norm(sd, "separator.norm1d", sep[top_norm])

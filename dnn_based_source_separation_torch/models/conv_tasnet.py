@@ -4,7 +4,8 @@ Port of `dnn_based_source_separation_tpu/models/conv_tasnet.py`: encoder ->
 gLN/cLN + 1x1 bottleneck -> TDCN -> PReLU -> 1x1 mask head ->
 sigmoid/softmax -> fused mask x latent decode -> overlap-add. Config
 field names are those of the JAX dataclass; parameter names those of the
-reference torch model.
+reference torch model. A causal model streams exactly
+(`Separator.stream`, driven by `models/streaming.py`).
 
 Luo & Mesgarani, "Conv-TasNet: Surpassing Ideal Time-Frequency Magnitude
 Masking for Speech Separation", arXiv:1809.07454.
@@ -59,19 +60,32 @@ class Separator(nn.Module):
         self.mask_conv1d = Pointwise(skip_channels, n_sources * num_features,
                                      generator=generator, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        B, T, N = x.shape
-        x = self.norm1d(x)
-        x = self.bottleneck_conv1d(x)
-        x = self.tdcn(x)
-        x = self.prelu(x)
-        x = self.mask_conv1d(x).view(B, T, self.n_sources, self.num_features)
+    def _masks(self, x: torch.Tensor) -> torch.Tensor:
+        """TDCN skip sum (B, T', Sc) -> masks (B, n_src, T', N)."""
+        B, T, _ = x.shape
+        x = self.mask_conv1d(self.prelu(x)).view(B, T, self.n_sources, self.num_features)
         if self.mask_nonlinear == "sigmoid":
             x = torch.sigmoid(x)
         else:
             x = torch.softmax(x, dim=2)
         # A strided view (B, n_src, T', N): the decode kernel reads it in place.
         return x.transpose(1, 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._masks(self.tdcn(self.bottleneck_conv1d(self.norm1d(x))))
+
+    def stream(self, x: torch.Tensor, state: dict):
+        """Exact streaming of the causal separator (JAX `models/tdcn.py:185-198`).
+
+        x (B, T', N) holds the next latent frames, any number. `state` (a
+        dict, empty at the stream start) carries the top cLN's statistics
+        (`norm`) and each residual block's left context and cLN statistics
+        (`tdcn`), all f32. Returns (masks (B, n_src, T', N), new state): one
+        mask frame per latent frame, with no lag.
+        """
+        h, norm = self.norm1d.stream(x, state.get("norm"))
+        skip, tdcn = self.tdcn.stream(self.bottleneck_conv1d(h), state.get("tdcn"))
+        return self._masks(skip), {"norm": norm, "tdcn": tdcn}
 
 
 @register_model
@@ -101,8 +115,11 @@ class ConvTasNet(LatentMaskingMixin, SeparationModelMixin, nn.Module):
             setattr(self, k, v)
         self.encoder, self.decoder = choose_filterbank(
             n_basis, kernel_size=kernel_size, stride=stride, enc_basis=enc_basis,
-            dec_basis=dec_basis, enc_nonlinear=enc_nonlinear, in_channels=in_channels,
-            generator=generator, device=device)
+            dec_basis=dec_basis, enc_nonlinear=enc_nonlinear, window_fn=window_fn,
+            enc_onesided=enc_onesided, enc_return_complex=enc_return_complex,
+            in_channels=in_channels, generator=generator, device=device)
+        # The separator sees n_basis features whatever the basis: a Fourier
+        # encoder's DFT size is chosen so that its latent has n_basis channels.
         self.separator = Separator(
             n_basis, bottleneck_channels=sep_bottleneck_channels,
             hidden_channels=sep_hidden_channels, skip_channels=sep_skip_channels,

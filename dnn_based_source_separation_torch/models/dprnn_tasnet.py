@@ -156,8 +156,9 @@ class DPRNNTasNet(LatentMaskingMixin, SeparationModelMixin, nn.Module):
             setattr(self, k, v)
         self.encoder, self.decoder = choose_filterbank(
             n_basis, kernel_size=kernel_size, stride=stride, enc_basis=enc_basis,
-            dec_basis=dec_basis, enc_nonlinear=enc_nonlinear, in_channels=in_channels,
-            generator=generator, device=device)
+            dec_basis=dec_basis, enc_nonlinear=enc_nonlinear, window_fn=window_fn,
+            enc_onesided=enc_onesided, enc_return_complex=enc_return_complex,
+            in_channels=in_channels, generator=generator, device=device)
         self.separator = Separator(
             n_basis, bottleneck_channels=sep_bottleneck_channels,
             hidden_channels=sep_hidden_channels, chunk_size=sep_chunk_size,

@@ -73,3 +73,17 @@ def fold_gln_affine(model, state_dict: Dict[str, torch.Tensor], mode: str = "hea
     folded.load_state_dict(sd)
     folded.train(model.training)
     return folded, sd
+
+
+def fold_for_serving(model):
+    """`model` with its gLN affines folded ('heads' mode) where the separate CLIs fold:
+    a non-causal Conv-TasNet, separable or without separator norms, not folded yet.
+    Any other model (a causal one, DPRNN-TasNet, a checkpoint saved folded) comes back
+    as it was."""
+    from .conv_tasnet import ConvTasNet
+
+    if (isinstance(model, ConvTasNet) and not model.causal
+            and (model.separable or not model.sep_norm)
+            and fold_mode(model.fold_norm_affine) == "none"):
+        model, _ = fold_gln_affine(model, model.state_dict(), mode="heads")
+    return model

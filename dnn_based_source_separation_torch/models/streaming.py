@@ -1,30 +1,38 @@
-"""Exact chunk-by-chunk streaming of the stream-safe causal DPRNN-TasNet.
+"""Streaming inference: exact, hop by hop, for causal Conv-TasNet and the
+stream-safe causal DPRNN-TasNet; and the windowed approximation.
 
-Port of `dnn_based_source_separation_tpu/models/streaming.py:ExactStreamingSeparator`,
-dual-path part. Fed a stream hop by hop, it emits what the offline forward
-of the whole stream gives, to float rounding, by carrying state instead of
-recomputing a window:
+Port of `dnn_based_source_separation_tpu/models/streaming.py`.
+`ExactStreamingSeparator`, fed a stream hop by hop, emits what the offline
+forward of the whole stream gives, to float rounding, by carrying state
+instead of recomputing a window:
 
 - encoder framing: the unframed input samples (fewer than one latent hop's
   worth) wait for the next call;
-- the separator (`Separator.stream`): the cLNs' running statistics, the
+- the separator (`Separator.stream` of either model): the cLNs' running
+  statistics; for Conv-TasNet each residual block's last
+  (kernel_size - 1) * dilation post-norm frames; for DPRNN-TasNet the
   inter-chunk RNN state, the last K - P bottleneck frames and the K - P
   frames of partial overlap-add sums;
-- a latent delay line of D = K - P frames: an emitted mask frame's chunk is
-  complete only D frames after its latent frame, so the latent is delayed to
-  meet its mask, and the first D * S output samples (the image of the
-  offline left pad) are trimmed;
+- a latent delay line of D frames (DPRNN-TasNet: D = K - P; an emitted mask
+  frame's chunk is complete only D frames after its latent frame, so the
+  latent is delayed to meet its mask, and the first D * S output samples,
+  the image of the offline left pad, are trimmed). Conv-TasNet has D = 0
+  and a latent hop of P = 1 frame;
 - the decoder's overlap-add tail of L - S samples.
 
 The state is plain tensors on the model's device, passed explicitly from
 call to call; the separator's carried state stays f32 whatever the model
-dtype. Per separator call that runs the dual-path stack, the intra-chunk
-BiRNN of each block launches its fused bidirectional kernel once; the
-carried inter-chunk recurrence is a plain step loop (`ops/rnn.py:stream`);
-the decoder launches `fused_mask_decode` once.
+dtype. Each separator call decodes once (`fused_mask_decode` for the
+trainable decoder). For DPRNN-TasNet the intra-chunk BiRNN of each block
+launches its fused bidirectional kernel once per call that runs the
+dual-path stack; the carried inter-chunk recurrence is a plain step loop
+(`ops/rnn.py:stream`).
 
-Exact streaming of causal Conv-TasNet (the conv left context,
-`models/tdcn.py:185-198` of the JAX package) is not ported yet.
+`StreamingSeparator` runs the offline forward over a rolling window of
+context + hop samples and keeps the last hop. Its convolutions see their
+whole receptive field, but cLN accumulates its statistics from the window
+start, not the stream start, so it only approximates the offline output
+(about 23 dB for a random-weight causal Conv-TasNet, JAX's measurement).
 
 Usage:
     stream = ExactStreamingSeparator(model, hop_samples=400)
@@ -37,33 +45,70 @@ from __future__ import annotations
 import torch
 
 
+class StreamingSeparator:
+    """Windowed chunk-by-chunk separation for causal models (approximate: see above)."""
+
+    def __init__(self, model, hop_samples: int, context_samples: int, n_channels: int = 1):
+        self.model, self.hop, self.context = model, int(hop_samples), int(context_samples)
+        param = next(model.parameters())
+        self.device, self.dtype = param.device, param.dtype
+        self._buf = torch.zeros((n_channels, self.context), device=self.device)
+
+    @torch.inference_mode()
+    def process(self, block) -> torch.Tensor:
+        """block (C, hop) or (hop,) new samples -> (n_sources, [C,] hop) float32 on the device."""
+        block = torch.as_tensor(block, dtype=torch.float32, device=self.device)
+        block = block[None] if block.dim() == 1 else block
+        if block.shape[-1] != self.hop:
+            raise ValueError(f"streaming blocks must be exactly hop={self.hop} samples, got "
+                             f"{block.shape[-1]}; pad the final partial block or use flush()")
+        x = torch.cat([self._buf, block], dim=-1)  # (C, context + hop)
+        est = self.model(x[None].to(self.dtype))[0][..., -self.hop:]
+        self._buf = x[:, x.shape[-1] - self.context:]
+        return est
+
+    def flush(self) -> torch.Tensor:
+        """Process a trailing zero block (drains the final hop of context)."""
+        return self.process(torch.zeros((self._buf.shape[0], self.hop)))
+
+    def reset(self) -> None:
+        self._buf = torch.zeros_like(self._buf)
+
+
 class ExactStreamingSeparator:
     """Stateful hop-by-hop separation that matches the offline forward exactly."""
 
     def __init__(self, model, hop_samples: int):
-        if not hasattr(model, "sep_chunk_size"):
-            raise NotImplementedError(
-                f"exact streaming of {type(model).__name__} is not ported yet; the port "
-                "streams the stream-safe causal DPRNN-TasNet")
         if not getattr(model, "causal", False):
             raise ValueError("exact streaming requires a causal model")
-        if not getattr(model, "stream_safe", False):
+        if getattr(model, "dec_basis", "trainable") == "pinv":
+            raise NotImplementedError("pinv decoding is not streamed")
+        if getattr(model, "enc_basis", "trainable") != "trainable":
+            # trainableGated L2-normalises over the whole utterance (not
+            # frame-local); the Fourier encoders take the complex path.
             raise NotImplementedError(
-                "exact streaming of a dual-path model requires stream_safe=True: the "
-                "reference-parity causal mode reads future chunks through its norms")
-        if model.rnn_type not in ("lstm", "gru"):
-            raise NotImplementedError(
-                "exact dual-path streaming carries RNN state for rnn_type 'lstm'/'gru' only")
+                "exact streaming supports enc_basis='trainable' (frame-local) encoders only")
         L, S = int(model.kernel_size), int(model.stride or model.kernel_size // 2)
-        K, P = int(model.sep_chunk_size), int(model.sep_hop_size)
         if hop_samples % S or hop_samples < L:
             raise ValueError(f"hop_samples must be a multiple of stride={S} and >= "
                              f"kernel_size={L}")
-        if (hop_samples - L) // S + 1 < P:
-            raise ValueError(f"hop_samples={hop_samples} yields fewer than hop_size={P} "
-                             f"latent frames per call; raise it to at least {(P - 1) * S + L}")
+        D, P = 0, 1  # Conv-TasNet: no latent delay, any number of frames a call
+        if hasattr(model, "sep_chunk_size"):
+            if not getattr(model, "stream_safe", False):
+                raise NotImplementedError(
+                    "exact streaming of a dual-path model requires stream_safe=True: the "
+                    "reference-parity causal mode reads future chunks through its norms")
+            if model.rnn_type not in ("lstm", "gru"):
+                raise NotImplementedError(
+                    "exact dual-path streaming carries RNN state for rnn_type 'lstm'/'gru' only")
+            K, P = int(model.sep_chunk_size), int(model.sep_hop_size)
+            D = K - P
+            if (hop_samples - L) // S + 1 < P:
+                raise ValueError(f"hop_samples={hop_samples} yields fewer than hop_size={P} "
+                                 f"latent frames per call; raise it to at least "
+                                 f"{(P - 1) * S + L}")
         self.model, self.hop = model, int(hop_samples)
-        self.L, self.S, self.P, self.D = L, S, P, K - P
+        self.L, self.S, self.P, self.D = L, S, P, D
         self.reset()
 
     def reset(self) -> None:
@@ -91,7 +136,7 @@ class ExactStreamingSeparator:
         w_avail = torch.cat([self._w_delay, w], dim=1)
         m_f = mask.shape[2]
         self._w_delay = w_avail[:, m_f:]
-        x_hat = self.model.decoder(w_avail[:, :m_f], mask)[0, ..., 0]  # (n_src, (m_f-1)*S + L)
+        x_hat = self.model.decode(w_avail[:, :m_f], mask)[0, ..., 0]  # (n_src, (m_f-1)*S + L)
         n_out = x_hat.shape[-1] - (self.L - self.S)
         head = x_hat[:, :self.L - self.S] + self._tail
         emitted = torch.cat([head, x_hat[:, self.L - self.S:n_out]], dim=-1)

@@ -13,6 +13,7 @@ from dnn_based_source_separation_torch.hub import (
 )
 from dnn_based_source_separation_torch.models import ConvTasNet, DPRNNTasNet
 from dnn_based_source_separation_torch.models.base import load_model, save_model
+from dnn_based_source_separation_torch.models import fold
 from dnn_based_source_separation_torch.models.fold import fold_gln_affine
 from dnn_based_source_separation_tpu.cli import separate as jsep
 from dnn_based_source_separation_tpu.data.audio_io import read_wav, write_wav
@@ -109,10 +110,23 @@ def test_separate_bfloat16_stays_close_to_float32(checkpoints, tmp_path):
 
 @pytest.mark.parametrize("flag", [["--chunk_duration", "0.5"], ["--streaming_hop", "0.05"]])
 def test_unported_serving_modes_raise(checkpoints, tmp_path, flag):
-    _, port_ckpt, wav, _ = checkpoints
-    with pytest.raises(NotImplementedError):
-        tsep.main(["--model_path", port_ckpt, "--input", wav, "--out_dir", str(tmp_path),
-                   "--device", "cpu", *flag])
+    # Both serving modes are ported now. Long-form writes the JAX CLI's WAVs;
+    # streaming refuses this non-causal checkpoint (ValueError), as the JAX CLI does.
+    jax_ckpt, port_ckpt, wav, _ = checkpoints
+    jax_args = ["--model_path", jax_ckpt, "--input", wav, "--out_dir", str(tmp_path / "jax"),
+                *flag]
+    port_args = ["--model_path", port_ckpt, "--input", wav, "--out_dir",
+                 str(tmp_path / "port"), "--device", "cpu", *flag]
+    if flag[0] == "--streaming_hop":
+        for main, args in ((jsep.main, jax_args), (tsep.main, port_args)):
+            with pytest.raises(ValueError, match="causal"):
+                main(args)
+        return
+    jsep.main(jax_args)
+    est = tsep.main(port_args)
+    got, expected = _read_sources(tmp_path / "port"), _read_sources(tmp_path / "jax")
+    assert got.shape == expected.shape == est.shape == (2, 3001)
+    assert np.abs(got - expected).max() <= 2 * WAV_STEP
 
 
 def test_cuda_without_a_card_raises(checkpoints, tmp_path):
@@ -158,7 +172,7 @@ def test_separate_dprnn_tasnet_writes_the_same_wavs_as_jax(dprnn_checkpoints, tm
     def no_fold(*args, **kwargs):
         raise AssertionError("a DPRNN-TasNet checkpoint must not be folded")
 
-    monkeypatch.setattr(tsep, "fold_gln_affine", no_fold)
+    monkeypatch.setattr(fold, "fold_gln_affine", no_fold)  # the fold the CLI calls
     jsep.main(["--model_path", jax_ckpt, "--input", wav, "--out_dir", str(tmp_path / "jax")])
     est = tsep.main(["--model_path", port_ckpt, "--input", wav,
                      "--out_dir", str(tmp_path / "port"), "--device", "cpu"])
@@ -182,20 +196,26 @@ def test_separate_dprnn_tasnet_bfloat16_stays_close_to_float32(dprnn_checkpoints
 
 @pytest.mark.parametrize("flag", [["--chunk_duration", "0.5"], ["--streaming_hop", "0.05"]])
 def test_unported_serving_modes_raise_for_dprnn_tasnet(dprnn_checkpoints, tmp_path, flag):
-    # Long-form is not ported. Exact streaming refuses these reference-parity
-    # checkpoints as the JAX CLI does: a causal one is not stream-safe
-    # (NotImplementedError), a non-causal one is not causal (ValueError).
+    # Long-form is ported now: it writes the JAX CLI's WAVs. Exact streaming
+    # refuses these reference-parity checkpoints as the JAX CLI does: a causal
+    # one is not stream-safe (NotImplementedError), a non-causal one is not
+    # causal (ValueError).
     jax_ckpt, port_ckpt, wav = dprnn_checkpoints
-    error = NotImplementedError
-    if flag[0] == "--streaming_hop":
-        if not load_model(port_ckpt).causal:
-            error = ValueError
+    jax_args = ["--model_path", jax_ckpt, "--input", wav, "--out_dir", str(tmp_path / "jax"),
+                *flag]
+    port_args = ["--model_path", port_ckpt, "--input", wav, "--out_dir",
+                 str(tmp_path / "port"), "--device", "cpu", *flag]
+    if flag[0] == "--chunk_duration":
+        jsep.main(jax_args)
+        est = tsep.main(port_args)
+        got, expected = _read_sources(tmp_path / "port"), _read_sources(tmp_path / "jax")
+        assert got.shape == expected.shape == est.shape == (2, 1601)
+        assert np.abs(got - expected).max() <= 2 * WAV_STEP
+        return
+    error = NotImplementedError if load_model(port_ckpt).causal else ValueError
+    for main, args in ((jsep.main, jax_args), (tsep.main, port_args)):
         with pytest.raises(error):
-            jsep.main(["--model_path", jax_ckpt, "--input", wav, "--out_dir",
-                       str(tmp_path / "jax"), *flag])
-    with pytest.raises(error):
-        tsep.main(["--model_path", port_ckpt, "--input", wav, "--out_dir", str(tmp_path),
-                   "--device", "cpu", *flag])
+            main(args)
 
 
 @pytest.fixture(scope="module", params=["lstm", "gru"])

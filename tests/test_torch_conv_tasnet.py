@@ -8,7 +8,7 @@ import torch
 from dnn_based_source_separation_torch.hub import conv_tasnet_state_dict_from_jax
 from dnn_based_source_separation_torch.models import ConvTasNet
 from dnn_based_source_separation_torch.models.base import load_model, save_model
-from dnn_based_source_separation_torch.models.fold import fold_gln_affine
+from dnn_based_source_separation_torch.models.fold import fold_for_serving, fold_gln_affine
 from dnn_based_source_separation_tpu.hub.torch_convert import (
     build_from_torch_checkpoint, convert_conv_tasnet,
 )
@@ -99,6 +99,23 @@ def test_fold_matches_jax(mode):
     np.testing.assert_allclose(_forward(folded, x), _forward(port, x), rtol=0, atol=ATOL)
 
 
+@pytest.mark.parametrize("variant,folds", [
+    (dict(), True),
+    (dict(causal=True), False),
+    (dict(fold_norm_affine="heads"), False),
+    (dict(separable=False), False),
+    (dict(separable=False, sep_norm=False), True),
+], ids=["non-causal", "causal", "saved-folded", "non-separable", "non-separable-no-norm"])
+def test_fold_for_serving_folds_where_the_cli_folds(variant, folds):
+    port = ConvTasNet(**dict(CFG, **variant), generator=torch.Generator().manual_seed(0))
+    served = fold_for_serving(port)
+    assert (served is not port) == folds
+    if folds:
+        assert served.fold_norm_affine == "heads"
+        x = np.random.default_rng(0).standard_normal((2, 1, 203)).astype(np.float32)
+        np.testing.assert_allclose(_forward(served, x), _forward(port, x), rtol=0, atol=ATOL)
+
+
 def test_fold_refuses_folded_and_causal_models():
     port = ConvTasNet(**CFG, generator=torch.Generator().manual_seed(0))
     folded, sd = fold_gln_affine(port, port.state_dict())
@@ -150,11 +167,23 @@ def test_generator_initialisation_is_reproducible():
     assert a.num_parameters() == sum(p.size for p in jax.tree_util.tree_leaves(jparams))
 
 
-def test_complex_and_pinv_filterbanks_are_not_ported():
-    with pytest.raises(NotImplementedError):
-        ConvTasNet(**dict(CFG, enc_basis="Fourier", dec_basis="Fourier"))
-    with pytest.raises(NotImplementedError):
-        ConvTasNet(**dict(CFG, dec_basis="pinv"))
+@pytest.mark.parametrize("basis", [
+    dict(n_basis=17, enc_basis="Fourier", dec_basis="Fourier"),
+    dict(dec_basis="pinv"),
+], ids=["fourier", "pinv"])
+def test_complex_and_pinv_filterbanks_are_not_ported(basis):
+    # Both are ported now: the complex latent (masked on its magnitude, its
+    # phase kept) and the pinv decode match JAX; extract_latent returns the
+    # masked latent, complex for the Fourier encoder.
+    config = dict(CFG, **basis)
+    jmodel, variables, port, x = _pair(config, T=402, seed=3)
+    j_out, j_latent = jmodel.apply(variables, jnp.asarray(x), method=jmodel.extract_latent)
+    with torch.no_grad():
+        out, latent = port.extract_latent(torch.from_numpy(x))
+    assert latent.is_complex() == np.iscomplexobj(j_latent)
+    np.testing.assert_allclose(out.numpy(), np.asarray(j_out), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(latent.numpy(), np.asarray(j_latent), rtol=0, atol=ATOL)
+    assert port.num_parameters() == sum(a.size for a in jax.tree_util.tree_leaves(variables))
 
 
 @pytest.mark.slow

@@ -63,12 +63,25 @@ def test_conv_encoder_matches_jax(channels, nonlinear):
     np.testing.assert_allclose(got.numpy(), expected, rtol=0, atol=ATOL)
 
 
-def test_choose_filterbank_ports_only_trainable():
-    enc, dec = tfb.choose_filterbank(16, 8, enc_nonlinear="relu")
-    assert isinstance(enc, tfb.ConvEncoder) and isinstance(dec, tfb.ConvDecoder)
-    assert enc.stride == 4 and enc.nonlinear == "relu"
-    with pytest.raises(NotImplementedError):
-        tfb.choose_filterbank(16, 8, enc_basis="Fourier", dec_basis="Fourier")
+@pytest.mark.parametrize("enc_basis,dec_basis", [
+    ("trainable", "trainable"), ("Fourier", "Fourier"), ("trainableFourier", "trainableFourier"),
+    ("trainableFourierTrainablePhase", "trainableFourierTrainablePhase"),
+    ("trainable", "pinv"), ("trainableGated", "trainable"),
+])
+def test_choose_filterbank_ports_only_trainable(enc_basis, dec_basis):
+    # Every basis is ported now: the port picks the JAX factory's classes with
+    # its settings (the pinv decoder rides the encoder, which drops its
+    # nonlinearity; the Fourier DFT size from compute_valid_basis).
+    n_basis = 17 if "Fourier" in enc_basis else 16
+    kw = dict(enc_basis=enc_basis, dec_basis=dec_basis, enc_nonlinear="relu")
+    enc, dec = tfb.choose_filterbank(n_basis, 8, **kw)
+    jenc, jdec = jfb.choose_filterbank(n_basis, 8, **kw)
+    assert type(enc).__name__ == type(jenc).__name__ and enc.stride == jenc.stride == 4
+    assert type(dec).__name__ == type(jdec).__name__
+    for port, ref in ((enc, jenc), (dec, jdec)):
+        for field in ("n_basis", "nonlinear", "trainable", "trainable_phase", "onesided",
+                      "return_complex"):
+            assert getattr(port, field, None) == getattr(ref, field, None), field
 
 
 def _affine(seed, N):

@@ -116,10 +116,13 @@ def test_refusals():
         ExactStreamingSeparator(DPRNNTasNet(**CFG), hop_samples=8)
     with pytest.raises(ValueError, match="stride"):
         ExactStreamingSeparator(DPRNNTasNet(**CFG), hop_samples=21)
-    conv_tasnet = ConvTasNet(n_basis=16, kernel_size=4, stride=2, sep_hidden_channels=8,
-                             sep_bottleneck_channels=8, sep_skip_channels=8, sep_num_blocks=1,
-                             sep_num_layers=2, causal=True)
-    with pytest.raises(NotImplementedError, match="ConvTasNet"):
+    # Causal Conv-TasNet streams now (tests/test_torch_streaming_conv_tasnet.py),
+    # but not with the gated encoder, which normalises over the whole utterance.
+    conv_tasnet = ConvTasNet(n_basis=16, kernel_size=4, stride=2, enc_basis="trainableGated",
+                             sep_hidden_channels=8, sep_bottleneck_channels=8,
+                             sep_skip_channels=8, sep_num_blocks=1, sep_num_layers=2,
+                             causal=True)
+    with pytest.raises(NotImplementedError, match="frame-local"):
         ExactStreamingSeparator(conv_tasnet, hop_samples=20)
 
 

@@ -115,12 +115,25 @@ def test_depthwise_shift_matches_grouped_conv():
     torch.testing.assert_close(got, expected, rtol=0, atol=1e-5)
 
 
-def test_unported_variants_raise():
+@pytest.mark.parametrize("separable,dilated", [(False, True), (True, False), (False, False)])
+def test_unported_variants_raise(separable, dilated):
+    # The non-separable block and the strided (non-dilated) TDCN are ported now
+    # and match JAX; rematerialisation (training only) still raises.
+    kw = dict(hidden_channels=H, skip_channels=SKIP, kernel_size=3, num_blocks=2,
+              num_layers=3, dilated=dilated, separable=separable, causal=False,
+              nonlinear="prelu", norm=True, eps=1e-12)
+    x = np.random.default_rng(6).standard_normal((2, 29, F)).astype(np.float32)
+    jmod = jtdcn.TimeDilatedConvNet(F, **kw)
+    params = _init(jmod, jnp.asarray(x), seed=7)
+    expected = np.asarray(jmod.apply({"params": params}, jnp.asarray(x)))
+    port = ttdcn.TimeDilatedConvNet(F, **kw)
+    port.load_state_dict(_port_state(params, "separator.tdcn.", False, 2, 3))
+    with torch.no_grad():
+        got = port(torch.from_numpy(x)).numpy()
+    assert got.shape == expected.shape == (2, 29, SKIP)
+    np.testing.assert_allclose(got, expected, rtol=0, atol=ATOL)
     with pytest.raises(NotImplementedError):
-        ttdcn.ResidualBlock1d(F, H, SKIP, separable=False)
-    with pytest.raises(NotImplementedError):
-        ttdcn.TimeDilatedConvBlock1d(F, H, SKIP, num_layers=2, separable=True, remat="block")
-    with pytest.raises(NotImplementedError):
-        ttdcn.TimeDilatedConvNet(F, H, SKIP, num_layers=2, dilated=False, separable=True)
+        ttdcn.TimeDilatedConvBlock1d(F, H, SKIP, num_layers=2, separable=separable,
+                                     dilated=dilated, remat="block")
     assert [ttdcn.fold_mode(v) for v in (False, True, None, "heads")] == \
         ["none", "all", "none", "heads"]

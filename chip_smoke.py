@@ -3,6 +3,7 @@
     python3 chip_smoke.py                 # every phase
     python3 chip_smoke.py --only 3e,3f    # phases 1 and 2, then the kernel phases named
     python3 chip_smoke.py --only 6s       # phases 1 and 2, then streaming ms per hop
+    python3 chip_smoke.py --only 11       # phases 1 and 2, then musdb18 serving
 
 Phases (any failure exits non-zero; nothing is caught and passed):
   1. device: require CUDA, print the card's name and power limit, turn TF32 off;
@@ -104,7 +105,20 @@ Phases (any failure exits non-zero; nothing is caught and passed):
      DPRNN-TasNet) through cli/test_wsj0mix.py --device cuda on a synthetic
      test list of uneven lengths, one utterance per call: exact launches per
      utterance, every metric within 0.05 dB of the same CLI with --device cpu,
-     and the wall time per utterance split into forward and BSS-Eval.
+     and the wall time per utterance split into forward and BSS-Eval;
+  11. musdb18 serving: paper-config ParallelOpenUnmix and bridged X-UMX (seed-0
+     weights, scrambled BatchNorm statistics and affines) in their
+     SpectrogramMaskingWrapper, through cli/test_musdb18.py --device cuda on a
+     synthetic musdb-layout corpus of two 20 s stereo tracks (two 10 s chunks
+     each, S = 431 frames): exactly 12 lstm_scan_bidir launches a chunk per
+     model, all on the FMA kernel (H = 256), and no other kernel; the same CLI
+     with --device cpu (both models side by side in threads): the card's stems
+     within 1e-3 x max|CPU|, every median SDR / ISR / SIR / SAR within 0.05 dB;
+     the Wiener EM alone card vs CPU within 1e-3 relative, with its time and
+     peak memory; per-chunk forward, Wiener and iSTFT ms, audio-s/s; causal
+     UMX (lstm_scan, H = 512, fma) over one chunk card vs CPU; lstm_scan_bidir
+     and lstm_scan alone at UMX's shapes beside cuDNN's nn.LSTM; the bench's
+     `--model umx` and `--model xumx` lines.
 
 Each serving, quantizing and evaluation path, and the training path of phase
 8, runs with every launch count set to 0 just before it and read just after
@@ -115,7 +129,8 @@ request and bf16 train step must launch only the bf16 tensor-core kernels
 ("tf32x3"), and none the FMA kernels (the served and trained models have
 H = 128); and every decode of phases 4-4g, 6, 8 and 10 on its planned
 fused_mask_decode path ("mma" in bf16, "generic" for f32 Conv-TasNet,
-"rows" for f32 DPRNN-TasNet). The last line is {"ok": true, "device":
+"rows" for f32 DPRNN-TasNet). Phase 11's launches are counted apart:
+UMX's recurrences run on the FMA kernel by design. The last line is {"ok": true, "device":
 {...}}; the line before it lists the kernels with their launch counts,
 errors, times, bounds and library times: fused_mask_decode six times
 (Conv-TasNet's and DPRNN-TasNet's decoder widths and a streamed Conv-TasNet
@@ -128,7 +143,9 @@ forwards and backwards twice, f32 (3xTF32) and bf16 (the tensor cores), each
 with the FMA kernel's time in the same dtype and run as `fma_ms` (the f32
 forwards and every backward also with the FMA kernel's bound as
 `fma_bound_ms`; the backwards also with the kernel alone as `kernel_ms`,
-`fma_kernel_ms` and `kernel_bound_ms`).
+`fma_kernel_ms` and `kernel_bound_ms`); and lstm_scan_bidir and lstm_scan once
+more at UMX's shapes (B = 1, T = 431; H = 256 and 512), on the FMA kernel, with
+phase 11's launches.
 """
 from __future__ import annotations
 
@@ -142,22 +159,30 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from dnn_based_source_separation_torch.bench import DPRNN, PAPER, PEAK_FLOPS
+from dnn_based_source_separation_torch.algorithm.frequency_mask import multichannel_wiener_filter
+from dnn_based_source_separation_torch.bench import (
+    DPRNN, MUSDB_SAMPLE_RATE, PAPER, PEAK_FLOPS, UMX, UMX_STFT,
+)
 from dnn_based_source_separation_torch.cli import separate as cli
+from dnn_based_source_separation_torch.cli import test_musdb18 as musdb_cli
 from dnn_based_source_separation_torch.cli import test_wsj0mix as test_cli
 from dnn_based_source_separation_torch.cli import train_wsj0mix as train_cli
 from dnn_based_source_separation_torch.criterion import NegSISDR, PIT1d
 from dnn_based_source_separation_torch.data.audio_io import read_wav, write_wav
+from dnn_based_source_separation_torch.data.musdb18 import WaveTestDataset as MusdbTestDataset
 from dnn_based_source_separation_torch.data.synthetic import (
-    _speaker_bank, synth_pseudo_speech, write_quality_corpus,
+    _speaker_bank, synth_pseudo_speech, write_musdb_quality_corpus, write_quality_corpus,
 )
-from dnn_based_source_separation_torch.models import ConvTasNet, DPRNNTasNet
+from dnn_based_source_separation_torch.models import (
+    ConvTasNet, CrossNetOpenUnmix, DPRNNTasNet, ParallelOpenUnmix, SpectrogramMaskingWrapper,
+)
 from dnn_based_source_separation_torch.models.base import load_model, save_model
 from dnn_based_source_separation_torch.models.longform import chunk_count, separate_longform
 from dnn_based_source_separation_torch.models.fold import fold_for_serving
@@ -167,7 +192,7 @@ from dnn_based_source_separation_torch.ops import gru_scan as gs
 from dnn_based_source_separation_torch.ops import lstm_scan as ls
 from dnn_based_source_separation_torch.ops import mask_decode as md
 from dnn_based_source_separation_torch.ops import quantize as q8
-from dnn_based_source_separation_torch.train import make_optimizer, make_train_step
+from dnn_based_source_separation_torch.train import Evaluater, make_optimizer, make_train_step
 
 SAMPLE_RATE = 8000
 # PAPER: paper-config Conv-TasNet, N512 L16 S8 B128 H512 Sc128 P3 X8 R3,
@@ -1728,6 +1753,281 @@ def phase_evaluate(tmp, checkpoints, card):
     return total
 
 
+# Phase 11: musdb18 serving of paper-config ParallelOpenUnmix and bridged X-UMX.
+MUSDB_TRACK_SECONDS = 20.0  # two test tracks of two 10 s chunks each
+MUSDB_CHUNK_SECONDS = 10.0  # the CLI's default --duration: S = 431 frames a chunk
+MUSDB_TRACKS = 2
+MUSDB_DB_TOL = 0.05  # card vs CPU, each median of each stem
+WIENER_TOL = 1e-3  # the EM alone, card vs CPU, relative to max|CPU|
+UMX_BIDIR_LAYERS = UMX["num_layers"] * 4  # one bidirectional layer a stem, per chunk
+# The recurrences at UMX's serving shapes: a 10 s chunk at B = 1; H = 512 // 2 per
+# direction (bidirectional) and 512 (causal); both on the FMA kernel (H > 128).
+UMX_SCAN_SHAPES = {"lstm_scan_bidir": (1, 431, UMX["hidden_channels"] // 2, 2),
+                   "lstm_scan": (1, 431, UMX["hidden_channels"], 1)}
+
+
+class RecordingEvaluater(Evaluater):
+    """The musdb18 CLI's Evaluater, keeping the float stems (n_src, T, C) the CLI hands
+    it, one list per thread (one CLI run a thread)."""
+
+    stems: dict = {}
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        RecordingEvaluater.stems[threading.get_ident()] = self.seen = []
+
+    def add_track(self, references, estimates):
+        self.seen.append(np.array(estimates))
+        return super().add_track(references, estimates)
+
+
+def umx_wrapper(kind, causal=False, device="cuda"):
+    """Paper-config ParallelOpenUnmix or bridged X-UMX in its wrapper, weights from seed 0,
+    BatchNorm statistics and the per-bin affines off their init so they do real work."""
+    cls = {"umx": ParallelOpenUnmix, "xumx": CrossNetOpenUnmix}[kind]
+    model = SpectrogramMaskingWrapper(
+        cls(**UMX, causal=causal, generator=torch.Generator().manual_seed(0), device=device),
+        **UMX_STFT, device=device)
+    rng = np.random.default_rng(0)
+    with torch.no_grad():
+        for name, t in model.state_dict().items():
+            if name.endswith(("running_var", "norm1d.weight", "scale_in", "scale_out")):
+                t.copy_(torch.from_numpy(0.5 + rng.random(t.shape, np.float32)))
+            elif name.endswith(("running_mean", "norm1d.bias", "bias_in", "bias_out")):
+                t.copy_(torch.from_numpy(0.1 * rng.standard_normal(t.shape).astype(np.float32)))
+    return model.eval()
+
+
+def run_musdb_cli(root, ckpt, device):
+    """cli/test_musdb18.py on `device` -> (medians table, per-track stats, float stems).
+    The CLI's own lines go to the log as they come (CPU runs share the log from threads)."""
+    argv = ["--musdb18_root", root, "--model_path", ckpt, "--device", device,
+            "--sample_rate", str(MUSDB_SAMPLE_RATE), "--duration", str(MUSDB_CHUNK_SECONDS)]
+    table, stats = musdb_cli.run(argv)
+    return table, stats, RecordingEvaluater.stems.pop(threading.get_ident())
+
+
+def musdb_chunks(root):
+    """The chunks the CLI serves: each test track cut into 10 s chunks, the last padded."""
+    chunk = int(MUSDB_CHUNK_SECONDS * MUSDB_SAMPLE_RATE)
+    return sum(-(-mix.shape[-1] // chunk) for _, mix, _ in MusdbTestDataset(root))
+
+
+def wiener_card_vs_cpu(model, root, card):
+    """The EM alone on the first track's full-length inputs (the model's magnitudes of its
+    chunks, the mixture spectrogram): card vs CPU, time and peak memory on the card."""
+    _, mixture, _ = MusdbTestDataset(root)[0]
+    chunk = int(MUSDB_CHUNK_SECONDS * MUSDB_SAMPLE_RATE)
+    x = torch.from_numpy(mixture).cuda()
+    with torch.inference_mode():
+        amps = torch.cat([model(x[None, ..., i:i + chunk])[0]
+                          for i in range(0, x.shape[-1], chunk)], dim=-1)
+        spec = torch.cat([model.spectrogram(x[0, :, i:i + chunk])
+                          for i in range(0, x.shape[-1], chunk)], dim=-1)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        card_est = multichannel_wiener_filter(spec, amps)
+        peak = torch.cuda.max_memory_allocated()
+        ms = median_ms(lambda: multichannel_wiener_filter(spec, amps), warmup=1, iters=5)
+        ref = multichannel_wiener_filter(spec.cpu(), amps.cpu())
+    err = float((card_est.cpu() - ref).abs().max())
+    scale = float(ref.abs().max())
+    log(f"  Wiener EM alone, {tuple(amps.shape)} (one iteration): card vs CPU max abs err "
+        f"{err:.3e}, max|CPU| {scale:.3e}, limit {WIENER_TOL * scale:.3e}; {ms:.3f} ms "
+        f"(median of 5, CUDA events); peak allocated {peak / 2**20:.1f} MiB, "
+        f"{(peak - base) / 2**20:.1f} MiB above the {base / 2**20:.1f} MiB held before "
+        f"[{card}]")
+    check(torch.isfinite(card_est).all() and err <= WIENER_TOL * scale,
+          f"the Wiener EM on the card disagrees with the CPU: {err} > {WIENER_TOL} x {scale}")
+    return dict(wiener_ms=ms, wiener_peak_bytes=peak, wiener_extra_bytes=peak - base)
+
+
+def serve_musdb(kind, root, ckpt, chunks):
+    """One model through the CLI on the card, every count set to 0 just before and read
+    just after: exactly UMX_BIDIR_LAYERS lstm_scan_bidir launches a chunk, all on fma, and
+    no other kernel."""
+    log(f"== phase 11: musdb18 serving, paper-config {kind.upper()} through "
+        f"cli/test_musdb18.py --device cuda")
+    reset_counts()
+    table, stats, stems = run_musdb_cli(root, ckpt, "cuda")
+    launches = all_counts()
+    want = expected(lstm_scan_bidir=UMX_BIDIR_LAYERS * chunks)
+    check(kernels_of(launches) == want, f"{kind}: the CLI launched {nonzero(launches)}, "
+                                        f"expected {nonzero(want)}")
+    paths = {p: launches[f"lstm_scan_bidir/{p}"] for p in ls.PATH_LAUNCHES["lstm_scan_bidir"]}
+    check(paths == {"mma": 0, "tf32x3": 0, "fma": UMX_BIDIR_LAYERS * chunks},
+          f"{kind}: lstm_scan_bidir launched {paths} by path, expected all "
+          f"{UMX_BIDIR_LAYERS * chunks} on fma (H = 256)")
+    log(f"  {chunks} chunks: kernel launches {nonzero(launches)} "
+        f"({UMX_BIDIR_LAYERS} lstm_scan_bidir on fma a chunk)")
+    return dict(table=table, stats=stats, stems=stems, launches=launches["lstm_scan_bidir/fma"])
+
+
+def musdb_card_vs_cpu(kind, served, cpu_run, card):
+    """The card's stems within 1e-3 x max|CPU| of the CPU's, every median within
+    MUSDB_DB_TOL dB; the card's stage times, audio-s/s and EM peak memory logged."""
+    log(f"== phase 11: {kind.upper()} card vs CPU (cli/test_musdb18.py --device cpu)")
+    table, cpu_table, cpu_stems = served["table"], cpu_run[0], cpu_run[2]
+    for i, (got, ref) in enumerate(zip(served["stems"], cpu_stems)):
+        err, scale = float(np.abs(got - ref).max()), float(np.abs(ref).max())
+        log(f"  track {i}: stems {got.shape} card vs CPU max abs err {err:.3e}, max|ref| "
+            f"{scale:.3e}, limit {1e-3 * scale:.3e}")
+        check(np.isfinite(got).all() and err <= 1e-3 * scale,
+              f"{kind}: the card's stems disagree with the CPU's: {err} > 1e-3 x {scale}")
+    check(len(served["stems"]) == len(cpu_stems) == MUSDB_TRACKS, "tracks evaluated")
+    worst = max(abs(table[s][m] - cpu_table[s][m]) for s in table for m in Evaluater.METRICS)
+    for s in table:
+        log(f"  {s}: " + ", ".join(f"{m} {table[s][m]:.3f} (CPU {cpu_table[s][m]:.3f})"
+                                   for m in Evaluater.METRICS) + " dB")
+    log(f"  medians card vs CPU: worst {worst:.4f} dB (limit {MUSDB_DB_TOL})")
+    check(worst <= MUSDB_DB_TOL, f"{kind}: a median differs from the CPU's by {worst:.4f} dB")
+    for st in served["stats"]:
+        log(f"  {st['name']}: BSS-Eval v4 {st['evaluate_s']:.2f} s on the host (the CLI's "
+            f"card run, beside the CPU runs)")
+
+
+def musdb_stage_times(kind, model, root, card, repeats=3):
+    """A track's separation on a quiet host (no CLI run beside it): the CLI's
+    separate_track on the second test track, after one warm-up, median of `repeats`;
+    device ms by stage (CUDA events), audio-s/s on the host clock (host copy included),
+    the EM's peak allocation."""
+    _, mixture, _ = MusdbTestDataset(root)[1]
+    x = torch.from_numpy(mixture).cuda()
+    chunk = int(MUSDB_CHUNK_SECONDS * MUSDB_SAMPLE_RATE)
+    chunks = -(-x.shape[-1] // chunk)
+    runs = []
+    with torch.inference_mode():
+        for i in range(1 + repeats):
+            start = time.perf_counter()
+            wave, clock, peak = musdb_cli.separate_track(model, x, chunk, 1)
+            wave.cpu()
+            if i:
+                runs.append(dict(clock.ms(), separate_s=time.perf_counter() - start, peak=peak))
+    med = {k: float(np.median([r[k] for r in runs])) for k in runs[0]}
+    seconds = x.shape[-1] / MUSDB_SAMPLE_RATE
+    log(f"  {kind.upper()} stage times, {seconds:g} s track in {chunks} chunks (median of "
+        f"{repeats}): forward {med['forward'] / chunks:.3f} ms a chunk, mixture STFT "
+        f"{med['stft'] / chunks:.3f} ms a chunk, Wiener EM {med['wiener']:.3f} ms, iSTFT "
+        f"{med['istft']:.3f} ms (CUDA events); separated in {med['separate_s'] * 1e3:.1f} ms = "
+        f"{seconds / med['separate_s']:.2f} audio-s/s (host clock, host copy included); EM "
+        f"peak allocated {med['peak'] / 2**20:.1f} MiB [{card}]")
+    return dict(chunk_forward_ms=med["forward"] / chunks, track_audio_s_per_s=seconds /
+                med["separate_s"], em_peak_bytes=med["peak"])
+
+
+def causal_umx(root, card):
+    """Causal paper-config UMX (one-chain LSTM, H = 512, on fma) over one 10 s chunk: card
+    vs CPU, launches and forward time."""
+    log("== phase 11: causal paper-config UMX, one 10 s chunk, card vs CPU")
+    model = umx_wrapper("umx", causal=True)
+    cpu = umx_wrapper("umx", causal=True, device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    _, mixture, _ = MusdbTestDataset(root)[0]
+    x = torch.from_numpy(mixture[..., :int(MUSDB_CHUNK_SECONDS * MUSDB_SAMPLE_RATE)])[None]
+    reset_counts()
+    with torch.inference_mode():
+        got = model(x.cuda())
+        torch.cuda.synchronize()
+        launches = all_counts()
+        ref = cpu(x)
+        ms = median_ms(lambda: model(x.cuda()), warmup=1, iters=5)
+    want = expected(lstm_scan=UMX_BIDIR_LAYERS)
+    check(kernels_of(launches) == want and launches["lstm_scan/fma"] == UMX_BIDIR_LAYERS,
+          f"causal UMX launched {nonzero(launches)}, expected {nonzero(want)} on fma")
+    err, scale = float((got.cpu() - ref).abs().max()), float(ref.abs().max())
+    log(f"  {tuple(got.shape)}: launches {nonzero(launches)}; card vs CPU max abs err "
+        f"{err:.3e}, max|ref| {scale:.3e}, limit {1e-3 * scale:.3e}; forward {ms:.3f} ms "
+        f"(median of 5, CUDA events) [{card}]")
+    check(err <= 1e-3 * scale, f"causal UMX on the card disagrees with the CPU: {err}")
+    return launches["lstm_scan/fma"]
+
+
+def umx_scan_timings(card):
+    """lstm_scan_bidir and lstm_scan alone at UMX's shapes (f32, FMA) against their plain
+    versions, beside cuDNN's nn.LSTM at the same shape (input projection from 512
+    features included)."""
+    log("== phase 11: lstm_scan_bidir and lstm_scan at UMX's serving shapes (f32, fma)")
+    out = {}
+    features = UMX["hidden_channels"]
+    for name, (B, T, H, chains) in UMX_SCAN_SHAPES.items():
+        xw_f, xw_b, w_f, w_b = lstm_inputs(B, T, H, torch.float32, seed=T + H)
+        if chains == 2:
+            kernel = lambda: ls.lstm_scan_bidir(xw_f, xw_b, w_f, w_b)
+            plain = lambda: ls.lstm_scan_bidir_reference(xw_f, xw_b, w_f, w_b)
+        else:
+            kernel = lambda: (ls.lstm_scan(xw_f, w_f),)
+            plain = lambda: (ls.lstm_scan_reference(xw_f, w_f),)
+        check(plan(ls, B, chains, H, torch.float32)[0] == "fma", f"{name} H={H} is not on fma")
+        got = forward_path(ls, name, kernel, "fma")
+        ref = plain()
+        err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+        check(err <= LSTM_TOL[torch.float32], f"{name} at UMX's shape disagrees: {err}")
+        ms = median_ms(kernel, warmup=2, iters=10)
+        plain_ms = median_ms(plain, warmup=1, iters=3)
+        lstm = torch.nn.LSTM(features, H, batch_first=True, bidirectional=chains == 2,
+                             device="cuda")
+        xin = torch.randn(B, T, features, device="cuda")
+        with torch.no_grad():
+            library_ms = median_ms(lambda: lstm(xin), warmup=2, iters=10)
+        log(f"  {name} (B={B}, T={T}, H={H}, {chains} chain(s)) f32 fma: max|kernel-plain| "
+            f"{err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cuDNN nn.LSTM "
+            f"{library_ms:.4f} ms (F={features}; medians of 10, 3, 10, CUDA events) [{card}]")
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms)
+    return out
+
+
+def musdb_bench(card):
+    """`python -m dnn_based_source_separation_torch.bench --model umx` and `xumx`."""
+    log("== phase 11: the bench module's musdb18 lines (informational)")
+    for kind in ("umx", "xumx"):
+        proc = subprocess.run([sys.executable, "-m", "dnn_based_source_separation_torch.bench",
+                               "--model", kind], capture_output=True, text=True, timeout=600,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        check(proc.returncode == 0, f"bench --model {kind} failed: {proc.stdout[-2000:]}"
+                                    f"{proc.stderr[-2000:]}")
+        line = json.loads(proc.stdout.strip().splitlines()[-1])
+        check(line["value"] > 0, line)
+        log(f"  bench --model {kind}: {json.dumps(line)}")
+
+
+def phase_musdb(card=None):
+    """Phase 11 -> its launches and timings for the kernels line. BSS-Eval on the host
+    dominates the CLI runs, so the two CPU runs go in threads beside the card runs (one at
+    a time, each counted alone); the stage times come from a quiet host afterwards."""
+    card = card or card_line()
+    musdb_cli.Evaluater = RecordingEvaluater
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "musdb18")
+        with contextlib.redirect_stdout(io.StringIO()):
+            write_musdb_quality_corpus(root, n_train=0, n_valid=0, n_test=MUSDB_TRACKS,
+                                       track_sec=MUSDB_TRACK_SECONDS,
+                                       sample_rate=MUSDB_SAMPLE_RATE)
+        chunks = musdb_chunks(root)
+        models, ckpts, served = {}, {}, {}
+        for kind in ("umx", "xumx"):
+            models[kind] = umx_wrapper(kind)
+            ckpts[kind] = os.path.join(tmp, f"{kind}.pth")
+            save_model(ckpts[kind], models[kind])
+        log("== phase 11: cli/test_musdb18.py --device cpu for UMX and X-UMX, in two threads "
+            "beside the card runs")
+        with ThreadPoolExecutor(2) as pool:
+            cpu_runs = {kind: pool.submit(run_musdb_cli, root, ckpts[kind], "cpu")
+                        for kind in ckpts}
+            for kind in ckpts:
+                served[kind] = serve_musdb(kind, root, ckpts[kind], chunks)
+            cpu_runs = {kind: run.result() for kind, run in cpu_runs.items()}
+        for kind in ckpts:
+            musdb_card_vs_cpu(kind, served[kind], cpu_runs[kind], card)
+            served[kind].update(wiener_card_vs_cpu(models[kind], root, card))
+            served[kind].update(musdb_stage_times(kind, models[kind], root, card))
+        causal = causal_umx(root, card)
+    musdb_cli.Evaluater = Evaluater
+    timings = umx_scan_timings(card)
+    musdb_bench(card)
+    return dict(served=served, causal_launches=causal, timings=timings)
+
+
 def kernel_entry(name, source, replaces, launches, timing, bound_of, library_ms=None,
                  dtype=torch.float32, fma_bound=None):
     """One kernel of the `kernels` line; `dtype` is that of the inputs timed. A timing
@@ -1812,15 +2112,15 @@ def phase_build():
 
 ONLY_PHASES = {"3": phase_kernel, "3b": phase_lstm, "3c": phase_gru, "3d": phase_lstm_bwd,
                "3e": phase_gru_bwd, "3f": phase_quantize, "3g": phase_library,
-               "6s": phase_stream_hops}
+               "6s": phase_stream_hops, "11": phase_musdb}
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser("chip_smoke")
     parser.add_argument("--only", type=str, default=None,
-                        help="comma-separated kernel phases (3, 3b-3g) or 6s (streaming ms "
-                             "per hop) to run after phases 1 and 2, and nothing else; no "
-                             "result line is printed")
+                        help="comma-separated kernel phases (3, 3b-3g), 6s (streaming ms "
+                             "per hop) or 11 (musdb18 serving) to run after phases 1 and 2, "
+                             "and nothing else; no result line is printed")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check needs a CUDA card",
@@ -1925,6 +2225,7 @@ def main(argv=None) -> int:
         trained, checkpoints = phase_train_cli(tmp, card)
         evaluated = phase_evaluate(tmp, checkpoints, card)
     phase_train_throughput(card)
+    musdb = phase_musdb(card)  # its FMA launches are its own: not part of `total`
     for name in ("lstm_scan_bidir_bwd", "lstm_scan_bwd", "gru_scan_bidir_bwd", "gru_scan_bwd"):
         check(trained[name] >= 1, f"the training path never launched {name}")
     total = {k: v + trained[k] + evaluated[k] for k, v in total.items()}
@@ -1989,6 +2290,20 @@ def main(argv=None) -> int:
             entries.append(kernel_entry(
                 name, source, replaces, total[f"{name}/{path}"], times[(name, shape, dtype)],
                 route, library[name + suffix], dtype=dtype, fma_bound=fma_bound))
+    # The same forwards at UMX's serving shapes (phase 11: B = 1, a 10 s chunk, H = 256 a
+    # direction, 512 causal), on the FMA kernel, with phase 11's launches (the two served
+    # models' CLI runs on the card; the causal chunk) and cuDNN's nn.LSTM at the same shape.
+    umx_launches = {"lstm_scan_bidir": sum(run["launches"] for run in musdb["served"].values()),
+                    "lstm_scan": musdb["causal_launches"]}
+    for name, replaces in (("lstm_scan_bidir", "ops/pallas_lstm.py:323"),
+                           ("lstm_scan", "ops/pallas_lstm.py:166")):
+        B, T, H_umx, chains = UMX_SCAN_SHAPES[name]
+        timing = musdb["timings"][name]
+        entry = kernel_entry(name, "csrc/lstm_scan.cu", replaces, umx_launches[name], timing,
+                             recurrence_bound(B, T, H_umx, 4, chains, dtype=f32),
+                             timing["library_ms"], dtype=f32)
+        entry.update(path="fma", shape=f"UMX B={B} T={T} H={H_umx}")
+        entries.append(entry)
     # The backwards of kernels 2-4 (`custom_vjp` _bidir_bwd and _lstm_bwd, both
     # _lstm_bwd_core; _gru_bidir_bwd, _gru_bwd_core) twice, f32 (three TF32
     # products) and bf16 (two), each at the training shape of its phase: `ms` is

@@ -6,7 +6,8 @@ The port's own copy of `write_quality_corpus`, `_speaker_bank` and
 conditioned harmonic synthesis (per-speaker f0 base and formants, a
 per-utterance f0 contour, a syllable envelope, breath noise) with disjoint
 speaker sets per split, as wsj0-2mix keeps its tt speakers unseen in
-training. The musdb18 synthesiser comes with slice C.
+training. Also the musdb18-layout music corpus (`synth_music_track`,
+`write_musdb_quality_corpus`, :228-335), byte for byte as well.
 """
 from __future__ import annotations
 
@@ -164,3 +165,112 @@ def write_quality_corpus(
     with open(list_path, "w") as f:
         f.write("\n".join(utt_ids))
     return wav_root, list_path
+
+
+# ---------------------------------------------------------------------------
+# musdb18-layout quality corpus (held-out museval evaluation)
+# ---------------------------------------------------------------------------
+
+# Per-split RNG seed + parameter-interpolation knob. `shift=1.0` moves every
+# source-generator draw to a range that does NOT overlap the training draw
+# (bass register, drum rate, pad base, vocal f0), so test tracks are unseen
+# at the track AND generator-parameter level -- the musdb18 arrangement
+# (reference egs/musdb18/README.md tables are computed on the 50 held-out
+# test songs, disjoint from the 100 train songs).
+_MUSDB_QUALITY_SPLITS = {
+    "train": (1011, 0.0),
+    "valid": (2022, 0.0),
+    "test": (3033, 1.0),
+}
+
+
+def _musdb_range(lo: float, hi: float, shift: float) -> Tuple[float, float]:
+    """Shift a U(lo, hi) draw window by its own width (disjoint at shift=1)."""
+    w = hi - lo
+    return lo + shift * w * 1.05, hi + shift * w * 1.05
+
+
+def synth_music_track(rng: np.random.Generator, T: int, sample_rate: int,
+                      shift: float = 0.0) -> Dict[str, np.ndarray]:
+    """One 4-stem mono track: spectrally distinct, magnitude-mask learnable.
+
+    bass: tanh-saturated stepped sine glide (low register); drums: periodic
+    decaying noise bursts; other: 3-note chord pad with tremolo; vocals:
+    vibrato tone + octave partial, syllable-gated. Stems overlap in time but
+    occupy distinct spectral regions, like the musdb18 stems a magnitude
+    model separates.
+    """
+    t = np.arange(T) / sample_rate
+    stems: Dict[str, np.ndarray] = {}
+
+    f0 = rng.uniform(*_musdb_range(55.0, 110.0, shift))
+    # stepped note walk: +-2 semitones every ~2 s
+    n_steps = max(int(T / sample_rate / 2.0), 1)
+    steps = np.repeat(2.0 ** (rng.integers(-2, 3, n_steps) / 12.0),
+                      -(-T // n_steps))[:T]
+    ph = 2 * np.pi * np.cumsum(f0 * steps) / sample_rate
+    stems["bass"] = 0.25 * np.tanh(3 * np.sin(ph))
+
+    rate = rng.uniform(*_musdb_range(1.5, 2.5, shift))
+    env = np.exp(-rng.uniform(8.0, 16.0) * ((t * rate) % 1.0))
+    stems["drums"] = 0.3 * env * rng.standard_normal(T)
+
+    base = rng.uniform(*_musdb_range(200.0, 330.0, shift))
+    pad = sum(np.sin(2 * np.pi * base * r * t + rng.uniform(0, 2 * np.pi))
+              for r in (1.0, 1.25, 1.5))
+    stems["other"] = 0.12 * pad * (0.6 + 0.4 * np.sin(
+        2 * np.pi * rng.uniform(0.08, 0.15) * t))
+
+    fv = rng.uniform(*_musdb_range(150.0, 260.0, shift))
+    vib = fv * (1 + 0.02 * np.sin(2 * np.pi * rng.uniform(4.5, 6.5) * t))
+    gate = (np.sin(2 * np.pi * rng.uniform(0.8, 1.6) * t
+                   + rng.uniform(0, 2 * np.pi)) > -0.3).astype(np.float64)
+    phase_v = 2 * np.pi * np.cumsum(vib) / sample_rate
+    stems["vocals"] = 0.2 * gate * (np.sin(phase_v) + 0.5 * np.sin(2.2 * phase_v))
+    return stems
+
+
+def write_musdb_quality_corpus(root: str, n_train: int = 12, n_valid: int = 3,
+                               n_test: int = 6, track_sec: float = 40.0,
+                               sample_rate: int = 44100) -> str:
+    """musdb18-layout corpus with DISJOINT train/valid/test splits.
+
+    Layout (data/musdb18.py:_MUSDB18Base): train/<name>/{stem,mixture}.wav
+    for train+valid names (validation.txt marks the valid subset, excluded
+    from training windows), test/<name>/... + test.txt for the held-out
+    songs. Valid tracks are distinct songs (not a tail-slice of the train
+    list); test tracks additionally draw every generator parameter from
+    shifted, non-overlapping ranges (`shift=1`).
+    """
+    marker = os.path.join(root, "test.txt")
+    if os.path.exists(marker):
+        return root
+    T = int(track_sec * sample_rate)
+    lists: Dict[str, List[str]] = {"train": [], "valid": [], "test": []}
+    counts = {"train": n_train, "valid": n_valid, "test": n_test}
+    for split, n in counts.items():
+        seed, shift = _MUSDB_QUALITY_SPLITS[split]
+        rng = np.random.default_rng(seed)
+        subdir = "test" if split == "test" else "train"
+        for i in range(n):
+            name = f"{split}_song{i:03d}"
+            d = os.path.join(root, subdir, name)
+            os.makedirs(d, exist_ok=True)
+            stems = synth_music_track(rng, T, sample_rate, shift)
+            mix = None
+            for s, x in stems.items():
+                pan = rng.uniform(0.35, 0.65)
+                st = np.stack([x * pan, x * (1 - pan)], axis=1).astype(np.float32)
+                write_wav(os.path.join(d, f"{s}.wav"), st, sample_rate)
+                mix = st if mix is None else mix + st
+            write_wav(os.path.join(d, "mixture.wav"), mix, sample_rate)
+            lists[split].append(name)
+    with open(os.path.join(root, "train.txt"), "w") as f:
+        f.write("\n".join(lists["train"] + lists["valid"]))
+    with open(os.path.join(root, "validation.txt"), "w") as f:
+        f.write("\n".join(lists["valid"]))
+    with open(marker, "w") as f:
+        f.write("\n".join(lists["test"]))
+    print(f"musdb quality corpus: {n_train} train + {n_valid} valid + "
+          f"{n_test} test songs x {track_sec:.0f}s under {root}", flush=True)
+    return root

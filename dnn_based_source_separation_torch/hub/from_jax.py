@@ -1,12 +1,14 @@
 """JAX param tree -> port state_dict: the inverse of `hub/torch_convert.py`.
 
-`conv_tasnet_state_dict_from_jax` and `dprnn_tasnet_state_dict_from_jax`
-undo `dnn_based_source_separation_tpu/hub/torch_convert.py:convert_conv_tasnet`
-and `convert_dprnn_tasnet` exactly (transposes and reshapes only, and the
-LSTM's single bias split as b + 0), so JAX-trained weights load into the
-port, and converting back gives the same tree bit for bit. GRU and
-stream-safe DPRNN-TasNet trees, which `convert_dprnn_tasnet` does not
-write, load the same way.
+`conv_tasnet_state_dict_from_jax`, `dprnn_tasnet_state_dict_from_jax`,
+`open_unmix_state_dict_from_jax` and `xumx_state_dict_from_jax` undo
+`dnn_based_source_separation_tpu/hub/torch_convert.py:convert_conv_tasnet`,
+`convert_dprnn_tasnet`, `convert_open_unmix` and `convert_xumx` exactly
+(transposes and reshapes only, and the LSTM's single bias split as b + 0),
+so JAX-trained weights load into the port, and converting back gives the
+same tree bit for bit. GRU and stream-safe DPRNN-TasNet trees, which
+`convert_dprnn_tasnet` does not write, load the same way; so do GRU UMX
+trees, and ParallelOpenUnmix's (`parallel_open_unmix_state_dict_from_jax`).
 """
 from __future__ import annotations
 
@@ -191,4 +193,69 @@ def dprnn_tasnet_state_dict_from_jax(params: Mapping, config: Mapping) -> Dict[s
                 _norm(sd, f"{ref}.norm1d", block[part][norm_name])
     _prelu(sd, "separator.prelu", sep["prelu"])
     _pointwise(sd, "separator.mask_conv1d", sep["mask_conv1d"])
+    return sd
+
+
+def _transform_block(sd: Dict, prefix: str, params: Mapping, stats: Mapping) -> None:
+    """umx.TransformBlock1d {linear {kernel (in, out)}, norm {scale, bias}} and its
+    batch_stats {norm {mean, var}} -> fc.weight (out, in) and the BatchNorm1d entries."""
+    sd[f"{prefix}.fc.weight"] = _t(np.asarray(params["linear"]["kernel"]).T)
+    sd[f"{prefix}.norm1d.weight"] = _t(params["norm"]["scale"])
+    sd[f"{prefix}.norm1d.bias"] = _t(params["norm"]["bias"])
+    sd[f"{prefix}.norm1d.running_mean"] = _t(stats["norm"]["mean"])
+    sd[f"{prefix}.norm1d.running_var"] = _t(stats["norm"]["var"])
+    sd[f"{prefix}.norm1d.num_batches_tracked"] = torch.tensor(0)
+
+
+def _unmix(sd: Dict, prefix: str, p: Mapping, s: Mapping, names: Mapping,
+           rnn_type: str) -> None:
+    """One OpenUnmix backbone; `names` maps the port's names (scale_in, ..., block,
+    net.0, net.1, rnn) to the JAX tree's."""
+    for name in ("scale_in", "bias_in", "scale_out", "bias_out"):
+        sd[f"{prefix}{name}"] = _t(p[names[name]])
+    for ours in ("block", "net.0", "net.1"):
+        _transform_block(sd, f"{prefix}{ours}", p[names[ours]], s[names[ours]])
+    _RNN[rnn_type](sd, f"{prefix}rnn", p[names["rnn"]])
+
+
+_UNMIX_NAMES = {n: n for n in ("scale_in", "bias_in", "scale_out", "bias_out", "block", "rnn")}
+_UNMIX_NAMES.update({"net.0": "net0", "net.1": "net1"})
+
+
+def open_unmix_state_dict_from_jax(variables: Mapping, config: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX OpenUnmix variables {"params", "batch_stats"} -> port state_dict.
+
+    The inverse of `hub/torch_convert.py:convert_open_unmix`: Dense kernels
+    transposed, BatchNorm's scale and bias from params and its running mean
+    and variance from batch_stats, the LSTM's single bias into bias_ih with a
+    zero bias_hh (`_lstm`); `rnn_type` 'gru' too.
+    """
+    p, s = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    _unmix(sd, "", p, s, _UNMIX_NAMES, config.get("rnn_type", "lstm"))
+    return sd
+
+
+def parallel_open_unmix_state_dict_from_jax(variables: Mapping,
+                                            config: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ParallelOpenUnmix variables (`backbone_<source>` subtrees) -> port state_dict
+    (`backbone.<source>.*`)."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    for source in config["sources"]:
+        key = f"backbone_{source}"
+        _unmix(sd, f"backbone.{source}.", p[key], s[key], _UNMIX_NAMES,
+               config.get("rnn_type", "lstm"))
+    return sd
+
+
+def xumx_state_dict_from_jax(variables: Mapping, config: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX CrossNetOpenUnmix variables (`scale_in_<source>`, `block_<source>`, ...,
+    `rnn_<source>`) -> port state_dict (`backbone.<source>.*`): the inverse of
+    `hub/torch_convert.py:convert_xumx`."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    for source in config["sources"]:
+        names = {ours: f"{jax}_{source}" for ours, jax in _UNMIX_NAMES.items()}
+        _unmix(sd, f"backbone.{source}.", p, s, names, config.get("rnn_type", "lstm"))
     return sd

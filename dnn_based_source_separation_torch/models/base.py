@@ -31,7 +31,11 @@ class SeparationModelMixin:
     """get_config / num_parameters for models that keep their config in `_config`."""
 
     def get_config(self) -> Dict[str, Any]:
-        return dict(self._config)
+        """The config; a nested model (a wrapper's `base`) as {"__model__", "config"},
+        as the JAX package's `get_config` writes it."""
+        return {k: {"__model__": type(v).__name__, "config": v.get_config()}
+                if isinstance(v, SeparationModelMixin) else v
+                for k, v in self._config.items()}
 
     def num_parameters(self) -> int:
         return sum(p.numel() for p in self.parameters())
@@ -59,10 +63,18 @@ def read_checkpoint(path: str) -> Dict[str, Any]:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
+def _rebuild_config(config: Dict[str, Any], device) -> Dict[str, Any]:
+    """Nested {"__model__", "config"} entries -> models on `device`."""
+    return {k: get_model_class(v["__model__"])(**_rebuild_config(v["config"], device),
+                                               device=device)
+            if isinstance(v, dict) and "__model__" in v else v
+            for k, v in config.items()}
+
+
 def load_model(path: str, device="cpu"):
     """Rebuild the model a `save_model` checkpoint holds, with its weights, on `device`."""
     blob = read_checkpoint(path)
-    config = {k: v for k, v in blob.items() if k not in _NOT_CONFIG}
+    config = _rebuild_config({k: v for k, v in blob.items() if k not in _NOT_CONFIG}, device)
     model = get_model_class(blob["model_class"])(**config, device=device)
     model.load_state_dict(blob["state_dict"])
     return model.eval()

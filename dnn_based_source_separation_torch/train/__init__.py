@@ -4,8 +4,8 @@ from .steps import (
     Optimizer, get_learning_rate, make_eval_step, make_optimizer, make_train_step,
     set_learning_rate,
 )
-from .tester import Tester
+from .tester import Evaluater, Tester, framewise_sdr
 from .trainer import Trainer, TrainerConfig
 
-__all__ = ["Optimizer", "Tester", "Trainer", "TrainerConfig", "get_learning_rate", "make_eval_step",
+__all__ = ["Evaluater", "Optimizer", "Tester", "framewise_sdr", "Trainer", "TrainerConfig", "get_learning_rate", "make_eval_step",
            "make_optimizer", "make_train_step", "set_learning_rate"]

@@ -7,8 +7,9 @@ of the estimates, its improvement over the mixture tiled to every source
 optionally PESQ* through a command-line tool, one CSV line each and the
 averages at the end. The forward runs under
 `torch.no_grad()` on the model's device and in its dtype, at each
-utterance's exact length. `Evaluater` and `AttractorTester` come with
-slices C and F.
+utterance's exact length. Also the musdb18 `Evaluater` (museval v4
+medians) and `framewise_sdr` (:160-228). `AttractorTester` comes with
+slice F.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ import torch
 
 from ..data.audio_io import write_wav
 from ..utils.audio import evaluate_pesq
-from ..utils.bss import bss_eval_sources
+from ..utils.bss import bss_eval_sources, bss_eval_v4
 
 
 class Tester:
@@ -148,3 +149,70 @@ class Tester:
         for s in range(estimates.shape[0]):
             est = estimates[s] / (np.abs(estimates[s]).max() + 1e-9)
             write_wav(os.path.join(out, f"source{s}.wav"), est, self.sample_rate)
+
+
+def framewise_sdr(references: np.ndarray, estimates: np.ndarray, sample_rate: int,
+                  win: float = 1.0, filt_len: int = 512):
+    """Per-source framewise SDR, median over frames (museval-style).
+
+    references/estimates: (n_src, T). Frames shorter than win are dropped.
+    """
+    T = references.shape[1]
+    frame = int(win * sample_rate)
+    sdrs = []
+    for start in range(0, T - frame + 1, frame):
+        ref = references[:, start : start + frame]
+        est = estimates[:, start : start + frame]
+        if np.all(np.sum(ref**2, axis=1) > 0):
+            sdr, _, _, _ = bss_eval_sources(ref, est, compute_permutation=False, filt_len=filt_len)
+            sdrs.append(sdr)
+    if not sdrs:
+        return np.full(references.shape[0], np.nan)
+    return np.nanmedian(np.stack(sdrs), axis=0)
+
+
+class Evaluater:
+    """musdb18-style museval v4 evaluation.
+
+    Per track: BSS Eval v4 (global 512-tap filters, framewise 1 s
+    SDR/ISR/SIR/SAR energy ratios), median over frames; then median over
+    tracks: museval `EvalStore(frames_agg='median', tracks_agg='median')`
+    (reference egs/musdb18/common/src/driver.py:301-330). Stereo (n_src, T,
+    C) inputs are evaluated as images, mono (n_src, T) as single-channel
+    images.
+    """
+
+    METRICS = ("SDR", "ISR", "SIR", "SAR")
+
+    def __init__(self, sources=("bass", "drums", "other", "vocals"), sample_rate: int = 44100,
+                 win: float = 1.0, hop: float = 1.0, filt_len: int = 512):
+        self.sources = list(sources)
+        self.sample_rate = sample_rate
+        self.win = win
+        self.hop = hop
+        self.filt_len = filt_len
+        self.track_scores = []  # (n_src, 4) frame medians per track
+
+    def add_track(self, references: np.ndarray, estimates: np.ndarray):
+        """references/estimates: (n_src, T) mono or (n_src, T, C) images."""
+        framewise = bss_eval_v4(
+            references, estimates, self.sample_rate,
+            win=self.win, hop=self.hop, filt_len=self.filt_len,
+        )
+        per_src = np.stack(
+            [np.nanmedian(framewise[m], axis=1) for m in self.METRICS], axis=1
+        )  # (n_src, 4): median over frames
+        self.track_scores.append(per_src)
+        return framewise
+
+    def aggregate(self):
+        """{source: {metric: median over tracks, "value": its SDR}}."""
+        scores = np.stack(self.track_scores)  # (n_tracks, n_src, 4)
+        med = np.nanmedian(scores, axis=0)  # (n_src, 4)
+        table = {
+            name: {m: float(v) for m, v in zip(self.METRICS, row)}
+            for name, row in zip(self.sources, med)
+        }
+        for name in self.sources:
+            table[name]["value"] = table[name]["SDR"]
+        return table

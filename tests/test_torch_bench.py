@@ -17,11 +17,12 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from dnn_based_source_separation_torch import bench
-from dnn_based_source_separation_torch.cli import test_wsj0mix, train_wsj0mix
+from dnn_based_source_separation_torch.cli import test_musdb18, test_wsj0mix, train_wsj0mix
 from dnn_based_source_separation_torch.entry import TINY, entry, flagship
 from dnn_based_source_separation_torch.models import DPRNNTasNet
 
 RECIPES = pathlib.Path(bench.__file__).resolve().parent / "egs" / "wsj0-mix"
+MUSDB_RECIPES = RECIPES.parent / "musdb18"
 DPRNN_TINY = dict(bench.DPRNN, n_basis=16, kernel_size=4, stride=2, sep_bottleneck_channels=8,
                   sep_hidden_channels=8, sep_chunk_size=10, sep_hop_size=5, sep_num_blocks=2)
 TINY_RUN = ["--device", "cpu"]
@@ -37,6 +38,18 @@ def tiny_bench(monkeypatch):
     """The bench at tiny widths on 0.25 s mixtures."""
     monkeypatch.setattr(bench, "SECONDS", 0.25)
     monkeypatch.setattr(bench, "CONFIGS", {"conv-tasnet": TINY, "dprnn-tasnet": DPRNN_TINY})
+
+
+@pytest.fixture
+def tiny_musdb_bench(monkeypatch):
+    """The musdb18 bench at tiny widths: 0.5 s at 8 kHz in 0.2 s chunks, one timed track."""
+    monkeypatch.setattr(bench, "MUSDB_SAMPLE_RATE", 8000)
+    monkeypatch.setattr(bench, "MUSDB_SECONDS", 0.5)
+    monkeypatch.setattr(bench, "MUSDB_CHUNK", 0.2)
+    monkeypatch.setattr(bench, "MUSDB_TRACKS", 1)
+    monkeypatch.setattr(bench, "UMX_STFT", dict(n_fft=64, hop_length=16, window_fn="hann"))
+    monkeypatch.setattr(bench, "UMX", dict(in_channels=2, hidden_channels=16, num_layers=2,
+                                           n_bins=33, max_bin=20))
 
 
 def _counted(model, T, batch=1):
@@ -114,6 +127,25 @@ def test_streaming_needs_a_causal_model(tiny_bench):
         bench.main(TINY_RUN + ["--streaming_hop", "0.05"])
 
 
+@pytest.mark.parametrize("model", ["umx", "xumx"])
+def test_musdb_json_line(tiny_musdb_bench, capsys, model):
+    result = bench.main(TINY_RUN + ["--model", model])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line == result
+    assert line["metric"] == f"{model}_musdb18_track_rtf"
+    assert line["unit"] == "audio_seconds_per_second_per_chip" and line["dtype"] == "float32"
+    assert line["chunks"] == 3 and line["seconds"] == pytest.approx(0.6)  # the last padded
+    assert line["value"] == pytest.approx(line["seconds"] / (line["ms"] / 1e3))
+    assert sorted(line["stage_ms"]) == ["forward", "istft", "stft", "wiener"]
+    assert line["model_stft_ms"] > 0 and line["wiener_istft_ms"] > 0
+
+
+def test_musdb_bench_refuses_bfloat16_and_streaming(tiny_musdb_bench):
+    for flags in (["--dtype", "bfloat16"], ["--streaming_hop", "0.05", "--causal"]):
+        with pytest.raises(ValueError, match="float32 offline only"):
+            bench.main(TINY_RUN + ["--model", "umx", *flags])
+
+
 def test_cuda_without_a_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
@@ -158,3 +190,14 @@ def test_recipe_shells_parse_with_the_ports_parsers(model):
     args = test_wsj0mix.build_parser().parse_args(argv)
     assert args.device == "device" and args.model_path.endswith(".ckpt")
     assert "common/path.sh" not in (RECIPES / model / "train.sh").read_text()
+
+
+@pytest.mark.parametrize("model", ["umx", "x-umx"])
+def test_musdb_recipe_shells_parse_with_the_ports_parser(model):
+    module, argv = _recipe_argv(MUSDB_RECIPES / model / "test.sh")
+    assert module == "dnn_based_source_separation_torch.cli.test_musdb18"
+    args = test_musdb18.build_parser().parse_args(argv)
+    assert args.device == "device" and args.model_path.endswith(".ckpt")
+    assert args.musdb18_root == "musdb18_root" and args.out_dir == "exp_dir/test"
+    assert test_musdb18.build_parser().parse_args(["--musdb18_root", "r", "--model_path",
+                                                   "m"]).device == "cuda"

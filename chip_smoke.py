@@ -4,6 +4,7 @@
     python3 chip_smoke.py --only 3e,3f    # phases 1 and 2, then the kernel phases named
     python3 chip_smoke.py --only 6s       # phases 1 and 2, then streaming ms per hop
     python3 chip_smoke.py --only 11       # phases 1 and 2, then musdb18 serving
+    python3 chip_smoke.py --only 3h       # phases 1 and 2, then the cluster route
 
 Phases (any failure exits non-zero; nothing is caught and passed):
   1. device: require CUDA, print the card's name and power limit, turn TF32 off;
@@ -55,6 +56,16 @@ Phases (any failure exits non-zero; nothing is caught and passed):
      cuDNN's nn.LSTM / nn.GRU forward and backward, f32 and bf16, at the
      kernels' timed shapes, input projection included; the port never calls
      them;
+  3h. the cluster route of lstm_scan_bidir and lstm_scan (csrc/recurrence_cluster.cuh)
+     against the plain versions, f32 and bf16, on every cluster size the card
+     holds (8 and 16 blocks at H = 256, 16 above): at UMX's serving shapes (B = 1,
+     T = 431; H = 256 on two chains, 512 on one), at B = 3, H = 384 and T = 1;
+     hs alone and with cs, each launch repeated and checked; the plan must take
+     "cluster" at UMX's shapes. At those shapes it is timed from CUDA graphs,
+     the FMA kernel forced in the same run (FMA, cluster, cluster, FMA), beside
+     the other cluster size, the serial floor (the kernel with its product
+     compiled out), the plain version, cuDNN's nn.LSTM (median of 50) and the
+     bound; then against the FMA kernel over B (the crossover the plan encodes);
   4. serve: paper-config Conv-TasNet (random weights from seed 0) through
      cli/separate.py on three mixtures in float32 and bfloat16, counting the
      kernel's launches;
@@ -111,14 +122,13 @@ Phases (any failure exits non-zero; nothing is caught and passed):
      SpectrogramMaskingWrapper, through cli/test_musdb18.py --device cuda on a
      synthetic musdb-layout corpus of two 20 s stereo tracks (two 10 s chunks
      each, S = 431 frames): exactly 12 lstm_scan_bidir launches a chunk per
-     model, all on the FMA kernel (H = 256), and no other kernel; the same CLI
+     model, all on the cluster kernel (B = 1, H = 256), and no other kernel; the same CLI
      with --device cpu (both models side by side in threads): the card's stems
      within 1e-3 x max|CPU|, every median SDR / ISR / SIR / SAR within 0.05 dB;
      the Wiener EM alone card vs CPU within 1e-3 relative, with its time and
      peak memory; per-chunk forward, Wiener and iSTFT ms, audio-s/s; causal
-     UMX (lstm_scan, H = 512, fma) over one chunk card vs CPU; lstm_scan_bidir
-     and lstm_scan alone at UMX's shapes beside cuDNN's nn.LSTM; the bench's
-     `--model umx` and `--model xumx` lines.
+     UMX (12 lstm_scan launches, H = 512, all on the cluster kernel) over one
+     chunk card vs CPU; the bench's `--model umx` and `--model xumx` lines.
 
 Each serving, quantizing and evaluation path, and the training path of phase
 8, runs with every launch count set to 0 just before it and read just after
@@ -126,11 +136,12 @@ it. Every recurrence forward and backward of phases 4b-4d, 6 and 7-10 is also
 counted by path (the wrappers' PATH_LAUNCHES and BWD_PATH_LAUNCHES): each bf16
 request and bf16 train step must launch only the bf16 tensor-core kernels
 ("mma" forward, "tf32x2" backward), each f32 one only the 3xTF32 kernels
-("tf32x3"), and none the FMA kernels (the served and trained models have
-H = 128); and every decode of phases 4-4g, 6, 8 and 10 on its planned
-fused_mask_decode path ("mma" in bf16, "generic" for f32 Conv-TasNet,
-"rows" for f32 DPRNN-TasNet). Phase 11's launches are counted apart:
-UMX's recurrences run on the FMA kernel by design. The last line is {"ok": true, "device":
+("tf32x3"), and none the FMA kernels (the wsj0 models have H = 128); and
+every decode of phases 4-4g, 6, 8 and 10 on its planned fused_mask_decode
+path ("mma" in bf16, "generic" for f32 Conv-TasNet, "rows" for f32
+DPRNN-TasNet). Phase 11's card runs (UMX at B = 1, H = 256 and 512) must
+launch only the cluster kernel, and join the main path's total, which must
+have launched every path but "fma". The last line is {"ok": true, "device":
 {...}}; the line before it lists the kernels with their launch counts,
 errors, times, bounds and library times: fused_mask_decode six times
 (Conv-TasNet's and DPRNN-TasNet's decoder widths and a streamed Conv-TasNet
@@ -144,8 +155,9 @@ with the FMA kernel's time in the same dtype and run as `fma_ms` (the f32
 forwards and every backward also with the FMA kernel's bound as
 `fma_bound_ms`; the backwards also with the kernel alone as `kernel_ms`,
 `fma_kernel_ms` and `kernel_bound_ms`); and lstm_scan_bidir and lstm_scan once
-more at UMX's shapes (B = 1, T = 431; H = 256 and 512), on the FMA kernel, with
-phase 11's launches.
+more at UMX's shapes (B = 1, T = 431; H = 256 and 512), on the cluster kernel,
+with phase 11's launches, phase 3h's times, the FMA kernel's (`fma_ms`), the
+other cluster size's (`c8_ms` or `c16_ms`) and the serial floor's (`floor_ms`).
 """
 from __future__ import annotations
 
@@ -295,16 +307,16 @@ def median_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     return float(np.median(times))
 
 
-def graph_ms(launch, repeats: int) -> float:
+def graph_ms(launch, repeats: int, iters: int = 20) -> float:
     """ms of one launch() on the card alone: `repeats` launches captured in one CUDA
-    graph, its replay timed by median_ms, over `repeats`."""
+    graph, its replay timed by median_ms (of `iters`), over `repeats`."""
     launch()  # the first call of a path sets its kernel's attributes
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(repeats):
             launch()
-    return median_ms(graph.replay) / repeats
+    return median_ms(graph.replay, iters=iters) / repeats
 
 
 def kernel_inputs(B, S, T, N, CL, dtype, strided, seed):
@@ -480,10 +492,12 @@ def forward_path(module, kname, call, want):
 
 
 def plan(module, B, n_chains, H, dtype, path=None):
-    """module._plan as the wrapper calls it on this card -> (path, tile)."""
+    """module._plan as the wrapper calls it on this card, over its routes -> (path, tile)."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    clusters = module._tf32_clusters(H, "cuda") if ls._tensor_core_path(H, dtype) else None
-    return module._plan(B, n_chains, H, dtype, sms, path, clusters)
+    clusters = None
+    if ls._needs_clusters(H, dtype, path, routes=module.ROUTES):
+        clusters = (ls._forward_clusters if module is ls else gs._tf32_clusters)(H, "cuda")
+    return module._plan(B, n_chains, H, dtype, sms, path, clusters, module.ROUTES)
 
 
 def phase_scan(title, module, make_inputs, runs):
@@ -887,6 +901,153 @@ def phase_library():
             log(f"  {cls.__name__} {'backward' if row.endswith('bwd') else 'forward'} "
                 f"{str(dtype)[6:]} (B={B}, T={T}, F={RNN_FEATURES}, H={H}, {chains} chain(s)): "
                 f"{ms:.4f} ms (median of 10, CUDA events)")
+    return result
+
+
+# Phase 3h: the cluster route of the LSTM forwards (csrc/recurrence_cluster.cuh) at
+# musdb18 serving's shapes (UMX_SCAN_SHAPES: a 10 s chunk at B = 1) and around them,
+# (label, B, T, H, chains): three clusters a chain (B = 3), one row block of W_hh in
+# shared memory (H = 384; H = 512 has two), one step.
+CLUSTER_CASES = [
+    ("UMX", 1, 431, 256, 2),
+    ("causal UMX", 1, 431, 512, 1),
+    ("B=3", 3, 57, 256, 2),
+    ("B=3", 3, 57, 512, 1),
+    ("H=384", 1, 57, 384, 1),
+    ("T=1", 1, 1, 256, 2),
+]
+CROSSOVER_BATCHES = (1, 2, 4, 8, 16, 64, 128, 256, 512, 1024)  # cluster against FMA, f32
+LIBRARY_ITERS = 50  # cuDNN's time at B = 1 spread 1.7x between calls on an H100 (PERF.md)
+CLUSTER_REPEATS = 5  # launches in a timed CUDA graph
+
+
+def lstm_chains(B, T, H, chains, dtype, seed):
+    """One or two (xw, w_hh) chains of lstm_inputs."""
+    xw_f, xw_b, w_f, w_b = lstm_inputs(B, T, H, dtype, seed)
+    return [(xw_f, w_f), (xw_b, w_b)][:chains]
+
+
+def forward_error(inputs, hs, cs, dtype):
+    """max|kernel - plain| of hs (and of cs, each over max(1, max|plain cs|)) -> (error,
+    its limit)."""
+    err, scale = 0.0, 1.0
+    for (xw, w), h, c in zip(inputs, hs, cs or [None] * len(hs)):
+        hs_ref, cs_ref = ls.lstm_forward_reference(xw, w)
+        err = max(err, float((h.float() - hs_ref.float()).abs().max()))
+        if c is not None:
+            scale = max(scale, float(cs_ref.float().abs().max()))
+            err = max(err, float((c.float() - cs_ref.float()).abs().max()))
+    return err, LSTM_TOL[dtype] * scale
+
+
+def library_lstm_ms(B, T, H, chains, dtype):
+    """cuDNN's nn.LSTM at the kernel's shape, input projection from UMX's 512 features
+    included (informational; the port never calls it)."""
+    lstm = torch.nn.LSTM(UMX["hidden_channels"], H, batch_first=True,
+                         bidirectional=chains == 2, device="cuda", dtype=dtype)
+    x = torch.randn(B, T, UMX["hidden_channels"], device="cuda").to(dtype)
+    with torch.no_grad():
+        return median_ms(lambda: lstm(x), warmup=5, iters=LIBRARY_ITERS)
+
+
+def phase_cluster(card=None):
+    """The cluster route against the plain version at CLUSTER_CASES, f32 and bf16, on
+    every cluster size the card holds that H admits, hs alone and with cs (the training
+    forward), each launch checked REPEATS more times; the plan's route through the
+    public wrappers. At UMX's two shapes it is timed from CUDA graphs in turns with the
+    FMA kernel forced in the same run (FMA, cluster, cluster, FMA), beside the other
+    cluster size, the serial floor (the product compiled out), the plain version,
+    cuDNN's nn.LSTM and the bound; then the crossover over B against the FMA kernel."""
+    log("== phase 3h: the cluster route of lstm_scan_bidir and lstm_scan vs plain on the card")
+    card = card or card_line()
+    for H in sorted({case[3] for case in CLUSTER_CASES}):
+        log(f"  clusters of the cluster kernel the card holds at once, by blocks a cluster "
+            f"(H={H}): {ls._cluster_counts(H, 'cuda')}")
+    result = {}
+    for label, B, T, H, chains in CLUSTER_CASES:
+        name = "lstm_scan_bidir" if chains == 2 else "lstm_scan"
+        counts = ls._cluster_counts(H, "cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            inputs = lstm_chains(B, T, H, chains, dtype, seed=B + T + H)
+            path, tile = plan(ls, B, chains, H, dtype)
+            what = f"{name} {label} (B={B}, T={T}, H={H}) {str(dtype)[6:]}"
+            if label in ("UMX", "causal UMX"):
+                check(path == "cluster", f"{what} planned {path}, expected cluster")
+            if path == "cluster":  # through the public wrapper, as the models call it
+                call = ((lambda: ls.lstm_scan_bidir(inputs[0][0], inputs[1][0], inputs[0][1],
+                                                    inputs[1][1])) if chains == 2 else
+                        (lambda: (ls.lstm_scan(*inputs[0]),)))
+                got = forward_path(ls, name, call, "cluster")
+                err, limit = forward_error(inputs, got, None, dtype)
+                check(err <= limit, f"{what} through the wrapper: {err} > {limit}")
+            sizes = [c for c in ls._cluster_sizes(H, dtype) if counts.get(c, 0) >= 1]
+            check(sizes, f"the card holds no cluster the kernel takes at H={H}: {counts}")
+            errs = {}
+            for c in sizes:
+                for with_cs in (False, True):
+                    hs, cs, launch = ls._staged_forward(inputs, with_cs, "cluster", c)
+                    on_path(ls.PATH_LAUNCHES[name], name, launch, "cluster")
+                    err, limit = forward_error(inputs, hs, cs if with_cs else None, dtype)
+                    worst = err
+                    for _ in range(REPEATS):  # a race shows only in some launches
+                        launch()
+                        worst = max(worst, forward_error(inputs, hs, cs if with_cs else None,
+                                                         dtype)[0])
+                    errs[(c, with_cs)] = err
+                    ok = worst <= limit
+                    log(f"  {what} cluster (C={c}{', plan' if tile == (1, c) else ''}"
+                        f"{', with cs' if with_cs else ''}): max|kernel-plain| = {err:.3e}, "
+                        f"worst of {1 + REPEATS} launches {worst:.3e} (limit {limit:.3g}) "
+                        f"{'ok' if ok else 'FAIL'}")
+                    check(ok, f"{what} on {c}-block clusters disagrees with plain: {worst}")
+            if label not in ("UMX", "causal UMX"):
+                continue
+            C = tile[1]
+            fma_hs, _, fma = ls._staged_forward(inputs, False, "fma")
+            on_path(ls.PATH_LAUNCHES[name], name, fma, "fma")
+            fma_err, _ = forward_error(inputs, fma_hs, None, dtype)
+            _, _, kernel = ls._staged_forward(inputs, False, "cluster", C)
+            _, floor = ls._staged_cluster_floor(inputs, C)
+            turns = (graph_ms(fma, 1), graph_ms(kernel, CLUSTER_REPEATS),
+                     graph_ms(kernel, CLUSTER_REPEATS), graph_ms(fma, 1))
+            timing = dict(cluster=C, max_abs_err=errs[(C, False)], fma_max_abs_err=fma_err,
+                          ms=(turns[1] + turns[2]) / 2, fma_ms=(turns[0] + turns[3]) / 2,
+                          floor_ms=graph_ms(floor, CLUSTER_REPEATS))
+            for c in sizes:
+                if c != C:
+                    timing[f"c{c}_ms"] = graph_ms(
+                        ls._staged_forward(inputs, False, "cluster", c)[2], CLUSTER_REPEATS)
+            timing["plain_ms"] = median_ms(
+                lambda: [ls.lstm_scan_reference(xw, w) for xw, w in inputs], warmup=1, iters=3)
+            timing["library_ms"] = library_lstm_ms(B, T, H, chains, dtype)
+            timing.update(recurrence_bound(B, T, H, 4, chains, dtype=dtype))
+            others = "".join(f", C={k[1:-3]} {v:.4f} ms" for k, v in timing.items()
+                             if k.startswith("c") and k.endswith("_ms"))
+            log(f"    cluster (C={C}) {turns[1]:.4f} / {turns[2]:.4f} ms between FMA "
+                f"{turns[0]:.4f} / {turns[3]:.4f} ms{others}; serial floor "
+                f"{timing['floor_ms']:.4f} ms ({timing['floor_ms'] / T * 1e3:.3f} us a step "
+                f"against {timing['ms'] / T * 1e3:.3f}); plain {timing['plain_ms']:.4f} ms; "
+                f"cuDNN nn.LSTM {timing['library_ms']:.4f} ms (F={UMX['hidden_channels']}, median "
+                f"of {LIBRARY_ITERS}); bound {timing['bound_ms']:.4f} ms ({timing['bound_by']}) "
+                f"(kernels from CUDA graphs, CUDA events) [{card}]")
+            result[(name, dtype)] = timing
+    log(f"  crossover over B, f32, T=431 (kernels from CUDA graphs, medians of 5) [{card}]:")
+    crossover = []
+    for name, (_, T, H, chains) in UMX_SCAN_SHAPES.items():
+        for B in CROSSOVER_BATCHES:
+            inputs = lstm_chains(B, T, H, chains, torch.float32, seed=B + T + H)
+            natural = plan(ls, B, chains, H, torch.float32)
+            cl_hs, _, cl = ls._staged_forward(inputs, False, "cluster")
+            forced = plan(ls, B, chains, H, torch.float32, "cluster")[1]
+            _, _, fma = ls._staged_forward(inputs, False, "fma")
+            row = dict(name=name, B=B, H=H, plan=natural, cluster=forced[1],
+                       cluster_ms=graph_ms(cl, 2, iters=5), fma_ms=graph_ms(fma, 1, iters=5))
+            err, limit = forward_error(inputs, cl_hs, None, torch.float32)
+            check(err <= limit, f"{name} cluster at B={B} disagrees with plain: {err}")
+            crossover.append(row)
+            log(f"    {name} H={H} B={B}: cluster (C={forced[1]}) {row['cluster_ms']:.4f} ms, "
+                f"FMA {row['fma_ms']:.4f} ms; the plan takes {natural}")
+    result["crossover"] = crossover
     return result
 
 
@@ -1761,7 +1922,7 @@ MUSDB_DB_TOL = 0.05  # card vs CPU, each median of each stem
 WIENER_TOL = 1e-3  # the EM alone, card vs CPU, relative to max|CPU|
 UMX_BIDIR_LAYERS = UMX["num_layers"] * 4  # one bidirectional layer a stem, per chunk
 # The recurrences at UMX's serving shapes: a 10 s chunk at B = 1; H = 512 // 2 per
-# direction (bidirectional) and 512 (causal); both on the FMA kernel (H > 128).
+# direction (bidirectional) and 512 (causal); both on the cluster kernel (phase 3h).
 UMX_SCAN_SHAPES = {"lstm_scan_bidir": (1, 431, UMX["hidden_channels"] // 2, 2),
                    "lstm_scan": (1, 431, UMX["hidden_channels"], 1)}
 
@@ -1845,8 +2006,8 @@ def wiener_card_vs_cpu(model, root, card):
 
 def serve_musdb(kind, root, ckpt, chunks):
     """One model through the CLI on the card, every count set to 0 just before and read
-    just after: exactly UMX_BIDIR_LAYERS lstm_scan_bidir launches a chunk, all on fma, and
-    no other kernel."""
+    just after: exactly UMX_BIDIR_LAYERS lstm_scan_bidir launches a chunk, all on the
+    cluster kernel, and no other kernel."""
     log(f"== phase 11: musdb18 serving, paper-config {kind.upper()} through "
         f"cli/test_musdb18.py --device cuda")
     reset_counts()
@@ -1856,12 +2017,12 @@ def serve_musdb(kind, root, ckpt, chunks):
     check(kernels_of(launches) == want, f"{kind}: the CLI launched {nonzero(launches)}, "
                                         f"expected {nonzero(want)}")
     paths = {p: launches[f"lstm_scan_bidir/{p}"] for p in ls.PATH_LAUNCHES["lstm_scan_bidir"]}
-    check(paths == {"mma": 0, "tf32x3": 0, "fma": UMX_BIDIR_LAYERS * chunks},
+    check(paths == {"mma": 0, "tf32x3": 0, "cluster": UMX_BIDIR_LAYERS * chunks, "fma": 0},
           f"{kind}: lstm_scan_bidir launched {paths} by path, expected all "
-          f"{UMX_BIDIR_LAYERS * chunks} on fma (H = 256)")
+          f"{UMX_BIDIR_LAYERS * chunks} on cluster (B = 1, H = 256)")
     log(f"  {chunks} chunks: kernel launches {nonzero(launches)} "
-        f"({UMX_BIDIR_LAYERS} lstm_scan_bidir on fma a chunk)")
-    return dict(table=table, stats=stats, stems=stems, launches=launches["lstm_scan_bidir/fma"])
+        f"({UMX_BIDIR_LAYERS} lstm_scan_bidir on cluster a chunk)")
+    return dict(table=table, stats=stats, stems=stems, launches=launches)
 
 
 def musdb_card_vs_cpu(kind, served, cpu_run, card):
@@ -1917,8 +2078,9 @@ def musdb_stage_times(kind, model, root, card, repeats=3):
 
 
 def causal_umx(root, card):
-    """Causal paper-config UMX (one-chain LSTM, H = 512, on fma) over one 10 s chunk: card
-    vs CPU, launches and forward time."""
+    """Causal paper-config UMX (one-chain LSTM, H = 512, on the cluster kernel) over one
+    10 s chunk: card vs CPU, launches (every count set to 0 just before) and forward
+    time."""
     log("== phase 11: causal paper-config UMX, one 10 s chunk, card vs CPU")
     model = umx_wrapper("umx", causal=True)
     cpu = umx_wrapper("umx", causal=True, device="cpu")
@@ -1933,48 +2095,16 @@ def causal_umx(root, card):
         ref = cpu(x)
         ms = median_ms(lambda: model(x.cuda()), warmup=1, iters=5)
     want = expected(lstm_scan=UMX_BIDIR_LAYERS)
-    check(kernels_of(launches) == want and launches["lstm_scan/fma"] == UMX_BIDIR_LAYERS,
-          f"causal UMX launched {nonzero(launches)}, expected {nonzero(want)} on fma")
+    paths = {p: launches[f"lstm_scan/{p}"] for p in ls.PATH_LAUNCHES["lstm_scan"]}
+    check(kernels_of(launches) == want and paths == {"mma": 0, "tf32x3": 0,
+                                                     "cluster": UMX_BIDIR_LAYERS, "fma": 0},
+          f"causal UMX launched {nonzero(launches)}, expected {nonzero(want)} on cluster")
     err, scale = float((got.cpu() - ref).abs().max()), float(ref.abs().max())
     log(f"  {tuple(got.shape)}: launches {nonzero(launches)}; card vs CPU max abs err "
         f"{err:.3e}, max|ref| {scale:.3e}, limit {1e-3 * scale:.3e}; forward {ms:.3f} ms "
         f"(median of 5, CUDA events) [{card}]")
     check(err <= 1e-3 * scale, f"causal UMX on the card disagrees with the CPU: {err}")
-    return launches["lstm_scan/fma"]
-
-
-def umx_scan_timings(card):
-    """lstm_scan_bidir and lstm_scan alone at UMX's shapes (f32, FMA) against their plain
-    versions, beside cuDNN's nn.LSTM at the same shape (input projection from 512
-    features included)."""
-    log("== phase 11: lstm_scan_bidir and lstm_scan at UMX's serving shapes (f32, fma)")
-    out = {}
-    features = UMX["hidden_channels"]
-    for name, (B, T, H, chains) in UMX_SCAN_SHAPES.items():
-        xw_f, xw_b, w_f, w_b = lstm_inputs(B, T, H, torch.float32, seed=T + H)
-        if chains == 2:
-            kernel = lambda: ls.lstm_scan_bidir(xw_f, xw_b, w_f, w_b)
-            plain = lambda: ls.lstm_scan_bidir_reference(xw_f, xw_b, w_f, w_b)
-        else:
-            kernel = lambda: (ls.lstm_scan(xw_f, w_f),)
-            plain = lambda: (ls.lstm_scan_reference(xw_f, w_f),)
-        check(plan(ls, B, chains, H, torch.float32)[0] == "fma", f"{name} H={H} is not on fma")
-        got = forward_path(ls, name, kernel, "fma")
-        ref = plain()
-        err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
-        check(err <= LSTM_TOL[torch.float32], f"{name} at UMX's shape disagrees: {err}")
-        ms = median_ms(kernel, warmup=2, iters=10)
-        plain_ms = median_ms(plain, warmup=1, iters=3)
-        lstm = torch.nn.LSTM(features, H, batch_first=True, bidirectional=chains == 2,
-                             device="cuda")
-        xin = torch.randn(B, T, features, device="cuda")
-        with torch.no_grad():
-            library_ms = median_ms(lambda: lstm(xin), warmup=2, iters=10)
-        log(f"  {name} (B={B}, T={T}, H={H}, {chains} chain(s)) f32 fma: max|kernel-plain| "
-            f"{err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cuDNN nn.LSTM "
-            f"{library_ms:.4f} ms (F={features}; medians of 10, 3, 10, CUDA events) [{card}]")
-        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms)
-    return out
+    return launches
 
 
 def musdb_bench(card):
@@ -1992,7 +2122,7 @@ def musdb_bench(card):
 
 
 def phase_musdb(card=None):
-    """Phase 11 -> its launches and timings for the kernels line. BSS-Eval on the host
+    """Phase 11 -> its launches (all_counts of each card run). BSS-Eval on the host
     dominates the CLI runs, so the two CPU runs go in threads beside the card runs (one at
     a time, each counted alone); the stage times come from a quiet host afterwards."""
     card = card or card_line()
@@ -2023,9 +2153,8 @@ def phase_musdb(card=None):
             served[kind].update(musdb_stage_times(kind, models[kind], root, card))
         causal = causal_umx(root, card)
     musdb_cli.Evaluater = Evaluater
-    timings = umx_scan_timings(card)
     musdb_bench(card)
-    return dict(served=served, causal_launches=causal, timings=timings)
+    return dict(served=served, causal_launches=causal)
 
 
 def kernel_entry(name, source, replaces, launches, timing, bound_of, library_ms=None,
@@ -2112,13 +2241,14 @@ def phase_build():
 
 ONLY_PHASES = {"3": phase_kernel, "3b": phase_lstm, "3c": phase_gru, "3d": phase_lstm_bwd,
                "3e": phase_gru_bwd, "3f": phase_quantize, "3g": phase_library,
+               "3h": phase_cluster,
                "6s": phase_stream_hops, "11": phase_musdb}
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser("chip_smoke")
     parser.add_argument("--only", type=str, default=None,
-                        help="comma-separated kernel phases (3, 3b-3g), 6s (streaming ms "
+                        help="comma-separated kernel phases (3, 3b-3h), 6s (streaming ms "
                              "per hop) or 11 (musdb18 serving) to run after phases 1 and 2, "
                              "and nothing else; no result line is printed")
     args = parser.parse_args(argv)
@@ -2147,6 +2277,7 @@ def main(argv=None) -> int:
     gru_bwd_timings = phase_gru_bwd()
     quant_timing = phase_quantize()
     library = phase_library()
+    cluster_timings = phase_cluster(card)
     blocks = DPRNN["sep_num_blocks"]
     stream_flags = ["--streaming_hop", str(STREAMING_HOP)]
     with tempfile.TemporaryDirectory() as tmp:
@@ -2225,12 +2356,17 @@ def main(argv=None) -> int:
         trained, checkpoints = phase_train_cli(tmp, card)
         evaluated = phase_evaluate(tmp, checkpoints, card)
     phase_train_throughput(card)
-    musdb = phase_musdb(card)  # its FMA launches are its own: not part of `total`
+    musdb = phase_musdb(card)
     for name in ("lstm_scan_bidir_bwd", "lstm_scan_bwd", "gru_scan_bidir_bwd", "gru_scan_bwd"):
         check(trained[name] >= 1, f"the training path never launched {name}")
     total = {k: v + trained[k] + evaluated[k] for k, v in total.items()}
+    for run in [*(served["launches"] for served in musdb["served"].values()),
+                musdb["causal_launches"]]:  # musdb18 serving's card runs
+        total = {k: v + run[k] for k, v in total.items()}
     for name, n in total.items():
-        if name.endswith("/fma"):  # every served and trained model has H = 128
+        # The wsj0 models have H = 128 (tensor cores), musdb18's UMX B = 1 at H = 256
+        # and 512 (the cluster kernel).
+        if name.endswith("/fma"):
             check(n == 0, f"the main path launched the FMA kernel: {name} {n} times")
         elif n < 1:
             raise AssertionError(f"the serving, training and evaluation paths never launched "
@@ -2290,19 +2426,22 @@ def main(argv=None) -> int:
             entries.append(kernel_entry(
                 name, source, replaces, total[f"{name}/{path}"], times[(name, shape, dtype)],
                 route, library[name + suffix], dtype=dtype, fma_bound=fma_bound))
-    # The same forwards at UMX's serving shapes (phase 11: B = 1, a 10 s chunk, H = 256 a
-    # direction, 512 causal), on the FMA kernel, with phase 11's launches (the two served
-    # models' CLI runs on the card; the causal chunk) and cuDNN's nn.LSTM at the same shape.
-    umx_launches = {"lstm_scan_bidir": sum(run["launches"] for run in musdb["served"].values()),
-                    "lstm_scan": musdb["causal_launches"]}
+    # The same forwards at UMX's serving shapes (B = 1, a 10 s chunk, H = 256 a direction,
+    # 512 causal) on the cluster kernel, timed in phase 3h beside the FMA kernel (fma_ms),
+    # the other cluster size (c8_ms or c16_ms), the serial floor (floor_ms) and cuDNN's
+    # nn.LSTM, with phase 11's launches (the two served models' CLI runs; the causal chunk).
     for name, replaces in (("lstm_scan_bidir", "ops/pallas_lstm.py:323"),
                            ("lstm_scan", "ops/pallas_lstm.py:166")):
         B, T, H_umx, chains = UMX_SCAN_SHAPES[name]
-        timing = musdb["timings"][name]
-        entry = kernel_entry(name, "csrc/lstm_scan.cu", replaces, umx_launches[name], timing,
+        timing = cluster_timings[(name, f32)]
+        entry = kernel_entry(name, "csrc/recurrence_cluster.cuh", replaces,
+                             total[f"{name}/cluster"], timing,
                              recurrence_bound(B, T, H_umx, 4, chains, dtype=f32),
                              timing["library_ms"], dtype=f32)
-        entry.update(path="fma", shape=f"UMX B={B} T={T} H={H_umx}")
+        entry.update(path="cluster", shape=f"UMX B={B} T={T} H={H_umx}",
+                     **{k: timing[k] for k in timing
+                        if k in ("cluster", "floor_ms", "fma_max_abs_err") or
+                        (k.startswith("c") and k.endswith("_ms"))})
         entries.append(entry)
     # The backwards of kernels 2-4 (`custom_vjp` _bidir_bwd and _lstm_bwd, both
     # _lstm_bwd_core; _gru_bidir_bwd, _gru_bwd_core) twice, f32 (three TF32

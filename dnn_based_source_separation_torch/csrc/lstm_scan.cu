@@ -18,14 +18,18 @@
 // products are exact in f32 and summed in f32, and h and c are carried in
 // f32, as the Pallas kernels carry them in f32 VMEM scratch.
 //
-// Three paths, chosen by the caller (ops/lstm_scan.py:_plan) from the dtype
-// and the shape before the launch, never after a failure:
+// Four paths, chosen by the caller (ops/lstm_scan.py:_plan) from the dtype,
+// the shape and the card's co-resident clusters before the launch, never
+// after a failure:
 //   * "mma": bfloat16 with H a multiple of 16 up to 128, the tensor-core
 //     kernel of csrc/recurrence_mma.cuh with the LSTM cell below, on M-row
 //     tiles (M = 16 or 32);
 //   * "tf32x3": float32 with the same H, the 3xTF32 tensor-core kernel of
 //     csrc/recurrence_tf32.cuh with the same cell, on M-row tiles (M = 16,
 //     32 or 64) held by a cluster of 2 or 4 blocks;
+//   * "cluster": either dtype with H = 256, 384 or 512 and few sequences
+//     (musdb18 serving's B = 1), the kernel of csrc/recurrence_cluster.cuh:
+//     one sequence a cluster of 8 or 16 blocks, W_hh held on chip;
 //   * "fma": every other call (H = 40, 256, 512, ... in either dtype), the
 //     FMA kernel of this file, on tiles of R sequences per group.
 //
@@ -68,6 +72,7 @@
 
 #include "recurrence_mma.cuh"
 #include "recurrence_tf32.cuh"
+#include "recurrence_cluster.cuh"
 
 namespace {
 
@@ -291,10 +296,20 @@ int launch_fma(const Chains& chains, int n_chains, int B, int T_len, int H, int 
 
 // path 0: the FMA kernel with tile R; path 1: the tensor-core kernel
 // (bfloat16 only) with tile M; path 2: the 3xTF32 kernel (float32 only)
-// with tile M and clusters of `cluster` blocks (ignored by the others).
+// with tile M and clusters of `cluster` blocks; path 4: the cluster kernel,
+// tile 1 (one sequence a cluster of `cluster` blocks). `cluster` is ignored
+// by paths 0 and 1.
 int dispatch(const Chains& chains, int n_chains, int dtype, int B, int T_len, int H, int path,
              int tile, int cluster, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (path == 4) {
+    if (tile != 1) return (int)cudaErrorInvalidValue;
+    const cluster_scan::Chains cc = {{chains.xw[0], chains.xw[1]},
+                                     {chains.whh[0], chains.whh[1]},
+                                     {chains.hs[0], chains.hs[1]},
+                                     {chains.cs[0], chains.cs[1]}};
+    return cluster_scan::launch(cc, n_chains, dtype, B, T_len, H, cluster, true, st);
+  }
   if (path == 2) {
     if (dtype != 0) return (int)cudaErrorInvalidValue;
     const tf32_scan::Chains tc = {
@@ -328,9 +343,11 @@ int dispatch(const Chains& chains, int n_chains, int dtype, int B, int T_len, in
 // dtype: 0 = float32, 1 = bfloat16 (xw, W_hh, hs and cs share it). All arrays
 // are contiguous: xw (B, T, 4H), W_hh (H, 4H), hs and cs (B, T, H); cs may be
 // null. path 0 (FMA, tile = R in {1, 2, 4}), 1 (tensor cores, bfloat16,
-// H % 16 == 0 and H <= 128, tile = M in {16, 32}) or 2 (3xTF32, float32, the
-// same H, tile = M in {16, 32, 64}, cluster = C in {2, 4} with H % 8C == 0),
-// from ops/lstm_scan.py:_plan; `cluster` is read on path 2 only.
+// H % 16 == 0 and H <= 128, tile = M in {16, 32}), 2 (3xTF32, float32, the
+// same H, tile = M in {16, 32, 64}, cluster = C in {2, 4} with H % 8C == 0) or
+// 4 (cluster kernel, either dtype, H in {256, 384, 512}, tile = 1, cluster =
+// C in {8, 16}: 8 or 16 at H = 256, 16 above), from ops/lstm_scan.py:_plan;
+// `cluster` is read on paths 2 and 4 only.
 // Returns a cudaError_t (0 on success). The Python wrapper validates every
 // argument.
 extern "C" int lstm_scan_launch(const void* xw, const void* whh, void* hs, void* cs, int dtype,
@@ -356,4 +373,24 @@ extern "C" int lstm_scan_bidir_launch(const void* xw_f, const void* xw_b, const 
 // (what _plan fits a wave to).
 extern "C" int lstm_scan_tf32_clusters(int H, int C, int* clusters) {
   return tf32_scan::max_clusters<LstmCell>(H, C, clusters);
+}
+
+// The clusters of C blocks of the cluster kernel at hidden size H that the
+// current card holds at once, each block on an SM of its own, into *clusters
+// (0 where no GPC has C free SMs; what _plan fits a wave to).
+extern "C" int lstm_scan_cluster_clusters(int H, int C, int* clusters) {
+  return cluster_scan::max_clusters(H, C, clusters);
+}
+
+// The cluster kernel with its product compiled out (the serial floor: the
+// reduction, the cell and the exchange of h of every step), over one
+// or two chains (xw_b, whh_b and hs_b null for one), C blocks a sequence. It
+// writes hs, not a recurrence's hs; chip_smoke.py times it beside the kernel.
+extern "C" int lstm_scan_cluster_floor_launch(const void* xw_f, const void* xw_b,
+                                              const void* whh_f, const void* whh_b, void* hs_f,
+                                              void* hs_b, int dtype, int B, int T, int H,
+                                              int cluster, void* stream) {
+  const cluster_scan::Chains cc = {{xw_f, xw_b}, {whh_f, whh_b}, {hs_f, hs_b}, {nullptr, nullptr}};
+  return cluster_scan::launch(cc, xw_b == nullptr ? 1 : 2, dtype, B, T, H, cluster, false,
+                              static_cast<cudaStream_t>(stream));
 }

@@ -9,8 +9,9 @@ forward of `csrc/gru_scan.cu` and, under autograd, the reverse recurrence of
 is no fallback from one to the other: a CUDA call the kernel cannot take
 raises.
 
-The forward has the LSTM's three paths, planned by the same `_plan`
-(`ops/lstm_scan.py`): for H a multiple of 16 up to 128 the tensor-core
+The forward has three of the LSTM's four paths, planned by the same `_plan`
+(`ops/lstm_scan.py`) over this wrapper's ROUTES, which lack the LSTM's
+`"cluster"`: for H a multiple of 16 up to 128 the tensor-core
 kernels, `"mma"` (`csrc/recurrence_mma.cuh`) for bfloat16 and `"tf32x3"`
 (`csrc/recurrence_tf32.cuh`) for float32; the FMA kernel (`"fma"`) for every
 other call. The backward has the LSTM's two, planned by `_plan_bwd`: the
@@ -43,8 +44,8 @@ import torch
 import torch.nn.functional as F
 
 from ._build import load_library
-from .lstm_scan import (  # the GRU plans by the LSTM's rule
-    _PATH_CODE, _co_resident_clusters, _plan, _plan_bwd, _plan_launch, _tile_args,
+from .lstm_scan import (  # the GRU plans by the LSTM's rule, over its own routes
+    _PATH_CODE, FORWARD_ROUTES, _co_resident_clusters, _plan, _plan_bwd, _plan_launch, _tile_args,
 )
 
 # Launches of each CUDA kernel in this process. Only the launches below
@@ -58,6 +59,9 @@ BWD_PATH_LAUNCHES = {name: {"tf32x3": 0, "tf32x2": 0, "fma": 0}
                      for name in ("gru_scan_bwd", "gru_scan_bidir_bwd")}
 
 MAX_HIDDEN = 512
+# The forward routes of this wrapper's library: no cluster kernel, so a GRU at
+# H = 256 and B = 1 stays on "fma".
+ROUTES = FORWARD_ROUTES
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LIB = None
 _BWD_LIB = None
@@ -272,7 +276,7 @@ def _forward_cuda(chains, path: str | None = None):
     _check_chains(name, chains)
     xw0 = chains[0][0]
     lib = _library()
-    B, T, H, path, tile = _plan_launch(_tf32_clusters, chains, path)
+    B, T, H, path, tile = _plan_launch(_tf32_clusters, chains, path, routes=ROUTES)
     hs = [torch.empty((B, T, H), dtype=xw0.dtype, device=xw0.device) for _ in chains]
     fn = lib.gru_scan_launch if len(chains) == 1 else lib.gru_scan_bidir_launch
     pointers = [c[k].data_ptr() for k in range(3) for c in chains] + [h.data_ptr() for h in hs]

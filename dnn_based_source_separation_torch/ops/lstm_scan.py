@@ -8,12 +8,17 @@ On CUDA tensors the hand-written Hopper kernels run: the forward of
 There is no fallback from one to the other: a CUDA call the kernel cannot
 take raises.
 
-The forward has three paths, and `_plan` picks one from the dtype and the
-shape before the launch: for H a multiple of 16 up to 128 the tensor-core
-kernels, `"mma"` (`csrc/recurrence_mma.cuh`) for bfloat16 and `"tf32x3"`
+The forward has four paths, and `_plan` picks one from the dtype, the
+shape and the card's co-resident clusters before the launch: for H a
+multiple of 16 up to 128 the tensor-core kernels, `"mma"`
+(`csrc/recurrence_mma.cuh`) for bfloat16 and `"tf32x3"`
 (`csrc/recurrence_tf32.cuh`, f32 products as three TF32 products, a cluster
-of 2 or 4 blocks per tile) for float32; the FMA kernel (`"fma"`) for every
-other call (H = 40, 256, 512, ...). The backward has two, which `_plan_bwd`
+of 2 or 4 blocks per tile) for float32; for H = 256, 384 or 512 and few
+sequences (musdb18 serving's B = 1) `"cluster"` (`csrc/recurrence_cluster.cuh`:
+one sequence a cluster of 8 or 16 blocks, W_hh held in their registers and
+shared memory, h exchanged through distributed shared memory), in either
+dtype; the FMA kernel (`"fma"`) for every other call (H = 40, 256, 512,
+...). The backward has two, which `_plan_bwd`
 picks the same way: for H a multiple of 16 up to 128 the split-TF32
 tensor-core kernel of `csrc/recurrence_bwd_tf32.cuh` (`"tf32x3"` for
 float32, three TF32 products; `"tf32x2"` for bfloat16, two, since a bf16
@@ -49,7 +54,7 @@ from ._build import load_library
 # increment them; callers reset them to 0 to count a run.
 LAUNCHES = {"lstm_scan": 0, "lstm_scan_bidir": 0, "lstm_scan_bwd": 0, "lstm_scan_bidir_bwd": 0}
 # The forward launches above, split by the path `_plan` chose.
-PATH_LAUNCHES = {name: {"mma": 0, "tf32x3": 0, "fma": 0}
+PATH_LAUNCHES = {name: {"mma": 0, "tf32x3": 0, "cluster": 0, "fma": 0}
                  for name in ("lstm_scan", "lstm_scan_bidir")}
 # The backward launches above, split by the path `_plan_bwd` chose.
 BWD_PATH_LAUNCHES = {name: {"tf32x3": 0, "tf32x2": 0, "fma": 0}
@@ -60,7 +65,11 @@ MAX_HIDDEN = 512
 # registers a block; the f32 W_hh of one block of a 2-block cluster, G H^2 / 2
 # floats of shared memory.
 MMA_MAX_HIDDEN = 128
-_PATH_CODE = {"fma": 0, "mma": 1, "tf32x3": 2, "tf32x2": 3}
+_PATH_CODE = {"fma": 0, "mma": 1, "tf32x3": 2, "tf32x2": 3, "cluster": 4}
+# The forward routes of each wrapper's library: `_plan` takes only these. The
+# GRU's has no cluster kernel.
+FORWARD_ROUTES = ("fma", "mma", "tf32x3")
+ROUTES = FORWARD_ROUTES + ("cluster",)
 # The tensor-core path of each dtype, for H a multiple of 16 up to MMA_MAX_HIDDEN:
 # of the forward, and of the backward (split TF32 in both dtypes).
 _TENSOR_CORE_PATH = {torch.bfloat16: "mma", torch.float32: "tf32x3"}
@@ -72,8 +81,27 @@ _LIB = None
 _BWD_LIB = None
 # The 3xTF32 kernel's cluster sizes: C blocks share a tile's H units, H / C each.
 TF32_CLUSTER_SIZES = (2, 4)
-# (C function, card, H) -> {C: co-resident clusters of C blocks of the 3xTF32 kernel}.
+# (C function, card, H) -> {C: co-resident clusters of C blocks of that kernel}.
 _CLUSTERS: dict = {}
+
+# The cluster kernel (csrc/recurrence_cluster.cuh): one sequence of one chain
+# a cluster of C blocks, rank r owning hidden units [r H/C, (r+1) H/C) and
+# their four gate columns, CLUSTER_UNITS_PER_WARP units a warp. Lane l of a
+# warp owns rows 128 jb + 4 l + e (e = 0..3) of each row block jb; the first
+# CLUSTER_REG_BLOCKS row blocks of its W_hh values live in registers, the rest
+# in shared memory, beside two mbarriers, the double-buffered h and a padded f32
+# staging tile.
+CLUSTER_SIZES = (8, 16)
+CLUSTER_ROW_BLOCK = 128
+CLUSTER_REG_BLOCKS = 2
+CLUSTER_UNITS_PER_WARP = 2
+CLUSTER_MAX_THREADS = 512
+SHARED_LIMIT = 232448  # a Hopper block's dynamic shared memory
+OWN_SM = 120 * 1024  # a block's least shared memory: no two blocks on one SM
+# The largest B the plan sends to the cluster kernel: on an H100 (PERF.md, section 6)
+# it beat the FMA kernel at every B up to 256 and lost at 512 (H = 256, two
+# chains) and at 1024 (H = 512, one chain).
+CLUSTER_MAX_BATCH = 256
 
 
 def lstm_steps(xw: torch.Tensor, w_hh: torch.Tensor, state=None, cs: torch.Tensor | None = None):
@@ -191,8 +219,71 @@ def _tensor_core_path(H: int, dtype: torch.dtype, backward: bool = False) -> str
     return paths.get(dtype) if H % 16 == 0 and 16 <= H <= MMA_MAX_HIDDEN else None
 
 
+def cluster_layout(H: int, C: int, dtype: torch.dtype = torch.float32) -> dict | None:
+    """The cluster kernel's layout at hidden size H on clusters of C blocks, or None
+    where it cannot run (`shape_ok` of csrc/recurrence_cluster.cuh).
+
+    H a multiple of 128 above MMA_MAX_HIDDEN up to MAX_HIDDEN; C in CLUSTER_SIZES
+    with H / C units a rank, CLUSTER_UNITS_PER_WARP a warp, at most
+    CLUSTER_MAX_THREADS threads (128 registers each, 64 of them W_hh); the
+    shared memory within SHARED_LIMIT in f32 (bf16 W rows take half).
+    """
+    if (H % CLUSTER_ROW_BLOCK or not MMA_MAX_HIDDEN < H <= MAX_HIDDEN or C not in CLUSTER_SIZES
+            or H % (CLUSTER_UNITS_PER_WARP * C)):
+        return None
+    units = H // C
+    warps = units // CLUSTER_UNITS_PER_WARP
+    if 32 * warps > CLUSTER_MAX_THREADS:
+        return None
+    row_blocks = H // CLUSTER_ROW_BLOCK
+    reg_blocks = min(row_blocks, CLUSTER_REG_BLOCKS)
+    elem = torch.tensor([], dtype=dtype).element_size()
+
+    def shared(size):
+        need = (16 + 2 * H * 4 + (row_blocks - reg_blocks) * CLUSTER_ROW_BLOCK * 4 * units * size
+                + CLUSTER_ROW_BLOCK * (4 * units + 1) * 4)
+        return max(need, OWN_SM)
+
+    if shared(4) > SHARED_LIMIT:
+        return None
+    return dict(units=units, warps=warps, threads=32 * warps, row_blocks=row_blocks,
+                reg_blocks=reg_blocks,
+                w_smem_bytes=(row_blocks - reg_blocks) * CLUSTER_ROW_BLOCK * 4 * units * elem,
+                smem_bytes=shared(elem))
+
+
+def _cluster_sizes(H: int, dtype: torch.dtype = torch.float32) -> list:
+    """The cluster sizes at which the cluster kernel takes hidden size H."""
+    return [c for c in CLUSTER_SIZES if cluster_layout(H, c, dtype)]
+
+
+def _cluster_tile(B: int, n_chains: int, H: int, dtype: torch.dtype, clusters: dict | None,
+                  forced: bool = False) -> tuple[int, int] | None:
+    """The cluster kernel's tile (1, C): one sequence a cluster of C blocks, or None.
+
+    Of the C that H admits and the card holds (`clusters`, {C: co-resident
+    clusters}, 0 where no GPC has C free SMs), the one that runs the
+    n_chains x B clusters in the fewest waves, then the larger (at H = 256
+    and B = 1, C = 16 took 8% less time than C = 8 on an H100; C = 8 fits
+    twice the clusters in a wave).
+    The plan takes the route for B up to CLUSTER_MAX_BATCH; forced
+    (`path="cluster"`) it runs any B, and raises where no C can run.
+    """
+    sizes = [c for c in _cluster_sizes(H, dtype) if (clusters or {}).get(c, 0) >= 1]
+    if not sizes:
+        if forced:
+            raise ValueError(f"the cluster path takes H = 256, 384 or 512 (H = 256 on clusters of "
+                             f"8 or 16 blocks, else 16) that the card holds; got H = {H}, "
+                             f"clusters {clusters}")
+        return None
+    if not forced and B > CLUSTER_MAX_BATCH:
+        return None
+    return 1, min(sizes, key=lambda c: (-(-n_chains * B // clusters[c]), -c))
+
+
 def _plan(B: int, n_chains: int, H: int, dtype: torch.dtype, sms: int,
-          path: str | None = None, clusters: dict | None = None) -> tuple[str, int | tuple]:
+          path: str | None = None, clusters: dict | None = None,
+          routes: tuple = FORWARD_ROUTES) -> tuple[str, int | tuple]:
     """The forward kernel and tile for B sequences on each of `n_chains` chains -> (path, tile).
 
     For H a multiple of 16 up to MMA_MAX_HIDDEN the tensor cores: "mma"
@@ -202,12 +293,22 @@ def _plan(B: int, n_chains: int, H: int, dtype: torch.dtype, sms: int,
     for float32, by `_tf32_tile` from `clusters`, {C: clusters of C blocks
     the card holds at once}, which the caller queries. "fma" (tile R
     sequences per group of the FMA kernel) for every other call: the largest
-    R in 4, 2, 1 that still gives every SM a block. `path` forces one (the
-    FMA path at a shape that would take the tensor cores, to time both);
-    forcing a tensor-core path where it cannot run raises. The GRU wrapper
-    plans with this function too.
+    R in 4, 2, 1 that still gives every SM a block. Where no tensor-core path
+    runs and the calling wrapper's `routes` hold "cluster" (the LSTM's
+    ROUTES), "cluster" (tile (1, C)) by `_cluster_tile` from `clusters`, the
+    cluster kernel's counts, for few sequences at H = 256, 384 or 512.
+    `path` forces one (the FMA path at a shape that would take another, to
+    time both); forcing a path where it cannot run raises, "cluster" also
+    from a wrapper whose routes lack it. The GRU wrapper plans with this
+    function too, with FORWARD_ROUTES.
     """
     natural = _tensor_core_path(H, dtype)
+    if path == "cluster" or (path is None and natural is None and "cluster" in routes):
+        if "cluster" not in routes:
+            raise ValueError(f"this wrapper has no cluster kernel (routes {routes})")
+        tile = _cluster_tile(B, n_chains, H, dtype, clusters, forced=path == "cluster")
+        if tile is not None:
+            return "cluster", tile
     path = path or natural or "fma"
     if path in ("mma", "tf32x3") and path != natural:
         kind = {"mma": "bfloat16", "tf32x3": "float32"}[path]
@@ -287,26 +388,31 @@ def _tf32_tile(B: int, n_chains: int, H: int, clusters: dict | None,
 
 
 def _tile_args(tile) -> tuple[int, int]:
-    """A plan's tile as the C entry points take it: (tile, cluster); cluster 1 off tf32x3."""
+    """A plan's tile as the C entry points take it: (tile, cluster); cluster 1 off the
+    cluster kernels (tf32x3 and its backward, cluster)."""
     return tile if isinstance(tile, tuple) else (tile, 1)
 
 
-def _co_resident_clusters(fn, H: int, device: torch.device) -> dict:
-    """{C: clusters of C blocks of the 3xTF32 kernel at H that the card holds at once}.
+def _co_resident_clusters(fn, H: int, device: torch.device, sizes=None,
+                          required: bool = True) -> dict:
+    """{C: clusters of C blocks of a cluster kernel at H that the card holds at once}.
 
     `fn` is the library's query (cudaOccupancyMaxActiveClusters, each block
-    on an SM of its own), asked once per card, H and C.
+    on an SM of its own), asked once per card, H and C, for the C in `sizes`
+    (default: the 3xTF32 kernels' sizes that H admits). `required`: a count
+    under 1 raises; else it is recorded (a card may have no GPC with 16 free
+    SMs).
     """
+    if sizes is None:
+        sizes = [c for c in TF32_CLUSTER_SIZES if H % (8 * c) == 0]
     with torch.cuda.device(device):
         key = (fn.__name__, torch.cuda.current_device(), H)
         if key not in _CLUSTERS:
             counts = {}
-            for c in TF32_CLUSTER_SIZES:
-                if H % (8 * c):
-                    continue
+            for c in sizes:
                 n = ctypes.c_int(0)
                 err = fn(H, c, ctypes.byref(n))
-                if err != 0 or n.value < 1:
+                if err != 0 or (required and n.value < 1):
                     raise RuntimeError(f"{fn.__name__}(H = {H}, C = {c}) failed: cudaError "
                                        f"{err}, {n.value} clusters")
                 counts[c] = n.value
@@ -314,24 +420,35 @@ def _co_resident_clusters(fn, H: int, device: torch.device) -> dict:
     return _CLUSTERS[key]
 
 
-def _plan_launch(clusters_of, chains, path, backward=False):
+def _needs_clusters(H: int, dtype: torch.dtype, path: str | None, backward: bool = False,
+                    routes: tuple = FORWARD_ROUTES) -> bool:
+    """Whether a plan at H in `dtype` (forced to `path`, if given) may take a cluster
+    kernel, so that the caller must ask the card for its co-resident clusters."""
+    natural = _tensor_core_path(H, dtype, backward)
+    if (path or natural) in ("tf32x3", "tf32x2"):
+        return True
+    return (not backward and "cluster" in routes and path in (None, "cluster")
+            and natural is None and bool(_cluster_sizes(H, dtype)))
+
+
+def _plan_launch(clusters_of, chains, path, backward=False, routes=FORWARD_ROUTES):
     """Plan one launch over validated chains (xw, w_hh, ...) -> (B, T, H, path, tile).
 
-    The forward's, or the backward's if `backward`.
-    `clusters_of(H, device)` is that kernel's cluster count, asked only where
-    a cluster kernel runs. The GRU wrapper plans its launches with this
-    function too.
+    The forward's (over the wrapper's `routes`), or the backward's if
+    `backward`. `clusters_of(H, device)` is the count of the cluster kernel
+    that runs at H, asked only where one may run. The GRU wrapper plans its
+    launches with this function too.
     """
     xw0 = chains[0][0]
     B, T, _ = xw0.shape
     H = chains[0][1].shape[0]
     sms = torch.cuda.get_device_properties(xw0.device).multi_processor_count
     clusters = None
-    if (path or _tensor_core_path(H, xw0.dtype, backward)) in ("tf32x3", "tf32x2"):
+    if _needs_clusters(H, xw0.dtype, path, backward, routes):
         clusters = clusters_of(H, xw0.device)
     if backward:
         return (B, T, H, *_plan_bwd(B, len(chains), H, xw0.dtype, sms, path, clusters))
-    return (B, T, H, *_plan(B, len(chains), H, xw0.dtype, sms, path, clusters))
+    return (B, T, H, *_plan(B, len(chains), H, xw0.dtype, sms, path, clusters, routes))
 
 
 def _library():
@@ -345,6 +462,10 @@ def _library():
         lib.lstm_scan_bidir_launch.restype = i
         lib.lstm_scan_tf32_clusters.argtypes = [i, i, ctypes.POINTER(i)]
         lib.lstm_scan_tf32_clusters.restype = i
+        lib.lstm_scan_cluster_clusters.argtypes = [i, i, ctypes.POINTER(i)]
+        lib.lstm_scan_cluster_clusters.restype = i
+        lib.lstm_scan_cluster_floor_launch.argtypes = [p] * 6 + [i] * 5 + [p]
+        lib.lstm_scan_cluster_floor_launch.restype = i
         _LIB = lib
     return _LIB
 
@@ -372,6 +493,19 @@ def build() -> None:
 def _tf32_clusters(H: int, device) -> dict:
     """{C: clusters of C blocks of this wrapper's 3xTF32 kernel at H the card holds at once}."""
     return _co_resident_clusters(_library().lstm_scan_tf32_clusters, H, torch.device(device))
+
+
+def _cluster_counts(H: int, device) -> dict:
+    """{C: clusters of C blocks of the cluster kernel at H the card holds at once}, for
+    each C that H admits; 0 where no GPC has C free SMs."""
+    return _co_resident_clusters(_library().lstm_scan_cluster_clusters, H, torch.device(device),
+                                 sizes=_cluster_sizes(H), required=False)
+
+
+def _forward_clusters(H: int, device) -> dict:
+    """The co-resident clusters of the forward cluster kernel that runs at H: the 3xTF32
+    kernel's up to MMA_MAX_HIDDEN, the cluster kernel's above."""
+    return _tf32_clusters(H, device) if H <= MMA_MAX_HIDDEN else _cluster_counts(H, device)
 
 
 def build_backward() -> None:
@@ -430,27 +564,78 @@ def _launch(name: str, fn, pointers, dtype, B, T, H, device, *plan) -> None:
     LAUNCHES[name] += 1
 
 
-def _forward_cuda(chains, with_cs: bool, path: str | None = None):
-    """Launch the forward kernel over one or two (xw, w_hh) chains -> (hs list, cs list).
+def _staged_forward(chains, with_cs: bool, path: str | None = None, cluster: int | None = None):
+    """Plan the forward kernel over one or two (xw, w_hh) chains and allocate its outputs
+    -> (hs list, cs list, a call that launches it into them).
 
-    `path` forces a path of `_plan` (only chip_smoke.py passes it, to time
-    the FMA kernel where a tensor-core one would run).
+    `path` forces a path of `_plan`, and `cluster` the cluster size of the
+    cluster path (only chip_smoke.py passes them, to time the FMA kernel where
+    another one would run, and both cluster sizes).
     """
     name = "lstm_scan" if len(chains) == 1 else "lstm_scan_bidir"
     _check_chains(name, chains)
     xw0 = chains[0][0]
     lib = _library()
-    B, T, H, path, tile = _plan_launch(_tf32_clusters, chains, path)
+    B, T, H, path, tile = _plan_launch(_forward_clusters, chains, path, routes=ROUTES)
+    if cluster is not None:
+        counts = _cluster_counts(H, xw0.device)
+        if path != "cluster" or counts.get(cluster, 0) < 1:
+            raise ValueError(f"no cluster path on {cluster} blocks here: {path}, {counts}")
+        tile = (1, cluster)
     hs = [torch.empty((B, T, H), dtype=xw0.dtype, device=xw0.device) for _ in chains]
     cs = [torch.empty_like(h) for h in hs] if with_cs else []
     fn = lib.lstm_scan_launch if len(chains) == 1 else lib.lstm_scan_bidir_launch
-    pointers = ([c[0].data_ptr() for c in chains] + [c[1].data_ptr() for c in chains]
-                + [h.data_ptr() for h in hs]
-                + ([c.data_ptr() for c in cs] if with_cs else [None] * len(chains)))
-    _launch(name, fn, pointers, xw0.dtype, B, T, H, xw0.device, _PATH_CODE[path],
-            *_tile_args(tile))
-    PATH_LAUNCHES[name][path] += 1
+
+    def launch():  # reads `chains`, `hs` and `cs`, so the arrays live as long as the call
+        pointers = ([c[0].data_ptr() for c in chains] + [c[1].data_ptr() for c in chains]
+                    + [h.data_ptr() for h in hs]
+                    + ([c.data_ptr() for c in cs] if with_cs else [None] * len(chains)))
+        _launch(name, fn, pointers, xw0.dtype, B, T, H, xw0.device, _PATH_CODE[path],
+                *_tile_args(tile))
+        PATH_LAUNCHES[name][path] += 1
+
+    return hs, cs, launch
+
+
+def _forward_cuda(chains, with_cs: bool, path: str | None = None):
+    """Launch the forward kernel over one or two (xw, w_hh) chains -> (hs list, cs list).
+
+    `path` forces a path of `_plan` (only chip_smoke.py passes it, to time
+    the FMA kernel where another one would run).
+    """
+    hs, cs, launch = _staged_forward(chains, with_cs, path)
+    launch()
     return hs, cs
+
+
+def _staged_cluster_floor(chains, cluster: int):
+    """The cluster kernel's serial floor over one or two (xw, w_hh) chains on clusters of
+    `cluster` blocks -> (hs list, a call that launches it into them; not counted).
+
+    The same kernel with its product compiled out: every step's reduction,
+    cell update and exchange of h, which no product can make shorter.
+    Its hs are not the recurrence's. chip_smoke.py times it beside the kernel.
+    """
+    _check_chains("lstm_scan_cluster_floor", chains)
+    xw0 = chains[0][0]
+    B, T, _ = xw0.shape
+    H = chains[0][1].shape[0]
+    if cluster_layout(H, cluster, xw0.dtype) is None:
+        raise ValueError(f"the cluster kernel does not take H = {H} on {cluster} blocks")
+    hs = [torch.empty((B, T, H), dtype=xw0.dtype, device=xw0.device) for _ in chains]
+    fn = _library().lstm_scan_cluster_floor_launch
+
+    def launch():
+        pointers = [c[0].data_ptr() for c in chains] + [None] * (2 - len(chains))
+        pointers += [c[1].data_ptr() for c in chains] + [None] * (2 - len(chains))
+        pointers += [h.data_ptr() for h in hs] + [None] * (2 - len(chains))
+        with torch.cuda.device(xw0.device):
+            err = fn(*pointers, _DTYPE_CODE[xw0.dtype], B, T, H, cluster,
+                     torch.cuda.current_stream(xw0.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"lstm_scan_cluster_floor launch failed: cudaError {err}")
+
+    return hs, launch
 
 
 def _staged_gates(xw: torch.Tensor, w_hh: torch.Tensor, h_prev: torch.Tensor) -> torch.Tensor:

@@ -27,7 +27,9 @@ from dnn_based_source_separation_tpu.ops.segment import segment_padding as j_seg
 
 ATOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 JDTYPE = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
-SHAPES = [(5, 37, 8), (3, 1, 12), (16, 23, 32)]  # (B, T, H): odd, T=1, wider
+# (B, T, H): odd, T=1, wider; and one sequence at musdb18 UMX's widths (H = 256 a
+# direction, 512 causal), which the card runs on the cluster kernel.
+SHAPES = [(5, 37, 8), (3, 1, 12), (16, 23, 32), (1, 8, 256), (1, 8, 512)]
 
 
 @pytest.fixture(autouse=True)

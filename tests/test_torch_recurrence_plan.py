@@ -1,12 +1,16 @@
 """The recurrence wrappers' launch plans: which forward kernel and which tile (CPU).
 
-`_plan` is pure Python: from the dtype and the shape it picks a tensor-core
-kernel ("mma" in bf16, "tf32x3" in f32, M-row tiles) or the FMA kernel
-("fma", R sequences per group) before the launch. On the card chip_smoke.py
-checks that every bf16 recurrence of the served and trained models took
-"mma", every f32 one "tf32x3" and none "fma"; here the rule itself is held,
-at an H100's 132 SMs and given numbers of co-resident clusters of 2 and 4
-blocks (the tf32x3 tile is (M, C): M rows on a cluster of C blocks).
+`_plan` is pure Python: from the dtype, the shape, the card's co-resident
+clusters and the calling wrapper's routes it picks a tensor-core kernel
+("mma" in bf16, "tf32x3" in f32, M-row tiles), the LSTM's cluster kernel
+("cluster", one sequence on a cluster of C blocks, for few sequences at
+H = 256, 384 and 512) or the FMA kernel ("fma", R sequences per group)
+before the launch. On the card chip_smoke.py checks that every bf16
+recurrence of the wsj0 models took "mma", every f32 one "tf32x3", musdb18's
+UMX "cluster", and none "fma"; here the rule itself is held, at an H100's
+132 SMs and given numbers of co-resident clusters (2 and 4 blocks for the
+3xTF32 kernel, whose tile is (M, C): M rows on a cluster of C blocks; 8 and
+16 for the cluster kernel).
 """
 import pytest
 import torch
@@ -18,12 +22,22 @@ SMS = 132
 # Clusters of C blocks of the 3xTF32 kernel an H100 holds at once, one block an
 # SM, as chip_smoke.py read them from the card.
 CLUSTERS = {2: 66, 4: 30}
+# Clusters of C blocks of the cluster kernel an H100 holds at once (H = 256:
+# C = 8 and 16; above, 16), as chip_smoke.py phase 3h read them from the card.
+BIG_CLUSTERS = {8: 15, 16: 7}
 BF16, F32 = torch.bfloat16, torch.float32
 WRAPPERS = pytest.mark.parametrize("wrapper", [ls, gs], ids=["lstm", "gru"])
 
 
 def _blocks(B, n_chains, tile):
     return n_chains * -(-B // tile)
+
+
+def _clusters(H):
+    """The counts the wrapper would ask the card for at H: the 3xTF32 kernel's up to 128,
+    the cluster kernel's above."""
+    return CLUSTERS if H <= 128 else {c: n for c, n in BIG_CLUSTERS.items()
+                                      if ls.cluster_layout(H, c)}
 
 
 @WRAPPERS
@@ -50,18 +64,17 @@ def test_bf16_at_h_multiple_of_16_up_to_128_takes_the_tensor_cores(wrapper, B, n
 @WRAPPERS
 @pytest.mark.parametrize("B,n_chains,H,dtype,R", [
     (37, 2, 40, F32, 1),
-    (64, 2, 256, F32, 1),
     (4096, 1, 512, F32, 4),
     (37, 2, 40, BF16, 1),
-    (64, 2, 256, BF16, 1),
     (400, 2, 256, BF16, 2),
-    (16, 2, 512, BF16, 1),
-], ids=["f32-H=40", "f32-H=256", "f32-H=512", "bf16-H=40", "bf16-H=256", "bf16-H=256-R2",
-        "bf16-H=512"])
+], ids=["f32-H=40", "f32-H=512", "bf16-H=40", "bf16-H=256-R2"])
 def test_other_calls_take_the_fma_kernel_with_its_tile(wrapper, B, n_chains, H, dtype, R):
     # The FMA kernel's rule, unchanged: groups = min(4, 256 / (H / 2)) of R
     # sequences a block, the largest R in 4, 2, 1 that gives every SM a block.
-    assert wrapper._plan(B, n_chains, H, dtype, SMS, clusters=CLUSTERS) == ("fma", R)
+    # (H = 256 and 512 past CLUSTER_MAX_BATCH sequences: the cluster kernel's
+    # calls are in the tests below.)
+    assert wrapper._plan(B, n_chains, H, dtype, SMS, clusters=_clusters(H),
+                         routes=wrapper.ROUTES) == ("fma", R)
     groups = min(4, 256 // (H // 2))
     assert _blocks(B, n_chains, groups * R) >= SMS or R == 1
     if R < 4:
@@ -134,7 +147,8 @@ def test_tf32x3_needs_the_cards_cluster_count(wrapper, clusters):
 
 
 @pytest.mark.parametrize("tile,args", [(32, (32, 1)), (4, (4, 1)), ((64, 2), (64, 2)),
-                                       ((16, 4), (16, 4))], ids=["mma", "fma", "tf32x3", "C=4"])
+                                       ((16, 4), (16, 4)), ((1, 8), (1, 8)), ((1, 16), (1, 16))],
+                         ids=["mma", "fma", "tf32x3", "C=4", "cluster", "cluster-C=16"])
 def test_a_tile_goes_to_the_c_entry_points_with_its_cluster(tile, args):
     assert ls._tile_args(tile) == args
 
@@ -150,6 +164,99 @@ def test_forcing_the_tensor_cores_where_they_cannot_run_raises(wrapper, H, dtype
 def test_both_wrappers_plan_by_one_rule():
     assert gs._plan is ls._plan
     assert gs._plan_launch is ls._plan_launch
+
+
+# The cluster kernel (csrc/recurrence_cluster.cuh), the LSTM's only: few sequences
+# at H = 256, 384 or 512 take it, each on a cluster of C blocks, C the one that
+# runs the grid in the fewest waves, then the larger; past CLUSTER_MAX_BATCH
+# sequences, and in the GRU wrapper, the FMA kernel.
+def _fma(B, n_chains, H):
+    return "fma", ls._fma_tile(B, n_chains, H, SMS)
+
+
+@WRAPPERS
+@pytest.mark.parametrize("B,n_chains,H,dtype,C", [
+    (1, 2, 256, F32, 16),  # UMX / X-UMX serving: a 10 s chunk, bidirectional layers
+    (1, 1, 512, F32, 16),  # causal UMX serving
+    (1, 2, 256, BF16, 16),
+    (1, 1, 512, BF16, 16),
+    (3, 2, 256, F32, 16),
+    (4, 2, 256, F32, 8),  # 8 clusters: one wave of 8 blocks, two of 16
+    (1, 1, 384, F32, 16),  # one row block of W_hh in shared memory
+    (64, 2, 256, F32, 8),  # nine waves of 8-block clusters
+    (64, 2, 256, BF16, 8),
+    (16, 2, 512, BF16, 16),  # five waves of 16-block clusters
+], ids=["umx", "causal-umx", "umx-bf16", "causal-umx-bf16", "B=3", "B=4", "H=384", "f32-H=256",
+        "bf16-H=256", "bf16-H=512"])
+def test_few_sequences_at_h_256_to_512_take_the_cluster_kernel_in_the_lstm(
+        wrapper, B, n_chains, H, dtype, C):
+    got = wrapper._plan(B, n_chains, H, dtype, SMS, clusters=_clusters(H), routes=wrapper.ROUTES)
+    if wrapper is gs:  # no cluster kernel in the GRU's library
+        assert got == _fma(B, n_chains, H)
+        return
+    assert got == ("cluster", (1, C))
+    waves = {c: -(-n_chains * B // n) for c, n in _clusters(H).items()}
+    assert waves[C] == min(waves.values())
+    assert all(waves[c] > waves[C] or c < C for c in waves if c != C)
+
+
+@WRAPPERS
+@pytest.mark.parametrize("n_chains,H", [(2, 256), (1, 512), (1, 384)],
+                         ids=["umx", "causal-umx", "H=384"])
+def test_the_crossover_batch_goes_back_to_fma(wrapper, n_chains, H):
+    B = ls.CLUSTER_MAX_BATCH
+    at, past = (wrapper._plan(b, n_chains, H, F32, SMS, clusters=_clusters(H),
+                              routes=wrapper.ROUTES) for b in (B, B + 1))
+    assert past == _fma(B + 1, n_chains, H)
+    assert at[0] == ("cluster" if wrapper is ls else "fma")
+
+
+@pytest.mark.parametrize("clusters,H,want", [
+    ({8: 15}, 256, ("cluster", (1, 8))),
+    ({8: 15, 16: 0}, 256, ("cluster", (1, 8))),
+    ({16: 7}, 256, ("cluster", (1, 16))),
+    (BIG_CLUSTERS, 256, ("cluster", (1, 16))),
+    ({16: 0}, 512, ("fma", 1)),
+    ({}, 256, ("fma", 1)),
+    (None, 256, ("fma", 1)),
+], ids=["no-16", "16-zero", "no-8", "both", "H=512-no-16", "none", "unasked"])
+def test_the_cluster_size_follows_the_cards_counts(clusters, H, want):
+    assert ls._plan(1, 2 if H == 256 else 1, H, F32, SMS, clusters=clusters,
+                    routes=ls.ROUTES) == want
+
+
+@pytest.mark.parametrize("B,n_chains,H,C", [(256, 2, 256, 8), (256, 1, 512, 16), (8, 2, 256, 8)],
+                         ids=["H=256", "H=512", "B=8"])
+def test_the_cluster_path_can_be_forced_past_the_crossover(B, n_chains, H, C):
+    assert ls._plan(B, n_chains, H, F32, SMS, "cluster", _clusters(H), ls.ROUTES) == (
+        "cluster", (1, C))
+
+
+@pytest.mark.parametrize("H,dtype,clusters", [
+    (128, F32, BIG_CLUSTERS), (128, BF16, BIG_CLUSTERS), (64, F32, BIG_CLUSTERS),
+    (40, F32, BIG_CLUSTERS), (320, F32, BIG_CLUSTERS), (512, F32, {8: 15}),
+    (256, F32, None), (256, F32, {8: 0, 16: 0}),
+], ids=["H=128", "H=128-bf16", "H=64", "H=40", "H=320", "H=512-no-16", "unasked", "zero"])
+def test_forcing_the_cluster_path_where_it_cannot_run_raises(H, dtype, clusters):
+    with pytest.raises(ValueError):
+        ls._plan(1, 2, H, dtype, SMS, "cluster", clusters, ls.ROUTES)
+
+
+def test_forcing_the_cluster_path_from_the_gru_wrapper_raises():
+    assert "cluster" in ls.ROUTES and "cluster" not in gs.ROUTES
+    with pytest.raises(ValueError):
+        gs._plan(1, 2, 256, F32, SMS, "cluster", BIG_CLUSTERS, gs.ROUTES)
+
+
+@pytest.mark.parametrize("H,dtype,path,routes,want", [
+    (256, F32, None, ls.ROUTES, True), (512, BF16, None, ls.ROUTES, True),
+    (256, F32, None, gs.ROUTES, False), (256, F32, "fma", ls.ROUTES, False),
+    (40, F32, None, ls.ROUTES, False), (128, F32, None, ls.ROUTES, True),
+    (128, BF16, None, ls.ROUTES, False),
+], ids=["umx", "causal-bf16", "gru", "forced-fma", "H=40", "tf32x3", "mma"])
+def test_the_wrapper_asks_the_card_for_clusters_only_where_a_cluster_kernel_may_run(
+        H, dtype, path, routes, want):
+    assert ls._needs_clusters(H, dtype, path, routes=routes) is want
 
 
 # The backward: `_plan_bwd` picks the split-TF32 tensor-core kernel ("tf32x3" in

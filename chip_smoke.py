@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only 6s       # phases 1 and 2, then streaming ms per hop
     python3 chip_smoke.py --only 11       # phases 1 and 2, then musdb18 serving
     python3 chip_smoke.py --only 3h       # phases 1 and 2, then the cluster route
+    python3 chip_smoke.py --only 12       # phases 1 and 2, then musdb18 training
 
 Phases (any failure exits non-zero; nothing is caught and passed):
   1. device: require CUDA, print the card's name and power limit, turn TF32 off;
@@ -37,7 +38,9 @@ Phases (any failure exits non-zero; nothing is caught and passed):
   3d. the training forward (cs written; the tensor-core paths) and the
      backward kernels of lstm_scan_bidir and lstm_scan under autograd against
      the plain forward and lstm_scan_bwd_reference, f32 and bf16, at the recipe
-     training shapes (B = 2 x 4 s, timed), an odd shape, T=1 and H=256. Each
+     training shapes (B = 2 x 4 s, timed), an odd shape, T=1, H=256 and musdb18
+     training's (B = 16, T = 259, H = 256: the forward on "cluster", the backward on
+     "fma", its f32 two-chain backward timed whole and alone). Each
      backward launch must take the path _plan_bwd gives: for H a multiple of
      16 up to 128 the split-TF32 tensor cores ("tf32x3" in f32, "tf32x2" in
      bf16; clusters of 2 or 4 blocks), the FMA kernel otherwise. Where the
@@ -54,12 +57,15 @@ Phases (any failure exits non-zero; nothing is caught and passed):
      unbiased over 64 seeds;
   3g. the library calls beside the recurrence kernels (informational):
      cuDNN's nn.LSTM / nn.GRU forward and backward, f32 and bf16, at the
-     kernels' timed shapes, input projection included; the port never calls
-     them;
+     kernels' timed shapes, input projection included, and nn.LSTM at musdb18
+     training's shape (F = 512, H = 256, B = 16, T = 259, f32); torch.einsum on
+     bf16 operands at fused_mask_decode's timed shapes (a bf16 output); the port
+     never calls them;
   3h. the cluster route of lstm_scan_bidir and lstm_scan (csrc/recurrence_cluster.cuh)
      against the plain versions, f32 and bf16, on every cluster size the card
      holds (8 and 16 blocks at H = 256, 16 above): at UMX's serving shapes (B = 1,
-     T = 431; H = 256 on two chains, 512 on one), at B = 3, H = 384 and T = 1;
+     T = 431; H = 256 on two chains, 512 on one), at musdb18 training's (B = 16,
+     T = 259, H = 256, two chains; timed with cs), at B = 3, H = 384 and T = 1;
      hs alone and with cs, each launch repeated and checked; the plan must take
      "cluster" at UMX's shapes. At those shapes it is timed from CUDA graphs,
      the FMA kernel forced in the same run (FMA, cluster, cluster, FMA), beside
@@ -128,7 +134,17 @@ Phases (any failure exits non-zero; nothing is caught and passed):
      the Wiener EM alone card vs CPU within 1e-3 relative, with its time and
      peak memory; per-chunk forward, Wiener and iSTFT ms, audio-s/s; causal
      UMX (12 lstm_scan launches, H = 512, all on the cluster kernel) over one
-     chunk card vs CPU; the bench's `--model umx` and `--model xumx` lines.
+     chunk card vs CPU; the bench's `--model umx` and `--model xumx` lines;
+  12. musdb18 training at the recipe widths (the train CLI's defaults: n_fft 4096,
+     hop 1024, max_bin 1487, hidden 512, 3 layers, four stems, Adam at 1e-3): one UMX
+     and one X-UMX step (dropout 0, B = 4 x 6 s) card vs an f64 CPU step, as phase 7;
+     cli/train_musdb18.py --device cuda for each model on a synthetic musdb-layout
+     corpus, two epochs of 10 steps at B = 16 x 6 s with dropout 0.4 (the epoch's
+     train loss must fall), its last.ckpt served through cli/test_musdb18.py; every
+     step exactly 12 lstm_scan_bidir on "cluster" and 12 backwards on "fma", every
+     validation and serving forward 12 on "cluster", and nothing else; then the recipe
+     step timed (p50 of forward / backward / optimizer by CUDA events, audio-s/s, peak
+     allocation) and profiled (device time by kernel, idle share).
 
 Each serving, quantizing and evaluation path, and the training path of phase
 8, runs with every launch count set to 0 just before it and read just after
@@ -141,7 +157,9 @@ every decode of phases 4-4g, 6, 8 and 10 on its planned fused_mask_decode
 path ("mma" in bf16, "generic" for f32 Conv-TasNet, "rows" for f32
 DPRNN-TasNet). Phase 11's card runs (UMX at B = 1, H = 256 and 512) must
 launch only the cluster kernel, and join the main path's total, which must
-have launched every path but "fma". The last line is {"ok": true, "device":
+have launched every path but "fma"; of the FMA kernels only musdb18 training's
+backward (lstm_scan_bidir_bwd at H = 256, phase 12) runs, and it must. The last line
+is {"ok": true, "device":
 {...}}; the line before it lists the kernels with their launch counts,
 errors, times, bounds and library times: fused_mask_decode six times
 (Conv-TasNet's and DPRNN-TasNet's decoder widths and a streamed Conv-TasNet
@@ -157,7 +175,11 @@ forwards and every backward also with the FMA kernel's bound as
 `fma_kernel_ms` and `kernel_bound_ms`); and lstm_scan_bidir and lstm_scan once
 more at UMX's shapes (B = 1, T = 431; H = 256 and 512), on the cluster kernel,
 with phase 11's launches, phase 3h's times, the FMA kernel's (`fma_ms`), the
-other cluster size's (`c8_ms` or `c16_ms`) and the serial floor's (`floor_ms`).
+other cluster size's (`c8_ms` or `c16_ms`) and the serial floor's (`floor_ms`);
+lstm_scan_bidir at musdb18 training's shape on the cluster kernel with cs, and its
+backward there on the FMA kernel (the whole backward as `ms`, the kernel alone as
+`kernel_ms`), with phase 12's launches. The bf16 fused_mask_decode rows' `library_ms` is
+torch.einsum on bf16 operands, whose output is bf16 (the kernel's is f32).
 """
 from __future__ import annotations
 
@@ -185,6 +207,7 @@ from dnn_based_source_separation_torch.bench import (
 from dnn_based_source_separation_torch.cli import separate as cli
 from dnn_based_source_separation_torch.cli import test_musdb18 as musdb_cli
 from dnn_based_source_separation_torch.cli import test_wsj0mix as test_cli
+from dnn_based_source_separation_torch.cli import train_musdb18 as musdb_train_cli
 from dnn_based_source_separation_torch.cli import train_wsj0mix as train_cli
 from dnn_based_source_separation_torch.criterion import NegSISDR, PIT1d
 from dnn_based_source_separation_torch.data.audio_io import read_wav, write_wav
@@ -204,7 +227,10 @@ from dnn_based_source_separation_torch.ops import gru_scan as gs
 from dnn_based_source_separation_torch.ops import lstm_scan as ls
 from dnn_based_source_separation_torch.ops import mask_decode as md
 from dnn_based_source_separation_torch.ops import quantize as q8
-from dnn_based_source_separation_torch.train import Evaluater, make_optimizer, make_train_step
+from dnn_based_source_separation_torch.ops.rnn import set_dropout_generator
+from dnn_based_source_separation_torch.train import (
+    Evaluater, Trainer, make_optimizer, make_train_step,
+)
 
 SAMPLE_RATE = 8000
 # PAPER: paper-config Conv-TasNet, N512 L16 S8 B128 H512 Sc128 P3 X8 R3,
@@ -605,7 +631,11 @@ BWD_SHAPES = [
     ("odd", 37, 19, 40),
     ("T=1", 3, 1, 128),
     ("H=256", 64, 33, 256),
+    # musdb18 training of UMX / X-UMX: B = 16 x 6 s, 259 frames, H = 512 // 2 a direction;
+    # the backward's route there is "fma" (the tensor cores stop at H = 128).
+    ("umx-train", 16, 259, 256),
 ]
+UMX_TRAIN_SHAPE = (16, 259, 256)  # B, T, H of BWD_SHAPES' "umx-train"
 BWD_TOL = 1e-4  # f32, relative to max|plain|: the recurrent sums run in another order
 
 
@@ -645,8 +675,8 @@ def check_backward(module, kname, label, grads_of, plain_chains, ref, plain, tim
     path _plan_bwd gives it, against the plain version's `ref`. Where the tensor cores run,
     REPEATS more launches are checked and the FMA kernel is forced and checked too. If
     `timed`, the whole backward (gate recompute, kernel, parameter gradients) and the kernel
-    alone are timed, the FMA kernel and the tensor-core one in turns (FMA, new, new, FMA),
-    and `plain()` -> a timing dict."""
+    alone are timed, the FMA kernel and the tensor-core one in turns (FMA, new, new, FMA;
+    the FMA kernel alone where it is the planned path), and `plain()` -> a timing dict."""
     xw, w_hh = plain_chains[0][:2]
     B, T, _ = xw.shape
     H, dtype = w_hh.shape[0], xw.dtype
@@ -679,23 +709,30 @@ def check_backward(module, kname, label, grads_of, plain_chains, ref, plain, tim
         log(f"    {REPEATS} more {path} launches: worst max|kernel-plain| {worst:.3f} of its limit")
     if not timed:
         return None
-    check(path != "fma", f"{kname} at {label} is timed against the FMA kernel, but runs on it")
     # The staged arrays stay alive with each launch call.
-    calls = {"whole": {p: (lambda p=p: module._backward_cuda(plain_chains, p))
-                       for p in (path, "fma")},
-             "alone": {p: module._staged_backward(plain_chains, p)[1] for p in (path, "fma")}}
+    paths = dict.fromkeys((path, "fma"))
+    calls = {"whole": {p: (lambda p=p: module._backward_cuda(plain_chains, p)) for p in paths},
+             "alone": {p: module._staged_backward(plain_chains, p)[1] for p in paths}}
     ms = {}
     for what, by_path in calls.items():
+        label_of = "whole backward" if what == "whole" else "kernel alone"
+        if path == "fma":
+            ms[what] = (median_ms(by_path["fma"], warmup=2, iters=10),)
+            log(f"    {label_of}: fma {ms[what][0]:.4f} ms")
+            continue
         fma_1, new_1, new_2, fma_2 = (median_ms(by_path[p], warmup=2, iters=10)
                                       for p in ("fma", path, path, "fma"))
         ms[what] = ((new_1 + new_2) / 2, (fma_1 + fma_2) / 2)
-        log(f"    {'whole backward' if what == 'whole' else 'kernel alone'}: {path} "
-            f"{new_1:.4f} / {new_2:.4f} ms between FMA {fma_1:.4f} / {fma_2:.4f} ms")
+        log(f"    {label_of}: {path} {new_1:.4f} / {new_2:.4f} ms between FMA {fma_1:.4f} / "
+            f"{fma_2:.4f} ms")
     plain_ms = median_ms(plain, warmup=1, iters=3)
     log(f"    plain {plain_ms:.4f} ms (medians of 10, 10 and 3, CUDA events)")
-    return dict(max_abs_err=errs[path], fma_max_abs_err=errs["fma"], ms=ms["whole"][0],
-                fma_ms=ms["whole"][1], kernel_ms=ms["alone"][0], fma_kernel_ms=ms["alone"][1],
-                plain_ms=plain_ms)
+    timing = dict(max_abs_err=errs[path], ms=ms["whole"][0], kernel_ms=ms["alone"][0],
+                  plain_ms=plain_ms)
+    if path != "fma":
+        timing.update(fma_max_abs_err=errs["fma"], fma_ms=ms["whole"][1],
+                      fma_kernel_ms=ms["alone"][1])
+    return timing
 
 
 def phase_lstm_bwd():
@@ -745,7 +782,9 @@ def phase_lstm_bwd():
                     ls, kname, f"{name} (B={B}, T={T}, H={H}) {str(dtype)[6:]}", grads_of,
                     plain_chains, ref,
                     lambda: [ls.lstm_scan_bwd_reference(*c) for c in plain_chains],
-                    timed=name in ("intra", "inter"))
+                    timed=name in ("intra", "inter") or (
+                        name == "umx-train" and kname == "lstm_scan_bidir_bwd"
+                        and dtype == torch.float32))
                 if timing is not None:
                     result[(kname, name, dtype)] = timing
     # fused_mask_decode has no backward (as in JAX): it refuses autograd on the
@@ -870,7 +909,9 @@ RNN_FEATURES = DPRNN["sep_bottleneck_channels"]
 
 def phase_library():
     """cuDNN's nn.LSTM / nn.GRU at the recurrence kernels' timed shapes (informational):
-    the forward and the backward, in f32 and bf16.
+    the forward and the backward, in f32 and bf16; nn.LSTM at musdb18 training's shape
+    (UMX's biLSTM, B = 16 x 6 s, F = 512, H = 256, f32); and torch.einsum on bf16
+    operands at fused_mask_decode's timed shapes (its output is bf16, the kernel's f32).
 
     One PyTorch call each: the module's forward, or torch.autograd.grad of
     its output for the backward rows. Both also do the input projection
@@ -881,12 +922,16 @@ def phase_library():
     H = DPRNN["sep_hidden_channels"]
     rows = [(row, shape, torch.float32) for row, shape in LIBRARY_SHAPES.items()]
     rows += [(row, shape, torch.bfloat16) for row, shape in LIBRARY_SHAPES.items()]
+    B, T, H_umx = UMX_TRAIN_SHAPE
+    umx_rows = [(f"umx_train{sfx}", (B, T, 2), torch.float32, UMX["hidden_channels"], H_umx)
+                for sfx in ("", "_bwd")]
     for rnn, cls in (("lstm", torch.nn.LSTM), ("gru", torch.nn.GRU)):
-        for row, (B, T, chains), dtype in rows:
-            module = cls(RNN_FEATURES, H, batch_first=True, bidirectional=chains == 2,
+        for row, (B, T, chains), dtype, F, H_row in [
+                (*r, RNN_FEATURES, H) for r in rows] + (umx_rows if rnn == "lstm" else []):
+            module = cls(F, H_row, batch_first=True, bidirectional=chains == 2,
                          device="cuda", dtype=dtype)
             gen = torch.Generator(device="cuda").manual_seed(B + T)
-            x = torch.randn(B, T, RNN_FEATURES, device="cuda", generator=gen).to(dtype)
+            x = torch.randn(B, T, F, device="cuda", generator=gen).to(dtype)
             if row.endswith("bwd"):
                 x.requires_grad_()
                 y = module(x)[0]
@@ -899,8 +944,17 @@ def phase_library():
                     ms = median_ms(lambda: module(x), warmup=2, iters=10)
             result[f"{rnn}_{row}" + ("_bf16" if dtype == torch.bfloat16 else "")] = ms
             log(f"  {cls.__name__} {'backward' if row.endswith('bwd') else 'forward'} "
-                f"{str(dtype)[6:]} (B={B}, T={T}, F={RNN_FEATURES}, H={H}, {chains} chain(s)): "
+                f"{str(dtype)[6:]} (B={B}, T={T}, F={F}, H={H_row}, {chains} chain(s)): "
                 f"{ms:.4f} ms (median of 10, CUDA events)")
+    for which, shape in DECODE_SHAPES.items():
+        w, mask, kernel = kernel_inputs(**shape, dtype=torch.bfloat16, strided=True, seed=0)
+        ref = md.fused_mask_decode_reference(w, mask, kernel)
+        err = float((mask_decode_library(w, mask, kernel).float() - ref).abs().max())
+        ms = median_ms(lambda: mask_decode_library(w, mask, kernel))
+        result[f"einsum_bf16/{which}"] = ms
+        log(f"  torch.einsum on bf16 operands at fused_mask_decode's {which} {shape}: "
+            f"{ms:.4f} ms (median of 20, CUDA events); bf16 output, max|einsum - plain f32| "
+            f"{err:.3e} of max|plain| {float(ref.abs().max()):.3e}")
     return result
 
 
@@ -915,7 +969,10 @@ CLUSTER_CASES = [
     ("B=3", 3, 57, 512, 1),
     ("H=384", 1, 57, 384, 1),
     ("T=1", 1, 1, 256, 2),
+    ("UMX train", *UMX_TRAIN_SHAPE[:2], UMX_TRAIN_SHAPE[2], 2),  # musdb18 training, with cs
 ]
+# The cases timed, and whether with cs (the training forward).
+TIMED_CLUSTER_CASES = {"UMX": False, "causal UMX": False, "UMX train": True}
 CROSSOVER_BATCHES = (1, 2, 4, 8, 16, 64, 128, 256, 512, 1024)  # cluster against FMA, f32
 LIBRARY_ITERS = 50  # cuDNN's time at B = 1 spread 1.7x between calls on an H100 (PERF.md)
 CLUSTER_REPEATS = 5  # launches in a timed CUDA graph
@@ -971,7 +1028,7 @@ def phase_cluster(card=None):
             inputs = lstm_chains(B, T, H, chains, dtype, seed=B + T + H)
             path, tile = plan(ls, B, chains, H, dtype)
             what = f"{name} {label} (B={B}, T={T}, H={H}) {str(dtype)[6:]}"
-            if label in ("UMX", "causal UMX"):
+            if label in TIMED_CLUSTER_CASES:
                 check(path == "cluster", f"{what} planned {path}, expected cluster")
             if path == "cluster":  # through the public wrapper, as the models call it
                 call = ((lambda: ls.lstm_scan_bidir(inputs[0][0], inputs[1][0], inputs[0][1],
@@ -1000,37 +1057,40 @@ def phase_cluster(card=None):
                         f"worst of {1 + REPEATS} launches {worst:.3e} (limit {limit:.3g}) "
                         f"{'ok' if ok else 'FAIL'}")
                     check(ok, f"{what} on {c}-block clusters disagrees with plain: {worst}")
-            if label not in ("UMX", "causal UMX"):
+            if label not in TIMED_CLUSTER_CASES or (label == "UMX train" and
+                                                    dtype != torch.float32):
                 continue
-            C = tile[1]
-            fma_hs, _, fma = ls._staged_forward(inputs, False, "fma")
+            C, with_cs = tile[1], TIMED_CLUSTER_CASES[label]
+            fma_hs, fma_cs, fma = ls._staged_forward(inputs, with_cs, "fma")
             on_path(ls.PATH_LAUNCHES[name], name, fma, "fma")
-            fma_err, _ = forward_error(inputs, fma_hs, None, dtype)
-            _, _, kernel = ls._staged_forward(inputs, False, "cluster", C)
+            fma_err, _ = forward_error(inputs, fma_hs, fma_cs if with_cs else None, dtype)
+            _, _, kernel = ls._staged_forward(inputs, with_cs, "cluster", C)
             _, floor = ls._staged_cluster_floor(inputs, C)
             turns = (graph_ms(fma, 1), graph_ms(kernel, CLUSTER_REPEATS),
                      graph_ms(kernel, CLUSTER_REPEATS), graph_ms(fma, 1))
-            timing = dict(cluster=C, max_abs_err=errs[(C, False)], fma_max_abs_err=fma_err,
+            timing = dict(cluster=C, max_abs_err=errs[(C, with_cs)], fma_max_abs_err=fma_err,
                           ms=(turns[1] + turns[2]) / 2, fma_ms=(turns[0] + turns[3]) / 2,
                           floor_ms=graph_ms(floor, CLUSTER_REPEATS))
             for c in sizes:
                 if c != C:
                     timing[f"c{c}_ms"] = graph_ms(
-                        ls._staged_forward(inputs, False, "cluster", c)[2], CLUSTER_REPEATS)
-            timing["plain_ms"] = median_ms(
-                lambda: [ls.lstm_scan_reference(xw, w) for xw, w in inputs], warmup=1, iters=3)
+                        ls._staged_forward(inputs, with_cs, "cluster", c)[2], CLUSTER_REPEATS)
+            plain = ls.lstm_forward_reference if with_cs else ls.lstm_scan_reference
+            timing["plain_ms"] = median_ms(lambda: [plain(xw, w) for xw, w in inputs],
+                                           warmup=1, iters=3)
             timing["library_ms"] = library_lstm_ms(B, T, H, chains, dtype)
-            timing.update(recurrence_bound(B, T, H, 4, chains, dtype=dtype))
+            timing.update(recurrence_bound(B, T, H, 4, chains, cell_state=with_cs, dtype=dtype))
             others = "".join(f", C={k[1:-3]} {v:.4f} ms" for k, v in timing.items()
                              if k.startswith("c") and k.endswith("_ms"))
-            log(f"    cluster (C={C}) {turns[1]:.4f} / {turns[2]:.4f} ms between FMA "
+            log(f"    cluster (C={C}{', with cs' if with_cs else ''}) {turns[1]:.4f} / "
+                f"{turns[2]:.4f} ms between FMA "
                 f"{turns[0]:.4f} / {turns[3]:.4f} ms{others}; serial floor "
                 f"{timing['floor_ms']:.4f} ms ({timing['floor_ms'] / T * 1e3:.3f} us a step "
                 f"against {timing['ms'] / T * 1e3:.3f}); plain {timing['plain_ms']:.4f} ms; "
                 f"cuDNN nn.LSTM {timing['library_ms']:.4f} ms (F={UMX['hidden_channels']}, median "
                 f"of {LIBRARY_ITERS}); bound {timing['bound_ms']:.4f} ms ({timing['bound_by']}) "
                 f"(kernels from CUDA graphs, CUDA events) [{card}]")
-            result[(name, dtype)] = timing
+            result[(name, dtype, label)] = timing
     log(f"  crossover over B, f32, T=431 (kernels from CUDA graphs, medians of 5) [{card}]:")
     crossover = []
     for name, (_, T, H, chains) in UMX_SCAN_SHAPES.items():
@@ -1547,34 +1607,46 @@ def phase_train_parity():
         check(launched == train_step_launches(tag),
               f"{tag}: a train step launched {launched}, expected {train_step_launches(tag)}")
         check_paths(all_counts(), {}, f"{tag}: an f32 train step")
-        zero = [n for n, g in card_grads.items() if g is None or not bool(g.abs().max() > 0)]
-        if zero:
-            raise AssertionError(f"{tag}: gradients all zero or missing on the card: {zero}")
-        card_sq = cpu_sq = ref_sq = 0.0
-        rows = []
-        for n, ref in ref_grads.items():
-            card_d = card_grads[n].cpu().double() - ref
-            cpu_d = cpu_grads[n].double() - ref
-            card_sq += float(card_d.square().sum())
-            cpu_sq += float(cpu_d.square().sum())
-            ref_sq += float(ref.square().sum())
-            scale = float(ref.abs().max()) or 1.0
-            rows.append((float(card_d.abs().max()) / scale, float(cpu_d.abs().max()) / scale, n))
-        rows.sort(reverse=True)
-        card_l2, cpu_l2 = (card_sq / ref_sq) ** 0.5, (cpu_sq / ref_sq) ** 0.5
-        l2_limit = max(GRAD_TOL_L2, 10 * cpu_l2)
-        loss_limit = max(LOSS_TOL * abs(ref_loss), 10 * abs(cpu_loss - ref_loss))
-        log(f"  {tag}: loss card {card_loss:.6f}, CPU f32 {cpu_loss:.6f}, f64 {ref_loss:.6f} "
-            f"(card err {abs(card_loss - ref_loss):.2e}, limit {loss_limit:.2e}); "
-            f"{len(ref_grads)} gradients, none all zero on the card; whole-gradient relative "
-            f"L2 vs f64: card {card_l2:.2e}, CPU f32 {cpu_l2:.2e} (limit {l2_limit:.2e}); "
-            f"launches per step {nonzero(launched)}")
-        for card_rel, cpu_rel, n in rows[:3]:
-            log(f"    {n}: max|card-f64| / max|g| {card_rel:.2e}, CPU f32 {cpu_rel:.2e} "
-                f"(limit {GRAD_TOL_TENSOR:g})")
-        if not (abs(card_loss - ref_loss) <= loss_limit and card_l2 <= l2_limit
-                and rows[0][0] <= GRAD_TOL_TENSOR):
-            raise AssertionError(f"{tag}: card train step disagrees with CPU")
+        check_step_against_f64(tag, (ref_loss, ref_grads), (cpu_loss, cpu_grads),
+                               (card_loss, card_grads), launched)
+
+
+def check_step_against_f64(tag, ref, cpu, card, launched, null_floor=0.0):
+    """A card train step's (loss, gradients) against an f64 CPU step's, beside the f32 CPU
+    step's: the loss within LOSS_TOL relative (or 10x the CPU's error), the whole gradient
+    within GRAD_TOL_L2 relative L2 (or 10x the CPU's), each tensor within GRAD_TOL_TENSOR x
+    its max|g|, and none all zero on the card. `null_floor`: a tensor's max|g| is taken as
+    at least null_floor x the largest of all (a gradient that is 0 but for rounding)."""
+    (ref_loss, ref_grads), (cpu_loss, cpu_grads), (card_loss, card_grads) = ref, cpu, card
+    zero = [n for n, g in card_grads.items() if g is None or not bool(g.abs().max() > 0)]
+    if zero:
+        raise AssertionError(f"{tag}: gradients all zero or missing on the card: {zero}")
+    top = max(float(g.abs().max()) for g in ref_grads.values())
+    card_sq = cpu_sq = ref_sq = 0.0
+    rows = []
+    for n, ref in ref_grads.items():
+        card_d = card_grads[n].cpu().double() - ref
+        cpu_d = cpu_grads[n].double() - ref
+        card_sq += float(card_d.square().sum())
+        cpu_sq += float(cpu_d.square().sum())
+        ref_sq += float(ref.square().sum())
+        scale = max(float(ref.abs().max()), null_floor * top) or 1.0
+        rows.append((float(card_d.abs().max()) / scale, float(cpu_d.abs().max()) / scale, n))
+    rows.sort(reverse=True)
+    card_l2, cpu_l2 = (card_sq / ref_sq) ** 0.5, (cpu_sq / ref_sq) ** 0.5
+    l2_limit = max(GRAD_TOL_L2, 10 * cpu_l2)
+    loss_limit = max(LOSS_TOL * abs(ref_loss), 10 * abs(cpu_loss - ref_loss))
+    log(f"  {tag}: loss card {card_loss:.6f}, CPU f32 {cpu_loss:.6f}, f64 {ref_loss:.6f} "
+        f"(card err {abs(card_loss - ref_loss):.2e}, limit {loss_limit:.2e}); "
+        f"{len(ref_grads)} gradients, none all zero on the card; whole-gradient relative "
+        f"L2 vs f64: card {card_l2:.2e}, CPU f32 {cpu_l2:.2e} (limit {l2_limit:.2e}); "
+        f"launches per step {nonzero(launched)}")
+    for card_rel, cpu_rel, n in rows[:3]:
+        log(f"    {n}: max|card-f64| / max|g| {card_rel:.2e}, CPU f32 {cpu_rel:.2e} "
+            f"(limit {GRAD_TOL_TENSOR:g})")
+    if not (abs(card_loss - ref_loss) <= loss_limit and card_l2 <= l2_limit
+            and rows[0][0] <= GRAD_TOL_TENSOR):
+        raise AssertionError(f"{tag}: card train step disagrees with CPU")
 
 
 def train_through_cli(argv, launches=None):
@@ -1718,16 +1790,94 @@ def timed_train_steps(cls, cfg, B, compute_dtype, card, what, warmup=3, iters=10
 
 
 BACKWARD_KERNELS = ("lstm_bwd_kernel", "gru_bwd_kernel", "bwd_tf32_kernel")
+FORWARD_KERNELS = ("lstm_kernel", "gru_kernel", "scan_mma_kernel", "scan_tf32_kernel",
+                   "scan_cluster_kernel")
 
 
-def profile_train_step(model, compute_dtype, card, what):
-    """One step split by CUDA events into forward, backward and optimizer, with the device
-    time of the backward kernels and the device's idle share from torch.profiler; then the
-    backward alone profiled, its launches by path (each on the tensor cores) and the ten
-    longest device ops of the rest of it by name."""
+def evented_step(loss_of, optimizer):
+    """A train step on `loss_of()` that records events[0..3]: before the forward, after
+    the loss, after the backward and after the optimizer."""
+    def step(events):
+        events[0].record()
+        optimizer.zero_grad()
+        loss = loss_of()
+        events[1].record()
+        loss.backward()
+        events[2].record()
+        optimizer.step()
+        events[3].record()
+    return step
+
+
+def device_times(prof) -> dict:
+    """A torch.profiler run's device time by kernel name, ms."""
     from torch.autograd import DeviceType
-    from torch.func import functional_call
+
+    times = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            times[e.name] = times.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    check(times, "the profiler recorded no device time")
+    return times
+
+
+def profile_train_step(loss_of, optimizer, what, card, check_backward):
+    """One train step split by CUDA events into forward, backward and optimizer, with the
+    device time of the recurrence kernels (FORWARD_KERNELS, BACKWARD_KERNELS) and the
+    device's idle share from torch.profiler; then the backward alone profiled, its
+    launches held by `check_backward(grown counts)`, and the ten longest device ops of
+    the rest of it by name. -> the profiled step's numbers."""
     from torch.profiler import ProfilerActivity, profile
+
+    step = evented_step(loss_of, optimizer)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    step(events)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        step(events)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - start) * 1e3
+    fwd, bwd, opt = (events[i].elapsed_time(events[i + 1]) for i in range(3))
+    device = device_times(prof)
+    busy = sum(device.values())
+    bwd_kernel = sum(t for k, t in device.items() if any(n in k for n in BACKWARD_KERNELS))
+    fwd_kernel = sum(t for k, t in device.items() if any(n in k for n in FORWARD_KERNELS))
+    idle = max(0.0, 1 - busy / wall)
+    log(f"  profile of one {what} step: wall {wall:.3f} ms; forward "
+        f"{fwd:.3f} ms (recurrence kernels {fwd_kernel:.3f} ms device), backward {bwd:.3f} ms "
+        f"(backward kernels {bwd_kernel:.3f} ms device, other backward {bwd - bwd_kernel:.3f} "
+        f"ms), optimizer {opt:.3f} ms; device busy {busy:.3f} ms, idle share "
+        f"{idle:.1%} [{card}]")
+    top = sorted(device.items(), key=lambda kv: -kv[1])[:6]
+    log("    top device time: " + ", ".join(f"{k[:48]} {t:.3f} ms" for k, t in top))
+
+    # The backward alone: what the rest of it is made of.
+    optimizer.zero_grad()
+    loss = loss_of()
+    torch.cuda.synchronize()
+    before = all_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        loss.backward()
+        torch.cuda.synchronize()
+    grew = grown(before)
+    by_path = {k: n for k, n in grew.items() if "_bwd/" in k and n}
+    check_backward(grew)
+    alone = device_times(prof)
+    rest = {k: t for k, t in alone.items() if not any(n in k for n in BACKWARD_KERNELS)}
+    log(f"    backward alone: device {sum(alone.values()):.3f} ms, backward kernels "
+        f"{sum(alone.values()) - sum(rest.values()):.3f} ms, launches by path {by_path}; "
+        f"the rest {sum(rest.values()):.3f} ms, its ten longest ops by name:")
+    for k, t in sorted(rest.items(), key=lambda kv: -kv[1])[:10]:
+        log(f"      {t:9.3f} ms  {k[:110]}")
+    return dict(profiled_wall_ms=wall, device_busy_ms=busy, idle_share=idle,
+                recurrence_forward_ms=fwd_kernel, recurrence_backward_ms=bwd_kernel)
+
+
+def profile_dprnn_step(model, compute_dtype, card, what):
+    """profile_train_step of a B = 2 x 4 s DPRNN-TasNet step, f32 or bf16 (a cast copy of
+    the parameters), every recurrence on the tensor cores."""
+    from torch.func import functional_call
 
     criterion = PIT1d(NegSISDR(), n_sources=2)
     optimizer = make_optimizer("adam", 1e-3, 5.0, params=model.parameters())
@@ -1742,65 +1892,10 @@ def profile_train_step(model, compute_dtype, card, what):
             estimates = functional_call(model, cast, (mixture.to(compute_dtype),)).float()
         return criterion(estimates, sources)[0]
 
-    def step(events):
-        events[0].record()
-        optimizer.zero_grad()
-        loss = loss_of()
-        events[1].record()
-        loss.backward()
-        events[2].record()
-        optimizer.step()
-        events[3].record()
-
-    def device_times(prof):  # device time by kernel name, ms
-        times = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                times[e.name] = times.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-        check(times, "the profiler recorded no device time")
-        return times
-
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-    step(events)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        start = time.perf_counter()
-        step(events)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - start) * 1e3
-    fwd, bwd, opt = (events[i].elapsed_time(events[i + 1]) for i in range(3))
-    device = device_times(prof)
-    busy = sum(device.values())
-    bwd_kernel = sum(t for k, t in device.items() if any(n in k for n in BACKWARD_KERNELS))
-    fwd_kernel = sum(t for k, t in device.items() if "lstm_kernel" in k or "gru_kernel" in k
-                     or "scan_mma_kernel" in k or "scan_tf32_kernel" in k)
-    log(f"  profile of one {what} step (B=2 x 4 s): wall {wall:.3f} ms; forward "
-        f"{fwd:.3f} ms (recurrence kernels {fwd_kernel:.3f} ms device), backward {bwd:.3f} ms "
-        f"(backward kernels {bwd_kernel:.3f} ms device, other backward {bwd - bwd_kernel:.3f} "
-        f"ms), optimizer {opt:.3f} ms; device busy {busy:.3f} ms, idle share "
-        f"{max(0.0, 1 - busy / wall):.1%} [{card}]")
-    top = sorted(device.items(), key=lambda kv: -kv[1])[:6]
-    log("    top device time: " + ", ".join(f"{k[:48]} {t:.3f} ms" for k, t in top))
-
-    # The backward alone: what the rest of it is made of.
-    optimizer.zero_grad()
-    loss = loss_of()
-    torch.cuda.synchronize()
-    before = all_counts()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        loss.backward()
-        torch.cuda.synchronize()
-    grew = grown(before)
-    by_path = {k: n for k, n in grew.items() if "_bwd/" in k and n}
-    check_paths(grew, all_bf16(grew) if compute_dtype == torch.bfloat16 else {},
-                f"{what}: the profiled backward")
-    device = device_times(prof)
-    rest = {k: t for k, t in device.items() if not any(n in k for n in BACKWARD_KERNELS)}
-    log(f"    backward alone: device {sum(device.values()):.3f} ms, backward kernels "
-        f"{sum(device.values()) - sum(rest.values()):.3f} ms, launches by path {by_path}; "
-        f"the rest {sum(rest.values()):.3f} ms, its ten longest ops by name:")
-    for k, t in sorted(rest.items(), key=lambda kv: -kv[1])[:10]:
-        log(f"      {t:9.3f} ms  {k[:110]}")
+    profile_train_step(
+        loss_of, optimizer, f"{what} (B=2 x 4 s)", card,
+        lambda grew: check_paths(grew, all_bf16(grew) if compute_dtype == torch.bfloat16 else {},
+                                 f"{what}: the profiled backward"))
 
 
 def phase_train_throughput(card):
@@ -1810,7 +1905,7 @@ def phase_train_throughput(card):
         for dtype in (None, torch.bfloat16):
             what = f"DPRNN-TasNet {rnn.upper()} non-causal {'bf16' if dtype else 'f32'}"
             model = timed_train_steps(*dprnn, 2, dtype, card, what)
-            profile_train_step(model, dtype, card, what)
+            profile_dprnn_step(model, dtype, card, what)
     for dtype in (None, torch.bfloat16):
         timed_train_steps(*TRAIN_MODELS["conv_tasnet"], 4, dtype, card,
                           f"Conv-TasNet {'bf16' if dtype else 'f32'}", iters=5)
@@ -2157,6 +2252,211 @@ def phase_musdb(card=None):
     return dict(served=served, causal_launches=causal)
 
 
+# Phase 12: musdb18 training of UMX and X-UMX at the recipe widths: the train CLI's
+# defaults, which egs/musdb18/{umx,x-umx}/train.sh keep (n_fft 4096, hop 1024, max_bin
+# 1487, hidden 512, 3 layers, dropout 0.4, four stems, B = 16 x 6 s, Adam at 1e-3).
+MUSDB_TRAIN_SECONDS = 6.0  # --duration: 259 STFT frames
+MUSDB_TRAIN_BATCH = 16  # --batch_size
+MUSDB_PARITY_BATCH = 4  # the card step held to an f64 CPU step (the f64 step's cost)
+MUSDB_TRAIN_STEPS = 10  # steps a CLI epoch; two epochs a model
+MUSDB_TRAIN_TRACK_SECONDS = 20.0  # corpus tracks: four train, one valid, one test
+MUSDB_NULL_GRAD = 1e-4  # bias_in's gradient is 0 but for rounding (train-mode BatchNorm)
+UMX_STEP_LAUNCHES = UMX["num_layers"] * 4  # one biLSTM layer a stem and layer, each way
+
+
+def musdb_model_and_criterion(kind, dropout, device):
+    """The train CLI's own model (seed 0) and criterion for `kind` at its defaults."""
+    args = musdb_train_cli.build_parser().parse_args(
+        ["--musdb18_root", "", "--model", kind, "--seed", "0", "--dropout", str(dropout)])
+    return musdb_train_cli.build_model_and_criterion(args, args.sources.split(","), device)
+
+
+def musdb_batch(B, device, seed=12):
+    """Four stereo stems of noise and their sum, (B, 1, 2, T) and (B, 4, 2, T), 6 s at
+    44.1 kHz, from a seed."""
+    rng = np.random.default_rng(seed)
+    sources = 0.1 * rng.standard_normal(
+        (B, 4, 2, int(MUSDB_TRAIN_SECONDS * MUSDB_SAMPLE_RATE)), dtype=np.float32)
+    return (torch.from_numpy(sources.sum(axis=1, keepdims=True)).to(device),
+            torch.from_numpy(sources).to(device))
+
+
+def check_musdb_launches(launches, what, forwards, backwards):
+    """`forwards` model forwards (each UMX_STEP_LAUNCHES lstm_scan_bidir on "cluster") and
+    `backwards` model backwards (each UMX_STEP_LAUNCHES backwards on "fma"), and no other
+    kernel or route."""
+    n_fwd, n_bwd = UMX_STEP_LAUNCHES * forwards, UMX_STEP_LAUNCHES * backwards
+    want = expected(lstm_scan_bidir=n_fwd, lstm_scan_bidir_bwd=n_bwd)
+    check(kernels_of(launches) == want, f"{what}: launched {nonzero(launches)}, expected "
+                                        f"{nonzero(want)}")
+    fwd = {p: launches[f"lstm_scan_bidir/{p}"] for p in ls.PATH_LAUNCHES["lstm_scan_bidir"]}
+    bwd = {p: launches[f"lstm_scan_bidir_bwd/{p}"]
+           for p in ls.BWD_PATH_LAUNCHES["lstm_scan_bidir_bwd"]}
+    check(fwd == {p: n_fwd * (p == "cluster") for p in fwd} and
+          bwd == {p: n_bwd * (p == "fma") for p in bwd},
+          f"{what}: lstm_scan_bidir took {fwd}, its backward {bwd}; expected {n_fwd} on "
+          f"cluster and {n_bwd} on fma")
+
+
+def musdb_grads_of_step(model, criterion, batch):
+    """One make_train_step with SGD at lr 0 (the weights stay; the gradients stay in .grad)."""
+    step = make_train_step(model, criterion, make_optimizer("sgd", 0.0, params=model.parameters()))
+    loss = float(step(*batch))
+    return loss, {n: p.grad for n, p in model.named_parameters() if p.requires_grad}
+
+
+def musdb_train_parity():
+    """One UMX and one X-UMX train step at the recipe widths, dropout 0, card against an
+    f64 CPU step beside the f32 CPU step (the kernels' plain versions), as phase 7. A
+    comparison, not a main-path run: its launches are checked and not kept."""
+    for kind in ("umx", "xumx"):
+        cpu_model, criterion = musdb_model_and_criterion(kind, 0.0, "cpu")
+        batch = musdb_batch(MUSDB_PARITY_BATCH, "cpu")
+        ref = musdb_grads_of_step(copy.deepcopy(cpu_model).double(), criterion,
+                                  tuple(t.double() for t in batch))
+        cpu = musdb_grads_of_step(cpu_model, criterion, batch)
+        card_model, card_criterion = musdb_model_and_criterion(kind, 0.0, "cuda")
+        reset_counts()
+        card = musdb_grads_of_step(card_model, card_criterion,
+                                   musdb_batch(MUSDB_PARITY_BATCH, "cuda"))
+        torch.cuda.synchronize()
+        launched = all_counts()
+        check_musdb_launches(launched, f"{kind}: a train step", 1, 1)
+        check_step_against_f64(f"{kind.upper()} (B={MUSDB_PARITY_BATCH} x 6 s)", ref, cpu, card,
+                               kernels_of(launched), null_floor=MUSDB_NULL_GRAD)
+
+
+class CountedValidationTrainer(Trainer):
+    """The CLI's Trainer with the launches of its validation epochs kept apart
+    (`validated`), so that a CLI run's counts split into its train steps' and its
+    validation forwards'."""
+
+    def run_one_epoch_eval(self, epoch):
+        before = all_counts()
+        loss = super().run_one_epoch_eval(epoch)
+        grew = grown(before)
+        self.validated = {k: v + grew[k] for k, v in
+                          getattr(self, "validated", dict.fromkeys(grew, 0)).items()}
+        return loss
+
+
+def musdb_train_through_cli(root, kind, tmp, card):
+    """cli/train_musdb18.py for two epochs of MUSDB_TRAIN_STEPS steps (every count set to 0
+    just before, read just after), then its last.ckpt served through cli/test_musdb18.py
+    on the card -> (the train steps' launches (B = 16 x 6 s, with cs), the B = 1 10 s
+    forwards' launches (validation and serving), the steps)."""
+    exp = os.path.join(tmp, f"exp_{kind}")
+    argv = ["--musdb18_root", root, "--model", kind, "--seed", "0", "--epochs", "2",
+            "--samples_per_epoch", str(MUSDB_TRAIN_BATCH * MUSDB_TRAIN_STEPS),
+            "--cache_in_memory", "1", "--exp_dir", exp, "--device", "cuda"]
+    musdb_train_cli.Trainer = CountedValidationTrainer
+    reset_counts()
+    start = time.perf_counter()
+    trainer = musdb_train_cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    trained = all_counts()
+    musdb_train_cli.Trainer = Trainer
+    validated = trainer.validated
+    stepped = {k: v - validated[k] for k, v in trained.items()}
+    steps = 2 * len(trainer.train_loader)
+    check(steps == 2 * MUSDB_TRAIN_STEPS, f"{kind}: {steps} steps")
+    check_musdb_launches(stepped, f"{kind}: the train CLI's steps", steps, steps)
+    check_musdb_launches(validated, f"{kind}: the train CLI's validation",
+                         2 * len(trainer.valid_loader), 0)
+    losses = trainer.train_loss + trainer.valid_loss
+    stats = trainer.last_epoch_stats
+    log(f"  {kind.upper()} through the CLI: {steps} steps of B={MUSDB_TRAIN_BATCH} x 6 s in "
+        f"{seconds:.1f} s, train loss by epoch {trainer.train_loss}, valid loss "
+        f"{trainer.valid_loss}; last epoch {stats['audio_sec_per_sec']:.2f} audio-s/s, "
+        f"iteration p50 {stats['iter_p50_ms']:.1f} ms, loader stall {stats['fetch_frac']:.1%}; "
+        f"launches: steps {nonzero(stepped)}, validation {nonzero(validated)} [{card}]")
+    check(np.isfinite(losses).all(), f"{kind}: non-finite losses {losses}")
+    check(trainer.train_loss[1] < trainer.train_loss[0],
+          f"{kind}: the train loss did not fall over {steps} steps: {trainer.train_loss}")
+    last = os.path.join(exp, "model", "last.ckpt")
+    reset_counts()
+    table, _ = musdb_cli.run(["--musdb18_root", root, "--model_path", last, "--device", "cuda",
+                              "--sample_rate", str(MUSDB_SAMPLE_RATE), "--duration",
+                              str(MUSDB_CHUNK_SECONDS), "--max_duration", str(MUSDB_CHUNK_SECONDS)])
+    served = all_counts()
+    check_musdb_launches(served, f"{kind}: serving the trained checkpoint", 1, 0)
+    log(f"  the trained {kind.upper()} last.ckpt served through cli/test_musdb18.py (one 10 s "
+        f"chunk): launches {nonzero(served)}; median SDR "
+        + ", ".join(f"{s} {row['SDR']:.3f}" for s, row in table.items()) + " dB")
+    return stepped, {k: v + served[k] for k, v in validated.items()}, steps
+
+
+def musdb_step_profile(kind, card, warmup=2, iters=10):
+    """The recipe step (B = 16 x 6 s, dropout 0.4) timed on the card: p50 of the forward
+    with the loss / backward / optimizer split by CUDA events and of the wall step (host
+    clock, synchronised), audio-s/s, peak allocation; then profile_train_step of it."""
+    model, criterion = musdb_model_and_criterion(kind, 0.4, "cuda")
+    set_dropout_generator(model, torch.Generator(device="cuda").manual_seed(0))
+    optimizer = make_optimizer("adam", 1e-3, params=model.parameters())
+    mixture, sources = musdb_batch(MUSDB_TRAIN_BATCH, "cuda")
+    model.train()
+    step = evented_step(lambda: criterion(model(mixture), sources), optimizer)
+
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    for _ in range(warmup):
+        step(events)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = all_counts()
+    splits, walls = [], []
+    for _ in range(iters):
+        start = time.perf_counter()
+        step(events)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - start)
+        splits.append([events[i].elapsed_time(events[i + 1]) for i in range(3)])
+    peak = torch.cuda.max_memory_allocated()
+    check_musdb_launches(grown(before), f"{kind}: the timed steps", iters, iters)
+    fwd, bwd, opt = (float(np.median([s[i] for s in splits])) for i in range(3))
+    p50 = float(np.median(walls)) * 1e3
+    result = dict(p50_ms=p50, forward_ms=fwd, backward_ms=bwd, optimizer_ms=opt,
+                  audio_s_per_s=MUSDB_TRAIN_BATCH * MUSDB_TRAIN_SECONDS / (p50 / 1e3),
+                  peak_bytes=peak)
+    log(f"  {kind.upper()} step, B={MUSDB_TRAIN_BATCH} x 6 s, dropout 0.4: p50 {p50:.3f} ms of "
+        f"{iters} (min {min(walls) * 1e3:.3f}, max {max(walls) * 1e3:.3f}; host clock), "
+        f"{result['audio_s_per_s']:.2f} audio-s/s; CUDA events p50: forward with the loss "
+        f"{fwd:.3f} ms, backward {bwd:.3f} ms, optimizer {opt:.3f} ms; peak allocated "
+        f"{peak / 2**20:.1f} MiB [{card}]")
+    result.update(profile_train_step(
+        lambda: criterion(model(mixture), sources), optimizer,
+        f"{kind.upper()} B={MUSDB_TRAIN_BATCH} x 6 s", card,
+        lambda grew: check_musdb_launches(grew, f"{kind}: the profiled backward", 0, 1)))
+    return result
+
+
+def phase_musdb_train(card=None):
+    """Phase 12 -> {"train": the CLI train steps' launches (B = 16 x 6 s), "serve": the
+    launches of its B = 1 10 s forwards (validation and the trained checkpoints'
+    serving), "profile": {kind: musdb_step_profile}}, each count set to 0 just before a
+    run and read just after."""
+    card = card or card_line()
+    log("== phase 12: musdb18 training, one step card vs CPU (f32, TF32 off, recipe widths, "
+        f"B={MUSDB_PARITY_BATCH} x 6 s, dropout 0; f64 CPU reference)")
+    musdb_train_parity()
+    train = serve = None
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "musdb18")
+        with contextlib.redirect_stdout(io.StringIO()):
+            write_musdb_quality_corpus(root, n_train=4, n_valid=1, n_test=1,
+                                       track_sec=MUSDB_TRAIN_TRACK_SECONDS,
+                                       sample_rate=MUSDB_SAMPLE_RATE)
+        for kind in ("umx", "xumx"):
+            log(f"== phase 12: train {kind.upper()} through cli/train_musdb18.py, serve it "
+                "through cli/test_musdb18.py")
+            stepped, served, _ = musdb_train_through_cli(root, kind, tmp, card)
+            train = stepped if train is None else {k: v + stepped[k] for k, v in train.items()}
+            serve = served if serve is None else {k: v + served[k] for k, v in serve.items()}
+    log("== phase 12: the recipe train step timed and profiled (informational)")
+    profiles = {kind: musdb_step_profile(kind, card) for kind in ("umx", "xumx")}
+    return dict(train=train, serve=serve, profile=profiles)
+
+
 def kernel_entry(name, source, replaces, launches, timing, bound_of, library_ms=None,
                  dtype=torch.float32, fma_bound=None):
     """One kernel of the `kernels` line; `dtype` is that of the inputs timed. A timing
@@ -2193,6 +2493,8 @@ def recurrence_bound(B, T, H, gates, chains, backward=False, cell_state=False, b
     seq = B * T * (G + H)  # xw and hs
     if backward:
         seq += B * T * (H + G + (H if cell_state else 0))  # g_hs, d_xw, cs
+    elif cell_state:
+        seq += B * T * H  # the training forward also writes cs
     params = G * H * (2 if backward else 1) + (G * (2 if backward else 1) if bias else 0)
     nbytes = torch.tensor([], dtype=dtype).element_size() * chains * (seq + params)
     if not backward:
@@ -2202,9 +2504,10 @@ def recurrence_bound(B, T, H, gates, chains, backward=False, cell_state=False, b
     return bound(3 * product, nbytes, torch.float32)
 
 
-def backward_kernel_bound(B, T, H, gates, chains, dtype, tf32):
-    """The least time of the tensor-core backward kernel alone: its recurrent product as
-    `tf32` TF32 products, and its arrays read and written once. LSTM: gates and das in
+def backward_kernel_bound(B, T, H, gates, chains, dtype, tf32, peak="tf32"):
+    """The least time of the backward kernel alone: its recurrent product as `tf32`
+    products at `peak` (the tensor cores' TF32; the FMA kernel: one at the f32 peak),
+    and its arrays read and written once. LSTM: gates and das in
     f32 (4H), cs and g_hs in the dtype, d_xw in bf16 only (in f32 das is d_xw). GRU: xw,
     hs, g_hs and d_xw in the dtype, hw and d_hw in f32 (3H each). W_hh in the dtype."""
     G = gates * H
@@ -2214,7 +2517,7 @@ def backward_kernel_bound(B, T, H, gates, chains, dtype, tf32):
     else:
         row = 4 * 2 * G + size * (2 * G + 2 * H)
     nbytes = chains * (B * T * row + size * G * H)
-    return bound(tf32 * chains * 2.0 * B * T * G * H, nbytes, "tf32")
+    return bound(tf32 * chains * 2.0 * B * T * G * H, nbytes, peak)
 
 
 BUILDS = {"mask_decode": md.build, "lstm_scan": ls.build, "lstm_scan_bwd": ls.build_backward,
@@ -2242,15 +2545,16 @@ def phase_build():
 ONLY_PHASES = {"3": phase_kernel, "3b": phase_lstm, "3c": phase_gru, "3d": phase_lstm_bwd,
                "3e": phase_gru_bwd, "3f": phase_quantize, "3g": phase_library,
                "3h": phase_cluster,
-               "6s": phase_stream_hops, "11": phase_musdb}
+               "6s": phase_stream_hops, "11": phase_musdb, "12": phase_musdb_train}
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser("chip_smoke")
     parser.add_argument("--only", type=str, default=None,
                         help="comma-separated kernel phases (3, 3b-3h), 6s (streaming ms "
-                             "per hop) or 11 (musdb18 serving) to run after phases 1 and 2, "
-                             "and nothing else; no result line is printed")
+                             "per hop), 11 (musdb18 serving) or 12 (musdb18 training) to run "
+                             "after phases 1 and 2, and nothing else; no result line is "
+                             "printed")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check needs a CUDA card",
@@ -2357,16 +2661,24 @@ def main(argv=None) -> int:
         evaluated = phase_evaluate(tmp, checkpoints, card)
     phase_train_throughput(card)
     musdb = phase_musdb(card)
+    musdb_train = phase_musdb_train(card)
     for name in ("lstm_scan_bidir_bwd", "lstm_scan_bwd", "gru_scan_bidir_bwd", "gru_scan_bwd"):
         check(trained[name] >= 1, f"the training path never launched {name}")
     total = {k: v + trained[k] + evaluated[k] for k, v in total.items()}
+    # musdb18's B = 1 10 s forwards: phase 11's served tracks and causal chunk, phase 12's
+    # validation and trained checkpoints; phase 12's train steps apart (B = 16, with cs).
+    umx_served = dict.fromkeys(total, 0)
     for run in [*(served["launches"] for served in musdb["served"].values()),
-                musdb["causal_launches"]]:  # musdb18 serving's card runs
-        total = {k: v + run[k] for k, v in total.items()}
+                musdb["causal_launches"], musdb_train["serve"]]:
+        umx_served = {k: v + run[k] for k, v in umx_served.items()}
+    total = {k: v + umx_served[k] + musdb_train["train"][k] for k, v in total.items()}
     for name, n in total.items():
         # The wsj0 models have H = 128 (tensor cores), musdb18's UMX B = 1 at H = 256
-        # and 512 (the cluster kernel).
-        if name.endswith("/fma"):
+        # and 512 and B = 16 at H = 256 (the cluster kernel); the backward of musdb18
+        # training (H = 256) takes the FMA kernel, and only it.
+        if name == "lstm_scan_bidir_bwd/fma":
+            check(n >= 1, "musdb18 training never launched the FMA backward")
+        elif name.endswith("/fma"):
             check(n == 0, f"the main path launched the FMA kernel: {name} {n} times")
         elif n < 1:
             raise AssertionError(f"the serving, training and evaluation paths never launched "
@@ -2408,10 +2720,12 @@ def main(argv=None) -> int:
         shape = DECODE_SHAPES[which]
         launches = (hop_launches[dtype] if which == "streamed hop shape" else
                     total[width_key(timing["path"], str(dtype)[6:], shape["N"], shape["CL"])])
+        library_ms = timing["library_ms"]
+        if dtype == bf16:  # einsum on bf16 operands: its output is bf16, the kernel's f32
+            library_ms = library[f"einsum_bf16/{which}"]
         entry = kernel_entry("fused_mask_decode", "csrc/mask_decode.cu",
                              "ops/pallas_kernels.py:114", launches, timing,
-                             mask_decode_bound(**shape, dtype=dtype),
-                             timing["library_ms"], dtype=dtype)
+                             mask_decode_bound(**shape, dtype=dtype), library_ms, dtype=dtype)
         entry.update(path=timing["path"], shape=which,
                      **{k: timing[k] for k in ("kernel_ms", "generic_ms", "generic_kernel_ms")
                         if k in timing})
@@ -2429,13 +2743,14 @@ def main(argv=None) -> int:
     # The same forwards at UMX's serving shapes (B = 1, a 10 s chunk, H = 256 a direction,
     # 512 causal) on the cluster kernel, timed in phase 3h beside the FMA kernel (fma_ms),
     # the other cluster size (c8_ms or c16_ms), the serial floor (floor_ms) and cuDNN's
-    # nn.LSTM, with phase 11's launches (the two served models' CLI runs; the causal chunk).
+    # nn.LSTM, with the launches of musdb18's B = 1 10 s forwards (phase 11's served tracks
+    # and causal chunk, phase 12's validation and served checkpoints).
     for name, replaces in (("lstm_scan_bidir", "ops/pallas_lstm.py:323"),
                            ("lstm_scan", "ops/pallas_lstm.py:166")):
         B, T, H_umx, chains = UMX_SCAN_SHAPES[name]
-        timing = cluster_timings[(name, f32)]
+        timing = cluster_timings[(name, f32, "UMX" if name == "lstm_scan_bidir" else "causal UMX")]
         entry = kernel_entry(name, "csrc/recurrence_cluster.cuh", replaces,
-                             total[f"{name}/cluster"], timing,
+                             umx_served[f"{name}/cluster"], timing,
                              recurrence_bound(B, T, H_umx, 4, chains, dtype=f32),
                              timing["library_ms"], dtype=f32)
         entry.update(path="cluster", shape=f"UMX B={B} T={T} H={H_umx}",
@@ -2443,6 +2758,33 @@ def main(argv=None) -> int:
                         if k in ("cluster", "floor_ms", "fma_max_abs_err") or
                         (k.startswith("c") and k.endswith("_ms"))})
         entries.append(entry)
+    # lstm_scan_bidir at musdb18 training's shape (B = 16 x 6 s, T = 259, H = 256 a
+    # direction): the forward with cs on the cluster kernel (phase 3h's times, FMA forced
+    # beside it) and its backward on the FMA kernel (phase 3d's times: the whole backward
+    # and the kernel alone), each with the launches of phase 12's CLI train steps, beside
+    # cuDNN's nn.LSTM at the shape (F = 512).
+    B, T, H_umx = UMX_TRAIN_SHAPE
+    timing = cluster_timings[("lstm_scan_bidir", f32, "UMX train")]
+    entry = kernel_entry("lstm_scan_bidir", "csrc/recurrence_cluster.cuh", "ops/pallas_lstm.py:323",
+                         musdb_train["train"]["lstm_scan_bidir/cluster"], timing,
+                         recurrence_bound(B, T, H_umx, 4, 2, cell_state=True, dtype=f32),
+                         timing["library_ms"], dtype=f32)
+    entry.update(path="cluster", shape=f"UMX train B={B} T={T} H={H_umx}, with cs",
+                 **{k: timing[k] for k in timing
+                    if k in ("cluster", "floor_ms", "fma_max_abs_err") or
+                    (k.startswith("c") and k.endswith("_ms"))})
+    entries.append(entry)
+    timing = bwd_timings[("lstm_scan_bidir_bwd", "umx-train", f32)]
+    entry = kernel_entry("lstm_scan_bidir_bwd", "csrc/lstm_scan_bwd.cu", "ops/pallas_lstm.py:339",
+                         musdb_train["train"]["lstm_scan_bidir_bwd/fma"], timing,
+                         recurrence_bound(B, T, H_umx, 4, 2, backward=True, cell_state=True,
+                                          dtype=f32),
+                         library["lstm_umx_train_bwd"], dtype=f32)
+    entry.update(path="fma", shape=f"UMX train B={B} T={T} H={H_umx}",
+                 kernel_ms=timing["kernel_ms"],
+                 kernel_bound_ms=backward_kernel_bound(B, T, H_umx, 4, 2, f32, 1,
+                                                       peak=f32)["bound_ms"])
+    entries.append(entry)
     # The backwards of kernels 2-4 (`custom_vjp` _bidir_bwd and _lstm_bwd, both
     # _lstm_bwd_core; _gru_bidir_bwd, _gru_bwd_core) twice, f32 (three TF32
     # products) and bf16 (two), each at the training shape of its phase: `ms` is

@@ -1,0 +1,203 @@
+"""MUSDB18 training CLI: Open-Unmix (one model per stem) and X-UMX (bridged).
+
+Port of `dnn_based_source_separation_tpu/cli/train_musdb18.py` (after the
+reference `egs/musdb18/{umx,x-umx}/local/train.py`): the same flag names
+and defaults (its `build_parser`, :31-95), plus `--device` (default `cuda`),
+as the port's `cli/train_wsj0mix.py` has. A CUDA device that is not there
+is an error, never a silent CPU run.
+
+- The loaders ship waveforms: by default the random-remix dataset with a
+  random flip of the channels and a random gain per source
+  (`--augmentation 1`), else fixed windows with 50% overlap. The STFT, the
+  magnitude, the model and the loss run on the device.
+- `--model umx`: ParallelOpenUnmix trains the magnitude MSE against the
+  targets' STFT. `--model xumx`: bridged CrossNetOpenUnmix trains the
+  multi-domain loss (`--weight_time`, `--weight_frequency`,
+  `--combination`). `--criterion mse|mae|l1loss` overrides either.
+- The models train in f32 with Adam (`--optimizer`, `--lr`, `--max_norm`);
+  dropout between the LSTM layers (`--dropout`) draws its masks from a
+  generator on the device seeded with `--seed`, as the JAX CLI passes
+  `dropout_rng` for umx and xumx.
+
+The other `--model` choices raise NotImplementedError naming the slice of
+the port that brings them; so does `--n_devices`.
+
+    python -m dnn_based_source_separation_torch.cli.train_musdb18 \
+        --musdb18_root ... --model umx --exp_dir exp [--device cuda]
+"""
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from ..augmentation import RandomFlip, RandomGain, SequentialAugmentation
+from ..criterion import MAELoss, MSELoss, MultiDomainLoss, SpectralTargetAdapter
+from ..data import DataLoader
+from ..data import musdb18 as musdb
+from ..models import CrossNetOpenUnmix, ParallelOpenUnmix, SpectrogramMaskingWrapper
+from ..ops.windows import build_window
+from ..train import Trainer, TrainerConfig, make_optimizer
+from ..utils import set_seed
+
+# The --model choices of the JAX CLI that wait for another slice of the port.
+UNPORTED_MODELS = {
+    "d3net": "slice E", "mm-densenet": "slice E", "mm-dense-lstm": "slice E",
+    "hrnet": "slice E", "cunet": "slice E",
+    "conv-tasnet": "slice D", "mrx": "slice D", "meta-tasnet": "slice D",
+}
+
+
+def build_parser():
+    p = argparse.ArgumentParser("train_musdb18")
+    p.add_argument("--musdb18_root", type=str, required=True)
+    p.add_argument("--sample_rate", type=int, default=44100)
+    p.add_argument("--duration", type=float, default=6.0)
+    p.add_argument("--valid_duration", type=float, default=10.0)
+    p.add_argument("--samples_per_epoch", type=int, default=None)
+    p.add_argument("--augmentation", type=int, default=1)
+    p.add_argument("--model", type=str, default="umx",
+                   choices=["umx", "xumx", *UNPORTED_MODELS],
+                   help="umx and xumx are ported; the others raise")
+    p.add_argument("--d3net_config", type=str, default=None, help="d3net (not ported)")
+    p.add_argument("--mmdense_config", type=str, default=None,
+                   help="mm-densenet / mm-dense-lstm (not ported)")
+    p.add_argument("--criterion", type=str, default=None,
+                   help="override the model's default: mse, mae or l1loss")
+    # conv-tasnet / meta-tasnet hyperparameters (models not ported)
+    p.add_argument("--n_basis", "-N", type=int, default=256)
+    p.add_argument("--kernel_size", "-L", type=int, default=20)
+    p.add_argument("--sep_hidden_channels", "-HH", type=int, default=512)
+    p.add_argument("--sep_bottleneck_channels", "-B", type=int, default=256)
+    p.add_argument("--sep_skip_channels", "-Sc", type=int, default=128)
+    p.add_argument("--sep_num_layers", "-X", type=int, default=10)
+    p.add_argument("--sep_num_blocks", "-R", type=int, default=4)
+    # hrnet, cunet and mrx (models not ported)
+    p.add_argument("--target", type=str, default="vocals")
+    p.add_argument("--hrnet_hidden", type=str, default="16,32,64")
+    p.add_argument("--cunet_channels", type=str, default="2,16,32,64,128,256")
+    p.add_argument("--cunet_control_channels", type=str, default="4,16,64")
+    p.add_argument("--conditioning", type=str, default="film",
+                   choices=["film", "pocm", "gpocm"])
+    p.add_argument("--mrx_n_fft", type=str, default="512,1024,2048")
+    # the spectrogram models
+    p.add_argument("--n_fft", type=int, default=4096)
+    p.add_argument("--hop_length", type=int, default=1024)
+    p.add_argument("--window_fn", type=str, default="hann")
+    p.add_argument("--hidden_channels", type=int, default=512)
+    p.add_argument("--num_layers", type=int, default=3)
+    p.add_argument("--max_bin", type=int, default=1487)
+    p.add_argument("--dropout", type=float, default=0.4)
+    p.add_argument("--sources", type=str, default="bass,drums,other,vocals")
+    # loss weights (X-UMX)
+    p.add_argument("--weight_time", type=float, default=10.0)
+    p.add_argument("--weight_frequency", type=float, default=1.0)
+    p.add_argument("--combination", type=int, default=1)
+    # optimization
+    p.add_argument("--optimizer", type=str, default="adam")
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--max_norm", type=float, default=None)
+    p.add_argument("--batch_size", type=int, default=16)
+    p.add_argument("--epochs", type=int, default=100)
+    p.add_argument("--exp_dir", type=str, default="./exp")
+    p.add_argument("--continue_from", type=str, default=None)
+    p.add_argument("--time_budget_sec", type=float, default=None,
+                   help="stop after this wall-clock budget (checked at epoch boundaries)")
+    p.add_argument("--overwrite", type=int, default=0)
+    p.add_argument("--seed", type=int, default=111)
+    p.add_argument("--num_workers", type=int, default=0, help="background loader threads")
+    p.add_argument("--cache_in_memory", type=int, default=0,
+                   help="cache decoded stems in RAM after first use "
+                        "(~4B x channels x corpus samples x (1+n_src); "
+                        "full musdb18 train split ~40 GB)")
+    p.add_argument("--n_devices", type=int, default=None,
+                   help="data-parallel size (not ported: one device)")
+    p.add_argument("--device", type=str, default="cuda")
+    return p
+
+
+def _refuse_unported(args) -> None:
+    if args.model in UNPORTED_MODELS:
+        raise NotImplementedError(f"--model {args.model} is not ported yet "
+                                  f"({UNPORTED_MODELS[args.model]} of the port)")
+    if args.n_devices is not None:
+        raise NotImplementedError("--n_devices (data parallelism, slice H) is not ported yet")
+
+
+def build_model_and_criterion(args, sources, device):
+    """The wrapped spectrogram model on `device` and its criterion (JAX `main`, :144-164,
+    and the override table, :270-289)."""
+    n_bins = args.n_fft // 2 + 1
+    base_kwargs = dict(in_channels=2, hidden_channels=args.hidden_channels,
+                       num_layers=args.num_layers, n_bins=n_bins,
+                       max_bin=min(args.max_bin, n_bins), dropout=args.dropout,
+                       sources=tuple(sources), generator=torch.Generator().manual_seed(args.seed),
+                       device=device)
+    stft_args = (args.n_fft, args.hop_length, args.window_fn)
+    table = {"mse": SpectralTargetAdapter(MSELoss(dim=(-2, -1)), *stft_args),
+             "mae": SpectralTargetAdapter(MAELoss(dim=(-2, -1)), *stft_args)}
+    table["l1loss"] = table["mae"]
+    if args.model == "umx":
+        base = ParallelOpenUnmix(**base_kwargs)
+        criterion = table["mse"]
+    else:
+        base = CrossNetOpenUnmix(**base_kwargs)
+        criterion = SpectralTargetAdapter(
+            MultiDomainLoss(args.n_fft, args.hop_length,
+                            window=build_window(args.n_fft, args.window_fn, device=device),
+                            weight_time=args.weight_time,
+                            weight_frequency=args.weight_frequency,
+                            combination=bool(args.combination)),
+            *stft_args, complex_target=True)
+    if args.criterion in table:
+        criterion = table[args.criterion]
+    model = SpectrogramMaskingWrapper(base, *stft_args, device=device)
+    return model, criterion
+
+
+def main(args=None):
+    args = build_parser().parse_args(args)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {args.device} asked for, but CUDA is not available")
+    _refuse_unported(args)
+    set_seed(args.seed)
+    sources = args.sources.split(",")
+
+    if args.augmentation:
+        augmentation = SequentialAugmentation(RandomFlip(flip_rate=0.5, axis=0),
+                                              RandomGain(0.25, 1.25))
+        train_ds = musdb.AugmentationWaveTrainDataset(
+            args.musdb18_root, duration=args.duration, sample_rate=args.sample_rate,
+            samples_per_epoch=args.samples_per_epoch, sources=sources,
+            augmentation=augmentation, seed=args.seed,
+            cache_in_memory=bool(args.cache_in_memory))
+    else:
+        train_ds = musdb.WaveTrainDataset(
+            args.musdb18_root, duration=args.duration, sample_rate=args.sample_rate,
+            sources=sources, cache_in_memory=bool(args.cache_in_memory))
+    valid_ds = musdb.WaveEvalDataset(args.musdb18_root, max_duration=args.valid_duration,
+                                     sample_rate=args.sample_rate, sources=sources)
+    print(f"Training dataset includes {len(train_ds)} samples.", flush=True)
+    print(f"Valid dataset includes {len(valid_ds)} samples.", flush=True)
+    train_loader = DataLoader(train_ds, batch_size=args.batch_size, shuffle=True, seed=args.seed,
+                              num_workers=args.num_workers)
+    valid_loader = DataLoader(valid_ds, batch_size=1)
+
+    model, criterion = build_model_and_criterion(args, sources, device)
+    optimizer = make_optimizer(args.optimizer, args.lr, max_norm=args.max_norm,
+                               params=model.parameters())
+    config = TrainerConfig(
+        epochs=args.epochs, exp_dir=args.exp_dir, continue_from=args.continue_from,
+        overwrite=bool(args.overwrite), sample_rate=args.sample_rate, save_valid_wavs=0,
+        time_budget_sec=args.time_budget_sec)
+    generator = (torch.Generator(device=device).manual_seed(args.seed)
+                 if args.dropout > 0.0 else None)
+    trainer = Trainer(model, train_loader, valid_loader, criterion, optimizer, config, device,
+                      dropout_generator=generator)
+    trainer.run()
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

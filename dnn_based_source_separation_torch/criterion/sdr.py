@@ -1,6 +1,6 @@
-"""SDR-family criteria: SDR, SI-SDR and their negatives.
+"""SDR-family criteria: SDR, SI-SDR, weighted SDR and their negatives.
 
-Port of `dnn_based_source_separation_tpu/criterion/sdr.py:19-33, 74-121`.
+Port of `dnn_based_source_separation_tpu/criterion/sdr.py:19-33, 54-121, 155-176`.
 Every class implements the reference call protocol
 `(input, target, batch_mean=True)` with a `maximize` attribute for PIT.
 
@@ -30,6 +30,27 @@ def sisdr(input: torch.Tensor, target: torch.Tensor, eps: float = EPS) -> torch.
     num = torch.sum((alpha * target).square(), dim=-1) + eps
     den = torch.sum((alpha * target - input).square(), dim=-1) + eps
     return 10.0 * torch.log10(num / den)
+
+
+def weighted_sdr(input: torch.Tensor, target: torch.Tensor, source_dim: int = 1,
+                 eps: float = EPS) -> torch.Tensor:
+    """Weighted SDR ("Phase-Aware Speech Enhancement with Deep Complex U-Net").
+
+    The rho-weighted cosine similarity of (target, input) and of the residual
+    pair (mixture - target, mixture - input); mixture = the targets summed
+    over `source_dim`.
+    """
+    mixture = target.sum(dim=source_dim, keepdim=True)
+    target_power = target.square().sum(dim=-1)
+    cos = ((target * input).sum(dim=-1) + eps) / (
+        torch.linalg.vector_norm(target, dim=-1) * torch.linalg.vector_norm(input, dim=-1) + eps)
+    res_in, res_tgt = mixture - input, mixture - target
+    res_power = res_tgt.square().sum(dim=-1)
+    cos_res = ((res_tgt * res_in).sum(dim=-1) + eps) / (
+        torch.linalg.vector_norm(res_tgt, dim=-1) * torch.linalg.vector_norm(res_in, dim=-1)
+        + eps)
+    rho = (target_power + eps) / (target_power + res_power + eps)
+    return rho * cos + (1.0 - rho) * cos_res
 
 
 def _reduce(loss: torch.Tensor, reduction: str | None, batch_mean: bool) -> torch.Tensor:
@@ -80,3 +101,27 @@ class NegSISDR:
 
     def __call__(self, input, target, batch_mean: bool = True):
         return _reduce(-sisdr(input, target, eps=self.eps), self.reduction, batch_mean)
+
+
+@dataclasses.dataclass(frozen=True)
+class WeightedSDR:
+    source_dim: int = 1
+    reduction: str | None = "mean"
+    eps: float = EPS
+    maximize: bool = dataclasses.field(default=True, init=False)
+
+    def __call__(self, input, target, batch_mean: bool = True):
+        loss = weighted_sdr(input, target, source_dim=self.source_dim, eps=self.eps)
+        return _reduce(loss, self.reduction, batch_mean)
+
+
+@dataclasses.dataclass(frozen=True)
+class NegWeightedSDR:
+    source_dim: int = 1
+    reduction: str | None = "mean"
+    eps: float = EPS
+    maximize: bool = dataclasses.field(default=False, init=False)
+
+    def __call__(self, input, target, batch_mean: bool = True):
+        loss = -weighted_sdr(input, target, source_dim=self.source_dim, eps=self.eps)
+        return _reduce(loss, self.reduction, batch_mean)

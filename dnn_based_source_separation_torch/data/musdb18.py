@@ -1,12 +1,15 @@
-"""MUSDB18-style track datasets for evaluation and testing.
+"""MUSDB18-style track datasets for training, evaluation and testing.
 
-The port's own copy of `_MUSDB18Base`, `WaveEvalDataset` and
-`WaveTestDataset` of `dnn_based_source_separation_tpu/data/musdb18.py`
-(:36-93, :160-198), which follow the reference
-`egs/musdb18/common/src/dataset.py`: the first max_duration of each
-validation track, and whole test tracks with their names. Items are
-float32 numpy arrays, (1, C, T) mixtures and (n_src, C, T) stems. The
-train datasets come with musdb18 training.
+The port's own copy of `dnn_based_source_separation_tpu/data/musdb18.py`,
+which follows the reference `egs/musdb18/common/src/dataset.py`:
+- `WaveTrainDataset`: fixed windows with 50% overlap over the train tracks
+  (train.txt minus validation.txt);
+- `AugmentationWaveTrainDataset`: a random track and window per source,
+  each augmented, summed into the mixture (the reference's random remix);
+  an item is a function of (seed, index) alone;
+- `WaveEvalDataset`: the first max_duration of each validation track;
+- `WaveTestDataset`: whole test tracks with their names.
+Items are float32 numpy arrays, (1, C, T) mixtures and (n_src, C, T) stems.
 
 Directory layout (as the musdb18 prep scripts produce it):
   root/train/<track>/{mixture,bass,drums,other,vocals}.wav
@@ -21,6 +24,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 from .audio_io import read_wav
+from .wsj0mix import _wav_length
 
 SAMPLE_RATE_MUSDB18 = 44100
 __sources__ = ["bass", "drums", "other", "vocals"]
@@ -78,6 +82,74 @@ class _MUSDB18Base:
         if x.ndim == 1:
             x = x[:, None]
         return x.T.astype(np.float32)  # (C, T)
+
+
+class WaveTrainDataset(_MUSDB18Base):
+    """Fixed windows of `duration` with 50% overlap (or `overlap` samples) over the train
+    tracks."""
+
+    def __init__(self, musdb18_root: str, duration: float = 4.0,
+                 sample_rate: int = SAMPLE_RATE_MUSDB18, overlap: Optional[int] = None,
+                 sources: Sequence[str] = __sources__, **kwargs):
+        super().__init__(musdb18_root, "train", sources, **kwargs)
+        self.samples = int(duration * sample_rate)
+        hop = self.samples - (overlap if overlap is not None else self.samples // 2)
+        self.index = []
+        for name in self.names:
+            T = _wav_length(self._path(name, "mixture"))
+            for start in range(0, T - self.samples + 1, hop):
+                self.index.append((name, start))
+
+    def __len__(self):
+        return len(self.index)
+
+    def __getitem__(self, idx):
+        name, start = self.index[idx]
+        mixture = self._load(name, "mixture", start, self.samples)
+        sources = np.stack([self._load(name, s, start, self.samples) for s in self.sources])
+        return mixture[None], sources  # (1, C, T), (n_src, C, T)
+
+
+class AugmentationWaveTrainDataset(_MUSDB18Base):
+    """A random track and window per source from `np.random.default_rng((seed, idx))`,
+    each augmented (`augmentation(x, rng)`, the same generator), zero-padded past a short
+    track's end and summed into the mixture. `samples_per_epoch` defaults to the train
+    tracks' total duration over `duration`."""
+
+    def __init__(self, musdb18_root: str, duration: float = 4.0,
+                 sample_rate: int = SAMPLE_RATE_MUSDB18,
+                 samples_per_epoch: Optional[int] = None,
+                 sources: Sequence[str] = __sources__, augmentation=None,
+                 seed: int = 0, **kwargs):
+        super().__init__(musdb18_root, "train", sources, **kwargs)
+        self.samples = int(duration * sample_rate)
+        self.augmentation = augmentation
+        self.seed = seed
+        self.track_samples = {name: _wav_length(self._path(name, "mixture"))
+                              for name in self.names}
+        if samples_per_epoch is None:
+            total = sum(self.track_samples.values()) / sample_rate
+            samples_per_epoch = int(total / duration)
+        self.samples_per_epoch = samples_per_epoch
+
+    def __len__(self):
+        return self.samples_per_epoch
+
+    def __getitem__(self, idx):
+        rng = np.random.default_rng((self.seed, idx))
+        sources = []
+        for source in self.sources:
+            name = self.names[rng.integers(len(self.names))]
+            start = int(rng.integers(0, max(self.track_samples[name] - self.samples, 1)))
+            x = self._load(name, source, start, self.samples)
+            if x.shape[1] < self.samples:
+                x = np.pad(x, ((0, 0), (0, self.samples - x.shape[1])))
+            if self.augmentation is not None:
+                x = self.augmentation(x, rng)
+            sources.append(x)
+        sources = np.stack(sources)  # (n_src, C, T)
+        mixture = sources.sum(axis=0, keepdims=True)
+        return mixture.astype(np.float32), sources.astype(np.float32)
 
 
 class WaveEvalDataset(_MUSDB18Base):

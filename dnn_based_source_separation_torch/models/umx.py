@@ -13,9 +13,11 @@ Parameter and buffer names are the reference torch model's, those that
 kernels on the card): hidden // 2 per direction, or hidden for the causal,
 unidirectional model.
 
-Serving only: BatchNorm uses its running statistics, and a module in train
-mode raises (BatchNorm's batch statistics and the LSTM's dropout come with
-training). A `dropout` config loads and is ignored in eval mode.
+Train mode (JAX `train=True`): BatchNorm normalises with the batch's
+statistics and updates its running ones by flax's rule, and the LSTM
+applies `dropout` between layers (its generator set by
+`ops/rnn.py:set_dropout_generator`). Eval mode uses the running statistics
+and no dropout.
 """
 from __future__ import annotations
 
@@ -35,8 +37,15 @@ __sources__ = ["bass", "drums", "other", "vocals"]
 
 
 class TransformBlock1d(nn.Module):
-    """Linear (no bias) -> BatchNorm (eps 1e-5; flax momentum 0.9 is torch's 0.1) ->
-    optional tanh or relu, over (B, T, F)."""
+    """Linear (no bias) -> BatchNorm (eps 1e-5) -> optional tanh or relu, over (B, T, F).
+
+    In train mode BatchNorm is flax's `nn.BatchNorm(momentum=0.9)` (JAX
+    `models/umx.py:27-45`): the mean and the biased variance
+    (E[x^2] - E[x]^2, clipped at 0) over all B*T rows, computed in f32, then
+    `running = 0.9 * running + 0.1 * batch` for both, in place on the
+    buffers, and `num_batches_tracked` counts the updates. (`nn.BatchNorm1d`
+    puts the unbiased variance into `running_var`: another function.)
+    """
 
     def __init__(self, in_features: int, out_features: int, nonlinear: Optional[str] = None,
                  *, generator=None, device=None):
@@ -48,16 +57,27 @@ class TransformBlock1d(nn.Module):
         self.norm1d = nn.BatchNorm1d(out_features, eps=1e-5, momentum=0.1, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError("UMX BatchNorm in train mode is not ported yet (it comes "
-                                      "with musdb18 training); call .eval() to serve")
         y = F.linear(x, self.fc.weight)
-        y = self.norm1d(y.reshape(-1, y.shape[-1])).reshape(y.shape)
+        y = (self._batch_norm(y) if self.training else
+             self.norm1d(y.reshape(-1, y.shape[-1])).reshape(y.shape))
         if self.nonlinear == "tanh":
             return torch.tanh(y)
         if self.nonlinear == "relu":
             return F.relu(y)
         return y
+
+    def _batch_norm(self, y: torch.Tensor) -> torch.Tensor:
+        """flax's train-mode BatchNorm over every axis but the last; updates the buffers."""
+        norm = self.norm1d
+        rows = y.reshape(-1, y.shape[-1]).float()
+        mean = rows.mean(dim=0)
+        var = torch.clamp(rows.square().mean(dim=0) - mean.square(), min=0.0)
+        with torch.no_grad():
+            for buf, batch in ((norm.running_mean, mean), (norm.running_var, var)):
+                buf.copy_(0.9 * buf + 0.1 * batch)
+            norm.num_batches_tracked.add_(1)
+        mul = torch.rsqrt(var + norm.eps) * norm.weight.float()
+        return ((y.float() - mean) * mul + norm.bias.float()).to(y.dtype)
 
 
 def config_of(local_vars: dict) -> dict:

@@ -28,7 +28,13 @@ outside Pallas. Vanilla RNN and SRU are not ported yet.
 
 Training: the LSTM and GRU recurrences are differentiable on both devices
 (`ops/lstm_scan.py`, `ops/gru_scan.py`, backward kernels on CUDA). Both GRU
-biases train, as in JAX.
+biases train, as in JAX. `dropout` applies to every layer's output but the
+last, in train mode only, by flax's rule (JAX `ops/rnn.py:173-174`,
+`:233-234`): `where(mask, x / keep, 0)` with keep = 1 - dropout and the mask
+drawn from the module's explicit `torch.Generator` on its device
+(`set_dropout_generator`; `F.dropout` takes none). A bidirectional layer's
+mask multiplies the concatenated [forward, flipped-back backward] output,
+so the backward kernels receive the masked cotangent.
 """
 from __future__ import annotations
 
@@ -44,9 +50,10 @@ from .params import uniform_parameter
 class _StackedRNN(nn.Module):
     """(B, T, F) -> (B, T, D * H), D = 2 if bidirectional; zero initial state.
 
-    `dropout` follows torch: it would apply between layers in training only.
-    No ported configuration uses it, so a module with dropout > 0 raises in
-    train mode and ignores it in eval mode.
+    `dropout` applies between layers in train mode only; its masks come from
+    `self.generator` (a `torch.Generator` on the input's device), which must
+    be set (`set_dropout_generator`) before a train-mode forward with
+    dropout > 0, as JAX requires a 'dropout' rng.
     """
 
     GATES = 0
@@ -57,6 +64,7 @@ class _StackedRNN(nn.Module):
         super().__init__()
         self.input_size, self.hidden_size = input_size, hidden_size
         self.num_layers, self.bidirectional, self.dropout = num_layers, bidirectional, dropout
+        self.generator: torch.Generator | None = None
         H, G = hidden_size, self.GATES
         directions = 2 if bidirectional else 1
         for layer in range(num_layers):
@@ -72,14 +80,16 @@ class _StackedRNN(nn.Module):
     def _suffixes(self, layer: int):
         return [f"_l{layer}"] + ([f"_l{layer}_reverse"] if self.bidirectional else [])
 
-    def _refuse_dropout(self) -> None:
-        if self.training and self.dropout > 0.0:
-            raise NotImplementedError(f"{type(self).__name__} dropout between layers is not "
-                                      "ported (no DPRNN-TasNet or Conv-TasNet config uses it; "
-                                      "call .eval() to ignore it)")
+    def _dropout(self, x: torch.Tensor) -> torch.Tensor:
+        """flax's nn.Dropout: where(mask, x / keep, 0), mask ~ Bernoulli(keep)."""
+        if self.generator is None:
+            raise ValueError(f"{type(self).__name__} with dropout {self.dropout} in train mode "
+                             "needs a dropout generator: call set_dropout_generator(model, g)")
+        keep = 1.0 - self.dropout
+        mask = torch.empty_like(x).bernoulli_(keep, generator=self.generator).bool()
+        return torch.where(mask, x / keep, torch.zeros_like(x))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        self._refuse_dropout()
         for layer in range(self.num_layers):
             fwd, *rev = self._suffixes(layer)
             if rev:
@@ -87,6 +97,8 @@ class _StackedRNN(nn.Module):
                 x = torch.cat([hs_f, hs_b.flip(1)], dim=-1)
             else:
                 x = self._single(self._chain(x, fwd))
+            if self.training and self.dropout > 0.0 and layer < self.num_layers - 1:
+                x = self._dropout(x)
         return x
 
     def stream(self, x: torch.Tensor, state: list | None = None):
@@ -94,7 +106,9 @@ class _StackedRNN(nn.Module):
 
         Returns (hs (B, T, H), the final state). A backward chain cannot stream.
         """
-        self._refuse_dropout()
+        if self.training and self.dropout > 0.0:
+            raise NotImplementedError(f"{type(self).__name__}.stream has no dropout: call "
+                                      ".eval() to stream")
         if self.bidirectional:
             raise NotImplementedError(
                 f"exact streaming requires a unidirectional (causal) {type(self).__name__}")
@@ -150,6 +164,14 @@ class GRU(_StackedRNN):
 
     def _steps(self, chain, state):
         return gru_steps(*chain, state)
+
+
+def set_dropout_generator(module: nn.Module, generator: torch.Generator | None) -> None:
+    """Give every LSTM and GRU inside `module` the generator its dropout masks come from
+    (None: no generator; a train-mode forward with dropout > 0 then raises)."""
+    for m in module.modules():
+        if isinstance(m, _StackedRNN):
+            m.generator = generator
 
 
 def choose_rnn(name: str, input_size: int, hidden_size: int, num_layers: int = 1,

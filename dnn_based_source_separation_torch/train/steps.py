@@ -24,6 +24,8 @@ from typing import Callable, Iterable, Optional
 import torch
 from torch.func import functional_call
 
+from ..ops.rnn import set_dropout_generator
+
 
 class Optimizer:
     """A `torch.optim` optimizer with optax's global-norm clipping in front of its step."""
@@ -109,19 +111,29 @@ def _loss_of(out) -> torch.Tensor:
 
 
 def make_train_step(model: torch.nn.Module, criterion: Callable, optimizer: Optimizer,
-                    compute_dtype: Optional[torch.dtype] = None) -> Callable:
+                    compute_dtype: Optional[torch.dtype] = None,
+                    generator: Optional[torch.Generator] = None) -> Callable:
     """Build (mixture, sources) -> loss: forward, PIT loss in f32, backward, clip, update.
 
     The loss comes back as a detached device tensor; nothing synchronises.
     compute_dtype=torch.bfloat16 is the JAX package's mixed precision
-    (`steps.py:113-115, 139-152`): the f32 master parameters are cast to
-    bfloat16 inside the step and the model runs on those copies
+    (`steps.py:113-115, 139-161`): the f32 master parameters and buffers are
+    cast to bfloat16 inside the step and the model runs on those copies
     (`torch.func.functional_call`), the mixture is cast too, and the
     estimates go back to f32 before the loss. Gradients flow through the
-    casts onto the f32 parameters, where the optimizer and its state stay.
-    It is not `torch.autocast`, which keeps some ops in f32 and so computes
-    another function.
+    casts onto the f32 parameters, where the optimizer and its state stay;
+    the buffers the forward updated in place on the copies (BatchNorm's
+    running statistics) are written back to the f32 buffers, as JAX writes
+    `new_aux` back. It is not `torch.autocast`, which keeps some ops in f32
+    and so computes another function.
+
+    `generator`, if given (a `torch.Generator` on the model's device), draws
+    the dropout masks of the model's LSTMs and GRUs, one draw after another
+    across steps: the counterpart of the JAX step's `dropout_rng`, split
+    once a step (`with_dropout_rng`, steps.py:163-167).
     """
+    if generator is not None:
+        set_dropout_generator(model, generator)
 
     def cast(tensors: dict) -> dict:
         return {k: v.to(compute_dtype) if v.dtype == torch.float32 else v
@@ -133,8 +145,14 @@ def make_train_step(model: torch.nn.Module, criterion: Callable, optimizer: Opti
         if compute_dtype is None:
             estimates = model(mixture)
         else:
-            state = cast({**dict(model.named_parameters()), **dict(model.named_buffers())})
+            buffers = dict(model.named_buffers())
+            state = cast({**dict(model.named_parameters()), **buffers})
+            versions = {name: state[name]._version for name in buffers}
             estimates = functional_call(model, state, (mixture.to(compute_dtype),)).float()
+            with torch.no_grad():  # only what the forward wrote: a window stays f32
+                for name, buf in buffers.items():
+                    if state[name] is not buf and state[name]._version != versions[name]:
+                        buf.copy_(state[name])
         loss = _loss_of(criterion(estimates, sources))
         loss.backward()
         optimizer.step()

@@ -53,7 +53,8 @@ class Trainer:
 
     def __init__(self, model: torch.nn.Module, train_loader, valid_loader, criterion: Callable,
                  optimizer: Optimizer, config: TrainerConfig, device,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None,
+                 dropout_generator: Optional[torch.Generator] = None):
         self.model, self.optimizer, self.config = model, optimizer, config
         self.train_loader, self.valid_loader = train_loader, valid_loader
         self.device = torch.device(device)
@@ -64,7 +65,10 @@ class Trainer:
         for d in (self.model_dir, self.loss_dir, self.sample_dir):
             os.makedirs(d, exist_ok=True)
 
-        self.train_step = make_train_step(model, criterion, optimizer, compute_dtype=compute_dtype)
+        # dropout_generator (a torch.Generator on `device`) draws the models' dropout
+        # masks, as the JAX trainer's dropout_rng does.
+        self.train_step = make_train_step(model, criterion, optimizer, compute_dtype=compute_dtype,
+                                          generator=dropout_generator)
         self.eval_step = make_eval_step(model, criterion)
 
         if config.continue_from:

@@ -242,9 +242,11 @@ def test_stream_refuses_a_bidirectional_stack(cls):
 
 
 def test_gru_dropout_is_eval_only():
+    # Dropout applies in train mode only, and there it needs the generator its masks
+    # come from (tests/test_torch_musdb_train.py holds its semantics).
     port = GRU(4, 8, num_layers=2, dropout=0.25)
     x = torch.zeros(2, 3, 4)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="dropout generator"):
         port.train()(x)
     assert port.eval()(x).shape == (2, 3, 8)
 

@@ -38,7 +38,9 @@ def test_importing_every_port_module_leaves_jax_out():
                 "data.wsj0mix", "data.synthetic", "data.audio_io", "data.native_loader",
                 "models.longform", "ops.windows", "entry", "bench", "ops.stft", "models.umx",
                 "models.xumx", "models.wrappers", "algorithm.frequency_mask", "data.musdb18",
-                "cli.test_musdb18", "hub.from_jax"):
+                "cli.test_musdb18", "hub.from_jax", "criterion.distance", "criterion.combination",
+                "criterion.spectral", "criterion.multidomain", "augmentation",
+                "cli.train_musdb18"):
         assert f"dnn_based_source_separation_torch.{new}" in modules, new
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"

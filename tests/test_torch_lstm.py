@@ -179,9 +179,11 @@ def test_lstm_module_matches_torch_nn_lstm(bidirectional):
 
 
 def test_lstm_dropout_is_eval_only():
+    # Dropout applies in train mode only, and there it needs the generator its masks
+    # come from (tests/test_torch_musdb_train.py holds its semantics).
     port = LSTM(4, 8, num_layers=2, dropout=0.25)
     x = torch.zeros(2, 3, 4)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="dropout generator"):
         port.train()(x)
     assert port.eval()(x).shape == (2, 3, 8)
 

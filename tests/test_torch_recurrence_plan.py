@@ -186,8 +186,9 @@ def _fma(B, n_chains, H):
     (64, 2, 256, F32, 8),  # nine waves of 8-block clusters
     (64, 2, 256, BF16, 8),
     (16, 2, 512, BF16, 16),  # five waves of 16-block clusters
+    (16, 2, 256, F32, 8),  # UMX / X-UMX training, B = 16 x 6 s: 32 clusters, three waves of 8
 ], ids=["umx", "causal-umx", "umx-bf16", "causal-umx-bf16", "B=3", "B=4", "H=384", "f32-H=256",
-        "bf16-H=256", "bf16-H=512"])
+        "bf16-H=256", "bf16-H=512", "umx-train"])
 def test_few_sequences_at_h_256_to_512_take_the_cluster_kernel_in_the_lstm(
         wrapper, B, n_chains, H, dtype, C):
     got = wrapper._plan(B, n_chains, H, dtype, SMS, clusters=_clusters(H), routes=wrapper.ROUTES)
@@ -300,7 +301,8 @@ def test_the_backward_takes_the_tensor_cores_at_h_multiple_of_16_up_to_128(
 @DTYPES
 @pytest.mark.parametrize("B,n_chains,H,R", [
     (37, 2, 40, 1), (64, 2, 256, 1), (400, 2, 256, 2), (4096, 1, 512, 4), (16, 2, 512, 1),
-], ids=["H=40", "H=256", "H=256-R2", "H=512", "H=512-small"])
+    (16, 2, 256, 1),  # UMX / X-UMX training's backward: 16 blocks of 2 sequences
+], ids=["H=40", "H=256", "H=256-R2", "H=512", "H=512-small", "umx-train"])
 def test_the_backward_takes_the_fma_kernel_at_other_h(wrapper, dtype, B, n_chains, H, R):
     got = wrapper._plan_bwd(B, n_chains, H, dtype, SMS, clusters=CLUSTERS)
     assert got == ("fma", R) == ("fma", wrapper._plan(B, n_chains, H, dtype, SMS, "fma")[1])

@@ -20,6 +20,7 @@ from dnn_based_source_separation_torch.models import (
     CrossNetOpenUnmix, OpenUnmix, ParallelOpenUnmix, SpectrogramMaskingWrapper,
 )
 from dnn_based_source_separation_torch.models.base import load_model, read_checkpoint, save_model
+from dnn_based_source_separation_torch.ops.rnn import set_dropout_generator
 from dnn_based_source_separation_tpu.hub.torch_convert import convert_open_unmix, convert_xumx
 from dnn_based_source_separation_tpu.models import umx as jumx
 from dnn_based_source_separation_tpu.models import wrappers as jwrappers
@@ -214,8 +215,13 @@ def test_saved_wrapper_reloads_through_load_model(tmp_path):
 
 
 def test_train_mode_raises():
-    # BatchNorm's batch statistics and the LSTM's dropout come with training.
+    # Train mode with dropout needs the generator its masks come from; with one it
+    # trains (batch statistics, dropout; tests/test_torch_musdb_train.py), and eval
+    # mode ignores dropout.
     model = OpenUnmix(**CFG, dropout=0.4).train()
-    with pytest.raises(NotImplementedError):
-        model(torch.from_numpy(_amplitude((1,), seed=14)))
-    model.eval()(torch.from_numpy(_amplitude((1,), seed=14)))  # dropout ignored in eval
+    x = torch.from_numpy(_amplitude((1,), seed=14))
+    with pytest.raises(ValueError, match="dropout generator"):
+        model(x)
+    set_dropout_generator(model, torch.Generator().manual_seed(0))
+    assert model(x).shape == x.shape
+    model.eval()(x)  # dropout ignored in eval

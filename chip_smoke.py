@@ -4,7 +4,8 @@
     python3 chip_smoke.py --only 3e,3f    # phases 1 and 2, then the kernel phases named
     python3 chip_smoke.py --only 6s       # phases 1 and 2, then streaming ms per hop
     python3 chip_smoke.py --only 11       # phases 1 and 2, then musdb18 serving
-    python3 chip_smoke.py --only 3h       # phases 1 and 2, then the cluster route
+    python3 chip_smoke.py --only 3h       # phases 1 and 2, then the cluster routes
+    python3 chip_smoke.py --only 3d,3h,12 # the cluster backward, then musdb18 training
     python3 chip_smoke.py --only 12       # phases 1 and 2, then musdb18 training
 
 Phases (any failure exits non-zero; nothing is caught and passed):
@@ -38,16 +39,19 @@ Phases (any failure exits non-zero; nothing is caught and passed):
   3d. the training forward (cs written; the tensor-core paths) and the
      backward kernels of lstm_scan_bidir and lstm_scan under autograd against
      the plain forward and lstm_scan_bwd_reference, f32 and bf16, at the recipe
-     training shapes (B = 2 x 4 s, timed), an odd shape, T=1, H=256 and musdb18
-     training's (B = 16, T = 259, H = 256: the forward on "cluster", the backward on
-     "fma", its f32 two-chain backward timed whole and alone). Each
-     backward launch must take the path _plan_bwd gives: for H a multiple of
-     16 up to 128 the split-TF32 tensor cores ("tf32x3" in f32, "tf32x2" in
-     bf16; clusters of 2 or 4 blocks), the FMA kernel otherwise. Where the
-     tensor cores run, ten more launches are checked and the FMA kernel is
-     forced and checked too; at the training shapes the whole backward and
-     the kernel alone are timed, FMA and tensor cores in turns (FMA, new,
-     new, FMA); fused_mask_decode must refuse CUDA tensors that require grad;
+     training shapes (B = 2 x 4 s, timed), an odd shape, T=1, H=256 (B = 64,
+     T = 33) and musdb18 training's (B = 16, T = 259, H = 256: the forward and the
+     backward on "cluster"). Each backward launch must take the path _plan_bwd
+     gives: for H a multiple of 16 up to 128 the split-TF32 tensor cores
+     ("tf32x3" in f32, "tf32x2" in bf16; clusters of 2 or 4 blocks), for the
+     LSTM at H = 256 and few sequences the cluster backward
+     (csrc/recurrence_cluster_bwd.cuh, 8-block clusters), the FMA kernel
+     otherwise. Where another kernel than FMA runs, ten more launches are
+     checked and the FMA kernel is forced and checked too; at the training
+     shapes the whole backward and the kernel alone are timed, FMA and the new
+     kernel in turns (FMA, new, new, FMA); at musdb18 training's shape (f32,
+     two chains) from CUDA graphs, beside cuDNN's nn.LSTM backward (F = 512);
+     fused_mask_decode must refuse CUDA tensors that require grad;
   3e. the backward kernels of gru_scan_bidir and gru_scan under autograd
      against gru_scan_bwd_reference the same way;
   3f. quantize_int8 against its plain version, bit for bit, on every weight
@@ -57,10 +61,9 @@ Phases (any failure exits non-zero; nothing is caught and passed):
      unbiased over 64 seeds;
   3g. the library calls beside the recurrence kernels (informational):
      cuDNN's nn.LSTM / nn.GRU forward and backward, f32 and bf16, at the
-     kernels' timed shapes, input projection included, and nn.LSTM at musdb18
-     training's shape (F = 512, H = 256, B = 16, T = 259, f32); torch.einsum on
-     bf16 operands at fused_mask_decode's timed shapes (a bf16 output); the port
-     never calls them;
+     kernels' timed shapes, input projection included (nn.LSTM at musdb18's
+     shapes is timed in 3d and 3h); torch.einsum on bf16 operands at
+     fused_mask_decode's timed shapes (a bf16 output); the port never calls them;
   3h. the cluster route of lstm_scan_bidir and lstm_scan (csrc/recurrence_cluster.cuh)
      against the plain versions, f32 and bf16, on every cluster size the card
      holds (8 and 16 blocks at H = 256, 16 above): at UMX's serving shapes (B = 1,
@@ -71,7 +74,14 @@ Phases (any failure exits non-zero; nothing is caught and passed):
      the FMA kernel forced in the same run (FMA, cluster, cluster, FMA), beside
      the other cluster size, the serial floor (the kernel with its product
      compiled out), the plain version, cuDNN's nn.LSTM (median of 50) and the
-     bound; then against the FMA kernel over B (the crossover the plan encodes);
+     bound; then against the FMA kernel over B (the crossover the plan encodes).
+     The cluster backward (csrc/recurrence_cluster_bwd.cuh) the same way: at
+     every case against lstm_scan_bwd_reference, f32 and bf16, on every
+     cluster size, each launch repeated and checked, the plan taking it; at
+     musdb18 training's shape both cluster sizes and its serial floor timed
+     from CUDA graphs; then against the FMA backward over B = 1-512 (H = 256 on
+     two chains, 512 on one, T = 259), the crossover CLUSTER_MAX_BATCH_BWD
+     encodes;
   4. serve: paper-config Conv-TasNet (random weights from seed 0) through
      cli/separate.py on three mixtures in float32 and bfloat16, counting the
      kernel's launches;
@@ -141,7 +151,7 @@ Phases (any failure exits non-zero; nothing is caught and passed):
      cli/train_musdb18.py --device cuda for each model on a synthetic musdb-layout
      corpus, two epochs of 10 steps at B = 16 x 6 s with dropout 0.4 (the epoch's
      train loss must fall), its last.ckpt served through cli/test_musdb18.py; every
-     step exactly 12 lstm_scan_bidir on "cluster" and 12 backwards on "fma", every
+     step exactly 12 lstm_scan_bidir on "cluster" and 12 backwards on "cluster", every
      validation and serving forward 12 on "cluster", and nothing else; then the recipe
      step timed (p50 of forward / backward / optimizer by CUDA events, audio-s/s, peak
      allocation) and profiled (device time by kernel, idle share).
@@ -157,8 +167,9 @@ every decode of phases 4-4g, 6, 8 and 10 on its planned fused_mask_decode
 path ("mma" in bf16, "generic" for f32 Conv-TasNet, "rows" for f32
 DPRNN-TasNet). Phase 11's card runs (UMX at B = 1, H = 256 and 512) must
 launch only the cluster kernel, and join the main path's total, which must
-have launched every path but "fma"; of the FMA kernels only musdb18 training's
-backward (lstm_scan_bidir_bwd at H = 256, phase 12) runs, and it must. The last line
+have launched every path but "fma" (and the one-chain cluster backward, which
+no main path trains), and no FMA kernel: musdb18 training's backward
+(lstm_scan_bidir_bwd at H = 256, phase 12) runs on the cluster backward. The last line
 is {"ok": true, "device":
 {...}}; the line before it lists the kernels with their launch counts,
 errors, times, bounds and library times: fused_mask_decode six times
@@ -177,9 +188,11 @@ more at UMX's shapes (B = 1, T = 431; H = 256 and 512), on the cluster kernel,
 with phase 11's launches, phase 3h's times, the FMA kernel's (`fma_ms`), the
 other cluster size's (`c8_ms` or `c16_ms`) and the serial floor's (`floor_ms`);
 lstm_scan_bidir at musdb18 training's shape on the cluster kernel with cs, and its
-backward there on the FMA kernel (the whole backward as `ms`, the kernel alone as
-`kernel_ms`), with phase 12's launches. The bf16 fused_mask_decode rows' `library_ms` is
-torch.einsum on bf16 operands, whose output is bf16 (the kernel's is f32).
+backward there on the cluster backward (the whole backward as `ms`, the kernel alone
+as `kernel_ms`, the FMA backward's as `fma_ms` and `fma_kernel_ms`, both cluster
+sizes' kernels alone as `c8_ms` and `c16_ms`, the serial floor as `floor_ms`, cuDNN's
+backward as `library_ms`), with phase 12's launches. The bf16 fused_mask_decode rows'
+`library_ms` is torch.einsum on bf16 operands, whose output is bf16 (the kernel's is f32).
 """
 from __future__ import annotations
 
@@ -632,7 +645,8 @@ BWD_SHAPES = [
     ("T=1", 3, 1, 128),
     ("H=256", 64, 33, 256),
     # musdb18 training of UMX / X-UMX: B = 16 x 6 s, 259 frames, H = 512 // 2 a direction;
-    # the backward's route there is "fma" (the tensor cores stop at H = 128).
+    # the LSTM backward's route there and at "H=256" is "cluster" (the tensor cores stop
+    # at H = 128), the GRU's "fma".
     ("umx-train", 16, 259, 256),
 ]
 UMX_TRAIN_SHAPE = (16, 259, 256)  # B, T, H of BWD_SHAPES' "umx-train"
@@ -648,11 +662,21 @@ def bwd_limit(dtype, scale):
 
 
 def plan_bwd(module, B, n_chains, H, dtype, path=None):
-    """module._plan_bwd as the wrapper calls it on this card -> (path, tile)."""
+    """module._plan_bwd as the wrapper calls it on this card, over its routes -> (path, tile)."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    clusters = (module._tf32_bwd_clusters(H, "cuda") if ls._tensor_core_path(H, dtype, True)
-                else None)
-    return module._plan_bwd(B, n_chains, H, dtype, sms, path, clusters)
+    clusters = None
+    if ls._needs_clusters(H, dtype, path, True, module.ROUTES):
+        clusters = (module._tf32_bwd_clusters(H, "cuda") if H <= ls.MMA_MAX_HIDDEN
+                    else ls._cluster_bwd_counts(H, "cuda"))
+    return module._plan_bwd(B, n_chains, H, dtype, sms, path, clusters, module.ROUTES)
+
+
+def tile_label(tile) -> str:
+    """A plan's tile for the log: R of the FMA kernels, (M, C) of the tensor-core
+    backward, (1, C) of the cluster one."""
+    if not isinstance(tile, tuple):
+        return f"R={tile}"
+    return f"C={tile[1]}" if tile[0] == 1 else f"M={tile[0]}, C={tile[1]}"
 
 
 def backward_path(module, kname, call, want):
@@ -672,11 +696,12 @@ def grad_errors(kname, got, ref, dtype):
 
 def check_backward(module, kname, label, grads_of, plain_chains, ref, plain, timed):
     """One backward under autograd (`grads_of()`, its gradients in `ref`'s order) on the
-    path _plan_bwd gives it, against the plain version's `ref`. Where the tensor cores run,
-    REPEATS more launches are checked and the FMA kernel is forced and checked too. If
-    `timed`, the whole backward (gate recompute, kernel, parameter gradients) and the kernel
-    alone are timed, the FMA kernel and the tensor-core one in turns (FMA, new, new, FMA;
-    the FMA kernel alone where it is the planned path), and `plain()` -> a timing dict."""
+    path _plan_bwd gives it, against the plain version's `ref`. Where another kernel than
+    FMA runs, REPEATS more launches are checked and the FMA kernel is forced and checked
+    too. If `timed` (a shape where another kernel than FMA runs), the whole backward (gate
+    recompute, kernel, parameter gradients) and the kernel alone are timed, the FMA kernel
+    and the planned one in turns (FMA, new, new, FMA; the cluster backward from CUDA graphs,
+    by cluster_bwd_turns), and `plain()` -> a timing dict."""
     xw, w_hh = plain_chains[0][:2]
     B, T, _ = xw.shape
     H, dtype = w_hh.shape[0], xw.dtype
@@ -691,8 +716,7 @@ def check_backward(module, kname, label, grads_of, plain_chains, ref, plain, tim
     errs = {}
     for p, call in calls.items():
         e = grad_errors(kname, backward_path(module, kname, call, p), ref, dtype)
-        _, p_tile = plan_bwd(module, B, len(plain_chains), H, dtype, p)
-        p_tile = f"M={p_tile[0]}, C={p_tile[1]}" if isinstance(p_tile, tuple) else f"R={p_tile}"
+        p_tile = tile_label(plan_bwd(module, B, len(plain_chains), H, dtype, p)[1])
         ok = all(x <= lim for x, lim in e)
         log(f"  {kname} {label} {p} ({p_tile}): max|kernel-plain| / limit of each gradient: "
             + ", ".join(f"{x:.3e} / {lim:.3e}" for x, lim in e) + (" ok" if ok else " FAIL"))
@@ -709,17 +733,17 @@ def check_backward(module, kname, label, grads_of, plain_chains, ref, plain, tim
         log(f"    {REPEATS} more {path} launches: worst max|kernel-plain| {worst:.3f} of its limit")
     if not timed:
         return None
+    if path == "cluster":
+        timing = cluster_bwd_turns(plain_chains, tile[1], plain)
+        timing.update(max_abs_err=errs[path], fma_max_abs_err=errs["fma"])
+        return timing
     # The staged arrays stay alive with each launch call.
-    paths = dict.fromkeys((path, "fma"))
+    paths = (path, "fma")
     calls = {"whole": {p: (lambda p=p: module._backward_cuda(plain_chains, p)) for p in paths},
              "alone": {p: module._staged_backward(plain_chains, p)[1] for p in paths}}
     ms = {}
     for what, by_path in calls.items():
         label_of = "whole backward" if what == "whole" else "kernel alone"
-        if path == "fma":
-            ms[what] = (median_ms(by_path["fma"], warmup=2, iters=10),)
-            log(f"    {label_of}: fma {ms[what][0]:.4f} ms")
-            continue
         fma_1, new_1, new_2, fma_2 = (median_ms(by_path[p], warmup=2, iters=10)
                                       for p in ("fma", path, path, "fma"))
         ms[what] = ((new_1 + new_2) / 2, (fma_1 + fma_2) / 2)
@@ -727,12 +751,52 @@ def check_backward(module, kname, label, grads_of, plain_chains, ref, plain, tim
             f"{fma_2:.4f} ms")
     plain_ms = median_ms(plain, warmup=1, iters=3)
     log(f"    plain {plain_ms:.4f} ms (medians of 10, 10 and 3, CUDA events)")
-    timing = dict(max_abs_err=errs[path], ms=ms["whole"][0], kernel_ms=ms["alone"][0],
-                  plain_ms=plain_ms)
-    if path != "fma":
-        timing.update(fma_max_abs_err=errs["fma"], fma_ms=ms["whole"][1],
-                      fma_kernel_ms=ms["alone"][1])
-    return timing
+    return dict(max_abs_err=errs[path], ms=ms["whole"][0], kernel_ms=ms["alone"][0],
+                plain_ms=plain_ms, fma_max_abs_err=errs["fma"], fma_ms=ms["whole"][1],
+                fma_kernel_ms=ms["alone"][1])
+
+
+def library_lstm_bwd_ms(B, T, H, chains, dtype):
+    """cuDNN's nn.LSTM backward at the kernel's shape (torch.autograd.grad of its output
+    for the input and the parameters), input projection from UMX's 512 features included
+    (informational; the port never calls it)."""
+    lstm = torch.nn.LSTM(UMX["hidden_channels"], H, batch_first=True,
+                         bidirectional=chains == 2, device="cuda", dtype=dtype)
+    gen = torch.Generator(device="cuda").manual_seed(B + T)
+    x = torch.randn(B, T, UMX["hidden_channels"], device="cuda", generator=gen).to(dtype)
+    x.requires_grad_()
+    y = lstm(x)[0]
+    g = torch.randn(y.shape, device="cuda", generator=gen).to(dtype)
+    inputs = [x, *lstm.parameters()]
+    return median_ms(lambda: torch.autograd.grad(y, inputs, g, retain_graph=True), warmup=2,
+                     iters=10)
+
+
+def cluster_bwd_turns(chains, C, plain):
+    """The cluster backward on clusters of C blocks timed from CUDA graphs in turns with
+    the FMA backward forced in the same run (FMA, cluster, cluster, FMA), the whole
+    backward (the gate recompute, the kernel, d_W_hh) and the kernel alone; beside the
+    plain version and cuDNN's backward -> a timing dict."""
+    xw, w_hh = chains[0][:2]
+    B, T, _ = xw.shape
+    H = w_hh.shape[0]
+    calls = {"whole": {p: (lambda p=p: ls._backward_cuda(chains, p)) for p in ("fma", "cluster")},
+             "alone": {p: ls._staged_backward(chains, p)[1] for p in ("fma", "cluster")}}
+    repeats = {"fma": 1, "cluster": CLUSTER_REPEATS}
+    ms = {}
+    for what, by_path in calls.items():
+        fma_1, new_1, new_2, fma_2 = (graph_ms(by_path[p], repeats[p])
+                                      for p in ("fma", "cluster", "cluster", "fma"))
+        ms[what] = ((new_1 + new_2) / 2, (fma_1 + fma_2) / 2)
+        log(f"    {'whole backward' if what == 'whole' else 'kernel alone'}: cluster (C={C}) "
+            f"{new_1:.4f} / {new_2:.4f} ms between FMA {fma_1:.4f} / {fma_2:.4f} ms (CUDA "
+            f"graphs)")
+    plain_ms = median_ms(plain, warmup=1, iters=3)
+    library_ms = library_lstm_bwd_ms(B, T, H, len(chains), xw.dtype)
+    log(f"    plain {plain_ms:.4f} ms (median of 3); cuDNN nn.LSTM backward {library_ms:.4f} ms "
+        f"(F={UMX['hidden_channels']}, median of 10)")
+    return dict(cluster=C, ms=ms["whole"][0], kernel_ms=ms["alone"][0], fma_ms=ms["whole"][1],
+                fma_kernel_ms=ms["alone"][1], plain_ms=plain_ms, library_ms=library_ms)
 
 
 def phase_lstm_bwd():
@@ -741,6 +805,9 @@ def phase_lstm_bwd():
     H = DPRNN["sep_hidden_channels"]
     log(f"  clusters of the tensor-core backward the card holds at once, by blocks a cluster "
         f"(H={H}): {ls._tf32_bwd_clusters(H, 'cuda')}")
+    H = UMX_TRAIN_SHAPE[2]
+    log(f"  clusters of the cluster backward the card holds at once, by blocks a cluster "
+        f"(H={H}): {ls._cluster_bwd_counts(H, 'cuda')}")
     result = {}
     for name, B, T, H in BWD_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -909,9 +976,9 @@ RNN_FEATURES = DPRNN["sep_bottleneck_channels"]
 
 def phase_library():
     """cuDNN's nn.LSTM / nn.GRU at the recurrence kernels' timed shapes (informational):
-    the forward and the backward, in f32 and bf16; nn.LSTM at musdb18 training's shape
-    (UMX's biLSTM, B = 16 x 6 s, F = 512, H = 256, f32); and torch.einsum on bf16
-    operands at fused_mask_decode's timed shapes (its output is bf16, the kernel's f32).
+    the forward and the backward, in f32 and bf16 (nn.LSTM at musdb18's shapes: phases 3d
+    and 3h); and torch.einsum on bf16 operands at fused_mask_decode's timed shapes (its
+    output is bf16, the kernel's f32).
 
     One PyTorch call each: the module's forward, or torch.autograd.grad of
     its output for the backward rows. Both also do the input projection
@@ -922,13 +989,10 @@ def phase_library():
     H = DPRNN["sep_hidden_channels"]
     rows = [(row, shape, torch.float32) for row, shape in LIBRARY_SHAPES.items()]
     rows += [(row, shape, torch.bfloat16) for row, shape in LIBRARY_SHAPES.items()]
-    B, T, H_umx = UMX_TRAIN_SHAPE
-    umx_rows = [(f"umx_train{sfx}", (B, T, 2), torch.float32, UMX["hidden_channels"], H_umx)
-                for sfx in ("", "_bwd")]
+    F = RNN_FEATURES
     for rnn, cls in (("lstm", torch.nn.LSTM), ("gru", torch.nn.GRU)):
-        for row, (B, T, chains), dtype, F, H_row in [
-                (*r, RNN_FEATURES, H) for r in rows] + (umx_rows if rnn == "lstm" else []):
-            module = cls(F, H_row, batch_first=True, bidirectional=chains == 2,
+        for row, (B, T, chains), dtype in rows:
+            module = cls(F, H, batch_first=True, bidirectional=chains == 2,
                          device="cuda", dtype=dtype)
             gen = torch.Generator(device="cuda").manual_seed(B + T)
             x = torch.randn(B, T, F, device="cuda", generator=gen).to(dtype)
@@ -944,7 +1008,7 @@ def phase_library():
                     ms = median_ms(lambda: module(x), warmup=2, iters=10)
             result[f"{rnn}_{row}" + ("_bf16" if dtype == torch.bfloat16 else "")] = ms
             log(f"  {cls.__name__} {'backward' if row.endswith('bwd') else 'forward'} "
-                f"{str(dtype)[6:]} (B={B}, T={T}, F={F}, H={H_row}, {chains} chain(s)): "
+                f"{str(dtype)[6:]} (B={B}, T={T}, F={F}, H={H}, {chains} chain(s)): "
                 f"{ms:.4f} ms (median of 10, CUDA events)")
     for which, shape in DECODE_SHAPES.items():
         w, mask, kernel = kernel_inputs(**shape, dtype=torch.bfloat16, strided=True, seed=0)
@@ -1108,6 +1172,106 @@ def phase_cluster(card=None):
             log(f"    {name} H={H} B={B}: cluster (C={forced[1]}) {row['cluster_ms']:.4f} ms, "
                 f"FMA {row['fma_ms']:.4f} ms; the plan takes {natural}")
     result["crossover"] = crossover
+    result.update(phase_cluster_bwd(card))
+    return result
+
+
+# The cluster backward's crossover over B against the FMA backward (the kernels alone,
+# f32): musdb18 training's T at H = 256 on two chains and H = 512 on one.
+CLUSTER_BWD_CROSSOVER = {"lstm_scan_bidir_bwd": (259, 256, 2), "lstm_scan_bwd": (259, 512, 1)}
+CLUSTER_BWD_BATCHES = (1, 16, 64, 128, 256, 512)
+
+
+def bwd_chains(B, T, H, chains, dtype, seed):
+    """One or two (xw, w_hh, hs, cs, g_hs) chains: lstm_inputs' gates and weights, and hs,
+    cs and a cotangent drawn on the card (the backward's function takes any hs and cs)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = []
+    for xw, w in lstm_chains(B, T, H, chains, dtype, seed):
+        hs, cs, g = (torch.randn(B, T, H, device="cuda", generator=gen) for _ in range(3))
+        out.append((xw, w, torch.tanh(hs).to(dtype), cs.to(dtype), g.to(dtype)))
+    return out
+
+
+def staged_bwd_errors(name, staged, chains, refs, dtype):
+    """[(max|kernel - plain|, limit)] of d_xw and d_W_hh of each chain of a staged backward
+    launch, against lstm_scan_bwd_reference's `refs`."""
+    got = [t for (h_prev, *_, das, d_xw), chain in zip(staged, chains)
+           for t in (d_xw, ls._weight_grad(h_prev, das, chain[1].dtype))]
+    return grad_errors(name, got, [t for ref in refs for t in ref], dtype)
+
+
+def phase_cluster_bwd(card):
+    """The cluster backward against lstm_scan_bwd_reference at CLUSTER_CASES, f32 and bf16,
+    on every cluster size the card holds that H admits, each launch checked REPEATS more
+    times; the plan must take it at every case. At musdb18 training's shape both
+    cluster sizes and the serial floor (the product compiled out) timed from CUDA graphs
+    (phase 3d times the planned size beside the FMA backward and cuDNN); then the
+    crossover over B against the FMA backward, which sets CLUSTER_MAX_BATCH_BWD."""
+    log("  the cluster backward (csrc/recurrence_cluster_bwd.cuh) vs lstm_scan_bwd_reference:")
+    for H in sorted({case[3] for case in CLUSTER_CASES}):
+        log(f"  clusters of the cluster backward the card holds at once, by blocks a cluster "
+            f"(H={H}): {ls._cluster_bwd_counts(H, 'cuda')}")
+    result = {}
+    for label, B, T, H, chains in CLUSTER_CASES:
+        name = "lstm_scan_bidir_bwd" if chains == 2 else "lstm_scan_bwd"
+        counts = ls._cluster_bwd_counts(H, "cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            inputs = bwd_chains(B, T, H, chains, dtype, seed=B + T + H + 3)
+            refs = [ls.lstm_scan_bwd_reference(*c) for c in inputs]
+            path, tile = plan_bwd(ls, B, chains, H, dtype)
+            what = f"{name} {label} (B={B}, T={T}, H={H}) {str(dtype)[6:]}"
+            check(path == "cluster", f"{what} planned {path}, expected cluster")
+            sizes = [c for c in ls._cluster_sizes(H, dtype, True) if counts.get(c, 0) >= 1]
+            check(sizes, f"the card holds no cluster the backward takes at H={H}: {counts}")
+            for c in sizes:
+                staged, launch = ls._staged_backward(inputs, "cluster", c)
+                on_path(ls.BWD_PATH_LAUNCHES[name], name, launch, "cluster")
+                errs = staged_bwd_errors(name, staged, inputs, refs, dtype)
+                worst = max(x / lim if lim else 0.0 for x, lim in errs)
+                for _ in range(REPEATS):  # a race shows only in some launches
+                    launch()
+                    worst = max(worst, max(x / lim if lim else 0.0 for x, lim in
+                                           staged_bwd_errors(name, staged, inputs, refs, dtype)))
+                log(f"  {what} cluster (C={c}{', plan' if tile == (1, c) else ''}): "
+                    f"max|kernel-plain| / limit of d_xw, d_W_hh: "
+                    + ", ".join(f"{x:.3e} / {lim:.3e}" for x, lim in errs)
+                    + f"; worst of {1 + REPEATS} launches {worst:.3f} of its limit "
+                    + ("ok" if worst <= 1 else "FAIL"))
+                check(worst <= 1, f"{what} on {c}-block clusters disagrees with plain: {worst}")
+            if label != "UMX train" or dtype != torch.float32:
+                continue
+            timing = {f"c{c}_ms": graph_ms(ls._staged_backward(inputs, "cluster", c)[1],
+                                           CLUSTER_REPEATS) for c in sizes}
+            timing["floor_ms"] = graph_ms(ls._staged_cluster_bwd_floor(inputs, tile[1])[1],
+                                          CLUSTER_REPEATS)
+            log(f"    kernel alone: " + ", ".join(f"C={k[1:-3]} {v:.4f} ms" for k, v in
+                                                 timing.items() if k != "floor_ms")
+                + f"; serial floor (C={tile[1]}) {timing['floor_ms']:.4f} ms "
+                f"({timing['floor_ms'] / T * 1e3:.3f} us a step against "
+                f"{timing[f'c{tile[1]}_ms'] / T * 1e3:.3f}) (CUDA graphs) [{card}]")
+            result[("bwd", name, label)] = timing
+    log(f"  the cluster backward's crossover over B, f32, the kernels alone (CUDA graphs, "
+        f"medians of 5) [{card}]:")
+    crossover = []
+    for name, (T, H, chains) in CLUSTER_BWD_CROSSOVER.items():
+        for B in CLUSTER_BWD_BATCHES:
+            inputs = bwd_chains(B, T, H, chains, torch.float32, seed=B + T + H)
+            natural = plan_bwd(ls, B, chains, H, torch.float32)
+            forced = plan_bwd(ls, B, chains, H, torch.float32, "cluster")[1]
+            staged, cl = ls._staged_backward(inputs, "cluster")
+            fma = ls._staged_backward(inputs, "fma")[1]
+            row = dict(name=name, B=B, H=H, plan=natural, cluster=forced[1],
+                       cluster_ms=graph_ms(cl, 2, iters=5), fma_ms=graph_ms(fma, 1, iters=5))
+            errs = staged_bwd_errors(name, staged, inputs,
+                                     [ls.lstm_scan_bwd_reference(*c) for c in inputs],
+                                     torch.float32)
+            check(all(x <= lim for x, lim in errs),
+                  f"{name} cluster backward at B={B} disagrees with plain: {errs}")
+            crossover.append(row)
+            log(f"    {name} H={H} B={B}: cluster (C={forced[1]}) {row['cluster_ms']:.4f} ms, "
+                f"FMA {row['fma_ms']:.4f} ms; the plan takes {natural}")
+    result["bwd_crossover"] = crossover
     return result
 
 
@@ -1789,7 +1953,7 @@ def timed_train_steps(cls, cfg, B, compute_dtype, card, what, warmup=3, iters=10
     return model
 
 
-BACKWARD_KERNELS = ("lstm_bwd_kernel", "gru_bwd_kernel", "bwd_tf32_kernel")
+BACKWARD_KERNELS = ("lstm_bwd_kernel", "gru_bwd_kernel", "bwd_tf32_kernel", "bwd_cluster_kernel")
 FORWARD_KERNELS = ("lstm_kernel", "gru_kernel", "scan_mma_kernel", "scan_tf32_kernel",
                    "scan_cluster_kernel")
 
@@ -2283,8 +2447,8 @@ def musdb_batch(B, device, seed=12):
 
 def check_musdb_launches(launches, what, forwards, backwards):
     """`forwards` model forwards (each UMX_STEP_LAUNCHES lstm_scan_bidir on "cluster") and
-    `backwards` model backwards (each UMX_STEP_LAUNCHES backwards on "fma"), and no other
-    kernel or route."""
+    `backwards` model backwards (each UMX_STEP_LAUNCHES backwards on "cluster"), and no
+    other kernel or route."""
     n_fwd, n_bwd = UMX_STEP_LAUNCHES * forwards, UMX_STEP_LAUNCHES * backwards
     want = expected(lstm_scan_bidir=n_fwd, lstm_scan_bidir_bwd=n_bwd)
     check(kernels_of(launches) == want, f"{what}: launched {nonzero(launches)}, expected "
@@ -2293,9 +2457,9 @@ def check_musdb_launches(launches, what, forwards, backwards):
     bwd = {p: launches[f"lstm_scan_bidir_bwd/{p}"]
            for p in ls.BWD_PATH_LAUNCHES["lstm_scan_bidir_bwd"]}
     check(fwd == {p: n_fwd * (p == "cluster") for p in fwd} and
-          bwd == {p: n_bwd * (p == "fma") for p in bwd},
-          f"{what}: lstm_scan_bidir took {fwd}, its backward {bwd}; expected {n_fwd} on "
-          f"cluster and {n_bwd} on fma")
+          bwd == {p: n_bwd * (p == "cluster") for p in bwd},
+          f"{what}: lstm_scan_bidir took {fwd}, its backward {bwd}; expected {n_fwd} and "
+          f"{n_bwd} on cluster")
 
 
 def musdb_grads_of_step(model, criterion, batch):
@@ -2674,12 +2838,13 @@ def main(argv=None) -> int:
     total = {k: v + umx_served[k] + musdb_train["train"][k] for k, v in total.items()}
     for name, n in total.items():
         # The wsj0 models have H = 128 (tensor cores), musdb18's UMX B = 1 at H = 256
-        # and 512 and B = 16 at H = 256 (the cluster kernel); the backward of musdb18
-        # training (H = 256) takes the FMA kernel, and only it.
-        if name == "lstm_scan_bidir_bwd/fma":
-            check(n >= 1, "musdb18 training never launched the FMA backward")
-        elif name.endswith("/fma"):
+        # and 512 and B = 16 at H = 256 (the cluster kernels, forward and backward). No
+        # main path trains a one-chain LSTM at H > 128: its cluster backward is phase
+        # 3d's and 3h's.
+        if name.endswith("/fma"):
             check(n == 0, f"the main path launched the FMA kernel: {name} {n} times")
+        elif name == "lstm_scan_bwd/cluster":
+            continue
         elif n < 1:
             raise AssertionError(f"the serving, training and evaluation paths never launched "
                                  f"{name}")
@@ -2760,9 +2925,10 @@ def main(argv=None) -> int:
         entries.append(entry)
     # lstm_scan_bidir at musdb18 training's shape (B = 16 x 6 s, T = 259, H = 256 a
     # direction): the forward with cs on the cluster kernel (phase 3h's times, FMA forced
-    # beside it) and its backward on the FMA kernel (phase 3d's times: the whole backward
-    # and the kernel alone), each with the launches of phase 12's CLI train steps, beside
-    # cuDNN's nn.LSTM at the shape (F = 512).
+    # beside it) and its backward on the cluster backward (phase 3d's times: the whole
+    # backward and the kernel alone beside the FMA backward's and cuDNN's; phase 3h's:
+    # the other cluster size and the serial floor), each with the launches of phase 12's
+    # CLI train steps, beside cuDNN's nn.LSTM at the shape (F = 512).
     B, T, H_umx = UMX_TRAIN_SHAPE
     timing = cluster_timings[("lstm_scan_bidir", f32, "UMX train")]
     entry = kernel_entry("lstm_scan_bidir", "csrc/recurrence_cluster.cuh", "ops/pallas_lstm.py:323",
@@ -2775,13 +2941,16 @@ def main(argv=None) -> int:
                     (k.startswith("c") and k.endswith("_ms"))})
     entries.append(entry)
     timing = bwd_timings[("lstm_scan_bidir_bwd", "umx-train", f32)]
-    entry = kernel_entry("lstm_scan_bidir_bwd", "csrc/lstm_scan_bwd.cu", "ops/pallas_lstm.py:339",
-                         musdb_train["train"]["lstm_scan_bidir_bwd/fma"], timing,
+    entry = kernel_entry("lstm_scan_bidir_bwd", "csrc/recurrence_cluster_bwd.cuh",
+                         "ops/pallas_lstm.py:339",
+                         musdb_train["train"]["lstm_scan_bidir_bwd/cluster"], timing,
                          recurrence_bound(B, T, H_umx, 4, 2, backward=True, cell_state=True,
                                           dtype=f32),
-                         library["lstm_umx_train_bwd"], dtype=f32)
-    entry.update(path="fma", shape=f"UMX train B={B} T={T} H={H_umx}",
-                 kernel_ms=timing["kernel_ms"],
+                         timing["library_ms"], dtype=f32)
+    entry.update(path="cluster", shape=f"UMX train B={B} T={T} H={H_umx}",
+                 **{k: timing[k] for k in ("cluster", "kernel_ms", "fma_kernel_ms",
+                                           "fma_max_abs_err")},
+                 **cluster_timings[("bwd", "lstm_scan_bidir_bwd", "UMX train")],
                  kernel_bound_ms=backward_kernel_bound(B, T, H_umx, 4, 2, f32, 1,
                                                        peak=f32)["bound_ms"])
     entries.append(entry)

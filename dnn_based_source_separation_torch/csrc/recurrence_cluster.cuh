@@ -3,7 +3,9 @@
 //
 // Included by csrc/lstm_scan.cu after csrc/recurrence_tf32.cuh (whose cluster
 // primitives it uses) and launched there as path 4, "cluster"
-// (ops/lstm_scan.py:_plan picks it and the cluster size). ops/_build.py hashes
+// (ops/lstm_scan.py:_plan picks it and the cluster size); the backward's cluster
+// kernel (csrc/recurrence_cluster_bwd.cuh) shares its exchange and launch helpers
+// (mbar_*, st_async_*, allow, cluster_config). ops/_build.py hashes
 // this header into the key of every source. It replaces, for these calls, the
 // TPU kernels of dnn_based_source_separation_tpu/ops/pallas_lstm.py:
 //   lstm_scan        (:139, _lstm_kernel):  one chain;
@@ -162,6 +164,15 @@ __device__ __forceinline__ void st_async_f32(unsigned addr, float v, unsigned mb
                    addr),
                "f"(v), "r"(mbar)
                : "memory");
+}
+// Four values as one 16-byte store (the address 16-byte aligned), which completes
+// 16 bytes on the mbarrier: the backward's exchange (csrc/recurrence_cluster_bwd.cuh).
+__device__ __forceinline__ void st_async_v4(unsigned addr, float4 v, unsigned mbar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(addr),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(mbar)
+      : "memory");
 }
 
 // Shared memory of a block: the two mbarriers (16 bytes), h [2][H] f32, the W
@@ -351,13 +362,12 @@ scan_cluster_kernel(Chains chains, int T_len, int H, int C) {
   tf32_scan::cluster_wait();
 }
 
-// static: the flag is this library's, even beside another build of this header in
-// the process (a template's local static is otherwise one object process-wide).
-template <typename T, int KJ, bool kProduct>
-static cudaError_t prepare() {
-  static bool done = false;  // per instantiation
+// A cluster kernel of this header or of csrc/recurrence_cluster_bwd.cuh allowed
+// kMaxShared of dynamic shared memory and non-portable (16-block) clusters, once:
+// `done` is the caller's flag for that kernel.
+template <typename Kernel>
+inline cudaError_t allow(Kernel kernel, bool& done) {
   if (!done) {
-    auto kernel = scan_cluster_kernel<T, KJ, kProduct>;
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)kMaxShared);
     if (err != cudaSuccess) return err;
@@ -368,20 +378,37 @@ static cudaError_t prepare() {
   return cudaSuccess;
 }
 
-inline cudaLaunchConfig_t config_of(cudaLaunchAttribute* cluster, int B, int n_chains, int H,
-                                    int C, size_t elem, cudaStream_t stream) {
+// static: the flag is this library's, even beside another build of this header in
+// the process (a template's local static is otherwise one object process-wide).
+template <typename T, int KJ, bool kProduct>
+static cudaError_t prepare() {
+  static bool done = false;  // per instantiation
+  return allow(scan_cluster_kernel<T, KJ, kProduct>, done);
+}
+
+// The launch of one sequence a cluster of C blocks: grid (C B, n_chains), `threads` a
+// block, `smem` bytes of dynamic shared memory.
+inline cudaLaunchConfig_t cluster_config(cudaLaunchAttribute* cluster, int B, int n_chains,
+                                         int C, unsigned threads, size_t smem,
+                                         cudaStream_t stream) {
   cluster->id = cudaLaunchAttributeClusterDimension;
   cluster->val.clusterDim.x = (unsigned)C;
   cluster->val.clusterDim.y = 1;
   cluster->val.clusterDim.z = 1;
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3((unsigned)(C * B), (unsigned)n_chains);
-  config.blockDim = dim3((unsigned)(32 * (H / C / kUnitsPerWarp)));
-  config.dynamicSmemBytes = smem_bytes(H, C, elem);
+  config.blockDim = dim3(threads);
+  config.dynamicSmemBytes = smem;
   config.stream = stream;
   config.attrs = cluster;
   config.numAttrs = 1;
   return config;
+}
+
+inline cudaLaunchConfig_t config_of(cudaLaunchAttribute* cluster, int B, int n_chains, int H,
+                                    int C, size_t elem, cudaStream_t stream) {
+  return cluster_config(cluster, B, n_chains, C, (unsigned)(32 * (H / C / kUnitsPerWarp)),
+                        smem_bytes(H, C, elem), stream);
 }
 
 template <typename T, int KJ, bool kProduct>

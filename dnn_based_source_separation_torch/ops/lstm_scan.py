@@ -18,12 +18,16 @@ sequences (musdb18 serving's B = 1) `"cluster"` (`csrc/recurrence_cluster.cuh`:
 one sequence a cluster of 8 or 16 blocks, W_hh held in their registers and
 shared memory, h exchanged through distributed shared memory), in either
 dtype; the FMA kernel (`"fma"`) for every other call (H = 40, 256, 512,
-...). The backward has two, which `_plan_bwd`
+...). The backward has three, which `_plan_bwd`
 picks the same way: for H a multiple of 16 up to 128 the split-TF32
 tensor-core kernel of `csrc/recurrence_bwd_tf32.cuh` (`"tf32x3"` for
 float32, three TF32 products; `"tf32x2"` for bfloat16, two, since a bf16
-W_hh is a TF32 value), on clusters of 2 or 4 blocks; the FMA kernel
-(`"fma"`) for every other H.
+W_hh is a TF32 value), on clusters of 2 or 4 blocks; for H = 256, 384 or 512
+and few sequences (musdb18 training's B = 16) `"cluster"`
+(`csrc/recurrence_cluster_bwd.cuh`: the forward's design, one sequence a cluster
+of 8 or 16 blocks with W_hh's rows of each rank's units on chip, da exchanged
+through distributed shared memory), in either dtype; the FMA kernel (`"fma"`)
+for every other call.
 
 Semantics are the Pallas kernels', in both dtypes: gates are
 `f32(xw[t]) + f32(h rounded to W's dtype) @ f32(W)`, h and c are carried in
@@ -57,7 +61,7 @@ LAUNCHES = {"lstm_scan": 0, "lstm_scan_bidir": 0, "lstm_scan_bwd": 0, "lstm_scan
 PATH_LAUNCHES = {name: {"mma": 0, "tf32x3": 0, "cluster": 0, "fma": 0}
                  for name in ("lstm_scan", "lstm_scan_bidir")}
 # The backward launches above, split by the path `_plan_bwd` chose.
-BWD_PATH_LAUNCHES = {name: {"tf32x3": 0, "tf32x2": 0, "fma": 0}
+BWD_PATH_LAUNCHES = {name: {"tf32x3": 0, "tf32x2": 0, "cluster": 0, "fma": 0}
                      for name in ("lstm_scan_bwd", "lstm_scan_bidir_bwd")}
 
 MAX_HIDDEN = 512
@@ -66,8 +70,8 @@ MAX_HIDDEN = 512
 # floats of shared memory.
 MMA_MAX_HIDDEN = 128
 _PATH_CODE = {"fma": 0, "mma": 1, "tf32x3": 2, "tf32x2": 3, "cluster": 4}
-# The forward routes of each wrapper's library: `_plan` takes only these. The
-# GRU's has no cluster kernel.
+# The routes of each wrapper's libraries: `_plan` and `_plan_bwd` take only these.
+# The GRU's have no cluster kernel, forward or backward.
 FORWARD_ROUTES = ("fma", "mma", "tf32x3")
 ROUTES = FORWARD_ROUTES + ("cluster",)
 # The tensor-core path of each dtype, for H a multiple of 16 up to MMA_MAX_HIDDEN:
@@ -102,6 +106,16 @@ OWN_SM = 120 * 1024  # a block's least shared memory: no two blocks on one SM
 # it beat the FMA kernel at every B up to 256 and lost at 512 (H = 256, two
 # chains) and at 1024 (H = 512, one chain).
 CLUSTER_MAX_BATCH = 256
+# The cluster backward (csrc/recurrence_cluster_bwd.cuh): the forward's ranks, units
+# and warps; lane l of a warp owns da values 128 jb + 4 l + q (unit 32 jb + l, gate q)
+# of each row block jb of the 4H, and W_hh[its warp's units, q H + 32 jb + l]; the
+# first CLUSTER_BWD_REG_BLOCKS row blocks (64 floats) in registers, the rest in shared
+# memory beside two mbarriers and the double-buffered da.
+CLUSTER_BWD_REG_BLOCKS = 8
+# The largest B the plan sends to the cluster backward: on an H100 at T = 259 (PERF.md,
+# section 6) it beat the FMA backward at every B up to 256 and lost at 512 (H = 256,
+# two chains: by 5% at B = 128 and 256; H = 512, one chain: by 33-35%).
+CLUSTER_MAX_BATCH_BWD = 256
 
 
 def lstm_steps(xw: torch.Tensor, w_hh: torch.Tensor, state=None, cs: torch.Tensor | None = None):
@@ -219,22 +233,30 @@ def _tensor_core_path(H: int, dtype: torch.dtype, backward: bool = False) -> str
     return paths.get(dtype) if H % 16 == 0 and 16 <= H <= MMA_MAX_HIDDEN else None
 
 
-def cluster_layout(H: int, C: int, dtype: torch.dtype = torch.float32) -> dict | None:
-    """The cluster kernel's layout at hidden size H on clusters of C blocks, or None
-    where it cannot run (`shape_ok` of csrc/recurrence_cluster.cuh).
-
-    H a multiple of 128 above MMA_MAX_HIDDEN up to MAX_HIDDEN; C in CLUSTER_SIZES
-    with H / C units a rank, CLUSTER_UNITS_PER_WARP a warp, at most
-    CLUSTER_MAX_THREADS threads (128 registers each, 64 of them W_hh); the
-    shared memory within SHARED_LIMIT in f32 (bf16 W rows take half).
-    """
+def _cluster_ranks(H: int, C: int) -> tuple[int, int] | None:
+    """(units, warps) of a rank of either cluster kernel at hidden size H on clusters of
+    C blocks, or None: H a multiple of 128 above MMA_MAX_HIDDEN up to MAX_HIDDEN; C in
+    CLUSTER_SIZES with H / C units a rank, CLUSTER_UNITS_PER_WARP a warp, at most
+    CLUSTER_MAX_THREADS threads (128 registers each, 64 of them W_hh)."""
     if (H % CLUSTER_ROW_BLOCK or not MMA_MAX_HIDDEN < H <= MAX_HIDDEN or C not in CLUSTER_SIZES
             or H % (CLUSTER_UNITS_PER_WARP * C)):
         return None
     units = H // C
     warps = units // CLUSTER_UNITS_PER_WARP
-    if 32 * warps > CLUSTER_MAX_THREADS:
+    return None if 32 * warps > CLUSTER_MAX_THREADS else (units, warps)
+
+
+def cluster_layout(H: int, C: int, dtype: torch.dtype = torch.float32) -> dict | None:
+    """The cluster kernel's layout at hidden size H on clusters of C blocks, or None
+    where it cannot run (`shape_ok` of csrc/recurrence_cluster.cuh).
+
+    The ranks of `_cluster_ranks`; the shared memory within SHARED_LIMIT in f32
+    (bf16 W rows take half).
+    """
+    ranks = _cluster_ranks(H, C)
+    if ranks is None:
         return None
+    units, warps = ranks
     row_blocks = H // CLUSTER_ROW_BLOCK
     reg_blocks = min(row_blocks, CLUSTER_REG_BLOCKS)
     elem = torch.tensor([], dtype=dtype).element_size()
@@ -252,31 +274,64 @@ def cluster_layout(H: int, C: int, dtype: torch.dtype = torch.float32) -> dict |
                 smem_bytes=shared(elem))
 
 
-def _cluster_sizes(H: int, dtype: torch.dtype = torch.float32) -> list:
-    """The cluster sizes at which the cluster kernel takes hidden size H."""
-    return [c for c in CLUSTER_SIZES if cluster_layout(H, c, dtype)]
+def cluster_bwd_layout(H: int, C: int, dtype: torch.dtype = torch.float32) -> dict | None:
+    """The cluster backward's layout at hidden size H on clusters of C blocks, or None
+    where it cannot run (`shape_ok` of csrc/recurrence_cluster_bwd.cuh).
+
+    The forward's ranks (`_cluster_ranks`); K = 4H in row blocks of
+    CLUSTER_ROW_BLOCK values (eight W values a thread each), the first
+    CLUSTER_BWD_REG_BLOCKS in registers; the shared memory (two mbarriers, da
+    [2][4H] f32, the other row blocks' W) within SHARED_LIMIT in f32.
+    """
+    ranks = _cluster_ranks(H, C)
+    if ranks is None:
+        return None
+    units, warps = ranks
+    row_blocks = 4 * H // CLUSTER_ROW_BLOCK
+    reg_blocks = min(row_blocks, CLUSTER_BWD_REG_BLOCKS)
+    elem = torch.tensor([], dtype=dtype).element_size()
+
+    def shared(size):
+        need = 16 + 2 * 4 * H * 4 + (row_blocks - reg_blocks) * CLUSTER_ROW_BLOCK * units * size
+        return max(need, OWN_SM)
+
+    if shared(4) > SHARED_LIMIT:
+        return None
+    return dict(units=units, warps=warps, threads=32 * warps, row_blocks=row_blocks,
+                reg_blocks=reg_blocks,
+                w_smem_bytes=(row_blocks - reg_blocks) * CLUSTER_ROW_BLOCK * units * elem,
+                smem_bytes=shared(elem))
+
+
+def _cluster_sizes(H: int, dtype: torch.dtype = torch.float32, backward: bool = False) -> list:
+    """The cluster sizes at which the cluster kernel (the backward's if `backward`) takes
+    hidden size H."""
+    layout = cluster_bwd_layout if backward else cluster_layout
+    return [c for c in CLUSTER_SIZES if layout(H, c, dtype)]
 
 
 def _cluster_tile(B: int, n_chains: int, H: int, dtype: torch.dtype, clusters: dict | None,
-                  forced: bool = False) -> tuple[int, int] | None:
+                  forced: bool = False, backward: bool = False) -> tuple[int, int] | None:
     """The cluster kernel's tile (1, C): one sequence a cluster of C blocks, or None.
 
     Of the C that H admits and the card holds (`clusters`, {C: co-resident
     clusters}, 0 where no GPC has C free SMs), the one that runs the
     n_chains x B clusters in the fewest waves, then the larger (at H = 256
     and B = 1, C = 16 took 8% less time than C = 8 on an H100; C = 8 fits
-    twice the clusters in a wave).
-    The plan takes the route for B up to CLUSTER_MAX_BATCH; forced
-    (`path="cluster"`) it runs any B, and raises where no C can run.
+    twice the clusters in a wave). The forward's kernel, or the backward's if
+    `backward`, by the same rule.
+    The plan takes the route for B up to CLUSTER_MAX_BATCH (the backward's
+    CLUSTER_MAX_BATCH_BWD); forced (`path="cluster"`) it runs any B, and raises
+    where no C can run.
     """
-    sizes = [c for c in _cluster_sizes(H, dtype) if (clusters or {}).get(c, 0) >= 1]
+    sizes = [c for c in _cluster_sizes(H, dtype, backward) if (clusters or {}).get(c, 0) >= 1]
     if not sizes:
         if forced:
             raise ValueError(f"the cluster path takes H = 256, 384 or 512 (H = 256 on clusters of "
                              f"8 or 16 blocks, else 16) that the card holds; got H = {H}, "
                              f"clusters {clusters}")
         return None
-    if not forced and B > CLUSTER_MAX_BATCH:
+    if not forced and B > (CLUSTER_MAX_BATCH_BWD if backward else CLUSTER_MAX_BATCH):
         return None
     return 1, min(sizes, key=lambda c: (-(-n_chains * B // clusters[c]), -c))
 
@@ -335,19 +390,32 @@ def _fma_tile(B: int, n_chains: int, H: int, sms: int) -> int:
 
 
 def _plan_bwd(B: int, n_chains: int, H: int, dtype: torch.dtype, sms: int,
-              path: str | None = None, clusters: dict | None = None) -> tuple[str, int | tuple]:
+              path: str | None = None, clusters: dict | None = None,
+              routes: tuple = FORWARD_ROUTES) -> tuple[str, int | tuple]:
     """The backward kernel and tile for B sequences on each of `n_chains` chains -> (path, tile).
 
     For H a multiple of 16 up to MMA_MAX_HIDDEN the split-TF32 tensor cores,
     "tf32x3" for float32 and "tf32x2" for bfloat16, tile (M, C) by
     `_tf32_tile` from `clusters` (the backward kernel's, which the caller
     queries) over M in BWD_TILE_ROWS: at the training shapes M = 16 on
-    2-block clusters, one wave. "fma" (tile R, the forward's rule) for every
-    other call. `path` forces one (the FMA path, to time both); forcing a
-    tensor-core path where it cannot run raises. The GRU wrapper plans with
-    this function too.
+    2-block clusters, one wave. Where no tensor-core path runs and the calling
+    wrapper's `routes` hold "cluster" (the LSTM's ROUTES), "cluster" (tile
+    (1, C)) by `_cluster_tile` from `clusters`, the cluster backward's counts,
+    for B up to CLUSTER_MAX_BATCH_BWD at H = 256, 384 or 512 (musdb18
+    training: C = 8). "fma" (tile R, the forward's rule) for every other
+    call. `path` forces one (the FMA path, to time both); forcing a path
+    where it cannot run raises, "cluster" also from a wrapper whose routes
+    lack it. The GRU wrapper plans with this function too, with
+    FORWARD_ROUTES.
     """
     natural = _tensor_core_path(H, dtype, backward=True)
+    if path == "cluster" or (path is None and natural is None and "cluster" in routes):
+        if "cluster" not in routes:
+            raise ValueError(f"this wrapper has no cluster backward (routes {routes})")
+        tile = _cluster_tile(B, n_chains, H, dtype, clusters, forced=path == "cluster",
+                             backward=True)
+        if tile is not None:
+            return "cluster", tile
     path = path or natural or "fma"
     if path in _BWD_TENSOR_CORE_PATH.values():
         if path != natural:
@@ -427,8 +495,8 @@ def _needs_clusters(H: int, dtype: torch.dtype, path: str | None, backward: bool
     natural = _tensor_core_path(H, dtype, backward)
     if (path or natural) in ("tf32x3", "tf32x2"):
         return True
-    return (not backward and "cluster" in routes and path in (None, "cluster")
-            and natural is None and bool(_cluster_sizes(H, dtype)))
+    return ("cluster" in routes and path in (None, "cluster") and natural is None
+            and bool(_cluster_sizes(H, dtype, backward)))
 
 
 def _plan_launch(clusters_of, chains, path, backward=False, routes=FORWARD_ROUTES):
@@ -447,7 +515,7 @@ def _plan_launch(clusters_of, chains, path, backward=False, routes=FORWARD_ROUTE
     if _needs_clusters(H, xw0.dtype, path, backward, routes):
         clusters = clusters_of(H, xw0.device)
     if backward:
-        return (B, T, H, *_plan_bwd(B, len(chains), H, xw0.dtype, sms, path, clusters))
+        return (B, T, H, *_plan_bwd(B, len(chains), H, xw0.dtype, sms, path, clusters, routes))
     return (B, T, H, *_plan(B, len(chains), H, xw0.dtype, sms, path, clusters, routes))
 
 
@@ -481,6 +549,10 @@ def _bwd_library():
         lib.lstm_scan_bidir_bwd_launch.restype = i
         lib.lstm_scan_bwd_tf32_clusters.argtypes = [i, i, ctypes.POINTER(i)]
         lib.lstm_scan_bwd_tf32_clusters.restype = i
+        lib.lstm_scan_bwd_cluster_clusters.argtypes = [i, i, ctypes.POINTER(i)]
+        lib.lstm_scan_bwd_cluster_clusters.restype = i
+        lib.lstm_scan_bwd_cluster_floor_launch.argtypes = [p] * 12 + [i] * 5 + [p]
+        lib.lstm_scan_bwd_cluster_floor_launch.restype = i
         _BWD_LIB = lib
     return _BWD_LIB
 
@@ -518,6 +590,21 @@ def _tf32_bwd_clusters(H: int, device) -> dict:
     at once}."""
     return _co_resident_clusters(_bwd_library().lstm_scan_bwd_tf32_clusters, H,
                                  torch.device(device))
+
+
+def _cluster_bwd_counts(H: int, device) -> dict:
+    """{C: clusters of C blocks of the cluster backward at H the card holds at once}, for
+    each C that H admits; 0 where no GPC has C free SMs."""
+    return _co_resident_clusters(_bwd_library().lstm_scan_bwd_cluster_clusters, H,
+                                 torch.device(device), sizes=_cluster_sizes(H, backward=True),
+                                 required=False)
+
+
+def _backward_clusters(H: int, device) -> dict:
+    """The co-resident clusters of the backward cluster kernel that runs at H: the
+    tensor-core backward's up to MMA_MAX_HIDDEN, the cluster backward's above."""
+    return (_tf32_bwd_clusters(H, device) if H <= MMA_MAX_HIDDEN
+            else _cluster_bwd_counts(H, device))
 
 
 def _check(xw: torch.Tensor, w_hh: torch.Tensor) -> None:
@@ -647,18 +734,9 @@ def _staged_gates(xw: torch.Tensor, w_hh: torch.Tensor, h_prev: torch.Tensor) ->
     return torch.addmm(xw.float().reshape(B * T, four_h), h, w_hh.float()).view(B, T, four_h)
 
 
-def _staged_backward(chains, path: str | None = None):
-    """Stage the backward kernel's inputs and outputs over one or two
-    (xw, w_hh, hs, cs, g_hs) chains -> (staged arrays per chain, a call that launches it).
-
-    `path` forces a path of `_plan_bwd` (only chip_smoke.py passes it, to time
-    the FMA kernel where the tensor cores would run).
-    """
-    name = "lstm_scan_bwd" if len(chains) == 1 else "lstm_scan_bidir_bwd"
-    _check_chains(name, [c[:2] for c in chains])
-    xw0 = chains[0][0]
-    B, T, H, path, tile = _plan_launch(_tf32_bwd_clusters, [c[:2] for c in chains], path,
-                                       backward=True)
+def _stage_backward(chains, B, T, H, path):
+    """The backward kernel's arrays of each (xw, w_hh, hs, cs, g_hs) chain on `path`:
+    (h_prev, gates, cs, g_hs, W (W_hh^T on "fma", else W_hh), das, d_xw)."""
     staged = []
     for xw, w_hh, hs, cs, g_hs in chains:
         # Gradients come back through flip and cat: make them contiguous
@@ -677,15 +755,73 @@ def _staged_backward(chains, path: str | None = None):
         d_xw = das if xw.dtype == torch.float32 else torch.empty_like(xw)
         w = w_hh.t().contiguous() if path == "fma" else w_hh  # the FMA kernel reads W_hh^T
         staged.append((h_prev, _staged_gates(xw, w_hh, h_prev), cs, g_hs, w, das, d_xw))
+    return staged
+
+
+def _pointers(staged) -> list:
+    """The C entry points' arrays of staged chains: gates, cs, g_hs, W and das of each
+    chain, then d_xw of each (None where das is d_xw)."""
+    return ([s[k].data_ptr() for k in range(1, 6) for s in staged]
+            + [None if s[6] is s[5] else s[6].data_ptr() for s in staged])
+
+
+def _staged_backward(chains, path: str | None = None, cluster: int | None = None):
+    """Stage the backward kernel's inputs and outputs over one or two
+    (xw, w_hh, hs, cs, g_hs) chains -> (staged arrays per chain, a call that launches it).
+
+    `path` forces a path of `_plan_bwd`, and `cluster` the cluster size of the
+    cluster path (only chip_smoke.py passes them, to time the FMA kernel where
+    another one would run, and both cluster sizes).
+    """
+    name = "lstm_scan_bwd" if len(chains) == 1 else "lstm_scan_bidir_bwd"
+    _check_chains(name, [c[:2] for c in chains])
+    xw0 = chains[0][0]
+    B, T, H, path, tile = _plan_launch(_backward_clusters, [c[:2] for c in chains], path,
+                                       backward=True, routes=ROUTES)
+    if cluster is not None:
+        counts = _cluster_bwd_counts(H, xw0.device)
+        if path != "cluster" or counts.get(cluster, 0) < 1:
+            raise ValueError(f"no cluster backward on {cluster} blocks here: {path}, {counts}")
+        tile = (1, cluster)
+    staged = _stage_backward(chains, B, T, H, path)
     lib = _bwd_library()
     fn = lib.lstm_scan_bwd_launch if len(chains) == 1 else lib.lstm_scan_bidir_bwd_launch
 
     def launch():  # reads `staged`, so the arrays live as long as the call
-        pointers = ([s[k].data_ptr() for k in range(1, 6) for s in staged]
-                    + [None if s[6] is s[5] else s[6].data_ptr() for s in staged])
-        _launch(name, fn, pointers, xw0.dtype, B, T, H, xw0.device, _PATH_CODE[path],
+        _launch(name, fn, _pointers(staged), xw0.dtype, B, T, H, xw0.device, _PATH_CODE[path],
                 *_tile_args(tile))
         BWD_PATH_LAUNCHES[name][path] += 1
+
+    return staged, launch
+
+
+def _staged_cluster_bwd_floor(chains, cluster: int):
+    """The cluster backward's serial floor over one or two (xw, w_hh, hs, cs, g_hs)
+    chains on clusters of `cluster` blocks -> (staged arrays, a call that launches it;
+    not counted).
+
+    The same kernel with its product compiled out: every step's reduction, cell
+    derivative and exchange of da, which no product can make shorter. Its das
+    are not the recurrence's. chip_smoke.py times it beside the kernel.
+    """
+    _check_chains("lstm_scan_bwd_cluster_floor", [c[:2] for c in chains])
+    xw0 = chains[0][0]
+    B, T, _ = xw0.shape
+    H = chains[0][1].shape[0]
+    if cluster_bwd_layout(H, cluster, xw0.dtype) is None:
+        raise ValueError(f"the cluster backward does not take H = {H} on {cluster} blocks")
+    staged = _stage_backward(chains, B, T, H, "cluster")
+    fn = _bwd_library().lstm_scan_bwd_cluster_floor_launch
+
+    def launch():
+        pointers = [None] * 12
+        for k, ptr in enumerate(_pointers(staged)):  # chain c of array a at 2 a + c
+            pointers[2 * (k // len(staged)) + k % len(staged)] = ptr
+        with torch.cuda.device(xw0.device):
+            err = fn(*pointers, _DTYPE_CODE[xw0.dtype], B, T, H, cluster,
+                     torch.cuda.current_stream(xw0.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"lstm_scan_bwd_cluster_floor launch failed: cudaError {err}")
 
     return staged, launch
 

@@ -24,7 +24,9 @@ from dnn_based_source_separation_tpu.ops import pallas_lstm as jpl
 
 RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 JDTYPE = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
-SHAPES = [(5, 37, 8), (3, 1, 12), (16, 23, 32)]  # (B, T, H): odd B, T=1, wider
+# (B, T, H): odd B, T=1, wider, and the cluster backward's H = 256 (musdb18 training,
+# where the card takes csrc/recurrence_cluster_bwd.cuh).
+SHAPES = [(5, 37, 8), (3, 1, 12), (16, 23, 32), (2, 5, 256)]
 
 
 @pytest.fixture(autouse=True)

@@ -10,7 +10,9 @@ recurrence of the wsj0 models took "mma", every f32 one "tf32x3", musdb18's
 UMX "cluster", and none "fma"; here the rule itself is held, at an H100's
 132 SMs and given numbers of co-resident clusters (2 and 4 blocks for the
 3xTF32 kernel, whose tile is (M, C): M rows on a cluster of C blocks; 8 and
-16 for the cluster kernel).
+16 for the cluster kernel). `_plan_bwd` picks the backward's kernel the same
+way: the split-TF32 tensor cores, the LSTM's cluster backward (musdb18
+training's B = 16 at H = 256) or the FMA kernel.
 """
 import pytest
 import torch
@@ -301,9 +303,10 @@ def test_the_backward_takes_the_tensor_cores_at_h_multiple_of_16_up_to_128(
 @DTYPES
 @pytest.mark.parametrize("B,n_chains,H,R", [
     (37, 2, 40, 1), (64, 2, 256, 1), (400, 2, 256, 2), (4096, 1, 512, 4), (16, 2, 512, 1),
-    (16, 2, 256, 1),  # UMX / X-UMX training's backward: 16 blocks of 2 sequences
-], ids=["H=40", "H=256", "H=256-R2", "H=512", "H=512-small", "umx-train"])
+], ids=["H=40", "H=256", "H=256-R2", "H=512", "H=512-small"])
 def test_the_backward_takes_the_fma_kernel_at_other_h(wrapper, dtype, B, n_chains, H, R):
+    # The FMA backward's tile rule (the forward's), over the routes without the
+    # cluster backward; the cluster backward's calls are in the tests below.
     got = wrapper._plan_bwd(B, n_chains, H, dtype, SMS, clusters=CLUSTERS)
     assert got == ("fma", R) == ("fma", wrapper._plan(B, n_chains, H, dtype, SMS, "fma")[1])
 
@@ -336,3 +339,108 @@ def test_the_tensor_core_backward_needs_the_cards_cluster_count(wrapper, dtype, 
 
 def test_both_wrappers_plan_the_backward_by_one_rule():
     assert gs._plan_bwd is ls._plan_bwd
+
+
+# The cluster backward (csrc/recurrence_cluster_bwd.cuh), the LSTM's only: few sequences
+# at H = 256, 384 or 512 take it, by the forward's rule over the backward kernel's own
+# counts of co-resident clusters; past CLUSTER_MAX_BATCH_BWD sequences, and in the GRU
+# wrapper, the FMA kernel.
+# Clusters of C blocks of the cluster backward an H100 holds at once (H = 256: C = 8
+# and 16; above, 16), as chip_smoke.py phase 3h read them from the card.
+BWD_BIG_CLUSTERS = {8: 15, 16: 7}
+
+
+def _bwd_clusters(H):
+    """The counts the LSTM wrapper would ask the card for at H > 128."""
+    return {c: n for c, n in BWD_BIG_CLUSTERS.items() if ls.cluster_bwd_layout(H, c)}
+
+
+def _fma_bwd(B, n_chains, H):
+    return "fma", ls._fma_tile(B, n_chains, H, SMS)
+
+
+@WRAPPERS
+@DTYPES
+@pytest.mark.parametrize("B,n_chains,H,C", [
+    (16, 2, 256, 8),  # UMX / X-UMX training, B = 16 x 6 s: 32 clusters, three waves of 8
+    (64, 2, 256, 8),  # nine waves of 8-block clusters
+    (1, 2, 256, 16),  # one sequence: one wave either way, the larger cluster
+    (4, 2, 256, 8),  # 8 clusters: one wave of 8 blocks, two of 16
+    (16, 1, 512, 16),  # a causal UMX's H = 512: 16-block clusters only
+    (3, 1, 384, 16),  # twelve row blocks of W, four of them in shared memory
+], ids=["umx-train", "H=256-B=64", "B=1", "B=4", "H=512", "H=384"])
+def test_few_sequences_at_h_256_to_512_take_the_cluster_backward_in_the_lstm(
+        wrapper, dtype, B, n_chains, H, C):
+    got = wrapper._plan_bwd(B, n_chains, H, dtype, SMS, clusters=_bwd_clusters(H),
+                            routes=wrapper.ROUTES)
+    if wrapper is gs:  # no cluster backward in the GRU's library
+        assert got == _fma_bwd(B, n_chains, H)
+        return
+    assert got == ("cluster", (1, C))
+    waves = {c: -(-n_chains * B // n) for c, n in _bwd_clusters(H).items()}
+    assert waves[C] == min(waves.values())
+    assert all(waves[c] > waves[C] or c < C for c in waves if c != C)
+
+
+@WRAPPERS
+@DTYPES
+@pytest.mark.parametrize("n_chains,H", [(2, 256), (1, 512), (1, 384)],
+                         ids=["umx-train", "H=512", "H=384"])
+def test_the_backward_crossover_batch_goes_back_to_fma(wrapper, dtype, n_chains, H):
+    B = ls.CLUSTER_MAX_BATCH_BWD
+    at, past = (wrapper._plan_bwd(b, n_chains, H, dtype, SMS, clusters=_bwd_clusters(H),
+                                  routes=wrapper.ROUTES) for b in (B, B + 1))
+    assert past == _fma_bwd(B + 1, n_chains, H)
+    assert at[0] == ("cluster" if wrapper is ls else "fma")
+
+
+@pytest.mark.parametrize("B,n_chains,H,C", [(512, 2, 256, 8), (1024, 1, 512, 16)],
+                         ids=["H=256", "H=512"])
+def test_the_cluster_backward_can_be_forced_past_the_crossover(B, n_chains, H, C):
+    assert B > ls.CLUSTER_MAX_BATCH_BWD
+    assert ls._plan_bwd(B, n_chains, H, F32, SMS, "cluster", _bwd_clusters(H), ls.ROUTES) == (
+        "cluster", (1, C))
+
+
+@pytest.mark.parametrize("H,dtype,clusters", [
+    (128, F32, BWD_BIG_CLUSTERS), (128, BF16, BWD_BIG_CLUSTERS), (40, F32, BWD_BIG_CLUSTERS),
+    (320, F32, BWD_BIG_CLUSTERS), (512, F32, {8: 15}), (256, F32, None),
+    (256, F32, {8: 0, 16: 0}),
+], ids=["H=128", "H=128-bf16", "H=40", "H=320", "H=512-no-16", "unasked", "zero"])
+def test_forcing_the_cluster_backward_where_it_cannot_run_raises(H, dtype, clusters):
+    with pytest.raises(ValueError):
+        ls._plan_bwd(16, 2, H, dtype, SMS, "cluster", clusters, ls.ROUTES)
+
+
+@DTYPES
+def test_forcing_the_cluster_backward_from_the_gru_wrapper_raises(dtype):
+    with pytest.raises(ValueError):
+        gs._plan_bwd(16, 2, 256, dtype, SMS, "cluster", BWD_BIG_CLUSTERS, gs.ROUTES)
+    with pytest.raises(ValueError):  # the default routes are the GRU's
+        ls._plan_bwd(16, 2, 256, dtype, SMS, "cluster", BWD_BIG_CLUSTERS)
+
+
+@pytest.mark.parametrize("H,dtype,path,routes,want", [
+    (256, F32, None, ls.ROUTES, True), (512, BF16, None, ls.ROUTES, True),
+    (384, F32, "cluster", ls.ROUTES, True), (256, F32, None, gs.ROUTES, False),
+    (256, F32, "fma", ls.ROUTES, False), (40, F32, None, ls.ROUTES, False),
+    (320, F32, None, ls.ROUTES, False), (128, F32, None, gs.ROUTES, True),
+    (128, BF16, None, ls.ROUTES, True), (40, BF16, None, ls.ROUTES, False),
+], ids=["umx-train", "H=512-bf16", "forced", "gru", "forced-fma", "H=40", "H=320",
+        "tf32x3", "tf32x2", "H=40-bf16"])
+def test_the_backward_asks_the_card_for_clusters_only_where_a_cluster_kernel_may_run(
+        H, dtype, path, routes, want):
+    assert ls._needs_clusters(H, dtype, path, backward=True, routes=routes) is want
+
+
+@pytest.mark.parametrize("clusters,H,want", [
+    ({8: 15}, 256, ("cluster", (1, 8))),
+    ({8: 15, 16: 0}, 256, ("cluster", (1, 8))),
+    ({16: 7}, 256, ("cluster", (1, 16))),
+    ({16: 0}, 512, ("fma", 1)),
+    ({}, 256, ("fma", 1)),
+    (None, 256, ("fma", 1)),
+], ids=["no-16", "16-zero", "no-8", "H=512-no-16", "none", "unasked"])
+def test_the_cluster_backward_size_follows_the_cards_counts(clusters, H, want):
+    assert ls._plan_bwd(16, 2 if H == 256 else 1, H, F32, SMS, clusters=clusters,
+                        routes=ls.ROUTES) == want

@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only 3h       # phases 1 and 2, then the cluster routes
     python3 chip_smoke.py --only 3d,3h,12 # the cluster backward, then musdb18 training
     python3 chip_smoke.py --only 12       # phases 1 and 2, then musdb18 training
+    python3 chip_smoke.py --only 13       # phases 1 and 2, then DPTNet (13k: its kernels)
 
 Phases (any failure exits non-zero; nothing is caught and passed):
   1. device: require CUDA, print the card's name and power limit, turn TF32 off;
@@ -154,7 +155,27 @@ Phases (any failure exits non-zero; nothing is caught and passed):
      step exactly 12 lstm_scan_bidir on "cluster" and 12 backwards on "cluster", every
      validation and serving forward 12 on "cluster", and nothing else; then the recipe
      step timed (p50 of forward / backward / optimizer by CUDA events, audio-s/s, peak
-     allocation) and profiled (device time by kernel, idle share).
+     allocation) and profiled (device time by kernel, idle share);
+  13. DPTNet on wsj0-2mix at the recipe widths (N64 L2 K100, 6 blocks, 4 heads, bottleneck
+     64, H = 256, relu masks; seed-0 weights): served through cli/separate.py in f32 and
+     bf16, non-causal and causal, on the three mixtures, each request launching exactly its
+     LSTM kernels on the routes _plan gives its shapes (B = 1: the intra-chunk biLSTM over S
+     chunks, "cluster" up to 256, else "fma"; the inter-chunk LSTM over 100 sequences on
+     "cluster"), 12 lstm_scan_bidir (non-causal) or 6 and 6 lstm_scan (causal), and one
+     fused_mask_decode; card vs CPU and bf16 vs f32 as phase 5; the B = 8 x 4 s forward in
+     both dtypes (ms, every launch on its route: "fma" at 5112 and 800 sequences), one
+     profiled forward split into the recurrence kernels, the attention (CUDA events around
+     each MultiheadAttention call) and the rest, with the idle share; one train step (2
+     blocks, B = 1 x 1 s) card vs an f64 CPU step, as phase 7; cli/train_wsj0mix.py --model
+     dptnet --warmup_steps 40 at B = 2 x 4 s for two epochs of 10 steps (every step and
+     validation forward on its routes, the epoch train loss falling), its checkpoint served
+     and evaluated (cli/test_wsj0mix.py card vs CPU within 0.05 dB), the recipe step's p50
+     split and a profile with its idle share; `bench --model dptnet` in bf16 and f32; and
+     (13k) every LSTM kernel at DPTNet's shapes against its plain version, timed from CUDA
+     graphs beside the FMA kernel where another route runs, cuDNN's nn.LSTM (F = 64) and
+     the bound: the forwards at (5112, 100), (800, 639) and causal (800, 639) in both
+     dtypes; at recipe training's (1278, 100) and (200, 639) with cs, and their backwards,
+     in f32.
 
 Each serving, quantizing and evaluation path, and the training path of phase
 8, runs with every launch count set to 0 just before it and read just after
@@ -169,7 +190,9 @@ DPRNN-TasNet). Phase 11's card runs (UMX at B = 1, H = 256 and 512) must
 launch only the cluster kernel, and join the main path's total, which must
 have launched every path but "fma" (and the one-chain cluster backward, which
 no main path trains), and no FMA kernel: musdb18 training's backward
-(lstm_scan_bidir_bwd at H = 256, phase 12) runs on the cluster backward. The last line
+(lstm_scan_bidir_bwd at H = 256, phase 12) runs on the cluster backward.
+Phase 13's DPTNet runs are held launch by launch to their routes, FMA
+included, and join the total after that check. The last line
 is {"ok": true, "device":
 {...}}; the line before it lists the kernels with their launch counts,
 errors, times, bounds and library times: fused_mask_decode six times
@@ -191,7 +214,9 @@ lstm_scan_bidir at musdb18 training's shape on the cluster kernel with cs, and i
 backward there on the cluster backward (the whole backward as `ms`, the kernel alone
 as `kernel_ms`, the FMA backward's as `fma_ms` and `fma_kernel_ms`, both cluster
 sizes' kernels alone as `c8_ms` and `c16_ms`, the serial floor as `floor_ms`, cuDNN's
-backward as `library_ms`), with phase 12's launches. The bf16 fused_mask_decode rows'
+backward as `library_ms`), with phase 12's launches; and DPTNet's LSTM forwards and
+backwards at each phase-13 shape, on its route, with phase 13's launches of that kernel on
+that route. The bf16 fused_mask_decode rows'
 `library_ms` is torch.einsum on bf16 operands, whose output is bf16 (the kernel's is f32).
 """
 from __future__ import annotations
@@ -215,8 +240,9 @@ import torch
 
 from dnn_based_source_separation_torch.algorithm.frequency_mask import multichannel_wiener_filter
 from dnn_based_source_separation_torch.bench import (
-    DPRNN, MUSDB_SAMPLE_RATE, PAPER, PEAK_FLOPS, UMX, UMX_STFT,
+    DPRNN, DPTNET, MUSDB_SAMPLE_RATE, PAPER, PEAK_FLOPS, UMX, UMX_STFT,
 )
+from dnn_based_source_separation_torch.bench import main as bench_main
 from dnn_based_source_separation_torch.cli import separate as cli
 from dnn_based_source_separation_torch.cli import test_musdb18 as musdb_cli
 from dnn_based_source_separation_torch.cli import test_wsj0mix as test_cli
@@ -229,7 +255,8 @@ from dnn_based_source_separation_torch.data.synthetic import (
     _speaker_bank, synth_pseudo_speech, write_musdb_quality_corpus, write_quality_corpus,
 )
 from dnn_based_source_separation_torch.models import (
-    ConvTasNet, CrossNetOpenUnmix, DPRNNTasNet, ParallelOpenUnmix, SpectrogramMaskingWrapper,
+    ConvTasNet, CrossNetOpenUnmix, DPRNNTasNet, DPTNet, ParallelOpenUnmix,
+    SpectrogramMaskingWrapper,
 )
 from dnn_based_source_separation_torch.models.base import load_model, save_model
 from dnn_based_source_separation_torch.models.longform import chunk_count, separate_longform
@@ -240,9 +267,10 @@ from dnn_based_source_separation_torch.ops import gru_scan as gs
 from dnn_based_source_separation_torch.ops import lstm_scan as ls
 from dnn_based_source_separation_torch.ops import mask_decode as md
 from dnn_based_source_separation_torch.ops import quantize as q8
+from dnn_based_source_separation_torch.ops.attention import MultiheadAttention
 from dnn_based_source_separation_torch.ops.rnn import set_dropout_generator
 from dnn_based_source_separation_torch.train import (
-    Evaluater, Trainer, make_optimizer, make_train_step,
+    Evaluater, Trainer, make_optimizer, make_train_step, make_warmup_optimizer,
 )
 
 SAMPLE_RATE = 8000
@@ -756,14 +784,14 @@ def check_backward(module, kname, label, grads_of, plain_chains, ref, plain, tim
                 fma_kernel_ms=ms["alone"][1])
 
 
-def library_lstm_bwd_ms(B, T, H, chains, dtype):
+def library_lstm_bwd_ms(B, T, H, chains, dtype, features=UMX["hidden_channels"]):
     """cuDNN's nn.LSTM backward at the kernel's shape (torch.autograd.grad of its output
-    for the input and the parameters), input projection from UMX's 512 features included
-    (informational; the port never calls it)."""
-    lstm = torch.nn.LSTM(UMX["hidden_channels"], H, batch_first=True,
+    for the input and the parameters), input projection from `features` (UMX's 512 by
+    default) included (informational; the port never calls it)."""
+    lstm = torch.nn.LSTM(features, H, batch_first=True,
                          bidirectional=chains == 2, device="cuda", dtype=dtype)
     gen = torch.Generator(device="cuda").manual_seed(B + T)
-    x = torch.randn(B, T, UMX["hidden_channels"], device="cuda", generator=gen).to(dtype)
+    x = torch.randn(B, T, features, device="cuda", generator=gen).to(dtype)
     x.requires_grad_()
     y = lstm(x)[0]
     g = torch.randn(y.shape, device="cuda", generator=gen).to(dtype)
@@ -1061,14 +1089,15 @@ def forward_error(inputs, hs, cs, dtype):
     return err, LSTM_TOL[dtype] * scale
 
 
-def library_lstm_ms(B, T, H, chains, dtype):
-    """cuDNN's nn.LSTM at the kernel's shape, input projection from UMX's 512 features
-    included (informational; the port never calls it)."""
-    lstm = torch.nn.LSTM(UMX["hidden_channels"], H, batch_first=True,
+def library_lstm_ms(B, T, H, chains, dtype, features=UMX["hidden_channels"],
+                    iters=LIBRARY_ITERS):
+    """cuDNN's nn.LSTM at the kernel's shape, input projection from `features` (UMX's 512
+    by default) included (informational; the port never calls it)."""
+    lstm = torch.nn.LSTM(features, H, batch_first=True,
                          bidirectional=chains == 2, device="cuda", dtype=dtype)
-    x = torch.randn(B, T, UMX["hidden_channels"], device="cuda").to(dtype)
+    x = torch.randn(B, T, features, device="cuda").to(dtype)
     with torch.no_grad():
-        return median_ms(lambda: lstm(x), warmup=5, iters=LIBRARY_ITERS)
+        return median_ms(lambda: lstm(x), warmup=5, iters=iters)
 
 
 def phase_cluster(card=None):
@@ -2621,6 +2650,455 @@ def phase_musdb_train(card=None):
     return dict(train=train, serve=serve, profile=profiles)
 
 
+# DPTNet (phase 13): the recipe config (egs/wsj0-mix/dptnet/train.sh), H = 256 a direction,
+# K = 100 at hop 50, six blocks. At B = 8 x 4 s (T' = 31999 frames, padded by 1 to 639
+# chunks) each block runs the intra-chunk biLSTM over 5112 sequences of 100 steps and the
+# inter-chunk LSTM over 800 sequences of 639; recipe training (B = 2) over 1278 and 200.
+DPT_H, DPT_K = DPTNET["sep_hidden_channels"], DPTNET["sep_chunk_size"]
+DPT_BLOCKS, DPT_E = DPTNET["sep_num_blocks"], DPTNET["sep_bottleneck_channels"]
+DPT_SHAPES = [  # label, (B, T, chains), dtypes, training (cs written, backward checked)
+    ("serve intra", (5112, 100, 2), (torch.float32, torch.bfloat16), False),
+    ("serve inter", (800, 639, 2), (torch.float32, torch.bfloat16), False),
+    ("serve causal inter", (800, 639, 1), (torch.float32, torch.bfloat16), False),
+    ("train intra", (1278, 100, 2), (torch.float32,), True),
+    ("train inter", (200, 639, 2), (torch.float32,), True),
+]
+DPT_WARMUP = 40  # --warmup_steps of the CLI run: the ramp reaches 2e-3 by step 20
+DPT_TRAIN_UTTS = 15  # synthetic train utterances: at least 10 steps of B = 2 x 4 s an epoch
+
+
+def dptnet_chunks(n_samples):
+    """S: the chunks of K frames at hop K // 2 that DPTNet's separator cuts the latent of
+    one n-sample input into (the stride-grid pad, then the symmetric chunk-grid pad)."""
+    L, stride = DPTNET["kernel_size"], DPTNET["stride"]
+    frames = (n_samples + (stride - (n_samples - L) % stride) % stride - L) // stride + 1
+    P = DPT_K // 2
+    return (frames + (P - (frames - DPT_K) % P) % P - DPT_K) // P + 1
+
+
+def dptnet_routes(B, n_samples, causal, dtype, backward=False):
+    """The recurrence launches of one DPTNet forward (and its backward) on (B, 1, n), by
+    "kernel/route": per block the intra-chunk biLSTM over B·S sequences of K steps and the
+    inter-chunk LSTM over B·K sequences of S steps, each on the route _plan (_plan_bwd)
+    gives its shape on this card."""
+    S = dptnet_chunks(n_samples)
+    inter = "lstm_scan" if causal else "lstm_scan_bidir"
+    routes = {}
+    for name, rows, chains in (("lstm_scan_bidir", B * S, 2), (inter, B * DPT_K, 2 - causal)):
+        keys = [f"{name}/{plan(ls, rows, chains, DPT_H, dtype)[0]}"]
+        if backward:
+            keys.append(f"{name}_bwd/{plan_bwd(ls, rows, chains, DPT_H, dtype)[0]}")
+        for key in keys:
+            routes[key] = routes.get(key, 0) + DPT_BLOCKS
+    return routes
+
+
+def add_counts(a: dict, b: dict) -> dict:
+    return {k: a.get(k, 0) + b.get(k, 0) for k in set(a) | set(b)}
+
+
+def check_dptnet_launches(grew, routes, what, decodes=0, decode=None):
+    """A run's launches: exactly `routes` ("kernel/route" counts) of the LSTM kernels,
+    `decodes` fused_mask_decode launches (on `decode`), and nothing else."""
+    per_kernel = {}
+    for key, n in routes.items():
+        per_kernel[key.split("/")[0]] = per_kernel.get(key.split("/")[0], 0) + n
+    want = expected(fused_mask_decode=decodes, **per_kernel)
+    check(kernels_of(grew) == want, f"{what}: launched {kernels_of(grew)}, expected {want}")
+    for table in (ls.PATH_LAUNCHES, ls.BWD_PATH_LAUNCHES):
+        for name, paths in table.items():
+            for path in paths:
+                key = f"{name}/{path}"
+                check(grew[key] == routes.get(key, 0),
+                      f"{what}: {key} launched {grew[key]} times, expected "
+                      f"{routes.get(key, 0)}")
+    if decode is not None:
+        got = {p: grew[f"fused_mask_decode/{p}"] for p in md.PATH_LAUNCHES}
+        check(got == {p: decodes * (p == decode) for p in got},
+              f"{what}: fused_mask_decode launched {got} by path, expected {decode}")
+
+
+def routes_of(grew) -> dict:
+    """The nonzero "kernel/route" counts of the LSTM kernels in an all_counts() dict."""
+    return {f"{name}/{path}": grew[f"{name}/{path}"]
+            for table in (ls.PATH_LAUNCHES, ls.BWD_PATH_LAUNCHES)
+            for name, paths in table.items() for path in paths if grew[f"{name}/{path}"]}
+
+
+def dptnet_model(causal, device="cuda", blocks=DPT_BLOCKS):
+    return scramble_norms(DPTNet(**dict(DPTNET, causal=causal, sep_num_blocks=blocks),
+                                 generator=torch.Generator().manual_seed(0), device=device))
+
+
+def serve_dptnet(tag, ckpt, wavs, causal):
+    """Six requests (three mixtures x f32/bf16) through cli/separate.py, every count set
+    to 0 first; each request launches its dptnet_routes, one fused_mask_decode on its
+    planned path, and nothing else. -> (outputs, the path's counts)."""
+    tmp = os.path.dirname(ckpt)
+    outputs = {}
+    reset_counts()
+    for dtype in ("float32", "bfloat16"):
+        for wav in wavs:
+            before = all_counts()
+            out_dir = os.path.join(tmp, f"out_{tag}_{dtype}_{os.path.basename(wav)[:-4]}")
+            est = separate(["--model_path", ckpt, "--input", wav, "--out_dir", out_dir,
+                            "--device", "cuda", "--dtype", dtype])
+            grew = grown(before)
+            n_in = read_wav(wav)[0].shape[0]
+            check(est.shape == (2, n_in) and np.isfinite(est).all(), est.shape)
+            routes = dptnet_routes(1, n_in, causal, getattr(torch, dtype))
+            check_dptnet_launches(grew, routes, f"{tag} request {os.path.basename(wav)} "
+                                  f"({dtype})", decodes=1, decode=decode_path(tag, dtype))
+            log(f"  {dtype} {os.path.basename(wav)}: 2 sources x {n_in} samples (S = "
+                f"{dptnet_chunks(n_in)} chunks), launches by route {routes_of(grew)}, "
+                f"fused_mask_decode 1 ({decode_path(tag, dtype)})")
+            outputs[(dtype, wav)] = est
+    launches = all_counts()
+    log(f"  {tag} serving launches: {nonzero(launches)}")
+    return outputs, launches
+
+
+class AttentionClock:
+    """CUDA events around every MultiheadAttention call of a model (forward hooks), so a
+    forward's attention time is the sum of their spans (the device runs them in order)."""
+
+    def __init__(self, model):
+        self.spans, self.handles = [], []
+        for m in model.modules():
+            if isinstance(m, MultiheadAttention):
+                self.handles.append(m.register_forward_pre_hook(self._start))
+                self.handles.append(m.register_forward_hook(self._end))
+
+    def _start(self, module, args):
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        self.spans.append([event, None])
+
+    def _end(self, module, args, out):
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        self.spans[-1][1] = event
+
+    def ms(self) -> float:
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.spans)
+
+    def close(self):
+        for h in self.handles:
+            h.remove()
+
+
+def dptnet_forward_profile(model, dtype, causal, card):
+    """The B = 8 x 4 s forward in `dtype`: ms (median of 3 after one warm-up), its launches
+    by route (each held to dptnet_routes), then one profiled forward: device busy and idle
+    share, the recurrence kernels' device time (torch.profiler), the attention's (CUDA
+    events around each MultiheadAttention call) and the rest. -> (numbers, launches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    B, n = 8, 4 * SAMPLE_RATE
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((B, 1, n), dtype=np.float32))
+    x = x.to("cuda", dtype)
+    what = f"DPTNet{' causal' if causal else ''} B=8 x 4 s {str(dtype)[6:]}"
+    torch.cuda.reset_peak_memory_stats()
+    before = all_counts()
+    with torch.inference_mode():
+        ms = median_ms(lambda: model(x), warmup=1, iters=3)
+        grew = grown(before)
+        per_forward = dptnet_routes(B, n, causal, dtype)
+        check_dptnet_launches(grew, {k: 4 * v for k, v in per_forward.items()}, what,
+                              decodes=4, decode=decode_path("dptnet", dtype))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        clock = AttentionClock(model)
+        try:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                start = time.perf_counter()
+                model(x)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - start) * 1e3
+            attention = clock.ms()
+        finally:
+            clock.close()
+    launches = grown(before)
+    device = device_times(prof)
+    busy = sum(device.values())
+    recurrence = sum(t for k, t in device.items() if any(n in k for n in FORWARD_KERNELS))
+    idle = max(0.0, 1 - busy / wall)
+    log(f"  {what}: {ms:.3f} ms a forward (median of 3), {B * 4.0 / (ms / 1e3):.1f} "
+        f"audio-s/s, peak {peak:.1f} MiB; launches a forward by route {per_forward}; "
+        f"profiled forward: wall {wall:.3f} ms, device busy {busy:.3f} ms, idle share "
+        f"{idle:.1%}; recurrence kernels {recurrence:.3f} ms ({recurrence / busy:.1%}), "
+        f"attention {attention:.3f} ms of CUDA-event spans ({attention / busy:.1%}), the rest "
+        f"{busy - recurrence - attention:.3f} ms [{card}]")
+    top = sorted(device.items(), key=lambda kv: -kv[1])[:6]
+    log("    top device time: " + ", ".join(f"{k[:48]} {t:.3f} ms" for k, t in top))
+    return dict(ms=ms, peak_mib=peak, wall_ms=wall, busy_ms=busy, idle_share=idle,
+                recurrence_ms=recurrence, attention_ms=attention), launches
+
+
+def dptnet_kernel_timing(label, B, T, chains, dtype, training):
+    """One LSTM forward kernel at a DPTNet shape on its planned route against the plain
+    version (hs, and cs when `training`), REPEATS more launches checked; timed alone from
+    CUDA graphs, with the FMA kernel forced and checked in the same run where the plan
+    takes another route (FMA, route, route, FMA), beside the plain version, cuDNN's
+    nn.LSTM (F = 64, DPTNet's input width) and the bound."""
+    name = "lstm_scan_bidir" if chains == 2 else "lstm_scan"
+    inputs = lstm_chains(B, T, DPT_H, chains, dtype, seed=B + T)
+    path, tile = plan(ls, B, chains, DPT_H, dtype)
+    what = f"{name} DPTNet {label} (B={B}, T={T}, H={DPT_H}) {str(dtype)[6:]}"
+    hs, cs, launch = ls._staged_forward(inputs, training, path)
+    on_path(ls.PATH_LAUNCHES[name], name, launch, path)
+    err, limit = forward_error(inputs, hs, cs if training else None, dtype)
+    worst = err
+    for _ in range(REPEATS if path != "fma" else 2):
+        launch()
+        worst = max(worst, forward_error(inputs, hs, cs if training else None, dtype)[0])
+    log(f"  {what} {path} ({tile_label(tile)}{', with cs' if training else ''}): "
+        f"max|kernel-plain| {err:.3e}, worst of the launches {worst:.3e} (limit {limit:.3g})")
+    check(worst <= limit, f"{what} disagrees with plain: {worst} > {limit}")
+    repeats = CLUSTER_REPEATS if path == "cluster" else 1
+    timing = dict(path=path, max_abs_err=err)
+    if path == "fma":
+        timing["ms"] = graph_ms(launch, repeats)
+    else:
+        fma_hs, fma_cs, fma = ls._staged_forward(inputs, training, "fma")
+        on_path(ls.PATH_LAUNCHES[name], name, fma, "fma")
+        timing["fma_max_abs_err"], _ = forward_error(inputs, fma_hs,
+                                                     fma_cs if training else None, dtype)
+        check(timing["fma_max_abs_err"] <= limit, f"{what}: FMA disagrees with plain")
+        turns = (graph_ms(fma, 1), graph_ms(launch, repeats), graph_ms(launch, repeats),
+                 graph_ms(fma, 1))
+        timing.update(ms=(turns[1] + turns[2]) / 2, fma_ms=(turns[0] + turns[3]) / 2)
+    plain = ls.lstm_forward_reference if training else ls.lstm_scan_reference
+    timing["plain_ms"] = median_ms(lambda: [plain(xw, w) for xw, w in inputs], warmup=1,
+                                   iters=3)
+    timing["library_ms"] = library_lstm_ms(B, T, DPT_H, chains, dtype, features=DPT_E,
+                                           iters=10)
+    timing.update(recurrence_bound(B, T, DPT_H, 4, chains, cell_state=training, dtype=dtype))
+    log(f"    {path} {timing['ms']:.4f} ms" + (f" (FMA forced {timing['fma_ms']:.4f} ms)"
+                                                if "fma_ms" in timing else "")
+        + f", plain {timing['plain_ms']:.4f} ms, cuDNN nn.LSTM {timing['library_ms']:.4f} ms "
+        f"(F={DPT_E}, median of 10), bound {timing['bound_ms']:.4f} ms ({timing['bound_by']})")
+    return timing, inputs, hs, cs
+
+
+def dptnet_backward_timing(label, inputs, hs, cs):
+    """The backward at a DPTNet training shape (f32) under autograd on its planned route
+    against lstm_scan_bwd_reference, timed whole and alone beside the FMA backward
+    (check_backward), with cuDNN's nn.LSTM backward at F = 64."""
+    B, T, _ = inputs[0][0].shape
+    gen = torch.Generator(device="cuda").manual_seed(B + T + 1)
+    grads = [torch.randn(B, T, DPT_H, device="cuda", generator=gen) for _ in inputs]
+    chains = [(xw, w, h, c) for (xw, w), h, c in zip(inputs, hs, cs)]
+    kname = "lstm_scan_bidir_bwd" if len(chains) == 2 else "lstm_scan_bwd"
+    leaves = [t.clone().requires_grad_() for c in chains for t in c[:2]]
+    fn = ls.lstm_scan_bidir if len(chains) == 2 else ls.lstm_scan
+
+    def grads_of():
+        outs = fn(*leaves[0::2], *leaves[1::2])
+        return torch.autograd.grad(outs if len(grads) == 2 else (outs,), leaves, grads)
+
+    plain_chains = [(*c, g) for c, g in zip(chains, grads)]
+    ref = [d for c in plain_chains for d in ls.lstm_scan_bwd_reference(*c)]
+    timing = check_backward(ls, kname, f"DPTNet {label} (B={B}, T={T}, H={DPT_H}) float32",
+                            grads_of, plain_chains, ref,
+                            lambda: [ls.lstm_scan_bwd_reference(*c) for c in plain_chains],
+                            timed=True)
+    timing["path"] = plan_bwd(ls, B, len(chains), DPT_H, torch.float32)[0]
+    timing["library_ms"] = library_lstm_bwd_ms(B, T, DPT_H, len(chains), torch.float32,
+                                               features=DPT_E)
+    timing.update(recurrence_bound(B, T, DPT_H, 4, len(chains), backward=True,
+                                   cell_state=True))
+    timing["kernel_bound_ms"] = backward_kernel_bound(B, T, DPT_H, 4, len(chains),
+                                                      torch.float32, 1,
+                                                      peak=torch.float32)["bound_ms"]
+    log(f"    cuDNN nn.LSTM backward {timing['library_ms']:.4f} ms (F={DPT_E}); bound "
+        f"{timing['bound_ms']:.4f} ms whole, {timing['kernel_bound_ms']:.4f} ms the kernel")
+    return timing
+
+
+def phase_dptnet_kernels(card=None):
+    """Phase 13's kernels: every LSTM launch DPTNet's main path makes, at its shapes, against
+    the plain version, timed. -> {(name, label, dtype): timing}."""
+    card = card or card_line()
+    log("== phase 13: DPTNet's recurrences at its shapes vs plain on the card (kernels from "
+        f"CUDA graphs, CUDA events) [{card}]")
+    result = {}
+    for label, (B, T, chains), dtypes, training in DPT_SHAPES:
+        name = "lstm_scan_bidir" if chains == 2 else "lstm_scan"
+        for dtype in dtypes:
+            timing, inputs, hs, cs = dptnet_kernel_timing(label, B, T, chains, dtype, training)
+            result[(name, label, dtype)] = timing
+            if training:
+                result[(f"{name}_bwd", label, dtype)] = dptnet_backward_timing(
+                    label, inputs, hs, cs)
+            del inputs, hs, cs
+    return result
+
+
+def dptnet_train_parity():
+    """One DPTNet train step on the card against an f64 CPU step (and the f32 CPU step):
+    the recipe's widths (N64, bottleneck 64, H256, K100, four heads) at two blocks and
+    B = 1 x 1 s, so the f64 reference fits the host."""
+    log("== phase 13: one DPTNet train step, card vs CPU (f32, TF32 off, recipe widths, 2 "
+        "blocks, B=1 x 1 s; f64 CPU reference)")
+    n = SAMPLE_RATE
+    for causal in (False, True):
+        tag = f"dptnet{'_causal' if causal else ''}"
+        cpu_model = dptnet_model(causal, "cpu", blocks=2)
+        batch = train_batch(1, 1.0, "cpu")
+        ref = grads_of_step(copy.deepcopy(cpu_model).double(), tuple(t.double() for t in batch))
+        cpu = grads_of_step(cpu_model, batch)
+        reset_counts()
+        card_step = grads_of_step(dptnet_model(causal, blocks=2), train_batch(1, 1.0, "cuda"))
+        torch.cuda.synchronize()
+        grew = all_counts()
+        routes = {k: v // DPT_BLOCKS * 2 for k, v in
+                  dptnet_routes(1, n, causal, torch.float32, backward=True).items()}
+        check_dptnet_launches(grew, routes, f"{tag}: a train step")
+        check_step_against_f64(tag, ref, cpu, card_step, kernels_of(grew))
+        log(f"    launches by route: {routes_of(grew)}")
+
+
+def dptnet_train_cli(tmp, card):
+    """cli/train_wsj0mix.py --model dptnet at the recipe (B = 2 x 4 s, f32) with
+    --warmup_steps on a synthetic corpus, 2 epochs of at least 10 steps: every step and
+    validation forward on its routes, the epoch train loss falling; then its checkpoint
+    through cli/separate.py and cli/test_wsj0mix.py on the card; and the recipe step's
+    p50 split by CUDA events with its idle share. -> (launches, checkpoint)."""
+    log("== phase 13: train DPTNet through cli/train_wsj0mix.py (recipe, B=2 x 4 s, f32, "
+        f"--warmup_steps {DPT_WARMUP})")
+    corpus = os.path.join(tmp, "dpt_corpus")
+    tr_root, tr_list = write_quality_corpus(corpus, "tr", DPT_TRAIN_UTTS)
+    cv_root, cv_list = write_quality_corpus(corpus, "cv", 2)
+    exp = os.path.join(tmp, "exp_dptnet")
+    argv = ["--train_wav_root", tr_root, "--train_list_path", tr_list, "--valid_wav_root",
+            cv_root, "--valid_list_path", cv_list, "--duration", "4", "--valid_duration", "4",
+            "--device", "cuda", "--model", "dptnet", "-N", "64", "-L", "2", "-K", "100",
+            "--sep_num_blocks", "6", "--sep_num_heads", "4", "--sep_bottleneck_channels", "64",
+            "--sep_hidden_channels", "256", "--mask_nonlinear", "relu", "--batch_size", "2",
+            "--warmup_steps", str(DPT_WARMUP), "--epochs", "2", "--exp_dir", exp]
+    reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        trainer = train_cli.main(argv)
+    grew = all_counts()
+    steps = 2 * len(trainer.train_loader)
+    check(steps >= 20, f"the DPTNet CLI run took {steps} steps, fewer than 20")
+    routes = {k: steps * v for k, v in
+              dptnet_routes(2, 4 * SAMPLE_RATE, False, torch.float32, backward=True).items()}
+    evals = 0
+    for mixture, _ in trainer.valid_loader:  # B = 1, each utterance's own length
+        routes = add_counts(routes, {k: 2 * v for k, v in dptnet_routes(
+            1, np.shape(mixture)[-1], False, torch.float32).items()})
+        evals += 2
+    check_dptnet_launches(grew, routes, "the DPTNet CLI run", decodes=evals,
+                          decode=decode_path("dptnet", "float32"))
+    losses = trainer.train_loss
+    log(f"  {steps} steps, {evals} validation forwards: train loss by epoch "
+        f"{[round(v, 4) for v in losses]}, valid {[round(v, 4) for v in trainer.valid_loss]}; "
+        f"the CLI's last lines: " + " | ".join(out.getvalue().strip().splitlines()[-2:]))
+    log(f"    launches by route: {routes_of(grew)}")
+    check(np.isfinite(losses).all() and losses[-1] < losses[0],
+          f"the DPTNet CLI's epoch train loss did not fall: {losses}")
+    ckpt = os.path.join(exp, "model", "last.ckpt")
+    launches = all_counts()
+
+    log("  serve and evaluate the trained DPTNet checkpoint on the card")
+    wav = write_mixtures(tmp)[-1]
+    _, served = serve_dptnet("trained_dptnet", ckpt, [wav], False)
+    launches = add_counts(launches, served)
+    reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        card_metrics = test_cli.main(["--test_wav_root", cv_root, "--test_list_path", cv_list,
+                                      "--model_path", ckpt, "--device", "cuda"])
+        cpu_metrics = test_cli.main(["--test_wav_root", cv_root, "--test_list_path", cv_list,
+                                     "--model_path", ckpt, "--device", "cpu"])
+    evaluated = all_counts()
+    check(evaluated["fused_mask_decode"] >= 1, "the evaluation launched no decode")
+    launches = add_counts(launches, evaluated)
+    diffs = {k: abs(card_metrics[k] - cpu_metrics[k]) for k in TEST_METRICS}
+    log(f"  cli/test_wsj0mix.py card vs CPU: " + ", ".join(
+        f"{k} {card_metrics[k]:.4f} / {cpu_metrics[k]:.4f}" for k in TEST_METRICS)
+        + f" (limit {EVAL_TOL_DB} dB each)")
+    check(all(d <= EVAL_TOL_DB for d in diffs.values()), f"evaluation card vs CPU: {diffs}")
+
+    log(f"  the recipe step (B=2 x 4 s, f32, the warmup schedule): p50 split [{card}]")
+    model = dptnet_model(False)
+    optimizer = make_warmup_optimizer(0.2, 4e-4, DPT_E, DPT_WARMUP, 10,
+                                      max_norm=5.0, params=model.parameters())
+    criterion = PIT1d(NegSISDR(), n_sources=2)
+    mixture, sources = train_batch(2, 4.0, "cuda")
+    model.train()
+    step = evented_step(lambda: criterion(model(mixture), sources)[0], optimizer)
+    splits, walls = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(2 + 10):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        start = time.perf_counter()
+        step(events)
+        torch.cuda.synchronize()
+        if i >= 2:
+            walls.append((time.perf_counter() - start) * 1e3)
+            splits.append([events[j].elapsed_time(events[j + 1]) for j in range(3)])
+    fwd, bwd, opt = (float(np.median([s[j] for s in splits])) for j in range(3))
+    p50 = float(np.median(walls))
+    log(f"    p50 step {p50:.3f} ms of 10 (forward + loss {fwd:.3f}, backward {bwd:.3f}, "
+        f"optimizer {opt:.3f} ms, CUDA events), {2 * 4.0 / (p50 / 1e3):.1f} audio-s/s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB")
+    step_routes = dptnet_routes(2, 4 * SAMPLE_RATE, False, torch.float32, backward=True)
+    profile_train_step(
+        lambda: criterion(model(mixture), sources)[0], optimizer, "DPTNet (B=2 x 4 s, f32)",
+        card, lambda g: check(routes_of(g) == {k: v for k, v in step_routes.items()
+                                               if k.split("/")[0].endswith("_bwd")},
+                              f"the profiled DPTNet backward launched {routes_of(g)}"))
+    return launches, ckpt
+
+
+def phase_dptnet(card=None, tmp=None):
+    """Phase 13, DPTNet on wsj0-2mix -> {"launches": the main path's counts (serving, the
+    B = 8 forwards, the CLI's training, serving and evaluation), "kernels": the timings of
+    phase_dptnet_kernels}."""
+    card = card or card_line()
+    with contextlib.ExitStack() as stack:
+        tmp = tmp or stack.enter_context(tempfile.TemporaryDirectory())
+        wavs = write_mixtures(tmp)
+        total = {}
+        ckpts = {}
+        for causal in (False, True):
+            tag = f"dptnet{'_causal' if causal else ''}"
+            log(f"== phase 13: serve recipe-config DPTNet, causal={causal}, through "
+                "cli/separate.py")
+            ckpts[tag] = os.path.join(tmp, f"{tag}.pth")
+            make_checkpoint(ckpts[tag], DPTNet(**dict(DPTNET, causal=causal), device="cuda",
+                                               generator=torch.Generator().manual_seed(0)))
+            outputs, launches = serve_dptnet(tag, ckpts[tag], wavs, causal)
+            total = add_counts(total, launches)
+            phase_parity(tag, ckpts[tag], wavs, outputs)
+        log(f"== phase 13: DPTNet's B=8 x 4 s forward, ms and where the device time goes [{card}]")
+        forwards = {}
+        for tag, ckpt in ckpts.items():
+            model = load_model(ckpt, device="cuda")
+            for dtype in (torch.float32, torch.bfloat16):  # .to converts the model in place
+                reset_counts()
+                forwards[(tag, dtype)], launches = dptnet_forward_profile(
+                    model.to(dtype), dtype, tag.endswith("causal"), card)
+                total = add_counts(total, launches)
+            del model
+        dptnet_train_parity()
+        trained, _ = dptnet_train_cli(tmp, card)
+        total = add_counts(total, trained)
+    log("== phase 13: the bench module, --model dptnet (informational; in this process, its "
+        "line kept off stdout)")
+    for flags in ([], ["--dtype", "float32"]):
+        with contextlib.redirect_stdout(io.StringIO()):
+            line = bench_main(["--model", "dptnet", *flags])
+        check(line["value"] > 0 and line["mfu"] > 0, line)
+        log(f"  bench --model dptnet {' '.join(flags)}: {json.dumps(line)}")
+    kernels = phase_dptnet_kernels(card)
+    log(f"  phase 13 main-path launches: {nonzero(total)}")
+    return dict(launches=total, kernels=kernels, forwards=forwards)
+
+
 def kernel_entry(name, source, replaces, launches, timing, bound_of, library_ms=None,
                  dtype=torch.float32, fma_bound=None):
     """One kernel of the `kernels` line; `dtype` is that of the inputs timed. A timing
@@ -2709,16 +3187,17 @@ def phase_build():
 ONLY_PHASES = {"3": phase_kernel, "3b": phase_lstm, "3c": phase_gru, "3d": phase_lstm_bwd,
                "3e": phase_gru_bwd, "3f": phase_quantize, "3g": phase_library,
                "3h": phase_cluster,
-               "6s": phase_stream_hops, "11": phase_musdb, "12": phase_musdb_train}
+               "6s": phase_stream_hops, "11": phase_musdb, "12": phase_musdb_train,
+               "13": phase_dptnet, "13k": phase_dptnet_kernels}
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser("chip_smoke")
     parser.add_argument("--only", type=str, default=None,
                         help="comma-separated kernel phases (3, 3b-3h), 6s (streaming ms "
-                             "per hop), 11 (musdb18 serving) or 12 (musdb18 training) to run "
-                             "after phases 1 and 2, and nothing else; no result line is "
-                             "printed")
+                             "per hop), 11 (musdb18 serving), 12 (musdb18 training), 13 "
+                             "(DPTNet) or 13k (DPTNet's kernels alone) to run after phases 1 "
+                             "and 2, and nothing else; no result line is printed")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check needs a CUDA card",
@@ -2826,6 +3305,7 @@ def main(argv=None) -> int:
     phase_train_throughput(card)
     musdb = phase_musdb(card)
     musdb_train = phase_musdb_train(card)
+    dptnet = phase_dptnet(card)
     for name in ("lstm_scan_bidir_bwd", "lstm_scan_bwd", "gru_scan_bidir_bwd", "gru_scan_bwd"):
         check(trained[name] >= 1, f"the training path never launched {name}")
     total = {k: v + trained[k] + evaluated[k] for k, v in total.items()}
@@ -2848,6 +3328,11 @@ def main(argv=None) -> int:
         elif n < 1:
             raise AssertionError(f"the serving, training and evaluation paths never launched "
                                  f"{name}")
+    # DPTNet (phase 13, H = 256 at B = 1-5112) runs the cluster and FMA kernels where _plan
+    # puts each of its shapes; phase 13 held every launch to its route. Its decodes join
+    # the served widths' rows.
+    dpt_launches = dptnet["launches"]
+    total = {k: v + dpt_launches.get(k, 0) for k, v in total.items()}
     check("jax" not in sys.modules and "flax" not in sys.modules, "jax was imported")
     check(not any(m.split(".")[0] == "dnn_based_source_separation_tpu" for m in sys.modules),
           "the JAX package was imported")
@@ -2985,6 +3470,32 @@ def main(argv=None) -> int:
                          kernel_bound_ms=backward_kernel_bound(B, T, H, gates, chains, dtype,
                                                                tf32)["bound_ms"])
             entries.append(entry)
+    # DPTNet's recurrences at its shapes (phase 13): the forwards at serving's B = 8 x 4 s
+    # (intra 5112 x 100, inter 800 x 639, bidirectional or causal) in both dtypes and at
+    # recipe training's B = 2 x 4 s with cs (intra 1278 x 100, inter 200 x 639) in f32 with
+    # their backwards, each on its planned route (the FMA kernel forced beside any other),
+    # beside cuDNN's nn.LSTM at DPTNet's input width (F = 64), with phase 13's main-path
+    # launches of that kernel on that route (every shape and dtype of phase 13).
+    for (name, label, dtype), timing in dptnet["kernels"].items():
+        route = timing["path"]
+        backward = name.endswith("_bwd")
+        source = {("cluster", False): "csrc/recurrence_cluster.cuh",
+                  ("cluster", True): "csrc/recurrence_cluster_bwd.cuh",
+                  ("fma", False): "csrc/lstm_scan.cu",
+                  ("fma", True): "csrc/lstm_scan_bwd.cu"}[(route, backward)]
+        replaces = {"lstm_scan_bidir": "ops/pallas_lstm.py:323",
+                    "lstm_scan": "ops/pallas_lstm.py:166",
+                    "lstm_scan_bidir_bwd": "ops/pallas_lstm.py:339",
+                    "lstm_scan_bwd": "ops/pallas_lstm.py:230"}[name]
+        B, T, _ = next(shape for lab, shape, *_ in DPT_SHAPES if lab == label)
+        entry = kernel_entry(name, source, replaces, dpt_launches[f"{name}/{route}"], timing,
+                             {k: timing[k] for k in ("bound_ms", "bound_by")},
+                             timing["library_ms"], dtype=dtype)
+        entry.update(path=route, shape=f"DPTNet {label} B={B} T={T} H={DPT_H}"
+                     + (", with cs" if "train" in label else ""),
+                     **{k: timing[k] for k in ("kernel_ms", "fma_kernel_ms", "kernel_bound_ms",
+                                               "fma_max_abs_err", "cluster") if k in timing})
+        entries.append(entry)
     entries += [
         # Two reads of x and one int8 write; no single PyTorch call computes it.
         kernel_entry("quantize_int8", "csrc/quantize.cu", "ops/pallas_kernels.py:45",

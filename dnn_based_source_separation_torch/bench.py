@@ -6,6 +6,7 @@ that the port has and the host path of `scripts/bench_streaming.py`:
     python -m dnn_based_source_separation_torch.bench                 # paper Conv-TasNet
     python -m dnn_based_source_separation_torch.bench --dtype float32
     python -m dnn_based_source_separation_torch.bench --model dprnn-tasnet [--rnn_type gru]
+    python -m dnn_based_source_separation_torch.bench --model dptnet [--causal]
     python -m dnn_based_source_separation_torch.bench --streaming_hop 0.05 --causal
     python -m dnn_based_source_separation_torch.bench --model umx      # or xumx: musdb18
 
@@ -17,8 +18,8 @@ hop time over the hop's duration), "device".
 
 Offline method: B=8 x 4 s at 8 kHz, random weights from seed 0, bf16 (f32
 with --dtype), paper-config Conv-TasNet with the gLN `heads` fold (the
-non-causal model only, under the separate CLI's condition) or recipe-config
-DPRNN-TasNet; 2 warm-up and 20 timed forwards under
+non-causal model only, under the separate CLI's condition), recipe-config
+DPRNN-TasNet or recipe-config DPTNet; 2 warm-up and 20 timed forwards under
 `torch.inference_mode()`, each between two CUDA events; the median.
 Streaming method: a 4 s mixture through exact streaming
 (`models/streaming.py`, the causal Conv-TasNet or the stream-safe causal
@@ -30,7 +31,8 @@ dtype (one H100 SXM at 700 W: 989e12 bf16, 67e12 f32 outside the tensor
 cores, NVIDIA's data sheet). The FLOPs are counted from the config
 (`forward_flops`): 2 x the multiply-adds of every matmul, pointwise conv,
 full conv and depthwise tap (the RNNs' input and recurrent products
-included); norms, activations and overlap-adds are left out.
+included, and DPTNet's attention products q·kᵀ and weights·v); norms,
+softmax, activations and overlap-adds are left out.
 
 musdb18 serving (`--model umx` / `--model xumx`, the port's counterpart of
 `scripts/bench_musdb_eval.py`): paper-config ParallelOpenUnmix or bridged
@@ -61,7 +63,8 @@ import torch
 from .cli.test_musdb18 import STAGES, separate_track
 from .entry import PAPER
 from .models import (
-    ConvTasNet, CrossNetOpenUnmix, DPRNNTasNet, ParallelOpenUnmix, SpectrogramMaskingWrapper,
+    ConvTasNet, CrossNetOpenUnmix, DPRNNTasNet, DPTNet, ParallelOpenUnmix,
+    SpectrogramMaskingWrapper,
 )
 from .models.fold import fold_for_serving
 from .models.streaming import ExactStreamingSeparator
@@ -83,7 +86,15 @@ DPRNN = dict(
     sep_chunk_size=250, sep_hop_size=125, sep_num_blocks=6, mask_nonlinear="sigmoid",
     rnn_type="lstm", n_sources=2,
 )
-CONFIGS = {"conv-tasnet": PAPER, "dprnn-tasnet": DPRNN}  # --model
+# Recipe config, N64 L2 stride 1, K100 P50, 6 blocks, 4 heads, bottleneck 64, hidden
+# 256, relu masks (egs/wsj0-mix/dptnet/train.sh and the defaults of
+# cli/train_wsj0mix.py:41-70); `causal` is set per variant.
+DPTNET = dict(
+    n_basis=64, kernel_size=2, stride=1, enc_nonlinear="relu", sep_bottleneck_channels=64,
+    sep_hidden_channels=256, sep_chunk_size=100, sep_num_blocks=6, sep_num_heads=4,
+    mask_nonlinear="relu", n_sources=2,
+)
+CONFIGS = {"conv-tasnet": PAPER, "dprnn-tasnet": DPRNN, "dptnet": DPTNET}  # --model
 # musdb18 serving, paper config (cli/train_musdb18.py:65-71 of the JAX package):
 # n_fft 4096, hop 1024, Hann; stereo, hidden 512, 3 LSTM layers, 2049 bins, max_bin
 # 1487, 4 sources. X-UMX bridged.
@@ -146,10 +157,42 @@ def dprnn_tasnet_macs(config, T: int) -> dict:
     return {"matmul": matmul, "depthwise": 0}
 
 
+def dptnet_macs(config, T: int) -> dict:
+    """Multiply-adds of one DPTNet forward on a (1, 1, T) input, by kind.
+
+    A position of a sequence of L frames costs, in each improved transformer:
+    the projections, in_proj 3E² and out_proj E²; the attention, q·kᵀ and
+    weights·v, 2·E·L; the LSTM feed-forward, per direction 4H·E + 4H·H, and
+    `fc`, directions·H·E. The intra-chunk pass has L = K (bidirectional), the
+    inter-chunk pass L = S (one direction when causal); both run over the S·K
+    chunked positions. Then the bottleneck, `map`, the GTU's two maps and the
+    filterbanks.
+    """
+    F = _frames(config, T)
+    N, E = config["n_basis"], config.get("sep_bottleneck_channels", 64)
+    H, K = config.get("sep_hidden_channels", 256), config.get("sep_chunk_size", 100)
+    P = config.get("sep_hop_size") or K // 2
+    blocks, n_src = config.get("sep_num_blocks", 6), config.get("n_sources", 2)
+    padded = F + (P - (F - K) % P) % P
+    S = (padded - K) // P + 1
+    rows = S * K
+
+    def transformer(L: int, directions: int) -> int:
+        return rows * (4 * E * E + 2 * E * L + directions * (4 * H * E + 4 * H * H + H * E))
+
+    inter = 1 if config.get("causal", False) else 2
+    matmul = _filterbank_macs(config, F) + F * N * E + F * E * n_src * N + 2 * n_src * F * N * N
+    matmul += blocks * (transformer(K, 2) + transformer(S, inter))
+    return {"matmul": matmul, "depthwise": 0}
+
+
+_MACS = {DPRNNTasNet: dprnn_tasnet_macs, DPTNet: dptnet_macs}
+
+
 def forward_flops(model, T: int, batch: int = 1) -> dict:
     """2 x the multiply-adds of one forward on (batch, 1, T), by kind, from the config."""
     config = model.get_config()
-    count = dprnn_tasnet_macs if isinstance(model, DPRNNTasNet) else conv_tasnet_macs
+    count = _MACS.get(type(model), conv_tasnet_macs)
     macs = count(config, T)
     return {k: 2 * batch * v for k, v in macs.items()}
 
@@ -173,6 +216,8 @@ def build_model(args, device):
     config = dict(CONFIGS[args.model], causal=args.causal)
     if args.model == "conv-tasnet":
         model = fold_for_serving(ConvTasNet(**config, generator=generator, device=device))
+    elif args.model == "dptnet":
+        model = DPTNet(**config, generator=generator, device=device)
     else:
         config.update(rnn_type=args.rnn_type, stream_safe=bool(args.streaming_hop))
         model = DPRNNTasNet(**config, generator=generator, device=device)
@@ -280,7 +325,7 @@ def bench_musdb(args, model, device, device_name) -> dict:
 def build_parser():
     p = argparse.ArgumentParser("bench")
     p.add_argument("--model", type=str, default="conv-tasnet",
-                   choices=["conv-tasnet", "dprnn-tasnet", *MUSDB_MODELS])
+                   choices=["conv-tasnet", "dprnn-tasnet", "dptnet", *MUSDB_MODELS])
     p.add_argument("--rnn_type", type=str, default="lstm", choices=["lstm", "gru"],
                    help="dprnn-tasnet recurrence")
     p.add_argument("--dtype", type=str, default=None, choices=sorted(DTYPES),

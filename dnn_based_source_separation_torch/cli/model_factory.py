@@ -1,19 +1,19 @@
 """Recipe model factory: --model flag + argparse namespace -> model on a device.
 
 Port of `dnn_based_source_separation_tpu/cli/model_factory.py:build_wsj0mix_model`
-for the two ported models, with the JAX factory's defaults. The weights are
+for the ported models, with the JAX factory's arguments and defaults. The weights are
 drawn from `args.seed`, so one seed gives the same model on every device.
 """
 from __future__ import annotations
 
 import torch
 
-from ..models import ConvTasNet, DPRNNTasNet
+from ..models import ConvTasNet, DPRNNTasNet, DPTNet
 
 # The slice of the port that brings each model the JAX factory builds.
 _NOT_PORTED = {
-    "lstm-tasnet": "slice D", "sepformer": "slice D", "dptnet": "slice D",
-    "galrnet": "slice D", "furcanet": "slice D",
+    "lstm-tasnet": "slice D", "sepformer": "slice D", "galrnet": "slice D",
+    "furcanet": "slice D",
 }
 
 
@@ -39,6 +39,13 @@ def build_wsj0mix_model(args, device) -> torch.nn.Module:
             sep_chunk_size=args.sep_chunk_size, sep_hop_size=args.sep_hop_size,
             sep_num_blocks=args.sep_num_blocks, rnn_type=getattr(args, "rnn_type", "lstm"),
             **common)
+    if name == "dptnet":  # the JAX factory passes no filterbank kinds and no hop size
+        for key in ("enc_basis", "dec_basis"):
+            common.pop(key)
+        return DPTNet(
+            sep_bottleneck_channels=args.sep_bottleneck_channels,
+            sep_hidden_channels=args.sep_hidden_channels, sep_chunk_size=args.sep_chunk_size,
+            sep_num_blocks=args.sep_num_blocks, sep_num_heads=args.sep_num_heads, **common)
     if name in _NOT_PORTED:
         raise NotImplementedError(f"model {args.model!r} is not ported yet ({_NOT_PORTED[name]} "
                                   "of the port)")

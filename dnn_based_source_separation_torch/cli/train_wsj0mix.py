@@ -1,4 +1,4 @@
-"""wsj0-mix training CLI (Conv-TasNet, DPRNN-TasNet).
+"""wsj0-mix training CLI (Conv-TasNet, DPRNN-TasNet, DPTNet).
 
 Port of `dnn_based_source_separation_tpu/cli/train_wsj0mix.py`: the same
 flag names and defaults (its `build_parser`, :26-117), plus `--device`
@@ -6,12 +6,15 @@ flag names and defaults (its `build_parser`, :26-117), plus `--device`
 not there is an error, never a silent CPU run. The loss is PIT over negative
 SI-SDR, the optimizer optax's rules (`train/steps.py`), the Trainer the JAX
 package's (`train/trainer.py`). `--mixed_precision 1` runs bf16 compute over
-f32 master weights as the JAX step does.
+f32 master weights as the JAX step does. `--warmup_steps N` (N > 0) trains
+with the DPTNet recipe's schedule (`train/steps.py:make_warmup_optimizer`,
+d_model = `--sep_bottleneck_channels`, an epoch = the train loader's length),
+as the JAX CLI does (its :191-197); the cv-plateau halving then does nothing.
 
 Flags for features not ported yet raise NotImplementedError when set:
-`--pit` other than exhaustive, `--criterion orpit`, `--warmup_steps > 0`,
-`--device_resident_data`, `--n_devices` and `--rnn_type sru`. DPRNN-TasNet
-trains with `--rnn_type lstm` or `gru` on either device.
+`--pit` other than exhaustive, `--criterion orpit`, `--device_resident_data`,
+`--n_devices` and `--rnn_type sru`. DPRNN-TasNet trains with `--rnn_type
+lstm` or `gru` on either device.
 
     python -m dnn_based_source_separation_torch.cli.train_wsj0mix \
         --model dprnn-tasnet -N 64 -L 2 -H 128 -B 64 -K 250 --sep_hop_size 125 -R 6 \
@@ -26,7 +29,7 @@ import torch
 
 from ..criterion import NegSISDR, PIT1d
 from ..data import DataLoader, WaveEvalDataset, WaveTrainDataset
-from ..train import Trainer, TrainerConfig, make_optimizer
+from ..train import Trainer, TrainerConfig, make_optimizer, make_warmup_optimizer
 from ..utils import set_seed
 from .model_factory import build_wsj0mix_model
 
@@ -82,10 +85,9 @@ def build_parser():
     p.add_argument("--optimizer", type=str, default="adam")
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--warmup_steps", type=int, default=0,
-                   help="the DPTNet recipe LR schedule (not ported)")
-    p.add_argument("--k1", type=float, default=2e-1, help="warmup ramp coefficient (not ported)")
-    p.add_argument("--k2", type=float, default=4e-4,
-                   help="post-warmup decay coefficient (not ported)")
+                   help="> 0: Adam under the DPTNet recipe's warmup schedule (--lr unused)")
+    p.add_argument("--k1", type=float, default=2e-1, help="warmup ramp coefficient")
+    p.add_argument("--k2", type=float, default=4e-4, help="post-warmup decay coefficient")
     p.add_argument("--max_norm", type=float, default=5.0)
     p.add_argument("--batch_size", type=int, default=4)
     p.add_argument("--epochs", type=int, default=100)
@@ -114,7 +116,6 @@ def _refuse_unported(args) -> None:
     refusals = [
         (args.pit != "exhaustive", f"--pit {args.pit}"),
         (args.criterion == "orpit", "--criterion orpit (ORPIT)"),
-        (args.warmup_steps > 0, "--warmup_steps (the DPTNet warmup schedule)"),
         (bool(args.device_resident_data), "--device_resident_data"),
         (args.n_devices is not None, "--n_devices (data parallelism, slice H)"),
         (args.rnn_type == "sru", "--rnn_type sru"),
@@ -149,8 +150,14 @@ def main(args=None):
     valid_loader = DataLoader(valid_ds, batch_size=1)
 
     model = build_wsj0mix_model(args, device)
-    optimizer = make_optimizer(args.optimizer, args.lr, max_norm=args.max_norm,
-                               params=model.parameters())
+    if args.warmup_steps > 0:
+        optimizer = make_warmup_optimizer(
+            args.k1, args.k2, d_model=args.sep_bottleneck_channels,
+            warmup_steps=args.warmup_steps, steps_per_epoch=len(train_loader),
+            max_norm=args.max_norm, params=model.parameters())
+    else:
+        optimizer = make_optimizer(args.optimizer, args.lr, max_norm=args.max_norm,
+                                   params=model.parameters())
     criterion = PIT1d(NegSISDR(), n_sources=args.n_sources)
     config = TrainerConfig(
         epochs=args.epochs, exp_dir=args.exp_dir, continue_from=args.continue_from,

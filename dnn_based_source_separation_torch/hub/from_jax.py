@@ -1,9 +1,10 @@
 """JAX param tree -> port state_dict: the inverse of `hub/torch_convert.py`.
 
 `conv_tasnet_state_dict_from_jax`, `dprnn_tasnet_state_dict_from_jax`,
-`open_unmix_state_dict_from_jax` and `xumx_state_dict_from_jax` undo
+`dptnet_state_dict_from_jax`, `open_unmix_state_dict_from_jax` and
+`xumx_state_dict_from_jax` undo
 `dnn_based_source_separation_tpu/hub/torch_convert.py:convert_conv_tasnet`,
-`convert_dprnn_tasnet`, `convert_open_unmix` and `convert_xumx` exactly
+`convert_dprnn_tasnet`, `convert_dptnet`, `convert_open_unmix` and `convert_xumx` exactly
 (transposes and reshapes only, and the LSTM's single bias split as b + 0),
 so JAX-trained weights load into the port, and converting back gives the
 same tree bit for bit. GRU and stream-safe DPRNN-TasNet trees, which
@@ -193,6 +194,54 @@ def dprnn_tasnet_state_dict_from_jax(params: Mapping, config: Mapping) -> Dict[s
                 _norm(sd, f"{ref}.norm1d", block[part][norm_name])
     _prelu(sd, "separator.prelu", sep["prelu"])
     _pointwise(sd, "separator.mask_conv1d", sep["mask_conv1d"])
+    return sd
+
+
+def _improved_transformer(sd: Dict, prefix: str, p: Mapping, norm_cls: str,
+                          norm: bool) -> None:
+    """models.dptnet.ImprovedTransformer {multihead_attn {in_proj, out_proj}, <norm>_0, rnn,
+    fc, <norm>_1} -> {prefix}.{multihead_attn_block.{multihead_attn,norm1d},
+    subnet.{rnn,fc,norm1d}} (the inverse of `hub/torch_convert.py:_improved_transformer_params`)."""
+    mha, attn = p["multihead_attn"], f"{prefix}.multihead_attn_block.multihead_attn"
+    sd[f"{attn}.in_proj_weight"] = _t(np.asarray(mha["in_proj"]["kernel"]).T)
+    sd[f"{attn}.in_proj_bias"] = _t(mha["in_proj"]["bias"])
+    _linear(sd, f"{attn}.out_proj", mha["out_proj"])
+    _lstm(sd, f"{prefix}.subnet.rnn", p["rnn"])
+    _linear(sd, f"{prefix}.subnet.fc", p["fc"])
+    if norm:
+        _norm(sd, f"{prefix}.multihead_attn_block.norm1d", p[f"{norm_cls}_0"])
+        _norm(sd, f"{prefix}.subnet.norm1d", p[f"{norm_cls}_1"])
+
+
+def dptnet_state_dict_from_jax(params: Mapping, config: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX DPTNet variables ({"params": ...} or the bare tree) -> port state_dict.
+
+    The inverse of `hub/torch_convert.py:convert_dptnet`, causal or not: the
+    intra-chunk blocks are never causal (gLNs, a bidirectional LSTM); when
+    `causal` the top and inter-chunk norms are cLNs (`CumulativeLayerNorm_0/1`)
+    and the inter-chunk LSTM has one direction.
+    """
+    p = params["params"] if "params" in params else params
+    causal = bool(config.get("causal", False))
+    norm = bool(config.get("sep_norm", True))
+    top_norm = "CumulativeLayerNorm" if causal else "GlobalLayerNorm"
+    C = int(config.get("in_channels", 1) or 1)
+    sd: Dict[str, torch.Tensor] = {}
+    _filterbank(sd, p, C)
+
+    sep = p["separator"]
+    _pointwise(sd, "separator.bottleneck_conv1d", sep["bottleneck_conv1d"])
+    _norm(sd, "separator.norm2d", sep[f"{top_norm}_0"])
+    for i in range(int(config.get("sep_num_blocks", 6))):
+        block, ref = sep[f"block{i}"], f"separator.dptransformer.net.{i}"
+        _improved_transformer(sd, f"{ref}.intra_chunk_block.transformer",
+                              block["intra_chunk_block"], "GlobalLayerNorm", norm)
+        _improved_transformer(sd, f"{ref}.inter_chunk_block.transformer",
+                              block["inter_chunk_block"], top_norm, norm)
+    _prelu(sd, "separator.prelu", sep["prelu"])
+    _pointwise(sd, "separator.map", sep["map"])
+    _pointwise(sd, "separator.gtu.map", sep["gtu_tanh"])
+    _pointwise(sd, "separator.gtu.map_gate", sep["gtu_sigmoid"])
     return sd
 
 

@@ -2,9 +2,10 @@
 
 from .conv_tasnet import ConvTasNet, Separator
 from .dprnn_tasnet import DPRNNTasNet
+from .dptnet import DPTNet
 from .umx import OpenUnmix, ParallelOpenUnmix
 from .wrappers import SpectrogramMaskingWrapper
 from .xumx import CrossNetOpenUnmix
 
-__all__ = ["ConvTasNet", "CrossNetOpenUnmix", "DPRNNTasNet", "OpenUnmix", "ParallelOpenUnmix",
-           "Separator", "SpectrogramMaskingWrapper"]
+__all__ = ["ConvTasNet", "CrossNetOpenUnmix", "DPRNNTasNet", "DPTNet", "OpenUnmix",
+           "ParallelOpenUnmix", "Separator", "SpectrogramMaskingWrapper"]

@@ -94,6 +94,18 @@ class ExactStreamingSeparator:
                              f"kernel_size={L}")
         D, P = 0, 1  # Conv-TasNet: no latent delay, any number of frames a call
         if hasattr(model, "sep_chunk_size"):
+            if not hasattr(model, "rnn_type"):
+                # Attention-based dual-path separators (DPTNet): the reference's causal
+                # mode puts no causal mask on the inter-chunk attention, so every
+                # emitted frame depends on the whole stream (JAX
+                # tests/test_streaming_dptnet.py); a masked variant would need a
+                # key-value cache as long as the stream, not a carried state.
+                raise NotImplementedError(
+                    "exact streaming is not defined for attention-based dual-path "
+                    "separators: the reference-parity causal DPTNet attends over future "
+                    "chunks (no causal mask in the inter-chunk attention), and a masked "
+                    "variant would need an unbounded KV cache; use causal DPRNN-TasNet "
+                    "(stream_safe=True) for exact streaming")
             if not getattr(model, "stream_safe", False):
                 raise NotImplementedError(
                     "exact streaming of a dual-path model requires stream_safe=True: the "

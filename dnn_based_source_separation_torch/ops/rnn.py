@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .dropout import Dropout, dropout
 from .gru_scan import gru_scan, gru_scan_bidir, gru_steps
 from .lstm_scan import lstm_scan, lstm_scan_bidir, lstm_steps
 from .params import uniform_parameter
@@ -82,12 +83,7 @@ class _StackedRNN(nn.Module):
 
     def _dropout(self, x: torch.Tensor) -> torch.Tensor:
         """flax's nn.Dropout: where(mask, x / keep, 0), mask ~ Bernoulli(keep)."""
-        if self.generator is None:
-            raise ValueError(f"{type(self).__name__} with dropout {self.dropout} in train mode "
-                             "needs a dropout generator: call set_dropout_generator(model, g)")
-        keep = 1.0 - self.dropout
-        mask = torch.empty_like(x).bernoulli_(keep, generator=self.generator).bool()
-        return torch.where(mask, x / keep, torch.zeros_like(x))
+        return dropout(x, self.dropout, self.generator, type(self).__name__)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for layer in range(self.num_layers):
@@ -167,10 +163,10 @@ class GRU(_StackedRNN):
 
 
 def set_dropout_generator(module: nn.Module, generator: torch.Generator | None) -> None:
-    """Give every LSTM and GRU inside `module` the generator its dropout masks come from
-    (None: no generator; a train-mode forward with dropout > 0 then raises)."""
+    """Give every LSTM, GRU and `Dropout` inside `module` the generator its dropout masks
+    come from (None: no generator; a train-mode forward with dropout > 0 then raises)."""
     for m in module.modules():
-        if isinstance(m, _StackedRNN):
+        if isinstance(m, (_StackedRNN, Dropout)):
             m.generator = generator
 
 

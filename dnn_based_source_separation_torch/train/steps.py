@@ -1,6 +1,6 @@
 """Train and eval steps, and the optimizer factory.
 
-Port of `dnn_based_source_separation_tpu/train/steps.py:18-64, 93-210`. The
+Port of `dnn_based_source_separation_tpu/train/steps.py:18-210`. The
 JAX package compiles forward + PIT loss + backward + clip + update into
 one XLA program; here the step runs eagerly on the model's device, and the
 loss stays a device tensor so a training loop never waits on the card.
@@ -15,7 +15,9 @@ The optimizer keeps optax's update rules on `torch.optim`:
   (`torch.nn.utils.clip_grad_norm_` scales by `max_norm / (norm + 1e-6)`
   whenever that is below 1, which is another function);
 - the learning rate lives in the param groups, so the Trainer's halving
-  changes it in place, as `optax.inject_hyperparams` does.
+  changes it in place, as `optax.inject_hyperparams` does;
+- `make_warmup_optimizer`: Adam under the DPTNet recipe's warmup schedule
+  (`WarmupOptimizer`), which the halving leaves alone, as JAX's does.
 """
 from __future__ import annotations
 
@@ -95,11 +97,69 @@ def make_optimizer(name: str, lr: float = 1e-3, max_norm: Optional[float] = None
     return Optimizer(inner, max_norm)
 
 
+class WarmupOptimizer(Optimizer):
+    """An `Optimizer` whose learning rate is `schedule(i)` at update i, counting from 0.
+
+    optax evaluates a schedule at its own update count before incrementing
+    it (`scale_by_schedule`); the count goes into `state_dict`, so a resumed
+    run continues the schedule where it stopped, as optax's state does.
+    """
+
+    def __init__(self, inner: torch.optim.Optimizer, max_norm: Optional[float],
+                 schedule: Callable[[int], float]):
+        super().__init__(inner, max_norm)
+        self.schedule, self.count = schedule, 0
+
+    @torch.no_grad()
+    def step(self) -> None:
+        for group in self.param_groups:
+            group["lr"] = self.schedule(self.count)
+        super().step()
+        self.count += 1
+
+    def state_dict(self) -> dict:
+        return {**self.inner.state_dict(), "schedule_count": self.count}
+
+    def load_state_dict(self, state: dict) -> None:
+        state = dict(state)
+        self.count = int(state.pop("schedule_count"))
+        self.inner.load_state_dict(state)
+
+
+def make_warmup_optimizer(lr_peak_k1: float, lr_post_k2: float, d_model: int,
+                          warmup_steps: int, steps_per_epoch: int,
+                          max_norm: Optional[float] = None, *,
+                          params: Iterable[torch.Tensor]) -> WarmupOptimizer:
+    """Adam with the DPTNet recipe's learning-rate schedule (JAX `train/steps.py:67-90`).
+
+    Update i (from 0) uses `k1 * d_model^-0.5 * (i + 1) * warmup^-1.5` (a linear ramp)
+    while i <= warmup_steps, then `k2 * 0.98^floor((epoch + 1) / 2)` with epoch = i //
+    steps_per_epoch; the comparison is strict, as `jnp.where(step > warmup, ...)`.
+    Clipping by global norm comes first when `max_norm` is given (optax's chain order).
+    The Trainer's learning-rate halving leaves it alone (`set_learning_rate`).
+    """
+
+    def schedule(i: int) -> float:
+        if i > warmup_steps:
+            return lr_post_k2 * 0.98 ** ((i // steps_per_epoch + 1) // 2)
+        return lr_peak_k1 * d_model ** -0.5 * (i + 1) * warmup_steps ** -1.5
+
+    params = [p for p in params if p.requires_grad]
+    inner = torch.optim.Adam(params, lr=schedule(0), betas=(0.9, 0.999), eps=1e-8)
+    return WarmupOptimizer(inner, max_norm, schedule)
+
+
 def get_learning_rate(optimizer: Optimizer) -> float:
+    """The learning rate; NaN for a scheduled optimizer, as JAX's `get_learning_rate`."""
+    if isinstance(optimizer, WarmupOptimizer):
+        return float("nan")
     return float(optimizer.param_groups[0]["lr"])
 
 
 def set_learning_rate(optimizer: Optimizer, lr: float) -> Optimizer:
+    """Set the learning rate; a scheduled optimizer is left alone: its schedule owns it."""
+    if isinstance(optimizer, WarmupOptimizer):
+        return optimizer
     for group in optimizer.param_groups:
         group["lr"] = lr
     return optimizer

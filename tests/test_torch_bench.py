@@ -19,12 +19,14 @@ from torch.utils.flop_counter import FlopCounterMode
 from dnn_based_source_separation_torch import bench
 from dnn_based_source_separation_torch.cli import test_musdb18, test_wsj0mix, train_wsj0mix
 from dnn_based_source_separation_torch.entry import TINY, entry, flagship
-from dnn_based_source_separation_torch.models import DPRNNTasNet
+from dnn_based_source_separation_torch.models import DPRNNTasNet, DPTNet
 
 RECIPES = pathlib.Path(bench.__file__).resolve().parent / "egs" / "wsj0-mix"
 MUSDB_RECIPES = RECIPES.parent / "musdb18"
 DPRNN_TINY = dict(bench.DPRNN, n_basis=16, kernel_size=4, stride=2, sep_bottleneck_channels=8,
                   sep_hidden_channels=8, sep_chunk_size=10, sep_hop_size=5, sep_num_blocks=2)
+DPTNET_TINY = dict(bench.DPTNET, n_basis=16, kernel_size=4, stride=2, sep_bottleneck_channels=8,
+                   sep_hidden_channels=8, sep_chunk_size=10, sep_num_blocks=2, sep_num_heads=2)
 TINY_RUN = ["--device", "cpu"]
 
 
@@ -37,7 +39,8 @@ def _one_thread():
 def tiny_bench(monkeypatch):
     """The bench at tiny widths on 0.25 s mixtures."""
     monkeypatch.setattr(bench, "SECONDS", 0.25)
-    monkeypatch.setattr(bench, "CONFIGS", {"conv-tasnet": TINY, "dprnn-tasnet": DPRNN_TINY})
+    monkeypatch.setattr(bench, "CONFIGS", {"conv-tasnet": TINY, "dprnn-tasnet": DPRNN_TINY,
+                                           "dptnet": DPTNET_TINY})
 
 
 @pytest.fixture
@@ -97,6 +100,29 @@ def test_dprnn_tasnet_flops_match_the_flop_counter(rnn_type, causal, stream_safe
     assert flops == {"matmul": _counted(model, 203), "depthwise": 0}
 
 
+@pytest.mark.parametrize("T", [203, 250])
+@pytest.mark.parametrize("causal", [False, True])
+def test_dptnet_flops_match_the_flop_counter(T, causal):
+    model = DPTNet(**dict(DPTNET_TINY, causal=causal),
+                   generator=torch.Generator().manual_seed(0)).eval()
+    assert bench.forward_flops(model, T, batch=2) == {"matmul": _counted(model, T, batch=2),
+                                                     "depthwise": 0}
+
+
+def test_dptnet_recipe_flops_from_the_config():
+    # B=8 x 4 s: T' = 31999 frames, padded by 1 to 32000 = 639 chunks of K = 100 at hop 50,
+    # 63900 chunked positions. Multiply-adds a position of one improved transformer, by
+    # hand (E = 64, H = 256): projections 4 x 64^2, attention 2 x 64 x L (L = 100 intra,
+    # 639 inter), a bidirectional LSTM 2 x (1024 x 64 + 1024 x 256) and fc 512 x 64.
+    model = DPTNet(**bench.DPTNET, device="meta")
+    ffn = 2 * (1024 * 64 + 1024 * 256) + 512 * 64
+    per_position = 2 * (4 * 64 * 64 + ffn) + 2 * 64 * (100 + 639)
+    # encoder 2 x 64, bottleneck 64 x 64, map 64 x 128, GTU 2 x 2 x 64^2, decoder 2 x 64 x 2.
+    per_frame = 2 * 64 + 64 * 64 + 64 * 128 + 4 * 64 * 64 + 2 * 64 * 2
+    assert bench.forward_flops(model, 32000, batch=8) == {
+        "matmul": 2 * 8 * (31999 * per_frame + 6 * 63900 * per_position), "depthwise": 0}
+
+
 def test_offline_json_line(tiny_bench, capsys):
     result = bench.main(TINY_RUN)
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
@@ -110,6 +136,10 @@ def test_offline_json_line(tiny_bench, capsys):
     dprnn = bench.main(TINY_RUN + ["--model", "dprnn-tasnet", "--rnn_type", "gru",
                                    "--dtype", "float32"])
     assert dprnn["metric"] == "dprnn_tasnet_wsj0mix_inference_rtf" and dprnn["ms"] > 0
+    dptnet = bench.main(TINY_RUN + ["--model", "dptnet", "--causal", "--dtype", "float32"])
+    assert dptnet["metric"] == "dptnet_wsj0mix_inference_rtf" and dptnet["ms"] > 0
+    assert dptnet["flops"] == sum(bench.forward_flops(
+        DPTNet(**dict(DPTNET_TINY, causal=True), device="meta"), 2000, bench.BATCH).values())
 
 
 @pytest.mark.parametrize("model", ["conv-tasnet", "dprnn-tasnet"])
@@ -170,7 +200,7 @@ def _recipe_argv(path):
     return module, [a for a in shlex.split(body) if a != "$@"]
 
 
-@pytest.mark.parametrize("model", ["conv-tasnet", "dprnn-tasnet"])
+@pytest.mark.parametrize("model", ["conv-tasnet", "dprnn-tasnet", "dptnet"])
 def test_recipe_shells_parse_with_the_ports_parsers(model):
     module, argv = _recipe_argv(RECIPES / model / "train.sh")
     assert module == "dnn_based_source_separation_torch.cli.train_wsj0mix"
@@ -181,6 +211,11 @@ def test_recipe_shells_parse_with_the_ports_parsers(model):
                 args.sep_bottleneck_channels, args.sep_skip_channels, args.sep_kernel_size,
                 args.sep_num_blocks, args.sep_num_layers, args.batch_size) == \
             (512, 16, 512, 128, 128, 3, 3, 8, 4)
+    elif model == "dptnet":  # egs/wsj0-mix/dptnet/train.sh
+        assert (args.n_basis, args.kernel_size, args.sep_chunk_size, args.sep_num_blocks,
+                args.sep_num_heads, args.sep_bottleneck_channels, args.sep_hidden_channels,
+                args.mask_nonlinear, args.batch_size, args.warmup_steps, args.k1, args.k2) == \
+            (64, 2, 100, 6, 4, 64, 256, "relu", 2, 4000, 0.2, 4e-4)
     else:  # egs/wsj0-mix/dprnn-tasnet/train.sh:17-23
         assert (args.n_basis, args.kernel_size, args.sep_chunk_size, args.sep_hop_size,
                 args.sep_num_blocks, args.sep_bottleneck_channels, args.sep_hidden_channels,

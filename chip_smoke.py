@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only 6s       # phases 1 and 2, then streaming ms per hop
     python3 chip_smoke.py --only 11       # phases 1 and 2, then musdb18 serving
     python3 chip_smoke.py --only 3h       # phases 1 and 2, then the cluster routes
+    python3 chip_smoke.py --only 3i       # phases 1 and 2, then the wide route (H = 256)
     python3 chip_smoke.py --only 3d,3h,12 # the cluster backward, then musdb18 training
     python3 chip_smoke.py --only 12       # phases 1 and 2, then musdb18 training
     python3 chip_smoke.py --only 13       # phases 1 and 2, then DPTNet (13k: its kernels)
@@ -82,7 +83,17 @@ Phases (any failure exits non-zero; nothing is caught and passed):
      musdb18 training's shape both cluster sizes and its serial floor timed
      from CUDA graphs; then against the FMA backward over B = 1-512 (H = 256 on
      two chains, 512 on one, T = 259), the crossover CLUSTER_MAX_BATCH_BWD
-     encodes;
+     encodes. The plan must take "cluster" at UMX's serving shapes (B = 1) and, at
+     musdb18 training's, the route WIDE_MIN_BATCH gives B = 16;
+  3i. the wide route of lstm_scan_bidir and lstm_scan (csrc/recurrence_wide.cuh, H = 256)
+     against the plain versions, f32 (3xTF32) and bf16 (mma.sync): every tile (M, C)
+     of each dtype the card holds at B = 37 (rows past B), one and two chains, hs alone
+     and with cs, each launch repeated and checked; T = 1 through the public wrappers.
+     At DPTNet's serving and training shapes and musdb18 training's it is timed from
+     CUDA graphs, the FMA kernel forced in the same run (FMA, wide, wide, FMA), beside
+     the cluster route forced, the plain version, cuDNN's nn.LSTM (F = 64)
+     and the bound; then against the cluster route over B = 1-512, T = 259 and 639,
+     one and two chains, both dtypes (the crossover WIDE_MIN_BATCH encodes);
   4. serve: paper-config Conv-TasNet (random weights from seed 0) through
      cli/separate.py on three mixtures in float32 and bfloat16, counting the
      kernel's launches;
@@ -139,12 +150,13 @@ Phases (any failure exits non-zero; nothing is caught and passed):
      SpectrogramMaskingWrapper, through cli/test_musdb18.py --device cuda on a
      synthetic musdb-layout corpus of two 20 s stereo tracks (two 10 s chunks
      each, S = 431 frames): exactly 12 lstm_scan_bidir launches a chunk per
-     model, all on the cluster kernel (B = 1, H = 256), and no other kernel; the same CLI
+     model, all on the route _plan gives B = 1 at H = 256 ("cluster"), and no other
+     kernel; the same CLI
      with --device cpu (both models side by side in threads): the card's stems
      within 1e-3 x max|CPU|, every median SDR / ISR / SIR / SAR within 0.05 dB;
      the Wiener EM alone card vs CPU within 1e-3 relative, with its time and
      peak memory; per-chunk forward, Wiener and iSTFT ms, audio-s/s; causal
-     UMX (12 lstm_scan launches, H = 512, all on the cluster kernel) over one
+     UMX (12 lstm_scan launches, H = 512, all on "cluster") over one
      chunk card vs CPU; the bench's `--model umx` and `--model xumx` lines;
   12. musdb18 training at the recipe widths (the train CLI's defaults: n_fft 4096,
      hop 1024, max_bin 1487, hidden 512, 3 layers, four stems, Adam at 1e-3): one UMX
@@ -152,18 +164,19 @@ Phases (any failure exits non-zero; nothing is caught and passed):
      cli/train_musdb18.py --device cuda for each model on a synthetic musdb-layout
      corpus, two epochs of 10 steps at B = 16 x 6 s with dropout 0.4 (the epoch's
      train loss must fall), its last.ckpt served through cli/test_musdb18.py; every
-     step exactly 12 lstm_scan_bidir on "cluster" and 12 backwards on "cluster", every
-     validation and serving forward 12 on "cluster", and nothing else; then the recipe
+     step exactly 12 lstm_scan_bidir and 12 backwards, every validation and serving
+     forward 12 lstm_scan_bidir, each on the route _plan (_plan_bwd) gives its batch
+     (B = 16: the backward on "cluster"; B = 1: "cluster"), and nothing else; then the recipe
      step timed (p50 of forward / backward / optimizer by CUDA events, audio-s/s, peak
      allocation) and profiled (device time by kernel, idle share);
   13. DPTNet on wsj0-2mix at the recipe widths (N64 L2 K100, 6 blocks, 4 heads, bottleneck
      64, H = 256, relu masks; seed-0 weights): served through cli/separate.py in f32 and
      bf16, non-causal and causal, on the three mixtures, each request launching exactly its
      LSTM kernels on the routes _plan gives its shapes (B = 1: the intra-chunk biLSTM over S
-     chunks, "cluster" up to 256, else "fma"; the inter-chunk LSTM over 100 sequences on
-     "cluster"), 12 lstm_scan_bidir (non-causal) or 6 and 6 lstm_scan (causal), and one
+     chunks and the inter-chunk LSTM over 100 sequences, "cluster" below WIDE_MIN_BATCH,
+     else "wide"), 12 lstm_scan_bidir (non-causal) or 6 and 6 lstm_scan (causal), and one
      fused_mask_decode; card vs CPU and bf16 vs f32 as phase 5; the B = 8 x 4 s forward in
-     both dtypes (ms, every launch on its route: "fma" at 5112 and 800 sequences), one
+     both dtypes (ms, every launch on its route: "wide" at 5112 and 800 sequences), one
      profiled forward split into the recurrence kernels, the attention (CUDA events around
      each MultiheadAttention call) and the rest, with the idle share; one train step (2
      blocks, B = 1 x 1 s) card vs an f64 CPU step, as phase 7; cli/train_wsj0mix.py --model
@@ -188,11 +201,12 @@ every decode of phases 4-4g, 6, 8 and 10 on its planned fused_mask_decode
 path ("mma" in bf16, "generic" for f32 Conv-TasNet, "rows" for f32
 DPRNN-TasNet). Phase 11's card runs (UMX at B = 1, H = 256 and 512) must
 launch only the cluster kernel, and join the main path's total, which must
-have launched every path but "fma" (and the one-chain cluster backward, which
-no main path trains), and no FMA kernel: musdb18 training's backward
-(lstm_scan_bidir_bwd at H = 256, phase 12) runs on the cluster backward.
-Phase 13's DPTNet runs are held launch by launch to their routes, FMA
-included, and join the total after that check. The last line
+have launched no FMA kernel: musdb18 training's backward (lstm_scan_bidir_bwd
+at H = 256, phase 12) runs on the cluster backward. Phase 13's DPTNet runs are
+held launch by launch to their routes (the FMA backward at its 1278 intra-chunk
+training sequences included) and then join the total, which must have launched
+every path but the FMA ones (and the one-chain cluster backward, which no main
+path trains), and no FMA forward. The last line
 is {"ok": true, "device":
 {...}}; the line before it lists the kernels with their launch counts,
 errors, times, bounds and library times: fused_mask_decode six times
@@ -210,13 +224,15 @@ forwards and every backward also with the FMA kernel's bound as
 more at UMX's shapes (B = 1, T = 431; H = 256 and 512), on the cluster kernel,
 with phase 11's launches, phase 3h's times, the FMA kernel's (`fma_ms`), the
 other cluster size's (`c8_ms` or `c16_ms`) and the serial floor's (`floor_ms`);
-lstm_scan_bidir at musdb18 training's shape on the cluster kernel with cs, and its
-backward there on the cluster backward (the whole backward as `ms`, the kernel alone
+lstm_scan_bidir at musdb18 training's shape with cs on its planned route (the cluster
+kernel, or the wide one with phase 3i's times), and its backward there on the cluster
+backward (the whole backward as `ms`, the kernel alone
 as `kernel_ms`, the FMA backward's as `fma_ms` and `fma_kernel_ms`, both cluster
 sizes' kernels alone as `c8_ms` and `c16_ms`, the serial floor as `floor_ms`, cuDNN's
 backward as `library_ms`), with phase 12's launches; and DPTNet's LSTM forwards and
-backwards at each phase-13 shape, on its route, with phase 13's launches of that kernel on
-that route. The bf16 fused_mask_decode rows'
+backwards at each phase-13 shape, on its route (the forwards on "wide", with their tile
+as `tile` and the FMA kernel's time as `fma_ms`; f32 bounded at three TF32 products at the
+tensor cores' TF32 peak), with phase 13's launches of that kernel on that route. The bf16 fused_mask_decode rows'
 `library_ms` is torch.einsum on bf16 operands, whose output is bf16 (the kernel's is f32).
 """
 from __future__ import annotations
@@ -561,10 +577,12 @@ def forward_path(module, kname, call, want):
 def plan(module, B, n_chains, H, dtype, path=None):
     """module._plan as the wrapper calls it on this card, over its routes -> (path, tile)."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    clusters = None
+    clusters = wide = None
     if ls._needs_clusters(H, dtype, path, routes=module.ROUTES):
         clusters = (ls._forward_clusters if module is ls else gs._tf32_clusters)(H, "cuda")
-    return module._plan(B, n_chains, H, dtype, sms, path, clusters, module.ROUTES)
+    if ls._needs_wide(H, dtype, path, module.ROUTES):
+        wide = ls._wide_counts(H, dtype, "cuda")
+    return module._plan(B, n_chains, H, dtype, sms, path, clusters, module.ROUTES, wide)
 
 
 def phase_scan(title, module, make_inputs, runs):
@@ -1079,9 +1097,14 @@ def lstm_chains(B, T, H, chains, dtype, seed):
 def forward_error(inputs, hs, cs, dtype):
     """max|kernel - plain| of hs (and of cs, each over max(1, max|plain cs|)) -> (error,
     its limit)."""
+    return forward_error_of([ls.lstm_forward_reference(xw, w) for xw, w in inputs], hs, cs,
+                            dtype)
+
+
+def forward_error_of(refs, hs, cs, dtype):
+    """forward_error against the plain versions' (hs, cs) of each chain, `refs`."""
     err, scale = 0.0, 1.0
-    for (xw, w), h, c in zip(inputs, hs, cs or [None] * len(hs)):
-        hs_ref, cs_ref = ls.lstm_forward_reference(xw, w)
+    for (hs_ref, cs_ref), h, c in zip(refs, hs, cs or [None] * len(hs)):
         err = max(err, float((h.float() - hs_ref.float()).abs().max()))
         if c is not None:
             scale = max(scale, float(cs_ref.float().abs().max()))
@@ -1121,8 +1144,10 @@ def phase_cluster(card=None):
             inputs = lstm_chains(B, T, H, chains, dtype, seed=B + T + H)
             path, tile = plan(ls, B, chains, H, dtype)
             what = f"{name} {label} (B={B}, T={T}, H={H}) {str(dtype)[6:]}"
-            if label in TIMED_CLUSTER_CASES:
-                check(path == "cluster", f"{what} planned {path}, expected cluster")
+            if label in TIMED_CLUSTER_CASES:  # the plan's rule: "wide" from WIDE_MIN_BATCH up
+                want = ("wide" if H == ls.WIDE_HIDDEN and
+                        B >= ls.WIDE_MIN_BATCH[(dtype, chains)] else "cluster")
+                check(path == want, f"{what} planned {path}, expected {want}")
             if path == "cluster":  # through the public wrapper, as the models call it
                 call = ((lambda: ls.lstm_scan_bidir(inputs[0][0], inputs[1][0], inputs[0][1],
                                                     inputs[1][1])) if chains == 2 else
@@ -1153,7 +1178,8 @@ def phase_cluster(card=None):
             if label not in TIMED_CLUSTER_CASES or (label == "UMX train" and
                                                     dtype != torch.float32):
                 continue
-            C, with_cs = tile[1], TIMED_CLUSTER_CASES[label]
+            # The cluster route's own tile, forced where the plan takes "wide".
+            C, with_cs = plan(ls, B, chains, H, dtype, "cluster")[1][1], TIMED_CLUSTER_CASES[label]
             fma_hs, fma_cs, fma = ls._staged_forward(inputs, with_cs, "fma")
             on_path(ls.PATH_LAUNCHES[name], name, fma, "fma")
             fma_err, _ = forward_error(inputs, fma_hs, fma_cs if with_cs else None, dtype)
@@ -1302,6 +1328,170 @@ def phase_cluster_bwd(card):
                 f"FMA {row['fma_ms']:.4f} ms; the plan takes {natural}")
     result["bwd_crossover"] = crossover
     return result
+
+
+# Phase 3i: the wide route of the LSTM forwards (csrc/recurrence_wide.cuh) at H = 256.
+# Every tile (M, C) of each dtype at B = 37 (no multiple of any M: rows past B in the last
+# tile), one and two chains, hs alone and with cs; a T = 1 case on the
+# plan's tile. Timed: DPTNet's forwards (serving's B = 8 x 4 s and recipe training's
+# B = 2 x 4 s, with cs) and musdb18 training's, (label, (B, T, chains), with cs); then
+# the crossover over B against the cluster route that WIDE_MIN_BATCH encodes.
+WIDE_CHECK = (37, 57)
+WIDE_T1 = (20, 1)
+WIDE_TIMED = [
+    ("DPTNet serve intra", (5112, 100, 2), False),
+    ("DPTNet serve inter", (800, 639, 2), False),
+    ("DPTNet serve causal inter", (800, 639, 1), False),
+    ("DPTNet train intra", (1278, 100, 2), True),
+    ("DPTNet train inter", (200, 639, 2), True),
+    ("UMX train", (UMX_TRAIN_SHAPE[0], UMX_TRAIN_SHAPE[1], 2), True),
+]
+WIDE_CROSSOVER_BATCHES = (1, 4, 16, 64, 128, 200, 256, 512)
+WIDE_CROSSOVER_STEPS = (259, 639)
+
+
+def wide_checked(what, launch, hs, cs, refs, dtype, repeats):
+    """Launch a wide kernel 1 + `repeats` times, each output held to the plain version's
+    `refs` -> max|kernel - plain| of the first launch."""
+    launch()
+    err, limit = forward_error_of(refs, hs, cs, dtype)
+    worst = err
+    for _ in range(repeats):  # a race shows only in some launches
+        launch()
+        worst = max(worst, forward_error_of(refs, hs, cs, dtype)[0])
+    log(f"  {what}: max|kernel-plain| = {err:.3e}, worst of {1 + repeats} launches "
+        f"{worst:.3e} (limit {limit:.3g}) {'ok' if worst <= limit else 'FAIL'}")
+    check(worst <= limit, f"{what} disagrees with plain: {worst} > {limit}")
+    return err
+
+
+def phase_wide(card=None):
+    """The wide route against the plain version: every tile each dtype admits and the
+    card holds, one and two chains, hs alone and with cs, on the path (counted), every
+    launch repeated and checked; T = 1 through the public wrapper where the plan takes
+    it. At WIDE_TIMED's shapes the path's kernel alone from CUDA graphs in turns with the
+    FMA kernel forced (FMA, wide, wide, FMA), beside the cluster route forced, the plain version, cuDNN's nn.LSTM (F = 64,
+    DPTNet's input width) and the bound; then the crossover over B against the cluster
+    route. -> {(name, dtype, label): timing, "crossover": rows}."""
+    log("== phase 3i: the wide route of lstm_scan_bidir and lstm_scan vs plain on the card")
+    card = card or card_line()
+    H = ls.WIDE_HIDDEN
+    result = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        counts = ls._wide_counts(H, dtype, "cuda")
+        log(f"  clusters of the wide kernel the card holds at once, {str(dtype)[6:]}, by tile "
+            f"(M, C): {counts}")
+        tiles = [t for t in ls._wide_tiles(H, dtype) if counts[t] >= 1]
+        check(tiles, f"the card holds no cluster of the wide kernel in {dtype}: {counts}")
+        for chains in (1, 2):
+            name = "lstm_scan_bidir" if chains == 2 else "lstm_scan"
+            B, T = WIDE_CHECK
+            inputs = lstm_chains(B, T, H, chains, dtype, seed=B + T + chains)
+            refs = [ls.lstm_forward_reference(xw, w) for xw, w in inputs]
+            for tile in tiles:
+                for with_cs in (False, True):
+                    what = (f"{name} (B={B}, T={T}, H={H}) {str(dtype)[6:]} wide (M={tile[0]}, "
+                            f"C={tile[1]}{', with cs' if with_cs else ''})")
+                    hs, cs, launch = ls._staged_forward(inputs, with_cs, "wide", tile=tile)
+                    on_path(ls.PATH_LAUNCHES[name], name, launch, "wide")
+                    wide_checked(what, launch, hs, cs if with_cs else None, refs, dtype,
+                                 REPEATS)
+            B, T = WIDE_T1
+            inputs = lstm_chains(B, T, H, chains, dtype, seed=B + T + chains)
+            path, tile = plan(ls, B, chains, H, dtype)
+            want = "wide" if B >= ls.WIDE_MIN_BATCH[(dtype, chains)] else "cluster"
+            check(path == want, f"{name} at B={B} planned {path}, expected {want}")
+            call = ((lambda: ls.lstm_scan_bidir(inputs[0][0], inputs[1][0], inputs[0][1],
+                                                inputs[1][1])) if chains == 2 else
+                    (lambda: (ls.lstm_scan(*inputs[0]),)))
+            got = forward_path(ls, name, call, path)
+            err, limit = forward_error(inputs, got, None, dtype)
+            log(f"  {name} (B={B}, T={T}) {str(dtype)[6:]} through the wrapper on {path} "
+                f"({tile_label(tile)}): max|kernel-plain| = {err:.3e} (limit {limit:.3g})")
+            check(err <= limit, f"{name} T=1 disagrees with plain: {err} > {limit}")
+    for label, (B, T, chains), with_cs in WIDE_TIMED:
+        name = "lstm_scan_bidir" if chains == 2 else "lstm_scan"
+        for dtype in (torch.float32,) if with_cs else (torch.float32, torch.bfloat16):
+            result[(name, dtype, label)] = wide_timing(label, name, B, T, chains, dtype, with_cs,
+                                                       card)
+    result["crossover"] = wide_crossover(card)
+    return result
+
+
+def wide_timing(label, name, B, T, chains, dtype, with_cs, card):
+    """One WIDE_TIMED case: the wide kernel on its forced plan tile checked once, then
+    timed alone from CUDA graphs -> timing."""
+    H = ls.WIDE_HIDDEN
+    inputs = lstm_chains(B, T, H, chains, dtype, seed=B + T)
+    tile = plan(ls, B, chains, H, dtype, "wide")[1]
+    what = f"{name} {label} (B={B}, T={T}, H={H}) {str(dtype)[6:]}"
+    hs, cs, wide = ls._staged_forward(inputs, with_cs, "wide", tile=tile)
+    on_path(ls.PATH_LAUNCHES[name], name, wide, "wide")
+    err, limit = forward_error(inputs, hs, cs if with_cs else None, dtype)
+    log(f"  {what} wide ({tile_label(tile)}{', with cs' if with_cs else ''}): "
+        f"max|kernel-plain| {err:.3e} (limit {limit:.3g})")
+    check(err <= limit, f"{what} disagrees with plain: {err} > {limit}")
+    fma = ls._staged_forward(inputs, with_cs, "fma")[2]
+    turns = (graph_ms(fma, 1), graph_ms(wide, 1), graph_ms(wide, 1), graph_ms(fma, 1))
+    timing = dict(path="wide", tile=list(tile), max_abs_err=err, ms=(turns[1] + turns[2]) / 2,
+                  fma_ms=(turns[0] + turns[3]) / 2)
+    cluster_tile = plan(ls, B, chains, H, dtype, "cluster")[1]
+    timing["cluster_ms"] = graph_ms(ls._staged_forward(inputs, with_cs, "cluster")[2],
+                                    CLUSTER_REPEATS if B * chains <= 64 else 1)
+    plain = ls.lstm_forward_reference if with_cs else ls.lstm_scan_reference
+    timing["plain_ms"] = median_ms(lambda: [plain(xw, w) for xw, w in inputs], warmup=1,
+                                   iters=3)
+    timing["library_ms"] = library_lstm_ms(B, T, H, chains, dtype, features=DPT_E, iters=10)
+    timing.update(recurrence_bound(B, T, H, 4, chains, cell_state=with_cs, dtype=dtype,
+                                   tf32=3 if dtype == torch.float32 else 0))
+    log(f"    wide {turns[1]:.4f} / {turns[2]:.4f} ms between FMA {turns[0]:.4f} / "
+        f"{turns[3]:.4f} ms; cluster ({tile_label(cluster_tile)}) "
+        f"{timing['cluster_ms']:.4f} ms; plain {timing['plain_ms']:.4f} ms; cuDNN nn.LSTM "
+        f"{timing['library_ms']:.4f} ms (F={DPT_E}, median of 10); bound "
+        f"{timing['bound_ms']:.4f} ms ({timing['bound_by']}) ({timing['ms'] / T * 1e3:.3f} us "
+        f"a step; kernels from CUDA graphs, CUDA events) [{card}]")
+    return timing
+
+
+def wide_crossover(card):
+    """The wide route (its forced plan tile) against the cluster route (its forced plan
+    cluster size) over WIDE_CROSSOVER_BATCHES, T in WIDE_CROSSOVER_STEPS, one and two chains,
+    both dtypes, the kernels alone from CUDA graphs, each wide output held to the plain
+    version -> rows; the least B from which wide wins at every larger B of the sweep, per
+    (dtype, chains), is what WIDE_MIN_BATCH encodes."""
+    log(f"  the wide route against the cluster route over B (kernels from CUDA graphs, "
+        f"medians of 5) [{card}]:")
+    H = ls.WIDE_HIDDEN
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for chains in (1, 2):
+            name = "lstm_scan_bidir" if chains == 2 else "lstm_scan"
+            wins = {}
+            for T in WIDE_CROSSOVER_STEPS:
+                for B in WIDE_CROSSOVER_BATCHES:
+                    inputs = lstm_chains(B, T, H, chains, dtype, seed=B + T + H)
+                    natural = plan(ls, B, chains, H, dtype)[0]
+                    tile = plan(ls, B, chains, H, dtype, "wide")[1]
+                    cluster = plan(ls, B, chains, H, dtype, "cluster")[1]
+                    hs, _, wide = ls._staged_forward(inputs, False, "wide", tile=tile)
+                    cl = ls._staged_forward(inputs, False, "cluster")[2]
+                    row = dict(name=name, dtype=str(dtype)[6:], B=B, T=T, plan=natural,
+                               tile=list(tile), cluster=cluster[1],
+                               wide_ms=graph_ms(wide, 1, iters=5),
+                               cluster_ms=graph_ms(cl, 2, iters=5))
+                    err, limit = forward_error(inputs, hs, None, dtype)
+                    check(err <= limit, f"{name} wide at B={B}, T={T} disagrees with plain: {err}")
+                    rows.append(row)
+                    wins[(T, B)] = row["wide_ms"] < row["cluster_ms"]
+                    log(f"    {name} {str(dtype)[6:]} T={T} B={B}: wide ({tile_label(tile)}) "
+                        f"{row['wide_ms']:.4f} ms, cluster (C={cluster[1]}) "
+                        f"{row['cluster_ms']:.4f} ms; the plan takes {natural}")
+            least = min((B for B in WIDE_CROSSOVER_BATCHES
+                         if all(wins[(T, b)] for T in WIDE_CROSSOVER_STEPS
+                                for b in WIDE_CROSSOVER_BATCHES if b >= B)), default=None)
+            log(f"    {name} {str(dtype)[6:]}: wide wins from B = {least} of the sweep on; "
+                f"WIDE_MIN_BATCH = {ls.WIDE_MIN_BATCH[(dtype, chains)]}")
+    return rows
 
 
 def counts() -> dict:
@@ -1984,7 +2174,7 @@ def timed_train_steps(cls, cfg, B, compute_dtype, card, what, warmup=3, iters=10
 
 BACKWARD_KERNELS = ("lstm_bwd_kernel", "gru_bwd_kernel", "bwd_tf32_kernel", "bwd_cluster_kernel")
 FORWARD_KERNELS = ("lstm_kernel", "gru_kernel", "scan_mma_kernel", "scan_tf32_kernel",
-                   "scan_cluster_kernel")
+                   "scan_cluster_kernel", "scan_wide_kernel")
 
 
 def evented_step(loss_of, optimizer):
@@ -2304,12 +2494,15 @@ def serve_musdb(kind, root, ckpt, chunks):
     want = expected(lstm_scan_bidir=UMX_BIDIR_LAYERS * chunks)
     check(kernels_of(launches) == want, f"{kind}: the CLI launched {nonzero(launches)}, "
                                         f"expected {nonzero(want)}")
+    B, _, H, chains = UMX_SCAN_SHAPES["lstm_scan_bidir"]
+    route = plan(ls, B, chains, H, torch.float32)[0]
+    n = UMX_BIDIR_LAYERS * chunks
     paths = {p: launches[f"lstm_scan_bidir/{p}"] for p in ls.PATH_LAUNCHES["lstm_scan_bidir"]}
-    check(paths == {"mma": 0, "tf32x3": 0, "cluster": UMX_BIDIR_LAYERS * chunks, "fma": 0},
-          f"{kind}: lstm_scan_bidir launched {paths} by path, expected all "
-          f"{UMX_BIDIR_LAYERS * chunks} on cluster (B = 1, H = 256)")
+    check(paths == {p: n * (p == route) for p in paths},
+          f"{kind}: lstm_scan_bidir launched {paths} by path, expected all {n} on {route} "
+          f"(B = {B}, H = {H})")
     log(f"  {chunks} chunks: kernel launches {nonzero(launches)} "
-        f"({UMX_BIDIR_LAYERS} lstm_scan_bidir on cluster a chunk)")
+        f"({UMX_BIDIR_LAYERS} lstm_scan_bidir on {route} a chunk)")
     return dict(table=table, stats=stats, stems=stems, launches=launches)
 
 
@@ -2383,10 +2576,13 @@ def causal_umx(root, card):
         ref = cpu(x)
         ms = median_ms(lambda: model(x.cuda()), warmup=1, iters=5)
     want = expected(lstm_scan=UMX_BIDIR_LAYERS)
+    B, _, H, chains = UMX_SCAN_SHAPES["lstm_scan"]
+    route = plan(ls, B, chains, H, torch.float32)[0]
     paths = {p: launches[f"lstm_scan/{p}"] for p in ls.PATH_LAUNCHES["lstm_scan"]}
-    check(kernels_of(launches) == want and paths == {"mma": 0, "tf32x3": 0,
-                                                     "cluster": UMX_BIDIR_LAYERS, "fma": 0},
-          f"causal UMX launched {nonzero(launches)}, expected {nonzero(want)} on cluster")
+    check(kernels_of(launches) == want and
+          paths == {p: UMX_BIDIR_LAYERS * (p == route) for p in paths},
+          f"causal UMX launched {nonzero(launches)} ({paths} by path), expected "
+          f"{nonzero(want)} on {route}")
     err, scale = float((got.cpu() - ref).abs().max()), float(ref.abs().max())
     log(f"  {tuple(got.shape)}: launches {nonzero(launches)}; card vs CPU max abs err "
         f"{err:.3e}, max|ref| {scale:.3e}, limit {1e-3 * scale:.3e}; forward {ms:.3f} ms "
@@ -2474,21 +2670,24 @@ def musdb_batch(B, device, seed=12):
             torch.from_numpy(sources).to(device))
 
 
-def check_musdb_launches(launches, what, forwards, backwards):
-    """`forwards` model forwards (each UMX_STEP_LAUNCHES lstm_scan_bidir on "cluster") and
-    `backwards` model backwards (each UMX_STEP_LAUNCHES backwards on "cluster"), and no
-    other kernel or route."""
+def check_musdb_launches(launches, what, forwards, backwards, batch):
+    """`forwards` model forwards and `backwards` model backwards of `batch` sequences
+    (each UMX_STEP_LAUNCHES lstm_scan_bidir, or backwards, at H = 256 on the route _plan,
+    or _plan_bwd, gives that batch: "cluster" at B = 1), and no other kernel or route."""
     n_fwd, n_bwd = UMX_STEP_LAUNCHES * forwards, UMX_STEP_LAUNCHES * backwards
     want = expected(lstm_scan_bidir=n_fwd, lstm_scan_bidir_bwd=n_bwd)
     check(kernels_of(launches) == want, f"{what}: launched {nonzero(launches)}, expected "
                                         f"{nonzero(want)}")
+    H = UMX_TRAIN_SHAPE[2]
+    route = plan(ls, batch, 2, H, torch.float32)[0]
+    bwd_route = plan_bwd(ls, batch, 2, H, torch.float32)[0]
     fwd = {p: launches[f"lstm_scan_bidir/{p}"] for p in ls.PATH_LAUNCHES["lstm_scan_bidir"]}
     bwd = {p: launches[f"lstm_scan_bidir_bwd/{p}"]
            for p in ls.BWD_PATH_LAUNCHES["lstm_scan_bidir_bwd"]}
-    check(fwd == {p: n_fwd * (p == "cluster") for p in fwd} and
-          bwd == {p: n_bwd * (p == "cluster") for p in bwd},
-          f"{what}: lstm_scan_bidir took {fwd}, its backward {bwd}; expected {n_fwd} and "
-          f"{n_bwd} on cluster")
+    check(fwd == {p: n_fwd * (p == route) for p in fwd} and
+          bwd == {p: n_bwd * (p == bwd_route) for p in bwd},
+          f"{what}: lstm_scan_bidir took {fwd}, its backward {bwd}; expected {n_fwd} on "
+          f"{route} and {n_bwd} on {bwd_route} (B = {batch})")
 
 
 def musdb_grads_of_step(model, criterion, batch):
@@ -2514,7 +2713,7 @@ def musdb_train_parity():
                                    musdb_batch(MUSDB_PARITY_BATCH, "cuda"))
         torch.cuda.synchronize()
         launched = all_counts()
-        check_musdb_launches(launched, f"{kind}: a train step", 1, 1)
+        check_musdb_launches(launched, f"{kind}: a train step", 1, 1, MUSDB_PARITY_BATCH)
         check_step_against_f64(f"{kind.upper()} (B={MUSDB_PARITY_BATCH} x 6 s)", ref, cpu, card,
                                kernels_of(launched), null_floor=MUSDB_NULL_GRAD)
 
@@ -2554,9 +2753,10 @@ def musdb_train_through_cli(root, kind, tmp, card):
     stepped = {k: v - validated[k] for k, v in trained.items()}
     steps = 2 * len(trainer.train_loader)
     check(steps == 2 * MUSDB_TRAIN_STEPS, f"{kind}: {steps} steps")
-    check_musdb_launches(stepped, f"{kind}: the train CLI's steps", steps, steps)
+    check_musdb_launches(stepped, f"{kind}: the train CLI's steps", steps, steps,
+                         MUSDB_TRAIN_BATCH)
     check_musdb_launches(validated, f"{kind}: the train CLI's validation",
-                         2 * len(trainer.valid_loader), 0)
+                         2 * len(trainer.valid_loader), 0, 1)
     losses = trainer.train_loss + trainer.valid_loss
     stats = trainer.last_epoch_stats
     log(f"  {kind.upper()} through the CLI: {steps} steps of B={MUSDB_TRAIN_BATCH} x 6 s in "
@@ -2573,7 +2773,7 @@ def musdb_train_through_cli(root, kind, tmp, card):
                               "--sample_rate", str(MUSDB_SAMPLE_RATE), "--duration",
                               str(MUSDB_CHUNK_SECONDS), "--max_duration", str(MUSDB_CHUNK_SECONDS)])
     served = all_counts()
-    check_musdb_launches(served, f"{kind}: serving the trained checkpoint", 1, 0)
+    check_musdb_launches(served, f"{kind}: serving the trained checkpoint", 1, 0, 1)
     log(f"  the trained {kind.upper()} last.ckpt served through cli/test_musdb18.py (one 10 s "
         f"chunk): launches {nonzero(served)}; median SDR "
         + ", ".join(f"{s} {row['SDR']:.3f}" for s, row in table.items()) + " dB")
@@ -2605,7 +2805,8 @@ def musdb_step_profile(kind, card, warmup=2, iters=10):
         walls.append(time.perf_counter() - start)
         splits.append([events[i].elapsed_time(events[i + 1]) for i in range(3)])
     peak = torch.cuda.max_memory_allocated()
-    check_musdb_launches(grown(before), f"{kind}: the timed steps", iters, iters)
+    check_musdb_launches(grown(before), f"{kind}: the timed steps", iters, iters,
+                         MUSDB_TRAIN_BATCH)
     fwd, bwd, opt = (float(np.median([s[i] for s in splits])) for i in range(3))
     p50 = float(np.median(walls)) * 1e3
     result = dict(p50_ms=p50, forward_ms=fwd, backward_ms=bwd, optimizer_ms=opt,
@@ -2619,7 +2820,8 @@ def musdb_step_profile(kind, card, warmup=2, iters=10):
     result.update(profile_train_step(
         lambda: criterion(model(mixture), sources), optimizer,
         f"{kind.upper()} B={MUSDB_TRAIN_BATCH} x 6 s", card,
-        lambda grew: check_musdb_launches(grew, f"{kind}: the profiled backward", 0, 1)))
+        lambda grew: check_musdb_launches(grew, f"{kind}: the profiled backward", 0, 1,
+                                          MUSDB_TRAIN_BATCH)))
     return result
 
 
@@ -2858,6 +3060,10 @@ def dptnet_kernel_timing(label, B, T, chains, dtype, training):
     check(worst <= limit, f"{what} disagrees with plain: {worst} > {limit}")
     repeats = CLUSTER_REPEATS if path == "cluster" else 1
     timing = dict(path=path, max_abs_err=err)
+    if path == "cluster":
+        timing["cluster"] = tile[1]
+    elif path == "wide":
+        timing["tile"] = list(tile)
     if path == "fma":
         timing["ms"] = graph_ms(launch, repeats)
     else:
@@ -2874,7 +3080,9 @@ def dptnet_kernel_timing(label, B, T, chains, dtype, training):
                                    iters=3)
     timing["library_ms"] = library_lstm_ms(B, T, DPT_H, chains, dtype, features=DPT_E,
                                            iters=10)
-    timing.update(recurrence_bound(B, T, DPT_H, 4, chains, cell_state=training, dtype=dtype))
+    # The wide route's f32 product is three TF32 products at the tensor cores' TF32 peak.
+    timing.update(recurrence_bound(B, T, DPT_H, 4, chains, cell_state=training, dtype=dtype,
+                                   tf32=3 if path == "wide" and dtype == torch.float32 else 0))
     log(f"    {path} {timing['ms']:.4f} ms" + (f" (FMA forced {timing['fma_ms']:.4f} ms)"
                                                 if "fma_ms" in timing else "")
         + f", plain {timing['plain_ms']:.4f} ms, cuDNN nn.LSTM {timing['library_ms']:.4f} ms "
@@ -3186,7 +3394,7 @@ def phase_build():
 
 ONLY_PHASES = {"3": phase_kernel, "3b": phase_lstm, "3c": phase_gru, "3d": phase_lstm_bwd,
                "3e": phase_gru_bwd, "3f": phase_quantize, "3g": phase_library,
-               "3h": phase_cluster,
+               "3h": phase_cluster, "3i": phase_wide,
                "6s": phase_stream_hops, "11": phase_musdb, "12": phase_musdb_train,
                "13": phase_dptnet, "13k": phase_dptnet_kernels}
 
@@ -3194,7 +3402,7 @@ ONLY_PHASES = {"3": phase_kernel, "3b": phase_lstm, "3c": phase_gru, "3d": phase
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser("chip_smoke")
     parser.add_argument("--only", type=str, default=None,
-                        help="comma-separated kernel phases (3, 3b-3h), 6s (streaming ms "
+                        help="comma-separated kernel phases (3, 3b-3i), 6s (streaming ms "
                              "per hop), 11 (musdb18 serving), 12 (musdb18 training), 13 "
                              "(DPTNet) or 13k (DPTNet's kernels alone) to run after phases 1 "
                              "and 2, and nothing else; no result line is printed")
@@ -3225,6 +3433,7 @@ def main(argv=None) -> int:
     quant_timing = phase_quantize()
     library = phase_library()
     cluster_timings = phase_cluster(card)
+    wide_timings = phase_wide(card)
     blocks = DPRNN["sep_num_blocks"]
     stream_flags = ["--streaming_hop", str(STREAMING_HOP)]
     with tempfile.TemporaryDirectory() as tmp:
@@ -3316,23 +3525,27 @@ def main(argv=None) -> int:
                 musdb["causal_launches"], musdb_train["serve"]]:
         umx_served = {k: v + run[k] for k, v in umx_served.items()}
     total = {k: v + umx_served[k] + musdb_train["train"][k] for k, v in total.items()}
+    # The wsj0 models have H = 128 (tensor cores), musdb18's UMX B = 1 at H = 256 and
+    # 512 and B = 16 at H = 256 (the cluster and wide kernels, the cluster backward):
+    # no FMA kernel.
     for name, n in total.items():
-        # The wsj0 models have H = 128 (tensor cores), musdb18's UMX B = 1 at H = 256
-        # and 512 and B = 16 at H = 256 (the cluster kernels, forward and backward). No
-        # main path trains a one-chain LSTM at H > 128: its cluster backward is phase
-        # 3d's and 3h's.
         if name.endswith("/fma"):
             check(n == 0, f"the main path launched the FMA kernel: {name} {n} times")
-        elif name == "lstm_scan_bwd/cluster":
-            continue
-        elif n < 1:
-            raise AssertionError(f"the serving, training and evaluation paths never launched "
-                                 f"{name}")
-    # DPTNet (phase 13, H = 256 at B = 1-5112) runs the cluster and FMA kernels where _plan
-    # puts each of its shapes; phase 13 held every launch to its route. Its decodes join
-    # the served widths' rows.
+    # DPTNet (phase 13, H = 256 at B = 1-5112) runs the wide and cluster forwards, and the
+    # cluster and FMA backwards, where _plan and _plan_bwd put each of its shapes; phase 13
+    # held every launch to its route. No forward at H = 256 is left to the FMA kernel.
+    # Its decodes join the served widths' rows.
     dpt_launches = dptnet["launches"]
     total = {k: v + dpt_launches.get(k, 0) for k, v in total.items()}
+    for name in ("lstm_scan", "lstm_scan_bidir"):
+        check(total[f"{name}/fma"] == 0,
+              f"the main path launched the FMA forward: {name} {total[f'{name}/fma']} times")
+    for name, n in total.items():
+        # No main path trains a one-chain LSTM at H > 128 on few sequences: its cluster
+        # backward is phase 3d's and 3h's.
+        if not name.endswith("/fma") and name != "lstm_scan_bwd/cluster" and n < 1:
+            raise AssertionError(f"the serving, training and evaluation paths never launched "
+                                 f"{name}")
     check("jax" not in sys.modules and "flax" not in sys.modules, "jax was imported")
     check(not any(m.split(".")[0] == "dnn_based_source_separation_tpu" for m in sys.modules),
           "the JAX package was imported")
@@ -3409,20 +3622,26 @@ def main(argv=None) -> int:
                         (k.startswith("c") and k.endswith("_ms"))})
         entries.append(entry)
     # lstm_scan_bidir at musdb18 training's shape (B = 16 x 6 s, T = 259, H = 256 a
-    # direction): the forward with cs on the cluster kernel (phase 3h's times, FMA forced
-    # beside it) and its backward on the cluster backward (phase 3d's times: the whole
-    # backward and the kernel alone beside the FMA backward's and cuDNN's; phase 3h's:
-    # the other cluster size and the serial floor), each with the launches of phase 12's
-    # CLI train steps, beside cuDNN's nn.LSTM at the shape (F = 512).
+    # direction): the forward with cs on the route _plan gives it, the cluster kernel
+    # (phase 3h's times, FMA forced beside it, the other cluster size, the serial floor;
+    # cuDNN at F = 512) or the wide kernel (phase 3i's: FMA and the cluster route forced
+    # beside it; cuDNN at F = 64), and its backward on the cluster
+    # backward (phase 3d's times: the whole backward and the kernel alone beside the FMA
+    # backward's and cuDNN's; phase 3h's: the other cluster size and the serial floor),
+    # each with the launches of phase 12's CLI train steps.
     B, T, H_umx = UMX_TRAIN_SHAPE
-    timing = cluster_timings[("lstm_scan_bidir", f32, "UMX train")]
-    entry = kernel_entry("lstm_scan_bidir", "csrc/recurrence_cluster.cuh", "ops/pallas_lstm.py:323",
-                         musdb_train["train"]["lstm_scan_bidir/cluster"], timing,
-                         recurrence_bound(B, T, H_umx, 4, 2, cell_state=True, dtype=f32),
+    route = plan(ls, B, 2, H_umx, f32)[0]
+    timing = (cluster_timings if route == "cluster" else wide_timings)[
+        ("lstm_scan_bidir", f32, "UMX train")]
+    entry = kernel_entry("lstm_scan_bidir", f"csrc/recurrence_{route}.cuh",
+                         "ops/pallas_lstm.py:323",
+                         musdb_train["train"][f"lstm_scan_bidir/{route}"], timing,
+                         recurrence_bound(B, T, H_umx, 4, 2, cell_state=True, dtype=f32,
+                                          tf32=3 if route == "wide" else 0),
                          timing["library_ms"], dtype=f32)
-    entry.update(path="cluster", shape=f"UMX train B={B} T={T} H={H_umx}, with cs",
+    entry.update(path=route, shape=f"UMX train B={B} T={T} H={H_umx}, with cs",
                  **{k: timing[k] for k in timing
-                    if k in ("cluster", "floor_ms", "fma_max_abs_err") or
+                    if k in ("cluster", "tile", "floor_ms", "fma_max_abs_err") or
                     (k.startswith("c") and k.endswith("_ms"))})
     entries.append(entry)
     timing = bwd_timings[("lstm_scan_bidir_bwd", "umx-train", f32)]
@@ -3481,6 +3700,7 @@ def main(argv=None) -> int:
         backward = name.endswith("_bwd")
         source = {("cluster", False): "csrc/recurrence_cluster.cuh",
                   ("cluster", True): "csrc/recurrence_cluster_bwd.cuh",
+                  ("wide", False): "csrc/recurrence_wide.cuh",
                   ("fma", False): "csrc/lstm_scan.cu",
                   ("fma", True): "csrc/lstm_scan_bwd.cu"}[(route, backward)]
         replaces = {"lstm_scan_bidir": "ops/pallas_lstm.py:323",
@@ -3494,7 +3714,8 @@ def main(argv=None) -> int:
         entry.update(path=route, shape=f"DPTNet {label} B={B} T={T} H={DPT_H}"
                      + (", with cs" if "train" in label else ""),
                      **{k: timing[k] for k in ("kernel_ms", "fma_kernel_ms", "kernel_bound_ms",
-                                               "fma_max_abs_err", "cluster") if k in timing})
+                                               "fma_max_abs_err", "cluster", "tile")
+                        if k in timing})
         entries.append(entry)
     entries += [
         # Two reads of x and one int8 write; no single PyTorch call computes it.

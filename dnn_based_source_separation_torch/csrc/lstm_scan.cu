@@ -18,7 +18,7 @@
 // products are exact in f32 and summed in f32, and h and c are carried in
 // f32, as the Pallas kernels carry them in f32 VMEM scratch.
 //
-// Four paths, chosen by the caller (ops/lstm_scan.py:_plan) from the dtype,
+// Five paths, chosen by the caller (ops/lstm_scan.py:_plan) from the dtype,
 // the shape and the card's co-resident clusters before the launch, never
 // after a failure:
 //   * "mma": bfloat16 with H a multiple of 16 up to 128, the tensor-core
@@ -30,8 +30,13 @@
 //   * "cluster": either dtype with H = 256, 384 or 512 and few sequences
 //     (musdb18 serving's B = 1), the kernel of csrc/recurrence_cluster.cuh:
 //     one sequence a cluster of 8 or 16 blocks, W_hh held on chip;
-//   * "fma": every other call (H = 40, 256, 512, ... in either dtype), the
-//     FMA kernel of this file, on tiles of R sequences per group.
+//   * "wide": either dtype with H = 256 and many sequences (DPTNet's 5112 and
+//     800), the tensor-core kernel of csrc/recurrence_wide.cuh: an M-row tile
+//     (M = 16, 32 or 64) a cluster of C blocks (bf16: 4 or 8, mma.sync bf16;
+//     f32: 8 or 16, 3xTF32), W_hh split over the ranks' shared memory;
+//   * "fma": every other call (H = 40, 384 or 512 past the cluster route, ...
+//     in either dtype), the FMA kernel of this file, on tiles of R sequences
+//     per group.
 //
 // What bounds the FMA kernel. Every step of a chain depends on the step
 // before, so time is a loop inside the block, and only independent
@@ -73,6 +78,7 @@
 #include "recurrence_mma.cuh"
 #include "recurrence_tf32.cuh"
 #include "recurrence_cluster.cuh"
+#include "recurrence_wide.cuh"
 
 namespace {
 
@@ -297,11 +303,19 @@ int launch_fma(const Chains& chains, int n_chains, int B, int T_len, int H, int 
 // path 0: the FMA kernel with tile R; path 1: the tensor-core kernel
 // (bfloat16 only) with tile M; path 2: the 3xTF32 kernel (float32 only)
 // with tile M and clusters of `cluster` blocks; path 4: the cluster kernel,
-// tile 1 (one sequence a cluster of `cluster` blocks). `cluster` is ignored
-// by paths 0 and 1.
+// tile 1 (one sequence a cluster of `cluster` blocks); path 5: the wide
+// kernel, tile M on clusters of `cluster` blocks. `cluster` is ignored by
+// paths 0 and 1.
 int dispatch(const Chains& chains, int n_chains, int dtype, int B, int T_len, int H, int path,
              int tile, int cluster, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (path == 5) {
+    const wide_scan::Chains wc = {{chains.xw[0], chains.xw[1]},
+                                  {chains.whh[0], chains.whh[1]},
+                                  {chains.hs[0], chains.hs[1]},
+                                  {chains.cs[0], chains.cs[1]}};
+    return wide_scan::launch(wc, n_chains, dtype, B, T_len, H, tile, cluster, st);
+  }
   if (path == 4) {
     if (tile != 1) return (int)cudaErrorInvalidValue;
     const cluster_scan::Chains cc = {{chains.xw[0], chains.xw[1]},
@@ -346,8 +360,10 @@ int dispatch(const Chains& chains, int n_chains, int dtype, int B, int T_len, in
 // H % 16 == 0 and H <= 128, tile = M in {16, 32}), 2 (3xTF32, float32, the
 // same H, tile = M in {16, 32, 64}, cluster = C in {2, 4} with H % 8C == 0) or
 // 4 (cluster kernel, either dtype, H in {256, 384, 512}, tile = 1, cluster =
-// C in {8, 16}: 8 or 16 at H = 256, 16 above), from ops/lstm_scan.py:_plan;
-// `cluster` is read on paths 2 and 4 only.
+// C in {8, 16}: 8 or 16 at H = 256, 16 above) or 5 (wide kernel, either dtype,
+// H = 256, tile = M in {16, 32, 64}, cluster = C: 4 or 8 in bfloat16, 8 or 16 in
+// float32, the shared memory within a block's), from ops/lstm_scan.py:_plan;
+// `cluster` is read on paths 2, 4 and 5 only.
 // Returns a cudaError_t (0 on success). The Python wrapper validates every
 // argument.
 extern "C" int lstm_scan_launch(const void* xw, const void* whh, void* hs, void* cs, int dtype,
@@ -393,4 +409,11 @@ extern "C" int lstm_scan_cluster_floor_launch(const void* xw_f, const void* xw_b
   const cluster_scan::Chains cc = {{xw_f, xw_b}, {whh_f, whh_b}, {hs_f, hs_b}, {nullptr, nullptr}};
   return cluster_scan::launch(cc, xw_b == nullptr ? 1 : 2, dtype, B, T, H, cluster, false,
                               static_cast<cudaStream_t>(stream));
+}
+
+// The clusters of C blocks of the wide kernel at hidden size H, tile M and dtype (0
+// float32, 1 bfloat16) that the current card holds at once, each block on an SM of its
+// own, into *clusters (0 where no GPC has C free SMs; what _plan fits a wave to).
+extern "C" int lstm_scan_wide_clusters(int H, int M, int C, int dtype, int* clusters) {
+  return wide_scan::max_clusters(H, M, C, dtype, clusters);
 }

@@ -8,17 +8,21 @@ On CUDA tensors the hand-written Hopper kernels run: the forward of
 There is no fallback from one to the other: a CUDA call the kernel cannot
 take raises.
 
-The forward has four paths, and `_plan` picks one from the dtype, the
+The forward has five paths, and `_plan` picks one from the dtype, the
 shape and the card's co-resident clusters before the launch: for H a
 multiple of 16 up to 128 the tensor-core kernels, `"mma"`
 (`csrc/recurrence_mma.cuh`) for bfloat16 and `"tf32x3"`
 (`csrc/recurrence_tf32.cuh`, f32 products as three TF32 products, a cluster
-of 2 or 4 blocks per tile) for float32; for H = 256, 384 or 512 and few
-sequences (musdb18 serving's B = 1) `"cluster"` (`csrc/recurrence_cluster.cuh`:
-one sequence a cluster of 8 or 16 blocks, W_hh held in their registers and
-shared memory, h exchanged through distributed shared memory), in either
-dtype; the FMA kernel (`"fma"`) for every other call (H = 40, 256, 512,
-...). The backward has three, which `_plan_bwd`
+of 2 or 4 blocks per tile) for float32; for H = 256 and many sequences
+(DPTNet's 5112 and 800) `"wide"` (`csrc/recurrence_wide.cuh`: an M-row tile a
+cluster of C blocks, W_hh split over their shared memory, the product on the
+tensor cores, mma.sync bf16 or 3xTF32), in either dtype; for H = 256, 384 or
+512 and few sequences (musdb18 serving's B = 1) `"cluster"`
+(`csrc/recurrence_cluster.cuh`: one sequence a cluster of 8 or 16 blocks,
+W_hh held in their registers and shared memory, h exchanged through
+distributed shared memory), in either dtype; the FMA kernel (`"fma"`) for
+every other call (H = 40, 384 and 512 past the cluster route, ...). The
+backward has three, which `_plan_bwd`
 picks the same way: for H a multiple of 16 up to 128 the split-TF32
 tensor-core kernel of `csrc/recurrence_bwd_tf32.cuh` (`"tf32x3"` for
 float32, three TF32 products; `"tf32x2"` for bfloat16, two, since a bf16
@@ -58,7 +62,7 @@ from ._build import load_library
 # increment them; callers reset them to 0 to count a run.
 LAUNCHES = {"lstm_scan": 0, "lstm_scan_bidir": 0, "lstm_scan_bwd": 0, "lstm_scan_bidir_bwd": 0}
 # The forward launches above, split by the path `_plan` chose.
-PATH_LAUNCHES = {name: {"mma": 0, "tf32x3": 0, "cluster": 0, "fma": 0}
+PATH_LAUNCHES = {name: {"mma": 0, "tf32x3": 0, "cluster": 0, "wide": 0, "fma": 0}
                  for name in ("lstm_scan", "lstm_scan_bidir")}
 # The backward launches above, split by the path `_plan_bwd` chose.
 BWD_PATH_LAUNCHES = {name: {"tf32x3": 0, "tf32x2": 0, "cluster": 0, "fma": 0}
@@ -69,11 +73,11 @@ MAX_HIDDEN = 512
 # registers a block; the f32 W_hh of one block of a 2-block cluster, G H^2 / 2
 # floats of shared memory.
 MMA_MAX_HIDDEN = 128
-_PATH_CODE = {"fma": 0, "mma": 1, "tf32x3": 2, "tf32x2": 3, "cluster": 4}
+_PATH_CODE = {"fma": 0, "mma": 1, "tf32x3": 2, "tf32x2": 3, "cluster": 4, "wide": 5}
 # The routes of each wrapper's libraries: `_plan` and `_plan_bwd` take only these.
-# The GRU's have no cluster kernel, forward or backward.
+# The GRU's have no cluster kernel, forward or backward, and no wide kernel.
 FORWARD_ROUTES = ("fma", "mma", "tf32x3")
-ROUTES = FORWARD_ROUTES + ("cluster",)
+ROUTES = FORWARD_ROUTES + ("cluster", "wide")
 # The tensor-core path of each dtype, for H a multiple of 16 up to MMA_MAX_HIDDEN:
 # of the forward, and of the backward (split TF32 in both dtypes).
 _TENSOR_CORE_PATH = {torch.bfloat16: "mma", torch.float32: "tf32x3"}
@@ -116,6 +120,28 @@ CLUSTER_BWD_REG_BLOCKS = 8
 # section 6) it beat the FMA backward at every B up to 256 and lost at 512 (H = 256,
 # two chains: by 5% at B = 128 and 256; H = 512, one chain: by 33-35%).
 CLUSTER_MAX_BATCH_BWD = 256
+# The wide kernel (csrc/recurrence_wide.cuh): an M-row tile of sequences of one chain a
+# cluster of C blocks at H = WIDE_HIDDEN, rank r owning hidden units [r H/C, (r+1) H/C)
+# and their four gate columns, 8 units a warp; warps also split the rows, 16 a warp, or
+# 32 in f32 (one split of W serves two m16 tiles) and where 16 would pass WIDE_MAX_WARPS
+# warps. Each rank's H x 4H/C slice of W_hh in shared memory beside two mbarriers and
+# h [2][C][M][H/C + 16 bytes] (each rank's columns one block).
+WIDE_HIDDEN = 256
+WIDE_TILE_ROWS = (16, 32, 64)
+WIDE_CLUSTER_SIZES = {torch.bfloat16: (4, 8), torch.float32: (8, 16)}
+WIDE_MAX_WARPS = 16
+# The least B at which the plan takes the wide kernel over the cluster kernel (H = 256),
+# by dtype and chains: the least B of chip_smoke.py phase 3i's sweep (B = 1, 4, 16, 64,
+# 128, 200, 256, 512 at T = 259 and 639, kernels alone) from which the wide kernel won at
+# every larger B, on an H100 (PERF.md, section 6). f32, one chain: at B = 16 the cluster
+# kernel took 0.4262 / 0.9853 ms (T = 259 / 639) against 0.9951 / 2.4300, at 64 wide
+# 1.0179 / 2.4355 against 1.1500 / 2.6787; two chains: at 16 cluster 0.6872 / 1.6272
+# against 1.0044 / 2.4498, at 64 wide 1.0522 / 2.5489 against 2.1524 / 4.9490. bf16, one
+# chain: at 4 cluster 0.1976 / 0.4532 against 0.3678 / 0.8810, at 16 wide 0.3904 / 0.9641
+# against 0.4295 / 0.9942; two chains: at 4 cluster 0.2165 / 0.5007 against 0.3733 /
+# 0.8896, at 16 wide 0.3931 / 0.9664 against 0.6546 / 1.5957.
+WIDE_MIN_BATCH = {(torch.float32, 1): 64, (torch.float32, 2): 64,
+                  (torch.bfloat16, 1): 16, (torch.bfloat16, 2): 16}
 
 
 def lstm_steps(xw: torch.Tensor, w_hh: torch.Tensor, state=None, cs: torch.Tensor | None = None):
@@ -303,6 +329,68 @@ def cluster_bwd_layout(H: int, C: int, dtype: torch.dtype = torch.float32) -> di
                 smem_bytes=shared(elem))
 
 
+def wide_layout(H: int, M: int, C: int, dtype: torch.dtype = torch.float32) -> dict | None:
+    """The wide kernel's layout at hidden size H, tile M and clusters of C blocks, or None
+    where it cannot run (`shape_ok` and `Geometry` of csrc/recurrence_wide.cuh).
+
+    H = WIDE_HIDDEN; C in WIDE_CLUSTER_SIZES[dtype]; M in WIDE_TILE_ROWS. A rank owns
+    H / C units, 8 a warp (warps over units), and the M / 16 m16 tiles go to warps over
+    rows, `tiles_per_warp` each: 2 where one would pass WIDE_MAX_WARPS warps, and in f32
+    wherever the tile has two (each split of W then serves both), else 1. The shared
+    memory (two mbarriers, the rank's H x 4H/C slice of W_hh, h [2][C][M][H/C + 16
+    bytes] in the dtype) within SHARED_LIMIT, and at least OWN_SM.
+    """
+    if (H != WIDE_HIDDEN or M not in WIDE_TILE_ROWS
+            or C not in WIDE_CLUSTER_SIZES.get(dtype, ())):
+        return None
+    elem = torch.tensor([], dtype=dtype).element_size()
+    units = H // C
+    unit_warps, m_tiles = units // 8, M // 16
+    if unit_warps * m_tiles > WIDE_MAX_WARPS:
+        per_warp = unit_warps * m_tiles // WIDE_MAX_WARPS
+    else:
+        per_warp = 2 if elem == 4 and m_tiles >= 2 else 1
+    warps = unit_warps * (m_tiles // per_warp)
+    w_bytes = H * 4 * units * elem
+    h_bytes = 2 * M * (H * elem + 16 * C)
+    need = 16 + w_bytes + h_bytes
+    if need > SHARED_LIMIT:
+        return None
+    return dict(units=units, warps=warps, threads=32 * warps, tiles_per_warp=per_warp,
+                w_smem_bytes=w_bytes, h_smem_bytes=h_bytes, smem_bytes=max(need, OWN_SM))
+
+
+def _wide_tiles(H: int, dtype: torch.dtype) -> list:
+    """The tiles (M, C) at which the wide kernel takes hidden size H in `dtype`."""
+    return [(m, c) for c in WIDE_CLUSTER_SIZES.get(dtype, ()) for m in WIDE_TILE_ROWS
+            if wide_layout(H, m, c, dtype)]
+
+
+def _wide_tile(B: int, n_chains: int, H: int, dtype: torch.dtype, wide: dict | None,
+               forced: bool = False) -> tuple[int, int] | None:
+    """The wide kernel's tile (M, C), or None.
+
+    Of the tiles H admits in `dtype` and the card holds (`wide`, {(M, C):
+    co-resident clusters of the kernel at that tile}, 0 where no GPC has C free
+    SMs), `_tf32_tile`'s rule: the fewest waves, then the fewest rows x units a
+    block (M / C), then the smaller cluster and tile. The plan takes the route for
+    B from WIDE_MIN_BATCH[(dtype, n_chains)] up; forced (`path="wide"`) it runs any
+    B, and raises where no tile can run.
+    """
+    options = [(-(-(n_chains * -(-B // m)) // wide[(m, c)]), m / c, c, m)
+               for m, c in _wide_tiles(H, dtype) if (wide or {}).get((m, c), 0) >= 1]
+    if not options:
+        if forced:
+            raise ValueError(f"the wide path takes H = {WIDE_HIDDEN} in bfloat16 (clusters of "
+                             f"4 or 8 blocks) or float32 (8 or 16) that the card holds; got "
+                             f"H = {H}, {dtype}, clusters {wide}")
+        return None
+    if not forced and B < WIDE_MIN_BATCH[(dtype, n_chains)]:
+        return None
+    *_, c, m = min(options)
+    return m, c
+
+
 def _cluster_sizes(H: int, dtype: torch.dtype = torch.float32, backward: bool = False) -> list:
     """The cluster sizes at which the cluster kernel (the backward's if `backward`) takes
     hidden size H."""
@@ -338,7 +426,7 @@ def _cluster_tile(B: int, n_chains: int, H: int, dtype: torch.dtype, clusters: d
 
 def _plan(B: int, n_chains: int, H: int, dtype: torch.dtype, sms: int,
           path: str | None = None, clusters: dict | None = None,
-          routes: tuple = FORWARD_ROUTES) -> tuple[str, int | tuple]:
+          routes: tuple = FORWARD_ROUTES, wide: dict | None = None) -> tuple[str, int | tuple]:
     """The forward kernel and tile for B sequences on each of `n_chains` chains -> (path, tile).
 
     For H a multiple of 16 up to MMA_MAX_HIDDEN the tensor cores: "mma"
@@ -349,15 +437,24 @@ def _plan(B: int, n_chains: int, H: int, dtype: torch.dtype, sms: int,
     the card holds at once}, which the caller queries. "fma" (tile R
     sequences per group of the FMA kernel) for every other call: the largest
     R in 4, 2, 1 that still gives every SM a block. Where no tensor-core path
-    runs and the calling wrapper's `routes` hold "cluster" (the LSTM's
-    ROUTES), "cluster" (tile (1, C)) by `_cluster_tile` from `clusters`, the
-    cluster kernel's counts, for few sequences at H = 256, 384 or 512.
-    `path` forces one (the FMA path at a shape that would take another, to
-    time both); forcing a path where it cannot run raises, "cluster" also
-    from a wrapper whose routes lack it. The GRU wrapper plans with this
-    function too, with FORWARD_ROUTES.
+    of H <= MMA_MAX_HIDDEN runs and the calling wrapper's `routes` hold "wide"
+    and "cluster" (the LSTM's ROUTES): "wide" (tile (M, C)) by `_wide_tile`
+    from `wide`, the wide kernel's counts by tile, for many sequences at
+    H = 256 (B from WIDE_MIN_BATCH up); below that, or at H = 384 and 512,
+    "cluster" (tile (1, C)) by `_cluster_tile` from `clusters`, the cluster
+    kernel's counts, for few sequences. `path` forces one (the FMA path at a
+    shape that would take another, to time both); forcing a path where it
+    cannot run raises, "cluster" and "wide" also from a wrapper whose routes
+    lack them. The GRU wrapper plans with this function too, with
+    FORWARD_ROUTES.
     """
     natural = _tensor_core_path(H, dtype)
+    if path == "wide" or (path is None and natural is None and "wide" in routes):
+        if "wide" not in routes:
+            raise ValueError(f"this wrapper has no wide kernel (routes {routes})")
+        tile = _wide_tile(B, n_chains, H, dtype, wide, forced=path == "wide")
+        if tile is not None:
+            return "wide", tile
     if path == "cluster" or (path is None and natural is None and "cluster" in routes):
         if "cluster" not in routes:
             raise ValueError(f"this wrapper has no cluster kernel (routes {routes})")
@@ -499,6 +596,13 @@ def _needs_clusters(H: int, dtype: torch.dtype, path: str | None, backward: bool
             and bool(_cluster_sizes(H, dtype, backward)))
 
 
+def _needs_wide(H: int, dtype: torch.dtype, path: str | None, routes: tuple = FORWARD_ROUTES) -> bool:
+    """Whether a forward plan at H in `dtype` (forced to `path`, if given) may take the
+    wide kernel, so that the caller must ask the card for its co-resident clusters."""
+    return ("wide" in routes and path in (None, "wide") and _tensor_core_path(H, dtype) is None
+            and bool(_wide_tiles(H, dtype)))
+
+
 def _plan_launch(clusters_of, chains, path, backward=False, routes=FORWARD_ROUTES):
     """Plan one launch over validated chains (xw, w_hh, ...) -> (B, T, H, path, tile).
 
@@ -511,12 +615,14 @@ def _plan_launch(clusters_of, chains, path, backward=False, routes=FORWARD_ROUTE
     B, T, _ = xw0.shape
     H = chains[0][1].shape[0]
     sms = torch.cuda.get_device_properties(xw0.device).multi_processor_count
-    clusters = None
+    clusters = wide = None
     if _needs_clusters(H, xw0.dtype, path, backward, routes):
         clusters = clusters_of(H, xw0.device)
     if backward:
         return (B, T, H, *_plan_bwd(B, len(chains), H, xw0.dtype, sms, path, clusters, routes))
-    return (B, T, H, *_plan(B, len(chains), H, xw0.dtype, sms, path, clusters, routes))
+    if _needs_wide(H, xw0.dtype, path, routes):
+        wide = _wide_counts(H, xw0.dtype, xw0.device)
+    return (B, T, H, *_plan(B, len(chains), H, xw0.dtype, sms, path, clusters, routes, wide))
 
 
 def _library():
@@ -534,6 +640,8 @@ def _library():
         lib.lstm_scan_cluster_clusters.restype = i
         lib.lstm_scan_cluster_floor_launch.argtypes = [p] * 6 + [i] * 5 + [p]
         lib.lstm_scan_cluster_floor_launch.restype = i
+        lib.lstm_scan_wide_clusters.argtypes = [i, i, i, i, ctypes.POINTER(i)]
+        lib.lstm_scan_wide_clusters.restype = i
         _LIB = lib
     return _LIB
 
@@ -572,6 +680,26 @@ def _cluster_counts(H: int, device) -> dict:
     each C that H admits; 0 where no GPC has C free SMs."""
     return _co_resident_clusters(_library().lstm_scan_cluster_clusters, H, torch.device(device),
                                  sizes=_cluster_sizes(H), required=False)
+
+
+def _wide_counts(H: int, dtype: torch.dtype, device) -> dict:
+    """{(M, C): clusters of C blocks of the wide kernel at H, tile M and `dtype` the card
+    holds at once}, for each tile H admits in `dtype`; 0 where no GPC has C free SMs."""
+    device = torch.device(device)
+    with torch.cuda.device(device):
+        key = ("lstm_scan_wide_clusters", torch.cuda.current_device(), H, dtype)
+        if key not in _CLUSTERS:
+            counts = {}
+            for m, c in _wide_tiles(H, dtype):
+                n = ctypes.c_int(0)
+                err = _library().lstm_scan_wide_clusters(H, m, c, _DTYPE_CODE[dtype],
+                                                          ctypes.byref(n))
+                if err != 0:
+                    raise RuntimeError(f"lstm_scan_wide_clusters(H = {H}, M = {m}, C = {c}, "
+                                       f"{dtype}) failed: cudaError {err}")
+                counts[(m, c)] = n.value
+            _CLUSTERS[key] = counts
+    return _CLUSTERS[key]
 
 
 def _forward_clusters(H: int, device) -> dict:
@@ -651,24 +779,32 @@ def _launch(name: str, fn, pointers, dtype, B, T, H, device, *plan) -> None:
     LAUNCHES[name] += 1
 
 
-def _staged_forward(chains, with_cs: bool, path: str | None = None, cluster: int | None = None):
+def _staged_forward(chains, with_cs: bool, path: str | None = None, cluster: int | None = None,
+                    tile: tuple | None = None):
     """Plan the forward kernel over one or two (xw, w_hh) chains and allocate its outputs
     -> (hs list, cs list, a call that launches it into them).
 
-    `path` forces a path of `_plan`, and `cluster` the cluster size of the
-    cluster path (only chip_smoke.py passes them, to time the FMA kernel where
-    another one would run, and both cluster sizes).
+    `path` forces a path of `_plan`, `cluster` the cluster size of the cluster
+    path and `tile` the tile (M, C) of the wide path (only chip_smoke.py passes
+    them, to time the FMA kernel where another one would run, both cluster sizes
+    and every wide tile).
     """
     name = "lstm_scan" if len(chains) == 1 else "lstm_scan_bidir"
     _check_chains(name, chains)
     xw0 = chains[0][0]
     lib = _library()
-    B, T, H, path, tile = _plan_launch(_forward_clusters, chains, path, routes=ROUTES)
+    B, T, H, path, planned = _plan_launch(_forward_clusters, chains, path, routes=ROUTES)
     if cluster is not None:
         counts = _cluster_counts(H, xw0.device)
         if path != "cluster" or counts.get(cluster, 0) < 1:
             raise ValueError(f"no cluster path on {cluster} blocks here: {path}, {counts}")
-        tile = (1, cluster)
+        planned = (1, cluster)
+    if tile is not None:
+        counts = _wide_counts(H, xw0.dtype, xw0.device)
+        if path != "wide" or counts.get(tuple(tile), 0) < 1:
+            raise ValueError(f"no wide path at tile {tile} here: {path}, {counts}")
+        planned = tuple(tile)
+    tile = planned
     hs = [torch.empty((B, T, H), dtype=xw0.dtype, device=xw0.device) for _ in chains]
     cs = [torch.empty_like(h) for h in hs] if with_cs else []
     fn = lib.lstm_scan_launch if len(chains) == 1 else lib.lstm_scan_bidir_launch

@@ -2,10 +2,11 @@
 
 `_plan` is pure Python: from the dtype, the shape, the card's co-resident
 clusters and the calling wrapper's routes it picks a tensor-core kernel
-("mma" in bf16, "tf32x3" in f32, M-row tiles), the LSTM's cluster kernel
-("cluster", one sequence on a cluster of C blocks, for few sequences at
-H = 256, 384 and 512) or the FMA kernel ("fma", R sequences per group)
-before the launch. On the card chip_smoke.py checks that every bf16
+("mma" in bf16, "tf32x3" in f32, M-row tiles), the LSTM's wide kernel ("wide",
+an M-row tile on a cluster of C blocks, for many sequences at H = 256), the
+LSTM's cluster kernel ("cluster", one sequence on a cluster of C blocks, for
+few sequences at H = 256, 384 and 512) or the FMA kernel ("fma", R sequences
+per group) before the launch. On the card chip_smoke.py checks that every bf16
 recurrence of the wsj0 models took "mma", every f32 one "tf32x3", musdb18's
 UMX "cluster", and none "fma"; here the rule itself is held, at an H100's
 132 SMs and given numbers of co-resident clusters (2 and 4 blocks for the
@@ -28,6 +29,10 @@ CLUSTERS = {2: 66, 4: 30}
 # C = 8 and 16; above, 16), as chip_smoke.py phase 3h read them from the card.
 BIG_CLUSTERS = {8: 15, 16: 7}
 BF16, F32 = torch.bfloat16, torch.float32
+# Clusters of C blocks of the wide kernel an H100 holds at once, by tile (M, C), as
+# chip_smoke.py phase 3i read them from the card: each block takes an SM of its own, so
+# the count depends on C alone.
+WIDE_BY_C = {4: 30, 8: 15, 16: 7}
 WRAPPERS = pytest.mark.parametrize("wrapper", [ls, gs], ids=["lstm", "gru"])
 
 
@@ -40,6 +45,11 @@ def _clusters(H):
     the cluster kernel's above."""
     return CLUSTERS if H <= 128 else {c: n for c, n in BIG_CLUSTERS.items()
                                       if ls.cluster_layout(H, c)}
+
+
+def _wide(H, dtype, by_c=WIDE_BY_C):
+    """The wide kernel's counts by tile the LSTM wrapper would ask the card for at H."""
+    return {(m, c): by_c.get(c, 0) for m, c in ls._wide_tiles(H, dtype)}
 
 
 @WRAPPERS
@@ -68,15 +78,15 @@ def test_bf16_at_h_multiple_of_16_up_to_128_takes_the_tensor_cores(wrapper, B, n
     (37, 2, 40, F32, 1),
     (4096, 1, 512, F32, 4),
     (37, 2, 40, BF16, 1),
-    (400, 2, 256, BF16, 2),
-], ids=["f32-H=40", "f32-H=512", "bf16-H=40", "bf16-H=256-R2"])
+    (260, 2, 384, BF16, 2),
+], ids=["f32-H=40", "f32-H=512", "bf16-H=40", "bf16-H=384-R2"])
 def test_other_calls_take_the_fma_kernel_with_its_tile(wrapper, B, n_chains, H, dtype, R):
     # The FMA kernel's rule, unchanged: groups = min(4, 256 / (H / 2)) of R
     # sequences a block, the largest R in 4, 2, 1 that gives every SM a block.
-    # (H = 256 and 512 past CLUSTER_MAX_BATCH sequences: the cluster kernel's
-    # calls are in the tests below.)
+    # (H = 384 and 512 past CLUSTER_MAX_BATCH sequences: the cluster kernel's
+    # calls are in the tests below; H = 256 many sequences take the wide kernel.)
     assert wrapper._plan(B, n_chains, H, dtype, SMS, clusters=_clusters(H),
-                         routes=wrapper.ROUTES) == ("fma", R)
+                         routes=wrapper.ROUTES, wide=_wide(H, dtype)) == ("fma", R)
     groups = min(4, 256 // (H // 2))
     assert _blocks(B, n_chains, groups * R) >= SMS or R == 1
     if R < 4:
@@ -209,7 +219,11 @@ def test_few_sequences_at_h_256_to_512_take_the_cluster_kernel_in_the_lstm(
 def test_the_crossover_batch_goes_back_to_fma(wrapper, n_chains, H):
     B = ls.CLUSTER_MAX_BATCH
     at, past = (wrapper._plan(b, n_chains, H, F32, SMS, clusters=_clusters(H),
-                              routes=wrapper.ROUTES) for b in (B, B + 1))
+                              routes=wrapper.ROUTES, wide=_wide(H, F32)) for b in (B, B + 1))
+    if wrapper is ls and H == ls.WIDE_HIDDEN:  # H = 256: the wide kernel on both sides
+        assert B >= ls.WIDE_MIN_BATCH[(F32, n_chains)]
+        assert at[0] == past[0] == "wide"
+        return
     assert past == _fma(B + 1, n_chains, H)
     assert at[0] == ("cluster" if wrapper is ls else "fma")
 
@@ -444,3 +458,138 @@ def test_the_backward_asks_the_card_for_clusters_only_where_a_cluster_kernel_may
 def test_the_cluster_backward_size_follows_the_cards_counts(clusters, H, want):
     assert ls._plan_bwd(16, 2 if H == 256 else 1, H, F32, SMS, clusters=clusters,
                         routes=ls.ROUTES) == want
+
+
+# The wide kernel (csrc/recurrence_wide.cuh), the LSTM's only: from WIDE_MIN_BATCH
+# sequences up at H = 256 (the crossover with the cluster kernel, measured on an H100;
+# musdb18's B = 1 and its training's B = 16 in f32 stay on the cluster kernel),
+# an M-row tile on a cluster of C blocks (bf16: 4 or 8, f32: 8 or 16), by the 3xTF32
+# kernel's tile rule over the wide kernel's counts; below it "cluster".
+DPTNET_SHAPES = [  # B, chains: DPTNet's LSTM launches at H = 256
+    (5112, 2),  # serving intra-chunk, B = 8 x 4 s
+    (800, 2),  # serving inter-chunk
+    (800, 1),  # causal serving inter-chunk
+    (1278, 2),  # recipe training intra-chunk, B = 2 x 4 s
+    (200, 2),  # recipe training inter-chunk
+]
+
+
+@DTYPES
+@pytest.mark.parametrize("B,n_chains", DPTNET_SHAPES,
+                         ids=["serve-intra", "serve-inter", "causal-inter", "train-intra",
+                              "train-inter"])
+def test_dptnets_shapes_take_the_wide_kernel(dtype, B, n_chains):
+    wide = _wide(256, dtype)
+    path, (m, c) = ls._plan(B, n_chains, 256, dtype, SMS, clusters=_clusters(256),
+                            routes=ls.ROUTES, wide=wide)
+    assert path == "wide" and c in ls.WIDE_CLUSTER_SIZES[dtype]
+    # The fewest waves, then the fewest rows x units a block (M / C), then the smaller
+    # cluster and tile.
+    options = {t: (-(-_blocks(B, n_chains, t[0]) // n), t[0] / t[1]) for t, n in wide.items()}
+    assert options[(m, c)] == min(options.values())
+    assert all(options[o] > options[(m, c)] or o[1] > c or (o[1] == c and o[0] > m)
+               for o in options if o != (m, c))
+
+
+@pytest.mark.parametrize("dtype,B,n_chains,tile", [
+    (BF16, 5112, 2, (64, 4)),  # 160 tiles: six waves of 30 four-block clusters
+    (BF16, 800, 2, (64, 4)),  # 26 tiles: one wave
+    (BF16, 800, 1, (32, 4)),  # 25 four-block clusters of 32 rows: one wave; (64, 8) ties
+    (F32, 5112, 2, (32, 8)),  # 320 tiles: 22 waves of 15 eight-block clusters
+    (F32, 800, 2, (32, 8)),  # four waves; 16-block clusters of 64 rows tie, the smaller cluster
+    (F32, 200, 2, (32, 8)),  # 14 tiles: one wave
+    (F32, 16, 2, (16, 16)),  # one wave either way, 16 rows x 16 units a block
+    (BF16, 16, 2, (16, 8)),
+], ids=["bf16-intra", "bf16-inter", "bf16-causal", "f32-intra", "f32-inter", "f32-train-inter",
+        "f32-B=16", "bf16-B=16"])
+def test_the_wide_tile_at_an_h100s_counts(dtype, B, n_chains, tile):
+    assert ls._plan(B, n_chains, 256, dtype, SMS, "wide", None, ls.ROUTES,
+                    _wide(256, dtype)) == ("wide", tile)
+
+
+@DTYPES
+@pytest.mark.parametrize("n_chains", [1, 2])
+def test_the_wide_crossover_with_the_cluster_kernel(dtype, n_chains):
+    B = ls.WIDE_MIN_BATCH[(dtype, n_chains)]
+    assert 1 < B <= ls.CLUSTER_MAX_BATCH + 1  # B = 1 (musdb18 serving) keeps "cluster"
+    below, at = (ls._plan(b, n_chains, 256, dtype, SMS, clusters=_clusters(256),
+                          routes=ls.ROUTES, wide=_wide(256, dtype)) for b in (B - 1, B))
+    assert below[0] == "cluster" and at[0] == "wide"
+    musdb = ls._plan(1, 2, 256, dtype, SMS, clusters=_clusters(256), routes=ls.ROUTES,
+                     wide=_wide(256, dtype))
+    assert musdb[0] == "cluster"
+    if dtype == F32:  # musdb18 training's B = 16 x 6 s
+        assert ls._plan(16, 2, 256, dtype, SMS, clusters=_clusters(256), routes=ls.ROUTES,
+                        wide=_wide(256, dtype)) == ("cluster", (1, 8))
+
+
+@DTYPES
+@pytest.mark.parametrize("B", [300, 1024, 20000])
+def test_no_fma_at_h_256_where_the_card_holds_the_wide_kernel(dtype, B):
+    got = ls._plan(B, 2, 256, dtype, SMS, clusters=_clusters(256), routes=ls.ROUTES,
+                   wide=_wide(256, dtype))
+    assert got[0] == "wide"
+
+
+@pytest.mark.parametrize("wide,want", [
+    ({(m, c): 0 for m, c in ls._wide_tiles(256, F32)}, "fma"),  # no GPC holds a cluster
+    (None, "fma"),  # unasked
+    ({(32, 8): 16}, ("wide", (32, 8))),  # one tile the card holds
+    (_wide(256, F32, {8: 16, 16: 0}), ("wide", (32, 8))),  # no free 16-SM GPC
+], ids=["zero", "unasked", "one-tile", "no-16"])
+def test_the_wide_tile_follows_the_cards_counts(wide, want):
+    got = ls._plan(800, 2, 256, F32, SMS, clusters=_clusters(256), routes=ls.ROUTES, wide=wide)
+    assert got == want if isinstance(want, tuple) else got[0] == want
+
+
+@pytest.mark.parametrize("B,dtype", [(1, F32), (4, BF16), (5112, F32)], ids=["B=1", "B=4", "big"])
+def test_the_wide_path_can_be_forced_for_timing(B, dtype):
+    got = ls._plan(B, 2, 256, dtype, SMS, "wide", None, ls.ROUTES, _wide(256, dtype))
+    assert got[0] == "wide"
+
+
+@pytest.mark.parametrize("H,dtype,wide", [
+    (128, F32, _wide(256, F32)), (512, F32, _wide(256, F32)), (512, BF16, _wide(256, BF16)),
+    (384, F32, _wide(256, F32)), (256, F32, None), (256, BF16, _wide(256, BF16, {})),
+    (256, torch.float16, _wide(256, F32)),
+], ids=["H=128", "H=512", "H=512-bf16", "H=384", "unasked", "zero", "f16"])
+def test_forcing_the_wide_path_where_it_cannot_run_raises(H, dtype, wide):
+    with pytest.raises(ValueError):
+        ls._plan(1000, 2, H, dtype, SMS, "wide", None, ls.ROUTES, wide)
+
+
+@pytest.mark.parametrize("routes", [gs.ROUTES, ls.FORWARD_ROUTES], ids=["gru", "default"])
+def test_forcing_the_wide_path_from_the_gru_wrapper_raises(routes):
+    assert "wide" in ls.ROUTES and "wide" not in gs.ROUTES
+    with pytest.raises(ValueError):
+        gs._plan(1000, 2, 256, F32, SMS, "wide", None, routes, _wide(256, F32))
+
+
+def test_the_gru_never_takes_the_wide_kernel():
+    got = gs._plan(5112, 2, 256, F32, SMS, clusters=None, routes=gs.ROUTES,
+                   wide=_wide(256, F32))
+    assert got == _fma(5112, 2, 256)
+
+
+@pytest.mark.parametrize("H,dtype,path,routes,want", [
+    (256, F32, None, ls.ROUTES, True), (256, BF16, None, ls.ROUTES, True),
+    (256, F32, "wide", ls.ROUTES, True), (256, F32, "cluster", ls.ROUTES, False),
+    (256, F32, "fma", ls.ROUTES, False), (256, F32, None, gs.ROUTES, False),
+    (512, F32, None, ls.ROUTES, False), (384, BF16, None, ls.ROUTES, False),
+    (128, F32, None, ls.ROUTES, False), (128, BF16, None, ls.ROUTES, False),
+    (256, torch.float16, None, ls.ROUTES, False),
+], ids=["f32", "bf16", "forced", "forced-cluster", "forced-fma", "gru", "H=512", "H=384",
+        "tf32x3", "mma", "f16"])
+def test_the_wrapper_asks_the_card_for_wide_counts_only_where_the_wide_kernel_may_run(
+        H, dtype, path, routes, want):
+    assert ls._needs_wide(H, dtype, path, routes) is want
+    # The cluster kernel's counts are still asked at H = 256 where "cluster" may run.
+    if H == 256 and path is None and routes is ls.ROUTES and dtype != torch.float16:
+        assert ls._needs_clusters(H, dtype, path, routes=routes)
+
+
+@pytest.mark.parametrize("tile,args", [((64, 4), (64, 4)), ((16, 16), (16, 16))],
+                         ids=["bf16", "f32-C=16"])
+def test_a_wide_tile_goes_to_the_c_entry_points_with_its_cluster(tile, args):
+    assert ls._tile_args(tile) == args
+    assert ls._PATH_CODE["wide"] == 5

@@ -9,7 +9,8 @@ accumulator that the cell starts. Here that arithmetic runs in plain PyTorch
 at the recipe's H = 128 over T = 250 steps, against a float64 recurrence (the
 wrappers' plain versions on float64 inputs): three TF32 products keep the
 f32 recurrence's accuracy; one does not, at the f32 limit that chip_smoke.py
-holds the kernels to.
+holds the kernels to. The same holds for the LSTM's "wide" route
+(`csrc/recurrence_wide.cuh`) at DPTNet's H = 256 over its intra-chunk T = 100.
 """
 import numpy as np
 import pytest
@@ -70,13 +71,15 @@ def gru_route(xw, w, b, passes):
     return torch.stack(hs, dim=1)
 
 
-def inputs(gates, scale, seed):
-    """xw ~ N(0, 0.25), W_hh ~ U(+-scale / sqrt(H)) and b_hh ~ N(0, 0.01), from a seed."""
+def inputs(gates, scale, seed, shape=(B, T, H)):
+    """xw ~ N(0, 0.25), W_hh ~ U(+-scale / sqrt(H)) and b_hh ~ N(0, 0.01), from a seed;
+    `shape` (B, T, H)."""
+    b_, t_, h_ = shape
     rng = np.random.default_rng(seed)
-    xw = torch.from_numpy((0.5 * rng.standard_normal((B, T, gates * H))).astype(np.float32))
-    w = torch.from_numpy((scale * H ** -0.5 * rng.uniform(-1, 1, (H, gates * H)))
+    xw = torch.from_numpy((0.5 * rng.standard_normal((b_, t_, gates * h_))).astype(np.float32))
+    w = torch.from_numpy((scale * h_ ** -0.5 * rng.uniform(-1, 1, (h_, gates * h_)))
                          .astype(np.float32))
-    b = torch.from_numpy((0.1 * rng.standard_normal(gates * H)).astype(np.float32))
+    b = torch.from_numpy((0.1 * rng.standard_normal(gates * h_)).astype(np.float32))
     return xw, w, b
 
 
@@ -146,3 +149,15 @@ def test_one_tf32_product_misses_the_f32_limit_at_4w(cell):
     err = cached_errors(cell, 4)
     assert err[1] > LSTM_TOL_F32, err
     assert err[1] > 100 * err[3], err
+
+
+@pytest.mark.parametrize("scale", [1, 4], ids=["W", "4W"])
+def test_three_tf32_products_keep_the_f32_limit_at_dptnets_h_256(scale):
+    # The wide route's f32 product at H = 256 over T = 100 steps (DPTNet's intra-chunk
+    # recurrence), B = 2: within the f32 limit and near the exact f32 recurrence's error.
+    xw, w, _ = inputs(4, scale, seed=9, shape=(2, 100, 256))
+    f64 = ls.lstm_scan_reference(xw.double(), w.double())
+    err = {k: float((v.double() - f64).abs().max())
+           for k, v in (("f32", ls.lstm_scan_reference(xw, w)), (3, lstm_route(xw, w, 3)))}
+    assert err[3] <= LSTM_TOL_F32, err
+    assert err[3] <= 10 * max(err["f32"], 1e-7), err

@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only 11       # phases 1 and 2, then musdb18 serving
     python3 chip_smoke.py --only 3h       # phases 1 and 2, then the cluster routes
     python3 chip_smoke.py --only 3i       # phases 1 and 2, then the wide route (H = 256)
+    python3 chip_smoke.py --only 3j,13    # the wide backward, then DPTNet (its training)
     python3 chip_smoke.py --only 3d,3h,12 # the cluster backward, then musdb18 training
     python3 chip_smoke.py --only 12       # phases 1 and 2, then musdb18 training
     python3 chip_smoke.py --only 13       # phases 1 and 2, then DPTNet (13k: its kernels)
@@ -89,11 +90,23 @@ Phases (any failure exits non-zero; nothing is caught and passed):
      against the plain versions, f32 (3xTF32) and bf16 (mma.sync): every tile (M, C)
      of each dtype the card holds at B = 37 (rows past B), one and two chains, hs alone
      and with cs, each launch repeated and checked; T = 1 through the public wrappers.
-     At DPTNet's serving and training shapes and musdb18 training's it is timed from
+     At musdb18 training's shape (DPTNet's are phase 13k's) it is timed from
      CUDA graphs, the FMA kernel forced in the same run (FMA, wide, wide, FMA), beside
      the cluster route forced, the plain version, cuDNN's nn.LSTM (F = 64)
      and the bound; then against the cluster route over B = 1-512, T = 259 and 639,
      one and two chains, both dtypes (the crossover WIDE_MIN_BATCH encodes);
+  3j. the wide route of the LSTM backward (csrc/recurrence_wide_bwd.cuh, H = 256)
+     against lstm_scan_bwd_reference, f32 (three TF32 products) and bf16 (two): every
+     tile (M, C) of each dtype the card holds at B = 37 (rows past B), one and two chains,
+     each launch repeated and checked; T = 1 under autograd through the public wrappers
+     (the FMA backward forced and checked beside it). At DPTNet's recipe training shapes
+     (1278 x 100 and 200 x 639 on two chains, 200 x 639 on one, f32; 1278 x 100 in bf16)
+     the whole backward and the kernel alone timed from CUDA graphs in turns with the FMA
+     backward (FMA, wide, wide, FMA), beside the cluster backward forced, every tile the
+     card holds, the serial floor (the product compiled out), the plain version, cuDNN's
+     nn.LSTM backward (F = 64) and the bounds; then against the cluster backward over
+     B = 1-512, T = 259 and 639, one and two chains, both dtypes (the crossover
+     WIDE_MIN_BATCH_BWD encodes);
   4. serve: paper-config Conv-TasNet (random weights from seed 0) through
      cli/separate.py on three mixtures in float32 and bfloat16, counting the
      kernel's launches;
@@ -179,16 +192,18 @@ Phases (any failure exits non-zero; nothing is caught and passed):
      both dtypes (ms, every launch on its route: "wide" at 5112 and 800 sequences), one
      profiled forward split into the recurrence kernels, the attention (CUDA events around
      each MultiheadAttention call) and the rest, with the idle share; one train step (2
-     blocks, B = 1 x 1 s) card vs an f64 CPU step, as phase 7; cli/train_wsj0mix.py --model
-     dptnet --warmup_steps 40 at B = 2 x 4 s for two epochs of 10 steps (every step and
-     validation forward on its routes, the epoch train loss falling), its checkpoint served
+     blocks, B = 1 x 1 s, causal or not) card vs an f64 CPU step, as phase 7, its
+     launches joining the main path's (the causal step trains the one-chain backward);
+     cli/train_wsj0mix.py --model dptnet --warmup_steps 40 at B = 2 x 4 s for two epochs
+     of 10 steps (every step and validation forward on its routes, the epoch train loss
+     falling), its checkpoint served
      and evaluated (cli/test_wsj0mix.py card vs CPU within 0.05 dB), the recipe step's p50
      split and a profile with its idle share; `bench --model dptnet` in bf16 and f32; and
      (13k) every LSTM kernel at DPTNet's shapes against its plain version, timed from CUDA
      graphs beside the FMA kernel where another route runs, cuDNN's nn.LSTM (F = 64) and
      the bound: the forwards at (5112, 100), (800, 639) and causal (800, 639) in both
-     dtypes; at recipe training's (1278, 100) and (200, 639) with cs, and their backwards,
-     in f32.
+     dtypes; at recipe training's (1278, 100), (200, 639) and causal (200, 639) with cs, and
+     their backwards (on "wide"), in f32.
 
 Each serving, quantizing and evaluation path, and the training path of phase
 8, runs with every launch count set to 0 just before it and read just after
@@ -200,13 +215,12 @@ request and bf16 train step must launch only the bf16 tensor-core kernels
 every decode of phases 4-4g, 6, 8 and 10 on its planned fused_mask_decode
 path ("mma" in bf16, "generic" for f32 Conv-TasNet, "rows" for f32
 DPRNN-TasNet). Phase 11's card runs (UMX at B = 1, H = 256 and 512) must
-launch only the cluster kernel, and join the main path's total, which must
-have launched no FMA kernel: musdb18 training's backward (lstm_scan_bidir_bwd
-at H = 256, phase 12) runs on the cluster backward. Phase 13's DPTNet runs are
-held launch by launch to their routes (the FMA backward at its 1278 intra-chunk
-training sequences included) and then join the total, which must have launched
-every path but the FMA ones (and the one-chain cluster backward, which no main
-path trains), and no FMA forward. The last line
+launch only the cluster kernel, and join the main path's total: musdb18
+training's backward (lstm_scan_bidir_bwd at H = 256, phase 12) runs on the
+cluster backward. Phase 13's DPTNet runs are held launch by launch to their
+routes (the wide backward at its training sequences) and then join the total,
+which must have launched every path but the FMA ones (and the one-chain cluster
+backward, which no main path trains), and no FMA kernel at all. The last line
 is {"ok": true, "device":
 {...}}; the line before it lists the kernels with their launch counts,
 errors, times, bounds and library times: fused_mask_decode six times
@@ -230,9 +244,11 @@ backward (the whole backward as `ms`, the kernel alone
 as `kernel_ms`, the FMA backward's as `fma_ms` and `fma_kernel_ms`, both cluster
 sizes' kernels alone as `c8_ms` and `c16_ms`, the serial floor as `floor_ms`, cuDNN's
 backward as `library_ms`), with phase 12's launches; and DPTNet's LSTM forwards and
-backwards at each phase-13 shape, on its route (the forwards on "wide", with their tile
-as `tile` and the FMA kernel's time as `fma_ms`; f32 bounded at three TF32 products at the
-tensor cores' TF32 peak), with phase 13's launches of that kernel on that route. The bf16 fused_mask_decode rows'
+backwards at each phase-13 shape, on its route ("wide", with its tile as `tile` and the FMA
+kernel's time as `fma_ms`; f32 bounded at three TF32 products at the tensor cores' TF32
+peak; the backwards whole as `ms` and alone as `kernel_ms`, with phase 3j's cluster
+backward forced as `cluster_kernel_ms` and serial floor as `floor_ms`), with phase 13's
+launches of that kernel on that route. The bf16 fused_mask_decode rows'
 `library_ms` is torch.einsum on bf16 operands, whose output is bf16 (the kernel's is f32).
 """
 from __future__ import annotations
@@ -710,11 +726,13 @@ def bwd_limit(dtype, scale):
 def plan_bwd(module, B, n_chains, H, dtype, path=None):
     """module._plan_bwd as the wrapper calls it on this card, over its routes -> (path, tile)."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    clusters = None
+    clusters = wide = None
     if ls._needs_clusters(H, dtype, path, True, module.ROUTES):
         clusters = (module._tf32_bwd_clusters(H, "cuda") if H <= ls.MMA_MAX_HIDDEN
                     else ls._cluster_bwd_counts(H, "cuda"))
-    return module._plan_bwd(B, n_chains, H, dtype, sms, path, clusters, module.ROUTES)
+    if ls._needs_wide(H, dtype, path, module.ROUTES, backward=True):
+        wide = ls._wide_counts(H, dtype, "cuda", backward=True)
+    return module._plan_bwd(B, n_chains, H, dtype, sms, path, clusters, module.ROUTES, wide)
 
 
 def tile_label(tile) -> str:
@@ -746,8 +764,8 @@ def check_backward(module, kname, label, grads_of, plain_chains, ref, plain, tim
     FMA runs, REPEATS more launches are checked and the FMA kernel is forced and checked
     too. If `timed` (a shape where another kernel than FMA runs), the whole backward (gate
     recompute, kernel, parameter gradients) and the kernel alone are timed, the FMA kernel
-    and the planned one in turns (FMA, new, new, FMA; the cluster backward from CUDA graphs,
-    by cluster_bwd_turns), and `plain()` -> a timing dict."""
+    and the planned one in turns (FMA, new, new, FMA; the cluster and wide backwards from
+    CUDA graphs, by graph_bwd_turns), and `plain()` -> a timing dict."""
     xw, w_hh = plain_chains[0][:2]
     B, T, _ = xw.shape
     H, dtype = w_hh.shape[0], xw.dtype
@@ -779,8 +797,8 @@ def check_backward(module, kname, label, grads_of, plain_chains, ref, plain, tim
         log(f"    {REPEATS} more {path} launches: worst max|kernel-plain| {worst:.3f} of its limit")
     if not timed:
         return None
-    if path == "cluster":
-        timing = cluster_bwd_turns(plain_chains, tile[1], plain)
+    if path in ("cluster", "wide"):
+        timing = graph_bwd_turns(plain_chains, path, tile, plain)
         timing.update(max_abs_err=errs[path], fma_max_abs_err=errs["fma"])
         return timing
     # The staged arrays stay alive with each launch call.
@@ -818,31 +836,36 @@ def library_lstm_bwd_ms(B, T, H, chains, dtype, features=UMX["hidden_channels"])
                      iters=10)
 
 
-def cluster_bwd_turns(chains, C, plain):
-    """The cluster backward on clusters of C blocks timed from CUDA graphs in turns with
-    the FMA backward forced in the same run (FMA, cluster, cluster, FMA), the whole
-    backward (the gate recompute, the kernel, d_W_hh) and the kernel alone; beside the
-    plain version and cuDNN's backward -> a timing dict."""
+def graph_bwd_turns(chains, path, tile, plain, features=UMX["hidden_channels"]):
+    """The cluster or wide backward on its planned tile timed from CUDA graphs in turns with
+    the FMA backward forced in the same run (FMA, new, new, FMA), the whole backward (the
+    gate recompute, the kernel, d_W_hh) and the kernel alone; beside the plain version and
+    cuDNN's backward (input width `features`: UMX's 512 by default) -> a timing dict."""
     xw, w_hh = chains[0][:2]
     B, T, _ = xw.shape
     H = w_hh.shape[0]
-    calls = {"whole": {p: (lambda p=p: ls._backward_cuda(chains, p)) for p in ("fma", "cluster")},
-             "alone": {p: ls._staged_backward(chains, p)[1] for p in ("fma", "cluster")}}
-    repeats = {"fma": 1, "cluster": CLUSTER_REPEATS}
+    calls = {"whole": {p: (lambda p=p: ls._backward_cuda(chains, p)) for p in ("fma", path)},
+             "alone": {p: ls._staged_backward(chains, p)[1] for p in ("fma", path)}}
+    repeats = {"fma": 1, path: CLUSTER_REPEATS if path == "cluster" else 1}
     ms = {}
     for what, by_path in calls.items():
         fma_1, new_1, new_2, fma_2 = (graph_ms(by_path[p], repeats[p])
-                                      for p in ("fma", "cluster", "cluster", "fma"))
+                                      for p in ("fma", path, path, "fma"))
         ms[what] = ((new_1 + new_2) / 2, (fma_1 + fma_2) / 2)
-        log(f"    {'whole backward' if what == 'whole' else 'kernel alone'}: cluster (C={C}) "
-            f"{new_1:.4f} / {new_2:.4f} ms between FMA {fma_1:.4f} / {fma_2:.4f} ms (CUDA "
-            f"graphs)")
+        log(f"    {'whole backward' if what == 'whole' else 'kernel alone'}: {path} "
+            f"({tile_label(tile)}) {new_1:.4f} / {new_2:.4f} ms between FMA {fma_1:.4f} / "
+            f"{fma_2:.4f} ms (CUDA graphs)")
     plain_ms = median_ms(plain, warmup=1, iters=3)
-    library_ms = library_lstm_bwd_ms(B, T, H, len(chains), xw.dtype)
+    library_ms = library_lstm_bwd_ms(B, T, H, len(chains), xw.dtype, features)
     log(f"    plain {plain_ms:.4f} ms (median of 3); cuDNN nn.LSTM backward {library_ms:.4f} ms "
-        f"(F={UMX['hidden_channels']}, median of 10)")
-    return dict(cluster=C, ms=ms["whole"][0], kernel_ms=ms["alone"][0], fma_ms=ms["whole"][1],
-                fma_kernel_ms=ms["alone"][1], plain_ms=plain_ms, library_ms=library_ms)
+        f"(F={features}, median of 10)")
+    timing = dict(ms=ms["whole"][0], kernel_ms=ms["alone"][0], fma_ms=ms["whole"][1],
+                  fma_kernel_ms=ms["alone"][1], plain_ms=plain_ms, library_ms=library_ms)
+    if path == "cluster":
+        timing["cluster"] = tile[1]
+    else:
+        timing["tile"] = list(tile)
+    return timing
 
 
 def phase_lstm_bwd():
@@ -1298,7 +1321,7 @@ def phase_cluster_bwd(card):
                 continue
             timing = {f"c{c}_ms": graph_ms(ls._staged_backward(inputs, "cluster", c)[1],
                                            CLUSTER_REPEATS) for c in sizes}
-            timing["floor_ms"] = graph_ms(ls._staged_cluster_bwd_floor(inputs, tile[1])[1],
+            timing["floor_ms"] = graph_ms(ls._staged_bwd_floor(inputs, "cluster", tile)[1],
                                           CLUSTER_REPEATS)
             log(f"    kernel alone: " + ", ".join(f"C={k[1:-3]} {v:.4f} ms" for k, v in
                                                  timing.items() if k != "floor_ms")
@@ -1333,19 +1356,12 @@ def phase_cluster_bwd(card):
 # Phase 3i: the wide route of the LSTM forwards (csrc/recurrence_wide.cuh) at H = 256.
 # Every tile (M, C) of each dtype at B = 37 (no multiple of any M: rows past B in the last
 # tile), one and two chains, hs alone and with cs; a T = 1 case on the
-# plan's tile. Timed: DPTNet's forwards (serving's B = 8 x 4 s and recipe training's
-# B = 2 x 4 s, with cs) and musdb18 training's, (label, (B, T, chains), with cs); then
-# the crossover over B against the cluster route that WIDE_MIN_BATCH encodes.
+# plan's tile. Timed: musdb18 training's shape, (label, (B, T, chains), with cs), where the
+# plan weighs the wide route against the cluster route (phase 13k times DPTNet's shapes);
+# then the crossover over B against the cluster route that WIDE_MIN_BATCH encodes.
 WIDE_CHECK = (37, 57)
 WIDE_T1 = (20, 1)
-WIDE_TIMED = [
-    ("DPTNet serve intra", (5112, 100, 2), False),
-    ("DPTNet serve inter", (800, 639, 2), False),
-    ("DPTNet serve causal inter", (800, 639, 1), False),
-    ("DPTNet train intra", (1278, 100, 2), True),
-    ("DPTNet train inter", (200, 639, 2), True),
-    ("UMX train", (UMX_TRAIN_SHAPE[0], UMX_TRAIN_SHAPE[1], 2), True),
-]
+WIDE_TIMED = [("UMX train", (UMX_TRAIN_SHAPE[0], UMX_TRAIN_SHAPE[1], 2), True)]
 WIDE_CROSSOVER_BATCHES = (1, 4, 16, 64, 128, 200, 256, 512)
 WIDE_CROSSOVER_STEPS = (259, 639)
 
@@ -1491,6 +1507,168 @@ def wide_crossover(card):
                                 for b in WIDE_CROSSOVER_BATCHES if b >= B)), default=None)
             log(f"    {name} {str(dtype)[6:]}: wide wins from B = {least} of the sweep on; "
                 f"WIDE_MIN_BATCH = {ls.WIDE_MIN_BATCH[(dtype, chains)]}")
+    return rows
+
+
+# Phase 3j: the wide route of the LSTM backward (csrc/recurrence_wide_bwd.cuh) at H = 256.
+# Every tile (M, C) of each dtype at B = 37 (rows past B in the last tile), one and two
+# chains; T = 1 under autograd through the public wrappers. Timed: DPTNet's recipe training
+# shapes (B = 2 x 4 s) in f32 and the intra-chunk one in bf16, (label, (B, T, chains),
+# dtype); then the crossover over B against the cluster backward that WIDE_MIN_BATCH_BWD
+# encodes.
+WIDE_BWD_CHECK = (37, 57)
+WIDE_BWD_T1 = (80, 1)
+WIDE_BWD_TIMED = [
+    ("DPTNet train intra", (1278, 100, 2), torch.float32),
+    ("DPTNet train inter", (200, 639, 2), torch.float32),
+    ("DPTNet train causal inter", (200, 639, 1), torch.float32),
+    ("DPTNet train intra", (1278, 100, 2), torch.bfloat16),
+]
+WIDE_BWD_CROSSOVER_BATCHES = (1, 4, 16, 32, 64, 128, 256, 512)
+WIDE_BWD_CROSSOVER_STEPS = (259, 639)
+
+
+def phase_wide_bwd(card=None):
+    """The wide backward against lstm_scan_bwd_reference: every tile each dtype admits and
+    the card holds, one and two chains, on the path (counted), every launch repeated and
+    checked; T = 1 under autograd through the public wrappers (check_backward). At
+    WIDE_BWD_TIMED's shapes its plan tile timed whole and alone from CUDA graphs in turns
+    with the FMA backward (FMA, wide, wide, FMA), beside the cluster backward forced, every
+    tile, the serial floor (the product compiled out), the plain version, cuDNN's nn.LSTM
+    backward (F = 64, DPTNet's input width) and the bounds; then the crossover over B against the
+    cluster backward. -> {(name, dtype, label): timing, "crossover": rows}."""
+    log("== phase 3j: the wide route of lstm_scan_bidir_bwd and lstm_scan_bwd vs plain on the "
+        "card")
+    card = card or card_line()
+    H = ls.WIDE_HIDDEN
+    result = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        counts = ls._wide_counts(H, dtype, "cuda", backward=True)
+        log(f"  clusters of the wide backward the card holds at once, {str(dtype)[6:]}, by tile "
+            f"(M, C): {counts}")
+        tiles = [t for t in ls._wide_tiles(H, dtype, True) if counts[t] >= 1]
+        check(tiles, f"the card holds no cluster of the wide backward in {dtype}: {counts}")
+        for chains in (1, 2):
+            name = "lstm_scan_bidir_bwd" if chains == 2 else "lstm_scan_bwd"
+            B, T = WIDE_BWD_CHECK
+            inputs = bwd_chains(B, T, H, chains, dtype, seed=B + T + chains)
+            refs = [ls.lstm_scan_bwd_reference(*c) for c in inputs]
+            for tile in tiles:
+                what = f"{name} (B={B}, T={T}, H={H}) {str(dtype)[6:]} wide ({tile_label(tile)})"
+                staged, launch = ls._staged_backward(inputs, "wide", tile=tile)
+                on_path(ls.BWD_PATH_LAUNCHES[name], name, launch, "wide")
+                errs = staged_bwd_errors(name, staged, inputs, refs, dtype)
+                worst = max(x / lim if lim else 0.0 for x, lim in errs)
+                for _ in range(REPEATS):  # a race shows only in some launches
+                    launch()
+                    worst = max(worst, max(x / lim if lim else 0.0 for x, lim in
+                                           staged_bwd_errors(name, staged, inputs, refs, dtype)))
+                log(f"  {what}: max|kernel-plain| / limit of d_xw, d_W_hh: "
+                    + ", ".join(f"{x:.3e} / {lim:.3e}" for x, lim in errs)
+                    + f"; worst of {1 + REPEATS} launches {worst:.3f} of its limit "
+                    + ("ok" if worst <= 1 else "FAIL"))
+                check(worst <= 1, f"{what} disagrees with plain: {worst}")
+            B, T = WIDE_BWD_T1
+            path = plan_bwd(ls, B, chains, H, dtype)[0]
+            check(path == "wide", f"{name} at B={B} planned {path}, expected wide")
+            inputs = lstm_chains(B, T, H, chains, dtype, seed=B + T + chains)
+            hs, cs = ls._forward_cuda(inputs, with_cs=True)
+            autograd_backward(f"(B={B}, T={T}, H={H}) {str(dtype)[6:]} through the wrapper",
+                              inputs, hs, cs, timed=False)
+    for label, (B, T, chains), dtype in WIDE_BWD_TIMED:
+        name = "lstm_scan_bidir_bwd" if chains == 2 else "lstm_scan_bwd"
+        result[(name, dtype, label)] = wide_bwd_timing(label, name, B, T, chains, dtype, card)
+    result["crossover"] = wide_bwd_crossover(card)
+    return result
+
+
+def wide_bwd_timing(label, name, B, T, chains, dtype, card):
+    """One WIDE_BWD_TIMED case: the wide backward on its plan tile checked once, then timed
+    (graph_bwd_turns) beside the cluster backward forced, the serial floor and every tile
+    the card holds, alone -> timing."""
+    H = ls.WIDE_HIDDEN
+    inputs = bwd_chains(B, T, H, chains, dtype, seed=B + T)
+    path, tile = plan_bwd(ls, B, chains, H, dtype)
+    what = f"{name} {label} (B={B}, T={T}, H={H}) {str(dtype)[6:]}"
+    check(path == "wide", f"{what} planned {path}, expected wide")
+    refs = [ls.lstm_scan_bwd_reference(*c) for c in inputs]
+    staged, launch = ls._staged_backward(inputs)
+    on_path(ls.BWD_PATH_LAUNCHES[name], name, launch, "wide")
+    errs = staged_bwd_errors(name, staged, inputs, refs, dtype)
+    log(f"  {what} wide ({tile_label(tile)}): max|kernel-plain| / limit of d_xw, d_W_hh: "
+        + ", ".join(f"{x:.3e} / {lim:.3e}" for x, lim in errs))
+    check(all(x <= lim for x, lim in errs), f"{what} disagrees with plain: {errs}")
+    del staged, launch
+    timing = graph_bwd_turns(inputs, "wide", tile,
+                             lambda: [ls.lstm_scan_bwd_reference(*c) for c in inputs],
+                             features=DPT_E)
+    timing["max_abs_err"] = max(x for x, _ in errs)
+    cluster = plan_bwd(ls, B, chains, H, dtype, "cluster")[1][1]
+    timing["cluster_kernel_ms"] = graph_ms(ls._staged_backward(inputs, "cluster")[1],
+                                           CLUSTER_REPEATS if B * chains <= 64 else 1)
+    timing["floor_ms"] = graph_ms(ls._staged_bwd_floor(inputs, "wide", tile)[1], 1)
+    counts = ls._wide_counts(H, dtype, "cuda", backward=True)
+    timing["tiles_ms"] = {f"{m}x{c}": graph_ms(ls._staged_backward(inputs, "wide",
+                                                                   tile=(m, c))[1], 1)
+                          for m, c in ls._wide_tiles(H, dtype, True) if counts[(m, c)] >= 1}
+    log("    every tile alone: " + ", ".join(f"(M, C) = ({k.replace('x', ', ')}) {v:.4f} ms"
+                                             for k, v in timing["tiles_ms"].items()))
+    products = 3 if dtype == torch.float32 else 2
+    timing["kernel_bound_ms"] = backward_kernel_bound(B, T, H, 4, chains, dtype,
+                                                      products)["bound_ms"]
+    timing.update(recurrence_bound(B, T, H, 4, chains, backward=True, cell_state=True,
+                                   dtype=dtype, tf32=products))
+    log(f"    cluster backward (C={cluster}) alone {timing['cluster_kernel_ms']:.4f} ms; serial "
+        f"floor {timing['floor_ms']:.4f} ms ({timing['floor_ms'] / T * 1e3:.3f} us a step "
+        f"against {timing['kernel_ms'] / T * 1e3:.3f}); bound {timing['bound_ms']:.4f} ms "
+        f"whole ({timing['bound_by']}), {timing['kernel_bound_ms']:.4f} ms the kernel "
+        f"(CUDA graphs, CUDA events) [{card}]")
+    return timing
+
+
+def wide_bwd_crossover(card):
+    """The wide backward (its forced plan tile) against the cluster backward (its forced
+    plan cluster size) over WIDE_BWD_CROSSOVER_BATCHES, T in WIDE_BWD_CROSSOVER_STEPS, one
+    and two chains, both dtypes, the kernels alone from CUDA graphs, each pair's das held to
+    each other (both kernels are held to the plain version above) -> rows; the least B from
+    which wide wins at every larger B of the sweep, per (dtype, chains), is what
+    WIDE_MIN_BATCH_BWD encodes."""
+    log(f"  the wide backward against the cluster backward over B (kernels from CUDA graphs, "
+        f"medians of 5) [{card}]:")
+    H = ls.WIDE_HIDDEN
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for chains in (1, 2):
+            name = "lstm_scan_bidir_bwd" if chains == 2 else "lstm_scan_bwd"
+            wins = {}
+            for T in WIDE_BWD_CROSSOVER_STEPS:
+                for B in WIDE_BWD_CROSSOVER_BATCHES:
+                    inputs = bwd_chains(B, T, H, chains, dtype, seed=B + T + H)
+                    natural = plan_bwd(ls, B, chains, H, dtype)[0]
+                    tile = plan_bwd(ls, B, chains, H, dtype, "wide")[1]
+                    cluster = plan_bwd(ls, B, chains, H, dtype, "cluster")[1]
+                    staged, wide = ls._staged_backward(inputs, "wide", tile=tile)
+                    cstaged, cl = ls._staged_backward(inputs, "cluster")
+                    row = dict(name=name, dtype=str(dtype)[6:], B=B, T=T, plan=natural,
+                               tile=list(tile), cluster=cluster[1],
+                               wide_ms=graph_ms(wide, 1, iters=5),
+                               cluster_ms=graph_ms(cl, 2, iters=5))
+                    for a, b in zip(staged, cstaged):
+                        err = float((a[5] - b[5]).abs().max())
+                        limit = BWD_TOL * float(b[5].abs().max())
+                        check(err <= limit, f"{name} {dtype} at B={B}, T={T}: the wide and "
+                                            f"cluster backwards' das differ by {err} > {limit}")
+                    rows.append(row)
+                    wins[(T, B)] = row["wide_ms"] < row["cluster_ms"]
+                    log(f"    {name} {str(dtype)[6:]} T={T} B={B}: wide ({tile_label(tile)}) "
+                        f"{row['wide_ms']:.4f} ms, cluster (C={cluster[1]}) "
+                        f"{row['cluster_ms']:.4f} ms; the plan takes {natural}")
+                    del inputs, staged, cstaged, wide, cl
+            least = min((B for B in WIDE_BWD_CROSSOVER_BATCHES
+                         if all(wins[(T, b)] for T in WIDE_BWD_CROSSOVER_STEPS
+                                for b in WIDE_BWD_CROSSOVER_BATCHES if b >= B)), default=None)
+            log(f"    {name} {str(dtype)[6:]}: wide wins from B = {least} of the sweep on; "
+                f"WIDE_MIN_BATCH_BWD = {ls.WIDE_MIN_BATCH_BWD[(dtype, chains)]}")
     return rows
 
 
@@ -2172,7 +2350,8 @@ def timed_train_steps(cls, cfg, B, compute_dtype, card, what, warmup=3, iters=10
     return model
 
 
-BACKWARD_KERNELS = ("lstm_bwd_kernel", "gru_bwd_kernel", "bwd_tf32_kernel", "bwd_cluster_kernel")
+BACKWARD_KERNELS = ("lstm_bwd_kernel", "gru_bwd_kernel", "bwd_tf32_kernel", "bwd_cluster_kernel",
+                    "bwd_wide_kernel")
 FORWARD_KERNELS = ("lstm_kernel", "gru_kernel", "scan_mma_kernel", "scan_tf32_kernel",
                    "scan_cluster_kernel", "scan_wide_kernel")
 
@@ -2864,6 +3043,7 @@ DPT_SHAPES = [  # label, (B, T, chains), dtypes, training (cs written, backward 
     ("serve causal inter", (800, 639, 1), (torch.float32, torch.bfloat16), False),
     ("train intra", (1278, 100, 2), (torch.float32,), True),
     ("train inter", (200, 639, 2), (torch.float32,), True),
+    ("train causal inter", (200, 639, 1), (torch.float32,), True),
 ]
 DPT_WARMUP = 40  # --warmup_steps of the CLI run: the ramp reaches 2e-3 by step 20
 DPT_TRAIN_UTTS = 15  # synthetic train utterances: at least 10 steps of B = 2 x 4 s an epoch
@@ -3090,36 +3270,51 @@ def dptnet_kernel_timing(label, B, T, chains, dtype, training):
     return timing, inputs, hs, cs
 
 
-def dptnet_backward_timing(label, inputs, hs, cs):
-    """The backward at a DPTNet training shape (f32) under autograd on its planned route
-    against lstm_scan_bwd_reference, timed whole and alone beside the FMA backward
-    (check_backward), with cuDNN's nn.LSTM backward at F = 64."""
+def autograd_backward(label, inputs, hs, cs, timed):
+    """The backward of one or two (xw, w_hh) chains whose forward gave hs and cs, under
+    autograd through the public wrapper on its planned route, against
+    lstm_scan_bwd_reference (check_backward; timed whole and alone beside the FMA backward
+    if `timed`) -> check_backward's timing."""
     B, T, _ = inputs[0][0].shape
+    H, dtype = inputs[0][1].shape[0], inputs[0][0].dtype
     gen = torch.Generator(device="cuda").manual_seed(B + T + 1)
-    grads = [torch.randn(B, T, DPT_H, device="cuda", generator=gen) for _ in inputs]
-    chains = [(xw, w, h, c) for (xw, w), h, c in zip(inputs, hs, cs)]
-    kname = "lstm_scan_bidir_bwd" if len(chains) == 2 else "lstm_scan_bwd"
-    leaves = [t.clone().requires_grad_() for c in chains for t in c[:2]]
-    fn = ls.lstm_scan_bidir if len(chains) == 2 else ls.lstm_scan
+    grads = [torch.randn(B, T, H, device="cuda", generator=gen).to(dtype) for _ in inputs]
+    kname = "lstm_scan_bidir_bwd" if len(inputs) == 2 else "lstm_scan_bwd"
+    leaves = [t.clone().requires_grad_() for c in inputs for t in c]
+    fn = ls.lstm_scan_bidir if len(inputs) == 2 else ls.lstm_scan
 
     def grads_of():
         outs = fn(*leaves[0::2], *leaves[1::2])
         return torch.autograd.grad(outs if len(grads) == 2 else (outs,), leaves, grads)
 
-    plain_chains = [(*c, g) for c, g in zip(chains, grads)]
+    plain_chains = [(xw, w, h, c, g) for (xw, w), h, c, g in zip(inputs, hs, cs, grads)]
     ref = [d for c in plain_chains for d in ls.lstm_scan_bwd_reference(*c)]
-    timing = check_backward(ls, kname, f"DPTNet {label} (B={B}, T={T}, H={DPT_H}) float32",
-                            grads_of, plain_chains, ref,
-                            lambda: [ls.lstm_scan_bwd_reference(*c) for c in plain_chains],
-                            timed=True)
-    timing["path"] = plan_bwd(ls, B, len(chains), DPT_H, torch.float32)[0]
-    timing["library_ms"] = library_lstm_bwd_ms(B, T, DPT_H, len(chains), torch.float32,
+    return check_backward(ls, kname, label, grads_of, plain_chains, ref,
+                          lambda: [ls.lstm_scan_bwd_reference(*c) for c in plain_chains],
+                          timed=timed)
+
+
+def dptnet_backward_timing(label, inputs, hs, cs):
+    """The backward at a DPTNet training shape (f32) under autograd on its planned route
+    against lstm_scan_bwd_reference, timed whole and alone beside the FMA backward
+    (autograd_backward), with cuDNN's nn.LSTM backward at F = 64 and the route's bounds
+    (the wide route's recurrent product as three TF32 products)."""
+    B, T, _ = inputs[0][0].shape
+    chains = len(inputs)
+    timing = autograd_backward(f"DPTNet {label} (B={B}, T={T}, H={DPT_H}) float32", inputs, hs,
+                               cs, timed=True)
+    timing["path"] = plan_bwd(ls, B, chains, DPT_H, torch.float32)[0]
+    timing["library_ms"] = library_lstm_bwd_ms(B, T, DPT_H, chains, torch.float32,
                                                features=DPT_E)
-    timing.update(recurrence_bound(B, T, DPT_H, 4, len(chains), backward=True,
-                                   cell_state=True))
-    timing["kernel_bound_ms"] = backward_kernel_bound(B, T, DPT_H, 4, len(chains),
-                                                      torch.float32, 1,
-                                                      peak=torch.float32)["bound_ms"]
+    wide = timing["path"] == "wide"
+    timing.update(recurrence_bound(B, T, DPT_H, 4, chains, backward=True, cell_state=True,
+                                   tf32=3 if wide else 0))
+    timing["kernel_bound_ms"] = backward_kernel_bound(
+        B, T, DPT_H, 4, chains, torch.float32, 3 if wide else 1,
+        peak="tf32" if wide else torch.float32)["bound_ms"]
+    if wide:
+        timing["fma_bound_ms"] = recurrence_bound(B, T, DPT_H, 4, chains, backward=True,
+                                                  cell_state=True)["bound_ms"]
     log(f"    cuDNN nn.LSTM backward {timing['library_ms']:.4f} ms (F={DPT_E}); bound "
         f"{timing['bound_ms']:.4f} ms whole, {timing['kernel_bound_ms']:.4f} ms the kernel")
     return timing
@@ -3147,10 +3342,12 @@ def phase_dptnet_kernels(card=None):
 def dptnet_train_parity():
     """One DPTNet train step on the card against an f64 CPU step (and the f32 CPU step):
     the recipe's widths (N64, bottleneck 64, H256, K100, four heads) at two blocks and
-    B = 1 x 1 s, so the f64 reference fits the host."""
+    B = 1 x 1 s, so the f64 reference fits the host; non-causal and causal. -> the two card
+    steps' launches (the main path's one-chain backward is the causal step's)."""
     log("== phase 13: one DPTNet train step, card vs CPU (f32, TF32 off, recipe widths, 2 "
         "blocks, B=1 x 1 s; f64 CPU reference)")
     n = SAMPLE_RATE
+    launches = {}
     for causal in (False, True):
         tag = f"dptnet{'_causal' if causal else ''}"
         cpu_model = dptnet_model(causal, "cpu", blocks=2)
@@ -3166,6 +3363,8 @@ def dptnet_train_parity():
         check_dptnet_launches(grew, routes, f"{tag}: a train step")
         check_step_against_f64(tag, ref, cpu, card_step, kernels_of(grew))
         log(f"    launches by route: {routes_of(grew)}")
+        launches = add_counts(launches, grew)
+    return launches
 
 
 def dptnet_train_cli(tmp, card):
@@ -3292,7 +3491,7 @@ def phase_dptnet(card=None, tmp=None):
                     model.to(dtype), dtype, tag.endswith("causal"), card)
                 total = add_counts(total, launches)
             del model
-        dptnet_train_parity()
+        total = add_counts(total, dptnet_train_parity())
         trained, _ = dptnet_train_cli(tmp, card)
         total = add_counts(total, trained)
     log("== phase 13: the bench module, --model dptnet (informational; in this process, its "
@@ -3394,7 +3593,7 @@ def phase_build():
 
 ONLY_PHASES = {"3": phase_kernel, "3b": phase_lstm, "3c": phase_gru, "3d": phase_lstm_bwd,
                "3e": phase_gru_bwd, "3f": phase_quantize, "3g": phase_library,
-               "3h": phase_cluster, "3i": phase_wide,
+               "3h": phase_cluster, "3i": phase_wide, "3j": phase_wide_bwd,
                "6s": phase_stream_hops, "11": phase_musdb, "12": phase_musdb_train,
                "13": phase_dptnet, "13k": phase_dptnet_kernels}
 
@@ -3434,6 +3633,7 @@ def main(argv=None) -> int:
     library = phase_library()
     cluster_timings = phase_cluster(card)
     wide_timings = phase_wide(card)
+    wide_bwd_timings = phase_wide_bwd(card)
     blocks = DPRNN["sep_num_blocks"]
     stream_flags = ["--streaming_hop", str(STREAMING_HOP)]
     with tempfile.TemporaryDirectory() as tmp:
@@ -3525,21 +3725,17 @@ def main(argv=None) -> int:
                 musdb["causal_launches"], musdb_train["serve"]]:
         umx_served = {k: v + run[k] for k, v in umx_served.items()}
     total = {k: v + umx_served[k] + musdb_train["train"][k] for k, v in total.items()}
-    # The wsj0 models have H = 128 (tensor cores), musdb18's UMX B = 1 at H = 256 and
-    # 512 and B = 16 at H = 256 (the cluster and wide kernels, the cluster backward):
-    # no FMA kernel.
+    # DPTNet (phase 13, H = 256 at B = 1-5112) runs the wide and cluster forwards and
+    # backwards where _plan and _plan_bwd put each of its shapes; phase 13 held every launch
+    # to its route. Its decodes join the served widths' rows.
+    dpt_launches = dptnet["launches"]
+    total = {k: v + dpt_launches.get(k, 0) for k, v in total.items()}
+    # The wsj0 models have H = 128 (tensor cores), musdb18's UMX B = 1 at H = 256 and 512
+    # and B = 16 at H = 256 (the cluster kernels), DPTNet H = 256 (the wide and cluster
+    # kernels): no FMA kernel.
     for name, n in total.items():
         if name.endswith("/fma"):
             check(n == 0, f"the main path launched the FMA kernel: {name} {n} times")
-    # DPTNet (phase 13, H = 256 at B = 1-5112) runs the wide and cluster forwards, and the
-    # cluster and FMA backwards, where _plan and _plan_bwd put each of its shapes; phase 13
-    # held every launch to its route. No forward at H = 256 is left to the FMA kernel.
-    # Its decodes join the served widths' rows.
-    dpt_launches = dptnet["launches"]
-    total = {k: v + dpt_launches.get(k, 0) for k, v in total.items()}
-    for name in ("lstm_scan", "lstm_scan_bidir"):
-        check(total[f"{name}/fma"] == 0,
-              f"the main path launched the FMA forward: {name} {total[f'{name}/fma']} times")
     for name, n in total.items():
         # No main path trains a one-chain LSTM at H > 128 on few sequences: its cluster
         # backward is phase 3d's and 3h's.
@@ -3701,6 +3897,7 @@ def main(argv=None) -> int:
         source = {("cluster", False): "csrc/recurrence_cluster.cuh",
                   ("cluster", True): "csrc/recurrence_cluster_bwd.cuh",
                   ("wide", False): "csrc/recurrence_wide.cuh",
+                  ("wide", True): "csrc/recurrence_wide_bwd.cuh",
                   ("fma", False): "csrc/lstm_scan.cu",
                   ("fma", True): "csrc/lstm_scan_bwd.cu"}[(route, backward)]
         replaces = {"lstm_scan_bidir": "ops/pallas_lstm.py:323",
@@ -3714,8 +3911,14 @@ def main(argv=None) -> int:
         entry.update(path=route, shape=f"DPTNet {label} B={B} T={T} H={DPT_H}"
                      + (", with cs" if "train" in label else ""),
                      **{k: timing[k] for k in ("kernel_ms", "fma_kernel_ms", "kernel_bound_ms",
-                                               "fma_max_abs_err", "cluster", "tile")
+                                               "fma_bound_ms", "fma_max_abs_err", "cluster",
+                                               "tile")
                         if k in timing})
+        # The wide backward's rows also carry phase 3j's cluster backward forced and serial
+        # floor at the same shape.
+        extra = wide_bwd_timings.get((name, dtype, f"DPTNet {label}")) if backward else None
+        if route == "wide" and extra is not None:
+            entry.update(cluster_kernel_ms=extra["cluster_kernel_ms"], floor_ms=extra["floor_ms"])
         entries.append(entry)
     entries += [
         # Two reads of x and one int8 write; no single PyTorch call computes it.

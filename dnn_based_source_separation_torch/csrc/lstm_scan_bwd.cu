@@ -26,18 +26,22 @@
 // in bfloat16 the backward sees the rounded c, as the Pallas kernel's does.
 // W_hh is read in its own dtype: bfloat16 widens to f32 exactly.
 //
-// Three paths, chosen by the caller (ops/lstm_scan.py:_plan_bwd) from the dtype,
+// Four paths, chosen by the caller (ops/lstm_scan.py:_plan_bwd) from the dtype,
 // the shape and the card's co-resident clusters before the launch, never after a
 // failure:
 //   * "tf32x3" (float32) and "tf32x2" (bfloat16) for H a multiple of 16 up to
 //     128: the tensor-core kernel of csrc/recurrence_bwd_tf32.cuh with the
 //     cell LstmBwdCell below, the product in three (f32 W) or two (bf16 W)
 //     TF32 products on a cluster of 2 or 4 blocks; it reads W_hh (H, 4H);
+//   * "wide" (either dtype) for many sequences at H = 256 (DPTNet training's 1278
+//     and 200): the kernel of csrc/recurrence_wide_bwd.cuh, an M-row tile a cluster
+//     of C blocks, each with its units' gate columns of W_hh on chip, the product on
+//     the tensor cores and its partial sums reduce-scattered; it reads W_hh (H, 4H);
 //   * "cluster" (either dtype) for few sequences at H = 256, 384 or 512 (musdb18
 //     training's B = 16): the kernel of csrc/recurrence_cluster_bwd.cuh, one
 //     sequence a cluster of 8 or 16 blocks with W_hh on chip; it reads W_hh (H, 4H);
-//   * "fma": every other call (H = 40, many sequences at H = 256, ...), the FMA
-//     kernel of this file; it reads W_hh^T (4H, H).
+//   * "fma": every other call (H = 40, many sequences at H = 384 and 512, ...), the
+//     FMA kernel of this file; it reads W_hh^T (4H, H).
 //
 // What bounds the FMA kernel. The same as the forward (csrc/lstm_scan.cu): each
 // step of a chain depends on the one after it, so time is a loop inside the
@@ -77,6 +81,7 @@
 
 #include "recurrence_bwd_tf32.cuh"
 #include "recurrence_cluster_bwd.cuh"
+#include "recurrence_wide_bwd.cuh"
 
 namespace {
 
@@ -393,10 +398,14 @@ cluster_bwd::Chains cluster_chains(const Chains& c) {
 
 // path 0: the FMA kernel with tile R (W_hh^T); path 2 (float32) / 3 (bfloat16):
 // the tensor-core kernel with tile M and clusters of `cluster` blocks (W_hh);
-// path 4: the cluster kernel, tile 1, one sequence a cluster of `cluster` blocks (W_hh).
+// path 4: the cluster kernel, tile 1, one sequence a cluster of `cluster` blocks (W_hh);
+// path 5: the wide kernel, tiles of M = `tile` rows a cluster of `cluster` blocks (W_hh).
 int dispatch(const Chains& chains, int n_chains, int dtype, int B, int T_len, int H, int path,
              int tile, int cluster, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (path == 5)
+    return wide_bwd::launch(cluster_chains(chains), n_chains, dtype, B, T_len, H, tile, cluster,
+                            true, st);
   if (path == 4) {
     if (tile != 1) return (int)cudaErrorInvalidValue;
     return cluster_bwd::launch(cluster_chains(chains), n_chains, dtype, B, T_len, H, cluster,
@@ -421,9 +430,11 @@ int dispatch(const Chains& chains, int n_chains, int dtype, int B, int T_len, in
 // and W_hh (H, 4H) on paths 2, 3 and 4. path 0 (FMA, tile = R in {1, 2, 4}),
 // 2 (tensor cores, float32, three TF32 products) or 3 (tensor cores,
 // bfloat16, two), both with H % 16 == 0, H <= 128, tile = M = 16 and
-// cluster = C in {2, 4} with H % 8C == 0, or 4 (cluster kernel, either dtype,
+// cluster = C in {2, 4} with H % 8C == 0, 4 (cluster kernel, either dtype,
 // H in {256, 384, 512}, tile = 1, cluster = C in {8, 16}: 8 or 16 at H = 256,
-// 16 above), from ops/lstm_scan.py:_plan_bwd.
+// 16 above) or 5 (wide kernel, either dtype, H = 256, tile = M in {16, 32, 64} and
+// cluster = C in {8, 16} (float32) or {4, 8} (bfloat16) where the shared memory
+// fits), from ops/lstm_scan.py:_plan_bwd.
 // Returns a cudaError_t (0 on success). The Python wrapper validates every
 // argument.
 extern "C" int lstm_scan_bwd_launch(const float* gates, const void* cs, const void* g_hs,
@@ -477,4 +488,28 @@ extern "C" int lstm_scan_bwd_cluster_floor_launch(const float* gates_f, const fl
                          {das_f, das_b}, {d_xw_f, d_xw_b}};
   return cluster_bwd::launch(cluster_chains(chains), gates_b == nullptr ? 1 : 2, dtype, B, T, H,
                              cluster, false, static_cast<cudaStream_t>(stream));
+}
+
+// The clusters of C blocks of the wide backward at hidden size H, tile M and dtype (0
+// float32, 1 bfloat16) that the current card holds at once, each block on an SM of its
+// own, into *clusters (0 where no GPC has C free SMs; what _plan_bwd fits a wave to).
+extern "C" int lstm_scan_bwd_wide_clusters(int H, int M, int C, int dtype, int* clusters) {
+  return wide_bwd::max_clusters(H, M, C, dtype, clusters);
+}
+
+// The wide backward with its product compiled out (the serial floor: the cell derivative,
+// the exchange of the partial sums and their sums of every step), over one or two chains
+// (the second chain's arrays null for one), tiles of M rows a cluster of C blocks. It
+// writes das (and d_xw), not a recurrence's; chip_smoke.py times it beside the kernel.
+extern "C" int lstm_scan_bwd_wide_floor_launch(const float* gates_f, const float* gates_b,
+                                               const void* cs_f, const void* cs_b,
+                                               const void* g_f, const void* g_b,
+                                               const void* w_f, const void* w_b,
+                                               float* das_f, float* das_b, void* d_xw_f,
+                                               void* d_xw_b, int dtype, int B, int T, int H,
+                                               int tile, int cluster, void* stream) {
+  const Chains chains = {{gates_f, gates_b}, {cs_f, cs_b}, {g_f, g_b}, {w_f, w_b},
+                         {das_f, das_b}, {d_xw_f, d_xw_b}};
+  return wide_bwd::launch(cluster_chains(chains), gates_b == nullptr ? 1 : 2, dtype, B, T, H,
+                          tile, cluster, false, static_cast<cudaStream_t>(stream));
 }

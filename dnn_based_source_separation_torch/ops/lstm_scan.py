@@ -22,12 +22,16 @@ tensor cores, mma.sync bf16 or 3xTF32), in either dtype; for H = 256, 384 or
 W_hh held in their registers and shared memory, h exchanged through
 distributed shared memory), in either dtype; the FMA kernel (`"fma"`) for
 every other call (H = 40, 384 and 512 past the cluster route, ...). The
-backward has three, which `_plan_bwd`
+backward has four, which `_plan_bwd`
 picks the same way: for H a multiple of 16 up to 128 the split-TF32
 tensor-core kernel of `csrc/recurrence_bwd_tf32.cuh` (`"tf32x3"` for
 float32, three TF32 products; `"tf32x2"` for bfloat16, two, since a bf16
-W_hh is a TF32 value), on clusters of 2 or 4 blocks; for H = 256, 384 or 512
-and few sequences (musdb18 training's B = 16) `"cluster"`
+W_hh is a TF32 value), on clusters of 2 or 4 blocks; for H = 256 and many
+sequences (DPTNet training's 1278 and 200) `"wide"`
+(`csrc/recurrence_wide_bwd.cuh`: an M-row tile a cluster of C blocks, each
+rank's gate columns of W_hh on chip, the product in split TF32 on the tensor
+cores, its partial sums reduce-scattered between the ranks), in either dtype;
+for H = 256, 384 or 512 and few sequences (musdb18 training's B = 16) `"cluster"`
 (`csrc/recurrence_cluster_bwd.cuh`: the forward's design, one sequence a cluster
 of 8 or 16 blocks with W_hh's rows of each rank's units on chip, da exchanged
 through distributed shared memory), in either dtype; the FMA kernel (`"fma"`)
@@ -65,7 +69,7 @@ LAUNCHES = {"lstm_scan": 0, "lstm_scan_bidir": 0, "lstm_scan_bwd": 0, "lstm_scan
 PATH_LAUNCHES = {name: {"mma": 0, "tf32x3": 0, "cluster": 0, "wide": 0, "fma": 0}
                  for name in ("lstm_scan", "lstm_scan_bidir")}
 # The backward launches above, split by the path `_plan_bwd` chose.
-BWD_PATH_LAUNCHES = {name: {"tf32x3": 0, "tf32x2": 0, "cluster": 0, "fma": 0}
+BWD_PATH_LAUNCHES = {name: {"tf32x3": 0, "tf32x2": 0, "cluster": 0, "wide": 0, "fma": 0}
                      for name in ("lstm_scan_bwd", "lstm_scan_bidir_bwd")}
 
 MAX_HIDDEN = 512
@@ -142,6 +146,27 @@ WIDE_MAX_WARPS = 16
 # 0.8896, at 16 wide 0.3931 / 0.9664 against 0.6546 / 1.5957.
 WIDE_MIN_BATCH = {(torch.float32, 1): 64, (torch.float32, 2): 64,
                   (torch.bfloat16, 1): 16, (torch.bfloat16, 2): 16}
+# The wide backward (csrc/recurrence_wide_bwd.cuh): the forward's tiles, cluster sizes and
+# ranks; WIDE_BWD_WARPS warps a block, each over H / WIDE_BWD_WARPS output units of the
+# product and, in the first (M / 16) (H / 8C) warps, the cell of 16 rows x 8 units. Each
+# rank's H x 4H/C slice of W_hh in shared memory beside two mbarriers, the da tile
+# [M][4H/C + WIDE_BWD_PAD_DA] f32 and the receive tile [2][C][M][H/C + WIDE_BWD_PAD_BLOCK]
+# f32 (block r of a buffer what rank r summed for this rank's units).
+WIDE_BWD_WARPS = 8
+WIDE_BWD_PAD_DA = 4
+WIDE_BWD_PAD_BLOCK = 8
+# The least B at which the backward plan takes the wide kernel over the cluster backward
+# (H = 256), by dtype and chains: the least B of chip_smoke.py phase 3j's sweep (B = 1, 4,
+# 16, 32, 64, 128, 256, 512 at T = 259 and 639, kernels alone) from which the wide kernel
+# won at every larger B, on an H100 (PERF.md, section 6). f32, one chain: at B = 32 the
+# cluster backward took 0.7574 / 1.8002 ms (T = 259 / 639) against 0.8233 / 2.0050, at 64
+# wide 0.8276 / 2.0198 against 1.2659 / 3.0352; two chains: at 16 cluster 0.7570 / 1.8165
+# against 0.8243 / 2.0243 (musdb18 training's B = 16 stays), at 32 wide 0.8288 / 2.0274
+# against 1.2662 / 3.0529. bf16, one chain: at 32 cluster 1.0658 ms at T = 259 against
+# 1.1375; two chains: at 16 cluster 1.0774 / 2.6135 against 1.1489 / 2.7743, at 32 wide
+# 1.1440 / 2.7820 against 1.7891 / 4.3608.
+WIDE_MIN_BATCH_BWD = {(torch.float32, 1): 64, (torch.float32, 2): 32,
+                      (torch.bfloat16, 1): 64, (torch.bfloat16, 2): 32}
 
 
 def lstm_steps(xw: torch.Tensor, w_hh: torch.Tensor, state=None, cs: torch.Tensor | None = None):
@@ -360,32 +385,67 @@ def wide_layout(H: int, M: int, C: int, dtype: torch.dtype = torch.float32) -> d
                 w_smem_bytes=w_bytes, h_smem_bytes=h_bytes, smem_bytes=max(need, OWN_SM))
 
 
-def _wide_tiles(H: int, dtype: torch.dtype) -> list:
-    """The tiles (M, C) at which the wide kernel takes hidden size H in `dtype`."""
+def wide_bwd_layout(H: int, M: int, C: int, dtype: torch.dtype = torch.float32) -> dict | None:
+    """The wide backward's layout at hidden size H, tile M and clusters of C blocks, or None
+    where it cannot run (`shape_ok` and `smem_bytes` of csrc/recurrence_wide_bwd.cuh).
+
+    H = WIDE_HIDDEN; C in WIDE_CLUSTER_SIZES[dtype]; M in WIDE_TILE_ROWS. A rank owns
+    H / C units and their 4H / C gate columns (the product's K); WIDE_BWD_WARPS warps, at
+    most one cell tile (16 rows x 8 units) each. The shared memory (two mbarriers, the
+    rank's H x 4H/C slice of W_hh in the dtype, the da tile and the receive tile in f32)
+    within SHARED_LIMIT, and at least OWN_SM.
+    """
+    if (H != WIDE_HIDDEN or M not in WIDE_TILE_ROWS
+            or C not in WIDE_CLUSTER_SIZES.get(dtype, ())):
+        return None
+    elem = torch.tensor([], dtype=dtype).element_size()
+    units = H // C
+    columns = 4 * units
+    cell_tiles = M // 16 * (units // 8)
+    w_bytes = H * columns * elem
+    da_bytes = 4 * M * (columns + WIDE_BWD_PAD_DA)
+    block_bytes = 4 * M * (units + WIDE_BWD_PAD_BLOCK)
+    recv_bytes = 2 * C * block_bytes
+    need = 16 + w_bytes + da_bytes + recv_bytes
+    if need > SHARED_LIMIT or cell_tiles > WIDE_BWD_WARPS:
+        return None
+    return dict(units=units, columns=columns, warps=WIDE_BWD_WARPS,
+                threads=32 * WIDE_BWD_WARPS, cell_tiles=cell_tiles,
+                n_tiles_per_warp=H // 8 // WIDE_BWD_WARPS, block_bytes=block_bytes,
+                sent_bytes=(C - 1) * block_bytes, w_smem_bytes=w_bytes, da_smem_bytes=da_bytes,
+                recv_smem_bytes=recv_bytes, smem_bytes=max(need, OWN_SM))
+
+
+def _wide_tiles(H: int, dtype: torch.dtype, backward: bool = False) -> list:
+    """The tiles (M, C) at which the wide kernel (the backward's if `backward`) takes hidden
+    size H in `dtype`."""
+    layout = wide_bwd_layout if backward else wide_layout
     return [(m, c) for c in WIDE_CLUSTER_SIZES.get(dtype, ()) for m in WIDE_TILE_ROWS
-            if wide_layout(H, m, c, dtype)]
+            if layout(H, m, c, dtype)]
 
 
 def _wide_tile(B: int, n_chains: int, H: int, dtype: torch.dtype, wide: dict | None,
-               forced: bool = False) -> tuple[int, int] | None:
-    """The wide kernel's tile (M, C), or None.
+               forced: bool = False, backward: bool = False) -> tuple[int, int] | None:
+    """The wide kernel's tile (M, C), or None: the forward's, or the backward's if
+    `backward`.
 
     Of the tiles H admits in `dtype` and the card holds (`wide`, {(M, C):
     co-resident clusters of the kernel at that tile}, 0 where no GPC has C free
     SMs), `_tf32_tile`'s rule: the fewest waves, then the fewest rows x units a
     block (M / C), then the smaller cluster and tile. The plan takes the route for
-    B from WIDE_MIN_BATCH[(dtype, n_chains)] up; forced (`path="wide"`) it runs any
-    B, and raises where no tile can run.
+    B from WIDE_MIN_BATCH[(dtype, n_chains)] up (the backward's WIDE_MIN_BATCH_BWD);
+    forced (`path="wide"`) it runs any B, and raises where no tile can run.
     """
     options = [(-(-(n_chains * -(-B // m)) // wide[(m, c)]), m / c, c, m)
-               for m, c in _wide_tiles(H, dtype) if (wide or {}).get((m, c), 0) >= 1]
+               for m, c in _wide_tiles(H, dtype, backward) if (wide or {}).get((m, c), 0) >= 1]
     if not options:
         if forced:
             raise ValueError(f"the wide path takes H = {WIDE_HIDDEN} in bfloat16 (clusters of "
                              f"4 or 8 blocks) or float32 (8 or 16) that the card holds; got "
                              f"H = {H}, {dtype}, clusters {wide}")
         return None
-    if not forced and B < WIDE_MIN_BATCH[(dtype, n_chains)]:
+    least = (WIDE_MIN_BATCH_BWD if backward else WIDE_MIN_BATCH)[(dtype, n_chains)]
+    if not forced and B < least:
         return None
     *_, c, m = min(options)
     return m, c
@@ -488,7 +548,7 @@ def _fma_tile(B: int, n_chains: int, H: int, sms: int) -> int:
 
 def _plan_bwd(B: int, n_chains: int, H: int, dtype: torch.dtype, sms: int,
               path: str | None = None, clusters: dict | None = None,
-              routes: tuple = FORWARD_ROUTES) -> tuple[str, int | tuple]:
+              routes: tuple = FORWARD_ROUTES, wide: dict | None = None) -> tuple[str, int | tuple]:
     """The backward kernel and tile for B sequences on each of `n_chains` chains -> (path, tile).
 
     For H a multiple of 16 up to MMA_MAX_HIDDEN the split-TF32 tensor cores,
@@ -496,16 +556,24 @@ def _plan_bwd(B: int, n_chains: int, H: int, dtype: torch.dtype, sms: int,
     `_tf32_tile` from `clusters` (the backward kernel's, which the caller
     queries) over M in BWD_TILE_ROWS: at the training shapes M = 16 on
     2-block clusters, one wave. Where no tensor-core path runs and the calling
-    wrapper's `routes` hold "cluster" (the LSTM's ROUTES), "cluster" (tile
-    (1, C)) by `_cluster_tile` from `clusters`, the cluster backward's counts,
-    for B up to CLUSTER_MAX_BATCH_BWD at H = 256, 384 or 512 (musdb18
-    training: C = 8). "fma" (tile R, the forward's rule) for every other
-    call. `path` forces one (the FMA path, to time both); forcing a path
-    where it cannot run raises, "cluster" also from a wrapper whose routes
-    lack it. The GRU wrapper plans with this function too, with
-    FORWARD_ROUTES.
+    wrapper's `routes` hold "wide" and "cluster" (the LSTM's ROUTES): "wide"
+    (tile (M, C)) by `_wide_tile` from `wide`, the wide backward's counts by
+    tile, for many sequences at H = 256 (B from WIDE_MIN_BATCH_BWD up: DPTNet
+    training); below that, or at H = 384 and 512, "cluster" (tile (1, C)) by
+    `_cluster_tile` from `clusters`, the cluster backward's counts, for B up to
+    CLUSTER_MAX_BATCH_BWD (musdb18 training: C = 8). "fma" (tile R, the
+    forward's rule) for every other call. `path` forces one (the FMA path, to
+    time both); forcing a path where it cannot run raises, "cluster" and "wide"
+    also from a wrapper whose routes lack them. The GRU wrapper plans with this
+    function too, with FORWARD_ROUTES.
     """
     natural = _tensor_core_path(H, dtype, backward=True)
+    if path == "wide" or (path is None and natural is None and "wide" in routes):
+        if "wide" not in routes:
+            raise ValueError(f"this wrapper has no wide backward (routes {routes})")
+        tile = _wide_tile(B, n_chains, H, dtype, wide, forced=path == "wide", backward=True)
+        if tile is not None:
+            return "wide", tile
     if path == "cluster" or (path is None and natural is None and "cluster" in routes):
         if "cluster" not in routes:
             raise ValueError(f"this wrapper has no cluster backward (routes {routes})")
@@ -596,11 +664,14 @@ def _needs_clusters(H: int, dtype: torch.dtype, path: str | None, backward: bool
             and bool(_cluster_sizes(H, dtype, backward)))
 
 
-def _needs_wide(H: int, dtype: torch.dtype, path: str | None, routes: tuple = FORWARD_ROUTES) -> bool:
-    """Whether a forward plan at H in `dtype` (forced to `path`, if given) may take the
-    wide kernel, so that the caller must ask the card for its co-resident clusters."""
-    return ("wide" in routes and path in (None, "wide") and _tensor_core_path(H, dtype) is None
-            and bool(_wide_tiles(H, dtype)))
+def _needs_wide(H: int, dtype: torch.dtype, path: str | None, routes: tuple = FORWARD_ROUTES,
+                backward: bool = False) -> bool:
+    """Whether a forward plan (a backward one if `backward`) at H in `dtype` (forced to
+    `path`, if given) may take the wide kernel, so that the caller must ask the card for
+    its co-resident clusters."""
+    return ("wide" in routes and path in (None, "wide")
+            and _tensor_core_path(H, dtype, backward) is None
+            and bool(_wide_tiles(H, dtype, backward)))
 
 
 def _plan_launch(clusters_of, chains, path, backward=False, routes=FORWARD_ROUTES):
@@ -618,10 +689,11 @@ def _plan_launch(clusters_of, chains, path, backward=False, routes=FORWARD_ROUTE
     clusters = wide = None
     if _needs_clusters(H, xw0.dtype, path, backward, routes):
         clusters = clusters_of(H, xw0.device)
+    if _needs_wide(H, xw0.dtype, path, routes, backward):
+        wide = _wide_counts(H, xw0.dtype, xw0.device, backward)
     if backward:
-        return (B, T, H, *_plan_bwd(B, len(chains), H, xw0.dtype, sms, path, clusters, routes))
-    if _needs_wide(H, xw0.dtype, path, routes):
-        wide = _wide_counts(H, xw0.dtype, xw0.device)
+        return (B, T, H, *_plan_bwd(B, len(chains), H, xw0.dtype, sms, path, clusters, routes,
+                                    wide))
     return (B, T, H, *_plan(B, len(chains), H, xw0.dtype, sms, path, clusters, routes, wide))
 
 
@@ -661,6 +733,10 @@ def _bwd_library():
         lib.lstm_scan_bwd_cluster_clusters.restype = i
         lib.lstm_scan_bwd_cluster_floor_launch.argtypes = [p] * 12 + [i] * 5 + [p]
         lib.lstm_scan_bwd_cluster_floor_launch.restype = i
+        lib.lstm_scan_bwd_wide_clusters.argtypes = [i, i, i, i, ctypes.POINTER(i)]
+        lib.lstm_scan_bwd_wide_clusters.restype = i
+        lib.lstm_scan_bwd_wide_floor_launch.argtypes = [p] * 12 + [i] * 6 + [p]
+        lib.lstm_scan_bwd_wide_floor_launch.restype = i
         _BWD_LIB = lib
     return _BWD_LIB
 
@@ -682,20 +758,22 @@ def _cluster_counts(H: int, device) -> dict:
                                  sizes=_cluster_sizes(H), required=False)
 
 
-def _wide_counts(H: int, dtype: torch.dtype, device) -> dict:
-    """{(M, C): clusters of C blocks of the wide kernel at H, tile M and `dtype` the card
-    holds at once}, for each tile H admits in `dtype`; 0 where no GPC has C free SMs."""
+def _wide_counts(H: int, dtype: torch.dtype, device, backward: bool = False) -> dict:
+    """{(M, C): clusters of C blocks of the wide kernel (the backward's if `backward`) at H,
+    tile M and `dtype` the card holds at once}, for each tile H admits in `dtype`; 0 where
+    no GPC has C free SMs."""
     device = torch.device(device)
+    fn = (_bwd_library().lstm_scan_bwd_wide_clusters if backward
+          else _library().lstm_scan_wide_clusters)
     with torch.cuda.device(device):
-        key = ("lstm_scan_wide_clusters", torch.cuda.current_device(), H, dtype)
+        key = (fn.__name__, torch.cuda.current_device(), H, dtype)
         if key not in _CLUSTERS:
             counts = {}
-            for m, c in _wide_tiles(H, dtype):
+            for m, c in _wide_tiles(H, dtype, backward):
                 n = ctypes.c_int(0)
-                err = _library().lstm_scan_wide_clusters(H, m, c, _DTYPE_CODE[dtype],
-                                                          ctypes.byref(n))
+                err = fn(H, m, c, _DTYPE_CODE[dtype], ctypes.byref(n))
                 if err != 0:
-                    raise RuntimeError(f"lstm_scan_wide_clusters(H = {H}, M = {m}, C = {c}, "
+                    raise RuntimeError(f"{fn.__name__}(H = {H}, M = {m}, C = {c}, "
                                        f"{dtype}) failed: cudaError {err}")
                 counts[(m, c)] = n.value
             _CLUSTERS[key] = counts
@@ -901,24 +979,32 @@ def _pointers(staged) -> list:
             + [None if s[6] is s[5] else s[6].data_ptr() for s in staged])
 
 
-def _staged_backward(chains, path: str | None = None, cluster: int | None = None):
+def _staged_backward(chains, path: str | None = None, cluster: int | None = None,
+                     tile: tuple | None = None):
     """Stage the backward kernel's inputs and outputs over one or two
     (xw, w_hh, hs, cs, g_hs) chains -> (staged arrays per chain, a call that launches it).
 
-    `path` forces a path of `_plan_bwd`, and `cluster` the cluster size of the
-    cluster path (only chip_smoke.py passes them, to time the FMA kernel where
-    another one would run, and both cluster sizes).
+    `path` forces a path of `_plan_bwd`, `cluster` the cluster size of the cluster
+    path and `tile` the tile (M, C) of the wide path (only chip_smoke.py passes them,
+    to time the FMA kernel where another one would run, both cluster sizes and every
+    wide tile).
     """
     name = "lstm_scan_bwd" if len(chains) == 1 else "lstm_scan_bidir_bwd"
     _check_chains(name, [c[:2] for c in chains])
     xw0 = chains[0][0]
-    B, T, H, path, tile = _plan_launch(_backward_clusters, [c[:2] for c in chains], path,
-                                       backward=True, routes=ROUTES)
+    B, T, H, path, planned = _plan_launch(_backward_clusters, [c[:2] for c in chains], path,
+                                          backward=True, routes=ROUTES)
     if cluster is not None:
         counts = _cluster_bwd_counts(H, xw0.device)
         if path != "cluster" or counts.get(cluster, 0) < 1:
             raise ValueError(f"no cluster backward on {cluster} blocks here: {path}, {counts}")
-        tile = (1, cluster)
+        planned = (1, cluster)
+    if tile is not None:
+        counts = _wide_counts(H, xw0.dtype, xw0.device, backward=True)
+        if path != "wide" or counts.get(tuple(tile), 0) < 1:
+            raise ValueError(f"no wide backward at tile {tile} here: {path}, {counts}")
+        planned = tuple(tile)
+    tile = planned
     staged = _stage_backward(chains, B, T, H, path)
     lib = _bwd_library()
     fn = lib.lstm_scan_bwd_launch if len(chains) == 1 else lib.lstm_scan_bidir_bwd_launch
@@ -931,33 +1017,39 @@ def _staged_backward(chains, path: str | None = None, cluster: int | None = None
     return staged, launch
 
 
-def _staged_cluster_bwd_floor(chains, cluster: int):
-    """The cluster backward's serial floor over one or two (xw, w_hh, hs, cs, g_hs)
-    chains on clusters of `cluster` blocks -> (staged arrays, a call that launches it;
-    not counted).
+def _staged_bwd_floor(chains, path: str, tile: tuple):
+    """The serial floor of the cluster or wide backward (`path`) over one or two
+    (xw, w_hh, hs, cs, g_hs) chains at `tile` ((1, C) or (M, C)) -> (staged arrays, a call
+    that launches it; not counted).
 
-    The same kernel with its product compiled out: every step's reduction, cell
-    derivative and exchange of da, which no product can make shorter. Its das
-    are not the recurrence's. chip_smoke.py times it beside the kernel.
+    The same kernel with its product compiled out: every step's cell derivative and
+    exchange (and the wide kernel's sums of the partials), which no product can make
+    shorter. Its das are not the recurrence's. chip_smoke.py times it beside the kernel.
     """
-    _check_chains("lstm_scan_bwd_cluster_floor", [c[:2] for c in chains])
+    _check_chains(f"lstm_scan_bwd_{path}_floor", [c[:2] for c in chains])
     xw0 = chains[0][0]
     B, T, _ = xw0.shape
     H = chains[0][1].shape[0]
-    if cluster_bwd_layout(H, cluster, xw0.dtype) is None:
-        raise ValueError(f"the cluster backward does not take H = {H} on {cluster} blocks")
-    staged = _stage_backward(chains, B, T, H, "cluster")
-    fn = _bwd_library().lstm_scan_bwd_cluster_floor_launch
+    M, C = tile
+    layout = (cluster_bwd_layout(H, C, xw0.dtype) if path == "cluster"
+              else wide_bwd_layout(H, M, C, xw0.dtype))
+    if layout is None:
+        raise ValueError(f"the {path} backward does not take H = {H} at tile {tile}")
+    staged = _stage_backward(chains, B, T, H, path)
+    lib = _bwd_library()
+    fn = lib.lstm_scan_bwd_cluster_floor_launch if path == "cluster" else \
+        lib.lstm_scan_bwd_wide_floor_launch
+    plan = (C,) if path == "cluster" else (M, C)
 
     def launch():
         pointers = [None] * 12
         for k, ptr in enumerate(_pointers(staged)):  # chain c of array a at 2 a + c
             pointers[2 * (k // len(staged)) + k % len(staged)] = ptr
         with torch.cuda.device(xw0.device):
-            err = fn(*pointers, _DTYPE_CODE[xw0.dtype], B, T, H, cluster,
+            err = fn(*pointers, _DTYPE_CODE[xw0.dtype], B, T, H, *plan,
                      torch.cuda.current_stream(xw0.device).cuda_stream)
         if err != 0:
-            raise RuntimeError(f"lstm_scan_bwd_cluster_floor launch failed: cudaError {err}")
+            raise RuntimeError(f"lstm_scan_bwd_{path}_floor launch failed: cudaError {err}")
 
     return staged, launch
 

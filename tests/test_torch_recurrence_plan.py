@@ -13,7 +13,8 @@ UMX "cluster", and none "fma"; here the rule itself is held, at an H100's
 3xTF32 kernel, whose tile is (M, C): M rows on a cluster of C blocks; 8 and
 16 for the cluster kernel). `_plan_bwd` picks the backward's kernel the same
 way: the split-TF32 tensor cores, the LSTM's cluster backward (musdb18
-training's B = 16 at H = 256) or the FMA kernel.
+training's B = 16 at H = 256), the LSTM's wide backward (DPTNet training's
+many sequences at H = 256) or the FMA kernel.
 """
 import pytest
 import torch
@@ -593,3 +594,134 @@ def test_the_wrapper_asks_the_card_for_wide_counts_only_where_the_wide_kernel_ma
 def test_a_wide_tile_goes_to_the_c_entry_points_with_its_cluster(tile, args):
     assert ls._tile_args(tile) == args
     assert ls._PATH_CODE["wide"] == 5
+
+
+# The wide backward (csrc/recurrence_wide_bwd.cuh), the LSTM's only: from WIDE_MIN_BATCH_BWD
+# sequences up at H = 256 (the crossover with the cluster backward, measured on an H100;
+# musdb18 training's B = 16 stays on the cluster backward), an M-row tile on a cluster of
+# C blocks (bf16: 4 or 8, f32: 8 or 16), by the forward's tile rule over the wide
+# backward's own counts; below it "cluster", past CLUSTER_MAX_BATCH_BWD where the card
+# holds no wide tile "fma".
+def _wide_bwd(H, dtype, by_c=WIDE_BY_C):
+    """The wide backward's counts by tile the LSTM wrapper would ask the card for at H."""
+    return {(m, c): by_c.get(c, 0) for m, c in ls._wide_tiles(H, dtype, backward=True)}
+
+
+def _plan_bwd_h256(B, n_chains, dtype, path=None, wrapper=ls, wide=None):
+    return wrapper._plan_bwd(B, n_chains, 256, dtype, SMS, path, _bwd_clusters(256),
+                             wrapper.ROUTES, _wide_bwd(256, dtype) if wide is None else wide)
+
+
+DPTNET_TRAIN_SHAPES = [  # B, chains, the f32 tile: DPTNet's recipe training, B = 2 x 4 s
+    (1278, 2, (32, 8)),  # intra-chunk: 80 tiles, six waves of 15 eight-block clusters
+    (200, 2, (32, 8)),  # inter-chunk: 14 tiles, one wave
+    (200, 1, (16, 8)),  # causal inter-chunk: 13 tiles, one wave; (32, 16) ties on waves and
+                        # rows x units, the smaller cluster
+]
+
+
+@DTYPES
+@pytest.mark.parametrize("B,n_chains,tile", DPTNET_TRAIN_SHAPES,
+                         ids=["train-intra", "train-inter", "train-causal-inter"])
+def test_dptnets_training_shapes_take_the_wide_backward(dtype, B, n_chains, tile):
+    path, (m, c) = _plan_bwd_h256(B, n_chains, dtype)
+    assert path == "wide" and c in ls.WIDE_CLUSTER_SIZES[dtype]
+    if dtype == F32:
+        assert (m, c) == tile
+    # The fewest waves, then the fewest rows x units a block (M / C), then the smaller
+    # cluster and tile, over the backward's own tiles.
+    wide = _wide_bwd(256, dtype)
+    options = {t: (-(-_blocks(B, n_chains, t[0]) // n), t[0] / t[1]) for t, n in wide.items()}
+    assert options[(m, c)] == min(options.values())
+    assert all(options[o] > options[(m, c)] or o[1] > c or (o[1] == c and o[0] > m)
+               for o in options if o != (m, c))
+
+
+@DTYPES
+def test_musdb18_training_keeps_the_cluster_backward(dtype):
+    # UMX / X-UMX training, B = 16 x 6 s, two chains: 32 sequences a launch.
+    assert 16 < ls.WIDE_MIN_BATCH_BWD[(dtype, 2)]
+    assert _plan_bwd_h256(16, 2, dtype) == ("cluster", (1, 8))
+
+
+@DTYPES
+@pytest.mark.parametrize("n_chains", [1, 2])
+def test_the_wide_backward_crossover_with_the_cluster_backward(dtype, n_chains):
+    B = ls.WIDE_MIN_BATCH_BWD[(dtype, n_chains)]
+    assert 1 < B <= ls.CLUSTER_MAX_BATCH_BWD + 1  # B = 1 keeps "cluster"
+    below, at = (_plan_bwd_h256(b, n_chains, dtype)[0] for b in (B - 1, B))
+    assert below == "cluster" and at == "wide"
+    assert _plan_bwd_h256(1, n_chains, dtype)[0] == "cluster"
+
+
+@DTYPES
+@pytest.mark.parametrize("B", [300, 1278, 20000])
+def test_no_fma_backward_at_h_256_where_the_card_holds_the_wide_kernel(dtype, B):
+    assert _plan_bwd_h256(B, 2, dtype)[0] == "wide"
+
+
+@pytest.mark.parametrize("wide,want", [
+    ({(m, c): 0 for m, c in ls._wide_tiles(256, F32, backward=True)}, ("fma", 1)),  # no GPC
+    ({}, ("fma", 1)),  # unasked
+    ({(16, 16): 7}, ("wide", (16, 16))),  # one tile the card holds
+    (_wide_bwd(256, F32, {8: 15, 16: 0}), ("wide", (32, 8))),  # no free 16-SM GPC
+], ids=["zero", "unasked", "one-tile", "no-16"])
+def test_the_wide_backward_tile_follows_the_cards_counts(wide, want):
+    assert _plan_bwd_h256(1278, 2, F32, wide=wide) == (
+        want if want[0] == "wide" else _fma_bwd(1278, 2, 256))
+
+
+@pytest.mark.parametrize("B,dtype", [(1, F32), (16, BF16), (5112, F32)], ids=["B=1", "B=16", "big"])
+def test_the_wide_backward_can_be_forced_for_timing(B, dtype):
+    assert _plan_bwd_h256(B, 2, dtype, "wide")[0] == "wide"
+
+
+@pytest.mark.parametrize("H,dtype,wide", [
+    (128, F32, _wide_bwd(256, F32)), (512, F32, _wide_bwd(256, F32)),
+    (384, BF16, _wide_bwd(256, BF16)), (256, F32, None), (256, BF16, _wide_bwd(256, BF16, {})),
+    (256, torch.float16, _wide_bwd(256, F32)),
+], ids=["H=128", "H=512", "H=384", "unasked", "zero", "f16"])
+def test_forcing_the_wide_backward_where_it_cannot_run_raises(H, dtype, wide):
+    with pytest.raises(ValueError):
+        ls._plan_bwd(1278, 2, H, dtype, SMS, "wide", None, ls.ROUTES, wide)
+
+
+@DTYPES
+@pytest.mark.parametrize("routes", [gs.ROUTES, ls.FORWARD_ROUTES], ids=["gru", "default"])
+def test_forcing_the_wide_backward_from_the_gru_wrapper_raises(dtype, routes):
+    with pytest.raises(ValueError):
+        gs._plan_bwd(1278, 2, 256, dtype, SMS, "wide", None, routes, _wide_bwd(256, dtype))
+
+
+@DTYPES
+@pytest.mark.parametrize("B,n_chains,H", [(1278, 2, 384), (1278, 1, 512), (200, 2, 512),
+                                          (5112, 2, 256)],
+                         ids=["H=384", "H=512", "H=512-B=200", "gru-H=256"])
+def test_other_h_and_the_gru_never_take_the_wide_backward(dtype, B, n_chains, H):
+    wide = {(m, c): 15 for m in ls.WIDE_TILE_ROWS for c in (4, 8, 16)}  # whatever the card
+    for wrapper in (ls, gs) if H != 256 else (gs,):  # the LSTM's H = 256: the tests above
+        got = wrapper._plan_bwd(B, n_chains, H, dtype, SMS, clusters=_bwd_clusters(H),
+                                routes=wrapper.ROUTES, wide=wide)
+        want = (ls._plan_bwd(B, n_chains, H, dtype, SMS, clusters=_bwd_clusters(H),
+                             routes=ls.ROUTES) if wrapper is ls else _fma_bwd(B, n_chains, H))
+        assert got == want and got[0] != "wide"  # the plan without wide counts
+
+
+@pytest.mark.parametrize("H,dtype,path,routes,want", [
+    (256, F32, None, ls.ROUTES, True), (256, BF16, None, ls.ROUTES, True),
+    (256, F32, "wide", ls.ROUTES, True), (256, F32, "cluster", ls.ROUTES, False),
+    (256, F32, "fma", ls.ROUTES, False), (256, F32, None, gs.ROUTES, False),
+    (512, F32, None, ls.ROUTES, False), (384, BF16, None, ls.ROUTES, False),
+    (128, F32, None, ls.ROUTES, False), (128, BF16, None, ls.ROUTES, False),
+    (256, torch.float16, None, ls.ROUTES, False),
+], ids=["f32", "bf16", "forced", "forced-cluster", "forced-fma", "gru", "H=512", "H=384",
+        "tf32x3", "tf32x2", "f16"])
+def test_the_backward_asks_the_card_for_wide_counts_only_where_the_wide_kernel_may_run(
+        H, dtype, path, routes, want):
+    assert ls._needs_wide(H, dtype, path, routes, backward=True) is want
+
+
+def test_the_backward_path_code_of_the_wide_kernel():
+    assert ls._PATH_CODE["wide"] == 5
+    assert all("wide" in paths for paths in ls.BWD_PATH_LAUNCHES.values())
+    assert ls._tile_args((32, 8)) == (32, 8)

@@ -10,6 +10,7 @@
     python3 chip_smoke.py --only 3d,3h,12 # the cluster backward, then musdb18 training
     python3 chip_smoke.py --only 12       # phases 1 and 2, then musdb18 training
     python3 chip_smoke.py --only 13       # phases 1 and 2, then DPTNet (13k: its kernels)
+    python3 chip_smoke.py --only 14,14k   # LSTM-TasNet, SepFormer and GALRNet, their kernels
 
 Phases (any failure exits non-zero; nothing is caught and passed):
   1. device: require CUDA, print the card's name and power limit, turn TF32 off;
@@ -194,8 +195,8 @@ Phases (any failure exits non-zero; nothing is caught and passed):
      each MultiheadAttention call) and the rest, with the idle share; one train step (2
      blocks, B = 1 x 1 s, causal or not) card vs an f64 CPU step, as phase 7, its
      launches joining the main path's (the causal step trains the one-chain backward);
-     cli/train_wsj0mix.py --model dptnet --warmup_steps 40 at B = 2 x 4 s for two epochs
-     of 10 steps (every step and validation forward on its routes, the epoch train loss
+     cli/train_wsj0mix.py --model dptnet --warmup_steps 20 at B = 2 x 4 s for two epochs
+     of 5 steps (every step and validation forward on its routes, the epoch train loss
      falling), its checkpoint served
      and evaluated (cli/test_wsj0mix.py card vs CPU within 0.05 dB), the recipe step's p50
      split and a profile with its idle share; `bench --model dptnet` in bf16 and f32; and
@@ -203,7 +204,32 @@ Phases (any failure exits non-zero; nothing is caught and passed):
      graphs beside the FMA kernel where another route runs, cuDNN's nn.LSTM (F = 64) and
      the bound: the forwards at (5112, 100), (800, 639) and causal (800, 639) in both
      dtypes; at recipe training's (1278, 100), (200, 639) and causal (200, 639) with cs, and
-     their backwards (on "wide"), in f32.
+     their backwards (on "wide"), in f32;
+  14. LSTM-TasNet, SepFormer and GALRNet on wsj0-2mix at the recipe configs (bench.py's
+     LSTM_TASNET, SEPFORMER, GALRNET; seed-0 weights, scrambled norm affines): served through
+     cli/separate.py in f32 and bf16, non-causal and causal, on the three mixtures, each
+     request held launch by launch to its routes (LSTM-TasNet: 4 lstm_scan_bidir or 4
+     lstm_scan on "fma" at H = 500, one "generic" decode; GALRNet: 6 lstm_scan_bidir on the
+     tensor cores, one decode, "mma" in bf16 and "generic" in f32; SepFormer: one decode and
+     no recurrence); card vs CPU and bf16 vs f32 as phase 5; causal LSTM-TasNet with the
+     trainable encoder streamed through --streaming_hop 0.05 (one "generic" decode a
+     separator call), streamed vs offline within 1e-4 x max|offline|, ms a hop; the B = 8 x 4
+     s forward of each in both dtypes, every launch on its route, profiled into recurrences,
+     attention (CUDA events around each MultiheadAttention call), decode and the rest, with
+     the idle share; one train step a model (B = 1 x 1 s, the recipe widths at a small
+     depth; LSTM-TasNet causal too) card vs an f64 CPU step, as phase 7;
+     cli/train_wsj0mix.py at each recipe's flags, B = 4 x 4 s, two epochs of 10 steps
+     (every step and validation forward on its routes, the epoch train loss falling), its
+     checkpoint served and evaluated (cli/test_wsj0mix.py card vs CPU within 0.05 dB), the
+     recipe step's p50 split with the peak allocation and a profile with its idle share;
+     `bench --model lstm-tasnet|sepformer|galrnet` in bf16 and f32; and (14k) the LSTM kernels
+     at the new shapes against their plain versions, beside cuDNN's nn.LSTM and the bound:
+     LSTM-TasNet's (8, 1599, 500) serving forwards, one chain and two, and (4, 1599, 500)
+     training forwards with cs and their backwards, in both dtypes (all on "fma"); GALRNet's
+     (632, 100, 128) serving and (316, 100, 128) training forwards and backwards (the tensor
+     cores, the FMA kernel forced beside them); fused_mask_decode at the three decoder
+     widths (N = 500, C·L = 40; N = 256 and 64, C·L = 16) as one whole call and as the
+     kernel alone, beside the generic kernel, the plain version and einsum.
 
 Each serving, quantizing and evaluation path, and the training path of phase
 8, runs with every launch count set to 0 just before it and read just after
@@ -217,10 +243,12 @@ path ("mma" in bf16, "generic" for f32 Conv-TasNet, "rows" for f32
 DPRNN-TasNet). Phase 11's card runs (UMX at B = 1, H = 256 and 512) must
 launch only the cluster kernel, and join the main path's total: musdb18
 training's backward (lstm_scan_bidir_bwd at H = 256, phase 12) runs on the
-cluster backward. Phase 13's DPTNet runs are held launch by launch to their
-routes (the wide backward at its training sequences) and then join the total,
-which must have launched every path but the FMA ones (and the one-chain cluster
-backward, which no main path trains), and no FMA kernel at all. The last line
+cluster backward. Phase 13's DPTNet runs and phase 14's runs are held launch by
+launch to their routes (the wide backward at its training sequences) and then join
+the total, which must have launched every path but the FMA ones (and the one-chain
+cluster backward, which no main path trains), and no FMA kernel at all: phase 14's
+FMA launches, LSTM-TasNet's at H = 500, are counted apart and must equal exactly
+what its runs' routes imply. The last line
 is {"ok": true, "device":
 {...}}; the line before it lists the kernels with their launch counts,
 errors, times, bounds and library times: fused_mask_decode six times
@@ -248,6 +276,9 @@ backwards at each phase-13 shape, on its route ("wide", with its tile as `tile` 
 kernel's time as `fma_ms`; f32 bounded at three TF32 products at the tensor cores' TF32
 peak; the backwards whole as `ms` and alone as `kernel_ms`, with phase 3j's cluster
 backward forced as `cluster_kernel_ms` and serial floor as `floor_ms`), with phase 13's
+launches of that kernel on that route; and phase 14's rows: fused_mask_decode at
+LSTM-TasNet's, SepFormer's and GALRNet's decoder widths in both dtypes, and the LSTM
+kernels at LSTM-TasNet's (H = 500) and GALRNet's (H = 128) shapes, with phase 14's
 launches of that kernel on that route. The bf16 fused_mask_decode rows'
 `library_ms` is torch.einsum on bf16 operands, whose output is bf16 (the kernel's is f32).
 """
@@ -272,7 +303,8 @@ import torch
 
 from dnn_based_source_separation_torch.algorithm.frequency_mask import multichannel_wiener_filter
 from dnn_based_source_separation_torch.bench import (
-    DPRNN, DPTNET, MUSDB_SAMPLE_RATE, PAPER, PEAK_FLOPS, UMX, UMX_STFT,
+    DPRNN, DPTNET, GALRNET, LSTM_TASNET, MUSDB_SAMPLE_RATE, PAPER, PEAK_FLOPS, SEPFORMER, UMX,
+    UMX_STFT,
 )
 from dnn_based_source_separation_torch.bench import main as bench_main
 from dnn_based_source_separation_torch.cli import separate as cli
@@ -287,8 +319,8 @@ from dnn_based_source_separation_torch.data.synthetic import (
     _speaker_bank, synth_pseudo_speech, write_musdb_quality_corpus, write_quality_corpus,
 )
 from dnn_based_source_separation_torch.models import (
-    ConvTasNet, CrossNetOpenUnmix, DPRNNTasNet, DPTNet, ParallelOpenUnmix,
-    SpectrogramMaskingWrapper,
+    ConvTasNet, CrossNetOpenUnmix, DPRNNTasNet, DPTNet, GALRNet, LSTMTasNet, ParallelOpenUnmix,
+    SepFormer, SpectrogramMaskingWrapper,
 )
 from dnn_based_source_separation_torch.models.base import load_model, save_model
 from dnn_based_source_separation_torch.models.longform import chunk_count, separate_longform
@@ -300,7 +332,7 @@ from dnn_based_source_separation_torch.ops import lstm_scan as ls
 from dnn_based_source_separation_torch.ops import mask_decode as md
 from dnn_based_source_separation_torch.ops import quantize as q8
 from dnn_based_source_separation_torch.ops.attention import MultiheadAttention
-from dnn_based_source_separation_torch.ops.rnn import set_dropout_generator
+from dnn_based_source_separation_torch.ops.rnn import LSTM, set_dropout_generator
 from dnn_based_source_separation_torch.train import (
     Evaluater, Trainer, make_optimizer, make_train_step, make_warmup_optimizer,
 )
@@ -321,6 +353,11 @@ HOP_DECODE_SHAPE = dict(B=1, S=2, T=50, N=512, CL=16)
 DECODE_SHAPES = {"serving shape": SERVING_SHAPE, "DPRNN-TasNet decoder shape": DPRNN_DECODE_SHAPE,
                  "LSTM-TasNet decoder shape": LSTM_TASNET_DECODE_SHAPE,
                  "streamed hop shape": HOP_DECODE_SHAPE}
+# The decoders of phase 14's models at B = 8 x 4 s: LSTM-TasNet's (above), SepFormer's
+# (N = 256, L = 16, hop 8) and GALRNet's (N = 64, L = 16, hop 8).
+SLICE_D_DECODE_SHAPES = {"lstm_tasnet": LSTM_TASNET_DECODE_SHAPE,
+                         "sepformer": dict(B=8, S=2, T=3999, N=256, CL=16),
+                         "galrnet": dict(B=8, S=2, T=3999, N=64, CL=16)}
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-3}  # relative to max|plain|
 DECODE_REPEATS = 10  # fused_mask_decode launches a timing of the kernel alone
 # (name, B, T, H). At B=8 x 4 s the DPRNN-TasNet latent has T' = 31999 frames,
@@ -493,76 +530,89 @@ def phase_kernel():
     result = {}
     for shape, strided in cases:
         for dtype in (torch.float32, torch.bfloat16):
-            w, mask, kernel = kernel_inputs(**shape, dtype=dtype, strided=strided, seed=shape["T"])
-            path = md.launch_plan(w, mask, kernel)
-            ref = md.fused_mask_decode_reference(w, mask, kernel)
-            scale = float(ref.abs().max())
-            calls = {p: (lambda p=p: md.fused_mask_decode(w, mask, kernel, path=p))
-                     for p in dict.fromkeys((path, "generic"))}
-            errs = {}
-            for p, call in calls.items():
-                got = on_path(md.PATH_LAUNCHES, "fused_mask_decode", call, p)
-                check(got.shape == ref.shape and got.dtype == torch.float32, (got.shape, got.dtype))
-                errs[p] = float((got - ref).abs().max())
-                ok = errs[p] <= TOL[dtype] * scale
-                log(f"  {shape} strided={strided} {str(dtype)[6:]} {p}: max|kernel-plain| = "
-                    f"{errs[p]:.3e} (limit {TOL[dtype]:g} x max|plain| {scale:.3e}) "
-                    f"{'ok' if ok else 'FAIL'}")
-                if not ok:
-                    raise AssertionError(f"fused_mask_decode ({p}) disagrees with plain: "
-                                         f"{errs[p]} > {TOL[dtype]} x {scale}")
             which = next((k for k, v in DECODE_SHAPES.items() if v == shape), None)
-            if which is not None and strided:
-                # `ms` is one whole wrapper call, as the decoder makes it (planning,
-                # allocation and the ctypes call included); `kernel_ms` is the kernel
-                # alone, from a CUDA graph of DECODE_REPEATS launches, so that the
-                # host's time a launch (which the hop shape's kernel is shorter than)
-                # stays out of it.
-                alone = {p: md._staged(w, mask, kernel, p)[0] for p in calls}
-
-                def call_ms(p):
-                    return median_ms(calls[p])
-
-                def kernel_ms(p):
-                    return graph_ms(alone[p], DECODE_REPEATS)
-
-                timing = dict(path=path, max_abs_err=errs[path], library_ms=None)
-                if path != "generic":
-                    for key, time_of in (("ms", call_ms), ("kernel_ms", kernel_ms)):
-                        first = time_of("generic")
-                        new = [time_of(path), time_of(path)]
-                        again = time_of("generic")
-                        timing.update({key: sum(new) / 2, f"generic_{key}": (first + again) / 2})
-                        timing[f"{key}_turns"] = (first, *new, again)
-                    timing["generic_max_abs_err"] = errs["generic"]
-                    times = "; ".join(
-                        f"{what} {path} {t[1]:.4f} / {t[2]:.4f} ms between generic {t[0]:.4f} / "
-                        f"{t[3]:.4f} ms" for what, t in (("one call", timing.pop("ms_turns")),
-                                                        ("kernel alone",
-                                                         timing.pop("kernel_ms_turns"))))
-                else:
-                    timing.update(ms=call_ms(path), kernel_ms=kernel_ms(path))
-                    times = (f"generic: one call {timing['ms']:.4f} ms, kernel alone "
-                             f"{timing['kernel_ms']:.4f} ms")
-                timing["plain_ms"] = median_ms(lambda: md.fused_mask_decode_reference(w, mask,
-                                                                                      kernel))
-                timing.update(mask_decode_bound(**shape, dtype=dtype))
-                if dtype == torch.float32:
-                    lib = mask_decode_library(w, mask, kernel)
-                    check(float((lib - ref).abs().max()) <= TOL[dtype] * scale,
-                          "einsum is not the same function")
-                    timing["library_ms"] = median_ms(lambda: mask_decode_library(w, mask, kernel))
-                library = ("" if timing["library_ms"] is None
-                           else f"einsum {timing['library_ms']:.4f} ms, ")
-                log(f"  {which} {str(dtype)[6:]}: {times}, plain {timing['plain_ms']:.4f} ms, "
-                    f"{library}bound {timing['bound_ms']:.4f} ms ({timing['bound_by']}) "
-                    f"(medians of 20, CUDA events)")
-                for p, launch in alone.items():  # after a few hundred launches into one output
-                    err = float((launch() - ref).abs().max())
-                    check(err <= TOL[dtype] * scale, f"fused_mask_decode ({p}) disagrees with "
-                                                     f"plain after the timed launches: {err}")
+            timing = decode_case(shape, strided, dtype, which if strided else None)
+            if timing is not None:
                 result[(which, dtype)] = timing
     return result
+
+
+def decode_case(shape, strided, dtype, which=None):
+    """fused_mask_decode at one shape in `dtype` against its plain version, on the path
+    `_plan` gives it and, where that is "rows" or "mma", on the generic kernel too. With
+    `which` (a label), timed: one whole call and the kernel alone, the new path and the
+    generic kernel in turns (generic, new, new, generic), with its bound, the plain
+    version's time and einsum's (f32) -> a timing dict (else None)."""
+    w, mask, kernel = kernel_inputs(**shape, dtype=dtype, strided=strided, seed=shape["T"])
+    path = md.launch_plan(w, mask, kernel)
+    ref = md.fused_mask_decode_reference(w, mask, kernel)
+    scale = float(ref.abs().max())
+    calls = {p: (lambda p=p: md.fused_mask_decode(w, mask, kernel, path=p))
+             for p in dict.fromkeys((path, "generic"))}
+    errs = {}
+    for p, call in calls.items():
+        got = on_path(md.PATH_LAUNCHES, "fused_mask_decode", call, p)
+        check(got.shape == ref.shape and got.dtype == torch.float32, (got.shape, got.dtype))
+        errs[p] = float((got - ref).abs().max())
+        ok = errs[p] <= TOL[dtype] * scale
+        log(f"  {shape} strided={strided} {str(dtype)[6:]} {p}: max|kernel-plain| = "
+            f"{errs[p]:.3e} (limit {TOL[dtype]:g} x max|plain| {scale:.3e}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"fused_mask_decode ({p}) disagrees with plain: "
+                                 f"{errs[p]} > {TOL[dtype]} x {scale}")
+    if which is None:
+        return None
+    # `ms` is one whole wrapper call, as the decoder makes it (planning,
+    # allocation and the ctypes call included); `kernel_ms` is the kernel
+    # alone, from a CUDA graph of DECODE_REPEATS launches, so that the
+    # host's time a launch (which the hop shape's kernel is shorter than)
+    # stays out of it.
+    alone = {p: md._staged(w, mask, kernel, p)[0] for p in calls}
+
+    def call_ms(p):
+        return median_ms(calls[p])
+
+    def kernel_ms(p):
+        return graph_ms(alone[p], DECODE_REPEATS)
+
+    timing = dict(path=path, max_abs_err=errs[path], library_ms=None)
+    if path != "generic":
+        for key, time_of in (("ms", call_ms), ("kernel_ms", kernel_ms)):
+            first = time_of("generic")
+            new = [time_of(path), time_of(path)]
+            again = time_of("generic")
+            timing.update({key: sum(new) / 2, f"generic_{key}": (first + again) / 2})
+            timing[f"{key}_turns"] = (first, *new, again)
+        timing["generic_max_abs_err"] = errs["generic"]
+        times = "; ".join(
+            f"{what} {path} {t[1]:.4f} / {t[2]:.4f} ms between generic {t[0]:.4f} / "
+            f"{t[3]:.4f} ms" for what, t in (("one call", timing.pop("ms_turns")),
+                                            ("kernel alone",
+                                             timing.pop("kernel_ms_turns"))))
+    else:
+        timing.update(ms=call_ms(path), kernel_ms=kernel_ms(path))
+        times = (f"generic: one call {timing['ms']:.4f} ms, kernel alone "
+                 f"{timing['kernel_ms']:.4f} ms")
+    timing["plain_ms"] = median_ms(lambda: md.fused_mask_decode_reference(w, mask,
+                                                                          kernel))
+    timing.update(mask_decode_bound(**shape, dtype=dtype))
+    if dtype == torch.float32:
+        lib = mask_decode_library(w, mask, kernel)
+        check(float((lib - ref).abs().max()) <= TOL[dtype] * scale,
+              "einsum is not the same function")
+    # In bf16 einsum on the bf16 operands (its output bf16, the kernel's f32).
+    timing["library_ms"] = median_ms(lambda: mask_decode_library(w, mask, kernel))
+    library = f"einsum{'' if dtype == torch.float32 else ' (bf16 out)'} " \
+              f"{timing['library_ms']:.4f} ms, "
+    log(f"  {which} {str(dtype)[6:]}: {times}, plain {timing['plain_ms']:.4f} ms, "
+        f"{library}bound {timing['bound_ms']:.4f} ms ({timing['bound_by']}) "
+        f"(medians of 20, CUDA events)")
+    for p, launch in alone.items():  # after a few hundred launches into one output
+        err = float((launch() - ref).abs().max())
+        check(err <= TOL[dtype] * scale, f"fused_mask_decode ({p}) disagrees with "
+                                         f"plain after the timed launches: {err}")
+    return timing
 
 
 def lstm_inputs(B, T, H, dtype, seed):
@@ -1455,8 +1505,8 @@ def wide_timing(label, name, B, T, chains, dtype, with_cs, card):
     timing["cluster_ms"] = graph_ms(ls._staged_forward(inputs, with_cs, "cluster")[2],
                                     CLUSTER_REPEATS if B * chains <= 64 else 1)
     plain = ls.lstm_forward_reference if with_cs else ls.lstm_scan_reference
-    timing["plain_ms"] = median_ms(lambda: [plain(xw, w) for xw, w in inputs], warmup=1,
-                                   iters=3)
+    timing["plain_ms"] = median_ms(lambda: [plain(xw, w) for xw, w in inputs], warmup=0,
+                                   iters=1)
     timing["library_ms"] = library_lstm_ms(B, T, H, chains, dtype, features=DPT_E, iters=10)
     timing.update(recurrence_bound(B, T, H, 4, chains, cell_state=with_cs, dtype=dtype,
                                    tf32=3 if dtype == torch.float32 else 0))
@@ -1678,9 +1728,13 @@ def counts() -> dict:
 
 # The served decodes, (path, dtype, N, C·L) as md.WIDTH_LAUNCHES counts them:
 # Conv-TasNet's decoder (f32 generic, bf16 mma) and DPRNN-TasNet's (f32 rows,
-# bf16 mma).
+# bf16 mma); phase 14's: LSTM-TasNet's (generic in both dtypes), SepFormer's and
+# GALRNet's (f32 generic, bf16 mma).
 SERVED_DECODES = (("generic", "float32", 512, 16), ("mma", "bfloat16", 512, 16),
-                  ("rows", "float32", 64, 2), ("mma", "bfloat16", 64, 2))
+                  ("rows", "float32", 64, 2), ("mma", "bfloat16", 64, 2),
+                  ("generic", "float32", 500, 40), ("generic", "bfloat16", 500, 40),
+                  ("generic", "float32", 256, 16), ("mma", "bfloat16", 256, 16),
+                  ("generic", "float32", 64, 16), ("mma", "bfloat16", 64, 16))
 
 
 def width_key(path, dtype, N, CL) -> str:
@@ -2391,26 +2445,37 @@ def profile_train_step(loss_of, optimizer, what, card, check_backward):
     the rest of it by name. -> the profiled step's numbers."""
     from torch.profiler import ProfilerActivity, profile
 
+    from torch.autograd import DeviceType
+
     step = evented_step(loss_of, optimizer)
     events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     step(events)
     torch.cuda.synchronize()
+    before = all_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
         step(events)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - start) * 1e3
+    grew = grown(before)
     fwd, bwd, opt = (events[i].elapsed_time(events[i + 1]) for i in range(3))
     device = device_times(prof)
     busy = sum(device.values())
     bwd_kernel = sum(t for k, t in device.items() if any(n in k for n in BACKWARD_KERNELS))
     fwd_kernel = sum(t for k, t in device.items() if any(n in k for n in FORWARD_KERNELS))
     idle = max(0.0, 1 - busy / wall)
+    # The profiler can lose the records of long kernels: the idle share is a measurement
+    # only where it recorded every recurrence launch of the step.
+    recorded = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and any(n in e.name for n in FORWARD_KERNELS + BACKWARD_KERNELS))
+    launched = sum(grew[name] for name in (*ls.LAUNCHES, *gs.LAUNCHES))
+    idle_text = (f"not measured (the profiler recorded {recorded} of {launched} recurrence "
+                 "launches)" if recorded < launched else f"{idle:.1%}")
     log(f"  profile of one {what} step: wall {wall:.3f} ms; forward "
         f"{fwd:.3f} ms (recurrence kernels {fwd_kernel:.3f} ms device), backward {bwd:.3f} ms "
         f"(backward kernels {bwd_kernel:.3f} ms device, other backward {bwd - bwd_kernel:.3f} "
         f"ms), optimizer {opt:.3f} ms; device busy {busy:.3f} ms, idle share "
-        f"{idle:.1%} [{card}]")
+        f"{idle_text} [{card}]")
     top = sorted(device.items(), key=lambda kv: -kv[1])[:6]
     log("    top device time: " + ", ".join(f"{k[:48]} {t:.3f} ms" for k, t in top))
 
@@ -2432,7 +2497,8 @@ def profile_train_step(loss_of, optimizer, what, card, check_backward):
         f"the rest {sum(rest.values()):.3f} ms, its ten longest ops by name:")
     for k, t in sorted(rest.items(), key=lambda kv: -kv[1])[:10]:
         log(f"      {t:9.3f} ms  {k[:110]}")
-    return dict(profiled_wall_ms=wall, device_busy_ms=busy, idle_share=idle,
+    return dict(profiled_wall_ms=wall, device_busy_ms=busy,
+                idle_share=None if recorded < launched else idle,
                 recurrence_forward_ms=fwd_kernel, recurrence_backward_ms=bwd_kernel)
 
 
@@ -3045,8 +3111,8 @@ DPT_SHAPES = [  # label, (B, T, chains), dtypes, training (cs written, backward 
     ("train inter", (200, 639, 2), (torch.float32,), True),
     ("train causal inter", (200, 639, 1), (torch.float32,), True),
 ]
-DPT_WARMUP = 40  # --warmup_steps of the CLI run: the ramp reaches 2e-3 by step 20
-DPT_TRAIN_UTTS = 15  # synthetic train utterances: at least 10 steps of B = 2 x 4 s an epoch
+DPT_WARMUP = 20  # --warmup_steps of the CLI run: the ramp reaches 2e-3 by step 8
+DPT_TRAIN_UTTS = 8  # synthetic train utterances: at least 5 steps of B = 2 x 4 s an epoch
 
 
 def dptnet_chunks(n_samples):
@@ -3079,9 +3145,16 @@ def add_counts(a: dict, b: dict) -> dict:
     return {k: a.get(k, 0) + b.get(k, 0) for k in set(a) | set(b)}
 
 
+ROUTED_FMA = {}  # the "kernel/fma" launches that the routes of check_dptnet_launches held
+
+
 def check_dptnet_launches(grew, routes, what, decodes=0, decode=None):
     """A run's launches: exactly `routes` ("kernel/route" counts) of the LSTM kernels,
-    `decodes` fused_mask_decode launches (on `decode`), and nothing else."""
+    `decodes` fused_mask_decode launches (on `decode`), and nothing else. The routes' FMA
+    launches are tallied in ROUTED_FMA."""
+    for key, n in routes.items():
+        if key.endswith("/fma"):
+            ROUTED_FMA[key] = ROUTED_FMA.get(key, 0) + n
     per_kernel = {}
     for key, n in routes.items():
         per_kernel[key.split("/")[0]] = per_kernel.get(key.split("/")[0], 0) + n
@@ -3112,10 +3185,11 @@ def dptnet_model(causal, device="cuda", blocks=DPT_BLOCKS):
                                  generator=torch.Generator().manual_seed(0), device=device))
 
 
-def serve_dptnet(tag, ckpt, wavs, causal):
+def serve_routed(tag, ckpt, wavs, request_routes, decode_of, flags=(), decodes_of=None):
     """Six requests (three mixtures x f32/bf16) through cli/separate.py, every count set
-    to 0 first; each request launches its dptnet_routes, one fused_mask_decode on its
-    planned path, and nothing else. -> (outputs, the path's counts)."""
+    to 0 first; each request launches request_routes(n_samples, dtype) ("kernel/route"
+    counts of the LSTM kernels), decodes_of(n_samples) fused_mask_decode (1 by default)
+    on decode_of(dtype), and nothing else. -> (outputs, the path's counts)."""
     tmp = os.path.dirname(ckpt)
     outputs = {}
     reset_counts()
@@ -3124,30 +3198,38 @@ def serve_dptnet(tag, ckpt, wavs, causal):
             before = all_counts()
             out_dir = os.path.join(tmp, f"out_{tag}_{dtype}_{os.path.basename(wav)[:-4]}")
             est = separate(["--model_path", ckpt, "--input", wav, "--out_dir", out_dir,
-                            "--device", "cuda", "--dtype", dtype])
+                            "--device", "cuda", "--dtype", dtype, *flags])
             grew = grown(before)
             n_in = read_wav(wav)[0].shape[0]
             check(est.shape == (2, n_in) and np.isfinite(est).all(), est.shape)
-            routes = dptnet_routes(1, n_in, causal, getattr(torch, dtype))
+            routes = request_routes(n_in, getattr(torch, dtype))
+            decodes = decodes_of(n_in) if decodes_of else 1
             check_dptnet_launches(grew, routes, f"{tag} request {os.path.basename(wav)} "
-                                  f"({dtype})", decodes=1, decode=decode_path(tag, dtype))
-            log(f"  {dtype} {os.path.basename(wav)}: 2 sources x {n_in} samples (S = "
-                f"{dptnet_chunks(n_in)} chunks), launches by route {routes_of(grew)}, "
-                f"fused_mask_decode 1 ({decode_path(tag, dtype)})")
+                                  f"({dtype})", decodes=decodes, decode=decode_of(dtype))
+            log(f"  {dtype} {os.path.basename(wav)}: 2 sources x {n_in} samples, launches by "
+                f"route {routes_of(grew)}, fused_mask_decode {decodes} ({decode_of(dtype)})")
             outputs[(dtype, wav)] = est
     launches = all_counts()
     log(f"  {tag} serving launches: {nonzero(launches)}")
     return outputs, launches
 
 
-class AttentionClock:
-    """CUDA events around every MultiheadAttention call of a model (forward hooks), so a
-    forward's attention time is the sum of their spans (the device runs them in order)."""
+def serve_dptnet(tag, ckpt, wavs, causal):
+    """serve_routed with DPTNet's routes (dptnet_routes at B = 1) and decode path."""
+    return serve_routed(tag, ckpt, wavs, lambda n, dtype: dptnet_routes(1, n, causal, dtype),
+                        lambda dtype: decode_path(tag, dtype))
 
-    def __init__(self, model):
+
+class SpanClock:
+    """CUDA events around every call of a model's modules of the given classes (forward
+    hooks), so a forward's time in them is the sum of their spans (the device runs them in
+    order): MultiheadAttention for the attention, the LSTM for the recurrences (its input
+    projection and flips included)."""
+
+    def __init__(self, model, classes):
         self.spans, self.handles = [], []
         for m in model.modules():
-            if isinstance(m, MultiheadAttention):
+            if isinstance(m, classes):
                 self.handles.append(m.register_forward_pre_hook(self._start))
                 self.handles.append(m.register_forward_hook(self._end))
 
@@ -3170,27 +3252,28 @@ class AttentionClock:
             h.remove()
 
 
-def dptnet_forward_profile(model, dtype, causal, card):
+DECODE_KERNEL = re.compile(r"mask_decode_kernel|rows_kernel|(?<!scan_)mma_kernel")
+
+
+def forward_profile(model, dtype, what, per_forward, decode, card):
     """The B = 8 x 4 s forward in `dtype`: ms (median of 3 after one warm-up), its launches
-    by route (each held to dptnet_routes), then one profiled forward: device busy and idle
-    share, the recurrence kernels' device time (torch.profiler), the attention's (CUDA
-    events around each MultiheadAttention call) and the rest. -> (numbers, launches)."""
+    by route (each held to `per_forward`, the "kernel/route" counts of one forward, and one
+    fused_mask_decode on `decode`), then one profiled forward: device busy and idle share,
+    the recurrence kernels' and the decode's device time (torch.profiler), the attention's
+    (CUDA events around each MultiheadAttention call) and the rest. -> (numbers,
+    launches)."""
     from torch.profiler import ProfilerActivity, profile
 
     B, n = 8, 4 * SAMPLE_RATE
     x = torch.from_numpy(np.random.default_rng(1).standard_normal((B, 1, n), dtype=np.float32))
     x = x.to("cuda", dtype)
-    what = f"DPTNet{' causal' if causal else ''} B=8 x 4 s {str(dtype)[6:]}"
+    what = f"{what} B=8 x 4 s {str(dtype)[6:]}"
     torch.cuda.reset_peak_memory_stats()
     before = all_counts()
     with torch.inference_mode():
         ms = median_ms(lambda: model(x), warmup=1, iters=3)
-        grew = grown(before)
-        per_forward = dptnet_routes(B, n, causal, dtype)
-        check_dptnet_launches(grew, {k: 4 * v for k, v in per_forward.items()}, what,
-                              decodes=4, decode=decode_path("dptnet", dtype))
         peak = torch.cuda.max_memory_allocated() / 2 ** 20
-        clock = AttentionClock(model)
+        clocks = (SpanClock(model, MultiheadAttention), SpanClock(model, LSTM))
         try:
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -3198,43 +3281,61 @@ def dptnet_forward_profile(model, dtype, causal, card):
                 model(x)
                 torch.cuda.synchronize()
                 wall = (time.perf_counter() - start) * 1e3
-            attention = clock.ms()
+            attention, lstm_spans = (clock.ms() for clock in clocks)
         finally:
-            clock.close()
-    launches = grown(before)
+            for clock in clocks:
+                clock.close()
+    launches = grown(before)  # the four timed forwards and the profiled one
+    check_dptnet_launches(launches, {k: 5 * v for k, v in per_forward.items()}, what,
+                          decodes=5, decode=decode)
     device = device_times(prof)
     busy = sum(device.values())
     recurrence = sum(t for k, t in device.items() if any(n in k for n in FORWARD_KERNELS))
+    decoding = sum(t for k, t in device.items() if DECODE_KERNEL.search(k))
     idle = max(0.0, 1 - busy / wall)
+    rest = busy - recurrence - attention - decoding
+    # The profiler can lose the records of long kernels: where it recorded fewer recurrence
+    # kernels than the forward launched, its busy time and idle share are not measurements.
+    from torch.autograd import DeviceType
+
+    recorded = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and any(n in e.name for n in FORWARD_KERNELS))
+    lost = recorded < sum(per_forward.values())
+    idle_text = (f"not measured (the profiler recorded {recorded} of "
+                 f"{sum(per_forward.values())} recurrence launches)" if lost else f"{idle:.1%}")
     log(f"  {what}: {ms:.3f} ms a forward (median of 3), {B * 4.0 / (ms / 1e3):.1f} "
         f"audio-s/s, peak {peak:.1f} MiB; launches a forward by route {per_forward}; "
         f"profiled forward: wall {wall:.3f} ms, device busy {busy:.3f} ms, idle share "
-        f"{idle:.1%}; recurrence kernels {recurrence:.3f} ms ({recurrence / busy:.1%}), "
-        f"attention {attention:.3f} ms of CUDA-event spans ({attention / busy:.1%}), the rest "
-        f"{busy - recurrence - attention:.3f} ms [{card}]")
+        f"{idle_text}; "
+        f"recurrence kernels {recurrence:.3f} ms ({recurrence / busy:.1%}), LSTM calls "
+        f"{lstm_spans:.3f} ms of CUDA-event spans, attention {attention:.3f} ms of CUDA-event "
+        f"spans ({attention / busy:.1%}), decode {decoding:.3f} ms ({decoding / busy:.1%}), "
+        f"the rest {rest:.3f} ms [{card}]")
     top = sorted(device.items(), key=lambda kv: -kv[1])[:6]
     log("    top device time: " + ", ".join(f"{k[:48]} {t:.3f} ms" for k, t in top))
-    return dict(ms=ms, peak_mib=peak, wall_ms=wall, busy_ms=busy, idle_share=idle,
-                recurrence_ms=recurrence, attention_ms=attention), launches
+    return dict(ms=ms, peak_mib=peak, wall_ms=wall, busy_ms=busy,
+                idle_share=None if lost else idle, recurrence_ms=recurrence,
+                lstm_span_ms=lstm_spans, attention_ms=attention, decode_ms=decoding), launches
 
 
-def dptnet_kernel_timing(label, B, T, chains, dtype, training):
-    """One LSTM forward kernel at a DPTNet shape on its planned route against the plain
+def lstm_kernel_timing(model, label, B, T, H, chains, dtype, training, features):
+    """One LSTM forward kernel at a model's shape on its planned route against the plain
     version (hs, and cs when `training`), REPEATS more launches checked; timed alone from
     CUDA graphs, with the FMA kernel forced and checked in the same run where the plan
     takes another route (FMA, route, route, FMA), beside the plain version, cuDNN's
-    nn.LSTM (F = 64, DPTNet's input width) and the bound."""
+    nn.LSTM (the model's input width `features`) and the bound."""
     name = "lstm_scan_bidir" if chains == 2 else "lstm_scan"
-    inputs = lstm_chains(B, T, DPT_H, chains, dtype, seed=B + T)
-    path, tile = plan(ls, B, chains, DPT_H, dtype)
-    what = f"{name} DPTNet {label} (B={B}, T={T}, H={DPT_H}) {str(dtype)[6:]}"
+    inputs = lstm_chains(B, T, H, chains, dtype, seed=B + T)
+    path, tile = plan(ls, B, chains, H, dtype)
+    what = f"{name} {model} {label} (B={B}, T={T}, H={H}) {str(dtype)[6:]}"
     hs, cs, launch = ls._staged_forward(inputs, training, path)
     on_path(ls.PATH_LAUNCHES[name], name, launch, path)
-    err, limit = forward_error(inputs, hs, cs if training else None, dtype)
+    refs = [ls.lstm_forward_reference(xw, w) for xw, w in inputs]  # the plain (hs, cs)
+    err, limit = forward_error_of(refs, hs, cs if training else None, dtype)
     worst = err
     for _ in range(REPEATS if path != "fma" else 2):
         launch()
-        worst = max(worst, forward_error(inputs, hs, cs if training else None, dtype)[0])
+        worst = max(worst, forward_error_of(refs, hs, cs if training else None, dtype)[0])
     log(f"  {what} {path} ({tile_label(tile)}{', with cs' if training else ''}): "
         f"max|kernel-plain| {err:.3e}, worst of the launches {worst:.3e} (limit {limit:.3g})")
     check(worst <= limit, f"{what} disagrees with plain: {worst} > {limit}")
@@ -3244,37 +3345,38 @@ def dptnet_kernel_timing(label, B, T, chains, dtype, training):
         timing["cluster"] = tile[1]
     elif path == "wide":
         timing["tile"] = list(tile)
-    if path == "fma":
-        timing["ms"] = graph_ms(launch, repeats)
+    if path == "fma":  # a long launch: fewer timed replays
+        timing["ms"] = graph_ms(launch, repeats, iters=5)
     else:
         fma_hs, fma_cs, fma = ls._staged_forward(inputs, training, "fma")
         on_path(ls.PATH_LAUNCHES[name], name, fma, "fma")
-        timing["fma_max_abs_err"], _ = forward_error(inputs, fma_hs,
-                                                     fma_cs if training else None, dtype)
+        timing["fma_max_abs_err"], _ = forward_error_of(refs, fma_hs,
+                                                        fma_cs if training else None, dtype)
         check(timing["fma_max_abs_err"] <= limit, f"{what}: FMA disagrees with plain")
         turns = (graph_ms(fma, 1), graph_ms(launch, repeats), graph_ms(launch, repeats),
                  graph_ms(fma, 1))
         timing.update(ms=(turns[1] + turns[2]) / 2, fma_ms=(turns[0] + turns[3]) / 2)
     plain = ls.lstm_forward_reference if training else ls.lstm_scan_reference
-    timing["plain_ms"] = median_ms(lambda: [plain(xw, w) for xw, w in inputs], warmup=1,
-                                   iters=3)
-    timing["library_ms"] = library_lstm_ms(B, T, DPT_H, chains, dtype, features=DPT_E,
+    timing["plain_ms"] = median_ms(lambda: [plain(xw, w) for xw, w in inputs], warmup=0,
+                                   iters=1)
+    timing["library_ms"] = library_lstm_ms(B, T, H, chains, dtype, features=features,
                                            iters=10)
-    # The wide route's f32 product is three TF32 products at the tensor cores' TF32 peak.
-    timing.update(recurrence_bound(B, T, DPT_H, 4, chains, cell_state=training, dtype=dtype,
-                                   tf32=3 if path == "wide" and dtype == torch.float32 else 0))
+    # The wide and tf32x3 routes' f32 product is three TF32 products at the tensor cores'
+    # TF32 peak.
+    tf32 = 3 if path in ("wide", "tf32x3") and dtype == torch.float32 else 0
+    timing.update(recurrence_bound(B, T, H, 4, chains, cell_state=training, dtype=dtype,
+                                   tf32=tf32))
     log(f"    {path} {timing['ms']:.4f} ms" + (f" (FMA forced {timing['fma_ms']:.4f} ms)"
                                                 if "fma_ms" in timing else "")
         + f", plain {timing['plain_ms']:.4f} ms, cuDNN nn.LSTM {timing['library_ms']:.4f} ms "
-        f"(F={DPT_E}, median of 10), bound {timing['bound_ms']:.4f} ms ({timing['bound_by']})")
+        f"(F={features}, median of 10), bound {timing['bound_ms']:.4f} ms ({timing['bound_by']})")
     return timing, inputs, hs, cs
 
 
-def autograd_backward(label, inputs, hs, cs, timed):
+def autograd_case(inputs, hs, cs):
     """The backward of one or two (xw, w_hh) chains whose forward gave hs and cs, under
-    autograd through the public wrapper on its planned route, against
-    lstm_scan_bwd_reference (check_backward; timed whole and alone beside the FMA backward
-    if `timed`) -> check_backward's timing."""
+    autograd through the public wrapper -> (kernel name, grads_of() giving the gradients in
+    lstm_scan_bwd_reference's order, the plain version's chains (with the cotangents))."""
     B, T, _ = inputs[0][0].shape
     H, dtype = inputs[0][1].shape[0], inputs[0][0].dtype
     gen = torch.Generator(device="cuda").manual_seed(B + T + 1)
@@ -3287,36 +3389,70 @@ def autograd_backward(label, inputs, hs, cs, timed):
         outs = fn(*leaves[0::2], *leaves[1::2])
         return torch.autograd.grad(outs if len(grads) == 2 else (outs,), leaves, grads)
 
-    plain_chains = [(xw, w, h, c, g) for (xw, w), h, c, g in zip(inputs, hs, cs, grads)]
+    return kname, grads_of, [(xw, w, h, c, g) for (xw, w), h, c, g in zip(inputs, hs, cs, grads)]
+
+
+def autograd_backward(label, inputs, hs, cs, timed):
+    """autograd_case's backward on its planned route against lstm_scan_bwd_reference
+    (check_backward; timed whole and alone beside the FMA backward if `timed`) ->
+    check_backward's timing."""
+    kname, grads_of, plain_chains = autograd_case(inputs, hs, cs)
     ref = [d for c in plain_chains for d in ls.lstm_scan_bwd_reference(*c)]
     return check_backward(ls, kname, label, grads_of, plain_chains, ref,
                           lambda: [ls.lstm_scan_bwd_reference(*c) for c in plain_chains],
                           timed=timed)
 
 
-def dptnet_backward_timing(label, inputs, hs, cs):
-    """The backward at a DPTNet training shape (f32) under autograd on its planned route
-    against lstm_scan_bwd_reference, timed whole and alone beside the FMA backward
-    (autograd_backward), with cuDNN's nn.LSTM backward at F = 64 and the route's bounds
-    (the wide route's recurrent product as three TF32 products)."""
+def lstm_backward_timing(model, label, inputs, hs, cs, features):
+    """The backward at a model's training shape under autograd on its planned route against
+    lstm_scan_bwd_reference; timed whole and alone beside the FMA backward
+    (autograd_backward), or, where the plan takes the FMA backward itself, each timed once
+    (median of 5); with cuDNN's nn.LSTM backward at the model's input width `features` and
+    the route's bounds (the wide and tensor-core routes' recurrent product as TF32
+    products)."""
     B, T, _ = inputs[0][0].shape
+    H, dtype = inputs[0][1].shape[0], inputs[0][0].dtype
     chains = len(inputs)
-    timing = autograd_backward(f"DPTNet {label} (B={B}, T={T}, H={DPT_H}) float32", inputs, hs,
-                               cs, timed=True)
-    timing["path"] = plan_bwd(ls, B, chains, DPT_H, torch.float32)[0]
-    timing["library_ms"] = library_lstm_bwd_ms(B, T, DPT_H, chains, torch.float32,
-                                               features=DPT_E)
-    wide = timing["path"] == "wide"
-    timing.update(recurrence_bound(B, T, DPT_H, 4, chains, backward=True, cell_state=True,
-                                   tf32=3 if wide else 0))
+    path = plan_bwd(ls, B, chains, H, dtype)[0]
+    what = f"{model} {label} (B={B}, T={T}, H={H}) {str(dtype)[6:]}"
+    if path == "fma":
+        timing = fma_backward_timing(what, inputs, hs, cs)
+    else:
+        timing = autograd_backward(what, inputs, hs, cs, timed=True)
+    timing["path"] = path
+    timing["library_ms"] = library_lstm_bwd_ms(B, T, H, chains, dtype, features=features)
+    tf32 = {"wide": 3, "tf32x3": 3, "tf32x2": 2}.get(path, 0)
+    timing.update(recurrence_bound(B, T, H, 4, chains, backward=True, cell_state=True,
+                                   dtype=dtype, tf32=tf32))
     timing["kernel_bound_ms"] = backward_kernel_bound(
-        B, T, DPT_H, 4, chains, torch.float32, 3 if wide else 1,
-        peak="tf32" if wide else torch.float32)["bound_ms"]
-    if wide:
-        timing["fma_bound_ms"] = recurrence_bound(B, T, DPT_H, 4, chains, backward=True,
-                                                  cell_state=True)["bound_ms"]
-    log(f"    cuDNN nn.LSTM backward {timing['library_ms']:.4f} ms (F={DPT_E}); bound "
+        B, T, H, 4, chains, dtype, tf32 or 1, peak="tf32" if tf32 else torch.float32)["bound_ms"]
+    if tf32:
+        timing["fma_bound_ms"] = recurrence_bound(B, T, H, 4, chains, backward=True,
+                                                  cell_state=True, dtype=dtype)["bound_ms"]
+    log(f"    cuDNN nn.LSTM backward {timing['library_ms']:.4f} ms (F={features}); bound "
         f"{timing['bound_ms']:.4f} ms whole, {timing['kernel_bound_ms']:.4f} ms the kernel")
+    return timing
+
+
+def fma_backward_timing(label, inputs, hs, cs):
+    """The FMA backward (the plan's route) under autograd against lstm_scan_bwd_reference
+    (check_backward), then the whole backward (the gate recompute, the kernel, d_W_hh) and
+    the kernel alone, each a median of 5 after one warm-up, beside the plain version (the
+    reference's one run, between CUDA events)."""
+    kname, grads_of, plain_chains = autograd_case(inputs, hs, cs)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    ref = [d for c in plain_chains for d in ls.lstm_scan_bwd_reference(*c)]
+    end.record()
+    end.synchronize()
+    check_backward(ls, kname, label, grads_of, plain_chains, ref, None, timed=False)
+    errs = grad_errors(kname, grads_of(), ref, hs[0].dtype)
+    whole = median_ms(lambda: ls._backward_cuda(plain_chains, "fma"), warmup=1, iters=5)
+    alone = median_ms(ls._staged_backward(plain_chains, "fma")[1], warmup=1, iters=5)
+    timing = dict(max_abs_err=max(x for x, _ in errs), ms=whole, kernel_ms=alone,
+                  plain_ms=start.elapsed_time(end))
+    log(f"    fma: whole backward {whole:.4f} ms, kernel alone {alone:.4f} ms, plain "
+        f"{timing['plain_ms']:.4f} ms (CUDA events)")
     return timing
 
 
@@ -3330,11 +3466,12 @@ def phase_dptnet_kernels(card=None):
     for label, (B, T, chains), dtypes, training in DPT_SHAPES:
         name = "lstm_scan_bidir" if chains == 2 else "lstm_scan"
         for dtype in dtypes:
-            timing, inputs, hs, cs = dptnet_kernel_timing(label, B, T, chains, dtype, training)
+            timing, inputs, hs, cs = lstm_kernel_timing("DPTNet", label, B, T, DPT_H, chains,
+                                                        dtype, training, DPT_E)
             result[(name, label, dtype)] = timing
             if training:
-                result[(f"{name}_bwd", label, dtype)] = dptnet_backward_timing(
-                    label, inputs, hs, cs)
+                result[(f"{name}_bwd", label, dtype)] = lstm_backward_timing(
+                    "DPTNet", label, inputs, hs, cs, DPT_E)
             del inputs, hs, cs
     return result
 
@@ -3369,7 +3506,7 @@ def dptnet_train_parity():
 
 def dptnet_train_cli(tmp, card):
     """cli/train_wsj0mix.py --model dptnet at the recipe (B = 2 x 4 s, f32) with
-    --warmup_steps on a synthetic corpus, 2 epochs of at least 10 steps: every step and
+    --warmup_steps on a synthetic corpus, 2 epochs of at least 5 steps: every step and
     validation forward on its routes, the epoch train loss falling; then its checkpoint
     through cli/separate.py and cli/test_wsj0mix.py on the card; and the recipe step's
     p50 split by CUDA events with its idle share. -> (launches, checkpoint)."""
@@ -3377,7 +3514,7 @@ def dptnet_train_cli(tmp, card):
         f"--warmup_steps {DPT_WARMUP})")
     corpus = os.path.join(tmp, "dpt_corpus")
     tr_root, tr_list = write_quality_corpus(corpus, "tr", DPT_TRAIN_UTTS)
-    cv_root, cv_list = write_quality_corpus(corpus, "cv", 2)
+    cv_root, cv_list = write_quality_corpus(corpus, "cv", 1)
     exp = os.path.join(tmp, "exp_dptnet")
     argv = ["--train_wav_root", tr_root, "--train_list_path", tr_list, "--valid_wav_root",
             cv_root, "--valid_list_path", cv_list, "--duration", "4", "--valid_duration", "4",
@@ -3390,7 +3527,7 @@ def dptnet_train_cli(tmp, card):
         trainer = train_cli.main(argv)
     grew = all_counts()
     steps = 2 * len(trainer.train_loader)
-    check(steps >= 20, f"the DPTNet CLI run took {steps} steps, fewer than 20")
+    check(steps >= 10, f"the DPTNet CLI run took {steps} steps, fewer than 10")
     routes = {k: steps * v for k, v in
               dptnet_routes(2, 4 * SAMPLE_RATE, False, torch.float32, backward=True).items()}
     evals = 0
@@ -3439,17 +3576,17 @@ def dptnet_train_cli(tmp, card):
     step = evented_step(lambda: criterion(model(mixture), sources)[0], optimizer)
     splits, walls = [], []
     torch.cuda.reset_peak_memory_stats()
-    for i in range(2 + 10):
+    for i in range(1 + 5):
         events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         start = time.perf_counter()
         step(events)
         torch.cuda.synchronize()
-        if i >= 2:
+        if i >= 1:
             walls.append((time.perf_counter() - start) * 1e3)
             splits.append([events[j].elapsed_time(events[j + 1]) for j in range(3)])
     fwd, bwd, opt = (float(np.median([s[j] for s in splits])) for j in range(3))
     p50 = float(np.median(walls))
-    log(f"    p50 step {p50:.3f} ms of 10 (forward + loss {fwd:.3f}, backward {bwd:.3f}, "
+    log(f"    p50 step {p50:.3f} ms of 5 (forward + loss {fwd:.3f}, backward {bwd:.3f}, "
         f"optimizer {opt:.3f} ms, CUDA events), {2 * 4.0 / (p50 / 1e3):.1f} audio-s/s, peak "
         f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB")
     step_routes = dptnet_routes(2, 4 * SAMPLE_RATE, False, torch.float32, backward=True)
@@ -3485,10 +3622,13 @@ def phase_dptnet(card=None, tmp=None):
         forwards = {}
         for tag, ckpt in ckpts.items():
             model = load_model(ckpt, device="cuda")
+            causal = tag.endswith("causal")
             for dtype in (torch.float32, torch.bfloat16):  # .to converts the model in place
                 reset_counts()
-                forwards[(tag, dtype)], launches = dptnet_forward_profile(
-                    model.to(dtype), dtype, tag.endswith("causal"), card)
+                forwards[(tag, dtype)], launches = forward_profile(
+                    model.to(dtype), dtype, "DPTNet causal" if causal else "DPTNet",
+                    dptnet_routes(8, 4 * SAMPLE_RATE, causal, dtype),
+                    decode_path("dptnet", dtype), card)
                 total = add_counts(total, launches)
             del model
         total = add_counts(total, dptnet_train_parity())
@@ -3504,6 +3644,367 @@ def phase_dptnet(card=None, tmp=None):
     kernels = phase_dptnet_kernels(card)
     log(f"  phase 13 main-path launches: {nonzero(total)}")
     return dict(launches=total, kernels=kernels, forwards=forwards)
+
+
+# Phase 14: LSTM-TasNet, SepFormer and GALRNet on wsj0-2mix at the recipe configs
+# (bench.LSTM_TASNET, SEPFORMER, GALRNET: egs/wsj0-mix/{lstm-tasnet,sepformer,galrnet}/
+# train.sh), seed-0 weights. At B = 8 x 4 s LSTM-TasNet (T' = 1599 frames) runs its four
+# LSTM layers (2 blocks x 2) over 8 sequences at H = 500: the FMA kernel, since H = 500 is
+# neither a multiple of 16 (the tensor cores) nor of 128 (the cluster route). GALRNet
+# (T' = 3999, padded to 79 chunks of 100) runs six intra-chunk biLSTMs over 632 sequences
+# at H = 128 (the tensor cores) and attends over 256 sequences of 79 chunks; SepFormer
+# (31 chunks of 250) runs no recurrence. Recipe training (B = 4) halves the sequences.
+SLICE_D = {"lstm_tasnet": (LSTMTasNet, LSTM_TASNET), "sepformer": (SepFormer, SEPFORMER),
+           "galrnet": (GALRNet, GALRNET)}
+SLICE_D_NAMES = {"lstm_tasnet": "LSTM-TasNet", "sepformer": "SepFormer", "galrnet": "GALRNet"}
+# The recipes' CLI flags (egs/wsj0-mix/<model>/train.sh), at the CLI's default batch of 4.
+SLICE_D_CLI = {
+    "lstm_tasnet": ["--model", "lstm-tasnet", "-N", "500", "-L", "40", "--enc_basis",
+                    "trainableGated", "--sep_num_blocks", "2", "--sep_num_layers", "2",
+                    "--sep_hidden_channels", "500", "--mask_nonlinear", "softmax"],
+    "sepformer": ["--model", "sepformer", "-N", "256", "-L", "16", "-K", "250",
+                  "--sep_hop_size", "125", "--sep_num_blocks", "2", "--sep_num_layers", "8",
+                  "--sep_num_heads", "8", "--sep_bottleneck_channels", "256",
+                  "--mask_nonlinear", "relu"],
+    "galrnet": ["--model", "galrnet", "-N", "64", "-L", "16", "-K", "100", "--sep_hop_size",
+                "50", "-Q", "32", "--sep_num_blocks", "6", "--sep_num_heads", "8",
+                "--sep_hidden_channels", "128", "--mask_nonlinear", "relu"],
+}
+SLICE_D_TRAIN_UTTS = 30  # synthetic train utterances: 40 windows of 4 s, 10 steps of B = 4
+SLICE_D_PARITY_DEPTH = {  # the train step against f64 (B = 1 x 1 s) at a small depth
+    "lstm_tasnet": dict(sep_num_blocks=1),
+    "sepformer": dict(sep_num_blocks=1, sep_num_layers_intra=2, sep_num_layers_inter=2),
+    "galrnet": dict(sep_num_blocks=2),
+}
+# The recurrences at the new shapes, phase 14k: (model, label, (B, T, H, chains), dtypes,
+# training: cs written and the backward checked).
+SLICE_D_SHAPES = [
+    ("lstm_tasnet", "serve", (8, 1599, 500, 2), (torch.float32, torch.bfloat16), False),
+    ("lstm_tasnet", "serve causal", (8, 1599, 500, 1), (torch.float32, torch.bfloat16), False),
+    ("lstm_tasnet", "train", (4, 1599, 500, 2), (torch.float32, torch.bfloat16), True),
+    ("lstm_tasnet", "train causal", (4, 1599, 500, 1), (torch.float32, torch.bfloat16), True),
+    ("galrnet", "serve intra", (632, 100, 128, 2), (torch.float32, torch.bfloat16), False),
+    ("galrnet", "train intra", (316, 100, 128, 2), (torch.float32, torch.bfloat16), True),
+]
+SLICE_D_FEATURES = {"lstm_tasnet": 500, "galrnet": 64}  # the first LSTM layer's input width
+
+
+def slice_d_frames(tag, n_samples):
+    """T': the latent frames of one n-sample input after the stride-grid pad."""
+    cfg = SLICE_D[tag][1]
+    L = cfg["kernel_size"]
+    stride = cfg.get("stride") or L // 2
+    return (n_samples + (stride - (n_samples - L) % stride) % stride - L) // stride + 1
+
+
+def slice_d_chunks(tag, n_samples):
+    """S: the chunks of K frames at hop P after the symmetric chunk-grid pad."""
+    cfg = SLICE_D[tag][1]
+    K, P = cfg["sep_chunk_size"], cfg["sep_hop_size"]
+    frames = slice_d_frames(tag, n_samples)
+    return (frames + (P - (frames - K) % P) % P - K) // P + 1
+
+
+def slice_d_routes(tag, B, n_samples, causal, dtype, backward=False, **depth):
+    """The recurrence launches of one forward (and its backward) on (B, 1, n), by
+    "kernel/route": LSTM-TasNet's blocks x layers LSTM layers over B sequences of T' steps
+    (one chain when causal), GALRNet's intra-chunk biLSTM over B·S sequences of K steps a
+    block (bidirectional whether causal or not), none for SepFormer; each on the route
+    _plan (_plan_bwd) gives its shape on this card. `depth` overrides the config's."""
+    cfg = dict(SLICE_D[tag][1], **depth)
+    if tag == "lstm_tasnet":
+        name = "lstm_scan" if causal else "lstm_scan_bidir"
+        rows, chains, H = B, 1 + (not causal), cfg["sep_hidden_channels"]
+        count = cfg["sep_num_blocks"] * cfg["sep_num_layers"]
+    elif tag == "galrnet":
+        name, chains, H = "lstm_scan_bidir", 2, cfg["sep_hidden_channels"]
+        rows, count = B * slice_d_chunks(tag, n_samples), cfg["sep_num_blocks"]
+    else:
+        return {}
+    keys = [f"{name}/{plan(ls, rows, chains, H, dtype)[0]}"]
+    if backward:
+        keys.append(f"{name}_bwd/{plan_bwd(ls, rows, chains, H, dtype)[0]}")
+    # Only LSTM-TasNet's H = 500 takes the FMA kernels; GALRNet's H = 128 the tensor cores.
+    check((tag == "lstm_tasnet") == all(k.endswith("/fma") for k in keys),
+          f"{tag} at H = {H}, {rows} sequences: routes {keys}")
+    return {key: count for key in keys}
+
+
+def slice_d_decode(tag, dtype):
+    """The fused_mask_decode path of a model's decode in `dtype` (ops/mask_decode.py:
+    _plan): bf16 on the tensor cores ("mma") but for LSTM-TasNet, whose N = 500 is no
+    multiple of 8 (and whose bf16 rows of 1000 bytes are not 16-byte aligned): "generic";
+    every f32 decode of the three on "generic"."""
+    bf16 = dtype in ("bfloat16", torch.bfloat16)
+    return "mma" if bf16 and tag != "lstm_tasnet" else "generic"
+
+
+def slice_d_model(tag, causal, device="cuda", **depth):
+    cls, cfg = SLICE_D[tag]
+    return scramble_norms(cls(**dict(cfg, causal=causal, **depth),
+                              generator=torch.Generator().manual_seed(0), device=device))
+
+
+def slice_d_serve(tmp, wavs, card):
+    """Serving: each model, causal and not, through cli/separate.py in f32 and bf16 (each
+    request held to its routes), card vs CPU and bf16 vs f32 (phase 5); then causal
+    LSTM-TasNet with the trainable encoder streamed through --streaming_hop (one decode a
+    separator call, no recurrence kernel: the carried LSTMs run the plain step loop),
+    streamed vs offline, ms a hop. -> (launches, checkpoints)."""
+    launches, ckpts = {}, {}
+    for tag in SLICE_D:
+        for causal in (False, True):
+            key = f"{tag}{'_causal' if causal else ''}"
+            log(f"== phase 14: serve recipe-config {SLICE_D_NAMES[tag]}, causal={causal}, "
+                "through cli/separate.py")
+            ckpts[key] = os.path.join(tmp, f"{key}.pth")
+            save_model(ckpts[key], slice_d_model(tag, causal))
+            outputs, served = serve_routed(
+                key, ckpts[key], wavs,
+                lambda n, dtype, tag=tag, causal=causal: slice_d_routes(tag, 1, n, causal, dtype),
+                lambda dtype, tag=tag: slice_d_decode(tag, dtype))
+            launches = add_counts(launches, served)
+            phase_parity(key, ckpts[key], wavs, outputs)
+    tag = "lstm_tasnet_stream"
+    log(f"== phase 14: stream causal LSTM-TasNet (trainable encoder) through cli/separate.py "
+        f"--streaming_hop {STREAMING_HOP}")
+    ckpt = os.path.join(tmp, f"{tag}.pth")
+    save_model(ckpt, slice_d_model("lstm_tasnet", True, enc_basis="trainable"))
+    flags = ["--streaming_hop", str(STREAMING_HOP)]
+    L, S = LSTM_TASNET["kernel_size"], LSTM_TASNET["kernel_size"] // 2
+    outputs, streamed = serve_routed(tag, ckpt, wavs, lambda n, dtype: {},
+                                     lambda dtype: slice_d_decode("lstm_tasnet", dtype), flags,
+                                     decodes_of=lambda n: stream_calls(n, L, S, 1)[0])
+    launches = add_counts(launches, streamed)
+    phase_stream_offline(tag, ckpt, wavs, outputs, phase="14")
+    phase_parity(tag, ckpt, wavs, outputs, flags=flags)
+    log(f"  ms a hop of the streamed causal LSTM-TasNet (informational) [{card}]")
+    for dtype in (torch.bfloat16, torch.float32):
+        stream_hop_times(ckpt, wavs[-1], dtype, card)
+    return launches, ckpts
+
+
+def slice_d_forwards(ckpts, card):
+    """The B = 8 x 4 s forward of each served checkpoint in both dtypes, every launch on its
+    route, profiled (forward_profile). -> (numbers, launches)."""
+    log(f"== phase 14: the B=8 x 4 s forward, ms and where the device time goes [{card}]")
+    forwards, launches = {}, {}
+    for key, ckpt in ckpts.items():
+        tag, causal = key.replace("_causal", ""), key.endswith("causal")
+        model = load_model(ckpt, device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):  # .to converts the model in place
+            reset_counts()
+            forwards[(key, dtype)], grew = forward_profile(
+                model.to(dtype), dtype, SLICE_D_NAMES[tag] + (" causal" if causal else ""),
+                slice_d_routes(tag, 8, 4 * SAMPLE_RATE, causal, dtype),
+                slice_d_decode(tag, dtype), card)
+            launches = add_counts(launches, grew)
+        del model
+    return forwards, launches
+
+
+def slice_d_train_parity():
+    """One train step of each model on the card against an f64 CPU step (and the f32 CPU
+    step), as phase 7: the recipe widths at a small depth (SLICE_D_PARITY_DEPTH), B = 1 x
+    1 s; LSTM-TasNet causal too (the one-chain FMA backward at H = 500). -> the card
+    steps' launches."""
+    log("== phase 14: one train step a model, card vs CPU (f32, TF32 off, recipe widths at a "
+        "small depth, B=1 x 1 s; f64 CPU reference)")
+    launches = {}
+    for tag, causal in (("lstm_tasnet", False), ("lstm_tasnet", True), ("sepformer", False),
+                        ("galrnet", False)):
+        key = f"{tag}{'_causal' if causal else ''}"
+        depth = SLICE_D_PARITY_DEPTH[tag]
+        cpu_model = slice_d_model(tag, causal, "cpu", **depth)
+        batch = train_batch(1, 1.0, "cpu")
+        ref = grads_of_step(copy.deepcopy(cpu_model).double(), tuple(t.double() for t in batch))
+        cpu = grads_of_step(cpu_model, batch)
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        card_step = grads_of_step(slice_d_model(tag, causal, **depth),
+                                  train_batch(1, 1.0, "cuda"))
+        torch.cuda.synchronize()
+        grew = all_counts()
+        log(f"  {key}: the card step's peak allocation "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB")
+        routes = slice_d_routes(tag, 1, SAMPLE_RATE, causal, torch.float32, backward=True,
+                                **depth)
+        check_dptnet_launches(grew, routes, f"{key}: a train step")
+        # GALR's fc_map bias has a gradient of 0 but for rounding: the LayerNorm over the
+        # channels after fc_map removes a constant added to every channel of a position.
+        check_step_against_f64(key, ref, cpu, card_step, kernels_of(grew),
+                               null_floor=1e-4 if tag == "galrnet" else 0.0)
+        log(f"    launches by route: {routes_of(grew)}")
+        launches = add_counts(launches, grew)
+    return launches
+
+
+def slice_d_train_cli(tag, tmp, card):
+    """cli/train_wsj0mix.py at the recipe flags (B = 4 x 4 s, f32) on a synthetic corpus, 2
+    epochs of 10 steps: every step and validation forward on its routes, the epoch train
+    loss falling; its checkpoint served through cli/separate.py and evaluated through
+    cli/test_wsj0mix.py card vs CPU; the recipe step's p50 split by CUDA events with its
+    peak allocation and a profile with its idle share. -> launches."""
+    name = SLICE_D_NAMES[tag]
+    log(f"== phase 14: train {name} through cli/train_wsj0mix.py (recipe, B=4 x 4 s, f32)")
+    corpus = os.path.join(tmp, "slice_d_corpus")
+    tr_root, tr_list = write_quality_corpus(corpus, "tr", SLICE_D_TRAIN_UTTS)
+    cv_root, cv_list = write_quality_corpus(corpus, "cv", 1)
+    exp = os.path.join(tmp, f"exp_{tag}")
+    argv = ["--train_wav_root", tr_root, "--train_list_path", tr_list, "--valid_wav_root",
+            cv_root, "--valid_list_path", cv_list, "--duration", "4", "--valid_duration", "4",
+            "--device", "cuda", *SLICE_D_CLI[tag], "--epochs", "2", "--exp_dir", exp]
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        trainer = train_cli.main(argv)
+    grew = all_counts()
+    steps = 2 * len(trainer.train_loader)
+    check(steps == 20, f"the {name} CLI run took {steps} steps, not 20")
+    routes = {k: steps * v for k, v in
+              slice_d_routes(tag, 4, 4 * SAMPLE_RATE, False, torch.float32,
+                             backward=True).items()}
+    evals = 0
+    for mixture, _ in trainer.valid_loader:  # B = 1, each utterance's own length
+        routes = add_counts(routes, {k: 2 * v for k, v in slice_d_routes(
+            tag, 1, np.shape(mixture)[-1], False, torch.float32).items()})
+        evals += 2
+    check_dptnet_launches(grew, routes, f"the {name} CLI run", decodes=evals,
+                          decode=slice_d_decode(tag, torch.float32))
+    losses = trainer.train_loss
+    log(f"  {steps} steps, {evals} validation forwards, peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB: train loss by epoch "
+        f"{[round(v, 4) for v in losses]}, valid {[round(v, 4) for v in trainer.valid_loss]}; "
+        f"the CLI's last lines: " + " | ".join(out.getvalue().strip().splitlines()[-2:]))
+    log(f"    launches by route: {routes_of(grew)}")
+    check(np.isfinite(losses).all() and losses[-1] < losses[0],
+          f"the {name} CLI's epoch train loss did not fall: {losses}")
+    ckpt = os.path.join(exp, "model", "last.ckpt")
+    launches = all_counts()
+
+    log(f"  serve and evaluate the trained {name} checkpoint on the card")
+    wav = write_mixtures(tmp)[-1]
+    _, served = serve_routed(f"trained_{tag}", ckpt, [wav],
+                             lambda n, dtype: slice_d_routes(tag, 1, n, False, dtype),
+                             lambda dtype: slice_d_decode(tag, dtype))
+    launches = add_counts(launches, served)
+    reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        card_metrics = test_cli.main(["--test_wav_root", cv_root, "--test_list_path", cv_list,
+                                      "--model_path", ckpt, "--device", "cuda"])
+        cpu_metrics = test_cli.main(["--test_wav_root", cv_root, "--test_list_path", cv_list,
+                                     "--model_path", ckpt, "--device", "cpu"])
+    evaluated = all_counts()
+    with open(cv_list) as f:
+        utts = [line.strip() for line in f if line.strip()]
+    routes = {}
+    for utt in utts:  # one forward an utterance, at its own length
+        n = read_wav(os.path.join(cv_root, "mix", f"{utt}.wav"))[0].shape[0]
+        routes = add_counts(routes, slice_d_routes(tag, 1, n, False, torch.float32))
+    check_dptnet_launches(evaluated, routes, f"the {name} evaluation", decodes=len(utts),
+                          decode=slice_d_decode(tag, torch.float32))
+    launches = add_counts(launches, evaluated)
+    diffs = {k: abs(card_metrics[k] - cpu_metrics[k]) for k in TEST_METRICS}
+    log(f"  cli/test_wsj0mix.py card vs CPU: " + ", ".join(
+        f"{k} {card_metrics[k]:.4f} / {cpu_metrics[k]:.4f}" for k in TEST_METRICS)
+        + f" (limit {EVAL_TOL_DB} dB each)")
+    check(all(d <= EVAL_TOL_DB for d in diffs.values()), f"evaluation card vs CPU: {diffs}")
+
+    log(f"  the recipe step (B=4 x 4 s, f32): p50 split [{card}]")
+    model = slice_d_model(tag, False)
+    optimizer = make_optimizer("adam", 1e-3, 5.0, params=model.parameters())
+    criterion = PIT1d(NegSISDR(), n_sources=2)
+    mixture, sources = train_batch(4, 4.0, "cuda")
+    model.train()
+    step = evented_step(lambda: criterion(model(mixture), sources)[0], optimizer)
+    splits, walls = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(1 + 5):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        start = time.perf_counter()
+        step(events)
+        torch.cuda.synchronize()
+        if i >= 1:
+            walls.append((time.perf_counter() - start) * 1e3)
+            splits.append([events[j].elapsed_time(events[j + 1]) for j in range(3)])
+    fwd, bwd, opt = (float(np.median([s[j] for s in splits])) for j in range(3))
+    p50 = float(np.median(walls))
+    log(f"    p50 step {p50:.3f} ms of 5 (forward + loss {fwd:.3f}, backward {bwd:.3f}, "
+        f"optimizer {opt:.3f} ms, CUDA events), {4 * 4.0 / (p50 / 1e3):.1f} audio-s/s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB")
+    step_routes = slice_d_routes(tag, 4, 4 * SAMPLE_RATE, False, torch.float32, backward=True)
+    profile_train_step(
+        lambda: criterion(model(mixture), sources)[0], optimizer, f"{name} (B=4 x 4 s, f32)",
+        card, lambda g: check(routes_of(g) == {k: v for k, v in step_routes.items()
+                                               if k.split("/")[0].endswith("_bwd")},
+                              f"the profiled {name} backward launched {routes_of(g)}"))
+    del model, optimizer
+    return launches
+
+
+def phase_slice_d_kernels(card=None):
+    """Phase 14k: every recurrence shape of the three models' main paths against the plain
+    version, timed (lstm_kernel_timing, lstm_backward_timing), and fused_mask_decode at the
+    three decoder widths (decode_case: one whole call and the kernel alone, beside the
+    generic kernel, the plain version and einsum). -> {(name, model, label, dtype): timing}
+    and {(model, dtype): decode timing}."""
+    card = card or card_line()
+    log("== phase 14k: the recurrences and decodes at LSTM-TasNet's, SepFormer's and "
+        f"GALRNet's shapes vs plain on the card (CUDA graphs, CUDA events) [{card}]")
+    result = {}
+    for tag, label, (B, T, H, chains), dtypes, training in SLICE_D_SHAPES:
+        name = "lstm_scan_bidir" if chains == 2 else "lstm_scan"
+        for dtype in dtypes:
+            timing, inputs, hs, cs = lstm_kernel_timing(
+                SLICE_D_NAMES[tag], label, B, T, H, chains, dtype, training,
+                SLICE_D_FEATURES[tag])
+            result[(name, tag, label, dtype)] = timing
+            if training:
+                result[(f"{name}_bwd", tag, label, dtype)] = lstm_backward_timing(
+                    SLICE_D_NAMES[tag], label, inputs, hs, cs, SLICE_D_FEATURES[tag])
+            del inputs, hs, cs
+    decodes = {}
+    for tag, shape in SLICE_D_DECODE_SHAPES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            decodes[(tag, dtype)] = decode_case(shape, True, dtype,
+                                                f"{SLICE_D_NAMES[tag]} decoder shape")
+    return dict(recurrences=result, decodes=decodes)
+
+
+def phase_slice_d(card=None, tmp=None):
+    """Phase 14, LSTM-TasNet, SepFormer and GALRNet on wsj0-2mix -> {"launches": the main
+    path's counts (serving, streaming, the B = 8 forwards, the train steps, the CLIs'
+    training, serving and evaluation), "fma": the FMA launches among them, all
+    LSTM-TasNet's at H = 500, "expected_fma": those its runs' routes imply, "kernels": the
+    timings of phase_slice_d_kernels, "forwards"}."""
+    card = card or card_line()
+    kernels = phase_slice_d_kernels(card)  # the kernels at the new shapes before anything else
+    ROUTED_FMA.clear()
+    with contextlib.ExitStack() as stack:
+        tmp = tmp or stack.enter_context(tempfile.TemporaryDirectory())
+        wavs = write_mixtures(tmp)
+        total, ckpts = slice_d_serve(tmp, wavs, card)
+        forwards, launches = slice_d_forwards(ckpts, card)
+        total = add_counts(total, launches)
+        total = add_counts(total, slice_d_train_parity())
+        for tag in SLICE_D:
+            total = add_counts(total, slice_d_train_cli(tag, tmp, card))
+    log("== phase 14: the bench module, --model lstm-tasnet|sepformer|galrnet (informational; "
+        "in this process, its line kept off stdout)")
+    for tag in SLICE_D:
+        for flags in ([], ["--dtype", "float32"]):
+            with contextlib.redirect_stdout(io.StringIO()):
+                line = bench_main(["--model", tag.replace("_", "-"), *flags])
+            check(line["value"] > 0 and line["mfu"] > 0, line)
+            log(f"  bench --model {tag.replace('_', '-')} {' '.join(flags)}: {json.dumps(line)}")
+    # The FMA launches apart: exactly those LSTM-TasNet's runs (H = 500, slice_d_routes) put
+    # on the FMA kernels, as check_dptnet_launches tallied them in ROUTED_FMA.
+    fma = {k: n for k, n in total.items() if k.endswith("/fma") and n}
+    check(fma == {k: n for k, n in ROUTED_FMA.items() if n} and fma,
+          f"phase 14 launched the FMA kernels {fma}, LSTM-TasNet's routes {ROUTED_FMA}")
+    log(f"  phase 14 main-path launches: {nonzero(total)}; FMA launches, all LSTM-TasNet's "
+        f"at H = 500: {fma}")
+    return dict(launches=total, fma=fma, kernels=kernels, forwards=forwards)
 
 
 def kernel_entry(name, source, replaces, launches, timing, bound_of, library_ms=None,
@@ -3595,16 +4096,18 @@ ONLY_PHASES = {"3": phase_kernel, "3b": phase_lstm, "3c": phase_gru, "3d": phase
                "3e": phase_gru_bwd, "3f": phase_quantize, "3g": phase_library,
                "3h": phase_cluster, "3i": phase_wide, "3j": phase_wide_bwd,
                "6s": phase_stream_hops, "11": phase_musdb, "12": phase_musdb_train,
-               "13": phase_dptnet, "13k": phase_dptnet_kernels}
+               "13": phase_dptnet, "13k": phase_dptnet_kernels, "14": phase_slice_d,
+               "14k": phase_slice_d_kernels}
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser("chip_smoke")
     parser.add_argument("--only", type=str, default=None,
-                        help="comma-separated kernel phases (3, 3b-3i), 6s (streaming ms "
+                        help="comma-separated kernel phases (3, 3b-3j), 6s (streaming ms "
                              "per hop), 11 (musdb18 serving), 12 (musdb18 training), 13 "
-                             "(DPTNet) or 13k (DPTNet's kernels alone) to run after phases 1 "
-                             "and 2, and nothing else; no result line is printed")
+                             "(DPTNet), 13k (DPTNet's kernels alone), 14 (LSTM-TasNet, "
+                             "SepFormer, GALRNet) or 14k (their kernels alone) to run after "
+                             "phases 1 and 2, and nothing else; no result line is printed")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check needs a CUDA card",
@@ -3715,6 +4218,7 @@ def main(argv=None) -> int:
     musdb = phase_musdb(card)
     musdb_train = phase_musdb_train(card)
     dptnet = phase_dptnet(card)
+    slice_d = phase_slice_d(card)
     for name in ("lstm_scan_bidir_bwd", "lstm_scan_bwd", "gru_scan_bidir_bwd", "gru_scan_bwd"):
         check(trained[name] >= 1, f"the training path never launched {name}")
     total = {k: v + trained[k] + evaluated[k] for k, v in total.items()}
@@ -3730,9 +4234,15 @@ def main(argv=None) -> int:
     # to its route. Its decodes join the served widths' rows.
     dpt_launches = dptnet["launches"]
     total = {k: v + dpt_launches.get(k, 0) for k, v in total.items()}
+    # Phase 14 (LSTM-TasNet, SepFormer, GALRNet) held every launch to its route too. Its FMA
+    # launches, all LSTM-TasNet's at H = 500 and exactly those its runs' routes imply
+    # (phase_slice_d), stay apart; the rest joins the total.
+    slice_launches = slice_d["launches"]
+    total = {k: v + (0 if k.endswith("/fma") else slice_launches.get(k, 0))
+             for k, v in total.items()}
     # The wsj0 models have H = 128 (tensor cores), musdb18's UMX B = 1 at H = 256 and 512
     # and B = 16 at H = 256 (the cluster kernels), DPTNet H = 256 (the wide and cluster
-    # kernels): no FMA kernel.
+    # kernels), GALRNet H = 128: no FMA kernel but LSTM-TasNet's, kept apart above.
     for name, n in total.items():
         if name.endswith("/fma"):
             check(n == 0, f"the main path launched the FMA kernel: {name} {n} times")
@@ -3919,6 +4429,48 @@ def main(argv=None) -> int:
         extra = wide_bwd_timings.get((name, dtype, f"DPTNet {label}")) if backward else None
         if route == "wide" and extra is not None:
             entry.update(cluster_kernel_ms=extra["cluster_kernel_ms"], floor_ms=extra["floor_ms"])
+        entries.append(entry)
+    # Phase 14's shapes and widths (phase 14k's times): fused_mask_decode at LSTM-TasNet's,
+    # SepFormer's and GALRNet's decoder widths, with phase 14's decodes of that width and
+    # dtype (one whole call as `ms`, the kernel alone as `kernel_ms`, a "mma" row beside the
+    # generic kernel; `library_ms` einsum, in bf16 on bf16 operands with a bf16 output); and
+    # the LSTM kernels at LSTM-TasNet's shapes (H = 500, the FMA kernels) and GALRNet's
+    # (H = 128, the tensor cores), forwards at serving's B = 8 x 4 s and training's B = 4
+    # with cs, and their backwards, beside cuDNN's nn.LSTM at the model's input width, with
+    # phase 14's main-path launches of that kernel on that route (every shape and dtype).
+    for (tag, dtype), timing in slice_d["kernels"]["decodes"].items():
+        shape = SLICE_D_DECODE_SHAPES[tag]
+        width = width_key(timing["path"], str(dtype)[6:], shape["N"], shape["CL"])
+        entry = kernel_entry("fused_mask_decode", "csrc/mask_decode.cu",
+                             "ops/pallas_kernels.py:114", slice_launches[width], timing,
+                             mask_decode_bound(**shape, dtype=dtype), timing["library_ms"],
+                             dtype=dtype)
+        entry.update(path=timing["path"], shape=f"{SLICE_D_NAMES[tag]} decoder shape",
+                     **{k: timing[k] for k in ("kernel_ms", "generic_ms", "generic_kernel_ms")
+                        if k in timing})
+        entries.append(entry)
+    sources = {("fma", False): "csrc/lstm_scan.cu", ("fma", True): "csrc/lstm_scan_bwd.cu",
+               ("mma", False): "csrc/recurrence_mma.cuh",
+               ("tf32x3", False): "csrc/recurrence_tf32.cuh",
+               ("tf32x3", True): "csrc/recurrence_bwd_tf32.cuh",
+               ("tf32x2", True): "csrc/recurrence_bwd_tf32.cuh"}
+    replaces_of = {"lstm_scan_bidir": "ops/pallas_lstm.py:323",
+                   "lstm_scan": "ops/pallas_lstm.py:166",
+                   "lstm_scan_bidir_bwd": "ops/pallas_lstm.py:339",
+                   "lstm_scan_bwd": "ops/pallas_lstm.py:230"}
+    for (name, tag, label, dtype), timing in slice_d["kernels"]["recurrences"].items():
+        route = timing["path"]
+        B, T, H_row, _ = next(shape for t, lab, shape, *_ in SLICE_D_SHAPES
+                              if (t, lab) == (tag, label))
+        entry = kernel_entry(name, sources[(route, name.endswith("_bwd"))], replaces_of[name],
+                             slice_launches[f"{name}/{route}"], timing,
+                             {k: timing[k] for k in ("bound_ms", "bound_by")},
+                             timing["library_ms"], dtype=dtype)
+        entry.update(path=route, shape=f"{SLICE_D_NAMES[tag]} {label} B={B} T={T} H={H_row}"
+                     + (", with cs" if "train" in label else ""),
+                     **{k: timing[k] for k in ("kernel_ms", "fma_kernel_ms", "kernel_bound_ms",
+                                               "fma_bound_ms", "fma_max_abs_err", "tile")
+                        if k in timing})
         entries.append(entry)
     entries += [
         # Two reads of x and one int8 write; no single PyTorch call computes it.

@@ -7,6 +7,9 @@ that the port has and the host path of `scripts/bench_streaming.py`:
     python -m dnn_based_source_separation_torch.bench --dtype float32
     python -m dnn_based_source_separation_torch.bench --model dprnn-tasnet [--rnn_type gru]
     python -m dnn_based_source_separation_torch.bench --model dptnet [--causal]
+    python -m dnn_based_source_separation_torch.bench --model lstm-tasnet|sepformer|galrnet
+    python -m dnn_based_source_separation_torch.bench --model lstm-tasnet --causal \
+        --streaming_hop 0.05    # with the trainable encoder: the gated one does not stream
     python -m dnn_based_source_separation_torch.bench --streaming_hop 0.05 --causal
     python -m dnn_based_source_separation_torch.bench --model umx      # or xumx: musdb18
 
@@ -19,19 +22,20 @@ hop time over the hop's duration), "device".
 Offline method: B=8 x 4 s at 8 kHz, random weights from seed 0, bf16 (f32
 with --dtype), paper-config Conv-TasNet with the gLN `heads` fold (the
 non-causal model only, under the separate CLI's condition), recipe-config
-DPRNN-TasNet or recipe-config DPTNet; 2 warm-up and 20 timed forwards under
-`torch.inference_mode()`, each between two CUDA events; the median.
-Streaming method: a 4 s mixture through exact streaming
-(`models/streaming.py`, the causal Conv-TasNet or the stream-safe causal
-DPRNN-TasNet), every hop ended by a host copy (which synchronises), timed
-on the host clock, after a warm-up stream of 4 hops.
+DPRNN-TasNet, DPTNet, LSTM-TasNet, SepFormer or GALRNet; 2 warm-up and 20
+timed forwards under `torch.inference_mode()`, each between two CUDA events;
+the median. Streaming method: a 4 s mixture through exact streaming
+(`models/streaming.py`, the causal Conv-TasNet, the stream-safe causal
+DPRNN-TasNet or causal LSTM-TasNet with the trainable encoder), every hop
+ended by a host copy (which synchronises), timed on the host clock, after a
+warm-up stream of 4 hops.
 
 MFU = forward FLOPs / (median seconds) / the card's dense peak for the
 dtype (one H100 SXM at 700 W: 989e12 bf16, 67e12 f32 outside the tensor
 cores, NVIDIA's data sheet). The FLOPs are counted from the config
 (`forward_flops`): 2 x the multiply-adds of every matmul, pointwise conv,
 full conv and depthwise tap (the RNNs' input and recurrent products
-included, and DPTNet's attention products q·kᵀ and weights·v); norms,
+included, and the attention products q·kᵀ and weights·v); norms,
 softmax, activations and overlap-adds are left out.
 
 musdb18 serving (`--model umx` / `--model xumx`, the port's counterpart of
@@ -63,8 +67,8 @@ import torch
 from .cli.test_musdb18 import STAGES, separate_track
 from .entry import PAPER
 from .models import (
-    ConvTasNet, CrossNetOpenUnmix, DPRNNTasNet, DPTNet, ParallelOpenUnmix,
-    SpectrogramMaskingWrapper,
+    ConvTasNet, CrossNetOpenUnmix, DPRNNTasNet, DPTNet, GALRNet, LSTMTasNet, ParallelOpenUnmix,
+    SepFormer, SpectrogramMaskingWrapper,
 )
 from .models.fold import fold_for_serving
 from .models.streaming import ExactStreamingSeparator
@@ -94,7 +98,33 @@ DPTNET = dict(
     sep_hidden_channels=256, sep_chunk_size=100, sep_num_blocks=6, sep_num_heads=4,
     mask_nonlinear="relu", n_sources=2,
 )
-CONFIGS = {"conv-tasnet": PAPER, "dprnn-tasnet": DPRNN, "dptnet": DPTNET}  # --model
+# Recipe config, N500 L40 stride 20, the gated encoder, 2 blocks of 2 LSTM layers, hidden
+# 500, softmax masks (egs/wsj0-mix/lstm-tasnet/train.sh); `causal` is set per variant.
+LSTM_TASNET = dict(
+    n_basis=500, kernel_size=40, enc_basis="trainableGated", dec_basis="trainable",
+    sep_num_blocks=2, sep_num_layers=2, sep_hidden_channels=500, mask_nonlinear="softmax",
+    n_sources=2,
+)
+# Recipe config, N256 L16 stride 8, K250 P125, 2 blocks of 8 + 8 layers, 8 heads,
+# bottleneck 256, feed-forward 1024, relu masks (egs/wsj0-mix/sepformer/train.sh and the
+# defaults of cli/train_wsj0mix.py:41-70).
+SEPFORMER = dict(
+    n_basis=256, kernel_size=16, enc_nonlinear="relu", sep_bottleneck_channels=256,
+    sep_chunk_size=250, sep_hop_size=125, sep_num_blocks=2, sep_num_layers_intra=8,
+    sep_num_layers_inter=8, sep_num_heads_intra=8, sep_num_heads_inter=8,
+    mask_nonlinear="relu", n_sources=2,
+)
+# Recipe config, N64 L16 stride 8, K100 P50, Q32, 6 blocks, 8 heads, hidden 128, relu masks
+# (egs/wsj0-mix/galrnet/train.sh and the defaults of cli/train_wsj0mix.py:41-70).
+GALRNET = dict(
+    n_basis=64, kernel_size=16, enc_nonlinear="relu", sep_hidden_channels=128,
+    sep_chunk_size=100, sep_hop_size=50, sep_down_chunk_size=32, sep_num_blocks=6,
+    sep_num_heads=8, mask_nonlinear="relu", n_sources=2,
+)
+CONFIGS = {"conv-tasnet": PAPER, "dprnn-tasnet": DPRNN, "dptnet": DPTNET,  # --model
+           "lstm-tasnet": LSTM_TASNET, "sepformer": SEPFORMER, "galrnet": GALRNET}
+_CLASSES = {"dptnet": DPTNet, "lstm-tasnet": LSTMTasNet, "sepformer": SepFormer,
+            "galrnet": GALRNet}
 # musdb18 serving, paper config (cli/train_musdb18.py:65-71 of the JAX package):
 # n_fft 4096, hop 1024, Hann; stereo, hidden 512, 3 LSTM layers, 2049 bins, max_bin
 # 1487, 4 sources. X-UMX bridged.
@@ -114,12 +144,15 @@ def _frames(config, T: int) -> int:
 
 
 def _filterbank_macs(config, frames: int) -> int:
-    if config.get("enc_basis", "trainable") != "trainable" or \
-            config.get("dec_basis", "trainable") != "trainable":
-        raise NotImplementedError("forward_flops counts the trainable filterbank only")
+    encoders = {"trainable": 1, "trainableGated": 2}  # the gated encoder's U and V
+    enc = config.get("enc_basis", "trainable")
+    if enc not in encoders or config.get("dec_basis", "trainable") != "trainable":
+        raise NotImplementedError("forward_flops counts the trainable and gated filterbanks "
+                                  "only")
     CL = config.get("in_channels", 1) * config["kernel_size"]
     N, n_src = config["n_basis"], config.get("n_sources", 2)
-    return frames * CL * N + n_src * frames * N * CL  # encoder; decoder synthesis matmul
+    # encoder; decoder synthesis matmul
+    return encoders[enc] * frames * CL * N + n_src * frames * N * CL
 
 
 def conv_tasnet_macs(config, T: int) -> dict:
@@ -186,7 +219,73 @@ def dptnet_macs(config, T: int) -> dict:
     return {"matmul": matmul, "depthwise": 0}
 
 
-_MACS = {DPRNNTasNet: dprnn_tasnet_macs, DPTNet: dptnet_macs}
+def _chunks(config, F: int) -> int:
+    """S: the chunks of K frames at hop P after the symmetric pad to the chunk grid."""
+    K = config["sep_chunk_size"]
+    P = config.get("sep_hop_size") or K // 2
+    return (F + (P - (F - K) % P) % P - K) // P + 1
+
+
+def lstm_tasnet_macs(config, T: int) -> dict:
+    """Multiply-adds of one LSTM-TasNet forward on a (1, 1, T) input, by kind: the
+    filterbanks, each LSTM layer's input and recurrent products (per direction
+    4H x its input width + 4H x H), `fc` (directions x H -> n_src x N)."""
+    F = _frames(config, T)
+    N, H = config["n_basis"], config.get("sep_hidden_channels", 500)
+    blocks, layers = config.get("sep_num_blocks", 2), config.get("sep_num_layers", 2)
+    n_src, D = config.get("n_sources", 2), 1 if config.get("causal", False) else 2
+    rnn = sum(D * (4 * H * (N if b == 0 and l == 0 else D * H) + 4 * H * H)
+              for b in range(blocks) for l in range(layers))
+    return {"matmul": _filterbank_macs(config, F) + F * (rnn + D * H * n_src * N),
+            "depthwise": 0}
+
+
+def sepformer_macs(config, T: int) -> dict:
+    """Multiply-adds of one SepFormer forward on a (1, 1, T) input, by kind.
+
+    A position of a sequence of L frames costs, in each transformer layer, the
+    projections 4E², the attention 2·E·L and the feed-forward block 2·E·d_ff; the
+    intra-chunk layers have L = K, the inter-chunk L = S, both over the S·K chunked
+    positions. Then the bottlenecks, `map`, the GTU's two maps and the filterbanks.
+    """
+    F = _frames(config, T)
+    N, E = config["n_basis"], config.get("sep_bottleneck_channels", 256)
+    K, n_src = config["sep_chunk_size"], config.get("n_sources", 2)
+    S = _chunks(config, F)
+
+    def layers(n: int, L: int, d_ff: int) -> int:
+        return n * S * K * (4 * E * E + 2 * E * L + 2 * E * d_ff)
+
+    stack = (layers(config.get("sep_num_layers_intra", 8), K, config.get("sep_d_ff_intra", 1024))
+             + layers(config.get("sep_num_layers_inter", 8), S,
+                      config.get("sep_d_ff_inter", 1024)))
+    matmul = _filterbank_macs(config, F) + F * N * E + F * E * n_src * N + 3 * n_src * F * N * N
+    return {"matmul": matmul + config.get("sep_num_blocks", 2) * stack, "depthwise": 0}
+
+
+def galrnet_macs(config, T: int) -> dict:
+    """Multiply-adds of one GALRNet forward on a (1, 1, T) input, by kind.
+
+    Each block: the intra-chunk biLSTM over the S·K chunked positions (per direction
+    4H·N + 4H·H, and `fc` 2H·N); in the low-dimension variant `fc_map` and `fc_inv`
+    (K·Q each per chunk and channel); the attention over the S·Q positions, projections
+    4N² and q·kᵀ and weights·v 2·N·S. Then `map`, the GTU's two maps and the filterbanks.
+    """
+    F = _frames(config, T)
+    N, H = config["n_basis"], config.get("sep_hidden_channels", 128)
+    K, n_src = config["sep_chunk_size"], config.get("n_sources", 2)
+    S = _chunks(config, F)
+    Q = config.get("sep_down_chunk_size")
+    low = Q is not None and config.get("low_dimension", True)
+    Q = Q if low else K
+    block = S * K * (2 * (4 * H * N + 4 * H * H) + 2 * H * N)
+    block += S * Q * (4 * N * N + 2 * N * S) + (2 * S * N * K * Q if low else 0)
+    matmul = _filterbank_macs(config, F) + F * N * n_src * N + 2 * n_src * F * N * N
+    return {"matmul": matmul + config.get("sep_num_blocks", 6) * block, "depthwise": 0}
+
+
+_MACS = {DPRNNTasNet: dprnn_tasnet_macs, DPTNet: dptnet_macs, LSTMTasNet: lstm_tasnet_macs,
+         SepFormer: sepformer_macs, GALRNet: galrnet_macs}
 
 
 def forward_flops(model, T: int, batch: int = 1) -> dict:
@@ -216,8 +315,10 @@ def build_model(args, device):
     config = dict(CONFIGS[args.model], causal=args.causal)
     if args.model == "conv-tasnet":
         model = fold_for_serving(ConvTasNet(**config, generator=generator, device=device))
-    elif args.model == "dptnet":
-        model = DPTNet(**config, generator=generator, device=device)
+    elif args.model in _CLASSES:
+        if args.model == "lstm-tasnet" and args.streaming_hop:  # the gated encoder is global
+            config["enc_basis"] = "trainable"
+        model = _CLASSES[args.model](**config, generator=generator, device=device)
     else:
         config.update(rnn_type=args.rnn_type, stream_safe=bool(args.streaming_hop))
         model = DPRNNTasNet(**config, generator=generator, device=device)
@@ -325,7 +426,7 @@ def bench_musdb(args, model, device, device_name) -> dict:
 def build_parser():
     p = argparse.ArgumentParser("bench")
     p.add_argument("--model", type=str, default="conv-tasnet",
-                   choices=["conv-tasnet", "dprnn-tasnet", "dptnet", *MUSDB_MODELS])
+                   choices=[*CONFIGS, *MUSDB_MODELS])
     p.add_argument("--rnn_type", type=str, default="lstm", choices=["lstm", "gru"],
                    help="dprnn-tasnet recurrence")
     p.add_argument("--dtype", type=str, default=None, choices=sorted(DTYPES),

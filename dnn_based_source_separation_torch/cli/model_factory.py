@@ -8,13 +8,10 @@ from __future__ import annotations
 
 import torch
 
-from ..models import ConvTasNet, DPRNNTasNet, DPTNet
+from ..models import ConvTasNet, DPRNNTasNet, DPTNet, GALRNet, LSTMTasNet, SepFormer
 
 # The slice of the port that brings each model the JAX factory builds.
-_NOT_PORTED = {
-    "lstm-tasnet": "slice D", "sepformer": "slice D", "galrnet": "slice D",
-    "furcanet": "slice D",
-}
+_NOT_PORTED = {"furcanet": "slice D"}
 
 
 def build_wsj0mix_model(args, device) -> torch.nn.Module:
@@ -39,12 +36,32 @@ def build_wsj0mix_model(args, device) -> torch.nn.Module:
             sep_chunk_size=args.sep_chunk_size, sep_hop_size=args.sep_hop_size,
             sep_num_blocks=args.sep_num_blocks, rnn_type=getattr(args, "rnn_type", "lstm"),
             **common)
-    if name == "dptnet":  # the JAX factory passes no filterbank kinds and no hop size
+    if name == "lstm-tasnet":  # no encoder nonlinearity; the gated encoder unless given
+        common.pop("enc_nonlinear")
+        common.update(enc_basis=args.enc_basis or "trainableGated", dec_basis="trainable")
+        return LSTMTasNet(
+            sep_num_blocks=args.sep_num_blocks, sep_num_layers=args.sep_num_layers,
+            sep_hidden_channels=args.sep_hidden_channels, **common)
+    if name in ("dptnet", "sepformer", "galrnet"):  # the JAX factory passes no filterbank kinds
         for key in ("enc_basis", "dec_basis"):
             common.pop(key)
+    if name == "dptnet":  # ... and no hop size
         return DPTNet(
             sep_bottleneck_channels=args.sep_bottleneck_channels,
             sep_hidden_channels=args.sep_hidden_channels, sep_chunk_size=args.sep_chunk_size,
+            sep_num_blocks=args.sep_num_blocks, sep_num_heads=args.sep_num_heads, **common)
+    if name == "sepformer":  # one depth and head count for both paths
+        return SepFormer(
+            sep_bottleneck_channels=args.sep_bottleneck_channels,
+            sep_chunk_size=args.sep_chunk_size, sep_hop_size=args.sep_hop_size,
+            sep_num_blocks=args.sep_num_blocks,
+            sep_num_layers_intra=args.sep_num_layers, sep_num_layers_inter=args.sep_num_layers,
+            sep_num_heads_intra=args.sep_num_heads, sep_num_heads_inter=args.sep_num_heads,
+            **common)
+    if name == "galrnet":
+        return GALRNet(
+            sep_hidden_channels=args.sep_hidden_channels, sep_chunk_size=args.sep_chunk_size,
+            sep_hop_size=args.sep_hop_size, sep_down_chunk_size=args.sep_down_chunk_size,
             sep_num_blocks=args.sep_num_blocks, sep_num_heads=args.sep_num_heads, **common)
     if name in _NOT_PORTED:
         raise NotImplementedError(f"model {args.model!r} is not ported yet ({_NOT_PORTED[name]} "

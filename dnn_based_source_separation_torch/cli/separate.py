@@ -2,11 +2,11 @@
 
 Port of `dnn_based_source_separation_tpu/cli/separate.py`: read a mixture
 WAV, run the model on `--device` in `--dtype`, write one peak-normalized WAV
-per source. With `--streaming_hop` a causal Conv-TasNet or stream-safe
-causal DPRNN-TasNet checkpoint runs hop by hop through exact streaming
-(`models/streaming.py`), whose output equals the offline forward's. With
-`--chunk_duration` (and no `--streaming_hop`) any model runs over
-50%-overlapping chunks of that many seconds, crossfaded
+per source. With `--streaming_hop` a causal Conv-TasNet, stream-safe causal
+DPRNN-TasNet or causal LSTM-TasNet (trainable encoder) checkpoint runs hop by
+hop through exact streaming (`models/streaming.py`), whose output equals the
+offline forward's. With `--chunk_duration` (and no `--streaming_hop`) any
+model runs over 50%-overlapping chunks of that many seconds, crossfaded
 (`models/longform.py`).
 
     python -m dnn_based_source_separation_torch.cli.separate \
@@ -40,8 +40,8 @@ def build_parser():
                    help="long-form: run the model over 50%%-overlapping chunks of this many "
                         "seconds, crossfaded")
     p.add_argument("--streaming_hop", type=float, default=None,
-                   help="causal Conv-TasNet and stream-safe causal DPRNN-TasNet checkpoints "
-                        "only: run the file through exact chunk-by-chunk streaming with this "
+                   help="causal Conv-TasNet, stream-safe causal DPRNN-TasNet and causal "
+                        "LSTM-TasNet (trainable encoder) checkpoints only: run the file through exact chunk-by-chunk streaming with this "
                         "hop in seconds (output identical to the offline forward)")
     p.add_argument("--device", type=str, default="cuda")
     p.add_argument("--dtype", type=str, default="float32", choices=sorted(DTYPES))

@@ -1,4 +1,4 @@
-"""wsj0-mix training CLI (Conv-TasNet, DPRNN-TasNet, DPTNet).
+"""wsj0-mix training CLI (Conv-TasNet, DPRNN-TasNet, DPTNet, LSTM-TasNet, SepFormer, GALRNet).
 
 Port of `dnn_based_source_separation_tpu/cli/train_wsj0mix.py`: the same
 flag names and defaults (its `build_parser`, :26-117), plus `--device`
@@ -14,7 +14,10 @@ as the JAX CLI does (its :191-197); the cv-plateau halving then does nothing.
 Flags for features not ported yet raise NotImplementedError when set:
 `--pit` other than exhaustive, `--criterion orpit`, `--device_resident_data`,
 `--n_devices` and `--rnn_type sru`. DPRNN-TasNet trains with `--rnn_type
-lstm` or `gru` on either device.
+lstm` or `gru` on either device. As in the JAX factory, LSTM-TasNet takes
+`--enc_basis` (its recipe `trainableGated`) and no encoder nonlinearity, and
+SepFormer (`--sep_num_layers` layers and `--sep_num_heads` heads in both
+paths) and GALRNet (`-Q` / `--sep_down_chunk_size`) take no filterbank kinds.
 
     python -m dnn_based_source_separation_torch.cli.train_wsj0mix \
         --model dprnn-tasnet -N 64 -L 2 -H 128 -B 64 -K 250 --sep_hop_size 125 -R 6 \

@@ -1,10 +1,12 @@
 """JAX param tree -> port state_dict: the inverse of `hub/torch_convert.py`.
 
 `conv_tasnet_state_dict_from_jax`, `dprnn_tasnet_state_dict_from_jax`,
-`dptnet_state_dict_from_jax`, `open_unmix_state_dict_from_jax` and
-`xumx_state_dict_from_jax` undo
+`dptnet_state_dict_from_jax`, `lstm_tasnet_state_dict_from_jax`,
+`sepformer_state_dict_from_jax`, `galrnet_state_dict_from_jax`,
+`open_unmix_state_dict_from_jax` and `xumx_state_dict_from_jax` undo
 `dnn_based_source_separation_tpu/hub/torch_convert.py:convert_conv_tasnet`,
-`convert_dprnn_tasnet`, `convert_dptnet`, `convert_open_unmix` and `convert_xumx` exactly
+`convert_dprnn_tasnet`, `convert_dptnet`, `convert_lstm_tasnet`, `convert_sepformer`,
+`convert_galrnet`, `convert_open_unmix` and `convert_xumx` exactly
 (transposes and reshapes only, and the LSTM's single bias split as b + 0),
 so JAX-trained weights load into the port, and converting back gives the
 same tree bit for bit. GRU and stream-safe DPRNN-TasNet trees, which
@@ -197,20 +199,40 @@ def dprnn_tasnet_state_dict_from_jax(params: Mapping, config: Mapping) -> Dict[s
     return sd
 
 
+def _mha(sd: Dict, prefix: str, mha: Mapping) -> None:
+    """ops.attention.MultiheadAttention {in_proj, out_proj} -> torch nn.MultiheadAttention's
+    in_proj_weight (3E, E), in_proj_bias, out_proj.{weight,bias} (the inverse of
+    `hub/torch_convert.py:_mha_params`)."""
+    sd[f"{prefix}.in_proj_weight"] = _t(np.asarray(mha["in_proj"]["kernel"]).T)
+    sd[f"{prefix}.in_proj_bias"] = _t(mha["in_proj"]["bias"])
+    _linear(sd, f"{prefix}.out_proj", mha["out_proj"])
+
+
+def _layer_norm(sd: Dict, prefix: str, norm: Mapping) -> None:
+    """flax nn.LayerNorm {scale, bias} -> torch nn.LayerNorm weight, bias."""
+    sd[f"{prefix}.weight"] = _t(norm["scale"])
+    sd[f"{prefix}.bias"] = _t(norm["bias"])
+
+
 def _improved_transformer(sd: Dict, prefix: str, p: Mapping, norm_cls: str,
                           norm: bool) -> None:
     """models.dptnet.ImprovedTransformer {multihead_attn {in_proj, out_proj}, <norm>_0, rnn,
     fc, <norm>_1} -> {prefix}.{multihead_attn_block.{multihead_attn,norm1d},
     subnet.{rnn,fc,norm1d}} (the inverse of `hub/torch_convert.py:_improved_transformer_params`)."""
-    mha, attn = p["multihead_attn"], f"{prefix}.multihead_attn_block.multihead_attn"
-    sd[f"{attn}.in_proj_weight"] = _t(np.asarray(mha["in_proj"]["kernel"]).T)
-    sd[f"{attn}.in_proj_bias"] = _t(mha["in_proj"]["bias"])
-    _linear(sd, f"{attn}.out_proj", mha["out_proj"])
+    _mha(sd, f"{prefix}.multihead_attn_block.multihead_attn", p["multihead_attn"])
     _lstm(sd, f"{prefix}.subnet.rnn", p["rnn"])
     _linear(sd, f"{prefix}.subnet.fc", p["fc"])
     if norm:
         _norm(sd, f"{prefix}.multihead_attn_block.norm1d", p[f"{norm_cls}_0"])
         _norm(sd, f"{prefix}.subnet.norm1d", p[f"{norm_cls}_1"])
+
+
+def _dual_path_head(sd: Dict, sep: Mapping) -> None:
+    """The PReLU, `map` and GTU shared by DPTNet, SepFormer and GALRNet."""
+    _prelu(sd, "separator.prelu", sep["prelu"])
+    _pointwise(sd, "separator.map", sep["map"])
+    _pointwise(sd, "separator.gtu.map", sep["gtu_tanh"])
+    _pointwise(sd, "separator.gtu.map_gate", sep["gtu_sigmoid"])
 
 
 def dptnet_state_dict_from_jax(params: Mapping, config: Mapping) -> Dict[str, torch.Tensor]:
@@ -238,10 +260,101 @@ def dptnet_state_dict_from_jax(params: Mapping, config: Mapping) -> Dict[str, to
                               block["intra_chunk_block"], "GlobalLayerNorm", norm)
         _improved_transformer(sd, f"{ref}.inter_chunk_block.transformer",
                               block["inter_chunk_block"], top_norm, norm)
-    _prelu(sd, "separator.prelu", sep["prelu"])
-    _pointwise(sd, "separator.map", sep["map"])
-    _pointwise(sd, "separator.gtu.map", sep["gtu_tanh"])
-    _pointwise(sd, "separator.gtu.map_gate", sep["gtu_sigmoid"])
+    _dual_path_head(sd, sep)
+    return sd
+
+
+def lstm_tasnet_state_dict_from_jax(params: Mapping,
+                                    config: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX LSTMTasNet variables ({"params": ...} or the bare tree) -> port state_dict.
+
+    The inverse of `hub/torch_convert.py:convert_lstm_tasnet`: the gated
+    (`conv1d_U` / `conv1d_V`) or trainable encoder, the separator's norm
+    `gamma` / `beta` (N,), one stacked (Bi)LSTM a block (`separator.rnn.{i}`;
+    a GRU tree too) and `fc`.
+    """
+    p = params["params"] if "params" in params else params
+    rnn_type = config.get("rnn_type", "lstm")
+    if rnn_type not in _RNN:
+        raise NotImplementedError(f"rnn_type {rnn_type!r} has no port converter")
+    sd: Dict[str, torch.Tensor] = {}
+    _filterbank(sd, p, int(config.get("in_channels", 1) or 1))
+    sep = p["separator"]
+    for name in ("gamma", "beta"):
+        sd[f"separator.{name}"] = _t(sep[name])
+    for i in range(int(config.get("sep_num_blocks", 2))):
+        _RNN[rnn_type](sd, f"separator.rnn.{i}", sep[f"rnn{i}"])
+    _linear(sd, "separator.fc", sep["fc"])
+    return sd
+
+
+def sepformer_state_dict_from_jax(params: Mapping, config: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX SepFormer variables ({"params": ...} or the bare tree) -> port state_dict.
+
+    The inverse of `hub/torch_convert.py:convert_sepformer`, causal or not
+    (the first norm a cLN or a gLN): each block's intra and inter stacks of
+    `TransformerEncoderLayer`s (`layer{l}` -> `transformer.layers.{l}`, torch
+    names) and their final gLN (`transformer.norm.norm1d`) where `sep_norm`.
+    """
+    p = params["params"] if "params" in params else params
+    causal = bool(config.get("causal", False))
+    top_norm = "CumulativeLayerNorm_0" if causal else "GlobalLayerNorm_0"
+    sd: Dict[str, torch.Tensor] = {}
+    _filterbank(sd, p, int(config.get("in_channels", 1) or 1))
+    sep = p["separator"]
+    _norm(sd, "separator.norm1d", sep[top_norm])
+    _pointwise(sd, "separator.bottleneck_conv1d_in", sep["bottleneck_conv1d_in"])
+    for b in range(int(config.get("sep_num_blocks", 2))):
+        for path in ("intra_transformer", "inter_transformer"):
+            tree = sep[f"block{b}"][path]
+            ref = f"separator.dptransformer.net.{b}.{path}.transformer"
+            layers = sorted((k for k in tree if k.startswith("layer")), key=lambda k: int(k[5:]))
+            for l, name in enumerate(layers):
+                layer, lref = tree[name], f"{ref}.layers.{l}"
+                _mha(sd, f"{lref}.self_attn", layer["self_attn"])
+                for part in ("linear1", "linear2"):
+                    _linear(sd, f"{lref}.{part}", layer[part])
+                for part in ("norm1", "norm2"):
+                    _layer_norm(sd, f"{lref}.{part}", layer[part])
+            if "GlobalLayerNorm_0" in tree:
+                _norm(sd, f"{ref}.norm.norm1d", tree["GlobalLayerNorm_0"])
+    _dual_path_head(sd, sep)
+    _pointwise(sd, "separator.bottleneck_conv1d_out", sep["bottleneck_conv1d_out"])
+    return sd
+
+
+def galrnet_state_dict_from_jax(params: Mapping, config: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX GALRNet variables ({"params": ...} or the bare tree) -> port state_dict.
+
+    The inverse of `hub/torch_convert.py:convert_galrnet`, causal (the JAX
+    class default) or not: per block the intra-chunk biLSTM, `fc` and gLN,
+    then the globally attentive block's `norm_in` (-> `norm2d_in.norm`), the
+    attention, its gLN or cLN (-> `norm2d_out`) and, in the low-dimension
+    variant, `fc_map` / `fc_inv`.
+    """
+    p = params["params"] if "params" in params else params
+    causal = bool(config.get("causal", True))
+    top_norm = "CumulativeLayerNorm_0" if causal else "GlobalLayerNorm_0"
+    sd: Dict[str, torch.Tensor] = {}
+    _filterbank(sd, p, int(config.get("in_channels", 1) or 1))
+    sep = p["separator"]
+    _norm(sd, "separator.norm2d", sep[top_norm])
+    for i in range(int(config.get("sep_num_blocks", 6))):
+        block, ref = sep["galr"][f"block{i}"], f"separator.galr.net.{i}"
+        intra, inter = block["intra_chunk_block"], block["inter_chunk_block"]
+        _lstm(sd, f"{ref}.intra_chunk_block.rnn", intra["rnn"])
+        _linear(sd, f"{ref}.intra_chunk_block.fc", intra["fc"])
+        if "GlobalLayerNorm_0" in intra:
+            _norm(sd, f"{ref}.intra_chunk_block.norm1d", intra["GlobalLayerNorm_0"])
+        gref = f"{ref}.inter_chunk_block"
+        for part in ("fc_map", "fc_inv"):
+            if part in inter:
+                _linear(sd, f"{gref}.{part}", inter[part])
+        if "norm_in" in inter:
+            _layer_norm(sd, f"{gref}.norm2d_in.norm", inter["norm_in"])
+            _norm(sd, f"{gref}.norm2d_out", inter[top_norm])
+        _mha(sd, f"{gref}.multihead_attn", inter["multihead_attn"])
+    _dual_path_head(sd, sep)
     return sd
 
 

@@ -1,5 +1,6 @@
-"""Streaming inference: exact, hop by hop, for causal Conv-TasNet and the
-stream-safe causal DPRNN-TasNet; and the windowed approximation.
+"""Streaming inference: exact, hop by hop, for causal Conv-TasNet, the
+stream-safe causal DPRNN-TasNet and causal LSTM-TasNet with the trainable
+encoder; and the windowed approximation.
 
 Port of `dnn_based_source_separation_tpu/models/streaming.py`.
 `ExactStreamingSeparator`, fed a stream hop by hop, emits what the offline
@@ -8,16 +9,18 @@ instead of recomputing a window:
 
 - encoder framing: the unframed input samples (fewer than one latent hop's
   worth) wait for the next call;
-- the separator (`Separator.stream` of either model): the cLNs' running
+- the separator (`Separator.stream` of each model): the cLNs' running
   statistics; for Conv-TasNet each residual block's last
   (kernel_size - 1) * dilation post-norm frames; for DPRNN-TasNet the
   inter-chunk RNN state, the last K - P bottleneck frames and the K - P
-  frames of partial overlap-add sums;
+  frames of partial overlap-add sums; for LSTM-TasNet each stacked
+  unidirectional LSTM's (h, c) per layer (its norm, skip sums, `fc` and mask
+  are frame-local);
 - a latent delay line of D frames (DPRNN-TasNet: D = K - P; an emitted mask
   frame's chunk is complete only D frames after its latent frame, so the
   latent is delayed to meet its mask, and the first D * S output samples,
-  the image of the offline left pad, are trimmed). Conv-TasNet has D = 0
-  and a latent hop of P = 1 frame;
+  the image of the offline left pad, are trimmed). Conv-TasNet and
+  LSTM-TasNet have D = 0 and a latent hop of P = 1 frame;
 - the decoder's overlap-add tail of L - S samples.
 
 The state is plain tensors on the model's device, passed explicitly from
@@ -25,8 +28,8 @@ call to call; the separator's carried state stays f32 whatever the model
 dtype. Each separator call decodes once (`fused_mask_decode` for the
 trainable decoder). For DPRNN-TasNet the intra-chunk BiRNN of each block
 launches its fused bidirectional kernel once per call that runs the
-dual-path stack; the carried inter-chunk recurrence is a plain step loop
-(`ops/rnn.py:stream`).
+dual-path stack; the carried inter-chunk recurrence, like LSTM-TasNet's
+LSTMs, is a plain step loop (`ops/rnn.py:stream`).
 
 `StreamingSeparator` runs the offline forward over a rolling window of
 context + hop samples and keeps the last hop. Its convolutions see their
@@ -95,8 +98,8 @@ class ExactStreamingSeparator:
         D, P = 0, 1  # Conv-TasNet: no latent delay, any number of frames a call
         if hasattr(model, "sep_chunk_size"):
             if not hasattr(model, "rnn_type"):
-                # Attention-based dual-path separators (DPTNet): the reference's causal
-                # mode puts no causal mask on the inter-chunk attention, so every
+                # Attention-based dual-path separators (DPTNet, SepFormer, GALRNet): the
+                # reference's causal mode puts no causal mask on the inter-chunk attention, so every
                 # emitted frame depends on the whole stream (JAX
                 # tests/test_streaming_dptnet.py); a masked variant would need a
                 # key-value cache as long as the stream, not a carried state.

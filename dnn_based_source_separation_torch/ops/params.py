@@ -10,6 +10,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -30,3 +31,16 @@ class Weight(nn.Module):
     def __init__(self, shape, fan_in: int, generator=None, device=None):
         super().__init__()
         self.weight = uniform_parameter(shape, fan_in, generator, device)
+
+
+class Linear(nn.Module):
+    """Dense layer with torch `nn.Linear` parameters: weight (out, in), bias (out,)."""
+
+    def __init__(self, in_features: int, out_features: int, *, generator=None, device=None):
+        super().__init__()
+        self.weight = uniform_parameter((out_features, in_features), in_features,
+                                        generator, device)
+        self.bias = uniform_parameter((out_features,), in_features, generator, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight, self.bias)

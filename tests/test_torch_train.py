@@ -265,7 +265,7 @@ def test_lr_halving_and_early_stop_follow_the_jax_trainer(tmp_path, capsys):
 
 @pytest.mark.parametrize("flag", [
     ["--pit", "hungarian"], ["--pit", "prob"], ["--pit", "sink"], ["--criterion", "orpit"],
-    ["--model", "galrnet"], ["--device_resident_data", "1"], ["--n_devices", "1"],
+    ["--model", "furcanet"], ["--device_resident_data", "1"], ["--n_devices", "1"],
     ["--rnn_type", "sru"],
 ])
 def test_unported_flags_raise(corpus, tmp_path, flag):
@@ -277,7 +277,7 @@ def test_sru_and_unported_models_raise(corpus, tmp_path):
     with pytest.raises(NotImplementedError, match="sru"):
         ttrain.main(_args(corpus, tmp_path, *CLI_MODELS["dprnn-tasnet"], "--rnn_type", "sru"))
     with pytest.raises(NotImplementedError, match="slice D"):
-        ttrain.main(_args(corpus, tmp_path, "--model", "sepformer"))
+        ttrain.main(_args(corpus, tmp_path, "--model", "furcanet"))
 
 
 def test_cuda_without_a_card_raises(corpus, tmp_path):

@@ -10,7 +10,7 @@
     python3 chip_smoke.py --only 3d,3h,12 # the cluster backward, then musdb18 training
     python3 chip_smoke.py --only 12       # phases 1 and 2, then musdb18 training
     python3 chip_smoke.py --only 13       # phases 1 and 2, then DPTNet (13k: its kernels)
-    python3 chip_smoke.py --only 14,14k   # LSTM-TasNet, SepFormer and GALRNet, their kernels
+    python3 chip_smoke.py --only 14       # LSTM-TasNet, SepFormer and GALRNet, their kernels first
 
 Phases (any failure exits non-zero; nothing is caught and passed):
   1. device: require CUDA, print the card's name and power limit, turn TF32 off;
@@ -209,7 +209,8 @@ Phases (any failure exits non-zero; nothing is caught and passed):
      LSTM_TASNET, SEPFORMER, GALRNET; seed-0 weights, scrambled norm affines): served through
      cli/separate.py in f32 and bf16, non-causal and causal, on the three mixtures, each
      request held launch by launch to its routes (LSTM-TasNet: 4 lstm_scan_bidir or 4
-     lstm_scan on "fma" at H = 500, one "generic" decode; GALRNet: 6 lstm_scan_bidir on the
+     lstm_scan on "cluster" at H = 500 padded to 512, each counted in PADDED_LAUNCHES, one
+     "generic" decode; GALRNet: 6 lstm_scan_bidir on the
      tensor cores, one decode, "mma" in bf16 and "generic" in f32; SepFormer: one decode and
      no recurrence); card vs CPU and bf16 vs f32 as phase 5; causal LSTM-TasNet with the
      trainable encoder streamed through --streaming_hop 0.05 (one "generic" decode a
@@ -225,7 +226,10 @@ Phases (any failure exits non-zero; nothing is caught and passed):
      `bench --model lstm-tasnet|sepformer|galrnet` in bf16 and f32; and (14k) the LSTM kernels
      at the new shapes against their plain versions, beside cuDNN's nn.LSTM and the bound:
      LSTM-TasNet's (8, 1599, 500) serving forwards, one chain and two, and (4, 1599, 500)
-     training forwards with cs and their backwards, in both dtypes (all on "fma"); GALRNet's
+     training forwards with cs and their backwards, in both dtypes (on "cluster" at the
+     padded H = 512, held to the unpadded plain version and to the FMA kernel forced beside
+     them, timed whole with the pads and as the kernel alone, the 16-block cluster counts and
+     waves printed); GALRNet's
      (632, 100, 128) serving and (316, 100, 128) training forwards and backwards (the tensor
      cores, the FMA kernel forced beside them); fused_mask_decode at the three decoder
      widths (N = 500, C·L = 40; N = 256 and 64, C·L = 16) as one whole call and as the
@@ -244,11 +248,10 @@ DPRNN-TasNet). Phase 11's card runs (UMX at B = 1, H = 256 and 512) must
 launch only the cluster kernel, and join the main path's total: musdb18
 training's backward (lstm_scan_bidir_bwd at H = 256, phase 12) runs on the
 cluster backward. Phase 13's DPTNet runs and phase 14's runs are held launch by
-launch to their routes (the wide backward at its training sequences) and then join
-the total, which must have launched every path but the FMA ones (and the one-chain
-cluster backward, which no main path trains), and no FMA kernel at all: phase 14's
-FMA launches, LSTM-TasNet's at H = 500, are counted apart and must equal exactly
-what its runs' routes imply. The last line
+launch to their routes (the wide backward at its training sequences; LSTM-TasNet's
+H = 500 on the padded cluster kernels, each launch also in PADDED_LAUNCHES) and then join
+the total, which must have launched every path but the FMA ones, and no FMA kernel at
+all. The last line
 is {"ok": true, "device":
 {...}}; the line before it lists the kernels with their launch counts,
 errors, times, bounds and library times: fused_mask_decode six times
@@ -278,8 +281,9 @@ peak; the backwards whole as `ms` and alone as `kernel_ms`, with phase 3j's clus
 backward forced as `cluster_kernel_ms` and serial floor as `floor_ms`), with phase 13's
 launches of that kernel on that route; and phase 14's rows: fused_mask_decode at
 LSTM-TasNet's, SepFormer's and GALRNet's decoder widths in both dtypes, and the LSTM
-kernels at LSTM-TasNet's (H = 500) and GALRNet's (H = 128) shapes, with phase 14's
-launches of that kernel on that route. The bf16 fused_mask_decode rows'
+kernels at LSTM-TasNet's (H = 500, padded: the whole call with its pads as `ms`, the
+kernel alone as `kernel_ms`, with phase 14's padded launches) and GALRNet's (H = 128)
+shapes, with phase 14's launches of that kernel on that route. The bf16 fused_mask_decode rows'
 `library_ms` is torch.einsum on bf16 operands, whose output is bf16 (the kernel's is f32).
 """
 from __future__ import annotations
@@ -645,7 +649,8 @@ def plan(module, B, n_chains, H, dtype, path=None):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     clusters = wide = None
     if ls._needs_clusters(H, dtype, path, routes=module.ROUTES):
-        clusters = (ls._forward_clusters if module is ls else gs._tf32_clusters)(H, "cuda")
+        clusters = (ls._forward_clusters if module is ls else gs._tf32_clusters)(
+            ls.cluster_width(H), "cuda")
     if ls._needs_wide(H, dtype, path, module.ROUTES):
         wide = ls._wide_counts(H, dtype, "cuda")
     return module._plan(B, n_chains, H, dtype, sms, path, clusters, module.ROUTES, wide)
@@ -779,7 +784,7 @@ def plan_bwd(module, B, n_chains, H, dtype, path=None):
     clusters = wide = None
     if ls._needs_clusters(H, dtype, path, True, module.ROUTES):
         clusters = (module._tf32_bwd_clusters(H, "cuda") if H <= ls.MMA_MAX_HIDDEN
-                    else ls._cluster_bwd_counts(H, "cuda"))
+                    else ls._cluster_bwd_counts(ls.cluster_width(H), "cuda"))
     if ls._needs_wide(H, dtype, path, module.ROUTES, backward=True):
         wide = ls._wide_counts(H, dtype, "cuda", backward=True)
     return module._plan_bwd(B, n_chains, H, dtype, sms, path, clusters, module.ROUTES, wide)
@@ -815,11 +820,14 @@ def check_backward(module, kname, label, grads_of, plain_chains, ref, plain, tim
     too. If `timed` (a shape where another kernel than FMA runs), the whole backward (gate
     recompute, kernel, parameter gradients) and the kernel alone are timed, the FMA kernel
     and the planned one in turns (FMA, new, new, FMA; the cluster and wide backwards from
-    CUDA graphs, by graph_bwd_turns), and `plain()` -> a timing dict."""
+    CUDA graphs, by graph_bwd_turns), and `plain()` -> a timing dict. A padded route
+    (H = 500 on the cluster backward at 512) is counted in PADDED_LAUNCHES and held to the
+    FMA kernel's gradients too, at the same limits."""
     xw, w_hh = plain_chains[0][:2]
     B, T, _ = xw.shape
     H, dtype = w_hh.shape[0], xw.dtype
     path, tile = plan_bwd(module, B, len(plain_chains), H, dtype)
+    padded = module is ls and ls.launch_width(H, path) != H
 
     def flat(outs):
         return [d for chain in outs for d in chain]
@@ -827,9 +835,14 @@ def check_backward(module, kname, label, grads_of, plain_chains, ref, plain, tim
     calls = {path: grads_of}
     if path != "fma":
         calls["fma"] = lambda: flat(module._backward_cuda(plain_chains, "fma"))
-    errs = {}
+    errs, got = {}, {}
     for p, call in calls.items():
-        e = grad_errors(kname, backward_path(module, kname, call, p), ref, dtype)
+        before = ls.PADDED_LAUNCHES[kname] if module is ls else 0
+        got[p] = backward_path(module, kname, call, p)
+        if module is ls:
+            check(ls.PADDED_LAUNCHES[kname] - before == (padded and p == path),
+                  f"{kname} ({p}) at {label}: padded launches off")
+        e = grad_errors(kname, got[p], ref, dtype)
         p_tile = tile_label(plan_bwd(module, B, len(plain_chains), H, dtype, p)[1])
         ok = all(x <= lim for x, lim in e)
         log(f"  {kname} {label} {p} ({p_tile}): max|kernel-plain| / limit of each gradient: "
@@ -837,6 +850,11 @@ def check_backward(module, kname, label, grads_of, plain_chains, ref, plain, tim
         if not ok:
             raise AssertionError(f"{kname} ({p}) disagrees with plain at {label}")
         errs[p] = max(x for x, _ in e)
+    if padded:
+        e = grad_errors(kname, got[path], got["fma"], dtype)
+        log(f"    padded {path} vs the FMA backward: max|diff| / limit of each gradient: "
+            + ", ".join(f"{x:.3e} / {lim:.3e}" for x, lim in e))
+        check(all(x <= lim for x, lim in e), f"{kname} padded {path} disagrees with FMA")
     if path != "fma":  # a race shows only in some launches: repeat, check each
         worst = 0.0
         for _ in range(REPEATS):
@@ -1751,9 +1769,12 @@ TENSOR_CORE_PATHS = {**{name: ("mma", "tf32x3") for name in FORWARDS},
 
 
 def path_counts() -> dict:
+    """The recurrences' launches by path ("name/path"), the LSTM's padded launches
+    ("name/padded", a part of its "name/cluster") and the decodes' by path and width."""
     return {**{f"{name}/{path}": n for module in (ls, gs)
                for table in (module.PATH_LAUNCHES, module.BWD_PATH_LAUNCHES)
                for name, paths in table.items() for path, n in paths.items()},
+            **{f"{name}/padded": n for name, n in ls.PADDED_LAUNCHES.items()},
             **{f"fused_mask_decode/{path}": n for path, n in md.PATH_LAUNCHES.items()},
             **{width_key(*width): md.WIDTH_LAUNCHES[width] for width in SERVED_DECODES}}
 
@@ -1768,7 +1789,7 @@ def reset_counts() -> None:
     for path in md.PATH_LAUNCHES:
         md.PATH_LAUNCHES[path] = 0
     md.WIDTH_LAUNCHES.clear()
-    for table in (ls.LAUNCHES, gs.LAUNCHES, q8.LAUNCHES):
+    for table in (ls.LAUNCHES, gs.LAUNCHES, q8.LAUNCHES, ls.PADDED_LAUNCHES):
         for name in table:
             table[name] = 0
     for module in (ls, gs):
@@ -3145,19 +3166,15 @@ def add_counts(a: dict, b: dict) -> dict:
     return {k: a.get(k, 0) + b.get(k, 0) for k in set(a) | set(b)}
 
 
-ROUTED_FMA = {}  # the "kernel/fma" launches that the routes of check_dptnet_launches held
-
-
 def check_dptnet_launches(grew, routes, what, decodes=0, decode=None):
     """A run's launches: exactly `routes` ("kernel/route" counts) of the LSTM kernels,
-    `decodes` fused_mask_decode launches (on `decode`), and nothing else. The routes' FMA
-    launches are tallied in ROUTED_FMA."""
-    for key, n in routes.items():
-        if key.endswith("/fma"):
-            ROUTED_FMA[key] = ROUTED_FMA.get(key, 0) + n
+    of which "kernel/padded" on a zero-padded call (ls.PADDED_LAUNCHES, a part of the
+    kernel's "cluster" count), `decodes` fused_mask_decode launches (on `decode`), and
+    nothing else."""
     per_kernel = {}
     for key, n in routes.items():
-        per_kernel[key.split("/")[0]] = per_kernel.get(key.split("/")[0], 0) + n
+        if not key.endswith("/padded"):
+            per_kernel[key.split("/")[0]] = per_kernel.get(key.split("/")[0], 0) + n
     want = expected(fused_mask_decode=decodes, **per_kernel)
     check(kernels_of(grew) == want, f"{what}: launched {kernels_of(grew)}, expected {want}")
     for table in (ls.PATH_LAUNCHES, ls.BWD_PATH_LAUNCHES):
@@ -3167,6 +3184,10 @@ def check_dptnet_launches(grew, routes, what, decodes=0, decode=None):
                 check(grew[key] == routes.get(key, 0),
                       f"{what}: {key} launched {grew[key]} times, expected "
                       f"{routes.get(key, 0)}")
+    for name in ls.PADDED_LAUNCHES:
+        key = f"{name}/padded"
+        check(grew[key] == routes.get(key, 0),
+              f"{what}: {key} launched {grew[key]} times, expected {routes.get(key, 0)}")
     if decode is not None:
         got = {p: grew[f"fused_mask_decode/{p}"] for p in md.PATH_LAUNCHES}
         check(got == {p: decodes * (p == decode) for p in got},
@@ -3174,10 +3195,12 @@ def check_dptnet_launches(grew, routes, what, decodes=0, decode=None):
 
 
 def routes_of(grew) -> dict:
-    """The nonzero "kernel/route" counts of the LSTM kernels in an all_counts() dict."""
-    return {f"{name}/{path}": grew[f"{name}/{path}"]
-            for table in (ls.PATH_LAUNCHES, ls.BWD_PATH_LAUNCHES)
-            for name, paths in table.items() for path in paths if grew[f"{name}/{path}"]}
+    """The nonzero "kernel/route" and "kernel/padded" counts of the LSTM kernels in an
+    all_counts() dict."""
+    keys = [f"{name}/{path}" for table in (ls.PATH_LAUNCHES, ls.BWD_PATH_LAUNCHES)
+            for name, paths in table.items() for path in paths]
+    keys += [f"{name}/padded" for name in ls.PADDED_LAUNCHES]
+    return {key: grew[key] for key in keys if grew[key]}
 
 
 def dptnet_model(causal, device="cuda", blocks=DPT_BLOCKS):
@@ -3300,9 +3323,10 @@ def forward_profile(model, dtype, what, per_forward, decode, card):
 
     recorded = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
                    and any(n in e.name for n in FORWARD_KERNELS))
-    lost = recorded < sum(per_forward.values())
-    idle_text = (f"not measured (the profiler recorded {recorded} of "
-                 f"{sum(per_forward.values())} recurrence launches)" if lost else f"{idle:.1%}")
+    launched = sum(n for k, n in per_forward.items() if not k.endswith("/padded"))
+    lost = recorded < launched
+    idle_text = (f"not measured (the profiler recorded {recorded} of {launched} recurrence "
+                 "launches)" if lost else f"{idle:.1%}")
     log(f"  {what}: {ms:.3f} ms a forward (median of 3), {B * 4.0 / (ms / 1e3):.1f} "
         f"audio-s/s, peak {peak:.1f} MiB; launches a forward by route {per_forward}; "
         f"profiled forward: wall {wall:.3f} ms, device busy {busy:.3f} ms, idle share "
@@ -3323,13 +3347,19 @@ def lstm_kernel_timing(model, label, B, T, H, chains, dtype, training, features)
     version (hs, and cs when `training`), REPEATS more launches checked; timed alone from
     CUDA graphs, with the FMA kernel forced and checked in the same run where the plan
     takes another route (FMA, route, route, FMA), beside the plain version, cuDNN's
-    nn.LSTM (the model's input width `features`) and the bound."""
+    nn.LSTM (the model's input width `features`) and the bound. A padded route (H = 500 on
+    the cluster kernel at 512) is held to the FMA kernel's hs (and cs) too, and timed whole,
+    its pads and slices included, as `ms`, the kernel alone as `kernel_ms`."""
     name = "lstm_scan_bidir" if chains == 2 else "lstm_scan"
     inputs = lstm_chains(B, T, H, chains, dtype, seed=B + T)
     path, tile = plan(ls, B, chains, H, dtype)
+    width = ls.launch_width(H, path)
     what = f"{name} {model} {label} (B={B}, T={T}, H={H}) {str(dtype)[6:]}"
     hs, cs, launch = ls._staged_forward(inputs, training, path)
+    padded = ls.PADDED_LAUNCHES[name]
     on_path(ls.PATH_LAUNCHES[name], name, launch, path)
+    check(ls.PADDED_LAUNCHES[name] - padded == (width != H),
+          f"{what}: {ls.PADDED_LAUNCHES[name] - padded} padded launches at width {width}")
     refs = [ls.lstm_forward_reference(xw, w) for xw, w in inputs]  # the plain (hs, cs)
     err, limit = forward_error_of(refs, hs, cs if training else None, dtype)
     worst = err
@@ -3341,6 +3371,8 @@ def lstm_kernel_timing(model, label, B, T, H, chains, dtype, training, features)
     check(worst <= limit, f"{what} disagrees with plain: {worst} > {limit}")
     repeats = CLUSTER_REPEATS if path == "cluster" else 1
     timing = dict(path=path, max_abs_err=err)
+    if width != H:
+        timing["padded_width"] = width
     if path == "cluster":
         timing["cluster"] = tile[1]
     elif path == "wide":
@@ -3353,9 +3385,23 @@ def lstm_kernel_timing(model, label, B, T, H, chains, dtype, training, features)
         timing["fma_max_abs_err"], _ = forward_error_of(refs, fma_hs,
                                                         fma_cs if training else None, dtype)
         check(timing["fma_max_abs_err"] <= limit, f"{what}: FMA disagrees with plain")
+        if width != H:  # the padded route against the unpadded FMA kernel, same limit
+            fma_refs = [(h, c) for h, c in zip(fma_hs, fma_cs or [None] * chains)]
+            vs_fma, vs_limit = forward_error_of(fma_refs, hs, cs if training else None, dtype)
+            log(f"    padded {path} vs the FMA kernel: max|diff| {vs_fma:.3e} (limit "
+                f"{vs_limit:.3g})")
+            check(vs_fma <= vs_limit, f"{what}: padded {path} disagrees with FMA: {vs_fma}")
+            timing["vs_fma_max_abs_err"] = vs_fma
         turns = (graph_ms(fma, 1), graph_ms(launch, repeats), graph_ms(launch, repeats),
                  graph_ms(fma, 1))
         timing.update(ms=(turns[1] + turns[2]) / 2, fma_ms=(turns[0] + turns[3]) / 2)
+        if width != H:  # the whole call: pads, the kernel, the slices copied out
+            whole = (lambda: ls._forward_cuda(inputs, training))
+            timing["kernel_ms"] = timing["ms"]
+            timing["ms"] = graph_ms(whole, repeats)
+            log(f"    padded to {width}: whole call {timing['ms']:.4f} ms, kernel alone "
+                f"{timing['kernel_ms']:.4f} ms (pads and slices "
+                f"{(timing['ms'] - timing['kernel_ms']) / timing['ms']:.1%} of the call)")
     plain = ls.lstm_forward_reference if training else ls.lstm_scan_reference
     timing["plain_ms"] = median_ms(lambda: [plain(xw, w) for xw, w in inputs], warmup=0,
                                    iters=1)
@@ -3420,6 +3466,8 @@ def lstm_backward_timing(model, label, inputs, hs, cs, features):
     else:
         timing = autograd_backward(what, inputs, hs, cs, timed=True)
     timing["path"] = path
+    if ls.launch_width(H, path) != H:
+        timing["padded_width"] = ls.launch_width(H, path)
     timing["library_ms"] = library_lstm_bwd_ms(B, T, H, chains, dtype, features=features)
     tf32 = {"wide": 3, "tf32x3": 3, "tf32x2": 2}.get(path, 0)
     timing.update(recurrence_bound(B, T, H, 4, chains, backward=True, cell_state=True,
@@ -3649,8 +3697,9 @@ def phase_dptnet(card=None, tmp=None):
 # Phase 14: LSTM-TasNet, SepFormer and GALRNet on wsj0-2mix at the recipe configs
 # (bench.LSTM_TASNET, SEPFORMER, GALRNET: egs/wsj0-mix/{lstm-tasnet,sepformer,galrnet}/
 # train.sh), seed-0 weights. At B = 8 x 4 s LSTM-TasNet (T' = 1599 frames) runs its four
-# LSTM layers (2 blocks x 2) over 8 sequences at H = 500: the FMA kernel, since H = 500 is
-# neither a multiple of 16 (the tensor cores) nor of 128 (the cluster route). GALRNet
+# LSTM layers (2 blocks x 2) over 8 sequences at H = 500: the cluster kernels on the call
+# zero-padded to H = 512 (ls.cluster_width), since H = 500 is neither a multiple of 16 (the
+# tensor cores) nor of 128 (the cluster route unpadded). GALRNet
 # (T' = 3999, padded to 79 chunks of 100) runs six intra-chunk biLSTMs over 632 sequences
 # at H = 128 (the tensor cores) and attends over 256 sequences of 79 chunks; SepFormer
 # (31 chunks of 250) runs no recurrence. Recipe training (B = 4) halves the sequences.
@@ -3710,7 +3759,8 @@ def slice_d_routes(tag, B, n_samples, causal, dtype, backward=False, **depth):
     "kernel/route": LSTM-TasNet's blocks x layers LSTM layers over B sequences of T' steps
     (one chain when causal), GALRNet's intra-chunk biLSTM over B·S sequences of K steps a
     block (bidirectional whether causal or not), none for SepFormer; each on the route
-    _plan (_plan_bwd) gives its shape on this card. `depth` overrides the config's."""
+    _plan (_plan_bwd) gives its shape on this card, and "kernel/padded" for the launches
+    that run zero-padded (LSTM-TasNet's H = 500 at 512). `depth` overrides the config's."""
     cfg = dict(SLICE_D[tag][1], **depth)
     if tag == "lstm_tasnet":
         name = "lstm_scan" if causal else "lstm_scan_bidir"
@@ -3721,13 +3771,17 @@ def slice_d_routes(tag, B, n_samples, causal, dtype, backward=False, **depth):
         rows, count = B * slice_d_chunks(tag, n_samples), cfg["sep_num_blocks"]
     else:
         return {}
-    keys = [f"{name}/{plan(ls, rows, chains, H, dtype)[0]}"]
+    paths = {name: plan(ls, rows, chains, H, dtype)[0]}
     if backward:
-        keys.append(f"{name}_bwd/{plan_bwd(ls, rows, chains, H, dtype)[0]}")
-    # Only LSTM-TasNet's H = 500 takes the FMA kernels; GALRNet's H = 128 the tensor cores.
-    check((tag == "lstm_tasnet") == all(k.endswith("/fma") for k in keys),
-          f"{tag} at H = {H}, {rows} sequences: routes {keys}")
-    return {key: count for key in keys}
+        paths[f"{name}_bwd"] = plan_bwd(ls, rows, chains, H, dtype)[0]
+    # LSTM-TasNet's H = 500 takes the cluster kernels padded to 512, GALRNet's H = 128 the
+    # tensor cores: no FMA kernel.
+    check(all((p == "cluster") == (tag == "lstm_tasnet") and p != "fma"
+              for p in paths.values()), f"{tag} at H = {H}, {rows} sequences: routes {paths}")
+    routes = {f"{kernel}/{p}": count for kernel, p in paths.items()}
+    routes.update({f"{kernel}/padded": count for kernel, p in paths.items()
+                   if ls.launch_width(H, p) != H})
+    return routes
 
 
 def slice_d_decode(tag, dtype):
@@ -3806,8 +3860,8 @@ def slice_d_forwards(ckpts, card):
 def slice_d_train_parity():
     """One train step of each model on the card against an f64 CPU step (and the f32 CPU
     step), as phase 7: the recipe widths at a small depth (SLICE_D_PARITY_DEPTH), B = 1 x
-    1 s; LSTM-TasNet causal too (the one-chain FMA backward at H = 500). -> the card
-    steps' launches."""
+    1 s; LSTM-TasNet causal too (the one-chain padded cluster backward at H = 500). -> the
+    card steps' launches."""
     log("== phase 14: one train step a model, card vs CPU (f32, TF32 off, recipe widths at a "
         "small depth, B=1 x 1 s; f64 CPU reference)")
     launches = {}
@@ -3946,11 +4000,27 @@ def phase_slice_d_kernels(card=None):
     """Phase 14k: every recurrence shape of the three models' main paths against the plain
     version, timed (lstm_kernel_timing, lstm_backward_timing), and fused_mask_decode at the
     three decoder widths (decode_case: one whole call and the kernel alone, beside the
-    generic kernel, the plain version and einsum). -> {(name, model, label, dtype): timing}
-    and {(model, dtype): decode timing}."""
+    generic kernel, the plain version and einsum). A padded route's rows also carry the
+    cluster kernel's co-resident clusters at the padded width (`co_resident`) and the
+    waves their sequences take (`waves`). -> {(name, model, label, dtype): timing} and
+    {(model, dtype): decode timing}."""
     card = card or card_line()
     log("== phase 14k: the recurrences and decodes at LSTM-TasNet's, SepFormer's and "
         f"GALRNet's shapes vs plain on the card (CUDA graphs, CUDA events) [{card}]")
+    width = ls.cluster_width(LSTM_TASNET["sep_hidden_channels"])
+    counts = {False: ls._cluster_counts(width, "cuda"), True: ls._cluster_bwd_counts(width, "cuda")}
+    log(f"  LSTM-TasNet's H = {LSTM_TASNET['sep_hidden_channels']} runs at H = {width}: "
+        f"clusters the card holds at once, by blocks a cluster: the forward's {counts[False]}, "
+        f"the backward's {counts[True]}")
+
+    def waves(timing, B, chains, backward):
+        if "padded_width" in timing and timing["path"] == "cluster":
+            C = timing["cluster"]
+            n = counts[backward][C]
+            timing.update(co_resident=n, waves=-(-chains * B // n))
+            log(f"    {chains} x {B} sequences on {n} co-resident {C}-block clusters: "
+                f"{timing['waves']} wave(s)")
+
     result = {}
     for tag, label, (B, T, H, chains), dtypes, training in SLICE_D_SHAPES:
         name = "lstm_scan_bidir" if chains == 2 else "lstm_scan"
@@ -3958,10 +4028,13 @@ def phase_slice_d_kernels(card=None):
             timing, inputs, hs, cs = lstm_kernel_timing(
                 SLICE_D_NAMES[tag], label, B, T, H, chains, dtype, training,
                 SLICE_D_FEATURES[tag])
+            waves(timing, B, chains, False)
             result[(name, tag, label, dtype)] = timing
             if training:
-                result[(f"{name}_bwd", tag, label, dtype)] = lstm_backward_timing(
-                    SLICE_D_NAMES[tag], label, inputs, hs, cs, SLICE_D_FEATURES[tag])
+                timing = lstm_backward_timing(SLICE_D_NAMES[tag], label, inputs, hs, cs,
+                                              SLICE_D_FEATURES[tag])
+                waves(timing, B, chains, True)
+                result[(f"{name}_bwd", tag, label, dtype)] = timing
             del inputs, hs, cs
     decodes = {}
     for tag, shape in SLICE_D_DECODE_SHAPES.items():
@@ -3974,12 +4047,10 @@ def phase_slice_d_kernels(card=None):
 def phase_slice_d(card=None, tmp=None):
     """Phase 14, LSTM-TasNet, SepFormer and GALRNet on wsj0-2mix -> {"launches": the main
     path's counts (serving, streaming, the B = 8 forwards, the train steps, the CLIs'
-    training, serving and evaluation), "fma": the FMA launches among them, all
-    LSTM-TasNet's at H = 500, "expected_fma": those its runs' routes imply, "kernels": the
-    timings of phase_slice_d_kernels, "forwards"}."""
+    training, serving and evaluation), none on the FMA kernels, "kernels": the timings of
+    phase_slice_d_kernels, "forwards"}."""
     card = card or card_line()
     kernels = phase_slice_d_kernels(card)  # the kernels at the new shapes before anything else
-    ROUTED_FMA.clear()
     with contextlib.ExitStack() as stack:
         tmp = tmp or stack.enter_context(tempfile.TemporaryDirectory())
         wavs = write_mixtures(tmp)
@@ -3997,14 +4068,13 @@ def phase_slice_d(card=None, tmp=None):
                 line = bench_main(["--model", tag.replace("_", "-"), *flags])
             check(line["value"] > 0 and line["mfu"] > 0, line)
             log(f"  bench --model {tag.replace('_', '-')} {' '.join(flags)}: {json.dumps(line)}")
-    # The FMA launches apart: exactly those LSTM-TasNet's runs (H = 500, slice_d_routes) put
-    # on the FMA kernels, as check_dptnet_launches tallied them in ROUTED_FMA.
     fma = {k: n for k, n in total.items() if k.endswith("/fma") and n}
-    check(fma == {k: n for k, n in ROUTED_FMA.items() if n} and fma,
-          f"phase 14 launched the FMA kernels {fma}, LSTM-TasNet's routes {ROUTED_FMA}")
-    log(f"  phase 14 main-path launches: {nonzero(total)}; FMA launches, all LSTM-TasNet's "
-        f"at H = 500: {fma}")
-    return dict(launches=total, fma=fma, kernels=kernels, forwards=forwards)
+    check(not fma, f"phase 14 launched the FMA kernels {fma}")
+    padded = {k: n for k, n in total.items() if k.endswith("/padded")}
+    check(all(padded.values()), f"phase 14 launched no padded kernel of some of {padded}")
+    log(f"  phase 14 main-path launches: {nonzero(total)}; no FMA launch; padded launches "
+        f"(LSTM-TasNet's H = 500 at 512) {padded}")
+    return dict(launches=total, kernels=kernels, forwards=forwards)
 
 
 def kernel_entry(name, source, replaces, launches, timing, bound_of, library_ms=None,
@@ -4234,22 +4304,18 @@ def main(argv=None) -> int:
     # to its route. Its decodes join the served widths' rows.
     dpt_launches = dptnet["launches"]
     total = {k: v + dpt_launches.get(k, 0) for k, v in total.items()}
-    # Phase 14 (LSTM-TasNet, SepFormer, GALRNet) held every launch to its route too. Its FMA
-    # launches, all LSTM-TasNet's at H = 500 and exactly those its runs' routes imply
-    # (phase_slice_d), stay apart; the rest joins the total.
+    # Phase 14 (LSTM-TasNet, SepFormer, GALRNet) held every launch to its route too.
     slice_launches = slice_d["launches"]
-    total = {k: v + (0 if k.endswith("/fma") else slice_launches.get(k, 0))
-             for k, v in total.items()}
+    total = {k: v + slice_launches.get(k, 0) for k, v in total.items()}
     # The wsj0 models have H = 128 (tensor cores), musdb18's UMX B = 1 at H = 256 and 512
     # and B = 16 at H = 256 (the cluster kernels), DPTNet H = 256 (the wide and cluster
-    # kernels), GALRNet H = 128: no FMA kernel but LSTM-TasNet's, kept apart above.
+    # kernels), GALRNet H = 128, LSTM-TasNet H = 500 (the cluster kernels at 512): no FMA
+    # kernel. Causal LSTM-TasNet's train steps run the one-chain cluster backward.
     for name, n in total.items():
         if name.endswith("/fma"):
             check(n == 0, f"the main path launched the FMA kernel: {name} {n} times")
     for name, n in total.items():
-        # No main path trains a one-chain LSTM at H > 128 on few sequences: its cluster
-        # backward is phase 3d's and 3h's.
-        if not name.endswith("/fma") and name != "lstm_scan_bwd/cluster" and n < 1:
+        if not name.endswith("/fma") and n < 1:
             raise AssertionError(f"the serving, training and evaluation paths never launched "
                                  f"{name}")
     check("jax" not in sys.modules and "flax" not in sys.modules, "jax was imported")
@@ -4434,10 +4500,12 @@ def main(argv=None) -> int:
     # SepFormer's and GALRNet's decoder widths, with phase 14's decodes of that width and
     # dtype (one whole call as `ms`, the kernel alone as `kernel_ms`, a "mma" row beside the
     # generic kernel; `library_ms` einsum, in bf16 on bf16 operands with a bf16 output); and
-    # the LSTM kernels at LSTM-TasNet's shapes (H = 500, the FMA kernels) and GALRNet's
-    # (H = 128, the tensor cores), forwards at serving's B = 8 x 4 s and training's B = 4
-    # with cs, and their backwards, beside cuDNN's nn.LSTM at the model's input width, with
-    # phase 14's main-path launches of that kernel on that route (every shape and dtype).
+    # the LSTM kernels at LSTM-TasNet's shapes (H = 500, the cluster kernels padded to 512:
+    # the whole call with its pads as `ms`, the kernel alone as `kernel_ms`, with phase 14's
+    # padded launches of that kernel) and GALRNet's (H = 128, the tensor cores), forwards at
+    # serving's B = 8 x 4 s and training's B = 4 with cs, and their backwards, beside cuDNN's
+    # nn.LSTM at the model's input width, with phase 14's main-path launches of that kernel
+    # on that route (every shape and dtype).
     for (tag, dtype), timing in slice_d["kernels"]["decodes"].items():
         shape = SLICE_D_DECODE_SHAPES[tag]
         width = width_key(timing["path"], str(dtype)[6:], shape["N"], shape["CL"])
@@ -4450,6 +4518,8 @@ def main(argv=None) -> int:
                         if k in timing})
         entries.append(entry)
     sources = {("fma", False): "csrc/lstm_scan.cu", ("fma", True): "csrc/lstm_scan_bwd.cu",
+               ("cluster", False): "csrc/recurrence_cluster.cuh",
+               ("cluster", True): "csrc/recurrence_cluster_bwd.cuh",
                ("mma", False): "csrc/recurrence_mma.cuh",
                ("tf32x3", False): "csrc/recurrence_tf32.cuh",
                ("tf32x3", True): "csrc/recurrence_bwd_tf32.cuh",
@@ -4462,14 +4532,17 @@ def main(argv=None) -> int:
         route = timing["path"]
         B, T, H_row, _ = next(shape for t, lab, shape, *_ in SLICE_D_SHAPES
                               if (t, lab) == (tag, label))
+        launched = f"{name}/{'padded' if 'padded_width' in timing else route}"
         entry = kernel_entry(name, sources[(route, name.endswith("_bwd"))], replaces_of[name],
-                             slice_launches[f"{name}/{route}"], timing,
+                             slice_launches[launched], timing,
                              {k: timing[k] for k in ("bound_ms", "bound_by")},
                              timing["library_ms"], dtype=dtype)
         entry.update(path=route, shape=f"{SLICE_D_NAMES[tag]} {label} B={B} T={T} H={H_row}"
                      + (", with cs" if "train" in label else ""),
                      **{k: timing[k] for k in ("kernel_ms", "fma_kernel_ms", "kernel_bound_ms",
-                                               "fma_bound_ms", "fma_max_abs_err", "tile")
+                                               "fma_bound_ms", "fma_max_abs_err",
+                                               "vs_fma_max_abs_err", "tile", "cluster",
+                                               "padded_width", "co_resident", "waves")
                         if k in timing})
         entries.append(entry)
     entries += [

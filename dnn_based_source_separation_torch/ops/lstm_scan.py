@@ -20,9 +20,10 @@ tensor cores, mma.sync bf16 or 3xTF32), in either dtype; for H = 256, 384 or
 512 and few sequences (musdb18 serving's B = 1) `"cluster"`
 (`csrc/recurrence_cluster.cuh`: one sequence a cluster of 8 or 16 blocks,
 W_hh held in their registers and shared memory, h exchanged through
-distributed shared memory), in either dtype; the FMA kernel (`"fma"`) for
-every other call (H = 40, 384 and 512 past the cluster route, ...). The
-backward has four, which `_plan_bwd`
+distributed shared memory), in either dtype, and for 384 < H < 512
+(LSTM-TasNet's H = 500) the same kernel at H = 512 on a zero-padded call;
+the FMA kernel (`"fma"`) for every other call (H = 40, 256 < H < 384, H = 384
+and 512 past the cluster route, ...). The backward has four, which `_plan_bwd`
 picks the same way: for H a multiple of 16 up to 128 the split-TF32
 tensor-core kernel of `csrc/recurrence_bwd_tf32.cuh` (`"tf32x3"` for
 float32, three TF32 products; `"tf32x2"` for bfloat16, two, since a bf16
@@ -34,8 +35,19 @@ cores, its partial sums reduce-scattered between the ranks), in either dtype;
 for H = 256, 384 or 512 and few sequences (musdb18 training's B = 16) `"cluster"`
 (`csrc/recurrence_cluster_bwd.cuh`: the forward's design, one sequence a cluster
 of 8 or 16 blocks with W_hh's rows of each rank's units on chip, da exchanged
-through distributed shared memory), in either dtype; the FMA kernel (`"fma"`)
-for every other call.
+through distributed shared memory), in either dtype, padded as the forward is
+for 384 < H < 512; the FMA kernel (`"fma"`) for every other call.
+
+The padded calls (`cluster_width`) are exact. The four gate blocks of xw and
+of W_hh's columns, and W_hh's rows, are zero-padded to H = 512 (`pad_chain`).
+A padded unit's gate pre-activations are then 0 at every step, so its c stays
+sigmoid(0) c + sigmoid(0) tanh(0) = 0 from c = 0 and its h = sigmoid(0) tanh(0)
+= 0, and a real unit's sums gain only products with a zero factor. In the
+backward a padded unit's cotangent is 0 and its row of W_hh is 0, so its dh,
+dc and every gate's da stay 0, and the real das are the unpadded ones. The
+results are sliced back: hs and cs to their first H units, d_xw gate block by
+gate block (`unpad_gates`), d_W_hh to the first H rows of each gate block's
+first H columns (`unpad_weight_grad`).
 
 Semantics are the Pallas kernels', in both dtypes: gates are
 `f32(xw[t]) + f32(h rounded to W's dtype) @ f32(W)`, h and c are carried in
@@ -71,6 +83,9 @@ PATH_LAUNCHES = {name: {"mma": 0, "tf32x3": 0, "cluster": 0, "wide": 0, "fma": 0
 # The backward launches above, split by the path `_plan_bwd` chose.
 BWD_PATH_LAUNCHES = {name: {"tf32x3": 0, "tf32x2": 0, "cluster": 0, "wide": 0, "fma": 0}
                      for name in ("lstm_scan_bwd", "lstm_scan_bidir_bwd")}
+# The launches above that ran a cluster kernel on a zero-padded call (`cluster_width`), by
+# kernel: a part of their "cluster" counts.
+PADDED_LAUNCHES = dict.fromkeys(LAUNCHES, 0)
 
 MAX_HIDDEN = 512
 # The tensor-core paths' widest H: bf16 W_hh as mma B fragments takes G H^2 / 2
@@ -105,6 +120,10 @@ _CLUSTERS: dict = {}
 # staging tile.
 CLUSTER_SIZES = (8, 16)
 CLUSTER_ROW_BLOCK = 128
+# Hidden sizes above this one, below MAX_HIDDEN and off the multiples of CLUSTER_ROW_BLOCK
+# run the cluster kernels zero-padded to MAX_HIDDEN (`cluster_width`). 256 < H < 384 would
+# pad to 384: no model of the repo has such an H, and no run has measured it.
+PADDED_ABOVE = 384
 CLUSTER_REG_BLOCKS = 2
 CLUSTER_UNITS_PER_WARP = 2
 CLUSTER_MAX_THREADS = 512
@@ -275,6 +294,55 @@ def lstm_scan_bwd_reference(xw, w_hh, hs, cs, g_hs):
         dh_rec = da @ w_t
         dc_rec = dc * f
     return das.to(xw.dtype), _weight_grad(h_prev, das, w_hh.dtype)
+
+
+def pad_gates(x: torch.Tensor, width: int) -> torch.Tensor:
+    """(..., 4H) -> (..., 4 width): each gate block (i, f, g, o) zero-padded from H units
+    to `width`."""
+    H = x.shape[-1] // 4
+    return F.pad(x.unflatten(-1, (4, H)), (0, width - H)).flatten(-2)
+
+
+def unpad_gates(x: torch.Tensor, H: int) -> torch.Tensor:
+    """(..., 4 width) -> (..., 4H): the first H units of each gate block (a copy, or x
+    itself where width = H)."""
+    return x.unflatten(-1, (4, x.shape[-1] // 4))[..., :H].flatten(-2)
+
+
+def pad_chain(xw: torch.Tensor, w_hh: torch.Tensor, width: int):
+    """One chain's xw (B, T, 4H) and W_hh (H, 4H) zero-padded to hidden size `width`:
+    xw's gate blocks, W_hh's gate blocks and its rows -> ((B, T, 4 width), (width, 4 width))."""
+    H = w_hh.shape[0]
+    return pad_gates(xw, width), F.pad(pad_gates(w_hh, width), (0, 0, 0, width - H))
+
+
+def pad_backward_chain(chain, width: int):
+    """A backward chain (xw, w_hh, hs, cs, g_hs) zero-padded to hidden size `width`:
+    xw and W_hh by `pad_chain`, the units of hs, cs and g_hs (B, T, H) -> (B, T, width)."""
+    xw, w_hh, *per_unit = chain
+    H = w_hh.shape[0]
+    return (*pad_chain(xw, w_hh, width), *(F.pad(t, (0, width - H)) for t in per_unit))
+
+
+def unpad_weight_grad(d_whh: torch.Tensor, H: int) -> torch.Tensor:
+    """d_W_hh (width, 4 width) -> (H, 4H): the first H rows of each gate block's first H
+    columns (the padded ones are 0)."""
+    return unpad_gates(d_whh[:H], H)
+
+
+def cluster_width(H: int) -> int:
+    """The hidden size at which the cluster kernels take hidden size H: MAX_HIDDEN for
+    PADDED_ABOVE < H < MAX_HIDDEN off the multiples of CLUSTER_ROW_BLOCK (LSTM-TasNet's
+    500: the call zero-padded, which is exact, see the module docstring), else H."""
+    if H % CLUSTER_ROW_BLOCK and PADDED_ABOVE < H < MAX_HIDDEN:
+        return MAX_HIDDEN
+    return H
+
+
+def launch_width(H: int, path: str) -> int:
+    """The hidden size a launch on `path` (a plan's) runs at: `cluster_width` on the
+    cluster kernels, H on every other."""
+    return cluster_width(H) if path == "cluster" else H
 
 
 def _tensor_core_path(H: int, dtype: torch.dtype, backward: bool = False) -> str | None:
@@ -470,13 +538,14 @@ def _cluster_tile(B: int, n_chains: int, H: int, dtype: torch.dtype, clusters: d
     `backward`, by the same rule.
     The plan takes the route for B up to CLUSTER_MAX_BATCH (the backward's
     CLUSTER_MAX_BATCH_BWD); forced (`path="cluster"`) it runs any B, and raises
-    where no C can run.
+    where no C can run. H is the kernel's: a padded call's `cluster_width`.
     """
     sizes = [c for c in _cluster_sizes(H, dtype, backward) if (clusters or {}).get(c, 0) >= 1]
     if not sizes:
         if forced:
             raise ValueError(f"the cluster path takes H = 256, 384 or 512 (H = 256 on clusters of "
-                             f"8 or 16 blocks, else 16) that the card holds; got H = {H}, "
+                             f"8 or 16 blocks, else 16; {PADDED_ABOVE} < H < {MAX_HIDDEN} padded "
+                             f"to {MAX_HIDDEN}) that the card holds; got H = {H}, "
                              f"clusters {clusters}")
         return None
     if not forced and B > (CLUSTER_MAX_BATCH_BWD if backward else CLUSTER_MAX_BATCH):
@@ -502,7 +571,12 @@ def _plan(B: int, n_chains: int, H: int, dtype: torch.dtype, sms: int,
     from `wide`, the wide kernel's counts by tile, for many sequences at
     H = 256 (B from WIDE_MIN_BATCH up); below that, or at H = 384 and 512,
     "cluster" (tile (1, C)) by `_cluster_tile` from `clusters`, the cluster
-    kernel's counts, for few sequences. `path` forces one (the FMA path at a
+    kernel's counts, for few sequences; for PADDED_ABOVE < H < MAX_HIDDEN off
+    the multiples of 128 (LSTM-TasNet's 500) "cluster" too, at the padded width
+    `cluster_width(H)` = 512 (C = 16; `clusters` the kernel's counts at 512),
+    which the launch reads from `launch_width`: zero-padding is exact (module
+    docstring), and the padded products are 1.05x the unpadded ones at H = 500.
+    `path` forces one (the FMA path at a
     shape that would take another, to time both); forcing a path where it
     cannot run raises, "cluster" and "wide" also from a wrapper whose routes
     lack them. The GRU wrapper plans with this function too, with
@@ -518,7 +592,8 @@ def _plan(B: int, n_chains: int, H: int, dtype: torch.dtype, sms: int,
     if path == "cluster" or (path is None and natural is None and "cluster" in routes):
         if "cluster" not in routes:
             raise ValueError(f"this wrapper has no cluster kernel (routes {routes})")
-        tile = _cluster_tile(B, n_chains, H, dtype, clusters, forced=path == "cluster")
+        tile = _cluster_tile(B, n_chains, cluster_width(H), dtype, clusters,
+                             forced=path == "cluster")
         if tile is not None:
             return "cluster", tile
     path = path or natural or "fma"
@@ -561,7 +636,8 @@ def _plan_bwd(B: int, n_chains: int, H: int, dtype: torch.dtype, sms: int,
     tile, for many sequences at H = 256 (B from WIDE_MIN_BATCH_BWD up: DPTNet
     training); below that, or at H = 384 and 512, "cluster" (tile (1, C)) by
     `_cluster_tile` from `clusters`, the cluster backward's counts, for B up to
-    CLUSTER_MAX_BATCH_BWD (musdb18 training: C = 8). "fma" (tile R, the
+    CLUSTER_MAX_BATCH_BWD (musdb18 training: C = 8), and at the forward's padded
+    widths on the padded call (`launch_width`; LSTM-TasNet training). "fma" (tile R, the
     forward's rule) for every other call. `path` forces one (the FMA path, to
     time both); forcing a path where it cannot run raises, "cluster" and "wide"
     also from a wrapper whose routes lack them. The GRU wrapper plans with this
@@ -577,8 +653,8 @@ def _plan_bwd(B: int, n_chains: int, H: int, dtype: torch.dtype, sms: int,
     if path == "cluster" or (path is None and natural is None and "cluster" in routes):
         if "cluster" not in routes:
             raise ValueError(f"this wrapper has no cluster backward (routes {routes})")
-        tile = _cluster_tile(B, n_chains, H, dtype, clusters, forced=path == "cluster",
-                             backward=True)
+        tile = _cluster_tile(B, n_chains, cluster_width(H), dtype, clusters,
+                             forced=path == "cluster", backward=True)
         if tile is not None:
             return "cluster", tile
     path = path or natural or "fma"
@@ -656,12 +732,13 @@ def _co_resident_clusters(fn, H: int, device: torch.device, sizes=None,
 def _needs_clusters(H: int, dtype: torch.dtype, path: str | None, backward: bool = False,
                     routes: tuple = FORWARD_ROUTES) -> bool:
     """Whether a plan at H in `dtype` (forced to `path`, if given) may take a cluster
-    kernel, so that the caller must ask the card for its co-resident clusters."""
+    kernel, so that the caller must ask the card for its co-resident clusters (at
+    `cluster_width(H)`)."""
     natural = _tensor_core_path(H, dtype, backward)
     if (path or natural) in ("tf32x3", "tf32x2"):
         return True
     return ("cluster" in routes and path in (None, "cluster") and natural is None
-            and bool(_cluster_sizes(H, dtype, backward)))
+            and bool(_cluster_sizes(cluster_width(H), dtype, backward)))
 
 
 def _needs_wide(H: int, dtype: torch.dtype, path: str | None, routes: tuple = FORWARD_ROUTES,
@@ -679,8 +756,9 @@ def _plan_launch(clusters_of, chains, path, backward=False, routes=FORWARD_ROUTE
 
     The forward's (over the wrapper's `routes`), or the backward's if
     `backward`. `clusters_of(H, device)` is the count of the cluster kernel
-    that runs at H, asked only where one may run. The GRU wrapper plans its
-    launches with this function too.
+    that runs at H (at `cluster_width(H)`), asked only where one may run. The
+    launch runs at `launch_width(H, path)`. The GRU wrapper plans its launches
+    with this function too.
     """
     xw0 = chains[0][0]
     B, T, _ = xw0.shape
@@ -688,7 +766,7 @@ def _plan_launch(clusters_of, chains, path, backward=False, routes=FORWARD_ROUTE
     sms = torch.cuda.get_device_properties(xw0.device).multi_processor_count
     clusters = wide = None
     if _needs_clusters(H, xw0.dtype, path, backward, routes):
-        clusters = clusters_of(H, xw0.device)
+        clusters = clusters_of(cluster_width(H), xw0.device)
     if _needs_wide(H, xw0.dtype, path, routes, backward):
         wide = _wide_counts(H, xw0.dtype, xw0.device, backward)
     if backward:
@@ -865,15 +943,18 @@ def _staged_forward(chains, with_cs: bool, path: str | None = None, cluster: int
     `path` forces a path of `_plan`, `cluster` the cluster size of the cluster
     path and `tile` the tile (M, C) of the wide path (only chip_smoke.py passes
     them, to time the FMA kernel where another one would run, both cluster sizes
-    and every wide tile).
+    and every wide tile). Where the plan pads the call (`launch_width`), the
+    chains are padded here and the launch writes padded outputs, of which hs and
+    cs are the (B, T, H) views.
     """
     name = "lstm_scan" if len(chains) == 1 else "lstm_scan_bidir"
     _check_chains(name, chains)
     xw0 = chains[0][0]
     lib = _library()
     B, T, H, path, planned = _plan_launch(_forward_clusters, chains, path, routes=ROUTES)
+    width = launch_width(H, path)
     if cluster is not None:
-        counts = _cluster_counts(H, xw0.device)
+        counts = _cluster_counts(width, xw0.device)
         if path != "cluster" or counts.get(cluster, 0) < 1:
             raise ValueError(f"no cluster path on {cluster} blocks here: {path}, {counts}")
         planned = (1, cluster)
@@ -883,7 +964,9 @@ def _staged_forward(chains, with_cs: bool, path: str | None = None, cluster: int
             raise ValueError(f"no wide path at tile {tile} here: {path}, {counts}")
         planned = tuple(tile)
     tile = planned
-    hs = [torch.empty((B, T, H), dtype=xw0.dtype, device=xw0.device) for _ in chains]
+    if width != H:
+        chains = [pad_chain(xw, w_hh, width) for xw, w_hh in chains]
+    hs = [torch.empty((B, T, width), dtype=xw0.dtype, device=xw0.device) for _ in chains]
     cs = [torch.empty_like(h) for h in hs] if with_cs else []
     fn = lib.lstm_scan_launch if len(chains) == 1 else lib.lstm_scan_bidir_launch
 
@@ -891,22 +974,25 @@ def _staged_forward(chains, with_cs: bool, path: str | None = None, cluster: int
         pointers = ([c[0].data_ptr() for c in chains] + [c[1].data_ptr() for c in chains]
                     + [h.data_ptr() for h in hs]
                     + ([c.data_ptr() for c in cs] if with_cs else [None] * len(chains)))
-        _launch(name, fn, pointers, xw0.dtype, B, T, H, xw0.device, _PATH_CODE[path],
+        _launch(name, fn, pointers, xw0.dtype, B, T, width, xw0.device, _PATH_CODE[path],
                 *_tile_args(tile))
         PATH_LAUNCHES[name][path] += 1
+        if width != H:
+            PADDED_LAUNCHES[name] += 1
 
-    return hs, cs, launch
+    return [h[..., :H] for h in hs], [c[..., :H] for c in cs], launch
 
 
 def _forward_cuda(chains, with_cs: bool, path: str | None = None):
     """Launch the forward kernel over one or two (xw, w_hh) chains -> (hs list, cs list).
 
     `path` forces a path of `_plan` (only chip_smoke.py passes it, to time
-    the FMA kernel where another one would run).
+    the FMA kernel where another one would run). A padded launch's outputs are
+    copied out of its padded arrays (`.contiguous()`, a no-op on the others).
     """
     hs, cs, launch = _staged_forward(chains, with_cs, path)
     launch()
-    return hs, cs
+    return [h.contiguous() for h in hs], [c.contiguous() for c in cs]
 
 
 def _staged_cluster_floor(chains, cluster: int):
@@ -987,15 +1073,17 @@ def _staged_backward(chains, path: str | None = None, cluster: int | None = None
     `path` forces a path of `_plan_bwd`, `cluster` the cluster size of the cluster
     path and `tile` the tile (M, C) of the wide path (only chip_smoke.py passes them,
     to time the FMA kernel where another one would run, both cluster sizes and every
-    wide tile).
+    wide tile). Where the plan pads the call (`launch_width`), the chains are
+    padded first and every staged array is the padded one.
     """
     name = "lstm_scan_bwd" if len(chains) == 1 else "lstm_scan_bidir_bwd"
     _check_chains(name, [c[:2] for c in chains])
     xw0 = chains[0][0]
     B, T, H, path, planned = _plan_launch(_backward_clusters, [c[:2] for c in chains], path,
                                           backward=True, routes=ROUTES)
+    width = launch_width(H, path)
     if cluster is not None:
-        counts = _cluster_bwd_counts(H, xw0.device)
+        counts = _cluster_bwd_counts(width, xw0.device)
         if path != "cluster" or counts.get(cluster, 0) < 1:
             raise ValueError(f"no cluster backward on {cluster} blocks here: {path}, {counts}")
         planned = (1, cluster)
@@ -1005,14 +1093,18 @@ def _staged_backward(chains, path: str | None = None, cluster: int | None = None
             raise ValueError(f"no wide backward at tile {tile} here: {path}, {counts}")
         planned = tuple(tile)
     tile = planned
-    staged = _stage_backward(chains, B, T, H, path)
+    if width != H:
+        chains = [pad_backward_chain(c, width) for c in chains]
+    staged = _stage_backward(chains, B, T, width, path)
     lib = _bwd_library()
     fn = lib.lstm_scan_bwd_launch if len(chains) == 1 else lib.lstm_scan_bidir_bwd_launch
 
     def launch():  # reads `staged`, so the arrays live as long as the call
-        _launch(name, fn, _pointers(staged), xw0.dtype, B, T, H, xw0.device, _PATH_CODE[path],
-                *_tile_args(tile))
+        _launch(name, fn, _pointers(staged), xw0.dtype, B, T, width, xw0.device,
+                _PATH_CODE[path], *_tile_args(tile))
         BWD_PATH_LAUNCHES[name][path] += 1
+        if width != H:
+            PADDED_LAUNCHES[name] += 1
 
     return staged, launch
 
@@ -1055,10 +1147,12 @@ def _staged_bwd_floor(chains, path: str, tile: tuple):
 
 
 def _backward_cuda(chains, path: str | None = None):
-    """The backward kernel over one or two (xw, w_hh, hs, cs, g_hs) chains -> [(d_xw, d_whh)]."""
+    """The backward kernel over one or two (xw, w_hh, hs, cs, g_hs) chains -> [(d_xw, d_whh)]:
+    a padded launch's d_xw and d_W_hh sliced back to H (d_W_hh summed at the padded width)."""
     staged, launch = _staged_backward(chains, path)
     launch()
-    return [(d_xw, _weight_grad(h_prev, das, w_hh.dtype))
+    return [(unpad_gates(d_xw, w_hh.shape[0]),
+             unpad_weight_grad(_weight_grad(h_prev, das, w_hh.dtype), w_hh.shape[0]))
             for (h_prev, *_, das, d_xw), (_, w_hh, *_) in zip(staged, chains)]
 
 

@@ -725,3 +725,90 @@ def test_the_backward_path_code_of_the_wide_kernel():
     assert ls._PATH_CODE["wide"] == 5
     assert all("wide" in paths for paths in ls.BWD_PATH_LAUNCHES.values())
     assert ls._tile_args((32, 8)) == (32, 8)
+
+
+# LSTM-TasNet's H = 500 (egs/wsj0-mix/lstm-tasnet/train.sh): 384 < H < 512 off the multiples
+# of 128, so the LSTM's cluster kernels take it at the zero-padded width 512 (C = 16 only),
+# forward and backward, with the kernels' counts at 512; 16-block counts of 7 and 8, as an
+# H100 holds.
+LSTM_TASNET_SHAPES = [(8, 2), (8, 1), (4, 2), (4, 1)]  # B, chains
+LSTM_TASNET_IDS = ["serve", "serve-causal", "train", "train-causal"]
+PADDED_COUNTS = pytest.mark.parametrize("counts", [{16: 7}, {16: 8}], ids=["16:7", "16:8"])
+
+
+@PADDED_COUNTS
+@DTYPES
+@pytest.mark.parametrize("B,n_chains", LSTM_TASNET_SHAPES, ids=LSTM_TASNET_IDS)
+def test_lstm_tasnets_h_500_takes_the_padded_cluster_route(counts, dtype, B, n_chains):
+    forward = ls._plan(B, n_chains, 500, dtype, SMS, clusters=counts, routes=ls.ROUTES,
+                       wide=_wide(500, dtype))
+    backward = ls._plan_bwd(B, n_chains, 500, dtype, SMS, clusters=counts, routes=ls.ROUTES,
+                            wide=_wide_bwd(500, dtype))
+    assert forward == backward == ("cluster", (1, 16))
+    assert ls.launch_width(500, "cluster") == ls.cluster_width(500) == 512
+    assert ls.cluster_layout(512, 16, dtype) and ls.cluster_bwd_layout(512, 16, dtype)
+    assert ls._needs_clusters(500, dtype, None, routes=ls.ROUTES)
+    assert ls._needs_clusters(500, dtype, None, backward=True, routes=ls.ROUTES)
+    assert not ls._needs_wide(500, dtype, None, ls.ROUTES)
+
+
+@pytest.mark.parametrize("H", [385, 448, 500, 511])
+def test_every_h_between_384_and_512_pads_to_512(H):
+    assert ls.cluster_width(H) == 512
+    assert ls._plan(1, 1, H, F32, SMS, clusters={16: 7}, routes=ls.ROUTES) == ("cluster", (1, 16))
+    assert ls.launch_width(H, "fma") == H
+
+
+@DTYPES
+def test_h_500_without_16_block_clusters_takes_fma(dtype):
+    for B, n_chains in LSTM_TASNET_SHAPES:
+        assert ls._plan(B, n_chains, 500, dtype, SMS, clusters={16: 0},
+                        routes=ls.ROUTES) == _fma(B, n_chains, 500)
+        assert ls._plan_bwd(B, n_chains, 500, dtype, SMS, clusters={16: 0},
+                            routes=ls.ROUTES) == _fma_bwd(B, n_chains, 500)
+    with pytest.raises(ValueError):
+        ls._plan(8, 2, 500, dtype, SMS, "cluster", {16: 0}, ls.ROUTES)
+    with pytest.raises(ValueError):
+        ls._plan_bwd(4, 2, 500, dtype, SMS, "cluster", {16: 0}, ls.ROUTES)
+
+
+@DTYPES
+@pytest.mark.parametrize("B,n_chains", LSTM_TASNET_SHAPES, ids=LSTM_TASNET_IDS)
+def test_forcing_fma_at_h_500_runs_it_unpadded(dtype, B, n_chains):
+    forward = ls._plan(B, n_chains, 500, dtype, SMS, "fma", {16: 7}, ls.ROUTES)
+    backward = ls._plan_bwd(B, n_chains, 500, dtype, SMS, "fma", {16: 7}, ls.ROUTES)
+    assert forward == _fma(B, n_chains, 500) and backward == _fma_bwd(B, n_chains, 500)
+    assert ls.launch_width(500, "fma") == 500
+    assert not ls._needs_clusters(500, dtype, "fma", routes=ls.ROUTES)
+
+
+def test_the_padded_cluster_route_can_be_forced_past_the_crossover():
+    B = ls.CLUSTER_MAX_BATCH + 1
+    assert ls._plan(B, 2, 500, F32, SMS, clusters={16: 7}, routes=ls.ROUTES)[0] == "fma"
+    assert ls._plan(B, 2, 500, F32, SMS, "cluster", {16: 7}, ls.ROUTES) == ("cluster", (1, 16))
+    assert ls._plan_bwd(B, 2, 500, F32, SMS, "cluster", {16: 7}, ls.ROUTES) == (
+        "cluster", (1, 16))
+
+
+@DTYPES
+def test_the_gru_keeps_fma_at_h_500(dtype):
+    assert not ls._needs_clusters(500, dtype, None, routes=gs.ROUTES)
+    assert gs._plan(8, 2, 500, dtype, SMS, clusters={16: 7}) == _fma(8, 2, 500)
+    assert gs._plan_bwd(4, 2, 500, dtype, SMS, clusters={16: 7}) == _fma_bwd(4, 2, 500)
+
+
+@pytest.mark.parametrize("H,forward,backward", [
+    (40, ("fma", 1), ("fma", 1)),
+    (256, ("cluster", (1, 8)), ("cluster", (1, 8))),
+    (300, ("fma", 1), ("fma", 1)),  # 256 < H < 384: not padded
+    (384, ("cluster", (1, 16)), ("cluster", (1, 16))),
+    (512, ("cluster", (1, 16)), ("cluster", (1, 16))),
+], ids=["H=40", "H=256", "H=300", "H=384", "H=512"])
+def test_other_widths_plan_unpadded_as_before(H, forward, backward):
+    # LSTM-TasNet's serving (B = 8, two chains) and training (B = 4) shapes at other widths.
+    assert ls.cluster_width(H) == H
+    assert all(ls.launch_width(H, p) == H for p in ("fma", "cluster", "wide", "tf32x3"))
+    assert ls._plan(8, 2, H, F32, SMS, clusters=_clusters(H), routes=ls.ROUTES,
+                    wide=_wide(H, F32)) == forward
+    assert ls._plan_bwd(4, 2, H, F32, SMS, clusters=_bwd_clusters(H), routes=ls.ROUTES,
+                        wide=_wide_bwd(H, F32)) == backward

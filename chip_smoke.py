@@ -11,6 +11,7 @@
     python3 chip_smoke.py --only 12       # phases 1 and 2, then musdb18 training
     python3 chip_smoke.py --only 13       # phases 1 and 2, then DPTNet (13k: its kernels)
     python3 chip_smoke.py --only 14       # LSTM-TasNet, SepFormer and GALRNet, their kernels first
+    python3 chip_smoke.py --only 15       # RNN / SRU, FurcaNet, musdb18's waveform models
 
 Phases (any failure exits non-zero; nothing is caught and passed):
   1. device: require CUDA, print the card's name and power limit, turn TF32 off;
@@ -94,7 +95,7 @@ Phases (any failure exits non-zero; nothing is caught and passed):
      At musdb18 training's shape (DPTNet's are phase 13k's) it is timed from
      CUDA graphs, the FMA kernel forced in the same run (FMA, wide, wide, FMA), beside
      the cluster route forced, the plain version, cuDNN's nn.LSTM (F = 64)
-     and the bound; then against the cluster route over B = 1-512, T = 259 and 639,
+     and the bound; then against the cluster route over B = 4-512, T = 259 and 639,
      one and two chains, both dtypes (the crossover WIDE_MIN_BATCH encodes);
   3j. the wide route of the LSTM backward (csrc/recurrence_wide_bwd.cuh, H = 256)
      against lstm_scan_bwd_reference, f32 (three TF32 products) and bf16 (two): every
@@ -106,7 +107,7 @@ Phases (any failure exits non-zero; nothing is caught and passed):
      backward (FMA, wide, wide, FMA), beside the cluster backward forced, every tile the
      card holds, the serial floor (the product compiled out), the plain version, cuDNN's
      nn.LSTM backward (F = 64) and the bounds; then against the cluster backward over
-     B = 1-512, T = 259 and 639, one and two chains, both dtypes (the crossover
+     B = 4-256, T = 259 and 639, one and two chains, both dtypes (the crossover
      WIDE_MIN_BATCH_BWD encodes);
   4. serve: paper-config Conv-TasNet (random weights from seed 0) through
      cli/separate.py on three mixtures in float32 and bfloat16, counting the
@@ -162,7 +163,7 @@ Phases (any failure exits non-zero; nothing is caught and passed):
   11. musdb18 serving: paper-config ParallelOpenUnmix and bridged X-UMX (seed-0
      weights, scrambled BatchNorm statistics and affines) in their
      SpectrogramMaskingWrapper, through cli/test_musdb18.py --device cuda on a
-     synthetic musdb-layout corpus of two 20 s stereo tracks (two 10 s chunks
+     synthetic musdb-layout corpus of one 20 s stereo track (two 10 s chunks
      each, S = 431 frames): exactly 12 lstm_scan_bidir launches a chunk per
      model, all on the route _plan gives B = 1 at H = 256 ("cluster"), and no other
      kernel; the same CLI
@@ -174,9 +175,9 @@ Phases (any failure exits non-zero; nothing is caught and passed):
      chunk card vs CPU; the bench's `--model umx` and `--model xumx` lines;
   12. musdb18 training at the recipe widths (the train CLI's defaults: n_fft 4096,
      hop 1024, max_bin 1487, hidden 512, 3 layers, four stems, Adam at 1e-3): one UMX
-     and one X-UMX step (dropout 0, B = 4 x 6 s) card vs an f64 CPU step, as phase 7;
+     and one X-UMX step (dropout 0, B = 2 x 6 s) card vs an f64 CPU step, as phase 7;
      cli/train_musdb18.py --device cuda for each model on a synthetic musdb-layout
-     corpus, two epochs of 10 steps at B = 16 x 6 s with dropout 0.4 (the epoch's
+     corpus, two epochs of 6 steps at B = 16 x 6 s with dropout 0.4 (the epoch's
      train loss must fall), its last.ckpt served through cli/test_musdb18.py; every
      step exactly 12 lstm_scan_bidir and 12 backwards, every validation and serving
      forward 12 lstm_scan_bidir, each on the route _plan (_plan_bwd) gives its batch
@@ -193,7 +194,7 @@ Phases (any failure exits non-zero; nothing is caught and passed):
      both dtypes (ms, every launch on its route: "wide" at 5112 and 800 sequences), one
      profiled forward split into the recurrence kernels, the attention (CUDA events around
      each MultiheadAttention call) and the rest, with the idle share; one train step (2
-     blocks, B = 1 x 1 s, causal or not) card vs an f64 CPU step, as phase 7, its
+     blocks, B = 1 x 0.5 s, causal or not) card vs an f64 CPU step, as phase 7, its
      launches joining the main path's (the causal step trains the one-chain backward);
      cli/train_wsj0mix.py --model dptnet --warmup_steps 20 at B = 2 x 4 s for two epochs
      of 5 steps (every step and validation forward on its routes, the epoch train loss
@@ -233,7 +234,31 @@ Phases (any failure exits non-zero; nothing is caught and passed):
      (632, 100, 128) serving and (316, 100, 128) training forwards and backwards (the tensor
      cores, the FMA kernel forced beside them); fused_mask_decode at the three decoder
      widths (N = 500, C·L = 40; N = 256 and 64, C·L = 16) as one whole call and as the
-     kernel alone, beside the generic kernel, the plain version and einsum.
+     kernel alone, beside the generic kernel, the plain version and einsum;
+  15. the rest of the wsj0-mix zoo and musdb18's waveform models at their recipe widths
+     (seed-0 weights, scrambled norm affines): recipe-config DPRNN-TasNet with rnn_type
+     "rnn" and "sru" (plain PyTorch recurrences: only the decode kernel) and FurcaNet
+     (egs/wsj0-mix/furcanet/train.sh: six biLSTM layers at H = 128 over every sample, no
+     decode) served through cli/separate.py in f32 and bf16, each request held to its
+     routes, card vs CPU and bf16 vs f32 as phase 5; stereo Conv-TasNet, MRX and Meta-TasNet
+     (egs/musdb18/{conv-tasnet,mrx,meta-tasnet}/train.sh, built by cli/train_musdb18.py)
+     and WaveNet, one forward card vs CPU each, held to its routes (MRX: nine lstm_scan_bidir
+     on "cluster"; the two TasNets one "generic" decode, C·L = 40 and 20); one train step
+     of each CLI model card vs an f64 CPU step, as phase 7 (a small depth, the widths
+     kept); cli/train_wsj0mix.py --model furcanet and --rnn_type sru, and
+     cli/train_musdb18.py --model conv-tasnet|mrx|meta-tasnet, two epochs each on synthetic
+     corpora, every step and validation forward on its routes, the epoch train loss
+     falling, the checkpoints served or reopened; the musdb18 recipe step at the recipe
+     batch or, where that runs out of device memory, the largest power-of-two batch that
+     fits (p50, split, peak, said on its line; the CLI then trains at that batch); the B =
+     8 x 4 s forward of the wsj0-mix models in both dtypes (forward_profile) and their
+     recipe steps' p50 and peak; and (15k) the LSTM kernels at FurcaNet's (4, 16000) x 2
+     training (with cs, and its backward) and (8, 32000) x 2 serving shapes (f32 and bf16)
+     at H = 128, every tf32x3 tile the card holds beside the planned one, and at MRX's
+     (1, 1724) x 2 serving and (16, 1035) x 2 training shapes at H = 256 (with cs, and its
+     backward), each against its plain version at the full length, beside the FMA kernel
+     forced, cuDNN's nn.LSTM and the bound; fused_mask_decode at stereo Conv-TasNet's and
+     Meta-TasNet's decoder widths (B = 1 x 10 s, f32) beside the plain version and einsum.
 
 Each serving, quantizing and evaluation path, and the training path of phase
 8, runs with every launch count set to 0 just before it and read just after
@@ -323,8 +348,8 @@ from dnn_based_source_separation_torch.data.synthetic import (
     _speaker_bank, synth_pseudo_speech, write_musdb_quality_corpus, write_quality_corpus,
 )
 from dnn_based_source_separation_torch.models import (
-    ConvTasNet, CrossNetOpenUnmix, DPRNNTasNet, DPTNet, GALRNet, LSTMTasNet, ParallelOpenUnmix,
-    SepFormer, SpectrogramMaskingWrapper,
+    ConvTasNet, CrossNetOpenUnmix, DPRNNTasNet, DPTNet, FurcaNet, GALRNet, LSTMTasNet,
+    ParallelOpenUnmix, SepFormer, SpectrogramMaskingWrapper, WaveNet,
 )
 from dnn_based_source_separation_torch.models.base import load_model, save_model
 from dnn_based_source_separation_torch.models.longform import chunk_count, separate_longform
@@ -447,16 +472,41 @@ def median_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     return float(np.median(times))
 
 
+GRAPH_BUDGET_MS = 400.0  # a timing's runs: fewer (not under 3 or 5) where one run is long
+
+
+def budget_ms(fn, iters: int = 20, least: int = 3, warmup: int = 1) -> float:
+    """median_ms of fn with as many runs as GRAPH_BUDGET_MS holds, from `least` to `iters`,
+    after `warmup` runs (the last of them timed to count the runs)."""
+    for _ in range(max(0, warmup - 1)):
+        fn()
+    first = median_ms(fn, warmup=0, iters=1)
+    return median_ms(fn, warmup=0,
+                     iters=max(least, min(iters, int(GRAPH_BUDGET_MS / max(first, 1e-3)))))
+
+
+def timed_once(fn):
+    """(fn(), its ms on the card between CUDA events): one run, for a plain version whose
+    result is the reference and whose time is the kernel line's plain_ms."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def graph_ms(launch, repeats: int, iters: int = 20) -> float:
     """ms of one launch() on the card alone: `repeats` launches captured in one CUDA
-    graph, its replay timed by median_ms (of `iters`), over `repeats`."""
+    graph, its replay timed by median_ms (of `iters`, or of as many as GRAPH_BUDGET_MS
+    holds, at least 5), over `repeats`."""
     launch()  # the first call of a path sets its kernel's attributes
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(repeats):
             launch()
-    return median_ms(graph.replay, iters=iters) / repeats
+    return budget_ms(graph.replay, iters=iters, least=5) / repeats
 
 
 def kernel_inputs(B, S, T, N, CL, dtype, strided, seed):
@@ -813,14 +863,16 @@ def grad_errors(kname, got, ref, dtype):
     return errs
 
 
-def check_backward(module, kname, label, grads_of, plain_chains, ref, plain, timed):
+def check_backward(module, kname, label, grads_of, plain_chains, ref, plain, timed,
+                   features=UMX["hidden_channels"]):
     """One backward under autograd (`grads_of()`, its gradients in `ref`'s order) on the
     path _plan_bwd gives it, against the plain version's `ref`. Where another kernel than
     FMA runs, REPEATS more launches are checked and the FMA kernel is forced and checked
     too. If `timed` (a shape where another kernel than FMA runs), the whole backward (gate
     recompute, kernel, parameter gradients) and the kernel alone are timed, the FMA kernel
     and the planned one in turns (FMA, new, new, FMA; the cluster and wide backwards from
-    CUDA graphs, by graph_bwd_turns), and `plain()` -> a timing dict. A padded route
+    CUDA graphs, by graph_bwd_turns, with cuDNN's backward at input width `features`, none
+    if None), and `plain` (its ms, or a call timed once) -> a timing dict. A padded route
     (H = 500 on the cluster backward at 512) is counted in PADDED_LAUNCHES and held to the
     FMA kernel's gradients too, at the same limits."""
     xw, w_hh = plain_chains[0][:2]
@@ -866,7 +918,7 @@ def check_backward(module, kname, label, grads_of, plain_chains, ref, plain, tim
     if not timed:
         return None
     if path in ("cluster", "wide"):
-        timing = graph_bwd_turns(plain_chains, path, tile, plain)
+        timing = graph_bwd_turns(plain_chains, path, tile, plain, features)
         timing.update(max_abs_err=errs[path], fma_max_abs_err=errs["fma"])
         return timing
     # The staged arrays stay alive with each launch call.
@@ -876,13 +928,13 @@ def check_backward(module, kname, label, grads_of, plain_chains, ref, plain, tim
     ms = {}
     for what, by_path in calls.items():
         label_of = "whole backward" if what == "whole" else "kernel alone"
-        fma_1, new_1, new_2, fma_2 = (median_ms(by_path[p], warmup=2, iters=10)
+        fma_1, new_1, new_2, fma_2 = (budget_ms(by_path[p], iters=10, warmup=2)
                                       for p in ("fma", path, path, "fma"))
         ms[what] = ((new_1 + new_2) / 2, (fma_1 + fma_2) / 2)
         log(f"    {label_of}: {path} {new_1:.4f} / {new_2:.4f} ms between FMA {fma_1:.4f} / "
             f"{fma_2:.4f} ms")
-    plain_ms = median_ms(plain, warmup=1, iters=3)
-    log(f"    plain {plain_ms:.4f} ms (medians of 10, 10 and 3, CUDA events)")
+    plain_ms = plain_time(plain)
+    log(f"    plain {plain_ms:.4f} ms (medians of up to 10, one plain run, CUDA events)")
     return dict(max_abs_err=errs[path], ms=ms["whole"][0], kernel_ms=ms["alone"][0],
                 plain_ms=plain_ms, fma_max_abs_err=errs["fma"], fma_ms=ms["whole"][1],
                 fma_kernel_ms=ms["alone"][1])
@@ -900,15 +952,21 @@ def library_lstm_bwd_ms(B, T, H, chains, dtype, features=UMX["hidden_channels"])
     y = lstm(x)[0]
     g = torch.randn(y.shape, device="cuda", generator=gen).to(dtype)
     inputs = [x, *lstm.parameters()]
-    return median_ms(lambda: torch.autograd.grad(y, inputs, g, retain_graph=True), warmup=2,
-                     iters=10)
+    return budget_ms(lambda: torch.autograd.grad(y, inputs, g, retain_graph=True), iters=10,
+                     warmup=2)
+
+
+def plain_time(plain) -> float:
+    """A plain version's ms: given, or one run of the call between CUDA events."""
+    return plain if isinstance(plain, float) else timed_once(plain)[1]
 
 
 def graph_bwd_turns(chains, path, tile, plain, features=UMX["hidden_channels"]):
     """The cluster or wide backward on its planned tile timed from CUDA graphs in turns with
     the FMA backward forced in the same run (FMA, new, new, FMA), the whole backward (the
-    gate recompute, the kernel, d_W_hh) and the kernel alone; beside the plain version and
-    cuDNN's backward (input width `features`: UMX's 512 by default) -> a timing dict."""
+    gate recompute, the kernel, d_W_hh) and the kernel alone; beside the plain version (its
+    ms, or a call timed once) and cuDNN's backward (input width `features`: UMX's 512 by
+    default; None: not timed here) -> a timing dict."""
     xw, w_hh = chains[0][:2]
     B, T, _ = xw.shape
     H = w_hh.shape[0]
@@ -923,10 +981,11 @@ def graph_bwd_turns(chains, path, tile, plain, features=UMX["hidden_channels"]):
         log(f"    {'whole backward' if what == 'whole' else 'kernel alone'}: {path} "
             f"({tile_label(tile)}) {new_1:.4f} / {new_2:.4f} ms between FMA {fma_1:.4f} / "
             f"{fma_2:.4f} ms (CUDA graphs)")
-    plain_ms = median_ms(plain, warmup=1, iters=3)
-    library_ms = library_lstm_bwd_ms(B, T, H, len(chains), xw.dtype, features)
-    log(f"    plain {plain_ms:.4f} ms (median of 3); cuDNN nn.LSTM backward {library_ms:.4f} ms "
-        f"(F={features}, median of 10)")
+    plain_ms = plain_time(plain)
+    library_ms = (None if features is None else
+                  library_lstm_bwd_ms(B, T, H, len(chains), xw.dtype, features))
+    log(f"    plain {plain_ms:.4f} ms (one run)" + ("" if library_ms is None else
+        f"; cuDNN nn.LSTM backward {library_ms:.4f} ms (F={features}, median of up to 10)"))
     timing = dict(ms=ms["whole"][0], kernel_ms=ms["alone"][0], fma_ms=ms["whole"][1],
                   fma_kernel_ms=ms["alone"][1], plain_ms=plain_ms, library_ms=library_ms)
     if path == "cluster":
@@ -1174,7 +1233,7 @@ CLUSTER_CASES = [
 ]
 # The cases timed, and whether with cs (the training forward).
 TIMED_CLUSTER_CASES = {"UMX": False, "causal UMX": False, "UMX train": True}
-CROSSOVER_BATCHES = (1, 2, 4, 8, 16, 64, 128, 256, 512, 1024)  # cluster against FMA, f32
+CROSSOVER_BATCHES = (1, 16, 128, 256, 512)  # cluster against FMA, f32
 LIBRARY_ITERS = 50  # cuDNN's time at B = 1 spread 1.7x between calls on an H100 (PERF.md)
 CLUSTER_REPEATS = 5  # launches in a timed CUDA graph
 
@@ -1211,7 +1270,7 @@ def library_lstm_ms(B, T, H, chains, dtype, features=UMX["hidden_channels"],
                          bidirectional=chains == 2, device="cuda", dtype=dtype)
     x = torch.randn(B, T, features, device="cuda").to(dtype)
     with torch.no_grad():
-        return median_ms(lambda: lstm(x), warmup=5, iters=iters)
+        return budget_ms(lambda: lstm(x), iters=iters, warmup=2)
 
 
 def phase_cluster(card=None):
@@ -1325,7 +1384,7 @@ def phase_cluster(card=None):
 # The cluster backward's crossover over B against the FMA backward (the kernels alone,
 # f32): musdb18 training's T at H = 256 on two chains and H = 512 on one.
 CLUSTER_BWD_CROSSOVER = {"lstm_scan_bidir_bwd": (259, 256, 2), "lstm_scan_bwd": (259, 512, 1)}
-CLUSTER_BWD_BATCHES = (1, 16, 64, 128, 256, 512)
+CLUSTER_BWD_BATCHES = (1, 64, 256, 512)
 
 
 def bwd_chains(B, T, H, chains, dtype, seed):
@@ -1430,7 +1489,7 @@ def phase_cluster_bwd(card):
 WIDE_CHECK = (37, 57)
 WIDE_T1 = (20, 1)
 WIDE_TIMED = [("UMX train", (UMX_TRAIN_SHAPE[0], UMX_TRAIN_SHAPE[1], 2), True)]
-WIDE_CROSSOVER_BATCHES = (1, 4, 16, 64, 128, 200, 256, 512)
+WIDE_CROSSOVER_BATCHES = (4, 16, 64, 200, 512)
 WIDE_CROSSOVER_STEPS = (259, 639)
 
 
@@ -1592,7 +1651,7 @@ WIDE_BWD_TIMED = [
     ("DPTNet train causal inter", (200, 639, 1), torch.float32),
     ("DPTNet train intra", (1278, 100, 2), torch.bfloat16),
 ]
-WIDE_BWD_CROSSOVER_BATCHES = (1, 4, 16, 32, 64, 128, 256, 512)
+WIDE_BWD_CROSSOVER_BATCHES = (4, 16, 32, 64, 256)
 WIDE_BWD_CROSSOVER_STEPS = (259, 639)
 
 
@@ -1747,12 +1806,14 @@ def counts() -> dict:
 # The served decodes, (path, dtype, N, C·L) as md.WIDTH_LAUNCHES counts them:
 # Conv-TasNet's decoder (f32 generic, bf16 mma) and DPRNN-TasNet's (f32 rows,
 # bf16 mma); phase 14's: LSTM-TasNet's (generic in both dtypes), SepFormer's and
-# GALRNet's (f32 generic, bf16 mma).
+# GALRNet's (f32 generic, bf16 mma); phase 15's: stereo Conv-TasNet's and Meta-TasNet's
+# (f32 generic).
 SERVED_DECODES = (("generic", "float32", 512, 16), ("mma", "bfloat16", 512, 16),
                   ("rows", "float32", 64, 2), ("mma", "bfloat16", 64, 2),
                   ("generic", "float32", 500, 40), ("generic", "bfloat16", 500, 40),
                   ("generic", "float32", 256, 16), ("mma", "bfloat16", 256, 16),
-                  ("generic", "float32", 64, 16), ("mma", "bfloat16", 64, 16))
+                  ("generic", "float32", 64, 16), ("mma", "bfloat16", 64, 16),
+                  ("generic", "float32", 256, 40), ("generic", "float32", 440, 20))
 
 
 def width_key(path, dtype, N, CL) -> str:
@@ -2128,17 +2189,21 @@ def phase_throughput_longform(ckpt, wav, card):
 
 
 def phase_bench():
-    """`python -m dnn_based_source_separation_torch.bench`, by default and streaming."""
+    """`python -m dnn_based_source_separation_torch.bench` as a user runs it (a process of
+    its own), then its streaming line in this process."""
     log("== phase 6: the bench module (informational)")
-    for flags in ([], ["--streaming_hop", str(STREAMING_HOP), "--causal"]):
-        proc = subprocess.run([sys.executable, "-m", "dnn_based_source_separation_torch.bench",
-                               *flags], capture_output=True, text=True, timeout=600,
-                              cwd=os.path.dirname(os.path.abspath(__file__)))
-        check(proc.returncode == 0, f"bench {flags} failed: {proc.stdout[-2000:]}"
-                                    f"{proc.stderr[-2000:]}")
-        line = json.loads(proc.stdout.strip().splitlines()[-1])
-        check(line["value"] > 0, line)
-        log(f"  bench {' '.join(flags) or '(default)'}: {json.dumps(line)}")
+    proc = subprocess.run([sys.executable, "-m", "dnn_based_source_separation_torch.bench"],
+                          capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(proc.returncode == 0, f"bench failed: {proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(line["value"] > 0, line)
+    log(f"  bench (default): {json.dumps(line)}")
+    flags = ["--streaming_hop", str(STREAMING_HOP), "--causal"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        line = bench_main(flags)
+    check(line["value"] > 0, line)
+    log(f"  bench {' '.join(flags)}: {json.dumps(line)}")
 
 
 def phase_throughput_stream(tag, ckpt, wavs, card):
@@ -2225,19 +2290,19 @@ def phase_train_parity():
     each tensor within GRAD_TOL_TENSOR x its max|g|: a missing or wrong
     backward is off by O(1).
     """
-    log("== phase 7: one train step, card vs CPU (f32, TF32 off, B=2 x 0.5 s; f64 CPU "
+    log("== phase 7: one train step, card vs CPU (f32, TF32 off, B=1 x 0.5 s; f64 CPU "
         "reference)")
     for tag, (cls, cfg) in TRAIN_MODELS.items():
         def make(device):
             return scramble_norms(cls(**cfg, generator=torch.Generator().manual_seed(0),
                                       device=device))
         cpu_model = make("cpu")
-        batch = train_batch(2, 0.5, "cpu")
+        batch = train_batch(1, 0.5, "cpu")
         ref_loss, ref_grads = grads_of_step(copy.deepcopy(cpu_model).double(),
                                             tuple(t.double() for t in batch))
         cpu_loss, cpu_grads = grads_of_step(cpu_model, batch)
         reset_counts()
-        card_loss, card_grads = grads_of_step(make("cuda"), train_batch(2, 0.5, "cuda"))
+        card_loss, card_grads = grads_of_step(make("cuda"), train_batch(1, 0.5, "cuda"))
         torch.cuda.synchronize()
         launched = counts()
         check(launched == train_step_launches(tag),
@@ -2659,9 +2724,9 @@ def phase_evaluate(tmp, checkpoints, card):
 
 
 # Phase 11: musdb18 serving of paper-config ParallelOpenUnmix and bridged X-UMX.
-MUSDB_TRACK_SECONDS = 20.0  # two test tracks of two 10 s chunks each
+MUSDB_TRACK_SECONDS = 20.0  # one test track of two 10 s chunks
 MUSDB_CHUNK_SECONDS = 10.0  # the CLI's default --duration: S = 431 frames a chunk
-MUSDB_TRACKS = 2
+MUSDB_TRACKS = 1  # BSS-Eval v4's 512-tap solves on the host take about 23 s a track
 MUSDB_DB_TOL = 0.05  # card vs CPU, each median of each stem
 WIENER_TOL = 1e-3  # the EM alone, card vs CPU, relative to max|CPU|
 UMX_BIDIR_LAYERS = UMX["num_layers"] * 4  # one bidirectional layer a stem, per chunk
@@ -2797,10 +2862,10 @@ def musdb_card_vs_cpu(kind, served, cpu_run, card):
 
 def musdb_stage_times(kind, model, root, card, repeats=3):
     """A track's separation on a quiet host (no CLI run beside it): the CLI's
-    separate_track on the second test track, after one warm-up, median of `repeats`;
+    separate_track on the test track, after one warm-up, median of `repeats`;
     device ms by stage (CUDA events), audio-s/s on the host clock (host copy included),
     the EM's peak allocation."""
-    _, mixture, _ = MusdbTestDataset(root)[1]
+    _, mixture, _ = MusdbTestDataset(root)[0]
     x = torch.from_numpy(mixture).cuda()
     chunk = int(MUSDB_CHUNK_SECONDS * MUSDB_SAMPLE_RATE)
     chunks = -(-x.shape[-1] // chunk)
@@ -2858,15 +2923,13 @@ def causal_umx(root, card):
 
 
 def musdb_bench(card):
-    """`python -m dnn_based_source_separation_torch.bench --model umx` and `xumx`."""
-    log("== phase 11: the bench module's musdb18 lines (informational)")
+    """The bench module's `--model umx` and `--model xumx` lines, in this process (phase 6
+    runs `python -m dnn_based_source_separation_torch.bench` as a user would)."""
+    log("== phase 11: the bench module's musdb18 lines (informational; in this process, its "
+        "line kept off stdout)")
     for kind in ("umx", "xumx"):
-        proc = subprocess.run([sys.executable, "-m", "dnn_based_source_separation_torch.bench",
-                               "--model", kind], capture_output=True, text=True, timeout=600,
-                              cwd=os.path.dirname(os.path.abspath(__file__)))
-        check(proc.returncode == 0, f"bench --model {kind} failed: {proc.stdout[-2000:]}"
-                                    f"{proc.stderr[-2000:]}")
-        line = json.loads(proc.stdout.strip().splitlines()[-1])
+        with contextlib.redirect_stdout(io.StringIO()):
+            line = bench_main(["--model", kind])
         check(line["value"] > 0, line)
         log(f"  bench --model {kind}: {json.dumps(line)}")
 
@@ -2912,8 +2975,8 @@ def phase_musdb(card=None):
 # 1487, hidden 512, 3 layers, dropout 0.4, four stems, B = 16 x 6 s, Adam at 1e-3).
 MUSDB_TRAIN_SECONDS = 6.0  # --duration: 259 STFT frames
 MUSDB_TRAIN_BATCH = 16  # --batch_size
-MUSDB_PARITY_BATCH = 4  # the card step held to an f64 CPU step (the f64 step's cost)
-MUSDB_TRAIN_STEPS = 10  # steps a CLI epoch; two epochs a model
+MUSDB_PARITY_BATCH = 2  # the card step held to an f64 CPU step (the f64 step's cost)
+MUSDB_TRAIN_STEPS = 6  # steps a CLI epoch; two epochs a model
 MUSDB_TRAIN_TRACK_SECONDS = 20.0  # corpus tracks: four train, one valid, one test
 MUSDB_NULL_GRAD = 1e-4  # bias_in's gradient is 0 but for rounding (train-mode BatchNorm)
 UMX_STEP_LAUNCHES = UMX["num_layers"] * 4  # one biLSTM layer a stem and layer, each way
@@ -3278,10 +3341,10 @@ class SpanClock:
 DECODE_KERNEL = re.compile(r"mask_decode_kernel|rows_kernel|(?<!scan_)mma_kernel")
 
 
-def forward_profile(model, dtype, what, per_forward, decode, card):
+def forward_profile(model, dtype, what, per_forward, decode, card, decodes=1):
     """The B = 8 x 4 s forward in `dtype`: ms (median of 3 after one warm-up), its launches
-    by route (each held to `per_forward`, the "kernel/route" counts of one forward, and one
-    fused_mask_decode on `decode`), then one profiled forward: device busy and idle share,
+    by route (each held to `per_forward`, the "kernel/route" counts of one forward, and
+    `decodes` fused_mask_decode on `decode`), then one profiled forward: device busy and idle share,
     the recurrence kernels' and the decode's device time (torch.profiler), the attention's
     (CUDA events around each MultiheadAttention call) and the rest. -> (numbers,
     launches)."""
@@ -3310,7 +3373,7 @@ def forward_profile(model, dtype, what, per_forward, decode, card):
                 clock.close()
     launches = grown(before)  # the four timed forwards and the profiled one
     check_dptnet_launches(launches, {k: 5 * v for k, v in per_forward.items()}, what,
-                          decodes=5, decode=decode)
+                          decodes=5 * decodes, decode=decode)
     device = device_times(prof)
     busy = sum(device.values())
     recurrence = sum(t for k, t in device.items() if any(n in k for n in FORWARD_KERNELS))
@@ -3360,7 +3423,10 @@ def lstm_kernel_timing(model, label, B, T, H, chains, dtype, training, features)
     on_path(ls.PATH_LAUNCHES[name], name, launch, path)
     check(ls.PADDED_LAUNCHES[name] - padded == (width != H),
           f"{what}: {ls.PADDED_LAUNCHES[name] - padded} padded launches at width {width}")
-    refs = [ls.lstm_forward_reference(xw, w) for xw, w in inputs]  # the plain (hs, cs)
+    # The plain (hs, cs), timed as the plain version (with cs when `training`, as the kernel).
+    plain = ls.lstm_forward_reference if training else (
+        lambda xw, w: (ls.lstm_scan_reference(xw, w), None))
+    refs, plain_ms = timed_once(lambda: [plain(xw, w) for xw, w in inputs])
     err, limit = forward_error_of(refs, hs, cs if training else None, dtype)
     worst = err
     for _ in range(REPEATS if path != "fma" else 2):
@@ -3402,9 +3468,7 @@ def lstm_kernel_timing(model, label, B, T, H, chains, dtype, training, features)
             log(f"    padded to {width}: whole call {timing['ms']:.4f} ms, kernel alone "
                 f"{timing['kernel_ms']:.4f} ms (pads and slices "
                 f"{(timing['ms'] - timing['kernel_ms']) / timing['ms']:.1%} of the call)")
-    plain = ls.lstm_forward_reference if training else ls.lstm_scan_reference
-    timing["plain_ms"] = median_ms(lambda: [plain(xw, w) for xw, w in inputs], warmup=0,
-                                   iters=1)
+    timing["plain_ms"] = plain_ms
     timing["library_ms"] = library_lstm_ms(B, T, H, chains, dtype, features=features,
                                            iters=10)
     # The wide and tf32x3 routes' f32 product is three TF32 products at the tensor cores'
@@ -3438,15 +3502,16 @@ def autograd_case(inputs, hs, cs):
     return kname, grads_of, [(xw, w, h, c, g) for (xw, w), h, c, g in zip(inputs, hs, cs, grads)]
 
 
-def autograd_backward(label, inputs, hs, cs, timed):
+def autograd_backward(label, inputs, hs, cs, timed, features=UMX["hidden_channels"]):
     """autograd_case's backward on its planned route against lstm_scan_bwd_reference
-    (check_backward; timed whole and alone beside the FMA backward if `timed`) ->
-    check_backward's timing."""
+    (check_backward; timed whole and alone beside the FMA backward if `timed`, the plain
+    version's time that of computing the reference; cuDNN's backward at `features`, none
+    if None) -> check_backward's timing."""
     kname, grads_of, plain_chains = autograd_case(inputs, hs, cs)
-    ref = [d for c in plain_chains for d in ls.lstm_scan_bwd_reference(*c)]
-    return check_backward(ls, kname, label, grads_of, plain_chains, ref,
-                          lambda: [ls.lstm_scan_bwd_reference(*c) for c in plain_chains],
-                          timed=timed)
+    ref, plain_ms = timed_once(
+        lambda: [d for c in plain_chains for d in ls.lstm_scan_bwd_reference(*c)])
+    return check_backward(ls, kname, label, grads_of, plain_chains, ref, plain_ms,
+                          timed=timed, features=features)
 
 
 def lstm_backward_timing(model, label, inputs, hs, cs, features):
@@ -3464,7 +3529,7 @@ def lstm_backward_timing(model, label, inputs, hs, cs, features):
     if path == "fma":
         timing = fma_backward_timing(what, inputs, hs, cs)
     else:
-        timing = autograd_backward(what, inputs, hs, cs, timed=True)
+        timing = autograd_backward(what, inputs, hs, cs, timed=True, features=None)
     timing["path"] = path
     if ls.launch_width(H, path) != H:
         timing["padded_width"] = ls.launch_width(H, path)
@@ -3527,20 +3592,20 @@ def phase_dptnet_kernels(card=None):
 def dptnet_train_parity():
     """One DPTNet train step on the card against an f64 CPU step (and the f32 CPU step):
     the recipe's widths (N64, bottleneck 64, H256, K100, four heads) at two blocks and
-    B = 1 x 1 s, so the f64 reference fits the host; non-causal and causal. -> the two card
+    B = 1 x 0.5 s, so the f64 reference fits the host; non-causal and causal. -> the two card
     steps' launches (the main path's one-chain backward is the causal step's)."""
     log("== phase 13: one DPTNet train step, card vs CPU (f32, TF32 off, recipe widths, 2 "
-        "blocks, B=1 x 1 s; f64 CPU reference)")
-    n = SAMPLE_RATE
+        "blocks, B=1 x 0.5 s; f64 CPU reference)")
+    n = SAMPLE_RATE // 2
     launches = {}
     for causal in (False, True):
         tag = f"dptnet{'_causal' if causal else ''}"
         cpu_model = dptnet_model(causal, "cpu", blocks=2)
-        batch = train_batch(1, 1.0, "cpu")
+        batch = train_batch(1, 0.5, "cpu")
         ref = grads_of_step(copy.deepcopy(cpu_model).double(), tuple(t.double() for t in batch))
         cpu = grads_of_step(cpu_model, batch)
         reset_counts()
-        card_step = grads_of_step(dptnet_model(causal, blocks=2), train_batch(1, 1.0, "cuda"))
+        card_step = grads_of_step(dptnet_model(causal, blocks=2), train_batch(1, 0.5, "cuda"))
         torch.cuda.synchronize()
         grew = all_counts()
         routes = {k: v // DPT_BLOCKS * 2 for k, v in
@@ -4077,6 +4142,567 @@ def phase_slice_d(card=None, tmp=None):
     return dict(launches=total, kernels=kernels, forwards=forwards)
 
 
+# Phase 15: the rest of the wsj0-mix zoo and musdb18's waveform models at their recipe widths,
+# seed-0 weights with scrambled norm affines. wsj0-mix: DPRNN-TasNet (bench.DPRNN) with
+# rnn_type "rnn" (the step loop) and "sru" (the doubling scan): plain PyTorch, no recurrence
+# kernel, the decode on "rows" (f32) or "mma" (bf16); FurcaNet
+# (egs/wsj0-mix/furcanet/train.sh: Hc = Hr = 128, Bc = Br = 6, k = 3), six biLSTM layers
+# over every sample at H = 128, no decode. musdb18 (egs/musdb18/{conv-tasnet,mrx,
+# meta-tasnet}/train.sh): stereo Conv-TasNet (N 256, L 20, C·L = 40: the "generic" decode),
+# MRX (three resolutions x three biLSTM layers at H = 256 over the STFT frames, on
+# "cluster") and Meta-TasNet (N 440, L 20, mono: the "generic" decode); WaveNet at the JAX
+# class's default widths (no CLI builds it).
+FURCANET = dict(conv_hidden_channels=128, rnn_hidden_channels=128, num_conv_blocks=6,
+                num_rnn_blocks=6, kernel_size=3, n_sources=2)
+FURCANET_CLI = ["--model", "furcanet", "-Hc", "128", "-Hr", "128", "-Bc", "6", "-Br", "6",
+                "--sep_kernel_size", "3", "--duration", "2", "--batch_size", "4"]
+SRU_CLI = CLI_RECIPES["dprnn_tasnet"] + ["--rnn_type", "sru"]
+WAVE_CLI = {  # cli/train_musdb18.py at each recipe's flags
+    "conv-tasnet": ["--model", "conv-tasnet", "--criterion", "mse", "-N", "256", "-L", "20",
+                    "-HH", "512", "-B", "256", "-Sc", "128", "-X", "10", "-R", "4",
+                    "--duration", "8", "--batch_size", "4", "--lr", "3e-4", "--max_norm", "5"],
+    "mrx": ["--model", "mrx", "--mrx_n_fft", "512,1024,2048", "--hop_length", "256",
+            "--hidden_channels", "512", "--num_layers", "3", "--duration", "6",
+            "--batch_size", "16", "--lr", "1e-3"],
+    "meta-tasnet": ["--model", "meta-tasnet", "-N", "440", "-L", "20", "-HH", "160", "-B",
+                    "160", "-Sc", "160", "-X", "8", "-R", "3", "--duration", "8",
+                    "--batch_size", "4", "--lr", "1e-3"],
+}
+WAVE_DEPTH = {  # the train step against f64 at a small depth: the widths kept
+    "conv-tasnet": ["-X", "2", "-R", "1"], "mrx": ["--num_layers", "1"],
+    "meta-tasnet": ["-X", "2", "-R", "1"]}
+WAVENET = dict(in_channels=1, out_channels=256, output_nonlinear="softmax")
+MRX_HOP, MRX_LAYERS = 256, 9  # three resolutions x three biLSTM layers, H = 512 // 2
+WAVE_SECONDS = 10.0  # the CLI's --valid_duration: the validation forward, B = 1
+REST_STEPS = 2  # musdb18 CLI steps an epoch, two epochs a model
+# The new kernel shapes, phase 15k: (model, label, (B, T, H, chains), dtypes, training, F).
+REST_SHAPES = [
+    ("FurcaNet", "train", (4, 16000, 128, 2), (torch.float32,), True, 128),
+    ("FurcaNet", "serve", (8, 32000, 128, 2), (torch.float32, torch.bfloat16), False, 128),
+    ("MRX", "serve", (1, int(WAVE_SECONDS * MUSDB_SAMPLE_RATE) // MRX_HOP + 2, 256, 2),
+     (torch.float32,), False, 512),
+    ("MRX", "train", (16, int(6 * MUSDB_SAMPLE_RATE) // MRX_HOP + 2, 256, 2),
+     (torch.float32,), True, 512),
+]
+# The decodes of the two musdb18 TasNets at their validation forward (B = 1 x 10 s: T' =
+# 44099 frames of stride 10): stereo Conv-TasNet's mask is the separator's strided view.
+WAVE_DECODE_SHAPES = {"conv-tasnet": (dict(B=1, S=4, T=44099, N=256, CL=40), True),
+                      "meta-tasnet": (dict(B=1, S=4, T=44099, N=440, CL=20), False)}
+
+
+def furcanet_routes(B, n_samples, dtype, backward=False, layers=FURCANET["num_rnn_blocks"]):
+    """FurcaNet's recurrence launches of one forward (and its backward) on (B, 1, n): its
+    biLSTM layers over B sequences of n steps, each on the route _plan (_plan_bwd) gives,
+    never FMA."""
+    routes = {f"lstm_scan_bidir/{plan(ls, B, 2, 128, dtype)[0]}": layers}
+    if backward:
+        routes[f"lstm_scan_bidir_bwd/{plan_bwd(ls, B, 2, 128, dtype)[0]}"] = layers
+    check(not any(k.endswith("/fma") for k in routes), f"FurcaNet at B = {B}: {routes}")
+    return routes
+
+
+def mrx_routes(B, backward=False, layers=MRX_LAYERS):
+    """MRX's recurrence launches of one f32 forward (and its backward) of B sequences."""
+    routes = {f"lstm_scan_bidir/{plan(ls, B, 2, 256, torch.float32)[0]}": layers}
+    if backward:
+        routes[f"lstm_scan_bidir_bwd/{plan_bwd(ls, B, 2, 256, torch.float32)[0]}"] = layers
+    check(not any(k.endswith("/fma") for k in routes), f"MRX at B = {B}: {routes}")
+    return routes
+
+
+def wave_decode(kind):
+    """The decodes of one forward of a musdb18 waveform model and their path ("generic":
+    C·L = 40 and 20 are above the "mma" path's 16; f32 only, as the JAX CLI trains)."""
+    return (0, None) if kind == "mrx" else (1, "generic")
+
+
+def wave_routes(kind, B, backward=False):
+    return mrx_routes(B, backward) if kind == "mrx" else {}
+
+
+def rest_wsj0_model(tag, device="cuda", **depth):
+    if tag == "furcanet":
+        model = FurcaNet(**dict(FURCANET, **depth), generator=torch.Generator().manual_seed(0),
+                         device=device)
+    else:
+        model = DPRNNTasNet(**dict(DPRNN, causal=False, rnn_type=tag.split("_")[1], **depth),
+                            generator=torch.Generator().manual_seed(0), device=device)
+    return scramble_norms(model)
+
+
+def wave_args(kind, *extra):
+    return musdb_train_cli.build_parser().parse_args(
+        ["--musdb18_root", "", "--seed", "0", *WAVE_CLI[kind], *extra])
+
+
+def wave_model(kind, device="cuda", *extra):
+    """The musdb18 train CLI's own model (seed 0) and criterion for `kind` at its recipe."""
+    args = wave_args(kind, *extra)
+    model, criterion = musdb_train_cli.build_model_and_criterion(
+        args, args.sources.split(","), device)
+    return scramble_norms(model), criterion
+
+
+def wave_batch(B, seconds, device, seed=12):
+    """Four stereo stems of noise and their sum at 44.1 kHz, (B, 1, 2, T) and (B, 4, 2, T)."""
+    rng = np.random.default_rng(seed)
+    sources = 0.1 * rng.standard_normal((B, 4, 2, int(seconds * MUSDB_SAMPLE_RATE)),
+                                        dtype=np.float32)
+    return (torch.from_numpy(sources.sum(axis=1, keepdims=True)).to(device),
+            torch.from_numpy(sources).to(device))
+
+
+def phase_rest_kernels(card=None):
+    """Phase 15k: the LSTM kernels at FurcaNet's and MRX's shapes against the plain version
+    (lstm_kernel_timing, lstm_backward_timing: FMA forced beside the planned route, cuDNN's
+    nn.LSTM at the layer's input width, the bound), FurcaNet's also at F = 256 (its layers
+    after the first) and over every tf32x3 tile the card holds, forward and backward; and
+    fused_mask_decode at the two musdb18 TasNets' decoder widths (decode_case). ->
+    {"recurrences": {(name, model, label, dtype): timing}, "decodes": {kind: timing}}."""
+    card = card or card_line()
+    log("== phase 15k: the recurrences at FurcaNet's and MRX's shapes and the decodes at "
+        f"stereo Conv-TasNet's and Meta-TasNet's widths vs plain on the card [{card}]")
+    result = {}
+    for model, label, (B, T, H, chains), dtypes, training, features in REST_SHAPES:
+        name = "lstm_scan_bidir" if chains == 2 else "lstm_scan"
+        for dtype in dtypes:
+            timing, inputs, hs, cs = lstm_kernel_timing(model, label, B, T, H, chains, dtype,
+                                                        training, features)
+            result[(name, model, label, dtype)] = timing
+            if model == "FurcaNet":
+                if dtype == torch.float32:  # bf16 cuDNN is 15x slower than the kernel here
+                    timing["library_f256_ms"] = library_lstm_ms(B, T, H, chains, dtype, 256,
+                                                                iters=10)
+                    log(f"    cuDNN nn.LSTM at F=256 (its later layers) "
+                        f"{timing['library_f256_ms']:.4f} ms")
+                if training:  # one tile a chain at both shapes: the training one stands for both
+                    timing["tiles_ms"] = tf32_tiles(inputs, training, dtype)
+            if training:
+                timing = lstm_backward_timing(model, label, inputs, hs, cs, features)
+                if model == "FurcaNet":
+                    timing["tiles_kernel_ms"] = tf32_bwd_tiles(inputs, hs, cs)
+                result[(f"{name}_bwd", model, label, dtype)] = timing
+            del inputs, hs, cs
+    names = {"conv-tasnet": "stereo Conv-TasNet", "meta-tasnet": "Meta-TasNet"}
+    decodes = {kind: decode_case(shape, strided, torch.float32, f"{names[kind]} decoder shape")
+               for kind, (shape, strided) in WAVE_DECODE_SHAPES.items()}
+    return dict(recurrences=result, decodes=decodes)
+
+
+def tf32_tiles(inputs, with_cs, dtype):
+    """Every tf32x3 tile (M, C) the card holds at the shape of `inputs`: its hs (and cs)
+    against the plain version, the kernel alone from a CUDA graph -> {"MxC": ms}."""
+    B, T, _ = inputs[0][0].shape
+    H = inputs[0][1].shape[0]
+    refs = [ls.lstm_forward_reference(xw, w) for xw, w in inputs]
+    clusters = ls._tf32_clusters(H, "cuda")
+    out = {}
+    for c, n in sorted(clusters.items()):
+        for m in (16, 32, 64):
+            if n < 1 or H % (8 * c):
+                continue
+            hs, cs, launch = ls._staged_forward(inputs, with_cs, "tf32x3", tile=(m, c))
+            launch()
+            err, limit = forward_error_of(refs, hs, cs if with_cs else None, dtype)
+            check(err <= limit, f"tf32x3 tile ({m}, {c}) at B={B}, T={T} disagrees: {err}")
+            out[f"{m}x{c}"] = graph_ms(launch, 1)
+    log(f"    tf32x3 forward by tile (M x C, kernel alone): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in out.items())
+        + f"; the plan takes {tile_label(plan(ls, B, len(inputs), H, dtype)[1])}")
+    return out
+
+
+def tf32_bwd_tiles(inputs, hs, cs):
+    """Every split-TF32 backward tile the card holds at the shape of `inputs`, the kernel
+    alone from a CUDA graph, each held to lstm_scan_bwd_reference -> {"MxC": ms}."""
+    _, _, plain_chains = autograd_case(inputs, hs, cs)
+    B, T, _ = inputs[0][0].shape
+    H, dtype = inputs[0][1].shape[0], inputs[0][0].dtype
+    refs = [ls.lstm_scan_bwd_reference(*c) for c in plain_chains]
+    name = "lstm_scan_bidir_bwd" if len(inputs) == 2 else "lstm_scan_bwd"
+    out = {}
+    for c, n in sorted(ls._tf32_bwd_clusters(H, "cuda").items()):
+        for m in ls.BWD_TILE_ROWS:
+            if n < 1 or H % (8 * c):
+                continue
+            staged, launch = ls._staged_backward(plain_chains, None, tile=(m, c))
+            launch()
+            errs = staged_bwd_errors(name, staged, plain_chains, refs, dtype)
+            check(all(x <= lim for x, lim in errs), f"backward tile ({m}, {c}): {errs}")
+            out[f"{m}x{c}"] = graph_ms(launch, 1)
+    log(f"    {name} kernel alone by tile (M x C): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in out.items())
+        + f"; the plan takes {tile_label(plan_bwd(ls, B, len(inputs), H, dtype)[1])}")
+    return out
+
+
+def rest_serve(tmp, wavs, card):
+    """The wsj0-mix models through cli/separate.py in f32 and bf16 on the three mixtures,
+    each request held to its routes (FurcaNet: six lstm_scan_bidir on the tensor cores,
+    no decode; DPRNN-TasNet with "rnn" or "sru": no recurrence kernel, one decode on
+    "rows" / "mma"), card vs CPU and bf16 vs f32 (phase 5). -> (launches, checkpoints)."""
+    launches, ckpts = {}, {}
+    for tag in ("dprnn_rnn", "dprnn_sru", "furcanet"):
+        log(f"== phase 15: serve recipe-config {tag} through cli/separate.py")
+        ckpts[tag] = os.path.join(tmp, f"{tag}.pth")
+        save_model(ckpts[tag], rest_wsj0_model(tag))
+        if tag == "furcanet":
+            routes, decode, decodes = (lambda n, dtype: furcanet_routes(1, n, dtype),
+                                       lambda dtype: None, lambda n: 0)
+        else:
+            routes, decode, decodes = (lambda n, dtype: {}, lambda dtype: decode_path(tag, dtype),
+                                       None)
+        outputs, served = serve_routed(tag, ckpts[tag], wavs, routes, decode,
+                                       decodes_of=decodes)
+        launches = add_counts(launches, served)
+        phase_parity(tag, ckpts[tag], wavs, outputs)
+    return launches, ckpts
+
+
+def wave_card_vs_cpu(card):
+    """Stereo Conv-TasNet, MRX and Meta-TasNet (under their musdb18 adapters) and WaveNet:
+    one B = 1 forward on the card, every count set to 0 just before and read just after and
+    held to its routes, against the CPU's (<= 1e-3 x max|CPU|); 1 s of 44.1 kHz stereo
+    (WaveNet: 0.25 s of 16 kHz mono). -> the card forwards' launches."""
+    log("== phase 15: musdb18's waveform models and WaveNet, card vs CPU (f32, 1 s)")
+    launches = {}
+    for kind in (*WAVE_CLI, "wavenet"):
+        if kind == "wavenet":
+            make = lambda device: WaveNet(**WAVENET, generator=torch.Generator().manual_seed(0),
+                                          device=device)  # noqa: E731
+            x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+                (1, 1, 4000), dtype=np.float32))
+            routes, (decodes, decode) = {}, (0, None)
+        else:
+            make = lambda device, kind=kind: wave_model(kind, device)[0]  # noqa: E731
+            x = wave_batch(1, 1.0, "cpu")[0]
+            routes, (decodes, decode) = wave_routes(kind, 1), wave_decode(kind)
+        card_model, cpu_model = make("cuda").eval(), make("cpu").eval()
+        cpu_model.load_state_dict(card_model.state_dict())
+        reset_counts()
+        with torch.inference_mode():
+            got = card_model(x.cuda())
+            torch.cuda.synchronize()
+            grew = all_counts()
+            ref = cpu_model(x)
+        check_dptnet_launches(grew, routes, f"{kind}: a card forward", decodes=decodes,
+                              decode=decode)
+        err, scale = float((got.cpu() - ref).abs().max()), float(ref.abs().max())
+        log(f"  {kind} {tuple(got.shape)}: card vs CPU max abs err {err:.3e}, max|CPU| "
+            f"{scale:.3e}, limit {1e-3 * scale:.3e}; launches {nonzero(grew)} [{card}]")
+        check(torch.isfinite(got).all() and got.shape == ref.shape and err <= 1e-3 * scale,
+              f"{kind}: the card's forward disagrees with the CPU's: {err}")
+        launches = add_counts(launches, grew)
+        del card_model, cpu_model
+    return launches
+
+
+def rest_train_parity():
+    """One train step of each new CLI model on the card against an f64 CPU step (and the
+    f32 CPU step), as phase 7, at the recipe widths: DPRNN-TasNet with "rnn" and "sru" (two
+    blocks, B = 1 x 1 s), FurcaNet (two layers of each, B = 1 x 0.25 s: its CPU recurrence
+    is a step loop over every sample) with PIT SI-SDR; the musdb18 models at a small depth
+    (WAVE_DEPTH) with their CLI's criterion, B = 1 x 0.25 s. -> the card steps' launches."""
+    log("== phase 15: one train step a model, card vs CPU (f32, TF32 off, recipe widths at a "
+        "small depth; f64 CPU reference)")
+    launches = {}
+    for tag in ("dprnn_rnn", "dprnn_sru", "furcanet", *WAVE_CLI):
+        if tag in WAVE_CLI:
+            def make(device, tag=tag):
+                return wave_model(tag, device, *WAVE_DEPTH[tag])
+            batch, B = wave_batch(1, 0.25, "cpu"), 1
+            routes = wave_routes(tag, B, backward=True)
+            if routes:
+                routes = {k: 3 for k in routes}  # three resolutions, one layer each
+        else:
+            depth = (dict(num_conv_blocks=2, num_rnn_blocks=2) if tag == "furcanet"
+                     else dict(sep_num_blocks=2))
+
+            def make(device, tag=tag, depth=depth):
+                return rest_wsj0_model(tag, device, **depth), PIT1d(NegSISDR(), n_sources=2)
+            seconds = 0.25 if tag == "furcanet" else 1.0
+            batch = train_batch(1, seconds, "cpu")
+            routes = (furcanet_routes(1, batch[0].shape[-1], torch.float32, backward=True,
+                                      layers=2) if tag == "furcanet" else {})
+        (cpu_model, criterion), (card_model, _) = make("cpu"), make("cuda")
+        card_model.load_state_dict(cpu_model.state_dict())
+        ref = musdb_grads_of_step(copy.deepcopy(cpu_model).double(), criterion,
+                                  tuple(t.double() for t in batch))
+        cpu = musdb_grads_of_step(cpu_model, criterion, batch)
+        reset_counts()
+        card = musdb_grads_of_step(card_model, criterion, tuple(t.cuda() for t in batch))
+        torch.cuda.synchronize()
+        grew = all_counts()
+        check_dptnet_launches(grew, routes, f"{tag}: a train step")
+        # A parameter with no path to the loss (Meta-TasNet's last block's residual head)
+        # has no gradient in any of the three steps; every other one is compared.
+        unused = [n for n, g in ref[1].items() if g is None]
+        check(all(cpu[1][n] is None and card[1][n] is None for n in unused),
+              f"{tag}: gradients present on one device only: {unused}")
+        if unused:
+            log(f"  {tag}: no path to the loss, no gradient anywhere: {unused}")
+        ref, cpu, card = ((loss, {n: g for n, g in grads.items() if n not in unused})
+                          for loss, grads in (ref, cpu, card))
+        check_step_against_f64(tag, ref, cpu, card, kernels_of(grew))
+        launches = add_counts(launches, grew)
+        del cpu_model, card_model
+    return launches
+
+
+def rest_wsj0_cli(tag, tmp, corpus, card):
+    """cli/train_wsj0mix.py at the recipe's flags (FurcaNet B = 4 x 2 s, DPRNN-TasNet with
+    --rnn_type sru B = 2 x 4 s) on the synthetic corpus, two epochs of REST_STEPS steps:
+    every step and validation forward on its routes, the epoch train loss falling; the
+    checkpoint served through cli/separate.py. -> launches."""
+    argv_model = FURCANET_CLI if tag == "furcanet" else SRU_CLI
+    log(f"== phase 15: train {tag} through cli/train_wsj0mix.py (recipe flags, f32)")
+    tr_root, tr_list, cv_root, cv_list = corpus
+    exp = os.path.join(tmp, f"exp_{tag}")
+    argv = ["--train_wav_root", tr_root, "--train_list_path", tr_list, "--valid_wav_root",
+            cv_root, "--valid_list_path", cv_list, "--valid_duration", "2",
+            "--device", "cuda", *argv_model, "--epochs", "2", "--exp_dir", exp]
+    if "--duration" not in argv_model:
+        argv += ["--duration", "4"]
+    reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        trainer = train_cli.main(argv)
+    grew = all_counts()
+    steps = 2 * len(trainer.train_loader)
+    B = trainer.train_loader.batch_size
+    n = trainer.train_loader.dataset[0][0].shape[-1]
+    if tag == "furcanet":
+        routes = {k: steps * v for k, v in furcanet_routes(B, n, torch.float32, True).items()}
+    else:
+        routes = {}
+    evals = 0
+    for mixture, _ in trainer.valid_loader:
+        if tag == "furcanet":
+            routes = add_counts(routes, {k: 2 * v for k, v in furcanet_routes(
+                1, np.shape(mixture)[-1], torch.float32).items()})
+        evals += 2
+    decodes = 0 if tag == "furcanet" else evals
+    check_dptnet_launches(grew, routes, f"the {tag} CLI run", decodes=decodes,
+                          decode=None if tag == "furcanet" else "rows")
+    losses = trainer.train_loss
+    log(f"  {steps} steps of B={B}, {evals} validation forwards, peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB: train loss by epoch "
+        f"{[round(v, 4) for v in losses]}, valid {[round(v, 4) for v in trainer.valid_loss]}; "
+        f"launches by route {routes_of(grew)}; the CLI's last lines: "
+        + " | ".join(out.getvalue().strip().splitlines()[-2:]) + f" [{card}]")
+    check(np.isfinite(losses).all() and losses[-1] < losses[0],
+          f"the {tag} CLI's epoch train loss did not fall: {losses}")
+    ckpt = os.path.join(exp, "model", "last.ckpt")
+    _, served = serve_routed(
+        f"trained_{tag}", ckpt, [write_mixtures(tmp)[0]],
+        (lambda n, dtype: furcanet_routes(1, n, dtype)) if tag == "furcanet" else
+        (lambda n, dtype: {}),
+        (lambda dtype: None) if tag == "furcanet" else (lambda dtype: decode_path(tag, dtype)),
+        decodes_of=(lambda n: 0) if tag == "furcanet" else None)
+    return add_counts(grew, served)
+
+
+def wave_recipe_step(kind, card, iters=3):
+    """The musdb18 recipe's train step at its batch on the card, or, where that runs out of
+    device memory, at the largest power-of-two batch below it that fits (the widths kept):
+    p50 of the step (host clock), its forward / backward / optimizer split (CUDA events),
+    audio-s/s and peak allocation; the validation forward (B = 1 x 10 s) ms. -> (batch,
+    numbers)."""
+    args = wave_args(kind)
+    B, seconds = args.batch_size, args.duration
+    model, criterion = wave_model(kind)
+    optimizer = make_optimizer("adam", args.lr, args.max_norm, params=model.parameters())
+    while True:
+        try:
+            mixture, sources = wave_batch(B, seconds, "cuda")
+            model.train()
+            step = evented_step(lambda: criterion(model(mixture), sources), optimizer)
+            torch.cuda.reset_peak_memory_stats()
+            splits, walls = [], []
+            for i in range(1 + iters):
+                events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+                start = time.perf_counter()
+                step(events)
+                torch.cuda.synchronize()
+                if i:
+                    walls.append((time.perf_counter() - start) * 1e3)
+                    splits.append([events[j].elapsed_time(events[j + 1]) for j in range(3)])
+            break
+        except torch.cuda.OutOfMemoryError:
+            pass  # freed below, once the exception (and the frames it holds) is gone
+        mixture = sources = step = None
+        optimizer.zero_grad()
+        torch.cuda.empty_cache()
+        check(B > 1, f"{kind}: one {seconds:g} s example does not fit the card")
+        log(f"  {kind}: the recipe step at B={B} x {seconds:g} s ran out of device memory "
+            f"({torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB allocated at the peak); "
+            f"B={B // 2}")
+        B //= 2
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    fwd, bwd, opt = (float(np.median([s[j] for s in splits])) for j in range(3))
+    p50 = float(np.median(walls))
+    x = wave_batch(1, WAVE_SECONDS, "cuda")[0]
+    model.eval()
+    with torch.inference_mode():
+        forward = median_ms(lambda: model(x), warmup=1, iters=3)
+    log(f"  {kind}: recipe step at B={B} x {seconds:g} s (recipe B={args.batch_size}): p50 "
+        f"{p50:.3f} ms of {iters} (forward + loss {fwd:.3f}, backward {bwd:.3f}, optimizer "
+        f"{opt:.3f} ms, CUDA events), {B * seconds / (p50 / 1e3):.2f} audio-s/s, peak "
+        f"{peak:.1f} MiB; the B=1 x {WAVE_SECONDS:g} s validation forward {forward:.3f} ms "
+        f"(median of 3) [{card}]")
+    del model, optimizer, mixture, sources
+    torch.cuda.empty_cache()
+    return B, dict(p50_ms=p50, forward_ms=fwd, backward_ms=bwd, optimizer_ms=opt,
+                   peak_mib=peak, valid_forward_ms=forward, batch=B)
+
+
+def rest_wave_cli(kind, root, batch, tmp, card):
+    """cli/train_musdb18.py at the recipe's flags and `batch` (the recipe's, or what fits)
+    on the synthetic corpus, two epochs of REST_STEPS steps: every step (no decode kernel:
+    training decodes with the plain version; MRX's nine biLSTM layers and their backwards
+    on their routes) and validation forward (B = 1 x 10 s) counted, the epoch train loss
+    falling; the last checkpoint reopened by load_model, its forward equal to the trained
+    model's. -> launches."""
+    log(f"== phase 15: train {kind} through cli/train_musdb18.py (recipe flags, B={batch})")
+    exp = os.path.join(tmp, f"exp_{kind}")
+    argv = ["--musdb18_root", root, "--seed", "0", *WAVE_CLI[kind], "--batch_size",
+            str(batch), "--epochs", "2", "--samples_per_epoch", str(batch * REST_STEPS),
+            "--valid_duration", str(WAVE_SECONDS), "--cache_in_memory", "1", "--exp_dir", exp,
+            "--device", "cuda"]
+    reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        trainer = musdb_train_cli.main(argv)
+    torch.cuda.synchronize()
+    grew = all_counts()
+    steps, evals = 2 * len(trainer.train_loader), 2 * len(trainer.valid_loader)
+    decodes, decode = wave_decode(kind)
+    routes = add_counts({k: steps * v for k, v in wave_routes(kind, batch, True).items()},
+                        {k: evals * v for k, v in wave_routes(kind, 1).items()})
+    check_dptnet_launches(grew, routes, f"the {kind} CLI run", decodes=evals * decodes,
+                          decode=decode)
+    losses = trainer.train_loss
+    log(f"  {steps} steps of B={batch}, {evals} validation forwards: train loss by epoch "
+        f"{[round(v, 5) for v in losses]}, valid {[round(v, 5) for v in trainer.valid_loss]}; "
+        f"launches {nonzero(grew)}; the CLI's last lines: "
+        + " | ".join(out.getvalue().strip().splitlines()[-2:]) + f" [{card}]")
+    check(np.isfinite(losses).all() and losses[-1] < losses[0],
+          f"the {kind} CLI's epoch train loss did not fall: {losses}")
+    model = load_model(os.path.join(exp, "model", "last.ckpt"), device="cuda")
+    x = wave_batch(1, 1.0, "cuda")[0]
+    reset_counts()
+    with torch.inference_mode():
+        got, want = model(x), trainer.model.eval()(x)
+    served = all_counts()
+    check_dptnet_launches(served, {k: 2 * v for k, v in wave_routes(kind, 1).items()},
+                          f"{kind}: the reopened checkpoint", decodes=2 * decodes,
+                          decode=decode)
+    err = float((got - want).abs().max())
+    check(err <= 1e-6 * float(want.abs().max()),
+          f"{kind}: the reopened checkpoint computes another function: {err}")
+    return add_counts(grew, served)
+
+
+def rest_forwards(ckpts, card):
+    """The B = 8 x 4 s forward of each served wsj0-mix checkpoint (FurcaNet in both dtypes
+    by forward_profile: every launch on its route, the device time split; the RNN and SRU
+    models in f32, median of 3) and its recipe train step's p50 (of 2 after one) and peak
+    allocation (f32). -> (numbers, launches)."""
+    log(f"== phase 15: the B=8 x 4 s forward and the recipe step, ms and peak [{card}]")
+    numbers, launches = {}, {}
+    for tag, ckpt in ckpts.items():
+        model = load_model(ckpt, device="cuda")
+        if tag == "furcanet":  # both dtypes, profiled
+            for dtype in (torch.float32, torch.bfloat16):
+                reset_counts()
+                numbers[(tag, dtype)], grew = forward_profile(
+                    model.to(dtype), dtype, tag, furcanet_routes(8, 4 * SAMPLE_RATE, dtype),
+                    None, card, decodes=0)
+                launches = add_counts(launches, grew)
+        else:  # the plain RNN / SRU recurrences (no kernel): f32, timed, not profiled
+            x = train_batch(8, 4.0, "cuda")[0]
+            reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            with torch.inference_mode():
+                ms = median_ms(lambda: model(x), warmup=1, iters=3)
+            grew = all_counts()
+            check_dptnet_launches(grew, {}, f"{tag}: the B=8 x 4 s forwards", decodes=4,
+                                  decode=decode_path(tag, torch.float32))
+            numbers[(tag, torch.float32)] = dict(
+                ms=ms, peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20)
+            log(f"  {tag} B=8 x 4 s float32: {ms:.3f} ms a forward (median of 3), "
+                f"{8 * 4.0 / (ms / 1e3):.1f} audio-s/s, peak "
+                f"{numbers[(tag, torch.float32)]['peak_mib']:.1f} MiB [{card}]")
+            launches = add_counts(launches, grew)
+        del model
+        B, seconds = (4, 2.0) if tag == "furcanet" else (2, 4.0)
+        model = rest_wsj0_model(tag)
+        optimizer = make_optimizer("adam", 1e-3, 5.0, params=model.parameters())
+        criterion = PIT1d(NegSISDR(), n_sources=2)
+        mixture, sources = train_batch(B, seconds, "cuda")
+        model.train()
+        step = evented_step(lambda: criterion(model(mixture), sources)[0], optimizer)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        walls = []
+        for i in range(3):
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            start = time.perf_counter()
+            step(events)
+            torch.cuda.synchronize()
+            if i:
+                walls.append((time.perf_counter() - start) * 1e3)
+        grew = all_counts()
+        routes = ({k: 3 * v for k, v in furcanet_routes(B, int(seconds * SAMPLE_RATE),
+                                                         torch.float32, True).items()}
+                  if tag == "furcanet" else {})
+        check_dptnet_launches(grew, routes, f"{tag}: the recipe steps")
+        launches = add_counts(launches, grew)
+        p50 = float(np.median(walls))
+        numbers[(tag, "step")] = dict(p50_ms=p50, peak_mib=torch.cuda.max_memory_allocated()
+                                      / 2 ** 20)
+        log(f"  {tag}: recipe step B={B} x {seconds:g} s f32 p50 {p50:.3f} ms of 2, "
+            f"{B * seconds / (p50 / 1e3):.1f} audio-s/s, peak "
+            f"{numbers[(tag, 'step')]['peak_mib']:.1f} MiB; launches {routes_of(grew)} [{card}]")
+        del model, optimizer
+    return numbers, launches
+
+
+def phase_rest(card=None, tmp=None):
+    """Phase 15 -> {"launches": the main path's counts (serving, the card forwards, the
+    train steps, the CLIs' training, validation and serving, the recipe forwards and
+    steps), none on the FMA kernels, "kernels": phase 15k's timings, "numbers"}."""
+    card = card or card_line()
+    kernels = phase_rest_kernels(card)
+    numbers = {}
+    with contextlib.ExitStack() as stack:
+        tmp = tmp or stack.enter_context(tempfile.TemporaryDirectory())
+        wavs = write_mixtures(tmp)
+        total, ckpts = rest_serve(tmp, wavs, card)
+        total = add_counts(total, wave_card_vs_cpu(card))
+        total = add_counts(total, rest_train_parity())
+        corpus = os.path.join(tmp, "rest_corpus")
+        wsj0 = (*write_quality_corpus(corpus, "tr", 6), *write_quality_corpus(corpus, "cv", 1))
+        for tag in ("furcanet", "dprnn_sru"):
+            total = add_counts(total, rest_wsj0_cli(tag, tmp, wsj0, card))
+        root = os.path.join(tmp, "musdb18_wave")
+        with contextlib.redirect_stdout(io.StringIO()):
+            write_musdb_quality_corpus(root, n_train=2, n_valid=1, n_test=0,
+                                       track_sec=WAVE_SECONDS, sample_rate=MUSDB_SAMPLE_RATE)
+        for kind in WAVE_CLI:
+            batch, numbers[kind] = wave_recipe_step(kind, card)
+            total = add_counts(total, rest_wave_cli(kind, root, batch, tmp, card))
+        forwards, launches = rest_forwards(ckpts, card)
+        numbers.update(forwards)
+        total = add_counts(total, launches)
+    fma = {k: n for k, n in total.items() if k.endswith("/fma") and n}
+    check(not fma, f"phase 15 launched the FMA kernels {fma}")
+    for key in ("lstm_scan_bidir/tf32x3", "lstm_scan_bidir/mma", "lstm_scan_bidir/cluster",
+                "lstm_scan_bidir_bwd/tf32x3", "lstm_scan_bidir_bwd/cluster",
+                width_key("generic", "float32", 256, 40), width_key("generic", "float32", 440, 20)):
+        check(total.get(key, 0) > 0, f"phase 15 never launched {key}")
+    log(f"  phase 15 main-path launches: {nonzero(total)}; no FMA launch")
+    return dict(launches=total, kernels=kernels, numbers=numbers)
+
+
 def kernel_entry(name, source, replaces, launches, timing, bound_of, library_ms=None,
                  dtype=torch.float32, fma_bound=None):
     """One kernel of the `kernels` line; `dtype` is that of the inputs timed. A timing
@@ -4167,7 +4793,7 @@ ONLY_PHASES = {"3": phase_kernel, "3b": phase_lstm, "3c": phase_gru, "3d": phase
                "3h": phase_cluster, "3i": phase_wide, "3j": phase_wide_bwd,
                "6s": phase_stream_hops, "11": phase_musdb, "12": phase_musdb_train,
                "13": phase_dptnet, "13k": phase_dptnet_kernels, "14": phase_slice_d,
-               "14k": phase_slice_d_kernels}
+               "14k": phase_slice_d_kernels, "15": phase_rest, "15k": phase_rest_kernels}
 
 
 def main(argv=None) -> int:
@@ -4176,8 +4802,10 @@ def main(argv=None) -> int:
                         help="comma-separated kernel phases (3, 3b-3j), 6s (streaming ms "
                              "per hop), 11 (musdb18 serving), 12 (musdb18 training), 13 "
                              "(DPTNet), 13k (DPTNet's kernels alone), 14 (LSTM-TasNet, "
-                             "SepFormer, GALRNet) or 14k (their kernels alone) to run after "
-                             "phases 1 and 2, and nothing else; no result line is printed")
+                             "SepFormer, GALRNet), 14k (their kernels alone), 15 (the RNN and "
+                             "SRU DPRNN-TasNets, FurcaNet, musdb18's waveform models, WaveNet) "
+                             "or 15k (their kernels alone) to run after phases 1 and 2, and "
+                             "nothing else; no result line is printed")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check needs a CUDA card",
@@ -4289,6 +4917,7 @@ def main(argv=None) -> int:
     musdb_train = phase_musdb_train(card)
     dptnet = phase_dptnet(card)
     slice_d = phase_slice_d(card)
+    rest = phase_rest(card)
     for name in ("lstm_scan_bidir_bwd", "lstm_scan_bwd", "gru_scan_bidir_bwd", "gru_scan_bwd"):
         check(trained[name] >= 1, f"the training path never launched {name}")
     total = {k: v + trained[k] + evaluated[k] for k, v in total.items()}
@@ -4307,6 +4936,9 @@ def main(argv=None) -> int:
     # Phase 14 (LSTM-TasNet, SepFormer, GALRNet) held every launch to its route too.
     slice_launches = slice_d["launches"]
     total = {k: v + slice_launches.get(k, 0) for k, v in total.items()}
+    # Phase 15 (FurcaNet, DPRNN-TasNet with RNN / SRU, musdb18's waveform models) too.
+    rest_launches = rest["launches"]
+    total = {k: v + rest_launches.get(k, 0) for k, v in total.items()}
     # The wsj0 models have H = 128 (tensor cores), musdb18's UMX B = 1 at H = 256 and 512
     # and B = 16 at H = 256 (the cluster kernels), DPTNet H = 256 (the wide and cluster
     # kernels), GALRNet H = 128, LSTM-TasNet H = 500 (the cluster kernels at 512): no FMA
@@ -4544,6 +5176,40 @@ def main(argv=None) -> int:
                                                "vs_fma_max_abs_err", "tile", "cluster",
                                                "padded_width", "co_resident", "waves")
                         if k in timing})
+        entries.append(entry)
+    # Phase 15's shapes (phase 15k's times): the LSTM kernels at FurcaNet's (H = 128, 4 x
+    # 16000 training with cs and its backward, 8 x 32000 serving in both dtypes; cuDNN at F =
+    # 128 as `library_ms`, at 256 as `library_f256_ms`, the tf32x3 tiles' times as
+    # `tiles_ms`) and MRX's (H = 256: 1 x 1724 serving, 16 x 1035 training with cs and its
+    # backward, on "cluster"), with phase 15's launches of that kernel on that route; and
+    # fused_mask_decode at stereo Conv-TasNet's (N = 256, C·L = 40) and Meta-TasNet's (N =
+    # 440, C·L = 20) widths, f32, with phase 15's decodes of that width.
+    for (name, model, label, dtype), timing in rest["kernels"]["recurrences"].items():
+        route = timing["path"]
+        B, T, H_row, _ = next(shape for m, lab, shape, *_ in REST_SHAPES
+                              if (m, lab) == (model, label))
+        entry = kernel_entry(name, sources[(route, name.endswith("_bwd"))], replaces_of[name],
+                             rest_launches[f"{name}/{route}"], timing,
+                             {k: timing[k] for k in ("bound_ms", "bound_by")},
+                             timing["library_ms"], dtype=dtype)
+        entry.update(path=route, shape=f"{model} {label} B={B} T={T} H={H_row}"
+                     + (", with cs" if "train" in label else ""),
+                     **{k: timing[k] for k in ("kernel_ms", "fma_kernel_ms", "kernel_bound_ms",
+                                               "fma_bound_ms", "fma_max_abs_err", "tile",
+                                               "cluster", "library_f256_ms", "tiles_ms",
+                                               "tiles_kernel_ms")
+                        if k in timing})
+        entries.append(entry)
+    for kind, timing in rest["kernels"]["decodes"].items():
+        shape = WAVE_DECODE_SHAPES[kind][0]
+        entry = kernel_entry("fused_mask_decode", "csrc/mask_decode.cu",
+                             "ops/pallas_kernels.py:114",
+                             rest_launches[width_key(timing["path"], "float32", shape["N"],
+                                                     shape["CL"])], timing,
+                             mask_decode_bound(**shape, dtype=torch.float32),
+                             timing["library_ms"])
+        entry.update(path=timing["path"], shape=f"{kind} decoder shape (B=1 x 10 s)",
+                     kernel_ms=timing["kernel_ms"])
         entries.append(entry)
     entries += [
         # Two reads of x and one int8 write; no single PyTorch call computes it.

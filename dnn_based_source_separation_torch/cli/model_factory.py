@@ -1,17 +1,14 @@
 """Recipe model factory: --model flag + argparse namespace -> model on a device.
 
-Port of `dnn_based_source_separation_tpu/cli/model_factory.py:build_wsj0mix_model`
-for the ported models, with the JAX factory's arguments and defaults. The weights are
+Port of `dnn_based_source_separation_tpu/cli/model_factory.py:build_wsj0mix_model`:
+every model it builds, with the JAX factory's arguments and defaults. The weights are
 drawn from `args.seed`, so one seed gives the same model on every device.
 """
 from __future__ import annotations
 
 import torch
 
-from ..models import ConvTasNet, DPRNNTasNet, DPTNet, GALRNet, LSTMTasNet, SepFormer
-
-# The slice of the port that brings each model the JAX factory builds.
-_NOT_PORTED = {"furcanet": "slice D"}
+from ..models import ConvTasNet, DPRNNTasNet, DPTNet, FurcaNet, GALRNet, LSTMTasNet, SepFormer
 
 
 def build_wsj0mix_model(args, device) -> torch.nn.Module:
@@ -63,7 +60,12 @@ def build_wsj0mix_model(args, device) -> torch.nn.Module:
             sep_hidden_channels=args.sep_hidden_channels, sep_chunk_size=args.sep_chunk_size,
             sep_hop_size=args.sep_hop_size, sep_down_chunk_size=args.sep_down_chunk_size,
             sep_num_blocks=args.sep_num_blocks, sep_num_heads=args.sep_num_heads, **common)
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"model {args.model!r} is not ported yet ({_NOT_PORTED[name]} "
-                                  "of the port)")
+    if name == "furcanet":  # no filterbank: the gated convs read the samples
+        return FurcaNet(
+            conv_hidden_channels=args.conv_hidden_channels,
+            rnn_hidden_channels=args.rnn_hidden_channels,
+            num_conv_blocks=args.num_conv_blocks, num_rnn_blocks=args.num_rnn_blocks,
+            kernel_size=args.sep_kernel_size, nonlinear=args.mask_nonlinear,
+            causal=args.causal, n_sources=args.n_sources, generator=common["generator"],
+            device=device)
     raise ValueError(f"Unsupported model: {args.model}")

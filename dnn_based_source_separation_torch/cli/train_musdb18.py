@@ -1,4 +1,5 @@
-"""MUSDB18 training CLI: Open-Unmix (one model per stem) and X-UMX (bridged).
+"""MUSDB18 training CLI: Open-Unmix (one model per stem), X-UMX (bridged) and the
+waveform models (stereo Conv-TasNet, MRX, Meta-TasNet).
 
 Port of `dnn_based_source_separation_tpu/cli/train_musdb18.py` (after the
 reference `egs/musdb18/{umx,x-umx}/local/train.py`): the same flag names
@@ -13,14 +14,24 @@ is an error, never a silent CPU run.
 - `--model umx`: ParallelOpenUnmix trains the magnitude MSE against the
   targets' STFT. `--model xumx`: bridged CrossNetOpenUnmix trains the
   multi-domain loss (`--weight_time`, `--weight_frequency`,
-  `--combination`). `--criterion mse|mae|l1loss` overrides either.
+  `--combination`). `--model conv-tasnet`: Conv-TasNet with trainable
+  filterbanks over both channels (`in_channels=2`, `-N -L -HH -B -Sc -X -R`)
+  under `WaveChannelAdapter`, the waveform MSE over time and no PIT (the
+  stems' order is fixed). `--model mrx`: MultiResolutionCrossNet
+  (`--mrx_n_fft`, `--hop_length`, `--hidden_channels`, `--num_layers`) under
+  `WaveChannelAdapter`, negative SI-SDR. `--model meta-tasnet`: one stage of
+  Meta-TasNet on the mono downmix (`MonoWaveAdapter`), negative SI-SDR
+  against the downmixed targets (`MonoTargetAdapter`). `--criterion
+  mse|mae|l1loss` overrides any of them, in the model's output domain.
 - The models train in f32 with Adam (`--optimizer`, `--lr`, `--max_norm`);
   dropout between the LSTM layers (`--dropout`) draws its masks from a
   generator on the device seeded with `--seed`, as the JAX CLI passes
   `dropout_rng` for umx and xumx.
 
-The other `--model` choices raise NotImplementedError naming the slice of
-the port that brings them; so does `--n_devices`.
+The other `--model` choices (the slice-E spectrogram models) raise
+NotImplementedError naming the slice of the port that brings them; so does
+`--n_devices`. The waveform models are validated here, on the valid split's
+loss; `cli/test_musdb18.py` evaluates spectrogram models only, as JAX's does.
 
     python -m dnn_based_source_separation_torch.cli.train_musdb18 \
         --musdb18_root ... --model umx --exp_dir exp [--device cuda]
@@ -32,10 +43,15 @@ import argparse
 import torch
 
 from ..augmentation import RandomFlip, RandomGain, SequentialAugmentation
-from ..criterion import MAELoss, MSELoss, MultiDomainLoss, SpectralTargetAdapter
+from ..criterion import (
+    MAELoss, MonoTargetAdapter, MSELoss, MultiDomainLoss, NegSISDR, SpectralTargetAdapter,
+)
 from ..data import DataLoader
 from ..data import musdb18 as musdb
-from ..models import CrossNetOpenUnmix, ParallelOpenUnmix, SpectrogramMaskingWrapper
+from ..models import (
+    ConvTasNet, CrossNetOpenUnmix, MetaTasNet, MonoWaveAdapter, MultiResolutionCrossNet,
+    ParallelOpenUnmix, SpectrogramMaskingWrapper, WaveChannelAdapter,
+)
 from ..ops.windows import build_window
 from ..train import Trainer, TrainerConfig, make_optimizer
 from ..utils import set_seed
@@ -44,8 +60,8 @@ from ..utils import set_seed
 UNPORTED_MODELS = {
     "d3net": "slice E", "mm-densenet": "slice E", "mm-dense-lstm": "slice E",
     "hrnet": "slice E", "cunet": "slice E",
-    "conv-tasnet": "slice D", "mrx": "slice D", "meta-tasnet": "slice D",
 }
+WAVE_MODELS = ("conv-tasnet", "mrx", "meta-tasnet")
 
 
 def build_parser():
@@ -57,14 +73,15 @@ def build_parser():
     p.add_argument("--samples_per_epoch", type=int, default=None)
     p.add_argument("--augmentation", type=int, default=1)
     p.add_argument("--model", type=str, default="umx",
-                   choices=["umx", "xumx", *UNPORTED_MODELS],
-                   help="umx and xumx are ported; the others raise")
+                   choices=["umx", "xumx", *WAVE_MODELS, *UNPORTED_MODELS],
+                   help="umx, xumx, conv-tasnet, mrx and meta-tasnet are ported; the others "
+                        "raise")
     p.add_argument("--d3net_config", type=str, default=None, help="d3net (not ported)")
     p.add_argument("--mmdense_config", type=str, default=None,
                    help="mm-densenet / mm-dense-lstm (not ported)")
     p.add_argument("--criterion", type=str, default=None,
                    help="override the model's default: mse, mae or l1loss")
-    # conv-tasnet / meta-tasnet hyperparameters (models not ported)
+    # conv-tasnet / meta-tasnet (time domain) hyperparameters
     p.add_argument("--n_basis", "-N", type=int, default=256)
     p.add_argument("--kernel_size", "-L", type=int, default=20)
     p.add_argument("--sep_hidden_channels", "-HH", type=int, default=512)
@@ -72,7 +89,7 @@ def build_parser():
     p.add_argument("--sep_skip_channels", "-Sc", type=int, default=128)
     p.add_argument("--sep_num_layers", "-X", type=int, default=10)
     p.add_argument("--sep_num_blocks", "-R", type=int, default=4)
-    # hrnet, cunet and mrx (models not ported)
+    # hrnet, cunet (models not ported) and mrx
     p.add_argument("--target", type=str, default="vocals")
     p.add_argument("--hrnet_hidden", type=str, default="16,32,64")
     p.add_argument("--cunet_channels", type=str, default="2,16,32,64,128,256")
@@ -124,9 +141,40 @@ def _refuse_unported(args) -> None:
         raise NotImplementedError("--n_devices (data parallelism, slice H) is not ported yet")
 
 
+def _wave_model(args, sources, device):
+    """The waveform models (JAX `main`, :190-239) under their musdb18 adapters."""
+    generator = torch.Generator().manual_seed(args.seed)
+    sep = dict(sep_hidden_channels=args.sep_hidden_channels,
+               sep_bottleneck_channels=args.sep_bottleneck_channels,
+               sep_skip_channels=args.sep_skip_channels, sep_num_blocks=args.sep_num_blocks,
+               sep_num_layers=args.sep_num_layers, n_sources=len(sources),
+               generator=generator, device=device)
+    if args.model == "conv-tasnet":
+        base = ConvTasNet(n_basis=args.n_basis, kernel_size=args.kernel_size,
+                          enc_basis="trainable", dec_basis="trainable", causal=False,
+                          in_channels=2, **sep)
+        return WaveChannelAdapter(base, device=device), MSELoss(dim=-1)
+    if args.model == "mrx":
+        base = MultiResolutionCrossNet(
+            in_channels=2, hidden_channels=args.hidden_channels, num_layers=args.num_layers,
+            n_fft=tuple(int(v) for v in args.mrx_n_fft.split(",")),
+            hop_length=args.hop_length, sources=tuple(sources), generator=generator,
+            device=device)
+        return WaveChannelAdapter(base, device=device), NegSISDR()
+    base = MetaTasNet(n_basis=args.n_basis, kernel_size=args.kernel_size, **sep)
+    return MonoWaveAdapter(base, device=device), MonoTargetAdapter(NegSISDR())
+
+
 def build_model_and_criterion(args, sources, device):
-    """The wrapped spectrogram model on `device` and its criterion (JAX `main`, :144-164,
-    and the override table, :270-289)."""
+    """The wrapped model on `device` and its criterion (JAX `main`, :144-239, and the
+    override table by output domain, :260-289)."""
+    if args.model in WAVE_MODELS:
+        model, criterion = _wave_model(args, sources, device)
+        table = {"mse": MSELoss(dim=-1), "mae": MAELoss(dim=-1)}
+        if args.model == "meta-tasnet":  # its estimates are of the mono downmix
+            table = {k: MonoTargetAdapter(v) for k, v in table.items()}
+        table["l1loss"] = table["mae"]
+        return model, table.get(args.criterion, criterion)
     n_bins = args.n_fft // 2 + 1
     base_kwargs = dict(in_channels=2, hidden_channels=args.hidden_channels,
                        num_layers=args.num_layers, n_bins=n_bins,
@@ -191,8 +239,9 @@ def main(args=None):
         epochs=args.epochs, exp_dir=args.exp_dir, continue_from=args.continue_from,
         overwrite=bool(args.overwrite), sample_rate=args.sample_rate, save_valid_wavs=0,
         time_budget_sec=args.time_budget_sec)
+    # Only UMX and X-UMX have dropout, as the JAX CLI passes dropout_rng for them alone.
     generator = (torch.Generator(device=device).manual_seed(args.seed)
-                 if args.dropout > 0.0 else None)
+                 if args.model in ("umx", "xumx") and args.dropout > 0.0 else None)
     trainer = Trainer(model, train_loader, valid_loader, criterion, optimizer, config, device,
                       dropout_generator=generator)
     trainer.run()

@@ -1,4 +1,5 @@
-"""wsj0-mix training CLI (Conv-TasNet, DPRNN-TasNet, DPTNet, LSTM-TasNet, SepFormer, GALRNet).
+"""wsj0-mix training CLI (Conv-TasNet, DPRNN-TasNet, DPTNet, LSTM-TasNet, SepFormer, GALRNet,
+FurcaNet).
 
 Port of `dnn_based_source_separation_tpu/cli/train_wsj0mix.py`: the same
 flag names and defaults (its `build_parser`, :26-117), plus `--device`
@@ -12,10 +13,12 @@ d_model = `--sep_bottleneck_channels`, an epoch = the train loader's length),
 as the JAX CLI does (its :191-197); the cv-plateau halving then does nothing.
 
 Flags for features not ported yet raise NotImplementedError when set:
-`--pit` other than exhaustive, `--criterion orpit`, `--device_resident_data`,
-`--n_devices` and `--rnn_type sru`. DPRNN-TasNet trains with `--rnn_type
-lstm` or `gru` on either device. As in the JAX factory, LSTM-TasNet takes
-`--enc_basis` (its recipe `trainableGated`) and no encoder nonlinearity, and
+`--pit` other than exhaustive, `--criterion orpit`, `--device_resident_data`
+and `--n_devices`. DPRNN-TasNet trains with `--rnn_type lstm`, `gru` or
+`sru` on either device. FurcaNet takes `-Hc`, `-Hr`, `-Bc`, `-Br`,
+`--sep_kernel_size` and `--mask_nonlinear` (its gate). As in the JAX factory,
+LSTM-TasNet takes `--enc_basis` (its recipe `trainableGated`) and no encoder
+nonlinearity, and
 SepFormer (`--sep_num_layers` layers and `--sep_num_heads` heads in both
 paths) and GALRNet (`-Q` / `--sep_down_chunk_size`) take no filterbank kinds.
 
@@ -67,15 +70,15 @@ def build_parser():
     p.add_argument("--sep_down_chunk_size", "-Q", type=int, default=32)
     p.add_argument("--sep_num_heads", type=int, default=4)
     p.add_argument("--rnn_type", type=str, default="lstm", choices=["lstm", "gru", "sru"],
-                   help="dprnn-tasnet recurrence (sru is not ported)")
+                   help="dprnn-tasnet recurrence")
     p.add_argument("--conv_hidden_channels", "-Hc", type=int, default=128,
-                   help="furcanet gated-conv hidden channels (model not ported)")
+                   help="furcanet gated-conv hidden channels")
     p.add_argument("--rnn_hidden_channels", "-Hr", type=int, default=128,
-                   help="furcanet BiLSTM hidden channels per direction (model not ported)")
+                   help="furcanet BiLSTM hidden channels per direction")
     p.add_argument("--num_conv_blocks", "-Bc", type=int, default=6,
-                   help="furcanet gated-conv blocks (model not ported)")
+                   help="furcanet gated-conv blocks")
     p.add_argument("--num_rnn_blocks", "-Br", type=int, default=6,
-                   help="furcanet BiLSTM layers (model not ported)")
+                   help="furcanet BiLSTM layers")
     p.add_argument("--causal", type=int, default=0)
     p.add_argument("--mask_nonlinear", type=str, default="sigmoid")
     # optimization
@@ -121,7 +124,6 @@ def _refuse_unported(args) -> None:
         (args.criterion == "orpit", "--criterion orpit (ORPIT)"),
         (bool(args.device_resident_data), "--device_resident_data"),
         (args.n_devices is not None, "--n_devices (data parallelism, slice H)"),
-        (args.rnn_type == "sru", "--rnn_type sru"),
     ]
     for refused, what in refusals:
         if refused:

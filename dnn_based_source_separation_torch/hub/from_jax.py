@@ -9,9 +9,13 @@
 `convert_galrnet`, `convert_open_unmix` and `convert_xumx` exactly
 (transposes and reshapes only, and the LSTM's single bias split as b + 0),
 so JAX-trained weights load into the port, and converting back gives the
-same tree bit for bit. GRU and stream-safe DPRNN-TasNet trees, which
-`convert_dprnn_tasnet` does not write, load the same way; so do GRU UMX
-trees, and ParallelOpenUnmix's (`parallel_open_unmix_state_dict_from_jax`).
+same tree bit for bit. GRU, RNN, SRU and stream-safe DPRNN-TasNet trees,
+which `convert_dprnn_tasnet` does not write, load the same way; so do GRU
+UMX trees, and ParallelOpenUnmix's (`parallel_open_unmix_state_dict_from_jax`).
+`mrx_state_dict_from_jax` undoes `convert_mrx`. FurcaNet, Meta-TasNet and
+WaveNet have no converter in the JAX package: `furcanet_state_dict_from_jax`,
+`meta_tasnet_state_dict_from_jax` and `wavenet_state_dict_from_jax` map their
+JAX trees onto the port's names, which follow those trees.
 """
 from __future__ import annotations
 
@@ -64,9 +68,11 @@ def _filterbank(sd: Dict, p: Mapping, C: int) -> None:
 
 
 def _conv(sd: Dict, prefix: str, conv: Mapping) -> None:
-    """flax nn.Conv {kernel (K, in, out), bias} -> torch Conv1d weight (out, in, K), bias."""
+    """flax nn.Conv (or nn.ConvTranspose) {kernel (K, in, out), bias if it has one} -> torch
+    Conv1d weight (out, in, K), bias."""
     sd[f"{prefix}.weight"] = _t(np.transpose(np.asarray(conv["kernel"]), (2, 1, 0)))
-    sd[f"{prefix}.bias"] = _t(conv["bias"])
+    if "bias" in conv:
+        sd[f"{prefix}.bias"] = _t(conv["bias"])
 
 
 def conv_tasnet_state_dict_from_jax(params: Mapping, config: Mapping) -> Dict[str, torch.Tensor]:
@@ -152,14 +158,28 @@ def _gru(sd: Dict, prefix: str, rnn: Mapping) -> None:
         sd[f"{prefix}.bias_hh{sfx}"] = _t(rnn[f"b_hh{sfx}"])
 
 
-_RNN = {"lstm": _lstm, "gru": _gru}
+def _sru(sd: Dict, prefix: str, rnn: Mapping) -> None:
+    """ops.rnn.SRU {w_ih (F, 3H), b (2H,), w_hx (F, H) when F != H} per layer and direction
+    -> weight_ih (3H, F), bias (2H,), weight_hx (H, F): transposes only."""
+    for name in rnn:
+        if not name.startswith("w_ih"):
+            continue
+        sfx = name[len("w_ih"):]
+        sd[f"{prefix}.weight_ih{sfx}"] = _t(np.asarray(rnn[name]).T)
+        sd[f"{prefix}.bias{sfx}"] = _t(rnn[f"b{sfx}"])
+        if f"w_hx{sfx}" in rnn:
+            sd[f"{prefix}.weight_hx{sfx}"] = _t(np.asarray(rnn[f"w_hx{sfx}"]).T)
+
+
+# The vanilla RNN's tree is the LSTM's at one gate: {w_ih, w_hh, b} -> the same names.
+_RNN = {"lstm": _lstm, "gru": _gru, "rnn": _lstm, "sru": _sru}
 
 
 def dprnn_tasnet_state_dict_from_jax(params: Mapping, config: Mapping) -> Dict[str, torch.Tensor]:
     """JAX DPRNNTasNet variables ({"params": ...} or the bare tree) -> port state_dict.
 
     The inverse of `hub/torch_convert.py:convert_dprnn_tasnet`, for
-    `rnn_type` 'lstm' or 'gru'. Each norm's flax name follows from the
+    every `rnn_type` ('lstm', 'gru', 'rnn', 'sru'). Each norm's flax name follows from the
     config (JAX `models/dprnn.py`): the intra-chunk norm is a cLN when
     `stream_safe`, else a gLN; the inter-chunk and top norms are cLNs when
     `causal`. With `sep_norm`, a missing norm raises KeyError.
@@ -169,8 +189,6 @@ def dprnn_tasnet_state_dict_from_jax(params: Mapping, config: Mapping) -> Dict[s
     stream_safe = bool(config.get("stream_safe", False))
     norm = bool(config.get("sep_norm", True))
     rnn_type = config.get("rnn_type", "lstm")
-    if rnn_type not in _RNN:
-        raise NotImplementedError(f"rnn_type {rnn_type!r} has no port converter")
     top_norm = "CumulativeLayerNorm_0" if causal else "GlobalLayerNorm_0"
     intra_norm = "CumulativeLayerNorm_0" if stream_safe else "GlobalLayerNorm_0"
     C = int(config.get("in_channels", 1) or 1)
@@ -275,8 +293,6 @@ def lstm_tasnet_state_dict_from_jax(params: Mapping,
     """
     p = params["params"] if "params" in params else params
     rnn_type = config.get("rnn_type", "lstm")
-    if rnn_type not in _RNN:
-        raise NotImplementedError(f"rnn_type {rnn_type!r} has no port converter")
     sd: Dict[str, torch.Tensor] = {}
     _filterbank(sd, p, int(config.get("in_channels", 1) or 1))
     sep = p["separator"]
@@ -420,4 +436,98 @@ def xumx_state_dict_from_jax(variables: Mapping, config: Mapping) -> Dict[str, t
     for source in config["sources"]:
         names = {ours: f"{jax}_{source}" for ours, jax in _UNMIX_NAMES.items()}
         _unmix(sd, f"backbone.{source}.", p, s, names, config.get("rnn_type", "lstm"))
+    return sd
+
+
+def furcanet_state_dict_from_jax(params: Mapping, config: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX FurcaNet variables ({"params": ...} or the bare tree) -> port state_dict.
+
+    The JAX package has no converter of the reference layout for FurcaNet; the
+    port's names follow the JAX tree: `gcn.conv{i}` / `gcn.gate{i}` from flax
+    Convs, `gcn.norm{i}` from the i-th `GlobalLayerNorm` (`CumulativeLayerNorm`
+    when causal), `rnn_blocks` from the stacked BiLSTM, `fc` from the Dense.
+    """
+    p = params["params"] if "params" in params else params
+    norm_cls = "CumulativeLayerNorm" if config.get("causal", False) else "GlobalLayerNorm"
+    sd: Dict[str, torch.Tensor] = {}
+    gcn = p["gcn"]
+    for idx in range(int(config.get("num_conv_blocks", 10))):
+        _conv(sd, f"gcn.conv{idx}", gcn[f"conv{idx}"])
+        _conv(sd, f"gcn.gate{idx}", gcn[f"gate{idx}"])
+        if f"{norm_cls}_{idx}" in gcn:
+            _norm(sd, f"gcn.norm{idx}", gcn[f"{norm_cls}_{idx}"])
+    _lstm(sd, "rnn_blocks", p["rnn_blocks"])
+    _linear(sd, "fc", p["fc"])
+    return sd
+
+
+def mrx_state_dict_from_jax(variables: Mapping, config: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX MultiResolutionCrossNet variables {"params", "batch_stats"} -> port state_dict:
+    the inverse of `hub/torch_convert.py:convert_mrx` (`enc_block{i}`, `rnn{i}`,
+    `dec_<source>_<i>_net0/1`, `scale_out_<source>_<i>`, `bias_out_<source>_<i>`)."""
+    p, s = variables["params"], variables["batch_stats"]
+    rnn = _RNN[config.get("rnn_type", "lstm")]
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(len(config["n_fft"])):
+        _transform_block(sd, f"encoder_blocks.{i}.block", p[f"enc_block{i}"],
+                         s[f"enc_block{i}"])
+        rnn(sd, f"encoder_blocks.{i}.rnn", p[f"rnn{i}"])
+    for source in config["sources"]:
+        for i in range(len(config["n_fft"])):
+            ref = f"decoder_blocks.{source}.{i}"
+            for ours, name in (("net.0", "net0"), ("net.1", "net1")):
+                key = f"dec_{source}_{i}_{name}"
+                _transform_block(sd, f"{ref}.{ours}", p[key], s[key])
+            sd[f"{ref}.scale_out"] = _t(p[f"scale_out_{source}_{i}"])
+            sd[f"{ref}.bias_out"] = _t(p[f"bias_out_{source}_{i}"])
+    return sd
+
+
+def _generated(sd: Dict, prefix: str, tree: Mapping) -> None:
+    """A generated conv or norm: each of its Dense layers -> nn.Linear."""
+    for name in ("bottleneck", "linear", "linear_scale", "linear_bias"):
+        if name in tree:
+            _linear(sd, f"{prefix}.{name}", tree[name])
+
+
+def meta_tasnet_state_dict_from_jax(params: Mapping, config: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX MetaTasNet variables ({"params": ...} or the bare tree) -> port state_dict.
+
+    The JAX package has no converter of the reference layout for Meta-TasNet; the port's
+    names follow the JAX tree (`models/meta_tasnet.py`): the embedding, the trainable
+    encoder and decoder (`_filterbank`), each generated conv's and norm's Dense layers,
+    each block's shared depthwise conv.
+    """
+    p = params["params"] if "params" in params else params
+    sd: Dict[str, torch.Tensor] = {"instrument_embedding": _t(p["instrument_embedding"])}
+    _filterbank(sd, p, 1)
+    for name in ("in_conv", "mask_conv"):
+        _generated(sd, name, p[name])
+    for b in range(int(config.get("sep_num_blocks", 2))):
+        for l in range(int(config.get("sep_num_layers", 4))):
+            block, ref = p[f"block{b}_{l}"], f"block{b}_{l}"
+            for name in ("bottleneck_conv", "norm1", "norm2", "out_conv", "skip_conv"):
+                _generated(sd, f"{ref}.{name}", block[name])
+            _conv(sd, f"{ref}.depthwise", block["depthwise"])
+    return sd
+
+
+def wavenet_state_dict_from_jax(params: Mapping, config: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX WaveNet variables ({"params": ...} or the bare tree) -> port state_dict, named as
+    the JAX tree is (`models/wavenet.py`); the conditioning's Dense layers and convs too."""
+    p = params["params"] if "params" in params else params
+    sd: Dict[str, torch.Tensor] = {}
+    for name in ("causal_conv1d", "end0", "end1"):
+        _conv(sd, name, p[name])
+    for b in range(int(config.get("num_blocks", 3))):
+        block = p[f"block{b}"]
+        for l in range(int(config.get("num_layers", 10))):
+            ref = f"block{b}"
+            for head in ("res", "skip"):
+                _conv(sd, f"{ref}.{head}{l}", block[f"{head}{l}"])
+            for name, tree in block[f"gated{l}"].items():
+                if name.endswith("_linear"):
+                    _linear(sd, f"{ref}.gated{l}.{name}", tree)
+                else:
+                    _conv(sd, f"{ref}.gated{l}.{name}", tree)
     return sd

@@ -3,13 +3,18 @@
 from .conv_tasnet import ConvTasNet, Separator
 from .dprnn_tasnet import DPRNNTasNet
 from .dptnet import DPTNet
+from .furcanet import FurcaNet
 from .galrnet import GALRNet
 from .lstm_tasnet import LSTMTasNet, TasNet, TasNetBase
+from .meta_tasnet import MetaTasNet
+from .mrx import MultiResolutionCrossNet
 from .sepformer import SepFormer
 from .umx import OpenUnmix, ParallelOpenUnmix
-from .wrappers import SpectrogramMaskingWrapper
+from .wavenet import WaveNet
+from .wrappers import MonoWaveAdapter, SpectrogramMaskingWrapper, WaveChannelAdapter
 from .xumx import CrossNetOpenUnmix
 
-__all__ = ["ConvTasNet", "CrossNetOpenUnmix", "DPRNNTasNet", "DPTNet", "GALRNet", "LSTMTasNet",
+__all__ = ["ConvTasNet", "CrossNetOpenUnmix", "DPRNNTasNet", "DPTNet", "FurcaNet", "GALRNet",
+           "LSTMTasNet", "MetaTasNet", "MonoWaveAdapter", "MultiResolutionCrossNet",
            "OpenUnmix", "ParallelOpenUnmix", "SepFormer", "Separator",
-           "SpectrogramMaskingWrapper", "TasNet", "TasNetBase"]
+           "SpectrogramMaskingWrapper", "TasNet", "TasNetBase", "WaveChannelAdapter", "WaveNet"]

@@ -1,4 +1,4 @@
-"""Shared building blocks: PReLU, 1x1 convolution, dense layer, nonlinearity factory.
+"""Shared building blocks: PReLU, 1x1 and K-tap convolutions, dense layer, nonlinearity factory.
 
 The dense layer, `Linear`, lives in `ops/params.py` (the ops' attention uses it too).
 
@@ -42,6 +42,28 @@ class Pointwise(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, self.weight.squeeze(-1), self.bias)
+
+
+class Conv1d(nn.Module):
+    """Conv1d on channels-last input (B, T, C_in) -> (B, T', C_out), no padding of its own.
+
+    Parameters keep the torch Conv1d layout: weight (out, in / groups, K), bias (out,) if
+    `bias`; torch's initialisation, uniform in +-1/sqrt(in / groups * K).
+    """
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 dilation: int = 1, bias: bool = True, groups: int = 1, *, generator=None,
+                 device=None):
+        super().__init__()
+        self.dilation, self.groups = dilation, groups
+        fan_in = in_channels // groups * kernel_size
+        self.weight = uniform_parameter((out_channels, in_channels // groups, kernel_size),
+                                        fan_in, generator, device)
+        self.bias = uniform_parameter((out_channels,), fan_in, generator, device) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv1d(x.transpose(1, 2), self.weight, self.bias, dilation=self.dilation,
+                        groups=self.groups).transpose(1, 2)
 
 
 def choose_nonlinear(name: str | None, **kwargs) -> Callable[[torch.Tensor], torch.Tensor]:

@@ -95,6 +95,13 @@ class ExactStreamingSeparator:
         if hop_samples % S or hop_samples < L:
             raise ValueError(f"hop_samples must be a multiple of stride={S} and >= "
                              f"kernel_size={L}")
+        if getattr(model, "rnn_type", "lstm") not in ("lstm", "gru"):
+            # JAX's RNN and SRU accept the stream collection and ignore it: a chunked JAX run
+            # restarts their recurrence each call, which is not the offline output.
+            raise NotImplementedError(
+                "exact streaming carries RNN state for rnn_type 'lstm'/'gru' only: the JAX "
+                f"package's {model.rnn_type!r} ignores the carried state (its chunked output "
+                "restarts the recurrence at every call)")
         D, P = 0, 1  # Conv-TasNet: no latent delay, any number of frames a call
         if hasattr(model, "sep_chunk_size"):
             if not hasattr(model, "rnn_type"):
@@ -113,9 +120,6 @@ class ExactStreamingSeparator:
                 raise NotImplementedError(
                     "exact streaming of a dual-path model requires stream_safe=True: the "
                     "reference-parity causal mode reads future chunks through its norms")
-            if model.rnn_type not in ("lstm", "gru"):
-                raise NotImplementedError(
-                    "exact dual-path streaming carries RNN state for rnn_type 'lstm'/'gru' only")
             K, P = int(model.sep_chunk_size), int(model.sep_hop_size)
             D = K - P
             if (hop_samples - L) // S + 1 < P:

@@ -1,9 +1,10 @@
-"""Waveform -> spectrogram wrapper for the spectrogram-domain models.
+"""Adapters from musdb18's (B, 1, C, T) mixture waves to the models' inputs.
 
 Port of `dnn_based_source_separation_tpu/models/wrappers.py:
-SpectrogramMaskingWrapper`: the STFT and its magnitude run on the model's
-device inside the forward, so callers hand it waves. The other wrappers of
-the JAX module come with their models.
+SpectrogramMaskingWrapper` (the STFT and its magnitude run on the model's
+device inside the forward, so callers hand it waves), `WaveChannelAdapter`
+(stereo Conv-TasNet, MRX) and `MonoWaveAdapter` (Meta-TasNet). The other
+wrappers of the JAX module come with their models.
 """
 from __future__ import annotations
 
@@ -40,3 +41,30 @@ class SpectrogramMaskingWrapper(SeparationModelMixin, nn.Module):
 
     def forward(self, mixture: torch.Tensor) -> torch.Tensor:
         return self.base(self.spectrogram(mixture).abs())
+
+
+class _WaveAdapter(SeparationModelMixin, nn.Module):
+    """A waveform model under a musdb18 adapter; its parameters are `base.*`."""
+
+    def __init__(self, base: nn.Module, *, device=None):
+        super().__init__()
+        self._config = dict(base=base)
+        self.base = base.to(device) if device is not None else base
+
+
+@register_model
+class WaveChannelAdapter(_WaveAdapter):
+    """(B, 1, C, T) mixture -> the time-domain base model over (B, C, T): stereo
+    Conv-TasNet's (B, n_src, C, T) or MRX's."""
+
+    def forward(self, mixture: torch.Tensor) -> torch.Tensor:
+        return self.base(mixture[:, 0])
+
+
+@register_model
+class MonoWaveAdapter(_WaveAdapter):
+    """(B, 1, C, T) -> the mono downmix (B, 1, T) -> the base model's (B, n_src, T)
+    (Meta-TasNet; its targets are downmixed alike, `criterion/spectral.py:MonoTargetAdapter`)."""
+
+    def forward(self, mixture: torch.Tensor) -> torch.Tensor:
+        return self.base(mixture[:, 0].mean(dim=1, keepdim=True))

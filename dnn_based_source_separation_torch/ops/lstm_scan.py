@@ -935,15 +935,33 @@ def _launch(name: str, fn, pointers, dtype, B, T, H, device, *plan) -> None:
     LAUNCHES[name] += 1
 
 
+def _forced_tile(tile, path: str, H: int, dtype: torch.dtype, device,
+                 backward: bool = False) -> tuple:
+    """A tile (M, C) forced on the wide path or a split-TF32 path ("tf32x3", the
+    backward's "tf32x2") -> the tile, if the card holds such clusters; else raises."""
+    tile = tuple(tile)
+    if path == "wide":
+        ok = _wide_counts(H, dtype, device, backward).get(tile, 0) >= 1
+    else:
+        clusters = _tf32_bwd_clusters(H, device) if backward else _tf32_clusters(H, device)
+        rows = BWD_TILE_ROWS if backward else (16, 32, 64)
+        m, c = tile
+        ok = (path in ("tf32x3", "tf32x2") and m in rows and H % (8 * c) == 0
+              and clusters.get(c, 0) >= 1)
+    if not ok:
+        raise ValueError(f"no {path} {'backward' if backward else 'path'} at tile {tile} here")
+    return tile
+
+
 def _staged_forward(chains, with_cs: bool, path: str | None = None, cluster: int | None = None,
                     tile: tuple | None = None):
     """Plan the forward kernel over one or two (xw, w_hh) chains and allocate its outputs
     -> (hs list, cs list, a call that launches it into them).
 
     `path` forces a path of `_plan`, `cluster` the cluster size of the cluster
-    path and `tile` the tile (M, C) of the wide path (only chip_smoke.py passes
-    them, to time the FMA kernel where another one would run, both cluster sizes
-    and every wide tile). Where the plan pads the call (`launch_width`), the
+    path and `tile` the tile (M, C) of the wide or tf32x3 path (only chip_smoke.py
+    passes them, to time the FMA kernel where another one would run, both cluster
+    sizes and every wide and tf32x3 tile). Where the plan pads the call (`launch_width`), the
     chains are padded here and the launch writes padded outputs, of which hs and
     cs are the (B, T, H) views.
     """
@@ -959,10 +977,7 @@ def _staged_forward(chains, with_cs: bool, path: str | None = None, cluster: int
             raise ValueError(f"no cluster path on {cluster} blocks here: {path}, {counts}")
         planned = (1, cluster)
     if tile is not None:
-        counts = _wide_counts(H, xw0.dtype, xw0.device)
-        if path != "wide" or counts.get(tuple(tile), 0) < 1:
-            raise ValueError(f"no wide path at tile {tile} here: {path}, {counts}")
-        planned = tuple(tile)
+        planned = _forced_tile(tile, path, H, xw0.dtype, xw0.device)
     tile = planned
     if width != H:
         chains = [pad_chain(xw, w_hh, width) for xw, w_hh in chains]
@@ -1071,10 +1086,10 @@ def _staged_backward(chains, path: str | None = None, cluster: int | None = None
     (xw, w_hh, hs, cs, g_hs) chains -> (staged arrays per chain, a call that launches it).
 
     `path` forces a path of `_plan_bwd`, `cluster` the cluster size of the cluster
-    path and `tile` the tile (M, C) of the wide path (only chip_smoke.py passes them,
-    to time the FMA kernel where another one would run, both cluster sizes and every
-    wide tile). Where the plan pads the call (`launch_width`), the chains are
-    padded first and every staged array is the padded one.
+    path and `tile` the tile (M, C) of the wide or split-TF32 path (only chip_smoke.py
+    passes them, to time the FMA kernel where another one would run, both cluster sizes
+    and every wide and split-TF32 tile). Where the plan pads the call (`launch_width`),
+    the chains are padded first and every staged array is the padded one.
     """
     name = "lstm_scan_bwd" if len(chains) == 1 else "lstm_scan_bidir_bwd"
     _check_chains(name, [c[:2] for c in chains])
@@ -1088,10 +1103,7 @@ def _staged_backward(chains, path: str | None = None, cluster: int | None = None
             raise ValueError(f"no cluster backward on {cluster} blocks here: {path}, {counts}")
         planned = (1, cluster)
     if tile is not None:
-        counts = _wide_counts(H, xw0.dtype, xw0.device, backward=True)
-        if path != "wide" or counts.get(tuple(tile), 0) < 1:
-            raise ValueError(f"no wide backward at tile {tile} here: {path}, {counts}")
-        planned = tuple(tile)
+        planned = _forced_tile(tile, path, H, xw0.dtype, xw0.device, backward=True)
     tile = planned
     if width != H:
         chains = [pad_backward_chain(c, width) for c in chains]

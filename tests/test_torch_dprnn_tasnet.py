@@ -149,9 +149,9 @@ def test_generator_initialisation_is_reproducible():
 
 
 def test_unported_options_raise():
-    for rnn_type in ("rnn", "sru"):
-        with pytest.raises(NotImplementedError, match=rnn_type):
-            DPRNNTasNet(**CFG, rnn_type=rnn_type)
+    # 'rnn' and 'sru' are ported (tests/test_torch_rnn_sru.py); an unknown type still raises.
+    with pytest.raises(NotImplementedError, match="transformer"):
+        DPRNNTasNet(**CFG, rnn_type="transformer")
     with pytest.raises(ValueError):
         DPRNNTasNet(**CFG, mask_nonlinear="tanh")
 

@@ -18,7 +18,7 @@ import torch
 
 from dnn_based_source_separation_torch.ops import lstm_scan as ls
 from dnn_based_source_separation_torch.ops import segment as tseg
-from dnn_based_source_separation_torch.ops.rnn import GRU, LSTM, choose_rnn
+from dnn_based_source_separation_torch.ops.rnn import GRU, LSTM, RNN, SRU, choose_rnn
 from dnn_based_source_separation_tpu.ops import pallas_lstm as jpl
 from dnn_based_source_separation_tpu.ops import rnn as jrnn
 from dnn_based_source_separation_tpu.ops.segment import overlap_add as j_overlap_add
@@ -189,12 +189,11 @@ def test_lstm_dropout_is_eval_only():
 
 
 def test_choose_rnn_ports_lstm_only():
-    # LSTM and GRU are ported; vanilla RNN and SRU still raise.
+    # Every type of the JAX factory is ported: LSTM, GRU, vanilla RNN and SRU; others raise.
     assert isinstance(choose_rnn("lstm", 4, 8, bidirectional=True), LSTM)
     assert isinstance(choose_rnn("gru", 4, 8), GRU)
-    for name in ("rnn", "sru"):
-        with pytest.raises(NotImplementedError, match=name):
-            choose_rnn(name, 4, 8)
+    assert isinstance(choose_rnn("rnn", 4, 8), RNN)
+    assert isinstance(choose_rnn("sru", 4, 8), SRU)
     with pytest.raises(NotImplementedError):
         choose_rnn("transformer", 4, 8)
 

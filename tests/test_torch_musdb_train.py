@@ -447,7 +447,7 @@ def test_cli_trains_one_epoch_and_writes_last_ckpt(corpus, tmp_path, model):
 
 
 @pytest.mark.parametrize("model,flags,slice_", [
-    ("d3net", (), "slice E"), ("conv-tasnet", (), "slice D"), ("cunet", (), "slice E"),
+    ("d3net", (), "slice E"), ("hrnet", (), "slice E"), ("cunet", (), "slice E"),
     ("umx", ("--n_devices", "2"), "slice H")])
 def test_cli_refuses_what_is_not_ported(corpus, tmp_path, model, flags, slice_):
     with pytest.raises(NotImplementedError, match=slice_):

@@ -812,3 +812,33 @@ def test_other_widths_plan_unpadded_as_before(H, forward, backward):
                     wide=_wide(H, F32)) == forward
     assert ls._plan_bwd(4, 2, H, F32, SMS, clusters=_bwd_clusters(H), routes=ls.ROUTES,
                         wide=_wide_bwd(H, F32)) == backward
+
+
+# FurcaNet (egs/wsj0-mix/furcanet/train.sh: six biLSTM layers at H = 128 over every sample)
+# runs few, very long sequences: 4 x 16000 steps in training (B = 4 x 2 s), 8 x 32000 in a
+# B = 8 x 4 s forward, 1 x the request's length in serving. chip_smoke.py phase 15k timed
+# every route and tf32x3 tile there (PERF.md section 6, PR 21, one H100 at 700 W): f32
+# (4, 16000) x 2 with cs on tf32x3 (16, 4) 47.8 ms against (16, 2) 59.3, (32, 4) 69.8, the
+# FMA kernel 92.5 and cuDNN 61.7; its backward alone (16, 4) 63.3 ms against (16, 2) 78.0
+# and FMA 111.7; f32 (8, 32000) x 2 tf32x3 95.6 ms against FMA 185.5; bf16 (8, 32000) x 2
+# mma 56.7 ms against FMA 161.1. The rule already takes the fastest of them: the tensor
+# cores, and of the tiles the fewest waves, then the fewest rows x units a block.
+@pytest.mark.parametrize("B", [1, 4, 8], ids=["request", "train", "B=8"])
+def test_furcanet_long_sequences_take_the_fastest_measured_route(B):
+    assert ls._plan(B, 2, 128, F32, SMS, clusters=CLUSTERS, routes=ls.ROUTES) == (
+        "tf32x3", (16, 4))
+    assert ls._plan(B, 2, 128, BF16, SMS, clusters=CLUSTERS, routes=ls.ROUTES) == ("mma", 16)
+    assert ls._plan_bwd(B, 2, 128, F32, SMS, clusters=CLUSTERS, routes=ls.ROUTES) == (
+        "tf32x3", (16, 4))
+
+
+# MRX (egs/musdb18/mrx/train.sh: three biLSTM layers a resolution at H = 256) runs 16
+# sequences of 1035 frames in training and 1 of 1724 in a 10 s validation forward: the
+# cluster kernels, below WIDE_MIN_BATCH (phase 15k: 2.44 and 1.20 ms against FMA 18.81 and
+# 31.49; the backward 3.98 ms whole against 19.29).
+@pytest.mark.parametrize("B,C", [(1, 16), (16, 8)], ids=["valid", "train"])
+def test_mrx_sequences_take_the_cluster_kernels(B, C):
+    assert ls._plan(B, 2, 256, F32, SMS, clusters=_clusters(256), routes=ls.ROUTES,
+                    wide=_wide(256, F32)) == ("cluster", (1, C))
+    assert ls._plan_bwd(B, 2, 256, F32, SMS, clusters=_clusters(256), routes=ls.ROUTES,
+                        wide=_wide(256, F32))[0] == "cluster"

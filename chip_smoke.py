@@ -12,6 +12,7 @@
     python3 chip_smoke.py --only 13       # phases 1 and 2, then DPTNet (13k: its kernels)
     python3 chip_smoke.py --only 14       # LSTM-TasNet, SepFormer and GALRNet, their kernels first
     python3 chip_smoke.py --only 15       # RNN / SRU, FurcaNet, musdb18's waveform models
+    python3 chip_smoke.py --only 16       # Wavesplit, DANet, ADANet, deep clustering (16k first)
 
 Phases (any failure exits non-zero; nothing is caught and passed):
   1. device: require CUDA, print the card's name and power limit, turn TF32 off;
@@ -259,6 +260,27 @@ Phases (any failure exits non-zero; nothing is caught and passed):
      backward), each against its plain version at the full length, beside the FMA kernel
      forced, cuDNN's nn.LSTM and the bound; fused_mask_decode at stereo Conv-TasNet's and
      Meta-TasNet's decoder widths (B = 1 x 10 s, f32) beside the plain version and einsum.
+  16. Wavesplit and the embedding / attractor family at their recipes' widths (seed-0
+     weights; egs/wsj0-mix/{wavesplit,danet,adanet,deep-clustering}/train.sh): Wavesplit
+     (D 512, 14 speaker layers, 4 x 10 separation layers; no kernel of the port: every count
+     0) B = 8 x 4 s forward in f32 and bf16 on the oracle and the KMeans paths (ms, peak, a
+     profile of each dtype's oracle forward), bf16 vs f32 (oracle SNR >= 25 dB), card vs
+     CPU at B = 1 x 1 s on both paths (the CPU run's initial centroids replayed on the card),
+     a train step against an f64 step at a small depth, the recipe step at B = 4 x 4 s or
+     the largest power-of-two batch that fits (p50, split, peak, said on its line), and
+     cli/train_wsj0mix_wavesplit.py two epochs on wsj0-style IDs (B = 2 x 1 s, the epoch
+     train loss falling); DANet, ADANet and deep clustering (H = 300 biLSTMs, 4, 4 and 2
+     layers) serving a 4 s utterance through models/wrappers.py:SpectrogramSeparator (STFT,
+     KMeans or anchors, iSTFT) in f32 and bf16, DANet and ADANet card vs CPU (the CPU's
+     initial centroids replayed on the card) and deep clustering's embeddings card vs CPU,
+     each model's train step against an f64 step (B = 2 x 0.8 s) and the recipe's B = 64 x
+     0.8 s step (p50, split, peak), cli/train_wsj0mix_spec.py --model danet at its recipe flags
+     (rmsprop) two epochs (the loss falling), its checkpoint through cli/test_wsj0mix.py
+     --spec_kind danet on the card and the CPU within EVAL_TOL_DB; every LSTM launch on the
+     route _plan gives H = 300, the FMA kernels; and (16k) lstm_scan_bidir at H = 300, the
+     training shape (64, 101) x 2 with cs and its backward and a 4 s utterance's (1, 501)
+     x 2 in f32 and bf16, each against its plain version at the full length, the kernel
+     alone and the whole call from CUDA graphs, beside cuDNN's nn.LSTM and the bound.
 
 Each serving, quantizing and evaluation path, and the training path of phase
 8, runs with every launch count set to 0 just before it and read just after
@@ -276,7 +298,8 @@ cluster backward. Phase 13's DPTNet runs and phase 14's runs are held launch by
 launch to their routes (the wide backward at its training sequences; LSTM-TasNet's
 H = 500 on the padded cluster kernels, each launch also in PADDED_LAUNCHES) and then join
 the total, which must have launched every path but the FMA ones, and no FMA kernel at
-all. The last line
+all but phase 16's (H = 300, where _plan keeps the FMA kernels; each held to its route).
+The last line
 is {"ok": true, "device":
 {...}}; the line before it lists the kernels with their launch counts,
 errors, times, bounds and library times: fused_mask_decode six times
@@ -308,7 +331,10 @@ launches of that kernel on that route; and phase 14's rows: fused_mask_decode at
 LSTM-TasNet's, SepFormer's and GALRNet's decoder widths in both dtypes, and the LSTM
 kernels at LSTM-TasNet's (H = 500, padded: the whole call with its pads as `ms`, the
 kernel alone as `kernel_ms`, with phase 14's padded launches) and GALRNet's (H = 128)
-shapes, with phase 14's launches of that kernel on that route. The bf16 fused_mask_decode rows'
+shapes, with phase 14's launches of that kernel on that route; and phase 16k's rows:
+lstm_scan_bidir at H = 300 on the FMA kernel (the whole call as `ms`, the kernel alone as
+`kernel_ms`, cuDNN's nn.LSTM at F = 129 as `library_ms`), with phase 16's launches of that
+kernel on that route. The bf16 fused_mask_decode rows'
 `library_ms` is torch.einsum on bf16 operands, whose output is bf16 (the kernel's is f32).
 """
 from __future__ import annotations
@@ -331,9 +357,10 @@ import numpy as np
 import torch
 
 from dnn_based_source_separation_torch.algorithm.frequency_mask import multichannel_wiener_filter
+from dnn_based_source_separation_torch.algorithm.clustering import KMeans
 from dnn_based_source_separation_torch.bench import (
-    DPRNN, DPTNET, GALRNET, LSTM_TASNET, MUSDB_SAMPLE_RATE, PAPER, PEAK_FLOPS, SEPFORMER, UMX,
-    UMX_STFT,
+    ADANET, DANET, DEEP_CLUSTERING, DPRNN, DPTNET, GALRNET, LSTM_TASNET, MUSDB_SAMPLE_RATE, PAPER,
+    PEAK_FLOPS, SEPFORMER, SPEC_STFT, UMX, UMX_STFT, WAVESPLIT,
 )
 from dnn_based_source_separation_torch.bench import main as bench_main
 from dnn_based_source_separation_torch.cli import separate as cli
@@ -341,15 +368,21 @@ from dnn_based_source_separation_torch.cli import test_musdb18 as musdb_cli
 from dnn_based_source_separation_torch.cli import test_wsj0mix as test_cli
 from dnn_based_source_separation_torch.cli import train_musdb18 as musdb_train_cli
 from dnn_based_source_separation_torch.cli import train_wsj0mix as train_cli
-from dnn_based_source_separation_torch.criterion import NegSISDR, PIT1d
+from dnn_based_source_separation_torch.cli import train_wsj0mix_spec as spec_train_cli
+from dnn_based_source_separation_torch.cli import train_wsj0mix_wavesplit as wavesplit_train_cli
+from dnn_based_source_separation_torch.criterion import (
+    AffinityLoss, L2Loss, NegSDR, NegSISDR, PIT1d, PIT2d,
+)
+from dnn_based_source_separation_torch.data import wsj0mix as wsj0mix_data
 from dnn_based_source_separation_torch.data.audio_io import read_wav, write_wav
 from dnn_based_source_separation_torch.data.musdb18 import WaveTestDataset as MusdbTestDataset
 from dnn_based_source_separation_torch.data.synthetic import (
     _speaker_bank, synth_pseudo_speech, write_musdb_quality_corpus, write_quality_corpus,
 )
 from dnn_based_source_separation_torch.models import (
-    ConvTasNet, CrossNetOpenUnmix, DPRNNTasNet, DPTNet, FurcaNet, GALRNet, LSTMTasNet,
-    ParallelOpenUnmix, SepFormer, SpectrogramMaskingWrapper, WaveNet,
+    ADANet, ConvTasNet, CrossNetOpenUnmix, DANet, DeepEmbedding, DPRNNTasNet, DPTNet, FurcaNet,
+    GALRNet, LSTMTasNet, ParallelOpenUnmix, SepFormer, SpectrogramMaskingWrapper,
+    SpectrogramSeparator, WaveNet, WaveSplit,
 )
 from dnn_based_source_separation_torch.models.base import load_model, save_model
 from dnn_based_source_separation_torch.models.longform import chunk_count, separate_longform
@@ -362,6 +395,7 @@ from dnn_based_source_separation_torch.ops import mask_decode as md
 from dnn_based_source_separation_torch.ops import quantize as q8
 from dnn_based_source_separation_torch.ops.attention import MultiheadAttention
 from dnn_based_source_separation_torch.ops.rnn import LSTM, set_dropout_generator
+from dnn_based_source_separation_torch.ops.stft import stft
 from dnn_based_source_separation_torch.train import (
     Evaluater, Trainer, make_optimizer, make_train_step, make_warmup_optimizer,
 )
@@ -1292,6 +1326,7 @@ def phase_cluster(card=None):
         counts = ls._cluster_counts(H, "cuda")
         for dtype in (torch.float32, torch.bfloat16):
             inputs = lstm_chains(B, T, H, chains, dtype, seed=B + T + H)
+            refs = [ls.lstm_forward_reference(xw, w) for xw, w in inputs]  # every check's
             path, tile = plan(ls, B, chains, H, dtype)
             what = f"{name} {label} (B={B}, T={T}, H={H}) {str(dtype)[6:]}"
             if label in TIMED_CLUSTER_CASES:  # the plan's rule: "wide" from WIDE_MIN_BATCH up
@@ -1303,7 +1338,7 @@ def phase_cluster(card=None):
                                                     inputs[1][1])) if chains == 2 else
                         (lambda: (ls.lstm_scan(*inputs[0]),)))
                 got = forward_path(ls, name, call, "cluster")
-                err, limit = forward_error(inputs, got, None, dtype)
+                err, limit = forward_error_of(refs, got, None, dtype)
                 check(err <= limit, f"{what} through the wrapper: {err} > {limit}")
             sizes = [c for c in ls._cluster_sizes(H, dtype) if counts.get(c, 0) >= 1]
             check(sizes, f"the card holds no cluster the kernel takes at H={H}: {counts}")
@@ -1312,12 +1347,12 @@ def phase_cluster(card=None):
                 for with_cs in (False, True):
                     hs, cs, launch = ls._staged_forward(inputs, with_cs, "cluster", c)
                     on_path(ls.PATH_LAUNCHES[name], name, launch, "cluster")
-                    err, limit = forward_error(inputs, hs, cs if with_cs else None, dtype)
+                    err, limit = forward_error_of(refs, hs, cs if with_cs else None, dtype)
                     worst = err
                     for _ in range(REPEATS):  # a race shows only in some launches
                         launch()
-                        worst = max(worst, forward_error(inputs, hs, cs if with_cs else None,
-                                                         dtype)[0])
+                        worst = max(worst, forward_error_of(refs, hs, cs if with_cs else None,
+                                                            dtype)[0])
                     errs[(c, with_cs)] = err
                     ok = worst <= limit
                     log(f"  {what} cluster (C={c}{', plan' if tile == (1, c) else ''}"
@@ -1332,7 +1367,7 @@ def phase_cluster(card=None):
             C, with_cs = plan(ls, B, chains, H, dtype, "cluster")[1][1], TIMED_CLUSTER_CASES[label]
             fma_hs, fma_cs, fma = ls._staged_forward(inputs, with_cs, "fma")
             on_path(ls.PATH_LAUNCHES[name], name, fma, "fma")
-            fma_err, _ = forward_error(inputs, fma_hs, fma_cs if with_cs else None, dtype)
+            fma_err, _ = forward_error_of(refs, fma_hs, fma_cs if with_cs else None, dtype)
             _, _, kernel = ls._staged_forward(inputs, with_cs, "cluster", C)
             _, floor = ls._staged_cluster_floor(inputs, C)
             turns = (graph_ms(fma, 1), graph_ms(kernel, CLUSTER_REPEATS),
@@ -2511,6 +2546,46 @@ def evented_step(loss_of, optimizer):
     return step
 
 
+def timed_steps(loss_of, optimizer, iters=2):
+    """1 + iters steps: (p50 of the timed ones on the host clock, the forward / backward /
+    optimizer split of their median, CUDA events)."""
+    step = evented_step(loss_of, optimizer)
+    splits, walls = [], []
+    for i in range(1 + iters):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        start = time.perf_counter()
+        step(events)
+        torch.cuda.synchronize()
+        if i:
+            walls.append((time.perf_counter() - start) * 1e3)
+            splits.append([events[j].elapsed_time(events[j + 1]) for j in range(3)])
+    return float(np.median(walls)), [float(np.median([s[j] for s in splits]))
+                                     for j in range(3)]
+
+
+def fitting_step(tag, optimizer, batch_of, loss_of, B, seconds, iters=2):
+    """timed_steps at batch B or, where that runs out of device memory, at the largest
+    power-of-two batch below it that fits (the widths kept): batch_of(B) makes the batch,
+    loss_of(batch) the loss. -> (B, p50 ms, [forward, backward, optimizer] ms, peak MiB)."""
+    while True:
+        try:
+            batch = batch_of(B)
+            torch.cuda.reset_peak_memory_stats()
+            p50, split = timed_steps(lambda: loss_of(batch), optimizer, iters)
+            break
+        except torch.cuda.OutOfMemoryError:
+            pass  # freed below, once the exception (and the frames it holds) is gone
+        batch = None
+        optimizer.zero_grad()
+        torch.cuda.empty_cache()
+        check(B > 1, f"{tag}: one {seconds:g} s example does not fit the card")
+        log(f"  {tag}: the recipe step at B={B} x {seconds:g} s ran out of device memory "
+            f"({torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB allocated at the peak); "
+            f"B={B // 2}")
+        B //= 2
+    return B, p50, split, torch.cuda.max_memory_allocated() / 2 ** 20
+
+
 def device_times(prof) -> dict:
     """A torch.profiler run's device time by kernel name, ms."""
     from torch.autograd import DeviceType
@@ -2680,11 +2755,11 @@ def write_test_list(tmp):
     return root, lists
 
 
-def evaluate(root, list_path, ckpt, device):
+def evaluate(root, list_path, ckpt, device, flags=()):
     """cli/test_wsj0mix.main on one utterance -> its summary (its CSV lines kept off the log)."""
     with contextlib.redirect_stdout(io.StringIO()):
         return test_cli.main(["--test_wav_root", root, "--test_list_path", list_path,
-                              "--model_path", ckpt, "--device", device])
+                              "--model_path", ckpt, "--device", device, *flags])
 
 
 def phase_evaluate(tmp, checkpoints, card):
@@ -2728,6 +2803,9 @@ MUSDB_TRACK_SECONDS = 20.0  # one test track of two 10 s chunks
 MUSDB_CHUNK_SECONDS = 10.0  # the CLI's default --duration: S = 431 frames a chunk
 MUSDB_TRACKS = 1  # BSS-Eval v4's 512-tap solves on the host take about 23 s a track
 MUSDB_DB_TOL = 0.05  # card vs CPU, each median of each stem
+# BSS-Eval v4's 512-tap solves took 27 s of each 30 s CLI run on the host; the card and the
+# CPU runs are held to each other at 64 taps, as phase 12's served checkpoints are.
+MUSDB_FILT_LEN = 64
 WIENER_TOL = 1e-3  # the EM alone, card vs CPU, relative to max|CPU|
 UMX_BIDIR_LAYERS = UMX["num_layers"] * 4  # one bidirectional layer a stem, per chunk
 # The recurrences at UMX's serving shapes: a 10 s chunk at B = 1; H = 512 // 2 per
@@ -2772,7 +2850,8 @@ def run_musdb_cli(root, ckpt, device):
     """cli/test_musdb18.py on `device` -> (medians table, per-track stats, float stems).
     The CLI's own lines go to the log as they come (CPU runs share the log from threads)."""
     argv = ["--musdb18_root", root, "--model_path", ckpt, "--device", device,
-            "--sample_rate", str(MUSDB_SAMPLE_RATE), "--duration", str(MUSDB_CHUNK_SECONDS)]
+            "--sample_rate", str(MUSDB_SAMPLE_RATE), "--duration", str(MUSDB_CHUNK_SECONDS),
+            "--filt_len", str(MUSDB_FILT_LEN)]
     table, stats = musdb_cli.run(argv)
     return table, stats, RecordingEvaluater.stems.pop(threading.get_ident())
 
@@ -2975,7 +3054,7 @@ def phase_musdb(card=None):
 # 1487, hidden 512, 3 layers, dropout 0.4, four stems, B = 16 x 6 s, Adam at 1e-3).
 MUSDB_TRAIN_SECONDS = 6.0  # --duration: 259 STFT frames
 MUSDB_TRAIN_BATCH = 16  # --batch_size
-MUSDB_PARITY_BATCH = 2  # the card step held to an f64 CPU step (the f64 step's cost)
+MUSDB_PARITY_BATCH = 1  # the card step held to an f64 CPU step (the f64 step's cost)
 MUSDB_TRAIN_STEPS = 6  # steps a CLI epoch; two epochs a model
 MUSDB_TRAIN_TRACK_SECONDS = 20.0  # corpus tracks: four train, one valid, one test
 MUSDB_NULL_GRAD = 1e-4  # bias_in's gradient is 0 but for rounding (train-mode BatchNorm)
@@ -3098,9 +3177,12 @@ def musdb_train_through_cli(root, kind, tmp, card):
           f"{kind}: the train loss did not fall over {steps} steps: {trainer.train_loss}")
     last = os.path.join(exp, "model", "last.ckpt")
     reset_counts()
+    # BSS-Eval v4's 512-tap solves take about 13 s on the host whatever the track's length;
+    # MUSDB_FILT_LEN taps keep the CLI's evaluation (its medians only logged) at a fraction.
     table, _ = musdb_cli.run(["--musdb18_root", root, "--model_path", last, "--device", "cuda",
                               "--sample_rate", str(MUSDB_SAMPLE_RATE), "--duration",
-                              str(MUSDB_CHUNK_SECONDS), "--max_duration", str(MUSDB_CHUNK_SECONDS)])
+                              str(MUSDB_CHUNK_SECONDS), "--max_duration", str(MUSDB_CHUNK_SECONDS),
+                              "--filt_len", str(MUSDB_FILT_LEN)])
     served = all_counts()
     check_musdb_launches(served, f"{kind}: serving the trained checkpoint", 1, 0, 1)
     log(f"  the trained {kind.upper()} last.ckpt served through cli/test_musdb18.py (one 10 s "
@@ -3405,14 +3487,16 @@ def forward_profile(model, dtype, what, per_forward, decode, card, decodes=1):
                 lstm_span_ms=lstm_spans, attention_ms=attention, decode_ms=decoding), launches
 
 
-def lstm_kernel_timing(model, label, B, T, H, chains, dtype, training, features):
+def lstm_kernel_timing(model, label, B, T, H, chains, dtype, training, features,
+                       tiles=False):
     """One LSTM forward kernel at a model's shape on its planned route against the plain
     version (hs, and cs when `training`), REPEATS more launches checked; timed alone from
     CUDA graphs, with the FMA kernel forced and checked in the same run where the plan
     takes another route (FMA, route, route, FMA), beside the plain version, cuDNN's
     nn.LSTM (the model's input width `features`) and the bound. A padded route (H = 500 on
     the cluster kernel at 512) is held to the FMA kernel's hs (and cs) too, and timed whole,
-    its pads and slices included, as `ms`, the kernel alone as `kernel_ms`."""
+    its pads and slices included, as `ms`, the kernel alone as `kernel_ms`. With `tiles`,
+    every tf32x3 tile too, held to the same plain run (tf32_tiles)."""
     name = "lstm_scan_bidir" if chains == 2 else "lstm_scan"
     inputs = lstm_chains(B, T, H, chains, dtype, seed=B + T)
     path, tile = plan(ls, B, chains, H, dtype)
@@ -3443,6 +3527,8 @@ def lstm_kernel_timing(model, label, B, T, H, chains, dtype, training, features)
         timing["cluster"] = tile[1]
     elif path == "wide":
         timing["tile"] = list(tile)
+    if tiles:
+        timing["tiles_ms"] = tf32_tiles(inputs, training, dtype, refs)
     if path == "fma":  # a long launch: fewer timed replays
         timing["ms"] = graph_ms(launch, repeats, iters=5)
     else:
@@ -3502,25 +3588,30 @@ def autograd_case(inputs, hs, cs):
     return kname, grads_of, [(xw, w, h, c, g) for (xw, w), h, c, g in zip(inputs, hs, cs, grads)]
 
 
-def autograd_backward(label, inputs, hs, cs, timed, features=UMX["hidden_channels"]):
+def autograd_backward(label, inputs, hs, cs, timed, features=UMX["hidden_channels"],
+                      tiles=False):
     """autograd_case's backward on its planned route against lstm_scan_bwd_reference
     (check_backward; timed whole and alone beside the FMA backward if `timed`, the plain
     version's time that of computing the reference; cuDNN's backward at `features`, none
-    if None) -> check_backward's timing."""
+    if None; with `tiles`, every split-TF32 tile held to the same reference,
+    tf32_bwd_tiles) -> check_backward's timing."""
     kname, grads_of, plain_chains = autograd_case(inputs, hs, cs)
     ref, plain_ms = timed_once(
         lambda: [d for c in plain_chains for d in ls.lstm_scan_bwd_reference(*c)])
-    return check_backward(ls, kname, label, grads_of, plain_chains, ref, plain_ms,
-                          timed=timed, features=features)
+    timing = check_backward(ls, kname, label, grads_of, plain_chains, ref, plain_ms,
+                            timed=timed, features=features)
+    if tiles:
+        timing["tiles_kernel_ms"] = tf32_bwd_tiles(plain_chains, ref)
+    return timing
 
 
-def lstm_backward_timing(model, label, inputs, hs, cs, features):
+def lstm_backward_timing(model, label, inputs, hs, cs, features, tiles=False):
     """The backward at a model's training shape under autograd on its planned route against
     lstm_scan_bwd_reference; timed whole and alone beside the FMA backward
     (autograd_backward), or, where the plan takes the FMA backward itself, each timed once
     (median of 5); with cuDNN's nn.LSTM backward at the model's input width `features` and
     the route's bounds (the wide and tensor-core routes' recurrent product as TF32
-    products)."""
+    products); `tiles` goes to autograd_backward."""
     B, T, _ = inputs[0][0].shape
     H, dtype = inputs[0][1].shape[0], inputs[0][0].dtype
     chains = len(inputs)
@@ -3529,7 +3620,8 @@ def lstm_backward_timing(model, label, inputs, hs, cs, features):
     if path == "fma":
         timing = fma_backward_timing(what, inputs, hs, cs)
     else:
-        timing = autograd_backward(what, inputs, hs, cs, timed=True, features=None)
+        timing = autograd_backward(what, inputs, hs, cs, timed=True, features=None,
+                                   tiles=tiles)
     timing["path"] = path
     if ls.launch_width(H, path) != H:
         timing["padded_width"] = ls.launch_width(H, path)
@@ -4266,22 +4358,19 @@ def phase_rest_kernels(card=None):
     for model, label, (B, T, H, chains), dtypes, training, features in REST_SHAPES:
         name = "lstm_scan_bidir" if chains == 2 else "lstm_scan"
         for dtype in dtypes:
-            timing, inputs, hs, cs = lstm_kernel_timing(model, label, B, T, H, chains, dtype,
-                                                        training, features)
+            # FurcaNet's tiles at its training shape only: one tile a chain at both shapes
+            timing, inputs, hs, cs = lstm_kernel_timing(
+                model, label, B, T, H, chains, dtype, training, features,
+                tiles=model == "FurcaNet" and training)
             result[(name, model, label, dtype)] = timing
-            if model == "FurcaNet":
-                if dtype == torch.float32:  # bf16 cuDNN is 15x slower than the kernel here
-                    timing["library_f256_ms"] = library_lstm_ms(B, T, H, chains, dtype, 256,
-                                                                iters=10)
-                    log(f"    cuDNN nn.LSTM at F=256 (its later layers) "
-                        f"{timing['library_f256_ms']:.4f} ms")
-                if training:  # one tile a chain at both shapes: the training one stands for both
-                    timing["tiles_ms"] = tf32_tiles(inputs, training, dtype)
+            if model == "FurcaNet" and dtype == torch.float32:  # bf16 cuDNN: 15x the kernel
+                timing["library_f256_ms"] = library_lstm_ms(B, T, H, chains, dtype, 256,
+                                                            iters=10)
+                log(f"    cuDNN nn.LSTM at F=256 (its later layers) "
+                    f"{timing['library_f256_ms']:.4f} ms")
             if training:
-                timing = lstm_backward_timing(model, label, inputs, hs, cs, features)
-                if model == "FurcaNet":
-                    timing["tiles_kernel_ms"] = tf32_bwd_tiles(inputs, hs, cs)
-                result[(f"{name}_bwd", model, label, dtype)] = timing
+                result[(f"{name}_bwd", model, label, dtype)] = lstm_backward_timing(
+                    model, label, inputs, hs, cs, features, tiles=model == "FurcaNet")
             del inputs, hs, cs
     names = {"conv-tasnet": "stereo Conv-TasNet", "meta-tasnet": "Meta-TasNet"}
     decodes = {kind: decode_case(shape, strided, torch.float32, f"{names[kind]} decoder shape")
@@ -4289,12 +4378,11 @@ def phase_rest_kernels(card=None):
     return dict(recurrences=result, decodes=decodes)
 
 
-def tf32_tiles(inputs, with_cs, dtype):
+def tf32_tiles(inputs, with_cs, dtype, refs):
     """Every tf32x3 tile (M, C) the card holds at the shape of `inputs`: its hs (and cs)
-    against the plain version, the kernel alone from a CUDA graph -> {"MxC": ms}."""
+    against the plain version's `refs`, the kernel alone from a CUDA graph -> {"MxC": ms}."""
     B, T, _ = inputs[0][0].shape
     H = inputs[0][1].shape[0]
-    refs = [ls.lstm_forward_reference(xw, w) for xw, w in inputs]
     clusters = ls._tf32_clusters(H, "cuda")
     out = {}
     for c, n in sorted(clusters.items()):
@@ -4312,14 +4400,13 @@ def tf32_tiles(inputs, with_cs, dtype):
     return out
 
 
-def tf32_bwd_tiles(inputs, hs, cs):
-    """Every split-TF32 backward tile the card holds at the shape of `inputs`, the kernel
-    alone from a CUDA graph, each held to lstm_scan_bwd_reference -> {"MxC": ms}."""
-    _, _, plain_chains = autograd_case(inputs, hs, cs)
-    B, T, _ = inputs[0][0].shape
-    H, dtype = inputs[0][1].shape[0], inputs[0][0].dtype
-    refs = [ls.lstm_scan_bwd_reference(*c) for c in plain_chains]
-    name = "lstm_scan_bidir_bwd" if len(inputs) == 2 else "lstm_scan_bwd"
+def tf32_bwd_tiles(plain_chains, ref):
+    """Every split-TF32 backward tile the card holds at the shape of autograd_case's
+    `plain_chains`, the kernel alone from a CUDA graph, each held to
+    lstm_scan_bwd_reference's `ref` (every chain's gradients in order) -> {"MxC": ms}."""
+    B, T, _ = plain_chains[0][0].shape
+    H, dtype = plain_chains[0][1].shape[0], plain_chains[0][0].dtype
+    name = "lstm_scan_bidir_bwd" if len(plain_chains) == 2 else "lstm_scan_bwd"
     out = {}
     for c, n in sorted(ls._tf32_bwd_clusters(H, "cuda").items()):
         for m in ls.BWD_TILE_ROWS:
@@ -4327,12 +4414,12 @@ def tf32_bwd_tiles(inputs, hs, cs):
                 continue
             staged, launch = ls._staged_backward(plain_chains, None, tile=(m, c))
             launch()
-            errs = staged_bwd_errors(name, staged, plain_chains, refs, dtype)
+            errs = staged_bwd_errors(name, staged, plain_chains, [ref], dtype)
             check(all(x <= lim for x, lim in errs), f"backward tile ({m}, {c}): {errs}")
             out[f"{m}x{c}"] = graph_ms(launch, 1)
     log(f"    {name} kernel alone by tile (M x C): "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in out.items())
-        + f"; the plan takes {tile_label(plan_bwd(ls, B, len(inputs), H, dtype)[1])}")
+        + f"; the plan takes {tile_label(plan_bwd(ls, B, len(plain_chains), H, dtype)[1])}")
     return out
 
 
@@ -4508,38 +4595,13 @@ def wave_recipe_step(kind, card, iters=3):
     audio-s/s and peak allocation; the validation forward (B = 1 x 10 s) ms. -> (batch,
     numbers)."""
     args = wave_args(kind)
-    B, seconds = args.batch_size, args.duration
+    seconds = args.duration
     model, criterion = wave_model(kind)
     optimizer = make_optimizer("adam", args.lr, args.max_norm, params=model.parameters())
-    while True:
-        try:
-            mixture, sources = wave_batch(B, seconds, "cuda")
-            model.train()
-            step = evented_step(lambda: criterion(model(mixture), sources), optimizer)
-            torch.cuda.reset_peak_memory_stats()
-            splits, walls = [], []
-            for i in range(1 + iters):
-                events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-                start = time.perf_counter()
-                step(events)
-                torch.cuda.synchronize()
-                if i:
-                    walls.append((time.perf_counter() - start) * 1e3)
-                    splits.append([events[j].elapsed_time(events[j + 1]) for j in range(3)])
-            break
-        except torch.cuda.OutOfMemoryError:
-            pass  # freed below, once the exception (and the frames it holds) is gone
-        mixture = sources = step = None
-        optimizer.zero_grad()
-        torch.cuda.empty_cache()
-        check(B > 1, f"{kind}: one {seconds:g} s example does not fit the card")
-        log(f"  {kind}: the recipe step at B={B} x {seconds:g} s ran out of device memory "
-            f"({torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB allocated at the peak); "
-            f"B={B // 2}")
-        B //= 2
-    peak = torch.cuda.max_memory_allocated() / 2 ** 20
-    fwd, bwd, opt = (float(np.median([s[j] for s in splits])) for j in range(3))
-    p50 = float(np.median(walls))
+    model.train()
+    B, p50, (fwd, bwd, opt), peak = fitting_step(
+        kind, optimizer, lambda B: wave_batch(B, seconds, "cuda"),
+        lambda batch: criterion(model(batch[0]), batch[1]), args.batch_size, seconds, iters)
     x = wave_batch(1, WAVE_SECONDS, "cuda")[0]
     model.eval()
     with torch.inference_mode():
@@ -4549,7 +4611,7 @@ def wave_recipe_step(kind, card, iters=3):
         f"{opt:.3f} ms, CUDA events), {B * seconds / (p50 / 1e3):.2f} audio-s/s, peak "
         f"{peak:.1f} MiB; the B=1 x {WAVE_SECONDS:g} s validation forward {forward:.3f} ms "
         f"(median of 3) [{card}]")
-    del model, optimizer, mixture, sources
+    del model, optimizer
     torch.cuda.empty_cache()
     return B, dict(p50_ms=p50, forward_ms=fwd, backward_ms=bwd, optimizer_ms=opt,
                    peak_mib=peak, valid_forward_ms=forward, batch=B)
@@ -4703,6 +4765,538 @@ def phase_rest(card=None, tmp=None):
     return dict(launches=total, kernels=kernels, numbers=numbers)
 
 
+# Phase 16: Wavesplit and the embedding / attractor family (DANet, ADANet, deep clustering)
+# at their recipes' widths (egs/wsj0-mix/{wavesplit,danet,adanet,deep-clustering}/train.sh).
+WAVESPLIT_STEP = (4, 4.0)  # the recipe step's B x seconds: smaller where it does not fit
+WAVESPLIT_DEPTH = dict(spk_num_layers=2, sep_num_blocks=1, sep_num_layers=2)  # f64 parity
+WAVESPLIT_CLI = ["-D", "512", "--spk_num_layers", "14", "--sep_num_blocks", "4",
+                 "--sep_num_layers", "10", "--reconst_criterion", "sdr", "--spk_criterion",
+                 "distance", "--batch_size", "2", "--duration", "1", "--valid_duration", "2"]
+SPEC16 = {"danet": (DANet, DANET, "danet"), "adanet": (ADANet, ADANET, "adanet"),
+          "deep-clustering": (DeepEmbedding, DEEP_CLUSTERING, "embedding")}
+SPEC_H = DANET["hidden_channels"]  # 300: the FMA kernels (ops/lstm_scan.py:_plan)
+SPEC_BATCH, SPEC_SECONDS = 64, 0.8  # the recipes' train batch: 101 frames of hop 64
+SPEC_FRAMES = int(SPEC_SECONDS * SAMPLE_RATE) // SPEC_STFT["hop_length"] + 1
+SPEC_SERVE_FRAMES = 4 * SAMPLE_RATE // SPEC_STFT["hop_length"] + 1  # a 4 s utterance: 501
+# 16k: (label, (B, T, chains), dtypes, training); the first layer's input is F = 129 bins.
+SPEC_SHAPES = [
+    ("train", (SPEC_BATCH, SPEC_FRAMES, 2), (torch.float32,), True),
+    ("serve", (1, SPEC_SERVE_FRAMES, 2), (torch.float32, torch.bfloat16), False),
+]
+DANET_CLI = ["--model", "danet", "--n_fft", "256", "--hop_length", "64", "--ideal_mask", "ibm",
+             "--threshold", "60", "-K", "20", "-H", "300", "-B", "4", "--duration", "0.8",
+             "--criterion", "se", "--optimizer", "rmsprop", "--lr", "1e-4", "--batch_size",
+             "64"]
+SPEC_EVAL_FLAGS = ["--spec_kind", "danet", "--n_fft", "256", "--hop_length", "64"]
+
+
+def spec_layers(tag) -> int:
+    config = SPEC16[tag][1]
+    return config.get("num_blocks", config.get("num_layers"))
+
+
+def spec_routes(tag, B, T, dtype, backward=False):
+    """One forward's (and its backward's) recurrence launches of a spectrogram model over B
+    sequences of T frames: a biLSTM layer each, on the route _plan (_plan_bwd) gives; at
+    H = 300 that is the FMA kernel."""
+    routes = {f"lstm_scan_bidir/{plan(ls, B, 2, SPEC_H, dtype)[0]}": spec_layers(tag)}
+    if backward:
+        routes[f"lstm_scan_bidir_bwd/{plan_bwd(ls, B, 2, SPEC_H, dtype)[0]}"] = spec_layers(tag)
+    return routes
+
+
+def spec_model(tag, device="cuda", **over):
+    cls, config, _ = SPEC16[tag]
+    return cls(**dict(config, **over), generator=torch.Generator().manual_seed(0),
+               device=device)
+
+
+def spec_batch(B, seconds, device, seed=13):
+    """IdealMaskSpectrogramTrainDataset's items (data/wsj0mix.py:ideal_mask_item) of B
+    noise pairs at the recipes' flags (n_fft 256, hop 64, Hann, ibm, 60 dB), stacked:
+    (|mixture|, |sources|, ideal binary mask, threshold weight)."""
+    rng = np.random.default_rng(seed)
+    sources = 0.1 * rng.standard_normal((B, 2, int(seconds * SAMPLE_RATE))).astype(np.float32)
+    window = wsj0mix_data.np_window(256)
+
+    def spec(x):
+        return wsj0mix_data._np_stft(x, 256, 64, window)
+
+    items = [wsj0mix_data.ideal_mask_item(spec(s.sum(axis=0, keepdims=True)), spec(s), "ibm",
+                                          60.0) for s in sources]
+    return tuple(torch.from_numpy(np.stack(a)).to(device) for a in zip(*items))
+
+
+def spec_loss(tag, model, batch):
+    """The train CLI's loss of `tag` on one batch (PIT over L2 for DANet with the oracle
+    assignment and for ADANet; the affinity loss for deep clustering)."""
+    mix, src, mask, weight = batch
+    if tag == "deep-clustering":
+        emb = model(mix)
+        B, F, T, D = emb.shape
+        return AffinityLoss()(emb.reshape(B, F * T, D), mask.permute(0, 2, 3, 1).reshape(
+            B, F * T, 2), binary_mask=weight.reshape(B, F * T))
+    est = model(mix, mask, weight) if tag == "danet" else model(mix, weight, 2)
+    return PIT2d(L2Loss(), n_sources=2)(est, src)[0]
+
+
+def grads_of_loss(model, loss_of):
+    """(loss, every gradient) of one backward of loss_of()."""
+    model.zero_grad()
+    loss = loss_of()
+    loss.backward()
+    return float(loss.detach()), {n: p.grad for n, p in model.named_parameters()
+                                  if p.requires_grad}
+
+
+def phase_spec_kernels(card=None):
+    """Phase 16k: lstm_scan_bidir at H = 300, the recipes' training shape (64, 101) x 2 with
+    cs and its backward, and a 4 s utterance's (1, 501) x 2 in f32 and bf16, on the route
+    _plan gives (the FMA kernel), against the plain version at the full length; the
+    kernel alone from a CUDA graph and the whole call, beside the plain version, cuDNN's
+    nn.LSTM with its input projection (F = 129) and the bound. -> {(name, label, dtype):
+    timing}."""
+    card = card or card_line()
+    log("== phase 16k: lstm_scan_bidir at H = 300 (DANet, ADANet, deep clustering) vs plain "
+        f"on the card (CUDA graphs, CUDA events) [{card}]")
+    result = {}
+    F = DANET["n_bins"]
+    for label, (B, T, chains), dtypes, training in SPEC_SHAPES:
+        for dtype in dtypes:
+            timing, inputs, hs, cs = lstm_kernel_timing("DANet", label, B, T, SPEC_H, chains,
+                                                        dtype, training, F)
+            if timing["path"] == "fma":  # the whole call beside the kernel alone
+                timing["kernel_ms"] = timing["ms"]
+                timing["ms"] = graph_ms(lambda: ls._forward_cuda(inputs, training), 1, iters=5)
+                log(f"    whole call {timing['ms']:.4f} ms, kernel alone "
+                    f"{timing['kernel_ms']:.4f} ms")
+            result[("lstm_scan_bidir", label, dtype)] = timing
+            if training:
+                result[("lstm_scan_bidir_bwd", label, dtype)] = lstm_backward_timing(
+                    "DANet", label, inputs, hs, cs, F)
+            del inputs, hs, cs
+    return result
+
+
+def wavesplit_model(device="cuda", **depth):
+    return scramble_norms(WaveSplit(**dict(WAVESPLIT, **depth),
+                                    generator=torch.Generator().manual_seed(0),
+                                    device=device))
+
+
+def oracle_order(B, T, device, seed=3):
+    """A speaker order for every sample: (B, T, 2), [0, 1] or [1, 0]."""
+    first = np.random.default_rng(seed).integers(0, 2, (B, T, 1))
+    return torch.from_numpy(np.concatenate([first, 1 - first], axis=-1)).to(device)
+
+
+def wavesplit_loss(model, mixture, sources, spk_idx):
+    """WaveSplitTrainer's loss: every layer's negative SDR plus the mean speaker loss."""
+    est_all, spk_loss = model.forward_train(mixture, spk_idx)
+    return NegSDR()(est_all, sources[:, None]) + spk_loss.mean()
+
+
+def wavesplit_forwards(card):
+    """The B = 8 x 4 s forward, f32 and bf16, on the oracle and the KMeans paths (no kernel
+    of the port: every count 0), ms (median of 3) and peak; bf16 vs f32 SNR."""
+    log("== phase 16: Wavesplit (recipe: D 512, 14 speaker layers, 4 x 10 separation "
+        "layers) B=8 x 4 s forward, f32 and bf16, oracle and KMeans paths")
+    B, T = 8, 4 * SAMPLE_RATE
+    model = wavesplit_model().eval()
+    x, order = train_batch(B, 4.0, "cuda")[0], oracle_order(B, T, "cuda")
+    numbers, outs = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model.to(dtype)
+        xin = x.to(dtype)
+        for path in ("oracle", "kmeans"):
+            def call(path=path):
+                return model(xin, order) if path == "oracle" else model(xin)
+            reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            with torch.inference_mode():
+                out = call()
+                ms = median_ms(call, warmup=0, iters=2)
+            torch.cuda.synchronize()
+            check_dptnet_launches(all_counts(), {}, f"wavesplit {path} {dtype}: the forwards")
+            check(out.shape == (B, 2, T) and torch.isfinite(out).all(),
+                  f"wavesplit {path} {dtype}: {tuple(out.shape)}")
+            peak = torch.cuda.max_memory_allocated() / 2 ** 20
+            numbers[(path, str(dtype)[6:])] = dict(ms=ms, peak_mib=peak)
+            outs[(path, dtype)] = out.float()
+            log(f"  {str(dtype)[6:]} {path}: {ms:.3f} ms a forward (median of 2), "
+                f"{B * 4.0 / (ms / 1e3):.1f} audio-s/s, peak {peak:.1f} MiB; no kernel "
+                f"launched [{card}]")
+        numbers[("profile", str(dtype)[6:])] = wavesplit_profile(model, xin, order, dtype, card)
+    for path in ("oracle", "kmeans"):
+        f32, bf16 = outs[(path, torch.float32)], outs[(path, torch.bfloat16)]
+        snr = float(10 * torch.log10(f32.square().sum() / (bf16 - f32).square().sum()))
+        numbers[(path, "bf16_snr_db")] = snr
+        log(f"  bf16 vs f32 ({path}): SNR {snr:.2f} dB"
+            + (f" (limit {SNR_LIMIT_DB:g})" if path == "oracle" else
+               " (informational: bf16 KMeans clusters bf16 vectors)"))
+        if path == "oracle":
+            check(snr >= SNR_LIMIT_DB, f"wavesplit bf16 SNR {snr:.2f} dB < {SNR_LIMIT_DB}")
+    del model, outs
+    torch.cuda.empty_cache()
+    return numbers
+
+
+def wavesplit_profile(model, x, order, dtype, card):
+    """One oracle-path forward under torch.profiler: wall ms, device busy ms and idle share,
+    the device time of the depthwise convolutions, the products, the norms' and FiLM's
+    elementwise kernels and reductions, and the six longest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        model(x, order)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start = time.perf_counter()
+            model(x, order)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - start) * 1e3
+    times = device_times(prof)
+    busy = sum(times.values())
+    kinds = {"conv": 0.0, "gemm": 0.0, "reduce": 0.0, "elementwise": 0.0, "other": 0.0}
+    for name, ms in times.items():
+        low = name.lower()
+        kind = ("conv" if "conv" in low or "depthwise" in low else
+                "gemm" if "gemm" in low else
+                "reduce" if "reduce" in low else "elementwise" if "elementwise" in low else
+                "other")
+        kinds[kind] += ms
+    top = sorted(times.items(), key=lambda kv: -kv[1])[:6]
+    log(f"  profile of one {str(dtype)[6:]} oracle forward: wall {wall:.3f} ms, device busy "
+        f"{busy:.3f} ms, idle share {max(0.0, 1 - busy / wall):.1%}; by kind "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in kinds.items()) + f" [{card}]")
+    log("    top device time: " + ", ".join(f"{k[:56]} {t:.3f} ms" for k, t in top))
+    return dict(wall_ms=wall, busy_ms=busy, idle_share=max(0.0, 1 - busy / wall), **kinds)
+
+
+@contextlib.contextmanager
+def kmeans_draws(drawn, replay=False):
+    """Within it every KMeans' initial centroids are recorded into the list `drawn` as the
+    port draws them or, with `replay`, taken from it in order onto the data's device: the
+    card and the CPU start their clustering from the same centroids (kmeans++ draws from
+    the distances, which differ in their last bits)."""
+    draw, queue = KMeans._init, iter(list(drawn))
+
+    def init(self, data):
+        if replay:
+            return next(queue).to(data.device, data.dtype)
+        drawn.append(draw(self, data))
+        return drawn[-1]
+
+    KMeans._init = init
+    try:
+        yield
+    finally:
+        KMeans._init = draw
+
+
+def wavesplit_card_vs_cpu():
+    """B = 1 x 1 s, f32, card vs CPU (<= 1e-3 x max|CPU|) on the oracle path and on the
+    KMeans path with the CPU run's initial centroids handed to the card."""
+    log("== phase 16: Wavesplit card vs CPU (f32, B=1 x 1 s, recipe widths)")
+    card_model, cpu_model = wavesplit_model().eval(), wavesplit_model("cpu").eval()
+    x, order = train_batch(1, 1.0, "cpu")[0], oracle_order(1, SAMPLE_RATE, "cpu")
+    drawn = []
+    with torch.inference_mode():
+        with kmeans_draws(drawn):
+            refs = {"oracle": cpu_model(x, order), "kmeans": cpu_model(x)}
+        reset_counts()
+        with kmeans_draws(drawn, replay=True):
+            gots = {"oracle": card_model(x.to("cuda"), order.to("cuda")),
+                    "kmeans": card_model(x.to("cuda"))}
+        torch.cuda.synchronize()
+    check_dptnet_launches(all_counts(), {}, "wavesplit: the card forwards")
+    for path, ref in refs.items():
+        err, scale = float((gots[path].cpu() - ref).abs().max()), float(ref.abs().max())
+        log(f"  {path}: card vs CPU max abs err {err:.3e}, max|CPU| {scale:.3e}, limit "
+            f"{1e-3 * scale:.3e}")
+        check(err <= 1e-3 * scale, f"wavesplit {path}: card disagrees with the CPU: {err}")
+
+
+def wavesplit_train_parity():
+    """One train step (WaveSplitTrainer's loss) card vs an f64 CPU step and the f32 CPU step,
+    D = 512 at a small depth (WAVESPLIT_DEPTH), B = 1 x 0.5 s."""
+    log("== phase 16: one Wavesplit train step, card vs CPU (f32, TF32 off, D 512, 2 speaker "
+        "layers, 1 x 2 separation layers, B=1 x 0.5 s; f64 CPU reference)")
+    mixture, sources = train_batch(1, 0.5, "cpu")
+    spk_idx = torch.tensor([[3, 57]])
+    cpu_model = wavesplit_model("cpu", **WAVESPLIT_DEPTH).train()
+    card_model = wavesplit_model(**WAVESPLIT_DEPTH).train()
+    ref_model = copy.deepcopy(cpu_model).double()
+    ref = grads_of_loss(ref_model, lambda: wavesplit_loss(
+        ref_model, mixture.double(), sources.double(), spk_idx))
+    cpu = grads_of_loss(cpu_model, lambda: wavesplit_loss(cpu_model, mixture, sources, spk_idx))
+    reset_counts()
+    on_card = grads_of_loss(card_model, lambda: wavesplit_loss(
+        card_model, mixture.to("cuda"), sources.to("cuda"), spk_idx.to("cuda")))
+    torch.cuda.synchronize()
+    grew = all_counts()
+    check_dptnet_launches(grew, {}, "wavesplit: a train step")
+    check_step_against_f64("wavesplit", ref, cpu, on_card, kernels_of(grew))
+
+
+def wavesplit_recipe_step(card):
+    """The recipe's train step (Adam, clipping 5) at B = 4 x 4 s or, where that runs out of
+    device memory, the largest power-of-two batch that fits: p50 of 2, split, peak."""
+    seconds = WAVESPLIT_STEP[1]
+    model = wavesplit_model().train()
+    optimizer = make_optimizer("adam", 1e-3, 5.0, params=model.parameters())
+
+    def batch_of(B):
+        mixture, sources = train_batch(B, seconds, "cuda")
+        return mixture, sources, torch.arange(2 * B, device="cuda").view(B, 2)
+
+    B, p50, (fwd, bwd, opt), peak = fitting_step(
+        "wavesplit", optimizer, batch_of, lambda batch: wavesplit_loss(model, *batch),
+        WAVESPLIT_STEP[0], seconds)
+    log(f"  wavesplit: recipe step at B={B} x {seconds:g} s (recipe B={WAVESPLIT_STEP[0]}): "
+        f"p50 {p50:.3f} ms of 2 (forward + loss {fwd:.3f}, backward {bwd:.3f}, optimizer "
+        f"{opt:.3f} ms, CUDA events), {B * seconds / (p50 / 1e3):.2f} audio-s/s, peak "
+        f"{peak:.1f} MiB; no kernel launched [{card}]")
+    del model, optimizer
+    torch.cuda.empty_cache()
+    return dict(batch=B, p50_ms=p50, forward_ms=fwd, backward_ms=bwd, optimizer_ms=opt,
+                peak_mib=peak)
+
+
+def write_speaker_corpus(root, split, n_utts, seconds, first_speaker=0, n_speakers=6):
+    """A wsj0-2mix-style split whose IDs name their speakers (`<spk>a<utt>_<gain>_<spk>c<utt>_
+    <gain>`, the form data/wsj0mix.py:speaker_keys reads), pseudo-speech of n_speakers
+    speakers. -> (wav_root, list_path)."""
+    wav_root, list_path = os.path.join(root, split), os.path.join(root, f"{split}.lst")
+    for sub in ("mix", "s1", "s2"):
+        os.makedirs(os.path.join(wav_root, sub), exist_ok=True)
+    bank = _speaker_bank(first_speaker + n_speakers, seed=7)
+    rng = np.random.default_rng(first_speaker + 21)
+    utts = []
+    for i in range(n_utts):
+        a, b = rng.choice(n_speakers, size=2, replace=False) + first_speaker
+        T = int(seconds * SAMPLE_RATE)
+        s1 = synth_pseudo_speech(bank[a], rng, T, SAMPLE_RATE)
+        s2 = 0.7 * synth_pseudo_speech(bank[b], rng, T, SAMPLE_RATE)
+        scale = 0.9 / max(float(np.abs(s1 + s2).max()), 1e-9)
+        utt = f"{100 + a:03d}a{i:04d}_1.5_{100 + b:03d}c{i:04d}_-1.5"
+        for sub, sig in (("s1", s1), ("s2", s2), ("mix", s1 + s2)):
+            write_wav(os.path.join(wav_root, sub, f"{utt}.wav"), scale * sig, SAMPLE_RATE)
+        utts.append(utt)
+    with open(list_path, "w") as f:
+        f.write("\n".join(utts))
+    return wav_root, list_path
+
+
+def wavesplit_cli(tmp, card):
+    """cli/train_wsj0mix_wavesplit.py at the recipe's widths (B = 2 x 1 s) on a corpus of
+    wsj0-style IDs, two epochs: no kernel launched, the epoch train loss falling."""
+    log("== phase 16: train Wavesplit through cli/train_wsj0mix_wavesplit.py (recipe widths, "
+        "B=2 x 1 s, f32)")
+    root = os.path.join(tmp, "ws_corpus")
+    tr_root, tr_list = write_speaker_corpus(root, "tr", 8, 2.0)
+    cv_root, cv_list = write_speaker_corpus(root, "cv", 2, 2.0, first_speaker=6)
+    reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        trainer = wavesplit_train_cli.main(
+            ["--train_wav_root", tr_root, "--train_list_path", tr_list, "--valid_wav_root",
+             cv_root, "--valid_list_path", cv_list, *WAVESPLIT_CLI, "--epochs", "2",
+             "--exp_dir", os.path.join(tmp, "exp_wavesplit"), "--device", "cuda"])
+    torch.cuda.synchronize()
+    check_dptnet_launches(all_counts(), {}, "the Wavesplit CLI run")
+    losses = trainer.train_loss
+    log(f"  {2 * len(trainer.train_loader)} steps, {len(trainer.model.spk_embedding)} speakers "
+        f"in the table: train loss by epoch {[round(v, 4) for v in losses]}, valid "
+        f"{[round(v, 4) for v in trainer.valid_loss]}; the CLI's last lines: "
+        + " | ".join(out.getvalue().strip().splitlines()[-2:]) + f" [{card}]")
+    check(np.isfinite(losses).all() and losses[-1] < losses[0],
+          f"the Wavesplit CLI's epoch train loss did not fall: {losses}")
+
+
+def spec_forwards(card):
+    """A 4 s utterance through each model's serving path (SpectrogramSeparator: STFT,
+    clustering or anchors, iSTFT), f32 and bf16, every launch on its route, ms (median of
+    3); DANet and ADANet card vs CPU (<= 1e-3 x max|CPU|; DANet's KMeans from the CPU run's
+    initial centroids). -> (numbers, launches)."""
+    log("== phase 16: DANet, ADANet and deep clustering: a 4 s utterance served (STFT, "
+        "clustering, iSTFT), f32 and bf16, and card vs CPU")
+    x = train_batch(1, 4.0, "cpu")[0]
+    numbers, launches = {}, {}
+    for tag, (_, _, kind) in SPEC16.items():
+        base = spec_model(tag).eval()
+        for dtype in (torch.float32, torch.bfloat16):
+            serve = SpectrogramSeparator(base.to(dtype), **SPEC_STFT, kind=kind).eval()
+            reset_counts()
+            with torch.inference_mode():
+                out = serve(x.to("cuda"))
+                ms = median_ms(lambda: serve(x.to("cuda")), warmup=0, iters=3)
+            torch.cuda.synchronize()
+            grew = all_counts()
+            routes = {k: 4 * v for k, v in spec_routes(tag, 1, SPEC_SERVE_FRAMES, dtype).items()}
+            check_dptnet_launches(grew, routes, f"{tag} {dtype}: four served utterances")
+            check(out.shape == (1, 2, x.shape[-1]) and torch.isfinite(out).all(), out.shape)
+            launches = add_counts(launches, grew)
+            numbers[(tag, str(dtype)[6:])] = ms
+            log(f"  {tag} {str(dtype)[6:]}: {ms:.3f} ms a 4 s utterance (median of 3); "
+                f"launches by route {routes_of(grew)} [{card}]")
+        base.float()
+        cpu_base = spec_model(tag, "cpu").eval()
+        cpu_base.load_state_dict(base.state_dict())
+        with torch.inference_mode():
+            if tag == "deep-clustering":  # KMeans into binary masks: a flipped bin is not
+                # noise, so the embeddings that KMeans clusters, at the served shape
+                amp = stft(x, SPEC_STFT["n_fft"], SPEC_STFT["hop_length"],
+                           window=torch.from_numpy(wsj0mix_data.np_window(
+                               SPEC_STFT["n_fft"]))).abs()
+                what, ref, got = "embeddings", cpu_base(amp), base(amp.to("cuda"))
+            else:
+                drawn = []
+                with kmeans_draws(drawn):
+                    ref = SpectrogramSeparator(cpu_base, **SPEC_STFT, kind=kind)(x)
+                with kmeans_draws(drawn, replay=True):
+                    got = SpectrogramSeparator(base, **SPEC_STFT, kind=kind)(x.to("cuda"))
+                what = "estimates"
+        err, scale = float((got.cpu() - ref).abs().max()), float(ref.abs().max())
+        log(f"  {tag} card vs CPU (f32 {what}): max abs err {err:.3e}, max|CPU| {scale:.3e}, "
+            f"limit {1e-3 * scale:.3e}")
+        check(err <= 1e-3 * scale, f"{tag}: card disagrees with the CPU: {err}")
+        del base, cpu_base
+    return numbers, launches
+
+
+def spec_steps(card):
+    """Each model's train step (its CLI's loss; ADANet at dropout 0) at the recipe widths,
+    card vs an f64 CPU step and the f32 CPU step (B = 2 x 0.8 s); then the recipe's B = 64 x
+    0.8 s step (ADANet in train mode with dropout 0.5, masks from a generator), p50 of 2,
+    split and peak; every launch on its route. -> (numbers, launches)."""
+    log("== phase 16: DANet, ADANet and deep clustering train steps: card vs CPU (f32, TF32 "
+        "off, recipe widths, B=2 x 0.8 s; f64 CPU reference), then the recipe's B=64 x 0.8 s")
+    numbers, launches = {}, {}
+    for tag in SPEC16:
+        over = dict(dropout=0.0) if tag == "adanet" else {}
+        cpu_model, card_model = spec_model(tag, "cpu", **over), spec_model(tag, **over)
+        cpu_model.eval(), card_model.eval()  # no dropout: the parity step
+        batch = spec_batch(2, SPEC_SECONDS, "cpu")
+        ref_model = copy.deepcopy(cpu_model).double()
+        ref = grads_of_loss(ref_model, lambda: spec_loss(
+            tag, ref_model, tuple(t.double() for t in batch)))
+        cpu = grads_of_loss(cpu_model, lambda: spec_loss(tag, cpu_model, batch))
+        reset_counts()
+        card_batch = tuple(t.to("cuda") for t in batch)
+        on_card = grads_of_loss(card_model, lambda: spec_loss(tag, card_model, card_batch))
+        torch.cuda.synchronize()
+        grew = all_counts()
+        check_dptnet_launches(grew, spec_routes(tag, 2, SPEC_FRAMES, torch.float32, True),
+                              f"{tag}: a train step")
+        check_step_against_f64(tag, ref, cpu, on_card, kernels_of(grew))
+        launches = add_counts(launches, grew)
+        del cpu_model, card_model, ref_model
+        model = spec_model(tag)
+        optimizer = make_optimizer("rmsprop" if tag == "danet" else "adam", 1e-4,
+                                   params=model.parameters())
+        model.train(tag == "adanet")
+        set_dropout_generator(model, torch.Generator(device="cuda").manual_seed(0))
+        batch = spec_batch(SPEC_BATCH, SPEC_SECONDS, "cuda")
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        p50, (fwd, bwd, opt) = timed_steps(lambda: spec_loss(tag, model, batch), optimizer)
+        grew = all_counts()
+        check_dptnet_launches(grew, {k: 3 * v for k, v in spec_routes(
+            tag, SPEC_BATCH, SPEC_FRAMES, torch.float32, True).items()}, f"{tag}: recipe steps")
+        launches = add_counts(launches, grew)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        numbers[tag] = dict(p50_ms=p50, forward_ms=fwd, backward_ms=bwd, optimizer_ms=opt,
+                            peak_mib=peak)
+        log(f"  {tag}: recipe step B={SPEC_BATCH} x {SPEC_SECONDS:g} s f32 p50 {p50:.3f} ms of "
+            f"2 (forward + loss {fwd:.3f}, backward {bwd:.3f}, optimizer {opt:.3f} ms), "
+            f"{SPEC_BATCH * SPEC_SECONDS / (p50 / 1e3):.1f} audio-s/s, peak {peak:.1f} MiB; "
+            f"launches by route {routes_of(grew)} [{card}]")
+        del model, optimizer, batch
+    return numbers, launches
+
+
+def danet_cli_and_eval(tmp, card):
+    """cli/train_wsj0mix_spec.py --model danet at the recipe's flags (rmsprop, B = 64 x
+    0.8 s) on a synthetic corpus, two epochs: every step (forward with cs, backward) and
+    validation forward (KMeans) on its routes, the epoch train loss falling; then its
+    checkpoint through cli/test_wsj0mix.py --spec_kind danet on the card and the CPU, each
+    metric of each utterance within EVAL_TOL_DB. -> launches."""
+    log("== phase 16: train DANet through cli/train_wsj0mix_spec.py (recipe flags: rmsprop "
+        "lr 1e-4, B=64 x 0.8 s, f32), then --spec_kind danet evaluation, card vs CPU")
+    corpus = os.path.join(tmp, "danet_corpus")
+    tr_root, tr_list = write_quality_corpus(corpus, "tr", 30)
+    cv_root, cv_list = write_quality_corpus(corpus, "cv", 4)
+    exp = os.path.join(tmp, "exp_danet")
+    reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        trainer = spec_train_cli.main(
+            ["--train_wav_root", tr_root, "--train_list_path", tr_list, "--valid_wav_root",
+             cv_root, "--valid_list_path", cv_list, *DANET_CLI, "--epochs", "2", "--exp_dir",
+             exp, "--device", "cuda"])
+    torch.cuda.synchronize()
+    grew = all_counts()
+    routes = {}
+    for loader, backward in ((trainer.train_loader, True), (trainer.valid_loader, False)):
+        n, size = len(loader.dataset), loader.batch_size
+        last = [n % size] if n % size and not loader.drop_last else []
+        for B in [size] * (n // size) + last:  # two epochs of each
+            routes = add_counts(routes, {k: 2 * v for k, v in spec_routes(
+                "danet", B, SPEC_FRAMES, torch.float32, backward).items()})
+    check_dptnet_launches(grew, routes, "the DANet CLI run")
+    losses = trainer.train_loss
+    log(f"  {2 * len(trainer.train_loader)} steps, {2 * len(trainer.valid_loader)} validation "
+        f"batches: train loss by epoch {[round(v, 5) for v in losses]}, valid "
+        f"{[round(v, 5) for v in trainer.valid_loss]}; launches by route {routes_of(grew)}; "
+        "the CLI's last lines: " + " | ".join(out.getvalue().strip().splitlines()[-2:])
+        + f" [{card}]")
+    check(np.isfinite(losses).all() and losses[-1] < losses[0],
+          f"the DANet CLI's epoch train loss did not fall: {losses}")
+    ckpt = os.path.join(exp, "model", "last.ckpt")
+    root, lists = write_test_list(tmp)
+    reset_counts()
+    worst = 0.0
+    for list_path, T in zip(lists, TEST_LENGTHS):
+        before = all_counts()
+        got = evaluate(root, list_path, ckpt, "cuda", SPEC_EVAL_FLAGS)
+        frames = T // SPEC_STFT["hop_length"] + 1
+        check_dptnet_launches(grown(before), spec_routes("danet", 1, frames, torch.float32),
+                              f"DANet --spec_kind evaluation, {T} samples")
+        ref = evaluate(root, list_path, ckpt, "cpu", SPEC_EVAL_FLAGS)
+        diffs = {k: abs(got[k] - ref[k]) for k in TEST_METRICS}
+        check(all(np.isfinite(got[k]) for k in TEST_METRICS), got)
+        worst = max(worst, *diffs.values())
+        log(f"  {T} samples: SI-SDRi {got['loss_improvement']:.3f} dB, SDRi "
+            f"{got['sdr_improvement']:.3f}, SIRi {got['sir_improvement']:.3f}, SAR "
+            f"{got['sar']:.3f}; max |card - CPU| {max(diffs.values()):.2e} dB [{card}]")
+        check(max(diffs.values()) <= EVAL_TOL_DB,
+              f"DANet --spec_kind: card metrics differ from the CPU's: {diffs}")
+    log(f"  worst |card - CPU| over every metric {worst:.2e} dB (limit {EVAL_TOL_DB:g})")
+    return add_counts(grew, all_counts())
+
+
+def phase_spec(card=None, tmp=None):
+    """Phase 16 (16k first) -> {"launches": the main path's counts (the served utterances,
+    the train steps, the DANet CLI's steps, validation and evaluation), every LSTM launch on
+    its planned route (H = 300: FMA), "kernels": 16k's timings, "numbers"}."""
+    card = card or card_line()
+    kernels = phase_spec_kernels(card)
+    numbers = {"wavesplit": wavesplit_forwards(card)}
+    wavesplit_card_vs_cpu()
+    wavesplit_train_parity()
+    numbers["wavesplit_step"] = wavesplit_recipe_step(card)
+    with contextlib.ExitStack() as stack:
+        tmp = tmp or stack.enter_context(tempfile.TemporaryDirectory())
+        wavesplit_cli(tmp, card)
+        numbers["spec_serve"], total = spec_forwards(card)
+        numbers["spec_step"], launches = spec_steps(card)
+        total = add_counts(total, launches)
+        total = add_counts(total, danet_cli_and_eval(tmp, card))
+    for key in ("lstm_scan_bidir/fma", "lstm_scan_bidir_bwd/fma"):
+        check(total.get(key, 0) > 0, f"phase 16 never launched {key}")
+    log(f"  phase 16 main-path launches: {nonzero(total)}")
+    return dict(launches=total, kernels=kernels, numbers=numbers)
+
+
 def kernel_entry(name, source, replaces, launches, timing, bound_of, library_ms=None,
                  dtype=torch.float32, fma_bound=None):
     """One kernel of the `kernels` line; `dtype` is that of the inputs timed. A timing
@@ -4793,7 +5387,8 @@ ONLY_PHASES = {"3": phase_kernel, "3b": phase_lstm, "3c": phase_gru, "3d": phase
                "3h": phase_cluster, "3i": phase_wide, "3j": phase_wide_bwd,
                "6s": phase_stream_hops, "11": phase_musdb, "12": phase_musdb_train,
                "13": phase_dptnet, "13k": phase_dptnet_kernels, "14": phase_slice_d,
-               "14k": phase_slice_d_kernels, "15": phase_rest, "15k": phase_rest_kernels}
+               "14k": phase_slice_d_kernels, "15": phase_rest, "15k": phase_rest_kernels,
+               "16": phase_spec, "16k": phase_spec_kernels}
 
 
 def main(argv=None) -> int:
@@ -4803,9 +5398,10 @@ def main(argv=None) -> int:
                              "per hop), 11 (musdb18 serving), 12 (musdb18 training), 13 "
                              "(DPTNet), 13k (DPTNet's kernels alone), 14 (LSTM-TasNet, "
                              "SepFormer, GALRNet), 14k (their kernels alone), 15 (the RNN and "
-                             "SRU DPRNN-TasNets, FurcaNet, musdb18's waveform models, WaveNet) "
-                             "or 15k (their kernels alone) to run after phases 1 and 2, and "
-                             "nothing else; no result line is printed")
+                             "SRU DPRNN-TasNets, FurcaNet, musdb18's waveform models, WaveNet), "
+                             "15k (their kernels alone), 16 (Wavesplit, DANet, ADANet, deep "
+                             "clustering; 16k first) or 16k (H = 300 alone) to run after "
+                             "phases 1 and 2, and nothing else; no result line is printed")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check needs a CUDA card",
@@ -4918,6 +5514,7 @@ def main(argv=None) -> int:
     dptnet = phase_dptnet(card)
     slice_d = phase_slice_d(card)
     rest = phase_rest(card)
+    spec = phase_spec(card)
     for name in ("lstm_scan_bidir_bwd", "lstm_scan_bwd", "gru_scan_bidir_bwd", "gru_scan_bwd"):
         check(trained[name] >= 1, f"the training path never launched {name}")
     total = {k: v + trained[k] + evaluated[k] for k, v in total.items()}
@@ -4946,6 +5543,10 @@ def main(argv=None) -> int:
     for name, n in total.items():
         if name.endswith("/fma"):
             check(n == 0, f"the main path launched the FMA kernel: {name} {n} times")
+    # Phase 16 (DANet, ADANet, deep clustering: H = 300) runs the FMA kernels, the route
+    # _plan gives 256 < H < 384; phase 16 held every launch to its route.
+    spec_launches = spec["launches"]
+    total = {k: v + spec_launches.get(k, 0) for k, v in total.items()}
     for name, n in total.items():
         if not name.endswith("/fma") and n < 1:
             raise AssertionError(f"the serving, training and evaluation paths never launched "
@@ -5210,6 +5811,22 @@ def main(argv=None) -> int:
                              timing["library_ms"])
         entry.update(path=timing["path"], shape=f"{kind} decoder shape (B=1 x 10 s)",
                      kernel_ms=timing["kernel_ms"])
+        entries.append(entry)
+    # Phase 16's shapes (phase 16k's times): lstm_scan_bidir at H = 300 on the FMA kernel,
+    # the recipes' training shape (64, 101) x 2 with cs and its backward, and a 4 s
+    # utterance's (1, 501) x 2 in both dtypes: the whole call as `ms`, the kernel alone as
+    # `kernel_ms`, cuDNN's nn.LSTM (F = 129) as `library_ms`, with phase 16's launches of that
+    # kernel on that route (every shape and dtype of phase 16).
+    for (name, label, dtype), timing in spec["kernels"].items():
+        route = timing["path"]
+        B, T, _ = next(shape for lab, shape, *_ in SPEC_SHAPES if lab == label)
+        entry = kernel_entry(name, sources[(route, name.endswith("_bwd"))], replaces_of[name],
+                             spec_launches[f"{name}/{route}"], timing,
+                             {k: timing[k] for k in ("bound_ms", "bound_by")},
+                             timing["library_ms"], dtype=dtype)
+        entry.update(path=route, shape=f"DANet / ADANet / DC {label} B={B} T={T} H={SPEC_H}"
+                     + (", with cs" if label == "train" else ""),
+                     **{k: timing[k] for k in ("kernel_ms", "kernel_bound_ms") if k in timing})
         entries.append(entry)
     entries += [
         # Two reads of x and one int8 write; no single PyTorch call computes it.

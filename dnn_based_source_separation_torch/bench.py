@@ -12,6 +12,7 @@ that the port has and the host path of `scripts/bench_streaming.py`:
         --streaming_hop 0.05    # with the trainable encoder: the gated one does not stream
     python -m dnn_based_source_separation_torch.bench --streaming_hop 0.05 --causal
     python -m dnn_based_source_separation_torch.bench --model umx      # or xumx: musdb18
+    python -m dnn_based_source_separation_torch.bench --model wavesplit|danet|adanet|deep-clustering
 
 Prints ONE JSON line. Offline: `{"metric", "value" (audio-s/s), "unit",
 "vs_baseline" (value / 10, the project target of 10x real time), "mfu",
@@ -22,7 +23,9 @@ hop time over the hop's duration), "device".
 Offline method: B=8 x 4 s at 8 kHz, random weights from seed 0, bf16 (f32
 with --dtype), paper-config Conv-TasNet with the gLN `heads` fold (the
 non-causal model only, under the separate CLI's condition), recipe-config
-DPRNN-TasNet, DPTNet, LSTM-TasNet, SepFormer or GALRNet; 2 warm-up and 20
+DPRNN-TasNet, DPTNet, LSTM-TasNet, SepFormer, GALRNet or Wavesplit (its KMeans
+path), or recipe-config DANet, ADANet or deep clustering served on waveforms by
+`models/wrappers.py:SpectrogramSeparator` (STFT, clustering, iSTFT); 2 warm-up and 20
 timed forwards under `torch.inference_mode()`, each between two CUDA events;
 the median. Streaming method: a 4 s mixture through exact streaming
 (`models/streaming.py`, the causal Conv-TasNet, the stream-safe causal
@@ -35,8 +38,9 @@ dtype (one H100 SXM at 700 W: 989e12 bf16, 67e12 f32 outside the tensor
 cores, NVIDIA's data sheet). The FLOPs are counted from the config
 (`forward_flops`): 2 x the multiply-adds of every matmul, pointwise conv,
 full conv and depthwise tap (the RNNs' input and recurrent products
-included, and the attention products q·kᵀ and weights·v); norms,
-softmax, activations and overlap-adds are left out.
+included, and the attention products q·kᵀ and weights·v), and the KMeans
+iterations' distances and centroid sums; norms, softmax, activations,
+overlap-adds and STFTs are left out.
 
 musdb18 serving (`--model umx` / `--model xumx`, the port's counterpart of
 `scripts/bench_musdb_eval.py`): paper-config ParallelOpenUnmix or bridged
@@ -58,6 +62,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import time
 
@@ -67,11 +72,12 @@ import torch
 from .cli.test_musdb18 import STAGES, separate_track
 from .entry import PAPER
 from .models import (
-    ConvTasNet, CrossNetOpenUnmix, DPRNNTasNet, DPTNet, GALRNet, LSTMTasNet, ParallelOpenUnmix,
-    SepFormer, SpectrogramMaskingWrapper,
+    ADANet, ConvTasNet, CrossNetOpenUnmix, DANet, DeepEmbedding, DPRNNTasNet, DPTNet, GALRNet,
+    LSTMTasNet, ParallelOpenUnmix, SepFormer, SpectrogramMaskingWrapper, WaveSplit,
 )
 from .models.fold import fold_for_serving
 from .models.streaming import ExactStreamingSeparator
+from .models.wrappers import SpectrogramSeparator
 
 SAMPLE_RATE = 8000
 SECONDS = 4.0  # audio per mixture
@@ -121,10 +127,25 @@ GALRNET = dict(
     sep_chunk_size=100, sep_hop_size=50, sep_down_chunk_size=32, sep_num_blocks=6,
     sep_num_heads=8, mask_nonlinear="relu", n_sources=2,
 )
+# Recipe config, D 512, 14 speaker layers, 4 x 10 separation layers (egs/wsj0-mix/wavesplit/
+# train.sh); the speaker table of wsj0-2mix's 101 training speakers, which serving never reads.
+WAVESPLIT = dict(latent_dim=512, spk_num_layers=14, sep_num_blocks=4, sep_num_layers=10,
+                 n_sources=2, n_training_sources=101)
+# Recipe configs at n_fft 256 (129 bins), hop 64: egs/wsj0-mix/{danet,adanet,
+# deep-clustering}/train.sh (-K 20 -H 300 -B 4; -N 6 --dropout 0.5; -K 40 -H 300 -B 2).
+DANET = dict(n_bins=129, embed_dim=20, hidden_channels=300, num_blocks=4)
+ADANET = dict(DANET, num_anchors=6, dropout=0.5)
+DEEP_CLUSTERING = dict(n_bins=129, embed_dim=40, hidden_channels=300, num_layers=2)
+SPEC_STFT = dict(n_fft=256, hop_length=64)
 CONFIGS = {"conv-tasnet": PAPER, "dprnn-tasnet": DPRNN, "dptnet": DPTNET,  # --model
-           "lstm-tasnet": LSTM_TASNET, "sepformer": SEPFORMER, "galrnet": GALRNET}
+           "lstm-tasnet": LSTM_TASNET, "sepformer": SEPFORMER, "galrnet": GALRNET,
+           "wavesplit": WAVESPLIT, "danet": DANET, "adanet": ADANET,
+           "deep-clustering": DEEP_CLUSTERING}
 _CLASSES = {"dptnet": DPTNet, "lstm-tasnet": LSTMTasNet, "sepformer": SepFormer,
-            "galrnet": GALRNet}
+            "galrnet": GALRNet, "wavesplit": WaveSplit}
+# The spectrogram-domain models: class and SpectrogramSeparator kind.
+SPEC_MODELS = {"danet": (DANet, "danet"), "adanet": (ADANet, "adanet"),
+               "deep-clustering": (DeepEmbedding, "embedding")}
 # musdb18 serving, paper config (cli/train_musdb18.py:65-71 of the JAX package):
 # n_fft 4096, hop 1024, Hann; stereo, hidden 512, 3 LSTM layers, 2049 bins, max_bin
 # 1487, 4 sources. X-UMX bridged.
@@ -284,15 +305,76 @@ def galrnet_macs(config, T: int) -> dict:
     return {"matmul": matmul + config.get("sep_num_blocks", 6) * block, "depthwise": 0}
 
 
-_MACS = {DPRNNTasNet: dprnn_tasnet_macs, DPTNet: dptnet_macs, LSTMTasNet: lstm_tasnet_macs,
+def _kmeans_macs(n: int, K: int, D: int, iterations: int) -> int:
+    """KMeans over n points: every iteration's distances and centroid sums, and the
+    final assignment's distances."""
+    return (2 * iterations + 1) * n * K * D
+
+
+def wavesplit_macs(config, T: int) -> dict:
+    """Multiply-adds of one Wavesplit forward on a (1, 1, T) input (its KMeans path)."""
+    D, S = config.get("latent_dim", 512), config.get("n_sources", 2)
+    Ks, L = config.get("spk_kernel_size", 3), config.get("spk_num_layers", 14)
+    Kin, K = config.get("sep_kernel_size_in", 4), config.get("sep_kernel_size", 3)
+    layers = config.get("sep_num_blocks", 4) * config.get("sep_num_layers", 10)
+    if not config.get("separable", True):
+        raise NotImplementedError("forward_flops counts the separable Wavesplit only")
+    matmul, depthwise, c_in = 0, 0, 1
+    for idx in range(L):  # the speaker stack
+        out = S * D if idx == L - 1 else D
+        depthwise += T * c_in * Ks
+        matmul += T * c_in * out
+        c_in = out
+    depthwise += T * D * Kin + layers * T * D * K  # conv_in (one input channel), the layers
+    # pointwise and skip heads; out heads but the last; FiLM's two dense layers a layer
+    matmul += layers * T * (D * D + D * S) + (layers - 1) * T * D * D + layers * 2 * S * D * D
+    clustering = _kmeans_macs(T * S, S, D, config.get("iter_clustering", 10))
+    return {"matmul": matmul, "depthwise": depthwise, "clustering": clustering}
+
+
+def _rnn_macs(frames: int, F_in: int, H: int, layers: int, directions: int) -> int:
+    """A stacked LSTM's input and recurrent products over `frames` steps."""
+    macs, width = 0, F_in
+    for _ in range(layers):
+        macs += directions * frames * 4 * H * (width + H)
+        width = directions * H
+    return macs
+
+
+def spectrogram_macs(config, frames: int, n_sources: int = 2, iterations: int = 10,
+                     kind: str = "danet") -> dict:
+    """Multiply-adds of one DANet / ADANet / DeepEmbedding forward on a (1, 1, F, frames)
+    amplitude, with the clustering or anchors of its serving path."""
+    Fq, D, H = config["n_bins"], config["embed_dim"], config["hidden_channels"]
+    directions = 1 if config.get("causal", False) else 2
+    layers = config.get("num_blocks", config.get("num_layers", 4))
+    n = Fq * frames
+    matmul = _rnn_macs(frames, Fq, H, layers, directions) + frames * directions * H * Fq * D
+    clustering = 0
+    if kind == "adanet":  # every pattern's similarities and attractors, then the mask
+        pick = math.perm if config.get("permute_anchors", False) else math.comb
+        P = pick(config.get("num_anchors", 6), n_sources)
+        matmul += 2 * P * n * n_sources * D + P * n_sources**2 * D + n * n_sources * D
+    else:
+        clustering = _kmeans_macs(n, n_sources, D, iterations)
+        if kind == "danet":
+            matmul += n * n_sources * D  # the mask's similarities
+    return {"matmul": matmul, "depthwise": 0, "clustering": clustering}
+
+
+_MACS = {WaveSplit: wavesplit_macs, DPRNNTasNet: dprnn_tasnet_macs, DPTNet: dptnet_macs, LSTMTasNet: lstm_tasnet_macs,
          SepFormer: sepformer_macs, GALRNet: galrnet_macs}
 
 
 def forward_flops(model, T: int, batch: int = 1) -> dict:
     """2 x the multiply-adds of one forward on (batch, 1, T), by kind, from the config."""
-    config = model.get_config()
-    count = _MACS.get(type(model), conv_tasnet_macs)
-    macs = count(config, T)
+    if isinstance(model, SpectrogramSeparator):
+        frames = T // model.hop_length + 1
+        macs = spectrogram_macs(model.model.get_config(), frames, model.n_sources,
+                                model.iter_clustering, model.kind)
+    else:
+        count = _MACS.get(type(model), conv_tasnet_macs)
+        macs = count(model.get_config(), T)
     return {k: 2 * batch * v for k, v in macs.items()}
 
 
@@ -313,6 +395,10 @@ def build_model(args, device):
                                         device=device)
         return SpectrogramMaskingWrapper(base, **UMX_STFT, device=device).eval()
     config = dict(CONFIGS[args.model], causal=args.causal)
+    if args.model in SPEC_MODELS:
+        cls, kind = SPEC_MODELS[args.model]
+        base = cls(**config, generator=generator, device=device).to(DTYPES[args.dtype])
+        return SpectrogramSeparator(base.eval(), **SPEC_STFT, kind=kind).eval()
     if args.model == "conv-tasnet":
         model = fold_for_serving(ConvTasNet(**config, generator=generator, device=device))
     elif args.model in _CLASSES:

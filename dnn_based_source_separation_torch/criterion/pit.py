@@ -1,6 +1,7 @@
 """Permutation-invariant training: exhaustive PIT.
 
-Port of `dnn_based_source_separation_tpu/criterion/pit.py:22-54, 177-189`.
+Port of `dnn_based_source_separation_tpu/criterion/pit.py:22-54, 177-193`
+(`PIT1d` for waveforms, `PIT2d` for spectrograms: the same search).
 The JAX package's `vmap` over the (n!, n) permutation table becomes one
 batched gather: every permutation of the targets is evaluated in a single
 criterion call over (B * n!) items. Criteria follow the reference protocol
@@ -62,6 +63,10 @@ class PIT:
 
 
 class PIT1d(PIT):
+    pass
+
+
+class PIT2d(PIT):
     pass
 
 

@@ -6,7 +6,11 @@ Framework-free host code the port keeps its own copy of (the JAX package's
 
 from .audio_io import read_wav, write_wav
 from .loader import DataLoader, prefetch_to_device
-from .wsj0mix import WaveEvalDataset, WaveTestDataset, WaveTrainDataset
+from .wsj0mix import (
+    IdealMaskSpectrogramTrainDataset, SpectrogramTrainDataset, WaveEvalDataset, WaveTestDataset,
+    WaveTrainDataset, WaveTrainSpeakerDataset,
+)
 
-__all__ = ["DataLoader", "WaveEvalDataset", "WaveTestDataset", "WaveTrainDataset",
+__all__ = ["DataLoader", "IdealMaskSpectrogramTrainDataset", "SpectrogramTrainDataset",
+           "WaveEvalDataset", "WaveTestDataset", "WaveTrainDataset", "WaveTrainSpeakerDataset",
            "prefetch_to_device", "read_wav", "write_wav"]

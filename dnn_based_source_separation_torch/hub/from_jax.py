@@ -15,7 +15,12 @@ UMX trees, and ParallelOpenUnmix's (`parallel_open_unmix_state_dict_from_jax`).
 `mrx_state_dict_from_jax` undoes `convert_mrx`. FurcaNet, Meta-TasNet and
 WaveNet have no converter in the JAX package: `furcanet_state_dict_from_jax`,
 `meta_tasnet_state_dict_from_jax` and `wavenet_state_dict_from_jax` map their
-JAX trees onto the port's names, which follow those trees.
+JAX trees onto the port's names, which follow those trees; so does
+`wavesplit_state_dict_from_jax`. `danet_state_dict_from_jax` and
+`adanet_state_dict_from_jax` undo `convert_danet` / `convert_adanet` (the
+reference's `rnn.*`, `fc`, `anchor`); `deep_embedding_state_dict_from_jax` maps
+DeepEmbedding, DeepEmbeddingPlus and ChimeraNet (`fc_embedding`, `fc_mask`) onto
+the same torch names, and FixedAttractorDANet's `base` and `attractor`.
 """
 from __future__ import annotations
 
@@ -530,4 +535,70 @@ def wavenet_state_dict_from_jax(params: Mapping, config: Mapping) -> Dict[str, t
                     _linear(sd, f"{ref}.gated{l}.{name}", tree)
                 else:
                     _conv(sd, f"{ref}.gated{l}.{name}", tree)
+    return sd
+
+
+def _conv_unit(sd: Dict, prefix: str, unit: Mapping) -> None:
+    """Wavesplit's _ConvUnit: depthwise conv {kernel (K, 1, C)} and pointwise Dense, or one
+    conv; its gLN or cLN {gamma, beta} (N,) -> `norm.gamma` / `norm.beta` (1, N, 1)."""
+    if "depthwise" in unit:
+        _conv(sd, f"{prefix}.depthwise", unit["depthwise"])
+        _linear(sd, f"{prefix}.pointwise", unit["pointwise"])
+    else:
+        _conv(sd, f"{prefix}.conv", unit["conv"])
+    for name in ("GlobalLayerNorm_0", "CumulativeLayerNorm_0"):
+        if name in unit:
+            _norm(sd, f"{prefix}.norm", unit[name])
+
+
+def wavesplit_state_dict_from_jax(params: Mapping, config: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX WaveSplit variables ({"params": ...} or the bare tree) -> port state_dict, named
+    as the JAX tree is (`models/wavesplit.py`); the JAX package has no converter of the
+    reference layout for Wavesplit."""
+    p = params["params"] if "params" in params else params
+    sd: Dict[str, torch.Tensor] = {"spk_embedding": _t(p["spk_embedding"])}
+    spk, sep = p["speaker_stack"], p["separation_stack"]
+    for i in range(int(config.get("spk_num_layers", 14))):
+        _conv_unit(sd, f"speaker_stack.layer{i}", spk[f"layer{i}"])
+    _conv(sd, "separation_stack.conv_in", sep["conv_in"])
+    for name, tree in sep.items():
+        if name.startswith("block"):
+            _conv_unit(sd, f"separation_stack.{name}", tree)
+        elif name != "conv_in":
+            _linear(sd, f"separation_stack.{name}", tree)
+    return sd
+
+
+def deep_embedding_state_dict_from_jax(params: Mapping,
+                                       config: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX DeepEmbedding, DeepEmbeddingPlus or ChimeraNet variables -> port state_dict:
+    `rnn.*` (an LSTM, or the config's `rnn_type`) and `fc` or `fc_embedding` / `fc_mask`."""
+    p = params["params"] if "params" in params else params
+    sd: Dict[str, torch.Tensor] = {}
+    _RNN[config.get("rnn_type", "lstm")](sd, "rnn", p["rnn"])
+    for name in ("fc", "fc_embedding", "fc_mask"):
+        if name in p:
+            _linear(sd, name, p[name])
+    return sd
+
+
+def danet_state_dict_from_jax(params: Mapping, config: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX DANet variables -> port state_dict (the inverse of `convert_danet`); a
+    FixedAttractorDANet's tree (`base`, `attractor`) too."""
+    p = params["params"] if "params" in params else params
+    if "base" in p:
+        sd = {f"base.{k}": v for k, v in danet_state_dict_from_jax(p["base"], config).items()}
+        sd["attractor"] = _t(p["attractor"])
+        return sd
+    sd: Dict[str, torch.Tensor] = {}
+    _lstm(sd, "rnn", p["rnn"])
+    _linear(sd, "fc", p["fc"])
+    return sd
+
+
+def adanet_state_dict_from_jax(params: Mapping, config: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ADANet variables -> port state_dict (the inverse of `convert_adanet`)."""
+    p = params["params"] if "params" in params else params
+    sd = danet_state_dict_from_jax(p, config)
+    sd["anchor"] = _t(p["anchor"])
     return sd

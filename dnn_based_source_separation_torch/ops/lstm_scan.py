@@ -122,7 +122,8 @@ CLUSTER_SIZES = (8, 16)
 CLUSTER_ROW_BLOCK = 128
 # Hidden sizes above this one, below MAX_HIDDEN and off the multiples of CLUSTER_ROW_BLOCK
 # run the cluster kernels zero-padded to MAX_HIDDEN (`cluster_width`). 256 < H < 384 would
-# pad to 384: no model of the repo has such an H, and no run has measured it.
+# pad to 384 and stays on the FMA kernel: DANet's, ADANet's and deep clustering's H = 300
+# sit there (chip_smoke.py phase 16k times them beside cuDNN, PERF.md section 6).
 PADDED_ABOVE = 384
 CLUSTER_REG_BLOCKS = 2
 CLUSTER_UNITS_PER_WARP = 2

@@ -21,6 +21,18 @@ def uniform_parameter(shape, fan_in: int, generator: torch.Generator | None = No
     return nn.Parameter(data.to(device))
 
 
+def orthogonal_parameter(shape, generator: torch.Generator | None = None,
+                         device=None) -> nn.Parameter:
+    """(rows, cols) with orthonormal rows or columns, whichever are fewer (flax's
+    `nn.initializers.orthogonal()`, as torch's `orthogonal_`): the Q of a normal draw's QR,
+    its columns' signs fixed by R's diagonal."""
+    rows, cols = shape
+    a = torch.randn(max(rows, cols), min(rows, cols), generator=generator)
+    q, r = torch.linalg.qr(a)
+    q = q * torch.sign(torch.diagonal(r))
+    return nn.Parameter((q if rows >= cols else q.t()).contiguous().to(device))
+
+
 def constant_parameter(shape, value: float, device=None) -> nn.Parameter:
     return nn.Parameter(torch.full(shape, float(value), device=device))
 

@@ -16,8 +16,14 @@ The optimizer keeps optax's update rules on `torch.optim`:
   whenever that is below 1, which is another function);
 - the learning rate lives in the param groups, so the Trainer's halving
   changes it in place, as `optax.inject_hyperparams` does;
+- `rmsprop`: optax.rmsprop's `scale_by_rms` (decay 0.9, `nu` initialised to 0,
+  eps 1e-8 inside the square root, no centring, no momentum), `OptaxRMSprop`:
+  `torch.optim.RMSprop` puts eps outside the square root, another function;
 - `make_warmup_optimizer`: Adam under the DPTNet recipe's warmup schedule
   (`WarmupOptimizer`), which the halving leaves alone, as JAX's does.
+
+`make_attractor_train_step` is the step of the attractor models (DANet), whose
+batches carry the oracle assignment and the threshold weight.
 """
 from __future__ import annotations
 
@@ -73,14 +79,34 @@ def clip_by_global_norm_(grads: list, max_norm: float) -> torch.Tensor:
     return norm
 
 
+class OptaxRMSprop(torch.optim.Optimizer):
+    """optax.rmsprop(lr, decay, eps): nu = decay nu + (1 - decay) g^2 from nu = 0, then
+    p -= lr g / sqrt(nu + eps)."""
+
+    def __init__(self, params, lr: float, decay: float = 0.9, eps: float = 1e-8):
+        super().__init__(params, dict(lr=lr, decay=decay, eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["nu"] = torch.zeros_like(p)
+                nu = state["nu"]
+                nu.mul_(group["decay"]).addcmul_(p.grad, p.grad, value=1.0 - group["decay"])
+                p.addcdiv_(p.grad, (nu + group["eps"]).sqrt(), value=-group["lr"])
+
+
 def make_optimizer(name: str, lr: float = 1e-3, max_norm: Optional[float] = None,
                    momentum: float = 0.9, *, params: Iterable[torch.Tensor]) -> Optimizer:
-    """'adam' | 'sgd' | 'momentum-sgd' over `params`, with optional global-norm clipping.
+    """'adam' | 'sgd' | 'momentum-sgd' | 'rmsprop' over `params`, with optional global-norm
+    clipping.
 
     Mirrors the JAX `make_optimizer` (the recipe's optimizer choice and
-    clip_grad_norm). 'rmsprop' raises: optax's `scale_by_rms` (eps inside
-    the square root, squares initialised to 0, no centring) is not
-    `torch.optim.RMSprop`, and no recipe config of the ported models uses it.
+    clip_grad_norm); 'rmsprop' is optax's (`OptaxRMSprop`), as the DANet recipe trains.
     """
     params = [p for p in params if p.requires_grad]
     if name == "adam":
@@ -90,8 +116,7 @@ def make_optimizer(name: str, lr: float = 1e-3, max_norm: Optional[float] = None
     elif name == "momentum-sgd":
         inner = torch.optim.SGD(params, lr=lr, momentum=momentum)
     elif name == "rmsprop":
-        raise NotImplementedError("optimizer 'rmsprop' is not ported: optax.rmsprop's update "
-                                  "rule is not torch.optim.RMSprop's")
+        inner = OptaxRMSprop(params, lr=lr)
     else:
         raise ValueError(f"Unsupported optimizer: {name}")
     return Optimizer(inner, max_norm)
@@ -214,6 +239,27 @@ def make_train_step(model: torch.nn.Module, criterion: Callable, optimizer: Opti
                     if state[name] is not buf and state[name]._version != versions[name]:
                         buf.copy_(state[name])
         loss = _loss_of(criterion(estimates, sources))
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step
+
+
+def make_attractor_train_step(model: torch.nn.Module, criterion: Callable,
+                              optimizer: Optimizer) -> Callable:
+    """Build (mixture, sources, assignment, threshold_weight) -> loss for DANet (JAX
+    `train/steps.py:213`): the oracle attractors from the batch's assignment, the loss
+    `criterion(model(mixture, assignment, threshold_weight), sources)`.
+
+    The JAX step applies the model with `train=False`, so DANet's dropout never acts
+    there; the model runs in eval mode here for the same function.
+    """
+
+    def step(mixture, sources, assignment, threshold_weight) -> torch.Tensor:
+        model.eval()
+        optimizer.zero_grad()
+        loss = _loss_of(criterion(model(mixture, assignment, threshold_weight), sources))
         loss.backward()
         optimizer.step()
         return loss.detach()

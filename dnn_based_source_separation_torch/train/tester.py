@@ -8,8 +8,8 @@ optionally PESQ* through a command-line tool, one CSV line each and the
 averages at the end. The forward runs under
 `torch.no_grad()` on the model's device and in its dtype, at each
 utterance's exact length. Also the musdb18 `Evaluater` (museval v4
-medians) and `framewise_sdr` (:160-228). `AttractorTester` comes with
-slice F.
+medians) and `framewise_sdr` (:160-228), and `AttractorTester` (:230-280),
+which evaluates the spectrogram-domain models the same way.
 """
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..data.audio_io import write_wav
+from ..models.wrappers import SpectrogramSeparator
 from ..utils.audio import evaluate_pesq
 from ..utils.bss import bss_eval_sources, bss_eval_v4
 
@@ -74,7 +75,7 @@ class Tester:
             with torch.no_grad():
                 mixture_t = torch.from_numpy(np.asarray(mixture)).to(self.device)[None]  # (1, 1, T)
                 sources_t = torch.from_numpy(np.asarray(sources)).to(self.device)[None]
-                estimates = self.model(mixture_t.to(self.dtype)).float()
+                estimates = self.separate(mixture_t)
                 loss, _ = self.pit_criterion(estimates, sources_t)
                 n_src = sources.shape[0]
                 loss_mix, _ = self.pit_criterion(mixture_t.repeat(1, n_src, 1), sources_t)
@@ -118,6 +119,10 @@ class Tester:
                   f"SAR: {summary['sar']:.3f}, PESQ*: {summary['pesq']:.3f}", flush=True)
         return summary
 
+    def separate(self, mixture: torch.Tensor) -> torch.Tensor:
+        """(1, 1, T) on the device -> estimates (1, n_src, T) f32."""
+        return self.model(mixture.to(self.dtype)).float()
+
     def _pesq(self, references: np.ndarray, estimates: np.ndarray, perm) -> float:
         """PESQ through the command-line tool; a failure scores the floor, -0.5
         (as the reference recipe's TesterBase scores it)."""
@@ -149,6 +154,23 @@ class Tester:
         for s in range(estimates.shape[0]):
             est = estimates[s] / (np.abs(estimates[s]).max() + 1e-9)
             write_wav(os.path.join(out, f"source{s}.wav"), est, self.sample_rate)
+
+
+class AttractorTester(Tester):
+    """Tester of the spectrogram-domain models: `models/wrappers.py:SpectrogramSeparator`
+    makes the estimates,
+    then the Tester's metrics (JAX `train/tester.py:AttractorTester`, after the reference's
+    TesterBase for the embedding family, `egs/wsj0-mix/common/src/driver.py:600-701`)."""
+
+    def __init__(self, model, dataset, pit_criterion, n_fft: int,
+                 hop_length: Optional[int] = None, window_fn: str = "hann", kind: str = "danet",
+                 n_sources: int = 2, iter_clustering: int = 10, **kwargs):
+        super().__init__(model, dataset, pit_criterion, **kwargs)
+        self.separator = SpectrogramSeparator(model, n_fft, hop_length, window_fn, kind,
+                                              n_sources, iter_clustering)
+
+    def separate(self, mixture: torch.Tensor) -> torch.Tensor:
+        return self.separator(mixture)
 
 
 def framewise_sdr(references: np.ndarray, estimates: np.ndarray, sample_rate: int,

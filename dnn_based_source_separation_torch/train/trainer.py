@@ -51,6 +51,8 @@ class TrainerConfig:
 class Trainer:
     """Drives epoch training of a separation model on one device."""
 
+    samples_per_step = 1  # audio samples per step of a batch's last axis (a hop for frames)
+
     def __init__(self, model: torch.nn.Module, train_loader, valid_loader, criterion: Callable,
                  optimizer: Optimizer, config: TrainerConfig, device,
                  compute_dtype: Optional[torch.dtype] = None,
@@ -154,7 +156,8 @@ class Trainer:
             fetch_seconds += time.perf_counter() - t0
             device_losses.append(self.train_step(*batch))
             iter_seconds.append(time.perf_counter() - t0)
-            audio_seconds += batch[0].shape[0] * batch[0].shape[-1] / cfg.sample_rate
+            audio_seconds += (batch[0].shape[0] * batch[0].shape[-1] * self.samples_per_step
+                              / cfg.sample_rate)
             idx += 1
             if idx % cfg.log_interval == 0:
                 running = float(torch.stack(device_losses).mean())

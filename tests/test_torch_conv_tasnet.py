@@ -69,7 +69,7 @@ def _forward(port, x):
 def test_forward_matches_jax(causal):
     config = dict(CFG, causal=causal)
     jmodel, variables, port, x = _pair(config, T=643)  # off the stride grid: pads
-    expected = np.asarray(jmodel.apply(variables, jnp.asarray(x)))
+    expected = np.asarray(jax.jit(jmodel.apply)(variables, jnp.asarray(x)))
     got = _forward(port, x)
     assert got.shape == expected.shape == (2, 2, 643)
     np.testing.assert_allclose(got, expected, rtol=0, atol=ATOL)
@@ -77,7 +77,8 @@ def test_forward_matches_jax(causal):
 
 def test_extract_latent_matches_jax():
     jmodel, variables, port, x = _pair(dict(CFG, mask_nonlinear="softmax"), T=402, seed=1)
-    j_out, j_latent = jmodel.apply(variables, jnp.asarray(x), method=jmodel.extract_latent)
+    j_out, j_latent = jax.jit(lambda v, x: jmodel.apply(v, x, method=jmodel.extract_latent))(
+        variables, jnp.asarray(x))
     with torch.no_grad():
         out, latent = port.extract_latent(torch.from_numpy(x))
     np.testing.assert_allclose(out.numpy(), np.asarray(j_out), rtol=0, atol=ATOL)
@@ -88,7 +89,7 @@ def test_extract_latent_matches_jax():
 def test_fold_matches_jax(mode):
     jmodel, variables, port, x = _pair(CFG, T=640, seed=2)
     jfolded, jvars = jax_fold(jmodel, variables, mode=mode)
-    expected = np.asarray(jfolded.apply(jvars, jnp.asarray(x)))
+    expected = np.asarray(jax.jit(jfolded.apply)(jvars, jnp.asarray(x)))
 
     folded, sd = fold_gln_affine(port, port.state_dict(), mode=mode)
     assert folded.fold_norm_affine == mode
@@ -148,7 +149,7 @@ def test_port_checkpoint_opens_in_jax(tmp_path):
     path = str(tmp_path / "model.pth")
     save_model(path, port)
     jmodel, jparams = build_from_torch_checkpoint(path)
-    expected = np.asarray(jmodel.apply(jparams, jnp.asarray(x)))
+    expected = np.asarray(jax.jit(jmodel.apply)(jparams, jnp.asarray(x)))
     np.testing.assert_allclose(_forward(port, x), expected, rtol=0, atol=ATOL)
 
     loaded = load_model(path)
@@ -177,7 +178,8 @@ def test_complex_and_pinv_filterbanks_are_not_ported(basis):
     # masked latent, complex for the Fourier encoder.
     config = dict(CFG, **basis)
     jmodel, variables, port, x = _pair(config, T=402, seed=3)
-    j_out, j_latent = jmodel.apply(variables, jnp.asarray(x), method=jmodel.extract_latent)
+    j_out, j_latent = jax.jit(lambda v, x: jmodel.apply(v, x, method=jmodel.extract_latent))(
+        variables, jnp.asarray(x))
     with torch.no_grad():
         out, latent = port.extract_latent(torch.from_numpy(x))
     assert latent.is_complex() == np.iscomplexobj(j_latent)
@@ -189,5 +191,5 @@ def test_complex_and_pinv_filterbanks_are_not_ported(basis):
 @pytest.mark.slow
 def test_paper_config_forward_matches_jax():
     jmodel, variables, port, x = _pair(PAPER, T=4000, seed=5, batch=1)  # 0.5 s at 8 kHz
-    expected = np.asarray(jmodel.apply(variables, jnp.asarray(x)))
+    expected = np.asarray(jax.jit(jmodel.apply)(variables, jnp.asarray(x)))
     np.testing.assert_allclose(_forward(port, x), expected, rtol=0, atol=ATOL)

@@ -77,7 +77,7 @@ def test_forward_matches_jax(monkeypatch, causal, pallas):
     config = dict(CFG, causal=causal)
     # T=203: T' = 100 latent frames, off the (K=10, P=5) chunk grid: pads 5.
     jmodel, variables, port, x = _pair(config, T=203, seed=int(pallas) + 2 * causal)
-    expected = np.asarray(jmodel.apply(variables, jnp.asarray(x)))
+    expected = np.asarray(jax.jit(jmodel.apply)(variables, jnp.asarray(x)))
     got = _forward(port, x)
     assert got.shape == expected.shape == (2, 2, 203)
     np.testing.assert_allclose(got, expected, rtol=0, atol=ATOL)
@@ -86,7 +86,8 @@ def test_forward_matches_jax(monkeypatch, causal, pallas):
 @pytest.mark.parametrize("mask_nonlinear", ["softmax", "relu"])
 def test_extract_latent_and_other_masks_match_jax(mask_nonlinear):
     jmodel, variables, port, x = _pair(dict(CFG, mask_nonlinear=mask_nonlinear), T=157, seed=5)
-    j_out, j_latent = jmodel.apply(variables, jnp.asarray(x), method=jmodel.extract_latent)
+    j_out, j_latent = jax.jit(lambda v, x: jmodel.apply(v, x, method=jmodel.extract_latent))(
+        variables, jnp.asarray(x))
     with torch.no_grad():
         out, latent = port.extract_latent(torch.from_numpy(x))
     np.testing.assert_allclose(out.numpy(), np.asarray(j_out), rtol=0, atol=ATOL)
@@ -126,7 +127,7 @@ def test_port_checkpoint_opens_in_jax(tmp_path, causal):
     save_model(path, port)
     jmodel, jparams = build_from_torch_checkpoint(path)
     assert type(jmodel).__name__ == "DPRNNTasNet" and jmodel.causal == causal
-    expected = np.asarray(jmodel.apply(jparams, jnp.asarray(x)))
+    expected = np.asarray(jax.jit(jmodel.apply)(jparams, jnp.asarray(x)))
     np.testing.assert_allclose(_forward(port, x), expected, rtol=0, atol=ATOL)
 
     loaded = load_model(path)
@@ -167,7 +168,7 @@ def test_gru_forward_matches_jax(monkeypatch, causal, pallas):
     monkeypatch.setenv("DNNTPU_PALLAS_LSTM", pallas)
     config = dict(CFG, causal=causal, rnn_type="gru")
     jmodel, variables, port, x = _pair(config, T=203, seed=10 + int(pallas) + 2 * causal)
-    expected = np.asarray(jmodel.apply(variables, jnp.asarray(x)))
+    expected = np.asarray(jax.jit(jmodel.apply)(variables, jnp.asarray(x)))
     got = _forward(port, x)
     assert got.shape == expected.shape == (2, 2, 203)
     np.testing.assert_allclose(got, expected, rtol=0, atol=ATOL)
@@ -180,7 +181,7 @@ def test_stream_safe_forward_matches_jax(monkeypatch, rnn_type, pallas):
     monkeypatch.setenv("DNNTPU_PALLAS_LSTM", pallas)
     config = dict(CFG, causal=True, stream_safe=True, rnn_type=rnn_type)
     jmodel, variables, port, x = _pair(config, T=203, seed=20 + int(pallas))
-    expected = np.asarray(jmodel.apply(variables, jnp.asarray(x)))
+    expected = np.asarray(jax.jit(jmodel.apply)(variables, jnp.asarray(x)))
     got = _forward(port, x)
     assert got.shape == expected.shape == (2, 2, 203)
     np.testing.assert_allclose(got, expected, rtol=0, atol=ATOL)
@@ -229,5 +230,5 @@ def test_port_checkpoint_round_trips(tmp_path, variant):
 def test_recipe_config_forward_matches_jax(causal):
     config = dict(RECIPE, causal=causal)
     jmodel, variables, port, x = _pair(config, T=4000, seed=8, batch=1)  # 0.5 s at 8 kHz
-    expected = np.asarray(jmodel.apply(variables, jnp.asarray(x)))
+    expected = np.asarray(jax.jit(jmodel.apply)(variables, jnp.asarray(x)))
     np.testing.assert_allclose(_forward(port, x), expected, rtol=0, atol=ATOL)

@@ -40,7 +40,10 @@ def test_importing_every_port_module_leaves_jax_out():
                 "models.xumx", "models.wrappers", "algorithm.frequency_mask", "data.musdb18",
                 "cli.test_musdb18", "hub.from_jax", "criterion.distance", "criterion.combination",
                 "criterion.spectral", "criterion.multidomain", "augmentation",
-                "cli.train_musdb18"):
+                "cli.train_musdb18", "utils.embedding", "algorithm.clustering",
+                "models.wavesplit", "train.wavesplit", "cli.train_wsj0mix_wavesplit",
+                "criterion.deep_clustering", "models.deep_clustering", "models.danet",
+                "models.adanet", "train.attractor", "cli.train_wsj0mix_spec"):
         assert f"dnn_based_source_separation_torch.{new}" in modules, new
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"

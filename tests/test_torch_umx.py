@@ -77,7 +77,7 @@ def _forward(model, x):
 
 
 def _apply(jmodel, variables, x):
-    return np.asarray(jmodel.apply(variables, jnp.asarray(x)))
+    return np.asarray(jax.jit(jmodel.apply)(variables, jnp.asarray(x)))
 
 
 # The Pallas flag only changes JAX's bidirectional recurrences: causal cases run once.

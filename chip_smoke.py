@@ -13,6 +13,7 @@
     python3 chip_smoke.py --only 14       # LSTM-TasNet, SepFormer and GALRNet, their kernels first
     python3 chip_smoke.py --only 15       # RNN / SRU, FurcaNet, musdb18's waveform models
     python3 chip_smoke.py --only 16       # Wavesplit, DANet, ADANet, deep clustering (16k first)
+    python3 chip_smoke.py --only 17       # D3Net, MMDenseNet, MMDenseLSTM, HRNet, CUNet (17k first)
 
 Phases (any failure exits non-zero; nothing is caught and passed):
   1. device: require CUDA, print the card's name and power limit, turn TF32 off;
@@ -143,14 +144,15 @@ Phases (any failure exits non-zero; nothing is caught and passed):
      by default and with --streaming_hop 0.05 --causal, its JSON lines printed;
   7. one train step, card vs CPU: recipe-config DPRNN-TasNet (LSTM and GRU,
      non-causal and causal) and paper-config Conv-TasNet, same seed-made
-     weights and batch, f32: the loss and every gradient, none all zero on the
-     card, and the kernel launches of the step;
-  8. train through cli/train_wsj0mix.py on a synthetic wsj0-style corpus:
+     weights and batch (B = 1 x 0.125 s), f32: the loss and every gradient, none
+     all zero on the card, and the kernel launches of the step;
+  8. train through cli/train_wsj0mix.py on a synthetic wsj0-style corpus (three
+     training and one validation utterance):
      `python -m` for two epochs, then in-process --continue_from, causal,
      --mixed_precision 1, --rnn_type gru (f32, bf16, causal f32 and bf16) and Conv-TasNet
      runs, with the launches of every run checked against its steps and
      validation forwards; one step and one validation forward counted alone;
-     a fixed batch must lower its loss over 20 steps; the trained checkpoints
+     a fixed batch must lower its loss over 10 steps; the trained checkpoints
      serve through cli/separate.py;
   9. training throughput (informational): p50 step time and audio-s/s, and a
      torch.profiler split of one DPRNN-TasNet step, LSTM and GRU, then of its
@@ -176,7 +178,7 @@ Phases (any failure exits non-zero; nothing is caught and passed):
      chunk card vs CPU; the bench's `--model umx` and `--model xumx` lines;
   12. musdb18 training at the recipe widths (the train CLI's defaults: n_fft 4096,
      hop 1024, max_bin 1487, hidden 512, 3 layers, four stems, Adam at 1e-3): one UMX
-     and one X-UMX step (dropout 0, B = 2 x 6 s) card vs an f64 CPU step, as phase 7;
+     and one X-UMX step (dropout 0, B = 1 x 6 s) card vs an f64 CPU step, as phase 7;
      cli/train_musdb18.py --device cuda for each model on a synthetic musdb-layout
      corpus, two epochs of 6 steps at B = 16 x 6 s with dropout 0.4 (the epoch's
      train loss must fall), its last.ckpt served through cli/test_musdb18.py; every
@@ -195,7 +197,7 @@ Phases (any failure exits non-zero; nothing is caught and passed):
      both dtypes (ms, every launch on its route: "wide" at 5112 and 800 sequences), one
      profiled forward split into the recurrence kernels, the attention (CUDA events around
      each MultiheadAttention call) and the rest, with the idle share; one train step (2
-     blocks, B = 1 x 0.5 s, causal or not) card vs an f64 CPU step, as phase 7, its
+     blocks, B = 1 x 0.25 s, causal or not) card vs an f64 CPU step, as phase 7, its
      launches joining the main path's (the causal step trains the one-chain backward);
      cli/train_wsj0mix.py --model dptnet --warmup_steps 20 at B = 2 x 4 s for two epochs
      of 5 steps (every step and validation forward on its routes, the epoch train loss
@@ -257,7 +259,8 @@ Phases (any failure exits non-zero; nothing is caught and passed):
      training (with cs, and its backward) and (8, 32000) x 2 serving shapes (f32 and bf16)
      at H = 128, every tf32x3 tile the card holds beside the planned one, and at MRX's
      (1, 1724) x 2 serving and (16, 1035) x 2 training shapes at H = 256 (with cs, and its
-     backward), each against its plain version at the full length, beside the FMA kernel
+     backward), each against its plain version at the full length (the serving shape's
+     over its first 8000 steps: the same computation), beside the FMA kernel
      forced, cuDNN's nn.LSTM and the bound; fused_mask_decode at stereo Conv-TasNet's and
      Meta-TasNet's decoder widths (B = 1 x 10 s, f32) beside the plain version and einsum.
   16. Wavesplit and the embedding / attractor family at their recipes' widths (seed-0
@@ -280,7 +283,23 @@ Phases (any failure exits non-zero; nothing is caught and passed):
      route _plan gives H = 300, the FMA kernels; and (16k) lstm_scan_bidir at H = 300, the
      training shape (64, 101) x 2 with cs and its backward and a 4 s utterance's (1, 501)
      x 2 in f32 and bf16, each against its plain version at the full length, the kernel
-     alone and the whole call from CUDA graphs, beside cuDNN's nn.LSTM and the bound.
+     alone and the whole call from CUDA graphs, beside cuDNN's nn.LSTM and the bound;
+  17. musdb18's 2-D dense / U-Net recipes at their recipe widths (the port's
+     egs/musdb18/{d3net,mm-densenet,mm-dense-lstm,hrnet,cunet}/train.sh and the repo's
+     recipe YAMLs): each model card vs CPU (a one-stem model, 1 s; CUNet keeps its four
+     conditions), its base model in bf16 vs f32, one train step against an f64 CPU step
+     (B = 1 x 0.25-1 s), the recipe step at its batch or the largest power-of-two batch that
+     fits (split, peak; D3Net's B = 6 does not fit), cli/train_musdb18.py two epochs of
+     one step at that batch (the loss falling, the step p50, the peak, the checkpoint
+     reopened); D3Net, MMDenseNet and MMDenseLSTM (the ones JAX's test CLI evaluates) served
+     and scored through cli/test_musdb18.py on a 1 s synthetic track, card vs CPU (stems
+     within 1e-3 x
+     max|CPU|, medians within MUSDB_DB_TOL), and their B = 1 x 10 s forward timed and
+     profiled (device time by kind, idle share); MMDenseLSTM's 24 recurrences a forward on
+     their routes (H = 64 and 16 tensor cores, H = 4 the FMA kernel); and (17k)
+     lstm_scan_bidir at H = 64, 16 and 4 at a 10 s chunk's B = 1 sequences in f32 and bf16
+     and recipe training's B = 6 with cs and its backward, each against its plain version,
+     beside the FMA kernel, cuDNN's nn.LSTM and the bound.
 
 Each serving, quantizing and evaluation path, and the training path of phase
 8, runs with every launch count set to 0 just before it and read just after
@@ -298,7 +317,8 @@ cluster backward. Phase 13's DPTNet runs and phase 14's runs are held launch by
 launch to their routes (the wide backward at its training sequences; LSTM-TasNet's
 H = 500 on the padded cluster kernels, each launch also in PADDED_LAUNCHES) and then join
 the total, which must have launched every path but the FMA ones, and no FMA kernel at
-all but phase 16's (H = 300, where _plan keeps the FMA kernels; each held to its route).
+all but phase 16's (H = 300, where _plan keeps the FMA kernels; each held to its route)
+and phase 17's (MMDenseLSTM's H = 4).
 The last line
 is {"ok": true, "device":
 {...}}; the line before it lists the kernels with their launch counts,
@@ -334,7 +354,11 @@ kernel alone as `kernel_ms`, with phase 14's padded launches) and GALRNet's (H =
 shapes, with phase 14's launches of that kernel on that route; and phase 16k's rows:
 lstm_scan_bidir at H = 300 on the FMA kernel (the whole call as `ms`, the kernel alone as
 `kernel_ms`, cuDNN's nn.LSTM at F = 129 as `library_ms`), with phase 16's launches of that
-kernel on that route. The bf16 fused_mask_decode rows'
+kernel on that route; and phase 17k's rows: lstm_scan_bidir at MMDenseLSTM's H = 64, 16
+(tf32x3 / mma, the FMA kernel forced beside them) and 4 (the FMA kernel, whole call and
+kernel alone), B = 1 serving and B = 6 training with its backward, cuDNN's nn.LSTM at the
+layer's input width, with phase 17's launches of that kernel on that route. The bf16
+fused_mask_decode rows'
 `library_ms` is torch.einsum on bf16 operands, whose output is bf16 (the kernel's is f32).
 """
 from __future__ import annotations
@@ -362,6 +386,7 @@ from dnn_based_source_separation_torch.bench import (
     ADANET, DANET, DEEP_CLUSTERING, DPRNN, DPTNET, GALRNET, LSTM_TASNET, MUSDB_SAMPLE_RATE, PAPER,
     PEAK_FLOPS, SEPFORMER, SPEC_STFT, UMX, UMX_STFT, WAVESPLIT,
 )
+from dnn_based_source_separation_torch import bench as bench_module
 from dnn_based_source_separation_torch.bench import main as bench_main
 from dnn_based_source_separation_torch.cli import separate as cli
 from dnn_based_source_separation_torch.cli import test_musdb18 as musdb_cli
@@ -442,7 +467,7 @@ LSTM_SHAPES = [
 # recurrent product in another order. bf16: both round h to bf16 each step,
 # and a rounding that lands the other way feeds every later step.
 LSTM_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
-REPEATS = 10  # further launches of each tensor-core recurrence kernel, each checked
+REPEATS = 5  # further launches of each tensor-core recurrence kernel, each checked
 SNR_LIMIT_DB = 25.0
 STREAMING_HOP = 0.05  # seconds: 400 samples at 8 kHz
 STREAM_TOL = 1e-4  # streamed vs offline f32, relative to max|offline|
@@ -507,6 +532,19 @@ def median_ms(fn, warmup: int = 3, iters: int = 20) -> float:
 
 
 GRAPH_BUDGET_MS = 400.0  # a timing's runs: fewer (not under 3 or 5) where one run is long
+LATENCY_RUNS = 2  # CLI requests timed a model (phase 6)
+BENCH_LINE_ITERS = 5  # timed forwards of the in-process bench lines of phases 13 and 14
+
+
+@contextlib.contextmanager
+def bench_iters(iters):
+    """The bench module timing `iters` forwards (its ITERS) inside the block: the
+    informational per-model bench lines; phase 6 runs the module as a user does."""
+    saved, bench_module.ITERS = bench_module.ITERS, iters
+    try:
+        yield
+    finally:
+        bench_module.ITERS = saved
 
 
 def budget_ms(fn, iters: int = 20, least: int = 3, warmup: int = 1) -> float:
@@ -2079,7 +2117,7 @@ def phase_parity(tag, ckpt, wavs, outputs, flags=()):
 def cli_latency(ckpt, wav, what, card, flags=()):
     tmp = os.path.dirname(ckpt)
     lat = []
-    for _ in range(3):
+    for _ in range(LATENCY_RUNS):
         start = time.perf_counter()
         separate(["--model_path", ckpt, "--input", wav, "--out_dir",
                   os.path.join(tmp, "out_latency"), "--device", "cuda", "--dtype", "bfloat16",
@@ -2325,19 +2363,19 @@ def phase_train_parity():
     each tensor within GRAD_TOL_TENSOR x its max|g|: a missing or wrong
     backward is off by O(1).
     """
-    log("== phase 7: one train step, card vs CPU (f32, TF32 off, B=1 x 0.5 s; f64 CPU "
+    log("== phase 7: one train step, card vs CPU (f32, TF32 off, B=1 x 0.125 s; f64 CPU "
         "reference)")
     for tag, (cls, cfg) in TRAIN_MODELS.items():
         def make(device):
             return scramble_norms(cls(**cfg, generator=torch.Generator().manual_seed(0),
                                       device=device))
         cpu_model = make("cpu")
-        batch = train_batch(1, 0.5, "cpu")
+        batch = train_batch(1, 0.125, "cpu")
         ref_loss, ref_grads = grads_of_step(copy.deepcopy(cpu_model).double(),
                                             tuple(t.double() for t in batch))
         cpu_loss, cpu_grads = grads_of_step(cpu_model, batch)
         reset_counts()
-        card_loss, card_grads = grads_of_step(make("cuda"), train_batch(1, 0.5, "cuda"))
+        card_loss, card_grads = grads_of_step(make("cuda"), train_batch(1, 0.125, "cuda"))
         torch.cuda.synchronize()
         launched = counts()
         check(launched == train_step_launches(tag),
@@ -2423,8 +2461,8 @@ def phase_train_cli(tmp, card):
     """Train through the CLI on a synthetic wsj0-style corpus; resume; serve the result."""
     log("== phase 8: train through cli/train_wsj0mix.py")
     corpus = os.path.join(tmp, "corpus")
-    tr_root, tr_list = write_quality_corpus(corpus, "tr", 6)  # 8 windows of 4 s
-    cv_root, cv_list = write_quality_corpus(corpus, "cv", 2)
+    tr_root, tr_list = write_quality_corpus(corpus, "tr", 3)
+    cv_root, cv_list = write_quality_corpus(corpus, "cv", 1)
     data = ["--train_wav_root", tr_root, "--train_list_path", tr_list, "--valid_wav_root",
             cv_root, "--valid_list_path", cv_list, "--duration", "4", "--valid_duration", "4",
             "--device", "cuda"]
@@ -2466,7 +2504,7 @@ def phase_train_cli(tmp, card):
                                     tag)
         trainers.setdefault(tag, trainer)  # the f32 one of each model for the checks below
 
-    # Per step and per validation forward, then a fixed batch trained for 20 steps.
+    # Per step and per validation forward, then a fixed batch trained for 10 steps.
     for tag, trainer in trainers.items():
         batch = train_batch(2 if tag.startswith("dprnn") else 4, 4.0, "cuda", seed=11)
         before = all_counts()
@@ -2481,12 +2519,12 @@ def phase_train_cli(tmp, card):
         check_paths(step_all, {}, f"{tag}: an f32 train step")
         check_paths(eval_all, {}, f"{tag}: an f32 validation forward",
                     decode_path(tag, "float32"))
-        losses += [float(trainer.train_step(*batch)) for _ in range(19)]
+        losses += [float(trainer.train_step(*batch)) for _ in range(9)]
         log(f"  {tag}: one train step launched {nonzero(step_launches)}; one validation "
-            f"forward {nonzero(eval_grew)}; a fixed batch over 20 steps: loss {losses[0]:.4f} "
+            f"forward {nonzero(eval_grew)}; a fixed batch over 10 steps: loss {losses[0]:.4f} "
             f"-> {losses[-1]:.4f}")
         check(np.isfinite(losses).all() and losses[-1] < losses[0],
-              f"{tag}: 20 steps on one batch did not lower its loss: {losses}")
+              f"{tag}: 10 steps on one batch did not lower its loss: {losses}")
     launches = all_counts()
     log(f"  training-path kernel launches: {nonzero(launches)}")
 
@@ -2501,7 +2539,7 @@ def phase_train_cli(tmp, card):
     return launches, checkpoints
 
 
-def timed_train_steps(cls, cfg, B, compute_dtype, card, what, warmup=3, iters=10):
+def timed_train_steps(cls, cfg, B, compute_dtype, card, what, warmup=3, iters=5):
     model = scramble_norms(cls(**cfg, generator=torch.Generator().manual_seed(0), device="cuda"))
     step = make_train_step(model, PIT1d(NegSISDR(), n_sources=2),
                            make_optimizer("adam", 1e-3, 5.0, params=model.parameters()),
@@ -2697,7 +2735,7 @@ def phase_train_throughput(card):
             profile_dprnn_step(model, dtype, card, what)
     for dtype in (None, torch.bfloat16):
         timed_train_steps(*TRAIN_MODELS["conv_tasnet"], 4, dtype, card,
-                          f"Conv-TasNet {'bf16' if dtype else 'f32'}", iters=5)
+                          f"Conv-TasNet {'bf16' if dtype else 'f32'}")
 
 
 def phase_quantized_serve(conv_ckpt, wavs, conv_out):
@@ -2730,7 +2768,7 @@ def phase_quantized_serve(conv_ckpt, wavs, conv_out):
 
 # Uneven test utterances (samples at 8 kHz): off the stride-8 grid of
 # Conv-TasNet and off DPRNN-TasNet's chunk grid.
-TEST_LENGTHS = (9001, 12345, 15997)
+TEST_LENGTHS = (9001, 15997)
 TEST_METRICS = ("loss", "loss_improvement", "sdr_improvement", "sir_improvement", "sar")
 EVAL_TOL_DB = 0.05  # card vs CPU, each metric of each utterance
 
@@ -3191,7 +3229,7 @@ def musdb_train_through_cli(root, kind, tmp, card):
     return stepped, {k: v + served[k] for k, v in validated.items()}, steps
 
 
-def musdb_step_profile(kind, card, warmup=2, iters=10):
+def musdb_step_profile(kind, card, warmup=2, iters=5):
     """The recipe step (B = 16 x 6 s, dropout 0.4) timed on the card: p50 of the forward
     with the loss / backward / optimizer split by CUDA events and of the wall step (host
     clock, synchronised), audio-s/s, peak allocation; then profile_train_step of it."""
@@ -3488,7 +3526,7 @@ def forward_profile(model, dtype, what, per_forward, decode, card, decodes=1):
 
 
 def lstm_kernel_timing(model, label, B, T, H, chains, dtype, training, features,
-                       tiles=False):
+                       tiles=False, check_steps=None):
     """One LSTM forward kernel at a model's shape on its planned route against the plain
     version (hs, and cs when `training`), REPEATS more launches checked; timed alone from
     CUDA graphs, with the FMA kernel forced and checked in the same run where the plan
@@ -3496,7 +3534,11 @@ def lstm_kernel_timing(model, label, B, T, H, chains, dtype, training, features,
     nn.LSTM (the model's input width `features`) and the bound. A padded route (H = 500 on
     the cluster kernel at 512) is held to the FMA kernel's hs (and cs) too, and timed whole,
     its pads and slices included, as `ms`, the kernel alone as `kernel_ms`. With `tiles`,
-    every tf32x3 tile too, held to the same plain run (tf32_tiles)."""
+    every tf32x3 tile too, held to the same plain run (tf32_tiles). With `check_steps`, the
+    plain version runs over each chain's first check_steps steps only and the launches are
+    held to it there (a chain's output at step t depends on its first t + 1 inputs alone,
+    so those steps are the same computation), and its time is of those steps
+    (`plain_steps`)."""
     name = "lstm_scan_bidir" if chains == 2 else "lstm_scan"
     inputs = lstm_chains(B, T, H, chains, dtype, seed=B + T)
     path, tile = plan(ls, B, chains, H, dtype)
@@ -3510,14 +3552,21 @@ def lstm_kernel_timing(model, label, B, T, H, chains, dtype, training, features,
     # The plain (hs, cs), timed as the plain version (with cs when `training`, as the kernel).
     plain = ls.lstm_forward_reference if training else (
         lambda xw, w: (ls.lstm_scan_reference(xw, w), None))
-    refs, plain_ms = timed_once(lambda: [plain(xw, w) for xw, w in inputs])
-    err, limit = forward_error_of(refs, hs, cs if training else None, dtype)
+    steps = check_steps or T
+    refs, plain_ms = timed_once(lambda: [plain(xw[:, :steps], w) for xw, w in inputs])
+
+    def error_of(hs, cs):
+        return forward_error_of(refs, [h[:, :steps] for h in hs],
+                                [c[:, :steps] for c in cs] if training else None, dtype)
+
+    err, limit = error_of(hs, cs)
     worst = err
     for _ in range(REPEATS if path != "fma" else 2):
         launch()
-        worst = max(worst, forward_error_of(refs, hs, cs if training else None, dtype)[0])
+        worst = max(worst, error_of(hs, cs)[0])
     log(f"  {what} {path} ({tile_label(tile)}{', with cs' if training else ''}): "
-        f"max|kernel-plain| {err:.3e}, worst of the launches {worst:.3e} (limit {limit:.3g})")
+        f"max|kernel-plain| {err:.3e}, worst of the launches {worst:.3e} (limit {limit:.3g})"
+        + (f" over the first {steps} of {T} steps" if steps < T else ""))
     check(worst <= limit, f"{what} disagrees with plain: {worst} > {limit}")
     repeats = CLUSTER_REPEATS if path == "cluster" else 1
     timing = dict(path=path, max_abs_err=err)
@@ -3534,8 +3583,7 @@ def lstm_kernel_timing(model, label, B, T, H, chains, dtype, training, features,
     else:
         fma_hs, fma_cs, fma = ls._staged_forward(inputs, training, "fma")
         on_path(ls.PATH_LAUNCHES[name], name, fma, "fma")
-        timing["fma_max_abs_err"], _ = forward_error_of(refs, fma_hs,
-                                                        fma_cs if training else None, dtype)
+        timing["fma_max_abs_err"], _ = error_of(fma_hs, fma_cs)
         check(timing["fma_max_abs_err"] <= limit, f"{what}: FMA disagrees with plain")
         if width != H:  # the padded route against the unpadded FMA kernel, same limit
             fma_refs = [(h, c) for h, c in zip(fma_hs, fma_cs or [None] * chains)]
@@ -3555,6 +3603,8 @@ def lstm_kernel_timing(model, label, B, T, H, chains, dtype, training, features,
                 f"{timing['kernel_ms']:.4f} ms (pads and slices "
                 f"{(timing['ms'] - timing['kernel_ms']) / timing['ms']:.1%} of the call)")
     timing["plain_ms"] = plain_ms
+    if steps < T:
+        timing["plain_steps"] = steps
     timing["library_ms"] = library_lstm_ms(B, T, H, chains, dtype, features=features,
                                            iters=10)
     # The wide and tf32x3 routes' f32 product is three TF32 products at the tensor cores'
@@ -3684,20 +3734,20 @@ def phase_dptnet_kernels(card=None):
 def dptnet_train_parity():
     """One DPTNet train step on the card against an f64 CPU step (and the f32 CPU step):
     the recipe's widths (N64, bottleneck 64, H256, K100, four heads) at two blocks and
-    B = 1 x 0.5 s, so the f64 reference fits the host; non-causal and causal. -> the two card
+    B = 1 x 0.25 s, so the f64 reference fits the host; non-causal and causal. -> the two card
     steps' launches (the main path's one-chain backward is the causal step's)."""
     log("== phase 13: one DPTNet train step, card vs CPU (f32, TF32 off, recipe widths, 2 "
-        "blocks, B=1 x 0.5 s; f64 CPU reference)")
-    n = SAMPLE_RATE // 2
+        "blocks, B=1 x 0.25 s; f64 CPU reference)")
+    n = SAMPLE_RATE // 4
     launches = {}
     for causal in (False, True):
         tag = f"dptnet{'_causal' if causal else ''}"
         cpu_model = dptnet_model(causal, "cpu", blocks=2)
-        batch = train_batch(1, 0.5, "cpu")
+        batch = train_batch(1, 0.25, "cpu")
         ref = grads_of_step(copy.deepcopy(cpu_model).double(), tuple(t.double() for t in batch))
         cpu = grads_of_step(cpu_model, batch)
         reset_counts()
-        card_step = grads_of_step(dptnet_model(causal, blocks=2), train_batch(1, 0.5, "cuda"))
+        card_step = grads_of_step(dptnet_model(causal, blocks=2), train_batch(1, 0.25, "cuda"))
         torch.cuda.synchronize()
         grew = all_counts()
         routes = {k: v // DPT_BLOCKS * 2 for k, v in
@@ -3842,7 +3892,7 @@ def phase_dptnet(card=None, tmp=None):
     log("== phase 13: the bench module, --model dptnet (informational; in this process, its "
         "line kept off stdout)")
     for flags in ([], ["--dtype", "float32"]):
-        with contextlib.redirect_stdout(io.StringIO()):
+        with contextlib.redirect_stdout(io.StringIO()), bench_iters(BENCH_LINE_ITERS):
             line = bench_main(["--model", "dptnet", *flags])
         check(line["value"] > 0 and line["mfu"] > 0, line)
         log(f"  bench --model dptnet {' '.join(flags)}: {json.dumps(line)}")
@@ -4221,7 +4271,7 @@ def phase_slice_d(card=None, tmp=None):
         "in this process, its line kept off stdout)")
     for tag in SLICE_D:
         for flags in ([], ["--dtype", "float32"]):
-            with contextlib.redirect_stdout(io.StringIO()):
+            with contextlib.redirect_stdout(io.StringIO()), bench_iters(BENCH_LINE_ITERS):
                 line = bench_main(["--model", tag.replace("_", "-"), *flags])
             check(line["value"] > 0 and line["mfu"] > 0, line)
             log(f"  bench --model {tag.replace('_', '-')} {' '.join(flags)}: {json.dumps(line)}")
@@ -4268,6 +4318,9 @@ MRX_HOP, MRX_LAYERS = 256, 9  # three resolutions x three biLSTM layers, H = 512
 WAVE_SECONDS = 10.0  # the CLI's --valid_duration: the validation forward, B = 1
 REST_STEPS = 2  # musdb18 CLI steps an epoch, two epochs a model
 # The new kernel shapes, phase 15k: (model, label, (B, T, H, chains), dtypes, training, F).
+# FurcaNet's B = 8 x 4 s launches are held to the plain version over their first 8000 of
+# 32000 steps (its plain step loop took 9.0 and 14.2 s a dtype over all of them).
+FURCANET_CHECK_STEPS = 8000
 REST_SHAPES = [
     ("FurcaNet", "train", (4, 16000, 128, 2), (torch.float32,), True, 128),
     ("FurcaNet", "serve", (8, 32000, 128, 2), (torch.float32, torch.bfloat16), False, 128),
@@ -4361,7 +4414,9 @@ def phase_rest_kernels(card=None):
             # FurcaNet's tiles at its training shape only: one tile a chain at both shapes
             timing, inputs, hs, cs = lstm_kernel_timing(
                 model, label, B, T, H, chains, dtype, training, features,
-                tiles=model == "FurcaNet" and training)
+                tiles=model == "FurcaNet" and training,
+                check_steps=FURCANET_CHECK_STEPS if (model, label) == ("FurcaNet", "serve")
+                else None)
             result[(name, model, label, dtype)] = timing
             if model == "FurcaNet" and dtype == torch.float32:  # bf16 cuDNN: 15x the kernel
                 timing["library_f256_ms"] = library_lstm_ms(B, T, H, chains, dtype, 256,
@@ -4588,7 +4643,7 @@ def rest_wsj0_cli(tag, tmp, corpus, card):
     return add_counts(grew, served)
 
 
-def wave_recipe_step(kind, card, iters=3):
+def wave_recipe_step(kind, card, iters=2):
     """The musdb18 recipe's train step at its batch on the card, or, where that runs out of
     device memory, at the largest power-of-two batch below it that fits (the widths kept):
     p50 of the step (host clock), its forward / backward / optimizer split (CUDA events),
@@ -5297,6 +5352,465 @@ def phase_spec(card=None, tmp=None):
     return dict(launches=total, kernels=kernels, numbers=numbers)
 
 
+# Phase 17: musdb18's 2-D dense / U-Net recipes (D3Net, MMDenseNet, MMDenseLSTM, HRNet,
+# CUNet) at their recipe widths: cli/train_musdb18.py at the flags of the port's
+# egs/musdb18/{d3net,mm-densenet,mm-dense-lstm,hrnet,cunet}/train.sh, the band-structured
+# models from the repo's recipe YAMLs (egs/musdb18/*/config).
+SLICE_E_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "egs", "musdb18")
+SLICE_E_CLI = {
+    "d3net": ["--model", "d3net", "--d3net_config",
+              os.path.join(SLICE_E_DIR, "d3net", "config", "vocals.yaml"), "--n_fft", "4096",
+              "--hop_length", "1024", "--batch_size", "6", "--lr", "1e-3"],
+    "mm-densenet": ["--model", "mm-densenet", "--mmdense_config",
+                    os.path.join(SLICE_E_DIR, "mm-densenet", "config", "paper.yaml"),
+                    "--n_fft", "2048", "--hop_length", "1024", "--batch_size", "6", "--lr",
+                    "1e-3"],
+    "mm-dense-lstm": ["--model", "mm-dense-lstm", "--mmdense_config",
+                      os.path.join(SLICE_E_DIR, "mm-dense-lstm", "config", "paper.yaml"),
+                      "--n_fft", "4096", "--hop_length", "2048", "--batch_size", "6", "--lr",
+                      "1e-3"],
+    "hrnet": ["--model", "hrnet", "--target", "vocals", "--criterion", "mae", "--sample_rate",
+              "16000", "--n_fft", "1024", "--hop_length", "512", "--batch_size", "5", "--lr",
+              "1e-4"],
+    "cunet": ["--model", "cunet", "--conditioning", "film", "--criterion", "l1loss", "--n_fft",
+              "1024", "--hop_length", "768", "--cunet_channels", "2,16,32,64,128,256",
+              "--cunet_control_channels", "4,16,64", "--batch_size", "4", "--lr", "1e-3"],
+}
+SLICE_E_EVALUATED = ("d3net", "mm-densenet", "mm-dense-lstm")  # JAX's CLI evaluates these
+# The train step against f64 (B = 1): MMDenseLSTM's deepest recurrences need frames to
+# recur over (1 s: 22 at hop 2048, 2 at 1/16); D3Net's f64 CPU step is the costly one.
+SLICE_E_PARITY_SECONDS = {"d3net": 0.25, "mm-densenet": 0.5, "mm-dense-lstm": 1.0,
+                          "hrnet": 0.5, "cunet": 0.5}
+SLICE_E_TRACK_SECONDS = 1.0  # the evaluated synthetic track: one chunk
+SLICE_E_HOST_CORES = 2  # the host's cores left to the thread driving the card in phase 17
+# The train step against f64: a tensor's max|g| is taken as at least this share of the
+# largest (check_step_against_f64's null_floor). A one-channel bias into a recurrence's
+# bottleneck sums one number over the whole map: its terms cancel to far below the rest,
+# and the CPU's own f32 step misses it by 6.6e-2 of its max|g| (PR 23's first chip run).
+SLICE_E_SMALL_GRAD = 1e-2
+# MMDenseLSTM's recurrences a stem (egs/musdb18/mm-dense-lstm/config/paper.yaml): (band,
+# pooling level, bins read, H a direction). Frames at level l: the chunk's halved l times.
+MMDL_RNNS = [("low", 3, 48, 64), ("low", 1, 190, 64), ("middle", 3, 81, 16),
+             ("high", 2, 257, 4), ("full", 4, 129, 64), ("full", 1, 1025, 64)]
+MMDL_HOP = 2048
+# 17k: (label, (B, T, H), input width, dtypes, training): each H at a 10 s chunk's longest
+# sequence (B = 1, 216 frames at hop 2048) and at recipe training's (B = 6 x 6 s, 130 frames).
+MMDL_SHAPES = [
+    ("serve", (1, 108, 64), 1025, (torch.float32, torch.bfloat16), False),
+    ("serve", (1, 27, 16), 81, (torch.float32, torch.bfloat16), False),
+    ("serve", (1, 54, 4), 257, (torch.float32, torch.bfloat16), False),
+    ("train", (6, 65, 64), 1025, (torch.float32,), True),
+    ("train", (6, 17, 16), 81, (torch.float32,), True),
+    ("train", (6, 33, 4), 257, (torch.float32,), True),
+]
+CONV_KERNEL = re.compile(r"conv|gemm|winograd|cutlass|xmma|fprop|dgrad|wgrad", re.I)
+NORM_KERNEL = re.compile(r"batch_norm|batchnorm|bn_fw|bn_bw", re.I)
+
+
+def mmdl_routes(B, dtype, backward=False, stems=4):
+    """One MMDenseLSTM forward's (and backward's) recurrence launches over B sequences: six
+    lstm_scan_bidir a stem, each H on the route _plan (_plan_bwd) gives it."""
+    routes = {}
+    for *_, H in MMDL_RNNS:
+        keys = [f"lstm_scan_bidir/{plan(ls, B, 2, H, dtype)[0]}"]
+        if backward:
+            keys.append(f"lstm_scan_bidir_bwd/{plan_bwd(ls, B, 2, H, dtype)[0]}")
+        for key in keys:
+            routes[key] = routes.get(key, 0) + stems
+    return routes
+
+
+def slice_e_routes(kind, B, dtype=torch.float32, backward=False, stems=4):
+    return mmdl_routes(B, dtype, backward, stems) if kind == "mm-dense-lstm" else {}
+
+
+def slice_e_args(kind, *extra):
+    return musdb_train_cli.build_parser().parse_args(
+        ["--musdb18_root", "", "--seed", "0", *SLICE_E_CLI[kind], *extra])
+
+
+def slice_e_sources(args):
+    return [args.target] if args.model == "hrnet" else args.sources.split(",")
+
+
+def slice_e_model(kind, device="cuda", *extra):
+    """The train CLI's own model (seed 0) and criterion for `kind` at its recipe, BatchNorm
+    running statistics off their start (so eval mode does real work)."""
+    args = slice_e_args(kind, *extra)
+    model, criterion = musdb_train_cli.build_model_and_criterion(args, slice_e_sources(args),
+                                                                 device)
+    rng = np.random.default_rng(0)
+    with torch.no_grad():
+        for name, t in model.named_buffers():
+            if name.endswith("running_var"):
+                t.copy_(torch.from_numpy(0.5 + rng.random(t.shape, np.float32)))
+            elif name.endswith("running_mean"):
+                t.copy_(torch.from_numpy(0.1 * rng.standard_normal(t.shape).astype(np.float32)))
+    return model, criterion
+
+
+def slice_e_batch(kind, B, seconds, device, seed=12):
+    """Four stereo stems of noise and their sum at the recipe's rate -> (mixture (B, 1, 2,
+    T), the targets: HRNet's vocals alone, (B, 1, 2, T), else (B, 4, 2, T))."""
+    args = slice_e_args(kind)
+    rng = np.random.default_rng(seed)
+    sources = 0.1 * rng.standard_normal((B, 4, 2, int(seconds * args.sample_rate)),
+                                        dtype=np.float32)
+    mixture = torch.from_numpy(sources.sum(axis=1, keepdims=True)).to(device)
+    targets = torch.from_numpy(sources).to(device)
+    return mixture, targets[:, 3:] if kind == "hrnet" else targets
+
+
+def slice_e_one_stem(kind):
+    """The flags of a one-stem model for the CPU comparisons (CUNet's control network
+    reads the four stems' one-hot: it keeps them; HRNet has one stem)."""
+    return () if kind in ("cunet", "hrnet") else ("--sources", "vocals")
+
+
+def phase_slice_e_kernels(card=None):
+    """Phase 17k: lstm_scan_bidir at MMDenseLSTM's H = 64, 16 and 4 (the tensor-core routes
+    for 64 and 16, the FMA kernel for 4), a 10 s chunk's B = 1 sequences in f32 and bf16
+    and recipe training's B = 6 with cs and the backward, on the routes _plan gives,
+    against the plain versions (lstm_kernel_timing, lstm_backward_timing: the FMA kernel
+    forced beside a tensor-core route, cuDNN's nn.LSTM at the layer's input width, the
+    bound); the launches by route of these checks. -> {(name, label, H, dtype): timing}."""
+    card = card or card_line()
+    log("== phase 17k: lstm_scan_bidir at MMDenseLSTM's H = 64, 16, 4 vs plain on the card "
+        f"[{card}]")
+    result = {}
+    reset_counts()
+    for label, (B, T, H), features, dtypes, training in MMDL_SHAPES:
+        for dtype in dtypes:
+            timing, inputs, hs, cs = lstm_kernel_timing("MMDenseLSTM", label, B, T, H, 2, dtype,
+                                                        training, features)
+            if timing["path"] == "fma":  # the whole call beside the kernel alone
+                timing["kernel_ms"] = timing["ms"]
+                timing["ms"] = graph_ms(lambda: ls._forward_cuda(inputs, training), 1, iters=5)
+                log(f"    whole call {timing['ms']:.4f} ms, kernel alone "
+                    f"{timing['kernel_ms']:.4f} ms")
+            result[("lstm_scan_bidir", label, H, dtype)] = timing
+            if training:
+                result[("lstm_scan_bidir_bwd", label, H, dtype)] = lstm_backward_timing(
+                    "MMDenseLSTM", label, inputs, hs, cs, features)
+            del inputs, hs, cs
+    log(f"  17k's checks launched by route {routes_of(all_counts())}")
+    return result
+
+
+def slice_e_parity_batch(kind, device):
+    """The train step's batch against f64: B = 1 x SLICE_E_PARITY_SECONDS[kind], the targets
+    of a one-stem model's stem."""
+    mixture, targets = slice_e_batch(kind, 1, SLICE_E_PARITY_SECONDS[kind], device)
+    return mixture, targets[:, 3:] if slice_e_one_stem(kind) else targets
+
+
+def slice_e_cpu_side(kind):
+    """The CPU's half of a one-stem model's checks: its 1 s forward, and one train step in
+    f64 and in f32 (musdb_grads_of_step)."""
+    extra = slice_e_one_stem(kind)
+    model, criterion = slice_e_model(kind, "cpu", *extra)
+    with torch.inference_mode():
+        forward = model.eval()(slice_e_batch(kind, 1, 1.0, "cpu")[0])
+    batch = slice_e_parity_batch(kind, "cpu")
+    ref = musdb_grads_of_step(copy.deepcopy(model).double().train(), criterion,
+                              tuple(t.double() for t in batch))
+    cpu = musdb_grads_of_step(model.train(), criterion, batch)
+    return dict(forward=forward, ref=ref, cpu=cpu)
+
+
+def slice_e_card_vs_cpu(kind, cpu_side, card):
+    """A one-stem model's 1 s forward on the card (every count set to 0 just before, read
+    just after, held to its routes) against the CPU's (`cpu_side`, <= 1e-3 x max|CPU|),
+    f32; then the base model in bf16 on the card against the f32 card run (SNR >=
+    SNR_LIMIT_DB). -> the card forwards' launches."""
+    log(f"== phase 17: {kind}: card vs CPU (a one-stem model, 1 s), bf16 vs f32")
+    card_model, _ = slice_e_model(kind, "cuda", *slice_e_one_stem(kind))
+    stems = len(card_model.base.sources) if hasattr(card_model.base, "sources") else 1
+    x = slice_e_batch(kind, 1, 1.0, "cuda")[0]
+    reset_counts()
+    with torch.inference_mode():
+        got = card_model.eval()(x)
+        torch.cuda.synchronize()
+        grew = all_counts()
+        amp = card_model.spectrogram(x).abs()  # (1, 1, 2, F, S)
+        inputs = (amp,) if kind not in ("hrnet", "cunet") else (amp[:, 0],)
+        if kind == "cunet":  # every stem's one-hot, as ConditionedSpectrogramWrapper
+            n = card_model.n_sources
+            inputs = (amp[:, 0].repeat(n, 1, 1, 1), torch.eye(n, device="cuda"))
+        base16 = copy.deepcopy(card_model.base).to(torch.bfloat16)
+        f32 = card_model.base(*inputs)
+        b16 = base16(*(t.bfloat16() for t in inputs))
+        torch.cuda.synchronize()
+        grew16 = grown(grew)
+    check_dptnet_launches(grew, slice_e_routes(kind, 1, stems=stems),
+                          f"{kind}: a card forward")
+    check_dptnet_launches(grew16, add_counts(
+        slice_e_routes(kind, 1, stems=stems), slice_e_routes(kind, 1, torch.bfloat16,
+                                                             stems=stems)),
+        f"{kind}: the f32 and bf16 base forwards")
+    ref = cpu_side["forward"]
+    err, scale = float((got.cpu() - ref).abs().max()), float(ref.abs().max())
+    diff = (b16.float() - f32).double()
+    snr = 10 * float(torch.log10(f32.double().square().sum() / diff.square().sum()))
+    log(f"  {kind} ({stems} stem{'s' * (stems > 1)}) {tuple(got.shape)}: card vs CPU max abs err "
+        f"{err:.3e}, max|CPU| {scale:.3e}, limit {1e-3 * scale:.3e}; bf16 vs f32 on the card "
+        f"{snr:.2f} dB (limit {SNR_LIMIT_DB:g}); launches {nonzero(grew)} [{card}]")
+    check(torch.isfinite(got).all() and got.shape == ref.shape and err <= 1e-3 * scale,
+          f"{kind}: the card's forward disagrees with the CPU's: {err}")
+    check(snr >= SNR_LIMIT_DB, f"{kind}: bf16 SNR {snr:.2f} dB < {SNR_LIMIT_DB}")
+    return add_counts(grew, grew16)
+
+
+def slice_e_train_parity(kind, cpu_side):
+    """One train step of a one-stem model at recipe widths on the card (f32, TF32 off)
+    against the f64 CPU step beside the f32 CPU step of `cpu_side` (check_step_against_f64),
+    B = 1 x SLICE_E_PARITY_SECONDS[kind], each tensor's scale at least SLICE_E_SMALL_GRAD x
+    the largest gradient; its launches held to the routes. A gradient that is 0 in the f64
+    step (a bias into a train-mode BatchNorm of one channel: the batch's mean takes it out
+    exactly) is held to MUSDB_NULL_GRAD x the largest on the card and the CPU, and left out
+    of the comparison. -> the card step's launches."""
+    card_model, card_criterion = slice_e_model(kind, "cuda", *slice_e_one_stem(kind))
+    stems = len(card_model.base.sources) if hasattr(card_model.base, "sources") else 1
+    reset_counts()
+    card = musdb_grads_of_step(card_model, card_criterion, slice_e_parity_batch(kind, "cuda"))
+    torch.cuda.synchronize()
+    grew = all_counts()
+    check_dptnet_launches(grew, slice_e_routes(kind, 1, backward=True, stems=stems),
+                          f"{kind}: a train step")
+    ref, cpu = cpu_side["ref"], cpu_side["cpu"]
+    top = max(float(g.abs().max()) for g in ref[1].values())
+    null = [n for n, g in ref[1].items() if not bool(g.abs().max() > 0)]
+    for n in null:
+        worst = max(float(cpu[1][n].abs().max()), float(card[1][n].abs().max()))
+        log(f"  {kind}: {n} has a gradient of 0 in f64; card and CPU f32 at most {worst:.2e} "
+            f"(limit {MUSDB_NULL_GRAD * top:.2e})")
+        check(worst <= MUSDB_NULL_GRAD * top, f"{kind}: {n}'s null gradient is {worst}")
+    ref, cpu, card = ((loss, {n: g for n, g in grads.items() if n not in null})
+                      for loss, grads in (ref, cpu, card))
+    check_step_against_f64(f"{kind} (B=1 x {SLICE_E_PARITY_SECONDS[kind]:g} s, {stems} stem"
+                           f"{'s' * (stems > 1)})", ref, cpu, card, kernels_of(grew),
+                           null_floor=SLICE_E_SMALL_GRAD)
+    return grew
+
+
+def slice_e_recipe_step(kind, card):
+    """The recipe's train step at its batch, or at the largest power-of-two batch below it
+    that fits (fitting_step): p50, split, audio-s/s and peak. -> (batch, numbers)."""
+    args = slice_e_args(kind)
+    model, criterion = slice_e_model(kind)
+    optimizer = make_optimizer("adam", args.lr, args.max_norm, params=model.parameters())
+    model.train()
+    B, p50, (fwd, bwd, opt), peak = fitting_step(
+        kind, optimizer, lambda B: slice_e_batch(kind, B, args.duration, "cuda"),
+        lambda batch: criterion(model(batch[0]), batch[1]), args.batch_size, args.duration,
+        iters=1)
+    log(f"  {kind}: recipe step at B={B} x {args.duration:g} s (recipe B={args.batch_size}): "
+        f"{p50:.3f} ms, one after a warm-up (forward + loss {fwd:.3f}, backward {bwd:.3f}, optimizer "
+        f"{opt:.3f} ms, CUDA events), {B * args.duration / (p50 / 1e3):.2f} audio-s/s, peak "
+        f"{peak:.1f} MiB [{card}]")
+    del model, optimizer
+    torch.cuda.empty_cache()
+    return B, dict(p50_ms=p50, forward_ms=fwd, backward_ms=bwd, optimizer_ms=opt,
+                   peak_mib=peak, batch=B)
+
+
+def slice_e_cli(kind, root, batch, tmp, card):
+    """cli/train_musdb18.py at the recipe's flags and `batch` on the synthetic corpus, two
+    epochs of one step: the steps (B = batch) and validation forwards (B = 1 x 10 s)
+    counted apart and held to their routes, the epoch train loss falling, the peak
+    allocation; the last checkpoint reopened by load_model computes the trained model's
+    function. -> (launches, the checkpoint's path, the run's peak allocation in MiB)."""
+    log(f"== phase 17: train {kind} through cli/train_musdb18.py (recipe flags, B={batch})")
+    exp = os.path.join(tmp, f"exp_{kind}")
+    argv = ["--musdb18_root", root, "--seed", "0", *SLICE_E_CLI[kind], "--batch_size",
+            str(batch), "--epochs", "2", "--samples_per_epoch", str(batch),
+            "--valid_duration", str(WAVE_SECONDS), "--cache_in_memory", "1", "--exp_dir", exp,
+            "--device", "cuda"]
+    musdb_train_cli.Trainer = CountedValidationTrainer
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    start = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            trainer = musdb_train_cli.main(argv)
+    finally:
+        musdb_train_cli.Trainer = Trainer
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    grew, peak = all_counts(), torch.cuda.max_memory_allocated() / 2 ** 20
+    validated = trainer.validated
+    stepped = {k: v - validated[k] for k, v in grew.items()}
+    steps, evals = 2 * len(trainer.train_loader), 2 * len(trainer.valid_loader)
+    stems = 1 if kind == "hrnet" else 4
+    check_dptnet_launches(stepped, {k: steps * v for k, v in slice_e_routes(
+        kind, batch, backward=True, stems=stems).items()}, f"the {kind} CLI's steps")
+    check_dptnet_launches(validated, {k: evals * v for k, v in slice_e_routes(
+        kind, 1, stems=stems).items()}, f"the {kind} CLI's validation")
+    losses = trainer.train_loss
+    log(f"  {steps} steps of B={batch}, {evals} validation forwards in {seconds:.1f} s, peak "
+        f"{peak:.1f} MiB: "
+        f"train loss by epoch {[round(v, 6) for v in losses]}, valid "
+        f"{[round(v, 6) for v in trainer.valid_loss]}; launches {nonzero(grew)}; the CLI's "
+        "last lines: " + " | ".join(out.getvalue().strip().splitlines()[-2:]) + f" [{card}]")
+    check(np.isfinite(losses).all() and losses[-1] < losses[0],
+          f"the {kind} CLI's epoch train loss did not fall: {losses}")
+    ckpt = os.path.join(exp, "model", "last.ckpt")
+    model = load_model(ckpt, device="cuda")
+    x = slice_e_batch(kind, 1, 1.0, "cuda")[0]
+    reset_counts()
+    with torch.inference_mode():
+        got, want = model(x), trainer.model.eval()(x)
+    served = all_counts()
+    check_dptnet_launches(served, {k: 2 * v for k, v in slice_e_routes(kind, 1, stems=stems)
+                                   .items()}, f"{kind}: the reopened checkpoint")
+    err = float((got - want).abs().max())
+    check(err <= 1e-6 * float(want.abs().max()),
+          f"{kind}: the reopened checkpoint computes another function: {err}")
+    del model, trainer
+    torch.cuda.empty_cache()
+    return add_counts(grew, served), ckpt, peak
+
+
+def slice_e_evaluate(kind, root, ckpt, cpu_run, card):
+    """The trained checkpoint through cli/test_musdb18.py on the card (every count set to 0
+    just before, read just after) against the same CLI on the CPU (`cpu_run`, a future):
+    the stems within 1e-3 x max|CPU|, every median within MUSDB_DB_TOL dB. -> launches."""
+    log(f"== phase 17: {kind}: cli/test_musdb18.py --device cuda vs --device cpu on a "
+        f"{SLICE_E_TRACK_SECONDS:g} s synthetic track")
+    reset_counts()
+    table, stats, stems = run_slice_e_cli(root, ckpt, "cuda")
+    launches = all_counts()
+    chunks = sum(st["chunks"] for st in stats)
+    check_dptnet_launches(launches, {k: chunks * v for k, v in slice_e_routes(kind, 1)
+                                     .items()}, f"{kind}: the evaluation")
+    cpu_table, _, cpu_stems = cpu_run.result()
+    for got, ref in zip(stems, cpu_stems):
+        err, scale = float(np.abs(got - ref).max()), float(np.abs(ref).max())
+        log(f"  stems {got.shape} card vs CPU max abs err {err:.3e}, max|CPU| {scale:.3e}, "
+            f"limit {1e-3 * scale:.3e}")
+        check(np.isfinite(got).all() and err <= 1e-3 * scale,
+              f"{kind}: the card's stems disagree with the CPU's: {err} > 1e-3 x {scale}")
+    check(len(stems) == len(cpu_stems) == 1, "tracks evaluated")
+    worst = max(abs(table[s][m] - cpu_table[s][m]) for s in table for m in Evaluater.METRICS)
+    log(f"  {kind} medians card vs CPU: worst {worst:.4f} dB (limit {MUSDB_DB_TOL}); SDR "
+        + ", ".join(f"{s} {table[s]['SDR']:.3f}" for s in table) + f" [{card}]")
+    check(worst <= MUSDB_DB_TOL, f"{kind}: a median differs from the CPU's by {worst:.4f} dB")
+    return launches
+
+
+def run_slice_e_cli(root, ckpt, device):
+    """cli/test_musdb18.py on `device`, one chunk a track -> (medians, stats, float stems)."""
+    table, stats = musdb_cli.run([
+        "--musdb18_root", root, "--model_path", ckpt, "--device", device, "--sample_rate",
+        str(MUSDB_SAMPLE_RATE), "--duration", str(SLICE_E_TRACK_SECONDS), "--filt_len",
+        str(MUSDB_FILT_LEN)])
+    return table, stats, RecordingEvaluater.stems.pop(threading.get_ident())
+
+
+def slice_e_forward_profile(kind, ckpt, card):
+    """The trained checkpoint's B = 1 x 10 s forward (four stems, f32): ms (median of 3 after
+    one warm-up), then one profiled forward: device busy, idle share, device time by kind
+    (convs and GEMMs, BatchNorm, the recurrence kernels, elementwise and the rest). ->
+    (numbers, launches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model = load_model(ckpt, device="cuda")
+    x = slice_e_batch(kind, 1, WAVE_SECONDS, "cuda")[0]
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        ms = median_ms(lambda: model(x), warmup=1, iters=3)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start = time.perf_counter()
+            model(x)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - start) * 1e3
+    launches = all_counts()
+    check_dptnet_launches(launches, {k: 5 * v for k, v in slice_e_routes(kind, 1).items()},
+                          f"{kind}: the B=1 x 10 s forwards")
+    device = device_times(prof)
+    busy = sum(device.values())
+    split = {"convs and GEMMs": 0.0, "BatchNorm": 0.0, "recurrences": 0.0,
+             "elementwise and other": 0.0}
+    for name, t in device.items():
+        if any(n in name for n in FORWARD_KERNELS):
+            split["recurrences"] += t
+        elif NORM_KERNEL.search(name):
+            split["BatchNorm"] += t
+        elif CONV_KERNEL.search(name):
+            split["convs and GEMMs"] += t
+        else:
+            split["elementwise and other"] += t
+    idle = max(0.0, 1 - busy / wall)
+    log(f"  {kind} B=1 x {WAVE_SECONDS:g} s forward (four stems, f32): {ms:.3f} ms (median "
+        f"of 3), {WAVE_SECONDS / (ms / 1e3):.1f} audio-s/s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB; profiled: wall {wall:.3f} ms, "
+        f"device busy {busy:.3f} ms, idle share {idle:.1%}; "
+        + ", ".join(f"{k} {v:.3f} ms ({v / busy:.1%})" for k, v in split.items()) + f" [{card}]")
+    top = sorted(device.items(), key=lambda kv: -kv[1])[:5]
+    log("    top device time: " + ", ".join(f"{k[:48]} {t:.3f} ms" for k, t in top))
+    del model
+    return dict(ms=ms, wall_ms=wall, busy_ms=busy, idle_share=idle, **split), launches
+
+
+def phase_slice_e(card=None, tmp=None):
+    """Phase 17 (17k first) -> {"launches": the main path's counts (the card forwards, the
+    train steps, the CLIs' steps, validation and reopened checkpoints, the evaluations, the
+    profiled forwards), "kernels": 17k's timings, "numbers"}."""
+    card = card or card_line()
+    numbers, total = {}, {}
+    musdb_cli.Evaluater = RecordingEvaluater
+    with contextlib.ExitStack() as stack:
+        kernels = phase_slice_e_kernels(card)
+        # The CPU's halves of the checks and the CPU evaluations run in a thread beside the
+        # card's work from here on, one task at a time, on all but SLICE_E_HOST_CORES of the
+        # host's cores: the thread driving the card keeps those (the card's host-bound steps
+        # ran up to 2.3x slower beside a thread on every core).
+        threads = torch.get_num_threads()
+        torch.set_num_threads(max(1, threads - SLICE_E_HOST_CORES))
+        stack.callback(torch.set_num_threads, threads)
+        pool = stack.enter_context(ThreadPoolExecutor(1))
+        cpu_sides = {kind: pool.submit(slice_e_cpu_side, kind) for kind in SLICE_E_CLI}
+        tmp = tmp or stack.enter_context(tempfile.TemporaryDirectory())
+        roots = {}
+        for rate in (MUSDB_SAMPLE_RATE, 16000):
+            roots[rate] = os.path.join(tmp, f"musdb18_{rate}")
+            with contextlib.redirect_stdout(io.StringIO()):
+                write_musdb_quality_corpus(roots[rate], n_train=2, n_valid=1, n_test=1,
+                                           track_sec=WAVE_SECONDS, sample_rate=rate)
+        eval_root = os.path.join(tmp, "musdb18_eval")
+        with contextlib.redirect_stdout(io.StringIO()):
+            write_musdb_quality_corpus(eval_root, n_train=0, n_valid=0, n_test=1,
+                                       track_sec=SLICE_E_TRACK_SECONDS,
+                                       sample_rate=MUSDB_SAMPLE_RATE)
+        evaluations = []
+        for kind in SLICE_E_CLI:
+            log(f"== phase 17: {kind}: the recipe step at its batch or the largest that fits")
+            batch, numbers[kind] = slice_e_recipe_step(kind, card)
+            root = roots[slice_e_args(kind).sample_rate]
+            launches, ckpt, numbers[kind]["cli_peak_mib"] = slice_e_cli(kind, root, batch, tmp,
+                                                                        card)
+            total = add_counts(total, launches)
+            if kind in SLICE_E_EVALUATED:
+                evaluations.append((kind, ckpt, pool.submit(run_slice_e_cli, eval_root, ckpt,
+                                                            "cpu")))
+                numbers[kind]["forward"], launches = slice_e_forward_profile(kind, ckpt, card)
+                total = add_counts(total, launches)
+        for kind in SLICE_E_CLI:
+            cpu_side = cpu_sides[kind].result()
+            total = add_counts(total, slice_e_card_vs_cpu(kind, cpu_side, card))
+            total = add_counts(total, slice_e_train_parity(kind, cpu_side))
+        for kind, ckpt, cpu_run in evaluations:
+            total = add_counts(total, slice_e_evaluate(kind, eval_root, ckpt, cpu_run, card))
+    musdb_cli.Evaluater = Evaluater
+    for key in ("lstm_scan_bidir/tf32x3", "lstm_scan_bidir/fma", "lstm_scan_bidir_bwd/tf32x3",
+                "lstm_scan_bidir_bwd/fma", "lstm_scan_bidir/mma"):
+        check(total.get(key, 0) > 0, f"phase 17 never launched {key}")
+    log(f"  phase 17 main-path launches: {nonzero(total)}")
+    return dict(launches=total, kernels=kernels, numbers=numbers)
+
+
 def kernel_entry(name, source, replaces, launches, timing, bound_of, library_ms=None,
                  dtype=torch.float32, fma_bound=None):
     """One kernel of the `kernels` line; `dtype` is that of the inputs timed. A timing
@@ -5388,7 +5902,8 @@ ONLY_PHASES = {"3": phase_kernel, "3b": phase_lstm, "3c": phase_gru, "3d": phase
                "6s": phase_stream_hops, "11": phase_musdb, "12": phase_musdb_train,
                "13": phase_dptnet, "13k": phase_dptnet_kernels, "14": phase_slice_d,
                "14k": phase_slice_d_kernels, "15": phase_rest, "15k": phase_rest_kernels,
-               "16": phase_spec, "16k": phase_spec_kernels}
+               "16": phase_spec, "16k": phase_spec_kernels, "17": phase_slice_e,
+               "17k": phase_slice_e_kernels}
 
 
 def main(argv=None) -> int:
@@ -5400,7 +5915,9 @@ def main(argv=None) -> int:
                              "SepFormer, GALRNet), 14k (their kernels alone), 15 (the RNN and "
                              "SRU DPRNN-TasNets, FurcaNet, musdb18's waveform models, WaveNet), "
                              "15k (their kernels alone), 16 (Wavesplit, DANet, ADANet, deep "
-                             "clustering; 16k first) or 16k (H = 300 alone) to run after "
+                             "clustering; 16k first), 16k (H = 300 alone), 17 (D3Net, "
+                             "MMDenseNet, MMDenseLSTM, HRNet, CUNet; 17k first) or 17k "
+                             "(MMDenseLSTM's H = 64, 16, 4 alone) to run after "
                              "phases 1 and 2, and nothing else; no result line is printed")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -5515,6 +6032,7 @@ def main(argv=None) -> int:
     slice_d = phase_slice_d(card)
     rest = phase_rest(card)
     spec = phase_spec(card)
+    slice_e = phase_slice_e(card)
     for name in ("lstm_scan_bidir_bwd", "lstm_scan_bwd", "gru_scan_bidir_bwd", "gru_scan_bwd"):
         check(trained[name] >= 1, f"the training path never launched {name}")
     total = {k: v + trained[k] + evaluated[k] for k, v in total.items()}
@@ -5547,6 +6065,10 @@ def main(argv=None) -> int:
     # _plan gives 256 < H < 384; phase 16 held every launch to its route.
     spec_launches = spec["launches"]
     total = {k: v + spec_launches.get(k, 0) for k, v in total.items()}
+    # Phase 17 (MMDenseLSTM's H = 4 recurrences: the FMA kernels; H = 64 and 16 the tensor
+    # cores) held every launch to its route too.
+    slice_e_launches = slice_e["launches"]
+    total = {k: v + slice_e_launches.get(k, 0) for k, v in total.items()}
     for name, n in total.items():
         if not name.endswith("/fma") and n < 1:
             raise AssertionError(f"the serving, training and evaluation paths never launched "
@@ -5798,7 +6320,7 @@ def main(argv=None) -> int:
                      **{k: timing[k] for k in ("kernel_ms", "fma_kernel_ms", "kernel_bound_ms",
                                                "fma_bound_ms", "fma_max_abs_err", "tile",
                                                "cluster", "library_f256_ms", "tiles_ms",
-                                               "tiles_kernel_ms")
+                                               "tiles_kernel_ms", "plain_steps")
                         if k in timing})
         entries.append(entry)
     for kind, timing in rest["kernels"]["decodes"].items():
@@ -5827,6 +6349,26 @@ def main(argv=None) -> int:
         entry.update(path=route, shape=f"DANet / ADANet / DC {label} B={B} T={T} H={SPEC_H}"
                      + (", with cs" if label == "train" else ""),
                      **{k: timing[k] for k in ("kernel_ms", "kernel_bound_ms") if k in timing})
+        entries.append(entry)
+    # Phase 17's shapes (phase 17k's times): lstm_scan_bidir at MMDenseLSTM's H = 64 and 16
+    # (tf32x3 in f32, mma in bf16, the FMA kernel forced beside them as `fma_ms`) and 4 (the
+    # FMA kernel: the whole call as `ms`, the kernel alone as `kernel_ms`), a 10 s chunk's
+    # B = 1 sequences in both dtypes and recipe training's B = 6 with cs and its backward;
+    # cuDNN's nn.LSTM at the layer's input width as `library_ms`; with phase 17's launches
+    # of that kernel on that route (every shape and dtype of phase 17).
+    for (name, label, H_row, dtype), timing in slice_e["kernels"].items():
+        route = timing["path"]
+        (B, T, _), features = next((shape, f) for lab, shape, f, *_ in MMDL_SHAPES
+                                   if lab == label and shape[2] == H_row)
+        entry = kernel_entry(name, sources[(route, name.endswith("_bwd"))], replaces_of[name],
+                             slice_e_launches.get(f"{name}/{route}", 0), timing,
+                             {k: timing[k] for k in ("bound_ms", "bound_by")},
+                             timing["library_ms"], dtype=dtype)
+        entry.update(path=route, shape=f"MMDenseLSTM {label} B={B} T={T} H={H_row} F={features}"
+                     + (", with cs" if label == "train" else ""),
+                     **{k: timing[k] for k in ("kernel_ms", "fma_kernel_ms", "kernel_bound_ms",
+                                               "fma_bound_ms", "fma_max_abs_err", "tile")
+                        if k in timing})
         entries.append(entry)
     entries += [
         # Two reads of x and one int8 write; no single PyTorch call computes it.

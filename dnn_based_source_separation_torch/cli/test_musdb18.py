@@ -15,6 +15,11 @@ Flags: the JAX CLI's, plus `--device` (default `cuda`; a CUDA device that
 is not there is an error). A non-finite estimate raises, naming the track
 and the count (the JAX CLI retries and zero-fills).
 
+The models it evaluates have a stem list (`model.base.sources`): UMX, X-UMX, D3Net,
+MMDenseNet, MMDenseLSTM. An HRNet (one stem) or CUNet (conditioned) checkpoint has none,
+and the JAX CLI fails on it (`model.base.sources`, its :53); this one refuses it, saying
+so, and adds no evaluation JAX lacks.
+
     python -m dnn_based_source_separation_torch.cli.test_musdb18 \
         --musdb18_root ... --model_path best.pth [--out_dir out] [--device cuda]
 """
@@ -121,6 +126,11 @@ def run(args=None):
     set_seed(args.seed)
 
     model = load_model(args.model_path, device=device).eval()
+    if not hasattr(model.base, "sources"):
+        raise ValueError(
+            f"{type(model.base).__name__} has no stem list (`sources`): cli/test_musdb18.py "
+            f"evaluates one estimate a stem of the model's sources, as the JAX package's "
+            f"CLI does, which cannot evaluate it either")
     sources = list(model.base.sources)
     dataset = musdb.WaveTestDataset(args.musdb18_root, sources=sources)
     evaluater = Evaluater(sources=sources, sample_rate=args.sample_rate,

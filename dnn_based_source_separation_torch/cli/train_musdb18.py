@@ -1,5 +1,6 @@
-"""MUSDB18 training CLI: Open-Unmix (one model per stem), X-UMX (bridged) and the
-waveform models (stereo Conv-TasNet, MRX, Meta-TasNet).
+"""MUSDB18 training CLI: Open-Unmix (one model per stem), X-UMX (bridged), the 2-D dense /
+U-Net spectrogram models (D3Net, MMDenseNet, MMDenseLSTM, HRNet, CUNet) and the waveform
+models (stereo Conv-TasNet, MRX, Meta-TasNet).
 
 Port of `dnn_based_source_separation_tpu/cli/train_musdb18.py` (after the
 reference `egs/musdb18/{umx,x-umx}/local/train.py`): the same flag names
@@ -14,7 +15,15 @@ is an error, never a silent CPU run.
 - `--model umx`: ParallelOpenUnmix trains the magnitude MSE against the
   targets' STFT. `--model xumx`: bridged CrossNetOpenUnmix trains the
   multi-domain loss (`--weight_time`, `--weight_frequency`,
-  `--combination`). `--model conv-tasnet`: Conv-TasNet with trainable
+  `--combination`). `--model d3net` (`--d3net_config`), `mm-densenet` and
+  `mm-dense-lstm` (`--mmdense_config`): one model a stem (ParallelD3Net,
+  ParallelMMDenseNet, ParallelMMDenseLSTM) from the band-structured recipe YAML
+  (`utils/config.py`), magnitude MSE. `--model hrnet`: one HRNet (`--hrnet_hidden`) for
+  the stem `--target` alone (the loaders ship only it) under
+  `SingleStemSpectrogramWrapper`, magnitude MAE. `--model cunet`: a FiLM / PoCM / GPoCM
+  conditioned U-Net (`--cunet_channels`, `--cunet_control_channels`, `--conditioning`,
+  5 x 5 kernels of stride 2, masking) under `ConditionedSpectrogramWrapper`, every stem's
+  one-hot in one batch, magnitude MAE. `--model conv-tasnet`: Conv-TasNet with trainable
   filterbanks over both channels (`in_channels=2`, `-N -L -HH -B -Sc -X -R`)
   under `WaveChannelAdapter`, the waveform MSE over time and no PIT (the
   stems' order is fixed). `--model mrx`: MultiResolutionCrossNet
@@ -28,10 +37,9 @@ is an error, never a silent CPU run.
   generator on the device seeded with `--seed`, as the JAX CLI passes
   `dropout_rng` for umx and xumx.
 
-The other `--model` choices (the slice-E spectrogram models) raise
-NotImplementedError naming the slice of the port that brings them; so does
-`--n_devices`. The waveform models are validated here, on the valid split's
-loss; `cli/test_musdb18.py` evaluates spectrogram models only, as JAX's does.
+`--n_devices` raises NotImplementedError naming the slice of the port that brings it. The
+waveform models are validated here, on the valid split's loss; `cli/test_musdb18.py`
+evaluates the spectrogram models with a stem list (not HRNet or CUNet), as JAX's does.
 
     python -m dnn_based_source_separation_torch.cli.train_musdb18 \
         --musdb18_root ... --model umx --exp_dir exp [--device cuda]
@@ -49,19 +57,22 @@ from ..criterion import (
 from ..data import DataLoader
 from ..data import musdb18 as musdb
 from ..models import (
-    ConvTasNet, CrossNetOpenUnmix, MetaTasNet, MonoWaveAdapter, MultiResolutionCrossNet,
-    ParallelOpenUnmix, SpectrogramMaskingWrapper, WaveChannelAdapter,
+    ConditionedSpectrogramWrapper, ConditionedUNet2d, ConvTasNet, CrossNetOpenUnmix, HRNet,
+    MetaTasNet, MonoWaveAdapter, MultiResolutionCrossNet, ParallelOpenUnmix,
+    SingleStemSpectrogramWrapper, SpectrogramMaskingWrapper, WaveChannelAdapter,
 )
 from ..ops.windows import build_window
 from ..train import Trainer, TrainerConfig, make_optimizer
 from ..utils import set_seed
+from ..utils.config import (
+    build_d3net_from_config, build_mmdenselstm_from_config, build_mmdensenet_from_config,
+)
 
-# The --model choices of the JAX CLI that wait for another slice of the port.
-UNPORTED_MODELS = {
-    "d3net": "slice E", "mm-densenet": "slice E", "mm-dense-lstm": "slice E",
-    "hrnet": "slice E", "cunet": "slice E",
-}
 WAVE_MODELS = ("conv-tasnet", "mrx", "meta-tasnet")
+BAND_MODELS = {"d3net": ("d3net_config", build_d3net_from_config),
+               "mm-densenet": ("mmdense_config", build_mmdensenet_from_config),
+               "mm-dense-lstm": ("mmdense_config", build_mmdenselstm_from_config)}
+SPEC_MODELS = ("umx", "xumx", *BAND_MODELS, "hrnet", "cunet")
 
 
 def build_parser():
@@ -73,12 +84,11 @@ def build_parser():
     p.add_argument("--samples_per_epoch", type=int, default=None)
     p.add_argument("--augmentation", type=int, default=1)
     p.add_argument("--model", type=str, default="umx",
-                   choices=["umx", "xumx", *WAVE_MODELS, *UNPORTED_MODELS],
-                   help="umx, xumx, conv-tasnet, mrx and meta-tasnet are ported; the others "
-                        "raise")
-    p.add_argument("--d3net_config", type=str, default=None, help="d3net (not ported)")
+                   choices=[*SPEC_MODELS, *WAVE_MODELS])
+    p.add_argument("--d3net_config", type=str, default=None,
+                   help="band-structured YAML (egs/musdb18/d3net/config)")
     p.add_argument("--mmdense_config", type=str, default=None,
-                   help="mm-densenet / mm-dense-lstm (not ported)")
+                   help="band-structured YAML (egs/musdb18/mm-densenet or mm-dense-lstm config)")
     p.add_argument("--criterion", type=str, default=None,
                    help="override the model's default: mse, mae or l1loss")
     # conv-tasnet / meta-tasnet (time domain) hyperparameters
@@ -89,7 +99,7 @@ def build_parser():
     p.add_argument("--sep_skip_channels", "-Sc", type=int, default=128)
     p.add_argument("--sep_num_layers", "-X", type=int, default=10)
     p.add_argument("--sep_num_blocks", "-R", type=int, default=4)
-    # hrnet, cunet (models not ported) and mrx
+    # hrnet (one stem), cunet and mrx
     p.add_argument("--target", type=str, default="vocals")
     p.add_argument("--hrnet_hidden", type=str, default="16,32,64")
     p.add_argument("--cunet_channels", type=str, default="2,16,32,64,128,256")
@@ -134,9 +144,6 @@ def build_parser():
 
 
 def _refuse_unported(args) -> None:
-    if args.model in UNPORTED_MODELS:
-        raise NotImplementedError(f"--model {args.model} is not ported yet "
-                                  f"({UNPORTED_MODELS[args.model]} of the port)")
     if args.n_devices is not None:
         raise NotImplementedError("--n_devices (data parallelism, slice H) is not ported yet")
 
@@ -165,9 +172,35 @@ def _wave_model(args, sources, device):
     return MonoWaveAdapter(base, device=device), MonoTargetAdapter(NegSISDR())
 
 
+def _spectrogram_model(args, sources, device, generator):
+    """The slice-E spectrogram models (JAX `main`, :161-189 and :240-266) in their
+    wrappers -> (model, the default criterion's key: mse or mae)."""
+    stft_args = (args.n_fft, args.hop_length, args.window_fn)
+    if args.model in BAND_MODELS:
+        flag, build = BAND_MODELS[args.model]
+        path = getattr(args, flag)
+        if not path:
+            raise ValueError(f"--{flag} is required for --model {args.model}")
+        base = build(path, parallel=True, sources=tuple(sources), generator=generator,
+                     device=device)
+        return SpectrogramMaskingWrapper(base, *stft_args, device=device), "mse"
+    if args.model == "hrnet":
+        base = HRNet(in_channels=2,
+                     hidden_channels=tuple(int(v) for v in args.hrnet_hidden.split(",")),
+                     generator=generator, device=device)
+        return SingleStemSpectrogramWrapper(base, *stft_args, device=device), "mae"
+    base = ConditionedUNet2d(
+        channels=tuple(int(v) for v in args.cunet_channels.split(",")), kernel_size=(5, 5),
+        stride=(2, 2),
+        control_channels=tuple(int(v) for v in args.cunet_control_channels.split(",")),
+        conditioning=args.conditioning, masking=True, generator=generator, device=device)
+    return ConditionedSpectrogramWrapper(base, *stft_args, n_sources=len(sources),
+                                         device=device), "mae"
+
+
 def build_model_and_criterion(args, sources, device):
-    """The wrapped model on `device` and its criterion (JAX `main`, :144-239, and the
-    override table by output domain, :260-289)."""
+    """The wrapped model on `device` and its criterion (JAX `main`, :144-266, and the
+    override table by output domain, :268-289)."""
     if args.model in WAVE_MODELS:
         model, criterion = _wave_model(args, sources, device)
         table = {"mse": MSELoss(dim=-1), "mae": MAELoss(dim=-1)}
@@ -185,6 +218,10 @@ def build_model_and_criterion(args, sources, device):
     table = {"mse": SpectralTargetAdapter(MSELoss(dim=(-2, -1)), *stft_args),
              "mae": SpectralTargetAdapter(MAELoss(dim=(-2, -1)), *stft_args)}
     table["l1loss"] = table["mae"]
+    if args.model not in ("umx", "xumx"):
+        model, default = _spectrogram_model(args, sources, device,
+                                            torch.Generator().manual_seed(args.seed))
+        return model, table.get(args.criterion, table[default])
     if args.model == "umx":
         base = ParallelOpenUnmix(**base_kwargs)
         criterion = table["mse"]
@@ -211,6 +248,10 @@ def main(args=None):
     _refuse_unported(args)
     set_seed(args.seed)
     sources = args.sources.split(",")
+    if args.model == "hrnet":  # one stem: the loaders ship only the target
+        if args.target not in sources:
+            raise ValueError(f"--target {args.target} not in --sources {args.sources}")
+        sources = [args.target]
 
     if args.augmentation:
         augmentation = SequentialAugmentation(RandomFlip(flip_rate=0.5, axis=0),

@@ -21,9 +21,18 @@ JAX trees onto the port's names, which follow those trees; so does
 reference's `rnn.*`, `fc`, `anchor`); `deep_embedding_state_dict_from_jax` maps
 DeepEmbedding, DeepEmbeddingPlus and ChimeraNet (`fc_embedding`, `fc_mask`) onto
 the same torch names, and FixedAttractorDANet's `base` and `attractor`.
+`d3net_state_dict_from_jax`, `mm_densenet_state_dict_from_jax` and
+`mm_dense_rnn_state_dict_from_jax` undo `convert_d3net`, `convert_mm_densenet` and
+`convert_mm_dense_rnn` (the transposed convs' kernels flipped back), so the port's state
+dicts go back into JAX through them; `m_densenet_state_dict_from_jax` maps the single-band
+MDenseNet onto the same names, and `parallel_state_dict_from_jax` any of them stem by stem.
+HRNet, the U-Nets and CUNet have no converter in the JAX package:
+`hrnet_state_dict_from_jax`, `unet_state_dict_from_jax` and `cunet_state_dict_from_jax`
+map their JAX trees onto the port's names, which follow those trees.
 """
 from __future__ import annotations
 
+import re
 from typing import Dict, Mapping
 
 import numpy as np
@@ -602,3 +611,241 @@ def adanet_state_dict_from_jax(params: Mapping, config: Mapping) -> Dict[str, to
     sd = danet_state_dict_from_jax(p, config)
     sd["anchor"] = _t(p["anchor"])
     return sd
+
+
+def _conv2d(sd: Dict, prefix: str, conv: Mapping) -> None:
+    """flax nn.Conv {kernel (kh, kw, in, out), bias if it has one} -> Conv2d weight (out,
+    in, kh, kw), bias."""
+    sd[f"{prefix}.weight"] = _t(np.transpose(np.asarray(conv["kernel"]), (3, 2, 0, 1)))
+    if "bias" in conv:
+        sd[f"{prefix}.bias"] = _t(conv["bias"])
+
+
+def _conv_transpose2d(sd: Dict, prefix: str, conv: Mapping) -> None:
+    """flax nn.ConvTranspose {kernel (kh, kw, in, out), bias} -> ConvTranspose2d weight (in,
+    out, kh, kw), its spatial dims flipped: flax does not flip its kernel, torch does (the
+    inverse of `hub/torch_convert.py:conv_transpose2d_weight`)."""
+    kernel = np.asarray(conv["kernel"])[::-1, ::-1]
+    sd[f"{prefix}.weight"] = _t(np.transpose(kernel, (2, 3, 0, 1)))
+    if "bias" in conv:
+        sd[f"{prefix}.bias"] = _t(conv["bias"])
+
+
+def _batch_norm(sd: Dict, prefix: str, params: Mapping, stats: Mapping) -> None:
+    """flax BatchNorm {scale, bias} and its batch_stats {mean, var} -> torch BatchNorm's
+    weight, bias, running_mean, running_var (and a zero num_batches_tracked)."""
+    sd[f"{prefix}.weight"] = _t(params["scale"])
+    sd[f"{prefix}.bias"] = _t(params["bias"])
+    sd[f"{prefix}.running_mean"] = _t(stats["mean"])
+    sd[f"{prefix}.running_var"] = _t(stats["var"])
+    sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+
+
+def _count(tree: Mapping, stem: str) -> int:
+    return sum(1 for k in tree if k.startswith(stem) and k[len(stem):].isdigit())
+
+
+def _dense_block(sd: Dict, prefix: str, p: Mapping, s: Mapping) -> None:
+    """m_densenet.DenseBlock {conv_block{i}: {norm2d (if normed), conv2d}} ->
+    `net.{i}.norm2d`, `net.{i}.conv2d`."""
+    for i in range(_count(p, "conv_block")):
+        block, stats = p[f"conv_block{i}"], s.get(f"conv_block{i}", {})
+        if "norm2d" in block:
+            _batch_norm(sd, f"{prefix}.net.{i}.norm2d", block["norm2d"], stats["norm2d"])
+        _conv2d(sd, f"{prefix}.net.{i}.conv2d", block["conv2d"])
+
+
+def _d3_block(sd: Dict, prefix: str, p: Mapping, s: Mapping) -> None:
+    """d3net.D3Block {d2block{k}: {dense: DenseBlock}} -> `net.{k}.net.{i}.*`."""
+    for k in range(_count(p, "d2block")):
+        _dense_block(sd, f"{prefix}.net.{k}", p[f"d2block{k}"]["dense"],
+                     s[f"d2block{k}"]["dense"])
+
+
+def _dense_rnn_block(rnn_type: str):
+    """mm_dense_rnn.DenseRNNBlock {dense_block?, rnn_block?} -> the port's block at
+    `prefix`: a DenseBlock, a FrameRNN (`bottleneck_conv2d`, `rnn`, `linear`) or both,
+    the DenseBlock under `dense_block`."""
+    def convert(sd: Dict, prefix: str, p: Mapping, s: Mapping) -> None:
+        if "rnn_block" not in p:
+            _dense_block(sd, prefix, p["dense_block"], s["dense_block"])
+            return
+        if "dense_block" in p:
+            _dense_block(sd, f"{prefix}.dense_block", p["dense_block"], s["dense_block"])
+        rnn = p["rnn_block"]
+        _conv2d(sd, f"{prefix}.bottleneck_conv2d", rnn["bottleneck_conv2d"])
+        _RNN[rnn_type](sd, f"{prefix}.rnn", rnn["rnn"])
+        _linear(sd, f"{prefix}.linear", rnn["linear"])
+    return convert
+
+
+def _backbone(sd: Dict, prefix: str, p: Mapping, s: Mapping, block, slot,
+              nested: bool = False) -> None:
+    """A backbone's tree -> `conv2d`, `encoder.net.{i}.<slot>`, `bottleneck_conv2d`,
+    `decoder.net.{j}.{norm2d,upsample2d,<slot>}`, `pointwise_conv2d.{0,1}`. MDenseNet's
+    encoder and decoder nest their blocks (`nested`: `encoder{i}.dense_block`,
+    `decoder{j}.norm2d`); D3Net's and MDenseRNN's keep them flat (`encoder{i}`,
+    `decoder{j}_norm`). `slot(tree)` names a stage's block in the port."""
+    _conv2d(sd, f"{prefix}.conv2d", p["conv2d"])
+    for i in range(_count(p, "encoder")):
+        tree, stats = p[f"encoder{i}"], s.get(f"encoder{i}", {})
+        if nested:
+            tree, stats = tree["dense_block"], stats["dense_block"]
+        block(sd, f"{prefix}.encoder.net.{i}.{slot(p[f'encoder{i}'])}", tree, stats)
+    block(sd, f"{prefix}.bottleneck_conv2d", p["bottleneck"], s.get("bottleneck", {}))
+    for j in range(_count(p, "decoder")):
+        ref = f"{prefix}.decoder.net.{j}"
+        tree, stats = p[f"decoder{j}"], s.get(f"decoder{j}", {})
+        if nested:
+            norm, norm_stats, up = tree["norm2d"], stats["norm2d"], tree["upsample2d"]
+            tree, stats = tree["dense_block"], stats["dense_block"]
+        else:
+            norm, norm_stats = p[f"decoder{j}_norm"], s[f"decoder{j}_norm"]
+            up = p[f"decoder{j}_up"]
+        _batch_norm(sd, f"{ref}.norm2d", norm, norm_stats)
+        _conv_transpose2d(sd, f"{ref}.upsample2d", up)
+        block(sd, f"{ref}.{slot(p[f'decoder{j}'])}", tree, stats)
+    if "pointwise_conv2d" in p:
+        _batch_norm(sd, f"{prefix}.pointwise_conv2d.0", p["pointwise_norm"],
+                    s["pointwise_norm"])
+        _conv2d(sd, f"{prefix}.pointwise_conv2d.1", p["pointwise_conv2d"])
+
+
+def _spectrogram_head(sd: Dict, p: Mapping, s: Mapping, final: str, block) -> None:
+    """The affines, the final block (JAX `final`, the port's same name but D3Net's
+    `d2block`), `norm2d` and GLU2d's `map` / `gate` (the port's `map_gate`)."""
+    for name in ("scale_in", "bias_in", "scale_out", "bias_out"):
+        sd[name] = _t(p[name])
+    block(sd, final, p[final], s.get(final, {}))
+    _batch_norm(sd, "norm2d", p["norm2d"], s["norm2d"])
+    _conv2d(sd, "glu2d.map", p["glu2d"]["map"])
+    _conv2d(sd, "glu2d.map_gate", p["glu2d"]["gate"])
+
+
+def _bands(config: Mapping):
+    return [*config["bands"], "full"]
+
+
+def mm_densenet_state_dict_from_jax(variables: Mapping,
+                                    config: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX MMDenseNet variables {"params", "batch_stats"} -> port state_dict: the inverse of
+    `hub/torch_convert.py:convert_mm_densenet` (convs transposed, transposed convs flipped
+    and transposed, BatchNorm from params and batch_stats)."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    for band in _bands(config):
+        _backbone(sd, f"net.{band}", p[f"net_{band}"], s[f"net_{band}"], _dense_block,
+                  lambda tree: "dense_block", nested=True)
+    _spectrogram_head(sd, p, s, "dense_block", _dense_block)
+    return sd
+
+
+def m_densenet_state_dict_from_jax(variables: Mapping,
+                                   config: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX MDenseNet (one band) variables -> port state_dict (`net.*` its backbone)."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    _backbone(sd, "net", p["net"], s["net"], _dense_block, lambda tree: "dense_block",
+              nested=True)
+    _spectrogram_head(sd, p, s, "dense_block", _dense_block)
+    return sd
+
+
+def d3net_state_dict_from_jax(variables: Mapping, config: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX D3Net variables -> port state_dict: the inverse of
+    `hub/torch_convert.py:convert_d3net`."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    for band in _bands(config):
+        _backbone(sd, f"net.{band}", p[f"net_{band}"], s[f"net_{band}"], _d3_block,
+                  lambda tree: "d3block")
+    for name in ("scale_in", "bias_in", "scale_out", "bias_out"):
+        sd[name] = _t(p[name])
+    _dense_block(sd, "d2block", p["d2block"]["dense"], s["d2block"]["dense"])
+    _batch_norm(sd, "norm2d", p["norm2d"], s["norm2d"])
+    _conv2d(sd, "glu2d.map", p["glu2d"]["map"])
+    _conv2d(sd, "glu2d.map_gate", p["glu2d"]["gate"])
+    return sd
+
+
+def mm_dense_rnn_state_dict_from_jax(variables: Mapping,
+                                     config: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX MMDenseRNN / MMDenseLSTM variables -> port state_dict: the inverse of
+    `hub/torch_convert.py:convert_mm_dense_rnn` (a recurrence's single LSTM bias into
+    bias_ih with a zero bias_hh, `_lstm`; `rnn_type` 'gru' or 'rnn' too)."""
+    p, s = variables["params"], variables["batch_stats"]
+    block = _dense_rnn_block(config.get("rnn_type", "lstm"))
+    sd: Dict[str, torch.Tensor] = {}
+    for band in _bands(config):
+        _backbone(sd, f"net.{band}", p[f"net_{band}"], s[f"net_{band}"], block,
+                  lambda tree: "dense_rnn_block" if "rnn_block" in tree else "dense_block")
+    _spectrogram_head(sd, p, s, "dense_block", block)
+    return sd
+
+
+def parallel_state_dict_from_jax(convert, variables: Mapping,
+                                 config: Mapping) -> Dict[str, torch.Tensor]:
+    """A Parallel model's JAX variables (`net_<source>` subtrees) -> port state_dict
+    (`net.<source>.*`), each stem through `convert` (one of the converters above)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for source in config["sources"]:
+        sub = {k: v[f"net_{source}"] for k, v in variables.items()}
+        sd.update({f"net.{source}.{k}": t for k, t in convert(sub, config).items()})
+    return sd
+
+
+_INDEXED = re.compile(r"(encoder|decoder|unet)(\d+)")
+
+
+def _tree(sd: Dict, prefix: str, p: Mapping, s: Mapping) -> None:
+    """A JAX tree whose submodules the port names alike (`encoder3` -> `encoder.3`, the
+    lists the port keeps as ModuleLists): flax Conv (2-D or 1-D kernel) -> Conv2d /
+    Conv1d, ConvTranspose (`deconv*`) -> ConvTranspose2d / 1d flipped, Dense -> Linear,
+    BatchNorm -> torch BatchNorm with the batch_stats."""
+    for name, sub in p.items():
+        match = _INDEXED.fullmatch(name)
+        path = prefix + (f"{match.group(1)}.{match.group(2)}" if match else name)
+        if "kernel" in sub:
+            ndim = np.ndim(sub["kernel"])
+            if name.startswith("deconv") and ndim == 4:
+                _conv_transpose2d(sd, path, sub)
+            elif name.startswith("deconv"):  # (K, in, out) -> (in, out, K), flipped
+                kernel = np.asarray(sub["kernel"])[::-1]
+                sd[f"{path}.weight"] = _t(np.transpose(kernel, (1, 2, 0)))
+                sd[f"{path}.bias"] = _t(sub["bias"])
+            elif ndim == 4:
+                _conv2d(sd, path, sub)
+            elif ndim == 3:
+                _conv(sd, path, sub)
+            else:
+                _linear(sd, path, sub)
+        elif "scale" in sub:
+            _batch_norm(sd, path, sub, s[name])
+        else:
+            _tree(sd, f"{path}.", sub, s.get(name, {}))
+
+
+def _tree_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    sd: Dict[str, torch.Tensor] = {}
+    _tree(sd, "", variables["params"], variables.get("batch_stats", {}))
+    return sd
+
+
+def hrnet_state_dict_from_jax(variables: Mapping, config: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX HRNet variables -> port state_dict. The JAX package has no converter of the
+    reference layout for HRNet; the port's names follow the JAX tree (`conv2d_in.block0`,
+    `stage{s}_stack{k}_level{l}`, `mix{s}.down_{o}_{i}`, `concat_up{l}`, ...)."""
+    return _tree_state_dict(variables)
+
+
+def unet_state_dict_from_jax(variables: Mapping, config: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX UNet2d / UNet1d / EnsembleUNet2d / EnsembleUNet1d variables -> port state_dict
+    (`encoder.{i}`, `bottleneck`, `decoder.{i}`, an ensemble's `unet.{k}`)."""
+    return _tree_state_dict(variables)
+
+
+def cunet_state_dict_from_jax(variables: Mapping, config: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ConditionedUNet2d variables -> port state_dict (`control_net.dense{i}`,
+    `control_net.fc_weight{i}` / `fc_bias{i}`, `encoder.{i}`, `bottleneck`,
+    `decoder.{i}`)."""
+    return _tree_state_dict(variables)

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.norms import flax_batch_norm
 from ..ops.params import Weight
 from ..ops.rnn import choose_rnn
 from .base import SeparationModelMixin, register_model
@@ -40,11 +41,7 @@ class TransformBlock1d(nn.Module):
     """Linear (no bias) -> BatchNorm (eps 1e-5) -> optional tanh or relu, over (B, T, F).
 
     In train mode BatchNorm is flax's `nn.BatchNorm(momentum=0.9)` (JAX
-    `models/umx.py:27-45`): the mean and the biased variance
-    (E[x^2] - E[x]^2, clipped at 0) over all B*T rows, computed in f32, then
-    `running = 0.9 * running + 0.1 * batch` for both, in place on the
-    buffers, and `num_batches_tracked` counts the updates. (`nn.BatchNorm1d`
-    puts the unbiased variance into `running_var`: another function.)
+    `models/umx.py:27-45`) over all B*T rows: `ops/norms.py:flax_batch_norm`.
     """
 
     def __init__(self, in_features: int, out_features: int, nonlinear: Optional[str] = None,
@@ -58,26 +55,13 @@ class TransformBlock1d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.linear(x, self.fc.weight)
-        y = (self._batch_norm(y) if self.training else
+        y = (flax_batch_norm(y, self.norm1d) if self.training else
              self.norm1d(y.reshape(-1, y.shape[-1])).reshape(y.shape))
         if self.nonlinear == "tanh":
             return torch.tanh(y)
         if self.nonlinear == "relu":
             return F.relu(y)
         return y
-
-    def _batch_norm(self, y: torch.Tensor) -> torch.Tensor:
-        """flax's train-mode BatchNorm over every axis but the last; updates the buffers."""
-        norm = self.norm1d
-        rows = y.reshape(-1, y.shape[-1]).float()
-        mean = rows.mean(dim=0)
-        var = torch.clamp(rows.square().mean(dim=0) - mean.square(), min=0.0)
-        with torch.no_grad():
-            for buf, batch in ((norm.running_mean, mean), (norm.running_var, var)):
-                buf.copy_(0.9 * buf + 0.1 * batch)
-            norm.num_batches_tracked.add_(1)
-        mul = torch.rsqrt(var + norm.eps) * norm.weight.float()
-        return ((y.float() - mean) * mul + norm.bias.float()).to(y.dtype)
 
 
 def config_of(local_vars: dict) -> dict:

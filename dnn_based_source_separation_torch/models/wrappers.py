@@ -48,6 +48,34 @@ class SpectrogramMaskingWrapper(SeparationModelMixin, nn.Module):
         return self.base(self.spectrogram(mixture).abs())
 
 
+@register_model
+class SingleStemSpectrogramWrapper(SpectrogramMaskingWrapper):
+    """(B, 1, C, T) mixture wave -> one stem's masked magnitude (B, 1, C, F, S): the base
+    model (HRNet) takes and returns (B, C, F, S)."""
+
+    def forward(self, mixture: torch.Tensor) -> torch.Tensor:
+        return self.base(self.spectrogram(mixture).abs()[:, 0])[:, None]
+
+
+@register_model
+class ConditionedSpectrogramWrapper(SpectrogramMaskingWrapper):
+    """(B, 1, C, T) mixture wave -> every stem's magnitude (B, n_sources, C, F, S) from a
+    conditioned model (CUNet) in one batch of n_sources x B: the magnitudes tiled
+    n_sources times (block i the whole batch), each block under stem i's one-hot."""
+
+    def __init__(self, base: nn.Module, n_fft: int, hop_length: Optional[int] = None,
+                 window_fn: str = "hann", n_sources: int = 4, *, device=None):
+        super().__init__(base, n_fft, hop_length, window_fn, device=device)
+        self._config["n_sources"] = self.n_sources = n_sources
+
+    def forward(self, mixture: torch.Tensor) -> torch.Tensor:
+        amp = self.spectrogram(mixture).abs()[:, 0]  # (B, C, F, S)
+        B, n = amp.shape[0], self.n_sources
+        latent = torch.eye(n, dtype=amp.dtype, device=amp.device).repeat_interleave(B, dim=0)
+        y = self.base(amp.repeat(n, 1, 1, 1), latent)  # (n * B, C, F, S)
+        return y.reshape(n, B, *y.shape[1:]).transpose(0, 1)
+
+
 class _WaveAdapter(SeparationModelMixin, nn.Module):
     """A waveform model under a musdb18 adapter; its parameters are `base.*`."""
 

@@ -1,9 +1,15 @@
-"""TasNet normalizations: global LN, cumulative (causal) LN, channel LN.
+"""TasNet normalizations: global LN, cumulative (causal) LN, channel LN; and flax's
+train-mode BatchNorm.
 
 Port of `dnn_based_source_separation_tpu/ops/norms.py`. Inputs are
 channels-last (..., T, N). Parameters follow the reference torch layout
 `gamma`/`beta` of shape (1, N, 1) (`hub/torch_convert.py:_gamma_beta_params`).
 cLN also streams, carrying its running statistics (`CumulativeLayerNorm.stream`).
+
+`flax_batch_norm` is flax's `nn.BatchNorm(momentum=0.9)` in train mode on a torch
+BatchNorm module's parameters and buffers, over any channel axis: UMX's and MRX's 1-D
+blocks (channels last) and the 2-D dense / U-Net family (`BatchNorm2d`, NCHW;
+`BatchNorm1d`, (B, C, T)) call it.
 """
 from __future__ import annotations
 
@@ -35,6 +41,48 @@ def cumulative_layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tens
     mean = cum_sum / t_count
     var = cum_sq / t_count - mean.square()
     return gamma * (x - mean) / torch.sqrt(var + eps) + beta
+
+
+def flax_batch_norm(x: torch.Tensor, norm: nn.modules.batchnorm._BatchNorm,
+                    dim: int = -1) -> torch.Tensor:
+    """flax's train-mode BatchNorm over every axis of `x` but `dim`, with `norm`'s
+    weight, bias and eps; updates its buffers.
+
+    The mean and the biased variance (E[x^2] - E[x]^2, clipped at 0), computed in f32,
+    then `running = 0.9 * running + 0.1 * batch` for both, in place, and
+    `num_batches_tracked` counts the updates. (torch's train mode puts the unbiased
+    variance into `running_var`: another function.)
+    """
+    dim = dim % x.ndim
+    dims = [d for d in range(x.ndim) if d != dim]
+    shape = [-1 if d == dim else 1 for d in range(x.ndim)]
+    xf = x.float()
+    mean = xf.mean(dim=dims)
+    var = torch.clamp(xf.square().mean(dim=dims) - mean.square(), min=0.0)
+    with torch.no_grad():
+        for buf, batch in ((norm.running_mean, mean), (norm.running_var, var)):
+            buf.copy_(0.9 * buf + 0.1 * batch)
+        norm.num_batches_tracked.add_(1)
+    mul = torch.rsqrt(var + norm.eps) * norm.weight.float()
+    return ((xf - mean.view(shape)) * mul.view(shape) + norm.bias.float().view(shape)).to(x.dtype)
+
+
+class _FlaxTrainMode:
+    """flax's train mode (`flax_batch_norm` over the channel axis, dim 1) for a torch
+    BatchNorm; eval mode uses the running statistics, as both do."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return flax_batch_norm(x, self, dim=1)
+        return super().forward(x)
+
+
+class BatchNorm1d(_FlaxTrainMode, nn.BatchNorm1d):
+    """`nn.BatchNorm1d` over (B, C, T), torch's names, flax's train mode."""
+
+
+class BatchNorm2d(_FlaxTrainMode, nn.BatchNorm2d):
+    """`nn.BatchNorm2d` over NCHW, torch's names, flax's train mode."""
 
 
 class _AffineNorm(nn.Module):

@@ -446,9 +446,7 @@ def test_cli_trains_one_epoch_and_writes_last_ckpt(corpus, tmp_path, model):
     assert trainer.model.base.backbone["bass"].rnn.generator is not None
 
 
-@pytest.mark.parametrize("model,flags,slice_", [
-    ("d3net", (), "slice E"), ("hrnet", (), "slice E"), ("cunet", (), "slice E"),
-    ("umx", ("--n_devices", "2"), "slice H")])
+@pytest.mark.parametrize("model,flags,slice_", [("umx", ("--n_devices", "2"), "slice H")])
 def test_cli_refuses_what_is_not_ported(corpus, tmp_path, model, flags, slice_):
     with pytest.raises(NotImplementedError, match=slice_):
         cli.main(_cli_args(corpus, tmp_path, model, *flags))

@@ -14,6 +14,7 @@
     python3 chip_smoke.py --only 15       # RNN / SRU, FurcaNet, musdb18's waveform models
     python3 chip_smoke.py --only 16       # Wavesplit, DANet, ADANet, deep clustering (16k first)
     python3 chip_smoke.py --only 17       # D3Net, MMDenseNet, MMDenseLSTM, HRNet, CUNet (17k first)
+    python3 chip_smoke.py --only 18       # ORPIT Conv-TasNet, the other PITs, oracle masks, library
 
 Phases (any failure exits non-zero; nothing is caught and passed):
   1. device: require CUDA, print the card's name and power limit, turn TF32 off;
@@ -152,7 +153,7 @@ Phases (any failure exits non-zero; nothing is caught and passed):
      --mixed_precision 1, --rnn_type gru (f32, bf16, causal f32 and bf16) and Conv-TasNet
      runs, with the launches of every run checked against its steps and
      validation forwards; one step and one validation forward counted alone;
-     a fixed batch must lower its loss over 10 steps; the trained checkpoints
+     a fixed batch must lower its loss over 6 steps; the trained checkpoints
      serve through cli/separate.py;
   9. training throughput (informational): p50 step time and audio-s/s, and a
      torch.profiler split of one DPRNN-TasNet step, LSTM and GRU, then of its
@@ -180,7 +181,7 @@ Phases (any failure exits non-zero; nothing is caught and passed):
      hop 1024, max_bin 1487, hidden 512, 3 layers, four stems, Adam at 1e-3): one UMX
      and one X-UMX step (dropout 0, B = 1 x 6 s) card vs an f64 CPU step, as phase 7;
      cli/train_musdb18.py --device cuda for each model on a synthetic musdb-layout
-     corpus, two epochs of 6 steps at B = 16 x 6 s with dropout 0.4 (the epoch's
+     corpus, two epochs of 4 steps at B = 16 x 6 s with dropout 0.4 (the epoch's
      train loss must fall), its last.ckpt served through cli/test_musdb18.py; every
      step exactly 12 lstm_scan_bidir and 12 backwards, every validation and serving
      forward 12 lstm_scan_bidir, each on the route _plan (_plan_bwd) gives its batch
@@ -223,7 +224,7 @@ Phases (any failure exits non-zero; nothing is caught and passed):
      attention (CUDA events around each MultiheadAttention call), decode and the rest, with
      the idle share; one train step a model (B = 1 x 1 s, the recipe widths at a small
      depth; LSTM-TasNet causal too) card vs an f64 CPU step, as phase 7;
-     cli/train_wsj0mix.py at each recipe's flags, B = 4 x 4 s, two epochs of 10 steps
+     cli/train_wsj0mix.py at each recipe's flags, B = 4 x 4 s, two epochs of 5 steps
      (every step and validation forward on its routes, the epoch train loss falling), its
      checkpoint served and evaluated (cli/test_wsj0mix.py card vs CPU within 0.05 dB), the
      recipe step's p50 split with the peak allocation and a profile with its idle share;
@@ -260,7 +261,7 @@ Phases (any failure exits non-zero; nothing is caught and passed):
      at H = 128, every tf32x3 tile the card holds beside the planned one, and at MRX's
      (1, 1724) x 2 serving and (16, 1035) x 2 training shapes at H = 256 (with cs, and its
      backward), each against its plain version at the full length (the serving shape's
-     over its first 8000 steps: the same computation), beside the FMA kernel
+     over its first 4000 steps: the same computation), beside the FMA kernel
      forced, cuDNN's nn.LSTM and the bound; fused_mask_decode at stereo Conv-TasNet's and
      Meta-TasNet's decoder widths (B = 1 x 10 s, f32) beside the plain version and einsum.
   16. Wavesplit and the embedding / attractor family at their recipes' widths (seed-0
@@ -300,6 +301,25 @@ Phases (any failure exits non-zero; nothing is caught and passed):
      lstm_scan_bidir at H = 64, 16 and 4 at a 10 s chunk's B = 1 sequences in f32 and bf16
      and recipe training's B = 6 with cs and its backward, each against its plain version,
      beside the FMA kernel, cuDNN's nn.LSTM and the bound.
+  18. slice G's wsj0-mix half at the recipe's width (egs/wsj0-mix/orpit_conv-tasnet and
+     frequency-mask): (18a) a 2+3-speaker corpus (write_quality_corpus at two and three
+     sources, merged here); one ORPIT train step of paper-config Conv-TasNet (B = 2 x 0.125
+     s, counts [2, 3]) card vs an f64 CPU step, as phase 7, the chosen "one" equal;
+     cli/train_wsj0mix.py --criterion orpit --n_sources 3 at B = 4 x 4 s, two epochs, one
+     decode a validation batch and none a step, a fixed batch's loss falling over 6 steps
+     (their p50) and the peak allocation; (18b) its checkpoint through cli/test_wsj0mix.py
+     at the recipe's test.sh flags, card vs CPU within EVAL_TOL_DB, one decode an
+     utterance; every decode of 18a-18c held to the plain decode of its inputs; (18c) one
+     CLI step each of --pit hungarian, prob and sink (paper width, 3 sources, B = 4 x 0.5 s),
+     the step's loss card vs CPU within LOSS_TOL, Hungarian's pattern equal to exhaustive
+     PIT's, the host time its solve adds; (18d) cli/test_oracle_masks.py with each mask, the
+     mean SI-SDRi card vs CPU within 1e-3 dB, the time an utterance; (18e) Griffin-Lim, fast
+     Griffin-Lim, MISI (5 iterations) and NMF (KL, 16 bases, 50 updates) on a 4 s
+     spectrogram (n_fft 256, hop 64) and MixIT on B = 8 x 4 s, card vs the CPU's f64 run
+     within 1e-3 of its max (or 10x the CPU's f32 error: iterated phase retrieval magnifies
+     rounding), each timed; then fused_mask_decode at the ORPIT validation shape (B = 4 x
+     4 s) against its plain version, timed. The CPU's halves run in a thread beside the
+     card's work.
 
 Each serving, quantizing and evaluation path, and the training path of phase
 8, runs with every launch count set to 0 just before it and read just after
@@ -357,7 +377,9 @@ lstm_scan_bidir at H = 300 on the FMA kernel (the whole call as `ms`, the kernel
 kernel on that route; and phase 17k's rows: lstm_scan_bidir at MMDenseLSTM's H = 64, 16
 (tf32x3 / mma, the FMA kernel forced beside them) and 4 (the FMA kernel, whole call and
 kernel alone), B = 1 serving and B = 6 training with its backward, cuDNN's nn.LSTM at the
-layer's input width, with phase 17's launches of that kernel on that route. The bf16
+layer's input width, with phase 17's launches of that kernel on that route; and phase 18's
+row: fused_mask_decode at the ORPIT validation shape (f32, "generic"), with phase 18's
+decodes. The bf16
 fused_mask_decode rows'
 `library_ms` is torch.einsum on bf16 operands, whose output is bf16 (the kernel's is f32).
 """
@@ -380,6 +402,9 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from dnn_based_source_separation_torch.algorithm import (
+    NMF, fast_griffin_lim, griffin_lim, misi,
+)
 from dnn_based_source_separation_torch.algorithm.frequency_mask import multichannel_wiener_filter
 from dnn_based_source_separation_torch.algorithm.clustering import KMeans
 from dnn_based_source_separation_torch.bench import (
@@ -390,13 +415,15 @@ from dnn_based_source_separation_torch import bench as bench_module
 from dnn_based_source_separation_torch.bench import main as bench_main
 from dnn_based_source_separation_torch.cli import separate as cli
 from dnn_based_source_separation_torch.cli import test_musdb18 as musdb_cli
+from dnn_based_source_separation_torch.cli import test_oracle_masks as oracle_cli
 from dnn_based_source_separation_torch.cli import test_wsj0mix as test_cli
 from dnn_based_source_separation_torch.cli import train_musdb18 as musdb_train_cli
 from dnn_based_source_separation_torch.cli import train_wsj0mix as train_cli
 from dnn_based_source_separation_torch.cli import train_wsj0mix_spec as spec_train_cli
 from dnn_based_source_separation_torch.cli import train_wsj0mix_wavesplit as wavesplit_train_cli
 from dnn_based_source_separation_torch.criterion import (
-    AffinityLoss, L2Loss, NegSDR, NegSISDR, PIT1d, PIT2d,
+    ORPIT, AffinityLoss, HungarianLoss, L2Loss, MixIT, NegSDR, NegSISDR, NegThresholdedSNR,
+    PIT1d, PIT2d,
 )
 from dnn_based_source_separation_torch.data import wsj0mix as wsj0mix_data
 from dnn_based_source_separation_torch.data.audio_io import read_wav, write_wav
@@ -413,7 +440,7 @@ from dnn_based_source_separation_torch.models.base import load_model, save_model
 from dnn_based_source_separation_torch.models.longform import chunk_count, separate_longform
 from dnn_based_source_separation_torch.models.fold import fold_for_serving
 from dnn_based_source_separation_torch.models.streaming import ExactStreamingSeparator
-from dnn_based_source_separation_torch.ops import _build
+from dnn_based_source_separation_torch.ops import _build, filterbank
 from dnn_based_source_separation_torch.ops import gru_scan as gs
 from dnn_based_source_separation_torch.ops import lstm_scan as ls
 from dnn_based_source_separation_torch.ops import mask_decode as md
@@ -421,6 +448,7 @@ from dnn_based_source_separation_torch.ops import quantize as q8
 from dnn_based_source_separation_torch.ops.attention import MultiheadAttention
 from dnn_based_source_separation_torch.ops.rnn import LSTM, set_dropout_generator
 from dnn_based_source_separation_torch.ops.stft import stft
+from dnn_based_source_separation_torch.ops.windows import build_window
 from dnn_based_source_separation_torch.train import (
     Evaluater, Trainer, make_optimizer, make_train_step, make_warmup_optimizer,
 )
@@ -531,8 +559,9 @@ def median_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     return float(np.median(times))
 
 
-GRAPH_BUDGET_MS = 400.0  # a timing's runs: fewer (not under 3 or 5) where one run is long
+GRAPH_BUDGET_MS = 200.0  # a timing's runs: fewer (not under 3 or 5) where one run is long
 LATENCY_RUNS = 2  # CLI requests timed a model (phase 6)
+STREAM_TIMED_HOPS = 40  # hops timed a streamed model and dtype (phase 6): the first 2 s
 BENCH_LINE_ITERS = 5  # timed forwards of the in-process bench lines of phases 13 and 14
 
 
@@ -1342,7 +1371,7 @@ def library_lstm_ms(B, T, H, chains, dtype, features=UMX["hidden_channels"],
                          bidirectional=chains == 2, device="cuda", dtype=dtype)
     x = torch.randn(B, T, features, device="cuda").to(dtype)
     with torch.no_grad():
-        return budget_ms(lambda: lstm(x), iters=iters, warmup=2)
+        return budget_ms(lambda: lstm(x), iters=iters, warmup=1)
 
 
 def phase_cluster(card=None):
@@ -2180,7 +2209,8 @@ def phase_stream_offline(tag, ckpt, wavs, outputs, phase="4d"):
 
 
 def stream_hop_times(ckpt, wav, dtype, card):
-    """ms per hop of one 4 s stream, each hop ended by a synchronize, as a server would."""
+    """ms per hop of the first STREAM_TIMED_HOPS hops of a 4 s stream, each hop ended by a
+    synchronize, as a server would."""
     model = load_model(ckpt, device="cuda").to(dtype)
     x = read_wav(wav)[0].astype(np.float32)
     hop = int(STREAMING_HOP * SAMPLE_RATE)
@@ -2189,7 +2219,7 @@ def stream_hop_times(ckpt, wav, dtype, card):
         stream.process(x[lo:lo + hop])
     stream.reset()
     times = []
-    for lo in range(0, len(x) // hop * hop, hop):
+    for lo in range(0, min(len(x) // hop, STREAM_TIMED_HOPS) * hop, hop):
         start = time.perf_counter()
         stream.process(x[lo:lo + hop]).cpu()
         times.append((time.perf_counter() - start) * 1e3)
@@ -2298,6 +2328,7 @@ TRAIN_MODELS = {
 GRAD_TOL_L2 = 1e-3  # card vs the f64 CPU step: relative L2 of the whole gradient
 GRAD_TOL_TENSOR = 5e-2  # card vs the f64 CPU step, each tensor, relative to its max|g|
 LOSS_TOL = 1e-4  # card vs the f64 CPU step, relative
+FIXED_BATCH_STEPS = 6  # phase 8: a fixed batch's loss must fall over these steps
 # The recipes' flags (egs/wsj0-mix/dprnn-tasnet/train.sh:22; the Conv-TasNet
 # defaults of cli/train_wsj0mix.py are the paper config).
 CLI_RECIPES = {
@@ -2504,7 +2535,7 @@ def phase_train_cli(tmp, card):
                                     tag)
         trainers.setdefault(tag, trainer)  # the f32 one of each model for the checks below
 
-    # Per step and per validation forward, then a fixed batch trained for 10 steps.
+    # Per step and per validation forward, then a fixed batch trained for FIXED_BATCH_STEPS.
     for tag, trainer in trainers.items():
         batch = train_batch(2 if tag.startswith("dprnn") else 4, 4.0, "cuda", seed=11)
         before = all_counts()
@@ -2519,12 +2550,14 @@ def phase_train_cli(tmp, card):
         check_paths(step_all, {}, f"{tag}: an f32 train step")
         check_paths(eval_all, {}, f"{tag}: an f32 validation forward",
                     decode_path(tag, "float32"))
-        losses += [float(trainer.train_step(*batch)) for _ in range(9)]
+        losses += [float(trainer.train_step(*batch)) for _ in range(FIXED_BATCH_STEPS - 1)]
         log(f"  {tag}: one train step launched {nonzero(step_launches)}; one validation "
-            f"forward {nonzero(eval_grew)}; a fixed batch over 10 steps: loss {losses[0]:.4f} "
+            f"forward {nonzero(eval_grew)}; a fixed batch over {FIXED_BATCH_STEPS} steps: loss "
+            f"{losses[0]:.4f} "
             f"-> {losses[-1]:.4f}")
         check(np.isfinite(losses).all() and losses[-1] < losses[0],
-              f"{tag}: 10 steps on one batch did not lower its loss: {losses}")
+              f"{tag}: {FIXED_BATCH_STEPS} steps on one batch did not lower its loss: "
+              f"{losses}")
     launches = all_counts()
     log(f"  training-path kernel launches: {nonzero(launches)}")
 
@@ -3093,7 +3126,7 @@ def phase_musdb(card=None):
 MUSDB_TRAIN_SECONDS = 6.0  # --duration: 259 STFT frames
 MUSDB_TRAIN_BATCH = 16  # --batch_size
 MUSDB_PARITY_BATCH = 1  # the card step held to an f64 CPU step (the f64 step's cost)
-MUSDB_TRAIN_STEPS = 6  # steps a CLI epoch; two epochs a model
+MUSDB_TRAIN_STEPS = 4  # steps a CLI epoch; two epochs a model
 MUSDB_TRAIN_TRACK_SECONDS = 20.0  # corpus tracks: four train, one valid, one test
 MUSDB_NULL_GRAD = 1e-4  # bias_in's gradient is 0 but for rounding (train-mode BatchNorm)
 UMX_STEP_LAUNCHES = UMX["num_layers"] * 4  # one biLSTM layer a stem and layer, each way
@@ -3926,7 +3959,8 @@ SLICE_D_CLI = {
                 "50", "-Q", "32", "--sep_num_blocks", "6", "--sep_num_heads", "8",
                 "--sep_hidden_channels", "128", "--mask_nonlinear", "relu"],
 }
-SLICE_D_TRAIN_UTTS = 30  # synthetic train utterances: 40 windows of 4 s, 10 steps of B = 4
+SLICE_D_TRAIN_UTTS = 15  # synthetic train utterances: 20 windows of 4 s
+SLICE_D_CLI_STEPS = 5  # steps of B = 4 an epoch
 SLICE_D_PARITY_DEPTH = {  # the train step against f64 (B = 1 x 1 s) at a small depth
     "lstm_tasnet": dict(sep_num_blocks=1),
     "sepformer": dict(sep_num_blocks=1, sep_num_layers_intra=2, sep_num_layers_inter=2),
@@ -4102,7 +4136,7 @@ def slice_d_train_parity():
 
 def slice_d_train_cli(tag, tmp, card):
     """cli/train_wsj0mix.py at the recipe flags (B = 4 x 4 s, f32) on a synthetic corpus, 2
-    epochs of 10 steps: every step and validation forward on its routes, the epoch train
+    epochs of 5 steps: every step and validation forward on its routes, the epoch train
     loss falling; its checkpoint served through cli/separate.py and evaluated through
     cli/test_wsj0mix.py card vs CPU; the recipe step's p50 split by CUDA events with its
     peak allocation and a profile with its idle share. -> launches."""
@@ -4121,7 +4155,8 @@ def slice_d_train_cli(tag, tmp, card):
         trainer = train_cli.main(argv)
     grew = all_counts()
     steps = 2 * len(trainer.train_loader)
-    check(steps == 20, f"the {name} CLI run took {steps} steps, not 20")
+    check(steps == 2 * SLICE_D_CLI_STEPS, f"the {name} CLI run took {steps} steps, not "
+                                          f"{2 * SLICE_D_CLI_STEPS}")
     routes = {k: steps * v for k, v in
               slice_d_routes(tag, 4, 4 * SAMPLE_RATE, False, torch.float32,
                              backward=True).items()}
@@ -4316,11 +4351,14 @@ WAVE_DEPTH = {  # the train step against f64 at a small depth: the widths kept
 WAVENET = dict(in_channels=1, out_channels=256, output_nonlinear="softmax")
 MRX_HOP, MRX_LAYERS = 256, 9  # three resolutions x three biLSTM layers, H = 512 // 2
 WAVE_SECONDS = 10.0  # the CLI's --valid_duration: the validation forward, B = 1
-REST_STEPS = 2  # musdb18 CLI steps an epoch, two epochs a model
+WAVE_PARITY_SECONDS = 0.5  # the card-vs-CPU forward of each waveform model
+REST_STEPS = 1  # musdb18 CLI steps an epoch, two epochs a model
+REST_FORWARDS = 2  # timed B = 8 x 4 s forwards of the RNN and SRU models, after one
 # The new kernel shapes, phase 15k: (model, label, (B, T, H, chains), dtypes, training, F).
-# FurcaNet's B = 8 x 4 s launches are held to the plain version over their first 8000 of
-# 32000 steps (its plain step loop took 9.0 and 14.2 s a dtype over all of them).
-FURCANET_CHECK_STEPS = 8000
+# FurcaNet's B = 8 x 4 s launches are held to the plain version over their first 4000 of
+# 32000 steps (its plain step loop took 9.0 and 14.2 s a dtype over all of them, 3.3 and 4.0
+# s over 8000).
+FURCANET_CHECK_STEPS = 4000
 REST_SHAPES = [
     ("FurcaNet", "train", (4, 16000, 128, 2), (torch.float32,), True, 128),
     ("FurcaNet", "serve", (8, 32000, 128, 2), (torch.float32, torch.bfloat16), False, 128),
@@ -4504,9 +4542,10 @@ def rest_serve(tmp, wavs, card):
 def wave_card_vs_cpu(card):
     """Stereo Conv-TasNet, MRX and Meta-TasNet (under their musdb18 adapters) and WaveNet:
     one B = 1 forward on the card, every count set to 0 just before and read just after and
-    held to its routes, against the CPU's (<= 1e-3 x max|CPU|); 1 s of 44.1 kHz stereo
-    (WaveNet: 0.25 s of 16 kHz mono). -> the card forwards' launches."""
-    log("== phase 15: musdb18's waveform models and WaveNet, card vs CPU (f32, 1 s)")
+    held to its routes, against the CPU's (<= 1e-3 x max|CPU|); WAVE_PARITY_SECONDS of
+    44.1 kHz stereo (WaveNet: 0.25 s of 16 kHz mono). -> the card forwards' launches."""
+    log(f"== phase 15: musdb18's waveform models and WaveNet, card vs CPU (f32, "
+        f"{WAVE_PARITY_SECONDS:g} s)")
     launches = {}
     for kind in (*WAVE_CLI, "wavenet"):
         if kind == "wavenet":
@@ -4517,7 +4556,7 @@ def wave_card_vs_cpu(card):
             routes, (decodes, decode) = {}, (0, None)
         else:
             make = lambda device, kind=kind: wave_model(kind, device)[0]  # noqa: E731
-            x = wave_batch(1, 1.0, "cpu")[0]
+            x = wave_batch(1, WAVE_PARITY_SECONDS, "cpu")[0]
             routes, (decodes, decode) = wave_routes(kind, 1), wave_decode(kind)
         card_model, cpu_model = make("cuda").eval(), make("cpu").eval()
         cpu_model.load_state_dict(card_model.state_dict())
@@ -4721,7 +4760,7 @@ def rest_wave_cli(kind, root, batch, tmp, card):
 def rest_forwards(ckpts, card):
     """The B = 8 x 4 s forward of each served wsj0-mix checkpoint (FurcaNet in both dtypes
     by forward_profile: every launch on its route, the device time split; the RNN and SRU
-    models in f32, median of 3) and its recipe train step's p50 (of 2 after one) and peak
+    models in f32, median of 2) and its recipe train step's p50 (of 2 after one) and peak
     allocation (f32). -> (numbers, launches)."""
     log(f"== phase 15: the B=8 x 4 s forward and the recipe step, ms and peak [{card}]")
     numbers, launches = {}, {}
@@ -4739,13 +4778,14 @@ def rest_forwards(ckpts, card):
             reset_counts()
             torch.cuda.reset_peak_memory_stats()
             with torch.inference_mode():
-                ms = median_ms(lambda: model(x), warmup=1, iters=3)
+                ms = median_ms(lambda: model(x), warmup=1, iters=REST_FORWARDS)
             grew = all_counts()
-            check_dptnet_launches(grew, {}, f"{tag}: the B=8 x 4 s forwards", decodes=4,
+            check_dptnet_launches(grew, {}, f"{tag}: the B=8 x 4 s forwards",
+                                  decodes=1 + REST_FORWARDS,
                                   decode=decode_path(tag, torch.float32))
             numbers[(tag, torch.float32)] = dict(
                 ms=ms, peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20)
-            log(f"  {tag} B=8 x 4 s float32: {ms:.3f} ms a forward (median of 3), "
+            log(f"  {tag} B=8 x 4 s float32: {ms:.3f} ms a forward (median of {REST_FORWARDS}), "
                 f"{8 * 4.0 / (ms / 1e3):.1f} audio-s/s, peak "
                 f"{numbers[(tag, torch.float32)]['peak_mib']:.1f} MiB [{card}]")
             launches = add_counts(launches, grew)
@@ -4797,7 +4837,7 @@ def phase_rest(card=None, tmp=None):
         total = add_counts(total, wave_card_vs_cpu(card))
         total = add_counts(total, rest_train_parity())
         corpus = os.path.join(tmp, "rest_corpus")
-        wsj0 = (*write_quality_corpus(corpus, "tr", 6), *write_quality_corpus(corpus, "cv", 1))
+        wsj0 = (*write_quality_corpus(corpus, "tr", 3), *write_quality_corpus(corpus, "cv", 1))
         for tag in ("furcanet", "dprnn_sru"):
             total = add_counts(total, rest_wsj0_cli(tag, tmp, wsj0, card))
         root = os.path.join(tmp, "musdb18_wave")
@@ -5811,6 +5851,475 @@ def phase_slice_e(card=None, tmp=None):
     return dict(launches=total, kernels=kernels, numbers=numbers)
 
 
+# Phase 18: slice G's wsj0-mix half at the recipe's width: ORPIT Conv-TasNet over 2+3
+# speakers (the port's egs/wsj0-mix/orpit_conv-tasnet/{train,test}.sh), the other PITs, the
+# oracle masks (egs/wsj0-mix/frequency-mask/test.sh), and the library's phase retrieval,
+# NMF and MixIT, card against CPU.
+ORPIT_CLI = ["--model", "conv-tasnet", "--criterion", "orpit", "-N", "512", "-L", "16",
+             "-H", "512", "-B", "128", "-Sc", "128", "-P", "3", "-R", "3", "-X", "8",
+             "--enc_nonlinear", "relu", "--batch_size", "4", "--lr", "1e-3", "--n_sources", "3"]
+ORPIT_UTTS = 4  # train utterances of each speaker count (about 3 steps of B = 4 x 4 s)
+ORPIT_PARITY_SECONDS = 0.125  # the f64 step: one 2- and one 3-speaker window
+ORPIT_FIXED_STEPS = 6  # a fixed batch's loss must fall over these (timed: the step's p50)
+ORPIT_VALID_SHAPE = dict(B=4, S=2, T=3999, N=512, CL=16)  # a validation batch, 4 x 4 s
+PIT_SECONDS = 0.5  # the other PITs' utterances: one step of B = 4 a CLI run, one validation
+PIT_CLI = ["--model", "conv-tasnet", "--batch_size", "4", "--n_sources", "3",
+           "--duration", str(PIT_SECONDS), "--valid_duration", str(PIT_SECONDS)]  # paper width
+PITS = ("hungarian", "prob", "sink")
+PIT_TIMED = 20  # criterion calls a median of the Hungarian host time
+ORACLE_UTTS = 3
+ORACLE_TOL_DB = 1e-3  # card vs CPU, each mask's mean SI-SDRi
+LIB_STFT = dict(n_fft=256, hop_length=64)
+LIB_SECONDS = 4.0
+LIB_ITERATIONS = 5  # Griffin-Lim, fast Griffin-Lim and MISI
+NMF_BASIS, NMF_ITERATIONS = 16, 50
+LIB_TOL = 1e-3  # card vs the CPU's f64 run, relative to its max (or 10x the CPU's f32 error)
+MIXIT_BATCH, MIXIT_EST = 8, 4
+
+
+class RecordedCriterion:
+    """A PIT-protocol criterion that keeps its last (loss, indices) output."""
+
+    def __init__(self, criterion):
+        self.criterion, self.out = criterion, None
+
+    def __call__(self, *args, **kwargs):
+        self.out = self.criterion(*args, **kwargs)
+        return self.out
+
+
+@contextlib.contextmanager
+def decodes_held_to_plain():
+    """Every fused_mask_decode the port's decoder launches on the card in the block, held
+    to the plain decode of the same inputs (TOL x max|plain|) -> {"n": launches held,
+    "worst": the largest error over max|plain|}."""
+    held = {"n": 0, "worst": 0.0}
+    launch = filterbank.fused_mask_decode
+
+    def checked(w, mask, kernel, *args, **kwargs):
+        out = launch(w, mask, kernel, *args, **kwargs)
+        if out.is_cuda:
+            ref = md.fused_mask_decode_reference(w, mask, kernel)
+            err = float((out - ref).abs().max()) / (float(ref.abs().max()) or 1.0)
+            check(err <= TOL[w.dtype], f"a fused_mask_decode launch disagrees with the plain "
+                                       f"decode: {err:.2e} x max|plain|")
+            held["n"] += 1
+            held["worst"] = max(held["worst"], err)
+        return out
+
+    filterbank.fused_mask_decode = checked
+    try:
+        yield held
+    finally:
+        filterbank.fused_mask_decode = launch
+
+
+def write_orpit_corpus(tmp, split, n_utts):
+    """A 2+3-speaker split: write_quality_corpus's two- and three-speaker utterances of
+    `split` moved into one root and one list, each ID prefixed with its count (a
+    two-speaker utterance has no s3/ file) -> (wav_root, list_path)."""
+    root = os.path.join(tmp, "orpit", split)
+    utts = []
+    for n in (2, 3):
+        with contextlib.redirect_stdout(io.StringIO()):
+            src_root, src_list = write_quality_corpus(os.path.join(tmp, f"orpit_{n}spk"),
+                                                      split, n_utts, n_sources=n)
+        with open(src_list) as f:
+            ids = f.read().split()
+        for sub in ["mix"] + [f"s{k + 1}" for k in range(n)]:
+            os.makedirs(os.path.join(root, sub), exist_ok=True)
+            for utt in ids:
+                os.replace(os.path.join(src_root, sub, f"{utt}.wav"),
+                           os.path.join(root, sub, f"{n}spk_{utt}.wav"))
+        utts += [f"{n}spk_{utt}" for utt in ids]
+    with open(root + ".lst", "w") as f:
+        f.write("\n".join(utts))
+    return root, root + ".lst"
+
+
+def orpit_grads_of_step(model, batch):
+    """One ORPIT make_train_step (SGD at lr 0) -> (loss, gradients, the chosen "one")."""
+    criterion = RecordedCriterion(ORPIT(NegSISDR()))
+    step = make_train_step(model, criterion, make_optimizer("sgd", 0.0,
+                                                           params=model.parameters()))
+    loss = float(step(*batch))
+    grads = {n: p.grad for n, p in model.named_parameters() if p.requires_grad}
+    return loss, grads, criterion.out[1].cpu()
+
+
+def orpit_parity_model(device):
+    return scramble_norms(ConvTasNet(**PAPER, generator=torch.Generator().manual_seed(0),
+                                     device=device))
+
+
+def orpit_parity_batch(tr_root, tr_list):
+    """The first two- and three-speaker windows of ORPIT_PARITY_SECONDS, as one batch."""
+    data = wsj0mix_data.WaveTrainVariableSourcesDataset(
+        tr_root, tr_list, samples=int(ORPIT_PARITY_SECONDS * SAMPLE_RATE), max_sources=3)
+    first = {}
+    for i in range(len(data)):
+        first.setdefault(int(data[i][2]), i)
+        if len(first) == 2:
+            break
+    return tuple(torch.from_numpy(np.stack(f)) for f in zip(*(data[first[n]] for n in (2, 3))))
+
+
+def orpit_parity_cpu(batch):
+    """The CPU's halves of the parity step: the f64 step and the f32 one."""
+    cpu_model = orpit_parity_model("cpu")
+    ref = orpit_grads_of_step(copy.deepcopy(cpu_model).double(),
+                              (batch[0].double(), batch[1].double(), batch[2]))
+    return ref, orpit_grads_of_step(cpu_model, batch)
+
+
+def orpit_train_parity(batch, cpu_side):
+    """One ORPIT train step of paper-config Conv-TasNet on the card against an f64 CPU
+    step (and the CPU's f32 one; `cpu_side` their future), as phase 7: a two- and a
+    three-speaker window."""
+    log(f"== phase 18a: one ORPIT train step, card vs CPU (f32, TF32 off, B=2 x "
+        f"{ORPIT_PARITY_SECONDS} s, counts [2, 3]; f64 CPU reference)")
+    before = all_counts()
+    card = orpit_grads_of_step(orpit_parity_model("cuda"), tuple(t.cuda() for t in batch))
+    torch.cuda.synchronize()
+    launched = kernels_of(grown(before))
+    check(launched == expected(), f"an ORPIT train step launched {launched}: training "
+                                  f"decodes with the plain version")
+    ref, cpu = cpu_side.result()
+    check_step_against_f64("orpit_conv_tasnet", ref[:2], cpu[:2], card[:2], launched)
+    check(torch.equal(card[2], ref[2]) and torch.equal(cpu[2], ref[2]),
+          f"the chosen one differs: card {card[2].tolist()}, CPU f32 {cpu[2].tolist()}, "
+          f"f64 {ref[2].tolist()}")
+    log(f"  the chosen one: card {card[2].tolist()} = CPU f32 = f64")
+
+
+def orpit_train_cli(corpus, card):
+    """The ORPIT recipe through cli/train_wsj0mix.py at its width, two epochs; a fixed
+    batch's loss over ORPIT_FIXED_STEPS more steps, timed -> (launches, checkpoint)."""
+    (tr_root, tr_list), (cv_root, cv_list), tmp = corpus
+    log("== phase 18a: ORPIT Conv-TasNet through cli/train_wsj0mix.py --criterion orpit "
+        "--n_sources 3 (the recipe's width, B = 4 x 4 s, two epochs)")
+    exp = os.path.join(tmp, "exp_orpit")
+    torch.cuda.reset_peak_memory_stats()
+    before = all_counts()
+    trainer = train_cli.main(["--train_wav_root", tr_root, "--train_list_path", tr_list,
+                              "--valid_wav_root", cv_root, "--valid_list_path", cv_list,
+                              "--duration", "4", "--valid_duration", "4", *ORPIT_CLI,
+                              "--epochs", "2", "--exp_dir", exp, "--device", "cuda"])
+    torch.cuda.synchronize()
+    grew = grown(before)
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    check(type(trainer).__name__ == "ORPITTrainer", type(trainer))
+    losses = trainer.train_loss + trainer.valid_loss
+    check(len(trainer.train_loss) == 2 and all(np.isfinite(losses)), losses)
+    evals = 2 * len(trainer.valid_loader)
+    check(kernels_of(grew) == expected(fused_mask_decode=evals),
+          f"the ORPIT CLI launched {kernels_of(grew)}, expected {evals} decodes (one a "
+          f"validation batch; the steps decode with the plain version)")
+    check_paths(grew, {}, "the ORPIT CLI", "generic")
+    data = trainer.train_loader.dataset
+    counts_seen = sorted({int(data[i][2]) for i in range(len(data))})
+    check(counts_seen == [2, 3], f"the train windows' counts {counts_seen}")
+    # A fixed batch of both counts: the loss must fall; the steps timed on the host clock,
+    # each ended by a synchronize.
+    order = sorted(range(len(data)), key=lambda i: int(data[i][2]))
+    picks = [order[0], order[1], order[-2], order[-1]]
+    batch = tuple(torch.from_numpy(np.stack(f)).cuda() for f in zip(*(data[i] for i in picks)))
+    losses, times = [], []
+    for _ in range(ORPIT_FIXED_STEPS):
+        start = time.perf_counter()
+        losses.append(float(trainer.train_step(*batch)))
+        times.append((time.perf_counter() - start) * 1e3)
+    p50 = float(np.median(times[1:]))
+    log(f"  epochs: train loss {[round(v, 4) for v in trainer.train_loss]}, valid loss "
+        f"{[round(v, 4) for v in trainer.valid_loss]}; {len(trainer.train_loader)} steps and "
+        f"{len(trainer.valid_loader)} validation batches an epoch; CLI p50 "
+        f"{trainer.last_epoch_stats['iter_p50_ms']:.1f} ms; a fixed batch (counts "
+        f"{batch[2].tolist()}) over {ORPIT_FIXED_STEPS} steps: loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}, step p50 {p50:.1f} ms (host clock, synchronised); peak "
+        f"allocation {peak_mib:.1f} MiB; launches {nonzero(kernels_of(grew))} [{card}]")
+    check(np.isfinite(losses).all() and losses[-1] < losses[0],
+          f"ORPIT: {ORPIT_FIXED_STEPS} steps on one batch did not lower its loss: {losses}")
+    return grew, os.path.join(exp, "model", "last.ckpt"), dict(step_p50_ms=p50,
+                                                               peak_mib=peak_mib)
+
+
+def orpit_eval_flags(ckpt):
+    """The port's orpit_conv-tasnet/test.sh flags beyond the data, model and device."""
+    return ["--out_dir", os.path.join(os.path.dirname(os.path.dirname(ckpt)), "test")]
+
+
+def orpit_evaluate(test_set, ckpt, cpu_runs, card):
+    """The ORPIT checkpoint (the (one, rest) pair) through cli/test_wsj0mix.py at the port's
+    orpit_conv-tasnet/test.sh flags, card vs CPU (`cpu_runs` the CPU's futures), one
+    utterance a call."""
+    log("== phase 18b: the ORPIT checkpoint through cli/test_wsj0mix.py (test.sh's flags), "
+        "card vs CPU")
+    root, lists = test_set
+    total = dict.fromkeys(all_counts(), 0)
+    for list_path, T, cpu_run in zip(lists, TEST_LENGTHS, cpu_runs):
+        before = all_counts()
+        got = evaluate(root, list_path, ckpt, "cuda", orpit_eval_flags(ckpt))
+        grew = grown(before)
+        check(kernels_of(grew) == expected(fused_mask_decode=1),
+              f"an ORPIT evaluation launched {kernels_of(grew)}")
+        check_paths(grew, {}, "an ORPIT evaluation", "generic")
+        total = add_counts(total, grew)
+        ref = cpu_run.result()
+        diffs = {k: abs(got[k] - ref[k]) for k in TEST_METRICS}
+        check(all(np.isfinite(got[k]) for k in TEST_METRICS), got)
+        log(f"  {T} samples: SI-SDRi {got['loss_improvement']:.3f} dB (CPU "
+            f"{ref['loss_improvement']:.3f}), max |card - CPU| {max(diffs.values()):.2e} dB; "
+            f"forward {got['forward_ms']:.1f} ms [{card}]")
+        check(max(diffs.values()) <= EVAL_TOL_DB, f"ORPIT: card metrics differ: {diffs}")
+    return total
+
+
+def write_pit_corpus(tmp):
+    """Four three-speaker utterances of exactly PIT_SECONDS (one window each), the first one
+    alone the validation list -> the CLI's data flags."""
+    root = os.path.join(tmp, "pit", "tr")
+    for sub in ("mix", "s1", "s2", "s3"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    speakers = _speaker_bank(12, seed=21)
+    rng = np.random.default_rng(22)
+    T = int(PIT_SECONDS * SAMPLE_RATE)
+    for i in range(4):
+        srcs = [synth_pseudo_speech(speakers[3 * i + k], rng, T, SAMPLE_RATE)
+                for k in range(3)]
+        scale = 0.9 / max(float(np.abs(sum(srcs)).max()), 1e-9)
+        for sub, sig in (*((f"s{k + 1}", s) for k, s in enumerate(srcs)), ("mix", sum(srcs))):
+            write_wav(os.path.join(root, sub, f"pit{i}.wav"), sig * scale, SAMPLE_RATE)
+    with open(root + ".lst", "w") as f:
+        f.write("\n".join(f"pit{i}" for i in range(4)))
+    with open(root + "_valid.lst", "w") as f:
+        f.write("pit0")
+    return ["--train_wav_root", root, "--train_list_path", root + ".lst",
+            "--valid_wav_root", root, "--valid_list_path", root + "_valid.lst", *PIT_CLI]
+
+
+def pit_run(data, pit, tmp, device):
+    """One epoch (one step) of cli/train_wsj0mix.py --pit `pit` on `device`."""
+    return train_cli.main([*data, "--pit", pit, "--epochs", "1", "--exp_dir",
+                           os.path.join(tmp, f"exp_{pit}_{device}"), "--device", device])
+
+
+def other_pits(data, cpu_runs, tmp, card):
+    """--pit hungarian | prob | sink: one CLI step each at the paper width (3 sources,
+    B = 4 x PIT_SECONDS), card vs CPU (`cpu_runs` the CPU's futures by PIT); Hungarian's pattern
+    against exhaustive PIT's and the host time its solve adds to a step."""
+    log(f"== phase 18c: --pit hungarian | prob | sink, one step each through "
+        f"cli/train_wsj0mix.py (paper width, 3 sources, B = 4 x {PIT_SECONDS:g} s), card vs "
+        f"CPU")
+    total = dict.fromkeys(all_counts(), 0)
+    for pit in PITS:
+        before = all_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            trainer = pit_run(data, pit, tmp, "cuda")
+        grew = grown(before)
+        check(len(trainer.train_loader) == 1 and len(trainer.valid_loader) == 1,
+              (len(trainer.train_loader), len(trainer.valid_loader)))
+        check(kernels_of(grew) == expected(fused_mask_decode=1),
+              f"--pit {pit} launched {kernels_of(grew)}: one validation decode expected")
+        check_paths(grew, {}, f"--pit {pit}", "generic")
+        total = add_counts(total, grew)
+        cpu = cpu_runs[pit].result()
+        losses = {"cuda": (trainer.train_loss[0], trainer.valid_loss[0]),
+                  "cpu": (cpu.train_loss[0], cpu.valid_loss[0])}
+        err = abs(losses["cuda"][0] - losses["cpu"][0]) / abs(losses["cpu"][0])
+        log(f"  --pit {pit}: step loss card {losses['cuda'][0]:.6f}, CPU "
+            f"{losses['cpu'][0]:.6f} (relative err {err:.2e}, limit {LOSS_TOL:g}); valid loss "
+            f"after the step {losses['cuda'][1]:.6f} / {losses['cpu'][1]:.6f}")
+        check(np.isfinite(losses["cuda"]).all() and err <= LOSS_TOL,
+              f"--pit {pit}: the card's step loss {losses['cuda'][0]} differs from the CPU's "
+              f"{losses['cpu'][0]}")
+    # Hungarian against exhaustive PIT on the trained model's estimates of the step's batch,
+    # and the host time the assignment adds (its device-to-host copy waits for the forward).
+    items = [trainer.train_loader.dataset[i] for i in range(4)]
+    mixture, sources = (torch.from_numpy(np.stack(f)).cuda() for f in zip(*items))
+    before = all_counts()
+    with torch.no_grad():
+        estimates = trainer.model.eval()(mixture)
+    grew = grown(before)
+    check(kernels_of(grew) == expected(fused_mask_decode=1), f"a forward launched {grew}")
+    total = add_counts(total, grew)
+    hungarian, exhaustive = HungarianLoss(NegSISDR()), PIT1d(NegSISDR(), n_sources=3)
+    h_loss, h_pattern = hungarian(estimates, sources)
+    e_loss, e_pattern = exhaustive(estimates, sources)
+    check(torch.equal(h_pattern, e_pattern) and abs(float(h_loss) - float(e_loss))
+          <= 1e-5 * abs(float(e_loss)), f"Hungarian {h_pattern.tolist()} {float(h_loss)} vs "
+                                         f"exhaustive {e_pattern.tolist()} {float(e_loss)}")
+
+    def host_ms(criterion):
+        ms = []
+        for _ in range(PIT_TIMED):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            float(criterion(estimates, sources)[0])
+            ms.append((time.perf_counter() - start) * 1e3)
+        return float(np.median(ms))
+
+    h_ms, e_ms = host_ms(hungarian), host_ms(exhaustive)
+    log(f"  Hungarian pattern = exhaustive PIT's {h_pattern.tolist()}; a criterion call "
+        f"(B = 4, n = 3, {PIT_SECONDS:g} s) ended by its loss on the host: Hungarian "
+        f"{h_ms:.3f} ms, exhaustive {e_ms:.3f} ms: the solve adds {h_ms - e_ms:.3f} ms a step "
+        f"(medians of "
+        f"{PIT_TIMED}, host clock) [{card}]")
+    return total, dict(hungarian_ms=h_ms, exhaustive_ms=e_ms)
+
+
+def oracle_argv(test_set, mask):
+    root, lst = test_set
+    return ["--test_wav_root", root, "--test_list_path", lst, "--mask", mask, "--n_fft", "256",
+            "--hop_length", "64"]
+
+
+def oracle_masks(test_set, cpu_means, card):
+    """cli/test_oracle_masks.py with each mask on the card against the CPU (`cpu_means` the
+    CPU runs' futures by mask), the card's time an utterance."""
+    log("== phase 18d: cli/test_oracle_masks.py (ibm, irm, wfm, psm; n_fft 256, hop 64), "
+        "card vs CPU")
+    numbers = {}
+    for mask in oracle_cli.MASKS:
+        start = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            mean = oracle_cli.main([*oracle_argv(test_set, mask), "--device", "cuda"])
+        numbers[mask] = (time.perf_counter() - start) * 1e3 / ORACLE_UTTS
+        cpu = cpu_means[mask].result()
+        diff = abs(mean - cpu)
+        log(f"  {mask}: mean SI-SDRi card {mean:.4f} dB, CPU {cpu:.4f} (|diff| {diff:.2e}, "
+            f"limit {ORACLE_TOL_DB:g}); {numbers[mask]:.1f} ms an utterance on the card (host "
+            f"clock, WAV reads included) [{card}]")
+        check(np.isfinite(mean) and diff <= ORACLE_TOL_DB,
+              f"oracle {mask}: card {mean} vs CPU {cpu}")
+    return numbers
+
+
+def library_cases():
+    """Griffin-Lim, fast Griffin-Lim, MISI and NMF on a 4 s spectrogram, MixIT on a
+    B = 8 x 4 s batch: {name: run(device, dtype) -> a tensor, or MixIT's (loss,
+    assignment)}, and MixIT's true routing."""
+    T = int(LIB_SECONDS * SAMPLE_RATE)
+    speakers = _speaker_bank(2, seed=31)
+    rng = np.random.default_rng(32)
+    sources = torch.from_numpy(np.stack([synth_pseudo_speech(s, rng, T, SAMPLE_RATE)
+                                         for s in speakers]).astype(np.float32))
+    n_fft, hop = LIB_STFT["n_fft"], LIB_STFT["hop_length"]
+    window = build_window(n_fft, "hann")
+    amplitude = stft(sources, n_fft, hop, window=window).abs()  # (2, 129, 501)
+    power = amplitude[0] ** 2
+    nmf_init = NMF(NMF_BASIS, "KL", NMF_ITERATIONS, seed=0)._init(power)
+    estimates = torch.from_numpy(rng.standard_normal((MIXIT_BATCH, MIXIT_EST, T),
+                                                     dtype=np.float32))
+    route = torch.from_numpy(rng.integers(0, 2, (MIXIT_BATCH, MIXIT_EST)))
+    onehot = torch.nn.functional.one_hot(route, 2).float()  # (B, n_est, 2)
+    mixtures = torch.einsum("bnm,bnt->bmt", onehot, estimates) + 0.1 * torch.from_numpy(
+        rng.standard_normal((MIXIT_BATCH, 2, T), dtype=np.float32))
+    cases = {
+        "griffin_lim": lambda d, t: griffin_lim(amplitude.to(d, t), n_fft, hop,
+                                                window=window.to(d, t),
+                                                iteration=LIB_ITERATIONS, length=T),
+        "fast_griffin_lim": lambda d, t: fast_griffin_lim(
+            amplitude.to(d, t), n_fft, hop, window=window.to(d, t), iteration=LIB_ITERATIONS,
+            length=T),
+        "misi": lambda d, t: misi(amplitude.to(d, t), sources.sum(0).to(d, t), n_fft, hop,
+                                  window=window.to(d, t), iteration=LIB_ITERATIONS),
+        "nmf_kl": lambda d, t: torch.cat([f.flatten() for f in NMF(
+            NMF_BASIS, "KL", NMF_ITERATIONS)(power.to(d, t),
+                                             init=[x.to(d, t) for x in nmf_init])]),
+        "mixit": lambda d, t: MixIT(NegThresholdedSNR(), MIXIT_EST)(
+            estimates.to(d, t), mixtures.to(d, t), batch_mean=False),
+    }
+    return cases, route
+
+
+def library_cpu():
+    """Each library case on the CPU in f64 and in f32."""
+    cases, route = library_cases()
+    return {name: (run("cpu", torch.float64), run("cpu", torch.float32))
+            for name, run in cases.items()}, route
+
+
+def library_card_vs_cpu(cpu_side, card):
+    """The library cases on the card against the CPU (`cpu_side` its future), each timed."""
+    log(f"== phase 18e: the library on the card vs the CPU: phase retrieval ({LIB_ITERATIONS} "
+        f"iterations) and NMF ({NMF_BASIS} bases, {NMF_ITERATIONS} updates) on a "
+        f"{LIB_SECONDS:g} s spectrogram (n_fft 256, hop 64), MixIT on B = {MIXIT_BATCH} x "
+        f"{LIB_SECONDS:g} s")
+    cases, _ = library_cases()
+    refs, route = cpu_side.result()
+    numbers = {}
+    for name, run in cases.items():
+        got, (ref, cpu) = run("cuda", torch.float32), refs[name]
+        torch.cuda.synchronize()
+        if name == "mixit":
+            check(all(torch.equal(a[1].cpu(), route) for a in (got, ref, cpu)),
+                  f"MixIT's assignment: card {got[1].tolist()}, CPU f64 {ref[1].tolist()}, "
+                  f"f32 {cpu[1].tolist()}, routed {route.tolist()}")
+            got, ref, cpu = got[0], ref[0], cpu[0]
+        scale = float(ref.abs().max())
+        err = float((got.cpu().double() - ref).abs().max()) / scale
+        cpu_err = float((cpu.double() - ref).abs().max()) / scale
+        limit = max(LIB_TOL, 10 * cpu_err)  # iterated phase retrieval magnifies rounding
+        numbers[name] = median_ms(lambda: run("cuda", torch.float32), warmup=1, iters=5)
+        log(f"  {name}: max|card - f64| / max|f64| {err:.2e}, CPU f32 {cpu_err:.2e} (limit "
+            f"{limit:.2e}); {numbers[name]:.3f} ms on the card (median of 5, CUDA events) "
+            f"[{card}]")
+        check(err <= limit, f"{name}: the card differs from the CPU's f64 run by {err:.2e}")
+    return numbers
+
+
+def phase_slice_g(card=None, tmp=None):
+    """Phase 18 -> {"launches": the main path's counts (the ORPIT CLI's validation forwards,
+    the evaluations, the other PITs' validation forwards; every decode held to the plain
+    one), "decode": fused_mask_decode timed at the ORPIT validation shape, "numbers"}.
+
+    The CPU's halves of the checks run in a thread beside the card's work, one task at a
+    time, on all but SLICE_E_HOST_CORES of the host's cores (as phase 17's)."""
+    card = card or card_line()
+    numbers = {}
+    with contextlib.ExitStack() as stack:
+        tmp = tmp or stack.enter_context(tempfile.TemporaryDirectory())
+        threads = torch.get_num_threads()
+        torch.set_num_threads(max(1, threads - SLICE_E_HOST_CORES))
+        stack.callback(torch.set_num_threads, threads)
+        pool = stack.enter_context(ThreadPoolExecutor(1))
+        corpus = (write_orpit_corpus(tmp, "tr", ORPIT_UTTS), write_orpit_corpus(tmp, "cv", 1),
+                  tmp)
+        pit_data = write_pit_corpus(tmp)
+        with contextlib.redirect_stdout(io.StringIO()):
+            oracle_set = write_quality_corpus(os.path.join(tmp, "oracle"), "tt", ORACLE_UTTS)
+        test_set = write_test_list(tmp)
+        batch = orpit_parity_batch(*corpus[0])
+        parity_cpu = pool.submit(orpit_parity_cpu, batch)
+        pit_cpu = {pit: pool.submit(pit_run, pit_data, pit, tmp, "cpu") for pit in PITS}
+        oracle_cpu = {mask: pool.submit(oracle_cli.main, [*oracle_argv(oracle_set, mask),
+                                                          "--device", "cpu"])
+                      for mask in oracle_cli.MASKS}
+        library = pool.submit(library_cpu)
+        held = stack.enter_context(decodes_held_to_plain())
+        orpit_train_parity(batch, parity_cpu)
+        total, ckpt, numbers["orpit"] = orpit_train_cli(corpus, card)
+        # cli/test_wsj0mix.main itself: its CSV lines go to the log (`evaluate` would take
+        # the process's stdout from the card's thread while it runs)
+        eval_cpu = [pool.submit(test_cli.main, ["--test_wav_root", test_set[0],
+                                                "--test_list_path", list_path, "--model_path",
+                                                ckpt, "--device", "cpu",
+                                                *orpit_eval_flags(ckpt)])
+                    for list_path in test_set[1]]
+        launches, numbers["pit"] = other_pits(pit_data, pit_cpu, tmp, card)
+        total = add_counts(total, launches)
+        numbers["oracle"] = oracle_masks(oracle_set, oracle_cpu, card)
+        numbers["library"] = library_card_vs_cpu(library, card)
+        total = add_counts(total, orpit_evaluate(test_set, ckpt, eval_cpu, card))
+        check(held["n"] == total["fused_mask_decode"] > 0,
+              f"{held['n']} decodes held to plain, {total['fused_mask_decode']} launched")
+        log(f"  every one of phase 18's {held['n']} fused_mask_decode launches held to the "
+            f"plain decode: worst {held['worst']:.2e} x max|plain| (limit {TOL[torch.float32]:g})")
+    log("== phase 18: fused_mask_decode at the ORPIT validation shape (B = 4 x 4 s)")
+    decode = decode_case(ORPIT_VALID_SHAPE, True, torch.float32, "ORPIT validation shape")
+    log(f"  phase 18 main-path launches: {nonzero(total)}")
+    return dict(launches=total, decode=decode, numbers=numbers)
+
 def kernel_entry(name, source, replaces, launches, timing, bound_of, library_ms=None,
                  dtype=torch.float32, fma_bound=None):
     """One kernel of the `kernels` line; `dtype` is that of the inputs timed. A timing
@@ -5903,7 +6412,7 @@ ONLY_PHASES = {"3": phase_kernel, "3b": phase_lstm, "3c": phase_gru, "3d": phase
                "13": phase_dptnet, "13k": phase_dptnet_kernels, "14": phase_slice_d,
                "14k": phase_slice_d_kernels, "15": phase_rest, "15k": phase_rest_kernels,
                "16": phase_spec, "16k": phase_spec_kernels, "17": phase_slice_e,
-               "17k": phase_slice_e_kernels}
+               "17k": phase_slice_e_kernels, "18": phase_slice_g}
 
 
 def main(argv=None) -> int:
@@ -5916,8 +6425,9 @@ def main(argv=None) -> int:
                              "SRU DPRNN-TasNets, FurcaNet, musdb18's waveform models, WaveNet), "
                              "15k (their kernels alone), 16 (Wavesplit, DANet, ADANet, deep "
                              "clustering; 16k first), 16k (H = 300 alone), 17 (D3Net, "
-                             "MMDenseNet, MMDenseLSTM, HRNet, CUNet; 17k first) or 17k "
-                             "(MMDenseLSTM's H = 64, 16, 4 alone) to run after "
+                             "MMDenseNet, MMDenseLSTM, HRNet, CUNet; 17k first), 17k "
+                             "(MMDenseLSTM's H = 64, 16, 4 alone) or 18 (ORPIT Conv-TasNet, "
+                             "the other PITs, the oracle masks, the library) to run after "
                              "phases 1 and 2, and nothing else; no result line is printed")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -6033,6 +6543,7 @@ def main(argv=None) -> int:
     rest = phase_rest(card)
     spec = phase_spec(card)
     slice_e = phase_slice_e(card)
+    slice_g = phase_slice_g(card)
     for name in ("lstm_scan_bidir_bwd", "lstm_scan_bwd", "gru_scan_bidir_bwd", "gru_scan_bwd"):
         check(trained[name] >= 1, f"the training path never launched {name}")
     total = {k: v + trained[k] + evaluated[k] for k, v in total.items()}
@@ -6054,6 +6565,10 @@ def main(argv=None) -> int:
     # Phase 15 (FurcaNet, DPRNN-TasNet with RNN / SRU, musdb18's waveform models) too.
     rest_launches = rest["launches"]
     total = {k: v + rest_launches.get(k, 0) for k, v in total.items()}
+    # Phase 18 (ORPIT Conv-TasNet, the other PITs): its validation and evaluation decodes,
+    # each held to the plain decode.
+    slice_g_launches = slice_g["launches"]
+    total = {k: v + slice_g_launches.get(k, 0) for k, v in total.items()}
     # The wsj0 models have H = 128 (tensor cores), musdb18's UMX B = 1 at H = 256 and 512
     # and B = 16 at H = 256 (the cluster kernels), DPTNet H = 256 (the wide and cluster
     # kernels), GALRNet H = 128, LSTM-TasNet H = 500 (the cluster kernels at 512): no FMA
@@ -6370,6 +6885,17 @@ def main(argv=None) -> int:
                                                "fma_bound_ms", "fma_max_abs_err", "tile")
                         if k in timing})
         entries.append(entry)
+    # Phase 18's decodes (the ORPIT CLI's validation batches, its evaluated utterances and
+    # the other PITs' three-source validation forwards: every one f32 "generic" at N = 512,
+    # C·L = 16), timed at the ORPIT validation shape.
+    timing = slice_g["decode"]
+    entry = kernel_entry("fused_mask_decode", "csrc/mask_decode.cu", "ops/pallas_kernels.py:114",
+                         slice_g_launches[width_key(timing["path"], "float32", 512, 16)], timing,
+                         mask_decode_bound(**ORPIT_VALID_SHAPE, dtype=torch.float32),
+                         timing["library_ms"])
+    entry.update(path=timing["path"], shape="ORPIT validation shape (phase 18)",
+                 kernel_ms=timing["kernel_ms"])
+    entries.append(entry)
     entries += [
         # Two reads of x and one int8 write; no single PyTorch call computes it.
         kernel_entry("quantize_int8", "csrc/quantize.cu", "ops/pallas_kernels.py:45",

@@ -12,9 +12,14 @@ with the DPTNet recipe's schedule (`train/steps.py:make_warmup_optimizer`,
 d_model = `--sep_bottleneck_channels`, an epoch = the train loader's length),
 as the JAX CLI does (its :191-197); the cv-plateau halving then does nothing.
 
-Flags for features not ported yet raise NotImplementedError when set:
-`--pit` other than exhaustive, `--criterion orpit`, `--device_resident_data`
-and `--n_devices`. DPRNN-TasNet trains with `--rnn_type lstm`, `gru` or
+`--criterion orpit` trains one-and-rest PIT over 2+3-speaker corpora (the JAX
+CLI's :140-166): `--n_sources` is read as the most speakers an utterance has,
+the model estimates the (one, rest) pair, the datasets are
+`WaveTrainVariableSourcesDataset` and the Trainer `ORPITTrainer`. `--pit
+hungarian|prob|sink` trains with `HungarianLoss` (its assignment solved on the
+host), `ProbPIT` at `--pit_gamma` or `SinkPIT` in place of exhaustive PIT.
+`--device_resident_data` and `--n_devices` are not ported and raise
+NotImplementedError when set. DPRNN-TasNet trains with `--rnn_type lstm`, `gru` or
 `sru` on either device. FurcaNet takes `-Hc`, `-Hr`, `-Bc`, `-Br`,
 `--sep_kernel_size` and `--mask_nonlinear` (its gate). As in the JAX factory,
 LSTM-TasNet takes `--enc_basis` (its recipe `trainableGated`) and no encoder
@@ -33,9 +38,11 @@ import argparse
 
 import torch
 
-from ..criterion import NegSISDR, PIT1d
-from ..data import DataLoader, WaveEvalDataset, WaveTrainDataset
-from ..train import Trainer, TrainerConfig, make_optimizer, make_warmup_optimizer
+from ..criterion import ORPIT, HungarianLoss, NegSISDR, PIT1d, ProbPIT, SinkPIT
+from ..data import (
+    DataLoader, WaveEvalDataset, WaveTrainDataset, WaveTrainVariableSourcesDataset,
+)
+from ..train import ORPITTrainer, Trainer, TrainerConfig, make_optimizer, make_warmup_optimizer
 from ..utils import set_seed
 from .model_factory import build_wsj0mix_model
 
@@ -85,9 +92,11 @@ def build_parser():
     p.add_argument("--criterion", type=str, default="sisdr")
     p.add_argument("--pit", type=str, default="exhaustive",
                    choices=["exhaustive", "hungarian", "prob", "sink"],
-                   help="permutation search; only exhaustive (the reference's) is ported")
+                   help="permutation search: exhaustive n!-table PIT (the reference's), "
+                        "hungarian O(n^3) matching (n_sources > 5), prob soft-min ProbPIT, "
+                        "sink Sinkhorn relaxation")
     p.add_argument("--pit_gamma", type=float, default=1.0,
-                   help="ProbPIT temperature (--pit prob, not ported)")
+                   help="ProbPIT temperature (--pit prob)")
     p.add_argument("--optimizer", type=str, default="adam")
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--warmup_steps", type=int, default=0,
@@ -120,16 +129,50 @@ def build_parser():
 
 def _refuse_unported(args) -> None:
     refusals = [
-        (args.pit != "exhaustive", f"--pit {args.pit}"),
-        (args.criterion == "orpit", "--criterion orpit (ORPIT)"),
         (bool(args.device_resident_data), "--device_resident_data"),
         (args.n_devices is not None, "--n_devices (data parallelism, slice H)"),
     ]
     for refused, what in refusals:
         if refused:
             raise NotImplementedError(f"{what} is not ported yet")
-    if args.criterion != "sisdr":
+    if args.criterion not in ("sisdr", "orpit"):
         raise ValueError(f"Unsupported criterion: {args.criterion}")
+
+
+def _pit_criterion(args):
+    """The permutation search of `--pit` over negative SI-SDR (the JAX CLI's :203-214)."""
+    if args.pit == "hungarian":
+        return HungarianLoss(NegSISDR())
+    if args.pit == "prob":
+        return ProbPIT(NegSISDR(), n_sources=args.n_sources, gamma=args.pit_gamma)
+    if args.pit == "sink":
+        return SinkPIT(NegSISDR(), n_sources=args.n_sources)
+    return PIT1d(NegSISDR(), n_sources=args.n_sources)
+
+
+def _train_orpit(args, device, config):
+    """One-and-rest PIT (the JAX CLI's :140-166): `--n_sources` is the most speakers an
+    utterance has; the model estimates the (one, rest) pair."""
+    max_sources = args.n_sources
+    args.n_sources = 2
+    train_ds = WaveTrainVariableSourcesDataset(
+        args.train_wav_root, args.train_list_path,
+        samples=int(args.duration * args.sample_rate), max_sources=max_sources)
+    valid_ds = WaveTrainVariableSourcesDataset(
+        args.valid_wav_root, args.valid_list_path,
+        samples=int(args.valid_duration * args.sample_rate), max_sources=max_sources)
+    print(f"Training dataset includes {len(train_ds)} samples.", flush=True)
+    print(f"Valid dataset includes {len(valid_ds)} samples.", flush=True)
+    train_loader = DataLoader(train_ds, batch_size=args.batch_size, shuffle=True,
+                              seed=args.seed, num_workers=args.num_workers)
+    valid_loader = DataLoader(valid_ds, batch_size=args.batch_size)
+    model = build_wsj0mix_model(args, device)
+    optimizer = make_optimizer(args.optimizer, args.lr, max_norm=args.max_norm,
+                               params=model.parameters())
+    trainer = ORPITTrainer(model, train_loader, valid_loader, ORPIT(NegSISDR()), optimizer,
+                           config, device)
+    trainer.run()
+    return trainer
 
 
 def main(args=None):
@@ -140,6 +183,12 @@ def main(args=None):
         raise RuntimeError(f"--device {args.device} asked for, but CUDA is not available")
     _refuse_unported(args)
     set_seed(args.seed)
+    config = TrainerConfig(
+        epochs=args.epochs, exp_dir=args.exp_dir, continue_from=args.continue_from,
+        overwrite=bool(args.overwrite), sample_rate=args.sample_rate,
+        time_budget_sec=args.time_budget_min * 60.0 if args.time_budget_min else None)
+    if args.criterion == "orpit":
+        return _train_orpit(args, device, config)
 
     train_ds = WaveTrainDataset(args.train_wav_root, args.train_list_path,
                                 samples=int(args.duration * args.sample_rate),
@@ -163,12 +212,8 @@ def main(args=None):
     else:
         optimizer = make_optimizer(args.optimizer, args.lr, max_norm=args.max_norm,
                                    params=model.parameters())
-    criterion = PIT1d(NegSISDR(), n_sources=args.n_sources)
-    config = TrainerConfig(
-        epochs=args.epochs, exp_dir=args.exp_dir, continue_from=args.continue_from,
-        overwrite=bool(args.overwrite), sample_rate=args.sample_rate,
-        time_budget_sec=args.time_budget_min * 60.0 if args.time_budget_min else None)
-    trainer = Trainer(model, train_loader, valid_loader, criterion, optimizer, config, device,
+    trainer = Trainer(model, train_loader, valid_loader, _pit_criterion(args), optimizer,
+                      config, device,
                       compute_dtype=torch.bfloat16 if args.mixed_precision else None)
     trainer.run()
     return trainer

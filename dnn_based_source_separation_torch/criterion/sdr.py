@@ -1,6 +1,7 @@
-"""SDR-family criteria: SDR, SI-SDR, weighted SDR and their negatives.
+"""SDR-family criteria: SDR, SI-SDR, thresholded SNR, weighted SDR and their negatives.
 
-Port of `dnn_based_source_separation_tpu/criterion/sdr.py:19-33, 54-121, 155-176`.
+Port of `dnn_based_source_separation_tpu/criterion/sdr.py:19-51, 54-121, 139-176`,
+with MixIT's thresholded SNR.
 Every class implements the reference call protocol
 `(input, target, batch_mean=True)` with a `maximize` attribute for PIT.
 
@@ -30,6 +31,17 @@ def sisdr(input: torch.Tensor, target: torch.Tensor, eps: float = EPS) -> torch.
     num = torch.sum((alpha * target).square(), dim=-1) + eps
     den = torch.sum((alpha * target - input).square(), dim=-1) + eps
     return 10.0 * torch.log10(num / den)
+
+
+def thresholded_snr(input: torch.Tensor, target: torch.Tensor, threshold_db: float = 30.0,
+                    eps: float = EPS) -> torch.Tensor:
+    """Soft-thresholded SNR in dB (MixIT, arXiv:2006.12701 eq. 2):
+    10 log10(|t|^2 / (|t - e|^2 + tau |t|^2)), tau = 10^(-threshold_db / 10), which caps the
+    SNR at threshold_db so solved sources stop dominating the loss."""
+    tau = 10.0 ** (-threshold_db / 10.0)
+    t_pow = target.square().sum(dim=-1)
+    err = (target - input).square().sum(dim=-1)
+    return 10.0 * torch.log10((t_pow + eps) / (err + tau * t_pow + eps))
 
 
 def weighted_sdr(input: torch.Tensor, target: torch.Tensor, source_dim: int = 1,
@@ -101,6 +113,20 @@ class NegSISDR:
 
     def __call__(self, input, target, batch_mean: bool = True):
         return _reduce(-sisdr(input, target, eps=self.eps), self.reduction, batch_mean)
+
+
+@dataclasses.dataclass(frozen=True)
+class NegThresholdedSNR:
+    """MixIT's training loss (see `thresholded_snr`)."""
+
+    threshold_db: float = 30.0
+    reduction: str | None = "mean"
+    eps: float = EPS
+    maximize: bool = dataclasses.field(default=False, init=False)
+
+    def __call__(self, input, target, batch_mean: bool = True):
+        loss = -thresholded_snr(input, target, threshold_db=self.threshold_db, eps=self.eps)
+        return _reduce(loss, self.reduction, batch_mean)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -8,9 +8,10 @@ from .audio_io import read_wav, write_wav
 from .loader import DataLoader, prefetch_to_device
 from .wsj0mix import (
     IdealMaskSpectrogramTrainDataset, SpectrogramTrainDataset, WaveEvalDataset, WaveTestDataset,
-    WaveTrainDataset, WaveTrainSpeakerDataset,
+    WaveTrainDataset, WaveTrainSpeakerDataset, WaveTrainVariableSourcesDataset,
 )
 
 __all__ = ["DataLoader", "IdealMaskSpectrogramTrainDataset", "SpectrogramTrainDataset",
            "WaveEvalDataset", "WaveTestDataset", "WaveTrainDataset", "WaveTrainSpeakerDataset",
+           "WaveTrainVariableSourcesDataset",
            "prefetch_to_device", "read_wav", "write_wav"]

@@ -11,12 +11,14 @@ which follow the reference `egs/wsj0-mix/common/src/dataset.py:13-250`:
     rows (`speaker_keys` :153, `create_spk_to_idx` :189), for Wavesplit;
   * SpectrogramTrainDataset and IdealMaskSpectrogramTrainDataset (:260-340):
     host STFTs of the train windows, ideal masks (ibm / irm / wfm) and the
-    dB threshold weight, for DANet, ADANet and deep clustering.
+    dB threshold weight, for DANet, ADANet and deep clustering;
+  * WaveTrainVariableSourcesDataset (:338-390): train windows of 2+3-speaker
+    corpora, the sources zero-padded to `max_sources` with each item's count,
+    for ORPIT.
 
 Layout: wav_root/mix/<id>.wav, wav_root/s1/<id>.wav ... wav_root/s<n>/<id>.wav.
 The list file carries one utterance id per line (first whitespace token;
-a '.wav' suffix is optional). Items are numpy arrays; the variable-source
-dataset comes with slice G.
+a '.wav' suffix is optional). Items are numpy arrays.
 """
 from __future__ import annotations
 
@@ -315,3 +317,49 @@ class IdealMaskSpectrogramTrainDataset(SpectrogramTrainDataset):
     def __getitem__(self, idx):
         return ideal_mask_item(*super().__getitem__(idx), self.mask_type, self.threshold,
                                self.eps)
+
+
+class WaveTrainVariableSourcesDataset(_WaveDatasetBase):
+    """Train windows over utterances of 2 to `max_sources` speakers, for ORPIT.
+
+    An item is (mixture (1, samples), sources (max_sources, samples) zero beyond the
+    utterance's count, count as np.int32). The count comes from `n_sources_per_utt`
+    (utterance ID -> count) or from which `sN/` files exist. The JAX package's
+    static-shape form of the reference's PackedSequence collate; `criterion/pit.py:orpit`
+    reads exactly this.
+    """
+
+    def __init__(self, wav_root, list_path, samples=32000, overlap=None, max_sources=3,
+                 n_sources_per_utt=None):
+        super().__init__(wav_root, list_path, n_sources=max_sources)
+        self.samples = samples
+        self.overlap = samples // 2 if overlap is None else overlap
+        self.max_sources = max_sources
+        self.counts = n_sources_per_utt or {}
+        hop = samples - self.overlap
+        self.index: List[Tuple[str, int]] = []
+        for utt in self.utt_ids:
+            mix_path, _ = self._paths(utt)
+            for start in range(0, _wav_length(mix_path) - samples + 1, hop):
+                self.index.append((utt, start))
+
+    def _count(self, utt_id: str) -> int:
+        if utt_id in self.counts:
+            return self.counts[utt_id]
+        return sum(os.path.exists(os.path.join(self.wav_root, f"s{idx + 1}", utt_id + ".wav"))
+                   for idx in range(self.max_sources))
+
+    def __len__(self):
+        return len(self.index)
+
+    def __getitem__(self, idx):
+        utt, start = self.index[idx]
+        n = self._count(utt)
+        mixture, _ = read_wav(os.path.join(self.wav_root, "mix", utt + ".wav"), start,
+                              self.samples)
+        sources = np.zeros((self.max_sources, self.samples), np.float32)
+        for s in range(n):
+            x, _ = read_wav(os.path.join(self.wav_root, f"s{s + 1}", utt + ".wav"), start,
+                            self.samples)
+            sources[s, : x.shape[0]] = x
+        return mixture[None, :].astype(np.float32), sources, np.int32(n)

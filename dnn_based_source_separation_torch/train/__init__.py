@@ -5,9 +5,9 @@ from .steps import (
     make_eval_step, make_optimizer, make_train_step, make_warmup_optimizer, set_learning_rate,
 )
 from .tester import AttractorTester, Evaluater, Tester, framewise_sdr
-from .trainer import Trainer, TrainerConfig
+from .trainer import ORPITTrainer, Trainer, TrainerConfig
 
-__all__ = ["AttractorTester", "Evaluater", "OptaxRMSprop", "Optimizer", "Tester",
+__all__ = ["AttractorTester", "Evaluater", "ORPITTrainer", "OptaxRMSprop", "Optimizer", "Tester",
            "framewise_sdr", "Trainer", "TrainerConfig", "WarmupOptimizer", "get_learning_rate",
            "make_attractor_train_step", "make_eval_step", "make_optimizer", "make_train_step",
            "make_warmup_optimizer", "set_learning_rate"]

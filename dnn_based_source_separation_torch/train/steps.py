@@ -198,7 +198,9 @@ def _loss_of(out) -> torch.Tensor:
 def make_train_step(model: torch.nn.Module, criterion: Callable, optimizer: Optimizer,
                     compute_dtype: Optional[torch.dtype] = None,
                     generator: Optional[torch.Generator] = None) -> Callable:
-    """Build (mixture, sources) -> loss: forward, PIT loss in f32, backward, clip, update.
+    """Build (mixture, sources, *extra) -> loss: forward, PIT loss in f32, backward, clip,
+    update; the batch's `extra` fields go to the criterion after the sources (ORPIT's
+    counts: `criterion(estimates, sources, counts)`).
 
     The loss comes back as a detached device tensor; nothing synchronises.
     compute_dtype=torch.bfloat16 is the JAX package's mixed precision
@@ -224,7 +226,7 @@ def make_train_step(model: torch.nn.Module, criterion: Callable, optimizer: Opti
         return {k: v.to(compute_dtype) if v.dtype == torch.float32 else v
                 for k, v in tensors.items()}
 
-    def step(mixture: torch.Tensor, sources: torch.Tensor) -> torch.Tensor:
+    def step(mixture: torch.Tensor, sources: torch.Tensor, *extra) -> torch.Tensor:
         model.train()
         optimizer.zero_grad()
         if compute_dtype is None:
@@ -238,7 +240,7 @@ def make_train_step(model: torch.nn.Module, criterion: Callable, optimizer: Opti
                 for name, buf in buffers.items():
                     if state[name] is not buf and state[name]._version != versions[name]:
                         buf.copy_(state[name])
-        loss = _loss_of(criterion(estimates, sources))
+        loss = _loss_of(criterion(estimates, sources, *extra))
         loss.backward()
         optimizer.step()
         return loss.detach()
@@ -268,12 +270,13 @@ def make_attractor_train_step(model: torch.nn.Module, criterion: Callable,
 
 
 def make_eval_step(model: torch.nn.Module, criterion: Callable) -> Callable:
-    """Build (mixture, sources) -> (loss, estimates), under `torch.no_grad()`."""
+    """Build (mixture, sources, *extra) -> (loss, estimates), under `torch.no_grad()`; the
+    `extra` fields go to the criterion as in `make_train_step`."""
 
     @torch.no_grad()
-    def step(mixture: torch.Tensor, sources: torch.Tensor):
+    def step(mixture: torch.Tensor, sources: torch.Tensor, *extra):
         model.eval()
         estimates = model(mixture)
-        return _loss_of(criterion(estimates, sources)), estimates
+        return _loss_of(criterion(estimates, sources, *extra)), estimates
 
     return step

@@ -12,7 +12,8 @@ follows the reference recipe's epoch loop:
 
 Training losses stay on the device until the epoch ends, as the JAX
 trainer keeps them (`trainer.py:177-180`): reading one every step would
-make the host wait for the card.
+make the host wait for the card. `ORPITTrainer` (JAX :318-370) trains on
+(mixture, padded sources, counts) batches with the ORPIT criterion.
 """
 from __future__ import annotations
 
@@ -233,3 +234,24 @@ class Trainer:
         ax.legend()
         fig.savefig(os.path.join(self.loss_dir, "loss.png"), bbox_inches="tight")
         plt.close(fig)
+
+
+class ORPITTrainer(Trainer):
+    """One-and-Rest PIT over variable source counts (the reference's ORPIT recipe driver).
+
+    Batches are (mixture, zero-padded sources, counts) from
+    `WaveTrainVariableSourcesDataset`; the model estimates the (one, rest) pair and the
+    criterion (`criterion.ORPIT`) reads the counts: `make_train_step` and `make_eval_step`
+    hand the batch's third field to it. Validation returns the mean loss over the valid
+    batches and writes no WAVs, as JAX's does; it runs under `torch.no_grad()`, so on
+    the card the decoder takes the `fused_mask_decode` kernel.
+    """
+
+    def run_one_epoch_eval(self, epoch: int) -> float:
+        total, n_batches = 0.0, 0
+        for mixture, sources, counts in prefetch_to_device(self.valid_loader, self.device,
+                                                            size=2):
+            loss, _ = self.eval_step(mixture, sources, counts)
+            total += float(loss)
+            n_batches += 1
+        return total / max(n_batches, 1)

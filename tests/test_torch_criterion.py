@@ -81,10 +81,3 @@ def test_pit1d_loss_and_gradient_match_jax(n_sources):
     g = np.asarray(j_grad)
     np.testing.assert_allclose(x.grad.numpy(), g, rtol=0, atol=1e-5 * np.abs(g).max())
     np.testing.assert_array_equal(pattern.numpy(), np.asarray(ref(jnp.asarray(est), jnp.asarray(target))[1]))
-
-
-@pytest.mark.parametrize("name", ["ORPIT", "SinkPIT", "ProbPIT", "HungarianLoss"])
-def test_unported_pit_variants_raise(name):
-    module = importlib.import_module("dnn_based_source_separation_torch.criterion.pit")
-    with pytest.raises(NotImplementedError, match=name):
-        getattr(module, name)(tc.NegSISDR())

@@ -266,10 +266,7 @@ def test_lr_halving_and_early_stop_follow_the_jax_trainer(tmp_path, capsys):
     assert trainer.best_loss == 4.0
 
 
-@pytest.mark.parametrize("flag", [
-    ["--pit", "hungarian"], ["--pit", "prob"], ["--pit", "sink"], ["--criterion", "orpit"],
-    ["--device_resident_data", "1"], ["--n_devices", "1"],
-])
+@pytest.mark.parametrize("flag", [["--device_resident_data", "1"], ["--n_devices", "1"]])
 def test_unported_flags_raise(corpus, tmp_path, flag):
     with pytest.raises(NotImplementedError):
         ttrain.main(_args(corpus, tmp_path, *CLI_MODELS["dprnn-tasnet"], *flag))

@@ -15,6 +15,7 @@
     python3 chip_smoke.py --only 16       # Wavesplit, DANet, ADANet, deep clustering (16k first)
     python3 chip_smoke.py --only 17       # D3Net, MMDenseNet, MMDenseLSTM, HRNet, CUNet (17k first)
     python3 chip_smoke.py --only 18       # ORPIT Conv-TasNet, the other PITs, oracle masks, library
+    python3 chip_smoke.py --only 19       # the hub's reference checkpoints; slice E's other half
 
 Phases (any failure exits non-zero; nothing is caught and passed):
   1. device: require CUDA, print the card's name and power limit, turn TF32 off;
@@ -320,6 +321,21 @@ Phases (any failure exits non-zero; nothing is caught and passed):
      rounding), each timed; then fused_mask_decode at the ORPIT validation shape (B = 4 x
      4 s) against its plain version, timed. The CPU's halves run in a thread beside the
      card's work.
+  19. (19a) reference-format checkpoints (config keys and a state_dict, no model_class) of
+     paper-config Conv-TasNet (`<root>/wsj0-mix/sr8000/2speakers/best.pth`) and recipe-config
+     DPRNN-TasNet beside it, seed-0 weights, opened on the card through
+     hub/pretrained.py:build_from_pretrained (by its layout and by a fetcher) and
+     hub/torch_checkpoint.py:build_from_torch_checkpoint: the class JAX's dispatch picks,
+     the state bit for bit, a B = 8 x 4 s forward and a 4 s utterance in f32 with every
+     fused_mask_decode and lstm_scan_bidir launch on its planned route and held to the plain
+     version, the utterance within 1e-3 x max|CPU| of the blob opened on the CPU, the
+     forward's ms and peak; a missing file refused; (19b) TDCUNet2d at the CUNet recipe's
+     widths (egs/musdb18/cunet/train.sh: B = 4 x 6 s maps, n_fft 1024, hop 768) card vs CPU,
+     its forward ms and peak, one f32 train step (B = 1 x 1 s) against an f64 CPU step, the
+     recipe step's p50 and peak; DenseNet, TFCLaSAFT, MLPMixer, PoolFormer, ViT,
+     MultiDilatedConv2d, the complex layers, the activations and the pools at 64-256
+     channels, card vs CPU within 1e-3 x max|CPU|; none of them launches a kernel of the
+     port. The CPU's halves run in a thread beside the card's work.
 
 Each serving, quantizing and evaluation path, and the training path of phase
 8, runs with every launch count set to 0 just before it and read just after
@@ -379,7 +395,8 @@ kernel on that route; and phase 17k's rows: lstm_scan_bidir at MMDenseLSTM's H =
 kernel alone), B = 1 serving and B = 6 training with its backward, cuDNN's nn.LSTM at the
 layer's input width, with phase 17's launches of that kernel on that route; and phase 18's
 row: fused_mask_decode at the ORPIT validation shape (f32, "generic"), with phase 18's
-decodes. The bf16
+decodes; phase 19's decodes and recurrences join the f32 serving-shape, DPRNN-TasNet
+decoder and lstm_scan_bidir tf32x3 rows. The bf16
 fused_mask_decode rows'
 `library_ms` is torch.einsum on bf16 operands, whose output is bf16 (the kernel's is f32).
 """
@@ -431,16 +448,23 @@ from dnn_based_source_separation_torch.data.musdb18 import WaveTestDataset as Mu
 from dnn_based_source_separation_torch.data.synthetic import (
     _speaker_bank, synth_pseudo_speech, write_musdb_quality_corpus, write_quality_corpus,
 )
+from dnn_based_source_separation_torch.hub import (
+    build_from_pretrained, build_from_torch_checkpoint,
+)
 from dnn_based_source_separation_torch.models import (
-    ADANet, ConvTasNet, CrossNetOpenUnmix, DANet, DeepEmbedding, DPRNNTasNet, DPTNet, FurcaNet,
-    GALRNet, LSTMTasNet, ParallelOpenUnmix, SepFormer, SpectrogramMaskingWrapper,
-    SpectrogramSeparator, WaveNet, WaveSplit,
+    ADANet, ConvTasNet, CrossNetOpenUnmix, DANet, DeepEmbedding, DenseNet, DPRNNTasNet, DPTNet,
+    FurcaNet, GALRNet, LSTMTasNet, ParallelOpenUnmix, SepFormer, SpectrogramMaskingWrapper,
+    SpectrogramSeparator, TDCUNet2d, WaveNet, WaveSplit, lasaft, vision,
 )
 from dnn_based_source_separation_torch.models.base import load_model, save_model
 from dnn_based_source_separation_torch.models.longform import chunk_count, separate_longform
 from dnn_based_source_separation_torch.models.fold import fold_for_serving
 from dnn_based_source_separation_torch.models.streaming import ExactStreamingSeparator
-from dnn_based_source_separation_torch.ops import _build, filterbank
+from dnn_based_source_separation_torch.ops import (
+    _build, activation, complex_conv, filterbank, multidilated,
+)
+from dnn_based_source_separation_torch.ops import pool as pool_ops
+from dnn_based_source_separation_torch.ops import rnn as rnn_ops
 from dnn_based_source_separation_torch.ops import gru_scan as gs
 from dnn_based_source_separation_torch.ops import lstm_scan as ls
 from dnn_based_source_separation_torch.ops import mask_decode as md
@@ -559,7 +583,7 @@ def median_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     return float(np.median(times))
 
 
-GRAPH_BUDGET_MS = 200.0  # a timing's runs: fewer (not under 3 or 5) where one run is long
+GRAPH_BUDGET_MS = 100.0  # a timing's runs: fewer (not under 3 or 5) where one run is long
 LATENCY_RUNS = 2  # CLI requests timed a model (phase 6)
 STREAM_TIMED_HOPS = 40  # hops timed a streamed model and dtype (phase 6): the first 2 s
 BENCH_LINE_ITERS = 5  # timed forwards of the in-process bench lines of phases 13 and 14
@@ -3571,7 +3595,7 @@ def lstm_kernel_timing(model, label, B, T, H, chains, dtype, training, features,
     plain version runs over each chain's first check_steps steps only and the launches are
     held to it there (a chain's output at step t depends on its first t + 1 inputs alone,
     so those steps are the same computation), and its time is of those steps
-    (`plain_steps`)."""
+    (`plain_steps`); the planned route is then held over all T steps to the FMA kernel."""
     name = "lstm_scan_bidir" if chains == 2 else "lstm_scan"
     inputs = lstm_chains(B, T, H, chains, dtype, seed=B + T)
     path, tile = plan(ls, B, chains, H, dtype)
@@ -3610,7 +3634,7 @@ def lstm_kernel_timing(model, label, B, T, H, chains, dtype, training, features,
     elif path == "wide":
         timing["tile"] = list(tile)
     if tiles:
-        timing["tiles_ms"] = tf32_tiles(inputs, training, dtype, refs)
+        timing["tiles_ms"] = tf32_tiles(inputs, training, dtype, refs, steps)
     if path == "fma":  # a long launch: fewer timed replays
         timing["ms"] = graph_ms(launch, repeats, iters=5)
     else:
@@ -3618,12 +3642,14 @@ def lstm_kernel_timing(model, label, B, T, H, chains, dtype, training, features,
         on_path(ls.PATH_LAUNCHES[name], name, fma, "fma")
         timing["fma_max_abs_err"], _ = error_of(fma_hs, fma_cs)
         check(timing["fma_max_abs_err"] <= limit, f"{what}: FMA disagrees with plain")
-        if width != H:  # the padded route against the unpadded FMA kernel, same limit
+        # The padded route, or the route over all T steps where the plain version ran over
+        # the first check_steps only, against the FMA kernel's whole output, same limit.
+        if width != H or steps < T:
             fma_refs = [(h, c) for h, c in zip(fma_hs, fma_cs or [None] * chains)]
             vs_fma, vs_limit = forward_error_of(fma_refs, hs, cs if training else None, dtype)
-            log(f"    padded {path} vs the FMA kernel: max|diff| {vs_fma:.3e} (limit "
-                f"{vs_limit:.3g})")
-            check(vs_fma <= vs_limit, f"{what}: padded {path} disagrees with FMA: {vs_fma}")
+            log(f"    {'padded ' if width != H else ''}{path} vs the FMA kernel over all "
+                f"{T} steps: max|diff| {vs_fma:.3e} (limit {vs_limit:.3g})")
+            check(vs_fma <= vs_limit, f"{what}: {path} disagrees with FMA: {vs_fma}")
             timing["vs_fma_max_abs_err"] = vs_fma
         turns = (graph_ms(fma, 1), graph_ms(launch, repeats), graph_ms(launch, repeats),
                  graph_ms(fma, 1))
@@ -4355,9 +4381,10 @@ WAVE_PARITY_SECONDS = 0.5  # the card-vs-CPU forward of each waveform model
 REST_STEPS = 1  # musdb18 CLI steps an epoch, two epochs a model
 REST_FORWARDS = 2  # timed B = 8 x 4 s forwards of the RNN and SRU models, after one
 # The new kernel shapes, phase 15k: (model, label, (B, T, H, chains), dtypes, training, F).
-# FurcaNet's B = 8 x 4 s launches are held to the plain version over their first 4000 of
-# 32000 steps (its plain step loop took 9.0 and 14.2 s a dtype over all of them, 3.3 and 4.0
-# s over 8000).
+# FurcaNet's forward launches are held to the plain version over their first 4000 steps, of
+# 32000 at B = 8 x 4 s (its plain step loop took 9.0 and 14.2 s a dtype over all of them, 3.3
+# and 4.0 s over 8000) and of 16000 at training's B = 4 (5.2 s over all of them); its
+# training backward over all.
 FURCANET_CHECK_STEPS = 4000
 REST_SHAPES = [
     ("FurcaNet", "train", (4, 16000, 128, 2), (torch.float32,), True, 128),
@@ -4453,8 +4480,7 @@ def phase_rest_kernels(card=None):
             timing, inputs, hs, cs = lstm_kernel_timing(
                 model, label, B, T, H, chains, dtype, training, features,
                 tiles=model == "FurcaNet" and training,
-                check_steps=FURCANET_CHECK_STEPS if (model, label) == ("FurcaNet", "serve")
-                else None)
+                check_steps=FURCANET_CHECK_STEPS if model == "FurcaNet" else None)
             result[(name, model, label, dtype)] = timing
             if model == "FurcaNet" and dtype == torch.float32:  # bf16 cuDNN: 15x the kernel
                 timing["library_f256_ms"] = library_lstm_ms(B, T, H, chains, dtype, 256,
@@ -4471,9 +4497,10 @@ def phase_rest_kernels(card=None):
     return dict(recurrences=result, decodes=decodes)
 
 
-def tf32_tiles(inputs, with_cs, dtype, refs):
+def tf32_tiles(inputs, with_cs, dtype, refs, steps):
     """Every tf32x3 tile (M, C) the card holds at the shape of `inputs`: its hs (and cs)
-    against the plain version's `refs`, the kernel alone from a CUDA graph -> {"MxC": ms}."""
+    over the first `steps` steps against the plain version's `refs` there, the kernel alone
+    from a CUDA graph -> {"MxC": ms}."""
     B, T, _ = inputs[0][0].shape
     H = inputs[0][1].shape[0]
     clusters = ls._tf32_clusters(H, "cuda")
@@ -4484,7 +4511,9 @@ def tf32_tiles(inputs, with_cs, dtype, refs):
                 continue
             hs, cs, launch = ls._staged_forward(inputs, with_cs, "tf32x3", tile=(m, c))
             launch()
-            err, limit = forward_error_of(refs, hs, cs if with_cs else None, dtype)
+            err, limit = forward_error_of(refs, [h[:, :steps] for h in hs],
+                                          [x[:, :steps] for x in cs] if with_cs else None,
+                                          dtype)
             check(err <= limit, f"tf32x3 tile ({m}, {c}) at B={B}, T={T} disagrees: {err}")
             out[f"{m}x{c}"] = graph_ms(launch, 1)
     log(f"    tf32x3 forward by tile (M x C, kernel alone): "
@@ -5603,12 +5632,9 @@ def slice_e_card_vs_cpu(kind, cpu_side, card):
 
 def slice_e_train_parity(kind, cpu_side):
     """One train step of a one-stem model at recipe widths on the card (f32, TF32 off)
-    against the f64 CPU step beside the f32 CPU step of `cpu_side` (check_step_against_f64),
-    B = 1 x SLICE_E_PARITY_SECONDS[kind], each tensor's scale at least SLICE_E_SMALL_GRAD x
-    the largest gradient; its launches held to the routes. A gradient that is 0 in the f64
-    step (a bias into a train-mode BatchNorm of one channel: the batch's mean takes it out
-    exactly) is held to MUSDB_NULL_GRAD x the largest on the card and the CPU, and left out
-    of the comparison. -> the card step's launches."""
+    against the f64 CPU step beside the f32 CPU step of `cpu_side`
+    (hold_step_against_f64), B = 1 x SLICE_E_PARITY_SECONDS[kind]; its launches held to the
+    routes. -> the card step's launches."""
     card_model, card_criterion = slice_e_model(kind, "cuda", *slice_e_one_stem(kind))
     stems = len(card_model.base.sources) if hasattr(card_model.base, "sources") else 1
     reset_counts()
@@ -5617,20 +5643,27 @@ def slice_e_train_parity(kind, cpu_side):
     grew = all_counts()
     check_dptnet_launches(grew, slice_e_routes(kind, 1, backward=True, stems=stems),
                           f"{kind}: a train step")
-    ref, cpu = cpu_side["ref"], cpu_side["cpu"]
+    hold_step_against_f64(f"{kind} (B=1 x {SLICE_E_PARITY_SECONDS[kind]:g} s, {stems} stem"
+                          f"{'s' * (stems > 1)})", cpu_side["ref"], cpu_side["cpu"], card, grew)
+    return grew
+
+
+def hold_step_against_f64(tag, ref, cpu, card, launched):
+    """check_step_against_f64 with each tensor's scale at least SLICE_E_SMALL_GRAD x the
+    largest gradient. A gradient that is 0 in the f64 step (a bias into a train-mode
+    BatchNorm of one channel: the batch's mean takes it out exactly) is held to
+    MUSDB_NULL_GRAD x the largest on the card and the CPU, and left out of the comparison."""
     top = max(float(g.abs().max()) for g in ref[1].values())
     null = [n for n, g in ref[1].items() if not bool(g.abs().max() > 0)]
     for n in null:
         worst = max(float(cpu[1][n].abs().max()), float(card[1][n].abs().max()))
-        log(f"  {kind}: {n} has a gradient of 0 in f64; card and CPU f32 at most {worst:.2e} "
+        log(f"  {tag}: {n} has a gradient of 0 in f64; card and CPU f32 at most {worst:.2e} "
             f"(limit {MUSDB_NULL_GRAD * top:.2e})")
-        check(worst <= MUSDB_NULL_GRAD * top, f"{kind}: {n}'s null gradient is {worst}")
+        check(worst <= MUSDB_NULL_GRAD * top, f"{tag}: {n}'s null gradient is {worst}")
     ref, cpu, card = ((loss, {n: g for n, g in grads.items() if n not in null})
                       for loss, grads in (ref, cpu, card))
-    check_step_against_f64(f"{kind} (B=1 x {SLICE_E_PARITY_SECONDS[kind]:g} s, {stems} stem"
-                           f"{'s' * (stems > 1)})", ref, cpu, card, kernels_of(grew),
+    check_step_against_f64(tag, ref, cpu, card, kernels_of(launched),
                            null_floor=SLICE_E_SMALL_GRAD)
-    return grew
 
 
 def slice_e_recipe_step(kind, card):
@@ -5889,29 +5922,46 @@ class RecordedCriterion:
 
 
 @contextlib.contextmanager
-def decodes_held_to_plain():
-    """Every fused_mask_decode the port's decoder launches on the card in the block, held
-    to the plain decode of the same inputs (TOL x max|plain|) -> {"n": launches held,
-    "worst": the largest error over max|plain|}."""
+def held_to_plain(module, plain, limit_of):
+    """Every launch that the wrappers `module.<name>` (a name a key of `plain`) make on the
+    card in the block, held to `plain[name]` of the same inputs: each output within
+    tol x scale, (scale, tol) = limit_of(the wrapper's first input, output, plain output)
+    -> {"n": launches held, "worst": the largest error over its scale}."""
     held = {"n": 0, "worst": 0.0}
-    launch = filterbank.fused_mask_decode
+    launch = {name: getattr(module, name) for name in plain}
 
-    def checked(w, mask, kernel, *args, **kwargs):
-        out = launch(w, mask, kernel, *args, **kwargs)
-        if out.is_cuda:
-            ref = md.fused_mask_decode_reference(w, mask, kernel)
-            err = float((out - ref).abs().max()) / (float(ref.abs().max()) or 1.0)
-            check(err <= TOL[w.dtype], f"a fused_mask_decode launch disagrees with the plain "
-                                       f"decode: {err:.2e} x max|plain|")
-            held["n"] += 1
-            held["worst"] = max(held["worst"], err)
-        return out
+    def held_version(name):
+        def checked(*args, **kwargs):
+            out = launch[name](*args, **kwargs)
+            if args[0].is_cuda:
+                ref = plain[name](*args, **kwargs)
+                for o, r in zip(out, ref) if isinstance(out, tuple) else [(out, ref)]:
+                    scale, tol = limit_of(args[0], o, r)
+                    err = float((o.float() - r.float()).abs().max()) / scale
+                    check(err <= tol, f"a {name} launch disagrees with the plain version: "
+                                      f"{err:.2e} x its scale > {tol:g}")
+                    held["worst"] = max(held["worst"], err)
+                held["n"] += 1
+            return out
+        return checked
 
-    filterbank.fused_mask_decode = checked
+    for name in plain:
+        setattr(module, name, held_version(name))
     try:
         yield held
     finally:
-        filterbank.fused_mask_decode = launch
+        for name, fn in launch.items():
+            setattr(module, name, fn)
+
+
+def decodes_held_to_plain():
+    """held_to_plain over every fused_mask_decode the port's decoder launches, each within
+    TOL x max|plain|."""
+    return held_to_plain(
+        filterbank,
+        {"fused_mask_decode": lambda w, mask, kernel, *_, **__:
+            md.fused_mask_decode_reference(w, mask, kernel)},
+        lambda w, out, ref: (float(ref.abs().max()) or 1.0, TOL[w.dtype]))
 
 
 def write_orpit_corpus(tmp, split, n_utts):
@@ -6320,6 +6370,335 @@ def phase_slice_g(card=None, tmp=None):
     log(f"  phase 18 main-path launches: {nonzero(total)}")
     return dict(launches=total, decode=decode, numbers=numbers)
 
+HUB_SERVE = (8, 4.0)  # phase 19a's served forward: B x seconds of 8 kHz audio
+HUB_CHOICE = {"conv-tasnet": "best", "dprnn-tasnet": "dprnn-tasnet"}  # <choice>.pth at 2 sources
+# egs/musdb18/cunet/train.sh (the TDC U-Net's widths: its CUNet recipe's): FiLM, n_fft 1024,
+# hop 768, B = 4 x 6 s of 44.1 kHz stereo maps.
+TDC_UNET = dict(channels=(2, 16, 32, 64, 128, 256), control_channels=(4, 16, 64),
+                conditioning="film", masking=True)
+TDC_STFT = dict(n_fft=1024, hop_length=768)
+TDC_BATCH = (4, 6.0)
+TDC_PARITY_SECONDS = 1.0  # the train step against f64: B = 1
+SLICE_E_REST_TOL = 1e-3  # card vs CPU, relative to max|CPU|
+
+
+def write_reference_checkpoint(path, model):
+    """`model` in the reference's .pth layout: its config keys and state_dict (on the CPU),
+    no model_class."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save({**model.get_config(),
+                "state_dict": {k: v.detach().cpu() for k, v in model.state_dict().items()}},
+               path)
+
+
+def recurrences_held_to_plain():
+    """held_to_plain over every lstm_scan_bidir / lstm_scan the port's LSTM layers launch,
+    each output within LSTM_TOL x max(1, max|plain|)."""
+    return held_to_plain(
+        rnn_ops, {"lstm_scan_bidir": ls.lstm_scan_bidir_reference,
+                  "lstm_scan": ls.lstm_scan_reference},
+        lambda xw, out, ref: (max(1.0, float(ref.float().abs().max())), LSTM_TOL[out.dtype]))
+
+
+def hub_models(device="cpu"):
+    """Paper-config Conv-TasNet and recipe-config DPRNN-TasNet (non-causal, as the recipe
+    trains it), seed-0 weights (norm affines off their start), as the reference's
+    checkpoints would hold them."""
+    conv = scramble_norms(ConvTasNet(**PAPER, generator=torch.Generator().manual_seed(0),
+                                     device=device))
+    dprnn = scramble_norms(DPRNNTasNet(**DPRNN, causal=False, device=device,
+                                       generator=torch.Generator().manual_seed(0)))
+    return {"conv-tasnet": conv, "dprnn-tasnet": dprnn}
+
+
+def hub_cpu_side(paths):
+    """The CPU's half of 19a: each blob opened on the CPU, the 4 s utterance separated."""
+    with torch.inference_mode():
+        return {kind: build_from_torch_checkpoint(path, device="cpu")(hub_utterance())
+                for kind, path in paths.items()}
+
+
+def write_hub_blobs(tmp):
+    """19a's reference-format blobs under `<tmp>/pretrained`: paper-config Conv-TasNet as
+    `wsj0-mix/sr8000/2speakers/best.pth`, recipe-config DPRNN-TasNet beside it. -> (the
+    root, {kind: path}, {kind: the written state_dict})."""
+    root = os.path.join(tmp, "pretrained")
+    paths, written = {}, {}
+    for kind, model in hub_models().items():
+        paths[kind] = os.path.join(root, "wsj0-mix", f"sr{SAMPLE_RATE}", "2speakers",
+                                   f"{HUB_CHOICE[kind]}.pth")
+        write_reference_checkpoint(paths[kind], model)
+        written[kind] = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    return root, paths, written
+
+
+def hub_utterance():
+    return torch.from_numpy(np.random.default_rng(20).standard_normal(
+        (1, 1, 4 * SAMPLE_RATE), dtype=np.float32))
+
+
+def hub_serve(kind, model, written, cpu_out, card):
+    """19a: a model opened from its reference blob: its class and state against the written
+    ones; a B = 8 x 4 s forward and a 4 s utterance (every count set to 0 just before, read
+    just after), each launch on its planned route and held to the plain version; the
+    utterance against the blob opened on the CPU (`cpu_out`), <= 1e-3 x max|CPU|; the
+    forward's ms and peak. -> the two forwards' launches."""
+    cls = {"conv-tasnet": "ConvTasNet", "dprnn-tasnet": "DPRNNTasNet"}[kind]
+    check(type(model).__name__ == cls and not model.training,
+          f"{kind}: the reference blob opened as {type(model).__name__}, expected {cls}")
+    state = model.state_dict()
+    check(state.keys() == written.keys() and all(
+        torch.equal(state[k].cpu(), v) for k, v in written.items()),
+        f"{kind}: the loaded state_dict differs from the written one")
+    B, seconds = HUB_SERVE
+    x = torch.from_numpy(np.random.default_rng(19).standard_normal(
+        (B, 1, int(seconds * SAMPLE_RATE)), dtype=np.float32)).cuda()
+    with contextlib.ExitStack() as stack:
+        decodes = stack.enter_context(decodes_held_to_plain())
+        recurrences = stack.enter_context(recurrences_held_to_plain())
+        stack.enter_context(torch.inference_mode())
+        reset_counts()
+        y = model(x)
+        got = model(hub_utterance().cuda())
+        torch.cuda.synchronize()
+        grew = all_counts()
+    layers = 2 * DPRNN["sep_num_blocks"] if kind == "dprnn-tasnet" else 0
+    check({k: grew[k] for k in counts()} == expected(fused_mask_decode=2,
+                                                      lstm_scan_bidir=2 * layers),
+          f"{kind}: two forwards launched {nonzero(grew)}")
+    check_paths(grew, {}, f"{kind} from its reference blob",
+                decode=decode_path(kind.split("-")[0], torch.float32))
+    check(decodes["n"] == 2 and recurrences["n"] == 2 * layers,
+          f"{kind}: {decodes['n']} decodes and {recurrences['n']} recurrences held to plain")
+    check(torch.isfinite(y).all() and y.shape == (B, 2, x.shape[-1]),
+          f"{kind}: output {tuple(y.shape)}")
+    ref = cpu_out.result()[kind]
+    err, scale = float((got.cpu() - ref).abs().max()), float(ref.abs().max())
+    check(torch.isfinite(got).all() and got.shape == ref.shape and err <= 1e-3 * scale,
+          f"{kind}: the card's forward disagrees with the CPU's: {err}")
+    with torch.inference_mode():
+        torch.cuda.reset_peak_memory_stats()
+        ms = budget_ms(lambda: model(x), iters=5)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    log(f"  {kind} ({cls}) from its reference blob: state bit for bit; B={B} x {seconds:g} s "
+        f"f32 forward {ms:.3f} ms, peak {peak:.1f} MiB; launches {nonzero(grew)} (with the "
+        f"4 s utterance), each held to plain: decodes worst {decodes['worst']:.2e} x "
+        f"max|plain|, {recurrences['n']} recurrences worst {recurrences['worst']:.2e} x "
+        f"max(1, max|plain|); the 4 s utterance card vs CPU max abs err {err:.3e}, max|CPU| "
+        f"{scale:.3e}, limit {1e-3 * scale:.3e} [{card}]")
+    return grew
+
+
+def phase_hub(card, root, paths, written, cpu_out):
+    """19a: the blobs opened on the card by build_from_pretrained (with and without a
+    fetcher) and build_from_torch_checkpoint, served (hub_serve); a missing file refused.
+    -> the served forwards' launches."""
+    log("== phase 19a: reference-format checkpoints opened through the hub and served")
+    fetched = []
+
+    def fetcher(**request):
+        fetched.append(request)
+        return paths["conv-tasnet"]
+
+    opened = {"conv-tasnet": build_from_pretrained(root=root),
+              "dprnn-tasnet": build_from_torch_checkpoint(paths["dprnn-tasnet"])}
+    by_fetcher = build_from_pretrained(fetcher=fetcher)
+    check(fetched == [dict(task="wsj0-mix", sample_rate=SAMPLE_RATE, n_sources=2,
+                           model_choice="best")], f"the fetcher was asked {fetched}")
+    check(all(torch.equal(a, b) for a, b in zip(by_fetcher.state_dict().values(),
+                                                 opened["conv-tasnet"].state_dict().values())),
+          "the fetched blob opened with other weights")
+    for model in (*opened.values(), by_fetcher):
+        check(next(model.parameters()).is_cuda, "a hub model is not on the card")
+    try:
+        build_from_pretrained(root=root, model_choice="missing")
+    except FileNotFoundError as err:
+        log(f"  a missing checkpoint: FileNotFoundError ({str(err)[:70]}...)")
+    else:
+        raise AssertionError("build_from_pretrained opened a missing checkpoint")
+    total = {}
+    for kind, model in opened.items():
+        total = add_counts(total, hub_serve(kind, model, written[kind], cpu_out, card))
+    return total
+
+
+def tdc_unet_batch(B, seconds, device, seed=19):
+    """(magnitudes (B, 2, 513, frames) of a stereo 44.1 kHz excerpt's STFT shape, one-hot
+    conditions cycling over the four stems, a target of the same shape)."""
+    frames = int(seconds * MUSDB_SAMPLE_RATE) // TDC_STFT["hop_length"] + 1
+    rng = np.random.default_rng(seed)
+    shape = (B, 2, TDC_STFT["n_fft"] // 2 + 1, frames)
+    x, target = (torch.from_numpy(np.abs(rng.standard_normal(shape, dtype=np.float32)))
+                 .to(device) for _ in range(2))
+    latent = torch.eye(4, device=device)[torch.arange(B) % 4]
+    return x, latent, target
+
+
+def tdc_unet_model(device="cpu"):
+    """TDCUNet2d at the CUNet recipe's widths, seed-0 weights, BatchNorm statistics off
+    their start."""
+    model = TDCUNet2d(**TDC_UNET, generator=torch.Generator().manual_seed(0), device=device)
+    rng = np.random.default_rng(0)
+    with torch.no_grad():
+        for name, t in model.named_buffers():
+            if name.endswith("running_var"):
+                t.copy_(torch.from_numpy(0.5 + rng.random(t.shape, np.float32)))
+            elif name.endswith("running_mean"):
+                t.copy_(torch.from_numpy(0.1 * rng.standard_normal(t.shape).astype(np.float32)))
+    return model
+
+
+def tdc_unet_loss(model, batch):
+    x, latent, target = batch
+    return (model(x, latent) - target).square().mean()
+
+
+def tdc_unet_grads(model, batch):
+    """One train-mode step's (loss, {name: gradient}) of tdc_unet_loss."""
+    model.train().zero_grad()
+    loss = tdc_unet_loss(model, batch)
+    loss.backward()
+    return float(loss.detach()), {n: p.grad.detach().clone()
+                                  for n, p in model.named_parameters()}
+
+
+def slice_e_rest_cases():
+    """19b's other modules at their tests' shapes widened to 64-256 channels: name ->
+    (a function making the module on a device, its inputs as numpy arrays)."""
+    rng = np.random.default_rng(21)
+    img = rng.standard_normal((2, 3, 64, 64), dtype=np.float32)
+    spec_map = np.abs(rng.standard_normal((2, 64, 128, 64), dtype=np.float32))
+    seq = rng.standard_normal((2, 256, 64), dtype=np.float32)
+    z = (rng.standard_normal((2, 256, 64)) + 1j * rng.standard_normal((2, 256, 64))
+         ).astype(np.complex64)
+    g = lambda: torch.Generator().manual_seed(0)  # noqa: E731
+    return {
+        "DenseNet": (lambda d: DenseNet(2, 64, 32, (3, 3), num_layers=(2, 3, 4),
+                                        generator=g(), device=d),
+                     (np.abs(rng.standard_normal((2, 2, 64, 64), dtype=np.float32)),)),
+        "TFCLaSAFT": (lambda d: lasaft.TFCLaSAFT(64, 64, 64, 128, 32, 4, num_heads=4,
+                                                 generator=g(), device=d),
+                      (spec_map, np.eye(4, dtype=np.float32)[:2])),
+        "MLPMixer": (lambda d: vision.MLPMixer(3, (64, 64), (8, 8), dim=128, depth=4,
+                                               tokens_hidden=64, channels_hidden=256,
+                                               generator=g(), device=d), (img,)),
+        "PoolFormer": (lambda d: vision.PoolFormer(3, (4, 4), mlp_hidden=256,
+                                                   stage_dims=(64, 128, 256),
+                                                   stage_depths=(2, 2, 2), generator=g(),
+                                                   device=d), (img,)),
+        "ViT": (lambda d: vision.ViT(3, (8, 8), dim=128, depth=4, num_heads=4, mlp_hidden=256,
+                                     generator=g(), device=d), (img,)),
+        "MultiDilatedConv2d": (lambda d: multidilated.MultiDilatedConv2d(
+            64, 64, (3, 3), groups=4, generator=g(), device=d), (spec_map,)),
+        "ComplexConv1d": (lambda d: complex_conv.ComplexConv1d(64, 128, 3, generator=g(),
+                                                               device=d), (z,)),
+        "ComplexDense + ModReLU": (lambda d: torch.nn.Sequential(
+            complex_conv.ComplexDense(64, 128, generator=g(), device=d),
+            activation.ModReLU(128, device=d)), (z,)),
+        "complex_relu, zrelu, concat_relu": (lambda d: lambda z: torch.cat([
+            torch.view_as_real(activation.complex_relu(z)), torch.view_as_real(
+                activation.zrelu(z)), activation.concat_relu(torch.view_as_real(z))], -1),
+            (z,)),
+        "pools (median, GeM, global)": (lambda d: lambda x: torch.cat([
+            pool_ops.median_pool1d(x, 4), pool_ops.GeneralizedMeanPool(device=d)(x)[:, None],
+            pool_ops.global_avg_pool(x)[:, None], pool_ops.global_max_pool(x)[:, None]], 1),
+            (seq,)),
+    }
+
+
+def slice_e_rest_cpu():
+    """The CPU's half of 19b: TDCUNet2d's B = 4 x 6 s forward and its train step in f64 and
+    f32 (B = 1), and the other modules' forwards."""
+    model = tdc_unet_model()
+    x, latent, _ = tdc_unet_batch(*TDC_BATCH, "cpu")
+    with torch.inference_mode():
+        forward = model.eval()(x, latent)
+    batch = tdc_unet_batch(1, TDC_PARITY_SECONDS, "cpu")
+    ref = tdc_unet_grads(copy.deepcopy(model).double(), tuple(t.double() for t in batch))
+    cpu = tdc_unet_grads(model, batch)
+    others = {}
+    with torch.inference_mode():
+        for name, (build, inputs) in slice_e_rest_cases().items():
+            module = build("cpu")
+            others[name] = (module.eval() if isinstance(module, torch.nn.Module) else module)(
+                *map(torch.from_numpy, inputs))
+    return dict(forward=forward, ref=ref, cpu=cpu, others=others)
+
+
+def phase_slice_e_rest(card, cpu_side):
+    """19b: TDCUNet2d at the CUNet recipe's widths (B = 4 x 6 s maps) card vs CPU, its
+    forward ms and peak, one f32 train step (B = 1) against the f64 CPU step (a gradient 0
+    in f64 held as phase 17 holds it), the recipe step's p50 and peak; then DenseNet,
+    TFCLaSAFT, the vision models, MultiDilatedConv2d, the complex layers, the activations
+    and the pools card vs CPU, f32. None launches a kernel of the port (their convs are
+    cuDNN's, as JAX's are XLA's): every count 0. -> the card runs' launches."""
+    log("== phase 19b: slice E's other half: TDCUNet2d at the CUNet recipe's widths, the "
+        "other models and ops, card vs CPU (f32, TF32 off)")
+    model = tdc_unet_model("cuda")
+    x, latent, target = tdc_unet_batch(*TDC_BATCH, "cuda")
+    reset_counts()
+    with torch.inference_mode():
+        got = model.eval()(x, latent)
+        torch.cuda.reset_peak_memory_stats()
+        ms = budget_ms(lambda: model(x, latent), iters=5)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    side = cpu_side.result()
+    ref = side["forward"]
+    err, scale = float((got.cpu() - ref).abs().max()), float(ref.abs().max())
+    log(f"  TDCUNet2d B={TDC_BATCH[0]} x {TDC_BATCH[1]:g} s {tuple(x.shape)}: card vs CPU max "
+        f"abs err {err:.3e}, max|CPU| {scale:.3e}, limit {1e-3 * scale:.3e}; forward "
+        f"{ms:.3f} ms, peak {peak:.1f} MiB [{card}]")
+    check(torch.isfinite(got).all() and got.shape == ref.shape and err <= 1e-3 * scale,
+          f"TDCUNet2d: the card's forward disagrees with the CPU's: {err}")
+    batch = tdc_unet_batch(1, TDC_PARITY_SECONDS, "cuda")
+    step = tdc_unet_grads(model, batch)
+    hold_step_against_f64(f"TDCUNet2d (B=1 x {TDC_PARITY_SECONDS:g} s)", side["ref"],
+                          side["cpu"], step, all_counts())
+    optimizer = make_optimizer("adam", 1e-3, params=model.parameters())
+    B, p50, split, step_peak = fitting_step(
+        "TDCUNet2d", optimizer, lambda b: tdc_unet_batch(b, TDC_BATCH[1], "cuda"),
+        lambda b: tdc_unet_loss(model, b), TDC_BATCH[0], TDC_BATCH[1], iters=3)
+    log(f"  TDCUNet2d recipe step B={B} x {TDC_BATCH[1]:g} s: p50 {p50:.3f} ms (forward "
+        f"{split[0]:.3f}, backward {split[1]:.3f}, optimizer {split[2]:.3f} ms), peak "
+        f"{step_peak:.1f} MiB")
+    with torch.inference_mode():
+        for name, (build, inputs) in slice_e_rest_cases().items():
+            module = build("cuda")
+            got = (module.eval() if isinstance(module, torch.nn.Module) else module)(
+                *(torch.from_numpy(a).cuda() for a in inputs)).cpu()
+            ref = side["others"][name]
+            err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+            log(f"  {name} {tuple(got.shape)}: card vs CPU max abs err {err:.3e} (limit "
+                f"{SLICE_E_REST_TOL * scale:.3e})")
+            check(torch.isfinite(torch.view_as_real(got) if got.is_complex() else got).all()
+                  and got.shape == ref.shape and err <= SLICE_E_REST_TOL * scale,
+                  f"{name}: the card's forward disagrees with the CPU's: {err}")
+    torch.cuda.synchronize()
+    grew = all_counts()
+    check(not any(grew.values()), f"slice E's other half launched {nonzero(grew)}")
+    return grew
+
+
+def phase_hub_and_slice_e_rest(card=None, tmp=None):
+    """Phase 19 (19a then 19b) -> {"launches": 19a's served forwards' counts}. The CPU's
+    halves run in a thread beside the card's work, one task at a time, on all but
+    SLICE_E_HOST_CORES of the host's cores (as phase 17's)."""
+    card = card or card_line()
+    with contextlib.ExitStack() as stack:
+        tmp = tmp or stack.enter_context(tempfile.TemporaryDirectory())
+        threads = torch.get_num_threads()
+        torch.set_num_threads(max(1, threads - SLICE_E_HOST_CORES))
+        stack.callback(torch.set_num_threads, threads)
+        pool = stack.enter_context(ThreadPoolExecutor(1))
+        root, paths, written = write_hub_blobs(tmp)
+        hub_cpu = pool.submit(hub_cpu_side, paths)
+        rest_cpu = pool.submit(slice_e_rest_cpu)
+        launches = phase_hub(card, root, paths, written, hub_cpu)
+        phase_slice_e_rest(card, rest_cpu)
+    log(f"  phase 19 main-path launches: {nonzero(launches)}")
+    return dict(launches=launches)
+
+
 def kernel_entry(name, source, replaces, launches, timing, bound_of, library_ms=None,
                  dtype=torch.float32, fma_bound=None):
     """One kernel of the `kernels` line; `dtype` is that of the inputs timed. A timing
@@ -6412,7 +6791,8 @@ ONLY_PHASES = {"3": phase_kernel, "3b": phase_lstm, "3c": phase_gru, "3d": phase
                "13": phase_dptnet, "13k": phase_dptnet_kernels, "14": phase_slice_d,
                "14k": phase_slice_d_kernels, "15": phase_rest, "15k": phase_rest_kernels,
                "16": phase_spec, "16k": phase_spec_kernels, "17": phase_slice_e,
-               "17k": phase_slice_e_kernels, "18": phase_slice_g}
+               "17k": phase_slice_e_kernels, "18": phase_slice_g,
+               "19": phase_hub_and_slice_e_rest}
 
 
 def main(argv=None) -> int:
@@ -6426,8 +6806,9 @@ def main(argv=None) -> int:
                              "15k (their kernels alone), 16 (Wavesplit, DANet, ADANet, deep "
                              "clustering; 16k first), 16k (H = 300 alone), 17 (D3Net, "
                              "MMDenseNet, MMDenseLSTM, HRNet, CUNet; 17k first), 17k "
-                             "(MMDenseLSTM's H = 64, 16, 4 alone) or 18 (ORPIT Conv-TasNet, "
-                             "the other PITs, the oracle masks, the library) to run after "
+                             "(MMDenseLSTM's H = 64, 16, 4 alone), 18 (ORPIT Conv-TasNet, "
+                             "the other PITs, the oracle masks, the library) or 19 (reference "
+                             "checkpoints through the hub, slice E's other half) to run after "
                              "phases 1 and 2, and nothing else; no result line is printed")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -6544,6 +6925,7 @@ def main(argv=None) -> int:
     spec = phase_spec(card)
     slice_e = phase_slice_e(card)
     slice_g = phase_slice_g(card)
+    hub = phase_hub_and_slice_e_rest(card)
     for name in ("lstm_scan_bidir_bwd", "lstm_scan_bwd", "gru_scan_bidir_bwd", "gru_scan_bwd"):
         check(trained[name] >= 1, f"the training path never launched {name}")
     total = {k: v + trained[k] + evaluated[k] for k, v in total.items()}
@@ -6569,6 +6951,10 @@ def main(argv=None) -> int:
     # each held to the plain decode.
     slice_g_launches = slice_g["launches"]
     total = {k: v + slice_g_launches.get(k, 0) for k, v in total.items()}
+    # Phase 19 (paper-config Conv-TasNet and recipe-config DPRNN-TasNet opened from reference
+    # blobs through the hub): their decodes and recurrences, each held to the plain version,
+    # join the served widths' rows and the f32 recurrence rows.
+    total = {k: v + hub["launches"].get(k, 0) for k, v in total.items()}
     # The wsj0 models have H = 128 (tensor cores), musdb18's UMX B = 1 at H = 256 and 512
     # and B = 16 at H = 256 (the cluster kernels), DPTNet H = 256 (the wide and cluster
     # kernels), GALRNet H = 128, LSTM-TasNet H = 500 (the cluster kernels at 512): no FMA

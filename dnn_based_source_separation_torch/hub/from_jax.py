@@ -28,7 +28,10 @@ dicts go back into JAX through them; `m_densenet_state_dict_from_jax` maps the s
 MDenseNet onto the same names, and `parallel_state_dict_from_jax` any of them stem by stem.
 HRNet, the U-Nets and CUNet have no converter in the JAX package:
 `hrnet_state_dict_from_jax`, `unet_state_dict_from_jax` and `cunet_state_dict_from_jax`
-map their JAX trees onto the port's names, which follow those trees.
+map their JAX trees onto the port's names, which follow those trees; so does
+`tree_state_dict_from_jax` for TDCUNet2d, LaSAFT and its parts, the vision models and the
+ops with parameters (MultiDilatedConv2d, ComplexConv1d, ComplexDense, ModReLU,
+GeneralizedMeanPool). `densenet_state_dict_from_jax` undoes `convert_densenet`.
 """
 from __future__ import annotations
 
@@ -136,9 +139,10 @@ def conv_tasnet_state_dict_from_jax(params: Mapping, config: Mapping) -> Dict[st
 
 
 def _linear(sd: Dict, prefix: str, dense: Mapping) -> None:
-    """Dense {kernel (in, out), bias} -> nn.Linear weight (out, in), bias."""
+    """Dense {kernel (in, out), bias if it has one} -> nn.Linear weight (out, in), bias."""
     sd[f"{prefix}.weight"] = _t(np.asarray(dense["kernel"]).T)
-    sd[f"{prefix}.bias"] = _t(dense["bias"])
+    if "bias" in dense:
+        sd[f"{prefix}.bias"] = _t(dense["bias"])
 
 
 def _lstm(sd: Dict, prefix: str, rnn: Mapping) -> None:
@@ -800,16 +804,24 @@ _INDEXED = re.compile(r"(encoder|decoder|unet)(\d+)")
 def _tree(sd: Dict, prefix: str, p: Mapping, s: Mapping) -> None:
     """A JAX tree whose submodules the port names alike (`encoder3` -> `encoder.3`, the
     lists the port keeps as ModuleLists): flax Conv (2-D or 1-D kernel) -> Conv2d /
-    Conv1d, ConvTranspose (`deconv*`) -> ConvTranspose2d / 1d flipped, Dense -> Linear,
-    BatchNorm -> torch BatchNorm with the batch_stats."""
+    Conv1d, ConvTranspose (`deconv*`, `upsample*`) -> ConvTranspose2d / 1d flipped, Dense ->
+    Linear, BatchNorm -> torch BatchNorm with the batch_stats, LayerNorm (a scale with no
+    batch_stats) -> torch LayerNorm, `ops/attention.py:MultiheadAttention` -> torch's
+    names, a bare parameter (LaSAFT's `key`, ViT's `cls_token`, ModReLU's `bias`, GeM's `p`)
+    as it is."""
     for name, sub in p.items():
         match = _INDEXED.fullmatch(name)
         path = prefix + (f"{match.group(1)}.{match.group(2)}" if match else name)
-        if "kernel" in sub:
+        if not isinstance(sub, Mapping):
+            sd[path] = _t(sub)
+        elif "in_proj" in sub:
+            _mha(sd, path, sub)
+        elif "kernel" in sub:
             ndim = np.ndim(sub["kernel"])
-            if name.startswith("deconv") and ndim == 4:
+            transposed = name.startswith(("deconv", "upsample"))
+            if transposed and ndim == 4:
                 _conv_transpose2d(sd, path, sub)
-            elif name.startswith("deconv"):  # (K, in, out) -> (in, out, K), flipped
+            elif transposed:  # (K, in, out) -> (in, out, K), flipped
                 kernel = np.asarray(sub["kernel"])[::-1]
                 sd[f"{path}.weight"] = _t(np.transpose(kernel, (1, 2, 0)))
                 sd[f"{path}.bias"] = _t(sub["bias"])
@@ -819,13 +831,20 @@ def _tree(sd: Dict, prefix: str, p: Mapping, s: Mapping) -> None:
                 _conv(sd, path, sub)
             else:
                 _linear(sd, path, sub)
-        elif "scale" in sub:
+        elif "scale" in sub and name in s:
             _batch_norm(sd, path, sub, s[name])
+        elif "scale" in sub:
+            _layer_norm(sd, path, sub)
         else:
             _tree(sd, f"{path}.", sub, s.get(name, {}))
 
 
-def _tree_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+def tree_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX variables ({"params"[, "batch_stats"]}) of a module whose port names follow its
+    tree -> port state_dict: TDCUNet2d, LaSAFT and its parts (TFC2d, TDF2d,
+    MultiheadTDF2d, TFCLaSAFT), the vision models (MLPMixer, MetaFormer, PoolFormer, ViT
+    and their blocks), MultiDilatedConv2d, ComplexConv1d, ComplexDense, ModReLU,
+    GeneralizedMeanPool; HRNet, the U-Nets and CUNet."""
     sd: Dict[str, torch.Tensor] = {}
     _tree(sd, "", variables["params"], variables.get("batch_stats", {}))
     return sd
@@ -835,17 +854,39 @@ def hrnet_state_dict_from_jax(variables: Mapping, config: Mapping) -> Dict[str, 
     """JAX HRNet variables -> port state_dict. The JAX package has no converter of the
     reference layout for HRNet; the port's names follow the JAX tree (`conv2d_in.block0`,
     `stage{s}_stack{k}_level{l}`, `mix{s}.down_{o}_{i}`, `concat_up{l}`, ...)."""
-    return _tree_state_dict(variables)
+    return tree_state_dict_from_jax(variables)
 
 
 def unet_state_dict_from_jax(variables: Mapping, config: Mapping) -> Dict[str, torch.Tensor]:
     """JAX UNet2d / UNet1d / EnsembleUNet2d / EnsembleUNet1d variables -> port state_dict
     (`encoder.{i}`, `bottleneck`, `decoder.{i}`, an ensemble's `unet.{k}`)."""
-    return _tree_state_dict(variables)
+    return tree_state_dict_from_jax(variables)
 
 
 def cunet_state_dict_from_jax(variables: Mapping, config: Mapping) -> Dict[str, torch.Tensor]:
     """JAX ConditionedUNet2d variables -> port state_dict (`control_net.dense{i}`,
     `control_net.fc_weight{i}` / `fc_bias{i}`, `encoder.{i}`, `bottleneck`,
     `decoder.{i}`)."""
-    return _tree_state_dict(variables)
+    return tree_state_dict_from_jax(variables)
+
+
+def densenet_state_dict_from_jax(variables: Mapping, config: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX DenseNet variables -> port state_dict: the inverse of
+    `hub/torch_convert.py:convert_densenet` (`block{b}.layer{l}` -> `net.{b}.net.{l}`,
+    `block{b}.transition2d` -> `net.{b}.transition2d`)."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    _conv2d(sd, "preprocess", p["preprocess"])
+    for b in range(_count(p, "block")):
+        block, stats = p[f"block{b}"], s[f"block{b}"]
+        for l in range(_count(block, "layer")):
+            layer, layer_stats, ref = block[f"layer{l}"], stats[f"layer{l}"], f"net.{b}.net.{l}"
+            for norm in ("norm2d1", "norm2d2"):
+                _batch_norm(sd, f"{ref}.{norm}", layer[norm], layer_stats[norm])
+            for conv in ("bottleneck_conv2d", "conv2d"):
+                _conv2d(sd, f"{ref}.{conv}", layer[conv])
+        ref = f"net.{b}.transition2d"
+        _batch_norm(sd, f"{ref}.norm2d", block["transition2d"]["norm2d"],
+                    stats["transition2d"]["norm2d"])
+        _conv2d(sd, f"{ref}.conv2d", block["transition2d"]["conv2d"])
+    return sd

@@ -3,9 +3,11 @@
 from .adanet import ADANet
 from .conv_tasnet import ConvTasNet, Separator
 from .cunet import ConditionedUNet2d
+from .cunet_choi import TDCUNet2d
 from .d3net import D3Net, ParallelD3Net
 from .danet import DANet, FixedAttractorDANet
 from .deep_clustering import ChimeraNet, DeepEmbedding, DeepEmbeddingPlus
+from .densenet import DenseNet
 from .dprnn_tasnet import DPRNNTasNet
 from .dptnet import DPTNet
 from .furcanet import FurcaNet
@@ -30,11 +32,11 @@ from .xumx import CrossNetOpenUnmix
 
 __all__ = ["ADANet", "ChimeraNet", "ConditionedSpectrogramWrapper", "ConditionedUNet2d",
            "ConvTasNet", "CrossNetOpenUnmix", "D3Net", "DANet", "DPRNNTasNet", "DPTNet",
-           "DeepEmbedding", "DeepEmbeddingPlus", "EnsembleUNet1d", "EnsembleUNet2d",
-           "FixedAttractorDANet", "FurcaNet", "GALRNet", "HRNet", "LSTMTasNet", "MDenseNet",
-           "MMDenseLSTM", "MMDenseNet", "MMDenseRNN", "MetaTasNet", "MonoWaveAdapter",
-           "MultiResolutionCrossNet", "OpenUnmix", "ParallelD3Net", "ParallelMMDenseLSTM",
-           "ParallelMMDenseNet", "ParallelOpenUnmix", "SepFormer", "Separator",
-           "SingleStemSpectrogramWrapper", "SpectrogramMaskingWrapper", "SpectrogramSeparator",
-           "TasNet", "TasNetBase", "UNet1d", "UNet2d", "WaveChannelAdapter", "WaveNet",
-           "WaveSplit"]
+           "DeepEmbedding", "DeepEmbeddingPlus", "DenseNet", "EnsembleUNet1d",
+           "EnsembleUNet2d", "FixedAttractorDANet", "FurcaNet", "GALRNet", "HRNet",
+           "LSTMTasNet", "MDenseNet", "MMDenseLSTM", "MMDenseNet", "MMDenseRNN", "MetaTasNet",
+           "MonoWaveAdapter", "MultiResolutionCrossNet", "OpenUnmix", "ParallelD3Net",
+           "ParallelMMDenseLSTM", "ParallelMMDenseNet", "ParallelOpenUnmix", "SepFormer",
+           "Separator", "SingleStemSpectrogramWrapper", "SpectrogramMaskingWrapper",
+           "SpectrogramSeparator", "TDCUNet2d", "TasNet", "TasNetBase", "UNet1d", "UNet2d",
+           "WaveChannelAdapter", "WaveNet", "WaveSplit"]

@@ -44,27 +44,28 @@ def cumulative_layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tens
 
 
 def flax_batch_norm(x: torch.Tensor, norm: nn.modules.batchnorm._BatchNorm,
-                    dim: int = -1) -> torch.Tensor:
+                    dim: int = -1, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """flax's train-mode BatchNorm over every axis of `x` but `dim`, with `norm`'s
     weight, bias and eps; updates its buffers.
 
-    The mean and the biased variance (E[x^2] - E[x]^2, clipped at 0), computed in f32,
-    then `running = 0.9 * running + 0.1 * batch` for both, in place, and
+    The mean and the biased variance (E[x^2] - E[x]^2, clipped at 0), computed in `dtype`
+    (f32 whatever x's dtype, f64 too, unless the caller asks for another), then
+    `running = 0.9 * running + 0.1 * batch` for both, in place, and
     `num_batches_tracked` counts the updates. (torch's train mode puts the unbiased
     variance into `running_var`: another function.)
     """
     dim = dim % x.ndim
     dims = [d for d in range(x.ndim) if d != dim]
     shape = [-1 if d == dim else 1 for d in range(x.ndim)]
-    xf = x.float()
+    xf = x.to(dtype)
     mean = xf.mean(dim=dims)
     var = torch.clamp(xf.square().mean(dim=dims) - mean.square(), min=0.0)
     with torch.no_grad():
         for buf, batch in ((norm.running_mean, mean), (norm.running_var, var)):
             buf.copy_(0.9 * buf + 0.1 * batch)
         norm.num_batches_tracked.add_(1)
-    mul = torch.rsqrt(var + norm.eps) * norm.weight.float()
-    return ((xf - mean.view(shape)) * mul.view(shape) + norm.bias.float().view(shape)).to(x.dtype)
+    mul = torch.rsqrt(var + norm.eps) * norm.weight.to(dtype)
+    return ((xf - mean.view(shape)) * mul.view(shape) + norm.bias.to(dtype).view(shape)).to(x.dtype)
 
 
 class _FlaxTrainMode:

@@ -46,13 +46,16 @@ class Weight(nn.Module):
 
 
 class Linear(nn.Module):
-    """Dense layer with torch `nn.Linear` parameters: weight (out, in), bias (out,)."""
+    """Dense layer with torch `nn.Linear` parameters: weight (out, in), bias (out,) (None
+    without `bias`)."""
 
-    def __init__(self, in_features: int, out_features: int, *, generator=None, device=None):
+    def __init__(self, in_features: int, out_features: int, *, bias: bool = True,
+                 generator=None, device=None):
         super().__init__()
         self.weight = uniform_parameter((out_features, in_features), in_features,
                                         generator, device)
-        self.bias = uniform_parameter((out_features,), in_features, generator, device)
+        self.bias = (uniform_parameter((out_features,), in_features, generator, device)
+                     if bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, self.weight, self.bias)

@@ -50,7 +50,10 @@ def test_importing_every_port_module_leaves_jax_out():
                 "criterion.hungarian", "criterion.mixit", "criterion.divergence",
                 "criterion.entropy", "criterion.metric_learn", "algorithm.griffin_lim",
                 "algorithm.misi", "algorithm.nmf", "transforms", "transforms.cepstrum",
-                "transforms.pca", "cli.test_oracle_masks", "cli.create_mixtures"):
+                "transforms.pca", "cli.test_oracle_masks", "cli.create_mixtures",
+                "hub.torch_checkpoint", "hub.pretrained", "ops.activation", "ops.complex_conv",
+                "ops.pool", "ops.multidilated", "models.densenet", "models.cunet_choi",
+                "models.lasaft", "models.vision"):
         assert f"dnn_based_source_separation_torch.{new}" in modules, new
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"

@@ -150,7 +150,8 @@ Phases (any failure exits non-zero; nothing is caught and passed):
      all zero on the card, and the kernel launches of the step;
   8. train through cli/train_wsj0mix.py on a synthetic wsj0-style corpus (three
      training and one validation utterance):
-     `python -m` for two epochs, then in-process --continue_from, causal,
+     `python -m` for two epochs (its first line must say TF32 is off: utils/device.py),
+     then in-process --continue_from, causal,
      --mixed_precision 1, --rnn_type gru (f32, bf16, causal f32 and bf16) and Conv-TasNet
      runs, with the launches of every run checked against its steps and
      validation forwards; one step and one validation forward counted alone;
@@ -282,15 +283,19 @@ Phases (any failure exits non-zero; nothing is caught and passed):
      0.8 s step (p50, split, peak), cli/train_wsj0mix_spec.py --model danet at its recipe flags
      (rmsprop) two epochs (the loss falling), its checkpoint through cli/test_wsj0mix.py
      --spec_kind danet on the card and the CPU within EVAL_TOL_DB; every LSTM launch on the
-     route _plan gives H = 300, the FMA kernels; and (16k) lstm_scan_bidir at H = 300, the
-     training shape (64, 101) x 2 with cs and its backward and a 4 s utterance's (1, 501)
-     x 2 in f32 and bf16, each against its plain version at the full length, the kernel
-     alone and the whole call from CUDA graphs, beside cuDNN's nn.LSTM and the bound;
+     route _plan gives H = 300 (the cluster kernels padded to 384 for requests and small
+     batches, the wide kernels at 384 for training's B = 64) and counted padded; and (16k)
+     lstm_scan_bidir at H = 300, the training shape (64, 101) x 2 with cs and its backward
+     and a 4 s utterance's (1, 501) x 2 in f32 and bf16, each against its plain version at
+     the full length and the FMA kernel, the kernel alone and the whole call from CUDA graphs
+     in turns with the FMA kernel, beside cuDNN's nn.LSTM and the bound;
   17. musdb18's 2-D dense / U-Net recipes at their recipe widths (the port's
      egs/musdb18/{d3net,mm-densenet,mm-dense-lstm,hrnet,cunet}/train.sh and the repo's
      recipe YAMLs): each model card vs CPU (a one-stem model, 1 s; CUNet keeps its four
      conditions), its base model in bf16 vs f32, one train step against an f64 CPU step
-     (B = 1 x 0.25-1 s), the recipe step at its batch or the largest power-of-two batch that
+     (B = 1 x 0.25-1 s; f64 BatchNorm statistics; every ReLU of the card's and the CPU's f32
+     steps on the f64 step's sign pattern, the card's own ReLU inputs across 0 only within
+     their call's rounding), the recipe step at its batch or the largest power-of-two batch that
      fits (split, peak; D3Net's B = 6 does not fit), cli/train_musdb18.py two epochs of
      one step at that batch (the loss falling, the step p50, the peak, the checkpoint
      reopened); D3Net, MMDenseNet and MMDenseLSTM (the ones JAX's test CLI evaluates) served
@@ -353,8 +358,8 @@ cluster backward. Phase 13's DPTNet runs and phase 14's runs are held launch by
 launch to their routes (the wide backward at its training sequences; LSTM-TasNet's
 H = 500 on the padded cluster kernels, each launch also in PADDED_LAUNCHES) and then join
 the total, which must have launched every path but the FMA ones, and no FMA kernel at
-all but phase 16's (H = 300, where _plan keeps the FMA kernels; each held to its route)
-and phase 17's (MMDenseLSTM's H = 4).
+all but phase 17's (MMDenseLSTM's H = 4; each held to its route); phase 16's H = 300
+runs the cluster and wide kernels padded to 384.
 The last line
 is {"ok": true, "device":
 {...}}; the line before it lists the kernels with their launch counts,
@@ -388,9 +393,10 @@ LSTM-TasNet's, SepFormer's and GALRNet's decoder widths in both dtypes, and the 
 kernels at LSTM-TasNet's (H = 500, padded: the whole call with its pads as `ms`, the
 kernel alone as `kernel_ms`, with phase 14's padded launches) and GALRNet's (H = 128)
 shapes, with phase 14's launches of that kernel on that route; and phase 16k's rows:
-lstm_scan_bidir at H = 300 on the FMA kernel (the whole call as `ms`, the kernel alone as
-`kernel_ms`, cuDNN's nn.LSTM at F = 129 as `library_ms`), with phase 16's launches of that
-kernel on that route; and phase 17k's rows: lstm_scan_bidir at MMDenseLSTM's H = 64, 16
+lstm_scan_bidir at H = 300 on its planned route, padded to 384 (the whole call as `ms`,
+the kernel alone as `kernel_ms`, the FMA kernel forced as `fma_ms`, cuDNN's nn.LSTM at
+F = 129 as `library_ms`), with phase 16's launches of that kernel on that route;
+and phase 17k's rows: lstm_scan_bidir at MMDenseLSTM's H = 64, 16
 (tf32x3 / mma, the FMA kernel forced beside them) and 4 (the FMA kernel, whole call and
 kernel alone), B = 1 serving and B = 6 training with its backward, cuDNN's nn.LSTM at the
 layer's input width, with phase 17's launches of that kernel on that route; and phase 18's
@@ -476,6 +482,7 @@ from dnn_based_source_separation_torch.ops.windows import build_window
 from dnn_based_source_separation_torch.train import (
     Evaluater, Trainer, make_optimizer, make_train_step, make_warmup_optimizer,
 )
+from dnn_based_source_separation_torch.utils.device import TF32_OFF, resolve_device
 
 SAMPLE_RATE = 8000
 # PAPER: paper-config Conv-TasNet, N512 L16 S8 B128 H512 Sc128 P3 X8 R3,
@@ -827,7 +834,7 @@ def plan(module, B, n_chains, H, dtype, path=None):
         clusters = (ls._forward_clusters if module is ls else gs._tf32_clusters)(
             ls.cluster_width(H), "cuda")
     if ls._needs_wide(H, dtype, path, module.ROUTES):
-        wide = ls._wide_counts(H, dtype, "cuda")
+        wide = ls._wide_counts(ls.cluster_width(H), dtype, "cuda")
     return module._plan(B, n_chains, H, dtype, sms, path, clusters, module.ROUTES, wide)
 
 
@@ -961,7 +968,7 @@ def plan_bwd(module, B, n_chains, H, dtype, path=None):
         clusters = (module._tf32_bwd_clusters(H, "cuda") if H <= ls.MMA_MAX_HIDDEN
                     else ls._cluster_bwd_counts(ls.cluster_width(H), "cuda"))
     if ls._needs_wide(H, dtype, path, module.ROUTES, backward=True):
-        wide = ls._wide_counts(H, dtype, "cuda", backward=True)
+        wide = ls._wide_counts(ls.cluster_width(H), dtype, "cuda", backward=True)
     return module._plan_bwd(B, n_chains, H, dtype, sms, path, clusters, module.ROUTES, wide)
 
 
@@ -1346,13 +1353,15 @@ def phase_library():
 # Phase 3h: the cluster route of the LSTM forwards (csrc/recurrence_cluster.cuh) at
 # musdb18 serving's shapes (UMX_SCAN_SHAPES: a 10 s chunk at B = 1) and around them,
 # (label, B, T, H, chains): three clusters a chain (B = 3), one row block of W_hh in
-# shared memory (H = 384; H = 512 has two), one step.
+# shared memory (H = 384; H = 512 has two), H = 300 zero-padded to 384 (DANet's, ADANet's
+# and deep clustering's width), one step.
 CLUSTER_CASES = [
     ("UMX", 1, 431, 256, 2),
     ("causal UMX", 1, 431, 512, 1),
     ("B=3", 3, 57, 256, 2),
     ("B=3", 3, 57, 512, 1),
     ("H=384", 1, 57, 384, 1),
+    ("H=300", 3, 57, 300, 2),
     ("T=1", 1, 1, 256, 2),
     ("UMX train", *UMX_TRAIN_SHAPE[:2], UMX_TRAIN_SHAPE[2], 2),  # musdb18 training, with cs
 ]
@@ -1408,13 +1417,14 @@ def phase_cluster(card=None):
     cuDNN's nn.LSTM and the bound; then the crossover over B against the FMA kernel."""
     log("== phase 3h: the cluster route of lstm_scan_bidir and lstm_scan vs plain on the card")
     card = card or card_line()
-    for H in sorted({case[3] for case in CLUSTER_CASES}):
+    for H in sorted({ls.cluster_width(case[3]) for case in CLUSTER_CASES}):
         log(f"  clusters of the cluster kernel the card holds at once, by blocks a cluster "
             f"(H={H}): {ls._cluster_counts(H, 'cuda')}")
     result = {}
     for label, B, T, H, chains in CLUSTER_CASES:
         name = "lstm_scan_bidir" if chains == 2 else "lstm_scan"
-        counts = ls._cluster_counts(H, "cuda")
+        width = ls.cluster_width(H)  # a padded case's kernel width
+        counts = ls._cluster_counts(width, "cuda")
         for dtype in (torch.float32, torch.bfloat16):
             inputs = lstm_chains(B, T, H, chains, dtype, seed=B + T + H)
             refs = [ls.lstm_forward_reference(xw, w) for xw, w in inputs]  # every check's
@@ -1422,7 +1432,7 @@ def phase_cluster(card=None):
             what = f"{name} {label} (B={B}, T={T}, H={H}) {str(dtype)[6:]}"
             if label in TIMED_CLUSTER_CASES:  # the plan's rule: "wide" from WIDE_MIN_BATCH up
                 want = ("wide" if H == ls.WIDE_HIDDEN and
-                        B >= ls.WIDE_MIN_BATCH[(dtype, chains)] else "cluster")
+                        B >= ls.WIDE_MIN_BATCH[H][(dtype, chains)] else "cluster")
                 check(path == want, f"{what} planned {path}, expected {want}")
             if path == "cluster":  # through the public wrapper, as the models call it
                 call = ((lambda: ls.lstm_scan_bidir(inputs[0][0], inputs[1][0], inputs[0][1],
@@ -1431,8 +1441,8 @@ def phase_cluster(card=None):
                 got = forward_path(ls, name, call, "cluster")
                 err, limit = forward_error_of(refs, got, None, dtype)
                 check(err <= limit, f"{what} through the wrapper: {err} > {limit}")
-            sizes = [c for c in ls._cluster_sizes(H, dtype) if counts.get(c, 0) >= 1]
-            check(sizes, f"the card holds no cluster the kernel takes at H={H}: {counts}")
+            sizes = [c for c in ls._cluster_sizes(width, dtype) if counts.get(c, 0) >= 1]
+            check(sizes, f"the card holds no cluster the kernel takes at H={width}: {counts}")
             errs = {}
             for c in sizes:
                 for with_cs in (False, True):
@@ -1526,9 +1536,12 @@ def bwd_chains(B, T, H, chains, dtype, seed):
 
 def staged_bwd_errors(name, staged, chains, refs, dtype):
     """[(max|kernel - plain|, limit)] of d_xw and d_W_hh of each chain of a staged backward
-    launch, against lstm_scan_bwd_reference's `refs`."""
-    got = [t for (h_prev, *_, das, d_xw), chain in zip(staged, chains)
-           for t in (d_xw, ls._weight_grad(h_prev, das, chain[1].dtype))]
+    launch (a padded one's sliced back to the chain's H), against lstm_scan_bwd_reference's
+    `refs`."""
+    got = [t for (h_prev, *_, das, d_xw), (_, w_hh, *_) in zip(staged, chains)
+           for t in (ls.unpad_gates(d_xw, w_hh.shape[0]),
+                     ls.unpad_weight_grad(ls._weight_grad(h_prev, das, w_hh.dtype),
+                                          w_hh.shape[0]))]
     return grad_errors(name, got, [t for ref in refs for t in ref], dtype)
 
 
@@ -1540,21 +1553,22 @@ def phase_cluster_bwd(card):
     (phase 3d times the planned size beside the FMA backward and cuDNN); then the
     crossover over B against the FMA backward, which sets CLUSTER_MAX_BATCH_BWD."""
     log("  the cluster backward (csrc/recurrence_cluster_bwd.cuh) vs lstm_scan_bwd_reference:")
-    for H in sorted({case[3] for case in CLUSTER_CASES}):
+    for H in sorted({ls.cluster_width(case[3]) for case in CLUSTER_CASES}):
         log(f"  clusters of the cluster backward the card holds at once, by blocks a cluster "
             f"(H={H}): {ls._cluster_bwd_counts(H, 'cuda')}")
     result = {}
     for label, B, T, H, chains in CLUSTER_CASES:
         name = "lstm_scan_bidir_bwd" if chains == 2 else "lstm_scan_bwd"
-        counts = ls._cluster_bwd_counts(H, "cuda")
+        width = ls.cluster_width(H)  # a padded case's kernel width
+        counts = ls._cluster_bwd_counts(width, "cuda")
         for dtype in (torch.float32, torch.bfloat16):
             inputs = bwd_chains(B, T, H, chains, dtype, seed=B + T + H + 3)
             refs = [ls.lstm_scan_bwd_reference(*c) for c in inputs]
             path, tile = plan_bwd(ls, B, chains, H, dtype)
             what = f"{name} {label} (B={B}, T={T}, H={H}) {str(dtype)[6:]}"
             check(path == "cluster", f"{what} planned {path}, expected cluster")
-            sizes = [c for c in ls._cluster_sizes(H, dtype, True) if counts.get(c, 0) >= 1]
-            check(sizes, f"the card holds no cluster the backward takes at H={H}: {counts}")
+            sizes = [c for c in ls._cluster_sizes(width, dtype, True) if counts.get(c, 0) >= 1]
+            check(sizes, f"the card holds no cluster the backward takes at H={width}: {counts}")
             for c in sizes:
                 staged, launch = ls._staged_backward(inputs, "cluster", c)
                 on_path(ls.BWD_PATH_LAUNCHES[name], name, launch, "cluster")
@@ -1606,14 +1620,16 @@ def phase_cluster_bwd(card):
     return result
 
 
-# Phase 3i: the wide route of the LSTM forwards (csrc/recurrence_wide.cuh) at H = 256.
-# Every tile (M, C) of each dtype at B = 37 (no multiple of any M: rows past B in the last
-# tile), one and two chains, hs alone and with cs; a T = 1 case on the
-# plan's tile. Timed: musdb18 training's shape, (label, (B, T, chains), with cs), where the
+# Phase 3i: the wide route of the LSTM forwards (csrc/recurrence_wide.cuh) at H = 256, and
+# at 384 on H = 300 zero-padded (WIDE_PADDED). Every tile (M, C) of each dtype at B = 37 (no
+# multiple of any M: rows past B in the last tile), one and two chains, hs alone and with
+# cs; a T = 1 case on the plan's tile (at H = 256 through the wrappers).
+# Timed: musdb18 training's shape, (label, (B, T, chains), with cs), where the
 # plan weighs the wide route against the cluster route (phase 13k times DPTNet's shapes);
 # then the crossover over B against the cluster route that WIDE_MIN_BATCH encodes.
 WIDE_CHECK = (37, 57)
 WIDE_T1 = (20, 1)
+WIDE_PADDED = 300  # DANet's, ADANet's and deep clustering's H, at 384
 WIDE_TIMED = [("UMX train", (UMX_TRAIN_SHAPE[0], UMX_TRAIN_SHAPE[1], 2), True)]
 WIDE_CROSSOVER_BATCHES = (4, 16, 64, 200, 512)
 WIDE_CROSSOVER_STEPS = (259, 639)
@@ -1644,13 +1660,14 @@ def phase_wide(card=None):
     route. -> {(name, dtype, label): timing, "crossover": rows}."""
     log("== phase 3i: the wide route of lstm_scan_bidir and lstm_scan vs plain on the card")
     card = card or card_line()
-    H = ls.WIDE_HIDDEN
     result = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        counts = ls._wide_counts(H, dtype, "cuda")
-        log(f"  clusters of the wide kernel the card holds at once, {str(dtype)[6:]}, by tile "
-            f"(M, C): {counts}")
-        tiles = [t for t in ls._wide_tiles(H, dtype) if counts[t] >= 1]
+    for H, dtype in [(H, d) for H in (ls.WIDE_HIDDEN, WIDE_PADDED)
+                     for d in (torch.float32, torch.bfloat16)]:
+        width = ls.cluster_width(H)
+        counts = ls._wide_counts(width, dtype, "cuda")
+        log(f"  clusters of the wide kernel the card holds at once, H={width}, "
+            f"{str(dtype)[6:]}, by tile (M, C): {counts}")
+        tiles = [t for t in ls._wide_tiles(width, dtype) if counts[t] >= 1]
         check(tiles, f"the card holds no cluster of the wide kernel in {dtype}: {counts}")
         for chains in (1, 2):
             name = "lstm_scan_bidir" if chains == 2 else "lstm_scan"
@@ -1660,15 +1677,25 @@ def phase_wide(card=None):
             for tile in tiles:
                 for with_cs in (False, True):
                     what = (f"{name} (B={B}, T={T}, H={H}) {str(dtype)[6:]} wide (M={tile[0]}, "
-                            f"C={tile[1]}{', with cs' if with_cs else ''})")
+                            f"C={tile[1]}{', with cs' if with_cs else ''}"
+                            f"{f', padded to {width}' if width != H else ''})")
                     hs, cs, launch = ls._staged_forward(inputs, with_cs, "wide", tile=tile)
                     on_path(ls.PATH_LAUNCHES[name], name, launch, "wide")
                     wide_checked(what, launch, hs, cs if with_cs else None, refs, dtype,
                                  REPEATS)
             B, T = WIDE_T1
+            if width != H:  # one step on every tile; the plan's routes at H = 300: phase 16
+                inputs = lstm_chains(B, T, H, chains, dtype, seed=B + T + chains)
+                refs = [ls.lstm_forward_reference(xw, w) for xw, w in inputs]
+                for tile in tiles:
+                    hs, cs, launch = ls._staged_forward(inputs, True, "wide", tile=tile)
+                    wide_checked(f"{name} (B={B}, T={T}, H={H}) {str(dtype)[6:]} wide "
+                                 f"({tile_label(tile)}, with cs, padded to {width})", launch, hs,
+                                 cs, refs, dtype, 0)
+                continue
             inputs = lstm_chains(B, T, H, chains, dtype, seed=B + T + chains)
             path, tile = plan(ls, B, chains, H, dtype)
-            want = "wide" if B >= ls.WIDE_MIN_BATCH[(dtype, chains)] else "cluster"
+            want = "wide" if B >= ls.WIDE_MIN_BATCH[width][(dtype, chains)] else "cluster"
             check(path == want, f"{name} at B={B} planned {path}, expected {want}")
             call = ((lambda: ls.lstm_scan_bidir(inputs[0][0], inputs[1][0], inputs[0][1],
                                                 inputs[1][1])) if chains == 2 else
@@ -1759,13 +1786,14 @@ def wide_crossover(card):
                          if all(wins[(T, b)] for T in WIDE_CROSSOVER_STEPS
                                 for b in WIDE_CROSSOVER_BATCHES if b >= B)), default=None)
             log(f"    {name} {str(dtype)[6:]}: wide wins from B = {least} of the sweep on; "
-                f"WIDE_MIN_BATCH = {ls.WIDE_MIN_BATCH[(dtype, chains)]}")
+                f"WIDE_MIN_BATCH = {ls.WIDE_MIN_BATCH[H][(dtype, chains)]}")
     return rows
 
 
-# Phase 3j: the wide route of the LSTM backward (csrc/recurrence_wide_bwd.cuh) at H = 256.
-# Every tile (M, C) of each dtype at B = 37 (rows past B in the last tile), one and two
-# chains; T = 1 under autograd through the public wrappers. Timed: DPTNet's recipe training
+# Phase 3j: the wide route of the LSTM backward (csrc/recurrence_wide_bwd.cuh) at H = 256, and
+# at 384 on H = 300 zero-padded. Every tile (M, C) of each dtype at B = 37 (rows past B in
+# the last tile), one and two chains; T = 1 under autograd through the public wrappers (at
+# H = 300 on every tile, staged). Timed: DPTNet's recipe training
 # shapes (B = 2 x 4 s) in f32 and the intra-chunk one in bf16, (label, (B, T, chains),
 # dtype); then the crossover over B against the cluster backward that WIDE_MIN_BATCH_BWD
 # encodes.
@@ -1793,34 +1821,39 @@ def phase_wide_bwd(card=None):
     log("== phase 3j: the wide route of lstm_scan_bidir_bwd and lstm_scan_bwd vs plain on the "
         "card")
     card = card or card_line()
-    H = ls.WIDE_HIDDEN
     result = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        counts = ls._wide_counts(H, dtype, "cuda", backward=True)
-        log(f"  clusters of the wide backward the card holds at once, {str(dtype)[6:]}, by tile "
-            f"(M, C): {counts}")
-        tiles = [t for t in ls._wide_tiles(H, dtype, True) if counts[t] >= 1]
+    for H, dtype in [(H, d) for H in (ls.WIDE_HIDDEN, WIDE_PADDED)
+                     for d in (torch.float32, torch.bfloat16)]:
+        width = ls.cluster_width(H)
+        counts = ls._wide_counts(width, dtype, "cuda", backward=True)
+        log(f"  clusters of the wide backward the card holds at once, H={width}, "
+            f"{str(dtype)[6:]}, by tile (M, C): {counts}")
+        tiles = [t for t in ls._wide_tiles(width, dtype, True) if counts[t] >= 1]
         check(tiles, f"the card holds no cluster of the wide backward in {dtype}: {counts}")
         for chains in (1, 2):
             name = "lstm_scan_bidir_bwd" if chains == 2 else "lstm_scan_bwd"
-            B, T = WIDE_BWD_CHECK
-            inputs = bwd_chains(B, T, H, chains, dtype, seed=B + T + chains)
-            refs = [ls.lstm_scan_bwd_reference(*c) for c in inputs]
-            for tile in tiles:
-                what = f"{name} (B={B}, T={T}, H={H}) {str(dtype)[6:]} wide ({tile_label(tile)})"
-                staged, launch = ls._staged_backward(inputs, "wide", tile=tile)
-                on_path(ls.BWD_PATH_LAUNCHES[name], name, launch, "wide")
-                errs = staged_bwd_errors(name, staged, inputs, refs, dtype)
-                worst = max(x / lim if lim else 0.0 for x, lim in errs)
-                for _ in range(REPEATS):  # a race shows only in some launches
-                    launch()
-                    worst = max(worst, max(x / lim if lim else 0.0 for x, lim in
-                                           staged_bwd_errors(name, staged, inputs, refs, dtype)))
-                log(f"  {what}: max|kernel-plain| / limit of d_xw, d_W_hh: "
-                    + ", ".join(f"{x:.3e} / {lim:.3e}" for x, lim in errs)
-                    + f"; worst of {1 + REPEATS} launches {worst:.3f} of its limit "
-                    + ("ok" if worst <= 1 else "FAIL"))
-                check(worst <= 1, f"{what} disagrees with plain: {worst}")
+            for B, T in ((WIDE_BWD_CHECK,) if width == H else (WIDE_BWD_CHECK, WIDE_T1)):
+                inputs = bwd_chains(B, T, H, chains, dtype, seed=B + T + chains)
+                refs = [ls.lstm_scan_bwd_reference(*c) for c in inputs]
+                for tile in tiles:
+                    what = (f"{name} (B={B}, T={T}, H={H}) {str(dtype)[6:]} wide "
+                            f"({tile_label(tile)}{f', padded to {width}' if width != H else ''})")
+                    staged, launch = ls._staged_backward(inputs, "wide", tile=tile)
+                    on_path(ls.BWD_PATH_LAUNCHES[name], name, launch, "wide")
+                    errs = staged_bwd_errors(name, staged, inputs, refs, dtype)
+                    worst = max(x / lim if lim else 0.0 for x, lim in errs)
+                    for _ in range(REPEATS):  # a race shows only in some launches
+                        launch()
+                        worst = max(worst, max(
+                            x / lim if lim else 0.0
+                            for x, lim in staged_bwd_errors(name, staged, inputs, refs, dtype)))
+                    log(f"  {what}: max|kernel-plain| / limit of d_xw, d_W_hh: "
+                        + ", ".join(f"{x:.3e} / {lim:.3e}" for x, lim in errs)
+                        + f"; worst of {1 + REPEATS} launches {worst:.3f} of its limit "
+                        + ("ok" if worst <= 1 else "FAIL"))
+                    check(worst <= 1, f"{what} disagrees with plain: {worst}")
+            if width != H:  # the plan's routes at H = 300: phase 16
+                continue
             B, T = WIDE_BWD_T1
             path = plan_bwd(ls, B, chains, H, dtype)[0]
             check(path == "wide", f"{name} at B={B} planned {path}, expected wide")
@@ -1921,7 +1954,7 @@ def wide_bwd_crossover(card):
                          if all(wins[(T, b)] for T in WIDE_BWD_CROSSOVER_STEPS
                                 for b in WIDE_BWD_CROSSOVER_BATCHES if b >= B)), default=None)
             log(f"    {name} {str(dtype)[6:]}: wide wins from B = {least} of the sweep on; "
-                f"WIDE_MIN_BATCH_BWD = {ls.WIDE_MIN_BATCH_BWD[(dtype, chains)]}")
+                f"WIDE_MIN_BATCH_BWD = {ls.WIDE_MIN_BATCH_BWD[H][(dtype, chains)]}")
     return rows
 
 
@@ -2533,6 +2566,10 @@ def phase_train_cli(tmp, card):
         + "\n    ".join(proc.stdout.strip().splitlines()[-6:]))
     if proc.returncode != 0:
         raise AssertionError(f"the train CLI failed ({proc.returncode}):\n{proc.stderr[-3000:]}")
+    first = proc.stdout.splitlines()[0] if proc.stdout else ""
+    log(f"  its first line: {first}")
+    check(first == f"device cuda; {TF32_OFF}", f"the train CLI's first line is not the TF32 "
+                                               f"line: {first!r}")
     last = os.path.join(exp, "model", "last.ckpt")
     check(os.path.exists(os.path.join(exp, "model", "best.ckpt")) and os.path.exists(last),
           os.listdir(os.path.join(exp, "model")))
@@ -4898,7 +4935,7 @@ WAVESPLIT_CLI = ["-D", "512", "--spk_num_layers", "14", "--sep_num_blocks", "4",
                  "distance", "--batch_size", "2", "--duration", "1", "--valid_duration", "2"]
 SPEC16 = {"danet": (DANet, DANET, "danet"), "adanet": (ADANet, ADANET, "adanet"),
           "deep-clustering": (DeepEmbedding, DEEP_CLUSTERING, "embedding")}
-SPEC_H = DANET["hidden_channels"]  # 300: the FMA kernels (ops/lstm_scan.py:_plan)
+SPEC_H = DANET["hidden_channels"]  # 300: the cluster and wide kernels padded to 384
 SPEC_BATCH, SPEC_SECONDS = 64, 0.8  # the recipes' train batch: 101 frames of hop 64
 SPEC_FRAMES = int(SPEC_SECONDS * SAMPLE_RATE) // SPEC_STFT["hop_length"] + 1
 SPEC_SERVE_FRAMES = 4 * SAMPLE_RATE // SPEC_STFT["hop_length"] + 1  # a 4 s utterance: 501
@@ -4921,11 +4958,15 @@ def spec_layers(tag) -> int:
 
 def spec_routes(tag, B, T, dtype, backward=False):
     """One forward's (and its backward's) recurrence launches of a spectrogram model over B
-    sequences of T frames: a biLSTM layer each, on the route _plan (_plan_bwd) gives; at
-    H = 300 that is the FMA kernel."""
-    routes = {f"lstm_scan_bidir/{plan(ls, B, 2, SPEC_H, dtype)[0]}": spec_layers(tag)}
+    sequences of T frames: a biLSTM layer each, on the route _plan (_plan_bwd) gives, and
+    "kernel/padded" for those zero-padded (H = 300 on the cluster and wide kernels at 384:
+    requests on the cluster kernel, training's B = 64 where the plan's constants put it)."""
+    paths = {"lstm_scan_bidir": plan(ls, B, 2, SPEC_H, dtype)[0]}
     if backward:
-        routes[f"lstm_scan_bidir_bwd/{plan_bwd(ls, B, 2, SPEC_H, dtype)[0]}"] = spec_layers(tag)
+        paths["lstm_scan_bidir_bwd"] = plan_bwd(ls, B, 2, SPEC_H, dtype)[0]
+    routes = {f"{kernel}/{p}": spec_layers(tag) for kernel, p in paths.items()}
+    routes.update({f"{kernel}/padded": spec_layers(tag) for kernel, p in paths.items()
+                   if ls.launch_width(SPEC_H, p) != SPEC_H})
     return routes
 
 
@@ -4976,10 +5017,12 @@ def grads_of_loss(model, loss_of):
 def phase_spec_kernels(card=None):
     """Phase 16k: lstm_scan_bidir at H = 300, the recipes' training shape (64, 101) x 2 with
     cs and its backward, and a 4 s utterance's (1, 501) x 2 in f32 and bf16, on the route
-    _plan gives (the FMA kernel), against the plain version at the full length; the
-    kernel alone from a CUDA graph and the whole call, beside the plain version, cuDNN's
-    nn.LSTM with its input projection (F = 129) and the bound. -> {(name, label, dtype):
-    timing}."""
+    _plan gives (the cluster kernels padded to 384 for the request, the route the plan's
+    constants give training), against the plain version at the full length and, padded,
+    the FMA kernel forced; the kernel alone from CUDA graphs in turns with the FMA kernel and
+    the whole call (pads and slices included), beside the plain version, cuDNN's nn.LSTM with
+    its input projection (F = 129) and the bound of the unpadded work. -> {(name, label,
+    dtype): timing}."""
     card = card or card_line()
     log("== phase 16k: lstm_scan_bidir at H = 300 (DANet, ADANet, deep clustering) vs plain "
         f"on the card (CUDA graphs, CUDA events) [{card}]")
@@ -5401,7 +5444,8 @@ def danet_cli_and_eval(tmp, card):
 def phase_spec(card=None, tmp=None):
     """Phase 16 (16k first) -> {"launches": the main path's counts (the served utterances,
     the train steps, the DANet CLI's steps, validation and evaluation), every LSTM launch on
-    its planned route (H = 300: FMA), "kernels": 16k's timings, "numbers"}."""
+    its planned route (H = 300: the cluster kernels padded to 384 for requests, the routes
+    the plan's constants give training's B = 64), "kernels": 16k's timings, "numbers"}."""
     card = card or card_line()
     kernels = phase_spec_kernels(card)
     numbers = {"wavesplit": wavesplit_forwards(card)}
@@ -5415,7 +5459,8 @@ def phase_spec(card=None, tmp=None):
         numbers["spec_step"], launches = spec_steps(card)
         total = add_counts(total, launches)
         total = add_counts(total, danet_cli_and_eval(tmp, card))
-    for key in ("lstm_scan_bidir/fma", "lstm_scan_bidir_bwd/fma"):
+    for key in {**spec_routes("danet", 1, SPEC_SERVE_FRAMES, torch.float32),
+                **spec_routes("danet", SPEC_BATCH, SPEC_FRAMES, torch.float32, True)}:
         check(total.get(key, 0) > 0, f"phase 16 never launched {key}")
     log(f"  phase 16 main-path launches: {nonzero(total)}")
     return dict(launches=total, kernels=kernels, numbers=numbers)
@@ -5457,6 +5502,50 @@ SLICE_E_HOST_CORES = 2  # the host's cores left to the thread driving the card i
 # bottleneck sums one number over the whole map: its terms cancel to far below the rest,
 # and the CPU's own f32 step misses it by 6.6e-2 of its max|g| (PR 23's first chip run).
 SLICE_E_SMALL_GRAD = 1e-2
+# The train step against f64 holds the card to the f64 gradient of the same linear piece:
+# every ReLU of the card's step takes the f64 step's sign pattern, and the card's own ReLU
+# inputs may fall on the other side of 0 only where the f64 input lies nearer 0 than the
+# card's largest deviation from f64 over the rest of that call (its rounding). MMDenseNet's
+# parity batch has ReLU inputs within 1e-6 of 0 (of up to 2.64): their one-sided derivatives
+# moved its f32 step 1.0e-2 from f64 while no kernel of the step is off (PERF.md, PR 26;
+# scripts/probe_step_precision.py --convs --kinks).
+_PLAIN_RELU = torch.nn.functional.relu
+_BRANCHES = threading.local()
+
+
+def _branch_relu(x, inplace=False):
+    """torch.nn.functional.relu under relu_dispatch: plain, or as this thread's
+    relu_branches asks."""
+    state = getattr(_BRANCHES, "state", None)
+    if state is None:
+        return _PLAIN_RELU(x, inplace=inplace)
+    record, pattern = state
+    if record is not None:
+        record.append(x.detach().double().cpu())
+    return _PLAIN_RELU(x, inplace=inplace) if pattern is None else x * next(pattern).to(x)
+
+
+@contextlib.contextmanager
+def relu_dispatch():
+    """Within it torch.nn.functional.relu goes through _branch_relu (each thread plain unless
+    inside relu_branches)."""
+    torch.nn.functional.relu = _branch_relu
+    try:
+        yield
+    finally:
+        torch.nn.functional.relu = _PLAIN_RELU
+
+
+@contextlib.contextmanager
+def relu_branches(record=None, masks=None):
+    """Under relu_dispatch, in this thread: every ReLU's input recorded (f64, on the CPU)
+    into the list `record`, and, with `masks` (one a call, in order), computed as x * mask:
+    the linear piece the masks came from."""
+    _BRANCHES.state = (record, None if masks is None else iter(masks))
+    try:
+        yield
+    finally:
+        _BRANCHES.state = None
 # MMDenseLSTM's recurrences a stem (egs/musdb18/mm-dense-lstm/config/paper.yaml): (band,
 # pooling level, bins read, H a direction). Frames at level l: the chunk's halved l times.
 MMDL_RNNS = [("low", 3, 48, 64), ("low", 1, 190, 64), ("middle", 3, 81, 16),
@@ -5575,16 +5664,20 @@ def slice_e_parity_batch(kind, device):
 
 def slice_e_cpu_side(kind):
     """The CPU's half of a one-stem model's checks: its 1 s forward, and one train step in
-    f64 and in f32 (musdb_grads_of_step)."""
+    f64 (its ReLU inputs recorded) and in f32 on the f64 step's ReLU sign pattern
+    (musdb_grads_of_step, relu_branches)."""
     extra = slice_e_one_stem(kind)
     model, criterion = slice_e_model(kind, "cpu", *extra)
     with torch.inference_mode():
         forward = model.eval()(slice_e_batch(kind, 1, 1.0, "cpu")[0])
     batch = slice_e_parity_batch(kind, "cpu")
-    ref = musdb_grads_of_step(copy.deepcopy(model).double().train(), criterion,
-                              tuple(t.double() for t in batch))
-    cpu = musdb_grads_of_step(model.train(), criterion, batch)
-    return dict(forward=forward, ref=ref, cpu=cpu)
+    relu_inputs = []
+    with relu_branches(record=relu_inputs):
+        ref = musdb_grads_of_step(copy.deepcopy(model).double().train(), criterion,
+                                  tuple(t.double() for t in batch))
+    with relu_branches(masks=[(x > 0).double() for x in relu_inputs]):
+        cpu = musdb_grads_of_step(model.train(), criterion, batch)
+    return dict(forward=forward, ref=ref, cpu=cpu, relu_inputs=relu_inputs)
 
 
 def slice_e_card_vs_cpu(kind, cpu_side, card):
@@ -5631,16 +5724,33 @@ def slice_e_card_vs_cpu(kind, cpu_side, card):
 
 
 def slice_e_train_parity(kind, cpu_side):
-    """One train step of a one-stem model at recipe widths on the card (f32, TF32 off)
-    against the f64 CPU step beside the f32 CPU step of `cpu_side`
-    (hold_step_against_f64), B = 1 x SLICE_E_PARITY_SECONDS[kind]; its launches held to the
-    routes. -> the card step's launches."""
+    """One train step of a one-stem model at recipe widths on the card (f32, TF32 off) on
+    the f64 step's ReLU sign pattern against the f64 CPU step beside the f32 CPU step of
+    `cpu_side` (hold_step_against_f64), B = 1 x SLICE_E_PARITY_SECONDS[kind]; the card's own
+    ReLU inputs on the other side of 0 only within their call's rounding (relu_branches); its
+    launches held to the routes. -> the card step's launches."""
     card_model, card_criterion = slice_e_model(kind, "cuda", *slice_e_one_stem(kind))
     stems = len(card_model.base.sources) if hasattr(card_model.base, "sources") else 1
+    f64_inputs, card_inputs = cpu_side["relu_inputs"], []
     reset_counts()
-    card = musdb_grads_of_step(card_model, card_criterion, slice_e_parity_batch(kind, "cuda"))
+    with relu_branches(card_inputs, [(x > 0).double() for x in f64_inputs]):
+        card = musdb_grads_of_step(card_model, card_criterion,
+                                   slice_e_parity_batch(kind, "cuda"))
     torch.cuda.synchronize()
     grew = all_counts()
+    check(len(card_inputs) == len(f64_inputs), f"{kind}: {len(card_inputs)} ReLU calls on the "
+                                               f"card, {len(f64_inputs)} in f64")
+    flipped, worst = 0, 0.0
+    for ours, ref in zip(card_inputs, f64_inputs):
+        other = (ours > 0) != (ref > 0)
+        if other.any():
+            flipped += int(other.sum())
+            rounding = float((ours - ref)[~other].abs().max()) if (~other).any() else 0.0
+            worst = max(worst, float(ref[other].abs().max()) / max(rounding, 1e-300))
+    log(f"  {kind}: {len(card_inputs)} ReLU calls, {flipped} card inputs on the other side of 0 "
+        f"than in f64, the farthest {worst:.3f} x its call's largest |card - f64| elsewhere "
+        f"(limit 1)")
+    check(worst <= 1, f"{kind}: a card ReLU input flipped {worst} x its call's rounding from 0")
     check_dptnet_launches(grew, slice_e_routes(kind, 1, backward=True, stems=stems),
                           f"{kind}: a train step")
     hold_step_against_f64(f"{kind} (B=1 x {SLICE_E_PARITY_SECONDS[kind]:g} s, {stems} stem"
@@ -5843,6 +5953,7 @@ def phase_slice_e(card=None, tmp=None):
         threads = torch.get_num_threads()
         torch.set_num_threads(max(1, threads - SLICE_E_HOST_CORES))
         stack.callback(torch.set_num_threads, threads)
+        stack.enter_context(relu_dispatch())  # the parity steps' ReLU branches
         pool = stack.enter_context(ThreadPoolExecutor(1))
         cpu_sides = {kind: pool.submit(slice_e_cpu_side, kind) for kind in SLICE_E_CLI}
         tmp = tmp or stack.enter_context(tempfile.TemporaryDirectory())
@@ -6820,8 +6931,7 @@ def main(argv=None) -> int:
     log(f"  {card}")
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    resolve_device("cuda", stream=None)  # TF32 off, as every CLI sets it
     phase_build()
     if args.only:
         for phase in args.only.split(","):
@@ -6955,17 +7065,19 @@ def main(argv=None) -> int:
     # blobs through the hub): their decodes and recurrences, each held to the plain version,
     # join the served widths' rows and the f32 recurrence rows.
     total = {k: v + hub["launches"].get(k, 0) for k, v in total.items()}
+    # Phase 16 (DANet, ADANet, deep clustering: H = 300) runs the cluster kernels padded to
+    # 384 for requests and the wide ones at 384 for training; phase 16 held every launch to
+    # its route.
+    spec_launches = spec["launches"]
+    total = {k: v + spec_launches.get(k, 0) for k, v in total.items()}
     # The wsj0 models have H = 128 (tensor cores), musdb18's UMX B = 1 at H = 256 and 512
     # and B = 16 at H = 256 (the cluster kernels), DPTNet H = 256 (the wide and cluster
-    # kernels), GALRNet H = 128, LSTM-TasNet H = 500 (the cluster kernels at 512): no FMA
+    # kernels), GALRNet H = 128, LSTM-TasNet H = 500 (the cluster kernels at 512), DANet,
+    # ADANet and deep clustering H = 300 (the cluster and wide kernels at 384): no FMA
     # kernel. Causal LSTM-TasNet's train steps run the one-chain cluster backward.
     for name, n in total.items():
         if name.endswith("/fma"):
             check(n == 0, f"the main path launched the FMA kernel: {name} {n} times")
-    # Phase 16 (DANet, ADANet, deep clustering: H = 300) runs the FMA kernels, the route
-    # _plan gives 256 < H < 384; phase 16 held every launch to its route.
-    spec_launches = spec["launches"]
-    total = {k: v + spec_launches.get(k, 0) for k, v in total.items()}
     # Phase 17 (MMDenseLSTM's H = 4 recurrences: the FMA kernels; H = 64 and 16 the tensor
     # cores) held every launch to its route too.
     slice_e_launches = slice_e["launches"]
@@ -7176,6 +7288,8 @@ def main(argv=None) -> int:
     sources = {("fma", False): "csrc/lstm_scan.cu", ("fma", True): "csrc/lstm_scan_bwd.cu",
                ("cluster", False): "csrc/recurrence_cluster.cuh",
                ("cluster", True): "csrc/recurrence_cluster_bwd.cuh",
+               ("wide", False): "csrc/recurrence_wide.cuh",
+               ("wide", True): "csrc/recurrence_wide_bwd.cuh",
                ("mma", False): "csrc/recurrence_mma.cuh",
                ("tf32x3", False): "csrc/recurrence_tf32.cuh",
                ("tf32x3", True): "csrc/recurrence_bwd_tf32.cuh",
@@ -7235,11 +7349,14 @@ def main(argv=None) -> int:
         entry.update(path=timing["path"], shape=f"{kind} decoder shape (B=1 x 10 s)",
                      kernel_ms=timing["kernel_ms"])
         entries.append(entry)
-    # Phase 16's shapes (phase 16k's times): lstm_scan_bidir at H = 300 on the FMA kernel,
-    # the recipes' training shape (64, 101) x 2 with cs and its backward, and a 4 s
-    # utterance's (1, 501) x 2 in both dtypes: the whole call as `ms`, the kernel alone as
-    # `kernel_ms`, cuDNN's nn.LSTM (F = 129) as `library_ms`, with phase 16's launches of that
-    # kernel on that route (every shape and dtype of phase 16).
+    # Phase 16's shapes (phase 16k's times): lstm_scan_bidir at H = 300 on its planned route
+    # (the cluster kernels padded to 384 for a 4 s utterance's (1, 501) x 2 in both dtypes;
+    # the recipes' training shape (64, 101) x 2 with cs and its backward where the plan's
+    # constants put it): the whole call as `ms` (a padded one's pads and slices included),
+    # the kernel alone as `kernel_ms`, the FMA kernel forced beside it as `fma_ms` /
+    # `fma_kernel_ms`, cuDNN's nn.LSTM (F = 129) as `library_ms`, the bound of the unpadded
+    # work, with phase 16's launches of that kernel on that route (every shape and dtype of
+    # phase 16).
     for (name, label, dtype), timing in spec["kernels"].items():
         route = timing["path"]
         B, T, _ = next(shape for lab, shape, *_ in SPEC_SHAPES if lab == label)
@@ -7249,7 +7366,10 @@ def main(argv=None) -> int:
                              timing["library_ms"], dtype=dtype)
         entry.update(path=route, shape=f"DANet / ADANet / DC {label} B={B} T={T} H={SPEC_H}"
                      + (", with cs" if label == "train" else ""),
-                     **{k: timing[k] for k in ("kernel_ms", "kernel_bound_ms") if k in timing})
+                     **{k: timing[k] for k in ("kernel_ms", "fma_kernel_ms", "kernel_bound_ms",
+                                               "fma_max_abs_err", "vs_fma_max_abs_err", "tile",
+                                               "cluster", "padded_width")
+                        if k in timing})
         entries.append(entry)
     # Phase 17's shapes (phase 17k's times): lstm_scan_bidir at MMDenseLSTM's H = 64 and 16
     # (tf32x3 in f32, mma in bf16, the FMA kernel forced beside them as `fma_ms`) and 4 (the

@@ -64,6 +64,7 @@ import argparse
 import json
 import math
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -78,6 +79,7 @@ from .models import (
 from .models.fold import fold_for_serving
 from .models.streaming import ExactStreamingSeparator
 from .models.wrappers import SpectrogramSeparator
+from .utils.device import resolve_device
 
 SAMPLE_RATE = 8000
 SECONDS = 4.0  # audio per mixture
@@ -531,15 +533,8 @@ def main(argv=None) -> dict:
     args.dtype = args.dtype or ("float32" if musdb else "bfloat16")
     if musdb and (args.dtype != "float32" or args.streaming_hop):
         raise ValueError(f"--model {args.model} serves float32 offline only")
-    device = torch.device(args.device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"--device {args.device} asked for, but CUDA is not available")
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        device_name = card_line()
-    else:
-        device_name = "cpu"
+    device = resolve_device(args.device, sys.stderr)  # stdout holds the JSON line alone
+    device_name = card_line() if device.type == "cuda" else "cpu"
     model = build_model(args, device)
     run = bench_musdb if musdb else bench_streaming if args.streaming_hop else bench_offline
     result = run(args, model, device, device_name)

@@ -26,6 +26,7 @@ from ..models.base import load_model
 from ..models.fold import fold_for_serving
 from ..models.longform import separate_longform
 from ..models.streaming import ExactStreamingSeparator
+from ..utils.device import resolve_device
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -68,9 +69,7 @@ def stream_file(model, x: np.ndarray, hop_seconds: float, sr: int) -> np.ndarray
 
 def main(args=None):
     args = build_parser().parse_args(args)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {args.device} asked for, but CUDA is not available")
+    device = resolve_device(args.device)
 
     model = load_model(args.model_path, device=device)
     # Inference-time gLN affine fold, pad-free 'heads' mode, under the JAX

@@ -15,10 +15,12 @@ Flags: the JAX CLI's, plus `--device` (default `cuda`; a CUDA device that
 is not there is an error). A non-finite estimate raises, naming the track
 and the count (the JAX CLI retries and zero-fills).
 
-The models it evaluates have a stem list (`model.base.sources`): UMX, X-UMX, D3Net,
-MMDenseNet, MMDenseLSTM. An HRNet (one stem) or CUNet (conditioned) checkpoint has none,
-and the JAX CLI fails on it (`model.base.sources`, its :53); this one refuses it, saying
-so, and adds no evaluation JAX lacks.
+The models it evaluates are spectrogram models with a stem list (`model.base.sources`):
+UMX, X-UMX, D3Net, MMDenseNet, MMDenseLSTM. A waveform checkpoint (Conv-TasNet, MRX,
+Meta-TasNet under their adapters) is no spectrogram model, and an HRNet (one stem) or CUNet
+(conditioned) checkpoint has no stem list; the JAX CLI fails on each (`model.n_fft`,
+`model.base.sources`, its :53), and this one refuses each, saying why, and adds no
+evaluation JAX lacks.
 
     python -m dnn_based_source_separation_torch.cli.test_musdb18 \
         --musdb18_root ... --model_path best.pth [--out_dir out] [--device cuda]
@@ -36,9 +38,11 @@ from ..algorithm.frequency_mask import multichannel_wiener_filter
 from ..data import musdb18 as musdb
 from ..data.audio_io import write_wav
 from ..models.base import load_model
+from ..models.wrappers import SpectrogramMaskingWrapper
 from ..ops.stft import istft
 from ..train.tester import Evaluater
 from ..utils import set_seed
+from ..utils.device import resolve_device
 
 STAGES = ("forward", "stft", "wiener", "istft")
 
@@ -120,12 +124,15 @@ def run(args=None):
     """Evaluate every test track -> (the Evaluater's table, per-track stats: audio
     seconds, chunks, stage ms, separation and evaluation wall seconds, EM peak bytes)."""
     args = build_parser().parse_args(args)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {args.device} asked for, but CUDA is not available")
+    device = resolve_device(args.device)
     set_seed(args.seed)
 
     model = load_model(args.model_path, device=device).eval()
+    if not isinstance(model, SpectrogramMaskingWrapper):
+        raise ValueError(
+            f"{type(model).__name__} is not a spectrogram model: cli/test_musdb18.py evaluates "
+            f"spectrogram models only (a SpectrogramMaskingWrapper checkpoint), as the JAX "
+            f"package's CLI does, which cannot evaluate this one either")
     if not hasattr(model.base, "sources"):
         raise ValueError(
             f"{type(model.base).__name__} has no stem list (`sources`): cli/test_musdb18.py "

@@ -26,6 +26,7 @@ from ..criterion.sdr import sisdr
 from ..data import WaveTestDataset
 from ..ops.stft import istft, stft
 from ..ops.windows import build_window
+from ..utils.device import resolve_device
 
 MASKS = {
     "ibm": compute_ideal_binary_mask,
@@ -62,9 +63,7 @@ def oracle_sisdr(mixture: torch.Tensor, sources: torch.Tensor, make_mask, n_fft:
 
 def main(args=None):
     args = build_parser().parse_args(args)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {args.device} asked for, but CUDA is not available")
+    device = resolve_device(args.device)
     window = build_window(args.n_fft, "hann", device=device)
     make_mask = MASKS[args.mask]
     improvements = []

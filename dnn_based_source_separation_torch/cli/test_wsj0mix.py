@@ -26,6 +26,7 @@ from ..data import WaveTestDataset
 from ..models.base import load_model
 from ..train.tester import AttractorTester, Tester
 from ..utils import set_seed
+from ..utils.device import resolve_device
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -56,9 +57,7 @@ def build_parser():
 
 def main(args=None):
     args = build_parser().parse_args(args)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {args.device} asked for, but CUDA is not available")
+    device = resolve_device(args.device)
     set_seed(args.seed)
 
     model = load_model(args.model_path, device=device).to(DTYPES[args.dtype]).eval()

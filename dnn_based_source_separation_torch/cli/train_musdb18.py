@@ -67,6 +67,7 @@ from ..utils import set_seed
 from ..utils.config import (
     build_d3net_from_config, build_mmdenselstm_from_config, build_mmdensenet_from_config,
 )
+from ..utils.device import resolve_device
 
 WAVE_MODELS = ("conv-tasnet", "mrx", "meta-tasnet")
 BAND_MODELS = {"d3net": ("d3net_config", build_d3net_from_config),
@@ -242,9 +243,7 @@ def build_model_and_criterion(args, sources, device):
 
 def main(args=None):
     args = build_parser().parse_args(args)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {args.device} asked for, but CUDA is not available")
+    device = resolve_device(args.device)
     _refuse_unported(args)
     set_seed(args.seed)
     sources = args.sources.split(",")

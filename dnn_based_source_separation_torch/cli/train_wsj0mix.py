@@ -44,6 +44,7 @@ from ..data import (
 )
 from ..train import ORPITTrainer, Trainer, TrainerConfig, make_optimizer, make_warmup_optimizer
 from ..utils import set_seed
+from ..utils.device import resolve_device
 from .model_factory import build_wsj0mix_model
 
 
@@ -178,9 +179,7 @@ def _train_orpit(args, device, config):
 def main(args=None):
     args = build_parser().parse_args(args)
     args.causal = bool(args.causal)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {args.device} asked for, but CUDA is not available")
+    device = resolve_device(args.device)
     _refuse_unported(args)
     set_seed(args.seed)
     config = TrainerConfig(

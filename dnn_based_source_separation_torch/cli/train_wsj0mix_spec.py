@@ -28,6 +28,7 @@ from ..models import ADANet, DANet, DeepEmbedding
 from ..train import TrainerConfig, make_optimizer
 from ..train.attractor import AnchoredAttractorTrainer, AttractorTrainer, EmbeddingTrainer
 from ..utils import set_seed
+from ..utils.device import resolve_device
 
 
 def build_parser():
@@ -100,9 +101,7 @@ def build_spec_model(args, n_bins: int, device) -> torch.nn.Module:
 
 def main(args=None):
     args = build_parser().parse_args(args)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {args.device} asked for, but CUDA is not available")
+    device = resolve_device(args.device)
     if args.n_devices is not None:
         raise NotImplementedError("--n_devices (data parallelism, slice H) is not ported yet")
     set_seed(args.seed)

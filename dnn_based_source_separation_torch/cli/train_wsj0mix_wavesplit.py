@@ -28,6 +28,7 @@ from ..models.wavesplit import WaveSplit
 from ..train import TrainerConfig, make_optimizer
 from ..train.wavesplit import WaveSplitTrainer
 from ..utils import set_seed
+from ..utils.device import resolve_device
 
 
 def build_parser():
@@ -76,9 +77,7 @@ def build_parser():
 
 def main(args=None):
     args = build_parser().parse_args(args)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {args.device} asked for, but CUDA is not available")
+    device = resolve_device(args.device)
     if args.n_devices is not None:
         raise NotImplementedError("--n_devices (data parallelism, slice H) is not ported yet")
     set_seed(args.seed)

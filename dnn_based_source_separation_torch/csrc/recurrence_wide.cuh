@@ -1,5 +1,5 @@
-// Tensor-core forward of the LSTM recurrences at H = 256 for many sequences (Hopper, sm_90a):
-// an M-row tile of independent sequences of one chain held by a thread-block cluster.
+// Tensor-core forward of the LSTM recurrences at H = 256 and 384 for many sequences (Hopper,
+// sm_90a): an M-row tile of independent sequences of one chain held by a thread-block cluster.
 //
 // Included by csrc/lstm_scan.cu only, after csrc/recurrence_mma.cuh,
 // csrc/recurrence_tf32.cuh and csrc/recurrence_cluster.cuh (whose fragment, cluster and
@@ -62,6 +62,12 @@
 //     (as in csrc/recurrence_tf32.cuh), but at bf16's 64-row tiles, where the three
 //     were within 2%: C - 1 copies a step in place of M H/C / 2 remote stores to each
 //     rank;
+//   * the hidden size is a template parameter. H = 256 serves DPTNet; H = 384 serves
+//     DANet's, ADANet's and deep clustering's H = 300 training batches, zero-padded by the
+//     caller (ops/lstm_scan.py:cluster_width; exact). At 384 a rank's W slice is 144 KB at
+//     f32 C = 16 and bf16 C = 8, so f32 runs M = 16 (3 warps over 24 units a rank) and bf16
+//     M = 16 or 32 (6 warps over 48 units, 1 or 2 over rows); H / C stays a multiple of the
+//     k-step, so each k-step's columns lie in one rank's block;
 //   * xw streams straight into registers one step ahead: each thread loads the pairs of
 //     its C fragment positions of step t + 1 while the tensor cores run step t. A
 //     shared-memory ring does not fit beside W at M = 64. Rows past B read zeros, are
@@ -81,7 +87,6 @@
 
 namespace wide_scan {
 
-constexpr int kHidden = 256;
 constexpr int kGates = 4;
 constexpr int kMaxWarps = 16;          // 512 threads, 128 registers each
 constexpr size_t kMaxShared = 232448;  // a Hopper block's dynamic shared-memory ceiling
@@ -98,9 +103,9 @@ struct Chains {
 // tiles, MTW a warp (NWM warps over rows). bf16: one tile a warp, two where one would
 // pass kMaxWarps warps; f32: two where the tile has two, so that each split of a B
 // fragment (hi and lo of W) serves both.
-template <typename T, int M, int C>
+template <typename T, int H, int M, int C>
 struct Geometry {
-  static constexpr int HU = kHidden / C;
+  static constexpr int HU = H / C;
   static constexpr int NWU = HU / 8;
   static constexpr int MTW = NWU * (M / 16) > kMaxWarps  ? NWU * (M / 16) / kMaxWarps
                              : sizeof(T) == 4 && M >= 32 ? 2
@@ -112,22 +117,22 @@ struct Geometry {
 
 // Shared memory: two mbarriers (16 bytes), the W slice (H x 4 H/C values of `elem`
 // bytes) and h [2][C][M][H/C + 16 / elem]; at least kOwnSm.
-__host__ __device__ constexpr size_t w_bytes(int C, size_t elem) {
-  return (size_t)kHidden * kGates * (kHidden / C) * elem;
+__host__ __device__ constexpr size_t w_bytes(int H, int C, size_t elem) {
+  return (size_t)H * kGates * (H / C) * elem;
 }
-__host__ __device__ constexpr size_t smem_need(int M, int C, size_t elem) {
-  return 16 + w_bytes(C, elem) + 2 * (size_t)M * (kHidden * elem + 16 * (size_t)C);
+__host__ __device__ constexpr size_t smem_need(int H, int M, int C, size_t elem) {
+  return 16 + w_bytes(H, C, elem) + 2 * (size_t)M * (H * elem + 16 * (size_t)C);
 }
-__host__ __device__ constexpr size_t smem_bytes(int M, int C, size_t elem) {
-  return smem_need(M, C, elem) > kOwnSm ? smem_need(M, C, elem) : kOwnSm;
+__host__ __device__ constexpr size_t smem_bytes(int H, int M, int C, size_t elem) {
+  return smem_need(H, M, C, elem) > kOwnSm ? smem_need(H, M, C, elem) : kOwnSm;
 }
 
-// The cluster sizes of each dtype (bf16: 4 or 8; f32: 8 or 16, 16 a non-portable
-// size), M = 16, 32 or 64, and the shared memory within kMaxShared.
+// H = 256 or 384, the cluster sizes of each dtype (bf16: 4 or 8; f32: 8 or 16, 16 a
+// non-portable size), M = 16, 32 or 64, and the shared memory within kMaxShared.
 inline bool shape_ok(int dtype, int H, int M, int C) {
   const bool sizes = dtype == 1 ? (C == 4 || C == 8) : dtype == 0 && (C == 8 || C == 16);
-  return H == kHidden && sizes && (M == 16 || M == 32 || M == 64) &&
-         smem_need(M, C, dtype == 1 ? 2 : 4) <= kMaxShared;
+  return (H == 256 || H == 384) && sizes && (M == 16 || M == 32 || M == 64) &&
+         smem_need(H, M, C, dtype == 1 ? 2 : 4) <= kMaxShared;
 }
 
 // A pair of adjacent values of the dtype in registers (bf16: one 32-bit word, the lower
@@ -176,16 +181,17 @@ __device__ __forceinline__ void copy_bulk(unsigned dst, unsigned src, unsigned b
 
 // Fragment position j of m16 tile mt of a warp is row 16 (wm MTW + mt) + gid + 8 (j >> 1)
 // of the tile and unit r H/C + 8 wu + 2 tig + (j & 1).
-template <typename T, int M, int C>
-__global__ void __launch_bounds__(Geometry<T, M, C>::kThreads, 1)
+template <typename T, int H, int M, int C>
+__global__ void __launch_bounds__(Geometry<T, H, M, C>::kThreads, 1)
 scan_wide_kernel(Chains chains, int B, int T_len) {
-  using G = Geometry<T, M, C>;
+  using G = Geometry<T, H, M, C>;
   using P = Pair<T>;
   using PT = typename P::type;
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
-  constexpr int H = kHidden, HU = G::HU, NWU = G::NWU, MTW = G::MTW;
+  constexpr int HU = G::HU, NWU = G::NWU, MTW = G::MTW;
   constexpr int KK = kBf16 ? 16 : 8;          // k of an mma
   constexpr int KS = H / KK;                  // k-steps of the product
+  static_assert(HU % KK == 0 && HU % 8 == 0 && G::kWarps <= kMaxWarps, "tile");
   constexpr int LDB = HU + 16 / (int)sizeof(T);  // a rank block's row, padded by 16 bytes
   constexpr int BLOCK = M * LDB;                 // a rank's block of the h tile
   constexpr long long G4 = (long long)kGates * H;
@@ -203,7 +209,7 @@ scan_wide_kernel(Chains chains, int B, int T_len) {
   // A lane's B fragment of one gate and k-step: two words (bf16 pairs or f32 values).
   using FT = typename std::conditional<kBf16, uint2, float2>::type;
   FT* wsm = reinterpret_cast<FT*>(smem_wide + 1);  // [KS][NWU][4 q][32 lanes]
-  T* htile = reinterpret_cast<T*>(reinterpret_cast<char*>(wsm) + w_bytes(C, sizeof(T)));  // [2][C][M][LDB]
+  T* htile = reinterpret_cast<T*>(reinterpret_cast<char*>(wsm) + w_bytes(H, C, sizeof(T)));  // [2][C][M][LDB]
 
   const unsigned rank = tf32_scan::cluster_rank();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -400,85 +406,92 @@ scan_wide_kernel(Chains chains, int B, int T_len) {
 
 // static: the flag is this library's, even beside another build of this header in the
 // process (a template's local static is otherwise one object process-wide).
-template <typename T, int M, int C>
+template <typename T, int H, int M, int C>
 static cudaError_t prepare() {
   static bool done = false;  // per instantiation
-  return cluster_scan::allow(scan_wide_kernel<T, M, C>, done);
+  return cluster_scan::allow(scan_wide_kernel<T, H, M, C>, done);
 }
 
-template <typename T, int M, int C>
+template <typename T, int H, int M, int C>
 inline cudaLaunchConfig_t config_of(cudaLaunchAttribute* cluster, int tiles, int n_chains,
                                     cudaStream_t stream) {
   return cluster_scan::cluster_config(cluster, tiles, n_chains, C,
-                                      (unsigned)Geometry<T, M, C>::kThreads,
-                                      smem_bytes(M, C, sizeof(T)), stream);
+                                      (unsigned)Geometry<T, H, M, C>::kThreads,
+                                      smem_bytes(H, M, C, sizeof(T)), stream);
 }
 
-template <typename T, int M, int C>
+template <typename T, int H, int M, int C>
 int launch_k(const Chains& chains, int n_chains, int B, int T_len, cudaStream_t stream) {
-  if constexpr (smem_need(M, C, sizeof(T)) > kMaxShared) {
+  if constexpr (smem_need(H, M, C, sizeof(T)) > kMaxShared) {
     return (int)cudaErrorInvalidValue;
   } else {
-    cudaError_t err = prepare<T, M, C>();
+    cudaError_t err = prepare<T, H, M, C>();
     if (err != cudaSuccess) return (int)err;
     cudaLaunchAttribute cluster;
     const cudaLaunchConfig_t config =
-        config_of<T, M, C>(&cluster, (B + M - 1) / M, n_chains, stream);
-    err = cudaLaunchKernelEx(&config, scan_wide_kernel<T, M, C>, chains, B, T_len);
+        config_of<T, H, M, C>(&cluster, (B + M - 1) / M, n_chains, stream);
+    err = cudaLaunchKernelEx(&config, scan_wide_kernel<T, H, M, C>, chains, B, T_len);
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
   }
 }
 
-template <typename T, int C>
+template <typename T, int H, int C>
 int launch_c(const Chains& chains, int n_chains, int B, int T_len, int M, cudaStream_t stream) {
-  if (M == 16) return launch_k<T, 16, C>(chains, n_chains, B, T_len, stream);
-  if (M == 32) return launch_k<T, 32, C>(chains, n_chains, B, T_len, stream);
-  if (M == 64) return launch_k<T, 64, C>(chains, n_chains, B, T_len, stream);
+  if (M == 16) return launch_k<T, H, 16, C>(chains, n_chains, B, T_len, stream);
+  if (M == 32) return launch_k<T, H, 32, C>(chains, n_chains, B, T_len, stream);
+  if (M == 64) return launch_k<T, H, 64, C>(chains, n_chains, B, T_len, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 // The "wide" path: dtype 0 float32 on clusters of C = 8 or 16 blocks, 1 bfloat16 on 4 or
-// 8; tiles of M rows.
+// 8; tiles of M rows; H = 256, or 384 on the clusters whose W slice fits (f32 16, bf16 8).
 inline int launch(const Chains& chains, int n_chains, int dtype, int B, int T_len, int H, int M,
                   int C, cudaStream_t stream) {
   if (B < 1 || T_len < 1 || !shape_ok(dtype, H, M, C)) return (int)cudaErrorInvalidValue;
+  if (H == 384)
+    return dtype == 1 ? launch_c<__nv_bfloat16, 384, 8>(chains, n_chains, B, T_len, M, stream)
+                      : launch_c<float, 384, 16>(chains, n_chains, B, T_len, M, stream);
   if (dtype == 1)
-    return C == 4 ? launch_c<__nv_bfloat16, 4>(chains, n_chains, B, T_len, M, stream)
-                  : launch_c<__nv_bfloat16, 8>(chains, n_chains, B, T_len, M, stream);
-  return C == 8 ? launch_c<float, 8>(chains, n_chains, B, T_len, M, stream)
-                : launch_c<float, 16>(chains, n_chains, B, T_len, M, stream);
+    return C == 4 ? launch_c<__nv_bfloat16, 256, 4>(chains, n_chains, B, T_len, M, stream)
+                  : launch_c<__nv_bfloat16, 256, 8>(chains, n_chains, B, T_len, M, stream);
+  return C == 8 ? launch_c<float, 256, 8>(chains, n_chains, B, T_len, M, stream)
+                : launch_c<float, 256, 16>(chains, n_chains, B, T_len, M, stream);
 }
 
-// How many clusters of C blocks of the kernel at this (M, C, dtype) the card holds at
+// How many clusters of C blocks of the kernel at this (H, M, C, dtype) the card holds at
 // once (cudaOccupancyMaxActiveClusters), each block on an SM of its own; 0 where no GPC
 // has C free SMs.
-template <typename T, int M, int C>
+template <typename T, int H, int M, int C>
 int max_clusters_k(int* clusters) {
-  if constexpr (smem_need(M, C, sizeof(T)) > kMaxShared) {
+  if constexpr (smem_need(H, M, C, sizeof(T)) > kMaxShared) {
     return (int)cudaErrorInvalidValue;
   } else {
-    cudaError_t err = prepare<T, M, C>();
+    cudaError_t err = prepare<T, H, M, C>();
     if (err != cudaSuccess) return (int)err;
     cudaLaunchAttribute cluster;
-    const cudaLaunchConfig_t config = config_of<T, M, C>(&cluster, 1, 1, nullptr);
-    return (int)cudaOccupancyMaxActiveClusters(clusters, scan_wide_kernel<T, M, C>, &config);
+    const cudaLaunchConfig_t config = config_of<T, H, M, C>(&cluster, 1, 1, nullptr);
+    return (int)cudaOccupancyMaxActiveClusters(clusters, scan_wide_kernel<T, H, M, C>, &config);
   }
 }
 
-template <typename T, int C>
+template <typename T, int H, int C>
 int max_clusters_c(int M, int* clusters) {
-  if (M == 16) return max_clusters_k<T, 16, C>(clusters);
-  if (M == 32) return max_clusters_k<T, 32, C>(clusters);
-  return max_clusters_k<T, 64, C>(clusters);
+  if (M == 16) return max_clusters_k<T, H, 16, C>(clusters);
+  if (M == 32) return max_clusters_k<T, H, 32, C>(clusters);
+  return max_clusters_k<T, H, 64, C>(clusters);
 }
 
 inline int max_clusters(int H, int M, int C, int dtype, int* clusters) {
   if (!shape_ok(dtype, H, M, C)) return (int)cudaErrorInvalidValue;
+  if (H == 384)
+    return dtype == 1 ? max_clusters_c<__nv_bfloat16, 384, 8>(M, clusters)
+                      : max_clusters_c<float, 384, 16>(M, clusters);
   if (dtype == 1)
-    return C == 4 ? max_clusters_c<__nv_bfloat16, 4>(M, clusters)
-                  : max_clusters_c<__nv_bfloat16, 8>(M, clusters);
-  return C == 8 ? max_clusters_c<float, 8>(M, clusters) : max_clusters_c<float, 16>(M, clusters);
+    return C == 4 ? max_clusters_c<__nv_bfloat16, 256, 4>(M, clusters)
+                  : max_clusters_c<__nv_bfloat16, 256, 8>(M, clusters);
+  return C == 8 ? max_clusters_c<float, 256, 8>(M, clusters)
+                : max_clusters_c<float, 256, 16>(M, clusters);
 }
 
 }  // namespace wide_scan

@@ -1,5 +1,5 @@
-// Tensor-core reverse recurrence of the LSTM at H = 256 for many sequences (Hopper, sm_90a):
-// an M-row tile of independent sequences of one chain held by a thread-block cluster.
+// Tensor-core reverse recurrence of the LSTM at H = 256 and 384 for many sequences (Hopper,
+// sm_90a): an M-row tile of independent sequences of one chain held by a thread-block cluster.
 //
 // Included by csrc/lstm_scan_bwd.cu only, after csrc/recurrence_cluster_bwd.cuh (whose
 // Chains it takes), and launched there as path 5, "wide" (ops/lstm_scan.py:_plan_bwd picks
@@ -45,7 +45,8 @@
 //     all H units; rank p needs the sum over the ranks of the columns of its units. da
 //     goes from the cell's registers into a padded M x 4H/C f32 tile, which ldmatrix reads
 //     back as A fragments (rows padded by 16 bytes: distinct banks). The warps split the
-//     H output units, 32 a warp (four n8 tiles), each over all M rows;
+//     H output units, H / 8 a warp (H / 64 n8 tiles: four at 256, six at 384), each over all M
+//     rows;
 //   * the partial sums go into a double-buffered receive tile [2][C][M][H/C + 8] f32, block
 //     r of a rank's buffer holding what rank r summed for its units (rows padded by 32
 //     bytes, so a warp's 8-byte fragment stores hit distinct banks). The block of the
@@ -67,7 +68,13 @@
 //     16 rows x 8 units, a thread the m16n8 C-fragment positions of that tile. Rows past B
 //     read zeros, which keep every derivative of the row zero, and are never stored.
 //   * kProduct = false compiles the product out (the serial floor: the cell, the
-//     exchange and the sums of every step), as the cluster kernels do.
+//     exchange and the sums of every step), as the cluster kernels do;
+//   * the hidden size is a template parameter, as in the forward: H = 256 (DPTNet) and
+//     H = 384 (H = 300 zero-padded by the caller). At 384 the W slice is 144 KB at f32
+//     C = 16 and bf16 C = 8, which leaves M = 16: f32 3 cell tiles of 16 rows x 8 units
+//     (24 units a rank) and 6 n8 output tiles a warp, bf16 6 cell tiles (48 units). A
+//     receive row of 24 + 8 floats is 128 bytes in f32, so there a warp's fragment stores
+//     to its eight rows share banks (more padding does not fit beside W).
 
 #pragma once
 
@@ -86,9 +93,8 @@ namespace wide_bwd {
 
 using Chains = cluster_bwd::Chains;
 
-constexpr int kHidden = 256;
 constexpr int kGates = 4;
-constexpr int kWarps = 8;  // 32 output units a warp
+constexpr int kWarps = 8;  // H / 8 output units a warp
 constexpr int kThreads = 32 * kWarps;
 constexpr int kPadDa = 4;     // floats after a row of the da tile (ldmatrix: distinct banks)
 constexpr int kPadBlock = 8;  // floats after a row of a received block (8-byte stores)
@@ -97,31 +103,31 @@ constexpr size_t kOwnSm = 120 * 1024;  // no two blocks on one SM
 
 // Shared memory: two mbarriers (16 bytes), the W slice (H x 4 H/C values of `elem` bytes),
 // the da tile [M][4 H/C + kPadDa] and the receive tile [2][C][M][H/C + kPadBlock], f32.
-__host__ __device__ constexpr size_t w_bytes(int C, size_t elem) {
-  return (size_t)kHidden * kGates * (kHidden / C) * elem;
+__host__ __device__ constexpr size_t w_bytes(int H, int C, size_t elem) {
+  return (size_t)H * kGates * (H / C) * elem;
 }
-__host__ __device__ constexpr size_t block_floats(int M, int C) {
-  return (size_t)M * (kHidden / C + kPadBlock);
+__host__ __device__ constexpr size_t block_floats(int H, int M, int C) {
+  return (size_t)M * (H / C + kPadBlock);
 }
-__host__ __device__ constexpr size_t smem_need(int M, int C, size_t elem) {
-  return 16 + w_bytes(C, elem) + 4 * (size_t)M * (kGates * (kHidden / C) + kPadDa) +
-         4 * 2 * (size_t)C * block_floats(M, C);
+__host__ __device__ constexpr size_t smem_need(int H, int M, int C, size_t elem) {
+  return 16 + w_bytes(H, C, elem) + 4 * (size_t)M * (kGates * (H / C) + kPadDa) +
+         4 * 2 * (size_t)C * block_floats(H, M, C);
 }
-__host__ __device__ constexpr size_t smem_bytes(int M, int C, size_t elem) {
-  return smem_need(M, C, elem) > kOwnSm ? smem_need(M, C, elem) : kOwnSm;
+__host__ __device__ constexpr size_t smem_bytes(int H, int M, int C, size_t elem) {
+  return smem_need(H, M, C, elem) > kOwnSm ? smem_need(H, M, C, elem) : kOwnSm;
 }
 // The cell's tiles of 16 rows x 8 units, one a warp, and the shared memory within
 // kMaxShared.
-__host__ __device__ constexpr bool fits(int M, int C, size_t elem) {
-  return M / 16 * (kHidden / C / 8) <= kWarps && smem_need(M, C, elem) <= kMaxShared;
+__host__ __device__ constexpr bool fits(int H, int M, int C, size_t elem) {
+  return M / 16 * (H / C / 8) <= kWarps && smem_need(H, M, C, elem) <= kMaxShared;
 }
 
-// The cluster sizes of each dtype (bf16: 4 or 8; f32: 8 or 16, 16 a non-portable size),
-// M = 16, 32 or 64, and what fits.
+// H = 256 or 384, the cluster sizes of each dtype (bf16: 4 or 8; f32: 8 or 16, 16 a
+// non-portable size), M = 16, 32 or 64, and what fits.
 inline bool shape_ok(int dtype, int H, int M, int C) {
   const bool sizes = dtype == 1 ? (C == 4 || C == 8) : dtype == 0 && (C == 8 || C == 16);
-  return H == kHidden && sizes && (M == 16 || M == 32 || M == 64) &&
-         fits(M, C, dtype == 1 ? 2 : 4);
+  return (H == 256 || H == 384) && sizes && (M == 16 || M == 32 || M == 64) &&
+         fits(H, M, C, dtype == 1 ? 2 : 4);
 }
 
 __device__ __forceinline__ float2 ldg_pair(const float* p) {
@@ -145,11 +151,11 @@ struct StepIn {
 // r H/C + 8 cu + 2 tig, + 1 of cell tile (cm, cu) = its warp; its product outputs are the
 // m16n8 C fragments of every m16 tile and of n8 tiles NT warp .. NT warp + NT - 1 of the
 // H units.
-template <typename T, int M, int C, bool kProduct>
+template <typename T, int H, int M, int C, bool kProduct>
 __global__ void __launch_bounds__(kThreads, 1)
 bwd_wide_kernel(Chains chains, int B, int T_len) {
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
-  constexpr int H = kHidden, HU = H / C;
+  constexpr int HU = H / C;
   constexpr int K = kGates * HU;       // this rank's gate columns: the product's K
   constexpr int KS = K / 8;            // its k-steps
   constexpr int MT = M / 16;           // m16 tiles
@@ -177,7 +183,7 @@ bwd_wide_kernel(Chains chains, int B, int T_len) {
   // A lane's B fragment of one n8 tile and k-step: two f32 values, or two bf16 in a word.
   using FT = typename std::conditional<kBf16, unsigned, float2>::type;
   FT* wsm = reinterpret_cast<FT*>(smem_wide_bwd + 1);  // [KS][NTILES][32 lanes]
-  float* dtile = reinterpret_cast<float*>(reinterpret_cast<char*>(wsm) + w_bytes(C, sizeof(T)));
+  float* dtile = reinterpret_cast<float*>(reinterpret_cast<char*>(wsm) + w_bytes(H, C, sizeof(T)));
   float* recv = dtile + M * LDA;  // [2][C][M][LDR]
 
   const unsigned rank = tf32_scan::cluster_rank();
@@ -387,92 +393,102 @@ bwd_wide_kernel(Chains chains, int B, int T_len) {
 
 // static: the flag is this library's, even beside another build of this header in the
 // process (a template's local static is otherwise one object process-wide).
-template <typename T, int M, int C, bool kProduct>
+template <typename T, int H, int M, int C, bool kProduct>
 static cudaError_t prepare() {
   static bool done = false;  // per instantiation
-  return cluster_scan::allow(bwd_wide_kernel<T, M, C, kProduct>, done);
+  return cluster_scan::allow(bwd_wide_kernel<T, H, M, C, kProduct>, done);
 }
 
-template <typename T, int M, int C>
+template <typename T, int H, int M, int C>
 inline cudaLaunchConfig_t config_of(cudaLaunchAttribute* cluster, int tiles, int n_chains,
                                     cudaStream_t stream) {
   return cluster_scan::cluster_config(cluster, tiles, n_chains, C, (unsigned)kThreads,
-                                      smem_bytes(M, C, sizeof(T)), stream);
+                                      smem_bytes(H, M, C, sizeof(T)), stream);
 }
 
-template <typename T, int M, int C, bool kProduct>
+template <typename T, int H, int M, int C, bool kProduct>
 int launch_k(const Chains& chains, int n_chains, int B, int T_len, cudaStream_t stream) {
-  if constexpr (!fits(M, C, sizeof(T))) {
+  if constexpr (!fits(H, M, C, sizeof(T))) {
     return (int)cudaErrorInvalidValue;
   } else {
-    cudaError_t err = prepare<T, M, C, kProduct>();
+    cudaError_t err = prepare<T, H, M, C, kProduct>();
     if (err != cudaSuccess) return (int)err;
     cudaLaunchAttribute cluster;
     const cudaLaunchConfig_t config =
-        config_of<T, M, C>(&cluster, (B + M - 1) / M, n_chains, stream);
-    err = cudaLaunchKernelEx(&config, bwd_wide_kernel<T, M, C, kProduct>, chains, B, T_len);
+        config_of<T, H, M, C>(&cluster, (B + M - 1) / M, n_chains, stream);
+    err = cudaLaunchKernelEx(&config, bwd_wide_kernel<T, H, M, C, kProduct>, chains, B, T_len);
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
   }
 }
 
-template <typename T, int C, bool kProduct>
+template <typename T, int H, int C, bool kProduct>
 int launch_c(const Chains& chains, int n_chains, int B, int T_len, int M, cudaStream_t stream) {
-  if (M == 16) return launch_k<T, 16, C, kProduct>(chains, n_chains, B, T_len, stream);
-  if (M == 32) return launch_k<T, 32, C, kProduct>(chains, n_chains, B, T_len, stream);
-  if (M == 64) return launch_k<T, 64, C, kProduct>(chains, n_chains, B, T_len, stream);
+  if (M == 16) return launch_k<T, H, 16, C, kProduct>(chains, n_chains, B, T_len, stream);
+  if (M == 32) return launch_k<T, H, 32, C, kProduct>(chains, n_chains, B, T_len, stream);
+  if (M == 64) return launch_k<T, H, 64, C, kProduct>(chains, n_chains, B, T_len, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 template <bool kProduct>
-int launch_p(const Chains& chains, int n_chains, int dtype, int B, int T_len, int M, int C,
-             cudaStream_t stream) {
+int launch_p(const Chains& chains, int n_chains, int dtype, int B, int T_len, int H, int M,
+             int C, cudaStream_t stream) {
+  if (H == 384)
+    return dtype == 1
+               ? launch_c<__nv_bfloat16, 384, 8, kProduct>(chains, n_chains, B, T_len, M, stream)
+               : launch_c<float, 384, 16, kProduct>(chains, n_chains, B, T_len, M, stream);
   if (dtype == 1)
-    return C == 4 ? launch_c<__nv_bfloat16, 4, kProduct>(chains, n_chains, B, T_len, M, stream)
-                  : launch_c<__nv_bfloat16, 8, kProduct>(chains, n_chains, B, T_len, M, stream);
-  return C == 8 ? launch_c<float, 8, kProduct>(chains, n_chains, B, T_len, M, stream)
-                : launch_c<float, 16, kProduct>(chains, n_chains, B, T_len, M, stream);
+    return C == 4
+               ? launch_c<__nv_bfloat16, 256, 4, kProduct>(chains, n_chains, B, T_len, M, stream)
+               : launch_c<__nv_bfloat16, 256, 8, kProduct>(chains, n_chains, B, T_len, M, stream);
+  return C == 8 ? launch_c<float, 256, 8, kProduct>(chains, n_chains, B, T_len, M, stream)
+                : launch_c<float, 256, 16, kProduct>(chains, n_chains, B, T_len, M, stream);
 }
 
 // The "wide" backward: dtype 0 float32 on clusters of C = 8 or 16 blocks, 1 bfloat16 on 4
-// or 8; tiles of M rows. `product` false launches the serial floor.
+// or 8; tiles of M rows; H = 256, or 384 on the clusters whose W slice fits (f32 16, bf16
+// 8). `product` false launches the serial floor.
 inline int launch(const Chains& chains, int n_chains, int dtype, int B, int T_len, int H, int M,
                   int C, bool product, cudaStream_t stream) {
   if (B < 1 || T_len < 1 || !shape_ok(dtype, H, M, C)) return (int)cudaErrorInvalidValue;
-  return product ? launch_p<true>(chains, n_chains, dtype, B, T_len, M, C, stream)
-                 : launch_p<false>(chains, n_chains, dtype, B, T_len, M, C, stream);
+  return product ? launch_p<true>(chains, n_chains, dtype, B, T_len, H, M, C, stream)
+                 : launch_p<false>(chains, n_chains, dtype, B, T_len, H, M, C, stream);
 }
 
-// How many clusters of C blocks of the kernel at this (M, C, dtype) the card holds at
+// How many clusters of C blocks of the kernel at this (H, M, C, dtype) the card holds at
 // once (cudaOccupancyMaxActiveClusters), each block on an SM of its own; 0 where no GPC
 // has C free SMs.
-template <typename T, int M, int C>
+template <typename T, int H, int M, int C>
 int max_clusters_k(int* clusters) {
-  if constexpr (!fits(M, C, sizeof(T))) {
+  if constexpr (!fits(H, M, C, sizeof(T))) {
     return (int)cudaErrorInvalidValue;
   } else {
-    cudaError_t err = prepare<T, M, C, true>();
+    cudaError_t err = prepare<T, H, M, C, true>();
     if (err != cudaSuccess) return (int)err;
     cudaLaunchAttribute cluster;
-    const cudaLaunchConfig_t config = config_of<T, M, C>(&cluster, 1, 1, nullptr);
-    return (int)cudaOccupancyMaxActiveClusters(clusters, bwd_wide_kernel<T, M, C, true>,
+    const cudaLaunchConfig_t config = config_of<T, H, M, C>(&cluster, 1, 1, nullptr);
+    return (int)cudaOccupancyMaxActiveClusters(clusters, bwd_wide_kernel<T, H, M, C, true>,
                                                &config);
   }
 }
 
-template <typename T, int C>
+template <typename T, int H, int C>
 int max_clusters_c(int M, int* clusters) {
-  if (M == 16) return max_clusters_k<T, 16, C>(clusters);
-  if (M == 32) return max_clusters_k<T, 32, C>(clusters);
-  return max_clusters_k<T, 64, C>(clusters);
+  if (M == 16) return max_clusters_k<T, H, 16, C>(clusters);
+  if (M == 32) return max_clusters_k<T, H, 32, C>(clusters);
+  return max_clusters_k<T, H, 64, C>(clusters);
 }
 
 inline int max_clusters(int H, int M, int C, int dtype, int* clusters) {
   if (!shape_ok(dtype, H, M, C)) return (int)cudaErrorInvalidValue;
+  if (H == 384)
+    return dtype == 1 ? max_clusters_c<__nv_bfloat16, 384, 8>(M, clusters)
+                      : max_clusters_c<float, 384, 16>(M, clusters);
   if (dtype == 1)
-    return C == 4 ? max_clusters_c<__nv_bfloat16, 4>(M, clusters)
-                  : max_clusters_c<__nv_bfloat16, 8>(M, clusters);
-  return C == 8 ? max_clusters_c<float, 8>(M, clusters) : max_clusters_c<float, 16>(M, clusters);
+    return C == 4 ? max_clusters_c<__nv_bfloat16, 256, 4>(M, clusters)
+                  : max_clusters_c<__nv_bfloat16, 256, 8>(M, clusters);
+  return C == 8 ? max_clusters_c<float, 256, 8>(M, clusters)
+                : max_clusters_c<float, 256, 16>(M, clusters);
 }
 
 }  // namespace wide_bwd

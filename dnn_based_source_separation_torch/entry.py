@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from .models import ConvTasNet
+from .utils.device import resolve_device
 
 SAMPLE_RATE = 8000
 
@@ -42,9 +43,7 @@ def flagship(tiny: bool = False, *, device, generator: torch.Generator | None = 
 
 def entry(device="cuda"):
     """(forward, (model, mixture)): the flagship forward on one 4 s mixture of zeros."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device} asked for, but CUDA is not available")
+    device = resolve_device(device, stream=None)
     model = flagship(device=device, generator=torch.Generator().manual_seed(0))
     mixture = torch.zeros((1, 1, 4 * SAMPLE_RATE), device=device)
 

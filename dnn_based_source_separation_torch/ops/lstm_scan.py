@@ -16,14 +16,16 @@ multiple of 16 up to 128 the tensor-core kernels, `"mma"`
 of 2 or 4 blocks per tile) for float32; for H = 256 and many sequences
 (DPTNet's 5112 and 800) `"wide"` (`csrc/recurrence_wide.cuh`: an M-row tile a
 cluster of C blocks, W_hh split over their shared memory, the product on the
-tensor cores, mma.sync bf16 or 3xTF32), in either dtype; for H = 256, 384 or
-512 and few sequences (musdb18 serving's B = 1) `"cluster"`
+tensor cores, mma.sync bf16 or 3xTF32), in either dtype, and at H = 384 the same
+kernel (for DANet's, ADANet's and deep clustering's H = 300 training batches, padded);
+for H = 256, 384 or 512 and few sequences (musdb18 serving's B = 1) `"cluster"`
 (`csrc/recurrence_cluster.cuh`: one sequence a cluster of 8 or 16 blocks,
 W_hh held in their registers and shared memory, h exchanged through
-distributed shared memory), in either dtype, and for 384 < H < 512
-(LSTM-TasNet's H = 500) the same kernel at H = 512 on a zero-padded call;
-the FMA kernel (`"fma"`) for every other call (H = 40, 256 < H < 384, H = 384
-and 512 past the cluster route, ...). The backward has four, which `_plan_bwd`
+distributed shared memory), in either dtype, and for 256 < H < 512 off the
+multiples of 128 (H = 300 requests; LSTM-TasNet's H = 500) the same kernel at
+the next multiple of 128 on a zero-padded call; the FMA kernel (`"fma"`) for
+every other call (H = 40, H = 384 and 512 past the cluster route, ...). The
+backward has four, which `_plan_bwd`
 picks the same way: for H a multiple of 16 up to 128 the split-TF32
 tensor-core kernel of `csrc/recurrence_bwd_tf32.cuh` (`"tf32x3"` for
 float32, three TF32 products; `"tf32x2"` for bfloat16, two, since a bf16
@@ -31,15 +33,17 @@ W_hh is a TF32 value), on clusters of 2 or 4 blocks; for H = 256 and many
 sequences (DPTNet training's 1278 and 200) `"wide"`
 (`csrc/recurrence_wide_bwd.cuh`: an M-row tile a cluster of C blocks, each
 rank's gate columns of W_hh on chip, the product in split TF32 on the tensor
-cores, its partial sums reduce-scattered between the ranks), in either dtype;
-for H = 256, 384 or 512 and few sequences (musdb18 training's B = 16) `"cluster"`
-(`csrc/recurrence_cluster_bwd.cuh`: the forward's design, one sequence a cluster
-of 8 or 16 blocks with W_hh's rows of each rank's units on chip, da exchanged
-through distributed shared memory), in either dtype, padded as the forward is
-for 384 < H < 512; the FMA kernel (`"fma"`) for every other call.
+cores, its partial sums reduce-scattered between the ranks), in either dtype, and
+at H = 384 (H = 300 padded); for H = 256, 384 or 512 and few sequences (musdb18
+training's B = 16) `"cluster"` (`csrc/recurrence_cluster_bwd.cuh`: the forward's
+design, one sequence a cluster of 8 or 16 blocks with W_hh's rows of each rank's
+units on chip, da exchanged through distributed shared memory), in either dtype;
+the wide and cluster backwards padded as the forwards are; the FMA kernel
+(`"fma"`) for every other call.
 
 The padded calls (`cluster_width`) are exact. The four gate blocks of xw and
-of W_hh's columns, and W_hh's rows, are zero-padded to H = 512 (`pad_chain`).
+of W_hh's columns, and W_hh's rows, are zero-padded to the kernel's width (384
+or 512; `pad_chain`).
 A padded unit's gate pre-activations are then 0 at every step, so its c stays
 sigmoid(0) c + sigmoid(0) tanh(0) = 0 from c = 0 and its h = sigmoid(0) tanh(0)
 = 0, and a real unit's sums gain only products with a zero factor. In the
@@ -83,8 +87,8 @@ PATH_LAUNCHES = {name: {"mma": 0, "tf32x3": 0, "cluster": 0, "wide": 0, "fma": 0
 # The backward launches above, split by the path `_plan_bwd` chose.
 BWD_PATH_LAUNCHES = {name: {"tf32x3": 0, "tf32x2": 0, "cluster": 0, "wide": 0, "fma": 0}
                      for name in ("lstm_scan_bwd", "lstm_scan_bidir_bwd")}
-# The launches above that ran a cluster kernel on a zero-padded call (`cluster_width`), by
-# kernel: a part of their "cluster" counts.
+# The launches above that ran a cluster or wide kernel on a zero-padded call
+# (`cluster_width`), by kernel: a part of their "cluster" and "wide" counts.
 PADDED_LAUNCHES = dict.fromkeys(LAUNCHES, 0)
 
 MAX_HIDDEN = 512
@@ -120,11 +124,11 @@ _CLUSTERS: dict = {}
 # staging tile.
 CLUSTER_SIZES = (8, 16)
 CLUSTER_ROW_BLOCK = 128
-# Hidden sizes above this one, below MAX_HIDDEN and off the multiples of CLUSTER_ROW_BLOCK
-# run the cluster kernels zero-padded to MAX_HIDDEN (`cluster_width`). 256 < H < 384 would
-# pad to 384 and stays on the FMA kernel: DANet's, ADANet's and deep clustering's H = 300
-# sit there (chip_smoke.py phase 16k times them beside cuDNN, PERF.md section 6).
-PADDED_ABOVE = 384
+# Hidden sizes above this one (the narrowest width of the cluster and wide kernels), below
+# MAX_HIDDEN and off the multiples of CLUSTER_ROW_BLOCK run those kernels zero-padded to the
+# next multiple (`cluster_width`): DANet's, ADANet's and deep clustering's H = 300 at 384,
+# LSTM-TasNet's H = 500 at 512.
+PADDED_ABOVE = 256
 CLUSTER_REG_BLOCKS = 2
 CLUSTER_UNITS_PER_WARP = 2
 CLUSTER_MAX_THREADS = 512
@@ -134,6 +138,13 @@ OWN_SM = 120 * 1024  # a block's least shared memory: no two blocks on one SM
 # it beat the FMA kernel at every B up to 256 and lost at 512 (H = 256, two
 # chains) and at 1024 (H = 512, one chain).
 CLUSTER_MAX_BATCH = 256
+# The largest B of a padded call (by the width it is padded to), where the FMA kernel runs
+# the unpadded H: the largest B of scripts/probe_h300_routes.py's sweep at H = 300 (two
+# chains, T = 101 and 501, B = 1, 4, 16, 32, 64, 128, the kernels alone) up to which the
+# padded cluster kernel beat the FMA kernel at every B, on an H100 (PERF.md, section 6): f32
+# at 32 1.3439 / 5.3458 ms (T = 101 / 501) against 2.1643 / 10.6417, at 64 2.6183 against
+# 2.4011 at T = 101; bf16 alike. (From WIDE_MIN_BATCH up the wide kernel takes the call.)
+CLUSTER_MAX_BATCH_PADDED = {384: 32}
 # The cluster backward (csrc/recurrence_cluster_bwd.cuh): the forward's ranks, units
 # and warps; lane l of a warp owns da values 128 jb + 4 l + q (unit 32 jb + l, gate q)
 # of each row block jb of the 4H, and W_hh[its warp's units, q H + 32 jb + l]; the
@@ -144,28 +155,43 @@ CLUSTER_BWD_REG_BLOCKS = 8
 # section 6) it beat the FMA backward at every B up to 256 and lost at 512 (H = 256,
 # two chains: by 5% at B = 128 and 256; H = 512, one chain: by 33-35%).
 CLUSTER_MAX_BATCH_BWD = 256
+# The same for the cluster backward's padded calls, from the same sweep: f32 at 32 1.4371 /
+# 6.9119 ms against the FMA backward's 1.9721 / 9.5273, at 64 2.8637 against 2.3674.
+CLUSTER_MAX_BATCH_BWD_PADDED = {384: 32}
 # The wide kernel (csrc/recurrence_wide.cuh): an M-row tile of sequences of one chain a
-# cluster of C blocks at H = WIDE_HIDDEN, rank r owning hidden units [r H/C, (r+1) H/C)
+# cluster of C blocks at H in WIDE_HIDDENS, rank r owning hidden units [r H/C, (r+1) H/C)
 # and their four gate columns, 8 units a warp; warps also split the rows, 16 a warp, or
 # 32 in f32 (one split of W serves two m16 tiles) and where 16 would pass WIDE_MAX_WARPS
 # warps. Each rank's H x 4H/C slice of W_hh in shared memory beside two mbarriers and
-# h [2][C][M][H/C + 16 bytes] (each rank's columns one block).
+# h [2][C][M][H/C + 16 bytes] (each rank's columns one block). WIDE_HIDDEN is DPTNet's
+# width, the first instantiation; 384 serves H = 300 padded (`cluster_width`).
 WIDE_HIDDEN = 256
+WIDE_HIDDENS = (WIDE_HIDDEN, 384)
 WIDE_TILE_ROWS = (16, 32, 64)
 WIDE_CLUSTER_SIZES = {torch.bfloat16: (4, 8), torch.float32: (8, 16)}
 WIDE_MAX_WARPS = 16
-# The least B at which the plan takes the wide kernel over the cluster kernel (H = 256),
-# by dtype and chains: the least B of chip_smoke.py phase 3i's sweep (B = 1, 4, 16, 64,
-# 128, 200, 256, 512 at T = 259 and 639, kernels alone) from which the wide kernel won at
-# every larger B, on an H100 (PERF.md, section 6). f32, one chain: at B = 16 the cluster
-# kernel took 0.4262 / 0.9853 ms (T = 259 / 639) against 0.9951 / 2.4300, at 64 wide
-# 1.0179 / 2.4355 against 1.1500 / 2.6787; two chains: at 16 cluster 0.6872 / 1.6272
-# against 1.0044 / 2.4498, at 64 wide 1.0522 / 2.5489 against 2.1524 / 4.9490. bf16, one
-# chain: at 4 cluster 0.1976 / 0.4532 against 0.3678 / 0.8810, at 16 wide 0.3904 / 0.9641
-# against 0.4295 / 0.9942; two chains: at 4 cluster 0.2165 / 0.5007 against 0.3733 /
-# 0.8896, at 16 wide 0.3931 / 0.9664 against 0.6546 / 1.5957.
-WIDE_MIN_BATCH = {(torch.float32, 1): 64, (torch.float32, 2): 64,
-                  (torch.bfloat16, 1): 16, (torch.bfloat16, 2): 16}
+# The least B at which the plan takes the wide kernel, by its width and then by dtype and
+# chains (a pair missing: the plan never takes it there). H = 256, over the cluster kernel:
+# the least B of chip_smoke.py phase 3i's sweep (B = 1, 4, 16, 64, 128, 200, 256, 512 at T =
+# 259 and 639, kernels alone) from which the wide kernel won at every larger B, on an H100
+# (PERF.md, section 6). f32, one chain: at B = 16 the cluster kernel took 0.4262 / 0.9853 ms
+# (T = 259 / 639) against 0.9951 / 2.4300, at 64 wide 1.0179 / 2.4355 against 1.1500 /
+# 2.6787; two chains: at 16 cluster 0.6872 / 1.6272 against 1.0044 / 2.4498, at 64 wide
+# 1.0522 / 2.5489 against 2.1524 / 4.9490. bf16, one chain: at 4 cluster 0.1976 / 0.4532
+# against 0.3678 / 0.8810, at 16 wide 0.3904 / 0.9641 against 0.4295 / 0.9942; two chains:
+# at 4 cluster 0.2165 / 0.5007 against 0.3733 / 0.8896, at 16 wide 0.3931 / 0.9664 against
+# 0.6546 / 1.5957.
+# H = 384 (H = 300 padded), over the FMA kernel at 300 and the padded cluster kernel: the
+# least B of scripts/probe_h300_routes.py's sweep (two chains, T = 101 and 501) from which
+# the wide kernel was the fastest at every larger B. f32: at 16 the cluster kernel took 2.7901
+# ms at T = 501 against 3.0643, at 32 wide 0.6635 / 3.0669 (T = 101 / 501) against 1.3439 /
+# 5.3458, and at training's 64 1.2896 against FMA 2.4011; bf16: at 16 wide 0.2950 / 1.3884
+# against 0.6843 / 2.7398, at 4 cluster 0.2722 / 1.0461 against 0.2820 / 1.2908.
+WIDE_MIN_BATCH = {
+    256: {(torch.float32, 1): 64, (torch.float32, 2): 64,
+          (torch.bfloat16, 1): 16, (torch.bfloat16, 2): 16},
+    384: {(torch.float32, 2): 32, (torch.bfloat16, 2): 16},
+}
 # The wide backward (csrc/recurrence_wide_bwd.cuh): the forward's tiles, cluster sizes and
 # ranks; WIDE_BWD_WARPS warps a block, each over H / WIDE_BWD_WARPS output units of the
 # product and, in the first (M / 16) (H / 8C) warps, the cell of 16 rows x 8 units. Each
@@ -175,18 +201,25 @@ WIDE_MIN_BATCH = {(torch.float32, 1): 64, (torch.float32, 2): 64,
 WIDE_BWD_WARPS = 8
 WIDE_BWD_PAD_DA = 4
 WIDE_BWD_PAD_BLOCK = 8
-# The least B at which the backward plan takes the wide kernel over the cluster backward
-# (H = 256), by dtype and chains: the least B of chip_smoke.py phase 3j's sweep (B = 1, 4,
-# 16, 32, 64, 128, 256, 512 at T = 259 and 639, kernels alone) from which the wide kernel
-# won at every larger B, on an H100 (PERF.md, section 6). f32, one chain: at B = 32 the
-# cluster backward took 0.7574 / 1.8002 ms (T = 259 / 639) against 0.8233 / 2.0050, at 64
-# wide 0.8276 / 2.0198 against 1.2659 / 3.0352; two chains: at 16 cluster 0.7570 / 1.8165
-# against 0.8243 / 2.0243 (musdb18 training's B = 16 stays), at 32 wide 0.8288 / 2.0274
-# against 1.2662 / 3.0529. bf16, one chain: at 32 cluster 1.0658 ms at T = 259 against
-# 1.1375; two chains: at 16 cluster 1.0774 / 2.6135 against 1.1489 / 2.7743, at 32 wide
-# 1.1440 / 2.7820 against 1.7891 / 4.3608.
-WIDE_MIN_BATCH_BWD = {(torch.float32, 1): 64, (torch.float32, 2): 32,
-                      (torch.bfloat16, 1): 64, (torch.bfloat16, 2): 32}
+# The least B at which the backward plan takes the wide kernel, by width, dtype and chains
+# as WIDE_MIN_BATCH. H = 256, over the cluster backward: the least B of chip_smoke.py phase
+# 3j's sweep (B = 1, 4, 16, 32, 64, 128, 256, 512 at T = 259 and 639, kernels alone) from
+# which the wide kernel won at every larger B, on an H100 (PERF.md, section 6). f32, one
+# chain: at B = 32 the cluster backward took 0.7574 / 1.8002 ms (T = 259 / 639) against
+# 0.8233 / 2.0050, at 64 wide 0.8276 / 2.0198 against 1.2659 / 3.0352; two chains: at 16
+# cluster 0.7570 / 1.8165 against 0.8243 / 2.0243 (musdb18 training's B = 16 stays), at 32
+# wide 0.8288 / 2.0274 against 1.2662 / 3.0529. bf16, one chain: at 32 cluster 1.0658 ms at
+# T = 259 against 1.1375; two chains: at 16 cluster 1.0774 / 2.6135 against 1.1489 / 2.7743,
+# at 32 wide 1.1440 / 2.7820 against 1.7891 / 4.3608.
+# H = 384 (H = 300 padded), over the FMA backward at 300 and the padded cluster backward,
+# from the same sweep: f32 at 16 wide 0.5693 / 2.7279 ms against cluster 0.7903 / 3.7567, at
+# 4 cluster 0.3026 / 1.4038 against 0.5267 / 2.5416, at training's 64 wide 1.1257 against
+# FMA 2.3674; bf16 at 16 wide 0.6691 / 3.1762 against 0.9451 / 4.6057.
+WIDE_MIN_BATCH_BWD = {
+    256: {(torch.float32, 1): 64, (torch.float32, 2): 32,
+          (torch.bfloat16, 1): 64, (torch.bfloat16, 2): 32},
+    384: {(torch.float32, 2): 16, (torch.bfloat16, 2): 16},
+}
 
 
 def lstm_steps(xw: torch.Tensor, w_hh: torch.Tensor, state=None, cs: torch.Tensor | None = None):
@@ -332,18 +365,19 @@ def unpad_weight_grad(d_whh: torch.Tensor, H: int) -> torch.Tensor:
 
 
 def cluster_width(H: int) -> int:
-    """The hidden size at which the cluster kernels take hidden size H: MAX_HIDDEN for
-    PADDED_ABOVE < H < MAX_HIDDEN off the multiples of CLUSTER_ROW_BLOCK (LSTM-TasNet's
-    500: the call zero-padded, which is exact, see the module docstring), else H."""
+    """The hidden size at which the cluster and wide kernels take hidden size H: the next
+    multiple of CLUSTER_ROW_BLOCK for PADDED_ABOVE < H < MAX_HIDDEN off those multiples
+    (H = 300 at 384, LSTM-TasNet's 500 at 512: the call zero-padded, which is exact, see
+    the module docstring), else H."""
     if H % CLUSTER_ROW_BLOCK and PADDED_ABOVE < H < MAX_HIDDEN:
-        return MAX_HIDDEN
+        return -(-H // CLUSTER_ROW_BLOCK) * CLUSTER_ROW_BLOCK
     return H
 
 
 def launch_width(H: int, path: str) -> int:
     """The hidden size a launch on `path` (a plan's) runs at: `cluster_width` on the
-    cluster kernels, H on every other."""
-    return cluster_width(H) if path == "cluster" else H
+    cluster and wide kernels, H on every other."""
+    return cluster_width(H) if path in ("cluster", "wide") else H
 
 
 def _tensor_core_path(H: int, dtype: torch.dtype, backward: bool = False) -> str | None:
@@ -427,14 +461,15 @@ def wide_layout(H: int, M: int, C: int, dtype: torch.dtype = torch.float32) -> d
     """The wide kernel's layout at hidden size H, tile M and clusters of C blocks, or None
     where it cannot run (`shape_ok` and `Geometry` of csrc/recurrence_wide.cuh).
 
-    H = WIDE_HIDDEN; C in WIDE_CLUSTER_SIZES[dtype]; M in WIDE_TILE_ROWS. A rank owns
+    H in WIDE_HIDDENS; C in WIDE_CLUSTER_SIZES[dtype]; M in WIDE_TILE_ROWS. A rank owns
     H / C units, 8 a warp (warps over units), and the M / 16 m16 tiles go to warps over
     rows, `tiles_per_warp` each: 2 where one would pass WIDE_MAX_WARPS warps, and in f32
     wherever the tile has two (each split of W then serves both), else 1. The shared
     memory (two mbarriers, the rank's H x 4H/C slice of W_hh, h [2][C][M][H/C + 16
-    bytes] in the dtype) within SHARED_LIMIT, and at least OWN_SM.
+    bytes] in the dtype) within SHARED_LIMIT, and at least OWN_SM. At H = 384 that
+    leaves f32 (16, 16) and bf16 (16, 8) and (32, 8).
     """
-    if (H != WIDE_HIDDEN or M not in WIDE_TILE_ROWS
+    if (H not in WIDE_HIDDENS or M not in WIDE_TILE_ROWS
             or C not in WIDE_CLUSTER_SIZES.get(dtype, ())):
         return None
     elem = torch.tensor([], dtype=dtype).element_size()
@@ -458,13 +493,14 @@ def wide_bwd_layout(H: int, M: int, C: int, dtype: torch.dtype = torch.float32) 
     """The wide backward's layout at hidden size H, tile M and clusters of C blocks, or None
     where it cannot run (`shape_ok` and `smem_bytes` of csrc/recurrence_wide_bwd.cuh).
 
-    H = WIDE_HIDDEN; C in WIDE_CLUSTER_SIZES[dtype]; M in WIDE_TILE_ROWS. A rank owns
+    H in WIDE_HIDDENS; C in WIDE_CLUSTER_SIZES[dtype]; M in WIDE_TILE_ROWS. A rank owns
     H / C units and their 4H / C gate columns (the product's K); WIDE_BWD_WARPS warps, at
     most one cell tile (16 rows x 8 units) each. The shared memory (two mbarriers, the
     rank's H x 4H/C slice of W_hh in the dtype, the da tile and the receive tile in f32)
-    within SHARED_LIMIT, and at least OWN_SM.
+    within SHARED_LIMIT, and at least OWN_SM. At H = 384 that leaves f32 (16, 16) and bf16
+    (16, 8).
     """
-    if (H != WIDE_HIDDEN or M not in WIDE_TILE_ROWS
+    if (H not in WIDE_HIDDENS or M not in WIDE_TILE_ROWS
             or C not in WIDE_CLUSTER_SIZES.get(dtype, ())):
         return None
     elem = torch.tensor([], dtype=dtype).element_size()
@@ -502,19 +538,22 @@ def _wide_tile(B: int, n_chains: int, H: int, dtype: torch.dtype, wide: dict | N
     co-resident clusters of the kernel at that tile}, 0 where no GPC has C free
     SMs), `_tf32_tile`'s rule: the fewest waves, then the fewest rows x units a
     block (M / C), then the smaller cluster and tile. The plan takes the route for
-    B from WIDE_MIN_BATCH[(dtype, n_chains)] up (the backward's WIDE_MIN_BATCH_BWD);
-    forced (`path="wide"`) it runs any B, and raises where no tile can run.
+    B from WIDE_MIN_BATCH[H][(dtype, n_chains)] up (the backward's WIDE_MIN_BATCH_BWD),
+    and not where that has no entry; forced (`path="wide"`) it runs any B, and raises
+    where no tile can run. H is the kernel's: a padded call's `cluster_width`.
     """
     options = [(-(-(n_chains * -(-B // m)) // wide[(m, c)]), m / c, c, m)
                for m, c in _wide_tiles(H, dtype, backward) if (wide or {}).get((m, c), 0) >= 1]
     if not options:
         if forced:
-            raise ValueError(f"the wide path takes H = {WIDE_HIDDEN} in bfloat16 (clusters of "
-                             f"4 or 8 blocks) or float32 (8 or 16) that the card holds; got "
-                             f"H = {H}, {dtype}, clusters {wide}")
+            raise ValueError(f"the wide path takes H = 256 in bfloat16 (clusters of 4 or 8 "
+                             f"blocks) or float32 (8 or 16), H = 384 on 8 or 16 blocks "
+                             f"({PADDED_ABOVE} < H < 384 padded to 384), that the card "
+                             f"holds; got H = {H}, {dtype}, clusters {wide}")
         return None
-    least = (WIDE_MIN_BATCH_BWD if backward else WIDE_MIN_BATCH)[(dtype, n_chains)]
-    if not forced and B < least:
+    least = (WIDE_MIN_BATCH_BWD if backward else WIDE_MIN_BATCH).get(H, {}).get(
+        (dtype, n_chains))
+    if not forced and (least is None or B < least):
         return None
     *_, c, m = min(options)
     return m, c
@@ -528,7 +567,8 @@ def _cluster_sizes(H: int, dtype: torch.dtype = torch.float32, backward: bool = 
 
 
 def _cluster_tile(B: int, n_chains: int, H: int, dtype: torch.dtype, clusters: dict | None,
-                  forced: bool = False, backward: bool = False) -> tuple[int, int] | None:
+                  forced: bool = False, backward: bool = False,
+                  padded: bool = False) -> tuple[int, int] | None:
     """The cluster kernel's tile (1, C): one sequence a cluster of C blocks, or None.
 
     Of the C that H admits and the card holds (`clusters`, {C: co-resident
@@ -538,18 +578,21 @@ def _cluster_tile(B: int, n_chains: int, H: int, dtype: torch.dtype, clusters: d
     twice the clusters in a wave). The forward's kernel, or the backward's if
     `backward`, by the same rule.
     The plan takes the route for B up to CLUSTER_MAX_BATCH (the backward's
-    CLUSTER_MAX_BATCH_BWD); forced (`path="cluster"`) it runs any B, and raises
-    where no C can run. H is the kernel's: a padded call's `cluster_width`.
+    CLUSTER_MAX_BATCH_BWD), a `padded` call up to CLUSTER_MAX_BATCH_PADDED[H]
+    (CLUSTER_MAX_BATCH_BWD_PADDED[H]); forced (`path="cluster"`) it runs any B, and
+    raises where no C can run. H is the kernel's: a padded call's `cluster_width`.
     """
     sizes = [c for c in _cluster_sizes(H, dtype, backward) if (clusters or {}).get(c, 0) >= 1]
     if not sizes:
         if forced:
             raise ValueError(f"the cluster path takes H = 256, 384 or 512 (H = 256 on clusters of "
-                             f"8 or 16 blocks, else 16; {PADDED_ABOVE} < H < {MAX_HIDDEN} padded "
-                             f"to {MAX_HIDDEN}) that the card holds; got H = {H}, "
-                             f"clusters {clusters}")
+                             f"8 or 16 blocks, else 16; {PADDED_ABOVE} < H < {MAX_HIDDEN} off "
+                             f"the multiples of {CLUSTER_ROW_BLOCK} padded to the next one) "
+                             f"that the card holds; got H = {H}, clusters {clusters}")
         return None
-    if not forced and B > (CLUSTER_MAX_BATCH_BWD if backward else CLUSTER_MAX_BATCH):
+    table, limit = ((CLUSTER_MAX_BATCH_BWD_PADDED, CLUSTER_MAX_BATCH_BWD) if backward
+                    else (CLUSTER_MAX_BATCH_PADDED, CLUSTER_MAX_BATCH))
+    if not forced and B > (table.get(H, limit) if padded else limit):
         return None
     return 1, min(sizes, key=lambda c: (-(-n_chains * B // clusters[c]), -c))
 
@@ -570,14 +613,15 @@ def _plan(B: int, n_chains: int, H: int, dtype: torch.dtype, sms: int,
     of H <= MMA_MAX_HIDDEN runs and the calling wrapper's `routes` hold "wide"
     and "cluster" (the LSTM's ROUTES): "wide" (tile (M, C)) by `_wide_tile`
     from `wide`, the wide kernel's counts by tile, for many sequences at
-    H = 256 (B from WIDE_MIN_BATCH up); below that, or at H = 384 and 512,
+    H = 256 and 384 (B from WIDE_MIN_BATCH up); below that, or at 512,
     "cluster" (tile (1, C)) by `_cluster_tile` from `clusters`, the cluster
-    kernel's counts, for few sequences; for PADDED_ABOVE < H < MAX_HIDDEN off
-    the multiples of 128 (LSTM-TasNet's 500) "cluster" too, at the padded width
-    `cluster_width(H)` = 512 (C = 16; `clusters` the kernel's counts at 512),
-    which the launch reads from `launch_width`: zero-padding is exact (module
-    docstring), and the padded products are 1.05x the unpadded ones at H = 500.
-    `path` forces one (the FMA path at a
+    kernel's counts, for few sequences. For PADDED_ABOVE < H < MAX_HIDDEN off
+    the multiples of 128 both run at the padded width `cluster_width(H)` (H = 300
+    at 384, C = 16; LSTM-TasNet's 500 at 512, C = 16; `clusters` and `wide` the
+    kernels' counts there), which the launch reads from `launch_width`:
+    zero-padding is exact (module docstring); the padded products are 1.64x the
+    unpadded ones at H = 300 and 1.05x at 500, so a padded call takes the cluster
+    kernel only up to CLUSTER_MAX_BATCH_PADDED. `path` forces one (the FMA path at a
     shape that would take another, to time both); forcing a path where it
     cannot run raises, "cluster" and "wide" also from a wrapper whose routes
     lack them. The GRU wrapper plans with this function too, with
@@ -587,14 +631,14 @@ def _plan(B: int, n_chains: int, H: int, dtype: torch.dtype, sms: int,
     if path == "wide" or (path is None and natural is None and "wide" in routes):
         if "wide" not in routes:
             raise ValueError(f"this wrapper has no wide kernel (routes {routes})")
-        tile = _wide_tile(B, n_chains, H, dtype, wide, forced=path == "wide")
+        tile = _wide_tile(B, n_chains, cluster_width(H), dtype, wide, forced=path == "wide")
         if tile is not None:
             return "wide", tile
     if path == "cluster" or (path is None and natural is None and "cluster" in routes):
         if "cluster" not in routes:
             raise ValueError(f"this wrapper has no cluster kernel (routes {routes})")
         tile = _cluster_tile(B, n_chains, cluster_width(H), dtype, clusters,
-                             forced=path == "cluster")
+                             forced=path == "cluster", padded=cluster_width(H) != H)
         if tile is not None:
             return "cluster", tile
     path = path or natural or "fma"
@@ -634,11 +678,12 @@ def _plan_bwd(B: int, n_chains: int, H: int, dtype: torch.dtype, sms: int,
     2-block clusters, one wave. Where no tensor-core path runs and the calling
     wrapper's `routes` hold "wide" and "cluster" (the LSTM's ROUTES): "wide"
     (tile (M, C)) by `_wide_tile` from `wide`, the wide backward's counts by
-    tile, for many sequences at H = 256 (B from WIDE_MIN_BATCH_BWD up: DPTNet
-    training); below that, or at H = 384 and 512, "cluster" (tile (1, C)) by
+    tile, for many sequences at H = 256 and 384 (B from WIDE_MIN_BATCH_BWD up:
+    DPTNet training); below that, or at 512, "cluster" (tile (1, C)) by
     `_cluster_tile` from `clusters`, the cluster backward's counts, for B up to
-    CLUSTER_MAX_BATCH_BWD (musdb18 training: C = 8), and at the forward's padded
-    widths on the padded call (`launch_width`; LSTM-TasNet training). "fma" (tile R, the
+    CLUSTER_MAX_BATCH_BWD (musdb18 training: C = 8; a padded call up to
+    CLUSTER_MAX_BATCH_BWD_PADDED), both at the forward's padded widths on the padded
+    call (`launch_width`; H = 300 and LSTM-TasNet training). "fma" (tile R, the
     forward's rule) for every other call. `path` forces one (the FMA path, to
     time both); forcing a path where it cannot run raises, "cluster" and "wide"
     also from a wrapper whose routes lack them. The GRU wrapper plans with this
@@ -648,14 +693,16 @@ def _plan_bwd(B: int, n_chains: int, H: int, dtype: torch.dtype, sms: int,
     if path == "wide" or (path is None and natural is None and "wide" in routes):
         if "wide" not in routes:
             raise ValueError(f"this wrapper has no wide backward (routes {routes})")
-        tile = _wide_tile(B, n_chains, H, dtype, wide, forced=path == "wide", backward=True)
+        tile = _wide_tile(B, n_chains, cluster_width(H), dtype, wide, forced=path == "wide",
+                          backward=True)
         if tile is not None:
             return "wide", tile
     if path == "cluster" or (path is None and natural is None and "cluster" in routes):
         if "cluster" not in routes:
             raise ValueError(f"this wrapper has no cluster backward (routes {routes})")
         tile = _cluster_tile(B, n_chains, cluster_width(H), dtype, clusters,
-                             forced=path == "cluster", backward=True)
+                             forced=path == "cluster", backward=True,
+                             padded=cluster_width(H) != H)
         if tile is not None:
             return "cluster", tile
     path = path or natural or "fma"
@@ -746,10 +793,10 @@ def _needs_wide(H: int, dtype: torch.dtype, path: str | None, routes: tuple = FO
                 backward: bool = False) -> bool:
     """Whether a forward plan (a backward one if `backward`) at H in `dtype` (forced to
     `path`, if given) may take the wide kernel, so that the caller must ask the card for
-    its co-resident clusters."""
+    its co-resident clusters (at `cluster_width(H)`)."""
     return ("wide" in routes and path in (None, "wide")
             and _tensor_core_path(H, dtype, backward) is None
-            and bool(_wide_tiles(H, dtype, backward)))
+            and bool(_wide_tiles(cluster_width(H), dtype, backward)))
 
 
 def _plan_launch(clusters_of, chains, path, backward=False, routes=FORWARD_ROUTES):
@@ -757,8 +804,8 @@ def _plan_launch(clusters_of, chains, path, backward=False, routes=FORWARD_ROUTE
 
     The forward's (over the wrapper's `routes`), or the backward's if
     `backward`. `clusters_of(H, device)` is the count of the cluster kernel
-    that runs at H (at `cluster_width(H)`), asked only where one may run. The
-    launch runs at `launch_width(H, path)`. The GRU wrapper plans its launches
+    that runs at H (at `cluster_width(H)`, as the wide kernel's), asked only where
+    one may run. The launch runs at `launch_width(H, path)`. The GRU wrapper plans its launches
     with this function too.
     """
     xw0 = chains[0][0]
@@ -769,7 +816,7 @@ def _plan_launch(clusters_of, chains, path, backward=False, routes=FORWARD_ROUTE
     if _needs_clusters(H, xw0.dtype, path, backward, routes):
         clusters = clusters_of(cluster_width(H), xw0.device)
     if _needs_wide(H, xw0.dtype, path, routes, backward):
-        wide = _wide_counts(H, xw0.dtype, xw0.device, backward)
+        wide = _wide_counts(cluster_width(H), xw0.dtype, xw0.device, backward)
     if backward:
         return (B, T, H, *_plan_bwd(B, len(chains), H, xw0.dtype, sms, path, clusters, routes,
                                     wide))
@@ -978,7 +1025,7 @@ def _staged_forward(chains, with_cs: bool, path: str | None = None, cluster: int
             raise ValueError(f"no cluster path on {cluster} blocks here: {path}, {counts}")
         planned = (1, cluster)
     if tile is not None:
-        planned = _forced_tile(tile, path, H, xw0.dtype, xw0.device)
+        planned = _forced_tile(tile, path, width, xw0.dtype, xw0.device)
     tile = planned
     if width != H:
         chains = [pad_chain(xw, w_hh, width) for xw, w_hh in chains]
@@ -1104,7 +1151,7 @@ def _staged_backward(chains, path: str | None = None, cluster: int | None = None
             raise ValueError(f"no cluster backward on {cluster} blocks here: {path}, {counts}")
         planned = (1, cluster)
     if tile is not None:
-        planned = _forced_tile(tile, path, H, xw0.dtype, xw0.device, backward=True)
+        planned = _forced_tile(tile, path, width, xw0.dtype, xw0.device, backward=True)
     tile = planned
     if width != H:
         chains = [pad_backward_chain(c, width) for c in chains]

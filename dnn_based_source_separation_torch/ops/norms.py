@@ -44,16 +44,17 @@ def cumulative_layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tens
 
 
 def flax_batch_norm(x: torch.Tensor, norm: nn.modules.batchnorm._BatchNorm,
-                    dim: int = -1, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                    dim: int = -1, dtype: torch.dtype | None = None) -> torch.Tensor:
     """flax's train-mode BatchNorm over every axis of `x` but `dim`, with `norm`'s
     weight, bias and eps; updates its buffers.
 
     The mean and the biased variance (E[x^2] - E[x]^2, clipped at 0), computed in `dtype`
-    (f32 whatever x's dtype, f64 too, unless the caller asks for another), then
-    `running = 0.9 * running + 0.1 * batch` for both, in place, and
-    `num_batches_tracked` counts the updates. (torch's train mode puts the unbiased
-    variance into `running_var`: another function.)
+    (by default x's dtype promoted to at least f32: f32 for f32 and bf16, f64 for f64, so
+    an f64 model is f64 throughout), then `running = 0.9 * running + 0.1 * batch` for
+    both, in place, and `num_batches_tracked` counts the updates. (torch's train mode puts
+    the unbiased variance into `running_var`: another function.)
     """
+    dtype = dtype or torch.promote_types(x.dtype, torch.float32)
     dim = dim % x.ndim
     dims = [d for d in range(x.ndim) if d != dim]
     shape = [-1 if d == dim else 1 for d in range(x.ndim)]

@@ -442,9 +442,12 @@ def _spec_args(corpus, exp, *extra):
 
 
 @pytest.mark.parametrize("model", list(SPEC_CLI))
-def test_spec_cli_trains_and_resumes(corpus, tmp_path, model):
+def test_spec_cli_trains_and_resumes(corpus, tmp_path, model, monkeypatch):
     exp = tmp_path / "exp"
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)  # PyTorch's default
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
     trainer = ttrain.main(_spec_args(corpus, exp, "--epochs", "2", *SPEC_CLI[model]))
+    assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
     kind = {"danet": AttractorTrainer, "adanet": AnchoredAttractorTrainer,
             "deep-clustering": EmbeddingTrainer}[model]
     assert type(trainer) is kind

@@ -123,9 +123,15 @@ def test_dptnet_recipe_flops_from_the_config():
         "matmul": 2 * 8 * (31999 * per_frame + 6 * 63900 * per_position), "depthwise": 0}
 
 
-def test_offline_json_line(tiny_bench, capsys):
+def test_offline_json_line(tiny_bench, capsys, monkeypatch):
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)  # PyTorch's default
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
     result = bench.main(TINY_RUN)
-    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
+    out = capsys.readouterr()
+    assert out.out.strip().splitlines() == [json.dumps(result)]  # stdout: the JSON line alone
+    assert "TF32 off" in out.err
+    line = json.loads(out.out.strip().splitlines()[-1])
     assert line == result
     for key in ("metric", "value", "unit", "vs_baseline", "mfu", "ms", "device"):
         assert key in line, key

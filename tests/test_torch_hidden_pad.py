@@ -1,13 +1,15 @@
-"""The LSTM wrappers' zero-padded hidden size (CPU): H = 500 run at 512 and sliced back.
+"""The LSTM wrappers' zero-padded hidden size (CPU): H = 500 run at 512, H = 300 at 384,
+and sliced back.
 
 On the card `ops/lstm_scan.py` runs LSTM-TasNet's H = 500 recurrences, forward
-and backward, on the cluster kernels at H = 512: `pad_chain` and
+and backward, on the cluster kernels at H = 512, and DANet's, ADANet's and deep
+clustering's H = 300 on the cluster and wide kernels at 384: `pad_chain` and
 `pad_backward_chain` zero-pad xw's and W_hh's gate blocks and W_hh's rows (and
 hs, cs and the cotangent's units), and `unpad_gates` / `unpad_weight_grad` slice
 d_xw and d_W_hh back. Here those helpers run around the plain versions at 512,
-against the plain versions at 500 and against the JAX package's Pallas kernels
-(interpret mode) and their `custom_vjp`. chip_smoke.py phase 14k holds the
-padded kernels against the unpadded plain version on the card.
+against the plain versions at 500 (and 300) and against the JAX package's Pallas
+kernels (interpret mode) and their `custom_vjp`. chip_smoke.py phases 14k, 3h-3j and
+16k hold the padded kernels against the unpadded plain version on the card.
 
 Tolerances: f32 1e-6 x max|ref| between the padded and unpadded plain versions
 (the same products and zeros, summed in another blocking of the matmul); bf16
@@ -29,6 +31,9 @@ B, T, H, WIDTH = 2, 6, 500, 512
 F32, BF16 = torch.float32, torch.bfloat16
 DTYPES = pytest.mark.parametrize("dtype", [F32, BF16], ids=["f32", "bf16"])
 CHAINS = pytest.mark.parametrize("chains", [1, 2], ids=["one-chain", "two-chains"])
+# (H, the width it runs at): LSTM-TasNet's, and DANet's / ADANet's / deep clustering's.
+WIDTHS = pytest.mark.parametrize("hidden,width", [(H, WIDTH), (300, 384)],
+                                 ids=["500-to-512", "300-to-384"])
 
 
 @pytest.fixture(autouse=True)
@@ -36,14 +41,15 @@ def _one_thread():
     torch.set_num_threads(1)
 
 
-def _inputs(seed, chains, dtype=F32):
-    """chains x (xw ~ N(0, 1), W_hh ~ U(+-1/sqrt(H)), a cotangent ~ N(0.1, 1)), in `dtype`."""
+def _inputs(seed, chains, dtype=F32, hidden=H):
+    """chains x (xw ~ N(0, 1), W_hh ~ U(+-1/sqrt(H)), a cotangent ~ N(0.1, 1)), in `dtype`,
+    at hidden size `hidden`."""
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(chains):
-        xw = rng.standard_normal((B, T, 4 * H)).astype(np.float32)
-        w = rng.uniform(-H ** -0.5, H ** -0.5, (H, 4 * H)).astype(np.float32)
-        g = (rng.standard_normal((B, T, H)) + 0.1).astype(np.float32)
+        xw = rng.standard_normal((B, T, 4 * hidden)).astype(np.float32)
+        w = rng.uniform(-hidden ** -0.5, hidden ** -0.5, (hidden, 4 * hidden)).astype(np.float32)
+        g = (rng.standard_normal((B, T, hidden)) + 0.1).astype(np.float32)
         out.append(tuple(torch.from_numpy(a).to(dtype) for a in (xw, w, g)))
     return out
 
@@ -72,10 +78,13 @@ def test_pad_and_unpad_go_gate_block_by_gate_block():
         assert not t[..., H:].any()
 
 
+@WIDTHS
 @DTYPES
 @CHAINS
-def test_the_padded_plain_forward_is_the_unpadded_one(dtype, chains):
-    inputs = _inputs(1 + chains, chains, dtype)
+def test_the_padded_plain_forward_is_the_unpadded_one(hidden, width, dtype, chains):
+    H, WIDTH = hidden, width
+    assert ls.cluster_width(H) == WIDTH
+    inputs = _inputs(1 + chains, chains, dtype, H)
     for xw, w, _ in inputs:
         hs_ref, cs_ref = ls.lstm_forward_reference(xw, w)
         hs_p, cs_p = ls.lstm_forward_reference(*ls.pad_chain(xw, w, WIDTH))
@@ -96,10 +105,12 @@ def test_the_padded_plain_forward_is_the_unpadded_one(dtype, chains):
                 1e-6 * float(ref.float().abs().max()) if dtype == F32 else 1e-2)
 
 
+@WIDTHS
 @DTYPES
 @CHAINS
-def test_the_padded_plain_backward_is_the_unpadded_one(dtype, chains):
-    for xw, w, g in _inputs(3 + chains, chains, dtype):
+def test_the_padded_plain_backward_is_the_unpadded_one(hidden, width, dtype, chains):
+    H, WIDTH = hidden, width
+    for xw, w, g in _inputs(3 + chains, chains, dtype, H):
         hs, cs = ls.lstm_forward_reference(xw, w)
         d_xw_ref, d_w_ref = ls.lstm_scan_bwd_reference(xw, w, hs, cs, g)
         d_xw_p, d_w_p = ls.lstm_scan_bwd_reference(

@@ -188,8 +188,11 @@ def test_cli_matches_jax_cli(monkeypatch, corpus, tmp_path, kind):
     jseen = _record_estimates(monkeypatch, jtester.Evaluater)
     seen = _record_estimates(monkeypatch, Evaluater)
     jtable = jcli.main(["--musdb18_root", corpus, "--model_path", jpath, *CLI_FLAGS])
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)  # PyTorch's default
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
     table, stats = cli.run(["--musdb18_root", corpus, "--model_path", path, "--device", "cpu",
                             "--out_dir", str(tmp_path / "out"), *CLI_FLAGS])
+    assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
     assert len(seen) == len(jseen) == 2
     for got, ref in zip(seen, jseen):
         assert got.shape == ref.shape == (4, int(TRACK_SEC * SR), 2)

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from dnn_based_source_separation_torch.cli import test_musdb18 as test_cli
 from dnn_based_source_separation_torch.cli import train_musdb18 as cli
 from dnn_based_source_separation_torch.criterion import MonoTargetAdapter, MSELoss, NegSISDR
 from dnn_based_source_separation_torch.data.synthetic import write_musdb_quality_corpus
@@ -34,7 +35,7 @@ from dnn_based_source_separation_torch.models import (
     ConvTasNet, MetaTasNet, MonoWaveAdapter, MultiResolutionCrossNet, WaveChannelAdapter,
     WaveNet,
 )
-from dnn_based_source_separation_torch.models.base import load_model, read_checkpoint
+from dnn_based_source_separation_torch.models.base import load_model, read_checkpoint, save_model
 from dnn_based_source_separation_tpu.hub.torch_convert import convert_mrx
 from dnn_based_source_separation_tpu.models import conv_tasnet as jconv
 from dnn_based_source_separation_tpu.models import meta_tasnet as jmeta
@@ -269,6 +270,19 @@ def test_cli_trains_the_waveform_models(corpus, tmp_path, model):
     args = cli.build_parser().parse_args(argv + ["--criterion", "mae"])
     _, override = cli.build_model_and_criterion(args, list(SOURCES), "cpu")
     assert isinstance(override, MonoTargetAdapter) == (model == "meta-tasnet")
+
+
+@pytest.mark.parametrize("model", list(CLI_FLAGS))
+def test_the_musdb18_test_cli_refuses_waveform_checkpoints(corpus, tmp_path, model):
+    # cli/test_musdb18.py evaluates spectrogram models only, as JAX's (which fails on these
+    # at `model.n_fft` or `model.base.sources`): it refuses each, saying so.
+    args = cli.build_parser().parse_args(["--musdb18_root", corpus, "--model", model,
+                                          *CLI_FLAGS[model]])
+    path = str(tmp_path / f"{model}.ckpt")
+    save_model(path, cli.build_model_and_criterion(args, list(SOURCES), "cpu")[0])
+    with pytest.raises(ValueError, match="evaluates spectrogram models only"):
+        test_cli.run(["--musdb18_root", corpus, "--model_path", path, "--device", "cpu",
+                      "--sample_rate", str(SR)])
 
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent

@@ -45,6 +45,7 @@ from dnn_based_source_separation_torch.models import (
 )
 from dnn_based_source_separation_torch.models.base import read_checkpoint
 from dnn_based_source_separation_torch.models.umx import TransformBlock1d
+from dnn_based_source_separation_torch.ops.norms import flax_batch_norm
 from dnn_based_source_separation_torch.ops.rnn import GRU, LSTM, set_dropout_generator
 from dnn_based_source_separation_torch.ops.windows import build_window
 from dnn_based_source_separation_torch.train import make_optimizer, make_train_step
@@ -141,6 +142,36 @@ def test_batch_norm_train_matches_flax_batch_stats():
     x = rng.standard_normal((2, 9, 12)).astype(np.float32)
     _close(block.eval()(torch.from_numpy(x)).detach().numpy(),
            jblock.apply(variables, jnp.asarray(x)), 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.bfloat16],
+                         ids=["f64", "f32", "bf16"])
+def test_flax_batch_norm_computes_in_the_inputs_precision(dtype):
+    # f64 input: f64 statistics (chip_smoke's f64 reference steps); f32 and bf16 as before,
+    # in f32. A mean of 1e3 over a spread of 1 loses digits to E[x^2] - E[x]^2 in f32.
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((3, 4, 50)) + 1e3).to(dtype)
+    norm, kept = (torch.nn.BatchNorm1d(4, dtype=torch.promote_types(dtype, torch.float32))
+                  for _ in range(2))
+    for n in (norm, kept):
+        with torch.no_grad():
+            n.weight.copy_(torch.linspace(0.5, 2.0, 4))
+            n.bias.copy_(torch.linspace(-1.0, 1.0, 4))
+    got = flax_batch_norm(x, norm, dim=1).detach()
+    assert got.dtype == dtype
+    in_f32 = flax_batch_norm(x, kept, dim=1, dtype=torch.float32).detach()
+    xd = x.double()
+    mean, var = xd.mean(dim=(0, 2)), xd.var(dim=(0, 2), unbiased=False)
+    want = ((xd - mean[:, None]) / torch.sqrt(var[:, None] + norm.eps)
+            * norm.weight.detach().double()[:, None] + norm.bias.detach().double()[:, None])
+    if dtype == torch.float64:
+        assert float((got - want).abs().max()) < 1e-9
+        assert float((in_f32.double() - want).abs().max()) > 1e-4  # what f32 statistics lose
+        assert float((norm.running_var - 0.9 - 0.1 * var).abs().max()) < 1e-9
+    else:
+        assert torch.equal(got, in_f32)  # unchanged: f32 statistics
+        assert torch.equal(norm.running_mean, kept.running_mean)
+        assert torch.equal(norm.running_var, kept.running_var)
 
 
 def test_batch_norm_train_gradient_flows_through_the_batch_statistics():
@@ -434,8 +465,11 @@ def _cli_args(corpus, tmp_path, model, *extra):
 
 
 @pytest.mark.parametrize("model", ["umx", "xumx"])
-def test_cli_trains_one_epoch_and_writes_last_ckpt(corpus, tmp_path, model):
+def test_cli_trains_one_epoch_and_writes_last_ckpt(corpus, tmp_path, model, monkeypatch):
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)  # PyTorch's default
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
     trainer = cli.main(_cli_args(corpus, tmp_path, model))
+    assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
     last = tmp_path / f"exp_{model}" / "model" / "last.ckpt"
     assert os.path.exists(last)
     assert np.isfinite(trainer.train_loss[0]) and np.isfinite(trainer.valid_loss[0])

@@ -85,9 +85,10 @@ def test_other_calls_take_the_fma_kernel_with_its_tile(wrapper, B, n_chains, H, 
     # The FMA kernel's rule, unchanged: groups = min(4, 256 / (H / 2)) of R
     # sequences a block, the largest R in 4, 2, 1 that gives every SM a block.
     # (H = 384 and 512 past CLUSTER_MAX_BATCH sequences: the cluster kernel's
-    # calls are in the tests below; H = 256 many sequences take the wide kernel.)
+    # calls are in the tests below; H = 256 and 384 many sequences take the wide
+    # kernel where the card holds it: here it holds none.)
     assert wrapper._plan(B, n_chains, H, dtype, SMS, clusters=_clusters(H),
-                         routes=wrapper.ROUTES, wide=_wide(H, dtype)) == ("fma", R)
+                         routes=wrapper.ROUTES, wide=_wide(H, dtype, {})) == ("fma", R)
     groups = min(4, 256 // (H // 2))
     assert _blocks(B, n_chains, groups * R) >= SMS or R == 1
     if R < 4:
@@ -222,7 +223,7 @@ def test_the_crossover_batch_goes_back_to_fma(wrapper, n_chains, H):
     at, past = (wrapper._plan(b, n_chains, H, F32, SMS, clusters=_clusters(H),
                               routes=wrapper.ROUTES, wide=_wide(H, F32)) for b in (B, B + 1))
     if wrapper is ls and H == ls.WIDE_HIDDEN:  # H = 256: the wide kernel on both sides
-        assert B >= ls.WIDE_MIN_BATCH[(F32, n_chains)]
+        assert B >= ls.WIDE_MIN_BATCH[256][(F32, n_chains)]
         assert at[0] == past[0] == "wide"
         return
     assert past == _fma(B + 1, n_chains, H)
@@ -252,10 +253,11 @@ def test_the_cluster_path_can_be_forced_past_the_crossover(B, n_chains, H, C):
 
 @pytest.mark.parametrize("H,dtype,clusters", [
     (128, F32, BIG_CLUSTERS), (128, BF16, BIG_CLUSTERS), (64, F32, BIG_CLUSTERS),
-    (40, F32, BIG_CLUSTERS), (320, F32, BIG_CLUSTERS), (512, F32, {8: 15}),
+    (40, F32, BIG_CLUSTERS), (320, F32, {8: 15}), (512, F32, {8: 15}),
     (256, F32, None), (256, F32, {8: 0, 16: 0}),
 ], ids=["H=128", "H=128-bf16", "H=64", "H=40", "H=320", "H=512-no-16", "unasked", "zero"])
 def test_forcing_the_cluster_path_where_it_cannot_run_raises(H, dtype, clusters):
+    # H = 320 runs zero-padded to 384, which takes 16-block clusters alone.
     with pytest.raises(ValueError):
         ls._plan(1, 2, H, dtype, SMS, "cluster", clusters, ls.ROUTES)
 
@@ -419,10 +421,11 @@ def test_the_cluster_backward_can_be_forced_past_the_crossover(B, n_chains, H, C
 
 @pytest.mark.parametrize("H,dtype,clusters", [
     (128, F32, BWD_BIG_CLUSTERS), (128, BF16, BWD_BIG_CLUSTERS), (40, F32, BWD_BIG_CLUSTERS),
-    (320, F32, BWD_BIG_CLUSTERS), (512, F32, {8: 15}), (256, F32, None),
+    (320, F32, {8: 15}), (512, F32, {8: 15}), (256, F32, None),
     (256, F32, {8: 0, 16: 0}),
 ], ids=["H=128", "H=128-bf16", "H=40", "H=320", "H=512-no-16", "unasked", "zero"])
 def test_forcing_the_cluster_backward_where_it_cannot_run_raises(H, dtype, clusters):
+    # H = 320 runs zero-padded to 384, which takes 16-block clusters alone.
     with pytest.raises(ValueError):
         ls._plan_bwd(16, 2, H, dtype, SMS, "cluster", clusters, ls.ROUTES)
 
@@ -439,12 +442,13 @@ def test_forcing_the_cluster_backward_from_the_gru_wrapper_raises(dtype):
     (256, F32, None, ls.ROUTES, True), (512, BF16, None, ls.ROUTES, True),
     (384, F32, "cluster", ls.ROUTES, True), (256, F32, None, gs.ROUTES, False),
     (256, F32, "fma", ls.ROUTES, False), (40, F32, None, ls.ROUTES, False),
-    (320, F32, None, ls.ROUTES, False), (128, F32, None, gs.ROUTES, True),
+    (320, F32, None, ls.ROUTES, True), (128, F32, None, gs.ROUTES, True),
     (128, BF16, None, ls.ROUTES, True), (40, BF16, None, ls.ROUTES, False),
 ], ids=["umx-train", "H=512-bf16", "forced", "gru", "forced-fma", "H=40", "H=320",
         "tf32x3", "tf32x2", "H=40-bf16"])
 def test_the_backward_asks_the_card_for_clusters_only_where_a_cluster_kernel_may_run(
         H, dtype, path, routes, want):
+    # H = 320 runs zero-padded to 384 since the H = 300 routes.
     assert ls._needs_clusters(H, dtype, path, backward=True, routes=routes) is want
 
 
@@ -511,7 +515,7 @@ def test_the_wide_tile_at_an_h100s_counts(dtype, B, n_chains, tile):
 @DTYPES
 @pytest.mark.parametrize("n_chains", [1, 2])
 def test_the_wide_crossover_with_the_cluster_kernel(dtype, n_chains):
-    B = ls.WIDE_MIN_BATCH[(dtype, n_chains)]
+    B = ls.WIDE_MIN_BATCH[256][(dtype, n_chains)]
     assert 1 < B <= ls.CLUSTER_MAX_BATCH + 1  # B = 1 (musdb18 serving) keeps "cluster"
     below, at = (ls._plan(b, n_chains, 256, dtype, SMS, clusters=_clusters(256),
                           routes=ls.ROUTES, wide=_wide(256, dtype)) for b in (B - 1, B))
@@ -551,10 +555,11 @@ def test_the_wide_path_can_be_forced_for_timing(B, dtype):
 
 @pytest.mark.parametrize("H,dtype,wide", [
     (128, F32, _wide(256, F32)), (512, F32, _wide(256, F32)), (512, BF16, _wide(256, BF16)),
-    (384, F32, _wide(256, F32)), (256, F32, None), (256, BF16, _wide(256, BF16, {})),
+    (384, F32, _wide(256, F32, {8: 15})), (256, F32, None), (256, BF16, _wide(256, BF16, {})),
     (256, torch.float16, _wide(256, F32)),
 ], ids=["H=128", "H=512", "H=512-bf16", "H=384", "unasked", "zero", "f16"])
 def test_forcing_the_wide_path_where_it_cannot_run_raises(H, dtype, wide):
+    # H = 384 takes 16-block clusters in f32 alone: counts of 8-block ones do not do.
     with pytest.raises(ValueError):
         ls._plan(1000, 2, H, dtype, SMS, "wide", None, ls.ROUTES, wide)
 
@@ -576,7 +581,7 @@ def test_the_gru_never_takes_the_wide_kernel():
     (256, F32, None, ls.ROUTES, True), (256, BF16, None, ls.ROUTES, True),
     (256, F32, "wide", ls.ROUTES, True), (256, F32, "cluster", ls.ROUTES, False),
     (256, F32, "fma", ls.ROUTES, False), (256, F32, None, gs.ROUTES, False),
-    (512, F32, None, ls.ROUTES, False), (384, BF16, None, ls.ROUTES, False),
+    (512, F32, None, ls.ROUTES, False), (384, BF16, None, ls.ROUTES, True),
     (128, F32, None, ls.ROUTES, False), (128, BF16, None, ls.ROUTES, False),
     (256, torch.float16, None, ls.ROUTES, False),
 ], ids=["f32", "bf16", "forced", "forced-cluster", "forced-fma", "gru", "H=512", "H=384",
@@ -640,14 +645,14 @@ def test_dptnets_training_shapes_take_the_wide_backward(dtype, B, n_chains, tile
 @DTYPES
 def test_musdb18_training_keeps_the_cluster_backward(dtype):
     # UMX / X-UMX training, B = 16 x 6 s, two chains: 32 sequences a launch.
-    assert 16 < ls.WIDE_MIN_BATCH_BWD[(dtype, 2)]
+    assert 16 < ls.WIDE_MIN_BATCH_BWD[256][(dtype, 2)]
     assert _plan_bwd_h256(16, 2, dtype) == ("cluster", (1, 8))
 
 
 @DTYPES
 @pytest.mark.parametrize("n_chains", [1, 2])
 def test_the_wide_backward_crossover_with_the_cluster_backward(dtype, n_chains):
-    B = ls.WIDE_MIN_BATCH_BWD[(dtype, n_chains)]
+    B = ls.WIDE_MIN_BATCH_BWD[256][(dtype, n_chains)]
     assert 1 < B <= ls.CLUSTER_MAX_BATCH_BWD + 1  # B = 1 keeps "cluster"
     below, at = (_plan_bwd_h256(b, n_chains, dtype)[0] for b in (B - 1, B))
     assert below == "cluster" and at == "wide"
@@ -678,10 +683,11 @@ def test_the_wide_backward_can_be_forced_for_timing(B, dtype):
 
 @pytest.mark.parametrize("H,dtype,wide", [
     (128, F32, _wide_bwd(256, F32)), (512, F32, _wide_bwd(256, F32)),
-    (384, BF16, _wide_bwd(256, BF16)), (256, F32, None), (256, BF16, _wide_bwd(256, BF16, {})),
-    (256, torch.float16, _wide_bwd(256, F32)),
+    (384, BF16, _wide_bwd(256, BF16, {4: 30})), (256, F32, None),
+    (256, BF16, _wide_bwd(256, BF16, {})), (256, torch.float16, _wide_bwd(256, F32)),
 ], ids=["H=128", "H=512", "H=384", "unasked", "zero", "f16"])
 def test_forcing_the_wide_backward_where_it_cannot_run_raises(H, dtype, wide):
+    # H = 384 takes 8-block clusters in bf16 alone: counts of 4-block ones do not do.
     with pytest.raises(ValueError):
         ls._plan_bwd(1278, 2, H, dtype, SMS, "wide", None, ls.ROUTES, wide)
 
@@ -702,6 +708,9 @@ def test_other_h_and_the_gru_never_take_the_wide_backward(dtype, B, n_chains, H)
     for wrapper in (ls, gs) if H != 256 else (gs,):  # the LSTM's H = 256: the tests above
         got = wrapper._plan_bwd(B, n_chains, H, dtype, SMS, clusters=_bwd_clusters(H),
                                 routes=wrapper.ROUTES, wide=wide)
+        if wrapper is ls and H in ls.WIDE_HIDDENS:  # H = 384 (H = 300's width): it does
+            assert got[0] == "wide"
+            continue
         want = (ls._plan_bwd(B, n_chains, H, dtype, SMS, clusters=_bwd_clusters(H),
                              routes=ls.ROUTES) if wrapper is ls else _fma_bwd(B, n_chains, H))
         assert got == want and got[0] != "wide"  # the plan without wide counts
@@ -711,7 +720,7 @@ def test_other_h_and_the_gru_never_take_the_wide_backward(dtype, B, n_chains, H)
     (256, F32, None, ls.ROUTES, True), (256, BF16, None, ls.ROUTES, True),
     (256, F32, "wide", ls.ROUTES, True), (256, F32, "cluster", ls.ROUTES, False),
     (256, F32, "fma", ls.ROUTES, False), (256, F32, None, gs.ROUTES, False),
-    (512, F32, None, ls.ROUTES, False), (384, BF16, None, ls.ROUTES, False),
+    (512, F32, None, ls.ROUTES, False), (384, BF16, None, ls.ROUTES, True),
     (128, F32, None, ls.ROUTES, False), (128, BF16, None, ls.ROUTES, False),
     (256, torch.float16, None, ls.ROUTES, False),
 ], ids=["f32", "bf16", "forced", "forced-cluster", "forced-fma", "gru", "H=512", "H=384",
@@ -797,21 +806,122 @@ def test_the_gru_keeps_fma_at_h_500(dtype):
     assert gs._plan_bwd(4, 2, 500, dtype, SMS, clusters={16: 7}) == _fma_bwd(4, 2, 500)
 
 
-@pytest.mark.parametrize("H,forward,backward", [
-    (40, ("fma", 1), ("fma", 1)),
-    (256, ("cluster", (1, 8)), ("cluster", (1, 8))),
-    (300, ("fma", 1), ("fma", 1)),  # 256 < H < 384: not padded
-    (384, ("cluster", (1, 16)), ("cluster", (1, 16))),
-    (512, ("cluster", (1, 16)), ("cluster", (1, 16))),
+# DANet's, ADANet's and deep clustering's H = 300 (egs/wsj0-mix/{danet,adanet,
+# deep-clustering}): 256 < H < 384 off the multiples of 128, so the LSTM's cluster and wide
+# kernels take it zero-padded to 384, with their counts at 384 (16-block clusters: 7 on an
+# H100). Requests (B = 1, a 4 s utterance) take the cluster kernels; training's B = 64 the
+# route CLUSTER_MAX_BATCH_PADDED and WIDE_MIN_BATCH[384] (their backward's) give it.
+def _wide384(dtype, backward=False, by_c=WIDE_BY_C):
+    return (_wide_bwd if backward else _wide)(384, dtype, by_c)
+
+
+def _h300_route(B, dtype, backward=False):
+    """The route the constants give two chains of B sequences at H = 300."""
+    least = (ls.WIDE_MIN_BATCH_BWD if backward else ls.WIDE_MIN_BATCH)[384].get((dtype, 2))
+    if least is not None and B >= least:
+        return "wide"
+    limit = (ls.CLUSTER_MAX_BATCH_BWD_PADDED if backward else ls.CLUSTER_MAX_BATCH_PADDED)[384]
+    return "cluster" if B <= limit else "fma"
+
+
+@pytest.mark.parametrize("H", [257, 300, 320, 383])
+def test_every_h_between_256_and_384_pads_to_384(H):
+    assert ls.cluster_width(H) == ls.launch_width(H, "cluster") == ls.launch_width(H, "wide") == 384
+    assert ls.launch_width(H, "fma") == H
+    assert ls._plan(1, 2, H, F32, SMS, clusters={16: 7}, routes=ls.ROUTES,
+                    wide=_wide384(F32)) == ("cluster", (1, 16))
+
+
+@DTYPES
+def test_h_300_requests_take_the_padded_cluster_kernels(dtype):
+    assert ls._plan(1, 2, 300, dtype, SMS, clusters={16: 7}, routes=ls.ROUTES,
+                    wide=_wide384(dtype)) == ("cluster", (1, 16))
+    assert ls._plan_bwd(1, 2, 300, dtype, SMS, clusters={16: 7}, routes=ls.ROUTES,
+                        wide=_wide384(dtype, True)) == ("cluster", (1, 16))
+    assert ls.cluster_layout(384, 16, dtype) and ls.cluster_bwd_layout(384, 16, dtype)
+    assert not ls.cluster_layout(384, 8, dtype)  # 48 units a rank: 768 threads
+
+
+@DTYPES
+@pytest.mark.parametrize("backward", [False, True], ids=["forward", "backward"])
+@pytest.mark.parametrize("B", [1, 4, 16, 32, 64, 128])
+def test_h_300_training_takes_the_route_the_constants_give(dtype, backward, B):
+    plan = ls._plan_bwd if backward else ls._plan
+    got = plan(B, 2, 300, dtype, SMS, clusters={16: 7}, routes=ls.ROUTES,
+               wide=_wide384(dtype, backward))
+    want = _h300_route(B, dtype, backward)
+    assert got[0] == want
+    if want == "wide":  # a tile of 16 blocks in f32, 8 in bf16
+        assert got[1] in ls._wide_tiles(384, dtype, backward)
+        assert got[1][1] == (16 if dtype == F32 else 8)
+    elif want == "fma":
+        assert got == _fma(B, 2, 300)  # unpadded
+    # no plan pads the FMA kernel, and none pads past 384
+    assert ls.launch_width(300, got[0]) == (300 if got[0] == "fma" else 384)
+
+
+@DTYPES
+@pytest.mark.parametrize("backward", [False, True], ids=["forward", "backward"])
+def test_h_300_asks_for_the_counts_at_384(dtype, backward):
+    assert ls._needs_clusters(300, dtype, None, backward, ls.ROUTES)
+    assert ls._needs_wide(300, dtype, None, ls.ROUTES, backward)
+    assert not ls._needs_clusters(300, dtype, "fma", backward, ls.ROUTES)
+    assert not ls._needs_wide(300, dtype, "fma", ls.ROUTES, backward)
+    assert ls._wide_tiles(ls.cluster_width(300), dtype, backward)
+
+
+@DTYPES
+@pytest.mark.parametrize("B", [1, 64], ids=["request", "train"])
+def test_forcing_fma_at_h_300_runs_it_unpadded(dtype, B):
+    forward = ls._plan(B, 2, 300, dtype, SMS, "fma", {16: 7}, ls.ROUTES, _wide384(dtype))
+    backward = ls._plan_bwd(B, 2, 300, dtype, SMS, "fma", {16: 7}, ls.ROUTES,
+                            _wide384(dtype, True))
+    assert forward == _fma(B, 2, 300) and backward == _fma_bwd(B, 2, 300)
+    assert ls.launch_width(300, "fma") == 300
+
+
+@DTYPES
+@pytest.mark.parametrize("B", [1, 64, 128], ids=["request", "train", "B=128"])
+def test_h_300_without_16_block_clusters_takes_fma(dtype, B):
+    # bf16's wide tiles take 8 blocks: a card with no free 16-SM GPC still holds them.
+    no16 = {4: 30, 8: 15, 16: 0}
+    for backward in (False, True):
+        plan = ls._plan_bwd if backward else ls._plan
+        got = plan(B, 2, 300, dtype, SMS, clusters={16: 0}, routes=ls.ROUTES,
+                   wide=_wide384(dtype, backward, no16))
+        if dtype == BF16 and _h300_route(B, dtype, backward) == "wide":
+            assert got[0] == "wide" and got[1][1] == 8
+        else:
+            assert got == _fma(B, 2, 300)
+
+
+@DTYPES
+def test_the_gru_keeps_fma_at_h_300(dtype):
+    assert not ls._needs_clusters(300, dtype, None, routes=gs.ROUTES)
+    assert not ls._needs_wide(300, dtype, None, gs.ROUTES)
+    for B in (1, 64):
+        assert gs._plan(B, 2, 300, dtype, SMS, clusters={16: 7}, wide=_wide384(dtype)) == (
+            _fma(B, 2, 300))
+        assert gs._plan_bwd(B, 2, 300, dtype, SMS, clusters={16: 7}) == _fma_bwd(B, 2, 300)
+
+
+@pytest.mark.parametrize("H,width,forward,backward", [
+    (40, 40, ("fma", 1), ("fma", 1)),
+    (256, 256, ("cluster", (1, 8)), ("cluster", (1, 8))),
+    # 256 < H < 384: unpadded on the FMA kernel until the H = 300 routes, now at 384
+    (300, 384, ("cluster", (1, 16)), ("cluster", (1, 16))),
+    (384, 384, ("cluster", (1, 16)), ("cluster", (1, 16))),
+    (512, 512, ("cluster", (1, 16)), ("cluster", (1, 16))),
 ], ids=["H=40", "H=256", "H=300", "H=384", "H=512"])
-def test_other_widths_plan_unpadded_as_before(H, forward, backward):
+def test_other_widths_plan_unpadded_as_before(H, width, forward, backward):
     # LSTM-TasNet's serving (B = 8, two chains) and training (B = 4) shapes at other widths.
-    assert ls.cluster_width(H) == H
-    assert all(ls.launch_width(H, p) == H for p in ("fma", "cluster", "wide", "tf32x3"))
-    assert ls._plan(8, 2, H, F32, SMS, clusters=_clusters(H), routes=ls.ROUTES,
-                    wide=_wide(H, F32)) == forward
-    assert ls._plan_bwd(4, 2, H, F32, SMS, clusters=_bwd_clusters(H), routes=ls.ROUTES,
-                        wide=_wide_bwd(H, F32)) == backward
+    assert ls.cluster_width(H) == width
+    assert all(ls.launch_width(H, p) == (width if p in ("cluster", "wide") else H)
+               for p in ("fma", "cluster", "wide", "tf32x3"))
+    assert ls._plan(8, 2, H, F32, SMS, clusters=_clusters(width), routes=ls.ROUTES,
+                    wide=_wide(width, F32)) == forward
+    assert ls._plan_bwd(4, 2, H, F32, SMS, clusters=_bwd_clusters(width), routes=ls.ROUTES,
+                        wide=_wide_bwd(width, F32)) == backward
 
 
 # FurcaNet (egs/wsj0-mix/furcanet/train.sh: six biLSTM layers at H = 128 over every sample)

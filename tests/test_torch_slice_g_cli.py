@@ -49,10 +49,13 @@ def corpus(tmp_path_factory):
 
 
 @pytest.mark.parametrize("mask", ["ibm", "irm", "wfm", "psm"])
-def test_oracle_masks_cli_matches_jax(corpus, capsys, mask):
+def test_oracle_masks_cli_matches_jax(corpus, capsys, mask, monkeypatch):
     argv = ["--test_wav_root", str(corpus / "tt"), "--test_list_path", str(corpus / "tt.lst"),
             "--n_fft", "64", "--hop_length", "16", "--mask", mask]
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)  # PyTorch's default
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
     mean = oracle_cli.main(argv + ["--device", "cpu"])
+    assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
     got = dict(LINE.findall(capsys.readouterr().out))
     j_mean = joracle_cli.main(argv)
     want = dict(LINE.findall(capsys.readouterr().out))

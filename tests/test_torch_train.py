@@ -200,8 +200,12 @@ def _train_resume_serve(corpus, tmp_path, model_args):
 
 
 @pytest.mark.parametrize("model", list(CLI_MODELS))
-def test_cli_trains_resumes_and_serves(corpus, tmp_path, model):
+def test_cli_trains_resumes_and_serves(corpus, tmp_path, model, monkeypatch):
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)  # PyTorch's default
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
     _train_resume_serve(corpus, tmp_path, CLI_MODELS[model])
+    # The train and serve CLIs turned TF32 off (utils/device.py).
+    assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
 
 
 def test_cli_trains_resumes_and_serves_a_gru_dprnn_tasnet(corpus, tmp_path):

@@ -218,9 +218,12 @@ def _args(corpus, exp, *extra):
             "--exp_dir", str(exp), "--device", "cpu", *extra]
 
 
-def test_cli_trains_resumes_and_evaluates(corpus, tmp_path):
+def test_cli_trains_resumes_and_evaluates(corpus, tmp_path, monkeypatch):
     exp = tmp_path / "exp"
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)  # PyTorch's default
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
     trainer = ttrain.main(_args(corpus, exp, "--epochs", "2", "--reg_criterion", "entropy"))
+    assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
     assert isinstance(trainer, WaveSplitTrainer)
     assert trainer.model.spk_embedding.shape == (4, 8)  # the table's 4 speakers
     assert len(trainer.train_loss) == 2 and all(np.isfinite(trainer.train_loss

@@ -81,10 +81,42 @@ def test_tiles_the_kernel_does_not_take(dtype, M, C):
     assert ls.wide_bwd_layout(H, M, C, dtype) is None
 
 
+# H = 384 runs H = 300 zero-padded: 144 KB of W a rank leaves M = 16 at f32 C = 16 and bf16
+# C = 8; no other width takes the kernel.
+TILES_384 = {F32: [(16, 16)], BF16: [(16, 8)]}
+
+
 @pytest.mark.parametrize("hidden", [128, 192, 384, 512, 1024])
 def test_only_h_256_takes_the_wide_backward(hidden):
-    assert all(ls.wide_bwd_layout(hidden, m, c, d) is None for d, m, c in TILES)
-    assert ls._wide_tiles(hidden, F32, True) == ls._wide_tiles(hidden, BF16, True) == []
+    want = TILES_384 if hidden == 384 else {F32: [], BF16: []}
+    assert ls._wide_tiles(hidden, F32, True) == want[F32]
+    assert ls._wide_tiles(hidden, BF16, True) == want[BF16]
+    assert all(ls.wide_bwd_layout(hidden, m, c, d) is None for d, m, c in TILES
+               if (m, c) not in want[d])
+
+
+@pytest.mark.parametrize("dtype,M,C,smem,cell_tiles", [
+    (F32, 16, 16, 219408, 3), (BF16, 16, 8, 217360, 6),
+], ids=["f32-M=16-C=16", "bf16-M=16-C=8"])
+def test_the_h_384_tiles_layouts(dtype, M, C, smem, cell_tiles):
+    layout = ls.wide_bwd_layout(384, M, C, dtype)
+    units = 384 // C
+    assert layout["w_smem_bytes"] == 147456 and layout["units"] == units
+    assert layout["da_smem_bytes"] == 4 * M * (4 * units + 4)
+    assert layout["block_bytes"] == 4 * M * (units + 8) and layout["block_bytes"] % 16 == 0
+    assert layout["smem_bytes"] == smem <= SHARED_LIMIT
+    assert layout["cell_tiles"] == cell_tiles <= layout["warps"]
+    assert layout["n_tiles_per_warp"] == 6  # 48 output units a warp
+    everything = [(u, r) for u in range(384) for r in range(M)]
+    assert sorted(_cell_positions(M, C, hidden=384)) == everything
+    assert sorted(_product_outputs(M, hidden=384)) == everything
+
+
+@pytest.mark.parametrize("dtype,M,C", [(F32, 32, 16), (BF16, 32, 8), (F32, 16, 8),
+                                       (BF16, 16, 4)],
+                         ids=["f32-M=32", "bf16-M=32", "f32-C=8", "bf16-C=4"])
+def test_h_384_tiles_that_do_not_fit(dtype, M, C):
+    assert ls.wide_bwd_layout(384, M, C, dtype) is None
 
 
 @pytest.mark.parametrize("dtype,M,C,smem", [
@@ -95,11 +127,11 @@ def test_the_dptnet_tiles_layouts(dtype, M, C, smem):
     assert ls.wide_bwd_layout(H, M, C, dtype)["smem_bytes"] == smem
 
 
-def _cell_positions(M, C, warps=ls.WIDE_BWD_WARPS):
+def _cell_positions(M, C, warps=ls.WIDE_BWD_WARPS, hidden=H):
     """(unit, row) of every cell position of every thread: warp w < (M / 16) (H / 8C) runs
     cell tile (w / (H / 8C), w % (H / 8C)) of 16 rows x 8 units, a lane rows gid, gid + 8
     and units 2 tig, 2 tig + 1 of it."""
-    hu = H // C
+    hu = hidden // C
     for rank in range(C):
         for warp in range(min(warps, M // 16 * (hu // 8))):
             cm, cu = divmod(warp, hu // 8)
@@ -110,10 +142,10 @@ def _cell_positions(M, C, warps=ls.WIDE_BWD_WARPS):
                         yield rank * hu + 8 * cu + 2 * tig + e, 16 * cm + gid + 8 * h
 
 
-def _product_outputs(M, warps=ls.WIDE_BWD_WARPS):
+def _product_outputs(M, warps=ls.WIDE_BWD_WARPS, hidden=H):
     """(unit, row) of every C-fragment position of a rank's partial sum: warp w's n8 tiles
     NT w .. NT w + NT - 1 over every m16 tile."""
-    nt_per_warp = H // 8 // warps
+    nt_per_warp = hidden // 8 // warps
     for warp in range(warps):
         for n in range(nt_per_warp):
             for mt in range(M // 16):
@@ -278,12 +310,13 @@ def partitioned_lstm_bwd(gates, cs, g_hs, w, M, C, products):
     return das
 
 
-def _chain(rng, B, T, dtype=F32):
-    """xw ~ N(0, 0.25), W_hh ~ U(+-1/sqrt(H)), g ~ N(0, 1); in bf16 every array rounded to
-    bf16 and handed on as f32 (what the bf16 kernel reads, widened exactly)."""
-    xw = (0.5 * rng.standard_normal((B, T, 4 * H))).astype(np.float32)
-    w = rng.uniform(-H ** -0.5, H ** -0.5, (H, 4 * H)).astype(np.float32)
-    g = rng.standard_normal((B, T, H)).astype(np.float32)
+def _chain(rng, B, T, dtype=F32, hidden=H):
+    """xw ~ N(0, 0.25), W_hh ~ U(+-1/sqrt(H)), g ~ N(0, 1) at hidden size `hidden`; in bf16
+    every array rounded to bf16 and handed on as f32 (what the bf16 kernel reads, widened
+    exactly)."""
+    xw = (0.5 * rng.standard_normal((B, T, 4 * hidden))).astype(np.float32)
+    w = rng.uniform(-hidden ** -0.5, hidden ** -0.5, (hidden, 4 * hidden)).astype(np.float32)
+    g = rng.standard_normal((B, T, hidden)).astype(np.float32)
     xw, w, g = (torch.from_numpy(a).to(dtype).float() for a in (xw, w, g))
     hs, cs = ls.lstm_forward_reference(xw, w)
     hs, cs = hs.to(dtype).float(), cs.to(dtype).float()
@@ -313,6 +346,17 @@ def test_the_partitioned_step_is_the_plain_backward(dtype, M, C):
     want = ls.lstm_scan_bwd_reference(*chain)
     assert np.abs(want[0].numpy()).max() > 0.1
     for what, a, b in zip(("d_xw", "d_whh"), got, want):
+        _close(a, b.numpy(), what)
+
+
+@pytest.mark.parametrize("hidden,dtype", [(48, F32), (96, BF16)],
+                         ids=["24-units-f32", "48-units-bf16"])
+def test_the_partitioned_step_with_h_384s_unit_split_is_the_plain_backward(hidden, dtype):
+    # A rank's units as at H = 384 on two ranks: 24 (f32 at C = 16) and 48 (bf16 at C = 8),
+    # no power of two; M = 16, B = 21 leaves rows past B.
+    chain = _chain(np.random.default_rng(hidden), 21, 4, dtype, hidden)
+    got = _model_grads(chain, 16, 2, products=2 if dtype == BF16 else 3)
+    for what, a, b in zip(("d_xw", "d_whh"), got, ls.lstm_scan_bwd_reference(*chain)):
         _close(a, b.numpy(), what)
 
 

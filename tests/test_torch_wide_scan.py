@@ -1,7 +1,8 @@
 """The layout the wide kernel of the LSTM forward is launched with, and its step (CPU).
 
 `csrc/recurrence_wide.cuh` runs an M-row tile of independent sequences of one chain on a
-cluster of C blocks at H = 256: rank r owns hidden units [r H/C, (r+1) H/C) and their
+cluster of C blocks at H = 256, and at 384 (H = 300 zero-padded): rank r owns hidden units
+[r H/C, (r+1) H/C) and their
 four gate columns of W_hh, staged once into its shared memory in mma fragment order;
 warp (wm, wu) owns 8 units x 16 rows of each of its m16 tiles (one a warp; two in f32
 where the tile has two, and where one would pass WIDE_MAX_WARPS warps); h is written by every rank into every rank's
@@ -70,10 +71,41 @@ def test_tiles_the_kernel_does_not_take(dtype, M, C):
     assert ls.wide_layout(256, M, C, dtype) is None
 
 
+# H = 384 runs H = 300 zero-padded: 144 KB of W a rank leaves f32 (16, 16) and bf16 (16, 8)
+# and (32, 8); no other width takes the kernel.
+TILES_384 = {F32: [(16, 16)], BF16: [(16, 8), (32, 8)]}
+
+
 @pytest.mark.parametrize("H", [128, 192, 384, 512, 1024])
 def test_only_h_256_takes_the_wide_kernel(H):
-    assert all(ls.wide_layout(H, m, c, d) is None for d, m, c in TILES)
-    assert ls._wide_tiles(H, F32) == ls._wide_tiles(H, BF16) == []
+    want = TILES_384 if H == 384 else {F32: [], BF16: []}
+    assert ls._wide_tiles(H, F32) == want[F32] and ls._wide_tiles(H, BF16) == want[BF16]
+    assert all(ls.wide_layout(H, m, c, d) is None for d, m, c in TILES
+               if (m, c) not in want[d])
+
+
+@pytest.mark.parametrize("dtype,M,C,smem,warps,per_warp", [
+    (F32, 16, 16, 204816, 3, 1), (BF16, 16, 8, 176144, 6, 1), (BF16, 32, 8, 204816, 12, 1),
+], ids=["f32-M=16-C=16", "bf16-M=16-C=8", "bf16-M=32-C=8"])
+def test_the_h_384_tiles_layouts(dtype, M, C, smem, warps, per_warp):
+    layout = ls.wide_layout(384, M, C, dtype)
+    size = torch.tensor([], dtype=dtype).element_size()
+    assert layout["units"] == 384 // C
+    assert layout["w_smem_bytes"] == 384 * 4 * (384 // C) * size == 147456
+    assert layout["h_smem_bytes"] == 2 * C * M * ((384 // C) * size + 16)
+    assert layout["smem_bytes"] == smem <= SHARED_LIMIT
+    assert (layout["warps"], layout["tiles_per_warp"]) == (warps, per_warp)
+    # a k-step's columns lie in one rank's block: H / C a multiple of k (16 bf16, 8 f32)
+    assert layout["units"] % (16 if dtype == BF16 else 8) == 0
+    assert sorted(_owned(384, M, C, ls.WIDE_MAX_WARPS, pair=dtype == F32)) == [
+        (u, r) for u in range(384) for r in range(M)]
+
+
+@pytest.mark.parametrize("dtype,M,C", [
+    (F32, 16, 8), (F32, 32, 16), (F32, 64, 16), (BF16, 16, 4), (BF16, 64, 8),
+], ids=["f32-C=8", "f32-M=32", "f32-M=64", "bf16-C=4", "bf16-M=64"])
+def test_h_384_tiles_that_do_not_fit(dtype, M, C):
+    assert ls.wide_layout(384, M, C, dtype) is None
 
 
 @pytest.mark.parametrize("dtype,M,C,smem", [
@@ -215,6 +247,20 @@ def test_the_partitioned_step_is_the_plain_recurrence(M, C, kk, max_warps):
     xw = 0.5 * rng.standard_normal((B, T, 4 * H))
     w = rng.uniform(-H ** -0.5, H ** -0.5, (H, 4 * H))
     got = partitioned_lstm(xw, w, M, C, kk, max_warps)
+    want = ls.lstm_scan_reference(torch.from_numpy(xw), torch.from_numpy(w)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("H,C,M,kk", [(48, 2, 16, 8), (96, 2, 32, 16)],
+                         ids=["24-units-k8", "48-units-k16"])
+def test_the_partitioned_step_with_h_384s_unit_split_is_the_plain_recurrence(H, C, M, kk):
+    # A rank's units as at H = 384: 24 (f32, C = 16: three warps over units) and 48 (bf16,
+    # C = 8: six), no power of two; B = 21 leaves rows past B.
+    B, T = 21, 4
+    rng = np.random.default_rng(H + kk)
+    xw = 0.5 * rng.standard_normal((B, T, 4 * H))
+    w = rng.uniform(-H ** -0.5, H ** -0.5, (H, 4 * H))
+    got = partitioned_lstm(xw, w, M, C, kk, ls.WIDE_MAX_WARPS)
     want = ls.lstm_scan_reference(torch.from_numpy(xw), torch.from_numpy(w)).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
 
